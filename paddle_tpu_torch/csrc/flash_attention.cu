@@ -1,0 +1,514 @@
+// Flash attention, forward and backward, for Hopper (sm_90a). bf16 or
+// fp32 in and out, fp32 arithmetic throughout.
+//
+// Replaces the TPU kernel paddle_tpu/ops/pallas_kernels.py
+// `flash_attention` (:120) -> `flash_attention_portable` (:156) ->
+// `_flash_fwd` (:162, pl.pallas_call :191, body `_fwd_kernel` :58), and
+// its backward `_flash_bwd_rule` (:212; on a TPU jax's library Pallas
+// backward, :131-150). On the training path of the Fluid-API Transformer
+// LM it runs once per layer forward and once per layer backward.
+//
+// What it computes, per (batch b, head h): O = softmax(Q K^T * scale) V
+// over q [Tq, 64] and k, v [Tk, 64], keys at positions >= Tk masked and,
+// when causal (Tq == Tk), keys after the query's position masked. The
+// forward also writes the row log-sum-exp of the scaled scores (fp32
+// [B, H, Tq]); the backward rebuilds P from it.
+//
+// Design. The TPU kernel walks a grid (B*H, q blocks, kv blocks) whose
+// innermost, sequential dimension carries the online-softmax state in VMEM
+// scratch. CUDA blocks run in parallel and in no order, so the kv walk
+// becomes a loop inside one block per (b*h, 64-row q tile). Tiles of 64
+// rows are staged in shared memory as fp32 with a row stride of 65 floats,
+// so every product below reads shared memory without bank conflicts; each
+// of the 128 threads owns a 4 x 8 piece of every 64 x 64 product and keeps
+// it in registers. The forward keeps the running max m, sum l and the O
+// accumulator of its 4 rows in registers; P is written to shared memory
+// only to be multiplied with V. Causal blocks stop at the diagonal tile;
+// the diagonal tile and the ragged kv tail are masked with -inf, and a row
+// whose keys are all masked so far uses 0 as its max, so no NaN can arise
+// (such a row ends with l = 0, O = 0 and lse = +inf, for which the
+// backward's P is exactly 0).
+//
+// The backward is three kernels: delta = rowsum(dO * O) (one warp a row);
+// dK/dV, one block per (b*h, kv tile) walking the q tiles from the
+// diagonal on, recomputing S = Q K^T and dP = dO V^T, P = exp(S*scale -
+// lse) and dS = P (dP - delta), and accumulating dV += P^T dO and dK +=
+// dS^T Q in registers; dQ, one block per (b*h, q tile) walking the kv
+// tiles up to the diagonal, accumulating dQ += dS K. dQ is computed in its
+// own pass (S and dP a second time) rather than with atomics, so the
+// result does not depend on the order blocks run in.
+//
+// Bound. At the flagship shape (B 160, H 8, T 512, Dh 64, bf16) the
+// forward's causal products are 43 GFLOP against 336 MB of Q, K, V and O:
+// on the tensor cores' bf16 rate the bytes bound it (0.100 ms at 3.35
+// TB/s). This first kernel multiplies on the fp32 SIMT units (67 TFLOP/s,
+// so at least 0.64 ms), keeping P in fp32 as the TPU kernel does; the
+// tensor-core version (mma/wgmma with P rounded to bf16, TMA loads) is
+// later work.
+//
+// Interface: plain C functions (bound with ctypes), launched on the
+// caller's stream, allocating nothing; each returns cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kDh = 64;                  // head dim (the wrapper checks)
+constexpr int kTile = 64;                // q and kv rows per tile
+constexpr int kLd = kDh + 1;             // shared row stride, in floats
+constexpr int kTileFloats = kTile * kLd;
+constexpr int kThreads = 128;
+
+struct Strides {  // element strides of one [B, H, T, Dh] tensor
+  long long b, h, t;
+};
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Rows [row0, row0 + 64) of one (b, h) slice into shared memory as fp32;
+// rows at or past n are zero.
+template <typename T>
+__device__ __forceinline__ void load_tile(float* s, const T* g,
+                                          long long st, int row0, int n) {
+  for (int i = threadIdx.x; i < kTile * kDh; i += kThreads) {
+    const int r = i / kDh, d = i % kDh, row = row0 + r;
+    s[r * kLd + d] = row < n ? to_f(g[(long long)row * st + d]) : 0.f;
+  }
+}
+
+// acc[i][j] += sum_k A(4*ty + i, k) * B(tx + 8*j, k), k < 64, where
+// A(r, k) = a[r * sar + k * sak] and B(c, k) = b[c * sbc + k * sbk].
+__device__ __forceinline__ void tile_product(float (&acc)[4][8],
+                                             const float* a, int sar,
+                                             int sak, const float* b,
+                                             int sbc, int sbk, int ty,
+                                             int tx) {
+#pragma unroll 4
+  for (int k = 0; k < kTile; ++k) {
+    float av[4], bv[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = a[(4 * ty + i) * sar + k * sak];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) bv[j] = b[(tx + 8 * j) * sbc + k * sbk];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+__device__ __forceinline__ void zero(float (&acc)[4][8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+}
+
+// reduce over the 8 lanes (tx) that share a row
+__device__ __forceinline__ float row_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+}
+__device__ __forceinline__ float row_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v + __shfl_xor_sync(0xffffffffu, v, 4);
+}
+
+__device__ __forceinline__ bool visible(int row, int col, int Tq, int Tk,
+                                        int causal) {
+  return row < Tq && col < Tk && (!causal || col <= row);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int H, int Tq, int Tk, Strides sq,
+                 Strides sk, Strides sv, Strides so, float scale,
+                 int causal) {
+  extern __shared__ float smem[];
+  float* q_s = smem;
+  float* k_s = q_s + kTileFloats;
+  float* v_s = k_s + kTileFloats;
+  float* p_s = v_s + kTileFloats;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.y * kTile;
+  const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
+  const T* qg = q + b * sq.b + h * sq.h;
+  const T* kg = k + b * sk.b + h * sk.h;
+  const T* vg = v + b * sv.b + h * sv.h;
+  load_tile(q_s, qg, sq.t, q0, Tq);
+
+  float m[4], l[4], acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
+  zero(acc);
+  int n_kt = (Tk + kTile - 1) / kTile;
+  if (causal) n_kt = min(n_kt, (int)blockIdx.y + 1);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();  // the previous tile's P.V is done with k_s, v_s, p_s
+    load_tile(k_s, kg, sk.t, k0, Tk);
+    load_tile(v_s, vg, sv.t, k0, Tk);
+    __syncthreads();
+    float s[4][8];
+    zero(s);
+    tile_product(s, q_s, kLd, 1, k_s, kLd, 1, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + 4 * ty + i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[i][j] = visible(row, k0 + tx + 8 * j, Tq, Tk, causal)
+                      ? s[i][j] * scale
+                      : -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = expf(m[i] - m_use);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[i][j] = expf(s[i][j] - m_use);
+        sum += s[i][j];
+        acc[i][j] *= alpha;
+      }
+      l[i] = l[i] * alpha + row_sum(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) p_s[(4 * ty + i) * kLd + tx + 8 * j] = s[i][j];
+    }
+    __syncthreads();
+    tile_product(acc, p_s, kLd, 1, v_s, 1, kLd, ty, tx);  // acc += P V
+  }
+
+  T* og = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    if (row >= Tq) continue;
+    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      og[(long long)row * so.t + tx + 8 * j] = from_f<T>(acc[i][j] * inv);
+    if (tx == 0)
+      lse[(long long)bh * Tq + row] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
+  }
+}
+
+// delta[b, h, t] = sum_d dO * O, one warp a row
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_delta_kernel(const T* __restrict__ o, const T* __restrict__ d_o,
+                   float* __restrict__ delta, int H, int Tq, long long rows,
+                   Strides so, Strides sdo) {
+  const long long row = (long long)blockIdx.x * (kThreads / 32)
+                        + threadIdx.x / 32;
+  if (row >= rows) return;
+  const int lane = threadIdx.x % 32;
+  const long long bh = row / Tq;
+  const int t = row % Tq, b = bh / H, h = bh % H;
+  const T* op = o + b * so.b + h * so.h + t * so.t;
+  const T* dp = d_o + b * sdo.b + h * sdo.h + t * sdo.t;
+  float acc = to_f(op[lane]) * to_f(dp[lane])
+              + to_f(op[lane + 32]) * to_f(dp[lane + 32]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[row] = acc;
+}
+
+// S = Q K^T and dP = dO V^T for one (q tile, kv tile) pair, then P and
+// dS = P (dP - delta) into p_s (if given) and ds_s, both [q row][kv col].
+__device__ __forceinline__ void p_and_ds(const float* q_s, const float* do_s,
+                                         const float* k_s, const float* v_s,
+                                         const float* lse_s,
+                                         const float* delta_s, float* p_s,
+                                         float* ds_s, int q0, int k0, int Tq,
+                                         int Tk, float scale, int causal,
+                                         int ty, int tx) {
+  float s[4][8], dp[4][8];
+  zero(s);
+  zero(dp);
+  tile_product(s, q_s, kLd, 1, k_s, kLd, 1, ty, tx);
+  tile_product(dp, do_s, kLd, 1, v_s, kLd, 1, ty, tx);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 4 * ty + i;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = tx + 8 * j;
+      const float p = visible(q0 + r, k0 + c, Tq, Tk, causal)
+                          ? expf(s[i][j] * scale - lse_s[r])
+                          : 0.f;
+      if (p_s) p_s[r * kLd + c] = p;
+      ds_s[r * kLd + c] = p * (dp[i][j] - delta_s[r]);
+    }
+  }
+}
+
+// lse and delta of q rows [q0, q0 + 64) into shared memory
+__device__ __forceinline__ void load_rows(float* lse_s, float* delta_s,
+                                          const float* lse,
+                                          const float* delta, long long bh,
+                                          int q0, int Tq) {
+  if (threadIdx.x < kTile) {
+    const int row = q0 + threadIdx.x;
+    lse_s[threadIdx.x] = row < Tq ? lse[bh * Tq + row] : INFINITY;
+    delta_s[threadIdx.x] = row < Tq ? delta[bh * Tq + row] : 0.f;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ d_o,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, T* __restrict__ dk,
+                  T* __restrict__ dv, int H, int Tq, int Tk, Strides sq,
+                  Strides sk, Strides sv, Strides sdo, Strides sdk,
+                  Strides sdv, float scale, int causal) {
+  extern __shared__ float smem[];
+  float* k_s = smem;
+  float* v_s = k_s + kTileFloats;
+  float* q_s = v_s + kTileFloats;
+  float* do_s = q_s + kTileFloats;
+  float* p_s = do_s + kTileFloats;
+  float* ds_s = p_s + kTileFloats;
+  float* lse_s = ds_s + kTileFloats;
+  float* delta_s = lse_s + kTile;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * kTile;
+  const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
+  const T* qg = q + b * sq.b + h * sq.h;
+  const T* dog = d_o + b * sdo.b + h * sdo.h;
+  load_tile(k_s, k + b * sk.b + h * sk.h, sk.t, k0, Tk);
+  load_tile(v_s, v + b * sv.b + h * sv.h, sv.t, k0, Tk);
+
+  float dk_acc[4][8], dv_acc[4][8];  // rows: kv 4*ty + i; cols: d
+  zero(dk_acc);
+  zero(dv_acc);
+  const int n_qt = (Tq + kTile - 1) / kTile;
+  for (int qt = causal ? (int)blockIdx.y : 0; qt < n_qt; ++qt) {
+    const int q0 = qt * kTile;
+    __syncthreads();  // the previous q tile's products are done
+    load_tile(q_s, qg, sq.t, q0, Tq);
+    load_tile(do_s, dog, sdo.t, q0, Tq);
+    load_rows(lse_s, delta_s, lse, delta, bh, q0, Tq);
+    __syncthreads();
+    p_and_ds(q_s, do_s, k_s, v_s, lse_s, delta_s, p_s, ds_s, q0, k0, Tq, Tk,
+             scale, causal, ty, tx);
+    __syncthreads();
+    tile_product(dv_acc, p_s, 1, kLd, do_s, 1, kLd, ty, tx);   // P^T dO
+    tile_product(dk_acc, ds_s, 1, kLd, q_s, 1, kLd, ty, tx);   // dS^T Q
+  }
+
+  T* dkg = dk + b * sdk.b + h * sdk.h;
+  T* dvg = dv + b * sdv.b + h * sdv.h;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = k0 + 4 * ty + i;
+    if (row >= Tk) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int d = tx + 8 * j;
+      dkg[(long long)row * sdk.t + d] = from_f<T>(dk_acc[i][j] * scale);
+      dvg[(long long)row * sdv.t + d] = from_f<T>(dv_acc[i][j]);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ d_o,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, T* __restrict__ dq, int H,
+                int Tq, int Tk, Strides sq, Strides sk, Strides sv,
+                Strides sdo, Strides sdq, float scale, int causal) {
+  extern __shared__ float smem[];
+  float* q_s = smem;
+  float* do_s = q_s + kTileFloats;
+  float* k_s = do_s + kTileFloats;
+  float* v_s = k_s + kTileFloats;
+  float* ds_s = v_s + kTileFloats;
+  float* lse_s = ds_s + kTileFloats;
+  float* delta_s = lse_s + kTile;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.y * kTile;
+  const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
+  const T* kg = k + b * sk.b + h * sk.h;
+  const T* vg = v + b * sv.b + h * sv.h;
+  load_tile(q_s, q + b * sq.b + h * sq.h, sq.t, q0, Tq);
+  load_tile(do_s, d_o + b * sdo.b + h * sdo.h, sdo.t, q0, Tq);
+  load_rows(lse_s, delta_s, lse, delta, bh, q0, Tq);
+
+  float dq_acc[4][8];  // rows: q 4*ty + i; cols: d
+  zero(dq_acc);
+  int n_kt = (Tk + kTile - 1) / kTile;
+  if (causal) n_kt = min(n_kt, (int)blockIdx.y + 1);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();  // the previous kv tile's dS K is done
+    load_tile(k_s, kg, sk.t, k0, Tk);
+    load_tile(v_s, vg, sv.t, k0, Tk);
+    __syncthreads();
+    p_and_ds(q_s, do_s, k_s, v_s, lse_s, delta_s, nullptr, ds_s, q0, k0, Tq,
+             Tk, scale, causal, ty, tx);
+    __syncthreads();
+    tile_product(dq_acc, ds_s, kLd, 1, k_s, 1, kLd, ty, tx);   // dS K
+  }
+
+  T* dqg = dq + b * sdq.b + h * sdq.h;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    if (row >= Tq) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      dqg[(long long)row * sdq.t + tx + 8 * j] =
+          from_f<T>(dq_acc[i][j] * scale);
+  }
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+Strides strides_of(const long long* s, int i) {
+  return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
+}
+
+template <typename T>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
+                       void* lse, int B, int H, int Tq, int Tk,
+                       const long long* st, float scale, int causal,
+                       cudaStream_t stream) {
+  const size_t smem = 4 * kTileFloats * sizeof(float);
+  cudaError_t err = allow_smem(flash_fwd_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Tq + kTile - 1) / kTile);
+  flash_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+      H, Tq, Tk, strides_of(st, 0), strides_of(st, 1), strides_of(st, 2),
+      strides_of(st, 3), scale, causal);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* o, const void* d_o, const void* lse,
+                       void* delta, void* dq, void* dk, void* dv, int B,
+                       int H, int Tq, int Tk, const long long* st,
+                       float scale, int causal, cudaStream_t stream) {
+  // strides: q 0, k 1, v 2, o 3, do 4, dq 5, dk 6, dv 7
+  const long long rows = (long long)B * H * Tq;
+  const int warps = kThreads / 32;
+  flash_delta_kernel<T><<<(unsigned)((rows + warps - 1) / warps), kThreads,
+                          0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(d_o),
+      static_cast<float*>(delta), H, Tq, rows, strides_of(st, 3),
+      strides_of(st, 4));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const size_t smem_kv = (6 * kTileFloats + 2 * kTile) * sizeof(float);
+  err = allow_smem(flash_dkdv_kernel<T>, smem_kv);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_kv(B * H, (Tk + kTile - 1) / kTile);
+  flash_dkdv_kernel<T><<<grid_kv, kThreads, smem_kv, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(d_o),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), H, Tq, Tk,
+      strides_of(st, 0), strides_of(st, 1), strides_of(st, 2),
+      strides_of(st, 4), strides_of(st, 6), strides_of(st, 7), scale,
+      causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const size_t smem_q = (5 * kTileFloats + 2 * kTile) * sizeof(float);
+  err = allow_smem(flash_dq_kernel<T>, smem_q);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_q(B * H, (Tq + kTile - 1) / kTile);
+  flash_dq_kernel<T><<<grid_q, kThreads, smem_q, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(d_o),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dq), H, Tq, Tk, strides_of(st, 0), strides_of(st, 1),
+      strides_of(st, 2), strides_of(st, 4), strides_of(st, 5), scale,
+      causal);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q [B, H, Tq, 64], k/v [B, H, Tk, 64], o like q: any strides with a unit
+// head-dim stride, given as `strides` = [b, h, t] element strides of q, k,
+// v, o (12 values, host memory). lse [B, H, Tq] fp32 contiguous. dtype 0
+// is fp32, 1 is bf16. Causal needs Tq == Tk (the wrapper checks).
+extern "C" int ptpu_flash_attention_fwd(const void* q, const void* k,
+                                        const void* v, void* o, void* lse,
+                                        int dtype, int B, int H, int Tq,
+                                        int Tk, int Dh,
+                                        const long long* strides,
+                                        float scale, int causal,
+                                        void* stream) {
+  if (Dh != kDh) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_fwd<float>(q, k, v, o, lse, B, H, Tq, Tk, strides, scale,
+                             causal, s);
+  if (dtype == 1)
+    return launch_fwd<__nv_bfloat16>(q, k, v, o, lse, B, H, Tq, Tk, strides,
+                                     scale, causal, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward: dq/dk/dv like q/k/v (their own strides), from q, k, v, o,
+// do and the forward's lse; delta is fp32 [B, H, Tq] scratch. `strides`
+// holds 24 values: q, k, v, o, do, dq, dk, dv.
+extern "C" int ptpu_flash_attention_bwd(const void* q, const void* k,
+                                        const void* v, const void* o,
+                                        const void* d_o, const void* lse,
+                                        void* delta, void* dq, void* dk,
+                                        void* dv, int dtype, int B, int H,
+                                        int Tq, int Tk, int Dh,
+                                        const long long* strides,
+                                        float scale, int causal,
+                                        void* stream) {
+  if (Dh != kDh) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_bwd<float>(q, k, v, o, d_o, lse, delta, dq, dk, dv, B, H,
+                             Tq, Tk, strides, scale, causal, s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(q, k, v, o, d_o, lse, delta, dq, dk,
+                                     dv, B, H, Tq, Tk, strides, scale,
+                                     causal, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -1,0 +1,49 @@
+"""Tensor layers (parity: python/paddle/fluid/layers/tensor.py)."""
+
+from ..framework import convert_dtype
+from ..layer_helper import LayerHelper
+
+__all__ = ["create_parameter", "cast", "sums", "fill_constant"]
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    from ..param_attr import ParamAttr
+
+    helper = LayerHelper("create_parameter", **locals())
+    attr = attr or ParamAttr(name=name)
+    return helper.create_parameter(attr, shape, dtype, is_bias,
+                                   default_initializer)
+
+
+def cast(x, dtype):
+    helper = LayerHelper("cast", **locals())
+    dtype = convert_dtype(dtype)
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op(type="cast", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"in_dtype": x.dtype, "out_dtype": dtype})
+    out.shape = x.shape
+    return out
+
+
+def sums(input, out=None):
+    helper = LayerHelper("sum", **locals())
+    if out is None:
+        out = helper.create_variable_for_type_inference(
+            dtype=helper.input_dtype())
+    helper.append_op(type="sum", inputs={"X": input}, outputs={"Out": [out]})
+    out.shape = input[0].shape
+    return out
+
+
+def fill_constant(shape, dtype, value, force_cpu=False, out=None):
+    helper = LayerHelper("fill_constant")
+    dtype = convert_dtype(dtype)
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op(type="fill_constant", outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "dtype": dtype,
+                            "value": float(value)})
+    out.shape = tuple(shape)
+    out.stop_gradient = True
+    return out

@@ -1,0 +1,67 @@
+"""Composite layers (parity: the JAX package's ``nets.py``): the fused
+self-attention sublayer of the Fluid-API Transformer LM."""
+
+import copy
+
+from .layer_helper import LayerHelper
+from .param_attr import ParamAttr
+
+__all__ = ["fused_multihead_attention"]
+
+
+def fused_multihead_attention(input, num_heads, causal=False,
+                              param_attr=None, bias_attr=None,
+                              out_param_attr=None, out_bias_attr=None,
+                              name=None):
+    """The whole self-attention sublayer (q/k/v/out projections and flash
+    attention) as ONE graph op. Per-head projection weights [D, H, Dh]
+    keep heads as real dimensions, so q/k/v come out as [B, T, H, Dh] and
+    the attention kernel reads them through strides.
+
+    input [B, T, D] -> [B, T, D]."""
+    d = input.shape[-1]
+    if d % num_heads:
+        raise ValueError("num_heads %d must divide the hidden size %d"
+                         % (num_heads, d))
+    dh = d // num_heads
+    helper = LayerHelper("fused_multihead_attention", **locals())
+    base = name or helper.name
+
+    def _p(suffix, shape, template, shard_spec, is_bias=False):
+        """A user-given name becomes a prefix: the four weights cannot
+        share one name."""
+        if template is False:
+            if not is_bias:
+                raise ValueError(
+                    "fused_multihead_attention projection weights cannot "
+                    "be disabled (param_attr/out_param_attr=False); use "
+                    "bias_attr/out_bias_attr=False to drop the biases")
+            return None
+        attr = copy.deepcopy(ParamAttr._to_attr(template))
+        attr.name = ("%s_%s" % (attr.name, suffix) if attr.name
+                     else "%s_%s" % (base, suffix))
+        if attr.shard_spec is None:
+            attr.shard_spec = shard_spec
+        return helper.create_parameter(attr=attr, shape=shape,
+                                       dtype=input.dtype, is_bias=is_bias)
+
+    inputs = {"X": [input]}
+    for nm in ("q", "k", "v"):
+        inputs["W" + nm.upper()] = [_p("w" + nm, [d, num_heads, dh],
+                                       param_attr, (None, "tp", None))]
+        b = _p("b" + nm, [num_heads, dh], bias_attr, ("tp", None),
+               is_bias=True)
+        if b is not None:
+            inputs["B" + nm.upper()] = [b]
+    inputs["WO"] = [_p("wo", [num_heads, dh, d], out_param_attr,
+                       ("tp", None, None))]
+    bo = _p("bo", [d], out_bias_attr, (None,), is_bias=True)
+    if bo is not None:
+        inputs["BO"] = [bo]
+
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="fused_multihead_attention", inputs=inputs,
+                     outputs={"Out": [out]},
+                     attrs={"causal": bool(causal), "sm_scale": dh ** -0.5})
+    out.shape = input.shape
+    return out

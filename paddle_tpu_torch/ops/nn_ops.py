@@ -1,0 +1,138 @@
+"""Tensor and NN ops of the LM path (parity: the JAX package's
+``ops/tensor_ops.py`` reshape2 :13 / slice :148, ``ops/nn_ops.py``
+lookup_table :53 / layer_norm :78 / add_position_encoding :275, and
+``ops/loss_ops.py`` softmax_with_cross_entropy :90)."""
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .registry import register
+
+
+@register("reshape2")
+def _reshape2(ctx, ins, attrs):
+    x = ins["X"][0]
+    # Fluid reshape: 0 copies the input dim, -1 is inferred
+    shape = [x.shape[i] if s == 0 else s
+             for i, s in enumerate(attrs["shape"])]
+    return {"Out": [x.reshape(shape)],
+            "XShape": [x.new_zeros((0,) + tuple(x.shape))]}
+
+
+@register("slice")
+def _slice(ctx, ins, attrs):
+    x = ins["Input"][0]
+    idx = [slice(None)] * x.ndim
+    for ax, st, en in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
+        d = x.shape[ax]
+        st = max(st + d, 0) if st < 0 else min(st, d)
+        en = max(en + d, 0) if en < 0 else min(en, d)
+        idx[ax] = slice(st, en)
+    return {"Out": [x[tuple(idx)]]}
+
+
+@register("lookup_table", nondiff_inputs=("Ids",))
+def _lookup_table(ctx, ins, attrs):
+    w, ids = ins["W"][0], ins["Ids"][0]
+    if ids.ndim and ids.shape[-1] == 1:  # Fluid ids carry a trailing 1
+        ids = ids.reshape(ids.shape[:-1])
+    out = F.embedding(ids.long(), w)
+    padding_idx = attrs.get("padding_idx", -1)
+    if padding_idx is not None and padding_idx >= 0:
+        out = out * (ids != padding_idx)[..., None].to(out.dtype)
+    return {"Out": [out]}
+
+
+@register("layer_norm")
+def _layer_norm(ctx, ins, attrs):
+    """fp32 statistics, output in the input's dtype (the stream dtype)."""
+    x = ins["X"][0]
+    begin = attrs.get("begin_norm_axis", 1)
+    eps = attrs.get("epsilon", 1e-5)
+    feat = tuple(x.shape[begin:])
+    scale = ins["Scale"][0].reshape(feat).float() if ins.get("Scale") \
+        else None
+    bias = ins["Bias"][0].reshape(feat).float() if ins.get("Bias") else None
+    y, mean, rstd = torch.native_layer_norm(x.float(), feat, scale, bias,
+                                            eps)
+    # Variance as the JAX op returns it, re-derived from 1/sqrt(var+eps)
+    var = rstd.detach().pow(-2) - eps
+    return {"Y": [y.to(x.dtype)], "Mean": [mean.detach().reshape(-1)],
+            "Variance": [var.reshape(-1)]}
+
+
+@functools.lru_cache(maxsize=8)
+def _position_table(t, d, dtype, device):
+    pos = np.arange(t)[:, None]
+    i = np.arange(d // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * i / d)
+    pe = np.concatenate([np.sin(angle), np.cos(angle)], axis=1)
+    # float64 -> float32 -> dtype, the rounding path of jnp.asarray
+    return torch.from_numpy(pe.astype(np.float32)).to(device=device,
+                                                      dtype=dtype)
+
+
+@register("add_position_encoding")
+def _add_position_encoding(ctx, ins, attrs):
+    x = ins["X"][0]  # [B, T, D]
+    alpha = attrs.get("alpha", 1.0)
+    beta = attrs.get("beta", 1.0)
+    pe = _position_table(x.shape[1], x.shape[2], x.dtype, x.device)
+    # multiplying by 1 changes no value: skip those passes
+    ax = x if alpha == 1 else alpha * x
+    return {"Out": [ax + (pe if beta == 1 else beta * pe)]}
+
+
+class _HardLabelCE(torch.autograd.Function):
+    """Per-position CE over the last axis with the JAX op's lean backward
+    (loss_ops.py `_hard_label_ce`): the residual is the logits
+    themselves, the backward recomputes the softmax from them, and the
+    logits' grad is formed in the logits' dtype."""
+
+    @staticmethod
+    def forward(ctx, logits, lab, ignore_index):
+        ignored = (lab == ignore_index)[..., None]
+        # an ignored label may lie outside the vocab (-100): pick class 0
+        # for it, the mask zeroes its loss and its grad
+        idx = torch.where(ignored, torch.zeros_like(lab[..., None]),
+                          lab[..., None])
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        picked = logp.gather(-1, idx)
+        loss = torch.where(ignored, torch.zeros_like(picked), -picked)
+        ctx.save_for_backward(logits, idx, ignored)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, idx, ignored = ctx.saved_tensors
+        xf = logits.to(torch.float32, copy=True)
+        xf.sub_(torch.logsumexp(xf, dim=-1, keepdim=True)).exp_()
+        d = xf.to(logits.dtype)
+        del xf
+        d.scatter_(-1, idx, d.gather(-1, idx) - 1)   # softmax - one_hot
+        gv = torch.where(ignored, torch.zeros_like(g), g)
+        d.mul_(gv.to(d.dtype))
+        return d, None, None
+
+
+@register("softmax_with_cross_entropy", nondiff_inputs=("Label",))
+def _softmax_with_cross_entropy(ctx, ins, attrs):
+    logits, label = ins["Logits"][0], ins["Label"][0]
+    axis = attrs.get("axis", -1)
+    if attrs.get("soft_label", False) or axis not in (-1, logits.ndim - 1):
+        raise NotImplementedError(
+            "softmax_with_cross_entropy: the PyTorch port has the hard-"
+            "label, last-axis form only")
+    lab = label
+    if lab.ndim and lab.shape[-1] == 1:
+        lab = lab.reshape(lab.shape[:-1])
+    # the loss stays fp32 for bf16 logits (AMP black-list semantics)
+    loss = _HardLabelCE.apply(logits, lab.long(),
+                              attrs.get("ignore_index", -100))
+    if not attrs.get("__need_softmax__", True):
+        return {"Loss": [loss]}
+    softmax = torch.softmax(logits.float(), dim=-1).to(logits.dtype)
+    return {"Softmax": [softmax], "Loss": [loss]}

@@ -1,0 +1,57 @@
+"""ParamAttr (parity: python/paddle/fluid/param_attr.py)."""
+
+from .initializer import Initializer
+
+__all__ = ["ParamAttr"]
+
+
+class ParamAttr:
+    def __init__(
+        self,
+        name=None,
+        initializer=None,
+        learning_rate=1.0,
+        regularizer=None,
+        trainable=True,
+        gradient_clip=None,
+        do_model_average=False,
+        shard_spec=None,
+    ):
+        self.name = name
+        self.initializer = initializer
+        self.learning_rate = learning_rate
+        self.regularizer = regularizer
+        self.trainable = trainable
+        self.gradient_clip = gradient_clip
+        self.do_model_average = do_model_average
+        # partition dims over a device mesh, e.g. (None, "tp"); kept so a
+        # program states the same plan as the JAX package's (the port has
+        # no mesh yet, so nothing reads it)
+        self.shard_spec = shard_spec
+
+    @staticmethod
+    def _to_attr(arg):
+        if arg is None:
+            return ParamAttr()
+        if isinstance(arg, (list, tuple)):
+            return [ParamAttr._to_attr(a) for a in arg]
+        if isinstance(arg, ParamAttr):
+            return arg
+        if isinstance(arg, str):
+            return ParamAttr(name=arg)
+        if isinstance(arg, Initializer):
+            return ParamAttr(initializer=arg)
+        if isinstance(arg, bool):
+            return ParamAttr() if arg else ParamAttr(trainable=False)
+        raise TypeError("cannot interpret %r as ParamAttr" % (arg,))
+
+    def _to_kwargs(self):
+        return {
+            "name": self.name,
+            "optimize_attr": {"learning_rate": self.learning_rate},
+            "regularizer": self.regularizer,
+            "trainable": self.trainable,
+            "gradient_clip_attr": self.gradient_clip,
+            "do_model_average": self.do_model_average,
+            "shard_spec": self.shard_spec,
+        }

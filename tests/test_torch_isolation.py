@@ -16,12 +16,36 @@ CFG = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=2, d_ff=64,
            max_seq_len=64)
 
 
+def _port_modules():
+    """Every module of the port, by its dotted name."""
+    root = os.path.join(REPO, "paddle_tpu_torch")
+    names = []
+    for dirpath, _dirs, files in os.walk(root):
+        for f in sorted(files):
+            if not f.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(dirpath, f), REPO)[:-3]
+            parts = rel.split(os.sep)
+            if parts[-1] == "__init__":
+                parts = parts[:-1]
+            names.append(".".join(parts))
+    return sorted(names)
+
+
 def test_import_pulls_in_no_jax():
-    """In a fresh interpreter (this one has jax loaded by conftest)."""
-    code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving\n"
+    """In a fresh interpreter (this one has jax loaded by conftest),
+    importing every module of the port loads no jax and nothing of the
+    JAX package."""
+    mods = _port_modules()
+    assert {"paddle_tpu_torch.executor", "paddle_tpu_torch.core.lowering",
+            "paddle_tpu_torch.ops.flash_attention",
+            "paddle_tpu_torch.models.transformer_fluid",
+            "paddle_tpu_torch.contrib.mixed_precision.decorator"} <= set(mods)
+    code = ("import importlib, sys\n"
+            "for m in %r: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m in ('jax', 'paddle_tpu')\n"
             "       or m.startswith(('jax.', 'paddle_tpu.'))]\n"
-            "assert not bad, bad\n")
+            "assert not bad, bad\n" % (mods,))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -90,3 +114,25 @@ def test_entry_points_refuse_to_run_without_cuda():
     assert pa.paged_attention.launches == launches
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+def test_training_entry_points_refuse_to_run_without_cuda():
+    """`Executor()` with no place is cuda:0 and raises without CUDA; the
+    flash-attention kernels raise on CPU tensors (the plain version is
+    reached only through `flash_attention` on the CPU)."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the no-CUDA path; this machine has a card")
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fluid.Executor()
+    assert fluid.Executor("cpu").device == torch.device("cpu")
+    q = torch.zeros(1, 1, 128, 64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fa.flash_attention_fwd(q, q, q, True, 0.125)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fa.flash_attention_bwd(q, q, q, q, torch.zeros(1, 1, 128), q, True,
+                               0.125)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fa.load()
