@@ -15,7 +15,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      card at the serving path's shapes, and time kernel, plain version,
      the least time the card could take (bound) and one PyTorch library
      call computing the same function (a yardstick the port never
-     calls).
+     calls): paged attention (K2) at C=1 (decode) and C=7 (the linear
+     verify window), the tree-mask window (K3) at the tree leg's shape
+     (C=13) and on an edge matrix (width 1 against K2, null tails,
+     windows past the table, an inactive row, Dh 32/128, C=25 and 32).
   4. serving: the flagship decoder at full width (vocab 32000, d_model
      512, 8 heads, 6 layers, d_ff 2048, max_seq_len 512; random weights
      from seed 0) served by ``ServingEngine`` on cuda:0 for 64 open-loop
@@ -25,6 +28,16 @@ Phases, each fatal on failure (exit code 1, no result line):
      kernels (paged attention: once per layer per decode step). A second
      stream of 32 requests then runs under torch.profiler (the card
      only) for the device's busy share and the kernels' time per step.
+  4b. speculative serving: the same decoder behind ``ServingEngine(
+     max_batch=8, block_size=16)`` on bench.py's speculative traffic (16
+     repetitive prompts, 48 new tokens each, all submitted at once) in
+     three legs — legacy (spec_k=0), linear (spec_k=6: K2 at C=7) and
+     tree (spec_tree="2x6": K3 at C=13). Every request of every leg must
+     be token-identical to ``reference_decode`` (a difference prints the
+     position and the reference's top-2 logit margin there), the pool
+     must drain clean, and the launch counts must show K2 at C=7 once a
+     layer a linear window and K3 once a layer a tree window. Then one
+     tree window under torch.profiler.
 
   5. flash attention kernels: K1's forward and backward CUDA kernels
      against the plain version's forward and autograd at the training
@@ -125,15 +138,27 @@ def time_ms(torch, fn, flush, iters=20):
     return total / iters
 
 
-def paged_inputs(torch, C, seed=0):
-    """The serving path's attention shapes at full width: B=32 rows,
-    H=8, Dh=64, block_size 16, 32 table slots (max_seq_len 512); ragged
-    positions up to 511, pages scattered over the pool, null tails."""
-    B, H, Dh, bs, Mb = 32, 8, 64, 16, 32
+# K2's timed shapes, each its main path's: (C, rows, window starts drawn
+# from [lo, hi), the first rows' starts). C=1 is the serving phase
+# (max_batch 32, positions up to 511: a full row, the first page, page
+# edges); C=7 the linear leg (max_batch 8, 12-token prompts and 48 new
+# tokens: a window starts at 12..58; the first and last start, one
+# crossing a page)
+PAGED_CASES = ((1, 32, 0, 512, (511, 0, 16, 17)),
+               (7, 8, 12, 59, (12, 58, 13)))
+
+
+def paged_inputs(torch, C, B, lo, hi, edges, seed=0):
+    """Attention inputs at the serving path's width: B rows, H=8, Dh=64,
+    block_size 16, 32 table slots (max_seq_len 512), a pool of B*32 + 1
+    pages; row b's window covers positions pos0[b] .. pos0[b] + C - 1,
+    pages scattered over the pool, null tails."""
+    H, Dh, bs, Mb = 8, 64, 16, 32
     rng = np.random.RandomState(seed)
-    last = rng.randint(C - 1, 512, size=B)
-    last[:4] = [511, C - 1, 15 + C, 16 + C]  # full row, first page, edges
-    pos = (last[:, None] - (C - 1) + np.arange(C)[None, :]).astype(np.int32)
+    pos0 = rng.randint(lo, hi, size=B)
+    pos0[:len(edges)] = edges
+    last = pos0 + C - 1
+    pos = (pos0[:, None] + np.arange(C)[None, :]).astype(np.int32)
     tables = np.zeros((B, Mb), np.int32)      # page 0: the null page
     perm = rng.permutation(B * Mb) + 1
     for b in range(B):
@@ -169,8 +194,8 @@ def kernel_phase(torch, pa_mod):
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     rows = []
-    for C in (1, 4):
-        k, v, q, tables, pos = paged_inputs(torch, C)
+    for C, B, lo, hi, edges in PAGED_CASES:
+        k, v, q, tables, pos = paged_inputs(torch, C, B, lo, hi, edges)
         got = pa_mod.paged_attention(k, v, q, tables, pos)
         want = pa_mod.paged_attention_reference(k, v, q, tables, pos)
         torch.cuda.synchronize()
@@ -180,7 +205,7 @@ def kernel_phase(torch, pa_mod):
         if err > ATOL:
             fail("paged_attention C=%d disagrees with its plain version: "
                  "max abs err %.3g > %g" % (C, err, ATOL))
-        B, _, H, Dh = q.shape
+        _, _, H, Dh = q.shape
         T = tables.shape[1] * k.shape[1]
         # library yardstick: SDPA over K/V gathered contiguous outside
         # the timed region, with the same visibility mask
@@ -206,19 +231,157 @@ def kernel_phase(torch, pa_mod):
             "name": "paged_attention", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/paged_attention.cu",
             "replaces": "paddle_tpu/ops/pallas_kernels.py:316",
-            "C": C, "shape": "B=32 H=8 Dh=64 bs=16 Mb=32 pos<=511 fp32",
+            "C": C, "shape": "B=%d H=8 Dh=64 bs=16 Mb=32 pool=%d pos %d..%d "
+                             "fp32" % (B, k.shape[0], int(pos.min()),
+                                       int(pos.max())),
             "max_abs_err": err, "max_err": err,
             "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
             "library": "F.scaled_dot_product_attention over K/V gathered "
                        "contiguous outside the timed region (yardstick)"})
-        print("kernel paged_attention C=%d: max_abs_err %.3g (limit %g), "
+        print("kernel paged_attention C=%d %s: max_abs_err %.3g (limit %g), "
               "%.4f ms (plain %.4f ms, library %.4f ms, bound %.4f ms by %s)"
-              % (C, err, ATOL, ms, plain_ms, library_ms, bound_ms, bound_by),
-              flush=True)
+              % (C, rows[-1]["shape"], err, ATOL, ms, plain_ms, library_ms,
+                 bound_ms, bound_by), flush=True)
         del k, v, q, k_ctx, v_ctx
     return rows
+
+
+def tree_inputs(torch, W, D, B, H, Dh, bs, Mb, seed, edges=()):
+    """A tree window's inputs on the card: pos0 drawn so the window fits
+    the table (positions up to Mb*bs - 1), the first rows set to
+    ``edges`` (a pos0 of 0 is an inactive row with an all-null table;
+    one past Mb*bs - C runs the window past the table), pages scattered
+    over the pool, null tails."""
+    from paddle_tpu_torch.serving import tree_topology
+
+    C = 1 + W * D
+    T = Mb * bs
+    rng = np.random.RandomState(seed)
+    pos0 = rng.randint(1, T - C + 1, size=B)
+    pos0[:len(edges)] = edges
+    tables = np.zeros((B, Mb), np.int32)      # page 0: the null page
+    perm = rng.permutation(B * Mb) + 1
+    for b in range(B):
+        if pos0[b]:
+            n = min((pos0[b] + C - 1) // bs + 1, Mb)
+            tables[b, :n] = perm[b * Mb:b * Mb + n]
+    pos = (pos0[:, None] + np.arange(C)[None, :]).astype(np.int32)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    k = torch.randn(B * Mb + 1, bs, H, Dh, device="cuda", generator=gen)
+    v = torch.randn(B * Mb + 1, bs, H, Dh, device="cuda", generator=gen)
+    q = torch.randn(B, C, H, Dh, device="cuda", generator=gen)
+    anc = torch.from_numpy(tree_topology(W, D)[2]).cuda()
+    return (k, v, q, torch.from_numpy(tables).cuda(),
+            torch.from_numpy(pos).cuda(), anc)
+
+
+def tree_mask(torch, pos, anc, T):
+    """[B, C, T] visibility of the tree window: t < pos0, or t - pos0 a
+    window slot that is the query's slot or one of its ancestors."""
+    C = anc.shape[0]
+    rel = (torch.arange(T, device=pos.device)[None, None, :]
+           - pos[:, :1, None].long())
+    in_win = (rel >= 0) & (rel < C)
+    anc_t = anc[torch.arange(C, device=pos.device)[None, :, None],
+                rel.clamp(0, C - 1)]
+    return (rel < 0) | (in_win & anc_t)
+
+
+def tree_check(torch, pat_mod, inputs, label):
+    got = pat_mod.paged_attention_tree(*inputs)
+    want = pat_mod.paged_attention_tree_reference(*inputs)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        fail("paged_attention_tree %s: non-finite output" % label)
+    err = float((got - want).abs().max())
+    if err > ATOL:
+        fail("paged_attention_tree %s disagrees with its plain version: "
+             "max abs err %.3g > %g" % (label, err, ATOL))
+    print("kernel paged_attention_tree %s: max_abs_err %.3g (limit %g)"
+          % (label, err, ATOL), flush=True)
+    return got, err
+
+
+# K3's edge matrix: (W, D, Dh, bs, edge rows' pos0)
+TREE_EDGES = ((1, 6, 64, 16, (0, 125, 1)), (2, 6, 32, 16, (0, 120, 16)),
+              (2, 6, 128, 16, (3, 127)), (3, 8, 64, 16, (0, 110, 5)),
+              (1, 31, 128, 16, (97, 1)), (4, 4, 64, 5, (0, 37, 10)))
+
+
+def tree_kernel_phase(torch, pa_mod, pat_mod):
+    """K3 against its plain version on the edge matrix (width 1 also
+    against K2) and at the tree leg's shape (B=8, C=13, H=8, Dh=64, bs
+    16, 32 table slots, positions up to 511), where it is timed."""
+    import torch.nn.functional as F
+
+    for W, D, Dh, bs, edges in TREE_EDGES:
+        inputs = tree_inputs(torch, W, D, B=6, H=4, Dh=Dh, bs=bs, Mb=8,
+                             seed=W * 100 + D, edges=edges)
+        got, _ = tree_check(torch, pat_mod, inputs,
+                            "%dx%d Dh=%d bs=%d C=%d" % (W, D, Dh, bs,
+                                                        1 + W * D))
+        if W == 1 and 1 + D <= pa_mod.MAX_WINDOW:
+            lin = pa_mod.paged_attention(*inputs[:5])
+            torch.cuda.synchronize()
+            err = float((got - lin).abs().max())
+            if err > ATOL:
+                fail("paged_attention_tree at width 1 disagrees with "
+                     "paged_attention: %.3g" % err)
+            print("kernel paged_attention_tree %dx%d vs paged_attention: "
+                  "max_abs_err %.3g" % (W, D, err), flush=True)
+    B, H, Dh, bs, Mb = 8, 8, 64, 16, 32
+    inputs = tree_inputs(torch, 2, 6, B, H, Dh, bs, Mb, seed=0,
+                         edges=(499, 1, 16, 243))
+    label = "2x6 B=8 H=8 Dh=64 bs=16 Mb=32 pos<=511 fp32"
+    _, err = tree_check(torch, pat_mod, inputs, label)
+    k, v, q, tables, pos, anc = inputs
+    T = Mb * bs
+    mask = tree_mask(torch, pos, anc, T)                 # [B, C, T]
+    # library yardstick: SDPA with the boolean tree mask over K/V
+    # gathered contiguous outside the timed region
+    tl = tables.long()
+    k_ctx = k[tl].reshape(B, T, H, Dh).transpose(1, 2).contiguous()
+    v_ctx = v[tl].reshape(B, T, H, Dh).transpose(1, 2).contiguous()
+    q_l = q.transpose(1, 2).contiguous()
+    lib_out = F.scaled_dot_product_attention(q_l, k_ctx, v_ctx,
+                                             attn_mask=mask[:, None])
+    want = pat_mod.paged_attention_tree_reference(*inputs)
+    lib_err = float((lib_out.transpose(1, 2) - want).abs().max())
+    if lib_err > ATOL:
+        fail("library yardstick (tree) disagrees: %.3g" % lib_err)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    ms = time_ms(torch, lambda: pat_mod.paged_attention_tree(*inputs),
+                 flush)
+    plain_ms = time_ms(torch, lambda: pat_mod.paged_attention_tree_reference(
+        *inputs), flush)
+    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q_l, k_ctx, v_ctx, attn_mask=mask[:, None]), flush)
+    # bound: K and V of every position some slot of the row sees, read
+    # once, q/tables/positions/anc read and the output written once;
+    # against QK and PV over the (b, c, t) pairs the mask lets through
+    row = H * Dh * 4
+    nbytes = (2 * int(mask.any(dim=1).sum()) * row + 2 * q.numel() * 4
+              + tables.numel() * 4 + pos.numel() * 4 + anc.numel())
+    flops = 4 * int(mask.sum()) * H * Dh
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOPS
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print("kernel paged_attention_tree %s: %.4f ms (plain %.4f ms, library "
+          "%.4f ms, bound %.4f ms by %s)" % (label, ms, plain_ms, library_ms,
+                                            bound_ms, bound_by), flush=True)
+    del k, v, q, k_ctx, v_ctx, inputs
+    return [{
+        "name": "paged_attention_tree", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/paged_attention_tree.cu",
+        "replaces": "paddle_tpu/ops/pallas_kernels.py:475",
+        "C": 13, "shape": label, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms,
+        "library": "F.scaled_dot_product_attention with the boolean tree "
+                   "mask over K/V gathered contiguous outside the timed "
+                   "region (yardstick)"}]
 
 
 def kernel_times(prof, steps, top=8):
@@ -287,7 +450,7 @@ def serving_phase(torch, pa_mod):
             fail("warm-up request returned %r" % (warm,))
         steps0 = engine.stats()["steps"]
         torch.cuda.synchronize()
-        pa_mod.paged_attention.launches = 0          # main path starts
+        pa_mod.paged_attention.window_launches.clear()   # main path starts
         t0 = time.perf_counter()
         accepted, rejected = loadgen.run(engine)
         errors = []
@@ -298,7 +461,7 @@ def serving_phase(torch, pa_mod):
                 errors.append("request %d: %r" % (r.id, e))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = pa_mod.paged_attention.launches   # main path ends
+        by_c = dict(pa_mod.paged_attention.window_launches)  # main path ends
         stats = engine.stats()
         profile = device_profile(torch, engine, cfg)
     if rejected:
@@ -320,9 +483,11 @@ def serving_phase(torch, pa_mod):
                          if a != b)
             fail("request %d differs from reference_decode at token %d: "
                  "%r vs %r" % (r.id, first, r.tokens, ref))
-    if launches < 1 or launches != cfg.n_layers * steps:
-        fail("paged_attention launched %d times over %d decode steps "
-             "(expected %d x %d)" % (launches, steps, cfg.n_layers, steps))
+    launches = by_c.get(1, 0)
+    if launches < 1 or by_c != {1: cfg.n_layers * steps}:
+        fail("paged_attention launched %r times by window over %d decode "
+             "steps (expected C=1: %d x %d)"
+             % (by_c, steps, cfg.n_layers, steps))
     tokens = sum(len(r.tokens) for r in accepted)
     lat = np.array([r.latency for r in accepted])
     summary = {
@@ -338,6 +503,198 @@ def serving_phase(torch, pa_mod):
     print("serving " + json.dumps(summary), flush=True)
     print("profile " + json.dumps(profile), flush=True)
     return launches
+
+
+# the speculative serving phase: the flagship decoder on bench.py's
+# speculative traffic (bench_serving_spec, bench.py:774-776)
+SPEC = dict(cfg=dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=6,
+                     d_ff=2048, max_seq_len=512),
+            max_batch=8, block_size=16, n_requests=16, pattern_len=4,
+            reps=3, max_new_tokens=48,
+            legs=(("legacy", {"spec_k": 0}), ("linear", {"spec_k": 6}),
+                  ("tree", {"spec_tree": "2x6"})))
+
+
+def spec_prompts(vocab_size):
+    """bench_serving_spec's generation set: RandomState(11), each prompt a
+    random ``pattern_len``-token pattern repeated ``reps`` times —
+    templated, repetitive traffic, what n-gram drafting serves."""
+    rng = np.random.RandomState(11)
+    return [rng.randint(0, vocab_size, size=SPEC["pattern_len"]).tolist()
+            * SPEC["reps"] for _ in range(SPEC["n_requests"])]
+
+
+def spec_serving_phase(torch, pa_mod, pat_mod, device=None):
+    """The three speculative legs on one model (device None: cuda:0;
+    the tests pass "cpu", where no kernel launches and none is counted).
+    Returns (model, {leg: summary})."""
+    from paddle_tpu_torch.serving import (GenerationConfig, GenerationModel,
+                                          reference_decode)
+
+    cfg = GenerationConfig(**SPEC["cfg"])
+    model = GenerationModel.random(cfg, seed=0, device=device)
+    prompts = spec_prompts(cfg.vocab_size)
+    t0 = time.perf_counter()
+    refs, margins = [], []
+    for p in prompts:
+        m = []
+        refs.append(reference_decode(model, p, SPEC["max_new_tokens"],
+                                     margins=m))
+        margins.append(m)
+    print("spec reference_decode: %d prompts x %d tokens in %.1f s, "
+          "smallest top-2 logit margin %.3g"
+          % (len(prompts), SPEC["max_new_tokens"], time.perf_counter() - t0,
+             min(min(m) for m in margins)), flush=True)
+    legs = {}
+    for name, kw in SPEC["legs"]:
+        legs[name] = spec_leg(torch, pa_mod, pat_mod, model, prompts, refs,
+                              margins, name, kw)
+    return model, legs
+
+
+def spec_leg(torch, pa_mod, pat_mod, model, prompts, refs, margins, name,
+             kw):
+    """One leg: every request submitted at once, each checked against
+    its reference, the drained pool audited and the launch counts held
+    to the steps the leg took."""
+    from paddle_tpu_torch.serving import ServingEngine
+
+    cfg = model.config
+    on_card = model.device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    with ServingEngine(model, max_batch=SPEC["max_batch"],
+                       max_seq_len=cfg.max_seq_len,
+                       block_size=SPEC["block_size"], device=model.device,
+                       **kw) as engine:
+        warm = engine.generate(prompts[0][:3], max_new_tokens=2, timeout=600)
+        if len(warm) != 2:
+            fail("spec %s: warm-up request returned %r" % (name, warm))
+        base = engine.stats()
+        sync()
+        pa_mod.paged_attention.window_launches.clear()   # main path starts
+        pat_mod.paged_attention_tree.launches = 0
+        t0 = time.perf_counter()
+        reqs = [engine.submit(p, max_new_tokens=SPEC["max_new_tokens"])
+                for p in prompts]
+        errors = []
+        for r in reqs:
+            try:
+                r.wait(900)
+            except Exception as e:  # every request's result is checked
+                errors.append("request %d: %r" % (r.id, e))
+        sync()
+        wall = time.perf_counter() - t0
+        k2 = dict(pa_mod.paged_attention.window_launches)
+        k3 = pat_mod.paged_attention_tree.launches      # main path ends
+        stats = engine.stats()
+    pool = engine._worker.pool
+    if errors:
+        fail("spec %s: %d requests ended with an error: %s"
+             % (name, len(errors), "; ".join(errors[:3])))
+    for i, (r, ref) in enumerate(zip(reqs, refs)):
+        if r.tokens != ref:
+            at = next((j for j, (a, b) in enumerate(zip(r.tokens, ref))
+                       if a != b), min(len(r.tokens), len(ref)))
+            fail("spec %s: request %d differs from reference_decode at "
+                 "generated token %d (got %r, reference %r; the reference's "
+                 "top-2 logit margin there is %.3g)"
+                 % (name, i, at, r.tokens[at:at + 1], ref[at:at + 1],
+                    margins[i][at] if at < len(margins[i]) else float("nan")))
+    problems = pool.check_invariants()
+    pst = pool.stats()
+    if problems or pst["blocks_in_use"] or pst["blocks_free"] != \
+            pst["blocks_total"]:
+        fail("spec %s: the pool did not drain clean: %r %r"
+             % (name, problems[:3], pst))
+    steps = stats["steps"] - base["steps"]
+    spec_steps = stats["spec_steps"] - base["spec_steps"]
+    tokens = sum(len(r.tokens) for r in reqs)
+    if stats["spec_k"] and spec_steps < 1:
+        fail("spec %s: no verify window ran" % name)
+    if stats["spec_tree"] and stats["spec_tree_slots"] == \
+            base["spec_tree_slots"]:
+        fail("spec %s: no tree slot was verified" % name)
+    if on_card:
+        # one launch a layer: K2 at C=1 each one-token step, K2 at C=k+1
+        # each linear window, K3 each tree window
+        L = cfg.n_layers
+        want_k2 = {1: L * (steps - spec_steps)}
+        want_k3 = L * spec_steps if stats["spec_tree"] else 0
+        if stats["spec_k"] and not stats["spec_tree"]:
+            want_k2[stats["spec_k"] + 1] = L * spec_steps
+        want_k2 = {c: n for c, n in want_k2.items() if n}
+        if k2 != want_k2 or k3 != want_k3:
+            fail("spec %s: over %d steps (%d verify windows) paged_attention "
+                 "launched %r times by window and paged_attention_tree %d; "
+                 "expected %r and %d"
+                 % (name, steps, spec_steps, k2, k3, want_k2, want_k3))
+    lat = np.array([r.latency for r in reqs])
+    summary = {
+        "leg": name, **kw,
+        "requests": len(reqs), "generated_tokens": tokens,
+        "reference_identical": len(reqs), "wall_s": wall,
+        "tokens_per_s": tokens / wall, "target_steps": steps,
+        "tokens_per_target_step": tokens / max(steps, 1),
+        "verify_windows": spec_steps,
+        "accept_rate": stats["spec_accept_rate"],
+        "tree_slots": stats["spec_tree_slots"] - base["spec_tree_slots"],
+        "tree_commits": stats["spec_tree_commits"]
+        - base["spec_tree_commits"],
+        "blocks_rolled_back": stats["spec_blocks_rolled_back"]
+        - base["spec_blocks_rolled_back"],
+        "latency_p50_s": float(np.percentile(lat, 50)),
+        "latency_p99_s": float(np.percentile(lat, 99)),
+        "paged_attention_launches_by_window": k2,
+        "paged_attention_tree_launches": k3}
+    print("spec_serving " + json.dumps(summary), flush=True)
+    return summary
+
+
+def spec_tree_profile(torch, model, tree=(2, 6)):
+    """Where the time of one tree verify window goes: ``spec_tree_step``
+    at the tree leg's shape (8 rows, C=13, positions 12..54, as the
+    spec traffic's rows sit) under torch.profiler, tracing the card
+    only: the host's wall time of the window, the device's busy time and
+    share, and the kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.serving import KVBlockPool, blocks_needed
+
+    cfg = model.config
+    B, bs = SPEC["max_batch"], SPEC["block_size"]
+    C = 1 + tree[0] * tree[1]
+    Mb = blocks_needed(cfg.max_seq_len, bs)
+    pool = KVBlockPool(cfg.n_layers, cfg.n_heads, cfg.head_dim, bs, B * Mb,
+                       device=model.device)
+    dev = model.device
+    rng = np.random.RandomState(3)
+    pos = torch.tensor(12 + 6 * np.arange(B), dtype=torch.int32, device=dev)
+    tables = torch.arange(1, B * Mb + 1, dtype=torch.int32,
+                          device=dev).view(B, Mb)
+    feed = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, C))
+                            .astype(np.int32)).to(dev)
+    ones = torch.ones(B, dtype=torch.bool, device=dev)
+    lengths = torch.full((B,), C, dtype=torch.int32, device=dev)
+    prev = torch.zeros(B, dtype=torch.int32, device=dev)
+
+    def window():
+        return model.spec_tree_step(pool.k, pool.v, feed, ones, prev, pos,
+                                    lengths, tables, ones, tree)
+
+    window()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = window()
+        out.cpu()
+        wall = time.perf_counter() - t0
+    busy_s, top = kernel_times(prof, 1, top=10)
+    report = {"window": "%dx%d" % tree, "rows": B, "C": C,
+              "wall_ms": wall * 1e3, "device_busy_ms": busy_s * 1e3,
+              "device_busy_share": busy_s / wall, "top_kernels": top}
+    print("spec_tree_profile " + json.dumps(report), flush=True)
+    del pool
+    return report
 
 
 def flash_inputs(torch, B, H, Tq, Tk, dtype, seed):
@@ -708,6 +1065,7 @@ def main():
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa_mod
     from paddle_tpu_torch.ops import paged_attention as pa_mod
+    from paddle_tpu_torch.ops import paged_attention_tree as pat_mod
 
     t0 = time.perf_counter()
     paths = _build.build()
@@ -720,19 +1078,27 @@ def main():
                     print("  %s: %s" % (name, line.strip()))
 
     rows = kernel_phase(torch, pa_mod)
+    tree_rows = tree_kernel_phase(torch, pa_mod, pat_mod)
     flash_rows = flash_phase(torch, fa_mod)
     launches = serving_phase(torch, pa_mod)
-    # the serving path decodes one token per step: it launches the C=1
-    # shape only, and the C=4 row (the later spec_window shape) none
+    spec_model, legs = spec_serving_phase(torch, pa_mod, pat_mod)
+    spec_tree_profile(torch, spec_model)
+    del spec_model
+    # each row's launches are its own main path's: the serving phase for
+    # the one-token decode (C=1), the linear leg for C=7, the tree leg
+    # for the tree window
     for row in rows:
-        row["launches"] = launches if row["C"] == 1 else 0
+        row["launches"] = (launches if row["C"] == 1 else
+                           legs["linear"]["paged_attention_launches_by_window"]
+                           .get(row["C"], 0))
+    tree_rows[0]["launches"] = legs["tree"]["paged_attention_tree_launches"]
     program = build_lm(fluid)
     fwd, bwd = training_phase(torch, fa_mod, fluid, program)
     flash_rows[0]["launches"], flash_rows[1]["launches"] = fwd, bwd
     card_vs_cpu_phase(torch, fluid, program, "bfloat16")
     del program
     card_vs_cpu_phase(torch, fluid, build_lm(fluid, "float32"), "float32")
-    print(json.dumps({"kernels": rows + flash_rows}), flush=True)
+    print(json.dumps({"kernels": rows + tree_rows + flash_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

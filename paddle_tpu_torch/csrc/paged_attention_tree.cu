@@ -1,0 +1,37 @@
+// K3: the tree-mask speculative verify window, paged attention of a
+// [B, C, H, Dh] query window holding a level-order token tree over one
+// layer's paged KV pool, for Hopper (sm_90a). fp32 in, fp32 out.
+//
+// Replaces the TPU kernel paddle_tpu/ops/pallas_kernels.py
+// `_paged_attn_tree_kernel` / `paged_attention_tree` (:410-541),
+// registered there as `spec_window_tree` (every layer of a tree verify
+// window, C = 1 + width * depth).
+//
+// What it computes, per row b, head h and window slot c: window slot c
+// sits at cache position pos0 + c (pos0 = positions[b, 0]); softmax over
+// the logical positions t with t < pos0 (the committed prefix, strict) or
+// 0 <= t - pos0 < C and anc[c, t - pos0] (t's window slot is c or one of
+// c's ancestors: sibling branches are mutually invisible) of
+// (q[b, c, h] . k[t]) * sm_scale, applied to v[t]. The last position a
+// row can see is pos0 + C - 1; the kernel stops there.
+//
+// The kernel body, its design and its bound are in paged_attention.cuh,
+// shared with K2 under the kTree flag: the mask is one uint32 bit mask a
+// slot built in shared memory from anc, in place of the TPU kernel's
+// one-hot matmul.
+
+#include "paged_attention.cuh"
+
+// Shapes (all contiguous): k_pages, v_pages [num_pages, bs, H, Dh] fp32;
+// q, out [B, C, H, Dh] fp32; block_tables [B, Mb] int32; positions [B, C]
+// int32 (only positions[b, 0] is read); anc [C, C] bool, one byte each.
+// Dh is 32, 64 or 128 and 1 <= C <= 32 (the wrapper checks).
+extern "C" int ptpu_paged_attention_tree_f32(
+    const void* k_pages, const void* v_pages, const void* q,
+    const void* block_tables, const void* positions, const void* anc,
+    void* out, int B, int C, int H, int Dh, int bs, int Mb, int num_pages,
+    float sm_scale, void* stream) {
+  return launch_dh<true>(k_pages, v_pages, q, block_tables, positions, anc,
+                         out, B, C, H, Dh, bs, Mb, num_pages, sm_scale,
+                         stream);
+}

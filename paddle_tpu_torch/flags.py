@@ -64,6 +64,15 @@ _declare("PTPU_METRICS", "bool", False,
          "enable the instrumented metrics hot paths")
 _declare("PTPU_SERVE_ASYNC_STEPS", "int", 4,
          "decode steps kept in flight ahead of EOS/stream materialization")
+_declare("PTPU_SERVE_SPEC_K", "int", 0,
+         "speculative decoding: draft tokens proposed per serving "
+         "decode step and verified in one batched target step "
+         "(0 = legacy one-token decode)")
+_declare("PTPU_SERVE_SPEC_TREE", "str", None,
+         "tree speculation shape 'WxD' (width x depth, e.g. '2x3'): "
+         "verify a W-branch token tree of depth D per step via the "
+         "in-window tree attention mask; unset/0/off = the linear "
+         "PTPU_SERVE_SPEC_K window")
 
 
 def env(name):

@@ -66,8 +66,9 @@ def paged_attention(k_pages, v_pages, q, block_tables, positions,
                                  positions, sm_scale)
 
 
-# kernel launches since the last reset (the plain CPU route never counts)
-paged_attention.launches = 0
+# kernel launches since the last reset, by window size C (the plain CPU
+# route never counts)
+paged_attention.window_launches = {}
 
 _fn = None
 
@@ -89,10 +90,13 @@ def load():
     _kernel()
 
 
-def _check(k_pages, v_pages, q, block_tables, positions):
+def _check(k_pages, v_pages, q, block_tables, positions,
+           max_window=MAX_WINDOW, kernel="paged_attention"):
+    """What the kernels take (K2 here, K3 with its own ``max_window``):
+    raises naming the argument or the limit it breaks."""
     if q.device.type != "cuda":
-        raise RuntimeError("the paged_attention kernel takes CUDA tensors, "
-                           "got q on %s" % q.device)
+        raise RuntimeError("the %s kernel takes CUDA tensors, got q on %s"
+                           % (kernel, q.device))
     named = (("k_pages", k_pages, torch.float32, 4),
              ("v_pages", v_pages, torch.float32, 4),
              ("q", q, torch.float32, 4),
@@ -123,9 +127,9 @@ def _check(k_pages, v_pages, q, block_tables, positions):
     if Dh not in SUPPORTED_HEAD_DIMS:
         raise ValueError("head_dim %d not supported (kernel takes %s)"
                          % (Dh, SUPPORTED_HEAD_DIMS))
-    if not 1 <= C <= MAX_WINDOW:
-        raise ValueError("window C=%d not supported (1 <= C <= %d)"
-                         % (C, MAX_WINDOW))
+    if not 1 <= C <= max_window:
+        raise ValueError("window C=%d not supported by %s (1 <= C <= %d)"
+                         % (C, kernel, max_window))
     if not 1 <= B <= 65535:
         raise ValueError("batch %d not supported (1..65535)" % B)
 
@@ -149,5 +153,6 @@ def _paged_attention_cuda(k_pages, v_pages, q, block_tables, positions,
     if err != 0:
         raise RuntimeError("paged_attention kernel launch failed: CUDA "
                            "error %d" % err)
-    paged_attention.launches += 1
+    by_c = paged_attention.window_launches
+    by_c[C] = by_c.get(C, 0) + 1
     return out

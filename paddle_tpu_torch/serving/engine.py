@@ -21,11 +21,27 @@ time, so the only cost of the lag is a few discarded steps after an
 EOS, whose tokens are never emitted and whose KV writes land in blocks
 the retiring sequence owns until ``reap``.
 
+Speculative decoding (``spec_k=K``, or ``spec_tree="WxD"``; default
+``$PTPU_SERVE_SPEC_K`` / ``$PTPU_SERVE_SPEC_TREE``, both off): when every
+row is past its prompt, a step is a VERIFY window — each row feeds its
+last committed token plus drafts from the ``drafter`` (``NGramDrafter``
+by default): K in a line (``spec_step``, the paged-attention kernel at
+C = K + 1) or a level-order tree of W chains of depth D
+(``spec_tree_step``, the tree-mask kernel at C = 1 + W*D). Each window
+is materialized before the next is planned (acceptance and the next
+drafts read the committed history), so speculation runs synchronously:
+the tokens a step gains replace the async window. A tree window's
+accepted path is compacted in the pool (``tree_commit``) only when one
+of its slots is out of place; rejected tails roll back through
+``KVBlockPool.truncate_owner``. Output stays token-identical to greedy
+decoding.
+
 Telemetry (with metrics enabled): ``serving/{queue_depth,
 batch_occupancy,peak_batch_occupancy,kv_blocks_in_use,inflight_steps,
 tokens_per_sec,request_latency(_p50/_p99),ttft(_p50/_p99),steps,
 prefill_tokens,decode_tokens,requests_submitted,requests_completed,
-requests_rejected,requests_failed}``.
+requests_rejected,requests_failed,spec_steps,spec_proposed,
+spec_accepted,spec_tree_slots,spec_tree_commits,spec_accept_rate}``.
 """
 
 import threading
@@ -39,10 +55,12 @@ from ..analysis.concurrency import make_condition
 from ..core.place import resolve_device
 from ..core.scope import Scope
 from ..observability import metrics as _metrics
+from ..ops import paged_attention as _pa
+from ..ops import paged_attention_tree as _pat
 from .kv_cache import KVBlockPool, blocks_needed
-from .model import GenerationModel
+from .model import GenerationModel, NGramDrafter, parse_tree_shape
 from .scheduler import (AdmissionError, GenerationRequest, RequestQueue,
-                        StepScheduler)
+                        StepScheduler, spec_tree_acceptance)
 
 __all__ = ["ServingEngine"]
 
@@ -52,7 +70,8 @@ class _ModelWorker:
     thread."""
 
     def __init__(self, model, max_batch, max_seq_len, block_size,
-                 num_blocks, max_queue, async_depth, device):
+                 num_blocks, max_queue, async_depth, device, spec_k=0,
+                 spec_tree=None, drafter=None):
         self.model = model
         self.device = device
         cfg = model.config
@@ -63,7 +82,39 @@ class _ModelWorker:
             num_blocks = max_batch * blocks_needed(max_seq_len, block_size)
         self.pool = KVBlockPool(cfg.n_layers, cfg.n_heads, cfg.head_dim,
                                 block_size, num_blocks, device=device)
-        self.scheduler = StepScheduler(max_batch, self.pool, max_seq_len)
+        # speculation: a tree shape implies it, its depth playing
+        # spec_k's role; windows are clamped to the context and checked
+        # against what the attention kernels take
+        self.spec_tree = parse_tree_shape(spec_tree)
+        if self.spec_tree:
+            width, depth = self.spec_tree
+            self.spec_tree = (width, max(1, min(depth, max_seq_len - 1)))
+            self.spec_k = self.spec_tree[1]
+            window, limit = 1 + width * self.spec_tree[1], \
+                _pat.MAX_TREE_WINDOW
+        else:
+            self.spec_k = max(0, min(int(spec_k or 0), max_seq_len - 1))
+            window, limit = self.spec_k + 1, _pa.MAX_WINDOW
+        if window > limit:
+            raise ValueError(
+                "speculative window of %d slots exceeds the %d the "
+                "attention kernel takes (spec_k <= %d; a tree's 1 + W*D "
+                "<= %d)" % (window, limit, _pa.MAX_WINDOW - 1,
+                            _pat.MAX_TREE_WINDOW))
+        if self.spec_k and drafter is None:
+            drafter = NGramDrafter()
+        if drafter is not None and not callable(
+                getattr(drafter, "propose", None)):
+            raise TypeError("drafter %r has no propose(history, k) method"
+                            % (type(drafter).__name__,))
+        self.drafter = drafter if self.spec_k else None
+        if self.spec_tree and device.type == "cuda":
+            _pat.load()  # a failing build raises here, not mid-serving
+        self.spec_tree_commits = 0
+        self.scheduler = StepScheduler(max_batch, self.pool, max_seq_len,
+                                       spec_k=self.spec_k,
+                                       drafter=self.drafter,
+                                       spec_tree=self.spec_tree)
         self.queue = RequestQueue(max_queue)
         self.max_batch = int(max_batch)
         self.async_depth = max(1, int(async_depth))
@@ -153,28 +204,35 @@ class _ModelWorker:
         sched = self.scheduler
         sched.admit(self.queue)
         _metrics.gauge("serving/queue_depth").set(len(self.queue))
-        plan = sched.plan_step()
-        if plan:
-            self._dispatch(plan)
-            if len(self._inflight) > self.async_depth - 1:
+        spec_plan = sched.plan_spec() if self.spec_k else None
+        if spec_plan:
+            # a verify window is dispatched AND materialized in one
+            # round: acceptance feeds the next window's drafts
+            self._dispatch_spec(spec_plan)
+        else:
+            plan = sched.plan_step()
+            if plan:
+                self._dispatch(plan)
+                if self.spec_k:
+                    # speculation is synchronous everywhere: the next
+                    # plan (a verify window) reads committed history
+                    while self._inflight:
+                        self._process_oldest()
+                elif len(self._inflight) > self.async_depth - 1:
+                    self._process_oldest()
+            elif self._inflight:
+                # nothing left to dispatch — drain the pipeline
                 self._process_oldest()
-        elif self._inflight:
-            # nothing left to dispatch — drain the pipeline
-            self._process_oldest()
         sched.reap()
         _metrics.gauge("serving/kv_blocks_in_use").set(
             self.pool.blocks_in_use)
 
-    def _upload(self):
-        """The scheduler's step arrays on the device, through one packed
-        int32 copy. On CUDA the copy comes from a fresh pinned buffer and
-        does not synchronise (PyTorch's pinned allocator keeps the
-        buffer until the copy has run)."""
-        sched = self.scheduler
-        B = self.max_batch
-        packed = np.concatenate([
-            sched.prompt_feed, sched.use_prompt, sched.positions,
-            sched.active, sched.block_tables.ravel()]).astype(np.int32)
+    def _upload(self, *arrays):
+        """Host arrays on the device through one packed int32 copy, as
+        int32 tensors of the arrays' shapes. On CUDA the copy comes from
+        a fresh pinned buffer and does not synchronise (PyTorch's pinned
+        allocator keeps the buffer until the copy has run)."""
+        packed = np.concatenate([a.ravel() for a in arrays]).astype(np.int32)
         if self.device.type == "cuda":
             host = torch.empty(packed.shape, dtype=torch.int32,
                                pin_memory=True)
@@ -182,8 +240,11 @@ class _ModelWorker:
             dev = host.to(self.device, non_blocking=True)
         else:
             dev = torch.from_numpy(packed)
-        return (dev[:B], dev[B:2 * B].bool(), dev[2 * B:3 * B],
-                dev[3 * B:4 * B].bool(), dev[4 * B:].view(B, -1))
+        out, start = [], 0
+        for a in arrays:
+            out.append(dev[start:start + a.size].view(a.shape))
+            start += a.size
+        return out
 
     def _download(self, next_tokens):
         """Start the step's token copy to the host without waiting:
@@ -201,13 +262,88 @@ class _ModelWorker:
         sched = self.scheduler
         occupancy = int(sched.active.sum())
         weights = {n: self.scope.get(n) for n in self._weight_names}
-        prompt_feed, use_prompt, positions, active, tables = self._upload()
+        prompt_feed, use_prompt, positions, active, tables = self._upload(
+            sched.prompt_feed, sched.use_prompt, sched.positions,
+            sched.active, sched.block_tables)
         next_tokens = self.model.decode_step(
-            self.pool.k, self.pool.v, prompt_feed, use_prompt,
-            self._prev_tokens, positions, tables, active, weights=weights)
+            self.pool.k, self.pool.v, prompt_feed, use_prompt.bool(),
+            self._prev_tokens, positions, tables, active.bool(),
+            weights=weights)
         self._prev_tokens = next_tokens
         self._inflight.append(self._download(next_tokens) + (plan,))
         _metrics.gauge("serving/inflight_steps").set(len(self._inflight))
+        self._note_step(occupancy)
+        if _metrics.enabled():
+            n_prefill = sum(1 for _seq, g in plan if g is None)
+            reg = _metrics.registry()
+            reg.counter("serving/prefill_tokens").inc(n_prefill)
+            reg.counter("serving/decode_tokens").inc(len(plan) - n_prefill)
+
+    def _dispatch_spec(self, plan):
+        """Dispatch one verify window and fold it back at once (the
+        window's tokens are read before anything else is planned)."""
+        sched = self.scheduler
+        occupancy = int(sched.active.sum())
+        weights = {n: self.scope.get(n) for n in self._weight_names}
+        feed, use_prompt, positions, lengths, active, tables = self._upload(
+            sched.spec_feed, sched.use_prompt, sched.positions,
+            sched.spec_lens, sched.active, sched.block_tables)
+        args = (self.pool.k, self.pool.v, feed, use_prompt.bool(),
+                self._prev_tokens, positions, lengths, tables,
+                active.bool())
+        if self.spec_tree:
+            out = self.model.spec_tree_step(*args, self.spec_tree,
+                                            weights=weights)
+        else:
+            out = self.model.spec_step(*args, weights=weights)
+        outs = out.cpu().numpy()     # materialize now (the sync contract)
+        self._note_step(occupancy)
+        if self.spec_tree:
+            # the acceptance walk first; the accepted paths' KV is
+            # compacted into the committed layout BEFORE record_spec_tree
+            # truncates the tail blocks its sources may live in
+            accepted = []              # (path, emitted), in plan order
+            src = np.zeros(sched.spec_feed.shape, np.int32)
+            n_commit = np.zeros(self.max_batch, np.int32)
+            for seq, window in plan:
+                path, emitted = spec_tree_acceptance(
+                    window, outs[seq.slot], self.spec_tree[0])
+                accepted.append((path, emitted))
+                if any(s != j + 1 for j, s in enumerate(path)):
+                    src[seq.slot, 1:1 + len(path)] = path  # [0, path...]
+                    n_commit[seq.slot] = 1 + len(path)
+            if n_commit.any():
+                src_d, n_commit_d, commit_active = self._upload(
+                    src, n_commit, n_commit > 0)
+                self.model.tree_commit(self.pool.k, self.pool.v, positions,
+                                       src_d, n_commit_d, tables,
+                                       commit_active.bool())
+                self.spec_tree_commits += 1
+                _metrics.counter("serving/spec_tree_commits").inc()
+        # a row's next one-token step chains prev_tokens: point each spec
+        # row's entry at its last committed token (rows outside the plan
+        # never chain theirs: they retire, or start with a prompt)
+        prev = np.zeros(self.max_batch, np.int32)
+        n_emitted = 0
+        for i, (seq, window) in enumerate(plan):
+            was_done = seq.request.finished
+            if self.spec_tree:
+                n_emitted += sched.record_spec_tree(seq, window,
+                                                    *accepted[i])
+            else:
+                n_emitted += sched.record_spec(seq, window, outs[seq.slot])
+            prev[seq.slot] = seq.request.tokens[-1]
+            if seq.request.finished and not was_done:
+                self._note_completion(seq.request)
+        self._prev_tokens = self._upload(prev)[0]
+        self._count_tokens(n_emitted)
+        if _metrics.enabled():
+            reg = _metrics.registry()
+            reg.counter("serving/decode_tokens").inc(n_emitted)
+            reg.gauge("serving/spec_accept_rate").set(
+                sched.spec_accepted / max(1, sched.spec_proposed))
+
+    def _note_step(self, occupancy):
         self._steps_dispatched += 1
         now = time.perf_counter()
         if self._t_first_step is None:
@@ -220,9 +356,15 @@ class _ModelWorker:
             peak = reg.gauge("serving/peak_batch_occupancy")
             if occupancy > peak.value:
                 peak.set(occupancy)
-            n_prefill = sum(1 for _seq, g in plan if g is None)
-            reg.counter("serving/prefill_tokens").inc(n_prefill)
-            reg.counter("serving/decode_tokens").inc(len(plan) - n_prefill)
+
+    def _count_tokens(self, n):
+        if not n:
+            return
+        self._gen_tokens += n
+        if (self._t_first_step is not None
+                and self._t_last_step > self._t_first_step):
+            _metrics.gauge("serving/tokens_per_sec").set(
+                self._gen_tokens / (self._t_last_step - self._t_first_step))
 
     def _process_oldest(self):
         host, done, plan = self._inflight.pop(0)
@@ -238,14 +380,7 @@ class _ModelWorker:
                 self._note_first_token(seq.request)
             if seq.request.finished and not was_done:
                 self._note_completion(seq.request)
-        gen_tokens = sum(1 for _, g in plan if g is not None)
-        if gen_tokens:
-            self._gen_tokens += gen_tokens
-            if (self._t_first_step is not None
-                    and self._t_last_step > self._t_first_step):
-                _metrics.gauge("serving/tokens_per_sec").set(
-                    self._gen_tokens
-                    / (self._t_last_step - self._t_first_step))
+        self._count_tokens(sum(1 for _, g in plan if g is not None))
 
     def _note_first_token(self, request):
         ttft = request.ttft
@@ -281,15 +416,25 @@ class ServingEngine:
 
     ``device=None`` is ``cuda:0`` and raises without CUDA;
     ``device="cpu"`` runs the plain PyTorch path. The model must live on
-    the engine's device.
+    the engine's device. ``spec_k`` (linear verify window of ``spec_k``
+    drafts, at most 15) or ``spec_tree`` (``"WxD"``, 1 + W*D at most 32
+    slots) turns speculative decoding on; ``None`` reads
+    ``$PTPU_SERVE_SPEC_K`` / ``$PTPU_SERVE_SPEC_TREE``. ``drafter`` (an
+    object with ``propose(history, k)``, optionally ``propose_for``,
+    ``propose_tree`` and ``release``) defaults to ``NGramDrafter``.
     """
 
     def __init__(self, model, max_batch=8, max_seq_len=256,
                  block_size=16, num_blocks=None, max_queue=64,
-                 async_depth=None, device=None):
+                 async_depth=None, device=None, spec_k=None,
+                 spec_tree=None, drafter=None):
         device = resolve_device(device)
         if async_depth is None:
             async_depth = _flags.env("PTPU_SERVE_ASYNC_STEPS")
+        if spec_k is None:
+            spec_k = _flags.env("PTPU_SERVE_SPEC_K")
+        if spec_tree is None:
+            spec_tree = _flags.env("PTPU_SERVE_SPEC_TREE")
         if not isinstance(model, GenerationModel):
             raise TypeError("model must be a GenerationModel, got %r"
                             % type(model).__name__)
@@ -303,7 +448,8 @@ class ServingEngine:
         self._worker = _ModelWorker(
             model, max_batch=max_batch, max_seq_len=max_seq_len,
             block_size=block_size, num_blocks=num_blocks,
-            max_queue=max_queue, async_depth=async_depth, device=device)
+            max_queue=max_queue, async_depth=async_depth, device=device,
+            spec_k=spec_k, spec_tree=spec_tree, drafter=drafter)
 
     # -- public API -----------------------------------------------------
     def submit(self, prompt, max_new_tokens=32, eos_id=None, stream=None):
@@ -333,12 +479,24 @@ class ServingEngine:
 
     def stats(self):
         w = self._worker
+        sched = w.scheduler
         return {
             "queue_depth": len(w.queue),
-            "batch_occupancy": w.scheduler.num_occupied,
+            "batch_occupancy": sched.num_occupied,
             "generated_tokens": w._gen_tokens,
             "steps": w._steps_dispatched,
             "error": None if w.error is None else repr(w.error),
+            "spec_k": w.spec_k,
+            "spec_tree": "%dx%d" % w.spec_tree if w.spec_tree else None,
+            "spec_steps": sched.spec_steps,
+            "spec_proposed": sched.spec_proposed,
+            "spec_accepted": sched.spec_accepted,
+            "spec_emitted": sched.spec_emitted,
+            "spec_accept_rate": (sched.spec_accepted
+                                 / max(1, sched.spec_proposed)),
+            "spec_tree_slots": sched.spec_tree_slots,
+            "spec_tree_commits": w.spec_tree_commits,
+            "spec_blocks_rolled_back": sched.spec_blocks_rolled_back,
             **w.pool.stats(),
         }
 

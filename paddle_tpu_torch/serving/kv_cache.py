@@ -17,7 +17,9 @@ admission reserves the worst-case block count, so the pool can never be
 exhausted mid-decode; ``alloc_block(owner)`` hands out physical ids
 lazily, drawn from that reservation, as the sequence crosses block
 boundaries. ``free_owner`` returns a retired sequence's blocks and the
-unused rest of its reservation.
+unused rest of its reservation; ``truncate_owner`` is speculative
+decoding's rollback, returning the tail blocks past the committed
+position to the free list and to the owner's reservation.
 """
 
 import torch
@@ -72,6 +74,8 @@ class KVBlockPool:
         # moves one unit from reserved to owned, so the sum is
         # invariant until free_owner (check_invariants pins it)
         self._ceiling = {}
+        self.truncate_calls = 0
+        self.blocks_truncated = 0
 
     # -- accounting ----------------------------------------------------
     @property
@@ -148,12 +152,44 @@ class KVBlockPool:
             self._free.extend(reversed(blocks))
             return len(blocks)
 
+    def truncate_owner(self, owner, n_keep):
+        """Rewind ``owner``'s block table to its first ``n_keep``
+        entries — the KV rollback of speculative decoding: positions
+        written for rejected drafts live in over-allocated tail blocks,
+        and this returns them. Each dropped block goes back to the free
+        list while the owner's reservation grows back by one, the exact
+        inverse of ``alloc_block``, so the rewound sequence re-crosses
+        the same boundaries without a new reservation. Returns the
+        dropped block ids in table order."""
+        n_keep = int(n_keep)
+        if n_keep < 0:
+            raise ValueError("n_keep must be >= 0, got %d" % n_keep)
+        with self._lock:
+            blocks = self._owned.get(owner)
+            if blocks is None:
+                raise KeyError("owner %r holds no block table" % (owner,))
+            if n_keep >= len(blocks):
+                return []
+            dropped = blocks[n_keep:]
+            del blocks[n_keep:]
+            # reversed: the shallowest dropped block lands last on the
+            # LIFO free list, so re-crossing the same boundary hands the
+            # same (cache-warm) block back first
+            self._free.extend(reversed(dropped))
+            self._reserved[owner] += len(dropped)
+            self.truncate_calls += 1
+            self.blocks_truncated += len(dropped)
+            return list(dropped)
+
     def check_invariants(self):
         """Audit the accounting in one consistent snapshot; returns a
         list of problem strings (empty = clean): conservation (free +
         in-table == total), non-negative and backed reservations, the
-        null block never circulating, no block id twice, and every
-        owner's reserved + owned equal to its reservation."""
+        null block never circulating, no block id twice, and the
+        rollback accounting — every owner's reserved + owned equal to
+        the reservation fixed at ``reserve()`` (``alloc_block`` moves
+        one unit from reserved to owned, ``truncate_owner`` moves it
+        back)."""
         problems = []
         with self._lock:
             free = list(self._free)

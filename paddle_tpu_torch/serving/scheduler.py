@@ -21,6 +21,17 @@ Prefill rides the same step: a just-admitted sequence consumes one
 prompt token per step (``use_prompt`` rows) until its prompt is
 exhausted, after which its input token chains on the device from the
 previous step's output.
+
+Speculative decoding (``spec_k=K``, or ``spec_tree=(W, D)`` with
+``spec_k=D``; off by default) changes what a decode step emits: when every occupied row is
+past its prompt and nothing is in flight, ``plan_spec`` plans a VERIFY
+window — each row feeds its last committed token plus drafted
+continuations proposed by a ``drafter`` (n-gram prompt lookup by
+default): up to K in a line, or a level-order tree of W chains of depth
+D. ``record_spec`` / ``record_spec_tree`` fold the materialized window
+back: the accepted drafts plus the target's correction token are
+emitted (>= 1 token a window), and the KV blocks past the rewound
+position go back through ``KVBlockPool.truncate_owner`` (rollback).
 """
 
 import itertools
@@ -35,9 +46,47 @@ from ..observability import metrics as _metrics
 from .kv_cache import blocks_needed
 
 __all__ = ["AdmissionError", "GenerationRequest", "RequestQueue",
-           "StepScheduler"]
+           "StepScheduler", "spec_tree_acceptance"]
 
 _req_ids = itertools.count()
+
+
+def spec_tree_acceptance(window, outs, width):
+    """The host acceptance walk over ONE materialized tree verify
+    window. ``window`` is the level-order token window ``[root, level-1
+    slots..., ...]`` the scheduler planned (``width`` chains a level);
+    ``outs[j]`` is the target's greedy token after window slot ``j``'s
+    root path.
+
+    Each chain is walked on its own: level ``l``'s slot is accepted iff
+    its token equals the target argmax after the previously accepted
+    slot (the root for ``l == 1``). The DEEPEST accepted root path wins;
+    ties go to the lowest chain (at width 1 this is bitwise the linear
+    prefix walk). Returns ``(path_slots, emitted)``: the winning path's
+    window slots, and its tokens plus the correction token (the argmax
+    at the accepted frontier) — every window emits at least one
+    sequential-greedy-identical token."""
+    width = int(width)
+    L = len(window)
+    if L <= 1:
+        return [], [int(outs[0])]
+    levels = (L - 1) // width
+    best_path = None
+    for c in range(width):
+        cur = 0
+        path = []
+        for lev in range(levels):
+            s = 1 + lev * width + c
+            if s >= L or int(window[s]) != int(outs[cur]):
+                break
+            path.append(s)
+            cur = s
+        if best_path is None or len(path) > len(best_path):
+            best_path = path
+    frontier = best_path[-1] if best_path else 0
+    emitted = ([int(window[s]) for s in best_path]
+               + [int(outs[frontier])])
+    return best_path, emitted
 
 
 class AdmissionError(RuntimeError):
@@ -156,11 +205,14 @@ class _Sequence:
 class StepScheduler:
     """Joins/retires sequences at step boundaries over fixed slots.
 
-    The engine drives it: ``admit()`` -> ``plan_step()`` -> dispatch ->
-    (lagged) ``record_token()`` per decode output -> ``reap()``.
+    The engine drives it: ``admit()`` -> ``plan_spec()`` (speculation
+    on) or ``plan_step()`` -> dispatch -> ``record_spec[_tree]()`` per
+    verify window or (lagged) ``record_token()`` per decode output ->
+    ``reap()``.
     """
 
-    def __init__(self, max_batch, pool, max_seq_len):
+    def __init__(self, max_batch, pool, max_seq_len, spec_k=0,
+                 drafter=None, spec_tree=None):
         self.max_batch = int(max_batch)
         self.pool = pool
         self.max_seq_len = int(max_seq_len)
@@ -173,6 +225,28 @@ class StepScheduler:
         self.use_prompt = np.zeros(self.max_batch, bool)
         self.positions = np.zeros(self.max_batch, np.int32)
         self.active = np.zeros(self.max_batch, bool)
+        # -- speculative decoding (off: the one-token decode path) ------
+        # the engine's worker resolves both: a tree (width, depth) comes
+        # with spec_k = depth, which gates every `if self.spec_k`
+        self.spec_tree = spec_tree
+        self.spec_k = int(spec_k)
+        self.drafter = drafter
+        # host-side spec telemetry (live with metrics off). In tree mode
+        # spec_proposed / spec_accepted count PATH DEPTH (deepest branch
+        # fed / accepted path length), so the accept rate keeps its
+        # per-chain meaning; spec_tree_slots counts every draft slot
+        # verified.
+        self.spec_steps = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_emitted = 0
+        self.spec_blocks_rolled_back = 0
+        self.spec_tree_slots = 0
+        if self.spec_k:
+            width = (1 + self.spec_tree[0] * self.spec_tree[1]
+                     if self.spec_tree else self.spec_k + 1)
+            self.spec_feed = np.zeros((self.max_batch, width), np.int32)
+            self.spec_lens = np.zeros(self.max_batch, np.int32)
 
     # -- occupancy ------------------------------------------------------
     @property
@@ -187,6 +261,14 @@ class StepScheduler:
         """Worst-case KV blocks of ``request`` (its reservation)."""
         total = min(len(request.prompt) + request.max_new_tokens,
                     self.max_seq_len)
+        if self.spec_tree:
+            # tree windows write KV up to W*D slots past the committed
+            # end (rejected siblings sit at higher window offsets than
+            # the emitted path reaches), so the reservation carries that
+            # overhang and a window can never exhaust the pool; the
+            # per-row depth clamp keeps every write < max_seq_len
+            total = min(total + self.spec_tree[0] * self.spec_tree[1],
+                        self.max_seq_len)
         return blocks_needed(total, self.pool.block_size)
 
     def admit(self, queue):
@@ -259,6 +341,218 @@ class StepScheduler:
                 seq.dispatch_done = True
         return plan
 
+    # -- speculative verify windows ------------------------------------
+    def plan_spec(self):
+        """Speculative verify-window planning. Applies only when every
+        occupied row is past its prompt with no step in flight — both
+        acceptance and the next window's drafts read the committed
+        history — and returns ``None`` otherwise, so the engine falls
+        back to the one-token plan. When it applies, fills the
+        ``spec_feed``/``spec_lens`` window arrays — each dispatching row
+        feeds its last committed token plus up to ``spec_k`` drafts,
+        clamped so no window can overshoot ``max_new_tokens`` or the
+        sequence cap (the admission reservation then always covers the
+        window's blocks) — and returns the spec plan, a list of
+        ``(seq, window_tokens)`` rows."""
+        if not self.spec_k:
+            return None
+        for seq in self.slots:
+            if seq is None:
+                continue
+            if seq.pending or (not seq.dispatch_done and seq.in_prefill):
+                return None
+        if self.spec_tree:
+            return self._plan_spec_tree()
+        plan = []
+        for slot, seq in enumerate(self.slots):
+            if seq is None or seq.dispatch_done:
+                self._idle_spec_row(slot)
+                continue
+            request = seq.request
+            history = self._committed_history(seq)
+            # every emitted token takes one max_new slot and one sequence
+            # position; >= 1 here (else dispatch_done already)
+            limit = min(self.spec_k + 1,
+                        request.max_new_tokens - len(request.tokens),
+                        self.max_seq_len - seq.pos)
+            drafts = []
+            if limit > 1 and self.drafter is not None:
+                if hasattr(self.drafter, "propose_for"):
+                    # indexed n-gram path: the same tokens at O(k) host
+                    # cost a window
+                    drafts = self.drafter.propose_for(
+                        request.id, history, limit - 1)
+                else:
+                    drafts = self.drafter.propose(history, limit - 1)
+                drafts = [int(t) for t in drafts][:limit - 1]
+            plan.append(self._fill_spec_row(slot, seq,
+                                            [history[-1]] + drafts))
+        return self._count_spec_step(plan)
+
+    def _plan_spec_tree(self):
+        """Tree verify-window planning: each dispatching row feeds a
+        LEVEL-ORDER token tree ``[root, level-1 slots..., ...]`` of up to
+        ``width`` chains and a per-row depth clamped so the emitted path
+        can never overshoot ``max_new_tokens`` and no window slot writes
+        at or past the sequence cap. Chains shorter than the row's depth
+        pad their missing slots with token 0 (a pad is a draft that will
+        not match). Rows whose drafter proposes nothing (or whose clamp
+        is 0) ride as 1-slot windows: plain decode through the tree
+        step."""
+        W, D = self.spec_tree
+        rows = []
+        for slot, seq in enumerate(self.slots):
+            if seq is None or seq.dispatch_done:
+                self._idle_spec_row(slot)
+                continue
+            request = seq.request
+            history = self._committed_history(seq)
+            # depth clamp: path emission (depth + correction) within the
+            # max_new budget, every window slot (pos + 1 .. pos + W*d)
+            # strictly below the sequence cap
+            d = min(D, request.max_new_tokens - len(request.tokens) - 1,
+                    (self.max_seq_len - seq.pos - 1) // W)
+            rows.append((slot, seq, history, max(d, 0)))
+        plan = []
+        for slot, seq, history, d in rows:
+            chains = []
+            if d > 0 and self.drafter is not None:
+                if hasattr(self.drafter, "propose_tree"):
+                    chains = self.drafter.propose_tree(
+                        history, W, d, seq_id=seq.request.id)
+                else:
+                    chains = [list(self.drafter.propose(history, d))]
+            chains = [[int(t) for t in ch][:d] for ch in chains][:W]
+            chains = [ch for ch in chains if ch]
+            d_used = max((len(ch) for ch in chains), default=0)
+            window = [history[-1]]
+            for lev in range(d_used):
+                for c in range(W):
+                    ch = chains[c] if c < len(chains) else []
+                    window.append(ch[lev] if lev < len(ch) else 0)
+            plan.append(self._fill_spec_row(slot, seq, window))
+        return self._count_spec_step(plan)
+
+    def _committed_history(self, seq):
+        history = seq.request.prompt + seq.request.tokens
+        if seq.pos != len(history) - 1:
+            raise RuntimeError(
+                "spec window planned at pos %d but the committed history "
+                "holds %d tokens — a step result was lost"
+                % (seq.pos, len(history)))
+        return history
+
+    def _idle_spec_row(self, slot):
+        self.active[slot] = False
+        self.use_prompt[slot] = False
+        self.spec_lens[slot] = 0
+
+    def _fill_spec_row(self, slot, seq, window):
+        """One dispatching row of a verify window: lazy block allocation
+        for every boundary the window crosses (drawn from the admission
+        reservation, which covers the clamped window), then the row's
+        window arrays. The root comes from ``spec_feed`` (use_prompt)."""
+        bs = self.pool.block_size
+        pos = seq.pos
+        for p in range(pos, pos + len(window)):
+            if p % bs == 0:
+                self.block_tables[slot, p // bs] = self.pool.alloc_block(seq)
+        self.spec_feed[slot, :len(window)] = window
+        self.spec_lens[slot] = len(window)
+        self.positions[slot] = pos
+        self.use_prompt[slot] = True
+        self.active[slot] = True
+        seq.pending += 1
+        return seq, window
+
+    def _count_spec_step(self, plan):
+        if plan:
+            self.spec_steps += 1
+            _metrics.counter("serving/spec_steps").inc()
+        return plan
+
+    def record_spec(self, seq, window, outs):
+        """Fold one materialized linear verify window back into its
+        sequence: acceptance is the longest prefix where draft == the
+        target's argmax at the previous slot; the accepted run plus the
+        correction token are emitted (``_emit_spec``). Returns the number
+        of tokens emitted."""
+        seq.pending -= 1
+        if seq.finished:
+            return 0
+        drafts = [int(t) for t in window[1:]]
+        m = 0
+        while m < len(drafts) and drafts[m] == int(outs[m]):
+            m += 1
+        self.spec_proposed += len(drafts)
+        self.spec_accepted += m
+        _metrics.counter("serving/spec_proposed").inc(len(drafts))
+        _metrics.counter("serving/spec_accepted").inc(m)
+        return self._emit_spec(seq, drafts[:m] + [int(outs[m])])
+
+    def record_spec_tree(self, seq, window, path_slots, emitted):
+        """Fold one materialized TREE verify window back into its
+        sequence: the engine has already run ``spec_tree_acceptance``
+        and compacted the accepted path's KV, so this is the bookkeeping
+        half — emission, position advance and the rollback of every
+        rejected branch. Returns the number of tokens emitted."""
+        seq.pending -= 1
+        if seq.finished:
+            return 0
+        n_slots = len(window) - 1
+        depth_fed = n_slots // self.spec_tree[0]  # full levels
+        self.spec_proposed += depth_fed
+        self.spec_accepted += len(path_slots)
+        self.spec_tree_slots += n_slots
+        _metrics.counter("serving/spec_proposed").inc(depth_fed)
+        _metrics.counter("serving/spec_accepted").inc(len(path_slots))
+        _metrics.counter("serving/spec_tree_slots").inc(n_slots)
+        return self._emit_spec(seq, emitted)
+
+    def _emit_spec(self, seq, emitted):
+        """Emit the accepted run + correction token in order, truncated
+        at EOS / ``max_new_tokens`` / the sequence cap (no post-EOS token
+        is ever emitted), advance the sequence to its first unverified
+        position, and return the KV blocks past it through
+        ``KVBlockPool.truncate_owner`` (rollback)."""
+        request = seq.request
+        pos = seq.pos
+        n_emit = 0
+        for tok in emitted:
+            request.tokens.append(tok)
+            n_emit += 1
+            if request.first_token_time is None:
+                request.first_token_time = time.perf_counter()
+            hit_eos = request.eos_id is not None and tok == request.eos_id
+            final = (hit_eos
+                     or len(request.tokens) >= request.max_new_tokens
+                     or pos + n_emit >= self.max_seq_len)
+            if request.stream is not None:
+                try:
+                    request.stream(request, tok, bool(final))
+                except Exception:
+                    pass  # a streaming consumer must not kill the engine
+            if final:
+                # the rest of the accepted run is discarded, never
+                # emitted; its KV writes are rolled back below
+                seq.finished = True
+                seq.dispatch_done = True
+                request._finish()
+                break
+        seq.pos = pos + n_emit
+        seq.n_dispatched = len(request.tokens)
+        if (len(request.tokens) >= request.max_new_tokens
+                or seq.pos >= self.max_seq_len):
+            seq.dispatch_done = True
+        keep = blocks_needed(seq.pos, self.pool.block_size)
+        dropped = self.pool.truncate_owner(seq, keep)
+        if dropped:
+            self.spec_blocks_rolled_back += len(dropped)
+            self.block_tables[seq.slot, keep:keep + len(dropped)] = \
+                self.pool.NULL_BLOCK
+        self.spec_emitted += n_emit
+        return n_emit
+
     # -- lagged result processing --------------------------------------
     def record_token(self, seq, gen_idx, token):
         """Fold one materialized decode output back into its sequence
@@ -305,10 +599,17 @@ class StepScheduler:
                 seq.request._finish()
             if seq.finished:
                 self.pool.free_owner(seq)
+                self._release_draft_state(seq)
                 self.slots[slot] = None
                 self.active[slot] = False
                 freed += 1
         return freed
+
+    def _release_draft_state(self, seq):
+        """Drop the drafter's per-sequence state (the n-gram suffix
+        index) when its sequence retires."""
+        if self.drafter is not None and hasattr(self.drafter, "release"):
+            self.drafter.release(seq.request.id)
 
     def fail_all(self, error):
         """Engine-fatal path: deliver ``error`` to every occupied slot
@@ -317,6 +618,7 @@ class StepScheduler:
             if seq is None:
                 continue
             self.pool.free_owner(seq)
+            self._release_draft_state(seq)
             if not seq.request.finished:
                 seq.request._finish(error)
                 _metrics.counter("serving/requests_failed").inc()

@@ -1,8 +1,16 @@
-"""chip_smoke.py's card-vs-CPU step check, run here with two CPU
-executors at a small width (vocab 256, d_model 128, 2 heads of 64, 2
-layers, d_ff 256, seq 128): it passes when the two runs agree, and its
-fp32 leg fails on each fault planted in the first run — an SGD update
-skipped, an update 1% too large, flash attention's dQ 1% too large."""
+"""chip_smoke.py's phases that run without the card, here on the CPU at
+a small width:
+
+  * the card-vs-CPU step check with two CPU executors (vocab 256,
+    d_model 128, 2 heads of 64, 2 layers, d_ff 256, seq 128): it passes
+    when the two runs agree, and its fp32 leg fails on each fault
+    planted in the first run — an SGD update skipped, an update 1% too
+    large, flash attention's dQ 1% too large;
+  * the speculative serving phase (vocab 128, d_model 64, 2 heads, 2
+    layers, d_ff 128; 6 repetitive prompts, 24 new tokens): its three
+    legs run token-identical to ``reference_decode`` with clean pools,
+    and a planted wrong verify-window token fails it, printing the
+    reference's top-2 logit margin at the differing position."""
 
 import importlib.util
 import pathlib
@@ -11,11 +19,16 @@ import pytest
 import torch
 
 import paddle_tpu_torch as fluid
+from paddle_tpu_torch.ops import paged_attention as pa
+from paddle_tpu_torch.ops import paged_attention_tree as pat
 from paddle_tpu_torch.ops import registry
+from paddle_tpu_torch.serving import GenerationModel
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CFG = dict(vocab_size=256, d_model=128, n_heads=2, n_layers=2, d_ff=256,
            seq_len=128)
+SPEC_CFG = dict(vocab_size=128, d_model=64, n_heads=2, n_layers=2, d_ff=128,
+                max_seq_len=128)
 
 
 @pytest.fixture
@@ -25,6 +38,8 @@ def smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     mod.TRAIN = dict(CFG)
+    mod.SPEC = dict(mod.SPEC, cfg=SPEC_CFG, n_requests=6, max_new_tokens=24,
+                    max_batch=4, block_size=4)
     return mod
 
 
@@ -96,3 +111,43 @@ def test_card_vs_cpu_fp32_catches_a_planted_fault(smoke, fault, monkeypatch,
         smoke.card_vs_cpu_phase(torch, fluid, program, "float32",
                                 devices=("cpu", "cpu"))
     assert "card vs CPU float32" in capsys.readouterr().err
+
+
+def test_spec_serving_phase_on_the_cpu(smoke, capsys):
+    """Three legs on one model: every request token-identical to
+    reference_decode, verify windows ran in the linear and tree legs,
+    tree slots were verified, each leg printed its line."""
+    _, legs = smoke.spec_serving_phase(torch, pa, pat, device="cpu")
+    assert [name for name, _ in smoke.SPEC["legs"]] == \
+        ["legacy", "linear", "tree"] == list(legs)
+    for leg in legs.values():
+        assert leg["reference_identical"] == leg["requests"] == 6
+        assert leg["generated_tokens"] == 6 * 24
+    assert legs["legacy"]["verify_windows"] == 0
+    assert legs["linear"]["verify_windows"] > 0
+    assert legs["tree"]["verify_windows"] > 0
+    assert legs["tree"]["tree_slots"] > 0
+    assert legs["linear"]["accept_rate"] > 0
+    assert capsys.readouterr().out.count("spec_serving ") == 3
+
+
+def test_spec_serving_phase_fails_on_a_wrong_token(smoke, monkeypatch,
+                                                   capsys):
+    """One verify window's greedy token planted wrong: the linear leg
+    fails, naming the request, the position and the margin there."""
+    calls = []
+    spec_step = GenerationModel.spec_step
+
+    def planted(self, *args, **kwargs):
+        out = spec_step(self, *args, **kwargs)
+        calls.append(1)
+        if len(calls) == 3:
+            out = (out + 1) % self.config.vocab_size
+        return out
+
+    monkeypatch.setattr(GenerationModel, "spec_step", planted)
+    with pytest.raises(SystemExit):
+        smoke.spec_serving_phase(torch, pa, pat, device="cpu")
+    err = capsys.readouterr().err
+    assert "spec linear" in err and "differs from reference_decode" in err
+    assert "top-2 logit margin" in err

@@ -108,10 +108,10 @@ def test_entry_points_refuse_to_run_without_cuda():
         pa._paged_attention_cuda(*args)
     with pytest.raises(RuntimeError, match="CUDA"):
         pa.load()
-    launches = pa.paged_attention.launches
+    launches = dict(pa.paged_attention.window_launches)
     out = pa.paged_attention(*args)  # CPU tensors: the plain version
     assert out.shape == (1, 1, 2, 32) and torch.isfinite(out).all()
-    assert pa.paged_attention.launches == launches
+    assert pa.paged_attention.window_launches == launches
     with pytest.raises(ValueError):
         resolve_device("meta")
 

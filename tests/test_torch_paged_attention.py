@@ -36,10 +36,11 @@ def _hold(k, v, q, table, pos):
                                 jnp.asarray(pos)))
     args = [torch.from_numpy(np.ascontiguousarray(a))
             for a in (k, v, q, table, pos)]
-    launches = pa.paged_attention.launches
+    launches = dict(pa.paged_attention.window_launches)
     plain = pa.paged_attention_reference(*args).numpy()
     wrapped = pa.paged_attention(*args).numpy()
-    assert pa.paged_attention.launches == launches  # CPU route: no kernel
+    # CPU route: no kernel
+    assert pa.paged_attention.window_launches == launches
     assert plain.shape == want.shape == q.shape
     np.testing.assert_allclose(plain, want, atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(wrapped, want, atol=1e-5, rtol=1e-5)
