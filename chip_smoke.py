@@ -59,6 +59,20 @@ Phases, each fatal on failure (exit code 1, no result line):
      parameter must agree. Twice: the headline bf16 program, and the
      same model in fp32 without AMP, where the updates do not round
      away and the limits are tight enough to see a skipped one.
+  8. int8 inference: the fused int8 matmul (K4) bitwise against its
+     plain version on an edge matrix (M 1/7/33 x K 1/5/129/2048 x N
+     1/3/129/32000), ties, saturation, strided and unaligned x, and at
+     the path's three shapes, where kernel, plain version, the library
+     yardstick (torch._int_mm, the product alone) and the fp32 matmul
+     are timed; then the fp32 LM's inference clone at batch 32,
+     calibrated on 4 batches and decorated full_int8, against the same
+     clone in fp32 (3 warm-up and 10 timed steps each): every loss
+     finite, K4 launched exactly once a dense layer a step (12 FFN, 2
+     lm_head chunks) and never by the fp32 clone, the int8 loss within
+     1% of the fp32 loss; a profiled int8 step. Last, the int8 program
+     card vs CPU at batch 2: every dense layer's output on the card
+     bitwise the plain version's on its own input, the loss to rtol
+     1e-4, a 1% act-scale fault caught at every layer.
 
 Then one JSON line ``{"kernels": [...]}`` and, last, the result line
 ``{"ok": true, "device": {...}}``.
@@ -75,6 +89,7 @@ import numpy as np
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12      # fp32 outside the tensor cores
 H100_BF16_FLOPS = 989e12     # bf16 tensor cores, dense
+H100_INT8_OPS = 1979e12      # int8 tensor cores, dense
 ATOL = 1e-4                  # fp32, different summation order
 # flash attention vs its plain version, |got - want| <= atol + rtol|want|,
 # (atol, rtol) for the output and for the three grads: fp32 sums in
@@ -384,14 +399,18 @@ def tree_kernel_phase(torch, pa_mod, pat_mod):
                    "region (yardstick)"}]
 
 
+def device_us(event):
+    """A profiler event's own device time in microseconds."""
+    us = getattr(event, "self_device_time_total", None)
+    return event.self_cuda_time_total if us is None else us
+
+
 def kernel_times(prof, steps, top=8):
     """(device busy seconds, the kernels with the most device time, per
     step) from a torch.profiler run over `steps` steps."""
     rows = []
     for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
+        us = device_us(e)
         if us > 0:
             rows.append((us, e.count, e.key))
     rows.sort(reverse=True)
@@ -851,9 +870,10 @@ def build_lm(fluid, dtype="bfloat16"):
     return main, startup, loss
 
 
-def lm_feed(torch, batch, device):
-    """bench.py's fixed batch: RandomState(0) tokens, labels shifted."""
-    rng = np.random.RandomState(0)
+def lm_feed(torch, batch, device, seed=0):
+    """bench.py's fixed batch: RandomState(0) tokens, labels shifted
+    (another seed: another batch of the same kind)."""
+    rng = np.random.RandomState(seed)
     toks = rng.randint(0, TRAIN["vocab_size"],
                        (batch, TRAIN["seq_len"])).astype(np.int32)
     labs = np.roll(toks, -1, axis=1).astype(np.int32)
@@ -1044,6 +1064,372 @@ def card_vs_cpu_phase(torch, fluid, program, dtype,
              % (len(params) - skip_caught, len(params)))
 
 
+# full-int8 inference (phase 8): the fp32 LM's inference clone under
+# quant.decorate(mode="full_int8") at bench.py's width, batch 32
+INT8 = dict(batch=32, calib_batches=4, warmup=3, steps=10)
+# K4's edge matrix: every (M, K, N) of these
+INT8_EDGES = dict(M=(1, 7, 33), K=(1, 5, 129, 2048), N=(1, 3, 129, 32000))
+
+
+def int8_path_shapes():
+    """K4's (M, K, N) on the int8 LM path a step, with its launches a
+    step: the two FFN layers of each layer and the lm_head's chunks."""
+    B, T = INT8["batch"], TRAIN["seq_len"]
+    D, F, V = TRAIN["d_model"], TRAIN["d_ff"], TRAIN["vocab_size"]
+    chunk = min(T, 256)              # transformer_fluid's head chunk
+    L = TRAIN["n_layers"]
+    return {"ffn1": ((B * T, D, F), L), "ffn2": ((B * T, F, D), L),
+            "lm_head": ((B * chunk, D, V), T // chunk)}
+
+
+def int8_inputs(torch, M, K, N, seed, x=None):
+    """K4's inputs on the card: x ~ 1.5 N(0, 1) (a few past the int8
+    range at act_scale 127/3), w over the whole int8 range with -128 at
+    every 7th element, a positive per-channel dq."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if x is None:
+        x = 1.5 * torch.randn(M, K, device="cuda", generator=gen)
+    w = torch.randint(-128, 128, (K, N), dtype=torch.int8, device="cuda",
+                      generator=gen)
+    w.view(-1)[::7] = -128
+    dq = (torch.rand(N, device="cuda", generator=gen) + 0.1) * (3 / 127 ** 2)
+    return x, w, dq, 127.0 / 3.0
+
+
+def int8_check(torch, im, x, w, dq, s, label):
+    """K4 against its plain version, bitwise (fp32 bit patterns)."""
+    got = im.int8_matmul(x, w, dq, s)
+    want = im.int8_matmul_reference(x, w, dq, s)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(
+            got.view(torch.int32), want.view(torch.int32)):
+        diff = (got - want).abs()
+        fail("int8_matmul %s differs from its plain version: max |diff| "
+             "%.3g, %d elements" % (label, float(diff.max()),
+                                    int((diff > 0).sum())))
+    return got
+
+
+def int8_kernel_phase(torch, im):
+    """K4 against its plain version on the card, bitwise: the edge
+    matrix, ties and saturation, strided and unaligned x, then the
+    path's three shapes, where kernel, plain version, torch._int_mm
+    (the product alone, on pre-quantized operands: the library
+    yardstick) and the fp32 torch.matmul the fp32 program pays are
+    timed."""
+    n = 0
+    for M in INT8_EDGES["M"]:
+        for K in INT8_EDGES["K"]:
+            for N in INT8_EDGES["N"]:
+                int8_check(torch, im, *int8_inputs(torch, M, K, N, seed=n),
+                           label="M=%d K=%d N=%d" % (M, K, N))
+                n += 1
+    # ties: x * 2 lands on k + 0.5; saturation past +-127.5 and +-inf
+    k = torch.arange(-300, 300, device="cuda", dtype=torch.float32)
+    _, w, dq, _ = int8_inputs(torch, 6, 100, 40, seed=100)
+    int8_check(torch, im, (k / 2 + 0.25).view(6, 100), w, dq, 2.0, "ties")
+    sat = torch.tensor([127.49, 127.5, 127.51, 300.0, 1e30, float("inf"),
+                        -127.5, -128.49, -128.5, -128.51, -300.0,
+                        -float("inf")], device="cuda")
+    _, w, dq, _ = int8_inputs(torch, 2, 12, 40, seed=101)
+    int8_check(torch, im, torch.stack([sat, sat.flip(0)]), w, dq, 1.0,
+               "saturation")
+    # strided: a sequence slice of [B, T, K] (16-byte rows), and a 2-D
+    # view with odd row stride and a 4-byte offset (the scalar loads)
+    base = 1.5 * torch.randn(4, 64, 132, device="cuda")
+    _, w, dq, s = int8_inputs(torch, 4 * 32, 132, 72, seed=102)
+    int8_check(torch, im, base[:, 32:], w, dq, s, "3-D sequence slice")
+    base = 1.5 * torch.randn(33, 131, device="cuda")
+    _, w, dq, s = int8_inputs(torch, 33, 129, 129, seed=103)
+    int8_check(torch, im, base[:, 1:130], w, dq, s, "unaligned 2-D view")
+    print("kernel int8_matmul: %d edge shapes (M %s, K %s, N %s), ties, "
+          "saturation, strided and unaligned x: bitwise its plain version"
+          % (n, INT8_EDGES["M"], INT8_EDGES["K"], INT8_EDGES["N"]),
+          flush=True)
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    rows = []
+    B, T = INT8["batch"], TRAIN["seq_len"]
+    for i, (name, ((M, K, N), _)) in enumerate(int8_path_shapes().items()):
+        if name == "lm_head":   # chunk 0's rows of h, read in place
+            h = 1.5 * torch.randn(B, T, K, device="cuda")
+            x = h[:, :M // B]
+        else:
+            x = 1.5 * torch.randn(B, T, K, device="cuda")
+        _, w, dq, s = int8_inputs(torch, M, K, N, seed=200 + i, x=x)
+        got = int8_check(torch, im, x, w, dq, s, "%s M=%d K=%d N=%d"
+                         % (name, M, K, N))
+        x2 = x.reshape(M, K)
+        qa = torch.clamp(torch.round(x2 * float(np.float32(s))), -128,
+                         127).to(torch.int8)
+        w32 = w.float()
+        ms = time_ms(torch, lambda: im.int8_matmul(x, w, dq, s), flush)
+        plain_ms = time_ms(torch, lambda: im.int8_matmul_reference(
+            x, w, dq, s), flush, iters=5)
+        fp32_ms = time_ms(torch, lambda: torch.matmul(x2, w32), flush)
+        # library yardstick: the int8 product alone, int32 out
+        if not torch.equal((torch._int_mm(qa, w).float() * dq)
+                           .view(torch.int32),
+                           got.reshape(M, N).view(torch.int32)):
+            fail("library yardstick torch._int_mm disagrees at %s" % name)
+        library_ms = time_ms(torch, lambda: torch._int_mm(qa, w), flush)
+        nbytes = M * K * 4 + K * N + N * 4 + M * N * 4
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S, 2 * M * K * N / \
+            H100_INT8_OPS
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        shape = "%s M=%d K=%d N=%d%s" % (
+            name, M, K, N, " (x a strided view)" if name == "lm_head" else "")
+        print("kernel int8_matmul %s: bitwise, %.4f ms (plain %.4f ms, "
+              "library %.4f ms, fp32 matmul %.4f ms, bound %.4f ms by %s)"
+              % (shape, ms, plain_ms, library_ms, fp32_ms, bound_ms,
+                 bound_by), flush=True)
+        rows.append({
+            "name": "int8_matmul", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/int8_matmul.cu",
+            "replaces": "paddle_tpu/ops/pallas_kernels.py:598",
+            "path_shape": name, "mkn": [M, K, N], "shape": shape,
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "library": "torch._int_mm on pre-quantized int8 operands: the "
+                       "product alone (yardstick)",
+            "fp32_matmul_ms": fp32_ms})
+        del x, w, dq, x2, qa, w32, got
+    torch.cuda.empty_cache()
+    return rows
+
+
+def dense_sites(program):
+    """[(activation, weight, output)] of every mul of the program: the
+    dense layers quant_rewrite turns into fused int8 matmuls; the
+    lm_head chunks' read the weight lm_head_w and output the logits."""
+    return [(op.input_names("X")[0], op.input_names("Y")[0],
+             op.output_names("Out")[0])
+            for op in program.global_block().ops if op.type == "mul"]
+
+
+def baked(scope, suffix):
+    """The one value quant_rewrite baked into `scope` for `suffix`
+    ("<weight>.int8", "<output>.qdq")."""
+    names = [n for n in scope.local_var_names()
+             if n.startswith("__quant__.") and n.endswith("." + suffix)]
+    if len(names) != 1:
+        fail("int8: %d baked scope entries end in %r" % (len(names), suffix))
+    return scope.get(names[0])
+
+
+def int8_phase(torch, fluid, im, program):
+    """The fp32 LM's inference clone at batch 32, calibrated on 4 batches
+    and decorated full_int8, against the same clone in fp32: 3 warm-up
+    and 10 timed steps each on bench.py's batch. Every loss finite, K4
+    launched exactly once a dense layer a step at the path's shapes (none
+    by the fp32 program), the int8 loss within 1% of the fp32 loss; then
+    the logits of both, the quant/* counters and a profiled int8 step.
+    Returns K4's launches by (M, K, N) in the int8 run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import quant
+    from paddle_tpu_torch.observability import metrics
+
+    main, startup, loss = program
+    B, warmup, steps = INT8["batch"], INT8["warmup"], INT8["steps"]
+    metrics.enable()
+    exe = fluid.Executor()                     # place None: cuda:0
+    if exe.device.type != "cuda":
+        fail("the executor resolved to %s, not the card" % exe.device)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.reset_peak_memory_stats()
+    infer = main.clone(for_test=True)
+    calib = [lm_feed(torch, B, exe.device, seed=s)
+             for s in range(1, 1 + INT8["calib_batches"])]
+    t0 = time.perf_counter()
+    table = quant.calibrate(infer, calib, scope=scope)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    del calib
+    int8 = quant.decorate(main.clone(for_test=True), "full_int8", table)
+    feed = lm_feed(torch, B, exe.device)
+    n = warmup + steps
+    want = {mkn: per_step * n
+            for mkn, per_step in int8_path_shapes().values()}
+    runs = {}
+    for name, prog in (("fp32", infer), ("int8", int8)):
+        torch.cuda.synchronize()
+        im.int8_matmul.launches.clear()            # main path starts
+        losses = []
+        for i in range(n):
+            if i == warmup:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+            out, = exe.run(prog, feed=feed, fetch_list=[loss], scope=scope,
+                           return_numpy=False)
+            losses.append(out)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = dict(im.int8_matmul.launches)   # main path ends
+        losses = [float(x.cpu()[0]) for x in losses]
+        if not all(np.isfinite(losses)):
+            fail("int8 inference: non-finite %s loss %r" % (name, losses))
+        if launches != (want if name == "int8" else {}):
+            fail("int8 inference: the %s program launched int8_matmul %r "
+                 "times by (M, K, N) over %d steps; expected %r"
+                 % (name, launches, n, want if name == "int8" else {}))
+        step_s = (t2 - t1) / steps
+        runs[name] = {"losses": losses, "ms_per_step": step_s * 1e3,
+                      "tokens_per_s": B * TRAIN["seq_len"] / step_s,
+                      "launches": launches}
+    l32, l8 = runs["fp32"]["losses"][-1], runs["int8"]["losses"][-1]
+    logits = [out for _, w, out in dense_sites(infer) if w == "lm_head_w"]
+    lo32 = exe.run(infer, feed=feed, fetch_list=logits, scope=scope,
+                   return_numpy=False)
+    lo8 = exe.run(int8, feed=feed, fetch_list=logits, scope=scope,
+                  return_numpy=False)
+    err = max(float((a - b).abs().max()) for a, b in zip(lo8, lo32))
+    top1 = float(sum(int((a.argmax(-1) == b.argmax(-1)).sum())
+                     for a, b in zip(lo8, lo32))
+                 / sum(a[..., 0].numel() for a in lo8))
+    del lo32, lo8
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        tp = time.perf_counter()
+        for _ in range(2):
+            exe.run(int8, feed=feed, fetch_list=[loss], scope=scope,
+                    return_numpy=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tp
+    busy_s, top = kernel_times(prof, 2, top=10)
+    k4_s = sum(device_us(e) for e in prof.key_averages()
+               if "int8_mm" in e.key) / 1e6
+    counters = {k: v for k, v in metrics.registry().to_dict()["counters"]
+                .items() if k.startswith("quant/")}
+    summary = {
+        "model": "Fluid-API Transformer LM, fp32 inference clone: vocab "
+                 "32000, d_model 512, 8 heads, 6 layers, d_ff 2048, seq 512",
+        "batch": B, "calib_batches": INT8["calib_batches"],
+        "calib_s": calib_s, "warmup_steps": warmup, "timed_steps": steps,
+        "loss_rel_diff": abs(l8 - l32) / abs(l32),
+        "logits_max_abs_err": err, "top1_agreement": top1,
+        "quant_counters": counters,
+        "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+    for name in runs:   # JSON keys: "MxKxN"
+        summary[name] = dict(runs[name], launches={
+            "x".join(map(str, k)): v
+            for k, v in runs[name]["launches"].items()})
+    print("int8_inference " + json.dumps(summary), flush=True)
+    print("int8_profile " + json.dumps({
+        "steps": 2, "wall_ms_per_step": wall * 1e3 / 2,
+        "device_busy_ms_per_step": busy_s * 1e3 / 2,
+        "device_busy_share": busy_s / wall,
+        "int8_matmul_ms_per_step": k4_s * 1e3 / 2,
+        "int8_matmul_share_of_busy": k4_s / busy_s,
+        "top_kernels": top}), flush=True)
+    if not abs(l8 - l32) <= 0.01 * abs(l32):
+        fail("int8 inference: loss %r is not within 1%% of the fp32 loss %r"
+             % (l8, l32))
+    return runs["int8"]["launches"]
+
+
+def int8_logits_excess(lo_got, lo_want, dq):
+    """(largest |diff| over its limit, share of rows that differ) of one
+    lm_head chunk's logits [B, T, V], against the bound
+    tests/test_torch_quant.py holds the port to the JAX package with: at
+    most 1 in 32 rows may differ, and those by at most 1e-5 + 16 * 127 *
+    dq[n]. The two sides run the
+    fp32 parts of the network (layer norms, attention, gelu, the GEMMs)
+    in other summation orders; quantizing turns that into an int8 step
+    only where x * act_scale lies that close to a rounding tie; one step
+    moves each of the row's outputs by at most 127 dq[n], and a step in
+    an FFN layer moves the rows after it, so a differing row may hold
+    several. A wrong quantization scale moves almost every row."""
+    diff = np.abs(lo_got - lo_want).reshape(-1, lo_got.shape[-1])
+    limit = 1e-5 + 16 * 127 * np.asarray(dq, np.float32)[None, :]
+    return (float((diff / limit).max()),
+            float((diff > 0).any(axis=1).mean()))
+
+
+def int8_card_vs_cpu_phase(torch, fluid, im, program,
+                           devices=("cuda:0", "cpu")):
+    """The int8 program from one set of weights and one table (made on
+    the card from its own batch), at batch 2, on cuda:0 (K4) and on the
+    CPU (the plain version). Every dense layer's output on the card must
+    be bitwise the plain version's on the card's own input, with the
+    weights, scales and dequantize vectors the CPU run baked; the loss to
+    rtol 1e-4; and both lm_head chunks' logits are read against
+    `int8_logits_excess`'s bound. A run on the card with every activation
+    range 1% too large must fail the layer check at every layer, or the
+    check could not see a wrong scale. `devices` is (card, reference);
+    the tests pass two CPUs."""
+    from paddle_tpu_torch import quant
+
+    main, startup, loss = program
+    exe_c, exe_h = fluid.Executor(devices[0]), fluid.Executor(devices[1])
+    scope_c, scope_h = fluid.Scope(), fluid.Scope()
+    exe_c.run(startup, scope=scope_c)
+    for name in scope_c.local_var_names():
+        if name != "__step_counter__":
+            scope_h.set(name, scope_c.get(name).to("cpu", copy=True))
+    infer = main.clone(for_test=True)
+    sites = dense_sites(infer)
+    heads = [out for _, w, out in sites if w == "lm_head_w"]
+    n = len(sites)
+    fetch = [loss] + [a for a, _, _ in sites] + [o for _, _, o in sites]
+    feed = lm_feed(torch, 2, exe_c.device)
+    table = quant.calibrate(infer, [feed], scope=scope_c, place=devices[0])
+    t0 = time.perf_counter()
+    card = exe_c.run(quant.decorate(main.clone(for_test=True), "full_int8",
+                                    table),
+                     feed=feed, fetch_list=fetch, scope=scope_c)
+    host = exe_h.run(quant.decorate(main.clone(for_test=True), "full_int8",
+                                    table),
+                     feed=lm_feed(torch, 2, exe_h.device), fetch_list=fetch,
+                     scope=scope_h)
+    seconds = time.perf_counter() - t0
+    wrong = quant.CalibrationTable.from_dict(table.to_dict())
+    wrong.acts = {k: v * 1.01 for k, v in wrong.acts.items()}
+    fault = exe_c.run(quant.decorate(main.clone(for_test=True), "full_int8",
+                                     wrong),
+                      feed=feed, fetch_list=fetch, scope=scope_c)
+
+    def layers_differing(run):
+        """Sites whose output is not bitwise the plain version's on the
+        run's own input, with the right table."""
+        bad = []
+        for i, (act, w, out) in enumerate(sites):
+            want = im.int8_matmul_reference(
+                torch.from_numpy(run[1 + i]), baked(scope_h, w + ".int8"),
+                baked(scope_h, out + ".qdq"),
+                127.0 / max(table.acts[act], 1e-8)).numpy()
+            if not np.array_equal(run[1 + n + i].view(np.int32),
+                                  want.view(np.int32)):
+                bad.append(out)
+        return bad
+
+    bad, fault_caught = layers_differing(card), layers_differing(fault)
+    loss_rel = abs(float(card[0][0]) - float(host[0][0])) / abs(
+        float(host[0][0]))
+    chunks = [int8_logits_excess(card[1 + n + i], host[1 + n + i],
+                                 baked(scope_h, out + ".qdq").numpy())
+              for i, (_, _, out) in enumerate(sites) if out in heads]
+    report = {"batch": 2, "dense_layers": n, "layers_not_bitwise": bad,
+              "loss_cuda": float(card[0][0]), "loss_cpu": float(host[0][0]),
+              "loss_rel_diff": loss_rel,
+              "logits_excess_and_rows_differing": chunks,
+              "act_scale_1pct_fault_layers_caught": len(fault_caught),
+              "seconds": seconds}
+    print("int8_card_vs_cpu " + json.dumps(report), flush=True)
+    if bad:
+        fail("int8 card vs CPU: %d of %d dense layers are not bitwise the "
+             "plain version on their own input: %s" % (len(bad), n, bad))
+    if not loss_rel <= 1e-4:
+        fail("int8 card vs CPU: losses %r vs %r (rel %.3g > 1e-4)"
+             % (float(card[0][0]), float(host[0][0]), loss_rel))
+    if len(fault_caught) != n:
+        fail("int8 card vs CPU: a 1%% act-scale fault passes the layer check "
+             "at %d of %d layers" % (n - len(fault_caught), n))
+
+
 def main():
     try:
         import torch
@@ -1064,6 +1450,7 @@ def main():
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa_mod
+    from paddle_tpu_torch.ops import int8_matmul as im_mod
     from paddle_tpu_torch.ops import paged_attention as pa_mod
     from paddle_tpu_torch.ops import paged_attention_tree as pat_mod
 
@@ -1097,8 +1484,15 @@ def main():
     flash_rows[0]["launches"], flash_rows[1]["launches"] = fwd, bwd
     card_vs_cpu_phase(torch, fluid, program, "bfloat16")
     del program
-    card_vs_cpu_phase(torch, fluid, build_lm(fluid, "float32"), "float32")
-    print(json.dumps({"kernels": rows + tree_rows + flash_rows}), flush=True)
+    program = build_lm(fluid, "float32")
+    card_vs_cpu_phase(torch, fluid, program, "float32")
+    int8_rows = int8_kernel_phase(torch, im_mod)
+    int8_launches = int8_phase(torch, fluid, im_mod, program)
+    for row in int8_rows:
+        row["launches"] = int8_launches.get(tuple(row["mkn"]), 0)
+    int8_card_vs_cpu_phase(torch, fluid, im_mod, program)
+    print(json.dumps({"kernels": rows + tree_rows + flash_rows + int8_rows}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,8 +5,11 @@ It imports torch and numpy, never jax and nothing of ``paddle_tpu``.
 Entry points run on the card (``cuda:0``) unless the caller passes
 ``"cpu"``; kernels are hand-written for Hopper and built from ``csrc/``
 at first use. Ported so far: the serving decode path
-(``paddle_tpu_torch.serving``, loaded on demand) and the Fluid API's
-training path of the flagship Transformer LM:
+(``paddle_tpu_torch.serving``, loaded on demand), the Fluid API's
+training path of the flagship Transformer LM, and its full-int8
+inference (``quant.calibrate`` -> ``quant.decorate(program,
+"full_int8", table)`` -> ``Executor.run``, each dense layer one fused
+int8 matmul):
 
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import transformer_fluid
@@ -24,7 +27,7 @@ training path of the flagship Transformer LM:
 """
 
 from . import (contrib, flags, initializer, io, layers, nets,  # noqa: F401
-               optimizer, unique_name)
+               optimizer, quant, unique_name)
 from .backward import append_backward  # noqa: F401
 from .core.scope import Scope, global_scope  # noqa: F401
 from .executor import Executor  # noqa: F401
@@ -36,4 +39,4 @@ __all__ = ["Executor", "ParamAttr", "Program", "Scope", "Variable",
            "append_backward", "contrib", "default_main_program",
            "default_startup_program", "flags", "global_scope",
            "initializer", "io", "layers", "nets", "optimizer",
-           "program_guard", "unique_name"]
+           "program_guard", "quant", "unique_name"]

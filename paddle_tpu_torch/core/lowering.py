@@ -26,6 +26,16 @@ from ..ops import registry
 
 __all__ = ["LoweringContext", "execute_block", "execute_op"]
 
+# op types that the JAX package's executor runs outside the traced step
+# (feeds, readers, RPC) and op types with a bespoke lowering (control
+# flow). The port runs neither kind; program passes leave them alone
+# (quant.py's site scan reads both, as the JAX package's does).
+_STRUCTURAL = frozenset({
+    "feed", "fetch", "read", "double_buffer", "create_py_reader", "data",
+    "depend", "send", "recv", "send_barrier", "fetch_barrier",
+    "listen_and_serv", "checkpoint_notify", "gen_nccl_id"})
+_SPECIAL = {}
+
 
 class LoweringContext:
     """What op kernels see of the run: the device, per-op random

@@ -9,15 +9,22 @@ scope tensors the step reads and which it writes — and the step's memory
 plan (when each intermediate can be dropped). Parameters are updated in
 place in the scope, as the JAX step does by donating its state.
 
-Not ported: the asynchronous in-flight window, `prefetch`, the program
-optimization passes, compile telemetry, RPC ops and the nan checks. A
-CUDA graph of the step is later work.
+At a cache miss the program goes through the pass pipeline
+(``ir_passes.optimize_for_execution``): with a quantization config in
+effect (``quant.decorate``, ``PTPU_QUANT=1``) the step runs the
+``quant_rewrite`` clone, and the config's key is part of the cache key.
+Persistables the pass baked (int8 weights, scales) are read back
+through ``ir_passes.state_fallback`` into a scope that lacks them.
+
+Not ported: the asynchronous in-flight window, `prefetch`, the other
+program optimization passes, compile telemetry, RPC ops and the nan
+checks. A CUDA graph of the step is later work.
 """
 
 import numpy as np
 import torch
 
-from . import framework
+from . import framework, ir_passes
 from .core.lowering import LoweringContext, execute_block
 from .core.place import resolve_device
 from .core.scope import global_scope
@@ -111,6 +118,12 @@ class _Step:
         for name in self.state_in:
             val = scope.get(name)
             if val is None:
+                # a compile-time constant of this step (a baked int8
+                # weight) heals into whatever scope the step runs against
+                val = ir_passes.state_fallback(self.program, name)
+                if val is not None:
+                    scope.set(name, val)
+            if val is None:
                 raise RuntimeError(
                     "persistable var %r is not initialized — run the "
                     "startup program first (exe.run(startup_program))"
@@ -158,12 +171,18 @@ class Executor:
         fetch_names = [v.name if isinstance(v, framework.Variable)
                        else str(v) for v in (fetch_list or [])]
         key = (id(program), program.version, _feed_signature(feed),
-               tuple(fetch_names))
+               tuple(fetch_names), ir_passes.pipeline_key(program))
         step = self._cache.get(key)
         if step is None:
-            step = self._cache[key] = _Step(program, feed.keys(),
+            run_program = ir_passes.optimize_for_execution(
+                program, fetch_names, scope, self.device)
+            step = self._cache[key] = _Step(run_program, feed.keys(),
                                             fetch_names)
         fetches = step.run(scope, feed, self.device)
         if return_numpy:
             return [_to_numpy(t) for t in fetches]
         return fetches
+
+    def close(self):
+        """Drop the cached steps (and the compiled clones they hold)."""
+        self._cache.clear()

@@ -29,7 +29,8 @@ def env_flag(name, raw=None):
 
 class EnvFlag:
     """One declared PTPU_* environment switch: name, type ('bool',
-    'int'), default (returned when unset/empty), docstring."""
+    'int', 'str', 'path': a path switched off by 0/false/off/no),
+    default (returned when unset/empty), docstring."""
 
     __slots__ = ("name", "type", "default", "doc")
 
@@ -50,6 +51,9 @@ class EnvFlag:
                 return int(raw)
             except ValueError:
                 raise ValueError("%s=%r is not an int" % (self.name, raw))
+        if self.type == "path" and raw.strip().lower() in (
+                "0", "false", "off", "no"):
+            return self.default
         return raw
 
 
@@ -73,6 +77,17 @@ _declare("PTPU_SERVE_SPEC_TREE", "str", None,
          "verify a W-branch token tree of depth D per step via the "
          "in-window tree attention mask; unset/0/off = the linear "
          "PTPU_SERVE_SPEC_K window")
+_declare("PTPU_QUANT", "bool", False,
+         "activate the int8 quant_rewrite pass process-wide")
+_declare("PTPU_QUANT_MODE", "str", "weight_only",
+         "quantization mode when activated via PTPU_QUANT "
+         "(weight_only or full_int8)")
+_declare("PTPU_QUANT_TABLE", "path", None,
+         "calibration-table JSON (quant.CalibrationTable.save) supplying "
+         "activation ranges for full_int8")
+_declare("PTPU_QUANT_BLACKLIST", "str", None,
+         "comma-separated var names whose ops are pinned fp32 by the "
+         "quant_rewrite pass")
 
 
 def env(name):

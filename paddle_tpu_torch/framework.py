@@ -10,6 +10,7 @@ optimizers build the same programs as the JAX package. The executor
 """
 
 import contextlib
+import copy
 
 import numpy as np
 import torch
@@ -235,12 +236,87 @@ class Program:
     def all_parameters(self):
         return self.global_block().all_parameters()
 
+    @staticmethod
+    def _is_train_only_op(op):
+        """Backward and optimizer ops, pruned by clone(for_test=True)."""
+        if "__fwd_op__" in op.attrs or op.type.endswith("_grad"):
+            return True
+        if op.type in _OPTIMIZER_OP_TYPES or op.type in _AMP_STATE_OP_TYPES:
+            return True
+        if op.attrs.get("__amp_state__"):
+            return True
+        # the loss-grad seed: a fill op writing only @GRAD outputs
+        outs = op.output_names()
+        return bool(outs) and all(n.endswith(GRAD_VAR_SUFFIX) for n in outs)
+
+    def clone(self, for_test=False):
+        """Copy the program. With for_test=True, switch train-only op
+        behavior to inference mode and prune the backward and optimizer
+        ops. A quantization decoration (``quant.decorate``) travels with
+        the copy."""
+        p = Program()
+        p.random_seed = self.random_seed
+        p.blocks = [Block(p, blk.idx) for blk in self.blocks]
+        for blk, nb in zip(self.blocks, p.blocks):
+            for name, v in blk.vars.items():
+                nv = copy.copy(v)
+                nv.block = nb
+                if isinstance(v, Parameter):
+                    nv.optimize_attr = dict(v.optimize_attr)
+                nb.vars[name] = nv
+        op_map = {}  # id(original op) -> cloned op
+        for blk, nb in zip(self.blocks, p.blocks):
+            for op in blk.ops:
+                if for_test and self._is_train_only_op(op):
+                    continue
+                attrs = dict(op.attrs)
+                if for_test and "is_test" in _TEST_MODE_OPS.get(op.type, ()):
+                    attrs["is_test"] = True
+                op_map[id(op)] = nb.append_op(
+                    op.type,
+                    inputs={k: [nb.var(v.name) for v in vs]
+                            for k, vs in op.inputs.items()},
+                    outputs={k: [nb.var(v.name) for v in vs]
+                             for k, vs in op.outputs.items()},
+                    attrs=attrs)
+        # grad ops hold their forward op: point them at the cloned one
+        for nb in p.blocks:
+            for op in nb.ops:
+                for k, v in op.attrs.items():
+                    if isinstance(v, Operator) and id(v) in op_map:
+                        op.attrs[k] = op_map[id(v)]
+        p.param_grad_map = dict(self.param_grad_map)
+        if getattr(self, "_quant_config", None) is not None:
+            p._quant_config = self._quant_config
+        return p
+
     def __repr__(self):
         lines = []
         for blk in self.blocks:
             lines.append("-- block %d --" % blk.idx)
             lines.extend("  " + repr(op) for op in blk.ops)
         return "\n".join(lines)
+
+
+# ops whose attrs hold an `is_test` switch that clone(for_test=True) sets
+_TEST_MODE_OPS = {
+    "dropout": ("is_test",),
+    "batch_norm": ("is_test",),
+    "layer_norm": (),
+}
+
+# parameter-update op types
+_OPTIMIZER_OP_TYPES = frozenset([
+    "sgd", "momentum", "lars_momentum", "adagrad", "adam", "adamax",
+    "adadelta", "decayed_adagrad", "rmsprop", "ftrl", "lamb",
+    "dgc_momentum", "proximal_gd", "proximal_adagrad",
+])
+
+# AMP loss-scaling ops: they read @GRAD vars and update the scaling state,
+# so they are train-only and pruned with the backward ops
+_AMP_STATE_OP_TYPES = frozenset([
+    "check_finite_and_unscale", "update_loss_scaling",
+])
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Core math and tensor-creation ops (parity: the JAX package's
 ``ops/math.py`` fill_constant :21, fill_any_like :48, uniform_random :60,
-gaussian_random, shape :110, mul :223, scale :238, sum :245, cast :254)."""
+gaussian_random, shape :110, fused_int8_matmul :193, mul :223, scale
+:238, sum :245, cast :254)."""
 
 import numpy as np
 import torch
@@ -61,6 +62,28 @@ def _amp_dot(x, y, attrs):
     return torch.matmul(x, y)
 
 
+def _int8_dot(x, y):
+    """quant_rewrite-marked product of int8 operands, exact in int32 (the
+    JAX op's ``preferred_element_type=int32``): an int32 product on the
+    CPU; on a card, where there is none, a float64 one, exact while
+    |acc| < 2^53. The per-channel dequantize is a separate
+    `dequantize_linear` op."""
+    if x.device.type == "cpu":
+        return x.to(torch.int32) @ y.to(torch.int32)
+    return (x.to(torch.float64) @ y.to(torch.float64)).to(torch.int32)
+
+
+def _quant_int8(x, y, attrs):
+    return (attrs.get("__quant_int8__") and not x.is_floating_point()
+            and not y.is_floating_point())
+
+
+def _flatten2(t, n):
+    """`t` as the 2-D matrix Fluid's mul sees: dims before n are rows."""
+    s = tuple(t.shape)
+    return t.reshape(int(np.prod(s[:n])), int(np.prod(s[n:])))
+
+
 @register("mul")
 def _mul(ctx, ins, attrs):
     """Fluid `mul`: flatten x to 2-D at x_num_col_dims, y at
@@ -68,10 +91,34 @@ def _mul(ctx, ins, attrs):
     x, y = ins["X"][0], ins["Y"][0]
     xn = attrs.get("x_num_col_dims", 1)
     yn = attrs.get("y_num_col_dims", 1)
-    xs, ys = tuple(x.shape), tuple(y.shape)
-    x2 = x.reshape(int(np.prod(xs[:xn])), int(np.prod(xs[xn:])))
-    y2 = y.reshape(int(np.prod(ys[:yn])), int(np.prod(ys[yn:])))
-    return {"Out": [_amp_dot(x2, y2, attrs).reshape(xs[:xn] + ys[yn:])]}
+    x2, y2 = _flatten2(x, xn), _flatten2(y, yn)
+    out = _int8_dot(x2, y2) if _quant_int8(x2, y2, attrs) \
+        else _amp_dot(x2, y2, attrs)
+    return {"Out": [out.reshape(tuple(x.shape[:xn]) + tuple(y.shape[yn:]))]}
+
+
+@register("fused_int8_matmul", differentiable=False)
+def _fused_int8_matmul(ctx, ins, attrs):
+    """quant_rewrite's fused full-int8 dense layer (one op instead of the
+    quantize -> int8 mul -> dequantize_linear chain): X fp32 activation,
+    Y [K, N] int8 weight, Scale [N] combined per-output-channel
+    dequantize vector, attr `act_scale` the activation quantize scale.
+    Runs the kernel K4 (``ops/int8_matmul.py``); with x_num_col_dims set
+    it has mul's semantics: the leading dims of X are the rows, handed to
+    the kernel as a view (strided rows, as the lm_head's sliced input
+    is), and Y is flattened at y_num_col_dims."""
+    from .int8_matmul import int8_matmul
+
+    x, y = ins["X"][0], ins["Y"][0]
+    dq = ins["Scale"][0]
+    act_scale = float(attrs["act_scale"])
+    xn = attrs.get("x_num_col_dims")
+    if xn is None:  # plain 2-D matmul
+        return {"Out": [int8_matmul(x, y, dq, act_scale)]}
+    yn = int(attrs.get("y_num_col_dims", 1))
+    x2 = x if x.dim() == xn + 1 else _flatten2(x, xn)
+    out = int8_matmul(x2, _flatten2(y, yn), dq, act_scale)
+    return {"Out": [out.reshape(tuple(x.shape[:xn]) + tuple(y.shape[yn:]))]}
 
 
 @simple_op("scale")

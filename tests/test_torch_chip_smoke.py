@@ -6,6 +6,10 @@ a small width:
     when the two runs agree, and its fp32 leg fails on each fault
     planted in the first run — an SGD update skipped, an update 1% too
     large, flash attention's dQ 1% too large;
+  * the int8 card-vs-CPU check with two CPU executors (the same width,
+    fp32, full-int8): it passes when the two runs agree, reads the
+    bound for a 1% act-scale fault, and fails on such a fault planted
+    in the first run's fused int8 matmuls;
   * the speculative serving phase (vocab 128, d_model 64, 2 heads, 2
     layers, d_ff 128; 6 repetitive prompts, 24 new tokens): its three
     legs run token-identical to ``reference_decode`` with clean pools,
@@ -19,6 +23,7 @@ import pytest
 import torch
 
 import paddle_tpu_torch as fluid
+from paddle_tpu_torch.ops import int8_matmul as im
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops import paged_attention_tree as pat
 from paddle_tpu_torch.ops import registry
@@ -66,15 +71,19 @@ def _dq_one_percent(impl, ctx, ins, attrs):
     return impl(ctx, dict(ins, Q=[_ScaleGrad.apply(ins["Q"][0])]), attrs)
 
 
+def _act_scale_one_percent(impl, ctx, ins, attrs):
+    return impl(ctx, ins, dict(attrs, act_scale=attrs["act_scale"] / 1.01))
+
+
 FAULTS = {"skip_sgd": ("sgd", _skip_sgd),
           "lr_1pct": ("sgd", _lr_one_percent),
           "dq_1pct": ("flash_attention", _dq_one_percent)}
 
 
-def _plant(monkeypatch, smoke, fault):
-    """Run `fault` in place of its op while the first executor steps:
-    the phase makes the first executor's feed before its two steps and
-    the second's after them."""
+def _plant(monkeypatch, smoke, op, wrong):
+    """Run `wrong` in place of op `op` while the first executor runs:
+    the phases make the first executor's feed before its run and the
+    second's after it."""
     feeds = []
     make_feed = smoke.lm_feed
 
@@ -82,7 +91,6 @@ def _plant(monkeypatch, smoke, fault):
         feeds.append(device)
         return make_feed(torch_, batch, device)
 
-    op, wrong = FAULTS[fault]
     opdef = registry.get(op)
     impl = opdef.impl
 
@@ -106,11 +114,36 @@ def test_card_vs_cpu_passes_when_the_runs_agree(smoke, dtype, capsys):
 def test_card_vs_cpu_fp32_catches_a_planted_fault(smoke, fault, monkeypatch,
                                                   capsys):
     program = smoke.build_lm(fluid, "float32")
-    _plant(monkeypatch, smoke, fault)
+    _plant(monkeypatch, smoke, *FAULTS[fault])
     with pytest.raises(SystemExit):
         smoke.card_vs_cpu_phase(torch, fluid, program, "float32",
                                 devices=("cpu", "cpu"))
     assert "card vs CPU float32" in capsys.readouterr().err
+
+
+def test_int8_card_vs_cpu_passes_when_the_runs_agree(smoke, capsys):
+    """Two CPU runs of one int8 program agree; the phase's reading of a
+    1% act-scale fault fails the logits bound (else the phase fails)."""
+    smoke.int8_card_vs_cpu_phase(torch, fluid, im,
+                                 smoke.build_lm(fluid, "float32"),
+                                 devices=("cpu", "cpu"))
+    out = capsys.readouterr().out
+    assert '"layers_not_bitwise": []' in out
+    assert '"loss_rel_diff": 0.0' in out
+    assert '"logits_excess_and_rows_differing": [[0.0, 0.0]]' in out
+    assert '"act_scale_1pct_fault_layers_caught": 5' in out
+
+
+def test_int8_card_vs_cpu_catches_a_planted_fault(smoke, monkeypatch,
+                                                  capsys):
+    """Every fused int8 matmul of the first run quantizes its activation
+    at a scale 1% off: the logits check fails."""
+    program = smoke.build_lm(fluid, "float32")
+    _plant(monkeypatch, smoke, "fused_int8_matmul", _act_scale_one_percent)
+    with pytest.raises(SystemExit):
+        smoke.int8_card_vs_cpu_phase(torch, fluid, im, program,
+                                     devices=("cpu", "cpu"))
+    assert "dense layers are not bitwise" in capsys.readouterr().err
 
 
 def test_spec_serving_phase_on_the_cpu(smoke, capsys):

@@ -90,3 +90,28 @@ def test_programs_match_the_jax_package(dtype, amp):
     assert {"lm_head_w", "embedding_0.w_0", "fc_0.w_0",
             "fused_multihead_attention_0_wq"} <= set(params)
     assert p_main.param_grad_map == j_main.param_grad_map
+
+
+@pytest.mark.parametrize("for_test", [False, True])
+def test_clone_matches_the_jax_package(for_test):
+    """``Program.clone``: for_test=True prunes the backward, optimizer and
+    loss-scaling ops as the JAX package's clone does (the bf16 program
+    under the AMP decorator has all three), for_test=False keeps every
+    op; grad ops point at the clone's own forward ops."""
+    j_main, _ = _build(jfluid, j_tf, j_unique, "bfloat16", True)
+    p_main, _ = _build(pfluid, p_tf, p_unique, "bfloat16", True)
+    j_clone, p_clone = (j_main.clone(for_test=for_test),
+                        p_main.clone(for_test=for_test))
+    assert _ops(p_clone) == _ops(j_clone)
+    assert _vars(p_clone) == _vars(j_clone)
+    types = [op.type for op in p_clone.global_block().ops]
+    if for_test:
+        assert "sgd" not in types and len(types) < len(p_main.global_block()
+                                                         .ops)
+        assert not any("__fwd_op__" in op.attrs
+                       for op in p_clone.global_block().ops)
+    else:
+        assert types == [op.type for op in p_main.global_block().ops]
+        ops = p_clone.global_block().ops
+        assert all(op.attrs["__fwd_op__"] in ops for op in ops
+                   if "__fwd_op__" in op.attrs)

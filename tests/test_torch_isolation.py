@@ -7,6 +7,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -136,3 +137,37 @@ def test_training_entry_points_refuse_to_run_without_cuda():
                                0.125)
     with pytest.raises(RuntimeError, match="CUDA"):
         fa.load()
+
+
+def test_int8_entry_points_refuse_to_run_without_cuda():
+    """A decorated full-int8 program given `Executor()` (cuda:0) raises
+    before it runs anything; the K4 loader raises instead of building or
+    loading a library, and the kernel route raises on CPU tensors. None
+    of them runs the plain version quietly: its launch count stays."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the no-CUDA path; this machine has a card")
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import quant
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import int8_matmul as im
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[8], dtype="float32")
+        out = fluid.layers.fc(x, 4)
+    table = quant.CalibrationTable(acts={"x": 1.0})
+    infer = quant.decorate(main.clone(for_test=True), "full_int8", table)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fluid.Executor().run(infer, feed={"x": np.zeros((2, 8), np.float32)},
+                             fetch_list=[out])
+    launches = dict(im.int8_matmul.launches)
+    loaded = dict(_build._loaded)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        im.load()
+    assert _build._loaded == loaded and "int8_matmul" not in loaded
+    args = (torch.zeros(2, 8), torch.zeros(8, 4, dtype=torch.int8),
+            torch.ones(4), 1.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        im._int8_matmul_cuda(*args)
+    assert im.int8_matmul(*args).shape == (2, 4)   # CPU: the plain version
+    assert im.int8_matmul.launches == launches

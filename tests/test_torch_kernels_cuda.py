@@ -183,3 +183,71 @@ def test_flash_attention_kernels_match_plain_on_card(B, H, Tq, Tk, causal,
         np.testing.assert_allclose(got.detach().float().cpu().numpy(),
                                    want.detach().float().cpu().numpy(),
                                    err_msg=name, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 7, 33])
+@pytest.mark.parametrize("K,N", [(1, 1), (5, 3), (129, 129), (2048, 129),
+                                 (129, 32000), (64, 4)])
+def test_int8_matmul_kernel_matches_plain_on_card(M, K, N):
+    """K4 against its plain version on the card, bitwise (fp32 bit
+    patterns, so the sign of a zero counts): tails of M, N and K, w
+    holding -128, a few activations past the int8 range, one that
+    rounds to -0.0; also through a strided 3-D view of x."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from paddle_tpu_torch.ops import int8_matmul as im
+
+    rng = np.random.RandomState(M * 1000 + K + N)
+    dev = torch.device("cuda")
+    x_np = (1.5 * rng.randn(M, 2, K)).astype(np.float32)
+    x_np[0, :, 0] = -1e-4   # quantizes to -0.0: the sums must be +0
+    base = torch.from_numpy(x_np).to(dev)
+    w_np = rng.randint(-128, 128, size=(K, N)).astype(np.int8)
+    w_np.flat[::7] = -128
+    w = torch.from_numpy(w_np).to(dev)
+    dq = torch.from_numpy(((rng.rand(N) + 0.1) * 3 / 127 ** 2)
+                          .astype(np.float32)).to(dev)
+    for x in (base[:, 0].contiguous(), base[:, 1:]):
+        key = (M, K, N)
+        launches = im.int8_matmul.launches.get(key, 0)
+        got = im.int8_matmul(x, w, dq, 127.0 / 3.0)
+        want = im.int8_matmul_reference(x, w, dq, 127.0 / 3.0)
+        torch.cuda.synchronize()
+        assert im.int8_matmul.launches[key] == launches + 1
+        assert got.shape == want.shape == tuple(x.shape[:-1]) + (N,)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_int8_matmul_wrapper_checks_on_card():
+    """The wrapper refuses what the kernel does not take, naming it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from paddle_tpu_torch.ops import int8_matmul as im
+
+    dev = torch.device("cuda")
+    x = torch.zeros(4, 8, device=dev)
+    w = torch.zeros(8, 6, dtype=torch.int8, device=dev)
+    dq = torch.ones(6, device=dev)
+    with pytest.raises(TypeError, match="w_int8 must be torch.int8"):
+        im.int8_matmul(x, w.float(), dq, 1.0)
+    with pytest.raises(TypeError, match="x must be torch.float32"):
+        im.int8_matmul(x.half(), w, dq, 1.0)
+    with pytest.raises(TypeError, match="dq_scale must be torch.float32"):
+        im.int8_matmul(x, w, dq.double(), 1.0)
+    with pytest.raises(ValueError, match="do not match"):
+        im.int8_matmul(torch.zeros(4, 7, device=dev), w, dq, 1.0)
+    with pytest.raises(ValueError, match="do not match"):
+        im.int8_matmul(x, w, torch.ones(5, device=dev), 1.0)
+    with pytest.raises(ValueError, match=r"x must be \[..., K\]"):
+        im.int8_matmul(torch.zeros(8, device=dev), w, dq, 1.0)
+    with pytest.raises(ValueError, match="dq_scale is on cpu"):
+        im.int8_matmul(x, w, dq.cpu(), 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        im.int8_matmul(x, torch.zeros(6, 8, dtype=torch.int8,
+                                      device=dev).t(), dq, 1.0)
+    with pytest.raises(ValueError, match="exact only for K"):
+        im.int8_matmul(torch.zeros(1, 1 << 17, device=dev),
+                       torch.zeros(1 << 17, 1, dtype=torch.int8, device=dev),
+                       torch.ones(1, device=dev), 1.0)

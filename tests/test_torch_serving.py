@@ -13,6 +13,8 @@ size (2 layers, d_model 32, 2 heads, vocab 64), on the CPU:
       block for block the JAX pool's.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -179,6 +181,12 @@ def test_admission_control():
             engine.submit([1] * 10, max_new_tokens=10)  # needs 5 blocks
         assert engine.generate([1, 2], max_new_tokens=3, timeout=60) == \
             port.reference_decode(model, [1, 2], 3)
+        # the request finishes when its last token lands; the worker
+        # frees its blocks at its next reap, a moment later
+        deadline = time.monotonic() + 30
+        while engine.stats()["blocks_in_use"] and \
+                time.monotonic() < deadline:
+            time.sleep(0.01)
         assert engine.stats()["blocks_in_use"] == 0
     with port.ServingEngine(model, max_batch=2, max_seq_len=32,
                             block_size=4, device="cpu") as engine:

@@ -57,22 +57,65 @@ def bf16_ulp(x):
     return np.exp2(np.floor(np.log2(mag)) - 7).astype(np.float32)
 
 
-@pytest.mark.parametrize("dtype,amp", [("float32", None),
-                                       ("bfloat16", "static"),
-                                       ("bfloat16", "scaled")])
-def test_two_sgd_steps_match_jax(dtype, amp):
+def fp32_ulp(x):
+    """The spacing of fp32 numbers at |x| (24 significant bits)."""
+    mag = np.maximum(np.abs(x), np.float32(2.0 ** -126))
+    return np.exp2(np.floor(np.log2(mag)) - 23).astype(np.float32)
+
+
+def _set_jax_init_counters(value):
+    """Set the JAX package's session-global init counters, which pick
+    the initial weights its startup program draws."""
+    from paddle_tpu import initializer, layer_helper
+
+    initializer._global_seed_counter[0] = value
+    layer_helper._op_seed_counter[0] = value
+
+
+@pytest.fixture(autouse=True)
+def _pin_jax_init_draw():
+    """Every test here starts the JAX startup program from counters at 0,
+    whichever JAX test files ran before it in this process, and leaves
+    them as it found them (the contract of tests/test_quant.py)."""
+    from paddle_tpu import initializer, layer_helper
+
+    saved = (initializer._global_seed_counter[0],
+             layer_helper._op_seed_counter[0])
+    _set_jax_init_counters(0)
+    yield
+    (initializer._global_seed_counter[0],
+     layer_helper._op_seed_counter[0]) = saved
+
+
+CASES = [("float32", None), ("bfloat16", "static"), ("bfloat16", "scaled")]
+# counter values of the init-draw sweep: the draw a fresh process makes
+# (0), draws earlier failures were seen at (500), and others
+DRAWS = (0, 1, 2, 3, 7, 11, 19, 40, 64, 99, 123, 200, 257, 333, 500, 640,
+         777, 1000, 1234, 2048, 4321, 9999)
+
+
+def two_sgd_steps_match_jax(dtype, amp):
     """Per-step loss and every persistable after step 2.
 
-    fp32: losses to rtol 1e-5, and each parameter's update (after minus
-    before) to rtol 1e-4 plus 3e-8 (4 fp32 ulps at the weights' 0.125
-    scale: the two packages sum in different orders).
+    fp32: losses to rtol 1e-5, and each element of each parameter's
+    update (after minus before) to rtol 1e-4 of the JAX update plus the
+    larger of 3e-8 (4 fp32 ulps at the weights' 0.125 scale: the two
+    packages sum in different orders) and 2 fp32 ulps of the JAX
+    parameter: a parameter near 1.0 (a layer-norm scale) rounds its
+    update at ulps of 1.19e-7, so one rounding that goes the other way,
+    once a step, moves the update by an ulp there.
     bf16 (legacy AMP at a static loss scale of 1, and of 1024, which
     runs check_finite_and_unscale): losses to rtol 1e-3; every element
-    of every parameter within 2 bf16 ulps of its own magnitude (bf16
-    rounds at other places in the two packages, so a sub-ulp update may
-    round the other way, once a step) plus 2^-8 of the step's largest
-    update (a bf16 grad carries 8 significant bits of the terms it sums;
-    near-zero biases show it)."""
+    of every parameter within 2 bf16 ulps of the larger of its start and
+    its JAX result (bf16 rounds at other places in the two packages, so
+    a sub-ulp update may round the other way once a step, at the ulp of
+    the start when the update crosses a power of two) plus 2^-8 of the
+    two steps' largest update once a step (a bf16 grad carries 8
+    significant bits of the terms it sums; near-zero biases show it).
+    The sweep over init draws (test_..._over_init_draws) found both
+    widenings needed: at counters 640 and 2048 a weight moved by 1.5
+    ulps of its start, and at 4321 an output bias that starts at 0 by
+    1/124 of the largest update."""
     jm, js, jl = build(jfluid, j_tf, j_unique, dtype, amp)
     pm, ps, pl = build(pfluid, p_tf, p_unique, dtype, amp)
     jexe, jscope = jfluid.Executor(jfluid.CPUPlace()), JScope()
@@ -106,13 +149,43 @@ def test_two_sgd_steps_match_jax(dtype, amp):
         want, got = wants[n], pscope.get(n).float().numpy()
         assert got.shape == want.shape, n
         if dtype == "float32":
-            np.testing.assert_allclose(got - start[n], want - start[n],
-                                       rtol=1e-4, atol=3e-8, err_msg=n)
+            d_want, d_got = want - start[n], got - start[n]
+            bound = 1e-4 * np.abs(d_want) + np.maximum(
+                2 * fp32_ulp(want), np.float32(3e-8))
+            err = np.abs(d_got - d_want)
         else:
-            bound = 2 * bf16_ulp(want) + largest / 256
-            assert (np.abs(got - want) <= bound).all(), n
+            bound = (2 * bf16_ulp(np.maximum(np.abs(want), np.abs(start[n])))
+                     + largest / 128)
+            err = np.abs(got - want)
+        i = int(np.argmax(err - bound))
+        assert err.flat[i] <= bound.flat[i], (
+            "%s: %r vs %r (start %r) at flat index %d, bound %r"
+            % (n, got.flat[i], want.flat[i], start[n].flat[i], i,
+               bound.flat[i]))
         updated += int(not np.array_equal(want, start[n]))
     assert updated >= 4 * CFG["n_layers"]  # the step moved the weights
+
+
+@pytest.mark.parametrize("dtype,amp", CASES)
+def test_two_sgd_steps_match_jax(dtype, amp):
+    """The parity check at the draw a fresh process makes (counters 0);
+    see ``two_sgd_steps_match_jax`` for the bounds."""
+    two_sgd_steps_match_jax(dtype, amp)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("dtype,amp", CASES)
+def test_two_sgd_steps_match_jax_over_init_draws(dtype, amp):
+    """The bounds hold for other initial weights too: the JAX startup
+    program draws them from its init counters, which the JAX test files
+    that ran earlier in a process have moved. Slow: 22 draws of the
+    two-step check (about a minute a case on a CPU)."""
+    for value in DRAWS:
+        _set_jax_init_counters(value)
+        try:
+            two_sgd_steps_match_jax(dtype, amp)
+        except AssertionError as e:
+            raise AssertionError("init counters at %d: %s" % (value, e))
 
 
 def test_loss_falls_on_the_port():
