@@ -40,25 +40,31 @@ Phases, each fatal on failure (exit code 1, no result line):
      tree window under torch.profiler.
 
   5. flash attention kernels: K1's forward and backward CUDA kernels
-     against the plain version's forward and autograd at the training
-     path's shape (B=160, H=8, T=512, Dh=64, causal, bf16, through the
-     strided views of [B, T, H, Dh] tensors), at B=4 fp32, and at a
-     non-causal Tq=128/Tk=256 case; kernel, plain and library
-     (scaled_dot_product_attention) times and the bound at the first.
+     against the plain version's forward and autograd, each call by its
+     route (bf16: the tensor-core kernels; fp32: the SIMT kernels), at
+     the training path's shape (B=160, H=8, T=512, Dh=64, causal, bf16,
+     through the strided views of [B, T, H, Dh] tensors), at B=4 fp32,
+     and at a non-causal bf16 Tq=128/Tk=256 case; kernel, plain and
+     library (scaled_dot_product_attention) times, the bound and the factor to
+     the library at the first. Then the fp32 forward at the int8 path's
+     shape (B=32, H=8, T=512, causal), timed the same way.
   6. training: the Fluid-API Transformer LM (bench.py's headline step)
      through the port's entry points on cuda:0 — full width, 6 layers,
      seq 512, batch 160, bf16 params and residual stream, the legacy AMP
      decorator over SGD(0.01) — 3 warm-up and 10 timed steps on fixed
      seeded tokens. Every loss finite, the loss falling from the first
      step to the last, flash attention launched exactly 6 times forward
-     and 6 backward per step; then 2 more steps under torch.profiler.
+     and 6 backward per step, every launch by the tensor-core route and
+     no operand copied; then 2 more steps under torch.profiler (K1's
+     device ms a step).
   7. card vs CPU: the same program from one set of weights (startup run
      once on the card, the scope copied to the CPU), two SGD steps at
      batch 2 on cuda:0 (the kernels) and on the CPU (the plain
      versions); per-step losses, step 1's grads and every updated
      parameter must agree. Twice: the headline bf16 program, and the
      same model in fp32 without AMP, where the updates do not round
-     away and the limits are tight enough to see a skipped one.
+     away and the limits are tight enough to see a skipped one. Each
+     prints its largest errors over their limits.
   8. int8 inference: the fused int8 matmul (K4) bitwise against its
      plain version on an edge matrix (M 1/7/33 x K 1/5/129/2048 x N
      1/3/129/32000), ties, saturation, strided and unaligned x, and at
@@ -68,7 +74,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      calibrated on 4 batches and decorated full_int8, against the same
      clone in fp32 (3 warm-up and 10 timed steps each): every loss
      finite, K4 launched exactly once a dense layer a step (12 FFN, 2
-     lm_head chunks) and never by the fp32 clone, the int8 loss within
+     lm_head chunks) and never by the fp32 clone, K1's fp32 forward
+     once a layer a step by the SIMT route in both, the int8 loss within
      1% of the fp32 loss; a profiled int8 step. Last, the int8 program
      card vs CPU at batch 2: every dense layer's output on the card
      bitwise the plain version's on its own input, the loss to rtol
@@ -116,6 +123,16 @@ def card_line():
     if out.returncode != 0 or not out.stdout.strip():
         fail("nvidia-smi failed: %s" % out.stderr.strip())
     return out.stdout.strip().splitlines()[0]
+
+
+def gpu_clocks():
+    """The card's SM clock, power draw and limit, as nvidia-smi reads them
+    now (a reading, not a check)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return out.stdout.strip()
 
 
 def time_ms(torch, fn, flush, iters=20):
@@ -730,19 +747,37 @@ def flash_inputs(torch, B, H, Tq, Tk, dtype, seed):
     return make(Tq), make(Tk), make(Tk), make(Tq)
 
 
+def flash_counts(fa):
+    """K1's launches by route, forward and backward, and its copies."""
+    return (dict(fa.flash_attention_fwd.launches_by_route),
+            dict(fa.flash_attention_bwd.launches_by_route),
+            fa.flash_attention_fwd.copies + fa.flash_attention_bwd.copies)
+
+
 def flash_check(torch, fa, B, H, Tq, Tk, causal, dtype, seed=0):
     """K1's kernels against the plain version's forward and autograd on
-    the same inputs. Returns (inputs, max abs errors, shape label)."""
+    the same inputs; the call must go by its dtype's route (bf16: "tc",
+    fp32: "simt") without copying an operand. Returns (inputs, max abs
+    errors, shape label)."""
     q, k, v, g = flash_inputs(torch, B, H, Tq, Tk, dtype, seed)
+    route = "tc" if dtype == "bfloat16" else "simt"
+    fwd0, bwd0, copies0 = flash_counts(fa)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     out = fa.flash_attention(*leaves, causal=causal)
     grads = torch.autograd.grad(out, leaves, g)
+    fwd1, bwd1, copies1 = flash_counts(fa)
+    if (fwd1[route] - fwd0[route], bwd1[route] - bwd0[route],
+            copies1 - copies0) != (1, 1, 0):
+        fail("flash_attention %s: launches by route went from %r / %r to "
+             "%r / %r, copies %d to %d (expected one %s launch each way, "
+             "no copy)" % (dtype, fwd0, bwd0, fwd1, bwd1, copies0, copies1,
+                           route))
     ref_leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     ref = fa.flash_attention_reference(*ref_leaves, causal=causal)
     ref_grads = torch.autograd.grad(ref, ref_leaves, g)
     torch.cuda.synchronize()
-    shape = "B=%d H=%d Tq=%d Tk=%d Dh=64 causal=%s %s" % (
-        B, H, Tq, Tk, causal, dtype)
+    shape = "B=%d H=%d Tq=%d Tk=%d Dh=64 causal=%s %s, route %s" % (
+        B, H, Tq, Tk, causal, dtype, route)
     errs, report = {}, []
     for name, got, want in zip(("out", "dq", "dk", "dv"), (out,) + grads,
                                (ref,) + ref_grads):
@@ -769,12 +804,13 @@ def flash_check(torch, fa, B, H, Tq, Tk, causal, dtype, seed=0):
     return (q, k, v, g), errs, shape
 
 
-def flash_bound_ms(B, H, T, Dh, elem_bytes, fwd):
+def flash_bound_ms(B, H, T, Dh, elem_bytes, fwd, flops_per_s):
     """Least time for the work: each input read once and each output
     written once over the memory rate (forward: q, k, v in, o and the
     fp32 lse out; backward: q, k, v, o, dO and lse in, dq, dk, dv out),
-    against the products over the bf16 tensor-core rate, counting the
-    T(T+1)/2 visible (query, key) pairs of causal attention per (b, h):
+    against the products over `flops_per_s` (the bf16 tensor cores' or
+    the fp32 SIMT rate), counting the T(T+1)/2 visible (query, key)
+    pairs of causal attention per (b, h):
     forward QK^T and PV, 4 Dh flops a pair; backward QK^T, dO V^T, P^T dO,
     dS^T Q and dS K, 10 Dh flops a pair."""
     n = B * H * T * Dh * elem_bytes
@@ -783,7 +819,7 @@ def flash_bound_ms(B, H, T, Dh, elem_bytes, fwd):
     pairs = B * H * T * (T + 1) // 2
     flops = (4 if fwd else 10) * Dh * pairs
     t_bytes = nbytes / H100_BYTES_PER_S
-    t_ops = flops / H100_BF16_FLOPS
+    t_ops = flops / flops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -818,34 +854,71 @@ def flash_phase(torch, fa):
     lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
         lib_out, lib, g, retain_graph=True), flush, iters=10)
     lib_err = float((lib_out.detach().float() - o.float()).abs().max())
-    print("kernel flash_attention %s: fwd %.4f ms, bwd %.4f ms (plain fwd "
-          "%.4f, bwd %.4f ms; SDPA fwd %.4f, bwd %.4f, fwd+bwd %.4f ms, "
-          "max |SDPA - kernel| %.3g)" % (shape, ms_fwd, ms_bwd, plain_fwd,
-                                         plain_bwd, lib_fwd, lib_bwd,
-                                         lib_fwd + lib_bwd, lib_err),
+    print("kernel flash_attention %s: fwd %.4f ms, bwd %.4f ms (plain "
+          "fwd %.4f, bwd %.4f ms; SDPA fwd %.4f, bwd %.4f, fwd+bwd %.4f ms; "
+          "factor to SDPA fwd %.2f, bwd %.2f; max |SDPA - kernel| %.3g)"
+          % (shape, ms_fwd, ms_bwd, plain_fwd, plain_bwd, lib_fwd, lib_bwd,
+             lib_fwd + lib_bwd, ms_fwd / lib_fwd, ms_bwd / lib_bwd, lib_err),
           flush=True)
     rows = []
     for name, fwd, ms, plain, library, err in (
-            ("flash_attention_fwd", True, ms_fwd, plain_fwd, lib_fwd,
+            ("flash_attention_tc_fwd", True, ms_fwd, plain_fwd, lib_fwd,
              errs["out"]),
-            ("flash_attention_bwd", False, ms_bwd, plain_bwd, lib_bwd,
+            ("flash_attention_tc_bwd", False, ms_bwd, plain_bwd, lib_bwd,
              max(errs["dq"], errs["dk"], errs["dv"]))):
-        bound_ms, bound_by = flash_bound_ms(B, H, T, Dh, 2, fwd)
+        bound_ms, bound_by = flash_bound_ms(B, H, T, Dh, 2, fwd,
+                                            H100_BF16_FLOPS)
         print("kernel %s: bound %.4f ms by %s" % (name, bound_ms, bound_by))
         rows.append({
-            "name": name, "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+            "name": name, "route": "cuda", "kernel_route": "tc",
+            "source": "paddle_tpu_torch/csrc/flash_attention_tc.cu",
             "replaces": ("paddle_tpu/ops/pallas_kernels.py:162" if fwd
                          else "paddle_tpu/ops/pallas_kernels.py:212"),
             "shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library,
+            "library_ms": library, "factor_to_library": ms / library,
             "library": "F.scaled_dot_product_attention(is_causal=True) %s "
                        "on contiguous copies (yardstick)"
                        % ("forward" if fwd else "backward")})
     del q, k, v, g, o, lse, leaves, lib, lib_out
     torch.cuda.empty_cache()
+    rows.append(flash_fp32_row(torch, fa, F, flush))
     return rows
+
+
+def flash_fp32_row(torch, fa, F, flush):
+    """K1's fp32 forward (the SIMT route) at the int8 inference path's
+    shape: checked against the plain version, then kernel, plain version
+    and SDPA in fp32 timed, the bound over the fp32 rate."""
+    B, H, T, Dh = INT8["batch"], 8, 512, 64
+    (q, k, v, _), errs, shape = flash_check(torch, fa, B, H, T, T, True,
+                                            "float32", seed=4)
+    scale = Dh ** -0.5
+    ms = time_ms(torch, lambda: fa.flash_attention_fwd(
+        q, k, v, True, scale), flush, iters=10)
+    plain = time_ms(torch, lambda: fa.flash_attention_reference(
+        q, k, v, True, scale), flush, iters=5)
+    lib = [t.contiguous() for t in (q, k, v)]
+    library = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        *lib, is_causal=True), flush, iters=10)
+    bound_ms, bound_by = flash_bound_ms(B, H, T, Dh, 4, True,
+                                        H100_FP32_FLOPS)
+    print("kernel flash_attention %s: fwd %.4f ms (plain %.4f ms, SDPA "
+          "fp32 %.4f ms, factor %.2f; bound %.4f ms by %s)"
+          % (shape, ms, plain, library, ms / library, bound_ms, bound_by),
+          flush=True)
+    del q, k, v, lib
+    torch.cuda.empty_cache()
+    return {
+        "name": "flash_attention_simt_fwd", "route": "cuda",
+        "kernel_route": "simt",
+        "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "paddle_tpu/ops/pallas_kernels.py:162",
+        "shape": shape, "max_abs_err": errs["out"], "ms": ms,
+        "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library, "factor_to_library": ms / library,
+        "library": "F.scaled_dot_product_attention(is_causal=True) forward "
+                   "in fp32 on contiguous copies (yardstick)"}
 
 
 TRAIN = dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=6,
@@ -896,20 +969,28 @@ def training_phase(torch, fa, fluid, program):
     startup_s = time.perf_counter() - t0
     feed = lm_feed(torch, batch, exe.device)
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention_fwd.launches = 0        # main path starts
-    fa.flash_attention_bwd.launches = 0
-    losses = []
+    fa.reset_counts()                          # main path starts
+    losses, marks, host_ms = [], [], []
     for i in range(warmup + steps):
         if i == warmup:
             torch.cuda.synchronize()
             t1 = time.perf_counter()
+        if i >= warmup:                        # each timed step's start
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        th = time.perf_counter()
         out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
                        return_numpy=False)
+        host_ms.append((time.perf_counter() - th) * 1e3)
         losses.append(out)
+    marks.append(torch.cuda.Event(enable_timing=True))
+    marks[-1].record()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    clocks = gpu_clocks()                      # outside the timed window
     launches = (fa.flash_attention_fwd.launches,
                 fa.flash_attention_bwd.launches)  # main path ends
+    fwd_routes, bwd_routes, copies = flash_counts(fa)
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x.float().cpu()[0]) for x in losses]
     n = warmup + steps
@@ -922,6 +1003,11 @@ def training_phase(torch, fa, fluid, program):
         fail("training: flash attention launched %d forward / %d backward "
              "times over %d steps (expected %d each)"
              % (launches + (n, want)))
+    tc_only = {"tc": want, "simt": 0}
+    if (fwd_routes, bwd_routes, copies) != (tc_only, tc_only, 0):
+        fail("training: flash attention went by routes %r forward / %r "
+             "backward with %d operand copies (expected %r each, none)"
+             % (fwd_routes, bwd_routes, copies, tc_only))
     step_s = (t2 - t1) / steps
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -932,22 +1018,35 @@ def training_phase(torch, fa, fluid, program):
         torch.cuda.synchronize()
         wall = time.perf_counter() - tp
     busy_s, top = kernel_times(prof, 2, top=10)
+    # K1's kernels by name ("void (anonymous namespace)::flash_tc_...")
+    k1_ms = {part: sum(device_us(e) for e in prof.key_averages()
+                       if any(n in e.key for n in names)) / 1e3 / 2
+             for part, names in (("fwd", ("flash_tc_fwd",)),
+                                 ("bwd", ("flash_tc_delta", "flash_tc_dkdv",
+                                          "flash_tc_dq")))}
     summary = {
         "model": "Fluid-API Transformer LM: vocab 32000, d_model 512, 8 "
                  "heads, 6 layers, d_ff 2048, seq 512, bf16, legacy AMP, "
                  "SGD(0.01)",
         "batch": batch, "warmup_steps": warmup, "timed_steps": steps,
         "startup_s": startup_s, "losses": losses, "ms_per_step": step_s * 1e3,
+        "step_ms_each": [a.elapsed_time(b) for a, b in zip(marks, marks[1:])],
+        "host_ms_each": host_ms[warmup:],
+        "clocks_after_timed_steps": clocks,
         "tokens_per_s": batch * TRAIN["seq_len"] / step_s,
         "flash_attention_launches": {"fwd": launches[0],
-                                     "bwd": launches[1], "steps": n},
+                                     "bwd": launches[1], "steps": n,
+                                     "fwd_by_route": fwd_routes,
+                                     "bwd_by_route": bwd_routes,
+                                     "copies": copies},
         "max_memory_allocated_gib": peak / 2 ** 30}
     print("training " + json.dumps(summary), flush=True)
     print("training_profile " + json.dumps({
         "steps": 2, "wall_ms_per_step": wall * 1e3 / 2,
         "device_busy_ms_per_step": busy_s * 1e3 / 2,
-        "device_busy_share": busy_s / wall, "top_kernels": top}),
-        flush=True)
+        "device_busy_share": busy_s / wall,
+        "flash_attention_ms_per_step": dict(k1_ms, total=sum(k1_ms.values())),
+        "top_kernels": top}), flush=True)
     return launches
 
 
@@ -1042,6 +1141,7 @@ def card_vs_cpu_phase(torch, fluid, program, dtype,
         "tf32": torch.backends.cuda.matmul.allow_tf32,
         "loss_cuda": lc, "loss_cpu": lh,
         "loss_max_rel_err": loss_rel, "loss_limit": tol["loss_rtol"],
+        "loss_err_over_limit": loss_rel / tol["loss_rtol"],
         "grad_rtol": rel, "grad_floor": floor, "params": len(params),
         "worst_grad_err_over_limit": worst_g[0], "worst_grad": worst_g[1],
         "worst_param_excess_over_limit": worst_p[0],
@@ -1219,14 +1319,16 @@ def baked(scope, suffix):
     return scope.get(names[0])
 
 
-def int8_phase(torch, fluid, im, program):
+def int8_phase(torch, fluid, im, fa, program):
     """The fp32 LM's inference clone at batch 32, calibrated on 4 batches
     and decorated full_int8, against the same clone in fp32: 3 warm-up
     and 10 timed steps each on bench.py's batch. Every loss finite, K4
     launched exactly once a dense layer a step at the path's shapes (none
     by the fp32 program), the int8 loss within 1% of the fp32 loss; then
     the logits of both, the quant/* counters and a profiled int8 step.
-    Returns K4's launches by (M, K, N) in the int8 run."""
+    K1's fp32 forward must launch once a layer a step by the SIMT route
+    in both programs. Returns K4's launches by (M, K, N) and K1's SIMT
+    forward launches in the int8 run."""
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch import quant
@@ -1258,6 +1360,7 @@ def int8_phase(torch, fluid, im, program):
     for name, prog in (("fp32", infer), ("int8", int8)):
         torch.cuda.synchronize()
         im.int8_matmul.launches.clear()            # main path starts
+        fa.reset_counts()
         losses = []
         for i in range(n):
             if i == warmup:
@@ -1269,6 +1372,7 @@ def int8_phase(torch, fluid, im, program):
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         launches = dict(im.int8_matmul.launches)   # main path ends
+        k1 = flash_counts(fa)
         losses = [float(x.cpu()[0]) for x in losses]
         if not all(np.isfinite(losses)):
             fail("int8 inference: non-finite %s loss %r" % (name, losses))
@@ -1276,10 +1380,17 @@ def int8_phase(torch, fluid, im, program):
             fail("int8 inference: the %s program launched int8_matmul %r "
                  "times by (M, K, N) over %d steps; expected %r"
                  % (name, launches, n, want if name == "int8" else {}))
+        k1_want = ({"tc": 0, "simt": TRAIN["n_layers"] * n},
+                   {"tc": 0, "simt": 0}, 0)
+        if k1 != k1_want:
+            fail("int8 inference: the %s program launched flash attention "
+                 "%r (forward, backward by route; copies) over %d steps; "
+                 "expected %r" % (name, k1, n, k1_want))
         step_s = (t2 - t1) / steps
         runs[name] = {"losses": losses, "ms_per_step": step_s * 1e3,
                       "tokens_per_s": B * TRAIN["seq_len"] / step_s,
-                      "launches": launches}
+                      "launches": launches,
+                      "flash_attention_simt_fwd_launches": k1[0]["simt"]}
     l32, l8 = runs["fp32"]["losses"][-1], runs["int8"]["losses"][-1]
     logits = [out for _, w, out in dense_sites(infer) if w == "lm_head_w"]
     lo32 = exe.run(infer, feed=feed, fetch_list=logits, scope=scope,
@@ -1328,7 +1439,8 @@ def int8_phase(torch, fluid, im, program):
     if not abs(l8 - l32) <= 0.01 * abs(l32):
         fail("int8 inference: loss %r is not within 1%% of the fp32 loss %r"
              % (l8, l32))
-    return runs["int8"]["launches"]
+    return (runs["int8"]["launches"],
+            runs["int8"]["flash_attention_simt_fwd_launches"])
 
 
 def int8_logits_excess(lo_got, lo_want, dq):
@@ -1487,7 +1599,8 @@ def main():
     program = build_lm(fluid, "float32")
     card_vs_cpu_phase(torch, fluid, program, "float32")
     int8_rows = int8_kernel_phase(torch, im_mod)
-    int8_launches = int8_phase(torch, fluid, im_mod, program)
+    int8_launches, flash_rows[2]["launches"] = int8_phase(
+        torch, fluid, im_mod, fa_mod, program)
     for row in int8_rows:
         row["launches"] = int8_launches.get(tuple(row["mkn"]), 0)
     int8_card_vs_cpu_phase(torch, fluid, im_mod, program)

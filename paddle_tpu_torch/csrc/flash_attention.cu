@@ -1,12 +1,14 @@
-// Flash attention, forward and backward, for Hopper (sm_90a). bf16 or
-// fp32 in and out, fp32 arithmetic throughout.
+// Flash attention, forward and backward, for Hopper (sm_90a): the fp32
+// route. fp32 in and out, fp32 arithmetic on the SIMT units throughout;
+// bf16 inputs take the tensor-core kernels of flash_attention_tc.cu.
 //
 // Replaces the TPU kernel paddle_tpu/ops/pallas_kernels.py
 // `flash_attention` (:120) -> `flash_attention_portable` (:156) ->
 // `_flash_fwd` (:162, pl.pallas_call :191, body `_fwd_kernel` :58), and
 // its backward `_flash_bwd_rule` (:212; on a TPU jax's library Pallas
-// backward, :131-150). On the training path of the Fluid-API Transformer
-// LM it runs once per layer forward and once per layer backward.
+// backward, :131-150), for fp32 programs: the forward runs once per layer
+// in the fp32 and full-int8 inference of the Fluid-API Transformer LM
+// (its attention stays fp32), forward and backward in fp32 training.
 //
 // What it computes, per (batch b, head h): O = softmax(Q K^T * scale) V
 // over q [Tq, 64] and k, v [Tk, 64], keys at positions >= Tk masked and,
@@ -38,18 +40,16 @@
 // own pass (S and dP a second time) rather than with atomics, so the
 // result does not depend on the order blocks run in.
 //
-// Bound. At the flagship shape (B 160, H 8, T 512, Dh 64, bf16) the
-// forward's causal products are 43 GFLOP against 336 MB of Q, K, V and O:
-// on the tensor cores' bf16 rate the bytes bound it (0.100 ms at 3.35
-// TB/s). This first kernel multiplies on the fp32 SIMT units (67 TFLOP/s,
-// so at least 0.64 ms), keeping P in fp32 as the TPU kernel does; the
-// tensor-core version (mma/wgmma with P rounded to bf16, TMA loads) is
-// later work.
+// Bound. At the int8 inference path's shape (B 32, H 8, T 512, Dh 64,
+// fp32, causal) the forward's products are 8.6 GFLOP against 134 MB of Q,
+// K, V and O: on the fp32 SIMT rate (67 TFLOP/s) the products bound it
+// (0.13 ms), not the bytes (0.04 ms at 3.35 TB/s). The design keeps P in
+// fp32, as the TPU kernel does; a TF32 or split-bf16 tensor-core route for
+// fp32 is later work.
 //
 // Interface: plain C functions (bound with ctypes), launched on the
 // caller's stream, allocating nothing; each returns cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -65,27 +65,13 @@ struct Strides {  // element strides of one [B, H, T, Dh] tensor
   long long b, h, t;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // Rows [row0, row0 + 64) of one (b, h) slice into shared memory as fp32;
 // rows at or past n are zero.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* s, const T* g,
+__device__ __forceinline__ void load_tile(float* s, const float* g,
                                           long long st, int row0, int n) {
   for (int i = threadIdx.x; i < kTile * kDh; i += kThreads) {
     const int r = i / kDh, d = i % kDh, row = row0 + r;
-    s[r * kLd + d] = row < n ? to_f(g[(long long)row * st + d]) : 0.f;
+    s[r * kLd + d] = row < n ? g[(long long)row * st + d] : 0.f;
   }
 }
 
@@ -134,10 +120,9 @@ __device__ __forceinline__ bool visible(int row, int col, int Tq, int Tk,
   return row < Tq && col < Tk && (!causal || col <= row);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int H, int Tq, int Tk, Strides sq,
                  Strides sk, Strides sv, Strides so, float scale,
                  int causal) {
@@ -149,9 +134,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int q0 = blockIdx.y * kTile;
   const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
-  const T* qg = q + b * sq.b + h * sq.h;
-  const T* kg = k + b * sk.b + h * sk.h;
-  const T* vg = v + b * sv.b + h * sv.h;
+  const float* qg = q + b * sq.b + h * sq.h;
+  const float* kg = k + b * sk.b + h * sk.h;
+  const float* vg = v + b * sv.b + h * sv.h;
   load_tile(q_s, qg, sq.t, q0, Tq);
 
   float m[4], l[4], acc[4][8];
@@ -202,7 +187,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     tile_product(acc, p_s, kLd, 1, v_s, 1, kLd, ty, tx);  // acc += P V
   }
 
-  T* og = o + b * so.b + h * so.h;
+  float* og = o + b * so.b + h * so.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
@@ -210,7 +195,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      og[(long long)row * so.t + tx + 8 * j] = from_f<T>(acc[i][j] * inv);
+      og[(long long)row * so.t + tx + 8 * j] = acc[i][j] * inv;
     if (tx == 0)
       lse[(long long)bh * Tq + row] =
           l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
@@ -218,9 +203,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // delta[b, h, t] = sum_d dO * O, one warp a row
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_delta_kernel(const T* __restrict__ o, const T* __restrict__ d_o,
+flash_delta_kernel(const float* __restrict__ o, const float* __restrict__ d_o,
                    float* __restrict__ delta, int H, int Tq, long long rows,
                    Strides so, Strides sdo) {
   const long long row = (long long)blockIdx.x * (kThreads / 32)
@@ -229,10 +213,9 @@ flash_delta_kernel(const T* __restrict__ o, const T* __restrict__ d_o,
   const int lane = threadIdx.x % 32;
   const long long bh = row / Tq;
   const int t = row % Tq, b = bh / H, h = bh % H;
-  const T* op = o + b * so.b + h * so.h + t * so.t;
-  const T* dp = d_o + b * sdo.b + h * sdo.h + t * sdo.t;
-  float acc = to_f(op[lane]) * to_f(dp[lane])
-              + to_f(op[lane + 32]) * to_f(dp[lane + 32]);
+  const float* op = o + b * so.b + h * so.h + t * so.t;
+  const float* dp = d_o + b * sdo.b + h * sdo.h + t * sdo.t;
+  float acc = op[lane] * dp[lane] + op[lane + 32] * dp[lane + 32];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -280,13 +263,12 @@ __device__ __forceinline__ void load_rows(float* lse_s, float* delta_s,
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ d_o,
+flash_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ d_o,
                   const float* __restrict__ lse,
-                  const float* __restrict__ delta, T* __restrict__ dk,
-                  T* __restrict__ dv, int H, int Tq, int Tk, Strides sq,
+                  const float* __restrict__ delta, float* __restrict__ dk,
+                  float* __restrict__ dv, int H, int Tq, int Tk, Strides sq,
                   Strides sk, Strides sv, Strides sdo, Strides sdk,
                   Strides sdv, float scale, int causal) {
   extern __shared__ float smem[];
@@ -301,8 +283,8 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int k0 = blockIdx.y * kTile;
   const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
-  const T* qg = q + b * sq.b + h * sq.h;
-  const T* dog = d_o + b * sdo.b + h * sdo.h;
+  const float* qg = q + b * sq.b + h * sq.h;
+  const float* dog = d_o + b * sdo.b + h * sdo.h;
   load_tile(k_s, k + b * sk.b + h * sk.h, sk.t, k0, Tk);
   load_tile(v_s, v + b * sv.b + h * sv.h, sv.t, k0, Tk);
 
@@ -324,8 +306,8 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     tile_product(dk_acc, ds_s, 1, kLd, q_s, 1, kLd, ty, tx);   // dS^T Q
   }
 
-  T* dkg = dk + b * sdk.b + h * sdk.h;
-  T* dvg = dv + b * sdv.b + h * sdv.h;
+  float* dkg = dk + b * sdk.b + h * sdk.h;
+  float* dvg = dv + b * sdv.b + h * sdv.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = k0 + 4 * ty + i;
@@ -333,18 +315,17 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int d = tx + 8 * j;
-      dkg[(long long)row * sdk.t + d] = from_f<T>(dk_acc[i][j] * scale);
-      dvg[(long long)row * sdv.t + d] = from_f<T>(dv_acc[i][j]);
+      dkg[(long long)row * sdk.t + d] = dk_acc[i][j] * scale;
+      dvg[(long long)row * sdv.t + d] = dv_acc[i][j];
     }
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ d_o,
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ d_o,
                 const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq, int H,
+                const float* __restrict__ delta, float* __restrict__ dq, int H,
                 int Tq, int Tk, Strides sq, Strides sk, Strides sv,
                 Strides sdo, Strides sdq, float scale, int causal) {
   extern __shared__ float smem[];
@@ -358,8 +339,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int q0 = blockIdx.y * kTile;
   const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
-  const T* kg = k + b * sk.b + h * sk.h;
-  const T* vg = v + b * sv.b + h * sv.h;
+  const float* kg = k + b * sk.b + h * sk.h;
+  const float* vg = v + b * sv.b + h * sv.h;
   load_tile(q_s, q + b * sq.b + h * sq.h, sq.t, q0, Tq);
   load_tile(do_s, d_o + b * sdo.b + h * sdo.h, sdo.t, q0, Tq);
   load_rows(lse_s, delta_s, lse, delta, bh, q0, Tq);
@@ -380,7 +361,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     tile_product(dq_acc, ds_s, kLd, 1, k_s, 1, kLd, ty, tx);   // dS K
   }
 
-  T* dqg = dq + b * sdq.b + h * sdq.h;
+  float* dqg = dq + b * sdq.b + h * sdq.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
@@ -388,7 +369,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       dqg[(long long)row * sdq.t + tx + 8 * j] =
-          from_f<T>(dq_acc[i][j] * scale);
+          dq_acc[i][j] * scale;
   }
 }
 
@@ -402,24 +383,22 @@ Strides strides_of(const long long* s, int i) {
   return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 }
 
-template <typename T>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, int B, int H, int Tq, int Tk,
                        const long long* st, float scale, int causal,
                        cudaStream_t stream) {
   const size_t smem = 4 * kTileFloats * sizeof(float);
-  cudaError_t err = allow_smem(flash_fwd_kernel<T>, smem);
+  cudaError_t err = allow_smem(flash_fwd_kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Tq + kTile - 1) / kTile);
-  flash_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+  flash_fwd_kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse),
       H, Tq, Tk, strides_of(st, 0), strides_of(st, 1), strides_of(st, 2),
       strides_of(st, 3), scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* o, const void* d_o, const void* lse,
                        void* delta, void* dq, void* dk, void* dv, int B,
@@ -428,23 +407,23 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   // strides: q 0, k 1, v 2, o 3, do 4, dq 5, dk 6, dv 7
   const long long rows = (long long)B * H * Tq;
   const int warps = kThreads / 32;
-  flash_delta_kernel<T><<<(unsigned)((rows + warps - 1) / warps), kThreads,
+  flash_delta_kernel<<<(unsigned)((rows + warps - 1) / warps), kThreads,
                           0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(d_o),
+      static_cast<const float*>(o), static_cast<const float*>(d_o),
       static_cast<float*>(delta), H, Tq, rows, strides_of(st, 3),
       strides_of(st, 4));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   const size_t smem_kv = (6 * kTileFloats + 2 * kTile) * sizeof(float);
-  err = allow_smem(flash_dkdv_kernel<T>, smem_kv);
+  err = allow_smem(flash_dkdv_kernel, smem_kv);
   if (err != cudaSuccess) return err;
   const dim3 grid_kv(B * H, (Tk + kTile - 1) / kTile);
-  flash_dkdv_kernel<T><<<grid_kv, kThreads, smem_kv, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(d_o),
+  flash_dkdv_kernel<<<grid_kv, kThreads, smem_kv, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(d_o),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Tq, Tk,
+      static_cast<float*>(dk), static_cast<float*>(dv), H, Tq, Tk,
       strides_of(st, 0), strides_of(st, 1), strides_of(st, 2),
       strides_of(st, 4), strides_of(st, 6), strides_of(st, 7), scale,
       causal);
@@ -452,14 +431,14 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
 
   const size_t smem_q = (5 * kTileFloats + 2 * kTile) * sizeof(float);
-  err = allow_smem(flash_dq_kernel<T>, smem_q);
+  err = allow_smem(flash_dq_kernel, smem_q);
   if (err != cudaSuccess) return err;
   const dim3 grid_q(B * H, (Tq + kTile - 1) / kTile);
-  flash_dq_kernel<T><<<grid_q, kThreads, smem_q, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(d_o),
+  flash_dq_kernel<<<grid_q, kThreads, smem_q, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(d_o),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), H, Tq, Tk, strides_of(st, 0), strides_of(st, 1),
+      static_cast<float*>(dq), H, Tq, Tk, strides_of(st, 0), strides_of(st, 1),
       strides_of(st, 2), strides_of(st, 4), strides_of(st, 5), scale,
       causal);
   return cudaGetLastError();
@@ -467,26 +446,19 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q [B, H, Tq, 64], k/v [B, H, Tk, 64], o like q: any strides with a unit
-// head-dim stride, given as `strides` = [b, h, t] element strides of q, k,
-// v, o (12 values, host memory). lse [B, H, Tq] fp32 contiguous. dtype 0
-// is fp32, 1 is bf16. Causal needs Tq == Tk (the wrapper checks).
+// q [B, H, Tq, 64], k/v [B, H, Tk, 64], o like q, all fp32: any strides
+// with a unit head-dim stride, given as `strides` = [b, h, t] element
+// strides of q, k, v, o (12 values, host memory). lse [B, H, Tq] fp32
+// contiguous. Causal needs Tq == Tk (the wrapper checks).
 extern "C" int ptpu_flash_attention_fwd(const void* q, const void* k,
                                         const void* v, void* o, void* lse,
-                                        int dtype, int B, int H, int Tq,
-                                        int Tk, int Dh,
+                                        int B, int H, int Tq, int Tk, int Dh,
                                         const long long* strides,
                                         float scale, int causal,
                                         void* stream) {
   if (Dh != kDh) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_fwd<float>(q, k, v, o, lse, B, H, Tq, Tk, strides, scale,
-                             causal, s);
-  if (dtype == 1)
-    return launch_fwd<__nv_bfloat16>(q, k, v, o, lse, B, H, Tq, Tk, strides,
-                                     scale, causal, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_fwd(q, k, v, o, lse, B, H, Tq, Tk, strides, scale, causal,
+                    static_cast<cudaStream_t>(stream));
 }
 
 // The backward: dq/dk/dv like q/k/v (their own strides), from q, k, v, o,
@@ -496,19 +468,13 @@ extern "C" int ptpu_flash_attention_bwd(const void* q, const void* k,
                                         const void* v, const void* o,
                                         const void* d_o, const void* lse,
                                         void* delta, void* dq, void* dk,
-                                        void* dv, int dtype, int B, int H,
-                                        int Tq, int Tk, int Dh,
+                                        void* dv, int B, int H, int Tq,
+                                        int Tk, int Dh,
                                         const long long* strides,
                                         float scale, int causal,
                                         void* stream) {
   if (Dh != kDh) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_bwd<float>(q, k, v, o, d_o, lse, delta, dq, dk, dv, B, H,
-                             Tq, Tk, strides, scale, causal, s);
-  if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(q, k, v, o, d_o, lse, delta, dq, dk,
-                                     dv, B, H, Tq, Tk, strides, scale,
-                                     causal, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bwd(q, k, v, o, d_o, lse, delta, dq, dk, dv, B, H, Tq, Tk,
+                    strides, scale, causal,
+                    static_cast<cudaStream_t>(stream));
 }

@@ -1,0 +1,738 @@
+// Flash attention, forward and backward, in bf16 on Hopper's tensor cores
+// (sm_90a). bf16 in and out, fp32 accumulators; head dim 64.
+//
+// Replaces the TPU kernel paddle_tpu/ops/pallas_kernels.py
+// `flash_attention` (:120) -> `_flash_fwd` (:162, pl.pallas_call :191,
+// body `_fwd_kernel` :58), and its backward `_flash_bwd_rule` (:212; on a
+// TPU jax's library Pallas backward, :131-150). On the training path of
+// the Fluid-API Transformer LM (bf16 under the AMP decorator) it runs once
+// per layer forward and once per layer backward. fp32 inputs take the
+// SIMT kernels of flash_attention.cu.
+//
+// What it computes, per (batch b, head h): O = softmax(Q K^T * scale) V
+// over q [Tq, 64] and k, v [Tk, 64], keys at positions >= Tk masked and,
+// when causal (Tq == Tk), keys after the query's position masked. The
+// forward also writes the row log-sum-exp of the scaled scores (fp32
+// [B, H, Tq]); the backward rebuilds P from it.
+//
+// Bound. At the path's shape (B 160, H 8, T 512, causal) the forward
+// moves 336 MB (q, k, v in, o out) and does 43 GFLOP, the backward 671 MB
+// and 107 GFLOP (the 10 Dh flops a visible pair that the math needs): on
+// 3.35 TB/s and 989 TFLOP/s both are bound by bytes, at 0.10 and 0.20 ms.
+// So the design keeps every intermediate (S, P, dP, dS) in registers,
+// reads each tile from device memory once per block with 16-byte copies
+// that overlap the products, and feeds the tensor cores from shared
+// memory without bank conflicts; the backward's recompute (S and dP in
+// both passes, 14 Dh flops a pair) costs operations, not bytes.
+//
+// Design.
+// - Products: mma.sync m16n8k16 bf16 x bf16 -> fp32. Each warp owns 16
+//   rows of the block's tile and keeps its accumulators in registers.
+//   The forward takes 128 query rows a block (8 warps; 64 rows in 4 warps
+//   measured slower), the backward 64 rows (4 warps); launch
+//   bounds hold registers to what lets 16 (forward) or 12 (backward)
+//   warps share an SM, more occupancy being worth a few spilled bytes.
+// - The online softmax runs on the S accumulator fragments: a thread holds
+//   two rows, the row max and (at the end) the row sum reduce over the 4
+//   lanes of a quad. The fp32 accumulator layout of two neighbouring
+//   m16n8 tiles is the A-operand layout of an m16n8k16 product, so P (and
+//   in the backward dS) is rounded to bf16 in registers and multiplied
+//   from there: it never goes to shared memory.
+// - Tiles are bf16 in shared memory, [rows][64] with the 16-byte chunk c
+//   of row r stored at chunk c ^ (r & 7), so the 8 rows an ldmatrix phase
+//   reads fall in 8 different bank groups. They are loaded with 16-byte
+//   cp.async.cg (rows past T zero-filled, src-size 0, never written back)
+//   and read with ldmatrix.x4, .trans where the operand is needed
+//   transposed (V in P V; dO and Q in the backward's P^T dO, dS^T Q; K in
+//   dS K).
+// - A ring of 2 stages: the next tile is in flight while the current one
+//   is multiplied; one cp.async.wait_group and one barrier a tile.
+// - Causal: a block loops only over the tiles at or below its diagonal;
+//   only the diagonal tile and ragged tails are masked. The heaviest
+//   blocks (most tiles) come first in the grid.
+// - Backward, deterministic (no atomics, so results do not depend on the
+//   order blocks run in): delta = rowsum(dO * O); a dK/dV pass, one block
+//   per (b*h, 64-key tile) walking the q tiles, computing S^T = K Q^T and
+//   dP^T = V dO^T so that P^T and dS^T = P^T (dP^T - delta) sit in the
+//   accumulator layout and feed dV += P^T dO and dK += dS^T Q as register
+//   A operands; a dQ pass, one block per (b*h, 64-query tile) walking the
+//   kv tiles, dQ += dS K.
+//
+// Numerics. bf16 x bf16 products are exact in fp32 and every sum is fp32.
+// The softmax is fp32 with exp2f on scores prescaled by scale * log2(e).
+// P, and in the backward P^T and dS, are rounded to bf16 before the second
+// product, as the JAX package's softmax attention rounds P to q's dtype
+// (paddle_tpu/ops/compat_ops.py:632) and as SDPA does. lse stays fp32; a
+// row whose keys are all masked uses 0 as its max, so no NaN can arise
+// (it ends with l = 0, O = 0 and lse = +inf, for which the backward's P is
+// exactly 0), as in flash_attention.cu. delta uses the bf16 O the forward
+// wrote.
+//
+// Interface: plain C functions (bound with ctypes), launched on the
+// caller's stream, allocating nothing; each returns cudaGetLastError().
+// The caller guarantees 16-byte aligned rows: base addresses and every
+// [B, H, T] stride multiples of 8 elements.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kDh = 64;                    // head dim (the wrapper checks)
+constexpr int kTile = 64;                  // kv rows a tile; bwd block rows
+constexpr int kTileElems = kTile * kDh;
+constexpr int kFwdRows = 128;              // fwd block rows: 8 warps x 16
+constexpr int kFwdThreads = 2 * kFwdRows;
+constexpr int kBwdThreads = 128;           // 4 warps x 16 rows
+// 3 blocks an SM (at most 168 registers a thread): the dK/dV pass spills
+// a few bytes at that limit and still runs faster than at 2 blocks
+constexpr int kBwdBlocksPerSm = 3;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+struct Strides {  // element strides of one [B, H, T, Dh] tensor
+  long long b, h, t;
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Element offset of 16-byte chunk c (8 elements) of row r in a swizzled
+// [rows][64] tile.
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * kDh + ((c ^ (r & 7)) << 3);
+}
+
+__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Rows [row0, row0 + R) of one (b, h) slice into a swizzled tile, 16 bytes
+// a copy; rows at or past n are zero-filled (and read nothing).
+template <int R, int kThreads>
+__device__ __forceinline__ void load_tile(bf16* s, const bf16* g,
+                                          long long st, int row0, int n) {
+  static_assert(R * 8 % kThreads == 0, "tile chunks per thread");
+#pragma unroll
+  for (int it = 0; it < R * 8 / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int r = i >> 3, c = i & 7, row = row0 + r;
+    const bool in = row < n;
+    cp_async16(s + swz(r, c), g + (long long)(in ? row : 0) * st + c * 8,
+               in);
+  }
+}
+
+// 64 fp32 row values (lse or delta) starting at row0; past n zero-filled
+__device__ __forceinline__ void load_rows(float* s, const float* g, int row0,
+                                          int n) {
+  if (threadIdx.x < kTile) {
+    const int row = row0 + threadIdx.x;
+    const bool in = row < n;
+    cp_async4(s + threadIdx.x, g + (in ? row : 0), in);
+  }
+}
+
+__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm4_t(unsigned (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d += a b, one m16n8k16 product
+__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
+                                    unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// A operand (16 rows x 16 k): rows [r0, r0 + 16), k chunk kc (k 16 kc ..
+// 16 kc + 15) of a swizzled [rows][64] tile.
+__device__ __forceinline__ void load_a(unsigned (&a)[4], const bf16* s,
+                                       int r0, int kc, int lane) {
+  ldsm4(a, s + swz(r0 + (lane & 15), 2 * kc + (lane >> 4)));
+}
+
+// B operands of two n8 tiles from a tile stored [n][k] (K for Q K^T):
+// b[0..1] for n rows [n0, n0 + 8), b[2..3] for [n0 + 8, n0 + 16), k chunk
+// kc.
+__device__ __forceinline__ void load_b(unsigned (&b)[4], const bf16* s,
+                                       int n0, int kc, int lane) {
+  ldsm4(b, s + swz(n0 + (lane & 7) + ((lane >> 4) << 3),
+                   2 * kc + ((lane >> 3) & 1)));
+}
+
+// B operands of two n8 tiles from a tile stored [k][n] (V for P V): k
+// rows [16 kc, 16 kc + 16), b[0..1] for n columns [16 np, 16 np + 8),
+// b[2..3] for [16 np + 8, 16 np + 16).
+__device__ __forceinline__ void load_bt(unsigned (&b)[4], const bf16* s,
+                                        int kc, int np, int lane) {
+  ldsm4_t(b, s + swz(16 * kc + (lane & 7) + (((lane >> 3) & 1) << 3),
+                     2 * np + (lane >> 4)));
+}
+
+// acc[8][4] (16 rows x 64) += A (16 rows x 64 k, from registers a[4][4])
+// times a [k][n] tile: the second product of every pass.
+__device__ __forceinline__ void mma_rows_kn(float (&acc)[8][4],
+                                            const unsigned (&a)[4][4],
+                                            const bf16* s, int lane) {
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      unsigned b[4];
+      load_bt(b, s, kc, np, lane);
+      mma(acc[2 * np], a[kc], b[0], b[1]);
+      mma(acc[2 * np + 1], a[kc], b[2], b[3]);
+    }
+}
+
+// acc[8][4] (16 rows x 64 n) = rows [r0, r0 + 16) of tile a_s times the
+// transpose of the [n][k] tile b_s: the first products (Q K^T and its
+// kin).
+__device__ __forceinline__ void mma_rows_nk(float (&acc)[8][4],
+                                            const bf16* a_s, int r0,
+                                            const bf16* b_s, int lane) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    unsigned a[4];
+    load_a(a, a_s, r0, kc, lane);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      unsigned b[4];
+      load_b(b, b_s, 16 * np, kc, lane);
+      mma(acc[2 * np], a, b[0], b[1]);
+      mma(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// Accumulators (16 rows x 64 k) rounded to bf16 as A operands: k chunk j
+// is n8 tiles 2j and 2j + 1.
+__device__ __forceinline__ void to_a(unsigned (&a)[4][4],
+                                     const float (&x)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    a[j][0] = pack_bf16(x[2 * j][0], x[2 * j][1]);
+    a[j][1] = pack_bf16(x[2 * j][2], x[2 * j][3]);
+    a[j][2] = pack_bf16(x[2 * j + 1][0], x[2 * j + 1][1]);
+    a[j][3] = pack_bf16(x[2 * j + 1][2], x[2 * j + 1][3]);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Writes a warp's 16 x 64 accumulator (times `mul`) as bf16 rows [row0,
+// row0 + 16) of g, rows at or past n skipped: through the warp's own 16
+// rows of a swizzled tile `s` (free by then), so that every global store
+// is 16 bytes and 8 lanes write one 128-byte row.
+__device__ __forceinline__ void store_rows(const float (&acc)[8][4],
+                                           float mul_lo, float mul_hi,
+                                           bf16* s, bf16* g, long long st,
+                                           int row0, int n, int lane) {
+  const int grp = lane >> 2, t = lane & 3;
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    *reinterpret_cast<unsigned*>(s + swz(grp, j) + 2 * t) =
+        pack_bf16(acc[j][0] * mul_lo, acc[j][1] * mul_lo);
+    *reinterpret_cast<unsigned*>(s + swz(grp + 8, j) + 2 * t) =
+        pack_bf16(acc[j][2] * mul_hi, acc[j][3] * mul_hi);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    const int i = lane + 32 * it, r = i >> 3, c = i & 7;
+    if (row0 + r < n)
+      *reinterpret_cast<uint4*>(g + (long long)(row0 + r) * st + c * 8) =
+          *reinterpret_cast<const uint4*>(s + swz(r, c));
+  }
+}
+
+// 2 blocks an SM: at most 128 registers a thread, 16 warps.
+__global__ void __launch_bounds__(kFwdThreads, 2)
+flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ o,
+                    float* __restrict__ lse, int H, int Tq, int Tk,
+                    Strides sq, Strides sk, Strides sv, Strides so,
+                    float scale, int causal) {
+  constexpr int kRows = kFwdRows, kThreads = kFwdThreads;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);
+  bf16* k_s = q_s + kRows * kDh;          // 2 stages
+  bf16* v_s = k_s + 2 * kTileElems;       // 2 stages
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int n_qt = (Tq + kRows - 1) / kRows;
+  const int q0 = (causal ? n_qt - 1 - (int)blockIdx.y : (int)blockIdx.y)
+                 * kRows;
+  const bf16* qg = q + b * sq.b + h * sq.h;
+  const bf16* kg = k + b * sk.b + h * sk.h;
+  const bf16* vg = v + b * sv.b + h * sv.h;
+  int n_kt = (Tk + kTile - 1) / kTile;
+  if (causal) n_kt = min(n_kt, (q0 + kRows - 1) / kTile + 1);
+
+  load_tile<kRows, kThreads>(q_s, qg, sq.t, q0, Tq);
+  load_tile<kTile, kThreads>(k_s, kg, sk.t, 0, Tk);
+  load_tile<kTile, kThreads>(v_s, vg, sv.t, 0, Tk);
+  cp_async_commit();
+
+  const float c = scale * kLog2e;
+  const int row_w = q0 + 16 * warp;       // the warp's first row
+  const int r_lo = row_w + grp, r_hi = r_lo + 8;
+  unsigned qf[4][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cp_async_wait_all();
+    // tile kt has landed for every thread, and every warp is done with
+    // tile kt - 1, whose stage the next load overwrites
+    __syncthreads();
+    if (kt + 1 < n_kt) {
+      const int st = (kt + 1) & 1;
+      load_tile<kTile, kThreads>(k_s + st * kTileElems, kg, sk.t,
+                                 (kt + 1) * kTile, Tk);
+      load_tile<kTile, kThreads>(v_s + st * kTileElems, vg, sv.t,
+                                 (kt + 1) * kTile, Tk);
+    }
+    cp_async_commit();
+    if (kt == 0) {
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) load_a(qf[kc], q_s, 16 * warp, kc, lane);
+    }
+    const int k0 = kt * kTile;
+    if (causal && k0 > row_w + 15) continue;   // all after the warp's rows
+    const bf16* ks = k_s + (kt & 1) * kTileElems;
+    const bf16* vs = v_s + (kt & 1) * kTileElems;
+
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        unsigned bb[4];
+        load_b(bb, ks, 16 * np, kc, lane);
+        mma(s[2 * np], qf[kc], bb[0], bb[1]);
+        mma(s[2 * np + 1], qf[kc], bb[2], bb[3]);
+      }
+
+    const bool edge = (causal && k0 + kTile - 1 > row_w) || k0 + kTile > Tk;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * c;
+        if (edge) {
+          const int col = k0 + 8 * n + 2 * t + (e & 1);
+          if (col >= Tk || (causal && col > (e < 2 ? r_lo : r_hi)))
+            x = -INFINITY;
+        }
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float mu[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = quad_max(mx[i]);
+      mu[i] = mx[i] == -INFINITY ? 0.f : mx[i];
+      alpha[i] = exp2f(m[i] - mu[i]);
+      m[i] = mx[i];
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = exp2f(s[n][e] - mu[e >> 1]);
+        sum[e >> 1] += s[n][e];
+        acc[n][e] *= alpha[e >> 1];
+      }
+    l[0] = l[0] * alpha[0] + sum[0];
+    l[1] = l[1] * alpha[1] + sum[1];
+    unsigned pa[4][4];
+    to_a(pa, s);
+    mma_rows_kn(acc, pa, vs, lane);                 // O += P V
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] = quad_sum(l[i]);
+    inv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
+  }
+  if (t == 0) {
+    if (r_lo < Tq)
+      lse[(long long)bh * Tq + r_lo] =
+          l[0] > 0.f ? m[0] * kLn2 + logf(l[0]) : INFINITY;
+    if (r_hi < Tq)
+      lse[(long long)bh * Tq + r_hi] =
+          l[1] > 0.f ? m[1] * kLn2 + logf(l[1]) : INFINITY;
+  }
+  // the warp's own rows of q_s: only this warp read them, into qf
+  store_rows(acc, inv[0], inv[1], q_s + 16 * warp * kDh,
+             o + b * so.b + h * so.h, so.t, row_w, Tq, lane);
+}
+
+// delta[b, h, t] = sum_d dO * O in fp32, 8 lanes a row (16 bytes each)
+__global__ void __launch_bounds__(kBwdThreads)
+flash_tc_delta_kernel(const bf16* __restrict__ o,
+                      const bf16* __restrict__ d_o, float* __restrict__ delta,
+                      int H, int Tq, long long rows, Strides so,
+                      Strides sdo) {
+  const long long row = (long long)blockIdx.x * (kBwdThreads / 8)
+                        + (threadIdx.x >> 3);
+  const int part = threadIdx.x & 7;
+  float acc = 0.f;
+  if (row < rows) {
+    const long long bh = row / Tq;
+    const int tq = (int)(row % Tq), b = (int)(bh / H), h = (int)(bh % H);
+    const uint4 ov = *reinterpret_cast<const uint4*>(
+        o + b * so.b + h * so.h + tq * so.t + part * 8);
+    const uint4 dv = *reinterpret_cast<const uint4*>(
+        d_o + b * sdo.b + h * sdo.h + tq * sdo.t + part * 8);
+    const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 a = __bfloat1622float2(op[i]);
+      const float2 d = __bfloat1622float2(dp[i]);
+      acc = fmaf(a.x, d.x, acc);
+      acc = fmaf(a.y, d.y, acc);
+    }
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+  if (row < rows && part == 0) delta[row] = acc;
+}
+
+// One block per (b*h, 64-key tile): dK and dV of its keys, walking the q
+// tiles (from the diagonal on when causal) with the next q tile's Q, dO,
+// lse and delta in flight.
+__global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSm)
+flash_tc_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ d_o,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int H, int Tq, int Tk,
+                     Strides sq, Strides sk, Strides sv, Strides sdo,
+                     Strides sdk, Strides sdv, float scale, int causal) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem);
+  bf16* v_s = k_s + kTileElems;
+  bf16* q_s = v_s + kTileElems;           // 2 stages
+  bf16* do_s = q_s + 2 * kTileElems;      // 2 stages
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kTileElems);  // 2 x 64
+  float* dl_s = lse_s + 2 * kTile;                                  // 2 x 64
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int kt = blockIdx.y, k0 = kt * kTile;
+  const bf16* qg = q + b * sq.b + h * sq.h;
+  const bf16* dog = d_o + b * sdo.b + h * sdo.h;
+  const float* lg = lse + (long long)bh * Tq;
+  const float* dg = delta + (long long)bh * Tq;
+  const int n_qt = (Tq + kTile - 1) / kTile;
+  const int qt0 = causal ? kt : 0;
+
+  load_tile<kTile, kBwdThreads>(k_s, k + b * sk.b + h * sk.h, sk.t, k0, Tk);
+  load_tile<kTile, kBwdThreads>(v_s, v + b * sv.b + h * sv.h, sv.t, k0, Tk);
+  load_tile<kTile, kBwdThreads>(q_s, qg, sq.t, qt0 * kTile, Tq);
+  load_tile<kTile, kBwdThreads>(do_s, dog, sdo.t, qt0 * kTile, Tq);
+  load_rows(lse_s, lg, qt0 * kTile, Tq);
+  load_rows(dl_s, dg, qt0 * kTile, Tq);
+  cp_async_commit();
+
+  const float c = scale * kLog2e;
+  const int kw = k0 + 16 * warp;          // the warp's first key
+  float dk_acc[8][4], dv_acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int st = (qt - qt0) & 1, q0 = qt * kTile;
+    cp_async_wait_all();
+    __syncthreads();
+    if (qt + 1 < n_qt) {
+      const int nx = st ^ 1, q1 = q0 + kTile;
+      load_tile<kTile, kBwdThreads>(q_s + nx * kTileElems, qg, sq.t, q1, Tq);
+      load_tile<kTile, kBwdThreads>(do_s + nx * kTileElems, dog, sdo.t, q1,
+                                    Tq);
+      load_rows(lse_s + nx * kTile, lg, q1, Tq);
+      load_rows(dl_s + nx * kTile, dg, q1, Tq);
+    }
+    cp_async_commit();
+    const bf16* qs = q_s + st * kTileElems;
+    const bf16* dos = do_s + st * kTileElems;
+    const float* ls = lse_s + st * kTile;
+    const float* ds = dl_s + st * kTile;
+
+    float p[8][4], dp[8][4];               // [key][query]: P^T, dP^T
+    mma_rows_nk(p, k_s, 16 * warp, qs, lane);    // S^T = K Q^T
+    mma_rows_nk(dp, v_s, 16 * warp, dos, lane);  // dP^T = V dO^T
+    const bool edge = (causal && q0 < kw + 15) || q0 + kTile > Tq
+                      || k0 + kTile > Tk;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int cl = 8 * n + 2 * t + (e & 1);    // query in the tile
+        float pv = exp2f(fmaf(p[n][e], c, -ls[cl] * kLog2e));
+        if (edge) {
+          const int col = q0 + cl, row = kw + grp + 8 * (e >> 1);
+          if (col >= Tq || row >= Tk || (causal && col < row)) pv = 0.f;
+        }
+        p[n][e] = pv;
+        dp[n][e] = pv * (dp[n][e] - ds[cl]);
+      }
+    unsigned pa[4][4], da[4][4];
+    to_a(pa, p);
+    to_a(da, dp);
+    mma_rows_kn(dv_acc, pa, dos, lane);          // dV += P^T dO
+    mma_rows_kn(dk_acc, da, qs, lane);           // dK += dS^T Q
+  }
+
+  // the warp's own rows of k_s / v_s: only this warp read them
+  store_rows(dk_acc, scale, scale, k_s + 16 * warp * kDh,
+             dk + b * sdk.b + h * sdk.h, sdk.t, kw, Tk, lane);
+  store_rows(dv_acc, 1.f, 1.f, v_s + 16 * warp * kDh,
+             dv + b * sdv.b + h * sdv.h, sdv.t, kw, Tk, lane);
+}
+
+// One block per (b*h, 64-query tile): dQ of its queries, walking the kv
+// tiles (up to the diagonal when causal) with the next one in flight.
+__global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSm)
+flash_tc_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ d_o,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, bf16* __restrict__ dq,
+                   int H, int Tq, int Tk, Strides sq, Strides sk, Strides sv,
+                   Strides sdo, Strides sdq, float scale, int causal) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);
+  bf16* do_s = q_s + kTileElems;
+  bf16* k_s = do_s + kTileElems;          // 2 stages
+  bf16* v_s = k_s + 2 * kTileElems;       // 2 stages
+  float* lse_s = reinterpret_cast<float*>(v_s + 2 * kTileElems);   // 64
+  float* dl_s = lse_s + kTile;                                      // 64
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int n_qt = (Tq + kTile - 1) / kTile;
+  const int qt = causal ? n_qt - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const int q0 = qt * kTile;
+  const bf16* kg = k + b * sk.b + h * sk.h;
+  const bf16* vg = v + b * sv.b + h * sv.h;
+  int n_kt = (Tk + kTile - 1) / kTile;
+  if (causal) n_kt = min(n_kt, qt + 1);
+
+  load_tile<kTile, kBwdThreads>(q_s, q + b * sq.b + h * sq.h, sq.t, q0, Tq);
+  load_tile<kTile, kBwdThreads>(do_s, d_o + b * sdo.b + h * sdo.h, sdo.t, q0,
+                                Tq);
+  load_rows(lse_s, lse + (long long)bh * Tq, q0, Tq);
+  load_rows(dl_s, delta + (long long)bh * Tq, q0, Tq);
+  load_tile<kTile, kBwdThreads>(k_s, kg, sk.t, 0, Tk);
+  load_tile<kTile, kBwdThreads>(v_s, vg, sv.t, 0, Tk);
+  cp_async_commit();
+
+  const float c = scale * kLog2e;
+  const int qw = q0 + 16 * warp;          // the warp's first query
+  const int r_lo = qw + grp, r_hi = r_lo + 8;
+  float l2[2], dl[2];
+  float dq_acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (kt + 1 < n_kt) {
+      const int nx = (kt + 1) & 1, k1 = (kt + 1) * kTile;
+      load_tile<kTile, kBwdThreads>(k_s + nx * kTileElems, kg, sk.t, k1, Tk);
+      load_tile<kTile, kBwdThreads>(v_s + nx * kTileElems, vg, sv.t, k1, Tk);
+    }
+    cp_async_commit();
+    if (kt == 0) {
+      l2[0] = lse_s[16 * warp + grp] * kLog2e;
+      l2[1] = lse_s[16 * warp + grp + 8] * kLog2e;
+      dl[0] = dl_s[16 * warp + grp];
+      dl[1] = dl_s[16 * warp + grp + 8];
+    }
+    const int k0 = kt * kTile;
+    const bf16* ks = k_s + (kt & 1) * kTileElems;
+    const bf16* vs = v_s + (kt & 1) * kTileElems;
+
+    float p[8][4], dp[8][4];
+    mma_rows_nk(p, q_s, 16 * warp, ks, lane);    // S = Q K^T
+    mma_rows_nk(dp, do_s, 16 * warp, vs, lane);  // dP = dO V^T
+    const bool edge = (causal && k0 + kTile - 1 > qw) || k0 + kTile > Tk;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float pv = exp2f(fmaf(p[n][e], c, -l2[i]));
+        if (edge) {
+          const int col = k0 + 8 * n + 2 * t + (e & 1);
+          if (col >= Tk || (causal && col > (i ? r_hi : r_lo))) pv = 0.f;
+        }
+        dp[n][e] = pv * (dp[n][e] - dl[i]);     // dS
+      }
+    unsigned da[4][4];
+    to_a(da, dp);
+    mma_rows_kn(dq_acc, da, ks, lane);           // dQ += dS K
+  }
+
+  store_rows(dq_acc, scale, scale, q_s + 16 * warp * kDh,
+             dq + b * sdq.b + h * sdq.h, sdq.t, qw, Tq, lane);
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+Strides strides_of(const long long* s, int i) {
+  return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
+}
+
+}  // namespace
+
+// q [B, H, Tq, 64], k/v [B, H, Tk, 64], o like q, all bf16: any strides
+// with a unit head-dim stride and 16-byte aligned rows, given as
+// `strides` = [b, h, t] element strides of q, k, v, o (12 values, host
+// memory). lse [B, H, Tq] fp32 contiguous. Causal needs Tq == Tk (the
+// wrapper checks).
+extern "C" int ptpu_flash_attention_tc_fwd(const void* q, const void* k,
+                                           const void* v, void* o, void* lse,
+                                           int B, int H, int Tq, int Tk,
+                                           int Dh, const long long* strides,
+                                           float scale, int causal,
+                                           void* stream) {
+  if (Dh != kDh) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = (size_t)(kFwdRows + 4 * kTile) * kDh * sizeof(bf16);
+  cudaError_t err = allow_smem(flash_tc_fwd_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (Tq + kFwdRows - 1) / kFwdRows);
+  flash_tc_fwd_kernel<<<grid, kFwdThreads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), H, Tq, Tk, strides_of(strides, 0),
+      strides_of(strides, 1), strides_of(strides, 2), strides_of(strides, 3),
+      scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward: dq/dk/dv like q/k/v (their own strides), from q, k, v, o,
+// do and the forward's lse; delta is fp32 [B, H, Tq] scratch. `strides`
+// holds 24 values: q, k, v, o, do, dq, dk, dv.
+extern "C" int ptpu_flash_attention_tc_bwd(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* d_o, const void* lse, void* delta, void* dq, void* dk,
+    void* dv, int B, int H, int Tq, int Tk, int Dh,
+    const long long* strides, float scale, int causal, void* stream) {
+  if (Dh != kDh) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long rows = (long long)B * H * Tq;
+  const int rows_per_block = kBwdThreads / 8;
+  flash_tc_delta_kernel<<<(unsigned)((rows + rows_per_block - 1)
+                                     / rows_per_block),
+                          kBwdThreads, 0, s>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(d_o),
+      static_cast<float*>(delta), H, Tq, rows, strides_of(strides, 3),
+      strides_of(strides, 4));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const size_t smem_kv = 6 * kTileElems * sizeof(bf16)
+                         + 4 * kTile * sizeof(float);
+  err = allow_smem(flash_tc_dkdv_kernel, smem_kv);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_kv(B * H, (Tk + kTile - 1) / kTile);
+  flash_tc_dkdv_kernel<<<grid_kv, kBwdThreads, smem_kv, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(d_o),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Tq, Tk,
+      strides_of(strides, 0), strides_of(strides, 1),
+      strides_of(strides, 2), strides_of(strides, 4),
+      strides_of(strides, 6), strides_of(strides, 7), scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const size_t smem_q = 6 * kTileElems * sizeof(bf16)
+                        + 2 * kTile * sizeof(float);
+  err = allow_smem(flash_tc_dq_kernel, smem_q);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_q(B * H, (Tq + kTile - 1) / kTile);
+  flash_tc_dq_kernel<<<grid_q, kBwdThreads, smem_q, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(d_o),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), H, Tq, Tk, strides_of(strides, 0),
+      strides_of(strides, 1), strides_of(strides, 2),
+      strides_of(strides, 4), strides_of(strides, 5), scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}

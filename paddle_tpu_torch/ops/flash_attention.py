@@ -1,5 +1,5 @@
-"""Flash attention: the CUDA kernels ``csrc/flash_attention.cu`` (forward
-and backward) and their plain PyTorch version.
+"""Flash attention: the CUDA kernels (forward and backward) and their
+plain PyTorch version.
 
 The port of ``paddle_tpu/ops/pallas_kernels.py`` ``flash_attention``
 (:120, forward `_fwd_kernel` :58 through ``pl.pallas_call`` :191;
@@ -15,12 +15,24 @@ softmax(q kᵀ · sm_scale) v with fp32 accumulation; `causal` masks keys
 after the query's position (Tq == Tk required, as the JAX op's
 qualification requires). Grads come back in the inputs' dtype.
 
-``flash_attention`` runs the plain version for CPU tensors, with autograd
-supplying its grads; for CUDA tensors it runs the kernels through
-``_FlashAttention`` (an autograd Function whose backward is the backward
-kernel) or raises — there is no fallback from the card to the plain
-version. ``flash_attention_fwd.launches`` and
-``flash_attention_bwd.launches`` count the kernel launches.
+Each call takes one route, decided by ``kernel_route`` from the device
+and the dtype alone:
+
+    "plain"  CPU tensors: the plain version, autograd supplying its grads
+    "tc"     bf16 CUDA tensors: ``csrc/flash_attention_tc.cu``, mma.sync
+             on the tensor cores, P and dS rounded to bf16 before the
+             second product
+    "simt"   fp32 CUDA tensors: ``csrc/flash_attention.cu``, fp32 on the
+             SIMT units
+
+Anything else raises; no route gives way to another. The tensor-core
+kernels copy rows 16 bytes at a time: a bf16 tensor whose base address
+or whose B, H, T strides are not multiples of 16 bytes is first copied to
+a contiguous tensor (``tc_operand``), and the copy is counted.
+
+``flash_attention_fwd`` and ``flash_attention_bwd`` count their launches
+(``.launches``, and ``.launches_by_route`` split into "tc" and "simt")
+and the copies they made (``.copies``); ``reset_counts()`` zeroes all.
 """
 
 import ctypes
@@ -31,10 +43,11 @@ from . import _build
 
 __all__ = ["SUPPORTED_HEAD_DIMS", "flash_attention",
            "flash_attention_reference", "flash_attention_fwd",
-           "flash_attention_bwd"]
+           "flash_attention_bwd", "kernel_route", "tc_aligned",
+           "tc_operand", "reset_counts", "load"]
 
 SUPPORTED_HEAD_DIMS = (64,)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTES = ("tc", "simt")
 
 
 def flash_attention_reference(q, k, v, causal=True, sm_scale=None):
@@ -53,10 +66,45 @@ def flash_attention_reference(q, k, v, causal=True, sm_scale=None):
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
+def kernel_route(device_type, dtype):
+    """The route of a call on tensors of `device_type` and `dtype`:
+    "plain" on the CPU (any dtype), "tc" for bf16 and "simt" for fp32 on
+    CUDA. Raises for any other device (RuntimeError) or CUDA dtype
+    (TypeError)."""
+    if device_type == "cpu":
+        return "plain"
+    if device_type != "cuda":
+        raise RuntimeError("the flash_attention kernels take CUDA tensors, "
+                           "got q on %s" % device_type)
+    if dtype == torch.bfloat16:
+        return "tc"
+    if dtype == torch.float32:
+        return "simt"
+    raise TypeError("flash_attention kernels take bfloat16 (tensor cores) "
+                    "or float32 (SIMT), got %s" % dtype)
+
+
+def tc_aligned(ptr, shape, strides, elem_size):
+    """Whether the tensor-core kernels can read a [B, H, T, Dh] tensor in
+    place: a unit last-dim stride, and the base address and the B, H, T
+    strides of its dims longer than 1 multiples of 16 bytes."""
+    return (strides[-1] == 1 and ptr % 16 == 0
+            and all(n == 1 or s * elem_size % 16 == 0
+                    for n, s in zip(shape[:3], strides[:3])))
+
+
+def tc_operand(t):
+    """(t, False) when the tensor-core kernels can read t in place, else
+    (a contiguous copy in a fresh allocation, True)."""
+    if tc_aligned(t.data_ptr(), t.shape, t.stride(), t.element_size()):
+        return t, False
+    return t.clone(memory_format=torch.contiguous_format), True
+
+
 def flash_attention(q, k, v, causal=True, sm_scale=None):
     """Attention over [B, H, T, Dh] (see the module docstring). CPU
     tensors take the plain version; CUDA tensors the kernels."""
-    if q.device.type == "cpu":
+    if kernel_route(q.device.type, q.dtype) == "plain":
         return flash_attention_reference(q, k, v, causal, sm_scale)
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
@@ -66,7 +114,7 @@ def flash_attention(q, k, v, causal=True, sm_scale=None):
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
-        o, lse = flash_attention_fwd(q, k, v, causal, sm_scale)
+        o, lse, (q, k, v) = _fwd(q, k, v, causal, sm_scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         return o
@@ -74,22 +122,25 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        if do.stride(-1) != 1:  # the kernel reads rows of Dh in order
-            do = do.contiguous()
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal,
                                          ctx.sm_scale)
         return dq, dk, dv, None, None
 
 
+# C entry points: (library, pointer args)
+_ENTRY = {"ptpu_flash_attention_fwd": ("flash_attention", 5),
+          "ptpu_flash_attention_bwd": ("flash_attention", 10),
+          "ptpu_flash_attention_tc_fwd": ("flash_attention_tc", 5),
+          "ptpu_flash_attention_tc_bwd": ("flash_attention_tc", 10)}
 _fns = {}
 
 
 def _kernel(name):
     fn = _fns.get(name)
     if fn is None:
-        fn = getattr(_build.load("flash_attention"), name)
-        n_ptrs = 5 if name == "ptpu_flash_attention_fwd" else 10
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6
+        lib, n_ptrs = _ENTRY[name]
+        fn = getattr(_build.load(lib), name)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5
                        + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -98,19 +149,18 @@ def _kernel(name):
 
 
 def load():
-    """Build (if needed) and load the kernel library; raises without a
-    CUDA device or when the build fails."""
-    _kernel("ptpu_flash_attention_fwd")
-    _kernel("ptpu_flash_attention_bwd")
+    """Build (if needed) and load both kernel libraries; raises without a
+    CUDA device or when a build fails."""
+    for name in _ENTRY:
+        _kernel(name)
 
 
 def _check(q, k, v, causal, named=()):
-    if q.device.type != "cuda":
+    """The route of a kernel call, after checking what the kernels take."""
+    route = kernel_route(q.device.type, q.dtype)
+    if route == "plain":
         raise RuntimeError("the flash_attention kernels take CUDA tensors, "
                            "got q on %s" % q.device)
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError("flash_attention kernel takes float32 or bfloat16, "
-                        "got %s" % q.dtype)
     for name, t in (("k", k), ("v", v)) + tuple(named):
         if t.device != q.device:
             raise ValueError("%s is on %s, q on %s"
@@ -134,9 +184,22 @@ def _check(q, k, v, causal, named=()):
     if causal and k.shape[2] != Tq:
         raise ValueError("causal attention needs Tq == Tk, got %d and %d"
                          % (Tq, k.shape[2]))
-    if not (1 <= B * H <= 2 ** 31 - 1 and 1 <= Tq and 1 <= k.shape[2]):
+    if not (1 <= B * H <= 2 ** 31 - 1 and 1 <= Tq and 1 <= k.shape[2]
+            and max(Tq, k.shape[2]) <= 64 * 65535):
         raise ValueError("empty or oversized attention %s / %s"
                          % (tuple(q.shape), tuple(k.shape)))
+    return route
+
+
+def _tc_operands(counter, *tensors):
+    """The tensors as the tensor-core kernels can read them, each copy
+    counted on `counter`."""
+    out = []
+    for t in tensors:
+        t, copied = tc_operand(t)
+        counter.copies += copied
+        out.append(t)
+    return out
 
 
 def _strides(*tensors):
@@ -150,33 +213,51 @@ def _launch(name, ptrs, q, k, strides, causal, sm_scale):
     fn = _kernel(name)
     # the C function launches on the runtime's current device
     with torch.cuda.device(q.device):
-        err = fn(*ptrs, _DTYPE_CODES[q.dtype], B, H, Tq, k.shape[2], Dh,
-                 strides, sm_scale, int(causal),
+        err = fn(*ptrs, B, H, Tq, k.shape[2], Dh, strides, sm_scale,
+                 int(causal),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError("%s launch failed: CUDA error %d" % (name, err))
 
 
-def flash_attention_fwd(q, k, v, causal, sm_scale):
-    """The forward kernel: (o [like q, q's strides], lse [B, H, Tq] fp32,
-    the row log-sum-exp of the scaled scores)."""
-    _check(q, k, v, causal)
+def _count(counter, route):
+    counter.launches += 1
+    counter.launches_by_route[route] += 1
+
+
+def _fwd(q, k, v, causal, sm_scale):
+    """The forward kernel of q's route: (o, lse, the q, k, v it read)."""
+    route = _check(q, k, v, causal)
+    if route == "tc":
+        q, k, v = _tc_operands(flash_attention_fwd, q, k, v)
     o = torch.empty_like(q)
     B, H, Tq, _ = q.shape
     lse = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
-    _launch("ptpu_flash_attention_fwd",
-            (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             lse.data_ptr()),
-            q, k, _strides(q, k, v, o), causal, sm_scale)
-    flash_attention_fwd.launches += 1
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr())
+    _launch("ptpu_flash_attention_tc_fwd" if route == "tc"
+            else "ptpu_flash_attention_fwd", ptrs, q, k,
+            _strides(q, k, v, o), causal, sm_scale)
+    _count(flash_attention_fwd, route)
+    return o, lse, (q, k, v)
+
+
+def flash_attention_fwd(q, k, v, causal, sm_scale):
+    """The forward kernel of q's route: (o [like q, q's strides unless
+    the tc route copied q], lse [B, H, Tq] fp32, the row log-sum-exp of
+    the scaled scores)."""
+    o, lse, _ = _fwd(q, k, v, causal, sm_scale)
     return o, lse
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal, sm_scale):
-    """The backward kernels (a rowsum(dO∘O) pass, a dK/dV pass over kv
-    tiles, a dQ pass over q tiles): (dq, dk, dv) in the inputs' dtype,
-    each with its input's strides."""
-    _check(q, k, v, causal, (("o", o), ("do", do)))
+    """The backward kernels of q's route (a rowsum(dO∘O) pass, a dK/dV
+    pass over kv tiles, a dQ pass over q tiles): (dq, dk, dv) in the
+    inputs' dtype, each with its input's strides (or its copy's)."""
+    if do.stride(-1) != 1:  # the kernels read rows of Dh in order
+        do = do.contiguous()
+        flash_attention_bwd.copies += 1
+    route = _check(q, k, v, causal, (("o", o), ("do", do)))
     B, H, Tq, _ = q.shape
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError("o %s / do %s do not match q %s"
@@ -186,18 +267,28 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal, sm_scale):
             or not lse.is_contiguous() or lse.device != q.device):
         raise ValueError("lse must be a contiguous fp32 [B, H, Tq] tensor "
                          "on q's device")
+    if route == "tc":
+        q, k, v, o, do = _tc_operands(flash_attention_bwd, q, k, v, o, do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     delta = torch.empty_like(lse)
-    _launch("ptpu_flash_attention_bwd",
+    _launch("ptpu_flash_attention_tc_bwd" if route == "tc"
+            else "ptpu_flash_attention_bwd",
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr()),
             q, k, _strides(q, k, v, o, do, dq, dk, dv), causal, sm_scale)
-    flash_attention_bwd.launches += 1
+    _count(flash_attention_bwd, route)
     return dq, dk, dv
 
 
-# kernel launches since the last reset (the plain CPU route never counts)
-flash_attention_fwd.launches = 0
-flash_attention_bwd.launches = 0
+def reset_counts():
+    """Zero the launch and copy counts of both wrappers (the plain CPU
+    route never counts)."""
+    for counter in (flash_attention_fwd, flash_attention_bwd):
+        counter.launches = 0
+        counter.launches_by_route = dict.fromkeys(_ROUTES, 0)
+        counter.copies = 0
+
+
+reset_counts()

@@ -4,7 +4,12 @@ mode as ``tests/test_pallas.py`` runs it: forward and dQ/dK/dV (autograd
 against ``jax.vjp``), causal self-attention at T 128 and 256 and
 non-causal cross-attention (Tq 128, Tk 256), Dh 64, in both layouts
 (``bhtd`` and the ``bthd`` the fused attention op hands over), fp32 and
-bf16. Inputs come from a seeded numpy generator."""
+bf16. Inputs come from a seeded numpy generator.
+
+Also: a numpy emulation of the bf16 tensor-core kernels' numerics
+(``csrc/flash_attention_tc.cu``) held against the same JAX op within the
+limits ``chip_smoke.py`` holds those kernels to on the card, and the
+wrapper's route and alignment decisions as pure functions."""
 
 import numpy as np
 import pytest
@@ -86,3 +91,116 @@ def test_plain_version_is_the_cpu_route_and_counts_no_launch():
             p_flash.flash_attention_bwd.launches) == (fwd, bwd)
     with pytest.raises(ValueError, match="Tq == Tk"):
         p_flash.flash_attention(q, k[:, :, :64], v[:, :, :64], causal=True)
+
+
+# chip_smoke.py FLASH_TOL["bfloat16"]: |got - want| <= atol + rtol |want|
+CARD_TOL = {"out": (1e-2, 1e-2), "grads": (3e-2, 1e-2)}
+
+
+def _bf16(x):
+    """x rounded to bf16 (nearest even), as fp32."""
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _tc_emulation(q, k, v, do, causal, scale):
+    """What the tensor-core kernels compute from bf16-valued fp32 arrays
+    [B, H, T, 64]: 64-key tiles, an fp32 online softmax in exp2 on scores
+    prescaled by scale·log2(e), P rounded to bf16 before P·V, O rounded to
+    bf16; the backward rebuilds P from the fp32 lse, delta from the bf16
+    O, rounds P and dS to bf16 before their products; sums in fp32.
+    Returns (o, dq, dk, dv), bf16-valued."""
+    f32 = np.float32
+    Tq, Tk = q.shape[2], k.shape[2]
+    c = f32(scale * np.log2(np.e))
+    rows = np.arange(Tq)[:, None]
+    m = np.full(q.shape[:3] + (1,), -np.inf, f32)
+    l = np.zeros_like(m)
+    acc = np.zeros(q.shape, f32)
+    with np.errstate(invalid="ignore"):
+        for k0 in range(0, Tk, 64):
+            kt, vt = k[:, :, k0:k0 + 64], v[:, :, k0:k0 + 64]
+            s = (q @ kt.swapaxes(-1, -2)) * c
+            if causal:
+                cols = k0 + np.arange(kt.shape[2])[None, :]
+                s = np.where(cols <= rows, s, -np.inf).astype(f32)
+            mx = np.maximum(m, s.max(-1, keepdims=True))
+            mu = np.where(mx == -np.inf, 0, mx).astype(f32)
+            alpha, p = np.exp2(m - mu), np.exp2(s - mu)
+            l = l * alpha + p.sum(-1, keepdims=True)
+            acc = acc * alpha + _bf16(p) @ vt
+            m = mx
+    o = _bf16(acc / l)
+    lse = m * f32(np.log(2)) + np.log(l)
+    delta = (o * do).sum(-1, keepdims=True)
+    p = np.exp2((q @ k.swapaxes(-1, -2)) * c - lse * f32(np.log2(np.e)))
+    if causal:
+        p = np.where(np.arange(Tk)[None, :] <= rows, p, 0).astype(f32)
+    ds = p * (do @ v.swapaxes(-1, -2) - delta)
+    dv = _bf16(p).swapaxes(-1, -2) @ do
+    dk = (_bf16(ds).swapaxes(-1, -2) @ q) * f32(scale)
+    dq = (_bf16(ds) @ k) * f32(scale)
+    return o, _bf16(dq), _bf16(dk), _bf16(dv)
+
+
+@pytest.mark.parametrize("Tq,Tk,causal", [(128, 128, True),
+                                          (256, 256, True),
+                                          (128, 256, False)])
+def test_tc_kernel_numerics_within_card_limits(Tq, Tk, causal):
+    """The tensor-core kernels' numerics (P and dS rounded to bf16) stay
+    inside the card limits against the JAX op on the same bf16 inputs,
+    forward and dQ/dK/dV; prints the largest ratio to each limit."""
+    q, k, v, g = (_bf16(x) for x in _inputs(Tq, Tk, "bhtd"))
+    scale = 64 ** -0.5
+    attrs = {"causal": causal, "sm_scale": scale, "layout": "bhtd"}
+    j_impl = j_registry.get("flash_attention").impl
+
+    def j_fn(q, k, v):
+        return j_impl(None, {"Q": [q], "K": [k], "V": [v]}, attrs)["Out"][0]
+
+    j_out, vjp = jax.vjp(j_fn, *(jnp.asarray(x, jnp.bfloat16)
+                                 for x in (q, k, v)))
+    want = (j_out,) + vjp(jnp.asarray(g, jnp.bfloat16))
+    got = _tc_emulation(q, k, v, g, causal, scale)
+    ratios = {}
+    for name, x, w in zip(("out", "dq", "dk", "dv"), got, want):
+        w = _f32(w)
+        atol, rtol = CARD_TOL["out" if name == "out" else "grads"]
+        assert np.isfinite(x).all(), name
+        ratios[name] = float((np.abs(x - w) / (atol + rtol * np.abs(w)))
+                             .max())
+    print("tc numerics Tq=%d Tk=%d causal=%s: largest |err| / card limit %s"
+          % (Tq, Tk, causal, ratios))
+    assert max(ratios.values()) <= 1, ratios
+
+
+def test_route_and_alignment_decisions():
+    """bf16 CUDA -> tc, fp32 CUDA -> simt, CPU -> plain, other CUDA
+    dtypes and devices raise; a bf16 view the tensor-core kernels cannot
+    read 16 bytes at a time is copied, an aligned one is read in place."""
+    route = p_flash.kernel_route
+    for dt in (torch.bfloat16, torch.float32, torch.float64):
+        assert route("cpu", dt) == "plain"
+    assert route("cuda", torch.bfloat16) == "tc"
+    assert route("cuda", torch.float32) == "simt"
+    for dt in (torch.float16, torch.float64, torch.int8):
+        with pytest.raises(TypeError, match="bfloat16"):
+            route("cuda", dt)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        route("meta", torch.bfloat16)
+
+    bthd = torch.zeros(2, 130, 3, 64, dtype=torch.bfloat16).transpose(1, 2)
+    t, copied = p_flash.tc_operand(bthd)
+    assert t is bthd and not copied
+    odd_rows = torch.randn(2, 3, 130, 68).to(torch.bfloat16)[..., :64]
+    flat = torch.randn(2 * 3 * 130 * 64 + 1).to(torch.bfloat16)
+    odd_base = flat[1:].view(2, 3, 130, 64)
+    for view in (odd_rows, odd_base):
+        t, copied = p_flash.tc_operand(view)
+        assert copied and torch.equal(t, view) and t.is_contiguous()
+        assert p_flash.tc_aligned(t.data_ptr(), t.shape, t.stride(), 2)
+    aligned = p_flash.tc_aligned
+    assert aligned(0, (1, 1, 5, 64), (3, 5, 64, 1), 2)  # size-1 dims
+    assert not aligned(0, (2, 1, 5, 64), (3, 5, 64, 1), 2)
+    assert not aligned(0, (1, 1, 5, 64), (320, 320, 64, 2), 2)
+    assert not aligned(2, (1, 1, 5, 64), (320, 320, 64, 1), 2)

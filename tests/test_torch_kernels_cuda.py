@@ -137,6 +137,10 @@ def test_tree_kernel_wrapper_checks_on_card():
     (1, 2, 128, 320, False, "float32", "bthd"),
     (1, 1, 100, 100, True, "bfloat16", "bhtd"),   # ragged tiles
     (1, 2, 72, 200, False, "bfloat16", "bhtd"),
+    (1, 2, 1, 1, True, "bfloat16", "bhtd"),       # one row, one key
+    (2, 3, 65, 65, True, "bfloat16", "bthd"),     # one row past a tile
+    (2, 1, 129, 129, True, "bfloat16", "bhtd"),   # past a 128-row block
+    (160, 8, 128, 128, True, "bfloat16", "bthd"),  # B*H 1280
 ])
 def test_flash_attention_kernels_match_plain_on_card(B, H, Tq, Tk, causal,
                                                      dtype, layout):
@@ -146,7 +150,9 @@ def test_flash_attention_kernels_match_plain_on_card(B, H, Tq, Tk, causal,
     fp32 atol/rtol 1e-4 (different order of sums); bf16 outputs atol/rtol
     1e-2 (both sides round to bf16, 1 ulp is at most 2^-7 |want|), bf16
     grads atol 3e-2, rtol 1e-2 (the kernel's delta uses the bf16-rounded
-    O)."""
+    O, and the tensor-core kernels round P and dS to bf16; the CPU test
+    `test_tc_kernel_numerics_within_card_limits` emulates that). bf16
+    takes the tensor-core route, fp32 the SIMT route."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -164,25 +170,66 @@ def test_flash_attention_kernels_match_plain_on_card(B, H, Tq, Tk, causal,
     tols = ({"out": (1e-4, 1e-4), "grads": (1e-4, 1e-4)}
             if dtype == "float32"
             else {"out": (1e-2, 1e-2), "grads": (3e-2, 1e-2)})
-    fwd = fa.flash_attention_fwd.launches
-    bwd = fa.flash_attention_bwd.launches
+    route = "tc" if dtype == "bfloat16" else "simt"
+    before = _flash_counts(fa, route)
+    out, grads = _flash_against_plain(fa, q, k, v, g, causal, tols)
+    assert _flash_counts(fa, route) == tuple(n + 1 for n in before[:4]) + (
+        before[4],)
+    assert out.stride() == q.stride()   # written where the layout says
+
+
+def _flash_counts(fa, route):
+    """(fwd launches, bwd launches, fwd and bwd launches by `route`,
+    copies of both)."""
+    f, b = fa.flash_attention_fwd, fa.flash_attention_bwd
+    return (f.launches, b.launches, f.launches_by_route[route],
+            b.launches_by_route[route], f.copies + b.copies)
+
+
+def _flash_against_plain(fa, q, k, v, g, causal, tols):
+    """K1 forward and autograd against the plain version's on the same
+    inputs, to `tols`; returns the kernels' (out, grads)."""
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     out = fa.flash_attention(*leaves, causal=causal)
     grads = torch.autograd.grad(out, leaves, g)
     torch.cuda.synchronize()
-    assert (fa.flash_attention_fwd.launches,
-            fa.flash_attention_bwd.launches) == (fwd + 1, bwd + 1)
-    assert out.stride() == q.stride()   # written where the layout says
     ref_leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     ref = fa.flash_attention_reference(*ref_leaves, causal=causal)
     ref_grads = torch.autograd.grad(ref, ref_leaves, g)
     for name, got, want in zip(("out", "dq", "dk", "dv"),
                                (out,) + grads, (ref,) + ref_grads):
-        assert got.dtype == tdt and torch.isfinite(got).all(), name
+        assert got.dtype == q.dtype and torch.isfinite(got).all(), name
         atol, rtol = tols["out" if name == "out" else "grads"]
         np.testing.assert_allclose(got.detach().float().cpu().numpy(),
                                    want.detach().float().cpu().numpy(),
                                    err_msg=name, atol=atol, rtol=rtol)
+    return out, grads
+
+
+@pytest.mark.cuda
+def test_flash_attention_tc_copies_misaligned_views_on_card():
+    """bf16 views whose row stride (68 elements, 136 bytes) is not a
+    multiple of 16 bytes: the wrapper copies them, counts each copy, and
+    the tensor-core kernels still agree with the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.RandomState(68)
+    dev = torch.device("cuda")
+
+    def make():
+        t = rng.standard_normal((2, 3, 96, 68)).astype(np.float32)
+        return torch.from_numpy(t).to(dev, torch.bfloat16)[..., :64]
+
+    q, k, v, g = make(), make(), make(), make()
+    before = _flash_counts(fa, "tc")
+    _flash_against_plain(fa, q, k, v, g, True,
+                         {"out": (1e-2, 1e-2), "grads": (3e-2, 1e-2)})
+    # q, k, v copied by the forward (the backward reads those copies and
+    # the aligned o), dO by the backward
+    assert _flash_counts(fa, "tc") == tuple(n + 1 for n in before[:4]) + (
+        before[4] + 4,)
 
 
 @pytest.mark.cuda
