@@ -47,7 +47,11 @@ Phases, each fatal on failure (exit code 1, no result line):
      and at a non-causal bf16 Tq=128/Tk=256 case; kernel, plain and
      library (scaled_dot_product_attention) times, the bound and the factor to
      the library at the first. Then the fp32 forward at the int8 path's
-     shape (B=32, H=8, T=512, causal), timed the same way.
+     shape (B=32, H=8, T=512, causal), timed the same way. Then head dim
+     128 on both routes: checked and timed at phase 6b's own shape (B=8,
+     H=8, T=512, causal), checked cross, and head dim 96 (padded to 128,
+     4 copies counted); bf16 forward and backward also timed at B=80,
+     the fp32 forward at B=32, as above (the rows' ms; 6b's in path_ms).
   6. training: the Fluid-API Transformer LM (bench.py's headline step)
      through the port's entry points on cuda:0 — full width, 6 layers,
      seq 512, batch 160, bf16 params and residual stream, the legacy AMP
@@ -57,6 +61,11 @@ Phases, each fatal on failure (exit code 1, no result line):
      and 6 backward per step, every launch by the tensor-core route and
      no operand copied; then 2 more steps under torch.profiler (K1's
      device ms a step).
+  6b. head dim 128: the LM widened to d_model 1024 over 8 heads (head
+     dim 128), 2 layers, batch 8: 5 bf16 AMP training steps (loss finite
+     and falling, K1 once a layer a step each way by the tensor-core
+     route) and 5 steps of its fp32 program's inference clone (K1's SIMT
+     forward once a layer a step); no operand copied.
   7. card vs CPU: the same program from one set of weights (startup run
      once on the card, the scope copied to the CPU), two SGD steps at
      batch 2 on cuda:0 (the kernels) and on the CPU (the plain
@@ -66,8 +75,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      away and the limits are tight enough to see a skipped one. Each
      prints its largest errors over their limits.
   8. int8 inference: the fused int8 matmul (K4) bitwise against its
-     plain version on an edge matrix (M 1/7/33 x K 1/5/129/2048 x N
-     1/3/129/32000), ties, saturation, strided and unaligned x, and at
+     plain version on an edge matrix (M 1/7/33/127/129 x K
+     1/5/31/33/129/2048 x N 1/3/7/9/127/129/32000: tails and both sides
+     of the tensor-core tiles' edges), ties, saturation, strided and
+     unaligned x, and at
      the path's three shapes, where kernel, plain version, the library
      yardstick (torch._int_mm, the product alone) and the fp32 matmul
      are timed; then the fp32 LM's inference clone at batch 32,
@@ -76,7 +87,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      finite, K4 launched exactly once a dense layer a step (12 FFN, 2
      lm_head chunks) and never by the fp32 clone, K1's fp32 forward
      once a layer a step by the SIMT route in both, the int8 loss within
-     1% of the fp32 loss; a profiled int8 step. Last, the int8 program
+     1% of the fp32 loss; the int8 / fp32 step ratio and K4's share of
+     the card's busy time in a profiled int8 step. Last, the int8 program
      card vs CPU at batch 2: every dense layer's output on the card
      bitwise the plain version's on its own input, the loss to rtol
      1e-4, a 1% act-scale fault caught at every layer.
@@ -733,15 +745,15 @@ def spec_tree_profile(torch, model, tree=(2, 6)):
     return report
 
 
-def flash_inputs(torch, B, H, Tq, Tk, dtype, seed):
-    """q, k, v and an upstream grad dO as [B, H, T, 64] views of
-    [B, T, H, 64] tensors (the layout the fused attention op hands the
+def flash_inputs(torch, B, H, Tq, Tk, dtype, seed, Dh=64):
+    """q, k, v and an upstream grad dO as [B, H, T, Dh] views of
+    [B, T, H, Dh] tensors (the layout the fused attention op hands the
     kernel), from a seeded generator on the card."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, dtype)
 
     def make(T):
-        t = torch.randn(B, T, H, 64, device="cuda", generator=gen)
+        t = torch.randn(B, T, H, Dh, device="cuda", generator=gen)
         return t.to(dt).transpose(1, 2)
 
     return make(Tq), make(Tk), make(Tk), make(Tq)
@@ -754,30 +766,32 @@ def flash_counts(fa):
             fa.flash_attention_fwd.copies + fa.flash_attention_bwd.copies)
 
 
-def flash_check(torch, fa, B, H, Tq, Tk, causal, dtype, seed=0):
+def flash_check(torch, fa, B, H, Tq, Tk, causal, dtype, seed=0, Dh=64):
     """K1's kernels against the plain version's forward and autograd on
     the same inputs; the call must go by its dtype's route (bf16: "tc",
-    fp32: "simt") without copying an operand. Returns (inputs, max abs
-    errors, shape label)."""
-    q, k, v, g = flash_inputs(torch, B, H, Tq, Tk, dtype, seed)
+    fp32: "simt") without copying an operand, but for a head dim the
+    kernels run padded (q, k, v and dO padded: 4 copies). Returns
+    (inputs, max abs errors, shape label)."""
+    q, k, v, g = flash_inputs(torch, B, H, Tq, Tk, dtype, seed, Dh)
     route = "tc" if dtype == "bfloat16" else "simt"
+    want_copies = 0 if Dh in fa.SUPPORTED_HEAD_DIMS else 4
     fwd0, bwd0, copies0 = flash_counts(fa)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     out = fa.flash_attention(*leaves, causal=causal)
     grads = torch.autograd.grad(out, leaves, g)
     fwd1, bwd1, copies1 = flash_counts(fa)
     if (fwd1[route] - fwd0[route], bwd1[route] - bwd0[route],
-            copies1 - copies0) != (1, 1, 0):
-        fail("flash_attention %s: launches by route went from %r / %r to "
-             "%r / %r, copies %d to %d (expected one %s launch each way, "
-             "no copy)" % (dtype, fwd0, bwd0, fwd1, bwd1, copies0, copies1,
-                           route))
+            copies1 - copies0) != (1, 1, want_copies):
+        fail("flash_attention %s Dh=%d: launches by route went from %r / %r "
+             "to %r / %r, copies %d to %d (expected one %s launch each way, "
+             "%d copies)" % (dtype, Dh, fwd0, bwd0, fwd1, bwd1, copies0,
+                             copies1, route, want_copies))
     ref_leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     ref = fa.flash_attention_reference(*ref_leaves, causal=causal)
     ref_grads = torch.autograd.grad(ref, ref_leaves, g)
     torch.cuda.synchronize()
-    shape = "B=%d H=%d Tq=%d Tk=%d Dh=64 causal=%s %s, route %s" % (
-        B, H, Tq, Tk, causal, dtype, route)
+    shape = "B=%d H=%d Tq=%d Tk=%d Dh=%d causal=%s %s, route %s" % (
+        B, H, Tq, Tk, Dh, causal, dtype, route)
     errs, report = {}, []
     for name, got, want in zip(("out", "dq", "dk", "dv"), (out,) + grads,
                                (ref,) + ref_grads):
@@ -825,14 +839,69 @@ def flash_bound_ms(B, H, T, Dh, elem_bytes, fwd, flops_per_s):
 
 
 def flash_phase(torch, fa):
+    """K1 checked on small cases, then checked and timed at the training
+    path's shape (bf16, Dh 64, B=160) and the int8 path's (fp32 forward,
+    Dh 64, B=32); then head dim 128 checked and timed on both routes at
+    phase 6b's own shape (B=WIDE_BATCH) and at the timing shapes (bf16
+    B=80, fp32 B=32), and a padded head dim (96) checked. Returns the
+    kernels-line rows: Dh 64 tc forward, backward, simt forward, then the
+    same three at Dh 128 (ms at the timing shape; `path_*` at 6b's)."""
     import torch.nn.functional as F
 
     flash_check(torch, fa, 4, 8, 512, 512, True, "float32", seed=1)
     flash_check(torch, fa, 16, 8, 128, 256, False, "bfloat16", seed=2)
-    B, H, T, Dh = 160, 8, 512, 64
-    (q, k, v, g), errs, shape = flash_check(torch, fa, B, H, T, T, True,
-                                            "bfloat16", seed=3)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    rows = flash_tc_rows(torch, fa, F, flush, 160, 64, seed=3)
+    rows.append(flash_fp32_row(torch, fa, F, flush, 64, seed=4))
+    # head dim 128 at phase 6b's shape, cross, and 96 through the pad
+    path = {}
+    for dtype in ("bfloat16", "float32"):
+        path[dtype] = flash_path_leg(torch, fa, flush, dtype, seed=5)
+        flash_check(torch, fa, 4, 8, 128, 256, False, dtype, seed=6, Dh=128)
+        flash_check(torch, fa, 2, 8, 256, 256, True, dtype, seed=7, Dh=96)
+    rows += flash_tc_rows(torch, fa, F, flush, 80, 128, seed=8)
+    rows.append(flash_fp32_row(torch, fa, F, flush, 128, seed=9))
+    shape, errs, ms = path["bfloat16"]
+    rows[3].update(path_shape=shape, path_max_abs_err=errs["out"],
+                   path_ms=ms[0])
+    rows[4].update(path_shape=shape, path_ms=ms[1], path_max_abs_err=max(
+        errs["dq"], errs["dk"], errs["dv"]))
+    shape, errs, ms = path["float32"]
+    rows[5].update(path_shape=shape, path_max_abs_err=errs["out"],
+                   path_ms=ms[0])
+    return rows
+
+
+def flash_path_leg(torch, fa, flush, dtype, seed):
+    """K1 at head dim 128 at phase 6b's shape (B=WIDE_BATCH, H=8, T=512,
+    causal, the layout the fused op hands it), the shape its launches on
+    that path come from: checked against the plain version, then the
+    kernel timed (forward; bf16 also backward). Returns (shape label,
+    max abs errors, (fwd ms, bwd ms or None))."""
+    Dh, T = 128, WIDE["seq_len"]
+    (q, k, v, g), errs, shape = flash_check(
+        torch, fa, WIDE_BATCH, WIDE["n_heads"], T, T, True, dtype,
+        seed=seed, Dh=Dh)
+    scale = Dh ** -0.5
+    o, lse = fa.flash_attention_fwd(q, k, v, True, scale)
+    ms_fwd = time_ms(torch, lambda: fa.flash_attention_fwd(
+        q, k, v, True, scale), flush, iters=10)
+    ms_bwd = None if dtype == "float32" else time_ms(
+        torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, g, True,
+                                              scale), flush, iters=10)
+    print("kernel flash_attention %s (phase 6b's shape): fwd %.4f ms%s"
+          % (shape, ms_fwd, "" if ms_bwd is None else
+             ", bwd %.4f ms" % ms_bwd), flush=True)
+    return shape, errs, (ms_fwd, ms_bwd)
+
+
+def flash_tc_rows(torch, fa, F, flush, B, Dh, seed):
+    """K1's tensor-core forward and backward at H=8, T=512, causal, bf16,
+    head dim `Dh`: checked, then kernel, plain and SDPA times and the
+    bound. Returns their kernels-line rows."""
+    H, T = 8, 512
+    (q, k, v, g), errs, shape = flash_check(torch, fa, B, H, T, T, True,
+                                            "bfloat16", seed=seed, Dh=Dh)
     scale = Dh ** -0.5
     o, lse = fa.flash_attention_fwd(q, k, v, True, scale)
     ms_fwd = time_ms(torch, lambda: fa.flash_attention_fwd(
@@ -861,6 +930,7 @@ def flash_phase(torch, fa):
              lib_fwd + lib_bwd, ms_fwd / lib_fwd, ms_bwd / lib_bwd, lib_err),
           flush=True)
     rows = []
+    suffix = "" if Dh == 64 else "_dh%d" % Dh
     for name, fwd, ms, plain, library, err in (
             ("flash_attention_tc_fwd", True, ms_fwd, plain_fwd, lib_fwd,
              errs["out"]),
@@ -868,9 +938,11 @@ def flash_phase(torch, fa):
              max(errs["dq"], errs["dk"], errs["dv"]))):
         bound_ms, bound_by = flash_bound_ms(B, H, T, Dh, 2, fwd,
                                             H100_BF16_FLOPS)
-        print("kernel %s: bound %.4f ms by %s" % (name, bound_ms, bound_by))
+        print("kernel %s%s: bound %.4f ms by %s"
+              % (name, suffix, bound_ms, bound_by))
         rows.append({
-            "name": name, "route": "cuda", "kernel_route": "tc",
+            "name": name + suffix, "route": "cuda", "kernel_route": "tc",
+            "head_dim": Dh,
             "source": "paddle_tpu_torch/csrc/flash_attention_tc.cu",
             "replaces": ("paddle_tpu/ops/pallas_kernels.py:162" if fwd
                          else "paddle_tpu/ops/pallas_kernels.py:212"),
@@ -882,17 +954,17 @@ def flash_phase(torch, fa):
                        % ("forward" if fwd else "backward")})
     del q, k, v, g, o, lse, leaves, lib, lib_out
     torch.cuda.empty_cache()
-    rows.append(flash_fp32_row(torch, fa, F, flush))
     return rows
 
 
-def flash_fp32_row(torch, fa, F, flush):
+def flash_fp32_row(torch, fa, F, flush, Dh, seed):
     """K1's fp32 forward (the SIMT route) at the int8 inference path's
-    shape: checked against the plain version, then kernel, plain version
-    and SDPA in fp32 timed, the bound over the fp32 rate."""
-    B, H, T, Dh = INT8["batch"], 8, 512, 64
+    shape (B=32, H=8, T=512, causal) and head dim `Dh`: checked against
+    the plain version, then kernel, plain version and SDPA in fp32 timed,
+    the bound over the fp32 rate."""
+    B, H, T = INT8["batch"], 8, 512
     (q, k, v, _), errs, shape = flash_check(torch, fa, B, H, T, T, True,
-                                            "float32", seed=4)
+                                            "float32", seed=seed, Dh=Dh)
     scale = Dh ** -0.5
     ms = time_ms(torch, lambda: fa.flash_attention_fwd(
         q, k, v, True, scale), flush, iters=10)
@@ -910,8 +982,9 @@ def flash_fp32_row(torch, fa, F, flush):
     del q, k, v, lib
     torch.cuda.empty_cache()
     return {
-        "name": "flash_attention_simt_fwd", "route": "cuda",
-        "kernel_route": "simt",
+        "name": "flash_attention_simt_fwd" + ("" if Dh == 64
+                                              else "_dh%d" % Dh),
+        "route": "cuda", "kernel_route": "simt", "head_dim": Dh,
         "source": "paddle_tpu_torch/csrc/flash_attention.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:162",
         "shape": shape, "max_abs_err": errs["out"], "ms": ms,
@@ -925,16 +998,25 @@ TRAIN = dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=6,
              d_ff=2048, seq_len=512)
 
 
-def build_lm(fluid, dtype="bfloat16"):
+# the flagship widened to head dim 128 (d_model 1024 over 8 heads, the
+# head width of Llama-family decoders), depth cut to 2 layers: the path
+# of K1's Dh-128 kernels
+WIDE = dict(TRAIN, d_model=1024, d_ff=4096, n_layers=2)
+WIDE_BATCH = 8
+
+
+def build_lm(fluid, dtype="bfloat16", cfg=None):
     """bench.py's headline program through the port's entry points (bf16
     under the legacy AMP decorator), or the same model in fp32 with plain
-    SGD."""
+    SGD; `cfg` the model's widths (default TRAIN)."""
     from paddle_tpu_torch.models import transformer_fluid
+
+    cfg = TRAIN if cfg is None else cfg
 
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         _, _, loss = transformer_fluid.build(remat=False, dtype=dtype,
-                                             **TRAIN)
+                                             **cfg)
         opt = fluid.optimizer.SGD(0.01)
         if dtype == "bfloat16":
             opt = fluid.contrib.mixed_precision.decorate(
@@ -1048,6 +1130,62 @@ def training_phase(torch, fa, fluid, program):
         "flash_attention_ms_per_step": dict(k1_ms, total=sum(k1_ms.values())),
         "top_kernels": top}), flush=True)
     return launches
+
+
+def wide_head_phase(torch, fa, fluid, batch=WIDE_BATCH, steps=5):
+    """K1's Dh-128 path: the LM at WIDE's widths (head dim 128) trained
+    `steps` bf16 AMP steps on cuda:0, then its fp32 program's inference
+    clone run for `steps` steps. Every loss finite, the training loss
+    falling; flash attention launched once a layer a step each way by
+    the tensor-core route in training and once a layer a step forward by
+    the SIMT route in inference, no operand copied. Returns the launches
+    (tc forward, tc backward, simt forward)."""
+    exe = fluid.Executor()                     # place None: cuda:0
+    L = WIDE["n_layers"]
+    counts = {}
+    for dtype in ("bfloat16", "float32"):
+        main, startup, loss = build_lm(fluid, dtype, WIDE)
+        prog = main if dtype == "bfloat16" else main.clone(for_test=True)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        feed = lm_feed(torch, batch, exe.device)
+        torch.cuda.synchronize()
+        fa.reset_counts()                      # the path starts
+        t0 = time.perf_counter()
+        losses = [exe.run(prog, feed=feed, fetch_list=[loss], scope=scope,
+                          return_numpy=False)[0] for _ in range(steps)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        counts[dtype] = flash_counts(fa)       # the path ends
+        losses = [float(x.float().cpu()[0]) for x in losses]
+        if not all(np.isfinite(losses)):
+            fail("head dim 128 %s: non-finite loss %r" % (dtype, losses))
+        if dtype == "bfloat16" and not losses[-1] < losses[0]:
+            fail("head dim 128 training: the loss did not fall: %r" % losses)
+        route = "tc" if dtype == "bfloat16" else "simt"
+        want = ({"tc": 0, "simt": 0, route: L * steps},
+                {"tc": 0, "simt": 0,
+                 route: L * steps if dtype == "bfloat16" else 0}, 0)
+        if counts[dtype] != want:
+            fail("head dim 128 %s: flash attention launched %r (forward, "
+                 "backward by route; copies) over %d steps; expected %r"
+                 % (dtype, counts[dtype], steps, want))
+        print("wide_head %s" % json.dumps({
+            "model": "Fluid-API Transformer LM: vocab %d, d_model %d, %d "
+                     "heads (head dim %d), %d layers, d_ff %d, seq %d"
+                     % (WIDE["vocab_size"], WIDE["d_model"], WIDE["n_heads"],
+                        WIDE["d_model"] // WIDE["n_heads"], L, WIDE["d_ff"],
+                        WIDE["seq_len"]),
+            "program": ("bf16 training, legacy AMP, SGD(0.01)"
+                        if dtype == "bfloat16" else "fp32 inference clone"),
+            "batch": batch, "steps": steps, "losses": losses,
+            "ms_per_step_first_included": ms,
+            "flash_attention_launches": counts[dtype]}),
+            flush=True)
+        del main, startup, prog, scope, feed
+        torch.cuda.empty_cache()
+    return (counts["bfloat16"][0]["tc"], counts["bfloat16"][1]["tc"],
+            counts["float32"][0]["simt"])
 
 
 def ulp(x, mantissa_bits):
@@ -1167,8 +1305,11 @@ def card_vs_cpu_phase(torch, fluid, program, dtype,
 # full-int8 inference (phase 8): the fp32 LM's inference clone under
 # quant.decorate(mode="full_int8") at bench.py's width, batch 32
 INT8 = dict(batch=32, calib_batches=4, warmup=3, steps=10)
-# K4's edge matrix: every (M, K, N) of these
-INT8_EDGES = dict(M=(1, 7, 33), K=(1, 5, 129, 2048), N=(1, 3, 129, 32000))
+# K4's edge matrix: every (M, K, N) of these: tails, and one either side
+# of the product's tile edges (128 rows and columns a block, k 32 an mma,
+# 128 a stage; N 8 an mma)
+INT8_EDGES = dict(M=(1, 7, 33, 127, 129), K=(1, 5, 31, 33, 129, 2048),
+                  N=(1, 3, 7, 9, 127, 129, 32000))
 
 
 def int8_path_shapes():
@@ -1423,12 +1564,20 @@ def int8_phase(torch, fluid, im, fa, program):
         "loss_rel_diff": abs(l8 - l32) / abs(l32),
         "logits_max_abs_err": err, "top1_agreement": top1,
         "quant_counters": counters,
+        "int8_over_fp32_step": (runs["int8"]["ms_per_step"]
+                                / runs["fp32"]["ms_per_step"]),
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
     for name in runs:   # JSON keys: "MxKxN"
         summary[name] = dict(runs[name], launches={
             "x".join(map(str, k)): v
             for k, v in runs[name]["launches"].items()})
     print("int8_inference " + json.dumps(summary), flush=True)
+    print("int8 inference: %.2f ms a step against the fp32 clone's %.2f "
+          "(int8 / fp32 %.3f); K4 %.2f ms a profiled step, %.3f of the "
+          "card's busy time" % (runs["int8"]["ms_per_step"],
+                                runs["fp32"]["ms_per_step"],
+                                summary["int8_over_fp32_step"],
+                                k4_s * 1e3 / 2, k4_s / busy_s), flush=True)
     print("int8_profile " + json.dumps({
         "steps": 2, "wall_ms_per_step": wall * 1e3 / 2,
         "device_busy_ms_per_step": busy_s * 1e3 / 2,
@@ -1594,6 +1743,8 @@ def main():
     program = build_lm(fluid)
     fwd, bwd = training_phase(torch, fa_mod, fluid, program)
     flash_rows[0]["launches"], flash_rows[1]["launches"] = fwd, bwd
+    (flash_rows[3]["launches"], flash_rows[4]["launches"],
+     flash_rows[5]["launches"]) = wide_head_phase(torch, fa_mod, fluid)
     card_vs_cpu_phase(torch, fluid, program, "bfloat16")
     del program
     program = build_lm(fluid, "float32")

@@ -11,7 +11,9 @@
 // (its attention stays fp32), forward and backward in fp32 training.
 //
 // What it computes, per (batch b, head h): O = softmax(Q K^T * scale) V
-// over q [Tq, 64] and k, v [Tk, 64], keys at positions >= Tk masked and,
+// over q [Tq, Dh] and k, v [Tk, Dh] (Dh 64 or 128, a template parameter;
+// the wrapper pads any other head dim up to the next of them), keys at
+// positions >= Tk masked and,
 // when causal (Tq == Tk), keys after the query's position masked. The
 // forward also writes the row log-sum-exp of the scaled scores (fp32
 // [B, H, Tq]); the backward rebuilds P from it.
@@ -20,12 +22,14 @@
 // innermost, sequential dimension carries the online-softmax state in VMEM
 // scratch. CUDA blocks run in parallel and in no order, so the kv walk
 // becomes a loop inside one block per (b*h, 64-row q tile). Tiles of 64
-// rows are staged in shared memory as fp32 with a row stride of 65 floats,
-// so every product below reads shared memory without bank conflicts; each
-// of the 128 threads owns a 4 x 8 piece of every 64 x 64 product and keeps
-// it in registers. The forward keeps the running max m, sum l and the O
-// accumulator of its 4 rows in registers; P is written to shared memory
-// only to be multiplied with V. Causal blocks stop at the diagonal tile;
+// rows are staged in shared memory as fp32 with a row stride of Dh + 1
+// floats (P and dS, 64 x 64, with 65), so every product below reads shared
+// memory without bank conflicts; each of the 128 threads owns a 4 x 8
+// piece of every 64 x 64 product (4 x Dh/8 of a 64 x Dh one) and keeps it
+// in registers. Each launch first allows its dynamic shared memory (65 to
+// 162 KB) with cudaFuncSetAttribute. The forward keeps the running max m,
+// sum l and the O accumulator of its 4 rows in registers; P is written to
+// shared memory only to be multiplied with V. Causal blocks stop at the diagonal tile;
 // the diagonal tile and the ragged kv tail are masked with -inf, and a row
 // whose keys are all masked so far uses 0 as its max, so no NaN can arise
 // (such a row ends with l = 0, O = 0 and lse = +inf, for which the
@@ -55,11 +59,16 @@
 
 namespace {
 
-constexpr int kDh = 64;                  // head dim (the wrapper checks)
 constexpr int kTile = 64;                // q and kv rows per tile
-constexpr int kLd = kDh + 1;             // shared row stride, in floats
-constexpr int kTileFloats = kTile * kLd;
+constexpr int kPLd = kTile + 1;          // P and dS row stride, in floats
+constexpr int kPFloats = kTile * kPLd;
 constexpr int kThreads = 128;
+
+// shared row stride of a [64][DH] tile, in floats, and the tile's floats
+template <int DH>
+__host__ __device__ constexpr int ld() { return DH + 1; }
+template <int DH>
+__host__ __device__ constexpr int tile_floats() { return kTile * ld<DH>(); }
 
 struct Strides {  // element strides of one [B, H, T, Dh] tensor
   long long b, h, t;
@@ -67,40 +76,43 @@ struct Strides {  // element strides of one [B, H, T, Dh] tensor
 
 // Rows [row0, row0 + 64) of one (b, h) slice into shared memory as fp32;
 // rows at or past n are zero.
+template <int DH>
 __device__ __forceinline__ void load_tile(float* s, const float* g,
                                           long long st, int row0, int n) {
-  for (int i = threadIdx.x; i < kTile * kDh; i += kThreads) {
-    const int r = i / kDh, d = i % kDh, row = row0 + r;
-    s[r * kLd + d] = row < n ? g[(long long)row * st + d] : 0.f;
+  for (int i = threadIdx.x; i < kTile * DH; i += kThreads) {
+    const int r = i / DH, d = i % DH, row = row0 + r;
+    s[r * ld<DH>() + d] = row < n ? g[(long long)row * st + d] : 0.f;
   }
 }
 
-// acc[i][j] += sum_k A(4*ty + i, k) * B(tx + 8*j, k), k < 64, where
+// acc[i][j] += sum_k A(4*ty + i, k) * B(tx + 8*j, k), k < K, where
 // A(r, k) = a[r * sar + k * sak] and B(c, k) = b[c * sbc + k * sbk].
-__device__ __forceinline__ void tile_product(float (&acc)[4][8],
+template <int J, int K>
+__device__ __forceinline__ void tile_product(float (&acc)[4][J],
                                              const float* a, int sar,
                                              int sak, const float* b,
                                              int sbc, int sbk, int ty,
                                              int tx) {
 #pragma unroll 4
-  for (int k = 0; k < kTile; ++k) {
-    float av[4], bv[8];
+  for (int k = 0; k < K; ++k) {
+    float av[4], bv[J];
 #pragma unroll
     for (int i = 0; i < 4; ++i) av[i] = a[(4 * ty + i) * sar + k * sak];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) bv[j] = b[(tx + 8 * j) * sbc + k * sbk];
+    for (int j = 0; j < J; ++j) bv[j] = b[(tx + 8 * j) * sbc + k * sbk];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int j = 0; j < J; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
   }
 }
 
-__device__ __forceinline__ void zero(float (&acc)[4][8]) {
+template <int J>
+__device__ __forceinline__ void zero(float (&acc)[4][J]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < J; ++j) acc[i][j] = 0.f;
 }
 
 // reduce over the 8 lanes (tx) that share a row
@@ -120,26 +132,28 @@ __device__ __forceinline__ bool visible(int row, int col, int Tq, int Tk,
   return row < Tq && col < Tk && (!causal || col <= row);
 }
 
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int H, int Tq, int Tk, Strides sq,
                  Strides sk, Strides sv, Strides so, float scale,
                  int causal) {
+  constexpr int kLd = ld<DH>(), kJ = DH / 8;
   extern __shared__ float smem[];
   float* q_s = smem;
-  float* k_s = q_s + kTileFloats;
-  float* v_s = k_s + kTileFloats;
-  float* p_s = v_s + kTileFloats;
+  float* k_s = q_s + tile_floats<DH>();
+  float* v_s = k_s + tile_floats<DH>();
+  float* p_s = v_s + tile_floats<DH>();
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int q0 = blockIdx.y * kTile;
   const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
   const float* qg = q + b * sq.b + h * sq.h;
   const float* kg = k + b * sk.b + h * sk.h;
   const float* vg = v + b * sv.b + h * sv.h;
-  load_tile(q_s, qg, sq.t, q0, Tq);
+  load_tile<DH>(q_s, qg, sq.t, q0, Tq);
 
-  float m[4], l[4], acc[4][8];
+  float m[4], l[4], acc[4][kJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = -INFINITY;
@@ -151,12 +165,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile's P.V is done with k_s, v_s, p_s
-    load_tile(k_s, kg, sk.t, k0, Tk);
-    load_tile(v_s, vg, sv.t, k0, Tk);
+    load_tile<DH>(k_s, kg, sk.t, k0, Tk);
+    load_tile<DH>(v_s, vg, sv.t, k0, Tk);
     __syncthreads();
     float s[4][8];
     zero(s);
-    tile_product(s, q_s, kLd, 1, k_s, kLd, 1, ty, tx);
+    tile_product<8, DH>(s, q_s, kLd, 1, k_s, kLd, 1, ty, tx);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = q0 + 4 * ty + i;
@@ -176,15 +190,17 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 8; ++j) {
         s[i][j] = expf(s[i][j] - m_use);
         sum += s[i][j];
-        acc[i][j] *= alpha;
       }
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) acc[i][j] *= alpha;
       l[i] = l[i] * alpha + row_sum(sum);
       m[i] = m_new;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) p_s[(4 * ty + i) * kLd + tx + 8 * j] = s[i][j];
+      for (int j = 0; j < 8; ++j)
+        p_s[(4 * ty + i) * kPLd + tx + 8 * j] = s[i][j];
     }
     __syncthreads();
-    tile_product(acc, p_s, kLd, 1, v_s, 1, kLd, ty, tx);  // acc += P V
+    tile_product<kJ, kTile>(acc, p_s, kPLd, 1, v_s, 1, kLd, ty, tx);  // P V
   }
 
   float* og = o + b * so.b + h * so.h;
@@ -194,7 +210,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (row >= Tq) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < kJ; ++j)
       og[(long long)row * so.t + tx + 8 * j] = acc[i][j] * inv;
     if (tx == 0)
       lse[(long long)bh * Tq + row] =
@@ -203,6 +219,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // delta[b, h, t] = sum_d dO * O, one warp a row
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_delta_kernel(const float* __restrict__ o, const float* __restrict__ d_o,
                    float* __restrict__ delta, int H, int Tq, long long rows,
@@ -215,7 +232,9 @@ flash_delta_kernel(const float* __restrict__ o, const float* __restrict__ d_o,
   const int t = row % Tq, b = bh / H, h = bh % H;
   const float* op = o + b * so.b + h * so.h + t * so.t;
   const float* dp = d_o + b * sdo.b + h * sdo.h + t * sdo.t;
-  float acc = op[lane] * dp[lane] + op[lane + 32] * dp[lane + 32];
+  float acc = op[lane] * dp[lane];
+#pragma unroll
+  for (int u = 1; u < DH / 32; ++u) acc += op[lane + 32 * u] * dp[lane + 32 * u];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -224,6 +243,7 @@ flash_delta_kernel(const float* __restrict__ o, const float* __restrict__ d_o,
 
 // S = Q K^T and dP = dO V^T for one (q tile, kv tile) pair, then P and
 // dS = P (dP - delta) into p_s (if given) and ds_s, both [q row][kv col].
+template <int DH>
 __device__ __forceinline__ void p_and_ds(const float* q_s, const float* do_s,
                                          const float* k_s, const float* v_s,
                                          const float* lse_s,
@@ -234,8 +254,9 @@ __device__ __forceinline__ void p_and_ds(const float* q_s, const float* do_s,
   float s[4][8], dp[4][8];
   zero(s);
   zero(dp);
-  tile_product(s, q_s, kLd, 1, k_s, kLd, 1, ty, tx);
-  tile_product(dp, do_s, kLd, 1, v_s, kLd, 1, ty, tx);
+  constexpr int kLd = ld<DH>();
+  tile_product<8, DH>(s, q_s, kLd, 1, k_s, kLd, 1, ty, tx);
+  tile_product<8, DH>(dp, do_s, kLd, 1, v_s, kLd, 1, ty, tx);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = 4 * ty + i;
@@ -245,8 +266,8 @@ __device__ __forceinline__ void p_and_ds(const float* q_s, const float* do_s,
       const float p = visible(q0 + r, k0 + c, Tq, Tk, causal)
                           ? expf(s[i][j] * scale - lse_s[r])
                           : 0.f;
-      if (p_s) p_s[r * kLd + c] = p;
-      ds_s[r * kLd + c] = p * (dp[i][j] - delta_s[r]);
+      if (p_s) p_s[r * kPLd + c] = p;
+      ds_s[r * kPLd + c] = p * (dp[i][j] - delta_s[r]);
     }
   }
 }
@@ -263,6 +284,7 @@ __device__ __forceinline__ void load_rows(float* lse_s, float* delta_s,
   }
 }
 
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ d_o,
@@ -271,39 +293,42 @@ flash_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   float* __restrict__ dv, int H, int Tq, int Tk, Strides sq,
                   Strides sk, Strides sv, Strides sdo, Strides sdk,
                   Strides sdv, float scale, int causal) {
+  constexpr int kLd = ld<DH>(), kJ = DH / 8;
   extern __shared__ float smem[];
   float* k_s = smem;
-  float* v_s = k_s + kTileFloats;
-  float* q_s = v_s + kTileFloats;
-  float* do_s = q_s + kTileFloats;
-  float* p_s = do_s + kTileFloats;
-  float* ds_s = p_s + kTileFloats;
-  float* lse_s = ds_s + kTileFloats;
+  float* v_s = k_s + tile_floats<DH>();
+  float* q_s = v_s + tile_floats<DH>();
+  float* do_s = q_s + tile_floats<DH>();
+  float* p_s = do_s + tile_floats<DH>();
+  float* ds_s = p_s + kPFloats;
+  float* lse_s = ds_s + kPFloats;
   float* delta_s = lse_s + kTile;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int k0 = blockIdx.y * kTile;
   const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
   const float* qg = q + b * sq.b + h * sq.h;
   const float* dog = d_o + b * sdo.b + h * sdo.h;
-  load_tile(k_s, k + b * sk.b + h * sk.h, sk.t, k0, Tk);
-  load_tile(v_s, v + b * sv.b + h * sv.h, sv.t, k0, Tk);
+  load_tile<DH>(k_s, k + b * sk.b + h * sk.h, sk.t, k0, Tk);
+  load_tile<DH>(v_s, v + b * sv.b + h * sv.h, sv.t, k0, Tk);
 
-  float dk_acc[4][8], dv_acc[4][8];  // rows: kv 4*ty + i; cols: d
+  float dk_acc[4][kJ], dv_acc[4][kJ];  // rows: kv 4*ty + i; cols: d
   zero(dk_acc);
   zero(dv_acc);
   const int n_qt = (Tq + kTile - 1) / kTile;
   for (int qt = causal ? (int)blockIdx.y : 0; qt < n_qt; ++qt) {
     const int q0 = qt * kTile;
     __syncthreads();  // the previous q tile's products are done
-    load_tile(q_s, qg, sq.t, q0, Tq);
-    load_tile(do_s, dog, sdo.t, q0, Tq);
+    load_tile<DH>(q_s, qg, sq.t, q0, Tq);
+    load_tile<DH>(do_s, dog, sdo.t, q0, Tq);
     load_rows(lse_s, delta_s, lse, delta, bh, q0, Tq);
     __syncthreads();
-    p_and_ds(q_s, do_s, k_s, v_s, lse_s, delta_s, p_s, ds_s, q0, k0, Tq, Tk,
-             scale, causal, ty, tx);
+    p_and_ds<DH>(q_s, do_s, k_s, v_s, lse_s, delta_s, p_s, ds_s, q0, k0, Tq,
+                 Tk, scale, causal, ty, tx);
     __syncthreads();
-    tile_product(dv_acc, p_s, 1, kLd, do_s, 1, kLd, ty, tx);   // P^T dO
-    tile_product(dk_acc, ds_s, 1, kLd, q_s, 1, kLd, ty, tx);   // dS^T Q
+    tile_product<kJ, kTile>(dv_acc, p_s, 1, kPLd, do_s, 1, kLd, ty,
+                            tx);                                // P^T dO
+    tile_product<kJ, kTile>(dk_acc, ds_s, 1, kPLd, q_s, 1, kLd, ty,
+                            tx);                                // dS^T Q
   }
 
   float* dkg = dk + b * sdk.b + h * sdk.h;
@@ -313,7 +338,7 @@ flash_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = k0 + 4 * ty + i;
     if (row >= Tk) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kJ; ++j) {
       const int d = tx + 8 * j;
       dkg[(long long)row * sdk.t + d] = dk_acc[i][j] * scale;
       dvg[(long long)row * sdv.t + d] = dv_acc[i][j];
@@ -321,6 +346,7 @@ flash_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ d_o,
@@ -328,37 +354,39 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ delta, float* __restrict__ dq, int H,
                 int Tq, int Tk, Strides sq, Strides sk, Strides sv,
                 Strides sdo, Strides sdq, float scale, int causal) {
+  constexpr int kLd = ld<DH>(), kJ = DH / 8;
   extern __shared__ float smem[];
   float* q_s = smem;
-  float* do_s = q_s + kTileFloats;
-  float* k_s = do_s + kTileFloats;
-  float* v_s = k_s + kTileFloats;
-  float* ds_s = v_s + kTileFloats;
-  float* lse_s = ds_s + kTileFloats;
+  float* do_s = q_s + tile_floats<DH>();
+  float* k_s = do_s + tile_floats<DH>();
+  float* v_s = k_s + tile_floats<DH>();
+  float* ds_s = v_s + tile_floats<DH>();
+  float* lse_s = ds_s + kPFloats;
   float* delta_s = lse_s + kTile;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int q0 = blockIdx.y * kTile;
   const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
   const float* kg = k + b * sk.b + h * sk.h;
   const float* vg = v + b * sv.b + h * sv.h;
-  load_tile(q_s, q + b * sq.b + h * sq.h, sq.t, q0, Tq);
-  load_tile(do_s, d_o + b * sdo.b + h * sdo.h, sdo.t, q0, Tq);
+  load_tile<DH>(q_s, q + b * sq.b + h * sq.h, sq.t, q0, Tq);
+  load_tile<DH>(do_s, d_o + b * sdo.b + h * sdo.h, sdo.t, q0, Tq);
   load_rows(lse_s, delta_s, lse, delta, bh, q0, Tq);
 
-  float dq_acc[4][8];  // rows: q 4*ty + i; cols: d
+  float dq_acc[4][kJ];  // rows: q 4*ty + i; cols: d
   zero(dq_acc);
   int n_kt = (Tk + kTile - 1) / kTile;
   if (causal) n_kt = min(n_kt, (int)blockIdx.y + 1);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous kv tile's dS K is done
-    load_tile(k_s, kg, sk.t, k0, Tk);
-    load_tile(v_s, vg, sv.t, k0, Tk);
+    load_tile<DH>(k_s, kg, sk.t, k0, Tk);
+    load_tile<DH>(v_s, vg, sv.t, k0, Tk);
     __syncthreads();
-    p_and_ds(q_s, do_s, k_s, v_s, lse_s, delta_s, nullptr, ds_s, q0, k0, Tq,
-             Tk, scale, causal, ty, tx);
+    p_and_ds<DH>(q_s, do_s, k_s, v_s, lse_s, delta_s, nullptr, ds_s, q0, k0,
+                 Tq, Tk, scale, causal, ty, tx);
     __syncthreads();
-    tile_product(dq_acc, ds_s, kLd, 1, k_s, 1, kLd, ty, tx);   // dS K
+    tile_product<kJ, kTile>(dq_acc, ds_s, kPLd, 1, k_s, 1, kLd, ty,
+                            tx);                                // dS K
   }
 
   float* dqg = dq + b * sdq.b + h * sdq.h;
@@ -367,7 +395,7 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + 4 * ty + i;
     if (row >= Tq) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < kJ; ++j)
       dqg[(long long)row * sdq.t + tx + 8 * j] =
           dq_acc[i][j] * scale;
   }
@@ -383,15 +411,16 @@ Strides strides_of(const long long* s, int i) {
   return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 }
 
+template <int DH>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, int B, int H, int Tq, int Tk,
                        const long long* st, float scale, int causal,
                        cudaStream_t stream) {
-  const size_t smem = 4 * kTileFloats * sizeof(float);
-  cudaError_t err = allow_smem(flash_fwd_kernel, smem);
+  const size_t smem = (3 * tile_floats<DH>() + kPFloats) * sizeof(float);
+  cudaError_t err = allow_smem(flash_fwd_kernel<DH>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Tq + kTile - 1) / kTile);
-  flash_fwd_kernel<<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<DH><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse),
       H, Tq, Tk, strides_of(st, 0), strides_of(st, 1), strides_of(st, 2),
@@ -399,6 +428,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+template <int DH>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* o, const void* d_o, const void* lse,
                        void* delta, void* dq, void* dk, void* dv, int B,
@@ -407,19 +437,20 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   // strides: q 0, k 1, v 2, o 3, do 4, dq 5, dk 6, dv 7
   const long long rows = (long long)B * H * Tq;
   const int warps = kThreads / 32;
-  flash_delta_kernel<<<(unsigned)((rows + warps - 1) / warps), kThreads,
-                          0, stream>>>(
+  flash_delta_kernel<DH><<<(unsigned)((rows + warps - 1) / warps),
+                              kThreads, 0, stream>>>(
       static_cast<const float*>(o), static_cast<const float*>(d_o),
       static_cast<float*>(delta), H, Tq, rows, strides_of(st, 3),
       strides_of(st, 4));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const size_t smem_kv = (6 * kTileFloats + 2 * kTile) * sizeof(float);
-  err = allow_smem(flash_dkdv_kernel, smem_kv);
+  const size_t smem_kv = (4 * tile_floats<DH>() + 2 * kPFloats + 2 * kTile)
+                         * sizeof(float);
+  err = allow_smem(flash_dkdv_kernel<DH>, smem_kv);
   if (err != cudaSuccess) return err;
   const dim3 grid_kv(B * H, (Tk + kTile - 1) / kTile);
-  flash_dkdv_kernel<<<grid_kv, kThreads, smem_kv, stream>>>(
+  flash_dkdv_kernel<DH><<<grid_kv, kThreads, smem_kv, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(d_o),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -430,11 +461,12 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const size_t smem_q = (5 * kTileFloats + 2 * kTile) * sizeof(float);
-  err = allow_smem(flash_dq_kernel, smem_q);
+  const size_t smem_q = (4 * tile_floats<DH>() + kPFloats + 2 * kTile)
+                        * sizeof(float);
+  err = allow_smem(flash_dq_kernel<DH>, smem_q);
   if (err != cudaSuccess) return err;
   const dim3 grid_q(B * H, (Tq + kTile - 1) / kTile);
-  flash_dq_kernel<<<grid_q, kThreads, smem_q, stream>>>(
+  flash_dq_kernel<DH><<<grid_q, kThreads, smem_q, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(d_o),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -446,19 +478,27 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q [B, H, Tq, 64], k/v [B, H, Tk, 64], o like q, all fp32: any strides
-// with a unit head-dim stride, given as `strides` = [b, h, t] element
-// strides of q, k, v, o (12 values, host memory). lse [B, H, Tq] fp32
-// contiguous. Causal needs Tq == Tk (the wrapper checks).
+// q [B, H, Tq, Dh], k/v [B, H, Tk, Dh], o like q, all fp32, Dh 64 or 128:
+// any strides with a unit head-dim stride, given as `strides` = [b, h, t]
+// element strides of q, k, v, o (12 values, host memory). lse [B, H, Tq]
+// fp32 contiguous. Causal needs Tq == Tk (the wrapper checks).
 extern "C" int ptpu_flash_attention_fwd(const void* q, const void* k,
                                         const void* v, void* o, void* lse,
                                         int B, int H, int Tq, int Tk, int Dh,
                                         const long long* strides,
                                         float scale, int causal,
                                         void* stream) {
-  if (Dh != kDh) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_fwd(q, k, v, o, lse, B, H, Tq, Tk, strides, scale, causal,
-                    static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (Dh) {
+    case 64:
+      return static_cast<int>(launch_fwd<64>(q, k, v, o, lse, B, H, Tq, Tk,
+                                             strides, scale, causal, s));
+    case 128:
+      return static_cast<int>(launch_fwd<128>(q, k, v, o, lse, B, H, Tq, Tk,
+                                              strides, scale, causal, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The backward: dq/dk/dv like q/k/v (their own strides), from q, k, v, o,
@@ -473,8 +513,17 @@ extern "C" int ptpu_flash_attention_bwd(const void* q, const void* k,
                                         const long long* strides,
                                         float scale, int causal,
                                         void* stream) {
-  if (Dh != kDh) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bwd(q, k, v, o, d_o, lse, delta, dq, dk, dv, B, H, Tq, Tk,
-                    strides, scale, causal,
-                    static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (Dh) {
+    case 64:
+      return static_cast<int>(launch_bwd<64>(q, k, v, o, d_o, lse, delta, dq,
+                                             dk, dv, B, H, Tq, Tk, strides,
+                                             scale, causal, s));
+    case 128:
+      return static_cast<int>(launch_bwd<128>(q, k, v, o, d_o, lse, delta,
+                                              dq, dk, dv, B, H, Tq, Tk,
+                                              strides, scale, causal, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

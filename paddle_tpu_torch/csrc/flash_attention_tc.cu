@@ -1,5 +1,7 @@
 // Flash attention, forward and backward, in bf16 on Hopper's tensor cores
-// (sm_90a). bf16 in and out, fp32 accumulators; head dim 64.
+// (sm_90a). bf16 in and out, fp32 accumulators; head dim 64 or 128 (a
+// template parameter, instantiated for both; the wrapper pads any other
+// head dim up to the next of them).
 //
 // Replaces the TPU kernel paddle_tpu/ops/pallas_kernels.py
 // `flash_attention` (:120) -> `_flash_fwd` (:162, pl.pallas_call :191,
@@ -10,7 +12,7 @@
 // SIMT kernels of flash_attention.cu.
 //
 // What it computes, per (batch b, head h): O = softmax(Q K^T * scale) V
-// over q [Tq, 64] and k, v [Tk, 64], keys at positions >= Tk masked and,
+// over q [Tq, Dh] and k, v [Tk, Dh], keys at positions >= Tk masked and,
 // when causal (Tq == Tk), keys after the query's position masked. The
 // forward also writes the row log-sum-exp of the scaled scores (fp32
 // [B, H, Tq]); the backward rebuilds P from it.
@@ -31,16 +33,20 @@
 //   The forward takes 128 query rows a block (8 warps; 64 rows in 4 warps
 //   measured slower), the backward 64 rows (4 warps); launch
 //   bounds hold registers to what lets 16 (forward) or 12 (backward)
-//   warps share an SM, more occupancy being worth a few spilled bytes.
+//   warps share an SM at Dh 64, more occupancy being worth a few spilled
+//   bytes; at Dh 128, where each warp's O (or dK and dV) accumulators and
+//   Q fragments double, to 8 warps an SM in either pass (Bounds below).
 // - The online softmax runs on the S accumulator fragments: a thread holds
 //   two rows, the row max and (at the end) the row sum reduce over the 4
 //   lanes of a quad. The fp32 accumulator layout of two neighbouring
 //   m16n8 tiles is the A-operand layout of an m16n8k16 product, so P (and
 //   in the backward dS) is rounded to bf16 in registers and multiplied
 //   from there: it never goes to shared memory.
-// - Tiles are bf16 in shared memory, [rows][64] with the 16-byte chunk c
+// - Tiles are bf16 in shared memory, [rows][Dh] with the 16-byte chunk c
 //   of row r stored at chunk c ^ (r & 7), so the 8 rows an ldmatrix phase
-//   reads fall in 8 different bank groups. They are loaded with 16-byte
+//   reads fall in 8 different bank groups (a row is 8 chunks at Dh 64 and
+//   16 at Dh 128: the XOR moves a chunk within its aligned group of 8,
+//   whose 128 bytes span every bank). They are loaded with 16-byte
 //   cp.async.cg (rows past T zero-filled, src-size 0, never written back)
 //   and read with ldmatrix.x4, .trans where the operand is needed
 //   transposed (V in P V; dO and Q in the backward's P^T dO, dS^T Q; K in
@@ -71,7 +77,8 @@
 // Interface: plain C functions (bound with ctypes), launched on the
 // caller's stream, allocating nothing; each returns cudaGetLastError().
 // The caller guarantees 16-byte aligned rows: base addresses and every
-// [B, H, T] stride multiples of 8 elements.
+// [B, H, T] stride multiples of 8 elements. Each launch first allows its
+// dynamic shared memory (48 to 97 KB) with cudaFuncSetAttribute.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,15 +88,28 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kDh = 64;                    // head dim (the wrapper checks)
 constexpr int kTile = 64;                  // kv rows a tile; bwd block rows
-constexpr int kTileElems = kTile * kDh;
 constexpr int kFwdRows = 128;              // fwd block rows: 8 warps x 16
 constexpr int kFwdThreads = 2 * kFwdRows;
 constexpr int kBwdThreads = 128;           // 4 warps x 16 rows
-// 3 blocks an SM (at most 168 registers a thread): the dK/dV pass spills
-// a few bytes at that limit and still runs faster than at 2 blocks
-constexpr int kBwdBlocksPerSm = 3;
+
+// Blocks an SM each pass's launch bounds ask for, by head dim.
+template <int DH>
+struct Bounds;
+// Dh 64: forward 2 (at most 128 registers a thread), backward 3 (168): the
+// dK/dV pass spills a few bytes at that limit and still runs faster than
+// at 2 blocks
+template <>
+struct Bounds<64> {
+  static constexpr int kFwd = 2, kBwd = 3;
+};
+// Dh 128: the O accumulator and Q fragments (forward) and dK, dV (dK/dV
+// pass) double; 1 forward block (255 registers) and 2 backward blocks
+// (255) keep them in registers
+template <>
+struct Bounds<128> {
+  static constexpr int kFwd = 1, kBwd = 2;
+};
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -102,10 +122,16 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
 }
 
 // Element offset of 16-byte chunk c (8 elements) of row r in a swizzled
-// [rows][64] tile.
+// [rows][DH] tile.
+template <int DH>
 __device__ __forceinline__ int swz(int r, int c) {
-  return r * kDh + ((c ^ (r & 7)) << 3);
+  return r * DH + ((c ^ (r & 7)) << 3);
 }
+
+// log2 of the 16-byte chunks a row holds (DH / 8): rows and chunks of a
+// flat chunk index by shift and mask
+template <int DH>
+constexpr int kChunkShift = DH == 64 ? 3 : 4;
 
 __device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src,
                                            bool full) {
@@ -128,16 +154,19 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // Rows [row0, row0 + R) of one (b, h) slice into a swizzled tile, 16 bytes
 // a copy; rows at or past n are zero-filled (and read nothing).
-template <int R, int kThreads>
+template <int R, int kThreads, int DH>
 __device__ __forceinline__ void load_tile(bf16* s, const bf16* g,
                                           long long st, int row0, int n) {
-  static_assert(R * 8 % kThreads == 0, "tile chunks per thread");
+  constexpr int kChunks = DH / 8;          // 16-byte chunks a row
+  static_assert(kChunks == 1 << kChunkShift<DH>, "chunk shift");
+  static_assert(R * kChunks % kThreads == 0, "tile chunks per thread");
 #pragma unroll
-  for (int it = 0; it < R * 8 / kThreads; ++it) {
+  for (int it = 0; it < R * kChunks / kThreads; ++it) {
     const int i = threadIdx.x + it * kThreads;
-    const int r = i >> 3, c = i & 7, row = row0 + r;
+    const int r = i >> kChunkShift<DH>, c = i & (kChunks - 1);
+    const int row = row0 + r;
     const bool in = row < n;
-    cp_async16(s + swz(r, c), g + (long long)(in ? row : 0) * st + c * 8,
+    cp_async16(s + swz<DH>(r, c), g + (long long)(in ? row : 0) * st + c * 8,
                in);
   }
 }
@@ -182,49 +211,54 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 }
 
 // A operand (16 rows x 16 k): rows [r0, r0 + 16), k chunk kc (k 16 kc ..
-// 16 kc + 15) of a swizzled [rows][64] tile.
+// 16 kc + 15) of a swizzled [rows][DH] tile.
+template <int DH>
 __device__ __forceinline__ void load_a(unsigned (&a)[4], const bf16* s,
                                        int r0, int kc, int lane) {
-  ldsm4(a, s + swz(r0 + (lane & 15), 2 * kc + (lane >> 4)));
+  ldsm4(a, s + swz<DH>(r0 + (lane & 15), 2 * kc + (lane >> 4)));
 }
 
 // B operands of two n8 tiles from a tile stored [n][k] (K for Q K^T):
 // b[0..1] for n rows [n0, n0 + 8), b[2..3] for [n0 + 8, n0 + 16), k chunk
 // kc.
+template <int DH>
 __device__ __forceinline__ void load_b(unsigned (&b)[4], const bf16* s,
                                        int n0, int kc, int lane) {
-  ldsm4(b, s + swz(n0 + (lane & 7) + ((lane >> 4) << 3),
-                   2 * kc + ((lane >> 3) & 1)));
+  ldsm4(b, s + swz<DH>(n0 + (lane & 7) + ((lane >> 4) << 3),
+                       2 * kc + ((lane >> 3) & 1)));
 }
 
 // B operands of two n8 tiles from a tile stored [k][n] (V for P V): k
 // rows [16 kc, 16 kc + 16), b[0..1] for n columns [16 np, 16 np + 8),
 // b[2..3] for [16 np + 8, 16 np + 16).
+template <int DH>
 __device__ __forceinline__ void load_bt(unsigned (&b)[4], const bf16* s,
                                         int kc, int np, int lane) {
-  ldsm4_t(b, s + swz(16 * kc + (lane & 7) + (((lane >> 3) & 1) << 3),
-                     2 * np + (lane >> 4)));
+  ldsm4_t(b, s + swz<DH>(16 * kc + (lane & 7) + (((lane >> 3) & 1) << 3),
+                         2 * np + (lane >> 4)));
 }
 
-// acc[8][4] (16 rows x 64) += A (16 rows x 64 k, from registers a[4][4])
-// times a [k][n] tile: the second product of every pass.
-__device__ __forceinline__ void mma_rows_kn(float (&acc)[8][4],
+// acc[DH/8][4] (16 rows x DH) += A (16 rows x 64 k, from registers
+// a[4][4]) times a [k][n] tile: the second product of every pass.
+template <int DH>
+__device__ __forceinline__ void mma_rows_kn(float (&acc)[DH / 8][4],
                                             const unsigned (&a)[4][4],
                                             const bf16* s, int lane) {
 #pragma unroll
   for (int kc = 0; kc < 4; ++kc)
 #pragma unroll
-    for (int np = 0; np < 4; ++np) {
+    for (int np = 0; np < DH / 16; ++np) {
       unsigned b[4];
-      load_bt(b, s, kc, np, lane);
+      load_bt<DH>(b, s, kc, np, lane);
       mma(acc[2 * np], a[kc], b[0], b[1]);
       mma(acc[2 * np + 1], a[kc], b[2], b[3]);
     }
 }
 
 // acc[8][4] (16 rows x 64 n) = rows [r0, r0 + 16) of tile a_s times the
-// transpose of the [n][k] tile b_s: the first products (Q K^T and its
-// kin).
+// transpose of the [n][k] tile b_s, k over DH: the first products (Q K^T
+// and its kin).
+template <int DH>
 __device__ __forceinline__ void mma_rows_nk(float (&acc)[8][4],
                                             const bf16* a_s, int r0,
                                             const bf16* b_s, int lane) {
@@ -233,13 +267,13 @@ __device__ __forceinline__ void mma_rows_nk(float (&acc)[8][4],
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
+  for (int kc = 0; kc < DH / 16; ++kc) {
     unsigned a[4];
-    load_a(a, a_s, r0, kc, lane);
+    load_a<DH>(a, a_s, r0, kc, lane);
 #pragma unroll
     for (int np = 0; np < 4; ++np) {
       unsigned b[4];
-      load_b(b, b_s, 16 * np, kc, lane);
+      load_b<DH>(b, b_s, 16 * np, kc, lane);
       mma(acc[2 * np], a, b[0], b[1]);
       mma(acc[2 * np + 1], a, b[2], b[3]);
     }
@@ -268,44 +302,48 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Writes a warp's 16 x 64 accumulator (times `mul`) as bf16 rows [row0,
+// Writes a warp's 16 x DH accumulator (times `mul`) as bf16 rows [row0,
 // row0 + 16) of g, rows at or past n skipped: through the warp's own 16
 // rows of a swizzled tile `s` (free by then), so that every global store
-// is 16 bytes and 8 lanes write one 128-byte row.
-__device__ __forceinline__ void store_rows(const float (&acc)[8][4],
+// is 16 bytes and DH / 8 lanes write one row.
+template <int DH>
+__device__ __forceinline__ void store_rows(const float (&acc)[DH / 8][4],
                                            float mul_lo, float mul_hi,
                                            bf16* s, bf16* g, long long st,
                                            int row0, int n, int lane) {
+  constexpr int kChunks = DH / 8;
   const int grp = lane >> 2, t = lane & 3;
   __syncwarp();
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    *reinterpret_cast<unsigned*>(s + swz(grp, j) + 2 * t) =
+  for (int j = 0; j < kChunks; ++j) {
+    *reinterpret_cast<unsigned*>(s + swz<DH>(grp, j) + 2 * t) =
         pack_bf16(acc[j][0] * mul_lo, acc[j][1] * mul_lo);
-    *reinterpret_cast<unsigned*>(s + swz(grp + 8, j) + 2 * t) =
+    *reinterpret_cast<unsigned*>(s + swz<DH>(grp + 8, j) + 2 * t) =
         pack_bf16(acc[j][2] * mul_hi, acc[j][3] * mul_hi);
   }
   __syncwarp();
 #pragma unroll
-  for (int it = 0; it < 4; ++it) {
-    const int i = lane + 32 * it, r = i >> 3, c = i & 7;
+  for (int it = 0; it < 16 * kChunks / 32; ++it) {
+    const int i = lane + 32 * it;
+    const int r = i >> kChunkShift<DH>, c = i & (kChunks - 1);
     if (row0 + r < n)
       *reinterpret_cast<uint4*>(g + (long long)(row0 + r) * st + c * 8) =
-          *reinterpret_cast<const uint4*>(s + swz(r, c));
+          *reinterpret_cast<const uint4*>(s + swz<DH>(r, c));
   }
 }
 
-// 2 blocks an SM: at most 128 registers a thread, 16 warps.
-__global__ void __launch_bounds__(kFwdThreads, 2)
+template <int DH>
+__global__ void __launch_bounds__(kFwdThreads, Bounds<DH>::kFwd)
 flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o,
                     float* __restrict__ lse, int H, int Tq, int Tk,
                     Strides sq, Strides sk, Strides sv, Strides so,
                     float scale, int causal) {
   constexpr int kRows = kFwdRows, kThreads = kFwdThreads;
+  constexpr int kTileElems = kTile * DH;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* k_s = q_s + kRows * kDh;          // 2 stages
+  bf16* k_s = q_s + kRows * DH;           // 2 stages
   bf16* v_s = k_s + 2 * kTileElems;       // 2 stages
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int grp = lane >> 2, t = lane & 3;
@@ -319,19 +357,19 @@ flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int n_kt = (Tk + kTile - 1) / kTile;
   if (causal) n_kt = min(n_kt, (q0 + kRows - 1) / kTile + 1);
 
-  load_tile<kRows, kThreads>(q_s, qg, sq.t, q0, Tq);
-  load_tile<kTile, kThreads>(k_s, kg, sk.t, 0, Tk);
-  load_tile<kTile, kThreads>(v_s, vg, sv.t, 0, Tk);
+  load_tile<kRows, kThreads, DH>(q_s, qg, sq.t, q0, Tq);
+  load_tile<kTile, kThreads, DH>(k_s, kg, sk.t, 0, Tk);
+  load_tile<kTile, kThreads, DH>(v_s, vg, sv.t, 0, Tk);
   cp_async_commit();
 
   const float c = scale * kLog2e;
   const int row_w = q0 + 16 * warp;       // the warp's first row
   const int r_lo = row_w + grp, r_hi = r_lo + 8;
-  unsigned qf[4][4];
+  unsigned qf[DH / 16][4];
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float acc[8][4];
+  float acc[DH / 8][4];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < DH / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
@@ -342,15 +380,16 @@ flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
     if (kt + 1 < n_kt) {
       const int st = (kt + 1) & 1;
-      load_tile<kTile, kThreads>(k_s + st * kTileElems, kg, sk.t,
-                                 (kt + 1) * kTile, Tk);
-      load_tile<kTile, kThreads>(v_s + st * kTileElems, vg, sv.t,
-                                 (kt + 1) * kTile, Tk);
+      load_tile<kTile, kThreads, DH>(k_s + st * kTileElems, kg, sk.t,
+                                     (kt + 1) * kTile, Tk);
+      load_tile<kTile, kThreads, DH>(v_s + st * kTileElems, vg, sv.t,
+                                     (kt + 1) * kTile, Tk);
     }
     cp_async_commit();
     if (kt == 0) {
 #pragma unroll
-      for (int kc = 0; kc < 4; ++kc) load_a(qf[kc], q_s, 16 * warp, kc, lane);
+      for (int kc = 0; kc < DH / 16; ++kc)
+        load_a<DH>(qf[kc], q_s, 16 * warp, kc, lane);
     }
     const int k0 = kt * kTile;
     if (causal && k0 > row_w + 15) continue;   // all after the warp's rows
@@ -363,11 +402,11 @@ flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc)
+    for (int kc = 0; kc < DH / 16; ++kc)
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         unsigned bb[4];
-        load_b(bb, ks, 16 * np, kc, lane);
+        load_b<DH>(bb, ks, 16 * np, kc, lane);
         mma(s[2 * np], qf[kc], bb[0], bb[1]);
         mma(s[2 * np + 1], qf[kc], bb[2], bb[3]);
       }
@@ -403,11 +442,15 @@ flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         sum[e >> 1] += s[n][e];
         acc[n][e] *= alpha[e >> 1];
       }
+#pragma unroll
+    for (int n = 8; n < DH / 8; ++n)   // Dh 128: the other half of O
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
     l[0] = l[0] * alpha[0] + sum[0];
     l[1] = l[1] * alpha[1] + sum[1];
     unsigned pa[4][4];
     to_a(pa, s);
-    mma_rows_kn(acc, pa, vs, lane);                 // O += P V
+    mma_rows_kn<DH>(acc, pa, vs, lane);             // O += P V
   }
 
   float inv[2];
@@ -425,11 +468,13 @@ flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           l[1] > 0.f ? m[1] * kLn2 + logf(l[1]) : INFINITY;
   }
   // the warp's own rows of q_s: only this warp read them, into qf
-  store_rows(acc, inv[0], inv[1], q_s + 16 * warp * kDh,
-             o + b * so.b + h * so.h, so.t, row_w, Tq, lane);
+  store_rows<DH>(acc, inv[0], inv[1], q_s + 16 * warp * DH,
+                 o + b * so.b + h * so.h, so.t, row_w, Tq, lane);
 }
 
-// delta[b, h, t] = sum_d dO * O in fp32, 8 lanes a row (16 bytes each)
+// delta[b, h, t] = sum_d dO * O in fp32, 8 lanes a row (16 bytes each,
+// DH / 64 times)
+template <int DH>
 __global__ void __launch_bounds__(kBwdThreads)
 flash_tc_delta_kernel(const bf16* __restrict__ o,
                       const bf16* __restrict__ d_o, float* __restrict__ delta,
@@ -442,18 +487,24 @@ flash_tc_delta_kernel(const bf16* __restrict__ o,
   if (row < rows) {
     const long long bh = row / Tq;
     const int tq = (int)(row % Tq), b = (int)(bh / H), h = (int)(bh % H);
-    const uint4 ov = *reinterpret_cast<const uint4*>(
-        o + b * so.b + h * so.h + tq * so.t + part * 8);
-    const uint4 dv = *reinterpret_cast<const uint4*>(
-        d_o + b * sdo.b + h * sdo.h + tq * sdo.t + part * 8);
-    const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
-    const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&dv);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 a = __bfloat1622float2(op[i]);
-      const float2 d = __bfloat1622float2(dp[i]);
-      acc = fmaf(a.x, d.x, acc);
-      acc = fmaf(a.y, d.y, acc);
+    for (int u = 0; u < DH / 64; ++u) {
+      const int c = part + 8 * u;
+      const uint4 ov = *reinterpret_cast<const uint4*>(
+          o + b * so.b + h * so.h + tq * so.t + c * 8);
+      const uint4 dv = *reinterpret_cast<const uint4*>(
+          d_o + b * sdo.b + h * sdo.h + tq * sdo.t + c * 8);
+      const __nv_bfloat162* op =
+          reinterpret_cast<const __nv_bfloat162*>(&ov);
+      const __nv_bfloat162* dp =
+          reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 a = __bfloat1622float2(op[i]);
+        const float2 d = __bfloat1622float2(dp[i]);
+        acc = fmaf(a.x, d.x, acc);
+        acc = fmaf(a.y, d.y, acc);
+      }
     }
   }
   acc += __shfl_xor_sync(0xffffffffu, acc, 1);
@@ -465,7 +516,8 @@ flash_tc_delta_kernel(const bf16* __restrict__ o,
 // One block per (b*h, 64-key tile): dK and dV of its keys, walking the q
 // tiles (from the diagonal on when causal) with the next q tile's Q, dO,
 // lse and delta in flight.
-__global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSm)
+template <int DH>
+__global__ void __launch_bounds__(kBwdThreads, Bounds<DH>::kBwd)
 flash_tc_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ d_o,
                      const float* __restrict__ lse,
@@ -473,6 +525,7 @@ flash_tc_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      bf16* __restrict__ dv, int H, int Tq, int Tk,
                      Strides sq, Strides sk, Strides sv, Strides sdo,
                      Strides sdk, Strides sdv, float scale, int causal) {
+  constexpr int kTileElems = kTile * DH;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* k_s = reinterpret_cast<bf16*>(smem);
   bf16* v_s = k_s + kTileElems;
@@ -491,19 +544,21 @@ flash_tc_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_qt = (Tq + kTile - 1) / kTile;
   const int qt0 = causal ? kt : 0;
 
-  load_tile<kTile, kBwdThreads>(k_s, k + b * sk.b + h * sk.h, sk.t, k0, Tk);
-  load_tile<kTile, kBwdThreads>(v_s, v + b * sv.b + h * sv.h, sv.t, k0, Tk);
-  load_tile<kTile, kBwdThreads>(q_s, qg, sq.t, qt0 * kTile, Tq);
-  load_tile<kTile, kBwdThreads>(do_s, dog, sdo.t, qt0 * kTile, Tq);
+  load_tile<kTile, kBwdThreads, DH>(k_s, k + b * sk.b + h * sk.h, sk.t, k0,
+                                    Tk);
+  load_tile<kTile, kBwdThreads, DH>(v_s, v + b * sv.b + h * sv.h, sv.t, k0,
+                                    Tk);
+  load_tile<kTile, kBwdThreads, DH>(q_s, qg, sq.t, qt0 * kTile, Tq);
+  load_tile<kTile, kBwdThreads, DH>(do_s, dog, sdo.t, qt0 * kTile, Tq);
   load_rows(lse_s, lg, qt0 * kTile, Tq);
   load_rows(dl_s, dg, qt0 * kTile, Tq);
   cp_async_commit();
 
   const float c = scale * kLog2e;
   const int kw = k0 + 16 * warp;          // the warp's first key
-  float dk_acc[8][4], dv_acc[8][4];
+  float dk_acc[DH / 8][4], dv_acc[DH / 8][4];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < DH / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
 
@@ -513,9 +568,10 @@ flash_tc_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
     if (qt + 1 < n_qt) {
       const int nx = st ^ 1, q1 = q0 + kTile;
-      load_tile<kTile, kBwdThreads>(q_s + nx * kTileElems, qg, sq.t, q1, Tq);
-      load_tile<kTile, kBwdThreads>(do_s + nx * kTileElems, dog, sdo.t, q1,
-                                    Tq);
+      load_tile<kTile, kBwdThreads, DH>(q_s + nx * kTileElems, qg, sq.t, q1,
+                                        Tq);
+      load_tile<kTile, kBwdThreads, DH>(do_s + nx * kTileElems, dog, sdo.t,
+                                        q1, Tq);
       load_rows(lse_s + nx * kTile, lg, q1, Tq);
       load_rows(dl_s + nx * kTile, dg, q1, Tq);
     }
@@ -526,8 +582,8 @@ flash_tc_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float* ds = dl_s + st * kTile;
 
     float p[8][4], dp[8][4];               // [key][query]: P^T, dP^T
-    mma_rows_nk(p, k_s, 16 * warp, qs, lane);    // S^T = K Q^T
-    mma_rows_nk(dp, v_s, 16 * warp, dos, lane);  // dP^T = V dO^T
+    mma_rows_nk<DH>(p, k_s, 16 * warp, qs, lane);    // S^T = K Q^T
+    mma_rows_nk<DH>(dp, v_s, 16 * warp, dos, lane);  // dP^T = V dO^T
     const bool edge = (causal && q0 < kw + 15) || q0 + kTile > Tq
                       || k0 + kTile > Tk;
 #pragma unroll
@@ -546,26 +602,28 @@ flash_tc_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     unsigned pa[4][4], da[4][4];
     to_a(pa, p);
     to_a(da, dp);
-    mma_rows_kn(dv_acc, pa, dos, lane);          // dV += P^T dO
-    mma_rows_kn(dk_acc, da, qs, lane);           // dK += dS^T Q
+    mma_rows_kn<DH>(dv_acc, pa, dos, lane);      // dV += P^T dO
+    mma_rows_kn<DH>(dk_acc, da, qs, lane);       // dK += dS^T Q
   }
 
   // the warp's own rows of k_s / v_s: only this warp read them
-  store_rows(dk_acc, scale, scale, k_s + 16 * warp * kDh,
-             dk + b * sdk.b + h * sdk.h, sdk.t, kw, Tk, lane);
-  store_rows(dv_acc, 1.f, 1.f, v_s + 16 * warp * kDh,
-             dv + b * sdv.b + h * sdv.h, sdv.t, kw, Tk, lane);
+  store_rows<DH>(dk_acc, scale, scale, k_s + 16 * warp * DH,
+                 dk + b * sdk.b + h * sdk.h, sdk.t, kw, Tk, lane);
+  store_rows<DH>(dv_acc, 1.f, 1.f, v_s + 16 * warp * DH,
+                 dv + b * sdv.b + h * sdv.h, sdv.t, kw, Tk, lane);
 }
 
 // One block per (b*h, 64-query tile): dQ of its queries, walking the kv
 // tiles (up to the diagonal when causal) with the next one in flight.
-__global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSm)
+template <int DH>
+__global__ void __launch_bounds__(kBwdThreads, Bounds<DH>::kBwd)
 flash_tc_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ d_o,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, bf16* __restrict__ dq,
                    int H, int Tq, int Tk, Strides sq, Strides sk, Strides sv,
                    Strides sdo, Strides sdq, float scale, int causal) {
+  constexpr int kTileElems = kTile * DH;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem);
   bf16* do_s = q_s + kTileElems;
@@ -584,22 +642,23 @@ flash_tc_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int n_kt = (Tk + kTile - 1) / kTile;
   if (causal) n_kt = min(n_kt, qt + 1);
 
-  load_tile<kTile, kBwdThreads>(q_s, q + b * sq.b + h * sq.h, sq.t, q0, Tq);
-  load_tile<kTile, kBwdThreads>(do_s, d_o + b * sdo.b + h * sdo.h, sdo.t, q0,
-                                Tq);
+  load_tile<kTile, kBwdThreads, DH>(q_s, q + b * sq.b + h * sq.h, sq.t, q0,
+                                    Tq);
+  load_tile<kTile, kBwdThreads, DH>(do_s, d_o + b * sdo.b + h * sdo.h, sdo.t,
+                                    q0, Tq);
   load_rows(lse_s, lse + (long long)bh * Tq, q0, Tq);
   load_rows(dl_s, delta + (long long)bh * Tq, q0, Tq);
-  load_tile<kTile, kBwdThreads>(k_s, kg, sk.t, 0, Tk);
-  load_tile<kTile, kBwdThreads>(v_s, vg, sv.t, 0, Tk);
+  load_tile<kTile, kBwdThreads, DH>(k_s, kg, sk.t, 0, Tk);
+  load_tile<kTile, kBwdThreads, DH>(v_s, vg, sv.t, 0, Tk);
   cp_async_commit();
 
   const float c = scale * kLog2e;
   const int qw = q0 + 16 * warp;          // the warp's first query
   const int r_lo = qw + grp, r_hi = r_lo + 8;
   float l2[2], dl[2];
-  float dq_acc[8][4];
+  float dq_acc[DH / 8][4];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < DH / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.f;
 
@@ -608,8 +667,10 @@ flash_tc_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
     if (kt + 1 < n_kt) {
       const int nx = (kt + 1) & 1, k1 = (kt + 1) * kTile;
-      load_tile<kTile, kBwdThreads>(k_s + nx * kTileElems, kg, sk.t, k1, Tk);
-      load_tile<kTile, kBwdThreads>(v_s + nx * kTileElems, vg, sv.t, k1, Tk);
+      load_tile<kTile, kBwdThreads, DH>(k_s + nx * kTileElems, kg, sk.t, k1,
+                                        Tk);
+      load_tile<kTile, kBwdThreads, DH>(v_s + nx * kTileElems, vg, sv.t, k1,
+                                        Tk);
     }
     cp_async_commit();
     if (kt == 0) {
@@ -623,8 +684,8 @@ flash_tc_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* vs = v_s + (kt & 1) * kTileElems;
 
     float p[8][4], dp[8][4];
-    mma_rows_nk(p, q_s, 16 * warp, ks, lane);    // S = Q K^T
-    mma_rows_nk(dp, do_s, 16 * warp, vs, lane);  // dP = dO V^T
+    mma_rows_nk<DH>(p, q_s, 16 * warp, ks, lane);    // S = Q K^T
+    mma_rows_nk<DH>(dp, do_s, 16 * warp, vs, lane);  // dP = dO V^T
     const bool edge = (causal && k0 + kTile - 1 > qw) || k0 + kTile > Tk;
 #pragma unroll
     for (int n = 0; n < 8; ++n)
@@ -640,11 +701,11 @@ flash_tc_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     unsigned da[4][4];
     to_a(da, dp);
-    mma_rows_kn(dq_acc, da, ks, lane);           // dQ += dS K
+    mma_rows_kn<DH>(dq_acc, da, ks, lane);       // dQ += dS K
   }
 
-  store_rows(dq_acc, scale, scale, q_s + 16 * warp * kDh,
-             dq + b * sdq.b + h * sdq.h, sdq.t, qw, Tq, lane);
+  store_rows<DH>(dq_acc, scale, scale, q_s + 16 * warp * DH,
+                 dq + b * sdq.b + h * sdq.h, sdq.t, qw, Tq, lane);
 }
 
 template <typename K>
@@ -657,11 +718,78 @@ Strides strides_of(const long long* s, int i) {
   return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 }
 
+template <int DH>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
+                       void* lse, int B, int H, int Tq, int Tk,
+                       const long long* strides, float scale, int causal,
+                       cudaStream_t stream) {
+  const size_t smem = (size_t)(kFwdRows + 4 * kTile) * DH * sizeof(bf16);
+  cudaError_t err = allow_smem(flash_tc_fwd_kernel<DH>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Tq + kFwdRows - 1) / kFwdRows);
+  flash_tc_fwd_kernel<DH><<<grid, kFwdThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), H, Tq, Tk, strides_of(strides, 0),
+      strides_of(strides, 1), strides_of(strides, 2), strides_of(strides, 3),
+      scale, causal);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* o, const void* d_o, const void* lse,
+                       void* delta, void* dq, void* dk, void* dv, int B,
+                       int H, int Tq, int Tk, const long long* strides,
+                       float scale, int causal, cudaStream_t s) {
+  constexpr int kTileElems = kTile * DH;
+  const long long rows = (long long)B * H * Tq;
+  const int rows_per_block = kBwdThreads / 8;
+  flash_tc_delta_kernel<DH><<<(unsigned)((rows + rows_per_block - 1)
+                                         / rows_per_block),
+                              kBwdThreads, 0, s>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(d_o),
+      static_cast<float*>(delta), H, Tq, rows, strides_of(strides, 3),
+      strides_of(strides, 4));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const size_t smem_kv = 6 * kTileElems * sizeof(bf16)
+                         + 4 * kTile * sizeof(float);
+  err = allow_smem(flash_tc_dkdv_kernel<DH>, smem_kv);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_kv(B * H, (Tk + kTile - 1) / kTile);
+  flash_tc_dkdv_kernel<DH><<<grid_kv, kBwdThreads, smem_kv, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(d_o),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Tq, Tk,
+      strides_of(strides, 0), strides_of(strides, 1),
+      strides_of(strides, 2), strides_of(strides, 4),
+      strides_of(strides, 6), strides_of(strides, 7), scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const size_t smem_q = 6 * kTileElems * sizeof(bf16)
+                        + 2 * kTile * sizeof(float);
+  err = allow_smem(flash_tc_dq_kernel<DH>, smem_q);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_q(B * H, (Tq + kTile - 1) / kTile);
+  flash_tc_dq_kernel<DH><<<grid_q, kBwdThreads, smem_q, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(d_o),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), H, Tq, Tk, strides_of(strides, 0),
+      strides_of(strides, 1), strides_of(strides, 2),
+      strides_of(strides, 4), strides_of(strides, 5), scale, causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// q [B, H, Tq, 64], k/v [B, H, Tk, 64], o like q, all bf16: any strides
-// with a unit head-dim stride and 16-byte aligned rows, given as
-// `strides` = [b, h, t] element strides of q, k, v, o (12 values, host
+// q [B, H, Tq, Dh], k/v [B, H, Tk, Dh], o like q, all bf16, Dh 64 or 128:
+// any strides with a unit head-dim stride and 16-byte aligned rows, given
+// as `strides` = [b, h, t] element strides of q, k, v, o (12 values, host
 // memory). lse [B, H, Tq] fp32 contiguous. Causal needs Tq == Tk (the
 // wrapper checks).
 extern "C" int ptpu_flash_attention_tc_fwd(const void* q, const void* k,
@@ -670,19 +798,17 @@ extern "C" int ptpu_flash_attention_tc_fwd(const void* q, const void* k,
                                            int Dh, const long long* strides,
                                            float scale, int causal,
                                            void* stream) {
-  if (Dh != kDh) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (size_t)(kFwdRows + 4 * kTile) * kDh * sizeof(bf16);
-  cudaError_t err = allow_smem(flash_tc_fwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, (Tq + kFwdRows - 1) / kFwdRows);
-  flash_tc_fwd_kernel<<<grid, kFwdThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), H, Tq, Tk, strides_of(strides, 0),
-      strides_of(strides, 1), strides_of(strides, 2), strides_of(strides, 3),
-      scale, causal);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (Dh) {
+    case 64:
+      return static_cast<int>(launch_fwd<64>(q, k, v, o, lse, B, H, Tq, Tk,
+                                             strides, scale, causal, s));
+    case 128:
+      return static_cast<int>(launch_fwd<128>(q, k, v, o, lse, B, H, Tq, Tk,
+                                              strides, scale, causal, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The backward: dq/dk/dv like q/k/v (their own strides), from q, k, v, o,
@@ -693,46 +819,17 @@ extern "C" int ptpu_flash_attention_tc_bwd(
     const void* d_o, const void* lse, void* delta, void* dq, void* dk,
     void* dv, int B, int H, int Tq, int Tk, int Dh,
     const long long* strides, float scale, int causal, void* stream) {
-  if (Dh != kDh) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long rows = (long long)B * H * Tq;
-  const int rows_per_block = kBwdThreads / 8;
-  flash_tc_delta_kernel<<<(unsigned)((rows + rows_per_block - 1)
-                                     / rows_per_block),
-                          kBwdThreads, 0, s>>>(
-      static_cast<const bf16*>(o), static_cast<const bf16*>(d_o),
-      static_cast<float*>(delta), H, Tq, rows, strides_of(strides, 3),
-      strides_of(strides, 4));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const size_t smem_kv = 6 * kTileElems * sizeof(bf16)
-                         + 4 * kTile * sizeof(float);
-  err = allow_smem(flash_tc_dkdv_kernel, smem_kv);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_kv(B * H, (Tk + kTile - 1) / kTile);
-  flash_tc_dkdv_kernel<<<grid_kv, kBwdThreads, smem_kv, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(d_o),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Tq, Tk,
-      strides_of(strides, 0), strides_of(strides, 1),
-      strides_of(strides, 2), strides_of(strides, 4),
-      strides_of(strides, 6), strides_of(strides, 7), scale, causal);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const size_t smem_q = 6 * kTileElems * sizeof(bf16)
-                        + 2 * kTile * sizeof(float);
-  err = allow_smem(flash_tc_dq_kernel, smem_q);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_q(B * H, (Tq + kTile - 1) / kTile);
-  flash_tc_dq_kernel<<<grid_q, kBwdThreads, smem_q, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(d_o),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), H, Tq, Tk, strides_of(strides, 0),
-      strides_of(strides, 1), strides_of(strides, 2),
-      strides_of(strides, 4), strides_of(strides, 5), scale, causal);
-  return static_cast<int>(cudaGetLastError());
+  switch (Dh) {
+    case 64:
+      return static_cast<int>(launch_bwd<64>(q, k, v, o, d_o, lse, delta, dq,
+                                             dk, dv, B, H, Tq, Tk, strides,
+                                             scale, causal, s));
+    case 128:
+      return static_cast<int>(launch_bwd<128>(q, k, v, o, d_o, lse, delta,
+                                              dq, dk, dv, B, H, Tq, Tk,
+                                              strides, scale, causal, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,4 +1,4 @@
-// K4: the fused int8 matmul for Hopper (sm_90a).
+// K4: the fused int8 matmul for Hopper (sm_90a), on the tensor cores.
 //
 // Replaces the TPU kernel paddle_tpu/ops/pallas_kernels.py `_int8_mm_kernel`
 // / `int8_matmul` (:577-640), registered there as `int8_matmul` and reached
@@ -14,7 +14,8 @@
 //   out[m, n] = (float) acc[m, n] * dq[n]                      one IEEE mul
 //
 // the TPU kernel's arithmetic step for step, so the result is bitwise its
-// and the plain version's (K < 2^17 keeps |acc| below 2^31).
+// and the plain version's (K < 2^17 keeps |acc| below 2^31; integer sums
+// are exact in any order, so the tensor cores change nothing).
 //
 // Bound on the H100: at the LM's shapes (K 512 or 2048, N 512 to 32000) the
 // work is bound by bytes, most of them the fp32 output, then the fp32 x:
@@ -22,41 +23,70 @@
 // chunk, against 0.02 and 0.14 ms for its int8 operations at the tensor
 // cores' 1979 TOP/s.
 //
-// Design, a simple first version: one block of 256 threads per 128 x 128
-// output tile, walking K in tiles of 32. Each tile of x is read with 16-byte
-// loads, quantized in registers and stored to shared memory packed four k
-// to a 32-bit word; each tile of w is read four rows of four bytes per
-// thread and transposed in registers (__byte_perm) to the same packing, one
-// word per (k/4, n). Each thread then keeps an 8 x 8 int32 accumulator and
-// issues SIMT __dp4a (4 int8 products a lane and instruction), the next
-// tile's global loads in flight meanwhile. The epilogue converts, scales by
-// dq and writes the fp32 outputs with 16-byte stores. The SIMT dp4a rate
-// (about an eighth of the tensor cores' int8 rate) bounds this version, not
-// the bytes: mma.sync / wgmma s8 tiles are the next step.
-//
-// Tails of M, N and K are bounds-checked in the loads (an element past the
-// edge reads as 0, which quantizes to 0 and adds nothing) and the stores.
+// Design: two launches on the caller's stream, one call of the wrapper.
+// - int8_mm_prep_kernel quantizes x once into xq [M, Kp] int8 (Kp = K
+//   rounded up to 128, zeros past K: they add nothing) and transposes w into
+//   wt [N, Kp] int8 through 64 x 64 shared-memory tiles. Quantizing inside
+//   the product would redo every x element once per column tile, N / 128
+//   times (250 times at the lm_head); here each is read and quantized once,
+//   at a cost of 2 (M + N) Kp bytes beyond the bound's (xq and wt each
+//   written and read back): 11% and 4% of the bound's bytes at FFN1 and the
+//   lm_head, 41% at FFN2 (K 2048, N 512), where xq is a quarter of x.
+// - int8_mm_gemm_kernel multiplies with mma.sync m16n8k32 s8 x s8 -> s32.
+//   Both operands are then K-major, as the int8 tensor cores want them:
+//   one block of 8 warps per 128 x 128 output tile, each warp 64 x 32 (4 x 4
+//   m16n8 accumulators); a 3-stage ring of 128-k stages loaded with 16-byte
+//   cp.async (rows past M or N zero-filled), the next two stages in flight
+//   while the current one is multiplied; rows of 128 bytes with the 16-byte
+//   chunk c of row r at chunk c ^ (r & 7), so each ldmatrix.x4 (which gives
+//   exactly the m16n8k32 A fragment, or two B fragments) reads 8 rows from
+//   8 different bank groups. The epilogue stages the int32 sums through
+//   the ring (row stride 136 words: conflict-free 8-byte writes), then each
+//   warp converts a row at a time, scales by dq and writes 512 contiguous
+//   bytes with streaming 16-byte stores (st.global.cs: nothing reads the
+//   output back before the next op). Launch bounds keep two blocks an SM,
+//   so one block's epilogue overlaps the other's products.
+// wgmma (Hopper's warpgroup product, both s8 operands K-major in shared
+// memory) is the next step if the products ever bound the kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
-constexpr int BM = 128;        // rows of x and out a block
-constexpr int BN = 128;        // columns of w and out a block
-constexpr int BK = 32;         // k a tile
-constexpr int BK4 = BK / 4;    // packed 32-bit words of k a tile
-constexpr int THREADS = 256;   // 16 x 16 threads, 8 x 8 outputs each
-constexpr int A_PAD = 4;       // conflict-free packed stores of x
+constexpr int BM = 128;                    // rows of out a block
+constexpr int BN = 128;                    // columns of out a block
+constexpr int BK = 128;                    // k a stage: one 128-byte row
+constexpr int STAGES = 3;
+constexpr int THREADS = 256;               // 8 warps: 2 (m) x 4 (n)
+constexpr int kStageBytes = (BM + BN) * BK;
+constexpr int kSmemBytes = STAGES * kStageBytes;    // 96 KB
+constexpr int kOutLd = BN + 8;             // staged int32 row stride
+static_assert(BM * kOutLd * 4 <= kSmemBytes, "epilogue fits the ring");
+static_assert(BM == BN, "load_stage loads 128 rows of either operand");
 
-struct Params {
+constexpr int kPrepThreads = 256;
+constexpr int kTT = 64;                    // w transpose tile, k and n
+
+struct PrepParams {
   const float* x;
   int64_t T, s0, s1;           // row m at (m / T) * s0 + (m % T) * s1
-  const int8_t* w;
-  const float* dq;
-  float* out;
-  int M, K, N;
+  const int8_t* w;             // [K, N]
+  int8_t* xq;                  // [M, Kp]
+  int8_t* wt;                  // [N, Kp]
+  int M, K, N, Kp;
   float s;
+  int x_blocks;                // blocks that quantize x; the rest transpose w
+};
+
+struct GemmParams {
+  const int8_t* xq;
+  const int8_t* wt;
+  const float* dq;
+  float* out;                  // [M, N]
+  int M, N, Kp;
 };
 
 __device__ __forceinline__ uint32_t quant8(float v, float s) {
@@ -65,191 +95,297 @@ __device__ __forceinline__ uint32_t quant8(float v, float s) {
   return static_cast<uint32_t>(static_cast<int>(q)) & 0xffu;
 }
 
-__device__ __forceinline__ int pack4(float4 v, float s) {
-  return static_cast<int>(quant8(v.x, s) | (quant8(v.y, s) << 8) |
-                          (quant8(v.z, s) << 16) | (quant8(v.w, s) << 24));
+__device__ __forceinline__ uint32_t pack4(float4 v, float s) {
+  return quant8(v.x, s) | (quant8(v.y, s) << 8) | (quant8(v.z, s) << 16) |
+         (quant8(v.w, s) << 24);
 }
 
-// VEC_X: K, s0 and s1 multiples of 4 and x 16-byte aligned (float4 loads);
-// VEC_W: N a multiple of 4 and w 4-byte aligned (32-bit loads).
-template <bool VEC_X, bool VEC_W>
-__global__ void __launch_bounds__(THREADS) int8_mm_kernel(Params p) {
-  __shared__ __align__(16) int sA[BK4][BM + A_PAD];   // [k/4][m]
-  __shared__ __align__(16) int sB[BK4][BN];           // [k/4][n]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  // this thread's loads: x words (row tid/8 + 32 i, k/4 = tid % 8), i < 4;
-  // w rows 4 (tid / 32) .. + 3 at columns n0 + 4 (tid % 32) .. + 3
-  const int ak4 = tid % 8;
-  const float* arow[4];
-  bool avalid[4];
+// VEC_X: K, s0 and s1 multiples of 4 and x 16-byte aligned (float4 loads).
+template <bool VEC_X>
+__global__ void __launch_bounds__(kPrepThreads)
+int8_mm_prep_kernel(PrepParams p) {
+  __shared__ uint8_t tile[kTT][kTT + 4];
+  if (static_cast<int>(blockIdx.x) < p.x_blocks) {
+    // one thread a 16-k chunk of a row of xq
+    const int chunks = p.Kp / 16;
+    const int64_t total = static_cast<int64_t>(p.M) * chunks;
+    for (int64_t i = static_cast<int64_t>(blockIdx.x) * kPrepThreads +
+                     threadIdx.x;
+         i < total; i += static_cast<int64_t>(p.x_blocks) * kPrepThreads) {
+      const int m = static_cast<int>(i / chunks);
+      const int k0 = static_cast<int>(i % chunks) * 16;
+      const float* row = p.x + (m / p.T) * p.s0 + (m % p.T) * p.s1;
+      uint32_t wd[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + tid / 8 + 32 * i;
-    avalid[i] = m < p.M;
-    const int64_t mm = avalid[i] ? m : 0;
-    arow[i] = p.x + (mm / p.T) * p.s0 + (mm % p.T) * p.s1;
-  }
-  const int bk4 = tid / 32;
-  const int bn = n0 + 4 * (tid % 32);
-
-  float4 ra[4];
-  uint32_t rb[4];
-
-  auto load = [&](int k0) {
-    const int k = k0 + 4 * ak4;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (VEC_X) {
-        ra[i] = (avalid[i] && k < p.K)
-                    ? *reinterpret_cast<const float4*>(arow[i] + k)
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
-      } else {
-        const bool ok = avalid[i];
-        ra[i].x = (ok && k < p.K) ? arow[i][k] : 0.f;
-        ra[i].y = (ok && k + 1 < p.K) ? arow[i][k + 1] : 0.f;
-        ra[i].z = (ok && k + 2 < p.K) ? arow[i][k + 2] : 0.f;
-        ra[i].w = (ok && k + 3 < p.K) ? arow[i][k + 3] : 0.f;
+      for (int j = 0; j < 4; ++j) {
+        const int k = k0 + 4 * j;
+        float4 v;
+        if (VEC_X) {
+          v = k < p.K ? *reinterpret_cast<const float4*>(row + k)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+        } else {
+          v.x = k < p.K ? row[k] : 0.f;
+          v.y = k + 1 < p.K ? row[k + 1] : 0.f;
+          v.z = k + 2 < p.K ? row[k + 2] : 0.f;
+          v.w = k + 3 < p.K ? row[k + 3] : 0.f;
+        }
+        wd[j] = pack4(v, p.s);
       }
+      *reinterpret_cast<uint4*>(p.xq + static_cast<int64_t>(m) * p.Kp + k0) =
+          make_uint4(wd[0], wd[1], wd[2], wd[3]);
     }
+    return;
+  }
+  // w [K, N] -> wt [N, Kp], 64 x 64 tiles through shared memory
+  const int tiles_n = (p.N + kTT - 1) / kTT;
+  const int64_t tiles = static_cast<int64_t>(p.Kp / kTT) * tiles_n;
+  const int stride = static_cast<int>(gridDim.x) - p.x_blocks;
+  for (int64_t tt = static_cast<int>(blockIdx.x) - p.x_blocks; tt < tiles;
+       tt += stride) {
+    const int k0 = static_cast<int>(tt / tiles_n) * kTT;
+    const int n0 = static_cast<int>(tt % tiles_n) * kTT;
+    __syncthreads();  // the previous tile's reads are done
+    for (int i = threadIdx.x; i < kTT * kTT; i += kPrepThreads) {
+      const int r = i / kTT, c = i % kTT, k = k0 + r, n = n0 + c;
+      tile[r][c] = (k < p.K && n < p.N)
+                       ? static_cast<uint8_t>(
+                             p.w[static_cast<int64_t>(k) * p.N + n])
+                       : 0;
+    }
+    __syncthreads();
+    // column c of the tile, k 16 kc .. 16 kc + 15: one 16-byte store
+    const int c = threadIdx.x >> 2, kc = threadIdx.x & 3;
+    if (n0 + c < p.N) {
+      uint32_t wd[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = 16 * kc + 4 * j;
+        wd[j] = tile[r][c] | (tile[r + 1][c] << 8) | (tile[r + 2][c] << 16) |
+                (static_cast<uint32_t>(tile[r + 3][c]) << 24);
+      }
+      *reinterpret_cast<uint4*>(p.wt + static_cast<int64_t>(n0 + c) * p.Kp +
+                                k0 + 16 * kc) =
+          make_uint4(wd[0], wd[1], wd[2], wd[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk c of row r in a swizzled [rows][128] stage.
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * BK + ((c ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [row0, row0 + 128) of a [rows, Kp] int8 matrix, k [k0, k0 + 128),
+// into a swizzled stage; rows at or past n are zero-filled (and read
+// nothing).
+__device__ __forceinline__ void load_stage(uint8_t* s, const int8_t* g,
+                                           int Kp, int row0, int n, int k0) {
+#pragma unroll
+  for (int it = 0; it < BM * (BK / 16) / THREADS; ++it) {
+    const int i = threadIdx.x + it * THREADS;
+    const int r = i >> 3, c = i & 7, row = row0 + r;
+    const bool in = row < n;
+    cp_async16(s + swz(r, c),
+               g + static_cast<int64_t>(in ? row : 0) * Kp + k0 + c * 16,
+               in);
+  }
+}
+
+__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const uint8_t* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d += a b, one m16n8k32 product of int8, exact int32 sums
+__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
+                                       unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+int8_mm_gemm_kernel(GemmParams p) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp >> 2, wn = warp & 3;   // rows 64 wm, columns 32 wn
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int nk = p.Kp / BK;
+
+  auto load = [&](int st, int kt) {
+    uint8_t* s = smem + st * kStageBytes;
+    load_stage(s, p.xq, p.Kp, m0, p.M, kt * BK);
+    load_stage(s + BM * BK, p.wt, p.Kp, n0, p.N, kt * BK);
+  };
+
+  int acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nk) load(st, st);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    // stage kt has landed for every thread, and every warp is done with
+    // stage kt - 1, which the next load overwrites
+    __syncthreads();
+    if (kt + STAGES - 1 < nk) load((kt + STAGES - 1) % STAGES,
+                                   kt + STAGES - 1);
+    cp_async_commit();
+    const uint8_t* sa = smem + (kt % STAGES) * kStageBytes;
+    const uint8_t* sb = sa + BM * BK;
+#pragma unroll
+    for (int kc = 0; kc < BK / 32; ++kc) {
+      unsigned a[4][4], b[2][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ldsm4(a[i], sa + swz(64 * wm + 16 * i + (lane & 15),
+                             2 * kc + (lane >> 4)));
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        ldsm4(b[j], sb + swz(32 * wn + 16 * j + (lane & 7) +
+                                 ((lane >> 4) << 3),
+                             2 * kc + ((lane >> 3) & 1)));
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          mma_s8(acc[i][2 * j], a[i], b[j][0], b[j][1]);
+          mma_s8(acc[i][2 * j + 1], a[i], b[j][2], b[j][3]);
+        }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring: it holds the sums
+
+  int* so = reinterpret_cast<int*>(smem);  // [BM][kOutLd]
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int kk = k0 + 4 * bk4 + j;
-      const int8_t* wr = p.w + static_cast<int64_t>(kk) * p.N;
-      uint32_t v = 0;
-      if (kk < p.K) {
-        if (VEC_W) {
-          if (bn < p.N) v = *reinterpret_cast<const uint32_t*>(wr + bn);
-        } else {
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            if (bn + c < p.N)
-              v |= static_cast<uint32_t>(static_cast<uint8_t>(wr[bn + c]))
-                   << (8 * c);
-        }
-      }
-      rb[j] = v;
+      const int r = 64 * wm + 16 * i + g, c = 32 * wn + 8 * j + 2 * t;
+      *reinterpret_cast<int2*>(so + r * kOutLd + c) =
+          make_int2(acc[i][j][0], acc[i][j][1]);
+      *reinterpret_cast<int2*>(so + (r + 8) * kOutLd + c) =
+          make_int2(acc[i][j][2], acc[i][j][3]);
     }
-  };
-
-  auto store = [&]() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) sA[ak4][tid / 8 + 32 * i] = pack4(ra[i], p.s);
-    // 4 rows x 4 columns of bytes -> one word of 4 k per column
-    const uint32_t lo01 = __byte_perm(rb[0], rb[1], 0x5140);
-    const uint32_t hi01 = __byte_perm(rb[0], rb[1], 0x7362);
-    const uint32_t lo23 = __byte_perm(rb[2], rb[3], 0x5140);
-    const uint32_t hi23 = __byte_perm(rb[2], rb[3], 0x7362);
-    *reinterpret_cast<int4*>(&sB[bk4][4 * (tid % 32)]) = make_int4(
-        static_cast<int>(__byte_perm(lo01, lo23, 0x5410)),
-        static_cast<int>(__byte_perm(lo01, lo23, 0x7632)),
-        static_cast<int>(__byte_perm(hi01, hi23, 0x5410)),
-        static_cast<int>(__byte_perm(hi01, hi23, 0x7632)));
-  };
-
-  // rows ty*4 + i and 64 + ty*4 + i, columns tx*4 + j and 64 + tx*4 + j
-  int acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0;
-
-  const int nk = (p.K + BK - 1) / BK;
-  if (nk > 0) load(0);
-  for (int t = 0; t < nk; ++t) {
-    store();
-    __syncthreads();
-    if (t + 1 < nk) load((t + 1) * BK);
-#pragma unroll
-    for (int k4 = 0; k4 < BK4; ++k4) {
-      const int4 a0 = *reinterpret_cast<const int4*>(&sA[k4][ty * 4]);
-      const int4 a1 = *reinterpret_cast<const int4*>(&sA[k4][64 + ty * 4]);
-      const int4 b0 = *reinterpret_cast<const int4*>(&sB[k4][tx * 4]);
-      const int4 b1 = *reinterpret_cast<const int4*>(&sB[k4][64 + tx * 4]);
-      const int a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const int b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float dqv[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-    dqv[j] = n < p.N ? p.dq[n] : 0.f;
-  }
-  const bool vec_out = (p.N & 3) == 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (m >= p.M) continue;
-    float* orow = p.out + static_cast<int64_t>(m) * p.N;
-#pragma unroll
-    for (int g = 0; g < 2; ++g) {
-      const int n = n0 + g * 64 + tx * 4;
-      float o[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        o[c] = __fmul_rn(__int2float_rn(acc[i][g * 4 + c]), dqv[g * 4 + c]);
-      if (vec_out && n + 3 < p.N) {
-        *reinterpret_cast<float4*>(orow + n) =
-            make_float4(o[0], o[1], o[2], o[3]);
-      } else {
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (n + c < p.N) orow[n + c] = o[c];
-      }
+  __syncthreads();
+  // warp w writes rows w, w + 8, ...; lane l columns 4 l .. 4 l + 3
+  const int c = 4 * lane, n = n0 + c;
+  const float4 d = make_float4(n < p.N ? p.dq[n] : 0.f,
+                               n + 1 < p.N ? p.dq[n + 1] : 0.f,
+                               n + 2 < p.N ? p.dq[n + 2] : 0.f,
+                               n + 3 < p.N ? p.dq[n + 3] : 0.f);
+  const bool vec = (p.N & 3) == 0;   // rows of out 16-byte aligned
+  for (int r = warp; r < BM && m0 + r < p.M; r += THREADS / 32) {
+    const int4 v = *reinterpret_cast<const int4*>(so + r * kOutLd + c);
+    const float4 o = make_float4(__fmul_rn(__int2float_rn(v.x), d.x),
+                                 __fmul_rn(__int2float_rn(v.y), d.y),
+                                 __fmul_rn(__int2float_rn(v.z), d.z),
+                                 __fmul_rn(__int2float_rn(v.w), d.w));
+    float* dst = p.out + static_cast<int64_t>(m0 + r) * p.N + n;
+    if (vec) {
+      if (n < p.N) __stcs(reinterpret_cast<float4*>(dst), o);
+    } else {
+      if (n < p.N) __stcs(dst, o.x);
+      if (n + 1 < p.N) __stcs(dst + 1, o.y);
+      if (n + 2 < p.N) __stcs(dst + 2, o.z);
+      if (n + 3 < p.N) __stcs(dst + 3, o.w);
     }
   }
 }
 
-template <bool VEC_X, bool VEC_W>
-void launch(const Params& p, cudaStream_t stream) {
-  const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM);
-  int8_mm_kernel<VEC_X, VEC_W><<<grid, THREADS, 0, stream>>>(p);
-}
+int cdiv(int64_t a, int64_t b) { return static_cast<int>((a + b - 1) / b); }
 
 }  // namespace
 
 // x: fp32, last dim contiguous, row m at (m / T) * s0 + (m % T) * s1
 // (elements); w [K, N] int8 and dq [N] fp32, contiguous; out [M, N] fp32,
-// contiguous. 1 <= M <= 65535 * 128, 1 <= N, 0 <= K < 2^17 (the wrapper
-// checks). Returns cudaGetLastError() after the launch.
+// contiguous; xq [M, Kp] and wt [N, Kp] int8 scratch, 16-byte aligned, Kp
+// = K rounded up to a multiple of 128. 1 <= M <= 65535 * 128, 1 <= N, 0 <=
+// K < 2^17 (the wrapper checks). Launches the prep pass and the product;
+// returns cudaGetLastError() after each.
 extern "C" int ptpu_int8_matmul(const void* x, int64_t T, int64_t s0,
                                 int64_t s1, const void* w, const void* dq,
-                                void* out, int M, int K, int N,
-                                float act_scale, void* stream) {
-  Params p;
-  p.x = static_cast<const float*>(x);
-  p.T = T;
-  p.s0 = s0;
-  p.s1 = s1;
-  p.w = static_cast<const int8_t*>(w);
-  p.dq = static_cast<const float*>(dq);
-  p.out = static_cast<float*>(out);
-  p.M = M;
-  p.K = K;
-  p.N = N;
-  p.s = act_scale;
+                                void* out, void* xq, void* wt, int M, int K,
+                                int N, int Kp, float act_scale,
+                                void* stream) {
+  if (Kp % BK != 0 || Kp < K) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  PrepParams pp;
+  pp.x = static_cast<const float*>(x);
+  pp.T = T;
+  pp.s0 = s0;
+  pp.s1 = s1;
+  pp.w = static_cast<const int8_t*>(w);
+  pp.xq = static_cast<int8_t*>(xq);
+  pp.wt = static_cast<int8_t*>(wt);
+  pp.M = M;
+  pp.K = K;
+  pp.N = N;
+  pp.Kp = Kp;
+  pp.s = act_scale;
+  // grid-stride loops over a grid of at most 8 blocks an SM per part
+  pp.x_blocks = std::max(
+      1, std::min(cdiv(static_cast<int64_t>(M) * (Kp / 16), kPrepThreads),
+                  132 * 8));
+  const int64_t w_tiles = static_cast<int64_t>(Kp / kTT) * cdiv(N, kTT);
+  const int w_blocks = static_cast<int>(std::min<int64_t>(w_tiles, 132 * 4));
   const bool vec_x = K % 4 == 0 && s0 % 4 == 0 && s1 % 4 == 0 &&
                      reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const bool vec_w = N % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 4 == 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vec_x && vec_w) {
-    launch<true, true>(p, st);
-  } else if (vec_x) {
-    launch<true, false>(p, st);
-  } else if (vec_w) {
-    launch<false, true>(p, st);
+  if (vec_x) {
+    int8_mm_prep_kernel<true>
+        <<<pp.x_blocks + w_blocks, kPrepThreads, 0, st>>>(pp);
   } else {
-    launch<false, false>(p, st);
+    int8_mm_prep_kernel<false>
+        <<<pp.x_blocks + w_blocks, kPrepThreads, 0, st>>>(pp);
   }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  err = cudaFuncSetAttribute(int8_mm_gemm_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  GemmParams gp;
+  gp.xq = static_cast<const int8_t*>(xq);
+  gp.wt = static_cast<const int8_t*>(wt);
+  gp.dq = static_cast<const float*>(dq);
+  gp.out = static_cast<float*>(out);
+  gp.M = M;
+  gp.N = N;
+  gp.Kp = Kp;
+  const dim3 grid(cdiv(N, BN), cdiv(M, BM));
+  int8_mm_gemm_kernel<<<grid, THREADS, kSmemBytes, st>>>(gp);
   return static_cast<int>(cudaGetLastError());
 }

@@ -41,6 +41,11 @@
 // time; splitting the context across blocks (flash-decoding), cp.async/TMA
 // pipelining and a bf16/fp8 pool are later work.
 //
+// Head dims: every multiple of 32 up to 256, one instantiation each (a
+// lane holds Dh / 32 elements of a K row). Shared memory grows with Dh and
+// C, to 140 KB at Dh 256 and C 32 (K3's largest window), past 48 KB
+// allowed with cudaFuncSetAttribute before the launch.
+//
 // Interface: plain C functions (bound with ctypes), launched on the
 // caller's stream, allocating nothing; each returns cudaGetLastError().
 
@@ -272,15 +277,19 @@ int launch_dh(const void* k_pages, const void* v_pages, const void* q,
   float* op = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (Dh) {
-    case 32:
-      return launch<32, kTree>(kp, vp, qp, tp, pp, ap, op, B, C, H, bs, Mb,
-                               num_pages, sm_scale, s);
-    case 64:
-      return launch<64, kTree>(kp, vp, qp, tp, pp, ap, op, B, C, H, bs, Mb,
-                               num_pages, sm_scale, s);
-    case 128:
-      return launch<128, kTree>(kp, vp, qp, tp, pp, ap, op, B, C, H, bs, Mb,
-                                num_pages, sm_scale, s);
+#define PTPU_PAGED_CASE(DH)                                                  \
+  case DH:                                                                   \
+    return launch<DH, kTree>(kp, vp, qp, tp, pp, ap, op, B, C, H, bs, Mb,    \
+                             num_pages, sm_scale, s);
+    PTPU_PAGED_CASE(32)
+    PTPU_PAGED_CASE(64)
+    PTPU_PAGED_CASE(96)
+    PTPU_PAGED_CASE(128)
+    PTPU_PAGED_CASE(160)
+    PTPU_PAGED_CASE(192)
+    PTPU_PAGED_CASE(224)
+    PTPU_PAGED_CASE(256)
+#undef PTPU_PAGED_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -25,7 +25,7 @@
 // Shapes (all contiguous): k_pages, v_pages [num_pages, bs, H, Dh] fp32;
 // q, out [B, C, H, Dh] fp32; block_tables [B, Mb] int32; positions [B, C]
 // int32 (only positions[b, 0] is read); anc [C, C] bool, one byte each.
-// Dh is 32, 64 or 128 and 1 <= C <= 32 (the wrapper checks).
+// Dh is a multiple of 32 up to 256 and 1 <= C <= 32 (the wrapper checks).
 extern "C" int ptpu_paged_attention_tree_f32(
     const void* k_pages, const void* v_pages, const void* q,
     const void* block_tables, const void* positions, const void* anc,

@@ -30,6 +30,14 @@ kernels copy rows 16 bytes at a time: a bf16 tensor whose base address
 or whose B, H, T strides are not multiples of 16 bytes is first copied to
 a contiguous tensor (``tc_operand``), and the copy is counted.
 
+Both routes' kernels are instantiated for head dims 64 and 128
+(``SUPPORTED_HEAD_DIMS``). Any other head dim up to 128 runs at the next
+of them (``kernel_head_dim``): q, k and v (and in the backward o and dO)
+are zero-padded on their last dim, each pad a counted copy, and the
+results sliced back. Zero columns leave Q Kᵀ unchanged and give zero
+columns of O and of the grads; sm_scale stays the caller's (by default
+the true head dim's ``Dh ** -0.5``). A head dim above 128 raises.
+
 ``flash_attention_fwd`` and ``flash_attention_bwd`` count their launches
 (``.launches``, and ``.launches_by_route`` split into "tc" and "simt")
 and the copies they made (``.copies``); ``reset_counts()`` zeroes all.
@@ -43,10 +51,10 @@ from . import _build
 
 __all__ = ["SUPPORTED_HEAD_DIMS", "flash_attention",
            "flash_attention_reference", "flash_attention_fwd",
-           "flash_attention_bwd", "kernel_route", "tc_aligned",
-           "tc_operand", "reset_counts", "load"]
+           "flash_attention_bwd", "kernel_head_dim", "kernel_route",
+           "tc_aligned", "tc_operand", "reset_counts", "load"]
 
-SUPPORTED_HEAD_DIMS = (64,)
+SUPPORTED_HEAD_DIMS = (64, 128)   # the kernels' instantiations
 _ROUTES = ("tc", "simt")
 
 
@@ -84,6 +92,18 @@ def kernel_route(device_type, dtype):
                     "or float32 (SIMT), got %s" % dtype)
 
 
+def kernel_head_dim(Dh):
+    """The head dim the kernels run a call of head dim `Dh` at: the
+    smallest of ``SUPPORTED_HEAD_DIMS`` that is at least Dh (Dh itself
+    when it is one; otherwise the operands are zero-padded to it).
+    Raises ValueError naming the limit above the largest."""
+    for d in SUPPORTED_HEAD_DIMS:
+        if Dh <= d:
+            return d
+    raise ValueError("head_dim %d is above the largest the flash_attention "
+                     "kernels take (%d)" % (Dh, SUPPORTED_HEAD_DIMS[-1]))
+
+
 def tc_aligned(ptr, shape, strides, elem_size):
     """Whether the tensor-core kernels can read a [B, H, T, Dh] tensor in
     place: a unit last-dim stride, and the base address and the B, H, T
@@ -114,17 +134,23 @@ def flash_attention(q, k, v, causal=True, sm_scale=None):
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
+        Dh = q.shape[-1]
+        # q, k, v as the kernel read them (padded, copied) and o unsliced,
+        # so that the backward pads only dO
         o, lse, (q, k, v) = _fwd(q, k, v, causal, sm_scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
-        return o
+        ctx.causal, ctx.sm_scale, ctx.dh = causal, sm_scale, Dh
+        return o if o.shape[-1] == Dh else o[..., :Dh]
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
+        if do.shape[-1] != o.shape[-1]:
+            do, = _pad_head(flash_attention_bwd, o.shape[-1], do)
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal,
                                          ctx.sm_scale)
-        return dq, dk, dv, None, None
+        Dh = ctx.dh
+        return dq[..., :Dh], dk[..., :Dh], dv[..., :Dh], None, None
 
 
 # C entry points: (library, pointer args)
@@ -156,7 +182,8 @@ def load():
 
 
 def _check(q, k, v, causal, named=()):
-    """The route of a kernel call, after checking what the kernels take."""
+    """(route, the head dim the kernels run at) of a kernel call, after
+    checking what the kernels take."""
     route = kernel_route(q.device.type, q.dtype)
     if route == "plain":
         raise RuntimeError("the flash_attention kernels take CUDA tensors, "
@@ -178,17 +205,25 @@ def _check(q, k, v, causal, named=()):
     if k.shape != v.shape or k.shape[:2] != (B, H) or k.shape[3] != Dh:
         raise ValueError("k %s / v %s do not match q %s"
                          % (tuple(k.shape), tuple(v.shape), tuple(q.shape)))
-    if Dh not in SUPPORTED_HEAD_DIMS:
-        raise ValueError("head_dim %d not supported (kernel takes %s)"
-                         % (Dh, SUPPORTED_HEAD_DIMS))
+    Dp = kernel_head_dim(Dh)
     if causal and k.shape[2] != Tq:
         raise ValueError("causal attention needs Tq == Tk, got %d and %d"
                          % (Tq, k.shape[2]))
     if not (1 <= B * H <= 2 ** 31 - 1 and 1 <= Tq and 1 <= k.shape[2]
-            and max(Tq, k.shape[2]) <= 64 * 65535):
+            and max(Tq, k.shape[2]) <= 64 * 65535 and 1 <= Dh):
         raise ValueError("empty or oversized attention %s / %s"
                          % (tuple(q.shape), tuple(k.shape)))
-    return route
+    return route, Dp
+
+
+def _pad_head(counter, Dp, *tensors):
+    """The tensors zero-padded on their last dim to Dp (fresh contiguous
+    tensors), each pad counted on `counter` as a copy."""
+    out = []
+    for t in tensors:
+        out.append(torch.nn.functional.pad(t, (0, Dp - t.shape[-1])))
+        counter.copies += 1
+    return out
 
 
 def _tc_operands(counter, *tensors):
@@ -226,8 +261,11 @@ def _count(counter, route):
 
 
 def _fwd(q, k, v, causal, sm_scale):
-    """The forward kernel of q's route: (o, lse, the q, k, v it read)."""
-    route = _check(q, k, v, causal)
+    """The forward kernel of q's route: (o, lse, the q, k, v it read), o
+    and those at the kernels' head dim."""
+    route, Dp = _check(q, k, v, causal)
+    if Dp != q.shape[-1]:
+        q, k, v = _pad_head(flash_attention_fwd, Dp, q, k, v)
     if route == "tc":
         q, k, v = _tc_operands(flash_attention_fwd, q, k, v)
     o = torch.empty_like(q)
@@ -244,20 +282,22 @@ def _fwd(q, k, v, causal, sm_scale):
 
 def flash_attention_fwd(q, k, v, causal, sm_scale):
     """The forward kernel of q's route: (o [like q, q's strides unless
-    the tc route copied q], lse [B, H, Tq] fp32, the row log-sum-exp of
-    the scaled scores)."""
+    the tc route copied q or the head dim was padded], lse [B, H, Tq]
+    fp32, the row log-sum-exp of the scaled scores)."""
     o, lse, _ = _fwd(q, k, v, causal, sm_scale)
-    return o, lse
+    return o[..., :q.shape[-1]], lse
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal, sm_scale):
     """The backward kernels of q's route (a rowsum(dO∘O) pass, a dK/dV
     pass over kv tiles, a dQ pass over q tiles): (dq, dk, dv) in the
-    inputs' dtype, each with its input's strides (or its copy's)."""
+    inputs' dtype, each with its input's strides (or its copy's, or a
+    slice of the padded grad's)."""
     if do.stride(-1) != 1:  # the kernels read rows of Dh in order
         do = do.contiguous()
         flash_attention_bwd.copies += 1
-    route = _check(q, k, v, causal, (("o", o), ("do", do)))
+    route, Dp = _check(q, k, v, causal, (("o", o), ("do", do)))
+    Dh = q.shape[-1]
     B, H, Tq, _ = q.shape
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError("o %s / do %s do not match q %s"
@@ -267,6 +307,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal, sm_scale):
             or not lse.is_contiguous() or lse.device != q.device):
         raise ValueError("lse must be a contiguous fp32 [B, H, Tq] tensor "
                          "on q's device")
+    if Dp != Dh:
+        q, k, v, o, do = _pad_head(flash_attention_bwd, Dp, q, k, v, o, do)
     if route == "tc":
         q, k, v, o, do = _tc_operands(flash_attention_bwd, q, k, v, o, do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
@@ -279,7 +321,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal, sm_scale):
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr()),
             q, k, _strides(q, k, v, o, do, dq, dk, dv), causal, sm_scale)
     _count(flash_attention_bwd, route)
-    return dq, dk, dv
+    return dq[..., :Dh], dk[..., :Dh], dv[..., :Dh]
 
 
 def reset_counts():

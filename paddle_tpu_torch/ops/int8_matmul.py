@@ -31,9 +31,17 @@ import torch
 
 from . import _build
 
-__all__ = ["MAX_K", "int8_matmul", "int8_matmul_reference"]
+__all__ = ["MAX_K", "int8_matmul", "int8_matmul_reference", "padded_k"]
 
 MAX_K = (1 << 17) - 1   # 128 * 128 * K stays below 2^31
+BLOCK_M = 128           # output rows a block of the product
+BLOCK_K = 128           # k a stage of the product: K is padded to it
+
+
+def padded_k(K):
+    """The width of the kernel's quantized x and transposed w: K rounded
+    up to a multiple of ``BLOCK_K`` (the zeros past K add nothing)."""
+    return -(-K // BLOCK_K) * BLOCK_K
 
 
 def _act_scale_f32(act_scale):
@@ -67,8 +75,9 @@ def int8_matmul(x, w_int8, dq_scale, act_scale):
     return _int8_matmul_cuda(x, w_int8, dq_scale, act_scale)
 
 
-# kernel launches since the last reset, by (M, K, N) (the plain CPU route
-# never counts)
+# kernel launches since the last reset, by (M, K, N): one a call, which
+# runs the kernel's two passes (quantize x and transpose w, then the
+# product); the plain CPU route never counts
 int8_matmul.launches = {}
 
 _fn = None
@@ -79,7 +88,7 @@ def _kernel():
     if _fn is None:
         fn = _build.load("int8_matmul").ptpu_int8_matmul
         fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int64] * 3
-                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
@@ -136,16 +145,20 @@ def _int8_matmul_cuda(x, w_int8, dq_scale, act_scale):
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if M == 0 or N == 0:
         return out.reshape(lead + (N,))
-    if (M + 127) // 128 > 65535:
-        raise ValueError("M=%d rows: at most %d" % (M, 65535 * 128))
+    if -(-M // BLOCK_M) > 65535:
+        raise ValueError("M=%d rows: at most %d" % (M, 65535 * BLOCK_M))
     xr, T, s0, s1 = _rows(x)
     fn = _kernel()
+    # scratch of the prep pass: x quantized [M, Kp], w transposed [N, Kp]
+    Kp = padded_k(K)
+    xq = torch.empty((M, Kp), dtype=torch.int8, device=x.device)
+    wt = torch.empty((N, Kp), dtype=torch.int8, device=x.device)
     # the C function launches on the runtime's current device: make it
     # the tensors' device for the call
     with torch.cuda.device(x.device):
         err = fn(xr.data_ptr(), T, s0, s1, w_int8.data_ptr(),
-                 dq_scale.data_ptr(), out.data_ptr(), M, K, N,
-                 _act_scale_f32(act_scale),
+                 dq_scale.data_ptr(), out.data_ptr(), xq.data_ptr(),
+                 wt.data_ptr(), M, K, N, Kp, _act_scale_f32(act_scale),
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError("int8_matmul kernel launch failed: CUDA error %d"

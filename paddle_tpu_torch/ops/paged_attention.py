@@ -27,7 +27,8 @@ from . import _build
 __all__ = ["MAX_WINDOW", "SUPPORTED_HEAD_DIMS", "paged_attention",
            "paged_attention_reference"]
 
-SUPPORTED_HEAD_DIMS = (32, 64, 128)
+# one kernel instantiation each: every multiple of 32 up to 256
+SUPPORTED_HEAD_DIMS = tuple(range(32, 257, 32))
 MAX_WINDOW = 16
 
 

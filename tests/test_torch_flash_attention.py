@@ -4,12 +4,13 @@ mode as ``tests/test_pallas.py`` runs it: forward and dQ/dK/dV (autograd
 against ``jax.vjp``), causal self-attention at T 128 and 256 and
 non-causal cross-attention (Tq 128, Tk 256), Dh 64, in both layouts
 (``bhtd`` and the ``bthd`` the fused attention op hands over), fp32 and
-bf16. Inputs come from a seeded numpy generator.
+bf16; and at T 128 with Dh 128 and a head dim the kernels reach through
+padding (96). Inputs come from a seeded numpy generator.
 
 Also: a numpy emulation of the bf16 tensor-core kernels' numerics
 (``csrc/flash_attention_tc.cu``) held against the same JAX op within the
 limits ``chip_smoke.py`` holds those kernels to on the card, and the
-wrapper's route and alignment decisions as pure functions."""
+wrapper's route, alignment and head-dim decisions as pure functions."""
 
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ import jax
 import jax.numpy as jnp
 
 from paddle_tpu.ops import registry as j_registry
+from paddle_tpu_torch.ops import compat_ops as p_compat
 from paddle_tpu_torch.ops import flash_attention as p_flash
 from paddle_tpu_torch.ops import registry as p_registry
 
@@ -28,9 +30,9 @@ TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
        "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 
 
-def _inputs(Tq, Tk, layout, seed=0):
+def _inputs(Tq, Tk, layout, seed=0, Dh=64):
     rng = np.random.RandomState(seed)
-    B, H, Dh = 2, 2, 64
+    B, H = 2, 2
     shape = ((lambda T: (B, H, T, Dh)) if layout == "bhtd"
              else (lambda T: (B, T, H, Dh)))
     return [rng.standard_normal(s).astype(np.float32)
@@ -47,8 +49,22 @@ def _f32(x):
                                           (256, 256, True),
                                           (128, 256, False)])
 def test_flash_attention_op_matches_jax(Tq, Tk, causal, layout, dtype):
-    q, k, v, g = _inputs(Tq, Tk, layout)
-    attrs = {"causal": causal, "sm_scale": 64 ** -0.5, "layout": layout}
+    _op_matches_jax(Tq, Tk, causal, layout, dtype, 64)
+
+
+# the head dims F1 opened: 128 (an instantiation), 96 (padded to 128)
+@pytest.mark.parametrize("layout,dtype,Dh", [("bthd", "float32", 128),
+                                             ("bhtd", "bfloat16", 128),
+                                             ("bthd", "float32", 96)])
+def test_flash_attention_op_matches_jax_wide_heads(layout, dtype, Dh):
+    _op_matches_jax(128, 128, True, layout, dtype, Dh)
+
+
+def _op_matches_jax(Tq, Tk, causal, layout, dtype, Dh):
+    """The port's flash_attention op against the JAX package's, forward
+    and autograd against jax.vjp, to TOL[dtype]."""
+    q, k, v, g = _inputs(Tq, Tk, layout, Dh=Dh)
+    attrs = {"causal": causal, "sm_scale": Dh ** -0.5, "layout": layout}
 
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     j_impl = j_registry.get("flash_attention").impl
@@ -105,7 +121,7 @@ def _bf16(x):
 
 def _tc_emulation(q, k, v, do, causal, scale):
     """What the tensor-core kernels compute from bf16-valued fp32 arrays
-    [B, H, T, 64]: 64-key tiles, an fp32 online softmax in exp2 on scores
+    [B, H, T, Dh]: 64-key tiles, an fp32 online softmax in exp2 on scores
     prescaled by scale·log2(e), P rounded to bf16 before P·V, O rounded to
     bf16; the backward rebuilds P from the fp32 lse, delta from the bf16
     O, rounds P and dS to bf16 before their products; sums in fp32.
@@ -150,8 +166,17 @@ def test_tc_kernel_numerics_within_card_limits(Tq, Tk, causal):
     """The tensor-core kernels' numerics (P and dS rounded to bf16) stay
     inside the card limits against the JAX op on the same bf16 inputs,
     forward and dQ/dK/dV; prints the largest ratio to each limit."""
-    q, k, v, g = (_bf16(x) for x in _inputs(Tq, Tk, "bhtd"))
-    scale = 64 ** -0.5
+    _tc_numerics(Tq, Tk, causal, 64)
+
+
+def test_tc_kernel_numerics_within_card_limits_dh128():
+    """The same at head dim 128 (T 128, causal)."""
+    _tc_numerics(128, 128, True, 128)
+
+
+def _tc_numerics(Tq, Tk, causal, Dh):
+    q, k, v, g = (_bf16(x) for x in _inputs(Tq, Tk, "bhtd", Dh=Dh))
+    scale = Dh ** -0.5
     attrs = {"causal": causal, "sm_scale": scale, "layout": "bhtd"}
     j_impl = j_registry.get("flash_attention").impl
 
@@ -169,8 +194,8 @@ def test_tc_kernel_numerics_within_card_limits(Tq, Tk, causal):
         assert np.isfinite(x).all(), name
         ratios[name] = float((np.abs(x - w) / (atol + rtol * np.abs(w)))
                              .max())
-    print("tc numerics Tq=%d Tk=%d causal=%s: largest |err| / card limit %s"
-          % (Tq, Tk, causal, ratios))
+    print("tc numerics Tq=%d Tk=%d causal=%s Dh=%d: largest |err| / card "
+          "limit %s" % (Tq, Tk, causal, Dh, ratios))
     assert max(ratios.values()) <= 1, ratios
 
 
@@ -204,3 +229,27 @@ def test_route_and_alignment_decisions():
     assert not aligned(0, (2, 1, 5, 64), (3, 5, 64, 1), 2)
     assert not aligned(0, (1, 1, 5, 64), (320, 320, 64, 2), 2)
     assert not aligned(2, (1, 1, 5, 64), (320, 320, 64, 1), 2)
+
+
+def test_every_gated_head_dim_has_a_kernel_or_raises_named():
+    """F1: every head dim from 64 to 256 that the op's gate sends to the
+    kernels runs at an instantiated width no narrower than itself (itself
+    when it is one; otherwise the wrapper pads to it), up to the largest
+    instantiation; above it the wrapper raises a ValueError naming the
+    limit. No kernel needed: the wrapper's decision function."""
+    largest = max(p_flash.SUPPORTED_HEAD_DIMS)
+    assert set(p_flash.SUPPORTED_HEAD_DIMS) >= {64, 128}
+    for Dh in range(64, 257):
+        if not p_compat.flash_qualify(128, 128, Dh, True):
+            continue
+        if Dh <= largest:
+            d = p_flash.kernel_head_dim(Dh)
+            assert d in p_flash.SUPPORTED_HEAD_DIMS and d >= Dh, Dh
+            assert (d == Dh) == (Dh in p_flash.SUPPORTED_HEAD_DIMS), Dh
+            assert not [s for s in p_flash.SUPPORTED_HEAD_DIMS
+                        if Dh <= s < d], Dh   # the narrowest that fits
+        else:
+            with pytest.raises(ValueError,
+                               match=r"head_dim %d is above the largest .* "
+                                     r"\(%d\)" % (Dh, largest)):
+                p_flash.kernel_head_dim(Dh)

@@ -160,3 +160,12 @@ def test_mul_int8_branch_matches_the_jax_op():
     got, want = p_out["Out"][0].numpy(), np.asarray(j_out["Out"][0])
     assert got.dtype == want.dtype == np.int32
     np.testing.assert_array_equal(got, want)
+
+
+def test_padded_k_is_the_next_stage_multiple():
+    """The kernel's quantized x and transposed w are K wide rounded up to
+    its 128-k stage (zeros past K add nothing to the int32 sums): the
+    narrowest multiple of 128 at least K, 0 for K 0."""
+    for K in (0, 1, 31, 32, 33, 127, 128, 129, 512, 2048, im.MAX_K):
+        Kp = im.padded_k(K)
+        assert Kp % im.BLOCK_K == 0 and K <= Kp < K + im.BLOCK_K, K

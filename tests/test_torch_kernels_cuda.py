@@ -16,11 +16,16 @@ from paddle_tpu_torch.ops import paged_attention as pa
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("Dh,C,bs", [(64, 1, 16), (32, 3, 4),
-                                      (128, 16, 16), (64, 4, 5)])
+                                      (128, 16, 16), (64, 4, 5),
+                                      (96, 4, 16), (160, 2, 16),
+                                      (192, 7, 5), (224, 16, 16),
+                                      (256, 16, 16)])
 def test_kernel_matches_plain_on_card(Dh, C, bs):
     """The CUDA kernel against the plain version on the card: ragged
-    positions, scattered pages, null tails, head dims 32/64/128 and
-    windows up to 16 (atol 1e-4: fp32, different summation order)."""
+    positions, scattered pages, null tails, every instantiated head dim
+    (the multiples of 32 to 256; 96 and 160 to 224 not powers of two; 256
+    at C 16: past 48 KB of shared memory) and windows up to 16 (atol 1e-4:
+    fp32, different summation order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     B, H, Mb = 6, 4, 8
@@ -53,10 +58,14 @@ def test_kernel_matches_plain_on_card(Dh, C, bs):
 @pytest.mark.cuda
 @pytest.mark.parametrize("W,D,Dh,bs", [(2, 6, 64, 16), (1, 4, 32, 4),
                                        (3, 8, 128, 16), (1, 31, 128, 16),
-                                       (4, 4, 64, 5)])
+                                       (4, 4, 64, 5), (2, 6, 96, 16),
+                                       (1, 15, 160, 16), (3, 4, 192, 5),
+                                       (2, 6, 224, 16), (1, 31, 256, 16)])
 def test_tree_kernel_matches_plain_on_card(W, D, Dh, bs):
     """K3 against its plain version on the card: tree windows C = 1 + W*D
-    up to 32 (shared memory past 48 KB at Dh 128), window bases on and
+    up to 32 (shared memory past 48 KB at Dh 128, 140 KB at Dh 256 and C
+    32), every instantiated head dim (the multiples of 32 to 256), window
+    bases on and
     off block boundaries, a window running past the table, an inactive
     row (position 0, null table), null tails; at width 1 also against
     K2 (atol 1e-4: fp32, different summation order)."""
@@ -178,6 +187,67 @@ def test_flash_attention_kernels_match_plain_on_card(B, H, Tq, Tk, causal,
     assert out.stride() == q.stride()   # written where the layout says
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Tq,Tk,causal,dtype,layout,Dh", [
+    (2, 3, 256, 256, True, "bfloat16", "bthd", 128),
+    (1, 2, 128, 256, False, "bfloat16", "bhtd", 128),
+    (2, 3, 256, 256, True, "float32", "bhtd", 128),
+    (1, 2, 128, 256, False, "float32", "bthd", 128),
+    (2, 1, 129, 129, True, "bfloat16", "bhtd", 128),  # past a 128-row block
+    (1, 2, 100, 100, True, "float32", "bhtd", 128),   # ragged tiles
+    (2, 2, 256, 256, True, "bfloat16", "bthd", 96),   # padded to 128
+    (1, 2, 128, 256, False, "float32", "bhtd", 96),
+])
+def test_flash_attention_wide_heads_match_plain_on_card(B, H, Tq, Tk, causal,
+                                                        dtype, layout, Dh):
+    """K1 at head dim 128 (both routes' second instantiation) and at 96,
+    which the wrapper zero-pads to 128 (q, k, v in the forward and dO in
+    the backward: 4 copies counted) and slices back, against the plain
+    version's forward and autograd at the true head dim and its default
+    scale Dh^-0.5. Tolerances as in
+    test_flash_attention_kernels_match_plain_on_card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.RandomState(Tq + Tk + Dh)
+    dev, tdt = torch.device("cuda"), getattr(torch, dtype)
+
+    def make(T):
+        shape = (B, H, T, Dh) if layout == "bhtd" else (B, T, H, Dh)
+        t = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        t = t.to(dev, tdt)
+        return t if layout == "bhtd" else t.transpose(1, 2)
+
+    q, k, v, g = make(Tq), make(Tk), make(Tk), make(Tq)
+    tols = ({"out": (1e-4, 1e-4), "grads": (1e-4, 1e-4)}
+            if dtype == "float32"
+            else {"out": (1e-2, 1e-2), "grads": (3e-2, 1e-2)})
+    route = "tc" if dtype == "bfloat16" else "simt"
+    padded = Dh not in fa.SUPPORTED_HEAD_DIMS
+    before = _flash_counts(fa, route)
+    out, grads = _flash_against_plain(fa, q, k, v, g, causal, tols)
+    assert _flash_counts(fa, route) == tuple(n + 1 for n in before[:4]) + (
+        before[4] + (4 if padded else 0),)
+    assert out.shape == q.shape
+    assert all(d.shape == t.shape for d, t in zip(grads, (q, k, v)))
+
+
+@pytest.mark.cuda
+def test_flash_attention_head_dim_above_the_largest_raises_on_card():
+    """A head dim above the kernels' largest instantiation raises naming
+    the limit (the part of F1 still open), on both routes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    for dt in (torch.bfloat16, torch.float32):
+        q = torch.zeros(1, 1, 128, 160, device="cuda", dtype=dt)
+        with pytest.raises(ValueError, match=r"head_dim 160 is above the "
+                                             r"largest .* \(128\)"):
+            fa.flash_attention(q, q, q, causal=True)
+
+
 def _flash_counts(fa, route):
     """(fwd launches, bwd launches, fwd and bwd launches by `route`,
     copies of both)."""
@@ -263,6 +333,35 @@ def test_int8_matmul_kernel_matches_plain_on_card(M, K, N):
         torch.cuda.synchronize()
         assert im.int8_matmul.launches[key] == launches + 1
         assert got.shape == want.shape == tuple(x.shape[:-1]) + (N,)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [127, 128, 129])
+@pytest.mark.parametrize("K", [31, 32, 33, 127, 128, 129])
+@pytest.mark.parametrize("N", [7, 8, 9, 127, 128, 129])
+def test_int8_matmul_tile_edges_match_plain_on_card(M, K, N):
+    """K4 bitwise against its plain version on the edges of the product's
+    tiles: K one either side of the mma's k32 and of a 128-k stage, M one
+    either side of a block's 128 rows, N either side of an n8 mma tile
+    and of a block's 128 columns; x contiguous and a strided 3-D view."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from paddle_tpu_torch.ops import int8_matmul as im
+
+    rng = np.random.RandomState(M * 1000 + K * 10 + N)
+    dev = torch.device("cuda")
+    base = torch.from_numpy((1.5 * rng.randn(M, 2, K)).astype(np.float32))
+    base = base.to(dev)
+    w_np = rng.randint(-128, 128, size=(K, N)).astype(np.int8)
+    w_np.flat[::7] = -128
+    w = torch.from_numpy(w_np).to(dev)
+    dq = torch.from_numpy(((rng.rand(N) + 0.1) * 3 / 127 ** 2)
+                          .astype(np.float32)).to(dev)
+    for x in (base[:, 0].contiguous(), base[:, 1:]):
+        got = im.int8_matmul(x, w, dq, 127.0 / 3.0)
+        want = im.int8_matmul_reference(x, w, dq, 127.0 / 3.0)
+        torch.cuda.synchronize()
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
