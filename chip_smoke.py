@@ -15,10 +15,14 @@ Phases, each fatal on failure (exit code 1, no result line):
      card at the serving path's shapes, and time kernel, plain version,
      the least time the card could take (bound) and one PyTorch library
      call computing the same function (a yardstick the port never
-     calls): paged attention (K2) at C=1 (decode) and C=7 (the linear
-     verify window), the tree-mask window (K3) at the tree leg's shape
-     (C=13) and on an edge matrix (width 1 against K2, null tails,
-     windows past the table, an inactive row, Dh 32/128, C=25 and 32).
+     calls): paged attention (K2) on an edge matrix (head dims 48, 50,
+     80, 100; windows of 17, 33 and 64 slots; splits past a short row's
+     end) and timed at C=1 (decode), C=7 (the linear verify window) and
+     C=17 (the spec_k=16 window); the tree-mask window (K3) on an edge
+     matrix (width 1 against K2 up to C=41, null tails, windows past the
+     table, an inactive row, Dh 32 to 128 and 48/80/100, C up to 64 with
+     two mask words a slot, a window across two splits) and timed at the
+     tree legs' shapes (C=13, C=33).
   4. serving: the flagship decoder at full width (vocab 32000, d_model
      512, 8 heads, 6 layers, d_ff 2048, max_seq_len 512; random weights
      from seed 0) served by ``ServingEngine`` on cuda:0 for 64 open-loop
@@ -36,22 +40,24 @@ Phases, each fatal on failure (exit code 1, no result line):
      be token-identical to ``reference_decode`` (a difference prints the
      position and the reference's top-2 logit margin there), the pool
      must drain clean, and the launch counts must show K2 at C=7 once a
-     layer a linear window and K3 once a layer a tree window. Then one
-     tree window under torch.profiler.
+     layer a linear window and K3 once a layer a tree window. Then two
+     legs past the kernels' former window limits on the first 4
+     prompts, held the same way: spec_k=16 (K2 at C=17) and a 4x8 tree
+     (K3 at C=33). Then one tree window under torch.profiler.
 
   5. flash attention kernels: K1's forward and backward CUDA kernels
      against the plain version's forward and autograd, each call by its
-     route (bf16: the tensor-core kernels; fp32: the SIMT kernels), at
-     the training path's shape (B=160, H=8, T=512, Dh=64, causal, bf16,
-     through the strided views of [B, T, H, Dh] tensors), at B=4 fp32,
-     and at a non-causal bf16 Tq=128/Tk=256 case; kernel, plain and
-     library (scaled_dot_product_attention) times, the bound and the factor to
-     the library at the first. Then the fp32 forward at the int8 path's
-     shape (B=32, H=8, T=512, causal), timed the same way. Then head dim
-     128 on both routes: checked and timed at phase 6b's own shape (B=8,
-     H=8, T=512, causal), checked cross, and head dim 96 (padded to 128,
-     4 copies counted); bf16 forward and backward also timed at B=80,
-     the fp32 forward at B=32, as above (the rows' ms; 6b's in path_ms).
+     routes (bf16: the tensor-core kernels both ways; fp32: the 3xTF32
+     tensor-core forward and the SIMT backward), through the strided
+     views of [B, T, H, Dh] tensors, all at H=8, T=512, causal: checked,
+     then kernel, plain and library (scaled_dot_product_attention in the
+     same dtype) times each way, the bounds and the factor to the
+     library, at head dim 64 in bf16 at the training path's B=160 and in
+     fp32 at the int8 path's B=32 (and phase 7's B=2, path_* keys); at
+     head dim 128 at B=80 (bf16) and B=32 (fp32) and at phase 6b's own
+     B=8 (path_* keys); at head dim 256 at phase 6c's own shape (B=4).
+     Also checked: fp32 B=4, non-causal Tq=128/Tk=256 at Dh 64, 128 and
+     256, and head dims 96 and 192 through the pad (4 copies counted).
   6. training: the Fluid-API Transformer LM (bench.py's headline step)
      through the port's entry points on cuda:0 — full width, 6 layers,
      seq 512, batch 160, bf16 params and residual stream, the legacy AMP
@@ -64,8 +70,13 @@ Phases, each fatal on failure (exit code 1, no result line):
   6b. head dim 128: the LM widened to d_model 1024 over 8 heads (head
      dim 128), 2 layers, batch 8: 5 bf16 AMP training steps (loss finite
      and falling, K1 once a layer a step each way by the tensor-core
-     route) and 5 steps of its fp32 program's inference clone (K1's SIMT
-     forward once a layer a step); no operand copied.
+     route), 5 steps of the fp32 program's inference clone (K1 once a
+     layer a step forward by the 3xTF32 route, no backward) and 5 fp32
+     SGD steps (K1 once a layer a step by the 3xTF32 forward and the
+     SIMT backward); each leg's counts zeroed before it, no operand
+     copied.
+  6c. head dim 256: the same at d_model 2048 over 8 heads (the head
+     width of Gemma-family decoders), d_ff 8192, 2 layers, batch 4.
   7. card vs CPU: the same program from one set of weights (startup run
      once on the card, the scope copied to the CPU), two SGD steps at
      batch 2 on cuda:0 (the kernels) and on the CPU (the plain
@@ -86,17 +97,20 @@ Phases, each fatal on failure (exit code 1, no result line):
      clone in fp32 (3 warm-up and 10 timed steps each): every loss
      finite, K4 launched exactly once a dense layer a step (12 FFN, 2
      lm_head chunks) and never by the fp32 clone, K1's fp32 forward
-     once a layer a step by the SIMT route in both, the int8 loss within
+     once a layer a step by the 3xTF32 route in both, the int8 loss within
      1% of the fp32 loss; the int8 / fp32 step ratio and K4's share of
      the card's busy time in a profiled int8 step. Last, the int8 program
      card vs CPU at batch 2: every dense layer's output on the card
      bitwise the plain version's on its own input, the loss to rtol
      1e-4, a 1% act-scale fault caught at every layer.
 
-Then one JSON line ``{"kernels": [...]}`` and, last, the result line
-``{"ok": true, "device": {...}}``.
+Then one JSON line ``{"kernels": [...]}`` (every kernel of every path,
+each with the launches of its path's run; a kernel launched no time there
+fails the run) and, last, the result line ``{"ok": true, "device":
+{...}}``.
 """
 
+import gc
 import json
 import os
 import subprocess
@@ -108,6 +122,7 @@ import numpy as np
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12      # fp32 outside the tensor cores
 H100_BF16_FLOPS = 989e12     # bf16 tensor cores, dense
+H100_TF32_FLOPS = 494.7e12   # TF32 tensor cores, dense
 H100_INT8_OPS = 1979e12      # int8 tensor cores, dense
 ATOL = 1e-4                  # fp32, different summation order
 # flash attention vs its plain version, |got - want| <= atol + rtol|want|,
@@ -117,6 +132,8 @@ ATOL = 1e-4                  # fp32, different summation order
 # that the kernel's backward forms from the bf16-rounded O
 FLASH_TOL = {"float32": {"out": (1e-4, 1e-4), "grads": (1e-4, 1e-4)},
              "bfloat16": {"out": (1e-2, 1e-2), "grads": (3e-2, 1e-2)}}
+# K1's (forward, backward) routes by dtype: the kernels that run
+FLASH_ROUTES = {"bfloat16": ("tc", "tc"), "float32": ("f32tc", "simt")}
 
 
 def fail(msg):
@@ -189,15 +206,25 @@ def time_ms(torch, fn, flush, iters=20):
 # tokens: a window starts at 12..58; the first and last start, one
 # crossing a page)
 PAGED_CASES = ((1, 32, 0, 512, (511, 0, 16, 17)),
-               (7, 8, 12, 59, (12, 58, 13)))
+               (7, 8, 12, 59, (12, 58, 13)),
+               (17, 8, 12, 60, (12, 59, 13)))
+# K2's edge matrix, checked: (C, Dh, bs, Mb, the first rows' window
+# starts): head dims between the instantiated widths (48, 80, 100: masked
+# columns; 50: 4-byte copies), windows of one to three 32-slot chunks, a
+# row at position 0 whose other splits lie past its end, a window at the
+# table's end
+PAGED_EDGES = ((17, 64, 16, 8, (0, 111, 40)), (33, 64, 16, 8, (0, 95, 7)),
+               (64, 48, 16, 8, (0, 64, 30)), (1, 80, 16, 8, (0, 127, 64)),
+               (7, 100, 5, 12, (0, 53, 20)), (17, 48, 16, 8, (0, 100, 63)),
+               (3, 50, 4, 16, (0, 61, 31)))
 
 
-def paged_inputs(torch, C, B, lo, hi, edges, seed=0):
-    """Attention inputs at the serving path's width: B rows, H=8, Dh=64,
-    block_size 16, 32 table slots (max_seq_len 512), a pool of B*32 + 1
-    pages; row b's window covers positions pos0[b] .. pos0[b] + C - 1,
-    pages scattered over the pool, null tails."""
-    H, Dh, bs, Mb = 8, 64, 16, 32
+def paged_inputs(torch, C, B, lo, hi, edges, seed=0, Dh=64, bs=16, Mb=32,
+                 H=8):
+    """Attention inputs, by default at the serving path's width: B rows,
+    H=8, Dh=64, block_size 16, 32 table slots (max_seq_len 512), a pool
+    of B*Mb + 1 pages; row b's window covers positions pos0[b] .. pos0[b]
+    + C - 1, pages scattered over the pool, null tails."""
     rng = np.random.RandomState(seed)
     pos0 = rng.randint(lo, hi, size=B)
     pos0[:len(edges)] = edges
@@ -233,22 +260,42 @@ def paged_bound_ms(k, q, tables, pos):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def paged_check(torch, pa_mod, inputs, label):
+    got = pa_mod.paged_attention(*inputs)
+    want = pa_mod.paged_attention_reference(*inputs)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        fail("paged_attention %s: non-finite output" % label)
+    err = float((got - want).abs().max())
+    if err > ATOL:
+        fail("paged_attention %s disagrees with its plain version: max abs "
+             "err %.3g > %g" % (label, err, ATOL))
+    return got, want, err
+
+
 def kernel_phase(torch, pa_mod):
+    """K2 against its plain version on the edge matrix (PAGED_EDGES),
+    then checked and timed at its paths' shapes (PAGED_CASES): C=1 the
+    serving phase's decode, C=7 the linear leg's window, C=17 the
+    spec_k=16 leg's. Returns the kernels-line rows."""
     import torch.nn.functional as F
 
+    for i, (C, Dh, bs, Mb, edges) in enumerate(PAGED_EDGES):
+        inputs = paged_inputs(torch, C, 6, 0, Mb * bs - C + 1, edges,
+                              seed=100 + i, Dh=Dh, bs=bs, Mb=Mb, H=4)
+        _, _, err = paged_check(torch, pa_mod, inputs, "C=%d Dh=%d bs=%d"
+                                % (C, Dh, bs))
+        print("kernel paged_attention C=%d Dh=%d bs=%d Mb=%d (splits %r): "
+              "max_abs_err %.3g (limit %g)"
+              % (C, Dh, bs, Mb, pa_mod.paged_attention.last_plan, err, ATOL),
+              flush=True)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     rows = []
     for C, B, lo, hi, edges in PAGED_CASES:
         k, v, q, tables, pos = paged_inputs(torch, C, B, lo, hi, edges)
-        got = pa_mod.paged_attention(k, v, q, tables, pos)
-        want = pa_mod.paged_attention_reference(k, v, q, tables, pos)
-        torch.cuda.synchronize()
-        if not torch.isfinite(got).all():
-            fail("paged_attention C=%d: non-finite output" % C)
-        err = float((got - want).abs().max())
-        if err > ATOL:
-            fail("paged_attention C=%d disagrees with its plain version: "
-                 "max abs err %.3g > %g" % (C, err, ATOL))
+        _, want, err = paged_check(torch, pa_mod, (k, v, q, tables, pos),
+                                   "C=%d" % C)
+        splits = pa_mod.paged_attention.last_plan     # the checked call's
         _, _, H, Dh = q.shape
         T = tables.shape[1] * k.shape[1]
         # library yardstick: SDPA over K/V gathered contiguous outside
@@ -283,11 +330,13 @@ def kernel_phase(torch, pa_mod):
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
             "library": "F.scaled_dot_product_attention over K/V gathered "
-                       "contiguous outside the timed region (yardstick)"})
-        print("kernel paged_attention C=%d %s: max_abs_err %.3g (limit %g), "
-              "%.4f ms (plain %.4f ms, library %.4f ms, bound %.4f ms by %s)"
-              % (C, rows[-1]["shape"], err, ATOL, ms, plain_ms, library_ms,
-                 bound_ms, bound_by), flush=True)
+                       "contiguous outside the timed region (yardstick)",
+            "splits": splits})
+        print("kernel paged_attention C=%d %s (splits %r): max_abs_err %.3g "
+              "(limit %g), %.4f ms (plain %.4f ms, library %.4f ms, bound "
+              "%.4f ms by %s)"
+              % (C, rows[-1]["shape"], rows[-1]["splits"], err, ATOL, ms,
+                 plain_ms, library_ms, bound_ms, bound_by), flush=True)
         del k, v, q, k_ctx, v_ctx
     return rows
 
@@ -348,25 +397,34 @@ def tree_check(torch, pat_mod, inputs, label):
     return got, err
 
 
-# K3's edge matrix: (W, D, Dh, bs, edge rows' pos0)
+# K3's edge matrix: (W, D, Dh, bs, edge rows' pos0). 4x8 (C=33) and 7x9
+# (C=64): two 32-slot chunks and two ancestor words a slot, a window
+# across the edge of two 64-position splits (some slots see nothing of
+# the second: l = 0); Dh 48, 80, 100 between the instantiated widths;
+# 1x40 at width 1 (C=41) also against K2
 TREE_EDGES = ((1, 6, 64, 16, (0, 125, 1)), (2, 6, 32, 16, (0, 120, 16)),
               (2, 6, 128, 16, (3, 127)), (3, 8, 64, 16, (0, 110, 5)),
-              (1, 31, 128, 16, (97, 1)), (4, 4, 64, 5, (0, 37, 10)))
+              (1, 31, 128, 16, (97, 1)), (4, 4, 64, 5, (0, 37, 10)),
+              (4, 8, 64, 16, (0, 50, 95)), (7, 9, 64, 16, (0, 40, 65)),
+              (2, 8, 48, 16, (0, 60, 3)), (4, 4, 80, 16, (0, 55)),
+              (3, 11, 100, 16, (0, 30)), (1, 40, 80, 16, (0, 20, 87)))
+# K3's timed shapes, each its main path's leg: (W, D, edge rows' pos0) at
+# B=8, H=8, Dh=64, bs 16, 32 table slots: the 2x6 tree leg (positions up
+# to 511) and the 4x8 leg (windows from the 12-token prompts on)
+TREE_TIMED = ((2, 6, (499, 1, 16, 243)), (4, 8, (12, 59, 30)))
 
 
 def tree_kernel_phase(torch, pa_mod, pat_mod):
     """K3 against its plain version on the edge matrix (width 1 also
-    against K2) and at the tree leg's shape (B=8, C=13, H=8, Dh=64, bs
-    16, 32 table slots, positions up to 511), where it is timed."""
-    import torch.nn.functional as F
-
+    against K2) and at its legs' shapes (TREE_TIMED), where it is timed.
+    Returns the kernels-line rows."""
     for W, D, Dh, bs, edges in TREE_EDGES:
         inputs = tree_inputs(torch, W, D, B=6, H=4, Dh=Dh, bs=bs, Mb=8,
                              seed=W * 100 + D, edges=edges)
         got, _ = tree_check(torch, pat_mod, inputs,
                             "%dx%d Dh=%d bs=%d C=%d" % (W, D, Dh, bs,
                                                         1 + W * D))
-        if W == 1 and 1 + D <= pa_mod.MAX_WINDOW:
+        if W == 1:
             lin = pa_mod.paged_attention(*inputs[:5])
             torch.cuda.synchronize()
             err = float((got - lin).abs().max())
@@ -375,12 +433,25 @@ def tree_kernel_phase(torch, pa_mod, pat_mod):
                      "paged_attention: %.3g" % err)
             print("kernel paged_attention_tree %dx%d vs paged_attention: "
                   "max_abs_err %.3g" % (W, D, err), flush=True)
+    return [tree_timed_row(torch, pa_mod, pat_mod, W, D, edges, seed)
+            for seed, (W, D, edges) in enumerate(TREE_TIMED)]
+
+
+def tree_timed_row(torch, pa_mod, pat_mod, W, D, edges, seed):
+    """K3 at a leg's shape (B=8, H=8, Dh=64, bs 16, Mb 32): checked, then
+    kernel, plain version and SDPA with the tree mask timed, and the
+    bound. Returns its kernels-line row."""
+    import torch.nn.functional as F
+
     B, H, Dh, bs, Mb = 8, 8, 64, 16, 32
-    inputs = tree_inputs(torch, 2, 6, B, H, Dh, bs, Mb, seed=0,
-                         edges=(499, 1, 16, 243))
-    label = "2x6 B=8 H=8 Dh=64 bs=16 Mb=32 pos<=511 fp32"
-    _, err = tree_check(torch, pat_mod, inputs, label)
+    C = 1 + W * D
+    inputs = tree_inputs(torch, W, D, B, H, Dh, bs, Mb, seed=seed,
+                         edges=edges)
     k, v, q, tables, pos, anc = inputs
+    label = "%dx%d B=8 H=8 Dh=64 bs=16 Mb=32 pos %d..%d fp32" % (
+        W, D, int(pos.min()), int(pos.max()))
+    _, err = tree_check(torch, pat_mod, inputs, label)
+    splits = pa_mod.paged_attention.last_plan         # the checked call's
     T = Mb * bs
     mask = tree_mask(torch, pos, anc, T)                 # [B, C, T]
     # library yardstick: SDPA with the boolean tree mask over K/V
@@ -412,20 +483,21 @@ def tree_kernel_phase(torch, pa_mod, pat_mod):
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOPS
     bound_ms = max(t_bytes, t_ops) * 1e3
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    print("kernel paged_attention_tree %s: %.4f ms (plain %.4f ms, library "
-          "%.4f ms, bound %.4f ms by %s)" % (label, ms, plain_ms, library_ms,
-                                            bound_ms, bound_by), flush=True)
+    print("kernel paged_attention_tree %s (splits %r): %.4f ms (plain %.4f "
+          "ms, library %.4f ms, bound %.4f ms by %s)"
+          % (label, splits, ms, plain_ms, library_ms, bound_ms, bound_by),
+          flush=True)
     del k, v, q, k_ctx, v_ctx, inputs
-    return [{
+    return {
         "name": "paged_attention_tree", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/paged_attention_tree.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:475",
-        "C": 13, "shape": label, "max_abs_err": err, "ms": ms,
+        "C": C, "shape": label, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms,
         "library": "F.scaled_dot_product_attention with the boolean tree "
                    "mask over K/V gathered contiguous outside the timed "
-                   "region (yardstick)"}]
+                   "region (yardstick)", "splits": splits}
 
 
 def device_us(event):
@@ -560,7 +632,11 @@ SPEC = dict(cfg=dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=6,
             max_batch=8, block_size=16, n_requests=16, pattern_len=4,
             reps=3, max_new_tokens=48,
             legs=(("legacy", {"spec_k": 0}), ("linear", {"spec_k": 6}),
-                  ("tree", {"spec_tree": "2x6"})))
+                  ("tree", {"spec_tree": "2x6"})),
+            # windows the engine once refused (F2): K2 at C=17, K3 at C=33
+            wide_legs=(("linear16", {"spec_k": 16}),
+                       ("tree4x8", {"spec_tree": "4x8"})),
+            wide_requests=4)
 
 
 def spec_prompts(vocab_size):
@@ -598,6 +674,26 @@ def spec_serving_phase(torch, pa_mod, pat_mod, device=None):
         legs[name] = spec_leg(torch, pa_mod, pat_mod, model, prompts, refs,
                               margins, name, kw)
     return model, legs
+
+
+def spec_wide_phase(torch, pa_mod, pat_mod, model):
+    """The windows past the kernels' former limits on the speculative
+    phase's model: a linear spec_k=16 leg (C=17) and a 4x8 tree leg
+    (C=33), each on the first `wide_requests` prompts, every request
+    token-identical to reference_decode, launch counts held as in the
+    other legs. Returns {leg: summary}."""
+    from paddle_tpu_torch.serving import reference_decode
+
+    prompts = spec_prompts(model.config.vocab_size)[:SPEC["wide_requests"]]
+    refs, margins = [], []
+    for p in prompts:
+        m = []
+        refs.append(reference_decode(model, p, SPEC["max_new_tokens"],
+                                     margins=m))
+        margins.append(m)
+    return {name: spec_leg(torch, pa_mod, pat_mod, model, prompts, refs,
+                           margins, name, kw)
+            for name, kw in SPEC["wide_legs"]}
 
 
 def spec_leg(torch, pa_mod, pat_mod, model, prompts, refs, margins, name,
@@ -768,30 +864,31 @@ def flash_counts(fa):
 
 def flash_check(torch, fa, B, H, Tq, Tk, causal, dtype, seed=0, Dh=64):
     """K1's kernels against the plain version's forward and autograd on
-    the same inputs; the call must go by its dtype's route (bf16: "tc",
-    fp32: "simt") without copying an operand, but for a head dim the
-    kernels run padded (q, k, v and dO padded: 4 copies). Returns
-    (inputs, max abs errors, shape label)."""
+    the same inputs; the call must go by its dtype's routes (bf16: "tc"
+    both ways; fp32: "f32tc" forward, "simt" backward) without copying an
+    operand, but for a head dim the kernels run padded (q, k, v and dO
+    padded: 4 copies). Returns (inputs, max abs errors, shape label)."""
     q, k, v, g = flash_inputs(torch, B, H, Tq, Tk, dtype, seed, Dh)
-    route = "tc" if dtype == "bfloat16" else "simt"
+    f_route, b_route = FLASH_ROUTES[dtype]
     want_copies = 0 if Dh in fa.SUPPORTED_HEAD_DIMS else 4
     fwd0, bwd0, copies0 = flash_counts(fa)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     out = fa.flash_attention(*leaves, causal=causal)
     grads = torch.autograd.grad(out, leaves, g)
     fwd1, bwd1, copies1 = flash_counts(fa)
-    if (fwd1[route] - fwd0[route], bwd1[route] - bwd0[route],
+    if (fwd1[f_route] - fwd0[f_route], bwd1[b_route] - bwd0[b_route],
             copies1 - copies0) != (1, 1, want_copies):
         fail("flash_attention %s Dh=%d: launches by route went from %r / %r "
-             "to %r / %r, copies %d to %d (expected one %s launch each way, "
-             "%d copies)" % (dtype, Dh, fwd0, bwd0, fwd1, bwd1, copies0,
-                             copies1, route, want_copies))
+             "to %r / %r, copies %d to %d (expected one %s forward and one "
+             "%s backward launch, %d copies)"
+             % (dtype, Dh, fwd0, bwd0, fwd1, bwd1, copies0, copies1,
+                f_route, b_route, want_copies))
     ref_leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     ref = fa.flash_attention_reference(*ref_leaves, causal=causal)
     ref_grads = torch.autograd.grad(ref, ref_leaves, g)
     torch.cuda.synchronize()
-    shape = "B=%d H=%d Tq=%d Tk=%d Dh=%d causal=%s %s, route %s" % (
-        B, H, Tq, Tk, Dh, causal, dtype, route)
+    shape = "B=%d H=%d Tq=%d Tk=%d Dh=%d causal=%s %s, routes %s/%s" % (
+        B, H, Tq, Tk, Dh, causal, dtype, f_route, b_route)
     errs, report = {}, []
     for name, got, want in zip(("out", "dq", "dk", "dv"), (out,) + grads,
                                (ref,) + ref_grads):
@@ -818,20 +915,20 @@ def flash_check(torch, fa, B, H, Tq, Tk, causal, dtype, seed=0, Dh=64):
     return (q, k, v, g), errs, shape
 
 
-def flash_bound_ms(B, H, T, Dh, elem_bytes, fwd, flops_per_s):
+def flash_bound_ms(B, H, T, Dh, elem_bytes, fwd, flops_per_s, products=1):
     """Least time for the work: each input read once and each output
     written once over the memory rate (forward: q, k, v in, o and the
     fp32 lse out; backward: q, k, v, o, dO and lse in, dq, dk, dv out),
-    against the products over `flops_per_s` (the bf16 tensor cores' or
-    the fp32 SIMT rate), counting the T(T+1)/2 visible (query, key)
-    pairs of causal attention per (b, h):
-    forward QK^T and PV, 4 Dh flops a pair; backward QK^T, dO V^T, P^T dO,
-    dS^T Q and dS K, 10 Dh flops a pair."""
+    against the products over `flops_per_s` (the bf16 or TF32 tensor
+    cores' or the fp32 SIMT rate), counting the T(T+1)/2 visible (query,
+    key) pairs of causal attention per (b, h): forward QK^T and PV, 4 Dh
+    flops a pair; backward QK^T, dO V^T, P^T dO, dS^T Q and dS K, 10 Dh
+    flops a pair; each product done `products` times (3xTF32: 3)."""
     n = B * H * T * Dh * elem_bytes
     lse = B * H * T * 4
     nbytes = 4 * n + lse if fwd else 8 * n + lse
     pairs = B * H * T * (T + 1) // 2
-    flops = (4 if fwd else 10) * Dh * pairs
+    flops = (4 if fwd else 10) * Dh * pairs * products
     t_bytes = nbytes / H100_BYTES_PER_S
     t_ops = flops / flops_per_s
     return (max(t_bytes, t_ops) * 1e3,
@@ -839,69 +936,65 @@ def flash_bound_ms(B, H, T, Dh, elem_bytes, fwd, flops_per_s):
 
 
 def flash_phase(torch, fa):
-    """K1 checked on small cases, then checked and timed at the training
-    path's shape (bf16, Dh 64, B=160) and the int8 path's (fp32 forward,
-    Dh 64, B=32); then head dim 128 checked and timed on both routes at
-    phase 6b's own shape (B=WIDE_BATCH) and at the timing shapes (bf16
-    B=80, fp32 B=32), and a padded head dim (96) checked. Returns the
-    kernels-line rows: Dh 64 tc forward, backward, simt forward, then the
-    same three at Dh 128 (ms at the timing shape; `path_*` at 6b's)."""
+    """K1 checked on small cases, then checked and timed at each path's
+    shape, by route: head dim 64 in bf16 at the training path's B=160,
+    in fp32 at the int8 path's B=32 (the forward's path; the fp32
+    backward's path is phase 7 at B=2, also checked and timed); head dim
+    128 at the timing shapes bf16 B=80 and fp32 B=32 and at phase 6b's
+    own B=WIDE_BATCH; head dim 256 at phase 6c's own shape; head dims 96
+    and 192 through the pad and cross-attention cases checked. Returns
+    the kernels-line rows by name, each forward and backward kernel of
+    each route and head dim (`path_*` keys: the path's shape where the
+    row's ms is at another)."""
     import torch.nn.functional as F
 
     flash_check(torch, fa, 4, 8, 512, 512, True, "float32", seed=1)
     flash_check(torch, fa, 16, 8, 128, 256, False, "bfloat16", seed=2)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    rows = flash_tc_rows(torch, fa, F, flush, 160, 64, seed=3)
-    rows.append(flash_fp32_row(torch, fa, F, flush, 64, seed=4))
-    # head dim 128 at phase 6b's shape, cross, and 96 through the pad
-    path = {}
-    for dtype in ("bfloat16", "float32"):
-        path[dtype] = flash_path_leg(torch, fa, flush, dtype, seed=5)
+    rows = flash_timed_rows(torch, fa, F, flush, "bfloat16", 160, 64, 3)
+    rows.update(flash_timed_rows(torch, fa, F, flush, "float32",
+                                 INT8["batch"], 64, 4))
+    flash_path(rows, flash_timed_rows(torch, fa, F, flush, "float32", 2, 64,
+                                      10), ("flash_attention_simt_bwd",))
+    for dtype, seed in (("bfloat16", 8), ("float32", 9)):
         flash_check(torch, fa, 4, 8, 128, 256, False, dtype, seed=6, Dh=128)
         flash_check(torch, fa, 2, 8, 256, 256, True, dtype, seed=7, Dh=96)
-    rows += flash_tc_rows(torch, fa, F, flush, 80, 128, seed=8)
-    rows.append(flash_fp32_row(torch, fa, F, flush, 128, seed=9))
-    shape, errs, ms = path["bfloat16"]
-    rows[3].update(path_shape=shape, path_max_abs_err=errs["out"],
-                   path_ms=ms[0])
-    rows[4].update(path_shape=shape, path_ms=ms[1], path_max_abs_err=max(
-        errs["dq"], errs["dk"], errs["dv"]))
-    shape, errs, ms = path["float32"]
-    rows[5].update(path_shape=shape, path_max_abs_err=errs["out"],
-                   path_ms=ms[0])
+        timed = flash_timed_rows(torch, fa, F, flush, dtype,
+                                 80 if dtype == "bfloat16" else 32, 128, seed)
+        flash_path(timed, flash_timed_rows(torch, fa, F, flush, dtype,
+                                           WIDE_BATCH, 128, seed + 10),
+                   timed)
+        rows.update(timed)
+    for dtype in ("bfloat16", "float32"):
+        flash_check(torch, fa, 2, 4, 256, 512, False, dtype, seed=11,
+                    Dh=256)
+        flash_check(torch, fa, 2, 4, 512, 512, True, dtype, seed=12, Dh=192)
+        rows.update(flash_timed_rows(torch, fa, F, flush, dtype,
+                                     WIDE256_BATCH, 256, 13))
     return rows
 
 
-def flash_path_leg(torch, fa, flush, dtype, seed):
-    """K1 at head dim 128 at phase 6b's shape (B=WIDE_BATCH, H=8, T=512,
-    causal, the layout the fused op hands it), the shape its launches on
-    that path come from: checked against the plain version, then the
-    kernel timed (forward; bf16 also backward). Returns (shape label,
-    max abs errors, (fwd ms, bwd ms or None))."""
-    Dh, T = 128, WIDE["seq_len"]
-    (q, k, v, g), errs, shape = flash_check(
-        torch, fa, WIDE_BATCH, WIDE["n_heads"], T, T, True, dtype,
-        seed=seed, Dh=Dh)
-    scale = Dh ** -0.5
-    o, lse = fa.flash_attention_fwd(q, k, v, True, scale)
-    ms_fwd = time_ms(torch, lambda: fa.flash_attention_fwd(
-        q, k, v, True, scale), flush, iters=10)
-    ms_bwd = None if dtype == "float32" else time_ms(
-        torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, g, True,
-                                              scale), flush, iters=10)
-    print("kernel flash_attention %s (phase 6b's shape): fwd %.4f ms%s"
-          % (shape, ms_fwd, "" if ms_bwd is None else
-             ", bwd %.4f ms" % ms_bwd), flush=True)
-    return shape, errs, (ms_fwd, ms_bwd)
+def flash_path(rows, path_rows, names):
+    """Set the `path_*` keys of rows[name] from the same kernel's row at
+    its path's shape, for each of `names`."""
+    for name in names:
+        p = path_rows[name]
+        rows[name].update(path_shape=p["shape"], path_ms=p["ms"],
+                          path_max_abs_err=p["max_abs_err"],
+                          path_bound_ms=p["bound_ms"],
+                          path_plain_ms=p["plain_ms"],
+                          path_library_ms=p["library_ms"])
 
 
-def flash_tc_rows(torch, fa, F, flush, B, Dh, seed):
-    """K1's tensor-core forward and backward at H=8, T=512, causal, bf16,
-    head dim `Dh`: checked, then kernel, plain and SDPA times and the
-    bound. Returns their kernels-line rows."""
-    H, T = 8, 512
+def flash_timed_rows(torch, fa, F, flush, dtype, B, Dh, seed, H=8, T=512):
+    """K1's forward and backward kernels of `dtype`'s routes at B, H=8,
+    T=512, causal, head dim `Dh`, through the strided views the fused op
+    hands them: checked against the plain version, then kernel, plain
+    version and SDPA (the library yardstick, on contiguous copies, in the
+    same dtype) timed each way, and the bounds. Returns the two
+    kernels-line rows by name."""
     (q, k, v, g), errs, shape = flash_check(torch, fa, B, H, T, T, True,
-                                            "bfloat16", seed=seed, Dh=Dh)
+                                            dtype, seed=seed, Dh=Dh)
     scale = Dh ** -0.5
     o, lse = fa.flash_attention_fwd(q, k, v, True, scale)
     ms_fwd = time_ms(torch, lambda: fa.flash_attention_fwd(
@@ -915,7 +1008,6 @@ def flash_tc_rows(torch, fa, F, flush, B, Dh, seed):
     plain_bwd = time_ms(torch, lambda: torch.autograd.grad(
         ref, leaves, g, retain_graph=True), flush, iters=5)
     del ref
-    # library yardstick: SDPA over contiguous [B, H, T, Dh] copies
     lib = [t.contiguous().detach().requires_grad_() for t in (q, k, v)]
     lib_out = F.scaled_dot_product_attention(*lib, is_causal=True)
     lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -924,74 +1016,50 @@ def flash_tc_rows(torch, fa, F, flush, B, Dh, seed):
         lib_out, lib, g, retain_graph=True), flush, iters=10)
     lib_err = float((lib_out.detach().float() - o.float()).abs().max())
     print("kernel flash_attention %s: fwd %.4f ms, bwd %.4f ms (plain "
-          "fwd %.4f, bwd %.4f ms; SDPA fwd %.4f, bwd %.4f, fwd+bwd %.4f ms; "
-          "factor to SDPA fwd %.2f, bwd %.2f; max |SDPA - kernel| %.3g)"
+          "fwd %.4f, bwd %.4f ms; SDPA fwd %.4f, bwd %.4f ms; factor to "
+          "SDPA fwd %.2f, bwd %.2f; max |SDPA - kernel| %.3g)"
           % (shape, ms_fwd, ms_bwd, plain_fwd, plain_bwd, lib_fwd, lib_bwd,
-             lib_fwd + lib_bwd, ms_fwd / lib_fwd, ms_bwd / lib_bwd, lib_err),
-          flush=True)
-    rows = []
+             ms_fwd / lib_fwd, ms_bwd / lib_bwd, lib_err), flush=True)
+    elem = 2 if dtype == "bfloat16" else 4
     suffix = "" if Dh == 64 else "_dh%d" % Dh
-    for name, fwd, ms, plain, library, err in (
-            ("flash_attention_tc_fwd", True, ms_fwd, plain_fwd, lib_fwd,
+    rows = {}
+    for fwd, route, ms, plain, library, err in (
+            (True, FLASH_ROUTES[dtype][0], ms_fwd, plain_fwd, lib_fwd,
              errs["out"]),
-            ("flash_attention_tc_bwd", False, ms_bwd, plain_bwd, lib_bwd,
+            (False, FLASH_ROUTES[dtype][1], ms_bwd, plain_bwd, lib_bwd,
              max(errs["dq"], errs["dk"], errs["dv"]))):
-        bound_ms, bound_by = flash_bound_ms(B, H, T, Dh, 2, fwd,
-                                            H100_BF16_FLOPS)
-        print("kernel %s%s: bound %.4f ms by %s"
-              % (name, suffix, bound_ms, bound_by))
-        rows.append({
-            "name": name + suffix, "route": "cuda", "kernel_route": "tc",
-            "head_dim": Dh,
-            "source": "paddle_tpu_torch/csrc/flash_attention_tc.cu",
+        rate, products = {"tc": (H100_BF16_FLOPS, 1),
+                          "f32tc": (H100_TF32_FLOPS, 3),
+                          "simt": (H100_FP32_FLOPS, 1)}[route]
+        bound_ms, bound_by = flash_bound_ms(B, H, T, Dh, elem, fwd, rate,
+                                            products)
+        name = "flash_attention_%s_%s%s" % (route, "fwd" if fwd else "bwd",
+                                            suffix)
+        rows[name] = {
+            "name": name, "route": "cuda", "kernel_route": route,
+            "head_dim": Dh, "dtype": dtype,
+            "source": "paddle_tpu_torch/csrc/%s.cu" % {
+                "tc": "flash_attention_tc", "f32tc": "flash_attention_f32tc",
+                "simt": "flash_attention"}[route],
             "replaces": ("paddle_tpu/ops/pallas_kernels.py:162" if fwd
                          else "paddle_tpu/ops/pallas_kernels.py:212"),
             "shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_rate": {"tc": "bf16 tensor cores, 989 TFLOP/s",
+                           "f32tc": "TF32 tensor cores, 494.7 TFLOP/s, 3 "
+                                    "products (3xTF32)",
+                           "simt": "fp32 SIMT, 67 TFLOP/s"}[route],
             "library_ms": library, "factor_to_library": ms / library,
             "library": "F.scaled_dot_product_attention(is_causal=True) %s "
-                       "on contiguous copies (yardstick)"
-                       % ("forward" if fwd else "backward")})
+                       "in %s on contiguous copies (yardstick)"
+                       % ("forward" if fwd else "backward", dtype)}
+        if route == "f32tc":
+            rows[name]["simt_rate_bound_ms"] = flash_bound_ms(
+                B, H, T, Dh, elem, fwd, H100_FP32_FLOPS)[0]
+        print("kernel %s: bound %.4f ms by %s" % (name, bound_ms, bound_by))
     del q, k, v, g, o, lse, leaves, lib, lib_out
     torch.cuda.empty_cache()
     return rows
-
-
-def flash_fp32_row(torch, fa, F, flush, Dh, seed):
-    """K1's fp32 forward (the SIMT route) at the int8 inference path's
-    shape (B=32, H=8, T=512, causal) and head dim `Dh`: checked against
-    the plain version, then kernel, plain version and SDPA in fp32 timed,
-    the bound over the fp32 rate."""
-    B, H, T = INT8["batch"], 8, 512
-    (q, k, v, _), errs, shape = flash_check(torch, fa, B, H, T, T, True,
-                                            "float32", seed=seed, Dh=Dh)
-    scale = Dh ** -0.5
-    ms = time_ms(torch, lambda: fa.flash_attention_fwd(
-        q, k, v, True, scale), flush, iters=10)
-    plain = time_ms(torch, lambda: fa.flash_attention_reference(
-        q, k, v, True, scale), flush, iters=5)
-    lib = [t.contiguous() for t in (q, k, v)]
-    library = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        *lib, is_causal=True), flush, iters=10)
-    bound_ms, bound_by = flash_bound_ms(B, H, T, Dh, 4, True,
-                                        H100_FP32_FLOPS)
-    print("kernel flash_attention %s: fwd %.4f ms (plain %.4f ms, SDPA "
-          "fp32 %.4f ms, factor %.2f; bound %.4f ms by %s)"
-          % (shape, ms, plain, library, ms / library, bound_ms, bound_by),
-          flush=True)
-    del q, k, v, lib
-    torch.cuda.empty_cache()
-    return {
-        "name": "flash_attention_simt_fwd" + ("" if Dh == 64
-                                              else "_dh%d" % Dh),
-        "route": "cuda", "kernel_route": "simt", "head_dim": Dh,
-        "source": "paddle_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "paddle_tpu/ops/pallas_kernels.py:162",
-        "shape": shape, "max_abs_err": errs["out"], "ms": ms,
-        "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library, "factor_to_library": ms / library,
-        "library": "F.scaled_dot_product_attention(is_causal=True) forward "
-                   "in fp32 on contiguous copies (yardstick)"}
 
 
 TRAIN = dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=6,
@@ -1003,6 +1071,10 @@ TRAIN = dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=6,
 # of K1's Dh-128 kernels
 WIDE = dict(TRAIN, d_model=1024, d_ff=4096, n_layers=2)
 WIDE_BATCH = 8
+# head dim 256 (d_model 2048 over 8 heads, the head width of Gemma-family
+# decoders), depth cut to 2 layers: the path of K1's Dh-256 kernels
+WIDE256 = dict(TRAIN, d_model=2048, d_ff=8192, n_layers=2)
+WIDE256_BATCH = 4
 
 
 def build_lm(fluid, dtype="bfloat16", cfg=None):
@@ -1055,6 +1127,11 @@ def training_phase(torch, fa, fluid, program):
     losses, marks, host_ms = [], [], []
     for i in range(warmup + steps):
         if i == warmup:
+            # the earlier phases' garbage (profiler traces, engines) is
+            # collected here, not by a pause inside a timed step
+            tg = time.perf_counter()
+            gc.collect()
+            gc_ms = (time.perf_counter() - tg) * 1e3
             torch.cuda.synchronize()
             t1 = time.perf_counter()
         if i >= warmup:                        # each timed step's start
@@ -1085,7 +1162,7 @@ def training_phase(torch, fa, fluid, program):
         fail("training: flash attention launched %d forward / %d backward "
              "times over %d steps (expected %d each)"
              % (launches + (n, want)))
-    tc_only = {"tc": want, "simt": 0}
+    tc_only = dict(dict.fromkeys(fwd_routes, 0), tc=want)
     if (fwd_routes, bwd_routes, copies) != (tc_only, tc_only, 0):
         fail("training: flash attention went by routes %r forward / %r "
              "backward with %d operand copies (expected %r each, none)"
@@ -1114,6 +1191,7 @@ def training_phase(torch, fa, fluid, program):
         "startup_s": startup_s, "losses": losses, "ms_per_step": step_s * 1e3,
         "step_ms_each": [a.elapsed_time(b) for a, b in zip(marks, marks[1:])],
         "host_ms_each": host_ms[warmup:],
+        "gc_collect_ms_before_timed_steps": gc_ms,
         "clocks_after_timed_steps": clocks,
         "tokens_per_s": batch * TRAIN["seq_len"] / step_s,
         "flash_attention_launches": {"fwd": launches[0],
@@ -1132,60 +1210,69 @@ def training_phase(torch, fa, fluid, program):
     return launches
 
 
-def wide_head_phase(torch, fa, fluid, batch=WIDE_BATCH, steps=5):
-    """K1's Dh-128 path: the LM at WIDE's widths (head dim 128) trained
-    `steps` bf16 AMP steps on cuda:0, then its fp32 program's inference
-    clone run for `steps` steps. Every loss finite, the training loss
-    falling; flash attention launched once a layer a step each way by
-    the tensor-core route in training and once a layer a step forward by
-    the SIMT route in inference, no operand copied. Returns the launches
-    (tc forward, tc backward, simt forward)."""
+def wide_head_phase(torch, fa, fluid, cfg=WIDE, batch=WIDE_BATCH, steps=5):
+    """K1's path at a wider head (cfg's d_model over its heads), in three
+    legs: the LM trained `steps` bf16 AMP steps on cuda:0, its fp32
+    program's inference clone run `steps` steps, and the fp32 program
+    trained `steps` steps with SGD. Every loss finite, the training
+    losses falling; flash attention launched once a layer a step by its
+    routes: "tc" both ways in bf16 training, "f32tc" forward only in
+    inference, "f32tc" forward and "simt" backward in fp32 training; no
+    operand copied. Each leg's counts are zeroed before it and read after
+    it. Returns the launches by kernel ("tc_fwd", "tc_bwd", "f32tc_fwd"
+    summed over both fp32 legs, "simt_bwd")."""
     exe = fluid.Executor()                     # place None: cuda:0
-    L = WIDE["n_layers"]
-    counts = {}
-    for dtype in ("bfloat16", "float32"):
-        main, startup, loss = build_lm(fluid, dtype, WIDE)
-        prog = main if dtype == "bfloat16" else main.clone(for_test=True)
+    L = cfg["n_layers"]
+    Dh = cfg["d_model"] // cfg["n_heads"]
+    n = L * steps
+    legs = (("bfloat16", False, "bf16 training, legacy AMP, SGD(0.01)",
+             ("tc", n), ("tc", n)),
+            ("float32", True, "fp32 inference clone", ("f32tc", n),
+             ("simt", 0)),
+            ("float32", False, "fp32 training, SGD(0.01)", ("f32tc", n),
+             ("simt", n)))
+    total = {"tc_fwd": 0, "tc_bwd": 0, "f32tc_fwd": 0, "simt_bwd": 0}
+    for dtype, for_test, label, (f_route, f_n), (b_route, b_n) in legs:
+        main, startup, loss = build_lm(fluid, dtype, cfg)
+        prog = main.clone(for_test=True) if for_test else main
         scope = fluid.Scope()
         exe.run(startup, scope=scope)
         feed = lm_feed(torch, batch, exe.device)
         torch.cuda.synchronize()
-        fa.reset_counts()                      # the path starts
+        fa.reset_counts()                      # the leg starts
         t0 = time.perf_counter()
         losses = [exe.run(prog, feed=feed, fetch_list=[loss], scope=scope,
                           return_numpy=False)[0] for _ in range(steps)]
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / steps
-        counts[dtype] = flash_counts(fa)       # the path ends
+        counts = flash_counts(fa)              # the leg ends
         losses = [float(x.float().cpu()[0]) for x in losses]
         if not all(np.isfinite(losses)):
-            fail("head dim 128 %s: non-finite loss %r" % (dtype, losses))
-        if dtype == "bfloat16" and not losses[-1] < losses[0]:
-            fail("head dim 128 training: the loss did not fall: %r" % losses)
-        route = "tc" if dtype == "bfloat16" else "simt"
-        want = ({"tc": 0, "simt": 0, route: L * steps},
-                {"tc": 0, "simt": 0,
-                 route: L * steps if dtype == "bfloat16" else 0}, 0)
-        if counts[dtype] != want:
-            fail("head dim 128 %s: flash attention launched %r (forward, "
+            fail("head dim %d %s: non-finite loss %r" % (Dh, label, losses))
+        if not for_test and not losses[-1] < losses[0]:
+            fail("head dim %d %s: the loss did not fall: %r"
+                 % (Dh, label, losses))
+        zero = dict.fromkeys(counts[0], 0)
+        want = (dict(zero, **{f_route: f_n}), dict(zero, **{b_route: b_n}),
+                0)
+        if counts != want:
+            fail("head dim %d %s: flash attention launched %r (forward, "
                  "backward by route; copies) over %d steps; expected %r"
-                 % (dtype, counts[dtype], steps, want))
+                 % (Dh, label, counts, steps, want))
+        total["%s_fwd" % f_route] += counts[0][f_route]
+        total["%s_bwd" % b_route] += counts[1][b_route]
         print("wide_head %s" % json.dumps({
             "model": "Fluid-API Transformer LM: vocab %d, d_model %d, %d "
                      "heads (head dim %d), %d layers, d_ff %d, seq %d"
-                     % (WIDE["vocab_size"], WIDE["d_model"], WIDE["n_heads"],
-                        WIDE["d_model"] // WIDE["n_heads"], L, WIDE["d_ff"],
-                        WIDE["seq_len"]),
-            "program": ("bf16 training, legacy AMP, SGD(0.01)"
-                        if dtype == "bfloat16" else "fp32 inference clone"),
-            "batch": batch, "steps": steps, "losses": losses,
-            "ms_per_step_first_included": ms,
-            "flash_attention_launches": counts[dtype]}),
+                     % (cfg["vocab_size"], cfg["d_model"], cfg["n_heads"],
+                        Dh, L, cfg["d_ff"], cfg["seq_len"]),
+            "program": label, "batch": batch, "steps": steps,
+            "losses": losses, "ms_per_step_first_included": ms,
+            "flash_attention_launches": counts}),
             flush=True)
         del main, startup, prog, scope, feed
         torch.cuda.empty_cache()
-    return (counts["bfloat16"][0]["tc"], counts["bfloat16"][1]["tc"],
-            counts["float32"][0]["simt"])
+    return total
 
 
 def ulp(x, mantissa_bits):
@@ -1223,7 +1310,10 @@ def card_vs_cpu_phase(torch, fluid, program, dtype,
     their start): in fp32 that reading must fail the check on most
     parameters, or the check could not see a lost update. `devices` is
     (card, reference); the tests pass two CPUs and plant faults in the
-    first."""
+    first. Returns K1's launches in the run (forward and backward by
+    route; copies): the card's, the CPU route counting none."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
     main, startup, loss = program
     if dtype == "float32" and torch.backends.cuda.matmul.allow_tf32:
         fail("card vs CPU fp32: TF32 matmuls are on; the limits assume "
@@ -1242,6 +1332,7 @@ def card_vs_cpu_phase(torch, fluid, program, dtype,
     # an fp32 tensor is the tensor itself
     start = {p: scope_h.get(p).float().numpy().copy() for p in params}
     t0 = time.perf_counter()
+    fa.reset_counts()                          # the path starts
     runs = []
     for exe, scope in ((exe_c, scope_c), (exe_h, scope_h)):
         feed = lm_feed(torch, 2, exe.device)
@@ -1250,6 +1341,7 @@ def card_vs_cpu_phase(torch, fluid, program, dtype,
         runs.append(([float(first[0][0]), float(second[0])],
                      dict(zip(params, first[1:]))))
     seconds = time.perf_counter() - t0
+    k1 = flash_counts(fa)                      # the path ends
     (lc, gc), (lh, gh) = runs
     loss_rel = float(np.abs(np.array(lc) - np.array(lh)).max()
                      / np.abs(lh).max())
@@ -1285,7 +1377,8 @@ def card_vs_cpu_phase(torch, fluid, program, dtype,
         "worst_param_excess_over_limit": worst_p[0],
         "worst_param": worst_p[1:],
         "skipped_update_worst_reading": worst_skip,
-        "skipped_update_fails_params": skip_caught, "seconds": seconds}
+        "skipped_update_fails_params": skip_caught,
+        "flash_attention_launches": k1, "seconds": seconds}
     print("card_vs_cpu " + json.dumps(report), flush=True)
     if not loss_rel <= tol["loss_rtol"]:
         fail("card vs CPU %s: losses %r vs %r (rel %.3g > %g)"
@@ -1300,6 +1393,7 @@ def card_vs_cpu_phase(torch, fluid, program, dtype,
         fail("card vs CPU fp32: a skipped update would pass the parameter "
              "check on %d of %d parameters"
              % (len(params) - skip_caught, len(params)))
+    return k1
 
 
 # full-int8 inference (phase 8): the fp32 LM's inference clone under
@@ -1521,8 +1615,8 @@ def int8_phase(torch, fluid, im, fa, program):
             fail("int8 inference: the %s program launched int8_matmul %r "
                  "times by (M, K, N) over %d steps; expected %r"
                  % (name, launches, n, want if name == "int8" else {}))
-        k1_want = ({"tc": 0, "simt": TRAIN["n_layers"] * n},
-                   {"tc": 0, "simt": 0}, 0)
+        zero = dict.fromkeys(k1[0], 0)
+        k1_want = (dict(zero, f32tc=TRAIN["n_layers"] * n), zero, 0)
         if k1 != k1_want:
             fail("int8 inference: the %s program launched flash attention "
                  "%r (forward, backward by route; copies) over %d steps; "
@@ -1531,7 +1625,7 @@ def int8_phase(torch, fluid, im, fa, program):
         runs[name] = {"losses": losses, "ms_per_step": step_s * 1e3,
                       "tokens_per_s": B * TRAIN["seq_len"] / step_s,
                       "launches": launches,
-                      "flash_attention_simt_fwd_launches": k1[0]["simt"]}
+                      "flash_attention_f32tc_fwd_launches": k1[0]["f32tc"]}
     l32, l8 = runs["fp32"]["losses"][-1], runs["int8"]["losses"][-1]
     logits = [out for _, w, out in dense_sites(infer) if w == "lm_head_w"]
     lo32 = exe.run(infer, feed=feed, fetch_list=logits, scope=scope,
@@ -1589,7 +1683,7 @@ def int8_phase(torch, fluid, im, fa, program):
         fail("int8 inference: loss %r is not within 1%% of the fp32 loss %r"
              % (l8, l32))
     return (runs["int8"]["launches"],
-            runs["int8"]["flash_attention_simt_fwd_launches"])
+            runs["int8"]["flash_attention_f32tc_fwd_launches"])
 
 
 def int8_logits_excess(lo_got, lo_want, dq):
@@ -1730,33 +1824,46 @@ def main():
     flash_rows = flash_phase(torch, fa_mod)
     launches = serving_phase(torch, pa_mod)
     spec_model, legs = spec_serving_phase(torch, pa_mod, pat_mod)
+    legs.update(spec_wide_phase(torch, pa_mod, pat_mod, spec_model))
     spec_tree_profile(torch, spec_model)
     del spec_model
     # each row's launches are its own main path's: the serving phase for
-    # the one-token decode (C=1), the linear leg for C=7, the tree leg
-    # for the tree window
+    # the one-token decode (C=1), the linear legs for C=7 and C=17, the
+    # tree legs for C=13 and C=33
     for row in rows:
-        row["launches"] = (launches if row["C"] == 1 else
-                           legs["linear"]["paged_attention_launches_by_window"]
-                           .get(row["C"], 0))
-    tree_rows[0]["launches"] = legs["tree"]["paged_attention_tree_launches"]
+        row["launches"] = (
+            launches if row["C"] == 1 else
+            legs[{7: "linear", 17: "linear16"}[row["C"]]]
+            ["paged_attention_launches_by_window"].get(row["C"], 0))
+    for row in tree_rows:
+        row["launches"] = legs[{13: "tree", 33: "tree4x8"}[row["C"]]][
+            "paged_attention_tree_launches"]
     program = build_lm(fluid)
     fwd, bwd = training_phase(torch, fa_mod, fluid, program)
-    flash_rows[0]["launches"], flash_rows[1]["launches"] = fwd, bwd
-    (flash_rows[3]["launches"], flash_rows[4]["launches"],
-     flash_rows[5]["launches"]) = wide_head_phase(torch, fa_mod, fluid)
+    flash_rows["flash_attention_tc_fwd"]["launches"] = fwd
+    flash_rows["flash_attention_tc_bwd"]["launches"] = bwd
+    for suffix, kw in (("_dh128", {}),
+                       ("_dh256", dict(cfg=WIDE256, batch=WIDE256_BATCH))):
+        for kernel, n in wide_head_phase(torch, fa_mod, fluid, **kw).items():
+            flash_rows["flash_attention_%s%s" % (kernel, suffix)][
+                "launches"] = n
     card_vs_cpu_phase(torch, fluid, program, "bfloat16")
     del program
     program = build_lm(fluid, "float32")
-    card_vs_cpu_phase(torch, fluid, program, "float32")
+    k1 = card_vs_cpu_phase(torch, fluid, program, "float32")
+    flash_rows["flash_attention_simt_bwd"]["launches"] = k1[1]["simt"]
     int8_rows = int8_kernel_phase(torch, im_mod)
-    int8_launches, flash_rows[2]["launches"] = int8_phase(
-        torch, fluid, im_mod, fa_mod, program)
+    int8_launches, flash_rows["flash_attention_f32tc_fwd"]["launches"] = \
+        int8_phase(torch, fluid, im_mod, fa_mod, program)
     for row in int8_rows:
         row["launches"] = int8_launches.get(tuple(row["mkn"]), 0)
     int8_card_vs_cpu_phase(torch, fluid, im_mod, program)
-    print(json.dumps({"kernels": rows + tree_rows + flash_rows + int8_rows}),
-          flush=True)
+    kernels = rows + tree_rows + list(flash_rows.values()) + int8_rows
+    idle = [(r["name"], r.get("C"), r.get("shape")) for r in kernels
+            if not r.get("launches")]
+    if idle:
+        fail("kernels launched no time on their main path: %r" % idle)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,15 +1,15 @@
 // Flash attention, forward and backward, in bf16 on Hopper's tensor cores
-// (sm_90a). bf16 in and out, fp32 accumulators; head dim 64 or 128 (a
-// template parameter, instantiated for both; the wrapper pads any other
-// head dim up to the next of them).
+// (sm_90a). bf16 in and out, fp32 accumulators; head dim 64, 128 or 256
+// (a template parameter, instantiated for each; the wrapper pads any
+// other head dim up to the next of them).
 //
 // Replaces the TPU kernel paddle_tpu/ops/pallas_kernels.py
 // `flash_attention` (:120) -> `_flash_fwd` (:162, pl.pallas_call :191,
 // body `_fwd_kernel` :58), and its backward `_flash_bwd_rule` (:212; on a
 // TPU jax's library Pallas backward, :131-150). On the training path of
 // the Fluid-API Transformer LM (bf16 under the AMP decorator) it runs once
-// per layer forward and once per layer backward. fp32 inputs take the
-// SIMT kernels of flash_attention.cu.
+// per layer forward and once per layer backward. fp32 inputs take
+// flash_attention_f32tc.cu (forward) and flash_attention.cu (backward).
 //
 // What it computes, per (batch b, head h): O = softmax(Q K^T * scale) V
 // over q [Tq, Dh] and k, v [Tk, Dh], keys at positions >= Tk masked and,
@@ -36,6 +36,11 @@
 //   warps share an SM at Dh 64, more occupancy being worth a few spilled
 //   bytes; at Dh 128, where each warp's O (or dK and dV) accumulators and
 //   Q fragments double, to 8 warps an SM in either pass (Bounds below).
+//   At Dh 256 a warp's 16 x 256 O alone would take 128 registers: there
+//   each block accumulates one 128-column half of O (dK and dV, dQ) and
+//   the grid's z index picks the half; both halves' blocks form the same
+//   S, P (and dP, dS), so those products are done twice. Q is read from
+//   shared memory per k step instead of kept in registers.
 // - The online softmax runs on the S accumulator fragments: a thread holds
 //   two rows, the row max and (at the end) the row sum reduce over the 4
 //   lanes of a quad. The fp32 accumulator layout of two neighbouring
@@ -71,14 +76,14 @@
 // (paddle_tpu/ops/compat_ops.py:632) and as SDPA does. lse stays fp32; a
 // row whose keys are all masked uses 0 as its max, so no NaN can arise
 // (it ends with l = 0, O = 0 and lse = +inf, for which the backward's P is
-// exactly 0), as in flash_attention.cu. delta uses the bf16 O the forward
-// wrote.
+// exactly 0), as in flash_attention_f32tc.cu. delta uses the bf16 O the
+// forward wrote.
 //
 // Interface: plain C functions (bound with ctypes), launched on the
 // caller's stream, allocating nothing; each returns cudaGetLastError().
 // The caller guarantees 16-byte aligned rows: base addresses and every
 // [B, H, T] stride multiples of 8 elements. Each launch first allows its
-// dynamic shared memory (48 to 97 KB) with cudaFuncSetAttribute.
+// dynamic shared memory (48 to 193 KB) with cudaFuncSetAttribute.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,6 +115,17 @@ template <>
 struct Bounds<128> {
   static constexpr int kFwd = 1, kBwd = 2;
 };
+// Dh 256: each block accumulates 128 columns of O (dK and dV, dQ), so
+// the accumulators are Dh 128's; the tiles take 192 KB (one block an SM)
+template <>
+struct Bounds<256> {
+  static constexpr int kFwd = 1, kBwd = 1;
+};
+// Output columns a block accumulates: the whole head up to Dh 128; at Dh
+// 256 one half, the grid's z index choosing which (S and dP are formed
+// by both halves' blocks)
+template <int DH>
+constexpr int kOut = DH < 128 ? DH : 128;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -131,7 +147,7 @@ __device__ __forceinline__ int swz(int r, int c) {
 // log2 of the 16-byte chunks a row holds (DH / 8): rows and chunks of a
 // flat chunk index by shift and mask
 template <int DH>
-constexpr int kChunkShift = DH == 64 ? 3 : 4;
+constexpr int kChunkShift = DH == 64 ? 3 : (DH == 128 ? 4 : 5);
 
 __device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src,
                                            bool full) {
@@ -238,18 +254,20 @@ __device__ __forceinline__ void load_bt(unsigned (&b)[4], const bf16* s,
                          2 * np + (lane >> 4)));
 }
 
-// acc[DH/8][4] (16 rows x DH) += A (16 rows x 64 k, from registers
-// a[4][4]) times a [k][n] tile: the second product of every pass.
-template <int DH>
-__device__ __forceinline__ void mma_rows_kn(float (&acc)[DH / 8][4],
+// acc[DO/8][4] (16 rows x DO columns from column 16 np0 on) += A (16
+// rows x 64 k, from registers a[4][4]) times a [k][n] tile: the second
+// product of every pass.
+template <int DH, int DO>
+__device__ __forceinline__ void mma_rows_kn(float (&acc)[DO / 8][4],
                                             const unsigned (&a)[4][4],
-                                            const bf16* s, int lane) {
+                                            const bf16* s, int np0,
+                                            int lane) {
 #pragma unroll
   for (int kc = 0; kc < 4; ++kc)
 #pragma unroll
-    for (int np = 0; np < DH / 16; ++np) {
+    for (int np = 0; np < DO / 16; ++np) {
       unsigned b[4];
-      load_bt<DH>(b, s, kc, np, lane);
+      load_bt<DH>(b, s, kc, np0 + np, lane);
       mma(acc[2 * np], a[kc], b[0], b[1]);
       mma(acc[2 * np + 1], a[kc], b[2], b[3]);
     }
@@ -302,16 +320,18 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Writes a warp's 16 x DH accumulator (times `mul`) as bf16 rows [row0,
-// row0 + 16) of g, rows at or past n skipped: through the warp's own 16
-// rows of a swizzled tile `s` (free by then), so that every global store
-// is 16 bytes and DH / 8 lanes write one row.
-template <int DH>
-__device__ __forceinline__ void store_rows(const float (&acc)[DH / 8][4],
+// Writes a warp's 16 x DO accumulator (times `mul`) as bf16 rows [row0,
+// row0 + 16) of g (its first column), rows at or past n skipped: through
+// the warp's own 16 rows of a swizzled [rows][DH] tile `s` (free by
+// then), so that every global store is 16 bytes and DO / 8 lanes write
+// one row.
+template <int DH, int DO>
+__device__ __forceinline__ void store_rows(const float (&acc)[DO / 8][4],
                                            float mul_lo, float mul_hi,
                                            bf16* s, bf16* g, long long st,
                                            int row0, int n, int lane) {
-  constexpr int kChunks = DH / 8;
+  constexpr int kChunks = DO / 8;
+  constexpr int kShift = kChunkShift<DO>;
   const int grp = lane >> 2, t = lane & 3;
   __syncwarp();
 #pragma unroll
@@ -325,7 +345,7 @@ __device__ __forceinline__ void store_rows(const float (&acc)[DH / 8][4],
 #pragma unroll
   for (int it = 0; it < 16 * kChunks / 32; ++it) {
     const int i = lane + 32 * it;
-    const int r = i >> kChunkShift<DH>, c = i & (kChunks - 1);
+    const int r = i >> kShift, c = i & (kChunks - 1);
     if (row0 + r < n)
       *reinterpret_cast<uint4*>(g + (long long)(row0 + r) * st + c * 8) =
           *reinterpret_cast<const uint4*>(s + swz<DH>(r, c));
@@ -341,6 +361,10 @@ flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     float scale, int causal) {
   constexpr int kRows = kFwdRows, kThreads = kFwdThreads;
   constexpr int kTileElems = kTile * DH;
+  constexpr int DO = kOut<DH>;
+  // Q's fragments stay in registers up to Dh 128; at 256 they are read
+  // from q_s per k step
+  constexpr bool kQReg = DH <= 128;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem);
   bf16* k_s = q_s + kRows * DH;           // 2 stages
@@ -365,11 +389,12 @@ flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float c = scale * kLog2e;
   const int row_w = q0 + 16 * warp;       // the warp's first row
   const int r_lo = row_w + grp, r_hi = r_lo + 8;
-  unsigned qf[DH / 16][4];
+  const int col0 = blockIdx.z * DO;       // the block's columns of O
+  unsigned qf[kQReg ? DH / 16 : 1][4];
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float acc[DH / 8][4];
+  float acc[DO / 8][4];
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
+  for (int n = 0; n < DO / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
@@ -386,9 +411,9 @@ flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                      (kt + 1) * kTile, Tk);
     }
     cp_async_commit();
-    if (kt == 0) {
+    if (kQReg && kt == 0) {
 #pragma unroll
-      for (int kc = 0; kc < DH / 16; ++kc)
+      for (int kc = 0; kc < (kQReg ? DH / 16 : 0); ++kc)
         load_a<DH>(qf[kc], q_s, 16 * warp, kc, lane);
     }
     const int k0 = kt * kTile;
@@ -402,14 +427,22 @@ flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-    for (int kc = 0; kc < DH / 16; ++kc)
+    for (int kc = 0; kc < DH / 16; ++kc) {
+      unsigned qa[4];
+      if (kQReg) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kQReg ? kc : 0][e];
+      } else {
+        load_a<DH>(qa, q_s, 16 * warp, kc, lane);
+      }
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         unsigned bb[4];
         load_b<DH>(bb, ks, 16 * np, kc, lane);
-        mma(s[2 * np], qf[kc], bb[0], bb[1]);
-        mma(s[2 * np + 1], qf[kc], bb[2], bb[3]);
+        mma(s[2 * np], qa, bb[0], bb[1]);
+        mma(s[2 * np + 1], qa, bb[2], bb[3]);
       }
+    }
 
     const bool edge = (causal && k0 + kTile - 1 > row_w) || k0 + kTile > Tk;
     float mx[2] = {m[0], m[1]};
@@ -443,14 +476,14 @@ flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         acc[n][e] *= alpha[e >> 1];
       }
 #pragma unroll
-    for (int n = 8; n < DH / 8; ++n)   // Dh 128: the other half of O
+    for (int n = 8; n < DO / 8; ++n)   // 128 columns: the other half of O
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
     l[0] = l[0] * alpha[0] + sum[0];
     l[1] = l[1] * alpha[1] + sum[1];
     unsigned pa[4][4];
     to_a(pa, s);
-    mma_rows_kn<DH>(acc, pa, vs, lane);             // O += P V
+    mma_rows_kn<DH, DO>(acc, pa, vs, col0 / 16, lane);  // O += P V
   }
 
   float inv[2];
@@ -459,7 +492,7 @@ flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[i] = quad_sum(l[i]);
     inv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
   }
-  if (t == 0) {
+  if (t == 0 && blockIdx.z == 0) {
     if (r_lo < Tq)
       lse[(long long)bh * Tq + r_lo] =
           l[0] > 0.f ? m[0] * kLn2 + logf(l[0]) : INFINITY;
@@ -467,9 +500,10 @@ flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       lse[(long long)bh * Tq + r_hi] =
           l[1] > 0.f ? m[1] * kLn2 + logf(l[1]) : INFINITY;
   }
-  // the warp's own rows of q_s: only this warp read them, into qf
-  store_rows<DH>(acc, inv[0], inv[1], q_s + 16 * warp * DH,
-                 o + b * so.b + h * so.h, so.t, row_w, Tq, lane);
+  // the warp's own rows of q_s: only this warp read them
+  __syncwarp();
+  store_rows<DH, DO>(acc, inv[0], inv[1], q_s + 16 * warp * DH,
+                     o + b * so.b + h * so.h + col0, so.t, row_w, Tq, lane);
 }
 
 // delta[b, h, t] = sum_d dO * O in fp32, 8 lanes a row (16 bytes each,
@@ -554,11 +588,13 @@ flash_tc_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_rows(dl_s, dg, qt0 * kTile, Tq);
   cp_async_commit();
 
+  constexpr int DO = kOut<DH>;
+  const int col0 = blockIdx.z * DO;       // the block's columns of dK, dV
   const float c = scale * kLog2e;
   const int kw = k0 + 16 * warp;          // the warp's first key
-  float dk_acc[DH / 8][4], dv_acc[DH / 8][4];
+  float dk_acc[DO / 8][4], dv_acc[DO / 8][4];
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
+  for (int n = 0; n < DO / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
 
@@ -602,15 +638,15 @@ flash_tc_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     unsigned pa[4][4], da[4][4];
     to_a(pa, p);
     to_a(da, dp);
-    mma_rows_kn<DH>(dv_acc, pa, dos, lane);      // dV += P^T dO
-    mma_rows_kn<DH>(dk_acc, da, qs, lane);       // dK += dS^T Q
+    mma_rows_kn<DH, DO>(dv_acc, pa, dos, col0 / 16, lane);  // dV += P^T dO
+    mma_rows_kn<DH, DO>(dk_acc, da, qs, col0 / 16, lane);   // dK += dS^T Q
   }
 
   // the warp's own rows of k_s / v_s: only this warp read them
-  store_rows<DH>(dk_acc, scale, scale, k_s + 16 * warp * DH,
-                 dk + b * sdk.b + h * sdk.h, sdk.t, kw, Tk, lane);
-  store_rows<DH>(dv_acc, 1.f, 1.f, v_s + 16 * warp * DH,
-                 dv + b * sdv.b + h * sdv.h, sdv.t, kw, Tk, lane);
+  store_rows<DH, DO>(dk_acc, scale, scale, k_s + 16 * warp * DH,
+                     dk + b * sdk.b + h * sdk.h + col0, sdk.t, kw, Tk, lane);
+  store_rows<DH, DO>(dv_acc, 1.f, 1.f, v_s + 16 * warp * DH,
+                     dv + b * sdv.b + h * sdv.h + col0, sdv.t, kw, Tk, lane);
 }
 
 // One block per (b*h, 64-query tile): dQ of its queries, walking the kv
@@ -655,10 +691,12 @@ flash_tc_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float c = scale * kLog2e;
   const int qw = q0 + 16 * warp;          // the warp's first query
   const int r_lo = qw + grp, r_hi = r_lo + 8;
+  constexpr int DO = kOut<DH>;
+  const int col0 = blockIdx.z * DO;       // the block's columns of dQ
   float l2[2], dl[2];
-  float dq_acc[DH / 8][4];
+  float dq_acc[DO / 8][4];
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
+  for (int n = 0; n < DO / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.f;
 
@@ -701,11 +739,11 @@ flash_tc_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     unsigned da[4][4];
     to_a(da, dp);
-    mma_rows_kn<DH>(dq_acc, da, ks, lane);       // dQ += dS K
+    mma_rows_kn<DH, DO>(dq_acc, da, ks, col0 / 16, lane);  // dQ += dS K
   }
 
-  store_rows<DH>(dq_acc, scale, scale, q_s + 16 * warp * DH,
-                 dq + b * sdq.b + h * sdq.h, sdq.t, qw, Tq, lane);
+  store_rows<DH, DO>(dq_acc, scale, scale, q_s + 16 * warp * DH,
+                     dq + b * sdq.b + h * sdq.h + col0, sdq.t, qw, Tq, lane);
 }
 
 template <typename K>
@@ -726,7 +764,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
   const size_t smem = (size_t)(kFwdRows + 4 * kTile) * DH * sizeof(bf16);
   cudaError_t err = allow_smem(flash_tc_fwd_kernel<DH>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (Tq + kFwdRows - 1) / kFwdRows);
+  const dim3 grid(B * H, (Tq + kFwdRows - 1) / kFwdRows, DH / kOut<DH>);
   flash_tc_fwd_kernel<DH><<<grid, kFwdThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
@@ -758,7 +796,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                          + 4 * kTile * sizeof(float);
   err = allow_smem(flash_tc_dkdv_kernel<DH>, smem_kv);
   if (err != cudaSuccess) return err;
-  const dim3 grid_kv(B * H, (Tk + kTile - 1) / kTile);
+  const dim3 grid_kv(B * H, (Tk + kTile - 1) / kTile, DH / kOut<DH>);
   flash_tc_dkdv_kernel<DH><<<grid_kv, kBwdThreads, smem_kv, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(d_o),
@@ -774,7 +812,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                         + 2 * kTile * sizeof(float);
   err = allow_smem(flash_tc_dq_kernel<DH>, smem_q);
   if (err != cudaSuccess) return err;
-  const dim3 grid_q(B * H, (Tq + kTile - 1) / kTile);
+  const dim3 grid_q(B * H, (Tq + kTile - 1) / kTile, DH / kOut<DH>);
   flash_tc_dq_kernel<DH><<<grid_q, kBwdThreads, smem_q, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(d_o),
@@ -787,7 +825,8 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q [B, H, Tq, Dh], k/v [B, H, Tk, Dh], o like q, all bf16, Dh 64 or 128:
+// q [B, H, Tq, Dh], k/v [B, H, Tk, Dh], o like q, all bf16, Dh 64, 128 or
+// 256:
 // any strides with a unit head-dim stride and 16-byte aligned rows, given
 // as `strides` = [b, h, t] element strides of q, k, v, o (12 values, host
 // memory). lse [B, H, Tq] fp32 contiguous. Causal needs Tq == Tk (the
@@ -805,6 +844,9 @@ extern "C" int ptpu_flash_attention_tc_fwd(const void* q, const void* k,
                                              strides, scale, causal, s));
     case 128:
       return static_cast<int>(launch_fwd<128>(q, k, v, o, lse, B, H, Tq, Tk,
+                                              strides, scale, causal, s));
+    case 256:
+      return static_cast<int>(launch_fwd<256>(q, k, v, o, lse, B, H, Tq, Tk,
                                               strides, scale, causal, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -827,6 +869,10 @@ extern "C" int ptpu_flash_attention_tc_bwd(
                                              scale, causal, s));
     case 128:
       return static_cast<int>(launch_bwd<128>(q, k, v, o, d_o, lse, delta,
+                                              dq, dk, dv, B, H, Tq, Tk,
+                                              strides, scale, causal, s));
+    case 256:
+      return static_cast<int>(launch_bwd<256>(q, k, v, o, d_o, lse, delta,
                                               dq, dk, dv, B, H, Tq, Tk,
                                               strides, scale, causal, s));
     default:

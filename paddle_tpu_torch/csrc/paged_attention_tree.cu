@@ -16,22 +16,25 @@
 // row can see is pos0 + C - 1; the kernel stops there.
 //
 // The kernel body, its design and its bound are in paged_attention.cuh,
-// shared with K2 under the kTree flag: the mask is one uint32 bit mask a
-// slot built in shared memory from anc, in place of the TPU kernel's
-// one-hot matmul.
+// shared with K2 under the kTree flag: the mask is ceil(C / 32) uint32
+// words a slot built in shared memory from anc, in place of the TPU
+// kernel's one-hot matmul.
 
 #include "paged_attention.cuh"
 
 // Shapes (all contiguous): k_pages, v_pages [num_pages, bs, H, Dh] fp32;
 // q, out [B, C, H, Dh] fp32; block_tables [B, Mb] int32; positions [B, C]
 // int32 (only positions[b, 0] is read); anc [C, C] bool, one byte each.
-// Dh is a multiple of 32 up to 256 and 1 <= C <= 32 (the wrapper checks).
+// 1 <= Dh <= 256, any C >= 1; splits, split_len, the partials and the
+// counters as in paged_attention.cu.
 extern "C" int ptpu_paged_attention_tree_f32(
     const void* k_pages, const void* v_pages, const void* q,
     const void* block_tables, const void* positions, const void* anc,
-    void* out, int B, int C, int H, int Dh, int bs, int Mb, int num_pages,
-    float sm_scale, void* stream) {
+    void* out, void* part_m, void* part_l, void* part_acc, void* counters,
+    int B, int C, int H, int Dh, int bs, int Mb, int num_pages, int splits,
+    int split_len, float sm_scale, void* stream) {
   return launch_dh<true>(k_pages, v_pages, q, block_tables, positions, anc,
-                         out, B, C, H, Dh, bs, Mb, num_pages, sm_scale,
+                         out, part_m, part_l, part_acc, counters, B, C, H,
+                         Dh, bs, Mb, num_pages, splits, split_len, sm_scale,
                          stream);
 }

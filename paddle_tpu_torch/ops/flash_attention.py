@@ -15,32 +15,35 @@ softmax(q kᵀ · sm_scale) v with fp32 accumulation; `causal` masks keys
 after the query's position (Tq == Tk required, as the JAX op's
 qualification requires). Grads come back in the inputs' dtype.
 
-Each call takes one route, decided by ``kernel_route`` from the device
-and the dtype alone:
+Each call takes one route, decided by ``kernel_route`` from the device,
+the dtype and the pass alone; the route names the kernel that ran:
 
     "plain"  CPU tensors: the plain version, autograd supplying its grads
-    "tc"     bf16 CUDA tensors: ``csrc/flash_attention_tc.cu``, mma.sync
-             on the tensor cores, P and dS rounded to bf16 before the
-             second product
-    "simt"   fp32 CUDA tensors: ``csrc/flash_attention.cu``, fp32 on the
-             SIMT units
+    "tc"     bf16 CUDA tensors, forward and backward:
+             ``csrc/flash_attention_tc.cu``, mma.sync on the tensor cores,
+             P and dS rounded to bf16 before the second product
+    "f32tc"  fp32 CUDA tensors, forward: ``csrc/flash_attention_f32tc.cu``,
+             3xTF32 mma.sync on the tensor cores (fp32 accuracy)
+    "simt"   fp32 CUDA tensors, backward: ``csrc/flash_attention.cu``,
+             fp32 on the SIMT units
 
 Anything else raises; no route gives way to another. The tensor-core
-kernels copy rows 16 bytes at a time: a bf16 tensor whose base address
-or whose B, H, T strides are not multiples of 16 bytes is first copied to
-a contiguous tensor (``tc_operand``), and the copy is counted.
+kernels copy rows 16 bytes at a time: a tensor they read whose base
+address or whose B, H, T strides are not multiples of 16 bytes is first
+copied to a contiguous tensor (``tc_operand``), and the copy is counted.
 
-Both routes' kernels are instantiated for head dims 64 and 128
-(``SUPPORTED_HEAD_DIMS``). Any other head dim up to 128 runs at the next
+Every route's kernels are instantiated for head dims 64, 128 and 256
+(``SUPPORTED_HEAD_DIMS``). Any other head dim up to 256 runs at the next
 of them (``kernel_head_dim``): q, k and v (and in the backward o and dO)
 are zero-padded on their last dim, each pad a counted copy, and the
 results sliced back. Zero columns leave Q Kᵀ unchanged and give zero
 columns of O and of the grads; sm_scale stays the caller's (by default
-the true head dim's ``Dh ** -0.5``). A head dim above 128 raises.
+the true head dim's ``Dh ** -0.5``). A head dim above 256 raises.
 
 ``flash_attention_fwd`` and ``flash_attention_bwd`` count their launches
-(``.launches``, and ``.launches_by_route`` split into "tc" and "simt")
-and the copies they made (``.copies``); ``reset_counts()`` zeroes all.
+(``.launches``, and ``.launches_by_route`` split into "tc", "f32tc" and
+"simt") and the copies they made (``.copies``); ``reset_counts()``
+zeroes all.
 """
 
 import ctypes
@@ -54,8 +57,8 @@ __all__ = ["SUPPORTED_HEAD_DIMS", "flash_attention",
            "flash_attention_bwd", "kernel_head_dim", "kernel_route",
            "tc_aligned", "tc_operand", "reset_counts", "load"]
 
-SUPPORTED_HEAD_DIMS = (64, 128)   # the kernels' instantiations
-_ROUTES = ("tc", "simt")
+SUPPORTED_HEAD_DIMS = (64, 128, 256)   # the kernels' instantiations
+_ROUTES = ("tc", "f32tc", "simt")
 
 
 def flash_attention_reference(q, k, v, causal=True, sm_scale=None):
@@ -74,10 +77,11 @@ def flash_attention_reference(q, k, v, causal=True, sm_scale=None):
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
-def kernel_route(device_type, dtype):
-    """The route of a call on tensors of `device_type` and `dtype`:
-    "plain" on the CPU (any dtype), "tc" for bf16 and "simt" for fp32 on
-    CUDA. Raises for any other device (RuntimeError) or CUDA dtype
+def kernel_route(device_type, dtype, backward=False):
+    """The route of a call on tensors of `device_type` and `dtype`, for
+    the forward or the `backward` pass: "plain" on the CPU (any dtype);
+    on CUDA "tc" for bf16, and for fp32 "f32tc" forward and "simt"
+    backward. Raises for any other device (RuntimeError) or CUDA dtype
     (TypeError)."""
     if device_type == "cpu":
         return "plain"
@@ -87,9 +91,9 @@ def kernel_route(device_type, dtype):
     if dtype == torch.bfloat16:
         return "tc"
     if dtype == torch.float32:
-        return "simt"
-    raise TypeError("flash_attention kernels take bfloat16 (tensor cores) "
-                    "or float32 (SIMT), got %s" % dtype)
+        return "simt" if backward else "f32tc"
+    raise TypeError("flash_attention kernels take bfloat16 or float32, "
+                    "got %s" % dtype)
 
 
 def kernel_head_dim(Dh):
@@ -105,9 +109,10 @@ def kernel_head_dim(Dh):
 
 
 def tc_aligned(ptr, shape, strides, elem_size):
-    """Whether the tensor-core kernels can read a [B, H, T, Dh] tensor in
-    place: a unit last-dim stride, and the base address and the B, H, T
-    strides of its dims longer than 1 multiples of 16 bytes."""
+    """Whether the tensor-core kernels (bf16 and fp32) can read a [B, H,
+    T, Dh] tensor in place: a unit last-dim stride, and the base address
+    and the B, H, T strides of its dims longer than 1 multiples of 16
+    bytes."""
     return (strides[-1] == 1 and ptr % 16 == 0
             and all(n == 1 or s * elem_size % 16 == 0
                     for n, s in zip(shape[:3], strides[:3])))
@@ -154,7 +159,7 @@ class _FlashAttention(torch.autograd.Function):
 
 
 # C entry points: (library, pointer args)
-_ENTRY = {"ptpu_flash_attention_fwd": ("flash_attention", 5),
+_ENTRY = {"ptpu_flash_attention_f32tc_fwd": ("flash_attention_f32tc", 5),
           "ptpu_flash_attention_bwd": ("flash_attention", 10),
           "ptpu_flash_attention_tc_fwd": ("flash_attention_tc", 5),
           "ptpu_flash_attention_tc_bwd": ("flash_attention_tc", 10)}
@@ -175,16 +180,16 @@ def _kernel(name):
 
 
 def load():
-    """Build (if needed) and load both kernel libraries; raises without a
+    """Build (if needed) and load the kernel libraries; raises without a
     CUDA device or when a build fails."""
     for name in _ENTRY:
         _kernel(name)
 
 
-def _check(q, k, v, causal, named=()):
+def _check(q, k, v, causal, named=(), backward=False):
     """(route, the head dim the kernels run at) of a kernel call, after
     checking what the kernels take."""
-    route = kernel_route(q.device.type, q.dtype)
+    route = kernel_route(q.device.type, q.dtype, backward)
     if route == "plain":
         raise RuntimeError("the flash_attention kernels take CUDA tensors, "
                            "got q on %s" % q.device)
@@ -266,15 +271,13 @@ def _fwd(q, k, v, causal, sm_scale):
     route, Dp = _check(q, k, v, causal)
     if Dp != q.shape[-1]:
         q, k, v = _pad_head(flash_attention_fwd, Dp, q, k, v)
-    if route == "tc":
-        q, k, v = _tc_operands(flash_attention_fwd, q, k, v)
+    q, k, v = _tc_operands(flash_attention_fwd, q, k, v)
     o = torch.empty_like(q)
     B, H, Tq, _ = q.shape
     lse = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr())
-    _launch("ptpu_flash_attention_tc_fwd" if route == "tc"
-            else "ptpu_flash_attention_fwd", ptrs, q, k,
+    _launch("ptpu_flash_attention_%s_fwd" % route, ptrs, q, k,
             _strides(q, k, v, o), causal, sm_scale)
     _count(flash_attention_fwd, route)
     return o, lse, (q, k, v)
@@ -296,7 +299,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal, sm_scale):
     if do.stride(-1) != 1:  # the kernels read rows of Dh in order
         do = do.contiguous()
         flash_attention_bwd.copies += 1
-    route, Dp = _check(q, k, v, causal, (("o", o), ("do", do)))
+    route, Dp = _check(q, k, v, causal, (("o", o), ("do", do)),
+                       backward=True)
     Dh = q.shape[-1]
     B, H, Tq, _ = q.shape
     if o.shape != q.shape or do.shape != q.shape:

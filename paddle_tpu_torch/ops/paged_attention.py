@@ -15,7 +15,11 @@ with the same signature and layout:
 
 ``paged_attention`` runs the plain version for tensors on the CPU and
 the kernel for tensors on a CUDA device; anything else raises. There is
-no fallback from the kernel to the plain version.
+no fallback from the kernel to the plain version. The kernel takes any
+head dim up to ``MAX_HEAD_DIM`` and any window C; it splits each row's
+context across blocks (``plan_splits``), and the last block of a row to
+finish combines the row's splits: one call, one launch, one count in
+``window_launches``.
 """
 
 import ctypes
@@ -24,12 +28,13 @@ import torch
 
 from . import _build
 
-__all__ = ["MAX_WINDOW", "SUPPORTED_HEAD_DIMS", "paged_attention",
-           "paged_attention_reference"]
+__all__ = ["MAX_HEAD_DIM", "paged_attention", "paged_attention_reference",
+           "plan_splits"]
 
-# one kernel instantiation each: every multiple of 32 up to 256
-SUPPORTED_HEAD_DIMS = tuple(range(32, 257, 32))
-MAX_WINDOW = 16
+# the kernels' widest instantiation: any Dh up to it runs
+MAX_HEAD_DIM = 256
+SPLIT_UNIT = 64   # positions: a split covers a multiple of this
+MAX_SPLITS = 64   # the kernel's combine keeps each slot's split weights
 
 
 def paged_attention_reference(k_pages, v_pages, q, block_tables,
@@ -70,6 +75,8 @@ def paged_attention(k_pages, v_pages, q, block_tables, positions,
 # kernel launches since the last reset, by window size C (the plain CPU
 # route never counts)
 paged_attention.window_launches = {}
+# (splits, split_len) of the last kernel launch, K2's or K3's
+paged_attention.last_plan = None
 
 _fn = None
 
@@ -78,7 +85,7 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load("paged_attention").ptpu_paged_attention_f32
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
@@ -91,9 +98,35 @@ def load():
     _kernel()
 
 
+def plan_splits(B, H, C, max_ctx, sm_count):
+    """(splits, split_len) of a call: the context of max_ctx positions (the
+    block table's length) cut into `splits` runs of `split_len` positions
+    (a multiple of SPLIT_UNIT), as many as put about two blocks on each of
+    `sm_count` SMs next to the B * H * ceil(C / 32) (row, head, chunk)
+    blocks, no more than the context has units, and at most
+    MAX_SPLITS."""
+    units = -(-max_ctx // SPLIT_UNIT)
+    base = B * H * -(-C // 32)
+    splits = max(1, min(units, MAX_SPLITS, -(-2 * sm_count // base)))
+    per = -(-units // splits)
+    return -(-units // per), per * SPLIT_UNIT
+
+
+_sm_counts = {}
+_counters = {}   # (device, stream) -> int32 zeros the kernels leave zero
+
+
+def _sm_count(device):
+    n = _sm_counts.get(device)
+    if n is None:
+        n = _sm_counts[device] = \
+            torch.cuda.get_device_properties(device).multi_processor_count
+    return n
+
+
 def _check(k_pages, v_pages, q, block_tables, positions,
-           max_window=MAX_WINDOW, kernel="paged_attention"):
-    """What the kernels take (K2 here, K3 with its own ``max_window``):
+           kernel="paged_attention"):
+    """What the kernels take (K2 here, K3 with its own mask checks):
     raises naming the argument or the limit it breaks."""
     if q.device.type != "cuda":
         raise RuntimeError("the %s kernel takes CUDA tensors, got q on %s"
@@ -114,9 +147,10 @@ def _check(k_pages, v_pages, q, block_tables, positions,
                              % (name, ndim, tuple(t.shape)))
         if not t.is_contiguous():
             raise ValueError("%s must be contiguous" % name)
-        if name == "v_pages" and t.data_ptr() % 16:  # 16-byte V loads
-            raise ValueError("%s must start on a 16-byte boundary" % name)
     B, C, H, Dh = q.shape
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if Dh % 4 == 0 and t.data_ptr() % 16:   # 16-byte row copies
+            raise ValueError("%s must start on a 16-byte boundary" % name)
     if k_pages.shape != v_pages.shape or k_pages.shape[2:] != (H, Dh):
         raise ValueError("pages %s / %s do not match q %s"
                          % (tuple(k_pages.shape), tuple(v_pages.shape),
@@ -125,35 +159,71 @@ def _check(k_pages, v_pages, q, block_tables, positions,
         raise ValueError("block_tables %s / positions %s do not match q %s"
                          % (tuple(block_tables.shape),
                             tuple(positions.shape), tuple(q.shape)))
-    if Dh not in SUPPORTED_HEAD_DIMS:
-        raise ValueError("head_dim %d not supported (kernel takes %s)"
-                         % (Dh, SUPPORTED_HEAD_DIMS))
-    if not 1 <= C <= max_window:
-        raise ValueError("window C=%d not supported by %s (1 <= C <= %d)"
-                         % (C, kernel, max_window))
+    if Dh > MAX_HEAD_DIM:
+        raise ValueError("head_dim %d is above the largest the %s kernel "
+                         "takes (%d)" % (Dh, kernel, MAX_HEAD_DIM))
+    if min(C, H, Dh, block_tables.shape[1], k_pages.shape[1]) < 1:
+        raise ValueError("empty window, head, table or page: q %s, "
+                         "block_tables %s, pages %s"
+                         % (tuple(q.shape), tuple(block_tables.shape),
+                            tuple(k_pages.shape)))
     if not 1 <= B <= 65535:
-        raise ValueError("batch %d not supported (1..65535)" % B)
+        raise ValueError("batch %d not supported (1..65535: the grid's "
+                         "second dimension)" % B)
 
 
-def _paged_attention_cuda(k_pages, v_pages, q, block_tables, positions,
-                          sm_scale=None):
-    _check(k_pages, v_pages, q, block_tables, positions)
+def launch_split(fn, k_pages, v_pages, q, block_tables, positions, extra,
+                 sm_scale):
+    """Call K2's or K3's C function `fn` (pointers k, v, q, tables,
+    positions, then `extra`, then out, the partials and the counts) on
+    the tensors' device: the context split as ``plan_splits`` says, the
+    partials from torch's caching allocator, the per-(row, head, chunk)
+    counts of finished splits from a zeroed buffer kept for the stream
+    (the kernel leaves it zero). Returns out; raises on a launch
+    error."""
     B, C, H, Dh = q.shape
     if sm_scale is None:
         sm_scale = Dh ** -0.5
-    fn = _kernel()
+    bs, Mb = k_pages.shape[1], block_tables.shape[1]
+    splits, split_len = plan_splits(B, H, C, Mb * bs, _sm_count(q.device))
+    paged_attention.last_plan = (splits, split_len)
     out = torch.empty_like(q)
+    parts = (0, 0, 0, 0)
+    stream = torch.cuda.current_stream(q.device)
+    if splits > 1:
+        n = B * C * H * splits
+        scratch = torch.empty(n * (Dh + 2), dtype=torch.float32,
+                              device=q.device)
+        n_counts = B * H * -(-C // 32)
+        key = (q.device, stream.cuda_stream)
+        counts = _counters.get(key)
+        if counts is None or counts.numel() < n_counts:
+            counts = _counters[key] = torch.zeros(
+                n_counts, dtype=torch.int32, device=q.device)
+        # acc first: 16-byte aligned for its float4 stores
+        parts = (scratch[n * Dh:].data_ptr(),
+                 scratch[n * Dh + n:].data_ptr(), scratch.data_ptr(),
+                 counts.data_ptr())
     # the C function launches on the runtime's current device: make it
     # the tensors' device for the call
     with torch.cuda.device(q.device):
         err = fn(k_pages.data_ptr(), v_pages.data_ptr(), q.data_ptr(),
                  block_tables.data_ptr(), positions.data_ptr(),
-                 out.data_ptr(), B, C, H, Dh, k_pages.shape[1],
-                 block_tables.shape[1], k_pages.shape[0], sm_scale,
-                 torch.cuda.current_stream(q.device).cuda_stream)
+                 *[t.data_ptr() for t in extra], out.data_ptr(), *parts,
+                 B, C, H, Dh, bs, Mb, k_pages.shape[0], splits, split_len,
+                 sm_scale, stream.cuda_stream)
     if err != 0:
-        raise RuntimeError("paged_attention kernel launch failed: CUDA "
-                           "error %d" % err)
+        raise RuntimeError("%s kernel launch failed: CUDA error %d"
+                           % (fn.__name__, err))
+    return out
+
+
+def _paged_attention_cuda(k_pages, v_pages, q, block_tables, positions,
+                          sm_scale=None):
+    _check(k_pages, v_pages, q, block_tables, positions)
+    out = launch_split(_kernel(), k_pages, v_pages, q, block_tables,
+                       positions, (), sm_scale)
     by_c = paged_attention.window_launches
+    C = q.shape[1]
     by_c[C] = by_c.get(C, 0) + 1
     return out

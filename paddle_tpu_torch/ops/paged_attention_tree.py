@@ -24,7 +24,10 @@ triangular) this is the causal window of ``paged_attention``.
 
 ``paged_attention_tree`` runs the plain version for tensors on the CPU
 and the kernel for tensors on a CUDA device; anything else raises. There
-is no fallback from the kernel to the plain version.
+is no fallback from the kernel to the plain version. The kernel takes
+any head dim up to 256 and windows up to ``MAX_TREE_WINDOW`` slots, and
+splits the context across blocks as K2 does (one call, one launch, one
+count in ``.launches``).
 """
 
 import ctypes
@@ -32,13 +35,14 @@ import ctypes
 import torch
 
 from . import _build
-from .paged_attention import _check
+from .paged_attention import _check, launch_split
 
 __all__ = ["MAX_TREE_WINDOW", "paged_attention_tree",
            "paged_attention_tree_reference"]
 
-# one uint32 ancestor bit mask a window slot in the kernel
-MAX_TREE_WINDOW = 32
+# the kernel keeps ceil(C / 32) uint32 ancestor words for each of a
+# block's 32 slots in shared memory: 32 KB at this window
+MAX_TREE_WINDOW = 8192
 
 
 def paged_attention_tree_reference(k_pages, v_pages, q, block_tables,
@@ -95,7 +99,7 @@ def _kernel():
     if _fn is None:
         fn = _build.load(
             "paged_attention_tree").ptpu_paged_attention_tree_f32
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
@@ -110,8 +114,12 @@ def load():
 
 def _check_tree(k_pages, v_pages, q, block_tables, positions, anc):
     _check(k_pages, v_pages, q, block_tables, positions,
-           max_window=MAX_TREE_WINDOW, kernel="paged_attention_tree")
+           kernel="paged_attention_tree")
     C = q.shape[1]
+    if C > MAX_TREE_WINDOW:
+        raise ValueError("tree window C=%d is above the largest the "
+                         "paged_attention_tree kernel's ancestor masks hold "
+                         "(%d)" % (C, MAX_TREE_WINDOW))
     if anc.device != q.device:
         raise ValueError("anc is on %s, q on %s" % (anc.device, q.device))
     if anc.dtype != torch.bool:
@@ -126,21 +134,7 @@ def _check_tree(k_pages, v_pages, q, block_tables, positions, anc):
 def _paged_attention_tree_cuda(k_pages, v_pages, q, block_tables, positions,
                                anc, sm_scale=None):
     _check_tree(k_pages, v_pages, q, block_tables, positions, anc)
-    B, C, H, Dh = q.shape
-    if sm_scale is None:
-        sm_scale = Dh ** -0.5
-    fn = _kernel()
-    out = torch.empty_like(q)
-    # the C function launches on the runtime's current device: make it
-    # the tensors' device for the call
-    with torch.cuda.device(q.device):
-        err = fn(k_pages.data_ptr(), v_pages.data_ptr(), q.data_ptr(),
-                 block_tables.data_ptr(), positions.data_ptr(),
-                 anc.data_ptr(), out.data_ptr(), B, C, H, Dh,
-                 k_pages.shape[1], block_tables.shape[1], k_pages.shape[0],
-                 sm_scale, torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("paged_attention_tree kernel launch failed: CUDA "
-                           "error %d" % err)
+    out = launch_split(_kernel(), k_pages, v_pages, q, block_tables,
+                       positions, (anc,), sm_scale)
     paged_attention_tree.launches += 1
     return out

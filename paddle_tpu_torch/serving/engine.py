@@ -55,7 +55,6 @@ from ..analysis.concurrency import make_condition
 from ..core.place import resolve_device
 from ..core.scope import Scope
 from ..observability import metrics as _metrics
-from ..ops import paged_attention as _pa
 from ..ops import paged_attention_tree as _pat
 from .kv_cache import KVBlockPool, blocks_needed
 from .model import GenerationModel, NGramDrafter, parse_tree_shape
@@ -83,24 +82,15 @@ class _ModelWorker:
         self.pool = KVBlockPool(cfg.n_layers, cfg.n_heads, cfg.head_dim,
                                 block_size, num_blocks, device=device)
         # speculation: a tree shape implies it, its depth playing
-        # spec_k's role; windows are clamped to the context and checked
-        # against what the attention kernels take
+        # spec_k's role; windows are clamped to the context, as the JAX
+        # engine clamps them, and nothing more
         self.spec_tree = parse_tree_shape(spec_tree)
         if self.spec_tree:
             width, depth = self.spec_tree
             self.spec_tree = (width, max(1, min(depth, max_seq_len - 1)))
             self.spec_k = self.spec_tree[1]
-            window, limit = 1 + width * self.spec_tree[1], \
-                _pat.MAX_TREE_WINDOW
         else:
             self.spec_k = max(0, min(int(spec_k or 0), max_seq_len - 1))
-            window, limit = self.spec_k + 1, _pa.MAX_WINDOW
-        if window > limit:
-            raise ValueError(
-                "speculative window of %d slots exceeds the %d the "
-                "attention kernel takes (spec_k <= %d; a tree's 1 + W*D "
-                "<= %d)" % (window, limit, _pa.MAX_WINDOW - 1,
-                            _pat.MAX_TREE_WINDOW))
         if self.spec_k and drafter is None:
             drafter = NGramDrafter()
         if drafter is not None and not callable(

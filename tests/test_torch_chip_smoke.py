@@ -14,7 +14,8 @@ a small width:
     layers, d_ff 128; 6 repetitive prompts, 24 new tokens): its three
     legs run token-identical to ``reference_decode`` with clean pools,
     and a planted wrong verify-window token fails it, printing the
-    reference's top-2 logit margin at the differing position."""
+    reference's top-2 logit margin at the differing position; its wide
+    legs (spec_k 16, a 4x8 tree) serve token-identically too."""
 
 import importlib.util
 import pathlib
@@ -184,3 +185,20 @@ def test_spec_serving_phase_fails_on_a_wrong_token(smoke, monkeypatch,
     err = capsys.readouterr().err
     assert "spec linear" in err and "differs from reference_decode" in err
     assert "top-2 logit margin" in err
+
+
+def test_spec_wide_phase_on_the_cpu(smoke, capsys):
+    """The windows past the kernels' former limits (spec_k=16: C=17; a
+    4x8 tree: C=33) served by the engine on the CPU: every request
+    token-identical to reference_decode, windows and tree slots ran."""
+    from paddle_tpu_torch.serving import GenerationConfig
+
+    model = GenerationModel.random(GenerationConfig(**SPEC_CFG), seed=0,
+                                   device="cpu")
+    legs = smoke.spec_wide_phase(torch, pa, pat, model)
+    assert list(legs) == ["linear16", "tree4x8"]
+    for leg in legs.values():
+        assert leg["reference_identical"] == leg["requests"] == 4
+        assert leg["verify_windows"] > 0
+    assert legs["tree4x8"]["tree_slots"] > 0
+    assert capsys.readouterr().out.count("spec_serving ") == 2

@@ -12,6 +12,9 @@ Also: a numpy emulation of the bf16 tensor-core kernels' numerics
 limits ``chip_smoke.py`` holds those kernels to on the card, and the
 wrapper's route, alignment and head-dim decisions as pure functions."""
 
+import pathlib
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -52,10 +55,15 @@ def test_flash_attention_op_matches_jax(Tq, Tk, causal, layout, dtype):
     _op_matches_jax(Tq, Tk, causal, layout, dtype, 64)
 
 
-# the head dims F1 opened: 128 (an instantiation), 96 (padded to 128)
+# the head dims F1 opened: 128 and 256 (instantiations), 96 (padded to
+# 128)
 @pytest.mark.parametrize("layout,dtype,Dh", [("bthd", "float32", 128),
                                              ("bhtd", "bfloat16", 128),
-                                             ("bthd", "float32", 96)])
+                                             ("bthd", "float32", 96),
+                                             ("bhtd", "float32", 256),
+                                             ("bthd", "float32", 256),
+                                             ("bhtd", "bfloat16", 256),
+                                             ("bthd", "bfloat16", 256)])
 def test_flash_attention_op_matches_jax_wide_heads(layout, dtype, Dh):
     _op_matches_jax(128, 128, True, layout, dtype, Dh)
 
@@ -199,15 +207,116 @@ def _tc_numerics(Tq, Tk, causal, Dh):
     assert max(ratios.values()) <= 1, ratios
 
 
+# chip_smoke.py FLASH_TOL["float32"]["out"]
+F32_CARD_TOL = (1e-4, 1e-4)
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 stored mantissa bits, to nearest, ties away
+    from zero: cvt.rna.tf32.f32), as fp32."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _split(x):
+    big = _tf32(x)
+    return big, _tf32(x - big)
+
+
+def _mm3(a, b):
+    """a @ b by 3xTF32: big·big + big·small + small·big, fp32 sums."""
+    ab, as_ = _split(a)
+    bb, bs = _split(b)
+    return (as_ @ bb + ab @ bs) + ab @ bb
+
+
+def _f32tc_emulation(q, k, v, causal, scale, kv_tile):
+    """What ``csrc/flash_attention_f32tc.cu`` computes from fp32 arrays
+    [B, H, T, Dh]: kv tiles of `kv_tile` keys, S = Q Kᵀ by 3xTF32, an
+    fp32 online softmax in exp2 on scores prescaled by scale·log2(e), P
+    split from its fp32 value and P V by 3xTF32. Returns (o, lse)."""
+    f32 = np.float32
+    Tq, Tk = q.shape[2], k.shape[2]
+    c = f32(scale * np.log2(np.e))
+    rows = np.arange(Tq)[:, None]
+    m = np.full(q.shape[:3] + (1,), -np.inf, f32)
+    l = np.zeros_like(m)
+    acc = np.zeros(q.shape, f32)
+    with np.errstate(invalid="ignore"):
+        for k0 in range(0, Tk, kv_tile):
+            kt, vt = k[:, :, k0:k0 + kv_tile], v[:, :, k0:k0 + kv_tile]
+            s = _mm3(q, kt.swapaxes(-1, -2)) * c
+            if causal:
+                cols = k0 + np.arange(kt.shape[2])[None, :]
+                s = np.where(cols <= rows, s, -np.inf).astype(f32)
+            mx = np.maximum(m, s.max(-1, keepdims=True))
+            mu = np.where(mx == -np.inf, 0, mx).astype(f32)
+            alpha, p = np.exp2(m - mu), np.exp2(s - mu)
+            l = l * alpha + p.sum(-1, keepdims=True)
+            acc = acc * alpha + _mm3(p, vt)
+            m = mx
+    return acc / l, m * f32(np.log(2)) + np.log(l)
+
+
+# the 3xTF32 forward's kv tile rows by head dim: Cfg<DH>::kKT in
+# paddle_tpu_torch/csrc/flash_attention_f32tc.cu
+F32TC_KV_TILE = {64: 64, 128: 32, 256: 16}
+
+
+@pytest.mark.parametrize("Dh", sorted(F32TC_KV_TILE))
+def test_f32tc_kernel_numerics_within_card_limits(Dh):
+    """The 3xTF32 forward's numerics (both products from TF32 halves, P
+    split from fp32) stay inside the fp32 card limit against the JAX op
+    on the same fp32 inputs (T 128, causal), at each instantiated head
+    dim with its kv tile; prints the largest ratio to the limit. One TF32
+    product alone (big·big) would not: its ratio is printed beside."""
+    q, k, v, _ = _inputs(128, 128, "bhtd", seed=3, Dh=Dh)
+    q, k, v = (2 * x for x in (q, k, v))
+    scale = Dh ** -0.5
+    attrs = {"causal": True, "sm_scale": scale, "layout": "bhtd"}
+    want = _f32(j_registry.get("flash_attention").impl(
+        None, {"Q": [jnp.asarray(q)], "K": [jnp.asarray(k)],
+               "V": [jnp.asarray(v)]}, attrs)["Out"][0])
+    src = (pathlib.Path(p_flash.__file__).parents[1] / "csrc"
+           / "flash_attention_f32tc.cu").read_text()
+    cfg = re.search(r"struct Cfg<%d> \{\s*static constexpr int kRows = "
+                    r"\d+, kKT = (\d+);" % Dh, src)
+    assert cfg and int(cfg.group(1)) == F32TC_KV_TILE[Dh]
+    got, lse = _f32tc_emulation(q, k, v, True, scale, F32TC_KV_TILE[Dh])
+    atol, rtol = F32_CARD_TOL
+    ratio = float((np.abs(got - want) / (atol + rtol * np.abs(want))).max())
+    s = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64), k) * scale
+    s = np.where(np.tril(np.ones((128, 128), bool)), s, -np.inf)
+    lse_want = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) \
+        + s.max(-1)
+    lse_err = float(np.abs(lse[..., 0] - lse_want).max())
+    one = _tf32(q) @ _tf32(k).swapaxes(-1, -2) * scale
+    one = np.where(np.tril(np.ones((128, 128), bool)), one, -np.inf)
+    p1 = np.exp(one - one.max(-1, keepdims=True))
+    o1 = (_tf32(p1 / p1.sum(-1, keepdims=True)) @ _tf32(v))
+    ratio1 = float((np.abs(o1 - want) / (atol + rtol * np.abs(want))).max())
+    print("f32tc numerics Dh=%d: largest |err| / card limit %.4f (one TF32 "
+          "product: %.2f); lse max abs err %.3g"
+          % (Dh, ratio, ratio1, lse_err))
+    assert np.isfinite(got).all()
+    assert ratio <= 1 and lse_err <= 1e-4
+    assert ratio1 > 1
+
+
 def test_route_and_alignment_decisions():
-    """bf16 CUDA -> tc, fp32 CUDA -> simt, CPU -> plain, other CUDA
-    dtypes and devices raise; a bf16 view the tensor-core kernels cannot
-    read 16 bytes at a time is copied, an aligned one is read in place."""
+    """bf16 CUDA -> tc both ways, fp32 CUDA -> f32tc forward and simt
+    backward, CPU -> plain, other CUDA dtypes and devices raise; a view
+    the tensor-core kernels cannot read 16 bytes at a time is copied, an
+    aligned one is read in place."""
     route = p_flash.kernel_route
     for dt in (torch.bfloat16, torch.float32, torch.float64):
         assert route("cpu", dt) == "plain"
+        assert route("cpu", dt, backward=True) == "plain"
     assert route("cuda", torch.bfloat16) == "tc"
-    assert route("cuda", torch.float32) == "simt"
+    assert route("cuda", torch.bfloat16, backward=True) == "tc"
+    assert route("cuda", torch.float32) == "f32tc"
+    assert route("cuda", torch.float32, backward=True) == "simt"
     for dt in (torch.float16, torch.float64, torch.int8):
         with pytest.raises(TypeError, match="bfloat16"):
             route("cuda", dt)
@@ -225,6 +334,8 @@ def test_route_and_alignment_decisions():
         assert copied and torch.equal(t, view) and t.is_contiguous()
         assert p_flash.tc_aligned(t.data_ptr(), t.shape, t.stride(), 2)
     aligned = p_flash.tc_aligned
+    assert aligned(0, (2, 3, 5, 64), (960, 320, 64, 1), 4)   # fp32 rows
+    assert not aligned(0, (2, 3, 5, 66), (990, 330, 66, 1), 4)
     assert aligned(0, (1, 1, 5, 64), (3, 5, 64, 1), 2)  # size-1 dims
     assert not aligned(0, (2, 1, 5, 64), (3, 5, 64, 1), 2)
     assert not aligned(0, (1, 1, 5, 64), (320, 320, 64, 2), 2)
@@ -238,7 +349,7 @@ def test_every_gated_head_dim_has_a_kernel_or_raises_named():
     instantiation; above it the wrapper raises a ValueError naming the
     limit. No kernel needed: the wrapper's decision function."""
     largest = max(p_flash.SUPPORTED_HEAD_DIMS)
-    assert set(p_flash.SUPPORTED_HEAD_DIMS) >= {64, 128}
+    assert set(p_flash.SUPPORTED_HEAD_DIMS) >= {64, 128, 256}
     for Dh in range(64, 257):
         if not p_compat.flash_qualify(128, 128, Dh, True):
             continue
@@ -253,3 +364,8 @@ def test_every_gated_head_dim_has_a_kernel_or_raises_named():
                                match=r"head_dim %d is above the largest .* "
                                      r"\(%d\)" % (Dh, largest)):
                 p_flash.kernel_head_dim(Dh)
+    for Dh in (largest + 1, 320):   # F1c: wider than any instantiation
+        with pytest.raises(ValueError,
+                           match=r"head_dim %d is above the largest .* "
+                                 r"\(%d\)" % (Dh, largest)):
+            p_flash.kernel_head_dim(Dh)

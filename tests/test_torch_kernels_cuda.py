@@ -19,13 +19,19 @@ from paddle_tpu_torch.ops import paged_attention as pa
                                       (128, 16, 16), (64, 4, 5),
                                       (96, 4, 16), (160, 2, 16),
                                       (192, 7, 5), (224, 16, 16),
-                                      (256, 16, 16)])
+                                      (256, 16, 16), (48, 5, 16),
+                                      (80, 17, 16), (100, 33, 5),
+                                      (50, 3, 4), (64, 17, 16),
+                                      (64, 33, 16), (256, 64, 16),
+                                      (48, 64, 16)])
 def test_kernel_matches_plain_on_card(Dh, C, bs):
     """The CUDA kernel against the plain version on the card: ragged
     positions, scattered pages, null tails, every instantiated head dim
-    (the multiples of 32 to 256; 96 and 160 to 224 not powers of two; 256
-    at C 16: past 48 KB of shared memory) and windows up to 16 (atol 1e-4:
-    fp32, different summation order)."""
+    (the multiples of 32 to 256) and head dims between them (48, 80, 100:
+    masked columns; 50: not a multiple of 4, 4-byte copies), windows of
+    one to three 32-slot chunks (17, 33, 64), the context split across
+    blocks with splits past a short row's last position left empty (atol
+    1e-4: fp32, different summation order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     B, H, Mb = 6, 4, 8
@@ -60,12 +66,15 @@ def test_kernel_matches_plain_on_card(Dh, C, bs):
                                        (3, 8, 128, 16), (1, 31, 128, 16),
                                        (4, 4, 64, 5), (2, 6, 96, 16),
                                        (1, 15, 160, 16), (3, 4, 192, 5),
-                                       (2, 6, 224, 16), (1, 31, 256, 16)])
+                                       (2, 6, 224, 16), (1, 31, 256, 16),
+                                       (4, 8, 64, 16), (7, 9, 64, 16),
+                                       (2, 8, 48, 16), (1, 40, 80, 16),
+                                       (4, 8, 100, 16), (3, 7, 256, 16)])
 def test_tree_kernel_matches_plain_on_card(W, D, Dh, bs):
     """K3 against its plain version on the card: tree windows C = 1 + W*D
-    up to 32 (shared memory past 48 KB at Dh 128, 140 KB at Dh 256 and C
-    32), every instantiated head dim (the multiples of 32 to 256), window
-    bases on and
+    of one to three 32-slot chunks (33 and 64: ancestor masks of two
+    words a slot), every instantiated head dim (the multiples of 32 to
+    256) and head dims between them (48, 80, 100), window bases on and
     off block boundaries, a window running past the table, an inactive
     row (position 0, null table), null tails; at width 1 also against
     K2 (atol 1e-4: fp32, different summation order)."""
@@ -102,7 +111,7 @@ def test_tree_kernel_matches_plain_on_card(W, D, Dh, bs):
     assert pat.paged_attention_tree.launches == launches + 1
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                atol=1e-4, rtol=1e-4)
-    if W == 1 and C <= pa.MAX_WINDOW:
+    if W == 1:
         lin = pa.paged_attention(k, v, q, t, p)
         np.testing.assert_allclose(got.cpu().numpy(), lin.cpu().numpy(),
                                    atol=1e-4, rtol=1e-4)
@@ -110,7 +119,9 @@ def test_tree_kernel_matches_plain_on_card(W, D, Dh, bs):
 
 @pytest.mark.cuda
 def test_tree_kernel_wrapper_checks_on_card():
-    """The wrapper refuses what the kernel does not take, naming it."""
+    """The wrapper refuses what the kernel does not take, naming it; a
+    window of 33 slots and head dim 48 (refused before the kernel took
+    any window and head dim) run and match the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from paddle_tpu_torch.ops import paged_attention_tree as pat
@@ -127,10 +138,21 @@ def test_tree_kernel_wrapper_checks_on_card():
             anc = torch.eye(C, dtype=torch.bool, device=dev)
         return pat.paged_attention_tree(kk, kk, q, tables, pos, anc)
 
-    with pytest.raises(ValueError, match="C <= 32"):
-        call(C=33)
-    with pytest.raises(ValueError, match="head_dim 48"):
-        call(Dh=48)
+    for C, Dh in ((33, 64), (5, 48)):
+        kk = torch.randn(5, 4, 2, Dh, device=dev)
+        q = torch.randn(1, C, 2, Dh, device=dev)
+        pos = torch.arange(C, dtype=torch.int32, device=dev)[None]
+        tab = torch.tensor([[3, 1]], dtype=torch.int32, device=dev)
+        anc = torch.ones(C, C, dtype=torch.bool, device=dev).tril()
+        got = pat.paged_attention_tree(kk, kk, q, tab, pos, anc)
+        want = pat.paged_attention_tree_reference(kk, kk, q, tab, pos, anc)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   atol=1e-4, rtol=1e-4)
+    with pytest.raises(ValueError, match="head_dim 260 is above"):
+        call(Dh=260)
+    with pytest.raises(ValueError, match="tree window C=8193"):
+        call(C=pat.MAX_TREE_WINDOW + 1)
     with pytest.raises(TypeError, match="anc must be torch.bool"):
         call(anc=torch.eye(5, device=dev))
     with pytest.raises(ValueError, match=r"anc must be \[C, C\]"):
@@ -161,7 +183,8 @@ def test_flash_attention_kernels_match_plain_on_card(B, H, Tq, Tk, causal,
     grads atol 3e-2, rtol 1e-2 (the kernel's delta uses the bf16-rounded
     O, and the tensor-core kernels round P and dS to bf16; the CPU test
     `test_tc_kernel_numerics_within_card_limits` emulates that). bf16
-    takes the tensor-core route, fp32 the SIMT route."""
+    takes the tensor-core route both ways; fp32 the 3xTF32 tensor-core
+    forward and the SIMT backward."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -179,10 +202,9 @@ def test_flash_attention_kernels_match_plain_on_card(B, H, Tq, Tk, causal,
     tols = ({"out": (1e-4, 1e-4), "grads": (1e-4, 1e-4)}
             if dtype == "float32"
             else {"out": (1e-2, 1e-2), "grads": (3e-2, 1e-2)})
-    route = "tc" if dtype == "bfloat16" else "simt"
-    before = _flash_counts(fa, route)
+    before = _flash_counts(fa, dtype)
     out, grads = _flash_against_plain(fa, q, k, v, g, causal, tols)
-    assert _flash_counts(fa, route) == tuple(n + 1 for n in before[:4]) + (
+    assert _flash_counts(fa, dtype) == tuple(n + 1 for n in before[:4]) + (
         before[4],)
     assert out.stride() == q.stride()   # written where the layout says
 
@@ -197,15 +219,24 @@ def test_flash_attention_kernels_match_plain_on_card(B, H, Tq, Tk, causal,
     (1, 2, 100, 100, True, "float32", "bhtd", 128),   # ragged tiles
     (2, 2, 256, 256, True, "bfloat16", "bthd", 96),   # padded to 128
     (1, 2, 128, 256, False, "float32", "bhtd", 96),
+    (2, 2, 256, 256, True, "bfloat16", "bthd", 256),
+    (1, 2, 128, 256, False, "bfloat16", "bhtd", 256),
+    (2, 2, 256, 256, True, "float32", "bhtd", 256),
+    (1, 2, 128, 256, False, "float32", "bthd", 256),
+    (1, 2, 100, 100, True, "bfloat16", "bhtd", 256),  # ragged tiles
+    (2, 2, 256, 256, True, "bfloat16", "bhtd", 192),  # padded to 256
+    (1, 2, 128, 256, False, "float32", "bthd", 192),
+    (2, 2, 256, 256, True, "float32", "bthd", 160),
+    (1, 2, 128, 256, False, "bfloat16", "bhtd", 160),
 ])
 def test_flash_attention_wide_heads_match_plain_on_card(B, H, Tq, Tk, causal,
                                                         dtype, layout, Dh):
-    """K1 at head dim 128 (both routes' second instantiation) and at 96,
-    which the wrapper zero-pads to 128 (q, k, v in the forward and dO in
-    the backward: 4 copies counted) and slices back, against the plain
-    version's forward and autograd at the true head dim and its default
-    scale Dh^-0.5. Tolerances as in
-    test_flash_attention_kernels_match_plain_on_card."""
+    """K1 at head dims 128 and 256 (every route's second and third
+    instantiations) and at 96, 160 and 192, which the wrapper zero-pads
+    to 128 or 256 (q, k, v in the forward and dO in the backward: 4
+    copies counted) and slices back, against the plain version's forward
+    and autograd at the true head dim and its default scale Dh^-0.5.
+    Tolerances as in test_flash_attention_kernels_match_plain_on_card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -223,11 +254,10 @@ def test_flash_attention_wide_heads_match_plain_on_card(B, H, Tq, Tk, causal,
     tols = ({"out": (1e-4, 1e-4), "grads": (1e-4, 1e-4)}
             if dtype == "float32"
             else {"out": (1e-2, 1e-2), "grads": (3e-2, 1e-2)})
-    route = "tc" if dtype == "bfloat16" else "simt"
     padded = Dh not in fa.SUPPORTED_HEAD_DIMS
-    before = _flash_counts(fa, route)
+    before = _flash_counts(fa, dtype)
     out, grads = _flash_against_plain(fa, q, k, v, g, causal, tols)
-    assert _flash_counts(fa, route) == tuple(n + 1 for n in before[:4]) + (
+    assert _flash_counts(fa, dtype) == tuple(n + 1 for n in before[:4]) + (
         before[4] + (4 if padded else 0),)
     assert out.shape == q.shape
     assert all(d.shape == t.shape for d, t in zip(grads, (q, k, v)))
@@ -235,25 +265,83 @@ def test_flash_attention_wide_heads_match_plain_on_card(B, H, Tq, Tk, causal,
 
 @pytest.mark.cuda
 def test_flash_attention_head_dim_above_the_largest_raises_on_card():
-    """A head dim above the kernels' largest instantiation raises naming
-    the limit (the part of F1 still open), on both routes."""
+    """A head dim above the kernels' largest instantiation (256) raises
+    naming the limit (F1c), on both dtypes; 160 (padded to 256), which
+    raised before F1 was closed to 256, runs there and matches the plain
+    version forward and backward."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from paddle_tpu_torch.ops import flash_attention as fa
 
     for dt in (torch.bfloat16, torch.float32):
-        q = torch.zeros(1, 1, 128, 160, device="cuda", dtype=dt)
-        with pytest.raises(ValueError, match=r"head_dim 160 is above the "
-                                             r"largest .* \(128\)"):
+        q = torch.zeros(1, 1, 128, 320, device="cuda", dtype=dt)
+        with pytest.raises(ValueError, match=r"head_dim 320 is above the "
+                                             r"largest .* \(256\)"):
             fa.flash_attention(q, q, q, causal=True)
+        rng = np.random.RandomState(160)
+        q, k, v, g = (torch.from_numpy(
+            rng.standard_normal((1, 2, 128, 160)).astype(np.float32)).to(
+                "cuda", dt) for _ in range(4))
+        tols = ({"out": (1e-4, 1e-4), "grads": (1e-4, 1e-4)}
+                if dt == torch.float32
+                else {"out": (1e-2, 1e-2), "grads": (3e-2, 1e-2)})
+        _flash_against_plain(fa, q, k, v, g, True, tols)
 
 
-def _flash_counts(fa, route):
-    """(fwd launches, bwd launches, fwd and bwd launches by `route`,
-    copies of both)."""
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh", [64, 96, 128, 256])
+@pytest.mark.parametrize("B,H,Tq,Tk,causal,layout", [
+    (2, 3, 256, 256, True, "bthd"),
+    (1, 2, 128, 320, False, "bhtd"),
+    (1, 2, 100, 100, True, "bhtd"),    # ragged tiles
+    (1, 1, 72, 200, False, "bthd"),
+])
+def test_flash_attention_f32tc_forward_matches_plain_on_card(B, H, Tq, Tk,
+                                                             causal, layout,
+                                                             Dh):
+    """The fp32 forward on the tensor cores (3xTF32) against the plain
+    version, causal and cross, at every instantiated head dim and 96
+    (padded to 128): out within atol/rtol 1e-4 (fp32 accuracy), the lse
+    it writes equal to the plain log-sum-exp within 1e-4, one launch by
+    the "f32tc" route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.RandomState(Tq + Tk + Dh)
+
+    def make(T):
+        shape = (B, H, T, Dh) if layout == "bhtd" else (B, T, H, Dh)
+        t = torch.from_numpy(
+            (2 * rng.standard_normal(shape)).astype(np.float32)).cuda()
+        return t if layout == "bhtd" else t.transpose(1, 2)
+
+    q, k, v = make(Tq), make(Tk), make(Tk)
+    scale = Dh ** -0.5
+    n = fa.flash_attention_fwd.launches_by_route["f32tc"]
+    out, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches_by_route["f32tc"] == n + 1
+    want = fa.flash_attention_reference(q, k, v, causal, scale)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    if causal:
+        s = s.masked_fill(~torch.ones(Tq, Tk, dtype=torch.bool,
+                                      device="cuda").tril(), float("-inf"))
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(lse.cpu().numpy(),
+                               torch.logsumexp(s, -1).cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+
+
+def _flash_counts(fa, dtype):
+    """(fwd launches, bwd launches, fwd and bwd launches by the routes of
+    `dtype` (bf16: "tc" both ways; fp32: "f32tc" forward, "simt"
+    backward), copies of both)."""
     f, b = fa.flash_attention_fwd, fa.flash_attention_bwd
-    return (f.launches, b.launches, f.launches_by_route[route],
-            b.launches_by_route[route], f.copies + b.copies)
+    fr, br = ("tc", "tc") if dtype == "bfloat16" else ("f32tc", "simt")
+    return (f.launches, b.launches, f.launches_by_route[fr],
+            b.launches_by_route[br], f.copies + b.copies)
 
 
 def _flash_against_plain(fa, q, k, v, g, causal, tols):
@@ -293,13 +381,37 @@ def test_flash_attention_tc_copies_misaligned_views_on_card():
         return torch.from_numpy(t).to(dev, torch.bfloat16)[..., :64]
 
     q, k, v, g = make(), make(), make(), make()
-    before = _flash_counts(fa, "tc")
+    before = _flash_counts(fa, "bfloat16")
     _flash_against_plain(fa, q, k, v, g, True,
                          {"out": (1e-2, 1e-2), "grads": (3e-2, 1e-2)})
     # q, k, v copied by the forward (the backward reads those copies and
     # the aligned o), dO by the backward
-    assert _flash_counts(fa, "tc") == tuple(n + 1 for n in before[:4]) + (
-        before[4] + 4,)
+    assert _flash_counts(fa, "bfloat16") == tuple(
+        n + 1 for n in before[:4]) + (before[4] + 4,)
+
+
+@pytest.mark.cuda
+def test_flash_attention_f32tc_copies_misaligned_views_on_card():
+    """fp32 views whose row stride (66 floats, 264 bytes) is not a
+    multiple of 16 bytes: the 3xTF32 forward's wrapper copies q, k and v
+    (3 copies counted; the SIMT backward reads any strides) and both
+    kernels still agree with the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.RandomState(66)
+
+    def make():
+        t = rng.standard_normal((2, 3, 96, 66)).astype(np.float32)
+        return torch.from_numpy(t).cuda()[..., :64]
+
+    q, k, v, g = make(), make(), make(), make()
+    before = _flash_counts(fa, "float32")
+    _flash_against_plain(fa, q, k, v, g, True,
+                         {"out": (1e-4, 1e-4), "grads": (1e-4, 1e-4)})
+    assert _flash_counts(fa, "float32") == tuple(
+        n + 1 for n in before[:4]) + (before[4] + 3,)
 
 
 @pytest.mark.cuda

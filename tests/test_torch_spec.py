@@ -463,12 +463,39 @@ def test_speculation_off_serves_as_before(monkeypatch):
     assert got == refs and st["spec_tree_slots"] > 0
 
 
-@pytest.mark.parametrize("mode,match", [({"spec_k": 16}, "spec_k <= 15"),
-                                        ({"spec_tree": "4x8"}, "<= 32")])
-def test_windows_past_the_kernels_limits_raise(mode, match):
-    """A window the attention kernels cannot take is refused when the
-    engine is built, naming the limit, on every device."""
+@pytest.mark.parametrize("mode,want", [
+    ({"spec_k": 16}, (16, None)), ({"spec_tree": "4x8"}, (8, (4, 8))),
+    ({"spec_k": 500}, (63, None)), ({"spec_tree": "2x500"}, (63, (2, 63)))],
+    ids=["linear16", "tree4x8", "linear500", "tree2x500"])
+def test_windows_past_the_kernels_limits_raise(mode, want):
+    """The name is the test's former contract: the windows the attention
+    kernels once refused (spec_k 16: C=17; a 4x8 tree: C=33) now build
+    without raising, and it checks the clamps that remain: spec_k and a
+    tree's depth are clamped only to the context (max_seq_len - 1), as
+    the JAX engine clamps them (paddle_tpu/serving/engine.py:127-135)."""
     _, model = _pair(seed=0)
-    with pytest.raises(ValueError, match=match):
-        port.ServingEngine(model, max_batch=2, max_seq_len=64,
-                           block_size=4, device="cpu", **mode)
+    with port.ServingEngine(model, max_batch=2, max_seq_len=64,
+                            block_size=4, device="cpu", **mode) as engine:
+        assert (engine._worker.spec_k, engine._worker.spec_tree) == want
+
+
+@pytest.mark.parametrize("mode", [{"spec_k": 16}, {"spec_tree": "4x8"}],
+                         ids=["linear16", "tree4x8"])
+def test_engine_serves_windows_past_the_former_kernel_limits(mode):
+    """F2: a 17-slot linear window and a 33-slot tree window (two 32-slot
+    chunks in the tree kernel), which the port's engine refused while the
+    JAX engine served them, serve token-identically to the port's and
+    JAX's reference_decode; the windows ran and the pool drains clean."""
+    jax_model, model = _pair(seed=13)
+    prompts = _repetitive(2, seed=5) + _prompts(1, seed=7)
+    refs = [port.reference_decode(model, p, 20) for p in prompts]
+    assert refs == [jax_serving.reference_decode(jax_model, p, 20)
+                    for p in prompts]
+    engine = port.ServingEngine(model, max_batch=3, max_seq_len=64,
+                                block_size=4, device="cpu", **mode)
+    got, st = _serve(engine, prompts, 20)
+    assert got == refs
+    _drained(engine._worker.pool)
+    assert st["spec_steps"] > 0
+    if "spec_tree" in mode:
+        assert st["spec_tree_slots"] > 0
