@@ -47,8 +47,8 @@ Phases, each fatal on failure (exit code 1, no result line):
 
   5. flash attention kernels: K1's forward and backward CUDA kernels
      against the plain version's forward and autograd, each call by its
-     routes (bf16: the tensor-core kernels both ways; fp32: the 3xTF32
-     tensor-core forward and the SIMT backward), through the strided
+     route (bf16: the tensor-core kernels both ways; fp32: the 3xTF32
+     tensor-core kernels both ways), through the strided
      views of [B, T, H, Dh] tensors, all at H=8, T=512, causal: checked,
      then kernel, plain and library (scaled_dot_product_attention in the
      same dtype) times each way, the bounds and the factor to the
@@ -58,6 +58,12 @@ Phases, each fatal on failure (exit code 1, no result line):
      B=8 (path_* keys); at head dim 256 at phase 6c's own shape (B=4).
      Also checked: fp32 B=4, non-causal Tq=128/Tk=256 at Dh 64, 128 and
      256, and head dims 96 and 192 through the pad (4 copies counted).
+     Past the largest instantiation (the wide kernels: a block a
+     128-column part, the head dim streamed in 128-column chunks), no
+     model path reaching them: head dim 512 (B=2, causal) on all four
+     kernels and 320 (padded to 384), checked and timed beside SDPA (a
+     `flash_wide_heads` line). Two fp32 backward calls on the same inputs
+     must give bitwise-equal grads (no atomics).
   6. training: the Fluid-API Transformer LM (bench.py's headline step)
      through the port's entry points on cuda:0 — full width, 6 layers,
      seq 512, batch 160, bf16 params and residual stream, the legacy AMP
@@ -72,9 +78,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      and falling, K1 once a layer a step each way by the tensor-core
      route), 5 steps of the fp32 program's inference clone (K1 once a
      layer a step forward by the 3xTF32 route, no backward) and 5 fp32
-     SGD steps (K1 once a layer a step by the 3xTF32 forward and the
-     SIMT backward); each leg's counts zeroed before it, no operand
-     copied.
+     SGD steps (K1 once a layer a step by the 3xTF32 kernels both ways,
+     then one profiled step: K1's device ms); each leg's counts zeroed
+     before it, no operand copied.
   6c. head dim 256: the same at d_model 2048 over 8 heads (the head
      width of Gemma-family decoders), d_ff 8192, 2 layers, batch 4.
   7. card vs CPU: the same program from one set of weights (startup run
@@ -133,7 +139,7 @@ ATOL = 1e-4                  # fp32, different summation order
 FLASH_TOL = {"float32": {"out": (1e-4, 1e-4), "grads": (1e-4, 1e-4)},
              "bfloat16": {"out": (1e-2, 1e-2), "grads": (3e-2, 1e-2)}}
 # K1's (forward, backward) routes by dtype: the kernels that run
-FLASH_ROUTES = {"bfloat16": ("tc", "tc"), "float32": ("f32tc", "simt")}
+FLASH_ROUTES = {"bfloat16": ("tc", "tc"), "float32": ("f32tc", "f32tc")}
 
 
 def fail(msg):
@@ -865,12 +871,12 @@ def flash_counts(fa):
 def flash_check(torch, fa, B, H, Tq, Tk, causal, dtype, seed=0, Dh=64):
     """K1's kernels against the plain version's forward and autograd on
     the same inputs; the call must go by its dtype's routes (bf16: "tc"
-    both ways; fp32: "f32tc" forward, "simt" backward) without copying an
-    operand, but for a head dim the kernels run padded (q, k, v and dO
-    padded: 4 copies). Returns (inputs, max abs errors, shape label)."""
+    both ways; fp32: "f32tc" both ways) without copying an operand, but
+    for a head dim the kernels run padded (q, k, v and dO padded: 4
+    copies). Returns (inputs, max abs errors, shape label)."""
     q, k, v, g = flash_inputs(torch, B, H, Tq, Tk, dtype, seed, Dh)
     f_route, b_route = FLASH_ROUTES[dtype]
-    want_copies = 0 if Dh in fa.SUPPORTED_HEAD_DIMS else 4
+    want_copies = 0 if fa.kernel_head_dim(Dh) == Dh else 4
     fwd0, bwd0, copies0 = flash_counts(fa)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     out = fa.flash_attention(*leaves, causal=causal)
@@ -942,10 +948,12 @@ def flash_phase(torch, fa):
     backward's path is phase 7 at B=2, also checked and timed); head dim
     128 at the timing shapes bf16 B=80 and fp32 B=32 and at phase 6b's
     own B=WIDE_BATCH; head dim 256 at phase 6c's own shape; head dims 96
-    and 192 through the pad and cross-attention cases checked. Returns
-    the kernels-line rows by name, each forward and backward kernel of
-    each route and head dim (`path_*` keys: the path's shape where the
-    row's ms is at another)."""
+    and 192 through the pad and cross-attention cases checked; the fp32
+    backward run twice on the same inputs, bitwise equal. Returns the
+    kernels-line rows by name, each forward and backward kernel of each
+    route and head dim (`path_*` keys: the path's shape where the row's
+    ms is at another), and the rows of the wide kernels (head dims 512
+    and 320, on no model's path)."""
     import torch.nn.functional as F
 
     flash_check(torch, fa, 4, 8, 512, 512, True, "float32", seed=1)
@@ -955,7 +963,8 @@ def flash_phase(torch, fa):
     rows.update(flash_timed_rows(torch, fa, F, flush, "float32",
                                  INT8["batch"], 64, 4))
     flash_path(rows, flash_timed_rows(torch, fa, F, flush, "float32", 2, 64,
-                                      10), ("flash_attention_simt_bwd",))
+                                      10), ("flash_attention_f32tc_bwd",))
+    flash_deterministic(torch, fa, INT8["batch"], 64, 4)
     for dtype, seed in (("bfloat16", 8), ("float32", 9)):
         flash_check(torch, fa, 4, 8, 128, 256, False, dtype, seed=6, Dh=128)
         flash_check(torch, fa, 2, 8, 256, 256, True, dtype, seed=7, Dh=96)
@@ -971,7 +980,32 @@ def flash_phase(torch, fa):
         flash_check(torch, fa, 2, 4, 512, 512, True, dtype, seed=12, Dh=192)
         rows.update(flash_timed_rows(torch, fa, F, flush, dtype,
                                      WIDE256_BATCH, 256, 13))
+    wide = {}
+    for dtype in ("bfloat16", "float32"):
+        wide.update(flash_timed_rows(torch, fa, F, flush, dtype, 2, 512, 14))
+        wide.update(flash_timed_rows(torch, fa, F, flush, dtype, 2, 320, 15))
+    flash_deterministic(torch, fa, 2, 512, 14)
+    print("flash_wide_heads " + json.dumps(list(wide.values())), flush=True)
     return rows
+
+
+def flash_deterministic(torch, fa, B, Dh, seed, H=8, T=512):
+    """Two calls of the fp32 backward on the same inputs (B, H, T, causal,
+    head dim Dh) must give bitwise-equal dq, dk, dv: the passes sum in a
+    fixed order, with no atomics."""
+    q, k, v, g = flash_inputs(torch, B, H, T, T, "float32", seed, Dh)
+    scale = Dh ** -0.5
+    o, lse = fa.flash_attention_fwd(q, k, v, True, scale)
+    first = fa.flash_attention_bwd(q, k, v, o, lse, g, True, scale)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, g, True, scale)
+    torch.cuda.synchronize()
+    differ = [n for n, a, b in zip(("dq", "dk", "dv"), first, again)
+              if not torch.equal(a, b)]
+    if differ:
+        fail("flash_attention fp32 backward at B=%d Dh=%d: two calls on the "
+             "same inputs differ in %s" % (B, Dh, differ))
+    print("kernel flash_attention fp32 backward B=%d H=%d T=%d Dh=%d: two "
+          "calls bitwise equal" % (B, H, T, Dh), flush=True)
 
 
 def flash_path(rows, path_rows, names):
@@ -1029,8 +1063,7 @@ def flash_timed_rows(torch, fa, F, flush, dtype, B, Dh, seed, H=8, T=512):
             (False, FLASH_ROUTES[dtype][1], ms_bwd, plain_bwd, lib_bwd,
              max(errs["dq"], errs["dk"], errs["dv"]))):
         rate, products = {"tc": (H100_BF16_FLOPS, 1),
-                          "f32tc": (H100_TF32_FLOPS, 3),
-                          "simt": (H100_FP32_FLOPS, 1)}[route]
+                          "f32tc": (H100_TF32_FLOPS, 3)}[route]
         bound_ms, bound_by = flash_bound_ms(B, H, T, Dh, elem, fwd, rate,
                                             products)
         name = "flash_attention_%s_%s%s" % (route, "fwd" if fwd else "bwd",
@@ -1038,17 +1071,17 @@ def flash_timed_rows(torch, fa, F, flush, dtype, B, Dh, seed, H=8, T=512):
         rows[name] = {
             "name": name, "route": "cuda", "kernel_route": route,
             "head_dim": Dh, "dtype": dtype,
-            "source": "paddle_tpu_torch/csrc/%s.cu" % {
-                "tc": "flash_attention_tc", "f32tc": "flash_attention_f32tc",
-                "simt": "flash_attention"}[route],
+            "source": "paddle_tpu_torch/csrc/%s.cu" % (
+                "flash_attention_tc" if route == "tc"
+                else "flash_attention_f32tc" if fwd
+                else "flash_attention_f32tc_bwd"),
             "replaces": ("paddle_tpu/ops/pallas_kernels.py:162" if fwd
                          else "paddle_tpu/ops/pallas_kernels.py:212"),
             "shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_rate": {"tc": "bf16 tensor cores, 989 TFLOP/s",
                            "f32tc": "TF32 tensor cores, 494.7 TFLOP/s, 3 "
-                                    "products (3xTF32)",
-                           "simt": "fp32 SIMT, 67 TFLOP/s"}[route],
+                                    "products (3xTF32)"}[route],
             "library_ms": library, "factor_to_library": ms / library,
             "library": "F.scaled_dot_product_attention(is_causal=True) %s "
                        "in %s on contiguous copies (yardstick)"
@@ -1217,10 +1250,14 @@ def wide_head_phase(torch, fa, fluid, cfg=WIDE, batch=WIDE_BATCH, steps=5):
     trained `steps` steps with SGD. Every loss finite, the training
     losses falling; flash attention launched once a layer a step by its
     routes: "tc" both ways in bf16 training, "f32tc" forward only in
-    inference, "f32tc" forward and "simt" backward in fp32 training; no
-    operand copied. Each leg's counts are zeroed before it and read after
-    it. Returns the launches by kernel ("tc_fwd", "tc_bwd", "f32tc_fwd"
-    summed over both fp32 legs, "simt_bwd")."""
+    inference, "f32tc" both ways in fp32 training (no other route
+    exists); no operand copied. Each leg's counts are zeroed before it
+    and read after it. The fp32 training leg then runs one step under
+    torch.profiler for K1's device ms. Returns the launches by kernel
+    ("tc_fwd", "tc_bwd", "f32tc_fwd" summed over both fp32 legs,
+    "f32tc_bwd")."""
+    from torch.profiler import ProfilerActivity, profile
+
     exe = fluid.Executor()                     # place None: cuda:0
     L = cfg["n_layers"]
     Dh = cfg["d_model"] // cfg["n_heads"]
@@ -1228,10 +1265,10 @@ def wide_head_phase(torch, fa, fluid, cfg=WIDE, batch=WIDE_BATCH, steps=5):
     legs = (("bfloat16", False, "bf16 training, legacy AMP, SGD(0.01)",
              ("tc", n), ("tc", n)),
             ("float32", True, "fp32 inference clone", ("f32tc", n),
-             ("simt", 0)),
+             ("f32tc", 0)),
             ("float32", False, "fp32 training, SGD(0.01)", ("f32tc", n),
-             ("simt", n)))
-    total = {"tc_fwd": 0, "tc_bwd": 0, "f32tc_fwd": 0, "simt_bwd": 0}
+             ("f32tc", n)))
+    total = {"tc_fwd": 0, "tc_bwd": 0, "f32tc_fwd": 0, "f32tc_bwd": 0}
     for dtype, for_test, label, (f_route, f_n), (b_route, b_n) in legs:
         main, startup, loss = build_lm(fluid, dtype, cfg)
         prog = main.clone(for_test=True) if for_test else main
@@ -1261,6 +1298,18 @@ def wide_head_phase(torch, fa, fluid, cfg=WIDE, batch=WIDE_BATCH, steps=5):
                  % (Dh, label, counts, steps, want))
         total["%s_fwd" % f_route] += counts[0][f_route]
         total["%s_bwd" % b_route] += counts[1][b_route]
+        k1_ms = None
+        if dtype == "float32" and not for_test:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                exe.run(prog, feed=feed, fetch_list=[loss], scope=scope,
+                        return_numpy=False)
+                torch.cuda.synchronize()
+            # K1's kernels by name ("void (anonymous namespace)::flash_...")
+            k1_ms = {part: sum(device_us(e) for e in prof.key_averages()
+                               if any(k in e.key for k in names)) / 1e3
+                     for part, names in (
+                         ("fwd", ("flash_f32tc_fwd",)),
+                         ("bwd", ("flash_f32tc_delta", "flash_f32tc_bwd")))}
         print("wide_head %s" % json.dumps({
             "model": "Fluid-API Transformer LM: vocab %d, d_model %d, %d "
                      "heads (head dim %d), %d layers, d_ff %d, seq %d"
@@ -1268,7 +1317,8 @@ def wide_head_phase(torch, fa, fluid, cfg=WIDE, batch=WIDE_BATCH, steps=5):
                         Dh, L, cfg["d_ff"], cfg["seq_len"]),
             "program": label, "batch": batch, "steps": steps,
             "losses": losses, "ms_per_step_first_included": ms,
-            "flash_attention_launches": counts}),
+            "flash_attention_launches": counts,
+            "flash_attention_device_ms_one_profiled_step": k1_ms}),
             flush=True)
         del main, startup, prog, scope, feed
         torch.cuda.empty_cache()
@@ -1851,7 +1901,12 @@ def main():
     del program
     program = build_lm(fluid, "float32")
     k1 = card_vs_cpu_phase(torch, fluid, program, "float32")
-    flash_rows["flash_attention_simt_bwd"]["launches"] = k1[1]["simt"]
+    n = 2 * TRAIN["n_layers"]                  # two steps on the card
+    k1_want = ({"tc": 0, "f32tc": n}, {"tc": 0, "f32tc": n}, 0)
+    if k1 != k1_want:
+        fail("card vs CPU fp32: flash attention launched %r (forward, "
+             "backward by route; copies); expected %r" % (k1, k1_want))
+    flash_rows["flash_attention_f32tc_bwd"]["launches"] = k1[1]["f32tc"]
     int8_rows = int8_kernel_phase(torch, im_mod)
     int8_launches, flash_rows["flash_attention_f32tc_fwd"]["launches"] = \
         int8_phase(torch, fluid, im_mod, fa_mod, program)

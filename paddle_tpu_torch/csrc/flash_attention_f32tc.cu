@@ -1,8 +1,9 @@
 // Flash attention forward in fp32 on Hopper's tensor cores (sm_90a), by
 // 3xTF32: fp32 in and out, fp32 accuracy from TF32 products. Head dims 64,
 // 128 and 256 (a template parameter, instantiated for each; the wrapper
-// pads any other head dim up to the next of them). The fp32 backward
-// stays on the SIMT units (flash_attention.cu); bf16 takes the kernels of
+// pads any other head dim up to the next of them) and any multiple of 128
+// above 256 (the wide kernel at the end). The fp32 backward is
+// flash_attention_f32tc_bwd.cu; bf16 takes the kernels of
 // flash_attention_tc.cu.
 //
 // Replaces the TPU kernel paddle_tpu/ops/pallas_kernels.py
@@ -73,13 +74,9 @@
 // caller guarantees 16-byte aligned rows: base addresses and every
 // [B, H, T] stride multiples of 4 elements.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "flash_attention_f32tc.cuh"
 
 namespace {
-
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 // query rows a block (16 a warp), kv rows a tile, whether Q stays split in
 // registers
@@ -107,111 +104,6 @@ template <int DH>
 constexpr size_t smem_floats() {
   return (size_t)(Cfg<DH>::kRows + 6 * Cfg<DH>::kKT) * (DH + 4)
          + 2 * (size_t)DH * (Cfg<DH>::kKT + 4);
-}
-
-struct Strides {  // element strides of one [B, H, T, Dh] tensor
-  long long b, h, t;
-};
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(full ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Rows [row0, row0 + R) of one (b, h) slice into a [R][DH + 4] tile, 16
-// bytes a copy; rows at or past n are zero-filled (and read nothing).
-template <int R, int DH, int kThreads>
-__device__ __forceinline__ void load_tile(float* s, const float* g,
-                                          long long st, int row0, int n) {
-  constexpr int kChunks = DH / 4;
-  static_assert(R * kChunks % kThreads == 0, "tile chunks per thread");
-#pragma unroll
-  for (int it = 0; it < R * kChunks / kThreads; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const int r = i / kChunks, c = i % kChunks;
-    const int row = row0 + r;
-    const bool in = row < n;
-    cp_async16(s + r * (DH + 4) + 4 * c,
-               g + (long long)(in ? row : 0) * st + 4 * c, in);
-  }
-}
-
-// x = big + small, each a TF32 bit pattern
-__device__ __forceinline__ void split(float x, unsigned& big,
-                                      unsigned& small) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
-  asm("cvt.rna.tf32.f32 %0, %1;\n"
-      : "=r"(small)
-      : "f"(x - __uint_as_float(big)));
-}
-
-// four 8 x 4 blocks of 32-bit words, one a lane group: lane l gives the
-// address of row l % 8 of block l / 8 and receives word l % 4 of row
-// l / 4 of each block
-__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// d += a b, one m16n8k8 TF32 product
-__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
-                                    unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b to fp32 accuracy: the three products of 3xTF32, small first
-__device__ __forceinline__ void mma3(float (&d)[4], const unsigned (&ab)[4],
-                                     const unsigned (&as)[4], unsigned bb0,
-                                     unsigned bb1, unsigned bs0,
-                                     unsigned bs1) {
-  mma(d, as, bb0, bb1);
-  mma(d, ab, bs0, bs1);
-  mma(d, ab, bb0, bb1);
-}
-
-// A operand (16 rows x 8 k, split) of k step kc from a warp's 16 rows of a
-// [rows][DH + 4] fp32 tile: (row grp, k t), (grp + 8, t), (grp, t + 4),
-// (grp + 8, t + 4), one ldmatrix
-template <int DH>
-__device__ __forceinline__ void load_a(unsigned (&ab)[4], unsigned (&as)[4],
-                                       const float* s, int kc, int lane) {
-  const int m = lane >> 3;
-  unsigned r[4];
-  ldsm4(r, s + ((m & 1) * 8 + (lane & 7)) * (DH + 4) + 8 * kc
-               + 4 * (m >> 1));
-#pragma unroll
-  for (int e = 0; e < 4; ++e) split(__uint_as_float(r[e]), ab[e], as[e]);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// column of key k of an 8-key group in the V^T planes: keys 2t and 2t + 1
-// go to columns t and t + 4, the k slots their P values take
-__device__ __forceinline__ int vt_col(int k) {
-  return (k & ~7) | ((k & 1) << 2) | ((k >> 1) & 3);
 }
 
 template <int DH>
@@ -434,8 +326,233 @@ flash_f32tc_fwd_kernel(const float* __restrict__ q,
   }
 }
 
-Strides strides_of(const long long* s, int i) {
-  return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
+// Head dims above 256 (a multiple of kPart): a block accumulates one
+// kPart-column part of O, the grid's z index choosing which, and forms S =
+// Q K^T by streaming the head dim in kPart-column chunks through the ring,
+// in order: a ring stage holds one chunk of the block's Q rows and of a kv
+// tile's K rows, and at the block's own chunk z the V rows of its part,
+// split into the V^T planes that the tile's last chunk multiplies. S is
+// summed in the head dim's order, as the backward sums it. Shared memory
+// and registers are those of a 128-column head whatever the head dim;
+// every part's blocks form the same S, so the products of S grow with
+// Dh / kPart (S is formed Dh / kPart times, each over the whole head dim).
+struct WideCfg {
+  static constexpr int kRows = 64, kKT = 32;
+};
+
+constexpr size_t wide_smem_floats() {
+  return (size_t)(2 * WideCfg::kRows + 6 * WideCfg::kKT) * (kPart + 4)
+         + 2 * (size_t)kPart * (WideCfg::kKT + 4);
+}
+
+__global__ void __launch_bounds__(2 * WideCfg::kRows, 1)
+flash_f32tc_fwd_wide_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            float* __restrict__ o, float* __restrict__ lse,
+                            int H, int Tq, int Tk, int nC, Strides sq,
+                            Strides sk, Strides sv, Strides so, float scale,
+                            int causal) {
+  constexpr int W = kPart, kRows = WideCfg::kRows, kKT = WideCfg::kKT;
+  constexpr int kThreads = 2 * kRows, kLd = W + 4, kVLd = kKT + 4;
+  constexpr int kNT = kKT / 8, kKS = W / 8;
+  constexpr int kQF = kRows * kLd, kTileF = kKT * kLd;
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;                       // [2 stages][kRows][kLd]
+  float* raw = q_s + 2 * kQF;              // [2 stages][K, V][kKT][kLd]
+  unsigned* kb_s = reinterpret_cast<unsigned*>(raw + 4 * kTileF);
+  unsigned* ks_s = kb_s + kTileF;          // K planes [kKT][kLd]
+  unsigned* vb_s = ks_s + kTileF;          // V^T planes [W][kVLd]
+  unsigned* vs_s = vb_s + W * kVLd;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, z = blockIdx.z;
+  const int n_qt = (Tq + kRows - 1) / kRows;
+  const int q0 = (causal ? n_qt - 1 - (int)blockIdx.y : (int)blockIdx.y)
+                 * kRows;
+  const float* qg = q + b * sq.b + h * sq.h;
+  const float* kg = k + b * sk.b + h * sk.h;
+  const float* vg = v + b * sv.b + h * sv.h;
+  int n_kt = (Tk + kKT - 1) / kKT;
+  if (causal) n_kt = min(n_kt, (q0 + kRows - 1) / kKT + 1);
+  const int n_steps = n_kt * nC;           // (kv tile, chunk) steps
+
+  // step s's chunk c of Q and K (and, at the block's own chunk z, V's
+  // part) into ring stage s & 1
+  auto load_step = [&](int s) {
+    const int kt = s / nC, c = s % nC;
+    float* st = raw + (s & 1) * 2 * kTileF;
+    load_tile<kRows, W, kThreads>(q_s + (s & 1) * kQF, qg + c * W, sq.t, q0,
+                                  Tq);
+    load_tile<kKT, W, kThreads>(st, kg + c * W, sk.t, kt * kKT, Tk);
+    if (c == z)
+      load_tile<kKT, W, kThreads>(st + kTileF, vg + c * W, sv.t, kt * kKT,
+                                  Tk);
+  };
+  load_step(0);
+  cp_async_commit();
+
+  const float c = scale * kLog2e;
+  const int row_w = q0 + 16 * warp;        // the warp's first row
+  const int r_lo = row_w + grp, r_hi = r_lo + 8;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[kKS][4], s[kNT][4];
+#pragma unroll
+  for (int n = 0; n < kKS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int step = 0; step < n_steps; ++step) {
+    const int kt = step / nC, i = step % nC;
+    const bool last = i == nC - 1;
+    cp_async_wait_all();
+    // step's chunk has landed for every thread, and every warp is done
+    // with the planes and the ring stage of the step before
+    __syncthreads();
+    if (step + 1 < n_steps) load_step(step + 1);
+    cp_async_commit();
+    {
+      // split the chunk once for the block: K into big and small planes as
+      // it lies; at the own chunk V transposed, each 8-key group's keys in
+      // vt_col order
+      const float* rk = raw + (step & 1) * 2 * kTileF;
+      const float* rv = rk + kTileF;
+#pragma unroll
+      for (int it = 0; it < kKT * W / 4 / kThreads; ++it) {
+        const int idx = threadIdx.x + it * kThreads;
+        const int key = idx % kKT, c4 = idx / kKT;
+        const float4 kx = *reinterpret_cast<const float4*>(
+            rk + key * kLd + 4 * c4);
+        uint4 bb, ss;
+        split(kx.x, bb.x, ss.x);
+        split(kx.y, bb.y, ss.y);
+        split(kx.z, bb.z, ss.z);
+        split(kx.w, bb.w, ss.w);
+        *reinterpret_cast<uint4*>(kb_s + key * kLd + 4 * c4) = bb;
+        *reinterpret_cast<uint4*>(ks_s + key * kLd + 4 * c4) = ss;
+        if (i == z) {
+          const float4 vx = *reinterpret_cast<const float4*>(
+              rv + key * kLd + 4 * c4);
+          const float ve[4] = {vx.x, vx.y, vx.z, vx.w};
+          const int col = vt_col(key);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            split(ve[e], vb_s[(4 * c4 + e) * kVLd + col],
+                  vs_s[(4 * c4 + e) * kVLd + col]);
+        }
+      }
+    }
+    __syncthreads();                         // the planes are ready
+    const int k0 = kt * kKT;
+    if (causal && k0 > row_w + 15) continue;   // all after the warp's rows
+
+    // S += Q_c K_c^T
+    if (i == 0) {
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    }
+    const float* qw = q_s + (step & 1) * kQF + 16 * warp * kLd;
+#pragma unroll
+    for (int kc = 0; kc < kKS; ++kc) {
+      unsigned ab[4], as[4];
+      load_a<W>(ab, as, qw, kc, lane);
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        unsigned bb[4], bs[4];
+        load_b<W>(bb, kb_s, np, kc, lane);
+        load_b<W>(bs, ks_s, np, kc, lane);
+        mma3(s[2 * np], ab, as, bb[0], bb[1], bs[0], bs[1]);
+        mma3(s[2 * np + 1], ab, as, bb[2], bb[3], bs[2], bs[3]);
+      }
+    }
+    if (!last) continue;
+
+    const bool edge = (causal && k0 + kKT - 1 > row_w) || k0 + kKT > Tk;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * c;
+        if (edge) {
+          const int col = k0 + 8 * n + 2 * t + (e & 1);
+          if (col >= Tk || (causal && col > (e < 2 ? r_lo : r_hi)))
+            x = -INFINITY;
+        }
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float mu[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      mu[r] = mx[r] == -INFINITY ? 0.f : mx[r];
+      alpha[r] = exp2f(m[r] - mu[r]);
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = exp2f(s[n][e] - mu[e >> 1]);
+        sum[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int n = 0; n < kKS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+    l[0] = l[0] * alpha[0] + sum[0];
+    l[1] = l[1] * alpha[1] + sum[1];
+
+    // O_z += P V_z, P's k slots bound to keys as in the forward above
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      unsigned pb[4], ps[4];
+      split(s[j][0], pb[0], ps[0]);
+      split(s[j][2], pb[1], ps[1]);
+      split(s[j][1], pb[2], ps[2]);
+      split(s[j][3], pb[3], ps[3]);
+#pragma unroll
+      for (int np = 0; np < kKS / 2; ++np) {
+        const int mi = lane >> 3;
+        const int off = (8 * (2 * np + (mi >> 1)) + (lane & 7)) * kVLd
+                        + 8 * j + 4 * (mi & 1);
+        unsigned bb[4], bs[4];
+        ldsm4(bb, vb_s + off);
+        ldsm4(bs, vs_s + off);
+        mma3(acc[2 * np], pb, ps, bb[0], bb[1], bs[0], bs[1]);
+        mma3(acc[2 * np + 1], pb, ps, bb[2], bb[3], bs[2], bs[3]);
+      }
+    }
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+  }
+  if (t == 0 && z == 0) {
+    if (r_lo < Tq)
+      lse[(long long)bh * Tq + r_lo] =
+          l[0] > 0.f ? m[0] * kLn2 + logf(l[0]) : INFINITY;
+    if (r_hi < Tq)
+      lse[(long long)bh * Tq + r_hi] =
+          l[1] > 0.f ? m[1] * kLn2 + logf(l[1]) : INFINITY;
+  }
+  float* og = o + b * so.b + h * so.h + z * W;
+#pragma unroll
+  for (int np = 0; np < kKS; ++np) {
+    const int col = 8 * np + 2 * t;
+    if (r_lo < Tq)
+      *reinterpret_cast<float2*>(og + (long long)r_lo * so.t + col) =
+          make_float2(acc[np][0] * inv[0], acc[np][1] * inv[0]);
+    if (r_hi < Tq)
+      *reinterpret_cast<float2*>(og + (long long)r_hi * so.t + col) =
+          make_float2(acc[np][2] * inv[1], acc[np][3] * inv[1]);
+  }
 }
 
 template <int DH>
@@ -459,13 +576,31 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v,
+                            void* o, void* lse, int B, int H, int Tq, int Tk,
+                            int Dh, const long long* strides, float scale,
+                            int causal, cudaStream_t stream) {
+  const size_t smem = wide_smem_floats() * sizeof(float);
+  cudaError_t err = allow_smem(flash_f32tc_fwd_wide_kernel, smem);
+  if (err != cudaSuccess) return err;
+  constexpr int kRows = WideCfg::kRows;
+  const dim3 grid(B * H, (Tq + kRows - 1) / kRows, Dh / kPart);
+  flash_f32tc_fwd_wide_kernel<<<grid, 2 * kRows, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), H, Tq, Tk, Dh / kPart,
+      strides_of(strides, 0), strides_of(strides, 1), strides_of(strides, 2),
+      strides_of(strides, 3), scale, causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// q [B, H, Tq, Dh], k/v [B, H, Tk, Dh], o like q, all fp32, Dh 64, 128 or
-// 256: any strides with a unit head-dim stride and 16-byte aligned rows,
-// given as `strides` = [b, h, t] element strides of q, k, v, o (12 values,
-// host memory). lse [B, H, Tq] fp32 contiguous. Causal needs Tq == Tk (the
-// wrapper checks).
+// q [B, H, Tq, Dh], k/v [B, H, Tk, Dh], o like q, all fp32, Dh 64, 128,
+// 256 or a multiple of 128 above 256: any strides with a unit head-dim
+// stride and 16-byte aligned rows, given as `strides` = [b, h, t] element
+// strides of q, k, v, o (12 values, host memory). lse [B, H, Tq] fp32
+// contiguous. Causal needs Tq == Tk (the wrapper checks).
 extern "C" int ptpu_flash_attention_f32tc_fwd(const void* q, const void* k,
                                               const void* v, void* o,
                                               void* lse, int B, int H,
@@ -485,6 +620,10 @@ extern "C" int ptpu_flash_attention_f32tc_fwd(const void* q, const void* k,
       return static_cast<int>(launch_fwd<256>(q, k, v, o, lse, B, H, Tq, Tk,
                                               strides, scale, causal, s));
     default:
+      if (Dh > 256 && Dh % kPart == 0)
+        return static_cast<int>(launch_fwd_wide(q, k, v, o, lse, B, H, Tq,
+                                                Tk, Dh, strides, scale,
+                                                causal, s));
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }

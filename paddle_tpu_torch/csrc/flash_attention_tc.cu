@@ -1,7 +1,8 @@
 // Flash attention, forward and backward, in bf16 on Hopper's tensor cores
 // (sm_90a). bf16 in and out, fp32 accumulators; head dim 64, 128 or 256
 // (a template parameter, instantiated for each; the wrapper pads any
-// other head dim up to the next of them).
+// other head dim up to the next of them), and any multiple of 128 above
+// 256 (the wide kernels, kWide below).
 //
 // Replaces the TPU kernel paddle_tpu/ops/pallas_kernels.py
 // `flash_attention` (:120) -> `_flash_fwd` (:162, pl.pallas_call :191,
@@ -9,7 +10,8 @@
 // TPU jax's library Pallas backward, :131-150). On the training path of
 // the Fluid-API Transformer LM (bf16 under the AMP decorator) it runs once
 // per layer forward and once per layer backward. fp32 inputs take
-// flash_attention_f32tc.cu (forward) and flash_attention.cu (backward).
+// flash_attention_f32tc.cu (forward) and flash_attention_f32tc_bwd.cu
+// (backward).
 //
 // What it computes, per (batch b, head h): O = softmax(Q K^T * scale) V
 // over q [Tq, Dh] and k, v [Tk, Dh], keys at positions >= Tk masked and,
@@ -275,15 +277,17 @@ __device__ __forceinline__ void mma_rows_kn(float (&acc)[DO / 8][4],
 
 // acc[8][4] (16 rows x 64 n) = rows [r0, r0 + 16) of tile a_s times the
 // transpose of the [n][k] tile b_s, k over DH: the first products (Q K^T
-// and its kin).
-template <int DH>
+// and its kin); kZero false adds to acc (a head-dim chunk of the sum).
+template <int DH, bool kZero = true>
 __device__ __forceinline__ void mma_rows_nk(float (&acc)[8][4],
                                             const bf16* a_s, int r0,
                                             const bf16* b_s, int lane) {
+  if (kZero) {
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  }
 #pragma unroll
   for (int kc = 0; kc < DH / 16; ++kc) {
     unsigned a[4];
@@ -507,13 +511,14 @@ flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // delta[b, h, t] = sum_d dO * O in fp32, 8 lanes a row (16 bytes each,
-// DH / 64 times)
+// DH / 64 times; DH 0: the head dim dh, a multiple of 64, given at run
+// time)
 template <int DH>
 __global__ void __launch_bounds__(kBwdThreads)
 flash_tc_delta_kernel(const bf16* __restrict__ o,
                       const bf16* __restrict__ d_o, float* __restrict__ delta,
                       int H, int Tq, long long rows, Strides so,
-                      Strides sdo) {
+                      Strides sdo, int dh) {
   const long long row = (long long)blockIdx.x * (kBwdThreads / 8)
                         + (threadIdx.x >> 3);
   const int part = threadIdx.x & 7;
@@ -522,7 +527,7 @@ flash_tc_delta_kernel(const bf16* __restrict__ o,
     const long long bh = row / Tq;
     const int tq = (int)(row % Tq), b = (int)(bh / H), h = (int)(bh % H);
 #pragma unroll
-    for (int u = 0; u < DH / 64; ++u) {
+    for (int u = 0; u < (DH ? DH : dh) / 64; ++u) {
       const int c = part + 8 * u;
       const uint4 ov = *reinterpret_cast<const uint4*>(
           o + b * so.b + h * so.h + tq * so.t + c * 8);
@@ -746,6 +751,302 @@ flash_tc_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      dq + b * sdq.b + h * sdq.h + col0, sdq.t, qw, Tq, lane);
 }
 
+// Head dims above 256 (a multiple of kWide): a block accumulates one
+// kWide-column part of O (of dK and dV, of dQ), the grid's z index choosing
+// which, as the Dh-256 kernels do with their halves; S = Q K^T (and dP =
+// dO V^T) are formed by streaming the head dim in kWide-column chunks
+// through the ring. The chunks of a tile come in the order z + 1, ...,
+// nC - 1, 0, ..., z, so the last is the block's own part and the ring
+// stage it lands in feeds the second products. Shared memory and
+// registers are those of a 128-column head whatever the head dim; every
+// part's blocks form the same S (and dP), so those products are done
+// Dh / kWide times, each over the whole head dim.
+constexpr int kWide = 128;
+
+// The forward: a ring stage holds one chunk of the block's 128 Q rows and
+// of a kv tile's K rows, and at the tile's last chunk its V rows' own part
+// (64 KB a stage).
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_tc_fwd_wide_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, bf16* __restrict__ o,
+                         float* __restrict__ lse, int H, int Tq, int Tk,
+                         int nC, Strides sq, Strides sk, Strides sv,
+                         Strides so, float scale, int causal) {
+  constexpr int W = kWide, kRows = kFwdRows, kThreads = kFwdThreads;
+  constexpr int kQE = kRows * W, kKE = kTile * W, kStage = kQE + 2 * kKE;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);   // [2 stages][Q, K, V]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, z = blockIdx.z;
+  const int n_qt = (Tq + kRows - 1) / kRows;
+  const int q0 = (causal ? n_qt - 1 - (int)blockIdx.y : (int)blockIdx.y)
+                 * kRows;
+  const bf16* qg = q + b * sq.b + h * sq.h;
+  const bf16* kg = k + b * sk.b + h * sk.h;
+  const bf16* vg = v + b * sv.b + h * sv.h;
+  int n_kt = (Tk + kTile - 1) / kTile;
+  if (causal) n_kt = min(n_kt, (q0 + kRows - 1) / kTile + 1);
+  const int n_steps = n_kt * nC;          // (kv tile, chunk) steps
+
+  auto load_step = [&](int s) {
+    const int kt = s / nC, i = s % nC, c = (z + 1 + i) % nC;
+    bf16* st = ring + (s & 1) * kStage;
+    load_tile<kRows, kThreads, W>(st, qg + c * W, sq.t, q0, Tq);
+    load_tile<kTile, kThreads, W>(st + kQE, kg + c * W, sk.t, kt * kTile,
+                                  Tk);
+    if (i == nC - 1)
+      load_tile<kTile, kThreads, W>(st + kQE + kKE, vg + c * W, sv.t,
+                                    kt * kTile, Tk);
+  };
+  load_step(0);
+  cp_async_commit();
+
+  const float c = scale * kLog2e;
+  const int row_w = q0 + 16 * warp;       // the warp's first row
+  const int r_lo = row_w + grp, r_hi = r_lo + 8;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[W / 8][4], s[8][4];
+#pragma unroll
+  for (int n = 0; n < W / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int step = 0; step < n_steps; ++step) {
+    const int kt = step / nC, i = step % nC;
+    cp_async_wait_all();
+    // the step's chunk has landed for every thread, and every warp is done
+    // with the stage the next load overwrites
+    __syncthreads();
+    if (step + 1 < n_steps) load_step(step + 1);
+    cp_async_commit();
+    const int k0 = kt * kTile;
+    if (causal && k0 > row_w + 15) continue;   // all after the warp's rows
+    const bf16* st = ring + (step & 1) * kStage;
+    if (i == 0) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    }
+    mma_rows_nk<W, false>(s, st, 16 * warp, st + kQE, lane);  // S += Q K^T
+    if (i != nC - 1) continue;
+
+    const bool edge = (causal && k0 + kTile - 1 > row_w) || k0 + kTile > Tk;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * c;
+        if (edge) {
+          const int col = k0 + 8 * n + 2 * t + (e & 1);
+          if (col >= Tk || (causal && col > (e < 2 ? r_lo : r_hi)))
+            x = -INFINITY;
+        }
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float mu[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      mu[r] = mx[r] == -INFINITY ? 0.f : mx[r];
+      alpha[r] = exp2f(m[r] - mu[r]);
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = exp2f(s[n][e] - mu[e >> 1]);
+        sum[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int n = 0; n < W / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+    l[0] = l[0] * alpha[0] + sum[0];
+    l[1] = l[1] * alpha[1] + sum[1];
+    unsigned pa[4][4];
+    to_a(pa, s);
+    mma_rows_kn<W, W>(acc, pa, st + kQE + kKE, 0, lane);  // O_z += P V_z
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+  }
+  if (t == 0 && z == 0) {
+    if (r_lo < Tq)
+      lse[(long long)bh * Tq + r_lo] =
+          l[0] > 0.f ? m[0] * kLn2 + logf(l[0]) : INFINITY;
+    if (r_hi < Tq)
+      lse[(long long)bh * Tq + r_hi] =
+          l[1] > 0.f ? m[1] * kLn2 + logf(l[1]) : INFINITY;
+  }
+  // the warp's own Q rows of the last step's stage: only this warp read
+  // them, and no copy is in flight
+  store_rows<W, W>(acc, inv[0], inv[1],
+                   ring + ((n_steps - 1) & 1) * kStage + 16 * warp * W,
+                   o + b * so.b + h * so.h + z * W, so.t, row_w, Tq, lane);
+}
+
+// The backward, both passes in one body. kKV: the dK/dV pass (x k, y v, u
+// q, w dO; out1 dV, out2 dK), a block per 64-key tile walking the q tiles
+// from the diagonal on; else the dQ pass (x q, y dO, u k, w v; out2 dQ), a
+// block per 64-query tile walking the kv tiles up to the diagonal. Tx, Tu:
+// rows of x (and y), of u (and w). A ring stage holds one chunk of all
+// four tiles (64 KB); the step's products are those of the Dh-256 kernels
+// above, S^T = K Q^T and dP^T = V dO^T (S = Q K^T and dP = dO V^T)
+// accumulated over the chunks.
+template <bool kKV>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_tc_bwd_wide_kernel(const bf16* __restrict__ x,
+                         const bf16* __restrict__ y,
+                         const bf16* __restrict__ u,
+                         const bf16* __restrict__ w,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ out1, bf16* __restrict__ out2,
+                         int H, int Tx, int Tu, int nC, Strides sx,
+                         Strides sy, Strides su, Strides sw, Strides so1,
+                         Strides so2, float scale, int causal) {
+  constexpr int W = kWide, kTE = kTile * W, kStage = 4 * kTE;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);   // [2 stages][X, Y, U, W]
+  float* lse_s = reinterpret_cast<float*>(ring + 2 * kStage);  // [2][64]
+  float* dl_s = lse_s + 2 * kTile;                              // [2][64]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, z = blockIdx.z;
+  const int n_xt = (Tx + kTile - 1) / kTile;
+  const int xt = !kKV && causal ? n_xt - 1 - (int)blockIdx.y
+                                : (int)blockIdx.y;
+  const int x0 = xt * kTile;
+  const int Tq = kKV ? Tu : Tx;           // lse and delta rows
+  const bf16* xg = x + b * sx.b + h * sx.h;
+  const bf16* yg = y + b * sy.b + h * sy.h;
+  const bf16* ug = u + b * su.b + h * su.h;
+  const bf16* wg = w + b * sw.b + h * sw.h;
+  const float* lg = lse + (long long)bh * Tq;
+  const float* dg = delta + (long long)bh * Tq;
+  int ut0 = 0, n_ut = (Tu + kTile - 1) / kTile;
+  if (causal) {
+    if (kKV)
+      ut0 = xt;                           // q tiles from the diagonal
+    else
+      n_ut = min(n_ut, xt + 1);           // kv tiles up to it
+  }
+  const int n_steps = (n_ut - ut0) * nC;
+
+  auto load_step = [&](int s) {
+    const int i = s % nC, c = (z + 1 + i) % nC, u0 = (ut0 + s / nC) * kTile;
+    bf16* st = ring + (s & 1) * kStage;
+    load_tile<kTile, kBwdThreads, W>(st, xg + c * W, sx.t, x0, Tx);
+    load_tile<kTile, kBwdThreads, W>(st + kTE, yg + c * W, sy.t, x0, Tx);
+    load_tile<kTile, kBwdThreads, W>(st + 2 * kTE, ug + c * W, su.t, u0,
+                                     Tu);
+    load_tile<kTile, kBwdThreads, W>(st + 3 * kTE, wg + c * W, sw.t, u0,
+                                     Tu);
+    if (kKV && i == 0) {
+      const int rs = ((s / nC) & 1) * kTile;
+      load_rows(lse_s + rs, lg, u0, Tu);
+      load_rows(dl_s + rs, dg, u0, Tu);
+    }
+  };
+  load_step(0);
+  cp_async_commit();
+
+  const float c = scale * kLog2e;
+  const int xw = x0 + 16 * warp;          // the warp's first fixed row
+  const int r_lo = xw + grp, r_hi = r_lo + 8;
+  float l2[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};   // dQ pass: its rows'
+  if (!kKV) {
+    if (r_lo < Tx) {
+      l2[0] = lg[r_lo] * kLog2e;
+      dl[0] = dg[r_lo];
+    }
+    if (r_hi < Tx) {
+      l2[1] = lg[r_hi] * kLog2e;
+      dl[1] = dg[r_hi];
+    }
+  }
+  float acc1[kKV ? W / 8 : 1][4], acc2[W / 8][4], p[8][4], dp[8][4];
+#pragma unroll
+  for (int n = 0; n < W / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc2[n][e] = 0.f;
+      if (kKV) acc1[kKV ? n : 0][e] = 0.f;
+    }
+
+  for (int step = 0; step < n_steps; ++step) {
+    const int i = step % nC, u0 = (ut0 + step / nC) * kTile;
+    cp_async_wait_all();
+    __syncthreads();
+    if (step + 1 < n_steps) load_step(step + 1);
+    cp_async_commit();
+    // a tile wholly masked for the warp's rows
+    if (causal && (kKV ? u0 + kTile - 1 < xw : u0 > xw + 15)) continue;
+    const bf16* st = ring + (step & 1) * kStage;
+    const bf16* us = st + 2 * kTE;
+    const bf16* ws = st + 3 * kTE;
+    if (i == 0) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[n][e] = dp[n][e] = 0.f;
+    }
+    mma_rows_nk<W, false>(p, st, 16 * warp, us, lane);         // X U^T
+    mma_rows_nk<W, false>(dp, st + kTE, 16 * warp, ws, lane);  // Y W^T
+    if (i != nC - 1) continue;
+
+    const float* ls = lse_s + ((step / nC) & 1) * kTile;
+    const float* ds = dl_s + ((step / nC) & 1) * kTile;
+    const bool edge = u0 + kTile > Tu
+                      || (causal && (kKV ? u0 < xw + 15
+                                         : u0 + kTile - 1 > xw));
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int cl = 8 * n + 2 * t + (e & 1), col = u0 + cl;
+        const int row = e < 2 ? r_lo : r_hi;
+        const float lrow = kKV ? ls[cl] * kLog2e : l2[e >> 1];
+        const float drow = kKV ? ds[cl] : dl[e >> 1];
+        float pv = exp2f(fmaf(p[n][e], c, -lrow));
+        if (edge && (col >= Tu
+                     || (causal && (kKV ? col < row : col > row))))
+          pv = 0.f;
+        p[n][e] = pv;
+        dp[n][e] = pv * (dp[n][e] - drow);
+      }
+    unsigned da[4][4];
+    to_a(da, dp);
+    mma_rows_kn<W, W>(acc2, da, us, 0, lane);   // dK += dS^T Q; dQ += dS K
+    if constexpr (kKV) {
+      unsigned pa[4][4];
+      to_a(pa, p);
+      mma_rows_kn<W, W>(acc1, pa, ws, 0, lane);  // dV += P^T dO
+    }
+  }
+
+  // the warp's own X and Y rows of the last step's stage: only this warp
+  // read them, and no copy is in flight
+  bf16* st = ring + ((n_steps - 1) & 1) * kStage + 16 * warp * W;
+  store_rows<W, W>(acc2, scale, scale, st,
+                   out2 + b * so2.b + h * so2.h + z * W, so2.t, xw, Tx,
+                   lane);
+  if constexpr (kKV)
+    store_rows<W, W>(acc1, 1.f, 1.f, st + kTE,
+                     out1 + b * so1.b + h * so1.h + z * W, so1.t, xw, Tx,
+                     lane);
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(
@@ -788,7 +1089,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                               kBwdThreads, 0, s>>>(
       static_cast<const bf16*>(o), static_cast<const bf16*>(d_o),
       static_cast<float*>(delta), H, Tq, rows, strides_of(strides, 3),
-      strides_of(strides, 4));
+      strides_of(strides, 4), DH);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -823,14 +1124,77 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v,
+                            void* o, void* lse, int B, int H, int Tq, int Tk,
+                            int Dh, const long long* strides, float scale,
+                            int causal, cudaStream_t stream) {
+  const size_t smem = 2 * (size_t)(kFwdRows + 2 * kTile) * kWide
+                      * sizeof(bf16);
+  cudaError_t err = allow_smem(flash_tc_fwd_wide_kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Tq + kFwdRows - 1) / kFwdRows, Dh / kWide);
+  flash_tc_fwd_wide_kernel<<<grid, kFwdThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), H, Tq, Tk, Dh / kWide,
+      strides_of(strides, 0), strides_of(strides, 1), strides_of(strides, 2),
+      strides_of(strides, 3), scale, causal);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bwd_wide(const void* q, const void* k, const void* v,
+                            const void* o, const void* d_o, const void* lse,
+                            void* delta, void* dq, void* dk, void* dv, int B,
+                            int H, int Tq, int Tk, int Dh,
+                            const long long* st, float scale, int causal,
+                            cudaStream_t s) {
+  const long long rows = (long long)B * H * Tq;
+  const int rows_per_block = kBwdThreads / 8;
+  flash_tc_delta_kernel<0><<<(unsigned)((rows + rows_per_block - 1)
+                                        / rows_per_block),
+                             kBwdThreads, 0, s>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(d_o),
+      static_cast<float*>(delta), H, Tq, rows, strides_of(st, 3),
+      strides_of(st, 4), Dh);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int nC = Dh / kWide;
+  const size_t smem = 8 * (size_t)kTile * kWide * sizeof(bf16)
+                      + 4 * kTile * sizeof(float);
+  const bf16* f[] = {static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                     static_cast<const bf16*>(v),
+                     static_cast<const bf16*>(d_o)};
+  const float* lp = static_cast<const float*>(lse);
+  const float* dlp = static_cast<const float*>(delta);
+  err = allow_smem(flash_tc_bwd_wide_kernel<true>, smem);
+  if (err != cudaSuccess) return err;
+  flash_tc_bwd_wide_kernel<true>
+      <<<dim3(B * H, (Tk + kTile - 1) / kTile, nC), kBwdThreads, smem, s>>>(
+          f[1], f[2], f[0], f[3], lp, dlp, static_cast<bf16*>(dv),
+          static_cast<bf16*>(dk), H, Tk, Tq, nC, strides_of(st, 1),
+          strides_of(st, 2), strides_of(st, 0), strides_of(st, 4),
+          strides_of(st, 7), strides_of(st, 6), scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = allow_smem(flash_tc_bwd_wide_kernel<false>, smem);
+  if (err != cudaSuccess) return err;
+  flash_tc_bwd_wide_kernel<false>
+      <<<dim3(B * H, (Tq + kTile - 1) / kTile, nC), kBwdThreads, smem, s>>>(
+          f[0], f[3], f[1], f[2], lp, dlp, nullptr, static_cast<bf16*>(dq),
+          H, Tq, Tk, nC, strides_of(st, 0), strides_of(st, 4),
+          strides_of(st, 1), strides_of(st, 2), strides_of(st, 5),
+          strides_of(st, 5), scale, causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// q [B, H, Tq, Dh], k/v [B, H, Tk, Dh], o like q, all bf16, Dh 64, 128 or
-// 256:
-// any strides with a unit head-dim stride and 16-byte aligned rows, given
-// as `strides` = [b, h, t] element strides of q, k, v, o (12 values, host
-// memory). lse [B, H, Tq] fp32 contiguous. Causal needs Tq == Tk (the
-// wrapper checks).
+// q [B, H, Tq, Dh], k/v [B, H, Tk, Dh], o like q, all bf16, Dh 64, 128,
+// 256 or a multiple of 128 above 256: any strides with a unit head-dim
+// stride and 16-byte aligned rows, given as `strides` = [b, h, t] element
+// strides of q, k, v, o (12 values, host memory). lse [B, H, Tq] fp32
+// contiguous. Causal needs Tq == Tk (the wrapper checks).
 extern "C" int ptpu_flash_attention_tc_fwd(const void* q, const void* k,
                                            const void* v, void* o, void* lse,
                                            int B, int H, int Tq, int Tk,
@@ -849,6 +1213,10 @@ extern "C" int ptpu_flash_attention_tc_fwd(const void* q, const void* k,
       return static_cast<int>(launch_fwd<256>(q, k, v, o, lse, B, H, Tq, Tk,
                                               strides, scale, causal, s));
     default:
+      if (Dh > 256 && Dh % kWide == 0)
+        return static_cast<int>(launch_fwd_wide(q, k, v, o, lse, B, H, Tq,
+                                                Tk, Dh, strides, scale,
+                                                causal, s));
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -876,6 +1244,10 @@ extern "C" int ptpu_flash_attention_tc_bwd(
                                               dq, dk, dv, B, H, Tq, Tk,
                                               strides, scale, causal, s));
     default:
+      if (Dh > 256 && Dh % kWide == 0)
+        return static_cast<int>(launch_bwd_wide(q, k, v, o, d_o, lse, delta,
+                                                dq, dk, dv, B, H, Tq, Tk, Dh,
+                                                strides, scale, causal, s));
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }

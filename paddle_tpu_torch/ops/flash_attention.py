@@ -22,27 +22,32 @@ the dtype and the pass alone; the route names the kernel that ran:
     "tc"     bf16 CUDA tensors, forward and backward:
              ``csrc/flash_attention_tc.cu``, mma.sync on the tensor cores,
              P and dS rounded to bf16 before the second product
-    "f32tc"  fp32 CUDA tensors, forward: ``csrc/flash_attention_f32tc.cu``,
-             3xTF32 mma.sync on the tensor cores (fp32 accuracy)
-    "simt"   fp32 CUDA tensors, backward: ``csrc/flash_attention.cu``,
-             fp32 on the SIMT units
+    "f32tc"  fp32 CUDA tensors, forward and backward:
+             ``csrc/flash_attention_f32tc.cu`` and
+             ``csrc/flash_attention_f32tc_bwd.cu``, 3xTF32 mma.sync on the
+             tensor cores (fp32 accuracy)
 
 Anything else raises; no route gives way to another. The tensor-core
 kernels copy rows 16 bytes at a time: a tensor they read whose base
 address or whose B, H, T strides are not multiples of 16 bytes is first
 copied to a contiguous tensor (``tc_operand``), and the copy is counted.
 
-Every route's kernels are instantiated for head dims 64, 128 and 256
-(``SUPPORTED_HEAD_DIMS``). Any other head dim up to 256 runs at the next
-of them (``kernel_head_dim``): q, k and v (and in the backward o and dO)
-are zero-padded on their last dim, each pad a counted copy, and the
-results sliced back. Zero columns leave Q Kᵀ unchanged and give zero
-columns of O and of the grads; sm_scale stays the caller's (by default
-the true head dim's ``Dh ** -0.5``). A head dim above 256 raises.
+Every route runs any head dim. Its kernels are instantiated for head
+dims 64, 128 and 256 (``SUPPORTED_HEAD_DIMS``; the fp32 backward runs 256
+in parts, as it runs the wider ones), and above 256 for any multiple of
+``PART_WIDTH``: a block then accumulates one ``PART_WIDTH``-column part
+of its outputs and streams the head dim through its tiles in chunks of
+that width to form the scores, so every part recomputes them (the
+products of S and dP grow with Dh / ``PART_WIDTH``). Any other head dim runs at the width
+``kernel_head_dim`` gives: q, k and v (and in the backward o and dO) are
+zero-padded on their last dim, each pad a counted copy, and the results
+sliced back. Zero columns leave Q Kᵀ unchanged and give zero columns of
+O and of the grads; sm_scale stays the caller's (by default the true head
+dim's ``Dh ** -0.5``).
 
 ``flash_attention_fwd`` and ``flash_attention_bwd`` count their launches
-(``.launches``, and ``.launches_by_route`` split into "tc", "f32tc" and
-"simt") and the copies they made (``.copies``); ``reset_counts()``
+(``.launches``, and ``.launches_by_route`` split into "tc" and "f32tc")
+and the copies they made (``.copies``); ``reset_counts()``
 zeroes all.
 """
 
@@ -52,13 +57,14 @@ import torch
 
 from . import _build
 
-__all__ = ["SUPPORTED_HEAD_DIMS", "flash_attention",
+__all__ = ["PART_WIDTH", "SUPPORTED_HEAD_DIMS", "flash_attention",
            "flash_attention_reference", "flash_attention_fwd",
            "flash_attention_bwd", "kernel_head_dim", "kernel_route",
            "tc_aligned", "tc_operand", "reset_counts", "load"]
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256)   # the kernels' instantiations
-_ROUTES = ("tc", "f32tc", "simt")
+PART_WIDTH = 128   # the output columns a block takes above 256
+_ROUTES = ("tc", "f32tc")
 
 
 def flash_attention_reference(q, k, v, causal=True, sm_scale=None):
@@ -80,9 +86,8 @@ def flash_attention_reference(q, k, v, causal=True, sm_scale=None):
 def kernel_route(device_type, dtype, backward=False):
     """The route of a call on tensors of `device_type` and `dtype`, for
     the forward or the `backward` pass: "plain" on the CPU (any dtype);
-    on CUDA "tc" for bf16, and for fp32 "f32tc" forward and "simt"
-    backward. Raises for any other device (RuntimeError) or CUDA dtype
-    (TypeError)."""
+    on CUDA "tc" for bf16 and "f32tc" for fp32, both ways. Raises for
+    any other device (RuntimeError) or CUDA dtype (TypeError)."""
     if device_type == "cpu":
         return "plain"
     if device_type != "cuda":
@@ -91,21 +96,20 @@ def kernel_route(device_type, dtype, backward=False):
     if dtype == torch.bfloat16:
         return "tc"
     if dtype == torch.float32:
-        return "simt" if backward else "f32tc"
+        return "f32tc"
     raise TypeError("flash_attention kernels take bfloat16 or float32, "
                     "got %s" % dtype)
 
 
 def kernel_head_dim(Dh):
     """The head dim the kernels run a call of head dim `Dh` at: the
-    smallest of ``SUPPORTED_HEAD_DIMS`` that is at least Dh (Dh itself
-    when it is one; otherwise the operands are zero-padded to it).
-    Raises ValueError naming the limit above the largest."""
+    smallest of ``SUPPORTED_HEAD_DIMS`` that is at least Dh, and above
+    the largest Dh rounded up to a multiple of ``PART_WIDTH`` (Dh itself
+    when it is one; otherwise the operands are zero-padded to it)."""
     for d in SUPPORTED_HEAD_DIMS:
         if Dh <= d:
             return d
-    raise ValueError("head_dim %d is above the largest the flash_attention "
-                     "kernels take (%d)" % (Dh, SUPPORTED_HEAD_DIMS[-1]))
+    return -(-Dh // PART_WIDTH) * PART_WIDTH
 
 
 def tc_aligned(ptr, shape, strides, elem_size):
@@ -160,7 +164,8 @@ class _FlashAttention(torch.autograd.Function):
 
 # C entry points: (library, pointer args)
 _ENTRY = {"ptpu_flash_attention_f32tc_fwd": ("flash_attention_f32tc", 5),
-          "ptpu_flash_attention_bwd": ("flash_attention", 10),
+          "ptpu_flash_attention_f32tc_bwd": ("flash_attention_f32tc_bwd",
+                                             10),
           "ptpu_flash_attention_tc_fwd": ("flash_attention_tc", 5),
           "ptpu_flash_attention_tc_bwd": ("flash_attention_tc", 10)}
 _fns = {}
@@ -313,13 +318,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal, sm_scale):
                          "on q's device")
     if Dp != Dh:
         q, k, v, o, do = _pad_head(flash_attention_bwd, Dp, q, k, v, o, do)
-    if route == "tc":
-        q, k, v, o, do = _tc_operands(flash_attention_bwd, q, k, v, o, do)
+    q, k, v, o, do = _tc_operands(flash_attention_bwd, q, k, v, o, do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     delta = torch.empty_like(lse)
-    _launch("ptpu_flash_attention_tc_bwd" if route == "tc"
-            else "ptpu_flash_attention_bwd",
+    _launch("ptpu_flash_attention_%s_bwd" % route,
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr()),

@@ -4,13 +4,16 @@ mode as ``tests/test_pallas.py`` runs it: forward and dQ/dK/dV (autograd
 against ``jax.vjp``), causal self-attention at T 128 and 256 and
 non-causal cross-attention (Tq 128, Tk 256), Dh 64, in both layouts
 (``bhtd`` and the ``bthd`` the fused attention op hands over), fp32 and
-bf16; and at T 128 with Dh 128 and a head dim the kernels reach through
-padding (96). Inputs come from a seeded numpy generator.
+bf16; and at T 128 with Dh 128, 256, a head dim the kernels reach
+through padding (96) and one past 256 (320). Inputs come from a seeded
+numpy generator.
 
-Also: a numpy emulation of the bf16 tensor-core kernels' numerics
-(``csrc/flash_attention_tc.cu``) held against the same JAX op within the
-limits ``chip_smoke.py`` holds those kernels to on the card, and the
-wrapper's route, alignment and head-dim decisions as pure functions."""
+Also: numpy emulations of the bf16 tensor-core kernels' numerics
+(``csrc/flash_attention_tc.cu``) and of the 3xTF32 forward and backward
+(``csrc/flash_attention_f32tc.cu``, ``csrc/flash_attention_f32tc_bwd.cu``)
+held against the same JAX op within the limits ``chip_smoke.py`` holds
+those kernels to on the card, and the wrapper's route, alignment and
+head-dim decisions as pure functions."""
 
 import pathlib
 import re
@@ -56,14 +59,16 @@ def test_flash_attention_op_matches_jax(Tq, Tk, causal, layout, dtype):
 
 
 # the head dims F1 opened: 128 and 256 (instantiations), 96 (padded to
-# 128)
+# 128); F1c: 320 (padded to 384, three 128-column parts)
 @pytest.mark.parametrize("layout,dtype,Dh", [("bthd", "float32", 128),
                                              ("bhtd", "bfloat16", 128),
                                              ("bthd", "float32", 96),
                                              ("bhtd", "float32", 256),
                                              ("bthd", "float32", 256),
                                              ("bhtd", "bfloat16", 256),
-                                             ("bthd", "bfloat16", 256)])
+                                             ("bthd", "bfloat16", 256),
+                                             ("bthd", "float32", 320),
+                                             ("bhtd", "bfloat16", 320)])
 def test_flash_attention_op_matches_jax_wide_heads(layout, dtype, Dh):
     _op_matches_jax(128, 128, True, layout, dtype, Dh)
 
@@ -304,9 +309,96 @@ def test_f32tc_kernel_numerics_within_card_limits(Dh):
     assert ratio1 > 1
 
 
+def _f32tc_bwd_emulation(q, k, v, o, do, lse, causal, scale, tile, mm=None):
+    """What ``csrc/flash_attention_f32tc_bwd.cu`` computes from fp32
+    arrays [B, H, T, Dh] and the forward's o and lse: delta = rowsum(dO·O)
+    in fp32; per tile of `tile` streamed rows, S = Q Kᵀ and dP = dO Vᵀ by
+    3xTF32, P = exp2(S·scale·log2(e) − lse·log2(e)) (0 where masked), dS =
+    P (dP − delta); the dK/dV pass adds Pᵀ dO and dSᵀ Q over the q tiles,
+    the dQ pass dS K over the kv tiles, every product by 3xTF32 (`mm`,
+    default ``_mm3``) and every tile's term added in fp32. Returns (dq,
+    dk, dv)."""
+    mm = _mm3 if mm is None else mm
+    f32 = np.float32
+    Tq, Tk = q.shape[2], k.shape[2]
+    c, log2e = f32(scale * np.log2(np.e)), f32(np.log2(np.e))
+    delta = (do * o).sum(-1, keepdims=True, dtype=f32)
+    l2 = lse * log2e
+
+    def p_ds(qs, dos, q0, ks, vs, k0, rows_l2, rows_delta):
+        p = np.exp2(mm(qs, ks.swapaxes(-1, -2)) * c - rows_l2)
+        if causal:
+            vis = (k0 + np.arange(ks.shape[2]))[None, :] \
+                <= (q0 + np.arange(qs.shape[2]))[:, None]
+            p = np.where(vis, p, 0).astype(f32)
+        return p, p * (mm(dos, vs.swapaxes(-1, -2)) - rows_delta)
+
+    dq, dk, dv = (np.zeros(x.shape, f32) for x in (q, k, v))
+    with np.errstate(over="ignore", invalid="ignore"):
+        for q0 in range(0, Tq, tile):   # dK/dV pass: q tiles streamed
+            sl = slice(q0, q0 + tile)
+            p, ds = p_ds(q[:, :, sl], do[:, :, sl], q0, k, v, 0,
+                         l2[:, :, sl], delta[:, :, sl])
+            dv += mm(p.swapaxes(-1, -2), do[:, :, sl])
+            dk += mm(ds.swapaxes(-1, -2), q[:, :, sl])
+        for k0 in range(0, Tk, tile):   # dQ pass: kv tiles streamed
+            sl = slice(k0, k0 + tile)
+            _, ds = p_ds(q, do, 0, k[:, :, sl], v[:, :, sl], k0, l2, delta)
+            dq += mm(ds, k[:, :, sl])
+    return dq * f32(scale), dk * f32(scale), dv
+
+
+# the 3xTF32 backward's streamed rows a tile by head dim (the first pass's
+# BwdCfg<DH, kKV>::kT in paddle_tpu_torch/csrc/flash_attention_f32tc_bwd.cu)
+F32TC_BWD_TILE = {64: 32, 128: 16, 256: 16}
+
+
+@pytest.mark.parametrize("Dh", sorted(F32TC_BWD_TILE))
+def test_f32tc_backward_numerics_within_card_limits(Dh):
+    """The 3xTF32 backward's numerics (every product from TF32 halves, P
+    and dS split from fp32, the forward's emulated o and lse) stay inside
+    the fp32 card limit for the grads against the JAX op's vjp on the
+    same fp32 inputs (T 128, causal), at each of its head-dim configs with
+    its tile; prints the largest ratio to the limit. One TF32 product
+    alone would not: its ratio is printed beside."""
+    q, k, v, g = _inputs(128, 128, "bhtd", seed=4, Dh=Dh)
+    q, k, v, g = (2 * x for x in (q, k, v, g))
+    scale = Dh ** -0.5
+    attrs = {"causal": True, "sm_scale": scale, "layout": "bhtd"}
+    j_impl = j_registry.get("flash_attention").impl
+
+    def j_fn(q, k, v):
+        return j_impl(None, {"Q": [q], "K": [k], "V": [v]}, attrs)["Out"][0]
+
+    _, vjp = jax.vjp(j_fn, *(jnp.asarray(x) for x in (q, k, v)))
+    want = [_f32(x) for x in vjp(jnp.asarray(g))]
+    src = (pathlib.Path(p_flash.__file__).parents[1] / "csrc"
+           / "flash_attention_f32tc_bwd.cu").read_text()
+    cfg = re.search(r"struct BwdCfg<%d, \w+> \{\s*static constexpr int "
+                    r"kR = \d+, kT = (\d+)," % Dh, src)
+    assert cfg and int(cfg.group(1)) == F32TC_BWD_TILE[Dh]
+    o, lse = _f32tc_emulation(q, k, v, True, scale, F32TC_KV_TILE[Dh])
+    atol, rtol = F32_CARD_TOL
+
+    def ratios(got):
+        return {n: float((np.abs(x - w) / (atol + rtol * np.abs(w))).max())
+                for n, x, w in zip(("dq", "dk", "dv"), got, want)}
+
+    got = _f32tc_bwd_emulation(q, k, v, o, g, lse, True, scale,
+                               F32TC_BWD_TILE[Dh])
+    one = _f32tc_bwd_emulation(q, k, v, o, g, lse, True, scale,
+                               F32TC_BWD_TILE[Dh],
+                               mm=lambda a, b: _tf32(a) @ _tf32(b))
+    r, r1 = ratios(got), ratios(one)
+    print("f32tc backward numerics Dh=%d: largest |err| / card limit %s "
+          "(one TF32 product: %s)" % (Dh, r, r1))
+    assert all(np.isfinite(x).all() for x in got)
+    assert max(r.values()) <= 1 and max(r1.values()) > 1
+
+
 def test_route_and_alignment_decisions():
-    """bf16 CUDA -> tc both ways, fp32 CUDA -> f32tc forward and simt
-    backward, CPU -> plain, other CUDA dtypes and devices raise; a view
+    """bf16 CUDA -> tc both ways, fp32 CUDA -> f32tc both ways, CPU ->
+    plain, other CUDA dtypes and devices raise; a view
     the tensor-core kernels cannot read 16 bytes at a time is copied, an
     aligned one is read in place."""
     route = p_flash.kernel_route
@@ -316,7 +408,7 @@ def test_route_and_alignment_decisions():
     assert route("cuda", torch.bfloat16) == "tc"
     assert route("cuda", torch.bfloat16, backward=True) == "tc"
     assert route("cuda", torch.float32) == "f32tc"
-    assert route("cuda", torch.float32, backward=True) == "simt"
+    assert route("cuda", torch.float32, backward=True) == "f32tc"
     for dt in (torch.float16, torch.float64, torch.int8):
         with pytest.raises(TypeError, match="bfloat16"):
             route("cuda", dt)
@@ -343,29 +435,36 @@ def test_route_and_alignment_decisions():
 
 
 def test_every_gated_head_dim_has_a_kernel_or_raises_named():
-    """F1: every head dim from 64 to 256 that the op's gate sends to the
-    kernels runs at an instantiated width no narrower than itself (itself
-    when it is one; otherwise the wrapper pads to it), up to the largest
-    instantiation; above it the wrapper raises a ValueError naming the
-    limit. No kernel needed: the wrapper's decision function."""
+    """F1, F1c: every head dim from 64 to 520 that the op's gate sends to
+    the kernels runs at a width the kernels take, no narrower than itself
+    (itself when it is one; otherwise the wrapper pads to it): up to 256
+    the narrowest instantiation that fits, above it the next multiple of
+    ``PART_WIDTH``, the part width every route's wide kernels are built
+    for (read from their sources). Nothing raises any more: the name is
+    the contract before F1c was closed. No kernel needed: the wrapper's
+    decision function and the sources' constants."""
     largest = max(p_flash.SUPPORTED_HEAD_DIMS)
-    assert set(p_flash.SUPPORTED_HEAD_DIMS) >= {64, 128, 256}
-    for Dh in range(64, 257):
-        if not p_compat.flash_qualify(128, 128, Dh, True):
-            continue
+    assert set(p_flash.SUPPORTED_HEAD_DIMS) == {64, 128, 256}
+    part = p_flash.PART_WIDTH
+    csrc = pathlib.Path(p_flash.__file__).parents[1] / "csrc"
+    for name, const in (("flash_attention_tc.cu", "kWide"),
+                        ("flash_attention_f32tc.cuh", "kPart")):
+        m = re.search(r"constexpr int %s = (\d+);" % const,
+                      (csrc / name).read_text())
+        assert m and int(m.group(1)) == part, name
+    gated = [Dh for Dh in range(64, 521)
+             if p_compat.flash_qualify(128, 128, Dh, True)]
+    assert gated == list(range(64, 521))
+    for Dh in gated:
+        d = p_flash.kernel_head_dim(Dh)
+        assert d >= Dh, Dh
         if Dh <= largest:
-            d = p_flash.kernel_head_dim(Dh)
-            assert d in p_flash.SUPPORTED_HEAD_DIMS and d >= Dh, Dh
-            assert (d == Dh) == (Dh in p_flash.SUPPORTED_HEAD_DIMS), Dh
+            assert d in p_flash.SUPPORTED_HEAD_DIMS, Dh
             assert not [s for s in p_flash.SUPPORTED_HEAD_DIMS
                         if Dh <= s < d], Dh   # the narrowest that fits
+            assert (d == Dh) == (Dh in p_flash.SUPPORTED_HEAD_DIMS), Dh
         else:
-            with pytest.raises(ValueError,
-                               match=r"head_dim %d is above the largest .* "
-                                     r"\(%d\)" % (Dh, largest)):
-                p_flash.kernel_head_dim(Dh)
-    for Dh in (largest + 1, 320):   # F1c: wider than any instantiation
-        with pytest.raises(ValueError,
-                           match=r"head_dim %d is above the largest .* "
-                                 r"\(%d\)" % (Dh, largest)):
-            p_flash.kernel_head_dim(Dh)
+            assert d % part == 0 and d - Dh < part, Dh
+            assert (d == Dh) == (Dh % part == 0), Dh
+    assert [p_flash.kernel_head_dim(d) for d in (257, 320, 384, 512, 520)] \
+        == [384, 384, 384, 512, 640]

@@ -184,7 +184,7 @@ def test_flash_attention_kernels_match_plain_on_card(B, H, Tq, Tk, causal,
     O, and the tensor-core kernels round P and dS to bf16; the CPU test
     `test_tc_kernel_numerics_within_card_limits` emulates that). bf16
     takes the tensor-core route both ways; fp32 the 3xTF32 tensor-core
-    forward and the SIMT backward."""
+    route both ways."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -254,7 +254,7 @@ def test_flash_attention_wide_heads_match_plain_on_card(B, H, Tq, Tk, causal,
     tols = ({"out": (1e-4, 1e-4), "grads": (1e-4, 1e-4)}
             if dtype == "float32"
             else {"out": (1e-2, 1e-2), "grads": (3e-2, 1e-2)})
-    padded = Dh not in fa.SUPPORTED_HEAD_DIMS
+    padded = fa.kernel_head_dim(Dh) != Dh
     before = _flash_counts(fa, dtype)
     out, grads = _flash_against_plain(fa, q, k, v, g, causal, tols)
     assert _flash_counts(fa, dtype) == tuple(n + 1 for n in before[:4]) + (
@@ -264,28 +264,45 @@ def test_flash_attention_wide_heads_match_plain_on_card(B, H, Tq, Tk, causal,
 
 
 @pytest.mark.cuda
-def test_flash_attention_head_dim_above_the_largest_raises_on_card():
-    """A head dim above the kernels' largest instantiation (256) raises
-    naming the limit (F1c), on both dtypes; 160 (padded to 256), which
-    raised before F1 was closed to 256, runs there and matches the plain
-    version forward and backward."""
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("B,H,Tq,Tk,causal,layout,Dh", [
+    (1, 2, 128, 128, True, "bhtd", 320),    # padded to 384
+    (2, 2, 200, 200, True, "bthd", 384),    # ragged tiles
+    (2, 2, 256, 256, True, "bthd", 512),
+    (1, 2, 72, 200, False, "bhtd", 512),    # cross, ragged
+])
+def test_flash_attention_head_dims_past_256_match_plain_on_card(
+        B, H, Tq, Tk, causal, layout, Dh, dtype):
+    """F1c: head dims above the largest instantiation run on the kernels
+    (a block a 128-column part of the outputs, the head dim streamed in
+    128-column chunks to form the scores) and match the plain version
+    forward and backward, by their dtype's routes; 320 runs zero-padded
+    to 384 (4 copies counted). Tolerances as in
+    test_flash_attention_kernels_match_plain_on_card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from paddle_tpu_torch.ops import flash_attention as fa
 
-    for dt in (torch.bfloat16, torch.float32):
-        q = torch.zeros(1, 1, 128, 320, device="cuda", dtype=dt)
-        with pytest.raises(ValueError, match=r"head_dim 320 is above the "
-                                             r"largest .* \(256\)"):
-            fa.flash_attention(q, q, q, causal=True)
-        rng = np.random.RandomState(160)
-        q, k, v, g = (torch.from_numpy(
-            rng.standard_normal((1, 2, 128, 160)).astype(np.float32)).to(
-                "cuda", dt) for _ in range(4))
-        tols = ({"out": (1e-4, 1e-4), "grads": (1e-4, 1e-4)}
-                if dt == torch.float32
-                else {"out": (1e-2, 1e-2), "grads": (3e-2, 1e-2)})
-        _flash_against_plain(fa, q, k, v, g, True, tols)
+    rng = np.random.RandomState(Tq + Tk + Dh)
+    dev, tdt = torch.device("cuda"), getattr(torch, dtype)
+
+    def make(T):
+        shape = (B, H, T, Dh) if layout == "bhtd" else (B, T, H, Dh)
+        t = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        t = t.to(dev, tdt)
+        return t if layout == "bhtd" else t.transpose(1, 2)
+
+    q, k, v, g = make(Tq), make(Tk), make(Tk), make(Tq)
+    tols = ({"out": (1e-4, 1e-4), "grads": (1e-4, 1e-4)}
+            if dtype == "float32"
+            else {"out": (1e-2, 1e-2), "grads": (3e-2, 1e-2)})
+    padded = fa.kernel_head_dim(Dh) != Dh
+    before = _flash_counts(fa, dtype)
+    out, grads = _flash_against_plain(fa, q, k, v, g, causal, tols)
+    assert _flash_counts(fa, dtype) == tuple(n + 1 for n in before[:4]) + (
+        before[4] + (4 if padded else 0),)
+    assert out.shape == q.shape
+    assert all(d.shape == t.shape for d, t in zip(grads, (q, k, v)))
 
 
 @pytest.mark.cuda
@@ -334,12 +351,56 @@ def test_flash_attention_f32tc_forward_matches_plain_on_card(B, H, Tq, Tk,
                                atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh", [64, 96, 128, 256])
+@pytest.mark.parametrize("B,H,Tq,Tk,causal,layout", [
+    (2, 3, 256, 256, True, "bthd"),
+    (1, 2, 128, 320, False, "bhtd"),
+    (1, 2, 100, 100, True, "bhtd"),    # ragged tiles
+    (1, 1, 72, 200, False, "bthd"),
+])
+def test_flash_attention_f32tc_backward_matches_plain_on_card(B, H, Tq, Tk,
+                                                              causal, layout,
+                                                              Dh):
+    """The fp32 backward on the tensor cores (3xTF32) against the plain
+    version's autograd, on the forward test's shapes and inputs: dq, dk,
+    dv within atol/rtol 1e-4 (fp32 accuracy), one launch each way by the
+    "f32tc" route; two backward calls on the same inputs bitwise equal
+    (no atomics: the sums do not depend on the order blocks run in)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.RandomState(Tq + Tk + Dh)
+
+    def make(T):
+        shape = (B, H, T, Dh) if layout == "bhtd" else (B, T, H, Dh)
+        t = torch.from_numpy(
+            (2 * rng.standard_normal(shape)).astype(np.float32)).cuda()
+        return t if layout == "bhtd" else t.transpose(1, 2)
+
+    q, k, v, g = make(Tq), make(Tk), make(Tk), make(Tq)
+    before = _flash_counts(fa, "float32")
+    _flash_against_plain(fa, q, k, v, g, causal,
+                         {"out": (1e-4, 1e-4), "grads": (1e-4, 1e-4)})
+    padded = fa.kernel_head_dim(Dh) != Dh
+    assert _flash_counts(fa, "float32") == tuple(
+        n + 1 for n in before[:4]) + (before[4] + (4 if padded else 0),)
+    if not padded:
+        scale = Dh ** -0.5
+        o, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+        first = fa.flash_attention_bwd(q, k, v, o, lse, g, causal, scale)
+        again = fa.flash_attention_bwd(q, k, v, o, lse, g, causal, scale)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("dq", "dk", "dv"), first, again):
+            assert torch.equal(x, y), name
+
+
 def _flash_counts(fa, dtype):
-    """(fwd launches, bwd launches, fwd and bwd launches by the routes of
-    `dtype` (bf16: "tc" both ways; fp32: "f32tc" forward, "simt"
-    backward), copies of both)."""
+    """(fwd launches, bwd launches, fwd and bwd launches by the route of
+    `dtype` (bf16: "tc"; fp32: "f32tc"; both ways), copies of both)."""
     f, b = fa.flash_attention_fwd, fa.flash_attention_bwd
-    fr, br = ("tc", "tc") if dtype == "bfloat16" else ("f32tc", "simt")
+    fr = br = "tc" if dtype == "bfloat16" else "f32tc"
     return (f.launches, b.launches, f.launches_by_route[fr],
             b.launches_by_route[br], f.copies + b.copies)
 
@@ -394,8 +455,11 @@ def test_flash_attention_tc_copies_misaligned_views_on_card():
 def test_flash_attention_f32tc_copies_misaligned_views_on_card():
     """fp32 views whose row stride (66 floats, 264 bytes) is not a
     multiple of 16 bytes: the 3xTF32 forward's wrapper copies q, k and v
-    (3 copies counted; the SIMT backward reads any strides) and both
-    kernels still agree with the plain version."""
+    and the backward's dO (4 copies counted; the backward reads the
+    forward's copies and its aligned o), and both kernels still agree
+    with the plain version. The backward called on misaligned q, k, v, o
+    and dO copies all five and agrees with the plain version's
+    autograd."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -411,7 +475,24 @@ def test_flash_attention_f32tc_copies_misaligned_views_on_card():
     _flash_against_plain(fa, q, k, v, g, True,
                          {"out": (1e-4, 1e-4), "grads": (1e-4, 1e-4)})
     assert _flash_counts(fa, "float32") == tuple(
-        n + 1 for n in before[:4]) + (before[4] + 3,)
+        n + 1 for n in before[:4]) + (before[4] + 4,)
+
+    o = make()
+    o.copy_(fa.flash_attention_reference(q, k, v, True))
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(
+        fa.flash_attention_reference(*leaves, causal=True), leaves, g)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * 64 ** -0.5
+    lse = torch.logsumexp(s.masked_fill(~torch.ones(
+        96, 96, dtype=torch.bool, device="cuda").tril(), float("-inf")), -1)
+    copies = fa.flash_attention_bwd.copies
+    got = fa.flash_attention_bwd(q, k, v, o, lse.contiguous(), g, True,
+                                 64 ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.copies == copies + 5
+    for name, x, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(x.cpu().numpy(), w.cpu().numpy(),
+                                   err_msg=name, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda
