@@ -17,8 +17,13 @@ Phases, each fatal on failure (exit code 1, no result line):
      call computing the same function (a yardstick the port never
      calls): paged attention (K2) on an edge matrix (head dims 48, 50,
      80, 100; windows of 17, 33 and 64 slots; splits past a short row's
-     end) and timed at C=1 (decode), C=7 (the linear verify window) and
-     C=17 (the spec_k=16 window); the tree-mask window (K3) on an edge
+     end) and on the prefill-chunk matrix (C=64, Dh 64, block 16: valid
+     spans of 1, 7, 33 and 64 slots in one call, a decode row at
+     position 500 whose window runs past the table, two rows on shared
+     adopted blocks, an inactive row), and timed at C=1 (decode), C=7
+     (the linear verify window), C=17 (the spec_k=16 window), C=8 (phase
+     4b's chunk windows) and C=64 (the prefill chunk, B=8, H=8, a context
+     of 512); the tree-mask window (K3) on an edge
      matrix (width 1 against K2 up to C=41, null tails, windows past the
      table, an inactive row, Dh 32 to 128 and 48/80/100, C up to 64 with
      two mask words a slot, a window across two splits) and timed at the
@@ -43,7 +48,28 @@ Phases, each fatal on failure (exit code 1, no result line):
      layer a linear window and K3 once a layer a tree window. Then two
      legs past the kernels' former window limits on the first 4
      prompts, held the same way: spec_k=16 (K2 at C=17) and a 4x8 tree
-     (K3 at C=33). Then one tree window under torch.profiler.
+     (K3 at C=33). Then two legs over chunked prefill (bench.py:784's
+     prefill_chunk=8) on all 16 prompts, held the same way: linear_c8
+     (spec_k=6) and tree_model (spec_tree="2x6", drafted by a
+     ModelDrafter over the target itself, bench.py:804-812: catch-up
+     chunks at C=8, draft steps of 5 one-token steps at C=1); the
+     ModelDrafter's pool must drain clean too and its draft steps run;
+     every launch is accounted for (the drafter's by their sum). Then one
+     tree window under torch.profiler.
+  4c. serving fast path: bench_serving_fastpath (bench.py:659-729) at the
+     flagship's full width (a fresh model, seed 0) behind
+     ``ServingEngine(max_batch=8, block_size=16)``: 32 prompts of a
+     256-token shared prefix and a 2-8-token unique tail
+     (RandomState(11)), 32 new tokens each, all submitted at once after
+     one priming request, in three legs: legacy (one-token prefill),
+     chunked (prefill_chunk=64, the default budget of 256) and fast
+     (chunked + prefix_cache). All legs equal on all 32 requests, the
+     first 8 equal to ``reference_decode``; the fast leg reuses all 16
+     shared blocks of every request (hit rate 1.0) and ends with >= 16
+     cached; every pool drains clean; K2 once a layer a chunk step at
+     C=64 and a one-token step at C=1; the chunked and fast legs' TTFT
+     p50 below legacy's. Then one chunk step under torch.profiler (the
+     device's busy share, K2's ms at C=64).
 
   5. flash attention kernels: K1's forward and backward CUDA kernels
      against the plain version's forward and autograd, each call by its
@@ -210,10 +236,15 @@ def time_ms(torch, fn, flush, iters=20):
 # (max_batch 32, positions up to 511: a full row, the first page, page
 # edges); C=7 the linear leg (max_batch 8, 12-token prompts and 48 new
 # tokens: a window starts at 12..58; the first and last start, one
-# crossing a page)
+# crossing a page); C=8 phase 4b's chunk windows (the 12-token prompts'
+# chunks at 0 and 8, the drafter's catch-up up to position 60); C=64 the
+# fast path's prefill chunk (phase 4c), timed at a context of 512: every
+# row's window ends at position 511
 PAGED_CASES = ((1, 32, 0, 512, (511, 0, 16, 17)),
                (7, 8, 12, 59, (12, 58, 13)),
-               (17, 8, 12, 60, (12, 59, 13)))
+               (17, 8, 12, 60, (12, 59, 13)),
+               (8, 8, 0, 53, (0, 8, 52)),
+               (64, 8, 448, 449, ()))
 # K2's edge matrix, checked: (C, Dh, bs, Mb, the first rows' window
 # starts): head dims between the instantiated widths (48, 80, 100: masked
 # columns; 50: 4-byte copies), windows of one to three 32-slot chunks, a
@@ -279,13 +310,57 @@ def paged_check(torch, pa_mod, inputs, label):
     return got, want, err
 
 
+def chunk_window_inputs(torch, seed=7):
+    """K2's prefill-chunk window as the fast path's engine gives it (C=64,
+    H=8, Dh=64, block 16, max_seq_len 512): rows whose valid spans are 1,
+    7, 33 and 64 slots (the rest of each window runs on past the span,
+    into null table entries), a decode row at position 500 whose window
+    runs past the table (the context clamped to Mb*bs), two rows whose
+    tables share 16 adopted blocks (both starting past the shared span),
+    and an inactive row (an all-null table, a stale position)."""
+    C, H, Dh, bs, Mb = 64, 8, 64, 16, 32
+    rng = np.random.RandomState(seed)
+    # (window start, valid span, shares the adopted blocks)
+    rows = ((0, 1, False), (100, 7, False), (300, 33, False),
+            (448, 64, False), (500, 1, False), (256, 64, True),
+            (256, 5, True), (40, 0, False))
+    B = len(rows)
+    tables = np.zeros((B, Mb), np.int32)
+    perm = rng.permutation(B * Mb) + 1
+    shared = perm[-16:]
+    for b, (start, span, adopts) in enumerate(rows):
+        if not span:
+            continue                              # the inactive row
+        n = min((start + span - 1) // bs + 1, Mb)
+        tables[b, :n] = perm[b * Mb:b * Mb + n]
+        if adopts:
+            tables[b, :16] = shared
+    pos = (np.array([r[0] for r in rows])[:, None]
+           + np.arange(C)[None, :]).astype(np.int32)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    k = torch.randn(B * Mb + 1, bs, H, Dh, device="cuda", generator=gen)
+    v = torch.randn(B * Mb + 1, bs, H, Dh, device="cuda", generator=gen)
+    q = torch.randn(B, C, H, Dh, device="cuda", generator=gen)
+    return (k, v, q, torch.from_numpy(tables).cuda(),
+            torch.from_numpy(pos).cuda())
+
+
 def kernel_phase(torch, pa_mod):
-    """K2 against its plain version on the edge matrix (PAGED_EDGES),
-    then checked and timed at its paths' shapes (PAGED_CASES): C=1 the
-    serving phase's decode, C=7 the linear leg's window, C=17 the
-    spec_k=16 leg's. Returns the kernels-line rows."""
+    """K2 against its plain version on the edge matrix (PAGED_EDGES) and
+    the prefill-chunk matrix (``chunk_window_inputs``), then checked and
+    timed at its paths' shapes (PAGED_CASES): C=1 the serving phase's
+    decode, C=7 the linear leg's window, C=17 the spec_k=16 leg's, C=8
+    phase 4b's chunk windows, C=64 the fast path's prefill chunk.
+    Returns the kernels-line rows."""
     import torch.nn.functional as F
 
+    _, _, err = paged_check(torch, pa_mod, chunk_window_inputs(torch),
+                            "prefill-chunk matrix C=64")
+    print("kernel paged_attention prefill-chunk matrix C=64 Dh=64 bs=16 "
+          "Mb=32 (spans 1/7/33/64, a decode row past the table, two rows "
+          "on adopted blocks, an inactive row; splits %r): max_abs_err "
+          "%.3g (limit %g)" % (pa_mod.paged_attention.last_plan, err, ATOL),
+          flush=True)
     for i, (C, Dh, bs, Mb, edges) in enumerate(PAGED_EDGES):
         inputs = paged_inputs(torch, C, 6, 0, Mb * bs - C + 1, edges,
                               seed=100 + i, Dh=Dh, bs=bs, Mb=Mb, H=4)
@@ -642,7 +717,16 @@ SPEC = dict(cfg=dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=6,
             # windows the engine once refused (F2): K2 at C=17, K3 at C=33
             wide_legs=(("linear16", {"spec_k": 16}),
                        ("tree4x8", {"spec_tree": "4x8"})),
-            wide_requests=4)
+            wide_requests=4,
+            # over chunked prefill (bench.py:784's prefill_chunk=8): the
+            # linear window, and bench.py:804-812's tree leg, the target
+            # drafting for itself through a ModelDrafter (catch-up chunks
+            # of draft_chunk tokens: K2 at C=8; draft steps: K2 at C=1)
+            chunk_legs=(("linear_c8", {"spec_k": 6, "prefill_chunk": 8}),
+                        ("tree_model", {"spec_tree": "2x6",
+                                        "prefill_chunk": 8,
+                                        "model_drafter": True})),
+            draft_chunk=8)
 
 
 def spec_prompts(vocab_size):
@@ -654,23 +738,31 @@ def spec_prompts(vocab_size):
             * SPEC["reps"] for _ in range(SPEC["n_requests"])]
 
 
-def spec_serving_phase(torch, pa_mod, pat_mod, device=None):
-    """The three speculative legs on one model (device None: cuda:0;
-    the tests pass "cpu", where no kernel launches and none is counted).
-    Returns (model, {leg: summary})."""
-    from paddle_tpu_torch.serving import (GenerationConfig, GenerationModel,
-                                          reference_decode)
+def spec_references(model, prompts):
+    """reference_decode of each prompt for SPEC["max_new_tokens"] tokens,
+    and each generated token's top-2 logit margin."""
+    from paddle_tpu_torch.serving import reference_decode
 
-    cfg = GenerationConfig(**SPEC["cfg"])
-    model = GenerationModel.random(cfg, seed=0, device=device)
-    prompts = spec_prompts(cfg.vocab_size)
-    t0 = time.perf_counter()
     refs, margins = [], []
     for p in prompts:
         m = []
         refs.append(reference_decode(model, p, SPEC["max_new_tokens"],
                                      margins=m))
         margins.append(m)
+    return refs, margins
+
+
+def spec_serving_phase(torch, pa_mod, pat_mod, device=None):
+    """The three speculative legs on one model (device None: cuda:0;
+    the tests pass "cpu", where no kernel launches and none is counted).
+    Returns (model, {leg: summary})."""
+    from paddle_tpu_torch.serving import GenerationConfig, GenerationModel
+
+    cfg = GenerationConfig(**SPEC["cfg"])
+    model = GenerationModel.random(cfg, seed=0, device=device)
+    prompts = spec_prompts(cfg.vocab_size)
+    t0 = time.perf_counter()
+    refs, margins = spec_references(model, prompts)
     print("spec reference_decode: %d prompts x %d tokens in %.1f s, "
           "smallest top-2 logit margin %.3g"
           % (len(prompts), SPEC["max_new_tokens"], time.perf_counter() - t0,
@@ -688,34 +780,45 @@ def spec_wide_phase(torch, pa_mod, pat_mod, model):
     (C=33), each on the first `wide_requests` prompts, every request
     token-identical to reference_decode, launch counts held as in the
     other legs. Returns {leg: summary}."""
-    from paddle_tpu_torch.serving import reference_decode
-
     prompts = spec_prompts(model.config.vocab_size)[:SPEC["wide_requests"]]
-    refs, margins = [], []
-    for p in prompts:
-        m = []
-        refs.append(reference_decode(model, p, SPEC["max_new_tokens"],
-                                     margins=m))
-        margins.append(m)
+    refs, margins = spec_references(model, prompts)
     return {name: spec_leg(torch, pa_mod, pat_mod, model, prompts, refs,
                            margins, name, kw)
             for name, kw in SPEC["wide_legs"]}
 
 
+def spec_chunk_phase(torch, pa_mod, pat_mod, model):
+    """The speculative legs over chunked prefill (SPEC["chunk_legs"]) on
+    all the speculative phase's prompts, held as the other legs; the
+    ModelDrafter leg also shows draft steps ran and its drafter's pool
+    drained. Returns {leg: summary}."""
+    prompts = spec_prompts(model.config.vocab_size)
+    refs, margins = spec_references(model, prompts)
+    return {name: spec_leg(torch, pa_mod, pat_mod, model, prompts, refs,
+                           margins, name, kw)
+            for name, kw in SPEC["chunk_legs"]}
+
+
 def spec_leg(torch, pa_mod, pat_mod, model, prompts, refs, margins, name,
              kw):
     """One leg: every request submitted at once, each checked against
-    its reference, the drained pool audited and the launch counts held
-    to the steps the leg took."""
-    from paddle_tpu_torch.serving import ServingEngine
+    its reference, the drained pools audited and the launch counts held
+    to the steps the leg took. ``model_drafter`` in ``kw`` drafts with a
+    ModelDrafter over the target itself."""
+    from paddle_tpu_torch.serving import ModelDrafter, ServingEngine
 
     cfg = model.config
     on_card = model.device.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
+    engine_kw = {k: v for k, v in kw.items() if k != "model_drafter"}
+    drafter = None
+    if kw.get("model_drafter"):
+        drafter = engine_kw["drafter"] = ModelDrafter(
+            model, block_size=SPEC["block_size"], chunk=SPEC["draft_chunk"])
     with ServingEngine(model, max_batch=SPEC["max_batch"],
                        max_seq_len=cfg.max_seq_len,
                        block_size=SPEC["block_size"], device=model.device,
-                       **kw) as engine:
+                       **engine_kw) as engine:
         warm = engine.generate(prompts[0][:3], max_new_tokens=2, timeout=600)
         if len(warm) != 2:
             fail("spec %s: warm-up request returned %r" % (name, warm))
@@ -750,34 +853,40 @@ def spec_leg(torch, pa_mod, pat_mod, model, prompts, refs, margins, name,
                  "top-2 logit margin there is %.3g)"
                  % (name, i, at, r.tokens[at:at + 1], ref[at:at + 1],
                     margins[i][at] if at < len(margins[i]) else float("nan")))
-    problems = pool.check_invariants()
-    pst = pool.stats()
-    if problems or pst["blocks_in_use"] or pst["blocks_free"] != \
-            pst["blocks_total"]:
-        fail("spec %s: the pool did not drain clean: %r %r"
-             % (name, problems[:3], pst))
+    for pname, p in (("pool", pool),
+                     ("drafter pool", drafter and drafter.pool)):
+        if p is None:
+            continue
+        problems = p.check_invariants()
+        pst = p.stats()
+        if problems or pst["blocks_in_use"] or pst["blocks_free"] != \
+                pst["blocks_total"]:
+            fail("spec %s: the %s did not drain clean: %r %r"
+                 % (name, pname, problems[:3], pst))
     steps = stats["steps"] - base["steps"]
     spec_steps = stats["spec_steps"] - base["spec_steps"]
+    chunk_steps = stats["prefill_chunk_steps"] - base["prefill_chunk_steps"]
+    draft_steps = stats["spec_draft_steps"] - base["spec_draft_steps"]
     tokens = sum(len(r.tokens) for r in reqs)
     if stats["spec_k"] and spec_steps < 1:
         fail("spec %s: no verify window ran" % name)
     if stats["spec_tree"] and stats["spec_tree_slots"] == \
             base["spec_tree_slots"]:
         fail("spec %s: no tree slot was verified" % name)
+    if kw.get("prefill_chunk") and chunk_steps < 1:
+        fail("spec %s: no chunk step ran" % name)
+    if drafter is not None and draft_steps < 1:
+        fail("spec %s: the ModelDrafter ran no draft step" % name)
     if on_card:
-        # one launch a layer: K2 at C=1 each one-token step, K2 at C=k+1
-        # each linear window, K3 each tree window
-        L = cfg.n_layers
-        want_k2 = {1: L * (steps - spec_steps)}
-        want_k3 = L * spec_steps if stats["spec_tree"] else 0
-        if stats["spec_k"] and not stats["spec_tree"]:
-            want_k2[stats["spec_k"] + 1] = L * spec_steps
-        want_k2 = {c: n for c, n in want_k2.items() if n}
+        want_k2, want_k3 = spec_launches(cfg.n_layers, stats, steps,
+                                         spec_steps, chunk_steps,
+                                         draft_steps, drafter, k2)
         if k2 != want_k2 or k3 != want_k3:
-            fail("spec %s: over %d steps (%d verify windows) paged_attention "
-                 "launched %r times by window and paged_attention_tree %d; "
-                 "expected %r and %d"
-                 % (name, steps, spec_steps, k2, k3, want_k2, want_k3))
+            fail("spec %s: over %d steps (%d verify windows, %d chunk "
+                 "steps, %d draft steps) paged_attention launched %r times "
+                 "by window and paged_attention_tree %d; expected %r and %d"
+                 % (name, steps, spec_steps, chunk_steps, draft_steps, k2,
+                    k3, want_k2, want_k3))
     lat = np.array([r.latency for r in reqs])
     summary = {
         "leg": name, **kw,
@@ -785,6 +894,8 @@ def spec_leg(torch, pa_mod, pat_mod, model, prompts, refs, margins, name,
         "reference_identical": len(reqs), "wall_s": wall,
         "tokens_per_s": tokens / wall, "target_steps": steps,
         "tokens_per_target_step": tokens / max(steps, 1),
+        "one_token_steps": steps - spec_steps - chunk_steps,
+        "chunk_steps": chunk_steps, "draft_steps": draft_steps,
         "verify_windows": spec_steps,
         "accept_rate": stats["spec_accept_rate"],
         "tree_slots": stats["spec_tree_slots"] - base["spec_tree_slots"],
@@ -798,6 +909,235 @@ def spec_leg(torch, pa_mod, pat_mod, model, prompts, refs, margins, name,
         "paged_attention_tree_launches": k3}
     print("spec_serving " + json.dumps(summary), flush=True)
     return summary
+
+
+# the serving fast path (phase 4c): bench_serving_fastpath
+# (bench.py:659-729) at the flagship's full width
+FAST = dict(cfg=dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=6,
+                     d_ff=2048, max_seq_len=512),
+            max_batch=8, block_size=16, prefix_len=256, n_requests=32,
+            max_new_tokens=32, reference_checked=8, chunk=64,
+            legs=(("legacy", {"prefill_chunk": 0, "prefix_cache": False}),
+                  ("chunked", {"prefill_chunk": 64, "prefix_cache": False}),
+                  ("fast", {"prefill_chunk": 64, "prefix_cache": True})))
+
+
+def fastpath_prompts(vocab_size):
+    """bench_serving_fastpath's request set: RandomState(11), a shared
+    ``prefix_len``-token prefix, then each prompt's unique tail of 2 to
+    8 tokens. Returns (shared, prompts)."""
+    rng = np.random.RandomState(11)
+    shared = rng.randint(0, vocab_size, size=FAST["prefix_len"]).tolist()
+    return shared, [shared + rng.randint(
+        0, vocab_size, size=int(rng.randint(2, 9))).tolist()
+        for _ in range(FAST["n_requests"])]
+
+
+def fastpath_phase(torch, pa_mod, device=None):
+    """Shared-system-prompt traffic in three legs (FAST["legs"]): one
+    priming request (the compile-free warm-up and, in the fast leg, the
+    prefill that seals the shared blocks), then every request submitted
+    at once. All legs must give equal tokens, the first
+    ``reference_checked`` equal to reference_decode; the fast leg must
+    reuse every shared block (hit rate 1.0) and keep them cached; every
+    pool drains clean; K2 runs once a layer a chunk step at C=chunk;
+    the chunked and fast legs' TTFT p50 must be below legacy's. Returns
+    {leg: summary}."""
+    from paddle_tpu_torch.serving import (GenerationConfig, GenerationModel,
+                                          ServingEngine, reference_decode)
+
+    cfg = GenerationConfig(**FAST["cfg"])
+    model = GenerationModel.random(cfg, seed=0, device=device)
+    on_card = model.device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    shared, prompts = fastpath_prompts(cfg.vocab_size)
+    t0 = time.perf_counter()
+    refs = [reference_decode(model, p, FAST["max_new_tokens"])
+            for p in prompts[:FAST["reference_checked"]]]
+    print("fastpath reference_decode: %d prompts x %d tokens in %.1f s"
+          % (len(refs), FAST["max_new_tokens"], time.perf_counter() - t0),
+          flush=True)
+    shared_blocks = FAST["prefix_len"] // FAST["block_size"]
+    L = cfg.n_layers
+    legs, outputs = {}, {}
+    for name, kw in FAST["legs"]:
+        with ServingEngine(model, max_batch=FAST["max_batch"],
+                           max_seq_len=cfg.max_seq_len,
+                           block_size=FAST["block_size"], device=device,
+                           **kw) as engine:
+            warm = engine.generate(shared + [7], max_new_tokens=2,
+                                   timeout=900)
+            if len(warm) != 2:
+                fail("fastpath %s: priming request returned %r"
+                     % (name, warm))
+            base = engine.stats()
+            sync()
+            pa_mod.paged_attention.window_launches.clear()  # path starts
+            t0 = time.perf_counter()
+            reqs = [engine.submit(p, max_new_tokens=FAST["max_new_tokens"])
+                    for p in prompts]
+            errors = []
+            for r in reqs:
+                try:
+                    r.wait(900)
+                except Exception as e:  # every request's result is checked
+                    errors.append("request %d: %r" % (r.id, e))
+            sync()
+            wall = time.perf_counter() - t0
+            k2 = dict(pa_mod.paged_attention.window_launches)  # path ends
+            stats = engine.stats()
+        if errors:
+            fail("fastpath %s: %d requests ended with an error: %s"
+                 % (name, len(errors), "; ".join(errors[:3])))
+        outputs[name] = [r.tokens for r in reqs]
+        for i, ref in enumerate(refs):
+            if reqs[i].tokens != ref:
+                at = next((j for j, (a, b) in enumerate(
+                    zip(reqs[i].tokens, ref)) if a != b), len(ref))
+                fail("fastpath %s: request %d differs from reference_decode "
+                     "at generated token %d" % (name, i, at))
+        pool = engine._worker.pool
+        problems = pool.check_invariants()
+        pst = pool.stats()
+        if problems or pst["blocks_in_use"] or \
+                pst["blocks_free"] != pst["blocks_total"]:
+            fail("fastpath %s: the pool did not drain clean: %r %r"
+                 % (name, problems[:3], pst))
+        steps = stats["steps"] - base["steps"]
+        chunk_steps = stats["prefill_chunk_steps"] - \
+            base["prefill_chunk_steps"]
+        reused = stats["prefix_blocks_reused"] - base["prefix_blocks_reused"]
+        hit_rate = reused / (len(prompts) * shared_blocks)
+        if kw["prefix_cache"]:
+            if hit_rate != 1.0:
+                fail("fastpath %s: prefix hit rate %r (reused %d of %d "
+                     "blocks), expected 1.0" % (name, hit_rate, reused,
+                                                len(prompts) * shared_blocks))
+            if pst["blocks_cached"] < shared_blocks:
+                fail("fastpath %s: %d blocks cached at the end, expected "
+                     ">= %d" % (name, pst["blocks_cached"], shared_blocks))
+        if kw["prefill_chunk"] and chunk_steps < 1:
+            fail("fastpath %s: no chunk step ran" % name)
+        if on_card:
+            want = {1: L * (steps - chunk_steps),
+                    kw["prefill_chunk"]: L * chunk_steps}
+            want = {c: n for c, n in want.items() if n}
+            if k2 != want:
+                fail("fastpath %s: over %d steps (%d chunk steps) "
+                     "paged_attention launched %r times by window; expected "
+                     "%r" % (name, steps, chunk_steps, k2, want))
+        ttft = np.array([r.ttft for r in reqs])
+        lat = np.array([r.latency for r in reqs])
+        tokens = sum(len(r.tokens) for r in reqs)
+        legs[name] = {
+            "leg": name, **kw, "requests": len(reqs),
+            "generated_tokens": tokens, "wall_s": wall,
+            "tokens_per_s": tokens / wall, "steps": steps,
+            "chunk_steps": chunk_steps,
+            "ttft_p50_s": float(np.percentile(ttft, 50)),
+            "ttft_p99_s": float(np.percentile(ttft, 99)),
+            "latency_p50_s": float(np.percentile(lat, 50)),
+            "latency_p99_s": float(np.percentile(lat, 99)),
+            "prefix_blocks_reused": reused, "prefix_hit_rate": hit_rate,
+            "blocks_cached": pst["blocks_cached"],
+            "reference_identical": len(refs),
+            "paged_attention_launches_by_window": k2}
+        print("fastpath " + json.dumps(legs[name]), flush=True)
+    for name in legs:
+        if outputs[name] != outputs["legacy"]:
+            i = next(i for i, (a, b) in enumerate(zip(outputs[name],
+                                                      outputs["legacy"]))
+                     if a != b)
+            fail("fastpath %s: request %d differs from the legacy leg"
+                 % (name, i))
+    for name in ("chunked", "fast"):
+        if not legs[name]["ttft_p50_s"] < legs["legacy"]["ttft_p50_s"]:
+            fail("fastpath %s: TTFT p50 %.4f s is not below legacy's %.4f s"
+                 % (name, legs[name]["ttft_p50_s"],
+                    legs["legacy"]["ttft_p50_s"]))
+    if on_card:
+        chunk_step_profile(torch, model)
+    return legs
+
+
+def chunk_step_profile(torch, model):
+    """Where the time of one prefill-chunk step goes: ``prefill_step`` at
+    the fast path's shape (8 rows, C=64, each row's fourth chunk of the
+    shared prefix: positions 192..255) under torch.profiler, tracing the
+    card only: the host's wall time, the device's busy time and share,
+    K2's device time and the kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.serving import KVBlockPool, blocks_needed
+
+    cfg = model.config
+    B, bs, C = FAST["max_batch"], FAST["block_size"], FAST["chunk"]
+    Mb = blocks_needed(cfg.max_seq_len, bs)
+    pool = KVBlockPool(cfg.n_layers, cfg.n_heads, cfg.head_dim, bs, B * Mb,
+                       device=model.device)
+    dev = model.device
+    rng = np.random.RandomState(5)
+    pos = torch.full((B,), 3 * C, dtype=torch.int32, device=dev)
+    tables = torch.arange(1, B * Mb + 1, dtype=torch.int32,
+                          device=dev).view(B, Mb)
+    feed = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, C))
+                            .astype(np.int32)).to(dev)
+    ones = torch.ones(B, dtype=torch.bool, device=dev)
+    lengths = torch.full((B,), C, dtype=torch.int32, device=dev)
+    prev = torch.zeros(B, dtype=torch.int32, device=dev)
+
+    def step():
+        return model.prefill_step(pool.k, pool.v, feed, ones, prev, pos,
+                                  lengths, tables, ones)
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step().cpu()
+        wall = time.perf_counter() - t0
+    busy_s, top = kernel_times(prof, 1, top=10)
+    k2_ms = sum(device_us(e) for e in prof.key_averages()
+                if "paged_attention_kernel" in e.key) / 1e3
+    report = {"rows": B, "C": C, "positions": "%d..%d" % (3 * C, 4 * C - 1),
+              "wall_ms": wall * 1e3, "device_busy_ms": busy_s * 1e3,
+              "device_busy_share": busy_s / wall,
+              "paged_attention_ms": k2_ms,
+              "paged_attention_ms_per_layer": k2_ms / cfg.n_layers,
+              "top_kernels": top}
+    print("chunk_step_profile " + json.dumps(report), flush=True)
+    del pool
+    return report
+
+
+def spec_launches(L, stats, steps, spec_steps, chunk_steps, draft_steps,
+                  drafter, k2):
+    """The launches a speculative leg must show, one a layer each: K2 at
+    C=1 a one-token step, at C=chunk a chunk step, at C=k+1 a linear
+    window; K3 a tree window. A ModelDrafter adds K2 at its chunk a
+    catch-up step and K2 at C=1 ``spec_k - 1`` times a draft step; only
+    their sum is counted (``draft_steps``), so the split is read from
+    ``k2`` and held to it. Returns (want_k2, want_k3)."""
+    want = {1: L * (steps - spec_steps - chunk_steps)}
+    if chunk_steps:
+        c = stats["prefill_chunk"]
+        want[c] = want.get(c, 0) + L * chunk_steps
+    if stats["spec_k"] and not stats["spec_tree"]:
+        c = stats["spec_k"] + 1
+        want[c] = want.get(c, 0) + L * spec_steps
+    if drafter is not None:
+        n_new = stats["spec_k"] - 1
+        extra_c = k2.get(SPEC["draft_chunk"], 0) - want.get(
+            SPEC["draft_chunk"], 0)
+        extra_1 = k2.get(1, 0) - want[1]
+        catchups, scans = extra_c // L, extra_1 // max(L * n_new, 1)
+        if (catchups * L, scans * L * n_new) == (extra_c, extra_1) and \
+                catchups + scans == draft_steps:
+            want[SPEC["draft_chunk"]] = want.get(SPEC["draft_chunk"], 0) \
+                + L * catchups
+            want[1] += L * n_new * scans
+    want_k3 = L * spec_steps if stats["spec_tree"] else 0
+    return {c: n for c, n in want.items() if n}, want_k3
 
 
 def spec_tree_profile(torch, model, tree=(2, 6)):
@@ -1875,19 +2215,27 @@ def main():
     launches = serving_phase(torch, pa_mod)
     spec_model, legs = spec_serving_phase(torch, pa_mod, pat_mod)
     legs.update(spec_wide_phase(torch, pa_mod, pat_mod, spec_model))
+    legs.update(spec_chunk_phase(torch, pa_mod, pat_mod, spec_model))
     spec_tree_profile(torch, spec_model)
     del spec_model
-    # each row's launches are its own main path's: the serving phase for
+    legs.update({"fastpath_" + name: leg
+                 for name, leg in fastpath_phase(torch, pa_mod).items()})
+    # each row's launches are its own main paths': the serving phase for
     # the one-token decode (C=1), the linear legs for C=7 and C=17, the
-    # tree legs for C=13 and C=33
+    # chunk legs of phase 4b for C=8 (target chunks and the drafter's
+    # catch-up), the fast path's chunked and fast legs for C=64, the tree
+    # legs for C=13 (with the model-drafted one) and C=33
+    k2_legs = {7: ("linear",), 17: ("linear16",),
+               8: ("linear_c8", "tree_model"),
+               64: ("fastpath_chunked", "fastpath_fast")}
     for row in rows:
-        row["launches"] = (
-            launches if row["C"] == 1 else
-            legs[{7: "linear", 17: "linear16"}[row["C"]]]
-            ["paged_attention_launches_by_window"].get(row["C"], 0))
+        row["launches"] = launches if row["C"] == 1 else sum(
+            legs[name]["paged_attention_launches_by_window"].get(row["C"], 0)
+            for name in k2_legs[row["C"]])
+    k3_legs = {13: ("tree", "tree_model"), 33: ("tree4x8",)}
     for row in tree_rows:
-        row["launches"] = legs[{13: "tree", 33: "tree4x8"}[row["C"]]][
-            "paged_attention_tree_launches"]
+        row["launches"] = sum(legs[name]["paged_attention_tree_launches"]
+                              for name in k3_legs[row["C"]])
     program = build_lm(fluid)
     fwd, bwd = training_phase(torch, fa_mod, fluid, program)
     flash_rows["flash_attention_tc_fwd"]["launches"] = fwd

@@ -77,6 +77,19 @@ _declare("PTPU_SERVE_SPEC_TREE", "str", None,
          "verify a W-branch token tree of depth D per step via the "
          "in-window tree attention mask; unset/0/off = the linear "
          "PTPU_SERVE_SPEC_K window")
+_declare("PTPU_SERVE_PREFILL_CHUNK", "int", 0,
+         "chunked prefill: prompt tokens a prefill row consumes per "
+         "mixed serving step (0 = legacy one-token prefill)")
+_declare("PTPU_SERVE_PREFIX_CACHE", "bool", False,
+         "radix prefix caching: share KV blocks across requests with a "
+         "common prompt prefix")
+_declare("PTPU_SERVE_DRAFT_CHUNK", "int", 16,
+         "ModelDrafter catch-up prefill chunk: history tokens a draft row "
+         "consumes per draft-side chunk step")
+_declare("PTPU_SERVE_DRAFT_MODEL", "path", None,
+         "generation-artifact directory of a draft model; when set (and "
+         "no drafter is passed) the engine drafts with a ModelDrafter "
+         "over it")
 _declare("PTPU_QUANT", "bool", False,
          "activate the int8 quant_rewrite pass process-wide")
 _declare("PTPU_QUANT_MODE", "str", "weight_only",

@@ -8,24 +8,32 @@ decode step, a blocked KV-cache pool, speculative verify windows
     with serving.ServingEngine(model, spec_tree="2x6") as engine:
         tokens = engine.generate([1, 2, 3], max_new_tokens=16)
 
-This slice serves the one-token-prefill decode path and speculative
-decoding with the n-gram drafter. Chunked prefill, the model drafter,
-prefix caching, the int8 weight store, weight swaps, the router,
+It serves one-token and chunked prefill, radix prefix caching, and
+speculative decoding with the n-gram drafter or a model drafter, and
+reads and writes the JAX package's generation artifact. The int8
+weight store, weight swaps, deadlines, the router, fault injection,
 tracing and the flight recorder of the JAX package are not ported yet.
 """
 
 from .engine import ServingEngine  # noqa: F401
-from .kv_cache import KVBlockPool, blocks_needed  # noqa: F401
+from .kv_cache import (KVBlockPool, blocks_needed,  # noqa: F401
+                       prefix_chain_keys)
 from .loadgen import PoissonLoadGenerator  # noqa: F401
-from .model import (GenerationConfig, GenerationModel,  # noqa: F401
-                    NGramDrafter, parse_tree_shape, random_weights,
-                    reference_decode, tree_topology, weight_names)
+from .model import (GenerationArtifactError,  # noqa: F401
+                    GenerationConfig, GenerationModel, ModelDrafter,
+                    NGramDrafter, load_generation_artifact,
+                    parse_tree_shape, random_weights, reference_decode,
+                    save_generation_artifact, tree_topology,
+                    verify_generation_artifact, weight_names)
 from .scheduler import (AdmissionError, GenerationRequest,  # noqa: F401
                         RequestQueue, StepScheduler, spec_tree_acceptance)
 
 __all__ = ["ServingEngine", "KVBlockPool", "blocks_needed",
-           "PoissonLoadGenerator", "GenerationConfig", "GenerationModel",
-           "NGramDrafter", "parse_tree_shape", "random_weights",
-           "reference_decode", "tree_topology", "weight_names",
+           "prefix_chain_keys", "PoissonLoadGenerator",
+           "GenerationArtifactError", "GenerationConfig", "GenerationModel",
+           "ModelDrafter", "NGramDrafter", "load_generation_artifact",
+           "parse_tree_shape", "random_weights", "reference_decode",
+           "save_generation_artifact", "tree_topology",
+           "verify_generation_artifact", "weight_names",
            "AdmissionError", "GenerationRequest", "RequestQueue",
            "StepScheduler", "spec_tree_acceptance"]

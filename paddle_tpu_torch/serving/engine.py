@@ -21,13 +21,27 @@ time, so the only cost of the lag is a few discarded steps after an
 EOS, whose tokens are never emitted and whose KV writes land in blocks
 the retiring sequence owns until ``reap``.
 
+The serving fast path is two switches, both off by default: **chunked
+prefill** (``prefill_chunk=C``, default ``$PTPU_SERVE_PREFILL_CHUNK``)
+dispatches a ``[max_batch, C]`` window (``prefill_step``, the
+paged-attention kernel at C) whenever a row is mid-prompt: prefill rows
+consume whole prompt spans while decode rows ride along as 1-token
+windows, at most ``prefill_token_budget`` (default 4 chunks) prompt
+tokens a step. Chunk steps are asynchronous like decode steps: their
+``next_tokens`` chain into the next step on the device. **Radix prefix
+caching** (``prefix_cache=True``, default ``$PTPU_SERVE_PREFIX_CACHE``)
+content-addresses the KV pool, so requests sharing a prompt prefix
+adopt its sealed blocks and skip their prefill.
+
 Speculative decoding (``spec_k=K``, or ``spec_tree="WxD"``; default
 ``$PTPU_SERVE_SPEC_K`` / ``$PTPU_SERVE_SPEC_TREE``, both off): when every
 row is past its prompt, a step is a VERIFY window — each row feeds its
 last committed token plus drafts from the ``drafter`` (``NGramDrafter``
-by default): K in a line (``spec_step``, the paged-attention kernel at
-C = K + 1) or a level-order tree of W chains of depth D
-(``spec_tree_step``, the tree-mask kernel at C = 1 + W*D). Each window
+by default; ``ModelDrafter`` drafts with a model, or from the artifact
+that ``$PTPU_SERVE_DRAFT_MODEL`` names): K in a line (``spec_step``, the
+paged-attention kernel at C = K + 1) or a level-order tree of W chains
+of depth D (``spec_tree_step``, the tree-mask kernel at C = 1 + W*D).
+Each window
 is materialized before the next is planned (acceptance and the next
 drafts read the committed history), so speculation runs synchronously:
 the tokens a step gains replace the async window. A tree window's
@@ -39,7 +53,8 @@ decoding.
 Telemetry (with metrics enabled): ``serving/{queue_depth,
 batch_occupancy,peak_batch_occupancy,kv_blocks_in_use,inflight_steps,
 tokens_per_sec,request_latency(_p50/_p99),ttft(_p50/_p99),steps,
-prefill_tokens,decode_tokens,requests_submitted,requests_completed,
+prefill_tokens,decode_tokens,prefill_chunk_steps,prefix_blocks_reused,
+prefix_tokens_skipped,requests_submitted,requests_completed,
 requests_rejected,requests_failed,spec_steps,spec_proposed,
 spec_accepted,spec_tree_slots,spec_tree_commits,spec_accept_rate}``.
 """
@@ -57,7 +72,9 @@ from ..core.scope import Scope
 from ..observability import metrics as _metrics
 from ..ops import paged_attention_tree as _pat
 from .kv_cache import KVBlockPool, blocks_needed
-from .model import GenerationModel, NGramDrafter, parse_tree_shape
+from .model import (GenerationModel, ModelDrafter, NGramDrafter,
+                    load_generation_artifact, parse_tree_shape,
+                    upload_int32)
 from .scheduler import (AdmissionError, GenerationRequest, RequestQueue,
                         StepScheduler, spec_tree_acceptance)
 
@@ -69,8 +86,10 @@ class _ModelWorker:
     thread."""
 
     def __init__(self, model, max_batch, max_seq_len, block_size,
-                 num_blocks, max_queue, async_depth, device, spec_k=0,
-                 spec_tree=None, drafter=None):
+                 num_blocks, max_queue, async_depth, device,
+                 prefill_chunk=0, prefix_cache=False,
+                 prefill_token_budget=None, spec_k=0, spec_tree=None,
+                 drafter=None):
         self.model = model
         self.device = device
         cfg = model.config
@@ -81,6 +100,14 @@ class _ModelWorker:
             num_blocks = max_batch * blocks_needed(max_seq_len, block_size)
         self.pool = KVBlockPool(cfg.n_layers, cfg.n_heads, cfg.head_dim,
                                 block_size, num_blocks, device=device)
+        # the chunk is clamped to the context; the per-step prompt-token
+        # budget (default 4 chunks) bounds the prefill a mixed step
+        # carries beside decode rows
+        self.prefill_chunk = max(0, min(int(prefill_chunk or 0),
+                                        max_seq_len))
+        self.prefix_cache = bool(prefix_cache)
+        if self.prefill_chunk and prefill_token_budget is None:
+            prefill_token_budget = 4 * self.prefill_chunk
         # speculation: a tree shape implies it, its depth playing
         # spec_k's role; windows are clamped to the context, as the JAX
         # engine clamps them, and nothing more
@@ -98,13 +125,21 @@ class _ModelWorker:
             raise TypeError("drafter %r has no propose(history, k) method"
                             % (type(drafter).__name__,))
         self.drafter = drafter if self.spec_k else None
+        if self.drafter is not None and hasattr(self.drafter, "bind"):
+            # ModelDrafter: its KV pool and batch geometry, once
+            self.drafter.bind(max_batch, self.spec_k)
         if self.spec_tree and device.type == "cuda":
             _pat.load()  # a failing build raises here, not mid-serving
         self.spec_tree_commits = 0
-        self.scheduler = StepScheduler(max_batch, self.pool, max_seq_len,
-                                       spec_k=self.spec_k,
-                                       drafter=self.drafter,
-                                       spec_tree=self.spec_tree)
+        self.chunk_steps = 0
+        self.scheduler = StepScheduler(
+            max_batch, self.pool, max_seq_len,
+            prefill_chunk=self.prefill_chunk,
+            prefix_cache=self.prefix_cache,
+            prefill_token_budget=(prefill_token_budget
+                                  if self.prefill_chunk else None),
+            cache_namespace=model.name, spec_k=self.spec_k,
+            drafter=self.drafter, spec_tree=self.spec_tree)
         self.queue = RequestQueue(max_queue)
         self.max_batch = int(max_batch)
         self.async_depth = max(1, int(async_depth))
@@ -200,9 +235,12 @@ class _ModelWorker:
             # round: acceptance feeds the next window's drafts
             self._dispatch_spec(spec_plan)
         else:
-            plan = sched.plan_step()
+            if self.prefill_chunk:
+                plan, chunked = sched.plan_chunk()
+            else:
+                plan, chunked = sched.plan_step(), False
             if plan:
-                self._dispatch(plan)
+                self._dispatch(plan, chunked)
                 if self.spec_k:
                     # speculation is synchronous everywhere: the next
                     # plan (a verify window) reads committed history
@@ -217,25 +255,6 @@ class _ModelWorker:
         _metrics.gauge("serving/kv_blocks_in_use").set(
             self.pool.blocks_in_use)
 
-    def _upload(self, *arrays):
-        """Host arrays on the device through one packed int32 copy, as
-        int32 tensors of the arrays' shapes. On CUDA the copy comes from
-        a fresh pinned buffer and does not synchronise (PyTorch's pinned
-        allocator keeps the buffer until the copy has run)."""
-        packed = np.concatenate([a.ravel() for a in arrays]).astype(np.int32)
-        if self.device.type == "cuda":
-            host = torch.empty(packed.shape, dtype=torch.int32,
-                               pin_memory=True)
-            host.numpy()[:] = packed
-            dev = host.to(self.device, non_blocking=True)
-        else:
-            dev = torch.from_numpy(packed)
-        out, start = [], 0
-        for a in arrays:
-            out.append(dev[start:start + a.size].view(a.shape))
-            start += a.size
-        return out
-
     def _download(self, next_tokens):
         """Start the step's token copy to the host without waiting:
         (host buffer, event recorded after the copy | None on CPU)."""
@@ -248,26 +267,47 @@ class _ModelWorker:
         done.record(torch.cuda.current_stream(self.device))
         return host, done
 
-    def _dispatch(self, plan):
+    def _dispatch(self, plan, chunked=False):
+        """Dispatch one one-token step, or with ``chunked`` one chunk
+        window, without waiting for it: its ``next_tokens`` [B] chain
+        into the next step on the device."""
         sched = self.scheduler
         occupancy = int(sched.active.sum())
         weights = {n: self.scope.get(n) for n in self._weight_names}
-        prompt_feed, use_prompt, positions, active, tables = self._upload(
-            sched.prompt_feed, sched.use_prompt, sched.positions,
-            sched.active, sched.block_tables)
-        next_tokens = self.model.decode_step(
-            self.pool.k, self.pool.v, prompt_feed, use_prompt.bool(),
-            self._prev_tokens, positions, tables, active.bool(),
-            weights=weights)
+        if chunked:
+            feed, use_prompt, positions, lengths, active, tables = \
+                upload_int32(self.device, sched.chunk_feed,
+                             sched.use_prompt, sched.positions,
+                             sched.chunk_lens, sched.active,
+                             sched.block_tables)
+            next_tokens = self.model.prefill_step(
+                self.pool.k, self.pool.v, feed, use_prompt.bool(),
+                self._prev_tokens, positions, lengths, tables,
+                active.bool(), weights=weights)
+            self.chunk_steps += 1
+        else:
+            feed, use_prompt, positions, active, tables = upload_int32(
+                self.device, sched.prompt_feed, sched.use_prompt,
+                sched.positions, sched.active, sched.block_tables)
+            next_tokens = self.model.decode_step(
+                self.pool.k, self.pool.v, feed, use_prompt.bool(),
+                self._prev_tokens, positions, tables, active.bool(),
+                weights=weights)
         self._prev_tokens = next_tokens
         self._inflight.append(self._download(next_tokens) + (plan,))
         _metrics.gauge("serving/inflight_steps").set(len(self._inflight))
         self._note_step(occupancy)
         if _metrics.enabled():
-            n_prefill = sum(1 for _seq, g in plan if g is None)
             reg = _metrics.registry()
+            if chunked:
+                reg.counter("serving/prefill_chunk_steps").inc()
+                n_prefill = int(sched.chunk_lens[sched.use_prompt].sum())
+                n_decode = len(plan) - int(sched.use_prompt.sum())
+            else:
+                n_prefill = sum(1 for _seq, g in plan if g is None)
+                n_decode = len(plan) - n_prefill
             reg.counter("serving/prefill_tokens").inc(n_prefill)
-            reg.counter("serving/decode_tokens").inc(len(plan) - n_prefill)
+            reg.counter("serving/decode_tokens").inc(n_decode)
 
     def _dispatch_spec(self, plan):
         """Dispatch one verify window and fold it back at once (the
@@ -275,8 +315,8 @@ class _ModelWorker:
         sched = self.scheduler
         occupancy = int(sched.active.sum())
         weights = {n: self.scope.get(n) for n in self._weight_names}
-        feed, use_prompt, positions, lengths, active, tables = self._upload(
-            sched.spec_feed, sched.use_prompt, sched.positions,
+        feed, use_prompt, positions, lengths, active, tables = upload_int32(
+            self.device, sched.spec_feed, sched.use_prompt, sched.positions,
             sched.spec_lens, sched.active, sched.block_tables)
         args = (self.pool.k, self.pool.v, feed, use_prompt.bool(),
                 self._prev_tokens, positions, lengths, tables,
@@ -303,8 +343,8 @@ class _ModelWorker:
                     src[seq.slot, 1:1 + len(path)] = path  # [0, path...]
                     n_commit[seq.slot] = 1 + len(path)
             if n_commit.any():
-                src_d, n_commit_d, commit_active = self._upload(
-                    src, n_commit, n_commit > 0)
+                src_d, n_commit_d, commit_active = upload_int32(
+                    self.device, src, n_commit, n_commit > 0)
                 self.model.tree_commit(self.pool.k, self.pool.v, positions,
                                        src_d, n_commit_d, tables,
                                        commit_active.bool())
@@ -325,7 +365,7 @@ class _ModelWorker:
             prev[seq.slot] = seq.request.tokens[-1]
             if seq.request.finished and not was_done:
                 self._note_completion(seq.request)
-        self._prev_tokens = self._upload(prev)[0]
+        self._prev_tokens = upload_int32(self.device, prev)[0]
         self._count_tokens(n_emitted)
         if _metrics.enabled():
             reg = _metrics.registry()
@@ -404,42 +444,64 @@ class _ModelWorker:
 class ServingEngine:
     """Single-model generation service (see the module docstring).
 
-    ``device=None`` is ``cuda:0`` and raises without CUDA;
-    ``device="cpu"`` runs the plain PyTorch path. The model must live on
-    the engine's device. ``spec_k`` (linear verify window of ``spec_k``
-    drafts, at most 15) or ``spec_tree`` (``"WxD"``, 1 + W*D at most 32
-    slots) turns speculative decoding on; ``None`` reads
-    ``$PTPU_SERVE_SPEC_K`` / ``$PTPU_SERVE_SPEC_TREE``. ``drafter`` (an
-    object with ``propose(history, k)``, optionally ``propose_for``,
-    ``propose_tree`` and ``release``) defaults to ``NGramDrafter``.
+    ``model`` is a ``GenerationModel`` or a generation-artifact directory
+    (loaded onto the engine's device). ``device=None`` is ``cuda:0`` and
+    raises without CUDA; ``device="cpu"`` runs the plain PyTorch path.
+    The model must live on the engine's device. ``prefill_chunk`` (prompt
+    tokens a prefill row takes a step, clamped to the context) turns
+    chunked prefill on, with ``prefill_token_budget`` prompt tokens a
+    step at most (default 4 chunks); ``prefix_cache`` turns radix prefix
+    caching on. ``spec_k`` (a linear verify window of ``spec_k`` drafts)
+    or ``spec_tree`` (``"WxD"``: W chains of depth D) turns speculative
+    decoding on; the windows are clamped to the context (a depth of at
+    most ``max_seq_len - 1``), as the JAX engine clamps them. ``drafter``
+    (an object with ``propose(history, k)``, optionally ``propose_for``,
+    ``propose_tree``, ``propose_batch``, ``propose_tree_batch``, ``bind``
+    and ``release``, such as ``ModelDrafter``) defaults to a
+    ``ModelDrafter`` over the artifact ``$PTPU_SERVE_DRAFT_MODEL`` names,
+    else to ``NGramDrafter``. Each switch left ``None`` reads its
+    ``$PTPU_SERVE_*`` flag.
     """
 
     def __init__(self, model, max_batch=8, max_seq_len=256,
                  block_size=16, num_blocks=None, max_queue=64,
-                 async_depth=None, device=None, spec_k=None,
+                 async_depth=None, device=None, prefill_chunk=None,
+                 prefix_cache=None, prefill_token_budget=None, spec_k=None,
                  spec_tree=None, drafter=None):
         device = resolve_device(device)
         if async_depth is None:
             async_depth = _flags.env("PTPU_SERVE_ASYNC_STEPS")
+        if prefill_chunk is None:
+            prefill_chunk = _flags.env("PTPU_SERVE_PREFILL_CHUNK")
+        if prefix_cache is None:
+            prefix_cache = _flags.env("PTPU_SERVE_PREFIX_CACHE")
         if spec_k is None:
             spec_k = _flags.env("PTPU_SERVE_SPEC_K")
         if spec_tree is None:
             spec_tree = _flags.env("PTPU_SERVE_SPEC_TREE")
+        if isinstance(model, str):
+            model = load_generation_artifact(model, device=device)
         if not isinstance(model, GenerationModel):
-            raise TypeError("model must be a GenerationModel, got %r"
-                            % type(model).__name__)
+            raise TypeError("model must be a GenerationModel or an artifact "
+                            "directory, got %r" % type(model).__name__)
         if model.device != device:
             raise ValueError(
                 "the model lives on %s but the engine serves on %s — "
                 "build the model with device=%r"
                 % (model.device, device, str(device)))
+        draft_model = _flags.env("PTPU_SERVE_DRAFT_MODEL")
+        if drafter is None and draft_model:
+            drafter = ModelDrafter(load_generation_artifact(
+                draft_model, name=model.name + ".draft", device=device))
         self.device = device
         self._closed = False
         self._worker = _ModelWorker(
             model, max_batch=max_batch, max_seq_len=max_seq_len,
             block_size=block_size, num_blocks=num_blocks,
             max_queue=max_queue, async_depth=async_depth, device=device,
-            spec_k=spec_k, spec_tree=spec_tree, drafter=drafter)
+            prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
+            prefill_token_budget=prefill_token_budget, spec_k=spec_k,
+            spec_tree=spec_tree, drafter=drafter)
 
     # -- public API -----------------------------------------------------
     def submit(self, prompt, max_new_tokens=32, eos_id=None, stream=None):
@@ -476,6 +538,11 @@ class ServingEngine:
             "generated_tokens": w._gen_tokens,
             "steps": w._steps_dispatched,
             "error": None if w.error is None else repr(w.error),
+            "prefill_chunk": w.prefill_chunk,
+            "prefill_chunk_steps": w.chunk_steps,
+            "prefix_cache": w.prefix_cache,
+            "prefix_blocks_reused": sched.prefix_blocks_reused,
+            "prefix_tokens_skipped": sched.prefix_tokens_skipped,
             "spec_k": w.spec_k,
             "spec_tree": "%dx%d" % w.spec_tree if w.spec_tree else None,
             "spec_steps": sched.spec_steps,
@@ -487,6 +554,7 @@ class ServingEngine:
             "spec_tree_slots": sched.spec_tree_slots,
             "spec_tree_commits": w.spec_tree_commits,
             "spec_blocks_rolled_back": sched.spec_blocks_rolled_back,
+            "spec_draft_steps": getattr(w.drafter, "draft_steps", 0),
             **w.pool.stats(),
         }
 

@@ -12,11 +12,20 @@
   * ``reference_decode`` — an unbatched, unpaged numpy greedy decoder
     over a contiguous cache: the oracle the batched paged step is held
     to token for token.
+  * chunked prefill: ``prefill_step``, the ``[B, C]`` window whose rows
+    consume prompt spans (decode rows ride along as 1-token windows),
+    returning each row's greedy token at its last valid slot.
   * speculative decoding: ``spec_step`` (the linear verify window),
     ``spec_tree_step`` (the tree verify window over the level-order
     token tree of ``tree_topology``), ``tree_commit`` (the accepted
-    path's KV compaction) and ``NGramDrafter`` (prompt-lookup drafting
-    over a sequence's own history).
+    path's KV compaction), ``NGramDrafter`` (prompt-lookup drafting
+    over a sequence's own history) and ``ModelDrafter`` (greedy drafts
+    from a model: catch-up ``prefill_step`` chunks, then ``draft_step``,
+    ``n_new`` chained one-token steps, over its own KV pool).
+  * the generation artifact: ``save_generation_artifact``,
+    ``verify_generation_artifact`` and ``load_generation_artifact``
+    write and read the JAX package's ``__generation__.npz``, meta JSON
+    and sha256 manifest.
 
 The weight layout is the JAX package's flat dict (``weight_names``),
 the layout its ``__generation__.npz`` artifact holds, so
@@ -27,6 +36,11 @@ The steps' calling conventions (all shapes fixed per engine):
     decode_step(kv_k, kv_v, prompt_feed, use_prompt, prev_tokens,
                 positions, block_tables, active, weights=None,
                 return_logits=False) -> next_tokens [, logits]
+    prefill_step(kv_k, kv_v, chunk_tokens, use_prompt, prev_tokens,
+                 positions, lengths, block_tables, active, weights=None,
+                 return_logits=False) -> next_tokens [B] [, logits [B, V]]
+    draft_step(kv_k, kv_v, first_tokens, positions, block_tables, active,
+               n_new, weights=None) -> tokens [B, n_new]
     spec_step(kv_k, kv_v, window_tokens, use_prompt, prev_tokens,
               positions, lengths, block_tables, active, weights=None,
               return_logits=False) -> next_tokens [B, C] [, logits]
@@ -41,25 +55,40 @@ slots route their cache writes to the pool's null block and their
 outputs are ignored. ``kv_k``/``kv_v`` are updated in place.
 """
 
+import hashlib
+import json
 import math
+import os
+import shutil
+import zipfile
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import flags as _flags
 from ..core.place import resolve_device
 from ..ops import paged_attention as _pa
 from ..ops import paged_attention_tree as _pat
+from .kv_cache import KVBlockPool, blocks_needed
 
 # fp32 matmuls and convolutions run in full fp32, not TF32: greedy
 # tokens are held identical to the fp32 reference decoder
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__all__ = ["GenerationConfig", "GenerationModel", "NGramDrafter",
+__all__ = ["GENERATION_MANIFEST", "GENERATION_META", "GENERATION_WEIGHTS",
+           "GenerationArtifactError", "GenerationConfig", "GenerationModel",
+           "ModelDrafter", "NGramDrafter", "load_generation_artifact",
            "parse_tree_shape", "random_weights", "reference_decode",
-           "tree_topology", "weight_names"]
+           "save_generation_artifact", "tree_topology",
+           "verify_generation_artifact", "weight_names"]
+
+# the generation artifact's files, the JAX package's names
+GENERATION_WEIGHTS = "__generation__.npz"
+GENERATION_META = "__generation_meta__.json"
+GENERATION_MANIFEST = "__generation_manifest__.json"
 
 
 def parse_tree_shape(spec):
@@ -138,6 +167,15 @@ class GenerationConfig:
     @property
     def head_dim(self):
         return self.d_model // self.n_heads
+
+    def to_dict(self):
+        return {k: getattr(self, k) for k in
+                ("vocab_size", "d_model", "n_heads", "n_layers", "d_ff",
+                 "max_seq_len", "pe_alpha", "pe_beta")}
+
+    @classmethod
+    def from_dict(cls, d):
+        return cls(**d)
 
 
 # weight-name layout: one flat dict, per-layer names carry an l<i>/
@@ -276,6 +314,54 @@ class GenerationModel(nn.Module):
         return out[:, 0]
 
     @torch.no_grad()
+    def prefill_step(self, kv_k, kv_v, chunk_tokens, use_prompt,
+                     prev_tokens, positions, lengths, block_tables, active,
+                     weights=None, return_logits=False):
+        """The chunked (mixed prefill/decode) window, the counterpart of
+        the JAX ``make_prefill_step`` step: ``chunk_tokens`` int [B, C],
+        row ``b``'s window slot ``j`` processing position ``positions[b]
+        + j`` for ``j < lengths[b]``. Prefill rows (``use_prompt``) take
+        every token from ``chunk_tokens``; decode rows are 1-token
+        windows whose slot 0 chains ``prev_tokens``. The window's K/V is
+        written first, then attended by the paged-attention kernel (K2)
+        at C = chunk. Returns ``next_tokens`` int32 [B], the greedy token
+        after each row's last valid slot (``lengths - 1``), and fp32
+        ``logits`` [B, V] there with ``return_logits``: the final LN and
+        the head run on that slot only. Slots past a row's length write
+        to the null block."""
+        return self._window_step(kv_k, kv_v, chunk_tokens, use_prompt,
+                                 prev_tokens, positions, lengths,
+                                 block_tables, active, weights,
+                                 return_logits, tree=None, all_slots=False)
+
+    @torch.no_grad()
+    def draft_step(self, kv_k, kv_v, first_tokens, positions, block_tables,
+                   active, n_new, weights=None):
+        """``n_new`` greedy one-token steps chained on the device (the
+        counterpart of the JAX ``make_draft_step`` scan): micro-step
+        ``i`` feeds row ``b``'s token at position ``positions[b] + i``,
+        writes its K/V and takes its argmax as the next step's token,
+        starting from ``first_tokens`` int [B]. Each micro-step is the
+        decode step's body (K2 at C = 1 in every layer), queued on the
+        caller's stream with no host sync between them. Returns int32
+        [B, n_new]: ``tokens[b, i]`` follows the ``i + 1``-th chain
+        token. Active rows need ``positions + n_new <= max_seq_len``;
+        inactive rows write to the null block."""
+        tok = first_tokens.to(torch.int32)
+        use_prompt = torch.ones_like(active)
+        ones = torch.ones_like(positions)
+        out = []
+        for i in range(int(n_new)):
+            tok = self._window_step(kv_k, kv_v, tok[:, None], use_prompt,
+                                    tok, positions + i, ones, block_tables,
+                                    active, weights, False, tree=None)[:, 0]
+            out.append(tok)
+        if not out:
+            return torch.zeros((tok.shape[0], 0), dtype=torch.int32,
+                               device=tok.device)
+        return torch.stack(out, dim=1)
+
+    @torch.no_grad()
     def spec_step(self, kv_k, kv_v, window_tokens, use_prompt, prev_tokens,
                   positions, lengths, block_tables, active, weights=None,
                   return_logits=False):
@@ -329,10 +415,11 @@ class GenerationModel(nn.Module):
 
     def _window_step(self, kv_k, kv_v, window_tokens, use_prompt,
                      prev_tokens, positions, lengths, block_tables, active,
-                     weights, return_logits, tree):
-        """The shared body of ``spec_step`` and ``spec_tree_step``: the
-        root token splice, embeddings, position encodings (window offset,
-        or tree depth) and the all-slots forward."""
+                     weights, return_logits, tree, all_slots=True):
+        """The shared body of every step: the root token splice,
+        embeddings, position encodings (window offset, or tree depth)
+        and the window forward, at every slot or (``all_slots=False``)
+        at each row's last valid slot."""
         cfg = self.config
         w = self.weights if weights is None else weights
         C = window_tokens.shape[1]
@@ -357,20 +444,21 @@ class GenerationModel(nn.Module):
         x = (w["embedding"][tok] * (float(cfg.d_model) ** 0.5)
              * cfg.pe_alpha + cfg.pe_beta * self.pe[pe_idx])
         logits = self._forward_window(w, x, pos2d, lengths, block_tables,
-                                      active, kv_k, kv_v, anc)
+                                      active, kv_k, kv_v, anc, all_slots)
         next_tokens = logits.argmax(dim=-1).to(torch.int32)
         if return_logits:
             return next_tokens, logits
         return next_tokens
 
     def _forward_window(self, w, x, pos2d, lengths, block_tables, active,
-                        kv_k, kv_v, anc):
+                        kv_k, kv_v, anc, all_slots=True):
         """A [B, C] token window through all layers (the JAX
-        ``_forward_chunk`` with ``all_slots=True``). x: [B, C, D]; pos2d
-        int32 [B, C] the cache position of each slot. Writes the
-        window's K/V before attending, so each slot sees itself; with
-        ``anc`` (bool [C, C]) in-window visibility is the tree mask.
-        Returns logits at every slot, [B, C, V]."""
+        ``_forward_chunk``). x: [B, C, D]; pos2d int32 [B, C] the cache
+        position of each slot. Writes the window's K/V before attending,
+        so each slot sees itself; with ``anc`` (bool [C, C]) in-window
+        visibility is the tree mask. Returns logits at every slot, [B,
+        C, V], or with ``all_slots=False`` at each row's last valid slot
+        (``lengths - 1``), [B, V]."""
         cfg = self.config
         B, C = x.shape[0], x.shape[1]
         H, Dh, D = cfg.n_heads, cfg.head_dim, cfg.d_model
@@ -411,6 +499,9 @@ class GenerationModel(nn.Module):
             f = F.gelu(b2 @ w[p + "wff1"] + w[p + "bff1"])
             x = x + f @ w[p + "wff2"] + w[p + "bff2"]
 
+        if not all_slots:
+            last = (lengths.long() - 1).clamp(0, C - 1)
+            x = x[torch.arange(B, device=x.device), last]
         x = _ln(x, w["final_ln_scale"], w["final_ln_bias"])
         return x @ w["lm_head"]
 
@@ -676,3 +767,428 @@ class NGramDrafter:
                 # branches come from the longest recurring suffix only
                 break
         return chains
+
+
+def upload_int32(device, *arrays):
+    """Host arrays on ``device`` through one packed int32 copy, as int32
+    tensors of the arrays' shapes. On CUDA the copy comes from a fresh
+    pinned buffer and does not synchronise (PyTorch's pinned allocator
+    keeps the buffer until the copy has run)."""
+    packed = np.concatenate([np.ravel(a) for a in arrays]).astype(np.int32)
+    if device.type == "cuda":
+        host = torch.empty(packed.shape, dtype=torch.int32, pin_memory=True)
+        host.numpy()[:] = packed
+        dev = host.to(device, non_blocking=True)
+    else:
+        dev = torch.from_numpy(packed)
+    out, start = [], 0
+    for a in arrays:
+        out.append(dev[start:start + a.size].view(a.shape))
+        start += a.size
+    return out
+
+
+class _DraftSeq:
+    """Per-sequence drafter-side KV state: the drafter pool's owner (its
+    reservation and rollback hang off this object's identity)."""
+
+    __slots__ = ("slot", "n_cached")
+
+    def __init__(self, slot):
+        self.slot = int(slot)
+        self.n_cached = 0
+
+
+class ModelDrafter:
+    """Greedy draft tokens from a ``GenerationModel`` over each
+    sequence's committed history (the JAX package's ``ModelDrafter``).
+
+    ``propose(history, k)`` is the host oracle (``reference_decode``,
+    unbatched). The serving path is ``propose_batch`` /
+    ``propose_tree_batch``: catch-up ``prefill_step`` chunks of
+    ``chunk`` tokens (default ``$PTPU_SERVE_DRAFT_CHUNK``) bring each
+    row's draft KV level with its history, then one ``draft_step``
+    drafts the chain on the device for every row at once. Draft KV lives
+    in the drafter's own ``KVBlockPool`` on the model's device, and every
+    window ends with ``truncate_owner`` back to the committed history, so
+    the draft pool's ``check_invariants`` is clean between windows.
+    Drafting with the target model itself is accepted whole.
+
+    ``draft_steps`` counts draft-side dispatches (catch-up chunks and
+    ``draft_step`` calls)."""
+
+    def __init__(self, model, block_size=16, chunk=None):
+        if not isinstance(model, GenerationModel):
+            raise TypeError("ModelDrafter needs a GenerationModel, got %r"
+                            % (type(model).__name__,))
+        self.model = model
+        self.draft_steps = 0
+        self._block_size = int(block_size)
+        self._chunk = chunk
+        self._pool = None
+        self._tables = None
+        self._max_batch = 0
+        self._n_new = 0
+        self._mb = 0
+        self._states = {}       # seq_id -> _DraftSeq
+        self._free_slots = []
+
+    @property
+    def pool(self):
+        """The drafter's KV pool (None until ``bind``)."""
+        return self._pool
+
+    def propose(self, history, k):
+        """The host oracle: ``k`` greedy tokens after ``history`` by
+        ``reference_decode``."""
+        k = int(k)
+        hist = [int(t) for t in history]
+        if k < 1 or not hist or len(hist) >= self.model.config.max_seq_len:
+            return []
+        return reference_decode(self.model, hist, k)
+
+    def bind(self, max_batch, max_chain):
+        """Size the drafter for ``max_batch`` rows and chains of up to
+        ``max_chain`` tokens (the engine calls it once): builds the
+        drafter's own pool on the model's device, ``max_batch *
+        blocks_needed(max_seq_len)`` blocks, so a full reservation per
+        row always succeeds. Growing a binding resets every sequence's
+        draft state (the next window prefills again)."""
+        max_batch = int(max_batch)
+        max_chain = max(int(max_chain), 1)
+        if (self._pool is not None and self._max_batch >= max_batch
+                and self._n_new == max_chain - 1):
+            return
+        cfg = self.model.config
+        if self._chunk is None:
+            self._chunk = _flags.env("PTPU_SERVE_DRAFT_CHUNK")
+        self._chunk = max(int(self._chunk), 1)
+        self._max_batch = max(max_batch, self._max_batch)
+        self._n_new = max_chain - 1
+        self._mb = blocks_needed(cfg.max_seq_len, self._block_size)
+        self._pool = KVBlockPool(cfg.n_layers, cfg.n_heads, cfg.head_dim,
+                                 self._block_size, self._max_batch * self._mb,
+                                 device=self.model.device)
+        self._tables = np.zeros((self._max_batch, self._mb), np.int32)
+        self._states = {}
+        self._free_slots = list(range(self._max_batch - 1, -1, -1))
+
+    def release(self, seq_id):
+        """Free a retired sequence's draft KV (the scheduler's reap
+        calls it)."""
+        st = self._states.pop(seq_id, None)
+        if st is None:
+            return
+        self._pool.free_owner(st)
+        self._tables[st.slot, :] = 0
+        self._free_slots.append(st.slot)
+
+    def _state_for(self, seq_id):
+        st = self._states.get(seq_id)
+        if st is None:
+            st = _DraftSeq(self._free_slots.pop())
+            self._states[seq_id] = st
+            # a full reservation up front: the pool is sized so this
+            # cannot fail, and truncate_owner restores it every window
+            self._pool.reserve(st, self._mb)
+        return st
+
+    def _alloc_span(self, st, start, stop):
+        """Own (and map in the table) the draft blocks covering
+        positions [start, stop)."""
+        for b in range(blocks_needed(start, self._block_size),
+                       blocks_needed(stop, self._block_size)):
+            self._tables[st.slot, b] = self._pool.alloc_block(st)
+
+    def propose_batch(self, rows, k):
+        """Up to ``k`` greedy draft tokens for many sequences in a few
+        batched device steps. ``rows`` is ``[(seq_id, history), ...]``;
+        returns ``{seq_id: [tokens...]}`` (empty where a row is at the
+        draft model's sequence cap)."""
+        got = self.propose_tree_batch(
+            [(sid, hist, k) for sid, hist in rows], width=1)
+        return {sid: (ch[0] if ch else []) for sid, ch in got.items()}
+
+    def propose_tree_batch(self, rows, width):
+        """Tree drafts for many sequences in a few batched device steps.
+        ``rows`` is ``[(seq_id, history, depth), ...]``; returns
+        ``{seq_id: [chain0, chain1, ...]}``: chain 0 the greedy chain (up
+        to ``depth`` tokens), chains 1.. the ``width - 1`` runners-up of
+        the first token in the catch-up logits (by a stable argsort on
+        the host), one token each."""
+        width = int(width)
+        out = {sid: [] for sid, _h, _d in rows}
+        cfg = self.model.config
+        work = []
+        for sid, hist, depth in rows:
+            hist = [int(t) for t in hist]
+            depth = int(depth)
+            if depth < 1 or not hist or len(hist) >= cfg.max_seq_len:
+                continue
+            work.append((sid, hist, min(depth, cfg.max_seq_len - len(hist))))
+        if not work:
+            return out
+        max_depth = max(d for _s, _h, d in work)
+        if self._pool is None:
+            self.bind(len(work), max_depth)
+        # grow a binding a call outruns (direct use; the engine binds its
+        # whole geometry up front)
+        new_ids = sum(1 for sid, _h, _d in work if sid not in self._states)
+        if new_ids > len(self._free_slots) or max_depth - 1 > self._n_new:
+            self.bind(max(self._max_batch, len(self._states) + new_ids),
+                      max(max_depth, self._n_new + 1))
+        B, chunk, pool = self._max_batch, self._chunk, self._pool
+        dev = self.model.device
+
+        # catch-up: history[n_cached:] through prefill chunks; each row's
+        # last chunk gives draft token 1 (argmax) and the branch roots
+        states = {}
+        for sid, hist, _depth in work:
+            st = self._state_for(sid)
+            if st.n_cached > len(hist):
+                # a history that shrank: rebuild from scratch
+                pool.truncate_owner(st, 0)
+                self._tables[st.slot, :] = 0
+                st.n_cached = 0
+            states[sid] = st
+        final_logits = {}
+        while True:
+            feed = np.zeros((B, chunk), np.int32)
+            lengths = np.zeros(B, np.int32)
+            positions = np.zeros(B, np.int32)
+            active = np.zeros(B, bool)
+            finishing = []
+            for sid, hist, _depth in work:
+                st = states[sid]
+                n = min(chunk, len(hist) - st.n_cached)
+                if n <= 0:
+                    continue
+                feed[st.slot, :n] = hist[st.n_cached:st.n_cached + n]
+                lengths[st.slot] = n
+                positions[st.slot] = st.n_cached
+                active[st.slot] = True
+                self._alloc_span(st, st.n_cached, st.n_cached + n)
+                st.n_cached += n
+                if st.n_cached == len(hist):
+                    finishing.append(sid)
+            if not active.any():
+                break
+            feed_d, act_d, pos_d, len_d, tab_d = upload_int32(
+                dev, feed, active, positions, lengths, self._tables)
+            act_d = act_d.bool()
+            _nt, logits = self.model.prefill_step(
+                pool.k, pool.v, feed_d, act_d, torch.zeros_like(pos_d),
+                pos_d, len_d, tab_d, act_d, return_logits=True)
+            self.draft_steps += 1
+            if finishing:
+                lg = logits.cpu().numpy()
+                for sid in finishing:
+                    final_logits[sid] = lg[states[sid].slot]
+
+        # branch roots: a stable argsort, so order[0] is np.argmax
+        first_tok, alt_tok = {}, {}
+        for sid, _hist, _depth in work:
+            order = np.argsort(-final_logits[sid], kind="stable")
+            first_tok[sid] = int(order[0])
+            alt_tok[sid] = [int(t) for t in order[1:width]]
+
+        # chain 0's tokens 2..depth in one draft_step; a row whose span
+        # would cross the draft cache's cap rides inactive (chain [d1])
+        scan_active = np.zeros(B, bool)
+        toks = None
+        if self._n_new > 0 and any(d > 1 for _s, _h, d in work):
+            first = np.zeros(B, np.int32)
+            positions = np.zeros(B, np.int32)
+            for sid, hist, depth in work:
+                st = states[sid]
+                if depth < 2 or len(hist) + self._n_new > cfg.max_seq_len:
+                    continue
+                first[st.slot] = first_tok[sid]
+                positions[st.slot] = len(hist)
+                scan_active[st.slot] = True
+                self._alloc_span(st, len(hist), len(hist) + self._n_new)
+            if scan_active.any():
+                first_d, pos_d, tab_d, act_d = upload_int32(
+                    dev, first, positions, self._tables, scan_active)
+                toks = self.model.draft_step(
+                    pool.k, pool.v, first_d, pos_d, tab_d, act_d.bool(),
+                    self._n_new).cpu().numpy()
+                self.draft_steps += 1
+
+        # chains, then the draft KV rolled back to the committed history
+        for sid, hist, depth in work:
+            st = states[sid]
+            chain0 = [first_tok[sid]]
+            if scan_active[st.slot]:
+                chain0 += [int(t) for t in toks[st.slot]]
+            out[sid] = [chain0[:depth]] + [[t] for t in alt_tok[sid]]
+            keep = blocks_needed(len(hist), self._block_size)
+            dropped = pool.truncate_owner(st, keep)
+            if dropped:
+                self._tables[st.slot, keep:keep + len(dropped)] = 0
+            st.n_cached = len(hist)
+        return out
+
+
+# ---------------------------------------------------------------------------
+# the generation artifact (the JAX package's format)
+# ---------------------------------------------------------------------------
+
+
+class GenerationArtifactError(RuntimeError):
+    """A generation artifact failed its digest or inventory check (a torn
+    or corrupt export). The message names the directory and the first
+    mismatch."""
+
+    def __init__(self, dirname, reason):
+        self.dirname = dirname
+        self.reason = reason
+        super().__init__(
+            "generation artifact %s is torn or corrupt: %s — re-export "
+            "it; it must never be served" % (dirname, reason))
+
+
+def _weight_digest(arr):
+    """sha256 over dtype, shape and bytes (the JAX package's digest)."""
+    arr = np.ascontiguousarray(arr)
+    h = hashlib.sha256()
+    h.update(str(arr.dtype).encode())
+    h.update(repr(arr.shape).encode())
+    h.update(arr.tobytes())
+    return h.hexdigest()
+
+
+def _fsync(path):
+    """fsync a file, or (best effort) a directory."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
+
+
+def _as_numpy(value):
+    if isinstance(value, torch.Tensor):
+        value = value.detach().cpu().numpy()
+    return np.asarray(value, np.float32)
+
+
+def save_generation_artifact(dirname, config, weights):
+    """Publish a generation artifact atomically, in the JAX package's
+    format: an npz of fp32 weights, the config as JSON and a manifest of
+    per-weight sha256 digests and file sizes. Everything is written to a
+    temporary directory first; a new ``dirname`` appears by one rename,
+    an existing one is replaced file by file, the manifest last.
+    ``weights`` maps names to numpy arrays or tensors. Returns the npz
+    path."""
+    dirname = os.path.abspath(dirname)
+    parent = os.path.dirname(dirname)
+    os.makedirs(parent, exist_ok=True)
+    tmp = os.path.join(parent, ".ptpu_tmp_" + os.path.basename(dirname))
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    weights = {k: _as_numpy(v) for k, v in weights.items()}
+    np.savez(os.path.join(tmp, GENERATION_WEIGHTS), **weights)
+    with open(os.path.join(tmp, GENERATION_META), "w") as f:
+        json.dump(config.to_dict(), f, indent=2, sort_keys=True)
+    manifest = {
+        "format": 1,
+        "digests": {k: _weight_digest(v) for k, v in weights.items()},
+        "files": {n: os.path.getsize(os.path.join(tmp, n))
+                  for n in (GENERATION_WEIGHTS, GENERATION_META)},
+    }
+    with open(os.path.join(tmp, GENERATION_MANIFEST), "w") as f:
+        json.dump(manifest, f, indent=1, sort_keys=True)
+        f.flush()
+        os.fsync(f.fileno())
+    for n in (GENERATION_WEIGHTS, GENERATION_META):
+        _fsync(os.path.join(tmp, n))
+    if not os.path.exists(dirname):
+        os.rename(tmp, dirname)
+    else:
+        # payloads before the manifest: a crash in between leaves a
+        # mismatch the loader reports, never a silent torn read
+        stale = os.path.join(dirname, GENERATION_MANIFEST)
+        if os.path.exists(stale):
+            os.remove(stale)
+        for n in (GENERATION_WEIGHTS, GENERATION_META, GENERATION_MANIFEST):
+            os.replace(os.path.join(tmp, n), os.path.join(dirname, n))
+        shutil.rmtree(tmp, ignore_errors=True)
+    _fsync(dirname)
+    _fsync(parent)
+    return os.path.join(dirname, GENERATION_WEIGHTS)
+
+
+def verify_generation_artifact(dirname):
+    """Check an artifact against its manifest: the file sizes, then every
+    weight's sha256. Raises ``GenerationArtifactError`` on a mismatch.
+    Returns True when verified, False for an artifact with no manifest
+    (nothing to check against)."""
+    mpath = os.path.join(dirname, GENERATION_MANIFEST)
+    if not os.path.exists(mpath):
+        return False
+    try:
+        with open(mpath) as f:
+            manifest = json.load(f)
+    except (OSError, ValueError) as e:
+        raise GenerationArtifactError(dirname, "unreadable manifest (%s)"
+                                      % e)
+    for n, size in manifest.get("files", {}).items():
+        p = os.path.join(dirname, n)
+        if not os.path.exists(p):
+            raise GenerationArtifactError(dirname, "missing file %s" % n)
+        if os.path.getsize(p) != int(size):
+            raise GenerationArtifactError(
+                dirname, "file %s is %d bytes, manifest says %d"
+                % (n, os.path.getsize(p), size))
+    digests = manifest.get("digests", {})
+    try:
+        with np.load(os.path.join(dirname, GENERATION_WEIGHTS)) as z:
+            if set(z.files) != set(digests):
+                raise GenerationArtifactError(
+                    dirname, "weight set mismatch (%d stored vs %d in "
+                    "manifest)" % (len(z.files), len(digests)))
+            for k in sorted(z.files):
+                if _weight_digest(z[k]) != digests[k]:
+                    raise GenerationArtifactError(
+                        dirname, "digest mismatch on weight %r" % k)
+    except (OSError, ValueError, zipfile.BadZipFile) as e:
+        raise GenerationArtifactError(dirname, "unreadable weights (%s)"
+                                      % e)
+    return True
+
+
+def load_generation_artifact(dirname, name=None, quantize=None,
+                             verify=True, device=None):
+    """A ``GenerationModel`` on ``device`` (None: ``cuda:0``) from an
+    artifact the JAX package or ``save_generation_artifact`` wrote. An
+    artifact with a manifest is verified first (``verify=False`` skips
+    it); a torn one raises ``GenerationArtifactError``."""
+    if quantize:
+        raise NotImplementedError(
+            "quantize=%r: the int8 weight store (GenerationModel.quantized) "
+            "is not ported yet (ROADMAP.md Queue 1 item 2, the int8 "
+            "weight-store bullet)" % (quantize,))
+    meta_path = os.path.join(dirname, GENERATION_META)
+    if not os.path.exists(meta_path):
+        raise FileNotFoundError("%s has no %s — not a generation artifact"
+                                % (dirname, GENERATION_META))
+    if verify:
+        verify_generation_artifact(dirname)
+    with open(meta_path) as f:
+        config = GenerationConfig.from_dict(json.load(f))
+    try:
+        with np.load(os.path.join(dirname, GENERATION_WEIGHTS)) as z:
+            weights = {k: z[k] for k in z.files}
+    except (OSError, ValueError, zipfile.BadZipFile) as e:
+        raise GenerationArtifactError(dirname, "unreadable weights (%s)"
+                                      % e)
+    return GenerationModel(config, weights,
+                           name=name or os.path.basename(
+                               os.path.normpath(dirname)),
+                           device=device)

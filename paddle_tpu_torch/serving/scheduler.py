@@ -20,7 +20,15 @@ Admission control is two-gated:
 Prefill rides the same step: a just-admitted sequence consumes one
 prompt token per step (``use_prompt`` rows) until its prompt is
 exhausted, after which its input token chains on the device from the
-previous step's output.
+previous step's output. With ``prefill_chunk=C`` (chunked prefill, off
+by default) a step with a row mid-prompt is a ``[max_batch, C]`` window
+instead (``plan_chunk``): prefill rows consume up to C prompt tokens,
+at most ``prefill_token_budget`` across the rows, and decode rows ride
+along as 1-token windows. With ``prefix_cache=True`` admission adopts
+the longest run of sealed blocks whose content equals the prompt's
+prefix (``KVBlockPool.reserve(prefix_keys=)``), the sequence starts
+past the shared span, and each full prompt block is sealed into the
+pool's index once prefill has moved past it.
 
 Speculative decoding (``spec_k=K``, or ``spec_tree=(W, D)`` with
 ``spec_k=D``; off by default) changes what a decode step emits: when every occupied row is
@@ -43,7 +51,7 @@ import numpy as np
 
 from ..analysis.concurrency import make_lock
 from ..observability import metrics as _metrics
-from .kv_cache import blocks_needed
+from .kv_cache import blocks_needed, prefix_chain_keys
 
 __all__ = ["AdmissionError", "GenerationRequest", "RequestQueue",
            "StepScheduler", "spec_tree_acceptance"]
@@ -186,7 +194,7 @@ class _Sequence:
     """Scheduler-internal per-slot decode state."""
 
     __slots__ = ("request", "slot", "pos", "n_dispatched", "pending",
-                 "finished", "dispatch_done")
+                 "finished", "dispatch_done", "prefix_keys", "sealed_upto")
 
     def __init__(self, request, slot):
         self.request = request
@@ -196,6 +204,8 @@ class _Sequence:
         self.pending = 0         # dispatched steps not yet processed
         self.finished = False    # result delivered (EOS/max/seq-cap)
         self.dispatch_done = False  # no more steps will be dispatched
+        self.prefix_keys = ()    # content keys of the prompt's full blocks
+        self.sealed_upto = 0     # prompt blocks already in the pool index
 
     @property
     def in_prefill(self):
@@ -206,13 +216,15 @@ class StepScheduler:
     """Joins/retires sequences at step boundaries over fixed slots.
 
     The engine drives it: ``admit()`` -> ``plan_spec()`` (speculation
-    on) or ``plan_step()`` -> dispatch -> ``record_spec[_tree]()`` per
-    verify window or (lagged) ``record_token()`` per decode output ->
-    ``reap()``.
+    on), ``plan_chunk()`` (chunked prefill on) or ``plan_step()`` ->
+    dispatch -> ``record_spec[_tree]()`` per verify window or (lagged)
+    ``record_token()`` per step output -> ``reap()``.
     """
 
-    def __init__(self, max_batch, pool, max_seq_len, spec_k=0,
-                 drafter=None, spec_tree=None):
+    def __init__(self, max_batch, pool, max_seq_len, prefill_chunk=0,
+                 prefix_cache=False, prefill_token_budget=None,
+                 cache_namespace="", spec_k=0, drafter=None,
+                 spec_tree=None):
         self.max_batch = int(max_batch)
         self.pool = pool
         self.max_seq_len = int(max_seq_len)
@@ -225,6 +237,21 @@ class StepScheduler:
         self.use_prompt = np.zeros(self.max_batch, bool)
         self.positions = np.zeros(self.max_batch, np.int32)
         self.active = np.zeros(self.max_batch, bool)
+        # -- chunked prefill and prefix caching (both off: one token a
+        # step, no sharing)
+        self.prefill_chunk = max(0, int(prefill_chunk or 0))
+        self.prefix_cache = bool(prefix_cache)
+        self.prefill_token_budget = (
+            None if prefill_token_budget is None
+            else max(1, int(prefill_token_budget)))
+        self.cache_namespace = str(cache_namespace)
+        # host-side reuse telemetry (live with metrics off)
+        self.prefix_blocks_reused = 0
+        self.prefix_tokens_skipped = 0
+        if self.prefill_chunk:
+            self.chunk_feed = np.zeros(
+                (self.max_batch, self.prefill_chunk), np.int32)
+            self.chunk_lens = np.zeros(self.max_batch, np.int32)
         # -- speculative decoding (off: the one-token decode path) ------
         # the engine's worker resolves both: a tree (width, depth) comes
         # with spec_k = depth, which gates every `if self.spec_k`
@@ -290,16 +317,52 @@ class StepScheduler:
                 _metrics.counter("serving/requests_failed").inc()
                 continue
             seq = _Sequence(request, slot)
-            if not self.pool.reserve(seq, self.budget_for(request)):
+            keys = ()
+            if self.prefix_cache:
+                # every full prompt block but one holding the last
+                # prompt token: that token is processed here, so the
+                # first generated token has logits to come from
+                bs = self.pool.block_size
+                shareable = ((len(request.prompt) - 1) // bs) * bs
+                keys = prefix_chain_keys(request.prompt[:shareable], bs,
+                                         namespace=self.cache_namespace)
+            if not self.pool.reserve(seq, self.budget_for(request),
+                                     prefix_keys=keys):
                 break  # KV gate: head doesn't fit — keep queue order
             queue.pop()
             request.start_time = time.perf_counter()
             self.slots[slot] = seq
             self.block_tables[slot, :] = self.pool.NULL_BLOCK
-            self.positions[slot] = 0
+            seq.prefix_keys = tuple(keys)
+            matched = self.pool.block_table(seq)
+            if matched:
+                # adopted shared blocks: their prefill is skipped, the
+                # sequence starts past the shared span (and never writes
+                # into it)
+                n = len(matched) * self.pool.block_size
+                self.block_tables[slot, :len(matched)] = matched
+                seq.pos = n
+                seq.sealed_upto = len(matched)
+                self.prefix_blocks_reused += len(matched)
+                self.prefix_tokens_skipped += n
+                _metrics.counter("serving/prefix_blocks_reused").inc(
+                    len(matched))
+                _metrics.counter("serving/prefix_tokens_skipped").inc(n)
+            self.positions[slot] = seq.pos
             self.active[slot] = True
             admitted.append(seq)
         return admitted
+
+    def _seal_ready(self, slot, seq):
+        """Seal every full prompt block that prefill has moved past into
+        the pool's content index (its content is fixed), so later
+        admissions can adopt it."""
+        done = min(seq.pos, len(seq.request.prompt)) // self.pool.block_size
+        while seq.sealed_upto < min(done, len(seq.prefix_keys)):
+            i = seq.sealed_upto
+            self.pool.seal_block(int(self.block_tables[slot, i]),
+                                 seq.prefix_keys[i])
+            seq.sealed_upto += 1
 
     # -- step planning --------------------------------------------------
     def plan_step(self):
@@ -339,7 +402,73 @@ class StepScheduler:
             if (seq.n_dispatched >= seq.request.max_new_tokens
                     or seq.pos >= self.max_seq_len):
                 seq.dispatch_done = True
+            if seq.prefix_keys:
+                self._seal_ready(slot, seq)
         return plan
+
+    def plan_chunk(self):
+        """Chunked-prefill planning (Sarathi-style mixed batches). With
+        no active row mid-prompt it is ``plan_step`` (the engine then
+        dispatches the one-token step). Otherwise it fills the
+        ``chunk_feed``/``chunk_lens`` window arrays: prefill rows consume
+        up to ``prefill_chunk`` prompt tokens, bounded across rows by
+        ``prefill_token_budget`` (a row past the budget sits the step
+        out), decode rows are 1-token windows. Returns ``(plan,
+        chunked)``."""
+        if not any(s is not None and not s.dispatch_done and s.in_prefill
+                   for s in self.slots):
+            return self.plan_step(), False
+        bs = self.pool.block_size
+        budget = self.prefill_token_budget
+        plan = []
+        for slot, seq in enumerate(self.slots):
+            if seq is None or seq.dispatch_done:
+                self._idle_chunk_row(slot)
+                continue
+            pos = seq.pos
+            prompt = seq.request.prompt
+            if seq.in_prefill:
+                n = min(self.prefill_chunk, len(prompt) - pos)
+                if budget is not None:
+                    if budget <= 0:
+                        # the step's prefill budget is spent: the row
+                        # resumes next step, decode latency stays bounded
+                        self._idle_chunk_row(slot)
+                        continue
+                    n = min(n, budget)
+                    budget -= n
+                self.chunk_feed[slot, :n] = prompt[pos:pos + n]
+                self.use_prompt[slot] = True
+                gen_idx = 0 if pos + n == len(prompt) else None
+            else:
+                n = 1
+                self.use_prompt[slot] = False
+                gen_idx = seq.n_dispatched
+            # lazy block allocation at every boundary the window crosses
+            # (drawn from the admission-time reservation)
+            for p in range(pos, pos + n):
+                if p % bs == 0:
+                    self.block_tables[slot, p // bs] = \
+                        self.pool.alloc_block(seq)
+            self.positions[slot] = pos
+            self.chunk_lens[slot] = n
+            self.active[slot] = True
+            if gen_idx is not None:
+                seq.n_dispatched = gen_idx + 1
+            seq.pos = pos + n
+            seq.pending += 1
+            plan.append((seq, gen_idx))
+            if (seq.n_dispatched >= seq.request.max_new_tokens
+                    or seq.pos >= self.max_seq_len):
+                seq.dispatch_done = True
+            if seq.prefix_keys:
+                self._seal_ready(slot, seq)
+        return plan, True
+
+    def _idle_chunk_row(self, slot):
+        self.active[slot] = False
+        self.use_prompt[slot] = False
+        self.chunk_lens[slot] = 0
 
     # -- speculative verify windows ------------------------------------
     def plan_spec(self):
@@ -363,6 +492,17 @@ class StepScheduler:
                 return None
         if self.spec_tree:
             return self._plan_spec_tree()
+        # a drafter with propose_batch (ModelDrafter) drafts every row in
+        # a few batched device steps before the per-row windows
+        batch_drafts = None
+        if self.drafter is not None and hasattr(self.drafter,
+                                                "propose_batch"):
+            rows = [(seq.request.id, seq.request.prompt + seq.request.tokens)
+                    for seq in self.slots
+                    if seq is not None and not seq.dispatch_done
+                    and self._spec_limit(seq) > 1]
+            if rows:
+                batch_drafts = self.drafter.propose_batch(rows, self.spec_k)
         plan = []
         for slot, seq in enumerate(self.slots):
             if seq is None or seq.dispatch_done:
@@ -370,14 +510,12 @@ class StepScheduler:
                 continue
             request = seq.request
             history = self._committed_history(seq)
-            # every emitted token takes one max_new slot and one sequence
-            # position; >= 1 here (else dispatch_done already)
-            limit = min(self.spec_k + 1,
-                        request.max_new_tokens - len(request.tokens),
-                        self.max_seq_len - seq.pos)
+            limit = self._spec_limit(seq)
             drafts = []
             if limit > 1 and self.drafter is not None:
-                if hasattr(self.drafter, "propose_for"):
+                if batch_drafts is not None:
+                    drafts = batch_drafts.get(request.id, [])
+                elif hasattr(self.drafter, "propose_for"):
                     # indexed n-gram path: the same tokens at O(k) host
                     # cost a window
                     drafts = self.drafter.propose_for(
@@ -388,6 +526,15 @@ class StepScheduler:
             plan.append(self._fill_spec_row(slot, seq,
                                             [history[-1]] + drafts))
         return self._count_spec_step(plan)
+
+    def _spec_limit(self, seq):
+        """Slots of a row's linear window: every emitted token takes one
+        max_new slot and one sequence position (>= 1 here, else
+        dispatch_done already)."""
+        request = seq.request
+        return min(self.spec_k + 1,
+                   request.max_new_tokens - len(request.tokens),
+                   self.max_seq_len - seq.pos)
 
     def _plan_spec_tree(self):
         """Tree verify-window planning: each dispatching row feeds a
@@ -413,16 +560,27 @@ class StepScheduler:
             d = min(D, request.max_new_tokens - len(request.tokens) - 1,
                     (self.max_seq_len - seq.pos - 1) // W)
             rows.append((slot, seq, history, max(d, 0)))
+        # the draft pass: batched when the drafter can (ModelDrafter),
+        # per row otherwise
+        drafter = self.drafter
+        need = [r for r in rows if r[3] > 0] if drafter is not None else []
+        chains_by_slot = {}
+        if need and hasattr(drafter, "propose_tree_batch"):
+            got = drafter.propose_tree_batch(
+                [(seq.request.id, h, d) for _s, seq, h, d in need], W)
+            for slot, seq, _h, _d in need:
+                chains_by_slot[slot] = got.get(seq.request.id, [])
+        else:
+            for slot, seq, h, d in need:
+                if hasattr(drafter, "propose_tree"):
+                    chains_by_slot[slot] = drafter.propose_tree(
+                        h, W, d, seq_id=seq.request.id)
+                else:
+                    chains_by_slot[slot] = [list(drafter.propose(h, d))]
         plan = []
         for slot, seq, history, d in rows:
-            chains = []
-            if d > 0 and self.drafter is not None:
-                if hasattr(self.drafter, "propose_tree"):
-                    chains = self.drafter.propose_tree(
-                        history, W, d, seq_id=seq.request.id)
-                else:
-                    chains = [list(self.drafter.propose(history, d))]
-            chains = [[int(t) for t in ch][:d] for ch in chains][:W]
+            chains = [[int(t) for t in ch][:d]
+                      for ch in chains_by_slot.get(slot, [])][:W]
             chains = [ch for ch in chains if ch]
             d_used = max((len(ch) for ch in chains), default=0)
             window = [history[-1]]

@@ -15,7 +15,14 @@ a small width:
     legs run token-identical to ``reference_decode`` with clean pools,
     and a planted wrong verify-window token fails it, printing the
     reference's top-2 logit margin at the differing position; its wide
-    legs (spec_k 16, a 4x8 tree) serve token-identically too."""
+    legs (spec_k 16, a 4x8 tree) serve token-identically too, and so do
+    its legs over chunked prefill (spec_k 6, and a 2x6 tree drafted by a
+    ModelDrafter over the target, accepted whole here); the launch
+    accounting of those legs (the drafter's launches read from their
+    sum) sees a missing launch;
+  * the serving fast path (phase 4c) at vocab 128, d_model 64: its three
+    legs agree and equal ``reference_decode``, the fast leg reuses every
+    shared block, and a planted wrong chunk-step token fails it."""
 
 import importlib.util
 import pathlib
@@ -202,3 +209,95 @@ def test_spec_wide_phase_on_the_cpu(smoke, capsys):
         assert leg["verify_windows"] > 0
     assert legs["tree4x8"]["tree_slots"] > 0
     assert capsys.readouterr().out.count("spec_serving ") == 2
+
+
+def test_spec_chunk_phase_on_the_cpu(smoke, capsys):
+    """The legs over chunked prefill: token-identical to reference_decode,
+    chunk steps ran in both, the ModelDrafter drafted for the tree leg
+    and (the target drafting for itself, on the CPU) every draft was
+    accepted."""
+    from paddle_tpu_torch.serving import GenerationConfig
+
+    model = GenerationModel.random(GenerationConfig(**SPEC_CFG), seed=0,
+                                   device="cpu")
+    legs = smoke.spec_chunk_phase(torch, pa, pat, model)
+    assert list(legs) == ["linear_c8", "tree_model"]
+    for leg in legs.values():
+        assert leg["reference_identical"] == leg["requests"] == 6
+        assert leg["chunk_steps"] > 0 and leg["verify_windows"] > 0
+    assert legs["linear_c8"]["draft_steps"] == 0
+    assert legs["tree_model"]["draft_steps"] > 0
+    assert legs["tree_model"]["tree_slots"] > 0
+    assert legs["tree_model"]["accept_rate"] == 1.0
+    assert capsys.readouterr().out.count("spec_serving ") == 2
+
+
+def test_spec_launches_accounts_for_the_drafter(smoke):
+    """A tree leg with a ModelDrafter over 6 layers: 10 steps, 4 of them
+    tree windows and 3 chunk steps at C=8; 5 draft steps, 3 catch-ups at
+    C=8 and 2 draft steps of 5 one-token steps. The expected counts
+    equal what such a run launches, and one launch fewer is seen."""
+    L = 6
+    stats = {"prefill_chunk": 8, "spec_k": 6, "spec_tree": "2x6"}
+    k2 = {1: L * (3 + 2 * 5), 8: L * (3 + 3)}
+    want = smoke.spec_launches(L, stats, 10, 4, 3, 5, object(), k2)
+    assert want == (k2, 4 * L)
+    short = {1: k2[1] - 1, 8: k2[8]}
+    assert smoke.spec_launches(L, stats, 10, 4, 3, 5, object(),
+                               short)[0] != short
+    assert smoke.spec_launches(L, stats, 10, 4, 3, 6, object(),
+                               k2)[0] != k2
+    linear = {"prefill_chunk": 8, "spec_k": 6, "spec_tree": None}
+    assert smoke.spec_launches(L, linear, 10, 4, 3, 0, None, {}) == \
+        ({1: 3 * L, 8: 3 * L, 7: 4 * L}, 0)
+
+
+@pytest.fixture
+def fast_smoke(smoke):
+    smoke.FAST = dict(smoke.FAST, cfg=SPEC_CFG, max_batch=4, block_size=4,
+                      prefix_len=32, n_requests=8, max_new_tokens=6,
+                      reference_checked=3, chunk=8,
+                      legs=(("legacy", {"prefill_chunk": 0,
+                                        "prefix_cache": False}),
+                            ("chunked", {"prefill_chunk": 8,
+                                         "prefix_cache": False}),
+                            ("fast", {"prefill_chunk": 8,
+                                      "prefix_cache": True})))
+    return smoke
+
+
+def test_fastpath_phase_on_the_cpu(fast_smoke, capsys):
+    legs = fast_smoke.fastpath_phase(torch, pa, device="cpu")
+    assert list(legs) == ["legacy", "chunked", "fast"]
+    for leg in legs.values():
+        assert leg["requests"] == 8 and leg["reference_identical"] == 3
+        assert leg["generated_tokens"] == 8 * 6
+    assert legs["legacy"]["chunk_steps"] == 0
+    assert legs["chunked"]["chunk_steps"] > 0
+    assert legs["fast"]["prefix_hit_rate"] == 1.0
+    assert legs["fast"]["blocks_cached"] >= 8
+    assert legs["chunked"]["prefix_blocks_reused"] == 0
+    assert legs["fast"]["steps"] < legs["chunked"]["steps"] < \
+        legs["legacy"]["steps"]
+    assert capsys.readouterr().out.count("fastpath {") == 3
+
+
+def test_fastpath_phase_fails_on_a_wrong_token(fast_smoke, monkeypatch,
+                                               capsys):
+    """The chunk steps' greedy tokens planted wrong past the chunked
+    leg's priming request: that leg fails against the reference."""
+    calls = []
+    prefill_step = GenerationModel.prefill_step
+
+    def planted(self, *args, **kwargs):
+        out = prefill_step(self, *args, **kwargs)
+        calls.append(1)
+        if len(calls) > 8:
+            out = (out + 1) % self.config.vocab_size
+        return out
+
+    monkeypatch.setattr(GenerationModel, "prefill_step", planted)
+    with pytest.raises(SystemExit):
+        fast_smoke.fastpath_phase(torch, pa, device="cpu")
+    err = capsys.readouterr().err
+    assert "fastpath chunked" in err and "differs" in err

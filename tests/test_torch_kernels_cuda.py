@@ -62,6 +62,85 @@ def test_kernel_matches_plain_on_card(Dh, C, bs):
 
 
 @pytest.mark.cuda
+def test_kernel_prefill_chunk_matrix_matches_plain_on_card():
+    """K2 at C=64 on the prefill-chunk window the fast path gives it
+    (Dh 64, block 16, max_seq_len 512): valid spans of 1, 7, 33 and 64
+    slots in one call (the rest of each window into null table entries),
+    a decode row at position 500 whose window runs past the table, two
+    rows on 16 shared (adopted) blocks, an inactive row (atol 1e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    C, H, Dh, bs, Mb = 64, 8, 64, 16, 32
+    rows = ((0, 1, False), (100, 7, False), (300, 33, False),
+            (448, 64, False), (500, 1, False), (256, 64, True),
+            (256, 5, True), (40, 0, False))
+    B = len(rows)
+    rng = np.random.RandomState(64)
+    tables = np.zeros((B, Mb), np.int32)
+    perm = rng.permutation(B * Mb) + 1
+    for b, (start, span, adopts) in enumerate(rows):
+        if span:
+            n = min((start + span - 1) // bs + 1, Mb)
+            tables[b, :n] = perm[b * Mb:b * Mb + n]
+            if adopts:
+                tables[b, :16] = perm[-16:]
+    pos = np.array([r[0] for r in rows])[:, None] + np.arange(C)[None, :]
+    dev = torch.device("cuda")
+    k = torch.from_numpy(
+        rng.randn(B * Mb + 1, bs, H, Dh).astype(np.float32)).to(dev)
+    v = torch.from_numpy(
+        rng.randn(B * Mb + 1, bs, H, Dh).astype(np.float32)).to(dev)
+    q = torch.from_numpy(rng.randn(B, C, H, Dh).astype(np.float32)).to(dev)
+    t = torch.from_numpy(tables).to(dev)
+    p = torch.from_numpy(pos.astype(np.int32)).to(dev)
+    launches = pa.paged_attention.window_launches.get(C, 0)
+    got = pa.paged_attention(k, v, q, t, p)
+    want = pa.paged_attention_reference(k, v, q, t, p)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.window_launches[C] == launches + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_fast_path_engine_matches_reference_on_card():
+    """The flagship decoder at full width (vocab 32000, d_model 512, 8
+    heads, 6 layers, d_ff 2048) behind ``ServingEngine(prefill_chunk=64,
+    prefix_cache=True)`` on the card: 4 prompts on a 128-token shared
+    prefix after a priming request, each token-identical to
+    reference_decode; every request adopted the 8 shared blocks, K2 ran
+    at C=64, and the pool drains clean."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from paddle_tpu_torch.serving import (GenerationConfig, GenerationModel,
+                                          ServingEngine, reference_decode)
+
+    cfg = GenerationConfig(vocab_size=32000, d_model=512, n_heads=8,
+                           n_layers=6, d_ff=2048, max_seq_len=512)
+    model = GenerationModel.random(cfg, seed=0)
+    rng = np.random.RandomState(11)
+    shared = rng.randint(0, cfg.vocab_size, size=128).tolist()
+    prompts = [shared + rng.randint(0, cfg.vocab_size, size=n).tolist()
+               for n in (2, 5, 8, 3)]
+    refs = [reference_decode(model, p, 8) for p in prompts]
+    launches = pa.paged_attention.window_launches.get(64, 0)
+    with ServingEngine(model, max_batch=4, max_seq_len=cfg.max_seq_len,
+                       block_size=16, prefill_chunk=64,
+                       prefix_cache=True) as engine:
+        engine.generate(shared + [7], max_new_tokens=2, timeout=600)
+        base = engine.stats()["prefix_blocks_reused"]
+        reqs = [engine.submit(p, max_new_tokens=8) for p in prompts]
+        got = [r.wait(600) for r in reqs]
+        stats = engine.stats()
+    assert got == refs
+    assert stats["prefix_blocks_reused"] - base == 4 * 8
+    assert pa.paged_attention.window_launches[64] > launches
+    pool = engine._worker.pool
+    assert pool.check_invariants() == []
+    assert pool.stats()["blocks_in_use"] == 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("W,D,Dh,bs", [(2, 6, 64, 16), (1, 4, 32, 4),
                                        (3, 8, 128, 16), (1, 31, 128, 16),
                                        (4, 4, 64, 5), (2, 6, 96, 16),
