@@ -73,15 +73,17 @@ Phases, each fatal on failure (exit code 1, no result line):
 
   5. flash attention kernels: K1's forward and backward CUDA kernels
      against the plain version's forward and autograd, each call by its
-     route (bf16: the tensor-core kernels both ways; fp32: the 3xTF32
+     route (bf16: the tensor-core kernels both ways; fp16: the same
+     source's fp16 instantiation both ways; fp32: the 3xTF32
      tensor-core kernels both ways), through the strided
      views of [B, T, H, Dh] tensors, all at H=8, T=512, causal: checked,
      then kernel, plain and library (scaled_dot_product_attention in the
      same dtype) times each way, the bounds and the factor to the
      library, at head dim 64 in bf16 at the training path's B=160 and in
-     fp32 at the int8 path's B=32 (and phase 7's B=2, path_* keys); at
-     head dim 128 at B=80 (bf16) and B=32 (fp32) and at phase 6b's own
-     B=8 (path_* keys); at head dim 256 at phase 6c's own shape (B=4).
+     fp32 at the int8 path's B=32 (and phase 7's B=2, path_* keys) and in
+     fp16 at the amp_fp16 bench leg's B=160; at head dim 128 at B=80
+     (bf16, fp16) and B=32 (fp32) and at phase 6b's own B=8 (path_*
+     keys); at head dim 256 at phase 6c's own shape (B=4).
      Also checked: fp32 B=4, non-causal Tq=128/Tk=256 at Dh 64, 128 and
      256, and head dims 96 and 192 through the pad (4 copies counted).
      Past the largest instantiation (the wide kernels: a block a
@@ -105,10 +107,30 @@ Phases, each fatal on failure (exit code 1, no result line):
      route), 5 steps of the fp32 program's inference clone (K1 once a
      layer a step forward by the 3xTF32 route, no backward) and 5 fp32
      SGD steps (K1 once a layer a step by the 3xTF32 kernels both ways,
-     then one profiled step: K1's device ms); each leg's counts zeroed
-     before it, no operand copied.
+     then one profiled step: K1's device ms) and 5 steps of the fp32
+     program under amp.decorate(dtype="float16") (K1 once a layer a step
+     by the fp16 route both ways); each leg's counts zeroed before it, no
+     operand copied.
   6c. head dim 256: the same at d_model 2048 over 8 heads (the head
-     width of Gemma-family decoders), d_ff 8192, 2 layers, batch 4.
+     width of Gemma-family decoders), d_ff 8192, 2 layers, batch 4 (no
+     fp16 leg).
+  6d. bench legs: ``paddle_tpu_torch.bench.bench_transformer_fluid``,
+     the port's bench.py, at its defaults (the flagship at full width,
+     batch 160, seq 512, 3 warm-up and 24 timed steps, the
+     compile-pipeline receipt in the program) in bench.py's training
+     legs and the port's fp16 one: async (the in-flight window), sync,
+     noopt (PTPU_NO_PROGRAM_OPT=1), fp32, amp (amp.decorate, bf16) and
+     amp_fp16 (amp.decorate(dtype="float16"), dynamic loss scaling).
+     Each prints tokens/s, ms a step (device and host), the last loss,
+     the peak memory, K1's launches by route and (async) the window's
+     deepest depth. Fatal unless every loss is finite and falls over the
+     leg, K1 runs 6 forward and 6 backward launches a step by the route
+     the leg's dtype names ("tc", "f32tc", "fp16") with no operand
+     copied, the compiler/* and amp/* counters equal the pipeline's on
+     the CPU for the same program (none on noopt), the async window
+     reaches 12 steps, and the amp_fp16 leg's loss scale and counters
+     equal the update_loss_scaling state machine's for the overflows it
+     saw. The fp32 leg runs at the largest batch of 160 / 2^k that fits.
   7. card vs CPU: the same program from one set of weights (startup run
      once on the card, the scope copied to the CPU), two SGD steps at
      batch 2 on cuda:0 (the kernels) and on the CPU (the plain
@@ -154,6 +176,7 @@ import numpy as np
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12      # fp32 outside the tensor cores
 H100_BF16_FLOPS = 989e12     # bf16 tensor cores, dense
+H100_FP16_FLOPS = 989e12     # fp16 tensor cores, dense
 H100_TF32_FLOPS = 494.7e12   # TF32 tensor cores, dense
 H100_INT8_OPS = 1979e12      # int8 tensor cores, dense
 ATOL = 1e-4                  # fp32, different summation order
@@ -161,11 +184,15 @@ ATOL = 1e-4                  # fp32, different summation order
 # (atol, rtol) for the output and for the three grads: fp32 sums in
 # another order; in bf16 both sides round to bf16 (1 ulp is 2^-8 to 2^-7
 # of |want|), and the grads are reductions over up to 512 rounded terms
-# that the kernel's backward forms from the bf16-rounded O
+# that the kernel's backward forms from the bf16-rounded O; fp16 rounds
+# the same places with 3 more bits (1 ulp 2^-11 to 2^-10 of |want|): the
+# bf16 limits over 8
 FLASH_TOL = {"float32": {"out": (1e-4, 1e-4), "grads": (1e-4, 1e-4)},
-             "bfloat16": {"out": (1e-2, 1e-2), "grads": (3e-2, 1e-2)}}
+             "bfloat16": {"out": (1e-2, 1e-2), "grads": (3e-2, 1e-2)},
+             "float16": {"out": (2e-3, 2e-3), "grads": (4e-3, 2e-3)}}
 # K1's (forward, backward) routes by dtype: the kernels that run
-FLASH_ROUTES = {"bfloat16": ("tc", "tc"), "float32": ("f32tc", "f32tc")}
+FLASH_ROUTES = {"bfloat16": ("tc", "tc"), "float16": ("fp16", "fp16"),
+                "float32": ("f32tc", "f32tc")}
 
 
 def fail(msg):
@@ -1287,7 +1314,9 @@ def flash_phase(torch, fa):
     in fp32 at the int8 path's B=32 (the forward's path; the fp32
     backward's path is phase 7 at B=2, also checked and timed); head dim
     128 at the timing shapes bf16 B=80 and fp32 B=32 and at phase 6b's
-    own B=WIDE_BATCH; head dim 256 at phase 6c's own shape; head dims 96
+    own B=WIDE_BATCH; fp16 (the "fp16" route) at head dim 64 at the
+    amp_fp16 bench leg's B=160 and at 128 as bf16 (B=80, and phase 6b's
+    B=WIDE_BATCH); head dim 256 at phase 6c's own shape; head dims 96
     and 192 through the pad and cross-attention cases checked; the fp32
     backward run twice on the same inputs, bitwise equal. Returns the
     kernels-line rows by name, each forward and backward kernel of each
@@ -1314,6 +1343,17 @@ def flash_phase(torch, fa):
                                            WIDE_BATCH, 128, seed + 10),
                    timed)
         rows.update(timed)
+    # fp16 (F3): at head dim 64 at the amp_fp16 bench leg's B=160, at 128
+    # at bf16's timing shape B=80 and at phase 6b's fp16 leg's B=8;
+    # cross-attention and a padded head dim checked
+    flash_check(torch, fa, 16, 8, 128, 256, False, "float16", seed=16)
+    flash_check(torch, fa, 2, 8, 256, 256, True, "float16", seed=17, Dh=96)
+    rows.update(flash_timed_rows(torch, fa, F, flush, "float16", 160, 64,
+                                 18))
+    timed = flash_timed_rows(torch, fa, F, flush, "float16", 80, 128, 19)
+    flash_path(timed, flash_timed_rows(torch, fa, F, flush, "float16",
+                                       WIDE_BATCH, 128, 20), timed)
+    rows.update(timed)
     for dtype in ("bfloat16", "float32"):
         flash_check(torch, fa, 2, 4, 256, 512, False, dtype, seed=11,
                     Dh=256)
@@ -1394,7 +1434,7 @@ def flash_timed_rows(torch, fa, F, flush, dtype, B, Dh, seed, H=8, T=512):
           "SDPA fwd %.2f, bwd %.2f; max |SDPA - kernel| %.3g)"
           % (shape, ms_fwd, ms_bwd, plain_fwd, plain_bwd, lib_fwd, lib_bwd,
              ms_fwd / lib_fwd, ms_bwd / lib_bwd, lib_err), flush=True)
-    elem = 2 if dtype == "bfloat16" else 4
+    elem = 4 if dtype == "float32" else 2
     suffix = "" if Dh == 64 else "_dh%d" % Dh
     rows = {}
     for fwd, route, ms, plain, library, err in (
@@ -1403,6 +1443,7 @@ def flash_timed_rows(torch, fa, F, flush, dtype, B, Dh, seed, H=8, T=512):
             (False, FLASH_ROUTES[dtype][1], ms_bwd, plain_bwd, lib_bwd,
              max(errs["dq"], errs["dk"], errs["dv"]))):
         rate, products = {"tc": (H100_BF16_FLOPS, 1),
+                          "fp16": (H100_FP16_FLOPS, 1),
                           "f32tc": (H100_TF32_FLOPS, 3)}[route]
         bound_ms, bound_by = flash_bound_ms(B, H, T, Dh, elem, fwd, rate,
                                             products)
@@ -1412,7 +1453,7 @@ def flash_timed_rows(torch, fa, F, flush, dtype, B, Dh, seed, H=8, T=512):
             "name": name, "route": "cuda", "kernel_route": route,
             "head_dim": Dh, "dtype": dtype,
             "source": "paddle_tpu_torch/csrc/%s.cu" % (
-                "flash_attention_tc" if route == "tc"
+                "flash_attention_tc" if route in ("tc", "fp16")
                 else "flash_attention_f32tc" if fwd
                 else "flash_attention_f32tc_bwd"),
             "replaces": ("paddle_tpu/ops/pallas_kernels.py:162" if fwd
@@ -1420,6 +1461,7 @@ def flash_timed_rows(torch, fa, F, flush, dtype, B, Dh, seed, H=8, T=512):
             "shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_rate": {"tc": "bf16 tensor cores, 989 TFLOP/s",
+                           "fp16": "fp16 tensor cores, 989 TFLOP/s",
                            "f32tc": "TF32 tensor cores, 494.7 TFLOP/s, 3 "
                                     "products (3xTF32)"}[route],
             "library_ms": library, "factor_to_library": ms / library,
@@ -1453,17 +1495,22 @@ WIDE256_BATCH = 4
 def build_lm(fluid, dtype="bfloat16", cfg=None):
     """bench.py's headline program through the port's entry points (bf16
     under the legacy AMP decorator), or the same model in fp32 with plain
-    SGD; `cfg` the model's widths (default TRAIN)."""
+    SGD, or (dtype "float16") the fp32-stored model under
+    ``amp.decorate(dtype="float16")`` (dynamic loss scaling); `cfg` the
+    model's widths (default TRAIN)."""
     from paddle_tpu_torch.models import transformer_fluid
 
     cfg = TRAIN if cfg is None else cfg
 
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
-        _, _, loss = transformer_fluid.build(remat=False, dtype=dtype,
-                                             **cfg)
+        _, _, loss = transformer_fluid.build(
+            remat=False, dtype="float32" if dtype == "float16" else dtype,
+            **cfg)
         opt = fluid.optimizer.SGD(0.01)
-        if dtype == "bfloat16":
+        if dtype == "float16":
+            opt = fluid.amp.decorate(opt, dtype="float16")
+        elif dtype == "bfloat16":
             opt = fluid.contrib.mixed_precision.decorate(
                 opt, init_loss_scaling=1.0, use_dynamic_loss_scaling=False)
         opt.minimize(loss)
@@ -1583,19 +1630,22 @@ def training_phase(torch, fa, fluid, program):
     return launches
 
 
-def wide_head_phase(torch, fa, fluid, cfg=WIDE, batch=WIDE_BATCH, steps=5):
+def wide_head_phase(torch, fa, fluid, cfg=WIDE, batch=WIDE_BATCH, steps=5,
+                    fp16=False):
     """K1's path at a wider head (cfg's d_model over its heads), in three
     legs: the LM trained `steps` bf16 AMP steps on cuda:0, its fp32
     program's inference clone run `steps` steps, and the fp32 program
-    trained `steps` steps with SGD. Every loss finite, the training
-    losses falling; flash attention launched once a layer a step by its
-    routes: "tc" both ways in bf16 training, "f32tc" forward only in
-    inference, "f32tc" both ways in fp32 training (no other route
-    exists); no operand copied. Each leg's counts are zeroed before it
-    and read after it. The fp32 training leg then runs one step under
-    torch.profiler for K1's device ms. Returns the launches by kernel
-    ("tc_fwd", "tc_bwd", "f32tc_fwd" summed over both fp32 legs,
-    "f32tc_bwd")."""
+    trained `steps` steps with SGD; with `fp16` a fourth, the fp32-stored
+    LM trained `steps` steps under ``amp.decorate(dtype="float16")``.
+    Every loss finite, the training losses falling; flash attention
+    launched once a layer a step by its routes: "tc" both ways in bf16
+    training, "f32tc" forward only in inference, "f32tc" both ways in
+    fp32 training, "fp16" both ways in fp16 training; no operand copied.
+    Each leg's counts are zeroed before it and read after it. The fp32
+    training leg then runs one step under torch.profiler for K1's device
+    ms. Returns the launches by kernel ("tc_fwd", "tc_bwd", "f32tc_fwd"
+    summed over both fp32 legs, "f32tc_bwd", and "fp16_fwd",
+    "fp16_bwd")."""
     from torch.profiler import ProfilerActivity, profile
 
     exe = fluid.Executor()                     # place None: cuda:0
@@ -1608,7 +1658,10 @@ def wide_head_phase(torch, fa, fluid, cfg=WIDE, batch=WIDE_BATCH, steps=5):
              ("f32tc", 0)),
             ("float32", False, "fp32 training, SGD(0.01)", ("f32tc", n),
              ("f32tc", n)))
-    total = {"tc_fwd": 0, "tc_bwd": 0, "f32tc_fwd": 0, "f32tc_bwd": 0}
+    if fp16:
+        legs += (("float16", False, "fp16 training, amp.decorate(dtype="
+                  "'float16'), SGD(0.01)", ("fp16", n), ("fp16", n)),)
+    total = {}
     for dtype, for_test, label, (f_route, f_n), (b_route, b_n) in legs:
         main, startup, loss = build_lm(fluid, dtype, cfg)
         prog = main.clone(for_test=True) if for_test else main
@@ -1636,8 +1689,9 @@ def wide_head_phase(torch, fa, fluid, cfg=WIDE, batch=WIDE_BATCH, steps=5):
             fail("head dim %d %s: flash attention launched %r (forward, "
                  "backward by route; copies) over %d steps; expected %r"
                  % (Dh, label, counts, steps, want))
-        total["%s_fwd" % f_route] += counts[0][f_route]
-        total["%s_bwd" % b_route] += counts[1][b_route]
+        for key, c in (("%s_fwd" % f_route, counts[0][f_route]),
+                       ("%s_bwd" % b_route, counts[1][b_route])):
+            total[key] = total.get(key, 0) + c
         k1_ms = None
         if dtype == "float32" and not for_test:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1663,6 +1717,148 @@ def wide_head_phase(torch, fa, fluid, cfg=WIDE, batch=WIDE_BATCH, steps=5):
         del main, startup, prog, scope, feed
         torch.cuda.empty_cache()
     return total
+
+
+# the bench legs phase: paddle_tpu_torch.bench.bench_transformer_fluid at
+# bench.py's defaults (full width, batch 160, seq 512, 3 warm-up and 24
+# timed steps), one call a leg: (name, keyword arguments, K1's route)
+BENCH_LEGS = (
+    ("async", dict(async_exec=True), "tc"),
+    ("sync", dict(async_exec=False), "tc"),
+    ("noopt", dict(async_exec=False, program_opt=False), "tc"),
+    ("fp32", dict(async_exec=False, dtype="float32", amp=False), "f32tc"),
+    ("amp", dict(async_exec=False, dtype="float32", amp=True), "tc"),
+    ("amp_fp16", dict(async_exec=False, dtype="float32", amp="float16"),
+     "fp16"),
+)
+# amp.decorate(dtype="float16")'s dynamic loss scaling: (initial scale,
+# incr_every_n_steps, decr_every_n_nan_or_inf, incr_ratio, decr_ratio)
+AMP_FP16_SCALING = (2.0 ** 15, 1000, 2, 2.0, 0.5)
+
+
+def loss_scaling_after(found_inf, init, incr_every, decr_every, incr_ratio,
+                       decr_ratio):
+    """(scale, good steps, bad steps) after the update_loss_scaling state
+    machine (the JAX op, paddle_tpu/ops/quant_ops.py:177) saw the
+    overflow flags `found_inf`, in fp32 as the op computes."""
+    scale, good, bad = np.float32(init), 0, 0
+    for inf in found_inf:
+        good, bad = (0, bad + 1) if inf else (good + 1, 0)
+        if not inf and good >= incr_every:
+            scale, good = np.float32(scale * np.float32(incr_ratio)), 0
+        elif inf and bad >= decr_every:
+            scale = max(np.float32(scale * np.float32(decr_ratio)),
+                        np.float32(1.0))
+            bad = 0
+    return float(scale), float(good), float(bad)
+
+
+def pass_counts(metrics):
+    return {k: v for k, v in metrics.registry().to_dict()["counters"].items()
+            if k.startswith(("compiler/", "amp/"))}
+
+
+def cpu_pass_counts(fluid, bench, metrics, kw):
+    """The compiler/* and amp/* counts of the pass pipeline on the leg's
+    programs (startup and main, fetching the loss), optimized on the CPU:
+    what the tests pin for the same program at TINY widths."""
+    from paddle_tpu_torch import ir_passes
+
+    main, startup, loss, _ = bench.build_program(
+        512, kw.get("dtype", "bfloat16"), kw.get("amp", "legacy"))
+    metrics.reset()
+    scope = fluid.Scope()
+    ir_passes.optimize_for_execution(startup, [], scope, "cpu")
+    ir_passes.optimize_for_execution(main, [loss.name], scope, "cpu")
+    return pass_counts(metrics)
+
+
+def bench_phase(torch, fa, fluid):
+    """bench.py's training legs through ``paddle_tpu_torch.bench.
+    bench_transformer_fluid`` on cuda:0 (BENCH_LEGS). Each leg zeroes
+    K1's counts and the metrics before it and reads them after it; it
+    fails unless every loss is finite and the loss fell over the leg, K1
+    ran 6 forward and 6 backward launches a step by the leg's route with
+    no operand copied, the pass counters equal the pipeline's on the CPU
+    for the same program (none at all on the noopt leg), the async leg's
+    window reached its 12 steps, and the amp_fp16 leg's loss scale and
+    counters equal what update_loss_scaling gives for the overflows it
+    saw. The fp32 leg runs at the largest batch of 160 / 2^k that fits
+    (printed). Returns K1's launches by route over the legs."""
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.observability import metrics
+
+    L = TRAIN["n_layers"]
+    steps, warmup = 24, 3
+    launches = {}
+    metrics.enable()
+    for name, kw, route in BENCH_LEGS:
+        want_counts = {} if kw.get("program_opt") is False \
+            else cpu_pass_counts(fluid, bench, metrics, kw)
+        batch = 160
+        while True:
+            gc.collect()
+            torch.cuda.empty_cache()
+            metrics.reset()
+            fa.reset_counts()                  # the leg starts
+            try:
+                tps, last, step_s, compile_s = bench.bench_transformer_fluid(
+                    steps=steps, warmup=warmup, batch=batch, **kw)
+                break
+            except torch.cuda.OutOfMemoryError:
+                if name != "fp32" or batch == 1:
+                    raise
+                batch //= 2
+        counts = flash_counts(fa)              # the leg ends
+        got_counts = pass_counts(metrics)
+        stats = dict(bench.last_leg)
+        losses = stats["losses"]
+        n = L * (steps + warmup)
+        if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+            fail("bench %s: losses not finite and falling: %r"
+                 % (name, losses))
+        zero = dict.fromkeys(counts[0], 0)
+        want = (dict(zero, **{route: n}), dict(zero, **{route: n}), 0)
+        if counts != want:
+            fail("bench %s: flash attention launched %r (forward, backward "
+                 "by route; copies) over %d steps; expected %r"
+                 % (name, counts, steps + warmup, want))
+        if got_counts != want_counts:
+            fail("bench %s: pass counters %r, the pipeline on the CPU gives "
+                 "%r for the same program" % (name, got_counts,
+                                              want_counts))
+        if name == "async" and stats["window_peak"] != 12:
+            fail("bench async: the in-flight window peaked at %d steps, "
+                 "not its 12" % stats["window_peak"])
+        scaling = stats.get("scaling")
+        if name == "amp_fp16":
+            want_s = loss_scaling_after(stats["found_inf"],
+                                        *AMP_FP16_SCALING)
+            got_s = (scaling["loss_scale"], scaling["good_steps"],
+                     scaling["bad_steps"])
+            if got_s != want_s:
+                fail("bench amp_fp16: loss scale and good / bad steps %r "
+                     "after overflows %r; update_loss_scaling gives %r"
+                     % (got_s, stats["found_inf"], want_s))
+        launches[route] = launches.get(route, 0) + counts[0][route]
+        print("bench_leg " + json.dumps({
+            "leg": name, "batch": batch, "steps": steps, "warmup": warmup,
+            "tokens_per_s": tps, "ms_per_step": step_s * 1e3,
+            "device_ms_per_step": float(np.mean(stats["step_ms"])),
+            "host_ms_per_step": float(np.mean(stats["host_ms"])),
+            "step_ms_each": stats["step_ms"],
+            "host_ms_each": stats["host_ms"],
+            "compile_time_s": compile_s, "last_loss": last,
+            "first_loss": losses[0],
+            "peak_gib": stats["peak_bytes"] / 2 ** 30,
+            "flash_attention_launches": counts,
+            "window_peak": stats["window_peak"],
+            "pass_counters": got_counts,
+            "found_inf": stats.get("found_inf"), "scaling": scaling}),
+            flush=True)
+    metrics.reset()
+    metrics.disable()
+    return launches
 
 
 def ulp(x, mantissa_bits):
@@ -2240,17 +2436,23 @@ def main():
     fwd, bwd = training_phase(torch, fa_mod, fluid, program)
     flash_rows["flash_attention_tc_fwd"]["launches"] = fwd
     flash_rows["flash_attention_tc_bwd"]["launches"] = bwd
-    for suffix, kw in (("_dh128", {}),
+    for suffix, kw in (("_dh128", dict(fp16=True)),
                        ("_dh256", dict(cfg=WIDE256, batch=WIDE256_BATCH))):
         for kernel, n in wide_head_phase(torch, fa_mod, fluid, **kw).items():
             flash_rows["flash_attention_%s%s" % (kernel, suffix)][
                 "launches"] = n
+    bench_launches = bench_phase(torch, fa_mod, fluid)
+    flash_rows["flash_attention_fp16_fwd"]["launches"] = \
+        bench_launches["fp16"]
+    flash_rows["flash_attention_fp16_bwd"]["launches"] = \
+        bench_launches["fp16"]
     card_vs_cpu_phase(torch, fluid, program, "bfloat16")
     del program
     program = build_lm(fluid, "float32")
     k1 = card_vs_cpu_phase(torch, fluid, program, "float32")
     n = 2 * TRAIN["n_layers"]                  # two steps on the card
-    k1_want = ({"tc": 0, "f32tc": n}, {"tc": 0, "f32tc": n}, 0)
+    k1_want = ({"tc": 0, "fp16": 0, "f32tc": n},
+               {"tc": 0, "fp16": 0, "f32tc": n}, 0)
     if k1 != k1_want:
         fail("card vs CPU fp32: flash attention launched %r (forward, "
              "backward by route; copies); expected %r" % (k1, k1_want))

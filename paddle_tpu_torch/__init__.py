@@ -6,7 +6,11 @@ Entry points run on the card (``cuda:0``) unless the caller passes
 ``"cpu"``; kernels are hand-written for Hopper and built from ``csrc/``
 at first use. Ported so far: the serving decode path
 (``paddle_tpu_torch.serving``, loaded on demand), the Fluid API's
-training path of the flagship Transformer LM, and its full-int8
+training path of the flagship Transformer LM with its pass pipeline
+(``ir_passes``), mixed precision (``amp.decorate`` and the contrib
+decorator, dynamic loss scaling) and asynchronous executor (the
+in-flight window and feed prefetcher, ``async_engine``), the headline
+training bench (``python -m paddle_tpu_torch.bench``), and full-int8
 inference (``quant.calibrate`` -> ``quant.decorate(program,
 "full_int8", table)`` -> ``Executor.run``, each dense layer one fused
 int8 matmul):
@@ -26,8 +30,8 @@ int8 matmul):
     loss_value, = exe.run(main, feed={...}, fetch_list=[loss])
 """
 
-from . import (contrib, flags, initializer, io, layers, nets,  # noqa: F401
-               optimizer, quant, unique_name)
+from . import (amp, async_engine, contrib, flags, initializer,  # noqa: F401
+               io, ir, layers, nets, optimizer, quant, unique_name)
 from .backward import append_backward  # noqa: F401
 from .core.scope import Scope, global_scope  # noqa: F401
 from .executor import Executor  # noqa: F401
@@ -36,7 +40,7 @@ from .framework import (Program, Variable, default_main_program,  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401
 
 __all__ = ["Executor", "ParamAttr", "Program", "Scope", "Variable",
-           "append_backward", "contrib", "default_main_program",
-           "default_startup_program", "flags", "global_scope",
-           "initializer", "io", "layers", "nets", "optimizer",
-           "program_guard", "quant", "unique_name"]
+           "amp", "append_backward", "async_engine", "contrib",
+           "default_main_program", "default_startup_program", "flags",
+           "global_scope", "initializer", "io", "ir", "layers", "nets",
+           "optimizer", "program_guard", "quant", "unique_name"]

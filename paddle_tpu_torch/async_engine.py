@@ -1,0 +1,283 @@
+"""The asynchronous execution pipeline (parity: the JAX package's
+``async_engine.py``: `as_numpy` :58, `LazyFetchList` :66,
+`InflightWindow` :105-147, `FeedPrefetcher` :209-336, `prefetch_iter`
+:405).
+
+CUDA launches are asynchronous: a step returns tensors the card has not
+finished yet, and the host stalls only where something forces a copy to
+the host. These pieces keep up to N steps in flight:
+
+  LazyFetchList    what ``Executor.run(return_numpy=False)`` returns: the
+                   fetches as device tensors; `as_numpy` is the sync point.
+  InflightWindow   a bounded count of dispatched, unsynced steps, each a
+                   CUDA event recorded on the executor's stream after the
+                   step. Admitting a step past the limit first waits for
+                   the oldest step's event. On the CPU the events are
+                   no-ops and only the count moves.
+  FeedPrefetcher   a background thread that stages the next feed: a
+                   pinned host copy, then a copy to the card on a side
+                   stream, with an event the executor's stream waits on
+                   before the step reads the feed. Batches come back in
+                   put() order.
+
+Not ported: `DeferredWarns`, `HostStateStager` and the persistent compile
+cache, which serve the NaN checker, ZeRO offload and XLA.
+"""
+
+import queue as _queue
+import threading
+
+import numpy as np
+import torch
+
+from .observability import metrics as _metrics
+
+__all__ = ["LazyFetchList", "InflightWindow", "FeedPrefetcher",
+           "StagedFeed", "StepEvent", "as_numpy", "prefetch_iter"]
+
+
+def _to_numpy(t):
+    """One value as numpy: a tensor is copied to the host (bf16, which
+    numpy lacks, as float32); anything else through np.asarray."""
+    if not isinstance(t, torch.Tensor):
+        return np.asarray(t)
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+def as_numpy(value):
+    """The sync point: fetch values as numpy. Accepts one value, a
+    list/tuple of them, or a LazyFetchList."""
+    if isinstance(value, (list, tuple)):
+        return [_to_numpy(v) for v in value]
+    return _to_numpy(value)
+
+
+class LazyFetchList(list):
+    """Fetch results not synced to the host: the device tensors
+    themselves. `as_numpy` (or the module function) materializes them."""
+
+    def as_numpy(self):
+        return [_to_numpy(v) for v in self]
+
+
+class StepEvent:
+    """The completion token of one dispatched step: a CUDA event recorded
+    on the device's current stream (None on the CPU, where the step has
+    run by the time run() returns). `keep` holds objects (a staged feed's
+    pinned host buffers) that must live until the step is done."""
+
+    __slots__ = ("event", "keep")
+
+    def __init__(self, device, keep=()):
+        self.event = None
+        self.keep = keep
+        if device.type == "cuda":
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(device))
+
+    def synchronize(self):
+        if self.event is not None:
+            self.event.synchronize()
+
+
+class InflightWindow:
+    """Bounded window of dispatched-but-unsynced steps (backpressure).
+
+    `admit` registers one step's token (a `StepEvent`); when the window
+    is full it first blocks on the OLDEST step, so at most `limit` steps
+    are ever pending. The ``exec/inflight_steps`` gauge records the depth
+    at each dispatch; `peak` is the deepest the window has been."""
+
+    def __init__(self, limit=12):
+        self.limit = max(1, int(limit))
+        self._pending = []
+        self.peak = 0
+
+    @property
+    def depth(self):
+        return len(self._pending)
+
+    def admit(self, token):
+        if token is None:
+            return
+        while len(self._pending) >= self.limit:
+            self._pending.pop(0).synchronize()
+        self._pending.append(token)
+        self.peak = max(self.peak, len(self._pending))
+        _metrics.gauge("exec/inflight_steps").set(len(self._pending))
+
+    def drain(self):
+        """Block until every admitted step is done: the sync point behind
+        ``Executor.sync()`` (``exec/window_drains``)."""
+        if not self._pending:
+            return
+        _metrics.counter("exec/window_drains").inc()
+        while self._pending:
+            self._pending.pop(0).synchronize()
+
+    def reset(self):
+        """Forget admitted steps without blocking, for a caller that just
+        synced the newest step (one stream runs in order, so the older
+        ones are done)."""
+        del self._pending[:]
+
+
+class StagedFeed:
+    """A feed the prefetcher staged: `values` (name -> tensor on the
+    device, or a host value it leaves to the executor), the copy's
+    `event` on the side stream (None on the CPU) and the pinned host
+    buffers the copy reads (`pinned`), kept until the step that reads
+    the feed is done."""
+
+    __slots__ = ("values", "event", "pinned")
+
+    def __init__(self, values, event=None, pinned=()):
+        self.values = values
+        self.event = event
+        self.pinned = pinned
+
+    def consume(self, device):
+        """The values, ready for the step on `device`'s current stream:
+        the stream waits on the copy's event, and each staged tensor is
+        marked as used there, so the caching allocator keeps it until
+        the step has read it."""
+        if self.event is not None:
+            stream = torch.cuda.current_stream(device)
+            stream.wait_event(self.event)
+            for t in self.values.values():
+                if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+                    t.record_stream(stream)
+        return self.values
+
+
+class FeedPrefetcher:
+    """Background host-to-device double buffer for feed dicts.
+
+    `put(feed)` hands a host batch to the worker thread, which stages
+    every numpy value for `device` (a pinned copy, then a copy to the
+    card on its own stream) while the card runs the current step. `get()`
+    returns `StagedFeed`s strictly in put() order; at most `depth` are
+    staged ahead (put() blocks past that). `take_if_match(feed)` returns
+    the head staged batch only when it was built from exactly these
+    value objects (identity match), so ``Executor.prefetch(feed)``
+    followed by ``Executor.run(feed=feed)`` picks up the staged copy."""
+
+    _CLOSE = object()
+
+    def __init__(self, device, depth=2):
+        self.device = torch.device(device)
+        self._in = _queue.Queue()
+        self._out = _queue.Queue()
+        self._keys = _queue.Queue()
+        self._slots = threading.Semaphore(max(1, int(depth)))
+        self._thread = None
+        self._closed = False
+        self._stream = None
+
+    def _ensure_thread(self):
+        if self._thread is None:
+            t = threading.Thread(target=self._worker,
+                                 name="ptpu-feed-prefetch", daemon=True)
+            t.start()
+            self._thread = t
+
+    def _stage(self, feed):
+        """One feed dict as a StagedFeed. Tensors and 64-bit ints stay
+        as given (the executor narrows int64 with its range check);
+        other arrays are copied to the device."""
+        cuda = self.device.type == "cuda"
+        if cuda and self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        values, pinned = {}, []
+        for name, v in feed.items():
+            if isinstance(v, torch.Tensor) or np.asarray(v).dtype in (
+                    np.dtype(np.int64), np.dtype(np.uint64)):
+                values[name] = v
+                continue
+            host = torch.from_numpy(np.ascontiguousarray(v))
+            if not cuda:
+                values[name] = host
+                continue
+            host = host.pin_memory()
+            pinned.append(host)
+            with torch.cuda.stream(self._stream):
+                values[name] = host.to(self.device, non_blocking=True)
+        event = None
+        if cuda:
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        if _metrics.enabled():
+            _metrics.counter("feed/h2d_bytes").inc(
+                sum(t.numel() * t.element_size() for t in pinned))
+        return StagedFeed(values, event, tuple(pinned))
+
+    def _worker(self):
+        while True:
+            item = self._in.get()
+            if item is self._CLOSE:
+                return
+            try:
+                result = ("ok", self._stage(item))
+            except BaseException as e:  # re-raised on the consumer side
+                result = ("error", e)
+            self._out.put(result)
+
+    def put(self, feed):
+        """Queue one host feed dict for background staging. Blocks when
+        `depth` batches are already staged ahead."""
+        if self._closed:
+            raise RuntimeError("FeedPrefetcher is closed")
+        self._ensure_thread()
+        self._slots.acquire()
+        # strong refs to the source objects: an id() match could misfire
+        # once a freed array's address is reused
+        self._keys.put(dict(feed))
+        self._in.put(dict(feed))
+
+    def get(self):
+        """The next StagedFeed, in put() order."""
+        self._keys.get()
+        kind, payload = self._out.get()
+        self._slots.release()
+        if kind == "error":
+            raise payload
+        return payload
+
+    def take_if_match(self, feed):
+        """The head staged batch if it was built from exactly `feed`'s
+        value objects; None otherwise (the queue is untouched)."""
+        try:
+            key = self._keys.queue[0]
+        except IndexError:
+            return None
+        if len(key) != len(feed) or any(
+                key.get(k) is not v for k, v in feed.items()):
+            return None
+        return self.get()
+
+    def close(self):
+        if self._closed:
+            return
+        self._closed = True
+        if self._thread is not None:
+            self._in.put(self._CLOSE)
+            self._thread.join(timeout=5.0)
+
+
+def prefetch_iter(batches, prefetcher):
+    """Drive `batches` (host feed dicts) through a FeedPrefetcher with
+    one batch of lookahead: while the consumer runs batch k, the worker
+    stages batch k+1. Yields StagedFeeds in source order."""
+    in_flight = 0
+    for feed in batches:
+        prefetcher.put(feed)
+        in_flight += 1
+        if in_flight >= 2:
+            yield prefetcher.get()
+            in_flight -= 1
+    while in_flight:
+        yield prefetcher.get()
+        in_flight -= 1

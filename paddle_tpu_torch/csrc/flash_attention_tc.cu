@@ -1,5 +1,7 @@
-// Flash attention, forward and backward, in bf16 on Hopper's tensor cores
-// (sm_90a). bf16 in and out, fp32 accumulators; head dim 64, 128 or 256
+// Flash attention, forward and backward, in bf16 or fp16 on Hopper's
+// tensor cores (sm_90a). bf16 (or fp16) in and out, fp32 accumulators: the
+// kernels are templates on the element type, instantiated for both (the
+// tc and fp16 entry points at the end); head dim 64, 128 or 256
 // (a template parameter, instantiated for each; the wrapper pads any
 // other head dim up to the next of them), and any multiple of 128 above
 // 256 (the wide kernels, kWide below).
@@ -8,8 +10,9 @@
 // `flash_attention` (:120) -> `_flash_fwd` (:162, pl.pallas_call :191,
 // body `_fwd_kernel` :58), and its backward `_flash_bwd_rule` (:212; on a
 // TPU jax's library Pallas backward, :131-150). On the training path of
-// the Fluid-API Transformer LM (bf16 under the AMP decorator) it runs once
-// per layer forward and once per layer backward. fp32 inputs take
+// the Fluid-API Transformer LM (bf16 under the AMP decorators, fp16 under
+// amp.decorate(dtype="float16")) it runs once per layer forward and once
+// per layer backward. fp32 inputs take
 // flash_attention_f32tc.cu (forward) and flash_attention_f32tc_bwd.cu
 // (backward).
 //
@@ -71,15 +74,19 @@
 //   A operands; a dQ pass, one block per (b*h, 64-query tile) walking the
 //   kv tiles, dQ += dS K.
 //
-// Numerics. bf16 x bf16 products are exact in fp32 and every sum is fp32.
+// Numerics. bf16 x bf16 (fp16 x fp16) products are exact in fp32 and
+// every sum is fp32.
 // The softmax is fp32 with exp2f on scores prescaled by scale * log2(e).
-// P, and in the backward P^T and dS, are rounded to bf16 before the second
+// P, and in the backward P^T and dS, are rounded to the element type
+// (round to nearest even) before the second
 // product, as the JAX package's softmax attention rounds P to q's dtype
 // (paddle_tpu/ops/compat_ops.py:632) and as SDPA does. lse stays fp32; a
 // row whose keys are all masked uses 0 as its max, so no NaN can arise
 // (it ends with l = 0, O = 0 and lse = +inf, for which the backward's P is
-// exactly 0), as in flash_attention_f32tc.cu. delta uses the bf16 O the
-// forward wrote.
+// exactly 0), as in flash_attention_f32tc.cu. delta uses the O the forward
+// wrote, in the element type. fp16 has bf16's rounding plus 3 bits and a
+// narrow range: the caller's loss scaling keeps dS and the grads inside it
+// (an overflow writes inf, which dynamic loss scaling sees).
 //
 // Interface: plain C functions (bound with ctypes), launched on the
 // caller's stream, allocating nothing; each returns cudaGetLastError().
@@ -88,12 +95,60 @@
 // dynamic shared memory (48 to 193 KB) with cudaFuncSetAttribute.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using fp16 = __half;
+
+// The element type: every kernel below is a template on it, instantiated
+// for bf16 and fp16. Tiles, copies and ldmatrix fragments are 16-bit
+// either way; only the product's input type and the rounding of fp32
+// values (P, dS, the outputs) to it differ.
+template <typename T>
+struct Elem;
+template <>
+struct Elem<bf16> {
+  // d += a b, one m16n8k16 product
+  static __device__ __forceinline__ void mma(float (&d)[4],
+                                             const unsigned (&a)[4],
+                                             unsigned b0, unsigned b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  static __device__ __forceinline__ unsigned pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<unsigned*>(&v);
+  }
+  static __device__ __forceinline__ float2 unpack(unsigned u) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+  }
+};
+template <>
+struct Elem<fp16> {
+  static __device__ __forceinline__ void mma(float (&d)[4],
+                                             const unsigned (&a)[4],
+                                             unsigned b0, unsigned b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  static __device__ __forceinline__ unsigned pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<unsigned*>(&v);
+  }
+  static __device__ __forceinline__ float2 unpack(unsigned u) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&u));
+  }
+};
 
 constexpr int kTile = 64;                  // kv rows a tile; bwd block rows
 constexpr int kFwdRows = 128;              // fwd block rows: 8 warps x 16
@@ -151,7 +206,8 @@ __device__ __forceinline__ int swz(int r, int c) {
 template <int DH>
 constexpr int kChunkShift = DH == 64 ? 3 : (DH == 128 ? 4 : 5);
 
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src,
+template <typename T>
+__device__ __forceinline__ void cp_async16(T* dst, const T* src,
                                            bool full) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
@@ -172,8 +228,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // Rows [row0, row0 + R) of one (b, h) slice into a swizzled tile, 16 bytes
 // a copy; rows at or past n are zero-filled (and read nothing).
-template <int R, int kThreads, int DH>
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g,
+template <int R, int kThreads, int DH, typename T>
+__device__ __forceinline__ void load_tile(T* s, const T* g,
                                           long long st, int row0, int n) {
   constexpr int kChunks = DH / 8;          // 16-byte chunks a row
   static_assert(kChunks == 1 << kChunkShift<DH>, "chunk shift");
@@ -199,13 +255,15 @@ __device__ __forceinline__ void load_rows(float* s, const float* g, int row0,
   }
 }
 
-__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const bf16* p) {
+template <typename T>
+__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const T* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
 }
-__device__ __forceinline__ void ldsm4_t(unsigned (&r)[4], const bf16* p) {
+template <typename T>
+__device__ __forceinline__ void ldsm4_t(unsigned (&r)[4], const T* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
@@ -213,25 +271,10 @@ __device__ __forceinline__ void ldsm4_t(unsigned (&r)[4], const bf16* p) {
       : "r"(smem_u32(p)));
 }
 
-// d += a b, one m16n8k16 product
-__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
-                                    unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
 // A operand (16 rows x 16 k): rows [r0, r0 + 16), k chunk kc (k 16 kc ..
 // 16 kc + 15) of a swizzled [rows][DH] tile.
-template <int DH>
-__device__ __forceinline__ void load_a(unsigned (&a)[4], const bf16* s,
+template <int DH, typename T>
+__device__ __forceinline__ void load_a(unsigned (&a)[4], const T* s,
                                        int r0, int kc, int lane) {
   ldsm4(a, s + swz<DH>(r0 + (lane & 15), 2 * kc + (lane >> 4)));
 }
@@ -239,8 +282,8 @@ __device__ __forceinline__ void load_a(unsigned (&a)[4], const bf16* s,
 // B operands of two n8 tiles from a tile stored [n][k] (K for Q K^T):
 // b[0..1] for n rows [n0, n0 + 8), b[2..3] for [n0 + 8, n0 + 16), k chunk
 // kc.
-template <int DH>
-__device__ __forceinline__ void load_b(unsigned (&b)[4], const bf16* s,
+template <int DH, typename T>
+__device__ __forceinline__ void load_b(unsigned (&b)[4], const T* s,
                                        int n0, int kc, int lane) {
   ldsm4(b, s + swz<DH>(n0 + (lane & 7) + ((lane >> 4) << 3),
                        2 * kc + ((lane >> 3) & 1)));
@@ -249,8 +292,8 @@ __device__ __forceinline__ void load_b(unsigned (&b)[4], const bf16* s,
 // B operands of two n8 tiles from a tile stored [k][n] (V for P V): k
 // rows [16 kc, 16 kc + 16), b[0..1] for n columns [16 np, 16 np + 8),
 // b[2..3] for [16 np + 8, 16 np + 16).
-template <int DH>
-__device__ __forceinline__ void load_bt(unsigned (&b)[4], const bf16* s,
+template <int DH, typename T>
+__device__ __forceinline__ void load_bt(unsigned (&b)[4], const T* s,
                                         int kc, int np, int lane) {
   ldsm4_t(b, s + swz<DH>(16 * kc + (lane & 7) + (((lane >> 3) & 1) << 3),
                          2 * np + (lane >> 4)));
@@ -259,10 +302,10 @@ __device__ __forceinline__ void load_bt(unsigned (&b)[4], const bf16* s,
 // acc[DO/8][4] (16 rows x DO columns from column 16 np0 on) += A (16
 // rows x 64 k, from registers a[4][4]) times a [k][n] tile: the second
 // product of every pass.
-template <int DH, int DO>
+template <int DH, int DO, typename T>
 __device__ __forceinline__ void mma_rows_kn(float (&acc)[DO / 8][4],
                                             const unsigned (&a)[4][4],
-                                            const bf16* s, int np0,
+                                            const T* s, int np0,
                                             int lane) {
 #pragma unroll
   for (int kc = 0; kc < 4; ++kc)
@@ -270,18 +313,18 @@ __device__ __forceinline__ void mma_rows_kn(float (&acc)[DO / 8][4],
     for (int np = 0; np < DO / 16; ++np) {
       unsigned b[4];
       load_bt<DH>(b, s, kc, np0 + np, lane);
-      mma(acc[2 * np], a[kc], b[0], b[1]);
-      mma(acc[2 * np + 1], a[kc], b[2], b[3]);
+      Elem<T>::mma(acc[2 * np], a[kc], b[0], b[1]);
+      Elem<T>::mma(acc[2 * np + 1], a[kc], b[2], b[3]);
     }
 }
 
 // acc[8][4] (16 rows x 64 n) = rows [r0, r0 + 16) of tile a_s times the
 // transpose of the [n][k] tile b_s, k over DH: the first products (Q K^T
 // and its kin); kZero false adds to acc (a head-dim chunk of the sum).
-template <int DH, bool kZero = true>
+template <int DH, bool kZero = true, typename T>
 __device__ __forceinline__ void mma_rows_nk(float (&acc)[8][4],
-                                            const bf16* a_s, int r0,
-                                            const bf16* b_s, int lane) {
+                                            const T* a_s, int r0,
+                                            const T* b_s, int lane) {
   if (kZero) {
 #pragma unroll
     for (int n = 0; n < 8; ++n)
@@ -296,22 +339,23 @@ __device__ __forceinline__ void mma_rows_nk(float (&acc)[8][4],
     for (int np = 0; np < 4; ++np) {
       unsigned b[4];
       load_b<DH>(b, b_s, 16 * np, kc, lane);
-      mma(acc[2 * np], a, b[0], b[1]);
-      mma(acc[2 * np + 1], a, b[2], b[3]);
+      Elem<T>::mma(acc[2 * np], a, b[0], b[1]);
+      Elem<T>::mma(acc[2 * np + 1], a, b[2], b[3]);
     }
   }
 }
 
-// Accumulators (16 rows x 64 k) rounded to bf16 as A operands: k chunk j
+// Accumulators (16 rows x 64 k) rounded to the element type as A operands: k chunk j
 // is n8 tiles 2j and 2j + 1.
+template <typename T>
 __device__ __forceinline__ void to_a(unsigned (&a)[4][4],
                                      const float (&x)[8][4]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    a[j][0] = pack_bf16(x[2 * j][0], x[2 * j][1]);
-    a[j][1] = pack_bf16(x[2 * j][2], x[2 * j][3]);
-    a[j][2] = pack_bf16(x[2 * j + 1][0], x[2 * j + 1][1]);
-    a[j][3] = pack_bf16(x[2 * j + 1][2], x[2 * j + 1][3]);
+    a[j][0] = Elem<T>::pack(x[2 * j][0], x[2 * j][1]);
+    a[j][1] = Elem<T>::pack(x[2 * j][2], x[2 * j][3]);
+    a[j][2] = Elem<T>::pack(x[2 * j + 1][0], x[2 * j + 1][1]);
+    a[j][3] = Elem<T>::pack(x[2 * j + 1][2], x[2 * j + 1][3]);
   }
 }
 
@@ -324,15 +368,15 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Writes a warp's 16 x DO accumulator (times `mul`) as bf16 rows [row0,
+// Writes a warp's 16 x DO accumulator (times `mul`) as element-type rows [row0,
 // row0 + 16) of g (its first column), rows at or past n skipped: through
 // the warp's own 16 rows of a swizzled [rows][DH] tile `s` (free by
 // then), so that every global store is 16 bytes and DO / 8 lanes write
 // one row.
-template <int DH, int DO>
+template <int DH, int DO, typename T>
 __device__ __forceinline__ void store_rows(const float (&acc)[DO / 8][4],
                                            float mul_lo, float mul_hi,
-                                           bf16* s, bf16* g, long long st,
+                                           T* s, T* g, long long st,
                                            int row0, int n, int lane) {
   constexpr int kChunks = DO / 8;
   constexpr int kShift = kChunkShift<DO>;
@@ -341,9 +385,9 @@ __device__ __forceinline__ void store_rows(const float (&acc)[DO / 8][4],
 #pragma unroll
   for (int j = 0; j < kChunks; ++j) {
     *reinterpret_cast<unsigned*>(s + swz<DH>(grp, j) + 2 * t) =
-        pack_bf16(acc[j][0] * mul_lo, acc[j][1] * mul_lo);
+        Elem<T>::pack(acc[j][0] * mul_lo, acc[j][1] * mul_lo);
     *reinterpret_cast<unsigned*>(s + swz<DH>(grp + 8, j) + 2 * t) =
-        pack_bf16(acc[j][2] * mul_hi, acc[j][3] * mul_hi);
+        Elem<T>::pack(acc[j][2] * mul_hi, acc[j][3] * mul_hi);
   }
   __syncwarp();
 #pragma unroll
@@ -356,10 +400,10 @@ __device__ __forceinline__ void store_rows(const float (&acc)[DO / 8][4],
   }
 }
 
-template <int DH>
+template <typename T, int DH>
 __global__ void __launch_bounds__(kFwdThreads, Bounds<DH>::kFwd)
-flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o,
+flash_tc_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ o,
                     float* __restrict__ lse, int H, int Tq, int Tk,
                     Strides sq, Strides sk, Strides sv, Strides so,
                     float scale, int causal) {
@@ -370,18 +414,18 @@ flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // from q_s per k step
   constexpr bool kQReg = DH <= 128;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* k_s = q_s + kRows * DH;           // 2 stages
-  bf16* v_s = k_s + 2 * kTileElems;       // 2 stages
+  T* q_s = reinterpret_cast<T*>(smem);
+  T* k_s = q_s + kRows * DH;           // 2 stages
+  T* v_s = k_s + 2 * kTileElems;       // 2 stages
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int grp = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int n_qt = (Tq + kRows - 1) / kRows;
   const int q0 = (causal ? n_qt - 1 - (int)blockIdx.y : (int)blockIdx.y)
                  * kRows;
-  const bf16* qg = q + b * sq.b + h * sq.h;
-  const bf16* kg = k + b * sk.b + h * sk.h;
-  const bf16* vg = v + b * sv.b + h * sv.h;
+  const T* qg = q + b * sq.b + h * sq.h;
+  const T* kg = k + b * sk.b + h * sk.h;
+  const T* vg = v + b * sv.b + h * sv.h;
   int n_kt = (Tk + kTile - 1) / kTile;
   if (causal) n_kt = min(n_kt, (q0 + kRows - 1) / kTile + 1);
 
@@ -422,8 +466,8 @@ flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     const int k0 = kt * kTile;
     if (causal && k0 > row_w + 15) continue;   // all after the warp's rows
-    const bf16* ks = k_s + (kt & 1) * kTileElems;
-    const bf16* vs = v_s + (kt & 1) * kTileElems;
+    const T* ks = k_s + (kt & 1) * kTileElems;
+    const T* vs = v_s + (kt & 1) * kTileElems;
 
     float s[8][4];
 #pragma unroll
@@ -443,8 +487,8 @@ flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int np = 0; np < 4; ++np) {
         unsigned bb[4];
         load_b<DH>(bb, ks, 16 * np, kc, lane);
-        mma(s[2 * np], qa, bb[0], bb[1]);
-        mma(s[2 * np + 1], qa, bb[2], bb[3]);
+        Elem<T>::mma(s[2 * np], qa, bb[0], bb[1]);
+        Elem<T>::mma(s[2 * np + 1], qa, bb[2], bb[3]);
       }
     }
 
@@ -486,7 +530,7 @@ flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[0] = l[0] * alpha[0] + sum[0];
     l[1] = l[1] * alpha[1] + sum[1];
     unsigned pa[4][4];
-    to_a(pa, s);
+    to_a<T>(pa, s);
     mma_rows_kn<DH, DO>(acc, pa, vs, col0 / 16, lane);  // O += P V
   }
 
@@ -513,10 +557,10 @@ flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // delta[b, h, t] = sum_d dO * O in fp32, 8 lanes a row (16 bytes each,
 // DH / 64 times; DH 0: the head dim dh, a multiple of 64, given at run
 // time)
-template <int DH>
+template <typename T, int DH>
 __global__ void __launch_bounds__(kBwdThreads)
-flash_tc_delta_kernel(const bf16* __restrict__ o,
-                      const bf16* __restrict__ d_o, float* __restrict__ delta,
+flash_tc_delta_kernel(const T* __restrict__ o,
+                      const T* __restrict__ d_o, float* __restrict__ delta,
                       int H, int Tq, long long rows, Strides so,
                       Strides sdo, int dh) {
   const long long row = (long long)blockIdx.x * (kBwdThreads / 8)
@@ -533,14 +577,12 @@ flash_tc_delta_kernel(const bf16* __restrict__ o,
           o + b * so.b + h * so.h + tq * so.t + c * 8);
       const uint4 dv = *reinterpret_cast<const uint4*>(
           d_o + b * sdo.b + h * sdo.h + tq * sdo.t + c * 8);
-      const __nv_bfloat162* op =
-          reinterpret_cast<const __nv_bfloat162*>(&ov);
-      const __nv_bfloat162* dp =
-          reinterpret_cast<const __nv_bfloat162*>(&dv);
+      const unsigned* op = reinterpret_cast<const unsigned*>(&ov);
+      const unsigned* dp = reinterpret_cast<const unsigned*>(&dv);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float2 a = __bfloat1622float2(op[i]);
-        const float2 d = __bfloat1622float2(dp[i]);
+        const float2 a = Elem<T>::unpack(op[i]);
+        const float2 d = Elem<T>::unpack(dp[i]);
         acc = fmaf(a.x, d.x, acc);
         acc = fmaf(a.y, d.y, acc);
       }
@@ -555,29 +597,29 @@ flash_tc_delta_kernel(const bf16* __restrict__ o,
 // One block per (b*h, 64-key tile): dK and dV of its keys, walking the q
 // tiles (from the diagonal on when causal) with the next q tile's Q, dO,
 // lse and delta in flight.
-template <int DH>
+template <typename T, int DH>
 __global__ void __launch_bounds__(kBwdThreads, Bounds<DH>::kBwd)
-flash_tc_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ d_o,
+flash_tc_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ d_o,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int H, int Tq, int Tk,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int H, int Tq, int Tk,
                      Strides sq, Strides sk, Strides sv, Strides sdo,
                      Strides sdk, Strides sdv, float scale, int causal) {
   constexpr int kTileElems = kTile * DH;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);
-  bf16* v_s = k_s + kTileElems;
-  bf16* q_s = v_s + kTileElems;           // 2 stages
-  bf16* do_s = q_s + 2 * kTileElems;      // 2 stages
+  T* k_s = reinterpret_cast<T*>(smem);
+  T* v_s = k_s + kTileElems;
+  T* q_s = v_s + kTileElems;           // 2 stages
+  T* do_s = q_s + 2 * kTileElems;      // 2 stages
   float* lse_s = reinterpret_cast<float*>(do_s + 2 * kTileElems);  // 2 x 64
   float* dl_s = lse_s + 2 * kTile;                                  // 2 x 64
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int grp = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int kt = blockIdx.y, k0 = kt * kTile;
-  const bf16* qg = q + b * sq.b + h * sq.h;
-  const bf16* dog = d_o + b * sdo.b + h * sdo.h;
+  const T* qg = q + b * sq.b + h * sq.h;
+  const T* dog = d_o + b * sdo.b + h * sdo.h;
   const float* lg = lse + (long long)bh * Tq;
   const float* dg = delta + (long long)bh * Tq;
   const int n_qt = (Tq + kTile - 1) / kTile;
@@ -617,8 +659,8 @@ flash_tc_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       load_rows(dl_s + nx * kTile, dg, q1, Tq);
     }
     cp_async_commit();
-    const bf16* qs = q_s + st * kTileElems;
-    const bf16* dos = do_s + st * kTileElems;
+    const T* qs = q_s + st * kTileElems;
+    const T* dos = do_s + st * kTileElems;
     const float* ls = lse_s + st * kTile;
     const float* ds = dl_s + st * kTile;
 
@@ -641,8 +683,8 @@ flash_tc_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         dp[n][e] = pv * (dp[n][e] - ds[cl]);
       }
     unsigned pa[4][4], da[4][4];
-    to_a(pa, p);
-    to_a(da, dp);
+    to_a<T>(pa, p);
+    to_a<T>(da, dp);
     mma_rows_kn<DH, DO>(dv_acc, pa, dos, col0 / 16, lane);  // dV += P^T dO
     mma_rows_kn<DH, DO>(dk_acc, da, qs, col0 / 16, lane);   // dK += dS^T Q
   }
@@ -656,20 +698,20 @@ flash_tc_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // One block per (b*h, 64-query tile): dQ of its queries, walking the kv
 // tiles (up to the diagonal when causal) with the next one in flight.
-template <int DH>
+template <typename T, int DH>
 __global__ void __launch_bounds__(kBwdThreads, Bounds<DH>::kBwd)
-flash_tc_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ d_o,
+flash_tc_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ d_o,
                    const float* __restrict__ lse,
-                   const float* __restrict__ delta, bf16* __restrict__ dq,
+                   const float* __restrict__ delta, T* __restrict__ dq,
                    int H, int Tq, int Tk, Strides sq, Strides sk, Strides sv,
                    Strides sdo, Strides sdq, float scale, int causal) {
   constexpr int kTileElems = kTile * DH;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* do_s = q_s + kTileElems;
-  bf16* k_s = do_s + kTileElems;          // 2 stages
-  bf16* v_s = k_s + 2 * kTileElems;       // 2 stages
+  T* q_s = reinterpret_cast<T*>(smem);
+  T* do_s = q_s + kTileElems;
+  T* k_s = do_s + kTileElems;          // 2 stages
+  T* v_s = k_s + 2 * kTileElems;       // 2 stages
   float* lse_s = reinterpret_cast<float*>(v_s + 2 * kTileElems);   // 64
   float* dl_s = lse_s + kTile;                                      // 64
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -678,8 +720,8 @@ flash_tc_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_qt = (Tq + kTile - 1) / kTile;
   const int qt = causal ? n_qt - 1 - (int)blockIdx.y : (int)blockIdx.y;
   const int q0 = qt * kTile;
-  const bf16* kg = k + b * sk.b + h * sk.h;
-  const bf16* vg = v + b * sv.b + h * sv.h;
+  const T* kg = k + b * sk.b + h * sk.h;
+  const T* vg = v + b * sv.b + h * sv.h;
   int n_kt = (Tk + kTile - 1) / kTile;
   if (causal) n_kt = min(n_kt, qt + 1);
 
@@ -723,8 +765,8 @@ flash_tc_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       dl[1] = dl_s[16 * warp + grp + 8];
     }
     const int k0 = kt * kTile;
-    const bf16* ks = k_s + (kt & 1) * kTileElems;
-    const bf16* vs = v_s + (kt & 1) * kTileElems;
+    const T* ks = k_s + (kt & 1) * kTileElems;
+    const T* vs = v_s + (kt & 1) * kTileElems;
 
     float p[8][4], dp[8][4];
     mma_rows_nk<DH>(p, q_s, 16 * warp, ks, lane);    // S = Q K^T
@@ -743,7 +785,7 @@ flash_tc_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         dp[n][e] = pv * (dp[n][e] - dl[i]);     // dS
       }
     unsigned da[4][4];
-    to_a(da, dp);
+    to_a<T>(da, dp);
     mma_rows_kn<DH, DO>(dq_acc, da, ks, col0 / 16, lane);  // dQ += dS K
   }
 
@@ -766,33 +808,34 @@ constexpr int kWide = 128;
 // The forward: a ring stage holds one chunk of the block's 128 Q rows and
 // of a kv tile's K rows, and at the tile's last chunk its V rows' own part
 // (64 KB a stage).
+template <typename T>
 __global__ void __launch_bounds__(kFwdThreads, 1)
-flash_tc_fwd_wide_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, bf16* __restrict__ o,
+flash_tc_fwd_wide_kernel(const T* __restrict__ q,
+                         const T* __restrict__ k,
+                         const T* __restrict__ v, T* __restrict__ o,
                          float* __restrict__ lse, int H, int Tq, int Tk,
                          int nC, Strides sq, Strides sk, Strides sv,
                          Strides so, float scale, int causal) {
   constexpr int W = kWide, kRows = kFwdRows, kThreads = kFwdThreads;
   constexpr int kQE = kRows * W, kKE = kTile * W, kStage = kQE + 2 * kKE;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);   // [2 stages][Q, K, V]
+  T* ring = reinterpret_cast<T*>(smem);   // [2 stages][Q, K, V]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int grp = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x, b = bh / H, h = bh % H, z = blockIdx.z;
   const int n_qt = (Tq + kRows - 1) / kRows;
   const int q0 = (causal ? n_qt - 1 - (int)blockIdx.y : (int)blockIdx.y)
                  * kRows;
-  const bf16* qg = q + b * sq.b + h * sq.h;
-  const bf16* kg = k + b * sk.b + h * sk.h;
-  const bf16* vg = v + b * sv.b + h * sv.h;
+  const T* qg = q + b * sq.b + h * sq.h;
+  const T* kg = k + b * sk.b + h * sk.h;
+  const T* vg = v + b * sv.b + h * sv.h;
   int n_kt = (Tk + kTile - 1) / kTile;
   if (causal) n_kt = min(n_kt, (q0 + kRows - 1) / kTile + 1);
   const int n_steps = n_kt * nC;          // (kv tile, chunk) steps
 
   auto load_step = [&](int s) {
     const int kt = s / nC, i = s % nC, c = (z + 1 + i) % nC;
-    bf16* st = ring + (s & 1) * kStage;
+    T* st = ring + (s & 1) * kStage;
     load_tile<kRows, kThreads, W>(st, qg + c * W, sq.t, q0, Tq);
     load_tile<kTile, kThreads, W>(st + kQE, kg + c * W, sk.t, kt * kTile,
                                   Tk);
@@ -823,7 +866,7 @@ flash_tc_fwd_wide_kernel(const bf16* __restrict__ q,
     cp_async_commit();
     const int k0 = kt * kTile;
     if (causal && k0 > row_w + 15) continue;   // all after the warp's rows
-    const bf16* st = ring + (step & 1) * kStage;
+    const T* st = ring + (step & 1) * kStage;
     if (i == 0) {
 #pragma unroll
       for (int n = 0; n < 8; ++n)
@@ -870,7 +913,7 @@ flash_tc_fwd_wide_kernel(const bf16* __restrict__ q,
     l[0] = l[0] * alpha[0] + sum[0];
     l[1] = l[1] * alpha[1] + sum[1];
     unsigned pa[4][4];
-    to_a(pa, s);
+    to_a<T>(pa, s);
     mma_rows_kn<W, W>(acc, pa, st + kQE + kKE, 0, lane);  // O_z += P V_z
   }
 
@@ -903,21 +946,21 @@ flash_tc_fwd_wide_kernel(const bf16* __restrict__ q,
 // four tiles (64 KB); the step's products are those of the Dh-256 kernels
 // above, S^T = K Q^T and dP^T = V dO^T (S = Q K^T and dP = dO V^T)
 // accumulated over the chunks.
-template <bool kKV>
+template <typename T, bool kKV>
 __global__ void __launch_bounds__(kBwdThreads, 1)
-flash_tc_bwd_wide_kernel(const bf16* __restrict__ x,
-                         const bf16* __restrict__ y,
-                         const bf16* __restrict__ u,
-                         const bf16* __restrict__ w,
+flash_tc_bwd_wide_kernel(const T* __restrict__ x,
+                         const T* __restrict__ y,
+                         const T* __restrict__ u,
+                         const T* __restrict__ w,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         bf16* __restrict__ out1, bf16* __restrict__ out2,
+                         T* __restrict__ out1, T* __restrict__ out2,
                          int H, int Tx, int Tu, int nC, Strides sx,
                          Strides sy, Strides su, Strides sw, Strides so1,
                          Strides so2, float scale, int causal) {
   constexpr int W = kWide, kTE = kTile * W, kStage = 4 * kTE;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);   // [2 stages][X, Y, U, W]
+  T* ring = reinterpret_cast<T*>(smem);   // [2 stages][X, Y, U, W]
   float* lse_s = reinterpret_cast<float*>(ring + 2 * kStage);  // [2][64]
   float* dl_s = lse_s + 2 * kTile;                              // [2][64]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -928,10 +971,10 @@ flash_tc_bwd_wide_kernel(const bf16* __restrict__ x,
                                 : (int)blockIdx.y;
   const int x0 = xt * kTile;
   const int Tq = kKV ? Tu : Tx;           // lse and delta rows
-  const bf16* xg = x + b * sx.b + h * sx.h;
-  const bf16* yg = y + b * sy.b + h * sy.h;
-  const bf16* ug = u + b * su.b + h * su.h;
-  const bf16* wg = w + b * sw.b + h * sw.h;
+  const T* xg = x + b * sx.b + h * sx.h;
+  const T* yg = y + b * sy.b + h * sy.h;
+  const T* ug = u + b * su.b + h * su.h;
+  const T* wg = w + b * sw.b + h * sw.h;
   const float* lg = lse + (long long)bh * Tq;
   const float* dg = delta + (long long)bh * Tq;
   int ut0 = 0, n_ut = (Tu + kTile - 1) / kTile;
@@ -945,7 +988,7 @@ flash_tc_bwd_wide_kernel(const bf16* __restrict__ x,
 
   auto load_step = [&](int s) {
     const int i = s % nC, c = (z + 1 + i) % nC, u0 = (ut0 + s / nC) * kTile;
-    bf16* st = ring + (s & 1) * kStage;
+    T* st = ring + (s & 1) * kStage;
     load_tile<kTile, kBwdThreads, W>(st, xg + c * W, sx.t, x0, Tx);
     load_tile<kTile, kBwdThreads, W>(st + kTE, yg + c * W, sy.t, x0, Tx);
     load_tile<kTile, kBwdThreads, W>(st + 2 * kTE, ug + c * W, su.t, u0,
@@ -992,9 +1035,9 @@ flash_tc_bwd_wide_kernel(const bf16* __restrict__ x,
     cp_async_commit();
     // a tile wholly masked for the warp's rows
     if (causal && (kKV ? u0 + kTile - 1 < xw : u0 > xw + 15)) continue;
-    const bf16* st = ring + (step & 1) * kStage;
-    const bf16* us = st + 2 * kTE;
-    const bf16* ws = st + 3 * kTE;
+    const T* st = ring + (step & 1) * kStage;
+    const T* us = st + 2 * kTE;
+    const T* ws = st + 3 * kTE;
     if (i == 0) {
 #pragma unroll
       for (int n = 0; n < 8; ++n)
@@ -1026,18 +1069,18 @@ flash_tc_bwd_wide_kernel(const bf16* __restrict__ x,
         dp[n][e] = pv * (dp[n][e] - drow);
       }
     unsigned da[4][4];
-    to_a(da, dp);
+    to_a<T>(da, dp);
     mma_rows_kn<W, W>(acc2, da, us, 0, lane);   // dK += dS^T Q; dQ += dS K
     if constexpr (kKV) {
       unsigned pa[4][4];
-      to_a(pa, p);
+      to_a<T>(pa, p);
       mma_rows_kn<W, W>(acc1, pa, ws, 0, lane);  // dV += P^T dO
     }
   }
 
   // the warp's own X and Y rows of the last step's stage: only this warp
   // read them, and no copy is in flight
-  bf16* st = ring + ((n_steps - 1) & 1) * kStage + 16 * warp * W;
+  T* st = ring + ((n_steps - 1) & 1) * kStage + 16 * warp * W;
   store_rows<W, W>(acc2, scale, scale, st,
                    out2 + b * so2.b + h * so2.h + z * W, so2.t, xw, Tx,
                    lane);
@@ -1057,25 +1100,25 @@ Strides strides_of(const long long* s, int i) {
   return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 }
 
-template <int DH>
+template <typename T, int DH>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, int B, int H, int Tq, int Tk,
                        const long long* strides, float scale, int causal,
                        cudaStream_t stream) {
-  const size_t smem = (size_t)(kFwdRows + 4 * kTile) * DH * sizeof(bf16);
-  cudaError_t err = allow_smem(flash_tc_fwd_kernel<DH>, smem);
+  const size_t smem = (size_t)(kFwdRows + 4 * kTile) * DH * sizeof(T);
+  cudaError_t err = allow_smem(flash_tc_fwd_kernel<T, DH>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Tq + kFwdRows - 1) / kFwdRows, DH / kOut<DH>);
-  flash_tc_fwd_kernel<DH><<<grid, kFwdThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+  flash_tc_fwd_kernel<T, DH><<<grid, kFwdThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o),
       static_cast<float*>(lse), H, Tq, Tk, strides_of(strides, 0),
       strides_of(strides, 1), strides_of(strides, 2), strides_of(strides, 3),
       scale, causal);
   return cudaGetLastError();
 }
 
-template <int DH>
+template <typename T, int DH>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* o, const void* d_o, const void* lse,
                        void* delta, void* dq, void* dk, void* dv, int B,
@@ -1084,64 +1127,66 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   constexpr int kTileElems = kTile * DH;
   const long long rows = (long long)B * H * Tq;
   const int rows_per_block = kBwdThreads / 8;
-  flash_tc_delta_kernel<DH><<<(unsigned)((rows + rows_per_block - 1)
+  flash_tc_delta_kernel<T, DH><<<(unsigned)((rows + rows_per_block - 1)
                                          / rows_per_block),
                               kBwdThreads, 0, s>>>(
-      static_cast<const bf16*>(o), static_cast<const bf16*>(d_o),
+      static_cast<const T*>(o), static_cast<const T*>(d_o),
       static_cast<float*>(delta), H, Tq, rows, strides_of(strides, 3),
       strides_of(strides, 4), DH);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const size_t smem_kv = 6 * kTileElems * sizeof(bf16)
+  const size_t smem_kv = 6 * kTileElems * sizeof(T)
                          + 4 * kTile * sizeof(float);
-  err = allow_smem(flash_tc_dkdv_kernel<DH>, smem_kv);
+  err = allow_smem(flash_tc_dkdv_kernel<T, DH>, smem_kv);
   if (err != cudaSuccess) return err;
   const dim3 grid_kv(B * H, (Tk + kTile - 1) / kTile, DH / kOut<DH>);
-  flash_tc_dkdv_kernel<DH><<<grid_kv, kBwdThreads, smem_kv, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(d_o),
+  flash_tc_dkdv_kernel<T, DH><<<grid_kv, kBwdThreads, smem_kv, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(d_o),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Tq, Tk,
+      static_cast<T*>(dk), static_cast<T*>(dv), H, Tq, Tk,
       strides_of(strides, 0), strides_of(strides, 1),
       strides_of(strides, 2), strides_of(strides, 4),
       strides_of(strides, 6), strides_of(strides, 7), scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const size_t smem_q = 6 * kTileElems * sizeof(bf16)
+  const size_t smem_q = 6 * kTileElems * sizeof(T)
                         + 2 * kTile * sizeof(float);
-  err = allow_smem(flash_tc_dq_kernel<DH>, smem_q);
+  err = allow_smem(flash_tc_dq_kernel<T, DH>, smem_q);
   if (err != cudaSuccess) return err;
   const dim3 grid_q(B * H, (Tq + kTile - 1) / kTile, DH / kOut<DH>);
-  flash_tc_dq_kernel<DH><<<grid_q, kBwdThreads, smem_q, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(d_o),
+  flash_tc_dq_kernel<T, DH><<<grid_q, kBwdThreads, smem_q, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(d_o),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), H, Tq, Tk, strides_of(strides, 0),
+      static_cast<T*>(dq), H, Tq, Tk, strides_of(strides, 0),
       strides_of(strides, 1), strides_of(strides, 2),
       strides_of(strides, 4), strides_of(strides, 5), scale, causal);
   return cudaGetLastError();
 }
 
+template <typename T>
 cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v,
                             void* o, void* lse, int B, int H, int Tq, int Tk,
                             int Dh, const long long* strides, float scale,
                             int causal, cudaStream_t stream) {
   const size_t smem = 2 * (size_t)(kFwdRows + 2 * kTile) * kWide
-                      * sizeof(bf16);
-  cudaError_t err = allow_smem(flash_tc_fwd_wide_kernel, smem);
+                      * sizeof(T);
+  cudaError_t err = allow_smem(flash_tc_fwd_wide_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Tq + kFwdRows - 1) / kFwdRows, Dh / kWide);
-  flash_tc_fwd_wide_kernel<<<grid, kFwdThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+  flash_tc_fwd_wide_kernel<T><<<grid, kFwdThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o),
       static_cast<float*>(lse), H, Tq, Tk, Dh / kWide,
       strides_of(strides, 0), strides_of(strides, 1), strides_of(strides, 2),
       strides_of(strides, 3), scale, causal);
   return cudaGetLastError();
 }
 
+template <typename T>
 cudaError_t launch_bwd_wide(const void* q, const void* k, const void* v,
                             const void* o, const void* d_o, const void* lse,
                             void* delta, void* dq, void* dk, void* dv, int B,
@@ -1150,75 +1195,130 @@ cudaError_t launch_bwd_wide(const void* q, const void* k, const void* v,
                             cudaStream_t s) {
   const long long rows = (long long)B * H * Tq;
   const int rows_per_block = kBwdThreads / 8;
-  flash_tc_delta_kernel<0><<<(unsigned)((rows + rows_per_block - 1)
+  flash_tc_delta_kernel<T, 0><<<(unsigned)((rows + rows_per_block - 1)
                                         / rows_per_block),
                              kBwdThreads, 0, s>>>(
-      static_cast<const bf16*>(o), static_cast<const bf16*>(d_o),
+      static_cast<const T*>(o), static_cast<const T*>(d_o),
       static_cast<float*>(delta), H, Tq, rows, strides_of(st, 3),
       strides_of(st, 4), Dh);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   const int nC = Dh / kWide;
-  const size_t smem = 8 * (size_t)kTile * kWide * sizeof(bf16)
+  const size_t smem = 8 * (size_t)kTile * kWide * sizeof(T)
                       + 4 * kTile * sizeof(float);
-  const bf16* f[] = {static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                     static_cast<const bf16*>(v),
-                     static_cast<const bf16*>(d_o)};
+  const T* f[] = {static_cast<const T*>(q), static_cast<const T*>(k),
+                     static_cast<const T*>(v),
+                     static_cast<const T*>(d_o)};
   const float* lp = static_cast<const float*>(lse);
   const float* dlp = static_cast<const float*>(delta);
-  err = allow_smem(flash_tc_bwd_wide_kernel<true>, smem);
+  err = allow_smem(flash_tc_bwd_wide_kernel<T, true>, smem);
   if (err != cudaSuccess) return err;
-  flash_tc_bwd_wide_kernel<true>
+  flash_tc_bwd_wide_kernel<T, true>
       <<<dim3(B * H, (Tk + kTile - 1) / kTile, nC), kBwdThreads, smem, s>>>(
-          f[1], f[2], f[0], f[3], lp, dlp, static_cast<bf16*>(dv),
-          static_cast<bf16*>(dk), H, Tk, Tq, nC, strides_of(st, 1),
+          f[1], f[2], f[0], f[3], lp, dlp, static_cast<T*>(dv),
+          static_cast<T*>(dk), H, Tk, Tq, nC, strides_of(st, 1),
           strides_of(st, 2), strides_of(st, 0), strides_of(st, 4),
           strides_of(st, 7), strides_of(st, 6), scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = allow_smem(flash_tc_bwd_wide_kernel<false>, smem);
+  err = allow_smem(flash_tc_bwd_wide_kernel<T, false>, smem);
   if (err != cudaSuccess) return err;
-  flash_tc_bwd_wide_kernel<false>
+  flash_tc_bwd_wide_kernel<T, false>
       <<<dim3(B * H, (Tq + kTile - 1) / kTile, nC), kBwdThreads, smem, s>>>(
-          f[0], f[3], f[1], f[2], lp, dlp, nullptr, static_cast<bf16*>(dq),
+          f[0], f[3], f[1], f[2], lp, dlp, nullptr, static_cast<T*>(dq),
           H, Tq, Tk, nC, strides_of(st, 0), strides_of(st, 4),
           strides_of(st, 1), strides_of(st, 2), strides_of(st, 5),
           strides_of(st, 5), scale, causal);
   return cudaGetLastError();
 }
 
+template <typename T>
+int fwd_entry(const void* q, const void* k, const void* v, void* o,
+              void* lse, int B, int H, int Tq, int Tk, int Dh,
+              const long long* strides, float scale, int causal,
+              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (Dh) {
+    case 64:
+      return static_cast<int>(launch_fwd<T, 64>(q, k, v, o, lse, B, H, Tq,
+                                                Tk, strides, scale, causal,
+                                                s));
+    case 128:
+      return static_cast<int>(launch_fwd<T, 128>(q, k, v, o, lse, B, H, Tq,
+                                                 Tk, strides, scale, causal,
+                                                 s));
+    case 256:
+      return static_cast<int>(launch_fwd<T, 256>(q, k, v, o, lse, B, H, Tq,
+                                                 Tk, strides, scale, causal,
+                                                 s));
+    default:
+      if (Dh > 256 && Dh % kWide == 0)
+        return static_cast<int>(launch_fwd_wide<T>(q, k, v, o, lse, B, H,
+                                                   Tq, Tk, Dh, strides,
+                                                   scale, causal, s));
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int bwd_entry(const void* q, const void* k, const void* v, const void* o,
+              const void* d_o, const void* lse, void* delta, void* dq,
+              void* dk, void* dv, int B, int H, int Tq, int Tk, int Dh,
+              const long long* strides, float scale, int causal,
+              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (Dh) {
+    case 64:
+      return static_cast<int>(launch_bwd<T, 64>(q, k, v, o, d_o, lse, delta,
+                                                dq, dk, dv, B, H, Tq, Tk,
+                                                strides, scale, causal, s));
+    case 128:
+      return static_cast<int>(launch_bwd<T, 128>(q, k, v, o, d_o, lse,
+                                                 delta, dq, dk, dv, B, H, Tq,
+                                                 Tk, strides, scale, causal,
+                                                 s));
+    case 256:
+      return static_cast<int>(launch_bwd<T, 256>(q, k, v, o, d_o, lse,
+                                                 delta, dq, dk, dv, B, H, Tq,
+                                                 Tk, strides, scale, causal,
+                                                 s));
+    default:
+      if (Dh > 256 && Dh % kWide == 0)
+        return static_cast<int>(launch_bwd_wide<T>(q, k, v, o, d_o, lse,
+                                                   delta, dq, dk, dv, B, H,
+                                                   Tq, Tk, Dh, strides,
+                                                   scale, causal, s));
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
-// q [B, H, Tq, Dh], k/v [B, H, Tk, Dh], o like q, all bf16, Dh 64, 128,
-// 256 or a multiple of 128 above 256: any strides with a unit head-dim
-// stride and 16-byte aligned rows, given as `strides` = [b, h, t] element
-// strides of q, k, v, o (12 values, host memory). lse [B, H, Tq] fp32
-// contiguous. Causal needs Tq == Tk (the wrapper checks).
+// q [B, H, Tq, Dh], k/v [B, H, Tk, Dh], o like q, all bf16 (the tc entry
+// points) or all fp16 (the fp16 ones), Dh 64, 128, 256 or a multiple of
+// 128 above 256: any strides with a unit head-dim stride and 16-byte
+// aligned rows, given as `strides` = [b, h, t] element strides of q, k,
+// v, o (12 values, host memory). lse [B, H, Tq] fp32 contiguous. Causal
+// needs Tq == Tk (the wrapper checks).
 extern "C" int ptpu_flash_attention_tc_fwd(const void* q, const void* k,
                                            const void* v, void* o, void* lse,
                                            int B, int H, int Tq, int Tk,
                                            int Dh, const long long* strides,
                                            float scale, int causal,
                                            void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (Dh) {
-    case 64:
-      return static_cast<int>(launch_fwd<64>(q, k, v, o, lse, B, H, Tq, Tk,
-                                             strides, scale, causal, s));
-    case 128:
-      return static_cast<int>(launch_fwd<128>(q, k, v, o, lse, B, H, Tq, Tk,
-                                              strides, scale, causal, s));
-    case 256:
-      return static_cast<int>(launch_fwd<256>(q, k, v, o, lse, B, H, Tq, Tk,
-                                              strides, scale, causal, s));
-    default:
-      if (Dh > 256 && Dh % kWide == 0)
-        return static_cast<int>(launch_fwd_wide(q, k, v, o, lse, B, H, Tq,
-                                                Tk, Dh, strides, scale,
-                                                causal, s));
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return fwd_entry<bf16>(q, k, v, o, lse, B, H, Tq, Tk, Dh, strides, scale,
+                         causal, stream);
+}
+extern "C" int ptpu_flash_attention_fp16_fwd(const void* q, const void* k,
+                                             const void* v, void* o,
+                                             void* lse, int B, int H, int Tq,
+                                             int Tk, int Dh,
+                                             const long long* strides,
+                                             float scale, int causal,
+                                             void* stream) {
+  return fwd_entry<fp16>(q, k, v, o, lse, B, H, Tq, Tk, Dh, strides, scale,
+                         causal, stream);
 }
 
 // The backward: dq/dk/dv like q/k/v (their own strides), from q, k, v, o,
@@ -1229,25 +1329,14 @@ extern "C" int ptpu_flash_attention_tc_bwd(
     const void* d_o, const void* lse, void* delta, void* dq, void* dk,
     void* dv, int B, int H, int Tq, int Tk, int Dh,
     const long long* strides, float scale, int causal, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (Dh) {
-    case 64:
-      return static_cast<int>(launch_bwd<64>(q, k, v, o, d_o, lse, delta, dq,
-                                             dk, dv, B, H, Tq, Tk, strides,
-                                             scale, causal, s));
-    case 128:
-      return static_cast<int>(launch_bwd<128>(q, k, v, o, d_o, lse, delta,
-                                              dq, dk, dv, B, H, Tq, Tk,
-                                              strides, scale, causal, s));
-    case 256:
-      return static_cast<int>(launch_bwd<256>(q, k, v, o, d_o, lse, delta,
-                                              dq, dk, dv, B, H, Tq, Tk,
-                                              strides, scale, causal, s));
-    default:
-      if (Dh > 256 && Dh % kWide == 0)
-        return static_cast<int>(launch_bwd_wide(q, k, v, o, d_o, lse, delta,
-                                                dq, dk, dv, B, H, Tq, Tk, Dh,
-                                                strides, scale, causal, s));
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return bwd_entry<bf16>(q, k, v, o, d_o, lse, delta, dq, dk, dv, B, H, Tq,
+                         Tk, Dh, strides, scale, causal, stream);
+}
+extern "C" int ptpu_flash_attention_fp16_bwd(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* d_o, const void* lse, void* delta, void* dq, void* dk,
+    void* dv, int B, int H, int Tq, int Tk, int Dh,
+    const long long* strides, float scale, int causal, void* stream) {
+  return bwd_entry<fp16>(q, k, v, o, d_o, lse, delta, dq, dk, dv, B, H, Tq,
+                         Tk, Dh, strides, scale, causal, stream);
 }

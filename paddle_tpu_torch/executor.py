@@ -1,33 +1,47 @@
-"""Executor (parity: the JAX package's ``executor.py`` `Executor.run`
-:416 and its `_CompiledStep` :99-259).
+"""Executor (parity: the JAX package's ``executor.py`` `Executor`
+:326-544 and its `_CompiledStep` :99-259).
 
 `run()` executes a program's global block op by op in eager PyTorch on
 the executor's device (``core/lowering.py``): forward ops, generic grad
 ops and the optimizer's update ops. Per (program, feed signature,
-fetches) a `_Step` is cached that holds the persistable-state plan — which
-scope tensors the step reads and which it writes — and the step's memory
-plan (when each intermediate can be dropped). Parameters are updated in
-place in the scope, as the JAX step does by donating its state.
+fetches, pipeline key) a `_Step` is cached that holds the
+persistable-state plan (which scope tensors the step reads and which it
+writes) and the step's memory plan (when each intermediate can be
+dropped). Parameters are updated in place in the scope, as the JAX step
+does by donating its state.
 
 At a cache miss the program goes through the pass pipeline
-(``ir_passes.optimize_for_execution``): with a quantization config in
-effect (``quant.decorate``, ``PTPU_QUANT=1``) the step runs the
-``quant_rewrite`` clone, and the config's key is part of the cache key.
-Persistables the pass baked (int8 weights, scales) are read back
+(``ir_passes.optimize_for_execution``: constant_fold, cse and fetch_dce,
+with ``amp_rewrite`` or ``quant_rewrite`` ahead of them when an AMP or
+quantization config is in effect) and the step runs the optimized
+clone; ``PTPU_NO_PROGRAM_OPT=1`` runs the program itself. The pipeline's
+key is part of the cache key. Persistables a pass baked are read back
 through ``ir_passes.state_fallback`` into a scope that lacks them.
 
-Not ported: the asynchronous in-flight window, `prefetch`, the other
-program optimization passes, compile telemetry, RPC ops and the nan
-checks. A CUDA graph of the step is later work.
+The asynchronous pipeline (``async_engine.py``): ``run(...,
+return_numpy=False)`` returns the fetches as device tensors (a
+`LazyFetchList`) and admits the step, as a CUDA event on the executor's
+stream, into a window of at most `async_steps` steps in flight
+(``PTPU_ASYNC_STEPS``); admitting past it waits for the oldest.
+``return_numpy=True`` copies the fetches to the host, which syncs every
+step before it. ``sync()`` drains the window. ``prefetch(feed)`` stages
+a host feed on the card in the background; the next ``run(feed=feed)``
+with the same value objects reads the staged copy.
+
+Not ported: compile telemetry, RPC ops and the nan checks. A CUDA graph
+of the step is later work.
 """
 
 import numpy as np
 import torch
 
 from . import framework, ir_passes
+from .async_engine import (FeedPrefetcher, InflightWindow, LazyFetchList,
+                           StepEvent, as_numpy)
 from .core.lowering import LoweringContext, execute_block
 from .core.place import resolve_device
 from .core.scope import global_scope
+from .flags import env
 
 __all__ = ["Executor", "global_scope"]
 
@@ -142,27 +156,41 @@ class _Step:
         return [env[n] for n in self.fetch_names]
 
 
-def _to_numpy(t):
-    t = t.detach()
-    if t.dtype == torch.bfloat16:  # numpy has no bf16
-        t = t.float()
-    return t.cpu().numpy()
-
-
 class Executor:
     """Runs programs on one device: `place=None` is ``cuda:0`` (and raises
-    without CUDA); the tests pass ``place="cpu"``."""
+    without CUDA); the tests pass ``place="cpu"``. `async_steps` bounds
+    the steps kept in flight by ``run(return_numpy=False)`` (default:
+    ``PTPU_ASYNC_STEPS``, 12)."""
 
-    def __init__(self, place=None):
+    def __init__(self, place=None, async_steps=None):
         self.device = resolve_device(place)
         self._cache = {}
+        if async_steps is None:
+            async_steps = env("PTPU_ASYNC_STEPS")
+        self._window = InflightWindow(async_steps)
+        self._prefetcher = None
+
+    def sync(self):
+        """Block until every in-flight step is done."""
+        self._window.drain()
+
+    def prefetch(self, feed):
+        """Stage `feed`'s host values on the device in the background,
+        overlapping the copy with the current step. A later
+        ``run(feed=feed)`` with the same value objects reads the staged
+        copies; staged feeds are consumed in prefetch order."""
+        if self._prefetcher is None:
+            self._prefetcher = FeedPrefetcher(self.device)
+        self._prefetcher.put(feed)
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
-            return_numpy=True):
+            return_numpy=True, use_program_cache=True):
         """Run `program` (default: the default main program) once.
         Feeds are numpy arrays or tensors, cast to their declared dtype
-        and moved to the device; fetches come back as numpy arrays (bf16
-        as float32) or, with return_numpy=False, as device tensors."""
+        and moved to the device. Fetches come back as numpy arrays (bf16
+        as float32), which syncs the step, or with return_numpy=False as
+        a LazyFetchList of device tensors, the step admitted to the
+        in-flight window."""
         if program is None:
             program = framework.default_main_program()
         feed = {k: v if isinstance(v, torch.Tensor) else np.asarray(v)
@@ -171,18 +199,37 @@ class Executor:
         fetch_names = [v.name if isinstance(v, framework.Variable)
                        else str(v) for v in (fetch_list or [])]
         key = (id(program), program.version, _feed_signature(feed),
-               tuple(fetch_names), ir_passes.pipeline_key(program))
-        step = self._cache.get(key)
+               tuple(fetch_names), ir_passes.pipeline_key(None, program))
+        # the staged copy replaces the feed only after the key is taken
+        # from the original values
+        keep = ()
+        if self._prefetcher is not None:
+            staged = self._prefetcher.take_if_match(feed)
+            if staged is not None:
+                feed = staged.consume(self.device)
+                keep = staged.pinned
+        step = self._cache.get(key) if use_program_cache else None
         if step is None:
             run_program = ir_passes.optimize_for_execution(
                 program, fetch_names, scope, self.device)
-            step = self._cache[key] = _Step(run_program, feed.keys(),
-                                            fetch_names)
+            step = _Step(run_program, feed.keys(), fetch_names)
+            if use_program_cache:
+                self._cache[key] = step
         fetches = step.run(scope, feed, self.device)
         if return_numpy:
-            return [_to_numpy(t) for t in fetches]
-        return fetches
+            out = as_numpy(fetches)
+            # the newest step is done; one stream runs in order, so every
+            # older step in flight is too
+            self._window.reset()
+            return out
+        self._window.admit(StepEvent(self.device, keep))
+        return LazyFetchList(fetches)
 
     def close(self):
-        """Drop the cached steps (and the compiled clones they hold)."""
+        """Drain the in-flight window, stop the prefetcher and drop the
+        cached steps (and the optimized clones they hold)."""
+        self.sync()
+        if self._prefetcher is not None:
+            self._prefetcher.close()
+            self._prefetcher = None
         self._cache.clear()

@@ -90,6 +90,16 @@ _declare("PTPU_SERVE_DRAFT_MODEL", "path", None,
          "generation-artifact directory of a draft model; when set (and "
          "no drafter is passed) the engine drafts with a ModelDrafter "
          "over it")
+_declare("PTPU_ASYNC_STEPS", "int", 12,
+         "async in-flight window depth before dispatch backpressures")
+_declare("PTPU_NO_PROGRAM_OPT", "bool", False,
+         "disable the compile-time pass pipeline (exact unoptimized path)")
+_declare("PTPU_AMP", "bool", False,
+         "activate the AMP dtype rewrite process-wide")
+_declare("PTPU_AMP_LEVEL", "str", "O1",
+         "AMP level when activated via PTPU_AMP (O1 or O2)")
+_declare("PTPU_AMP_DTYPE", "str", "bfloat16",
+         "AMP compute dtype when activated via PTPU_AMP")
 _declare("PTPU_QUANT", "bool", False,
          "activate the int8 quant_rewrite pass process-wide")
 _declare("PTPU_QUANT_MODE", "str", "weight_only",

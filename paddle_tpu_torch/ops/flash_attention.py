@@ -5,7 +5,7 @@ The port of ``paddle_tpu/ops/pallas_kernels.py`` ``flash_attention``
 (:120, forward `_fwd_kernel` :58 through ``pl.pallas_call`` :191;
 backward `_flash_bwd_rule` :212), with its layout and numerics:
 
-    q       : [B, H, Tq, Dh]   bf16 or fp32, any strides with a unit
+    q       : [B, H, Tq, Dh]   bf16, fp16 or fp32, any strides with a unit
                                last-dim stride (the bthd tensors of the
                                fused attention op are read through them)
     k, v    : [B, H, Tk, Dh]   same dtype
@@ -22,6 +22,9 @@ the dtype and the pass alone; the route names the kernel that ran:
     "tc"     bf16 CUDA tensors, forward and backward:
              ``csrc/flash_attention_tc.cu``, mma.sync on the tensor cores,
              P and dS rounded to bf16 before the second product
+    "fp16"   fp16 CUDA tensors, forward and backward: the same source's
+             kernels instantiated for fp16 (mma.sync m16n8k16 f16), P and
+             dS rounded to fp16
     "f32tc"  fp32 CUDA tensors, forward and backward:
              ``csrc/flash_attention_f32tc.cu`` and
              ``csrc/flash_attention_f32tc_bwd.cu``, 3xTF32 mma.sync on the
@@ -46,7 +49,8 @@ O and of the grads; sm_scale stays the caller's (by default the true head
 dim's ``Dh ** -0.5``).
 
 ``flash_attention_fwd`` and ``flash_attention_bwd`` count their launches
-(``.launches``, and ``.launches_by_route`` split into "tc" and "f32tc")
+(``.launches``, and ``.launches_by_route`` split into "tc", "fp16" and
+"f32tc")
 and the copies they made (``.copies``); ``reset_counts()``
 zeroes all.
 """
@@ -64,7 +68,7 @@ __all__ = ["PART_WIDTH", "SUPPORTED_HEAD_DIMS", "flash_attention",
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256)   # the kernels' instantiations
 PART_WIDTH = 128   # the output columns a block takes above 256
-_ROUTES = ("tc", "f32tc")
+_ROUTES = ("tc", "fp16", "f32tc")
 
 
 def flash_attention_reference(q, k, v, causal=True, sm_scale=None):
@@ -86,8 +90,9 @@ def flash_attention_reference(q, k, v, causal=True, sm_scale=None):
 def kernel_route(device_type, dtype, backward=False):
     """The route of a call on tensors of `device_type` and `dtype`, for
     the forward or the `backward` pass: "plain" on the CPU (any dtype);
-    on CUDA "tc" for bf16 and "f32tc" for fp32, both ways. Raises for
-    any other device (RuntimeError) or CUDA dtype (TypeError)."""
+    on CUDA "tc" for bf16, "fp16" for fp16 and "f32tc" for fp32, both
+    ways. Raises for any other device (RuntimeError) or CUDA dtype
+    (TypeError)."""
     if device_type == "cpu":
         return "plain"
     if device_type != "cuda":
@@ -95,10 +100,12 @@ def kernel_route(device_type, dtype, backward=False):
                            "got q on %s" % device_type)
     if dtype == torch.bfloat16:
         return "tc"
+    if dtype == torch.float16:
+        return "fp16"
     if dtype == torch.float32:
         return "f32tc"
-    raise TypeError("flash_attention kernels take bfloat16 or float32, "
-                    "got %s" % dtype)
+    raise TypeError("flash_attention kernels take bfloat16, float16 or "
+                    "float32, got %s" % dtype)
 
 
 def kernel_head_dim(Dh):
@@ -167,7 +174,9 @@ _ENTRY = {"ptpu_flash_attention_f32tc_fwd": ("flash_attention_f32tc", 5),
           "ptpu_flash_attention_f32tc_bwd": ("flash_attention_f32tc_bwd",
                                              10),
           "ptpu_flash_attention_tc_fwd": ("flash_attention_tc", 5),
-          "ptpu_flash_attention_tc_bwd": ("flash_attention_tc", 10)}
+          "ptpu_flash_attention_tc_bwd": ("flash_attention_tc", 10),
+          "ptpu_flash_attention_fp16_fwd": ("flash_attention_tc", 5),
+          "ptpu_flash_attention_fp16_bwd": ("flash_attention_tc", 10)}
 _fns = {}
 
 

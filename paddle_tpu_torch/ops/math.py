@@ -1,7 +1,7 @@
 """Core math and tensor-creation ops (parity: the JAX package's
 ``ops/math.py`` fill_constant :21, fill_any_like :48, uniform_random :60,
-gaussian_random, shape :110, fused_int8_matmul :193, mul :223, scale
-:238, sum :245, cast :254)."""
+gaussian_random, assign_value :99, shape :110, fused_int8_matmul :193,
+mul :223, scale :238, sum :245, cast :254)."""
 
 import numpy as np
 import torch
@@ -40,6 +40,16 @@ def _gaussian_random(ctx, ins, attrs):
     out.normal_(attrs.get("mean", 0.0), attrs.get("std", 1.0),
                 generator=ctx.generator(attrs))
     return {"Out": [out.to(torch_dtype(attrs.get("dtype", "float32")))]}
+
+
+@register("assign_value", differentiable=False)
+def _assign_value(ctx, ins, attrs):
+    """A constant held in the op's attrs (constant_fold's inline form):
+    `values` a numpy array (bf16 values held as fp32), made on the
+    device in `dtype` and `shape`."""
+    vals = torch.from_numpy(np.array(attrs["values"]))
+    return {"Out": [vals.to(ctx.device, torch_dtype(
+        attrs.get("dtype", "float32"))).reshape(attrs["shape"])]}
 
 
 @simple_op("shape", differentiable=False)

@@ -397,20 +397,23 @@ def test_f32tc_backward_numerics_within_card_limits(Dh):
 
 
 def test_route_and_alignment_decisions():
-    """bf16 CUDA -> tc both ways, fp32 CUDA -> f32tc both ways, CPU ->
-    plain, other CUDA dtypes and devices raise; a view
+    """bf16 CUDA -> tc both ways, fp16 CUDA -> fp16 both ways (F3: it
+    raised before), fp32 CUDA -> f32tc both ways, CPU -> plain, other
+    CUDA dtypes and devices raise; a view
     the tensor-core kernels cannot read 16 bytes at a time is copied, an
     aligned one is read in place."""
     route = p_flash.kernel_route
-    for dt in (torch.bfloat16, torch.float32, torch.float64):
+    for dt in (torch.bfloat16, torch.float16, torch.float32, torch.float64):
         assert route("cpu", dt) == "plain"
         assert route("cpu", dt, backward=True) == "plain"
     assert route("cuda", torch.bfloat16) == "tc"
     assert route("cuda", torch.bfloat16, backward=True) == "tc"
     assert route("cuda", torch.float32) == "f32tc"
     assert route("cuda", torch.float32, backward=True) == "f32tc"
-    for dt in (torch.float16, torch.float64, torch.int8):
-        with pytest.raises(TypeError, match="bfloat16"):
+    assert route("cuda", torch.float16) == "fp16"
+    assert route("cuda", torch.float16, backward=True) == "fp16"
+    for dt in (torch.float64, torch.int8):
+        with pytest.raises(TypeError, match="bfloat16, float16 or float32"):
             route("cuda", dt)
     with pytest.raises(RuntimeError, match="CUDA"):
         route("meta", torch.bfloat16)

@@ -20,13 +20,6 @@ CFG = dict(vocab_size=96, d_model=64, n_heads=2, n_layers=2, d_ff=128,
            seq_len=128, head_chunk=64)
 # counters shared by every program a process builds
 _SEED_ATTRS = {"__op_seed__"}
-# the JAX decorator always makes dynamic loss scaling's step counters;
-# the port scales statically only and makes none
-_JAX_ONLY = ("good_steps", "bad_steps")
-
-
-def _jax_only(name):
-    return name.startswith(_JAX_ONLY)
 
 
 def _build(fluid, tf, unique_name, dtype, amp):
@@ -57,9 +50,7 @@ def _ops(program):
              {s: [v.name for v in vs] for s, vs in op.inputs.items()},
              {s: [v.name for v in vs] for s, vs in op.outputs.items()},
              _attrs(op))
-            for op in program.global_block().ops
-            if not all(_jax_only(v.name) for vs in op.outputs.values()
-                       for v in vs)]
+            for op in program.global_block().ops]
 
 
 def _vars(program):
@@ -67,8 +58,7 @@ def _vars(program):
                      type(v).__name__,
                      getattr(v, "trainable", None),
                      getattr(v, "shard_spec", None))
-            for v in program.global_block().vars.values()
-            if not _jax_only(v.name)}
+            for v in program.global_block().vars.values()}
 
 
 @pytest.mark.parametrize("dtype,amp", [("float32", False),

@@ -477,9 +477,10 @@ def test_flash_attention_f32tc_backward_matches_plain_on_card(B, H, Tq, Tk,
 
 def _flash_counts(fa, dtype):
     """(fwd launches, bwd launches, fwd and bwd launches by the route of
-    `dtype` (bf16: "tc"; fp32: "f32tc"; both ways), copies of both)."""
+    `dtype` (bf16: "tc"; fp16: "fp16"; fp32: "f32tc"; both ways), copies
+    of both)."""
     f, b = fa.flash_attention_fwd, fa.flash_attention_bwd
-    fr = br = "tc" if dtype == "bfloat16" else "f32tc"
+    fr = br = {"bfloat16": "tc", "float16": "fp16"}.get(dtype, "f32tc")
     return (f.launches, b.launches, f.launches_by_route[fr],
             b.launches_by_route[br], f.copies + b.copies)
 
@@ -502,6 +503,55 @@ def _flash_against_plain(fa, q, k, v, g, causal, tols):
                                    want.detach().float().cpu().numpy(),
                                    err_msg=name, atol=atol, rtol=rtol)
     return out, grads
+
+
+# fp16 against the plain version: outputs atol/rtol 2e-3 (both sides round
+# to fp16, 1 ulp is at most 2^-10 |want|); grads atol 4e-3, rtol 2e-3 (P,
+# dS and the delta's O rounded to fp16 in the kernel, 8x finer than the
+# bf16 limits' 2^-7)
+FP16_TOLS = {"out": (2e-3, 2e-3), "grads": (4e-3, 2e-3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Tq,Tk,causal,layout,Dh", [
+    (2, 3, 256, 256, True, "bthd", 64),
+    (1, 2, 128, 320, False, "bhtd", 64),
+    (1, 1, 100, 100, True, "bhtd", 64),    # ragged tiles
+    (2, 1, 129, 129, True, "bthd", 64),    # past a 128-row block
+    (2, 3, 256, 256, True, "bthd", 128),
+    (1, 2, 128, 256, False, "bhtd", 128),
+    (2, 2, 256, 256, True, "bthd", 96),    # padded to 128
+    (1, 2, 128, 256, False, "bhtd", 192),  # padded to 256
+])
+def test_flash_attention_fp16_matches_plain_on_card(B, H, Tq, Tk, causal,
+                                                    layout, Dh):
+    """F3: K1's fp16 route (the tensor-core source's kernels instantiated
+    for fp16) forward and backward against the plain version's forward
+    and autograd, at Dh 64 and 128 and at 96 and 192, which the wrapper
+    zero-pads (4 counted copies); both ways by the "fp16" route.
+    Tolerance: FP16_TOLS."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.RandomState(Tq + Tk + Dh + 16)
+    dev = torch.device("cuda")
+
+    def make(T):
+        shape = (B, H, T, Dh) if layout == "bhtd" else (B, T, H, Dh)
+        t = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        t = t.to(dev, torch.float16)
+        return t if layout == "bhtd" else t.transpose(1, 2)
+
+    q, k, v, g = make(Tq), make(Tk), make(Tk), make(Tq)
+    padded = fa.kernel_head_dim(Dh) != Dh
+    before = _flash_counts(fa, "float16")
+    out, grads = _flash_against_plain(fa, q, k, v, g, causal, FP16_TOLS)
+    assert _flash_counts(fa, "float16") == tuple(
+        n + 1 for n in before[:4]) + (before[4] + (4 if padded else 0),)
+    assert out.shape == q.shape
+    if not padded:
+        assert out.stride() == q.stride()
 
 
 @pytest.mark.cuda

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import paddle_tpu as jfluid
+from paddle_tpu import ir_passes as j_ir_passes
 from paddle_tpu import quant as j_quant
 from paddle_tpu import unique_name as j_unique
 from paddle_tpu.core.scope import Scope as JScope
@@ -308,9 +309,10 @@ def test_decorate_after_a_cached_run_compiles_a_new_step(lm):
 
 
 def test_undecorated_program_never_runs_the_pass(lm, monkeypatch):
-    """With no decoration and PTPU_QUANT unset the executor runs the
-    user's program itself: the pass is never called and the cache key
-    gains nothing."""
+    """With no decoration and PTPU_QUANT unset the pass is never called,
+    the default pipeline (the JAX package's list for an inference
+    program) changes nothing, so the executor runs the user's program
+    itself, and the cache key gains no quant entry."""
     monkeypatch.delenv("PTPU_QUANT", raising=False)
     calls = []
     monkeypatch.setattr(p_quant.QuantRewritePass, "apply",
@@ -320,7 +322,8 @@ def test_undecorated_program_never_runs_the_pass(lm, monkeypatch):
     pexe.run(pi, feed=lm.feeds[0], fetch_list=[lm.pl], scope=lm.pscope)
     assert calls == []
     assert [s.program for s in pexe._cache.values()] == [pi]
-    assert p_ir_passes.pipeline_key(pi) == ()
+    assert p_ir_passes.pipeline_key(None, pi) == tuple(
+        j_ir_passes.build_pipeline(is_test=True))
 
 
 def test_env_activation_runs_the_pass(lm, monkeypatch, tmp_path):
@@ -331,7 +334,8 @@ def test_env_activation_runs_the_pass(lm, monkeypatch, tmp_path):
     monkeypatch.setenv("PTPU_QUANT_MODE", "full_int8")
     monkeypatch.setenv("PTPU_QUANT_TABLE", path)
     pi = lm.pm.clone(for_test=True)
-    assert p_ir_passes.pipeline_key(pi) == (
+    assert p_ir_passes.pipeline_key(None, pi) == tuple(
+        j_ir_passes.build_pipeline(is_test=True, quant=True)) + (
         "quant:" + p_quant.QuantConfig("full_int8", lm.ptable())
         .cache_key(),)
     pexe = pfluid.Executor("cpu")

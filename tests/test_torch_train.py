@@ -26,9 +26,6 @@ from paddle_tpu_torch.models import transformer_fluid as p_tf
 
 CFG = dict(vocab_size=256, d_model=128, n_heads=2, n_layers=2, d_ff=256,
            seq_len=128)
-# the JAX decorator always makes dynamic loss scaling's step counters;
-# the port scales statically only and makes none
-_JAX_ONLY = ("good_steps", "bad_steps")
 
 
 def build(fluid, tf, unique_name, dtype, amp):
@@ -123,7 +120,7 @@ def two_sgd_steps_match_jax(dtype, amp):
     jexe.run(js, scope=jscope)
     pexe.run(ps, scope=pscope)
     names = sorted(v.name for v in jm.global_block().vars.values()
-                   if v.persistable and not v.name.startswith(_JAX_ONLY))
+                   if v.persistable)
     assert names == sorted(v.name for v in pm.global_block().vars.values()
                            if v.persistable)
     assert set(names) == set(pscope.local_var_names()) - {
@@ -219,15 +216,38 @@ def test_uninitialized_persistable_and_missing_feed_raise():
         exe.run(main, feed=batch, fetch_list=[loss], scope=scope)
 
 
-def test_dynamic_loss_scaling_is_refused():
-    """Dynamic loss scaling (the decorator's default) is not ported: the
-    decorator says so instead of scaling statically."""
-    with pytest.raises(NotImplementedError, match="dynamic loss scaling"):
-        pfluid.contrib.mixed_precision.decorate(pfluid.optimizer.SGD(0.01))
-    opt = pfluid.contrib.mixed_precision.decorate(
-        pfluid.optimizer.SGD(0.01), init_loss_scaling=8.0,
-        use_dynamic_loss_scaling=False)
-    assert opt.get_loss_scaling() is None  # made by minimize
+def test_dynamic_loss_scaling_is_the_default():
+    """The decorator's default is dynamic loss scaling, as in the JAX
+    package: the same scaling state (loss scale, good and bad step
+    counters, by name), a check_finite_and_unscale and an
+    update_loss_scaling op with the JAX attrs; a static scale of 1 adds
+    neither op."""
+    def ops(fluid, tf, unique_name, **kw):
+        main, startup = fluid.Program(), fluid.Program()
+        with unique_name.guard(), fluid.program_guard(main, startup):
+            _, _, loss = tf.build(remat=False, dtype="bfloat16", **CFG)
+            opt = fluid.contrib.mixed_precision.decorate(
+                fluid.optimizer.SGD(0.01), **kw)
+            opt.minimize(loss)
+        assert opt.get_loss_scaling().name == "loss_scaling_0"
+        state = sorted(v.name for v in main.global_block().vars.values()
+                       if v.persistable and "_steps" in v.name)
+        return state, [(op.type, sorted(op.attrs.items()))
+                       for op in main.global_block().ops
+                       if op.type in ("check_finite_and_unscale",
+                                      "update_loss_scaling")]
+
+    state, dyn = ops(pfluid, p_tf, p_unique)
+    assert state == ["bad_steps_0", "good_steps_0"]
+    assert (state, dyn) == ops(jfluid, j_tf, j_unique)
+    assert [t for t, _ in dyn] == ["check_finite_and_unscale",
+                                   "update_loss_scaling"]
+    assert dict(dyn[1][1]) == {"incr_every_n_steps": 1000,
+                               "decr_every_n_nan_or_inf": 2,
+                               "incr_ratio": 2.0, "decr_ratio": 0.8}
+    static = ops(pfluid, p_tf, p_unique, init_loss_scaling=1.0,
+                 use_dynamic_loss_scaling=False)
+    assert static == (state, [])
 
 
 def test_scope_from_numpy_checks_and_keeps_bf16_bits():
