@@ -22,8 +22,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      position 500 whose window runs past the table, two rows on shared
      adopted blocks, an inactive row), and timed at C=1 (decode), C=7
      (the linear verify window), C=17 (the spec_k=16 window), C=8 (phase
-     4b's chunk windows) and C=64 (the prefill chunk, B=8, H=8, a context
-     of 512); the tree-mask window (K3) on an edge
+     4b's chunk windows), C=64 (the prefill chunk, B=8, H=8, a context
+     of 512) and C=16 (phase 4d's chunk windows, B=8, windows from 0 to
+     64); the tree-mask window (K3) on an edge
      matrix (width 1 against K2 up to C=41, null tails, windows past the
      table, an inactive row, Dh 32 to 128 and 48/80/100, C up to 64 with
      two mask words a slot, a window across two splits) and timed at the
@@ -70,6 +71,30 @@ Phases, each fatal on failure (exit code 1, no result line):
      C=64 and a one-token step at C=1; the chunked and fast legs' TTFT
      p50 below legacy's. Then one chunk step under torch.profiler (the
      device's busy share, K2's ms at C=64).
+  4d. serving bench legs: bench.py's four serving functions through the
+     port's bench (``paddle_tpu_torch.bench``: bench_serving,
+     bench_serving_fastpath, bench_serving_spec, bench_serving_quant)
+     at the flagship's full width (vocab 32000, d_model 512, 8 heads, 6
+     layers, d_ff 2048, max_seq_len 512) with bench.py's own traffic,
+     through ``ServingEngine``, ``GenerationModel.quantized`` and
+     ``ModelDrafter``: a 32-request Poisson stream batched (16 slots) and
+     one at a time; 10 shared-prefix requests legacy and fast (chunk 16,
+     prefix cache); 6 repetitive requests in the legacy, linear (k=6),
+     2x6 tree (a ModelDrafter over the target) and int8 tree (the
+     drafter and the target over the int8 store) legs over chunk 8; 16
+     requests over fp32 weights and the int8 store. Each function's
+     K2/K3 counts are zeroed before it and read after. Fatal unless
+     every outputs_match is true (the int8 legs against
+     ``reference_decode`` over the dequantized weights; a mismatch
+     prints the request and the reference's top-2 logit margin), every
+     K2/K3 launch is accounted for by the engines' steps (a drafter's
+     catch-ups at its chunk 16 and draft steps read from their sum), both
+     int8 legs served the int8 store (26 int8 weights) and the fast
+     path's prefix hit rate is 1.0. Prints each leg's tokens/s,
+     latency and TTFT p50/p99, steps and tokens a step, draft steps,
+     blocks reused, the int8 store's bytes against fp32, and K2's
+     launches by C and K3's. Then one int8 decode step beside one fp32
+     decode step (16 rows) under torch.profiler: device ms by kernel.
 
   5. flash attention kernels: K1's forward and backward CUDA kernels
      against the plain version's forward and autograd, each call by its
@@ -266,12 +291,15 @@ def time_ms(torch, fn, flush, iters=20):
 # crossing a page); C=8 phase 4b's chunk windows (the 12-token prompts'
 # chunks at 0 and 8, the drafter's catch-up up to position 60); C=64 the
 # fast path's prefill chunk (phase 4c), timed at a context of 512: every
-# row's window ends at position 511
+# row's window ends at position 511; C=16 phase 4d's chunk windows
+# (bench_serving_fastpath's chunk 16 over a 64-token prefix and a 2-8
+# token tail: windows from 0 to 64; the drafter's catch-ups, from 0)
 PAGED_CASES = ((1, 32, 0, 512, (511, 0, 16, 17)),
                (7, 8, 12, 59, (12, 58, 13)),
                (17, 8, 12, 60, (12, 59, 13)),
                (8, 8, 0, 53, (0, 8, 52)),
-               (64, 8, 448, 449, ()))
+               (64, 8, 448, 449, ()),
+               (16, 8, 0, 65, (0, 16, 48, 64)))
 # K2's edge matrix, checked: (C, Dh, bs, Mb, the first rows' window
 # starts): head dims between the instantiated widths (48, 80, 100: masked
 # columns; 50: 4-byte copies), windows of one to three 32-slot chunks, a
@@ -377,8 +405,8 @@ def kernel_phase(torch, pa_mod):
     the prefill-chunk matrix (``chunk_window_inputs``), then checked and
     timed at its paths' shapes (PAGED_CASES): C=1 the serving phase's
     decode, C=7 the linear leg's window, C=17 the spec_k=16 leg's, C=8
-    phase 4b's chunk windows, C=64 the fast path's prefill chunk.
-    Returns the kernels-line rows."""
+    phase 4b's chunk windows, C=64 the fast path's prefill chunk, C=16
+    phase 4d's chunk windows. Returns the kernels-line rows."""
     import torch.nn.functional as F
 
     _, _, err = paged_check(torch, pa_mod, chunk_window_inputs(torch),
@@ -905,9 +933,14 @@ def spec_leg(torch, pa_mod, pat_mod, model, prompts, refs, margins, name,
     if drafter is not None and draft_steps < 1:
         fail("spec %s: the ModelDrafter ran no draft step" % name)
     if on_card:
-        want_k2, want_k3 = spec_launches(cfg.n_layers, stats, steps,
-                                         spec_steps, chunk_steps,
-                                         draft_steps, drafter, k2)
+        run = {"steps": steps, "spec_steps": spec_steps,
+               "prefill_chunk_steps": chunk_steps,
+               "spec_draft_steps": draft_steps,
+               **{k: stats[k] for k in ("prefill_chunk", "spec_k",
+                                        "spec_tree")}}
+        want_k2, want_k3 = engine_launches(cfg.n_layers, {name: {
+            "stats": run, "drafter_chunk": drafter and SPEC["draft_chunk"]}},
+            k2)
         if k2 != want_k2 or k3 != want_k3:
             fail("spec %s: over %d steps (%d verify windows, %d chunk "
                  "steps, %d draft steps) paged_attention launched %r times "
@@ -1087,6 +1120,255 @@ def fastpath_phase(torch, pa_mod, device=None):
     return legs
 
 
+# phase 4d: bench.py's serving legs (bench_serving :553,
+# bench_serving_fastpath :659, bench_serving_spec :731,
+# bench_serving_quant :1242) through the port's bench, each at the
+# flagship's full width with bench.py's own traffic (request counts,
+# prompt lengths, max_new_tokens, max_batch, chunks, seeds)
+BENCH_WIDTH = dict(vocab=32000, d_model=512, n_heads=8, n_layers=6,
+                   d_ff=2048, max_seq_len=512)
+BENCH_FUNCTIONS = ("bench_serving", "bench_serving_fastpath",
+                   "bench_serving_spec", "bench_serving_quant")
+# the legs of bench_serving_spec and bench_serving_quant that serve int8
+BENCH_INT8_LEGS = {"bench_serving_spec": "int8", "bench_serving_quant": "int8"}
+
+
+def engine_launches(L, legs, k2):
+    """The launches a run must show over the engines it served with
+    (``legs``: {leg: {"stats": the engine's step counts over the run,
+    "drafter_chunk": its ModelDrafter's catch-up chunk or None}}), one a
+    layer each: K2 at C=1 a one-token step, at C=chunk a chunk step, at
+    C=k+1 a linear window; K3 a tree window. A ModelDrafter adds K2 at
+    its catch-up chunk a catch-up and at C=1 ``spec_k - 1`` times a draft
+    step; only their sum is counted (``spec_draft_steps``), so the split
+    is read from ``k2`` and held to that sum. Returns (want_k2,
+    want_k3)."""
+    want, want_k3 = {1: 0}, 0
+    drafted = {}       # (catch-up chunk, steps a draft step) -> draft steps
+    for leg in legs.values():
+        st = leg["stats"]
+        steps, spec, chunk = (st["steps"], st["spec_steps"],
+                              st["prefill_chunk_steps"])
+        want[1] += L * (steps - spec - chunk)
+        if chunk:
+            c = st["prefill_chunk"]
+            want[c] = want.get(c, 0) + L * chunk
+        if st["spec_tree"]:
+            want_k3 += L * spec
+        elif st["spec_k"]:
+            c = st["spec_k"] + 1
+            want[c] = want.get(c, 0) + L * spec
+        if leg["drafter_chunk"] and st["spec_draft_steps"]:
+            key = (leg["drafter_chunk"], st["spec_k"] - 1)
+            drafted[key] = drafted.get(key, 0) + st["spec_draft_steps"]
+    if len(drafted) == 1:
+        (c, n_new), draft_steps = next(iter(drafted.items()))
+        extra_c = k2.get(c, 0) - want.get(c, 0)
+        extra_1 = k2.get(1, 0) - want[1]
+        catchups, scans = extra_c // L, extra_1 // max(L * n_new, 1)
+        if (catchups * L, scans * L * n_new) == (extra_c, extra_1) and \
+                catchups + scans == draft_steps:
+            want[c] = want.get(c, 0) + L * catchups
+            want[1] += L * n_new * scans
+    elif drafted:
+        fail("launch accounting: drafters of several shapes %r in one run"
+             % sorted(drafted))
+    return {c: n for c, n in want.items() if n}, want_k3
+
+
+def bench_mismatch(name, legs, leg):
+    """Fail naming the first request of ``leg`` whose tokens differ from
+    ``reference_decode`` over its engine's model, with the reference's
+    top-2 logit margin there (how near that token was to a tie)."""
+    from paddle_tpu_torch.serving import reference_decode
+
+    entry = legs[leg]
+    for i, (prompt, got) in enumerate(zip(entry["prompts"],
+                                          entry["outputs"])):
+        margins = []
+        ref = reference_decode(entry["model"], prompt, len(got),
+                               margins=margins)
+        if got != ref:
+            at = next((j for j, (a, b) in enumerate(zip(got, ref))
+                       if a != b), min(len(got), len(ref)))
+            fail("bench %s %s: request %d differs from reference_decode at "
+                 "generated token %d (got %r, reference %r; the reference's "
+                 "top-2 logit margin there is %.3g)"
+                 % (name, leg, i, at, got[at:at + 1], ref[at:at + 1],
+                    margins[at] if at < len(margins) else float("nan")))
+    fail("bench %s %s: outputs_match is false" % (name, leg))
+
+
+def bench_leg_summary(leg, entry, L):
+    st = entry["stats"]
+    out = {"leg": leg, "tokens_per_s": entry["generated_tokens"]
+           / entry["wall_s"], "requests": entry["requests"],
+           "generated_tokens": entry["generated_tokens"],
+           "wall_s": entry["wall_s"],
+           "latency_p50_s": entry["latency_p50_s"],
+           "latency_p99_s": entry["latency_p99_s"],
+           "ttft_p50_s": entry["ttft_p50_s"],
+           "ttft_p99_s": entry["ttft_p99_s"],
+           # over the engine's life, warm-up and priming requests included
+           "steps": st["steps"], "chunk_steps": st["prefill_chunk_steps"],
+           "verify_windows": st["spec_steps"],
+           "draft_steps": st["spec_draft_steps"],
+           "tokens_per_step": st["generated_tokens"] / max(st["steps"], 1),
+           "accept_rate": st["spec_accept_rate"],
+           "prefix_blocks_reused": st["prefix_blocks_reused"],
+           "weight_only_int8": st["weight_only_int8"]}
+    if st["weight_only_int8"]:
+        out["weight_store"] = st["weight_store"]
+    return out
+
+
+def bench_serving_phase(torch, pa_mod, pat_mod, device=None, width=None):
+    """bench.py's four serving functions through the port's bench
+    (``paddle_tpu_torch.bench``) at the flagship's width (device None:
+    cuda:0; the tests pass "cpu" and a small width). Each call's K2 and
+    K3 counts are zeroed just before it and read just after; on the card
+    every launch must be accounted for by its engines' steps
+    (``engine_launches``). Fatal unless every outputs_match is true (a
+    mismatch names the request and the reference's top-2 logit margin),
+    the fast path's prefix hit rate is 1.0 and both int8 legs served
+    from the int8 store (``n_int8 == 2 + 4 n_layers``). Prints one
+    ``bench_serving`` line a function. Returns ({function: its K2 counts
+    by C}, {function: its K3 count})."""
+    from paddle_tpu_torch import bench
+
+    width = dict(BENCH_WIDTH if width is None else width)
+    L = width["n_layers"]
+    on_card = device is None or str(device).startswith("cuda")
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    k2_by_fn, k3_by_fn = {}, {}
+    for name in BENCH_FUNCTIONS:
+        fn = getattr(bench, name)
+        sync()
+        pa_mod.paged_attention.window_launches.clear()   # main path starts
+        pat_mod.paged_attention_tree.launches = 0
+        t0 = time.perf_counter()
+        out = fn(place=device, **width)
+        sync()
+        wall = time.perf_counter() - t0
+        k2 = dict(pa_mod.paged_attention.window_launches)
+        k3 = pat_mod.paged_attention_tree.launches       # main path ends
+        legs = dict(bench.last_serving)
+        summary = {"function": name, "wall_s": wall,
+                   "legs": [bench_leg_summary(leg, e, L)
+                            for leg, e in legs.items()]}
+        if name == "bench_serving":
+            summary.update(batched_tokens_per_s=out[0],
+                           serial_tokens_per_s=out[1],
+                           outputs_match=out[2], latency_p50_s=out[3],
+                           latency_p99_s=out[4], total_tokens=out[5],
+                           batched_steps_per_s=out[6])
+            if not out[2]:
+                bench_mismatch(name, legs, "serial")
+        elif name == "bench_serving_fastpath":
+            summary.update({k: out[k] for k in ("ttft_speedup",
+                                                "prefix_hit_rate",
+                                                "outputs_match")})
+            for leg in ("legacy", "fast"):
+                summary[leg] = out[leg]
+                if not out[leg]["outputs_match"]:
+                    bench_mismatch(name, legs, leg)
+            if out["prefix_hit_rate"] != 1.0:
+                fail("bench %s: prefix hit rate %r, expected 1.0"
+                     % (name, out["prefix_hit_rate"]))
+        elif name == "bench_serving_spec":
+            summary.update({k: out[k] for k in (
+                "tree_shape", "tokens_per_step_speedup",
+                "tree_speedup_vs_linear", "accept_rate", "outputs_match")})
+            for leg in ("legacy", "spec", "tree", "int8"):
+                summary[leg] = out[leg]
+                if not out[leg]["outputs_match"]:
+                    bench_mismatch(name, legs, leg)
+        else:
+            summary.update(int8_tokens_per_s=out[0],
+                           fp32_tokens_per_s=out[1],
+                           int8_over_fp32=out[0] / out[1],
+                           outputs_match=out[2], token_agreement=out[3],
+                           total_tokens=out[4])
+            if not out[2]:
+                bench_mismatch(name, legs, "int8")
+        int8_leg = BENCH_INT8_LEGS.get(name)
+        if int8_leg:
+            st = legs[int8_leg]["stats"]
+            n_int8 = st["weight_store"]["n_int8"]
+            if not st["weight_only_int8"] or n_int8 != 2 + 4 * L:
+                fail("bench %s %s: served weight_only_int8=%r with %d int8 "
+                     "weights, expected the int8 store's %d"
+                     % (name, int8_leg, st["weight_only_int8"], n_int8,
+                        2 + 4 * L))
+        if on_card:
+            want_k2, want_k3 = engine_launches(L, legs, k2)
+            if k2 != want_k2 or k3 != want_k3:
+                fail("bench %s: paged_attention launched %r times by window "
+                     "and paged_attention_tree %d; its engines' steps "
+                     "account for %r and %d"
+                     % (name, k2, k3, want_k2, want_k3))
+        summary.update(paged_attention_launches_by_window=k2,
+                       paged_attention_tree_launches=k3)
+        k2_by_fn[name], k3_by_fn[name] = k2, k3
+        print("bench_serving " + json.dumps(summary), flush=True)
+    bench.last_serving.clear()
+    return k2_by_fn, k3_by_fn
+
+
+def int8_step_profile(torch, width=None, rows=16, position=100):
+    """What dequantize-on-use costs: one ``decode_step`` of the flagship
+    (``rows`` rows at ``position`` onwards, bench_serving's batch of 16)
+    over fp32 weights and over the int8 store, each under torch.profiler
+    tracing the card only: the host's wall time, the device's busy time
+    and the kernels with the most device time, and the int8 step's
+    device ms over the fp32 step's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.serving import (GenerationConfig, GenerationModel,
+                                          KVBlockPool, blocks_needed)
+
+    w = dict(BENCH_WIDTH if width is None else width)
+    cfg = GenerationConfig(vocab_size=w["vocab"], d_model=w["d_model"],
+                           n_heads=w["n_heads"], n_layers=w["n_layers"],
+                           d_ff=w["d_ff"], max_seq_len=w["max_seq_len"])
+    fp32 = GenerationModel.random(cfg, seed=0)
+    bs = 16
+    Mb = blocks_needed(cfg.max_seq_len, bs)
+    pool = KVBlockPool(cfg.n_layers, cfg.n_heads, cfg.head_dim, bs,
+                       rows * Mb, device=fp32.device)
+    dev = fp32.device
+    tables = torch.arange(1, rows * Mb + 1, dtype=torch.int32,
+                          device=dev).view(rows, Mb)
+    pos = torch.arange(position, position + rows, dtype=torch.int32,
+                       device=dev)
+    feed = torch.from_numpy(np.random.RandomState(4).randint(
+        0, cfg.vocab_size, rows).astype(np.int32)).to(dev)
+    ones = torch.ones(rows, dtype=torch.bool, device=dev)
+    report = {"rows": rows, "positions": "%d..%d" % (position,
+                                                     position + rows - 1)}
+    for label, model in (("fp32", fp32), ("int8", fp32.quantized())):
+        def step():
+            return model.decode_step(pool.k, pool.v, feed, ones, feed, pos,
+                                     tables, ones)
+
+        step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step().cpu()
+            wall = time.perf_counter() - t0
+        busy_s, top = kernel_times(prof, 1, top=10)
+        report[label] = {"wall_ms": wall * 1e3,
+                         "device_busy_ms": busy_s * 1e3,
+                         "device_busy_share": busy_s / wall,
+                         "top_kernels": top}
+    report["int8_over_fp32_device_ms"] = (report["int8"]["device_busy_ms"]
+                                          / report["fp32"]["device_busy_ms"])
+    print("int8_step_profile " + json.dumps(report), flush=True)
+    del pool
+    return report
+
+
 def chunk_step_profile(torch, model):
     """Where the time of one prefill-chunk step goes: ``prefill_step`` at
     the fast path's shape (8 rows, C=64, each row's fourth chunk of the
@@ -1135,36 +1417,6 @@ def chunk_step_profile(torch, model):
     print("chunk_step_profile " + json.dumps(report), flush=True)
     del pool
     return report
-
-
-def spec_launches(L, stats, steps, spec_steps, chunk_steps, draft_steps,
-                  drafter, k2):
-    """The launches a speculative leg must show, one a layer each: K2 at
-    C=1 a one-token step, at C=chunk a chunk step, at C=k+1 a linear
-    window; K3 a tree window. A ModelDrafter adds K2 at its chunk a
-    catch-up step and K2 at C=1 ``spec_k - 1`` times a draft step; only
-    their sum is counted (``draft_steps``), so the split is read from
-    ``k2`` and held to it. Returns (want_k2, want_k3)."""
-    want = {1: L * (steps - spec_steps - chunk_steps)}
-    if chunk_steps:
-        c = stats["prefill_chunk"]
-        want[c] = want.get(c, 0) + L * chunk_steps
-    if stats["spec_k"] and not stats["spec_tree"]:
-        c = stats["spec_k"] + 1
-        want[c] = want.get(c, 0) + L * spec_steps
-    if drafter is not None:
-        n_new = stats["spec_k"] - 1
-        extra_c = k2.get(SPEC["draft_chunk"], 0) - want.get(
-            SPEC["draft_chunk"], 0)
-        extra_1 = k2.get(1, 0) - want[1]
-        catchups, scans = extra_c // L, extra_1 // max(L * n_new, 1)
-        if (catchups * L, scans * L * n_new) == (extra_c, extra_1) and \
-                catchups + scans == draft_steps:
-            want[SPEC["draft_chunk"]] = want.get(SPEC["draft_chunk"], 0) \
-                + L * catchups
-            want[1] += L * n_new * scans
-    want_k3 = L * spec_steps if stats["spec_tree"] else 0
-    return {c: n for c, n in want.items() if n}, want_k3
 
 
 def spec_tree_profile(torch, model, tree=(2, 6)):
@@ -2416,22 +2668,30 @@ def main():
     del spec_model
     legs.update({"fastpath_" + name: leg
                  for name, leg in fastpath_phase(torch, pa_mod).items()})
+    bench_k2, bench_k3 = bench_serving_phase(torch, pa_mod, pat_mod)
+    int8_step_profile(torch)
     # each row's launches are its own main paths': the serving phase for
     # the one-token decode (C=1), the linear legs for C=7 and C=17, the
     # chunk legs of phase 4b for C=8 (target chunks and the drafter's
-    # catch-up), the fast path's chunked and fast legs for C=64, the tree
-    # legs for C=13 (with the model-drafted one) and C=33
+    # catch-up), the fast path's chunked and fast legs for C=64, phase
+    # 4d's bench functions for C=16 (the fast leg's chunks, the drafters'
+    # catch-ups), the tree legs for C=13 (with the model-drafted one and
+    # phase 4d's tree and int8 tree legs) and C=33
     k2_legs = {7: ("linear",), 17: ("linear16",),
                8: ("linear_c8", "tree_model"),
-               64: ("fastpath_chunked", "fastpath_fast")}
+               64: ("fastpath_chunked", "fastpath_fast"), 16: ()}
     for row in rows:
         row["launches"] = launches if row["C"] == 1 else sum(
             legs[name]["paged_attention_launches_by_window"].get(row["C"], 0)
             for name in k2_legs[row["C"]])
+        if row["C"] == 16:
+            row["launches"] = sum(k2.get(16, 0) for k2 in bench_k2.values())
     k3_legs = {13: ("tree", "tree_model"), 33: ("tree4x8",)}
     for row in tree_rows:
         row["launches"] = sum(legs[name]["paged_attention_tree_launches"]
                               for name in k3_legs[row["C"]])
+        if row["C"] == 13:
+            row["launches"] += sum(bench_k3.values())
     program = build_lm(fluid)
     fwd, bwd = training_phase(torch, fa_mod, fluid, program)
     flash_rows["flash_attention_tc_fwd"]["launches"] = fwd
@@ -2441,11 +2701,11 @@ def main():
         for kernel, n in wide_head_phase(torch, fa_mod, fluid, **kw).items():
             flash_rows["flash_attention_%s%s" % (kernel, suffix)][
                 "launches"] = n
-    bench_launches = bench_phase(torch, fa_mod, fluid)
+    engine_launches = bench_phase(torch, fa_mod, fluid)
     flash_rows["flash_attention_fp16_fwd"]["launches"] = \
-        bench_launches["fp16"]
+        engine_launches["fp16"]
     flash_rows["flash_attention_fp16_bwd"]["launches"] = \
-        bench_launches["fp16"]
+        engine_launches["fp16"]
     card_vs_cpu_phase(torch, fluid, program, "bfloat16")
     del program
     program = build_lm(fluid, "float32")

@@ -1,9 +1,13 @@
-"""The headline training bench of the port (parity: ``bench.py``
-`bench_transformer_fluid` :109-225, `TINY` :229 and the training legs of
-its `main`, :1740-1793 and :2060-2080).
+"""The port's bench: bench.py's headline training legs
+(`bench_transformer_fluid` :109-225, `TINY` :229) and its serving legs
+(`bench_serving` :553, `bench_serving_fastpath` :659,
+`bench_serving_spec` :731, `bench_serving_quant` :1242), with its
+`main`'s leg selection (:1735-1903).
 
     python -m paddle_tpu_torch.bench [--steps N] [--warmup N] [--tiny]
                                      [--sync-only] [--amp-only]
+                                     [--serving-only] [--spec-only]
+                                     [--quant-only] [--place cpu]
 
 trains the flagship Fluid-API Transformer LM (vocab 32000, d_model 512, 8
 heads, 6 layers, d_ff 2048, seq 512, batch 160, ``remat=False``) through
@@ -19,12 +23,32 @@ the port's entry points on the card, in bench.py's legs:
     amp_fp16  the same under ``amp.decorate(dtype="float16")``: dynamic
               loss scaling from 2**15 (a port leg: bench.py has none)
 
+then serves bench.py's serving receipts at bench.py's own sizes through
+the port's ``ServingEngine``:
+
+    serving_batched / serving_serial    a Poisson stream through a
+              16-slot engine and one request at a time (bench_serving)
+    serving_fastpath / serving_legacy_prefill   shared-system-prompt
+              traffic with chunked prefill and the prefix cache, and
+              without (bench_serving_fastpath)
+    serving_spec / _baseline / _tree / _int8    repetitive traffic with
+              linear speculation, without, as a 2x6 tree drafted by a
+              ModelDrafter, and that tree over the int8 weight store
+              (bench_serving_spec)
+    serving_fp32_ref / serving_int8     one request set over fp32 weights
+              and the weight-only int8 store (bench_serving_quant)
+
 and prints one JSON line with bench.py's keys for them, the card's name
-and power limit, and each leg's device and host ms a step. It prints no
-``vs_baseline``: bench.py's baseline is a TPU-era figure. ``--tiny`` is
-bench.py's CI configuration (TINY, host feeds through the prefetcher);
-``--sync-only`` skips the async leg, ``--amp-only`` runs only fp32, amp
-and amp_fp16.
+and power limit, and each training leg's device and host ms a step. It
+prints no ``vs_baseline``: bench.py's baseline is a TPU-era figure. A
+leg bench.py would run whose modules the port lacks is named under
+``not_ported``. ``--tiny`` is bench.py's CI configuration (TINY, host
+feeds through the prefetcher); ``--sync-only`` skips the async leg,
+``--amp-only`` runs only fp32, amp and amp_fp16; ``--serving-only`` the
+serving, fast-path and speculative pairs, ``--spec-only`` the
+speculative legs, ``--quant-only`` the int8 serving pair; the flags
+combine as bench.py's do. ``--fleet-only`` raises: the router is not
+ported.
 """
 
 import argparse
@@ -40,8 +64,9 @@ import paddle_tpu_torch as fluid
 from paddle_tpu_torch.async_engine import as_numpy
 from paddle_tpu_torch.models import transformer_fluid
 
-__all__ = ["TINY", "bench_transformer_fluid", "build_program", "last_leg",
-           "main"]
+__all__ = ["TINY", "bench_serving", "bench_serving_fastpath",
+           "bench_serving_quant", "bench_serving_spec",
+           "bench_transformer_fluid", "build_program", "last_leg", "main"]
 
 # bench.py's CI configuration: the whole async pipeline (window,
 # prefetched host feeds) in seconds
@@ -205,6 +230,334 @@ def bench_transformer_fluid(steps=24, warmup=3, batch=160, seq=512,
     return steps * batch * seq / dt, last, dt / steps, compile_time_s
 
 
+# what each engine of the last serving bench call saw, beside the
+# function's return value (read by chip_smoke.py): {leg: {"stats" the
+# engine's final stats (warm-up and priming requests included),
+# "drafter_chunk" its ModelDrafter's catch-up chunk or None, "model" the
+# model it served, and over the timed request set "prompts", "outputs",
+# "requests", "generated_tokens", "wall_s", "latency_p50_s",
+# "latency_p99_s", "ttft_p50_s", "ttft_p99_s"}}
+last_serving = {}
+
+
+def _record(leg, eng, reqs, wall):
+    """Close ``eng`` and record its leg, the timed requests ``reqs``
+    served in ``wall`` seconds, in ``last_serving``; returns the
+    engine's final stats (read once its worker settled)."""
+    stats = _settled_stats(eng)
+    eng.close()
+    lat = [r.latency for r in reqs]
+    ttft = [r.ttft for r in reqs]
+    last_serving[leg] = {
+        "stats": stats,
+        "drafter_chunk": getattr(eng._worker.drafter, "_chunk", None),
+        "model": eng._worker.model,
+        "prompts": [list(r.prompt) for r in reqs],
+        "outputs": [list(r.tokens) for r in reqs],
+        "requests": len(reqs),
+        "generated_tokens": sum(len(r.tokens) for r in reqs),
+        "wall_s": wall,
+        "latency_p50_s": float(np.percentile(lat, 50)),
+        "latency_p99_s": float(np.percentile(lat, 99)),
+        "ttft_p50_s": float(np.percentile(ttft, 50)),
+        "ttft_p99_s": float(np.percentile(ttft, 99))}
+    return stats
+
+
+def _settled_stats(eng):
+    """``eng.stats()`` once the worker has finished the round that
+    completed the last request: a round counts a request's tokens after
+    the request completes, so a read right after ``wait`` may miss the
+    last round's (bench.py reads racing it)."""
+    w = eng._worker
+    with w._cv:
+        while len(w.queue) or w.scheduler.has_work() or w._inflight:
+            w._cv.wait(timeout=0.005)
+        return eng.stats()
+
+
+def _serving_model(place, vocab, d_model, n_heads, n_layers, d_ff,
+                   max_seq_len):
+    from paddle_tpu_torch import serving
+
+    cfg = serving.GenerationConfig(
+        vocab_size=vocab, d_model=d_model, n_heads=n_heads,
+        n_layers=n_layers, d_ff=d_ff, max_seq_len=max_seq_len)
+    return serving.GenerationModel.random(cfg, seed=0, device=place)
+
+
+def bench_serving(n_requests=32, max_new_tokens=24, rate=100000.0,
+                  max_batch=16, vocab=256, d_model=64, n_heads=2,
+                  n_layers=2, d_ff=128, max_seq_len=128, place=None):
+    """Continuous-batching serving throughput, bench.py's function on
+    `place` (None: the card): one deterministic Poisson request stream
+    (seed 0) served through a ``max_batch``-slot engine, then one
+    request at a time through a 1-slot engine; both legs must be
+    token-identical. Each engine serves one warm-up request first.
+
+    Returns (batched_tps, serial_tps, outputs_match, p50_s, p99_s,
+    total_tokens, batched_steps_per_sec, batched_step_flops);
+    batched_step_flops is None, as bench.py returns it with metrics off
+    (the port has no step cost analysis yet)."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.observability import metrics as obs_metrics
+
+    last_serving.clear()
+    model = _serving_model(place, vocab, d_model, n_heads, n_layers, d_ff,
+                           max_seq_len)
+    gen = serving.PoissonLoadGenerator(
+        rate, n_requests, prompt_len=(4, 12),
+        max_new_tokens=max_new_tokens, vocab_size=vocab, seed=0)
+
+    eng = serving.ServingEngine(model, max_batch=max_batch,
+                                max_seq_len=max_seq_len, block_size=16,
+                                device=place)
+    t0 = time.perf_counter()
+    eng.generate([1, 2], max_new_tokens=2, timeout=600)
+    compile_batched_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    accepted, rejected = gen.run(eng)
+    batched_outs = [r.wait(600) for r in accepted]
+    dt_batched = time.perf_counter() - t0
+    lats = sorted(r.latency for r in accepted)
+    steps_batched = _record("batched", eng, accepted, dt_batched)["steps"]
+    total_tokens = sum(len(o) for o in batched_outs)
+
+    eng1 = serving.ServingEngine(model, max_batch=1,
+                                 max_seq_len=max_seq_len, block_size=16,
+                                 device=place)
+    eng1.generate([1, 2], max_new_tokens=2, timeout=600)
+    t0 = time.perf_counter()
+    serial = []
+    for spec in gen.make_requests():   # eng1.generate, the request kept
+        serial.append(eng1.submit(spec["prompt"],
+                                  max_new_tokens=spec["max_new_tokens"]))
+        serial[-1].wait(600)
+    serial_outs = [r.tokens for r in serial]
+    dt_serial = time.perf_counter() - t0
+    _record("serial", eng1, serial, dt_serial)
+    obs_metrics.registry().gauge(
+        "bench/serving_compile_time_s").set(compile_batched_s)
+
+    if rejected:
+        raise RuntimeError("serving bench rejected %d requests — grow "
+                           "max_queue" % len(rejected))
+
+    def pct(q):
+        return lats[min(len(lats) - 1, int(round(q * (len(lats) - 1))))]
+
+    return (total_tokens / dt_batched,
+            sum(len(o) for o in serial_outs) / dt_serial,
+            batched_outs == serial_outs, pct(0.5), pct(0.99),
+            total_tokens, steps_batched / dt_batched, None)
+
+
+def bench_serving_fastpath(n_requests=10, max_new_tokens=8,
+                           prefix_len=64, max_batch=8, vocab=256,
+                           d_model=64, n_heads=2, n_layers=2, d_ff=128,
+                           max_seq_len=160, block_size=16, chunk=16,
+                           place=None):
+    """The serving fast-path receipt, bench.py's function on `place`:
+    shared-system-prompt traffic (RandomState(11): a ``prefix_len``-token
+    prefix, then a 2-8-token tail a prompt) through the legacy engine
+    and through chunked prefill (``chunk``) with the prefix cache, each
+    after a priming request that seals the shared blocks; both legs
+    held to ``reference_decode``.
+
+    Returns {"legacy": leg, "fast": leg, "ttft_speedup",
+    "prefix_hit_rate", "outputs_match"}, each leg {"outputs_match",
+    "ttft_p50", "tokens_per_sec", "prefix_blocks_reused"}."""
+    from paddle_tpu_torch import serving
+
+    last_serving.clear()
+    model = _serving_model(place, vocab, d_model, n_heads, n_layers, d_ff,
+                           max_seq_len)
+    rng = np.random.RandomState(11)
+    shared = rng.randint(0, vocab, size=prefix_len).tolist()
+    prompts = [shared + rng.randint(
+        0, vocab, size=int(rng.randint(2, 9))).tolist()
+        for _ in range(n_requests)]
+    refs = [serving.reference_decode(model, p, max_new_tokens)
+            for p in prompts]
+    shared_blocks = prefix_len // block_size
+
+    def run_leg(leg, **kw):
+        eng = serving.ServingEngine(model, max_batch=max_batch,
+                                    max_seq_len=max_seq_len,
+                                    block_size=block_size, device=place,
+                                    **kw)
+        eng.generate(shared + [7], max_new_tokens=2, timeout=600)
+        primed_reuse = _settled_stats(eng)["prefix_blocks_reused"]
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, max_new_tokens=max_new_tokens)
+                for p in prompts]
+        outs = [r.wait(600) for r in reqs]
+        wall = time.perf_counter() - t0
+        ttfts = sorted(r.ttft for r in reqs)
+        stats = _record(leg, eng, reqs, wall)
+        return {
+            "outputs_match": outs == refs,
+            "ttft_p50": ttfts[len(ttfts) // 2],
+            "tokens_per_sec": sum(len(o) for o in outs) / wall,
+            "prefix_blocks_reused":
+                stats["prefix_blocks_reused"] - primed_reuse,
+        }
+
+    legacy = run_leg("legacy")
+    fast = run_leg("fast", prefill_chunk=chunk, prefix_cache=True)
+    possible = n_requests * shared_blocks
+    return {
+        "legacy": legacy,
+        "fast": fast,
+        "ttft_speedup": legacy["ttft_p50"] / fast["ttft_p50"],
+        "prefix_hit_rate": fast["prefix_blocks_reused"] / possible,
+        "outputs_match": legacy["outputs_match"]
+            and fast["outputs_match"],
+    }
+
+
+def bench_serving_spec(n_requests=6, max_new_tokens=48, spec_k=6,
+                       max_batch=2, vocab=64, d_model=64, n_heads=2,
+                       n_layers=2, d_ff=128, max_seq_len=256,
+                       block_size=16, chunk=8, pattern_len=4, reps=3,
+                       place=None):
+    """The speculative-decoding receipt, bench.py's function on `place`:
+    repetitive prompts (RandomState(11): a ``pattern_len``-token pattern
+    repeated ``reps`` times) served one at a time over chunked prefill
+    (``chunk``) in four legs: legacy (no speculation), spec (linear
+    window of ``spec_k``), tree (a 2 x ``spec_k`` tree drafted by a
+    ``ModelDrafter`` over the target) and int8 (the tree over the int8
+    weight store for both the drafter and the target, held to
+    ``reference_decode`` over the dequantized weights). Each leg serves
+    a priming request first. ``tokens_per_step`` counts target steps;
+    draft-side dispatches are ``draft_steps``.
+
+    Returns {"legacy", "spec", "tree", "int8": leg, "tree_shape",
+    "tokens_per_step_speedup", "tree_speedup_vs_linear", "accept_rate",
+    "outputs_match"}, each leg {"outputs_match", "tokens_per_sec",
+    "tokens_per_step", "steps", "draft_steps", "accept_rate"}."""
+    from paddle_tpu_torch import serving
+
+    last_serving.clear()
+    model = _serving_model(place, vocab, d_model, n_heads, n_layers, d_ff,
+                           max_seq_len)
+    rng = np.random.RandomState(11)
+    prompts = [(rng.randint(0, vocab, size=pattern_len).tolist()) * reps
+               for _ in range(n_requests)]
+    refs = [serving.reference_decode(model, p, max_new_tokens)
+            for p in prompts]
+
+    def run_leg(leg, k, tree=None, mdl=model, rf=refs, drafter=None):
+        eng = serving.ServingEngine(mdl, max_batch=max_batch,
+                                    max_seq_len=max_seq_len,
+                                    block_size=block_size,
+                                    prefill_chunk=chunk, spec_k=k,
+                                    spec_tree=tree, drafter=drafter,
+                                    device=place)
+        eng.generate(prompts[0][:3], max_new_tokens=2, timeout=600)
+        base = _settled_stats(eng)
+        t0 = time.perf_counter()
+        reqs = []
+        for p in prompts:               # eng.generate, the request kept
+            reqs.append(eng.submit(p, max_new_tokens=max_new_tokens))
+            reqs[-1].wait(600)
+        outs = [r.tokens for r in reqs]
+        wall = time.perf_counter() - t0
+        st = _record(leg, eng, reqs, wall)
+        gen = st["generated_tokens"] - base["generated_tokens"]
+        steps = st["steps"] - base["steps"]
+        return {
+            "outputs_match": outs == rf,
+            "tokens_per_sec": sum(len(o) for o in outs) / wall,
+            "tokens_per_step": gen / max(1, steps),
+            "steps": steps,
+            "draft_steps": (st["spec_draft_steps"]
+                            - base["spec_draft_steps"]),
+            "accept_rate": st["spec_accept_rate"],
+        }
+
+    legacy = run_leg("legacy", 0)
+    spec = run_leg("spec", spec_k)
+    tree_shape = "2x%d" % spec_k
+    tree = run_leg("tree", 0, tree=tree_shape,
+                   drafter=serving.ModelDrafter(model))
+    qmodel = model.quantized()
+    qrefs = [serving.reference_decode(qmodel, p, max_new_tokens)
+             for p in prompts]
+    int8 = run_leg("int8", 0, tree=tree_shape, mdl=qmodel, rf=qrefs,
+                   drafter=serving.ModelDrafter(qmodel))
+    return {
+        "legacy": legacy,
+        "spec": spec,
+        "tree": tree,
+        "int8": int8,
+        "tree_shape": tree_shape,
+        "tokens_per_step_speedup": (spec["tokens_per_step"]
+                                    / legacy["tokens_per_step"]),
+        "tree_speedup_vs_linear": (tree["tokens_per_step"]
+                                   / spec["tokens_per_step"]),
+        "accept_rate": spec["accept_rate"],
+        "outputs_match": (legacy["outputs_match"]
+                          and spec["outputs_match"]
+                          and tree["outputs_match"]
+                          and int8["outputs_match"]),
+    }
+
+
+def bench_serving_quant(n_requests=16, max_new_tokens=16, max_batch=8,
+                        vocab=256, d_model=64, n_heads=2, n_layers=2,
+                        d_ff=128, max_seq_len=128, place=None):
+    """The quantized serving receipt, bench.py's function on `place`:
+    one request set (a Poisson generator's, seed 0) decoded through a
+    continuously-batched engine over fp32 weights and over the
+    weight-only int8 store (``GenerationModel.quantized()``), each after
+    a warm-up request. The int8 leg must be token-identical to
+    ``reference_decode`` over its dequantized weights; its per-token
+    agreement with the fp32 leg is the quantization-noise receipt.
+
+    Returns (int8_tps, fp32_tps, int8_matches_reference,
+    token_agreement_vs_fp32, total_tokens)."""
+    from paddle_tpu_torch import serving
+
+    last_serving.clear()
+    model = _serving_model(place, vocab, d_model, n_heads, n_layers, d_ff,
+                           max_seq_len)
+    qmodel = model.quantized()
+    specs = serving.PoissonLoadGenerator(
+        1e9, n_requests, prompt_len=(4, 12),
+        max_new_tokens=max_new_tokens, vocab_size=vocab,
+        seed=0).make_requests()
+
+    def run_leg(leg, m):
+        eng = serving.ServingEngine(m, max_batch=max_batch,
+                                    max_seq_len=max_seq_len,
+                                    block_size=16, device=place)
+        eng.generate([1, 2], max_new_tokens=2, timeout=600)
+        t0 = time.perf_counter()
+        reqs = [eng.submit(s["prompt"],
+                           max_new_tokens=s["max_new_tokens"])
+                for s in specs]
+        outs = [r.wait(600) for r in reqs]
+        dt = time.perf_counter() - t0
+        _record(leg, eng, reqs, dt)
+        return sum(len(o) for o in outs) / dt, outs
+
+    fp32_tps, fp32_outs = run_leg("fp32", model)
+    int8_tps, int8_outs = run_leg("int8", qmodel)
+    refs = [serving.reference_decode(qmodel, s["prompt"],
+                                     s["max_new_tokens"])
+            for s in specs]
+    matches_ref = int8_outs == refs
+    agree_n = agree_d = 0
+    for a, b in zip(int8_outs, fp32_outs):
+        for ta, tb in zip(a, b):
+            agree_n += int(ta == tb)
+            agree_d += 1
+    agreement = agree_n / max(agree_d, 1)
+    return (int8_tps, fp32_tps, matches_ref, agreement,
+            sum(len(o) for o in int8_outs))
+
+
 def card_line():
     """(name, power limit) of card 0 as nvidia-smi prints them, or None
     where there is no nvidia-smi."""
@@ -234,6 +587,28 @@ def _leg_entry(name, tps, step_s, loss=None, **extra):
     return entry
 
 
+# bench.py legs whose modules the port lacks, named where bench.py would
+# run them (ROADMAP.md Queue 1)
+NOT_PORTED = {
+    "quant_predictor": "bench_quant_predictor (quant_fp32_predictor, "
+                       "quant_int8_predictor): the inference predictor "
+                       "and its quantize pass, ROADMAP.md Queue 1 item 6",
+    "fleet": "bench_serving_fleet (serving_fleet_1r, serving_fleet_2r): "
+             "the router, the engine's health/kill/deadlines and fault "
+             "injection, ROADMAP.md Queue 1 item 2",
+    "resilience": "bench_resilience_overhead: resilience.py, ROADMAP.md "
+                  "Queue 1 item 7",
+}
+
+
+def _serving_leg(name, tps, **extra):
+    """A serving leg's entry, bench.py's ``_leg`` (no step time)."""
+    entry = {"leg": name, "tokens_per_sec": round(tps, 1),
+             "step_time_s": 0.0}
+    entry.update(extra)
+    return entry
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=24)
@@ -245,21 +620,38 @@ def main(argv=None):
                     help="skip the async leg")
     ap.add_argument("--amp-only", action="store_true",
                     help="run only the fp32, amp and amp_fp16 legs")
+    ap.add_argument("--serving-only", action="store_true",
+                    help="run only the serving, fast-path and "
+                         "speculative serving legs")
+    ap.add_argument("--spec-only", action="store_true",
+                    help="run only the speculative serving legs")
+    ap.add_argument("--quant-only", action="store_true",
+                    help="run only the int8 serving pair (the int8 "
+                         "predictor pair is not ported)")
+    ap.add_argument("--fleet-only", action="store_true",
+                    help="the serving-fleet pair: not ported, raises")
     ap.add_argument("--place", default=None,
                     help="device (default: the card; 'cpu' to try it "
                          "without one)")
     args = ap.parse_args(argv)
+    if args.fleet_only:
+        raise NotImplementedError(NOT_PORTED["fleet"])
     if args.tiny:
         kw = dict(TINY, feed_mode="host")
     else:
         kw = dict(steps=args.steps, warmup=args.warmup)
     kw["place"] = args.place
+    place = args.place
+    dedicated = args.serving_only or args.quant_only or args.spec_only
+    if dedicated:
+        args.amp_only = False  # a dedicated leg: skip everything else
 
     legs = []
+    not_ported = []
     result = {"metric": "transformer_base_tokens_per_sec_per_chip",
               "unit": "tokens/s/chip"}
     async_tps = sync_tps = amp_tps = None
-    if not args.amp_only:
+    if not args.amp_only and not dedicated:
         if not args.sync_only:
             async_tps, loss, step_s, _ = bench_transformer_fluid(
                 async_exec=True, **kw)
@@ -280,7 +672,7 @@ def main(argv=None):
             result["compile_time_s_opt"] = round(compile_opt, 3)
         if compile_noopt is not None:
             result["compile_time_s_noopt"] = round(compile_noopt, 3)
-    if args.amp_only or not args.tiny:
+    if args.amp_only or not (args.tiny or dedicated):
         fp32_tps, loss, step_s, _ = bench_transformer_fluid(
             async_exec=False, dtype="float32", amp=False, **kw)
         legs.append(_leg_entry("fp32", fp32_tps, step_s, loss,
@@ -301,11 +693,116 @@ def main(argv=None):
         result["amp_speedup_vs_fp32"] = round(amp_tps / fp32_tps, 4)
         result["amp_fp16_tokens_per_sec"] = round(f16_tps, 1)
         result["amp_fp16_speedup_vs_fp32"] = round(f16_tps / fp32_tps, 4)
-    headline = async_tps if async_tps is not None else (
-        sync_tps if sync_tps is not None else amp_tps)
+
+    serve_batched = qserve_int8 = spec_res = None
+    rest = args.tiny or args.amp_only
+    if args.serving_only or not (rest or args.quant_only
+                                 or args.spec_only):
+        (serve_batched, serve_serial, serve_match, serve_p50, serve_p99,
+         _tokens, _sps, _flops) = bench_serving(place=place)
+        legs.append(_serving_leg(
+            "serving_batched", serve_batched,
+            p50_latency_s=round(serve_p50, 4),
+            p99_latency_s=round(serve_p99, 4),
+            outputs_match=bool(serve_match)))
+        legs.append(_serving_leg(
+            "serving_serial", serve_serial,
+            speedup_batched_vs_serial=round(serve_batched / serve_serial,
+                                            4)))
+        result["serving_tokens_per_sec_batched"] = round(serve_batched, 1)
+        result["serving_tokens_per_sec_serial"] = round(serve_serial, 1)
+        result["serving_speedup_vs_serial"] = round(
+            serve_batched / serve_serial, 4)
+        result["serving_p99_latency_s"] = round(serve_p99, 4)
+        result["serving_outputs_match"] = bool(serve_match)
+
+        fp = bench_serving_fastpath(place=place)
+        legs.append(_serving_leg(
+            "serving_fastpath", fp["fast"]["tokens_per_sec"],
+            ttft_p50_s=round(fp["fast"]["ttft_p50"], 4),
+            prefix_hit_rate=round(fp["prefix_hit_rate"], 4),
+            outputs_match=bool(fp["outputs_match"])))
+        legs.append(_serving_leg(
+            "serving_legacy_prefill", fp["legacy"]["tokens_per_sec"],
+            ttft_p50_s=round(fp["legacy"]["ttft_p50"], 4),
+            chunked_ttft_speedup=round(fp["ttft_speedup"], 4)))
+        result["serving_ttft_chunked_s"] = round(fp["fast"]["ttft_p50"], 4)
+        result["serving_ttft_legacy_s"] = round(fp["legacy"]["ttft_p50"],
+                                                4)
+        result["serving_chunked_speedup"] = round(fp["ttft_speedup"], 4)
+        result["serving_prefix_hit_rate"] = round(fp["prefix_hit_rate"], 4)
+        result["serving_fastpath_outputs_match"] = bool(fp["outputs_match"])
+
+    if args.spec_only or args.serving_only or not (rest
+                                                   or args.quant_only):
+        spec_res = sp = bench_serving_spec(place=place)
+        legs.append(_serving_leg(
+            "serving_spec", sp["spec"]["tokens_per_sec"],
+            tokens_per_step=round(sp["spec"]["tokens_per_step"], 4),
+            accept_rate=round(sp["accept_rate"], 4),
+            outputs_match=bool(sp["outputs_match"])))
+        legs.append(_serving_leg(
+            "serving_spec_baseline", sp["legacy"]["tokens_per_sec"],
+            tokens_per_step=round(sp["legacy"]["tokens_per_step"], 4),
+            spec_tokens_per_step_speedup=round(
+                sp["tokens_per_step_speedup"], 4)))
+        legs.append(_serving_leg(
+            "serving_spec_tree", sp["tree"]["tokens_per_sec"],
+            tokens_per_step=round(sp["tree"]["tokens_per_step"], 4),
+            draft_steps=sp["tree"]["draft_steps"],
+            accept_rate=round(sp["tree"]["accept_rate"], 4),
+            tree_shape=sp["tree_shape"],
+            tree_speedup_vs_linear=round(sp["tree_speedup_vs_linear"], 4),
+            outputs_match=bool(sp["tree"]["outputs_match"])))
+        legs.append(_serving_leg(
+            "serving_spec_int8", sp["int8"]["tokens_per_sec"],
+            tokens_per_step=round(sp["int8"]["tokens_per_step"], 4),
+            draft_steps=sp["int8"]["draft_steps"],
+            accept_rate=round(sp["int8"]["accept_rate"], 4),
+            outputs_match=bool(sp["int8"]["outputs_match"])))
+        result["serving_spec_tokens_per_step"] = round(
+            sp["spec"]["tokens_per_step"], 4)
+        result["serving_spec_speedup"] = round(
+            sp["tokens_per_step_speedup"], 4)
+        result["serving_spec_accept_rate"] = round(sp["accept_rate"], 4)
+        result["serving_spec_outputs_match"] = bool(sp["outputs_match"])
+        result["serving_spec_tree_tokens_per_step"] = round(
+            sp["tree"]["tokens_per_step"], 4)
+        result["serving_spec_tree_speedup"] = round(
+            sp["tree_speedup_vs_linear"], 4)
+        result["serving_spec_tree_draft_steps"] = int(
+            sp["tree"]["draft_steps"])
+        result["serving_spec_int8_outputs_match"] = bool(
+            sp["int8"]["outputs_match"])
+
+    if args.quant_only or not (rest or args.serving_only
+                               or args.spec_only):
+        not_ported.append(NOT_PORTED["quant_predictor"])
+        (qserve_int8, qserve_fp32, qserve_match, qserve_agree,
+         _tokens) = bench_serving_quant(place=place)
+        legs.append(_serving_leg("serving_fp32_ref", qserve_fp32))
+        legs.append(_serving_leg(
+            "serving_int8", qserve_int8,
+            speedup_vs_fp32=round(qserve_int8 / qserve_fp32, 4),
+            outputs_match=bool(qserve_match),
+            token_agreement=round(qserve_agree, 4)))
+        result["serving_tokens_per_sec_int8"] = round(qserve_int8, 1)
+        result["serving_int8_speedup_vs_fp32"] = round(
+            qserve_int8 / qserve_fp32, 4)
+        result["serving_int8_outputs_match"] = bool(qserve_match)
+    if not (rest or dedicated):
+        not_ported.append(NOT_PORTED["fleet"])
+    if args.tiny and not (args.amp_only or dedicated):
+        not_ported.append(NOT_PORTED["resilience"])
+
+    headline = next(v for v in (
+        async_tps, sync_tps, amp_tps, serve_batched, qserve_int8,
+        spec_res and spec_res["spec"]["tokens_per_sec"]) if v is not None)
     result["value"] = round(headline, 1)
     result["card"] = card_line()
     result["legs"] = legs
+    if not_ported:
+        result["not_ported"] = not_ported
     print(json.dumps(result), flush=True)
     return result
 

@@ -8,11 +8,12 @@ decode step, a blocked KV-cache pool, speculative verify windows
     with serving.ServingEngine(model, spec_tree="2x6") as engine:
         tokens = engine.generate([1, 2, 3], max_new_tokens=16)
 
-It serves one-token and chunked prefill, radix prefix caching, and
+It serves one-token and chunked prefill, radix prefix caching,
 speculative decoding with the n-gram drafter or a model drafter, and
-reads and writes the JAX package's generation artifact. The int8
-weight store, weight swaps, deadlines, the router, fault injection,
-tracing and the flight recorder of the JAX package are not ported yet.
+the weight-only int8 store (``GenerationModel.quantized``), and reads
+and writes the JAX package's generation artifact. Weight swaps,
+deadlines, the router, fault injection, tracing and the flight recorder
+of the JAX package are not ported yet.
 """
 
 from .engine import ServingEngine  # noqa: F401

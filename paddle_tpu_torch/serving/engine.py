@@ -71,6 +71,7 @@ from ..core.place import resolve_device
 from ..core.scope import Scope
 from ..observability import metrics as _metrics
 from ..ops import paged_attention_tree as _pat
+from ..quant import weight_store_bytes
 from .kv_cache import KVBlockPool, blocks_needed
 from .model import (GenerationModel, ModelDrafter, NGramDrafter,
                     load_generation_artifact, parse_tree_shape,
@@ -555,6 +556,8 @@ class ServingEngine:
             "spec_tree_commits": w.spec_tree_commits,
             "spec_blocks_rolled_back": sched.spec_blocks_rolled_back,
             "spec_draft_steps": getattr(w.drafter, "draft_steps", 0),
+            "weight_only_int8": w.model.weight_only_int8,
+            "weight_store": weight_store_bytes(w.model.weights),
             **w.pool.stats(),
         }
 

@@ -22,14 +22,20 @@
     over a sequence's own history) and ``ModelDrafter`` (greedy drafts
     from a model: catch-up ``prefill_step`` chunks, then ``draft_step``,
     ``n_new`` chained one-token steps, over its own KV pool).
+  * the weight-only int8 store: ``GenerationModel.quantized()`` keeps
+    every 2-D weight int8 with a per-output-channel fp32 scale under
+    ``<name>@qscale``; the steps dequantize each weight where they use
+    it, and gather the int8 embedding rows before dequantizing them.
   * the generation artifact: ``save_generation_artifact``,
     ``verify_generation_artifact`` and ``load_generation_artifact``
     write and read the JAX package's ``__generation__.npz``, meta JSON
     and sha256 manifest.
 
-The weight layout is the JAX package's flat dict (``weight_names``),
-the layout its ``__generation__.npz`` artifact holds, so
-``GenerationModel.from_jax_weights`` serves the JAX model's weights.
+The weight layout is the JAX package's flat dict (``weight_names``, and
+``<name>@qscale`` beside each int8 weight), the layout its
+``__generation__.npz`` artifact holds, so
+``GenerationModel.from_jax_weights`` serves the JAX model's weights,
+fp32 or int8.
 
 The steps' calling conventions (all shapes fixed per engine):
 
@@ -179,7 +185,7 @@ class GenerationConfig:
 
 
 # weight-name layout: one flat dict, per-layer names carry an l<i>/
-# prefix; everything is fp32
+# prefix; fp32, or (the int8 store) int8 with an fp32 <name>@qscale
 _LAYER_KEYS = ("ln1_scale", "ln1_bias", "wqkv", "bqkv", "wproj", "bproj",
                "ln2_scale", "ln2_bias", "wff1", "bff1", "wff2", "bff2")
 
@@ -235,8 +241,21 @@ def random_weights(config, seed=0, scale=0.1):
     return weights
 
 
+# an int8 weight's per-output-channel scale: the key "<name>@qscale"
+QSCALE = "@qscale"
+
+
 def _buffer_name(weight_name):
-    return weight_name.replace("/", "__")
+    """The buffer holding a weight: "/" and "@" are no attribute
+    names."""
+    return weight_name.replace("/", "__").replace("@", "__at__")
+
+
+def _host_array(value):
+    """A weight as a numpy array (tensors are copied to the host)."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
 
 
 def _ln(h, scale, bias):
@@ -246,12 +265,19 @@ def _ln(h, scale, bias):
 
 
 class GenerationModel(nn.Module):
-    """Config + fp32 weights on one device + the decode step.
+    """Config + weights on one device + the decode step.
 
     ``device=None`` is ``cuda:0`` and raises without CUDA; pass
     ``device="cpu"`` for the plain PyTorch path. On a CUDA device the
     paged-attention kernel is built (if needed) and loaded here, so a
-    failing ``nvcc`` raises to the caller."""
+    failing ``nvcc`` raises to the caller.
+
+    Weights are fp32, except an int8 entry (the weight-only int8 store,
+    ``quantized()``), which stays int8 beside its fp32 ``@qscale``; then
+    ``weight_only_int8`` is set. Every step reads a weight through
+    ``_w``, which dequantizes an int8 one where it is used: the step
+    computes with exactly ``dequantized_weights()``, so a quantized
+    model decodes token-identically to ``reference_decode`` over them."""
 
     def __init__(self, config, weights, name="model", device=None):
         super().__init__()
@@ -261,11 +287,21 @@ class GenerationModel(nn.Module):
         missing = [n for n in weight_names(config) if n not in weights]
         if missing:
             raise ValueError("missing weights: %s" % missing[:4])
-        self._weight_names = weight_names(config)
-        for n in self._weight_names:
-            t = torch.from_numpy(np.array(weights[n], np.float32))
-            self.register_buffer(_buffer_name(n),
-                                 t.to(self.device).contiguous())
+        self._weight_names = []
+        for n in weight_names(config):
+            for key in (n, n + QSCALE):
+                if key not in weights:
+                    continue
+                a = _host_array(weights[key])
+                a = np.array(a, np.int8 if a.dtype == np.int8
+                             else np.float32)
+                self.register_buffer(
+                    _buffer_name(key),
+                    torch.from_numpy(a).to(self.device).contiguous())
+                self._weight_names.append(key)
+        self.weight_only_int8 = any(
+            getattr(self, _buffer_name(n)).dtype == torch.int8
+            for n in self._weight_names)
         self.register_buffer(
             "pe", torch.from_numpy(_position_encoding_table(config))
             .to(self.device))
@@ -284,14 +320,61 @@ class GenerationModel(nn.Module):
         """The port's model over the JAX model's flat weight dict, given
         as numpy arrays (``{k: np.asarray(v) for k, v in
         jax_model.weights.items()}``, or the arrays of a
-        ``__generation__.npz``): it computes the same function."""
+        ``__generation__.npz``; a quantized model's int8 arrays and
+        ``@qscale`` scales stay an int8 store): it computes the same
+        function."""
         return cls(config, weights_np, name=name, device=device)
 
     @property
     def weights(self):
-        """{weight name: tensor} in the flat JAX layout."""
+        """{weight name: tensor} in the flat JAX layout (with the
+        ``@qscale`` entries of an int8 store)."""
         return {n: getattr(self, _buffer_name(n))
                 for n in self._weight_names}
+
+    def quantized(self, name=None):
+        """The weight-only int8 variant of this model, on its device:
+        every 2-D fp32 weight (the embedding, qkv, proj, both FFN
+        weights, the LM head) becomes int8 on the shared symmetric grid
+        (``quant.quantize_symmetric``) per output column, its scale over
+        127 in ``<name>@qscale``; biases and norms stay fp32. A quantized
+        model returns itself. Records the ``quant/*`` weight-store
+        counters."""
+        from ..quant import quantize_symmetric, record_weight_store
+
+        if self.weight_only_int8:
+            return self
+        qw = {}
+        n_q = saved = fp32 = 0
+        for k, v in self.weights.items():
+            w = _host_array(v)
+            if w.ndim == 2 and w.dtype == np.float32:
+                q, s = quantize_symmetric(w, channel_axis=1)
+                qw[k] = q
+                qw[k + QSCALE] = (s / 127.0).astype(np.float32)
+                n_q += 1
+                saved += max(w.nbytes - q.nbytes - s.nbytes, 0)
+                fp32 += w.nbytes
+            else:
+                qw[k] = w
+        record_weight_store(n_q, saved, fp32)
+        return GenerationModel(self.config, qw,
+                               name=name or self.name + ".int8",
+                               device=self.device)
+
+    def dequantized_weights(self):
+        """{weight name: fp32 tensor}, the int8 store multiplied back
+        out (``q.float() * scale``, no ``@qscale`` entries): the values
+        the quantized model's steps compute with."""
+        w = self.weights
+        return {k: self._w(w, k) for k in w if not k.endswith(QSCALE)}
+
+    @staticmethod
+    def _w(w, key):
+        """Weight ``key`` of the dict ``w`` in fp32: an int8 one
+        dequantized here, where it is used."""
+        s = w.get(key + QSCALE)
+        return w[key] if s is None else w[key].float() * s
 
     @torch.no_grad()
     def decode_step(self, kv_k, kv_v, prompt_feed, use_prompt, prev_tokens,
@@ -441,7 +524,13 @@ class GenerationModel(nn.Module):
             # (siblings share one); its cache slot stays pos + j
             pe_idx = positions.long()[:, None] + depths[None, :]
         pe_idx = pe_idx.clamp(0, cfg.max_seq_len - 1)
-        x = (w["embedding"][tok] * (float(cfg.d_model) ** 0.5)
+        emb = w["embedding"][tok]
+        es = w.get("embedding" + QSCALE)
+        if es is not None:
+            # the int8 rows first, then the [B, C, D] slice dequantized:
+            # the fp32 table is never made
+            emb = emb.float() * es
+        x = (emb * (float(cfg.d_model) ** 0.5)
              * cfg.pe_alpha + cfg.pe_beta * self.pe[pe_idx])
         logits = self._forward_window(w, x, pos2d, lengths, block_tables,
                                       active, kv_k, kv_v, anc, all_slots)
@@ -480,7 +569,7 @@ class GenerationModel(nn.Module):
         for i in range(cfg.n_layers):
             p = "l%d/" % i
             a = _ln(x, w[p + "ln1_scale"], w[p + "ln1_bias"])
-            qkv = a @ w[p + "wqkv"] + w[p + "bqkv"]
+            qkv = a @ self._w(w, p + "wqkv") + w[p + "bqkv"]
             q, k_new, v_new = qkv.split(D, dim=-1)
             kv_k[i].index_put_((write_blk, slot_idx),
                                k_new.reshape(B, C, H, Dh))
@@ -494,16 +583,17 @@ class GenerationModel(nn.Module):
                 ctx = _pat.paged_attention_tree(kv_k[i], kv_v[i], q,
                                                 block_tables, pos2d, anc,
                                                 sm_scale=sm_scale)
-            x = x + ctx.reshape(B, C, D) @ w[p + "wproj"] + w[p + "bproj"]
+            x = (x + ctx.reshape(B, C, D) @ self._w(w, p + "wproj")
+                 + w[p + "bproj"])
             b2 = _ln(x, w[p + "ln2_scale"], w[p + "ln2_bias"])
-            f = F.gelu(b2 @ w[p + "wff1"] + w[p + "bff1"])
-            x = x + f @ w[p + "wff2"] + w[p + "bff2"]
+            f = F.gelu(b2 @ self._w(w, p + "wff1") + w[p + "bff1"])
+            x = x + f @ self._w(w, p + "wff2") + w[p + "bff2"]
 
         if not all_slots:
             last = (lengths.long() - 1).clamp(0, C - 1)
             x = x[torch.arange(B, device=x.device), last]
         x = _ln(x, w["final_ln_scale"], w["final_ln_bias"])
-        return x @ w["lm_head"]
+        return x @ self._w(w, "lm_head")
 
     @torch.no_grad()
     def tree_commit(self, kv_k, kv_v, positions, src_slots, n_commit,
@@ -547,9 +637,12 @@ def reference_decode(model, prompt, max_new_tokens, eos_id=None,
     full attention, in numpy — no blocks, no batching, no masking. The
     batched paged decode must match this token for token. A list passed
     as ``margins`` receives each generated token's top-2 logit margin
-    (how far that argmax is from a tie)."""
+    (how far that argmax is from a tie). A quantized model decodes over
+    its ``dequantized_weights()``, the values its steps compute with."""
     cfg = model.config
-    w = {n: t.detach().cpu().numpy() for n, t in model.weights.items()}
+    w = (model.dequantized_weights() if model.weight_only_int8
+         else model.weights)
+    w = {n: t.detach().cpu().numpy() for n, t in w.items()}
     pe = _position_encoding_table(cfg)
     emb_scale = float(cfg.d_model) ** 0.5
     H, Dh = cfg.n_heads, cfg.head_dim
@@ -1072,12 +1165,6 @@ def _fsync(path):
         os.close(fd)
 
 
-def _as_numpy(value):
-    if isinstance(value, torch.Tensor):
-        value = value.detach().cpu().numpy()
-    return np.asarray(value, np.float32)
-
-
 def save_generation_artifact(dirname, config, weights):
     """Publish a generation artifact atomically, in the JAX package's
     format: an npz of fp32 weights, the config as JSON and a manifest of
@@ -1092,7 +1179,8 @@ def save_generation_artifact(dirname, config, weights):
     tmp = os.path.join(parent, ".ptpu_tmp_" + os.path.basename(dirname))
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    weights = {k: _as_numpy(v) for k, v in weights.items()}
+    weights = {k: np.asarray(_host_array(v), np.float32)
+               for k, v in weights.items()}
     np.savez(os.path.join(tmp, GENERATION_WEIGHTS), **weights)
     with open(os.path.join(tmp, GENERATION_META), "w") as f:
         json.dump(config.to_dict(), f, indent=2, sort_keys=True)
@@ -1168,12 +1256,9 @@ def load_generation_artifact(dirname, name=None, quantize=None,
     """A ``GenerationModel`` on ``device`` (None: ``cuda:0``) from an
     artifact the JAX package or ``save_generation_artifact`` wrote. An
     artifact with a manifest is verified first (``verify=False`` skips
-    it); a torn one raises ``GenerationArtifactError``."""
-    if quantize:
-        raise NotImplementedError(
-            "quantize=%r: the int8 weight store (GenerationModel.quantized) "
-            "is not ported yet (ROADMAP.md Queue 1 item 2, the int8 "
-            "weight-store bullet)" % (quantize,))
+    it); a torn one raises ``GenerationArtifactError``. ``quantize``
+    (True, "weight_only" or "int8") serves it from the weight-only int8
+    store (``GenerationModel.quantized``)."""
     meta_path = os.path.join(dirname, GENERATION_META)
     if not os.path.exists(meta_path):
         raise FileNotFoundError("%s has no %s — not a generation artifact"
@@ -1188,7 +1273,15 @@ def load_generation_artifact(dirname, name=None, quantize=None,
     except (OSError, ValueError, zipfile.BadZipFile) as e:
         raise GenerationArtifactError(dirname, "unreadable weights (%s)"
                                       % e)
-    return GenerationModel(config, weights,
-                           name=name or os.path.basename(
-                               os.path.normpath(dirname)),
-                           device=device)
+    model = GenerationModel(config, weights,
+                            name=name or os.path.basename(
+                                os.path.normpath(dirname)),
+                            device=device)
+    if quantize:
+        if quantize not in (True, "weight_only", "int8"):
+            raise ValueError(
+                "quantize=%r — the serving runtime supports the "
+                "weight_only int8 store (docs/QUANTIZATION.md)"
+                % (quantize,))
+        model = model.quantized()
+    return model

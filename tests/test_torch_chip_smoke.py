@@ -19,12 +19,19 @@ a small width:
     its legs over chunked prefill (spec_k 6, and a 2x6 tree drafted by a
     ModelDrafter over the target, accepted whole here); the launch
     accounting of those legs (the drafter's launches read from their
-    sum) sees a missing launch;
+    sum) sees a missing launch.
   * the serving fast path (phase 4c) at vocab 128, d_model 64: its three
     legs agree and equal ``reference_decode``, the fast leg reuses every
-    shared block, and a planted wrong chunk-step token fails it."""
+    shared block, and a planted wrong chunk-step token fails it;
+  * the serving bench legs (phase 4d) at vocab 128, d_model 32 with
+    bench.py's traffic: every function's identity flags hold, both int8
+    legs serve the int8 store, and a planted wrong int8 token fails it
+    naming the request; the launch accounting of a bench call (target
+    steps by kind, a drafter's catch-ups and draft steps read from their
+    sum) sees a missing launch."""
 
 import importlib.util
+import json
 import pathlib
 
 import pytest
@@ -232,23 +239,32 @@ def test_spec_chunk_phase_on_the_cpu(smoke, capsys):
     assert capsys.readouterr().out.count("spec_serving ") == 2
 
 
+def _engine(steps, chunk, spec, spec_k=0, tree=None, draft=0, dchunk=None,
+            prefill_chunk=8):
+    """One engine's entry for ``engine_launches``."""
+    return {"stats": {"steps": steps, "prefill_chunk_steps": chunk,
+                      "prefill_chunk": prefill_chunk, "spec_steps": spec,
+                      "spec_k": spec_k, "spec_tree": tree,
+                      "spec_draft_steps": draft},
+            "drafter_chunk": dchunk}
+
+
 def test_spec_launches_accounts_for_the_drafter(smoke):
     """A tree leg with a ModelDrafter over 6 layers: 10 steps, 4 of them
     tree windows and 3 chunk steps at C=8; 5 draft steps, 3 catch-ups at
     C=8 and 2 draft steps of 5 one-token steps. The expected counts
     equal what such a run launches, and one launch fewer is seen."""
     L = 6
-    stats = {"prefill_chunk": 8, "spec_k": 6, "spec_tree": "2x6"}
+    tree = {"tree_model": _engine(10, 3, 4, spec_k=6, tree="2x6", draft=5,
+                                  dchunk=8)}
     k2 = {1: L * (3 + 2 * 5), 8: L * (3 + 3)}
-    want = smoke.spec_launches(L, stats, 10, 4, 3, 5, object(), k2)
-    assert want == (k2, 4 * L)
+    assert smoke.engine_launches(L, tree, k2) == (k2, 4 * L)
     short = {1: k2[1] - 1, 8: k2[8]}
-    assert smoke.spec_launches(L, stats, 10, 4, 3, 5, object(),
-                               short)[0] != short
-    assert smoke.spec_launches(L, stats, 10, 4, 3, 6, object(),
-                               k2)[0] != k2
-    linear = {"prefill_chunk": 8, "spec_k": 6, "spec_tree": None}
-    assert smoke.spec_launches(L, linear, 10, 4, 3, 0, None, {}) == \
+    assert smoke.engine_launches(L, tree, short)[0] != short
+    tree["tree_model"]["stats"]["spec_draft_steps"] = 6
+    assert smoke.engine_launches(L, tree, k2)[0] != k2
+    linear = {"linear_c8": _engine(10, 3, 4, spec_k=6)}
+    assert smoke.engine_launches(L, linear, {}) == \
         ({1: 3 * L, 8: 3 * L, 7: 4 * L}, 0)
 
 
@@ -301,3 +317,73 @@ def test_fastpath_phase_fails_on_a_wrong_token(fast_smoke, monkeypatch,
         fast_smoke.fastpath_phase(torch, pa, device="cpu")
     err = capsys.readouterr().err
     assert "fastpath chunked" in err and "differs" in err
+
+
+BENCH_SMALL = dict(vocab=128, d_model=32, n_heads=2, n_layers=2, d_ff=64,
+                   max_seq_len=128)
+
+
+def test_bench_serving_phase_on_the_cpu(smoke, capsys):
+    k2, k3 = smoke.bench_serving_phase(torch, pa, pat, device="cpu",
+                                       width=BENCH_SMALL)
+    assert list(k2) == list(smoke.BENCH_FUNCTIONS) == list(k3)
+    # the plain versions run on the CPU: no kernel launch is counted
+    assert all(not c for c in k2.values()) and not any(k3.values())
+    lines = [json.loads(line.split(" ", 1)[1])
+             for line in capsys.readouterr().out.splitlines()
+             if line.startswith("bench_serving ")]
+    assert [s["function"] for s in lines] == list(smoke.BENCH_FUNCTIONS)
+    by_fn = {s["function"]: s for s in lines}
+    assert by_fn["bench_serving"]["outputs_match"] is True
+    assert by_fn["bench_serving_fastpath"]["prefix_hit_rate"] == 1.0
+    spec = by_fn["bench_serving_spec"]
+    assert spec["outputs_match"] is True
+    assert spec["tree"]["draft_steps"] > 0
+    int8 = {g["leg"]: g for g in spec["legs"]}["int8"]
+    assert int8["weight_only_int8"]
+    assert int8["weight_store"]["n_int8"] == 2 + 4 * BENCH_SMALL["n_layers"]
+    quant = by_fn["bench_serving_quant"]
+    assert quant["outputs_match"] is True and quant["total_tokens"] > 0
+
+
+def test_bench_serving_phase_fails_on_a_wrong_int8_token(smoke, monkeypatch,
+                                                         capsys):
+    """The int8 model's decode steps planted wrong: bench_serving_quant's
+    int8 leg fails against the reference, naming the request and the
+    reference's margin there."""
+    decode_step = GenerationModel.decode_step
+
+    def planted(self, *args, **kwargs):
+        out = decode_step(self, *args, **kwargs)
+        if self.weight_only_int8:
+            out = (out + 1) % self.config.vocab_size
+        return out
+
+    monkeypatch.setattr(GenerationModel, "decode_step", planted)
+    monkeypatch.setattr(smoke, "BENCH_FUNCTIONS", ("bench_serving_quant",))
+    with pytest.raises(SystemExit):
+        smoke.bench_serving_phase(torch, pa, pat, device="cpu",
+                                  width=BENCH_SMALL)
+    err = capsys.readouterr().err
+    assert "bench bench_serving_quant int8: request 0 differs" in err
+    assert "top-2 logit margin" in err
+
+
+def test_bench_launches_accounts_for_every_engine(smoke):
+    """One bench call's engines over 6 layers: a legacy leg over chunk 8
+    (20 steps, 4 chunk steps), a linear k=6 leg (12 steps: 4 chunk, 5
+    windows) and a 2x6 tree drafted by a ModelDrafter with catch-up chunk
+    16 (9 steps: 4 chunk, 3 tree windows; 5 draft steps: 3 catch-ups and
+    2 draft steps of 5 one-token steps). The expected counts equal what
+    the call launches; one launch fewer, or a draft step more, is
+    seen."""
+    L = 6
+    legs = {"legacy": _engine(20, 4, 0), "spec": _engine(12, 4, 5, spec_k=6),
+            "tree": _engine(9, 4, 3, spec_k=6, tree="2x6", draft=5,
+                            dchunk=16)}
+    k2 = {1: L * (16 + 3 + 2 + 2 * 5), 8: L * 12, 7: L * 5, 16: L * 3}
+    assert smoke.engine_launches(L, legs, k2) == (k2, 3 * L)
+    short = {**k2, 16: k2[16] - 1}
+    assert smoke.engine_launches(L, legs, short)[0] != short
+    legs["tree"]["stats"]["spec_draft_steps"] = 6
+    assert smoke.engine_launches(L, legs, k2)[0] != k2

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 
 from paddle_tpu import serving as jax_serving
 from paddle_tpu_torch import serving as port
+from test_torch_pinned_arrivals import submit_pinned
 
 CFG = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=2, d_ff=64,
            max_seq_len=64)
@@ -132,7 +133,7 @@ def _prompts(n, seed, lo=2, hi=15):
 
 def _serve(engine, prompts, max_new):
     with engine:
-        reqs = [engine.submit(p, max_new_tokens=max_new) for p in prompts]
+        reqs = submit_pinned(engine, prompts, max_new)
         got = [r.wait(300) for r in reqs]
         stats = engine.stats()
     return got, stats

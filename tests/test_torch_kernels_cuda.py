@@ -23,13 +23,14 @@ from paddle_tpu_torch.ops import paged_attention as pa
                                       (80, 17, 16), (100, 33, 5),
                                       (50, 3, 4), (64, 17, 16),
                                       (64, 33, 16), (256, 64, 16),
-                                      (48, 64, 16)])
+                                      (48, 64, 16), (64, 16, 16)])
 def test_kernel_matches_plain_on_card(Dh, C, bs):
     """The CUDA kernel against the plain version on the card: ragged
     positions, scattered pages, null tails, every instantiated head dim
     (the multiples of 32 to 256) and head dims between them (48, 80, 100:
     masked columns; 50: not a multiple of 4, 4-byte copies), windows of
-    one to three 32-slot chunks (17, 33, 64), the context split across
+    one to three 32-slot chunks (17, 33, 64; 16 the serving bench's
+    chunk at the flagship's head dim), the context split across
     blocks with splits past a short row's last position left empty (atol
     1e-4: fp32, different summation order)."""
     if not torch.cuda.is_available():
@@ -138,6 +139,40 @@ def test_fast_path_engine_matches_reference_on_card():
     pool = engine._worker.pool
     assert pool.check_invariants() == []
     assert pool.stats()["blocks_in_use"] == 0
+
+
+@pytest.mark.cuda
+def test_int8_store_engine_matches_reference_on_card():
+    """The flagship decoder at full width over the weight-only int8
+    store (``GenerationModel.quantized()``: 26 int8 weights, each
+    dequantized where a step uses it) behind ``ServingEngine(
+    prefill_chunk=16)`` on the card: 4 prompts, each token-identical to
+    ``reference_decode`` over the dequantized weights; K2 ran at C=16
+    and C=1, and the engine reports the int8 store."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from paddle_tpu_torch.serving import (GenerationConfig, GenerationModel,
+                                          ServingEngine, reference_decode)
+
+    cfg = GenerationConfig(vocab_size=32000, d_model=512, n_heads=8,
+                           n_layers=6, d_ff=2048, max_seq_len=512)
+    model = GenerationModel.random(cfg, seed=0).quantized()
+    rng = np.random.RandomState(12)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
+               for n in (5, 17, 33, 12)]
+    refs = [reference_decode(model, p, 8) for p in prompts]
+    before = dict(pa.paged_attention.window_launches)
+    with ServingEngine(model, max_batch=4, max_seq_len=cfg.max_seq_len,
+                       block_size=16, prefill_chunk=16) as engine:
+        reqs = [engine.submit(p, max_new_tokens=8) for p in prompts]
+        got = [r.wait(600) for r in reqs]
+    stats = engine.stats()
+    assert got == refs
+    assert stats["weight_only_int8"]
+    assert stats["weight_store"]["n_int8"] == 2 + 4 * cfg.n_layers
+    for c in (1, 16):
+        assert pa.paged_attention.window_launches[c] > before.get(c, 0)
+    assert engine._worker.pool.check_invariants() == []
 
 
 @pytest.mark.cuda

@@ -28,6 +28,7 @@ import jax.numpy as jnp
 
 from paddle_tpu import serving as jax_serving
 from paddle_tpu_torch import serving as port
+from test_torch_pinned_arrivals import submit_pinned
 
 CFG = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=2, d_ff=64,
            max_seq_len=64)
@@ -201,9 +202,14 @@ def test_jax_artifact_loads_bitwise(tmp_path):
     # publishing over an existing artifact replaces it
     port.save_generation_artifact(port_dir, model.config, model.weights)
     assert port.verify_generation_artifact(port_dir)
-    with pytest.raises(NotImplementedError, match="int8 weight-store"):
-        port.load_generation_artifact(jax_dir, quantize="weight_only",
+    # served from the int8 weight store, bitwise the JAX package's
+    q = port.load_generation_artifact(jax_dir, quantize="weight_only",
                                       device="cpu")
+    jq = jax_serving.load_generation_artifact(jax_dir,
+                                              quantize="weight_only")
+    assert q.weight_only_int8 and set(q.weights) == set(jq.weights)
+    for name, val in jq.weights.items():
+        assert np.array_equal(q.weights[name].numpy(), np.asarray(val))
 
 
 def test_corrupt_artifact_raises(tmp_path):
@@ -242,7 +248,7 @@ def test_corrupt_artifact_raises(tmp_path):
 
 def _serve(engine, prompts, max_new):
     with engine:
-        reqs = [engine.submit(p, max_new_tokens=max_new) for p in prompts]
+        reqs = submit_pinned(engine, prompts, max_new)
         got = [r.wait(300) for r in reqs]
         stats = engine.stats()
     return got, stats

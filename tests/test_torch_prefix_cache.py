@@ -22,6 +22,7 @@ import pytest
 
 from paddle_tpu import serving as jax_serving
 from paddle_tpu_torch import serving as port
+from test_torch_pinned_arrivals import submit_pinned
 
 CFG = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=2, d_ff=64,
            max_seq_len=64)
@@ -319,7 +320,7 @@ def _shared_prompts(seed):
 def _serve(engine, shared, prompts, max_new):
     with engine:
         engine.generate(shared + [7], max_new_tokens=2, timeout=300)
-        reqs = [engine.submit(p, max_new_tokens=max_new) for p in prompts]
+        reqs = submit_pinned(engine, prompts, max_new)
         got = [r.wait(300) for r in reqs]
         stats = engine.stats()
     return got, stats
