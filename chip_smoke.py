@@ -95,6 +95,30 @@ Phases, each fatal on failure (exit code 1, no result line):
      blocks reused, the int8 store's bytes against fp32, and K2's
      launches by C and K3's. Then one int8 decode step beside one fp32
      decode step (16 rows) under torch.profiler: device ms by kernel.
+  4e. the serving fleet and online hot swap: bench.py's
+     bench_serving_fleet and bench_serving_online through the port's
+     bench at the flagship's full width (vocab 32000, d_model 512, 8
+     heads, 6 layers, d_ff 2048, max_seq_len 512), through
+     ``ServingRouter``, ``ServingEngine``, ``OnlineUpdater``,
+     ``save_checkpoint`` and ``export_generation_model``: 16 requests of
+     4-12 tokens, 16 new, on 1 then 2 replicas (max_batch 4, block 16,
+     random weights from seed 0); 24 requests of 3-8 tokens, 12 new,
+     through 2 replicas (max_batch 4, block 4) steady and while v1 (the
+     startup state of ``transformer_fluid.build``'s defaults, perturbed,
+     saved as checkpoint 1) rolls mid-stream. Then a failover leg (2
+     replicas, ``serve_die_at_step`` armed 6 steps past the primers, the
+     fleet leg's prompts) and a swap leg (``swap_weights`` from the v1
+     artifact on a draining replica while the other serves 8 requests,
+     then 8 more across both). Fatal unless every output equals
+     ``reference_decode`` (under the version that served it), both
+     replicas stepped in every 2-replica leg, the failover leg shows
+     exactly 1 failover, 0 lost, a drained dead pool and the unfailed
+     outputs, the online leg lost 0, published 1 version, swapped twice
+     and ends on [1, 1], and K2's launches by C equal the replicas'
+     summed steps x 6 layers (the dead replica's included). Prints one
+     ``fleet`` line a leg: tokens/s, the 2/1 scaling, each replica's
+     steps, failovers, readmitted and version restarts, the
+     rollout/steady ratio, K2's launches by C and the card.
 
   5. flash attention kernels: K1's forward and backward CUDA kernels
      against the plain version's forward and autograd, each call by its
@@ -669,7 +693,7 @@ def device_profile(torch, engine, cfg):
     loadgen = PoissonLoadGenerator(rate=200.0, n_requests=32,
                                    prompt_len=(16, 64), max_new_tokens=32,
                                    vocab_size=cfg.vocab_size, seed=1)
-    steps0 = engine.stats()["steps"]
+    steps0 = engine.stats()["default"]["steps"]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         accepted, _ = loadgen.run(engine)
@@ -677,7 +701,7 @@ def device_profile(torch, engine, cfg):
             r.wait(900)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    steps = engine.stats()["steps"] - steps0
+    steps = engine.stats()["default"]["steps"] - steps0
     busy_s, top = kernel_times(prof, steps)
     return {"wall_s": wall, "steps": steps,
             "step_ms": 1e3 * wall / max(steps, 1),
@@ -704,7 +728,7 @@ def serving_phase(torch, pa_mod):
         warm = engine.generate([1, 2, 3, 4], max_new_tokens=4, timeout=600)
         if len(warm) != 4:
             fail("warm-up request returned %r" % (warm,))
-        steps0 = engine.stats()["steps"]
+        steps0 = engine.stats()["default"]["steps"]
         torch.cuda.synchronize()
         pa_mod.paged_attention.window_launches.clear()   # main path starts
         t0 = time.perf_counter()
@@ -718,7 +742,7 @@ def serving_phase(torch, pa_mod):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         by_c = dict(pa_mod.paged_attention.window_launches)  # main path ends
-        stats = engine.stats()
+        stats = engine.stats()["default"]
         profile = device_profile(torch, engine, cfg)
     if rejected:
         fail("%d requests were rejected at admission" % len(rejected))
@@ -877,7 +901,7 @@ def spec_leg(torch, pa_mod, pat_mod, model, prompts, refs, margins, name,
         warm = engine.generate(prompts[0][:3], max_new_tokens=2, timeout=600)
         if len(warm) != 2:
             fail("spec %s: warm-up request returned %r" % (name, warm))
-        base = engine.stats()
+        base = engine.stats()["default"]
         sync()
         pa_mod.paged_attention.window_launches.clear()   # main path starts
         pat_mod.paged_attention_tree.launches = 0
@@ -894,8 +918,8 @@ def spec_leg(torch, pa_mod, pat_mod, model, prompts, refs, margins, name,
         wall = time.perf_counter() - t0
         k2 = dict(pa_mod.paged_attention.window_launches)
         k3 = pat_mod.paged_attention_tree.launches      # main path ends
-        stats = engine.stats()
-    pool = engine._worker.pool
+        stats = engine.stats()["default"]
+    pool = engine._workers["default"].pool
     if errors:
         fail("spec %s: %d requests ended with an error: %s"
              % (name, len(errors), "; ".join(errors[:3])))
@@ -939,7 +963,8 @@ def spec_leg(torch, pa_mod, pat_mod, model, prompts, refs, margins, name,
                **{k: stats[k] for k in ("prefill_chunk", "spec_k",
                                         "spec_tree")}}
         want_k2, want_k3 = engine_launches(cfg.n_layers, {name: {
-            "stats": run, "drafter_chunk": drafter and SPEC["draft_chunk"]}},
+            "stats": {"default": run},
+            "drafter_chunk": drafter and SPEC["draft_chunk"]}},
             k2)
         if k2 != want_k2 or k3 != want_k3:
             fail("spec %s: over %d steps (%d verify windows, %d chunk "
@@ -1030,7 +1055,7 @@ def fastpath_phase(torch, pa_mod, device=None):
             if len(warm) != 2:
                 fail("fastpath %s: priming request returned %r"
                      % (name, warm))
-            base = engine.stats()
+            base = engine.stats()["default"]
             sync()
             pa_mod.paged_attention.window_launches.clear()  # path starts
             t0 = time.perf_counter()
@@ -1045,7 +1070,7 @@ def fastpath_phase(torch, pa_mod, device=None):
             sync()
             wall = time.perf_counter() - t0
             k2 = dict(pa_mod.paged_attention.window_launches)  # path ends
-            stats = engine.stats()
+            stats = engine.stats()["default"]
         if errors:
             fail("fastpath %s: %d requests ended with an error: %s"
                  % (name, len(errors), "; ".join(errors[:3])))
@@ -1056,7 +1081,7 @@ def fastpath_phase(torch, pa_mod, device=None):
                     zip(reqs[i].tokens, ref)) if a != b), len(ref))
                 fail("fastpath %s: request %d differs from reference_decode "
                      "at generated token %d" % (name, i, at))
-        pool = engine._worker.pool
+        pool = engine._workers["default"].pool
         problems = pool.check_invariants()
         pst = pool.stats()
         if problems or pst["blocks_in_use"] or \
@@ -1146,7 +1171,7 @@ def engine_launches(L, legs, k2):
     want, want_k3 = {1: 0}, 0
     drafted = {}       # (catch-up chunk, steps a draft step) -> draft steps
     for leg in legs.values():
-        st = leg["stats"]
+        st = leg["stats"]["default"]
         steps, spec, chunk = (st["steps"], st["spec_steps"],
                               st["prefill_chunk_steps"])
         want[1] += L * (steps - spec - chunk)
@@ -1200,7 +1225,7 @@ def bench_mismatch(name, legs, leg):
 
 
 def bench_leg_summary(leg, entry, L):
-    st = entry["stats"]
+    st = entry["stats"]["default"]
     out = {"leg": leg, "tokens_per_s": entry["generated_tokens"]
            / entry["wall_s"], "requests": entry["requests"],
            "generated_tokens": entry["generated_tokens"],
@@ -1293,7 +1318,7 @@ def bench_serving_phase(torch, pa_mod, pat_mod, device=None, width=None):
                 bench_mismatch(name, legs, "int8")
         int8_leg = BENCH_INT8_LEGS.get(name)
         if int8_leg:
-            st = legs[int8_leg]["stats"]
+            st = legs[int8_leg]["stats"]["default"]
             n_int8 = st["weight_store"]["n_int8"]
             if not st["weight_only_int8"] or n_int8 != 2 + 4 * L:
                 fail("bench %s %s: served weight_only_int8=%r with %d int8 "
@@ -1313,6 +1338,295 @@ def bench_serving_phase(torch, pa_mod, pat_mod, device=None, width=None):
         print("bench_serving " + json.dumps(summary), flush=True)
     bench.last_serving.clear()
     return k2_by_fn, k3_by_fn
+
+
+# phase 4e: the serving fleet and online hot swap — bench.py's
+# bench_serving_fleet (:836) and bench_serving_online (:906) through the
+# port's bench at the flagship's width with bench.py's own traffic, then a
+# failover leg and a swap leg of the port's own
+FLEET_DIE_AFTER = 6     # the failover leg kills a replica this many steps
+                        # past the primers
+
+
+def fleet_launches(L, routers):
+    """The K2 launches a fleet run must show: every replica of every
+    router in ``routers`` (router stats, each replica's engine under
+    ``model:default``), dead ones included, one a layer a step
+    (``engine_launches`` over the replicas as engines). Returns
+    (want_k2, want_k3)."""
+    legs = {}
+    for i, st in enumerate(routers):
+        for rep in st["replicas"]:
+            legs["%d/%d" % (i, rep["idx"])] = {
+                "stats": {"default": rep["model:default"]},
+                "drafter_chunk": None}
+    return engine_launches(L, legs, {})
+
+
+def check_fleet_launches(name, L, routers, k2, k3, on_card):
+    """Fail unless K2's launches by C (and K3's) are the replicas' steps'
+    (on the card; the CPU route launches nothing). Returns the replicas'
+    steps by router."""
+    if on_card:
+        want_k2, want_k3 = fleet_launches(L, routers)
+        if k2 != want_k2 or k3 != want_k3:
+            fail("fleet %s: paged_attention launched %r times by window "
+                 "and paged_attention_tree %d; the replicas' steps account "
+                 "for %r and %d" % (name, k2, k3, want_k2, want_k3))
+    return [[rep["model:default"]["steps"] for rep in st["replicas"]]
+            for st in routers]
+
+
+def check_failover(st, dead, outputs, want):
+    """The failover leg's gates: exactly one failover, no request lost or
+    failed, exactly one dead replica whose pool drained empty and clean,
+    every output equal to the unfailed run's. ``st`` is the router's
+    stats, ``dead`` the dead replicas' engines."""
+    lost = (st["requests_submitted"] - st["requests_completed"]
+            - st["requests_failed"])
+    if st["failovers"] != 1 or lost or st["requests_failed"]:
+        fail("fleet failover: %d failovers, %d requests lost, %d failed; "
+             "expected 1, 0 and 0" % (st["failovers"], lost,
+                                      st["requests_failed"]))
+    if len(dead) != 1:
+        fail("fleet failover: %d dead replicas, expected 1" % len(dead))
+    for w in dead[0]._workers.values():
+        problems = w.pool.check_invariants()
+        if problems or w.pool.blocks_in_use or w.pool.stats()[
+                "blocks_reserved"]:
+            fail("fleet failover: the dead replica's pool is not drained: "
+                 "%r %r" % (w.pool.stats(), problems[:3]))
+    if outputs != want:
+        bad = next(i for i, (a, b) in enumerate(zip(outputs, want))
+                   if a != b)
+        fail("fleet failover: request %d gave %r, the unfailed run %r"
+             % (bad, outputs[bad], want[bad]))
+
+
+def check_versions(name, outputs, versions, prompts, models, max_new):
+    """Every output equal to ``reference_decode`` under the weight version
+    that served it."""
+    from paddle_tpu_torch.serving import reference_decode
+
+    for i, (out, v, p) in enumerate(zip(outputs, versions, prompts)):
+        if v not in models:
+            fail("fleet %s: request %d served by version %r, which has no "
+                 "artifact" % (name, i, v))
+        ref = reference_decode(models[v], p, max_new)
+        if out != ref:
+            fail("fleet %s: request %d (version %d) differs from "
+                 "reference_decode: got %r, reference %r"
+                 % (name, i, v, out, ref))
+
+
+def fleet_phase(torch, pa_mod, pat_mod, device=None, width=None,
+                online_kwargs=None):
+    """Phase 4e at the flagship's width (device None: cuda:0; the tests
+    pass "cpu", a small width and a small online program): the port's
+    bench_serving_fleet and bench_serving_online, then a failover leg (2
+    replicas, ``serve_die_at_step`` armed through ``set_global_injector``,
+    on the fleet leg's prompts) and a swap leg (``swap_weights`` from the
+    v1 artifact on a draining replica while the other serves). Each leg's
+    K2/K3 counts are zeroed just before it and read just after. Fatal
+    unless every output is token-identical to ``reference_decode`` (the
+    online and swap legs under the version that served each request),
+    both replicas stepped in every 2-replica leg, the failover leg passes
+    ``check_failover``, the online leg lost nothing, published one
+    version, swapped twice and ends on [1, 1], and (on the card) every
+    K2 launch is accounted for by the replicas' steps. Prints one
+    ``fleet`` line a leg. Returns K2's launches at C=1 over the phase."""
+    import tempfile
+    import warnings
+
+    from paddle_tpu_torch import bench, resilience
+    from paddle_tpu_torch.serving import ServingRouter
+
+    width = dict(BENCH_WIDTH if width is None else width)
+    L = width["n_layers"]
+    on_card = device is None or str(device).startswith("cuda")
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    card = card_line() if on_card else None
+    total_c1 = 0
+
+    def start():
+        sync()
+        pa_mod.paged_attention.window_launches.clear()   # main path starts
+        pat_mod.paged_attention_tree.launches = 0
+        return time.perf_counter()
+
+    def end(t0):
+        sync()
+        k2 = dict(pa_mod.paged_attention.window_launches)
+        k3 = pat_mod.paged_attention_tree.launches       # main path ends
+        return time.perf_counter() - t0, k2, k3
+
+    def report(leg, summary, k2, k3):
+        nonlocal total_c1
+        total_c1 += k2.get(1, 0)
+        summary.update(leg=leg, paged_attention_launches_by_window=k2,
+                       paged_attention_tree_launches=k3, card=card)
+        print("fleet " + json.dumps(summary), flush=True)
+
+    def both_stepped(leg, steps):
+        if any(s == 0 for s in steps):
+            fail("fleet %s: a replica took no step (%r)" % (leg, steps))
+
+    # bench_serving_fleet: 1 then 2 replicas
+    t0 = start()
+    out = bench.bench_serving_fleet(place=device, **width)
+    wall, k2, k3 = end(t0)
+    fleet = dict(bench.last_serving)
+    if not out["outputs_match"]:
+        fail("fleet bench_serving_fleet: outputs_match is false (1 "
+             "replica: %r, 2: %r)" % (out["one"]["outputs_match"],
+                                      out["two"]["outputs_match"]))
+    steps = check_fleet_launches(
+        "bench_serving_fleet", L, [fleet["1r"]["router"],
+                                   fleet["2r"]["router"]], k2, k3, on_card)
+    both_stepped("two", steps[1])
+    report("bench_serving_fleet", {
+        "wall_s": wall,
+        "tokens_per_s_1r": out["one"]["tokens_per_sec"],
+        "tokens_per_s_2r": out["two"]["tokens_per_sec"],
+        "scaling": out["scaling"], "replica_steps": steps,
+        "replicas_used": [out["one"]["replicas_used"],
+                          out["two"]["replicas_used"]],
+        "failovers": [out["one"]["failovers"], out["two"]["failovers"]],
+        "outputs_match": out["outputs_match"]}, k2, k3)
+
+    # failover: the fleet leg's prompts, one replica killed mid-stream
+    model, prompts = fleet["2r"]["model"], fleet["2r"]["prompts"]
+    want = fleet["2r"]["outputs"]
+    t0 = start()
+    router = ServingRouter(model, replicas=2, max_batch=4,
+                           max_seq_len=width["max_seq_len"], block_size=16,
+                           backoff_base=0.0, health_interval_s=0.02,
+                           device=device)
+    try:
+        for p in [router.submit([1, 2], max_new_tokens=2)
+                  for _ in range(2)]:
+            p.wait(600)
+        st0 = bench._settled_router_stats(router)
+        die_at = max(r["model:default"]["steps"]
+                     for r in st0["replicas"]) + FLEET_DIE_AFTER
+        prev = resilience.set_global_injector(resilience.FaultInjector(
+            "serve_die_at_step:%d" % die_at))
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                t1 = time.perf_counter()
+                reqs = [router.submit(p, max_new_tokens=16)
+                        for p in prompts]
+                outs = [r.wait(600) for r in reqs]
+                serve_s = time.perf_counter() - t1
+        finally:
+            resilience.set_global_injector(prev)
+        dead = [r.engine for r in router._replicas if r.state == "dead"]
+        for eng in dead:
+            for w in eng._workers.values():
+                w._thread.join(60)
+        st = bench._settled_router_stats(router)
+    finally:
+        router.close()
+    wall, k2, k3 = end(t0)
+    check_failover(st, dead, outs, want)
+    steps = check_fleet_launches("failover", L, [st], k2, k3, on_card)
+    both_stepped("failover", steps[0])
+    report("failover", {
+        "wall_s": wall, "serve_s": serve_s,
+        "tokens_per_s": sum(len(o) for o in outs) / serve_s,
+        "die_at_step": die_at, "replica_steps": steps,
+        "states": [r["state"] for r in st["replicas"]],
+        "failovers": st["failovers"], "readmitted": st["readmitted"],
+        "retries": st["retries"], "version_restarts":
+            st["version_restarts"], "outputs_match": outs == want}, k2, k3)
+
+    # bench_serving_online: steady, then v1 rolled mid-stream
+    kw = dict(n_requests=24, max_new_tokens=12, vocab=width["vocab"],
+              max_seq_len=width["max_seq_len"], max_batch=4, block_size=4,
+              model_kwargs={})
+    kw.update(online_kwargs or {})
+    with tempfile.TemporaryDirectory(prefix="ptpu_smoke_online_") as work:
+        t0 = start()
+        out = bench.bench_serving_online(place=device, workdir=work, **kw)
+        wall, k2, k3 = end(t0)
+        online = bench.last_serving["online"]
+        if not out["outputs_match"]:
+            rolled = online["outputs"]
+            check_versions("bench_serving_online",
+                           rolled["steady"] + rolled["rollout"],
+                           online["versions"]["steady"]
+                           + online["versions"]["rollout"],
+                           online["prompts"] * 2, online["models"],
+                           kw["max_new_tokens"])
+            fail("fleet bench_serving_online: outputs_match is false")
+        if (out["requests_lost"], out["versions_published"], out["swaps"],
+                out["final_versions"]) != (0, 1, 2, [1, 1]):
+            fail("fleet bench_serving_online: %d lost, %d published, %d "
+                 "swaps, final versions %r; expected 0, 1, 2, [1, 1]"
+                 % (out["requests_lost"], out["versions_published"],
+                    out["swaps"], out["final_versions"]))
+        st = online["router"]
+        steps = check_fleet_launches("bench_serving_online", L, [st], k2,
+                                     k3, on_card)
+        both_stepped("online", steps[0])
+        report("bench_serving_online", {
+            "wall_s": wall,
+            "steady_tokens_per_s": out["steady_tokens_per_sec"],
+            "rollout_tokens_per_s": out["rollout_tokens_per_sec"],
+            "rollout_over_steady": out["rollout_throughput_ratio"],
+            "replica_steps": steps, "failovers": st["failovers"],
+            "readmitted": st["readmitted"],
+            "version_restarts": st["version_restarts"],
+            "rollout_versions": online["versions"]["rollout"],
+            "updater": online["updater"],
+            "outputs_match": out["outputs_match"]}, k2, k3)
+
+        # swap: v1 onto a draining replica while the other serves
+        models, sprompts = online["models"], online["prompts"]
+        max_new = kw["max_new_tokens"]
+        t0 = start()
+        router = ServingRouter(online["v0_dir"], replicas=2, max_batch=4,
+                               max_seq_len=kw["max_seq_len"], block_size=4,
+                               backoff_base=0.0, health_interval_s=0.02,
+                               device=device)
+        try:
+            for p in [router.submit([1, 2], max_new_tokens=2)
+                      for _ in range(2)]:
+                p.wait(600)
+            router.drain(1)
+            router.wait_drained(1, timeout=60)
+            during = [router.submit(p, max_new_tokens=max_new)
+                      for p in sprompts[:8]]
+            t1 = time.perf_counter()
+            version = router.replica_engine(1).swap_weights(
+                online["v1_dir"], timeout=120)
+            swap_s = time.perf_counter() - t1
+            router.undrain(1)
+            after = [router.submit(p, max_new_tokens=max_new)
+                     for p in sprompts[8:16]]
+            reqs = during + after
+            outs = [r.wait(600) for r in reqs]
+            vers = [r.weight_version for r in reqs]
+            st = bench._settled_router_stats(router)
+        finally:
+            router.close()
+        wall, k2, k3 = end(t0)
+    check_versions("swap", outs, vers, sprompts[:16], models, max_new)
+    final = [r["weight_version"] for r in st["replicas"]]
+    if version != 1 or final != [0, 1] or any(v != 0 for v in
+                                              vers[:8]) or 1 not in vers:
+        fail("fleet swap: swap_weights gave version %r, replicas end on "
+             "%r, requests served by %r; expected 1, [0, 1], the first 8 "
+             "by 0 and some by 1" % (version, final, vers))
+    steps = check_fleet_launches("swap", L, [st], k2, k3, on_card)
+    both_stepped("swap", steps[0])
+    report("swap", {
+        "wall_s": wall, "swap_s": swap_s, "replica_steps": steps,
+        "final_versions": final, "served_by_version": vers,
+        "outputs_match": True}, k2, k3)
+    bench.last_serving.clear()
+    return total_c1
 
 
 def int8_step_profile(torch, width=None, rows=16, position=100):
@@ -2670,18 +2984,19 @@ def main():
                  for name, leg in fastpath_phase(torch, pa_mod).items()})
     bench_k2, bench_k3 = bench_serving_phase(torch, pa_mod, pat_mod)
     int8_step_profile(torch)
-    # each row's launches are its own main paths': the serving phase for
-    # the one-token decode (C=1), the linear legs for C=7 and C=17, the
-    # chunk legs of phase 4b for C=8 (target chunks and the drafter's
-    # catch-up), the fast path's chunked and fast legs for C=64, phase
-    # 4d's bench functions for C=16 (the fast leg's chunks, the drafters'
-    # catch-ups), the tree legs for C=13 (with the model-drafted one and
-    # phase 4d's tree and int8 tree legs) and C=33
+    fleet_c1 = fleet_phase(torch, pa_mod, pat_mod)
+    # each row's launches are its own main paths': the serving phase and
+    # phase 4e's replicas for the one-token decode (C=1), the linear legs
+    # for C=7 and C=17, the chunk legs of phase 4b for C=8 (target chunks
+    # and the drafter's catch-up), the fast path's chunked and fast legs
+    # for C=64, phase 4d's bench functions for C=16 (the fast leg's
+    # chunks, the drafters' catch-ups), the tree legs for C=13 (with the
+    # model-drafted one and phase 4d's tree and int8 tree legs) and C=33
     k2_legs = {7: ("linear",), 17: ("linear16",),
                8: ("linear_c8", "tree_model"),
                64: ("fastpath_chunked", "fastpath_fast"), 16: ()}
     for row in rows:
-        row["launches"] = launches if row["C"] == 1 else sum(
+        row["launches"] = launches + fleet_c1 if row["C"] == 1 else sum(
             legs[name]["paged_attention_launches_by_window"].get(row["C"], 0)
             for name in k2_legs[row["C"]])
         if row["C"] == 16:

@@ -10,10 +10,13 @@ training path of the flagship Transformer LM with its pass pipeline
 (``ir_passes``), mixed precision (``amp.decorate`` and the contrib
 decorator, dynamic loss scaling) and asynchronous executor (the
 in-flight window and feed prefetcher, ``async_engine``), the headline
-training bench (``python -m paddle_tpu_torch.bench``), and full-int8
+training bench (``python -m paddle_tpu_torch.bench``), full-int8
 inference (``quant.calibrate`` -> ``quant.decorate(program,
 "full_int8", table)`` -> ``Executor.run``, each dense layer one fused
-int8 matmul):
+int8 matmul), and the serving fleet and online hot swap
+(``serving.ServingRouter``, ``serving.OnlineUpdater``, with
+``checkpoint``, ``inference.export_generation_model`` and the serving
+subset of ``resilience``):
 
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import transformer_fluid
@@ -30,8 +33,9 @@ int8 matmul):
     loss_value, = exe.run(main, feed={...}, fetch_list=[loss])
 """
 
-from . import (amp, async_engine, contrib, flags, initializer,  # noqa: F401
-               io, ir, layers, nets, optimizer, quant, unique_name)
+from . import (amp, async_engine, checkpoint, contrib,  # noqa: F401
+               flags, inference, initializer, io, ir, layers, nets,
+               optimizer, quant, resilience, unique_name)
 from .backward import append_backward  # noqa: F401
 from .core.scope import Scope, global_scope  # noqa: F401
 from .executor import Executor  # noqa: F401
@@ -40,7 +44,8 @@ from .framework import (Program, Variable, default_main_program,  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401
 
 __all__ = ["Executor", "ParamAttr", "Program", "Scope", "Variable",
-           "amp", "append_backward", "async_engine", "contrib",
-           "default_main_program", "default_startup_program", "flags",
-           "global_scope", "initializer", "io", "ir", "layers", "nets",
-           "optimizer", "program_guard", "quant", "unique_name"]
+           "amp", "append_backward", "async_engine", "checkpoint",
+           "contrib", "default_main_program", "default_startup_program",
+           "flags", "global_scope", "inference", "initializer", "io", "ir",
+           "layers", "nets", "optimizer", "program_guard", "quant",
+           "resilience", "unique_name"]

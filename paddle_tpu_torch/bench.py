@@ -1,13 +1,15 @@
 """The port's bench: bench.py's headline training legs
-(`bench_transformer_fluid` :109-225, `TINY` :229) and its serving legs
+(`bench_transformer_fluid` :109-225, `TINY` :229), its serving legs
 (`bench_serving` :553, `bench_serving_fastpath` :659,
-`bench_serving_spec` :731, `bench_serving_quant` :1242), with its
-`main`'s leg selection (:1735-1903).
+`bench_serving_spec` :731, `bench_serving_quant` :1242) and its fleet
+and online legs (`bench_serving_fleet` :836, `bench_serving_online`
+:906), with its `main`'s leg selection (:1735-1903).
 
     python -m paddle_tpu_torch.bench [--steps N] [--warmup N] [--tiny]
                                      [--sync-only] [--amp-only]
                                      [--serving-only] [--spec-only]
-                                     [--quant-only] [--place cpu]
+                                     [--quant-only] [--fleet-only]
+                                     [--online-only] [--place cpu]
 
 trains the flagship Fluid-API Transformer LM (vocab 32000, d_model 512, 8
 heads, 6 layers, d_ff 2048, seq 512, batch 160, ``remat=False``) through
@@ -37,6 +39,12 @@ the port's ``ServingEngine``:
               (bench_serving_spec)
     serving_fp32_ref / serving_int8     one request set over fp32 weights
               and the weight-only int8 store (bench_serving_quant)
+    serving_fleet_1r / serving_fleet_2r     one request set through a
+              1-replica and a 2-replica ServingRouter (bench_serving_fleet)
+    online_steady / online_rollout      a 2-replica fleet steady and while
+              an OnlineUpdater rolls a new weight version across it
+              (bench_serving_online; only with --online-only, as in
+              bench.py)
 
 and prints one JSON line with bench.py's keys for them, the card's name
 and power limit, and each training leg's device and host ms a step. It
@@ -46,9 +54,11 @@ leg bench.py would run whose modules the port lacks is named under
 feeds through the prefetcher); ``--sync-only`` skips the async leg,
 ``--amp-only`` runs only fp32, amp and amp_fp16; ``--serving-only`` the
 serving, fast-path and speculative pairs, ``--spec-only`` the
-speculative legs, ``--quant-only`` the int8 serving pair; the flags
-combine as bench.py's do. ``--fleet-only`` raises: the router is not
-ported.
+speculative legs, ``--quant-only`` the int8 serving pair, ``--fleet-only``
+the fleet pair and ``--online-only`` the online pair; the flags combine
+as bench.py's do, except that ``--online-only`` joins the others instead
+of replacing them. With ``--online-only`` alone the line's metric is
+bench.py's ``online_rollout_throughput_ratio``.
 """
 
 import argparse
@@ -65,6 +75,7 @@ from paddle_tpu_torch.async_engine import as_numpy
 from paddle_tpu_torch.models import transformer_fluid
 
 __all__ = ["TINY", "bench_serving", "bench_serving_fastpath",
+           "bench_serving_fleet", "bench_serving_online",
            "bench_serving_quant", "bench_serving_spec",
            "bench_transformer_fluid", "build_program", "last_leg", "main"]
 
@@ -232,7 +243,8 @@ def bench_transformer_fluid(steps=24, warmup=3, batch=160, seq=512,
 
 # what each engine of the last serving bench call saw, beside the
 # function's return value (read by chip_smoke.py): {leg: {"stats" the
-# engine's final stats (warm-up and priming requests included),
+# engine's final stats, {model name: {...}} (warm-up and priming
+# requests included),
 # "drafter_chunk" its ModelDrafter's catch-up chunk or None, "model" the
 # model it served, and over the timed request set "prompts", "outputs",
 # "requests", "generated_tokens", "wall_s", "latency_p50_s",
@@ -242,16 +254,17 @@ last_serving = {}
 
 def _record(leg, eng, reqs, wall):
     """Close ``eng`` and record its leg, the timed requests ``reqs``
-    served in ``wall`` seconds, in ``last_serving``; returns the
-    engine's final stats (read once its worker settled)."""
+    served in ``wall`` seconds, in ``last_serving``; returns the default
+    model's final stats (read once its worker settled)."""
     stats = _settled_stats(eng)
     eng.close()
     lat = [r.latency for r in reqs]
     ttft = [r.ttft for r in reqs]
+    w = eng._workers[eng._default]
     last_serving[leg] = {
         "stats": stats,
-        "drafter_chunk": getattr(eng._worker.drafter, "_chunk", None),
-        "model": eng._worker.model,
+        "drafter_chunk": getattr(w.drafter, "_chunk", None),
+        "model": w.model,
         "prompts": [list(r.prompt) for r in reqs],
         "outputs": [list(r.tokens) for r in reqs],
         "requests": len(reqs),
@@ -261,7 +274,7 @@ def _record(leg, eng, reqs, wall):
         "latency_p99_s": float(np.percentile(lat, 99)),
         "ttft_p50_s": float(np.percentile(ttft, 50)),
         "ttft_p99_s": float(np.percentile(ttft, 99))}
-    return stats
+    return stats[eng._default]
 
 
 def _settled_stats(eng):
@@ -269,7 +282,7 @@ def _settled_stats(eng):
     completed the last request: a round counts a request's tokens after
     the request completes, so a read right after ``wait`` may miss the
     last round's (bench.py reads racing it)."""
-    w = eng._worker
+    w = eng._workers[eng._default]
     with w._cv:
         while len(w.queue) or w.scheduler.has_work() or w._inflight:
             w._cv.wait(timeout=0.005)
@@ -387,7 +400,8 @@ def bench_serving_fastpath(n_requests=10, max_new_tokens=8,
                                     block_size=block_size, device=place,
                                     **kw)
         eng.generate(shared + [7], max_new_tokens=2, timeout=600)
-        primed_reuse = _settled_stats(eng)["prefix_blocks_reused"]
+        primed_reuse = _settled_stats(eng)["default"][
+            "prefix_blocks_reused"]
         t0 = time.perf_counter()
         reqs = [eng.submit(p, max_new_tokens=max_new_tokens)
                 for p in prompts]
@@ -455,7 +469,7 @@ def bench_serving_spec(n_requests=6, max_new_tokens=48, spec_k=6,
                                     spec_tree=tree, drafter=drafter,
                                     device=place)
         eng.generate(prompts[0][:3], max_new_tokens=2, timeout=600)
-        base = _settled_stats(eng)
+        base = _settled_stats(eng)["default"]
         t0 = time.perf_counter()
         reqs = []
         for p in prompts:               # eng.generate, the request kept
@@ -558,6 +572,217 @@ def bench_serving_quant(n_requests=16, max_new_tokens=16, max_batch=8,
             sum(len(o) for o in int8_outs))
 
 
+def bench_serving_fleet(n_requests=16, max_new_tokens=16, max_batch=4,
+                        vocab=256, d_model=64, n_heads=2, n_layers=2,
+                        d_ff=128, max_seq_len=128, block_size=16,
+                        place=None):
+    """The fleet scaling receipt, bench.py's function on `place`: one
+    request set (RandomState(23): 16 prompts of 4-12 tokens) through a
+    1-replica and a 2-replica ``ServingRouter`` over one model (random
+    weights, seed 0). ``max_batch`` makes one replica batch-bound: the
+    fleet's win is the second replica's slots and worker thread (on the
+    card, its own stream). Each leg first serves one primer a replica,
+    submitted together so least-loaded dispatch lands one on each.
+    Outputs must equal ``reference_decode`` on both legs.
+
+    Returns {"one": leg, "two": leg, "scaling", "outputs_match"}, each
+    leg {"tokens_per_sec", "outputs_match", "replicas_used",
+    "failovers", "shed_requests"}. ``last_serving`` keeps each leg's
+    router stats ("router"), prompts, outputs and model."""
+    from paddle_tpu_torch import serving
+
+    last_serving.clear()
+    model = _serving_model(place, vocab, d_model, n_heads, n_layers, d_ff,
+                           max_seq_len)
+    rng = np.random.RandomState(23)
+    prompts = [rng.randint(0, vocab, size=int(rng.randint(4, 12))).tolist()
+               for _ in range(n_requests)]
+    refs = [serving.reference_decode(model, p, max_new_tokens)
+            for p in prompts]
+
+    def run_leg(n_replicas):
+        router = serving.ServingRouter(
+            model, replicas=n_replicas, max_batch=max_batch,
+            max_seq_len=max_seq_len, block_size=block_size, device=place)
+        primers = [router.submit([1, 2], max_new_tokens=2)
+                   for _ in range(n_replicas)]
+        for p in primers:
+            p.wait(600)
+        t0 = time.perf_counter()
+        reqs = [router.submit(p, max_new_tokens=max_new_tokens)
+                for p in prompts]
+        outs = [r.wait(600) for r in reqs]
+        wall = time.perf_counter() - t0
+        st = _settled_router_stats(router)
+        router.close()
+        last_serving["%dr" % n_replicas] = {
+            "router": st, "prompts": prompts, "outputs": outs,
+            "model": model, "wall_s": wall}
+        return {
+            "tokens_per_sec": sum(len(o) for o in outs) / wall,
+            "outputs_match": outs == refs,
+            "replicas_used": sum(1 for r in st["replicas"]
+                                 if r["model:default"]["steps"] > 0),
+            "failovers": st["failovers"],
+            "shed_requests": st["shed_requests"],
+        }
+
+    one = run_leg(1)
+    two = run_leg(2)
+    return {
+        "one": one,
+        "two": two,
+        "scaling": two["tokens_per_sec"] / one["tokens_per_sec"],
+        "outputs_match": one["outputs_match"] and two["outputs_match"],
+    }
+
+
+def _settled_router_stats(router):
+    """``router.stats()`` once every live replica's worker has finished
+    its rounds (``_settled_stats``: a read right after ``wait`` may miss
+    a replica's last round)."""
+    for i in range(router.num_replicas):
+        eng = router.replica_engine(i)
+        for w in eng._workers.values():
+            with w._cv:
+                while w.error is None and w._thread.is_alive() and (
+                        len(w.queue) or w.scheduler.has_work()
+                        or w._inflight):
+                    w._cv.wait(timeout=0.005)
+    return router.stats()
+
+
+# bench.py's online leg builds a one-layer toy program
+ONLINE_MODEL = dict(d_model=16, n_heads=2, n_layers=1, d_ff=32, seq_len=8)
+
+
+def bench_serving_online(n_requests=24, max_new_tokens=12, vocab=64,
+                         max_seq_len=32, max_batch=4, block_size=4,
+                         model_kwargs=None, place=None, workdir=None):
+    """The online hot-swap receipt, bench.py's function on `place`: one
+    request set (RandomState(31): 24 prompts of 3-8 tokens) through a
+    2-replica fleet twice, once steady and once while an
+    ``OnlineUpdater`` publishes and rolls a new weight version across it
+    mid-stream (drain -> swap -> undrain, one replica at a time;
+    ``canary_pct=None``). The program is ``transformer_fluid.build(
+    vocab_size=vocab, remat=False, **model_kwargs)`` (bench.py's toy
+    ``ONLINE_MODEL`` by default; ``{}`` is the flagship); its startup
+    program runs on `place`, v0 is exported from it, and the startup
+    state perturbed (N(0, 0.02) from the same RandomState) is checkpoint
+    1, saved between the legs. Every output must equal
+    ``reference_decode`` under the weight version that served it, and no
+    request may be lost. Artifacts and checkpoints go to `workdir` (kept)
+    or a temporary directory (removed).
+
+    Returns {"steady_tokens_per_sec", "rollout_tokens_per_sec",
+    "rollout_throughput_ratio", "outputs_match", "requests_lost",
+    "versions_published", "swaps", "final_versions"}. ``last_serving``
+    keeps the router's stats ("router"), the updater's ("updater"), the
+    artifact directories ("v0_dir", "v1_dir"), and each leg's prompts,
+    outputs and serving versions."""
+    import shutil
+    import tempfile
+    import threading
+
+    from paddle_tpu_torch import checkpoint as _ckpt
+    from paddle_tpu_torch import inference, serving
+
+    last_serving.clear()
+    base = workdir or tempfile.mkdtemp(prefix="ptpu_bench_online_")
+    try:
+        prog, sprog = fluid.Program(), fluid.Program()
+        with fluid.program_guard(prog, sprog):
+            transformer_fluid.build(
+                vocab_size=vocab, remat=False,
+                **(ONLINE_MODEL if model_kwargs is None else model_kwargs))
+        scope = fluid.Scope()
+        fluid.Executor(place).run(sprog, scope=scope)
+        v0_dir = os.path.join(base, "v0")
+        inference.export_generation_model(v0_dir, prog, scope,
+                                          max_seq_len=max_seq_len)
+        ckpt_dir = os.path.join(base, "ckpts")
+        pub_dir = os.path.join(base, "pub")
+        os.makedirs(ckpt_dir)
+        rng = np.random.RandomState(31)
+        prompts = [rng.randint(0, vocab, size=int(rng.randint(3, 8))).tolist()
+                   for _ in range(n_requests)]
+        state = {}
+        for name in scope.local_var_names():
+            v = as_numpy(scope.get(name))
+            if np.issubdtype(v.dtype, np.floating):
+                v = v + rng.normal(0, 0.02, v.shape).astype(v.dtype)
+            state[name] = v
+        with serving.ServingRouter(v0_dir, replicas=2, max_batch=max_batch,
+                                   max_seq_len=max_seq_len,
+                                   block_size=block_size, backoff_base=0.0,
+                                   health_interval_s=0.02,
+                                   device=place) as router:
+            upd = serving.OnlineUpdater(router, ckpt_dir, pub_dir, prog,
+                                        max_seq_len=max_seq_len,
+                                        canary_pct=None)
+            for p in [router.submit([1, 2], max_new_tokens=2)
+                      for _ in range(2)]:
+                p.wait(600)
+
+            def run_leg(rollout_mid_stream):
+                t0 = time.perf_counter()
+                reqs = [router.submit(p, max_new_tokens=max_new_tokens)
+                        for p in prompts]
+                roll = None
+                if rollout_mid_stream:
+                    roll = threading.Thread(target=upd.poll_once,
+                                            name="bench-online-rollout")
+                    roll.start()
+                outs = [r.wait(600) for r in reqs]
+                wall = time.perf_counter() - t0
+                if roll is not None:
+                    roll.join()
+                return outs, [r.weight_version for r in reqs], wall
+
+            steady_outs, steady_vers, steady_wall = run_leg(False)
+            _ckpt.save_checkpoint(ckpt_dir, state, 1)
+            roll_outs, roll_vers, roll_wall = run_leg(True)
+            st = _settled_router_stats(router)
+        v1_dir = os.path.join(pub_dir, "v1")
+        models = {0: inference.load_generation_model(v0_dir, device=place)}
+        if os.path.isdir(v1_dir):
+            models[1] = inference.load_generation_model(v1_dir,
+                                                        device=place)
+        refs = {}
+        match = True
+        for o, v, p in zip(steady_outs + roll_outs,
+                           steady_vers + roll_vers, prompts + prompts):
+            key = (v, tuple(p))
+            if key not in refs:
+                refs[key] = (serving.reference_decode(
+                    models[v], p, max_new_tokens) if v in models else None)
+            match = match and o == refs[key]
+        last_serving["online"] = {
+            "router": st, "updater": upd.stats(), "v0_dir": v0_dir,
+            "v1_dir": v1_dir, "models": models, "prompts": prompts,
+            "outputs": {"steady": steady_outs, "rollout": roll_outs},
+            "versions": {"steady": steady_vers, "rollout": roll_vers},
+            "wall_s": {"steady": steady_wall, "rollout": roll_wall}}
+        steady_tps = sum(len(o) for o in steady_outs) / steady_wall
+        roll_tps = sum(len(o) for o in roll_outs) / roll_wall
+        return {
+            "steady_tokens_per_sec": steady_tps,
+            "rollout_tokens_per_sec": roll_tps,
+            "rollout_throughput_ratio": roll_tps / steady_tps,
+            "outputs_match": match,
+            "requests_lost": (st["requests_submitted"]
+                              - st["requests_completed"]
+                              - st["requests_failed"]),
+            "versions_published": upd.versions_published,
+            "swaps": upd.swaps,
+            "final_versions": sorted(r["weight_version"]
+                                     for r in st["replicas"]),
+        }
+    finally:
+        if workdir is None:
+            shutil.rmtree(base, ignore_errors=True)
+
+
 def card_line():
     """(name, power limit) of card 0 as nvidia-smi prints them, or None
     where there is no nvidia-smi."""
@@ -593,9 +818,6 @@ NOT_PORTED = {
     "quant_predictor": "bench_quant_predictor (quant_fp32_predictor, "
                        "quant_int8_predictor): the inference predictor "
                        "and its quantize pass, ROADMAP.md Queue 1 item 6",
-    "fleet": "bench_serving_fleet (serving_fleet_1r, serving_fleet_2r): "
-             "the router, the engine's health/kill/deadlines and fault "
-             "injection, ROADMAP.md Queue 1 item 2",
     "resilience": "bench_resilience_overhead: resilience.py, ROADMAP.md "
                   "Queue 1 item 7",
 }
@@ -629,20 +851,25 @@ def main(argv=None):
                     help="run only the int8 serving pair (the int8 "
                          "predictor pair is not ported)")
     ap.add_argument("--fleet-only", action="store_true",
-                    help="the serving-fleet pair: not ported, raises")
+                    help="run only the serving-fleet scaling pair "
+                         "(1-replica vs 2-replica ServingRouter)")
+    ap.add_argument("--online-only", action="store_true",
+                    help="run the online weight-hot-swap pair (steady "
+                         "vs mid-stream rollout through an "
+                         "OnlineUpdater); with other -only flags, beside "
+                         "their legs")
     ap.add_argument("--place", default=None,
                     help="device (default: the card; 'cpu' to try it "
                          "without one)")
     args = ap.parse_args(argv)
-    if args.fleet_only:
-        raise NotImplementedError(NOT_PORTED["fleet"])
     if args.tiny:
         kw = dict(TINY, feed_mode="host")
     else:
         kw = dict(steps=args.steps, warmup=args.warmup)
     kw["place"] = args.place
     place = args.place
-    dedicated = args.serving_only or args.quant_only or args.spec_only
+    dedicated = (args.serving_only or args.quant_only or args.spec_only
+                 or args.fleet_only or args.online_only)
     if dedicated:
         args.amp_only = False  # a dedicated leg: skip everything else
 
@@ -696,8 +923,7 @@ def main(argv=None):
 
     serve_batched = qserve_int8 = spec_res = None
     rest = args.tiny or args.amp_only
-    if args.serving_only or not (rest or args.quant_only
-                                 or args.spec_only):
+    if args.serving_only or not (rest or dedicated):
         (serve_batched, serve_serial, serve_match, serve_p50, serve_p99,
          _tokens, _sps, _flops) = bench_serving(place=place)
         legs.append(_serving_leg(
@@ -733,8 +959,7 @@ def main(argv=None):
         result["serving_prefix_hit_rate"] = round(fp["prefix_hit_rate"], 4)
         result["serving_fastpath_outputs_match"] = bool(fp["outputs_match"])
 
-    if args.spec_only or args.serving_only or not (rest
-                                                   or args.quant_only):
+    if args.spec_only or args.serving_only or not (rest or dedicated):
         spec_res = sp = bench_serving_spec(place=place)
         legs.append(_serving_leg(
             "serving_spec", sp["spec"]["tokens_per_sec"],
@@ -775,8 +1000,7 @@ def main(argv=None):
         result["serving_spec_int8_outputs_match"] = bool(
             sp["int8"]["outputs_match"])
 
-    if args.quant_only or not (rest or args.serving_only
-                               or args.spec_only):
+    if args.quant_only or not (rest or dedicated):
         not_ported.append(NOT_PORTED["quant_predictor"])
         (qserve_int8, qserve_fp32, qserve_match, qserve_agree,
          _tokens) = bench_serving_quant(place=place)
@@ -790,15 +1014,61 @@ def main(argv=None):
         result["serving_int8_speedup_vs_fp32"] = round(
             qserve_int8 / qserve_fp32, 4)
         result["serving_int8_outputs_match"] = bool(qserve_match)
-    if not (rest or dedicated):
-        not_ported.append(NOT_PORTED["fleet"])
+    fleet_res = online_res = None
+    if args.fleet_only or not (rest or dedicated):
+        fleet_res = fl = bench_serving_fleet(place=place)
+        legs.append(_serving_leg(
+            "serving_fleet_1r", fl["one"]["tokens_per_sec"],
+            outputs_match=bool(fl["one"]["outputs_match"]),
+            replicas_used=fl["one"]["replicas_used"]))
+        legs.append(_serving_leg(
+            "serving_fleet_2r", fl["two"]["tokens_per_sec"],
+            outputs_match=bool(fl["two"]["outputs_match"]),
+            replicas_used=fl["two"]["replicas_used"],
+            fleet_scaling=round(fl["scaling"], 4)))
+        result["serving_fleet_tokens_per_sec_1r"] = round(
+            fl["one"]["tokens_per_sec"], 1)
+        result["serving_fleet_tokens_per_sec_2r"] = round(
+            fl["two"]["tokens_per_sec"], 1)
+        result["serving_fleet_scaling"] = round(fl["scaling"], 4)
+        result["serving_fleet_outputs_match"] = bool(fl["outputs_match"])
+    if args.online_only:
+        online_res = on = bench_serving_online(place=place)
+        legs.append(_serving_leg(
+            "online_steady", on["steady_tokens_per_sec"],
+            outputs_match=bool(on["outputs_match"])))
+        legs.append(_serving_leg(
+            "online_rollout", on["rollout_tokens_per_sec"],
+            outputs_match=bool(on["outputs_match"]),
+            online_rollout_throughput_ratio=round(
+                on["rollout_throughput_ratio"], 4),
+            requests_lost=on["requests_lost"], swaps=on["swaps"],
+            final_versions=on["final_versions"]))
+        for key in ("steady_tokens_per_sec", "rollout_tokens_per_sec"):
+            result["serving_online_" + key] = round(on[key], 1)
+        result["serving_online_rollout_throughput_ratio"] = round(
+            on["rollout_throughput_ratio"], 4)
+        result["serving_online_outputs_match"] = bool(on["outputs_match"])
+        for key in ("requests_lost", "versions_published", "swaps",
+                    "final_versions"):
+            result["serving_online_" + key] = on[key]
     if args.tiny and not (args.amp_only or dedicated):
         not_ported.append(NOT_PORTED["resilience"])
 
-    headline = next(v for v in (
+    headline = next((v for v in (
         async_tps, sync_tps, amp_tps, serve_batched, qserve_int8,
-        spec_res and spec_res["spec"]["tokens_per_sec"]) if v is not None)
-    result["value"] = round(headline, 1)
+        spec_res and spec_res["spec"]["tokens_per_sec"],
+        fleet_res and fleet_res["two"]["tokens_per_sec"]) if v is not None),
+        None)
+    if headline is None:
+        # the online pair alone: bench.py's --online-only metric
+        result.update(metric="online_rollout_throughput_ratio",
+                      unit="x (mid-rollout / steady-state serving "
+                           "tokens/s)")
+        headline = online_res["rollout_throughput_ratio"]
+        result["value"] = round(headline, 4)
+    else:
+        result["value"] = round(headline, 1)
     result["card"] = card_line()
     result["legs"] = legs
     if not_ported:

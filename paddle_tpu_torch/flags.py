@@ -29,7 +29,8 @@ def env_flag(name, raw=None):
 
 class EnvFlag:
     """One declared PTPU_* environment switch: name, type ('bool',
-    'int', 'str', 'path': a path switched off by 0/false/off/no),
+    'int', 'float', 'str', 'path': a path switched off by
+    0/false/off/no),
     default (returned when unset/empty), docstring."""
 
     __slots__ = ("name", "type", "default", "doc")
@@ -46,11 +47,15 @@ class EnvFlag:
         if self.type == "bool":
             val = env_flag(self.name, raw)
             return self.default if val is None else val
-        if self.type == "int":
+        if self.type in ("int", "float"):
+            conv = int if self.type == "int" else float
             try:
-                return int(raw)
+                return conv(raw)
             except ValueError:
-                raise ValueError("%s=%r is not an int" % (self.name, raw))
+                raise ValueError("%s=%r is not %s %s"
+                                 % (self.name, raw,
+                                    "an" if self.type == "int" else "a",
+                                    self.type))
         if self.type == "path" and raw.strip().lower() in (
                 "0", "false", "off", "no"):
             return self.default
@@ -111,6 +116,40 @@ _declare("PTPU_QUANT_TABLE", "path", None,
 _declare("PTPU_QUANT_BLACKLIST", "str", None,
          "comma-separated var names whose ops are pinned fp32 by the "
          "quant_rewrite pass")
+# -- the serving fleet and online updates ----------------------------------
+_declare("PTPU_SERVE_REPLICAS", "int", 1,
+         "ServingRouter engine-replica count (least-loaded dispatch "
+         "with health-checked failover across them)")
+_declare("PTPU_SERVE_DEADLINE_S", "float", None,
+         "per-request serving deadline in seconds: requests past it "
+         "fail with DeadlineExceededError at the next step boundary "
+         "(unset = wait forever)")
+_declare("PTPU_SERVE_RETRY_BUDGET", "int", 3,
+         "re-admission attempts the ServingRouter may spend per "
+         "request when its replica fails over (exponential backoff; "
+         "RetryBudgetExceededError when spent)")
+_declare("PTPU_RETRY_BACKOFF", "float", 0.05,
+         "base seconds of exponential backoff between transient retries")
+_declare("PTPU_SERVE_CANARY_PCT", "float", None,
+         "percentage of new requests the ServingRouter pins to the "
+         "canary replica while an OnlineUpdater rollout is in its "
+         "canary phase (unset = no canary gate)")
+_declare("PTPU_ONLINE_POLL_S", "float", 0.25,
+         "OnlineUpdater checkpoint-directory poll interval in seconds")
+_declare("PTPU_FAULT_INJECT", "str", None,
+         "deterministic fault-injection spec, e.g. "
+         "'serve_die_at_step:6,ckpt_torn_write:1'")
+# -- tracing and the flight recorder ----------------------------------------
+_declare("PTPU_TRACE", "bool", False,
+         "enable tracing-span recording")
+_declare("PTPU_TRACE_DIR", "path", None,
+         "enable tracing-span recording (the directory a trace is "
+         "dumped into)")
+_declare("PTPU_BLACKBOX_DIR", "path", None,
+         "enable the flight recorder and write its crash dumps "
+         "(ptpu_blackbox_*.json) into this directory")
+_declare("PTPU_BLACKBOX_EVENTS", "int", None,
+         "flight-recorder ring capacity in events (default 4096)")
 
 
 def env(name):

@@ -23,6 +23,7 @@ finish combines the row's splits: one call, one launch, one count in
 """
 
 import ctypes
+import threading
 
 import torch
 
@@ -73,10 +74,12 @@ def paged_attention(k_pages, v_pages, q, block_tables, positions,
 
 
 # kernel launches since the last reset, by window size C (the plain CPU
-# route never counts)
+# route never counts). Serving workers launch from threads of their own,
+# so every count is taken under _count_lock: a bare += could lose one
 paged_attention.window_launches = {}
 # (splits, split_len) of the last kernel launch, K2's or K3's
 paged_attention.last_plan = None
+_count_lock = threading.Lock()
 
 _fn = None
 
@@ -195,6 +198,8 @@ def launch_split(fn, k_pages, v_pages, q, block_tables, positions, extra,
         scratch = torch.empty(n * (Dh + 2), dtype=torch.float32,
                               device=q.device)
         n_counts = B * H * -(-C // 32)
+        # one buffer a stream: a stream's launches run in order, so
+        # they can share it, and only that stream's thread grows it
         key = (q.device, stream.cuda_stream)
         counts = _counters.get(key)
         if counts is None or counts.numel() < n_counts:
@@ -223,7 +228,13 @@ def _paged_attention_cuda(k_pages, v_pages, q, block_tables, positions,
     _check(k_pages, v_pages, q, block_tables, positions)
     out = launch_split(_kernel(), k_pages, v_pages, q, block_tables,
                        positions, (), sm_scale)
-    by_c = paged_attention.window_launches
-    C = q.shape[1]
-    by_c[C] = by_c.get(C, 0) + 1
+    _count_launch(q.shape[1])
     return out
+
+
+def _count_launch(C):
+    """One K2 launch at window C in ``window_launches``, under the lock
+    that K3's count shares."""
+    with _count_lock:
+        by_c = paged_attention.window_launches
+        by_c[C] = by_c.get(C, 0) + 1

@@ -35,7 +35,7 @@ import ctypes
 import torch
 
 from . import _build
-from .paged_attention import _check, launch_split
+from .paged_attention import _check, _count_lock, launch_split
 
 __all__ = ["MAX_TREE_WINDOW", "paged_attention_tree",
            "paged_attention_tree_reference"]
@@ -136,5 +136,6 @@ def _paged_attention_tree_cuda(k_pages, v_pages, q, block_tables, positions,
     _check_tree(k_pages, v_pages, q, block_tables, positions, anc)
     out = launch_split(_kernel(), k_pages, v_pages, q, block_tables,
                        positions, (anc,), sm_scale)
-    paged_attention_tree.launches += 1
+    with _count_lock:
+        paged_attention_tree.launches += 1
     return out

@@ -11,9 +11,12 @@ decode step, a blocked KV-cache pool, speculative verify windows
 It serves one-token and chunked prefill, radix prefix caching,
 speculative decoding with the n-gram drafter or a model drafter, and
 the weight-only int8 store (``GenerationModel.quantized``), and reads
-and writes the JAX package's generation artifact. Weight swaps,
-deadlines, the router, fault injection, tracing and the flight recorder
-of the JAX package are not ported yet.
+and writes the JAX package's generation artifact. One engine serves
+several models (``ServingEngine({"a": m_a, "b": m_b})``), with
+per-request deadlines, health, kill and atomic weight hot swaps
+(``swap_weights``); ``ServingRouter`` fronts engine replicas with
+least-loaded dispatch, a health machine and failover; ``OnlineUpdater``
+rolls new checkpoints across a router's fleet behind a ``CanaryGate``.
 """
 
 from .engine import ServingEngine  # noqa: F401
@@ -22,19 +25,26 @@ from .kv_cache import (KVBlockPool, blocks_needed,  # noqa: F401
 from .loadgen import PoissonLoadGenerator  # noqa: F401
 from .model import (GenerationArtifactError,  # noqa: F401
                     GenerationConfig, GenerationModel, ModelDrafter,
-                    NGramDrafter, load_generation_artifact,
+                    NGramDrafter, extract_decoder_weights,
+                    load_generation_artifact,
                     parse_tree_shape, random_weights, reference_decode,
                     save_generation_artifact, tree_topology,
                     verify_generation_artifact, weight_names)
-from .scheduler import (AdmissionError, GenerationRequest,  # noqa: F401
-                        RequestQueue, StepScheduler, spec_tree_acceptance)
+from .online import CanaryGate, OnlineUpdater  # noqa: F401
+from .router import ServingRouter  # noqa: F401
+from .scheduler import (AdmissionError, DeadlineExceededError,  # noqa: F401
+                        GenerationRequest, RequestQueue, StepScheduler,
+                        spec_tree_acceptance)
 
-__all__ = ["ServingEngine", "KVBlockPool", "blocks_needed",
+__all__ = ["ServingEngine", "ServingRouter", "OnlineUpdater", "CanaryGate",
+           "KVBlockPool", "blocks_needed",
            "prefix_chain_keys", "PoissonLoadGenerator",
            "GenerationArtifactError", "GenerationConfig", "GenerationModel",
-           "ModelDrafter", "NGramDrafter", "load_generation_artifact",
+           "ModelDrafter", "NGramDrafter", "extract_decoder_weights",
+           "load_generation_artifact",
            "parse_tree_shape", "random_weights", "reference_decode",
            "save_generation_artifact", "tree_topology",
            "verify_generation_artifact", "weight_names",
-           "AdmissionError", "GenerationRequest", "RequestQueue",
+           "AdmissionError", "DeadlineExceededError", "GenerationRequest",
+           "RequestQueue",
            "StepScheduler", "spec_tree_acceptance"]

@@ -1,9 +1,13 @@
-"""`ServingEngine` — the continuous-batching generation service front
-end of the PyTorch port.
+"""`ServingEngine` — the multi-model continuous-batching generation
+service front end of the PyTorch port.
 
-The engine serves one model: a scope holding its weights, a blocked KV
-pool on the device, a scheduler, a bounded request queue, and a worker
-thread driving the fixed-shape decode step.
+One engine serves N models: each model gets a scope holding its
+weights, its own blocked KV pool on the device, scheduler, bounded
+request queue, and a worker thread driving the fixed-shape decode step.
+On a CUDA device each worker issues its work on a CUDA stream of its
+own, so the steps of two workers (two models, or two engine replicas
+behind a ``ServingRouter``) can overlap on one card; the weights they
+share are only read.
 ``submit()`` is thread-safe and non-blocking (admission control raises
 ``AdmissionError`` when the queue is full); ``result()``/``request.wait()``
 is the pull side and ``stream=`` callbacks are the push side.
@@ -19,7 +23,10 @@ pinned host memory behind an event, and read only in
 (``max_new_tokens``, the sequence-length cap) are known at dispatch
 time, so the only cost of the lag is a few discarded steps after an
 EOS, whose tokens are never emitted and whose KV writes land in blocks
-the retiring sequence owns until ``reap``.
+the retiring sequence owns until ``reap``. A request's emitted tokens
+are those ``_process_oldest`` delivered: a step that was dispatched but
+not yet read back emits nothing, and a dying worker drops its
+in-flight steps unread.
 
 The serving fast path is two switches, both off by default: **chunked
 prefill** (``prefill_chunk=C``, default ``$PTPU_SERVE_PREFILL_CHUNK``)
@@ -50,15 +57,29 @@ of its slots is out of place; rejected tails roll back through
 ``KVBlockPool.truncate_owner``. Output stays token-identical to greedy
 decoding.
 
+The fleet surface (what ``ServingRouter`` drives): per-request
+deadlines (``deadline_s`` / ``$PTPU_SERVE_DEADLINE_S``, checked at step
+boundaries once a request carries one), ``load()``, ``health()``,
+``kill()`` (every worker aborts at its next step boundary, or out of an
+injected stall, and drains through ``fail_all``), a transient failure
+at the step boundary retried in place up to ``transient_tolerance``
+times in a row, and the ``serve_*`` fault sites. Weight hot swaps go
+through ``swap_weights``, the one entry point: the worker pauses
+admission, drains its batch and its in-flight steps, then installs new
+weight tensors and flushes the prefix cache in one critical section, so
+no request's tokens span two weight versions (``weight_version``).
+
 Telemetry (with metrics enabled): ``serving/{queue_depth,
 batch_occupancy,peak_batch_occupancy,kv_blocks_in_use,inflight_steps,
 tokens_per_sec,request_latency(_p50/_p99),ttft(_p50/_p99),steps,
 prefill_tokens,decode_tokens,prefill_chunk_steps,prefix_blocks_reused,
 prefix_tokens_skipped,requests_submitted,requests_completed,
 requests_rejected,requests_failed,spec_steps,spec_proposed,
-spec_accepted,spec_tree_slots,spec_tree_commits,spec_accept_rate}``.
+spec_accepted,spec_tree_slots,spec_tree_commits,spec_accept_rate,
+deadline_expired,step_transient_retries}`` and ``online/swaps``.
 """
 
+import contextlib
 import threading
 import time
 
@@ -66,10 +87,13 @@ import numpy as np
 import torch
 
 from .. import flags as _flags
+from .. import resilience as _resil
 from ..analysis.concurrency import make_condition
 from ..core.place import resolve_device
 from ..core.scope import Scope
+from ..observability import flight_recorder as _blackbox
 from ..observability import metrics as _metrics
+from ..observability import tracing as _tracing
 from ..ops import paged_attention_tree as _pat
 from ..quant import weight_store_bytes
 from .kv_cache import KVBlockPool, blocks_needed
@@ -83,14 +107,15 @@ __all__ = ["ServingEngine"]
 
 
 class _ModelWorker:
-    """The model's serving state: scope + pool + scheduler + decode
-    thread."""
+    """One model's serving state: scope + pool + scheduler + decode
+    thread (and, on CUDA, the stream it issues on)."""
 
-    def __init__(self, model, max_batch, max_seq_len, block_size,
+    def __init__(self, name, model, max_batch, max_seq_len, block_size,
                  num_blocks, max_queue, async_depth, device,
                  prefill_chunk=0, prefix_cache=False,
                  prefill_token_budget=None, spec_k=0, spec_tree=None,
-                 drafter=None):
+                 drafter=None, transient_tolerance=2):
+        self.name = name
         self.model = model
         self.device = device
         cfg = model.config
@@ -139,7 +164,7 @@ class _ModelWorker:
             prefix_cache=self.prefix_cache,
             prefill_token_budget=(prefill_token_budget
                                   if self.prefill_chunk else None),
-            cache_namespace=model.name, spec_k=self.spec_k,
+            cache_namespace=name, spec_k=self.spec_k,
             drafter=self.drafter, spec_tree=self.spec_tree)
         self.queue = RequestQueue(max_queue)
         self.max_batch = int(max_batch)
@@ -159,12 +184,37 @@ class _ModelWorker:
         self._cv = make_condition("serving.engine.cv")
         self._closing = False
         self.error = None
+        # weight hot swap: a pending swap pauses admission; the worker
+        # applies it at the first step boundary with nothing active or
+        # in flight, so no request's tokens span two weight versions
+        self.weight_version = 0
+        self._pending_swap = None  # [weights, version, event, result]
+        # failover: abort() makes the worker raise at its next step
+        # boundary (or out of an injected stall) and die through the
+        # normal drain path; the transient counters feed the router's
+        # health machine
+        self._abort_error = None
+        self.transient_tolerance = max(0, int(transient_tolerance))
+        self._consec_transient = 0
+        self._transient_retries = 0
+        # set by the first submit carrying a deadline: the deadline scan
+        # never runs on a deadline-free engine
+        self._track_deadlines = False
+        self._tick_retryable = False
         self._gen_tokens = 0
         self._steps_dispatched = 0
         self._t_first_step = None
         self._t_last_step = None
+        # a stream of the worker's own on CUDA: its uploads, steps and
+        # token copies queue there, beside other workers' streams. It
+        # first waits for this thread's stream, where the pool, the
+        # scope's weights and the drafter's state were made
+        self.stream = None
+        if device.type == "cuda":
+            self.stream = torch.cuda.Stream(device)
+            self.stream.wait_stream(torch.cuda.current_stream(device))
         self._thread = threading.Thread(
-            target=self._run, name="ptpu-torch-serve-%s" % model.name,
+            target=self._run, name="ptpu-torch-serve-%s" % name,
             daemon=True)
         self._thread.start()
 
@@ -185,37 +235,142 @@ class _ModelWorker:
                 raise RuntimeError("ServingEngine is closed")
             if self.error is not None:
                 raise RuntimeError("serving worker %r died: %r"
-                                   % (self.model.name, self.error))
+                                   % (self.name, self.error))
+            if request.deadline is not None:
+                self._track_deadlines = True
             self.queue.submit(request)
             self._cv.notify()
         _metrics.counter("serving/requests_submitted").inc()
         _metrics.gauge("serving/queue_depth").set(len(self.queue))
         return request
 
+    # -- failover surface ----------------------------------------------
+    def abort(self, error):
+        """Make the worker raise ``error`` at its next step boundary (or
+        out of an injected stall) and die through the normal drain path:
+        fail_all and the queue drain, the pool left empty. Idempotent
+        once dead or aborted."""
+        with self._cv:
+            if self.error is None and self._abort_error is None:
+                self._abort_error = error
+            self._cv.notify_all()
+
     # -- decode loop ----------------------------------------------------
+    def _idle(self):
+        return (not len(self.queue) and not self.scheduler.has_work()
+                and not self._inflight)
+
     def _run(self):
         try:
             if self.device.type == "cuda":
                 torch.cuda.set_device(self.device)
-            while True:
-                with self._cv:
-                    while (not self._closing and not len(self.queue)
-                           and not self.scheduler.has_work()
-                           and not self._inflight):
-                        self._cv.wait(timeout=0.1)
-                    if (self._closing and not len(self.queue)
-                            and not self.scheduler.has_work()
-                            and not self._inflight):
-                        return
-                self._tick()
+            with (torch.cuda.stream(self.stream) if self.stream is not None
+                  else contextlib.nullcontext()):
+                self._loop()
         except BaseException as e:  # deliver, don't vanish
             self._die(e)
 
+    def _loop(self):
+        while True:
+            with self._cv:
+                while (self._abort_error is None and not self._closing
+                       and self._pending_swap is None and self._idle()):
+                    self._cv.wait(timeout=0.1)
+                abort = self._abort_error
+                if abort is None and self._closing and self._idle():
+                    self._fail_pending_swap(RuntimeError(
+                        "ServingEngine closed with a weight swap "
+                        "pending"))
+                    self._sync_stream()
+                    return
+            if abort is not None:
+                raise abort
+            if self._pending_swap is not None and \
+                    not self.scheduler.has_work() and not self._inflight:
+                # a clean step boundary with the batch drained: install
+                # the new weights and flush the prefix cache together
+                self._apply_swap()
+                continue
+            try:
+                self._tick()
+                self._consec_transient = 0
+            except Exception as e:
+                # a transient failure raised before any scheduler or
+                # pool mutation (the boundary is still consistent) is
+                # retried in place, a bounded number of times in a row;
+                # anything else is replica death, the router's problem
+                if (self._tick_retryable and _resil.is_transient_error(e)
+                        and self._consec_transient
+                        < self.transient_tolerance):
+                    self._consec_transient += 1
+                    self._transient_retries += 1
+                    _metrics.counter("serving/step_transient_retries").inc()
+                    _blackbox.record_event(
+                        "step_transient_retry", model=self.name,
+                        step=self._steps_dispatched, error=repr(e))
+                    continue
+                raise
+
+    def _sync_stream(self):
+        """Wait for the worker's stream (best effort: a dead context
+        raises again here, and the worker is ending either way)."""
+        if self.stream is not None:
+            try:
+                self.stream.synchronize()
+            except Exception:
+                pass
+
+    def _fail_pending_swap(self, error):
+        """Deliver a never-applied swap's failure to its waiter (cv held
+        by the caller): death and close never strand a swap_weights()
+        caller."""
+        if self._pending_swap is None:
+            return
+        swap = self._pending_swap
+        self._pending_swap = None
+        swap[3]["error"] = error
+        swap[2].set()
+
+    def _apply_swap(self):
+        """Install a pending swap at a clean step boundary (_loop checked:
+        nothing active, nothing in flight — every dispatched step's
+        tokens were read back, so the card has finished with the old
+        weights). New tensors replace the scope's entries (the old ones
+        may be shared with other replicas' scopes: never written), and
+        the prefix cache is flushed in the same cv critical section. The
+        upload runs on this worker's stream, so the next step it
+        dispatches reads the new weights."""
+        with self._cv:
+            if self._pending_swap is None:
+                return
+            weights, version, done, result = self._pending_swap
+            self._pending_swap = None
+            if result.get("ready") is not None:
+                self.stream.wait_event(result["ready"])
+            for wname in self._weight_names:
+                cur = self.scope.get(wname)
+                self.scope.set(wname, torch.as_tensor(weights[wname]).to(
+                    device=self.device, dtype=cur.dtype))
+            flushed = self.pool.flush_prefix_cache()
+            self.weight_version = version
+            result["applied"] = True
+            result["flushed"] = flushed
+            done.set()
+        _metrics.counter("online/swaps").inc()
+        _blackbox.record_event("weight_swap", model=self.name,
+                               version=version, flushed=flushed,
+                               step=self._steps_dispatched)
+
     def _die(self, e):
-        """Worker death: the error latch, fail_all and the queue drain
-        run under the lock, atomic with submit()'s liveness check."""
+        """Worker death: the error latch, the swap waiter, fail_all and
+        the queue drain run under the lock, atomic with submit()'s
+        liveness check. Steps still in flight are dropped unread: their
+        tokens were never emitted, so a re-admission continues from what
+        the requests received."""
         with self._cv:
             self.error = e
+            self._inflight = []
+            self._fail_pending_swap(e)
             self.scheduler.fail_all(e)
             while True:
                 req = self.queue.pop()
@@ -223,13 +378,42 @@ class _ModelWorker:
                     break
                 req._finish(e)
                 _metrics.counter("serving/requests_failed").inc()
+        self._sync_stream()
+        # the black box: recorded after the cv region (dump does I/O)
+        _blackbox.record_event("worker_dead", model=self.name,
+                               error=repr(e), steps=self._steps_dispatched)
+        _blackbox.dump("worker_dead")
+
+    def _stall(self):
+        """An injected stall (``serve_stall_at_step``): stop making
+        progress WITHOUT raising and without holding the worker's lock,
+        until the router aborts this worker or the engine closes; then
+        die through the normal drain path."""
+        while self._abort_error is None and not self._closing:
+            time.sleep(0.005)
+        raise (self._abort_error
+               or RuntimeError("stalled serving worker %r closed while "
+                               "wedged" % self.name))
 
     def _tick(self):
         """One scheduler round: admit at the boundary, dispatch one
         fixed-shape step, lag-process materialized tokens, retire."""
+        # up to step planning the scheduler and pool stay consistent, so
+        # a transient failure here is retried in place by _loop (the
+        # fault sites fire here, before any mutation, for that reason)
+        self._tick_retryable = True
+        if _resil.maybe_inject_serve_fault(self._steps_dispatched) == \
+                "stall":
+            self._stall()
         sched = self.scheduler
-        sched.admit(self.queue)
+        if self._track_deadlines:
+            sched.expire_deadlines(self.queue)
+        if self._pending_swap is None:
+            # a pending swap pauses admission so the batch drains to the
+            # clean boundary the swap needs
+            sched.admit(self.queue)
         _metrics.gauge("serving/queue_depth").set(len(self.queue))
+        self._tick_retryable = False
         spec_plan = sched.plan_spec() if self.spec_k else None
         if spec_plan:
             # a verify window is dispatched AND materialized in one
@@ -442,33 +626,84 @@ class _ModelWorker:
         self._thread.join(timeout)
 
 
-class ServingEngine:
-    """Single-model generation service (see the module docstring).
+def _resolve_swap_weights(source, worker):
+    """A swap source (GenerationModel | Scope | dict | artifact dir) in
+    the worker's weight layout, checked name by name against what it
+    serves: a swap changes values, never shapes or the store's dtypes.
+    An artifact directory is digest-verified on load (a torn export
+    never serves); an fp32 model is quantized when the worker serves the
+    int8 store."""
+    if isinstance(source, str):
+        source = load_generation_artifact(source, name=worker.name,
+                                          device=worker.device)
+    if isinstance(source, GenerationModel):
+        if worker.model.weight_only_int8 and not source.weight_only_int8:
+            source = source.quantized()
+        weights = dict(source.weights)
+    elif isinstance(source, Scope):
+        weights = {n: source.get(n) for n in worker._weight_names}
+    elif isinstance(source, dict):
+        weights = source
+    else:
+        raise TypeError(
+            "swap_weights wants a GenerationModel, Scope, weight dict or "
+            "artifact directory, got %r" % (type(source).__name__,))
+    out = {}
+    for n in worker._weight_names:
+        val = weights.get(n)
+        if val is None:
+            raise ValueError(
+                "swap_weights: source has no weight %r for model %r "
+                "(same-architecture weights required)" % (n, worker.name))
+        if not isinstance(val, torch.Tensor):
+            val = np.ascontiguousarray(val)
+        cur = worker.scope.get(n)
+        if tuple(val.shape) != tuple(cur.shape):
+            raise ValueError(
+                "swap_weights: weight %r shape %s != served shape %s for "
+                "model %r — a swap cannot change geometry"
+                % (n, tuple(val.shape), tuple(cur.shape), worker.name))
+        is_int8 = str(val.dtype).endswith("int8")
+        if is_int8 != (cur.dtype == torch.int8):
+            raise ValueError(
+                "swap_weights: weight %r is %s but model %r serves %s"
+                % (n, val.dtype, worker.name, cur.dtype))
+        out[n] = val
+    return out
 
-    ``model`` is a ``GenerationModel`` or a generation-artifact directory
-    (loaded onto the engine's device). ``device=None`` is ``cuda:0`` and
-    raises without CUDA; ``device="cpu"`` runs the plain PyTorch path.
-    The model must live on the engine's device. ``prefill_chunk`` (prompt
-    tokens a prefill row takes a step, clamped to the context) turns
-    chunked prefill on, with ``prefill_token_budget`` prompt tokens a
-    step at most (default 4 chunks); ``prefix_cache`` turns radix prefix
-    caching on. ``spec_k`` (a linear verify window of ``spec_k`` drafts)
-    or ``spec_tree`` (``"WxD"``: W chains of depth D) turns speculative
+
+class ServingEngine:
+    """Multi-model generation service (see the module docstring).
+
+    ``models`` is a ``GenerationModel``, a generation-artifact directory
+    (loaded onto the engine's device), or a ``{name: model or artifact
+    directory}`` dict; a single model is served as ``"default"``.
+    ``device=None`` is ``cuda:0`` and raises without CUDA;
+    ``device="cpu"`` runs the plain PyTorch path. Every model must live
+    on the engine's device. ``prefill_chunk`` (prompt tokens a prefill
+    row takes a step, clamped to the context) turns chunked prefill on,
+    with ``prefill_token_budget`` prompt tokens a step at most (default
+    4 chunks); ``prefix_cache`` turns radix prefix caching on.
+    ``spec_k`` (a linear verify window of ``spec_k`` drafts) or
+    ``spec_tree`` (``"WxD"``: W chains of depth D) turns speculative
     decoding on; the windows are clamped to the context (a depth of at
     most ``max_seq_len - 1``), as the JAX engine clamps them. ``drafter``
     (an object with ``propose(history, k)``, optionally ``propose_for``,
     ``propose_tree``, ``propose_batch``, ``propose_tree_batch``, ``bind``
     and ``release``, such as ``ModelDrafter``) defaults to a
-    ``ModelDrafter`` over the artifact ``$PTPU_SERVE_DRAFT_MODEL`` names,
-    else to ``NGramDrafter``. Each switch left ``None`` reads its
-    ``$PTPU_SERVE_*`` flag.
+    ``ModelDrafter`` over the artifact ``$PTPU_SERVE_DRAFT_MODEL`` names
+    (one a model), else to ``NGramDrafter``. ``deadline_s`` is each
+    request's default deadline (``submit``). A transient step failure is
+    retried in place up to ``transient_tolerance`` times in a row. Each
+    switch left ``None`` reads its ``$PTPU_SERVE_*`` flag.
     """
 
-    def __init__(self, model, max_batch=8, max_seq_len=256,
+    def __init__(self, models, max_batch=8, max_seq_len=256,
                  block_size=16, num_blocks=None, max_queue=64,
                  async_depth=None, device=None, prefill_chunk=None,
                  prefix_cache=None, prefill_token_budget=None, spec_k=None,
-                 spec_tree=None, drafter=None):
+                 spec_tree=None, drafter=None, deadline_s=None,
+                 transient_tolerance=2):
         device = resolve_device(device)
         if async_depth is None:
             async_depth = _flags.env("PTPU_SERVE_ASYNC_STEPS")
@@ -480,41 +715,164 @@ class ServingEngine:
             spec_k = _flags.env("PTPU_SERVE_SPEC_K")
         if spec_tree is None:
             spec_tree = _flags.env("PTPU_SERVE_SPEC_TREE")
-        if isinstance(model, str):
-            model = load_generation_artifact(model, device=device)
-        if not isinstance(model, GenerationModel):
-            raise TypeError("model must be a GenerationModel or an artifact "
-                            "directory, got %r" % type(model).__name__)
-        if model.device != device:
-            raise ValueError(
-                "the model lives on %s but the engine serves on %s — "
-                "build the model with device=%r"
-                % (model.device, device, str(device)))
+        if deadline_s is None:
+            deadline_s = _flags.env("PTPU_SERVE_DEADLINE_S")
         draft_model = _flags.env("PTPU_SERVE_DRAFT_MODEL")
-        if drafter is None and draft_model:
-            drafter = ModelDrafter(load_generation_artifact(
-                draft_model, name=model.name + ".draft", device=device))
         self.device = device
+        self._deadline_s = deadline_s
+        if not isinstance(models, dict):
+            models = {"default": models}
+        if not models:
+            raise ValueError("ServingEngine needs at least one model")
+        self._workers = {}
+        for name, model in models.items():
+            if isinstance(model, str):
+                model = load_generation_artifact(model, name=name,
+                                                 device=device)
+            if not isinstance(model, GenerationModel):
+                raise TypeError(
+                    "model %r must be a GenerationModel or an artifact "
+                    "directory, got %r" % (name, type(model).__name__))
+            if model.device != device:
+                raise ValueError(
+                    "model %r lives on %s but the engine serves on %s — "
+                    "build the model with device=%r"
+                    % (name, model.device, device, str(device)))
+            worker_drafter = drafter
+            if worker_drafter is None and draft_model:
+                # one ModelDrafter a worker: its pool and slots are
+                # never shared across worker threads
+                worker_drafter = ModelDrafter(load_generation_artifact(
+                    draft_model, name=name + ".draft", device=device))
+            self._workers[name] = _ModelWorker(
+                name, model, max_batch=max_batch, max_seq_len=max_seq_len,
+                block_size=block_size, num_blocks=num_blocks,
+                max_queue=max_queue, async_depth=async_depth, device=device,
+                prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
+                prefill_token_budget=prefill_token_budget, spec_k=spec_k,
+                spec_tree=spec_tree, drafter=worker_drafter,
+                transient_tolerance=transient_tolerance)
+        self._default = next(iter(self._workers))
         self._closed = False
-        self._worker = _ModelWorker(
-            model, max_batch=max_batch, max_seq_len=max_seq_len,
-            block_size=block_size, num_blocks=num_blocks,
-            max_queue=max_queue, async_depth=async_depth, device=device,
-            prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
-            prefill_token_budget=prefill_token_budget, spec_k=spec_k,
-            spec_tree=spec_tree, drafter=drafter)
 
     # -- public API -----------------------------------------------------
-    def submit(self, prompt, max_new_tokens=32, eos_id=None, stream=None):
-        """Enqueue one generation request; returns the
-        :class:`GenerationRequest` handle. Raises
-        :class:`AdmissionError` when the queue is full."""
+    @property
+    def model_names(self):
+        return list(self._workers)
+
+    def model_scope(self, model=None):
+        """The named model's weight scope."""
+        return self._workers[model or self._default].scope
+
+    def weight_version(self, model=None):
+        """The named model's weight version: 0 for the weights the engine
+        was built with, then each applied ``swap_weights``'s (the old
+        version + 1, or that call's ``version``)."""
+        return self._workers[model or self._default].weight_version
+
+    def export_weights(self, model=None):
+        """A host copy (numpy) of the named model's served weights, taken
+        under the worker's lock, so never half a swap: what an
+        ``OnlineUpdater`` keeps as its rollback source."""
+        w = self._workers[model or self._default]
+        with w._cv:
+            return {n: w.scope.get(n).detach().cpu().numpy()
+                    for n in w._weight_names}
+
+    def swap_weights(self, scope_or_artifact, model=None, version=None,
+                     timeout=30.0):
+        """Hot-swap the named model's served weights, atomically.
+
+        ``scope_or_artifact`` is a ``GenerationModel``, a weight
+        ``Scope``, a ``{name: array or tensor}`` dict or an artifact
+        directory (digest-verified on load: a torn export raises
+        ``GenerationArtifactError`` and is never served). The worker
+        pauses admission and lets its batch and its in-flight steps
+        drain; then it installs new weight tensors (on its own stream,
+        before the next step it dispatches) and flushes the prefix cache
+        in one critical section. So no request's tokens span two weight
+        versions, and queued requests are served wholly on the new ones.
+
+        Returns the new version (``version``, else the old one + 1).
+        Raises ``TimeoutError`` when the batch does not drain within
+        ``timeout`` seconds (the swap is cancelled) and ``RuntimeError``
+        when the worker dies first."""
         if self._closed:
             raise RuntimeError("ServingEngine is closed")
+        name = model or self._default
+        if name not in self._workers:
+            raise KeyError("unknown model %r (have %r)"
+                           % (name, list(self._workers)))
+        w = self._workers[name]
+        weights = _resolve_swap_weights(scope_or_artifact, w)
+        done = threading.Event()
+        result = {"applied": False, "error": None, "flushed": 0,
+                  "ready": None}
+        if w.stream is not None:
+            # device sources were made on this thread's stream: the
+            # worker's stream waits for them before the install
+            result["ready"] = torch.cuda.Event()
+            result["ready"].record(torch.cuda.current_stream(w.device))
+        with w._cv:
+            if w.error is not None:
+                raise RuntimeError("serving worker %r died: %r"
+                                   % (name, w.error))
+            if w._pending_swap is not None:
+                raise RuntimeError(
+                    "model %r already has a weight swap pending" % name)
+            if version is None:
+                version = w.weight_version + 1
+            entry = [weights, int(version), done, result]
+            w._pending_swap = entry
+            w._cv.notify_all()
+        if not done.wait(timeout):
+            with w._cv:
+                if w._pending_swap is entry:
+                    w._pending_swap = None
+                    raise TimeoutError(
+                        "swap_weights for model %r not applied within "
+                        "%.1fs (active batch still draining) — swap "
+                        "cancelled" % (name, timeout))
+            # the worker took it as we timed out: the event comes soon
+            done.wait(timeout)
+        if not result["applied"]:
+            raise RuntimeError(
+                "serving worker %r failed before applying the swap: %r"
+                % (name, result["error"]))
+        return int(version)
+
+    def submit(self, prompt, max_new_tokens=32, eos_id=None, stream=None,
+               model=None, deadline_s=None):
+        """Enqueue one generation request; returns the
+        :class:`GenerationRequest` handle. Raises
+        :class:`AdmissionError` when the model's queue is full.
+        ``deadline_s`` (default: the engine's ``deadline_s`` /
+        ``$PTPU_SERVE_DEADLINE_S``; unset waits forever) fails the
+        request with ``DeadlineExceededError`` at the next step boundary
+        once that many seconds passed."""
+        if deadline_s is None:
+            deadline_s = self._deadline_s
+        trace_id = _tracing.new_trace_id() if _tracing.enabled() else None
         request = GenerationRequest(prompt, max_new_tokens=max_new_tokens,
-                                    eos_id=eos_id, stream=stream)
+                                    eos_id=eos_id, stream=stream,
+                                    model=model or self._default,
+                                    deadline_s=deadline_s,
+                                    trace_id=trace_id)
+        return self.submit_request(request)
+
+    def submit_request(self, request):
+        """Enqueue a pre-built :class:`GenerationRequest` (the router's
+        re-admission builds the request first, so its callbacks are
+        attached before any token can flow). ``request.model`` picks the
+        worker (None: the default)."""
+        if self._closed:
+            raise RuntimeError("ServingEngine is closed")
+        name = request.model or self._default
+        if name not in self._workers:
+            raise KeyError("unknown model %r (have %r)"
+                           % (name, list(self._workers)))
         try:
-            return self._worker.submit(request)
+            return self._workers[name].submit(request)
         except AdmissionError:
             _metrics.counter("serving/requests_rejected").inc()
             raise
@@ -523,50 +881,96 @@ class ServingEngine:
         """Block until ``request`` completed; returns its token list."""
         return request.wait(timeout)
 
-    def generate(self, prompt, max_new_tokens=32, eos_id=None,
+    # -- fleet surface --------------------------------------------------
+    def load(self):
+        """Queued plus in-batch requests across the models: what the
+        router's least-loaded dispatch reads."""
+        return sum(len(w.queue) + w.scheduler.num_occupied
+                   for w in self._workers.values())
+
+    def health(self):
+        """Per-model liveness and progress, for the router's watchdog:
+        the worker thread's liveness, the latched death error, the
+        dispatched-step count (the stall watchdog's progress signal),
+        whether work is pending, and the transient-failure counts."""
+        out = {}
+        for name, w in self._workers.items():
+            out[name] = {
+                "alive": w.error is None and w._thread.is_alive(),
+                "error": w.error,
+                "steps": w._steps_dispatched,
+                "busy": bool(len(w.queue) or w.scheduler.has_work()
+                             or w._inflight),
+                "consecutive_transient_errors": w._consec_transient,
+                "transient_retries": w._transient_retries,
+            }
+        return out
+
+    def kill(self, error=None):
+        """Put the whole engine down as a dead replica goes down: every
+        worker aborts at its next step boundary (or out of an injected
+        stall), failing its in-batch and queued requests with ``error``
+        and draining its pool through ``fail_all``. New submits are
+        refused. Returns ``error``."""
+        if error is None:
+            error = RuntimeError("ServingEngine killed")
+        self._closed = True
+        for w in self._workers.values():
+            w.abort(error)
+        return error
+
+    def generate(self, prompt, max_new_tokens=32, eos_id=None, model=None,
                  timeout=None):
         """Synchronous convenience: submit + wait."""
         return self.result(
             self.submit(prompt, max_new_tokens=max_new_tokens,
-                        eos_id=eos_id), timeout)
+                        eos_id=eos_id, model=model), timeout)
 
     def stats(self):
-        w = self._worker
-        sched = w.scheduler
-        return {
-            "queue_depth": len(w.queue),
-            "batch_occupancy": sched.num_occupied,
-            "generated_tokens": w._gen_tokens,
-            "steps": w._steps_dispatched,
-            "error": None if w.error is None else repr(w.error),
-            "prefill_chunk": w.prefill_chunk,
-            "prefill_chunk_steps": w.chunk_steps,
-            "prefix_cache": w.prefix_cache,
-            "prefix_blocks_reused": sched.prefix_blocks_reused,
-            "prefix_tokens_skipped": sched.prefix_tokens_skipped,
-            "spec_k": w.spec_k,
-            "spec_tree": "%dx%d" % w.spec_tree if w.spec_tree else None,
-            "spec_steps": sched.spec_steps,
-            "spec_proposed": sched.spec_proposed,
-            "spec_accepted": sched.spec_accepted,
-            "spec_emitted": sched.spec_emitted,
-            "spec_accept_rate": (sched.spec_accepted
-                                 / max(1, sched.spec_proposed)),
-            "spec_tree_slots": sched.spec_tree_slots,
-            "spec_tree_commits": w.spec_tree_commits,
-            "spec_blocks_rolled_back": sched.spec_blocks_rolled_back,
-            "spec_draft_steps": getattr(w.drafter, "draft_steps", 0),
-            "weight_only_int8": w.model.weight_only_int8,
-            "weight_store": weight_store_bytes(w.model.weights),
-            **w.pool.stats(),
-        }
+        """``{model name: {...}}``: the JAX engine's keys, plus the
+        worker's death error and its chunk-step count."""
+        out = {}
+        for name, w in self._workers.items():
+            sched = w.scheduler
+            out[name] = {
+                "queue_depth": len(w.queue),
+                "batch_occupancy": sched.num_occupied,
+                "generated_tokens": w._gen_tokens,
+                "steps": w._steps_dispatched,
+                "error": None if w.error is None else repr(w.error),
+                "prefill_chunk": w.prefill_chunk,
+                "prefill_chunk_steps": w.chunk_steps,
+                "prefix_cache": w.prefix_cache,
+                "prefix_blocks_reused": sched.prefix_blocks_reused,
+                "prefix_tokens_skipped": sched.prefix_tokens_skipped,
+                "spec_k": w.spec_k,
+                "spec_tree": "%dx%d" % w.spec_tree if w.spec_tree else None,
+                "spec_steps": sched.spec_steps,
+                "spec_proposed": sched.spec_proposed,
+                "spec_accepted": sched.spec_accepted,
+                "spec_emitted": sched.spec_emitted,
+                "spec_blocks_rolled_back": sched.spec_blocks_rolled_back,
+                "spec_tree_slots": sched.spec_tree_slots,
+                "spec_tree_commits": w.spec_tree_commits,
+                "spec_accept_rate": (sched.spec_accepted
+                                     / max(1, sched.spec_proposed)),
+                "spec_draft_steps": getattr(w.drafter, "draft_steps", 0),
+                "weight_version": w.weight_version,
+                "weight_only_int8": w.model.weight_only_int8,
+                "weight_store": weight_store_bytes(w.model.weights),
+                "deadline_expired": sched.deadline_expired,
+                "transient_retries": w._transient_retries,
+                **w.pool.stats(),
+            }
+        return out
 
     def close(self, timeout=30.0):
-        """Drain outstanding requests and stop the worker thread."""
+        """Drain outstanding requests and stop the worker threads."""
         if self._closed:
             return
         self._closed = True
-        self._worker.close(timeout)
+        for w in self._workers.values():
+            w.close(timeout)
 
     def __enter__(self):
         return self

@@ -29,7 +29,9 @@
   * the generation artifact: ``save_generation_artifact``,
     ``verify_generation_artifact`` and ``load_generation_artifact``
     write and read the JAX package's ``__generation__.npz``, meta JSON
-    and sha256 manifest.
+    and sha256 manifest; ``extract_decoder_weights`` lifts the decoder
+    out of a ``models.transformer_fluid.build`` Program and its scope
+    into that layout (``inference.export_generation_model`` writes it).
 
 The weight layout is the JAX package's flat dict (``weight_names``, and
 ``<name>@qscale`` beside each int8 weight), the layout its
@@ -86,7 +88,8 @@ torch.backends.cudnn.allow_tf32 = False
 
 __all__ = ["GENERATION_MANIFEST", "GENERATION_META", "GENERATION_WEIGHTS",
            "GenerationArtifactError", "GenerationConfig", "GenerationModel",
-           "ModelDrafter", "NGramDrafter", "load_generation_artifact",
+           "ModelDrafter", "NGramDrafter", "extract_decoder_weights",
+           "load_generation_artifact",
            "parse_tree_shape", "random_weights", "reference_decode",
            "save_generation_artifact", "tree_topology",
            "verify_generation_artifact", "weight_names"]
@@ -1124,6 +1127,126 @@ class ModelDrafter:
 
 
 # ---------------------------------------------------------------------------
+# extraction from a transformer_fluid.build program
+# ---------------------------------------------------------------------------
+
+
+def extract_decoder_weights(program, scope, max_seq_len=None):
+    """Lift the decoder weights out of a Program built by the port's
+    ``models.transformer_fluid.build(remat=False)`` and the scope holding
+    its parameters (after the startup program ran) into the serving
+    layout, with the JAX package's names and arrangement.
+
+    The walk is positional over op types, so the elementwise and reshape
+    plumbing between them does not matter: the embedding comes from the
+    ``lookup_table`` op, each layer's weights from the in-order
+    ``layer_norm`` / ``fused_multihead_attention`` / parameter ``mul``
+    ops, and the LM head from the (chunk-shared) head matmuls. Returns
+    ``(GenerationConfig, {name: fp32 numpy array})``."""
+    block = program.global_block()
+
+    def _is_param(name):
+        v = block._find_var_recursive(name)
+        return v is not None and getattr(v, "persistable", False)
+
+    def _val(name):
+        val = scope.get(name)
+        if val is None:
+            raise RuntimeError(
+                "parameter %r has no value — run the startup program "
+                "before exporting" % name)
+        if isinstance(val, torch.Tensor):
+            return val.detach().float().cpu().numpy()
+        return np.asarray(val, np.float32)
+
+    emb = None
+    pe_alpha = pe_beta = 1.0
+    lns, atts, muls = [], [], []
+    pending_mul = None
+    for op in block.ops:
+        if op.type == "lookup_table" and emb is None:
+            emb = op.inputs["W"][0].name
+        elif op.type == "add_position_encoding":
+            pe_alpha = op.attrs.get("alpha", 1.0)
+            pe_beta = op.attrs.get("beta", 1.0)
+        elif op.type == "layer_norm":
+            lns.append((op.inputs["Scale"][0].name,
+                        op.inputs["Bias"][0].name))
+        elif op.type == "fused_multihead_attention":
+            atts.append({k: v[0].name for k, v in op.inputs.items()
+                         if k != "X"})
+        elif op.type == "mul" and _is_param(op.inputs["Y"][0].name):
+            pending_mul = [op.inputs["Y"][0].name, None]
+            muls.append(pending_mul)
+        elif (op.type == "elementwise_add" and pending_mul is not None
+              and _is_param(op.inputs["Y"][0].name)):
+            pending_mul[1] = op.inputs["Y"][0].name
+            pending_mul = None
+        elif op.type == "recompute":
+            raise NotImplementedError(
+                "extract_decoder_weights walks the flat op list — build "
+                "the program with transformer_fluid.build(remat=False)")
+
+    if emb is None or not atts:
+        raise ValueError(
+            "program does not look like transformer_fluid.build output "
+            "(no embedding / fused_multihead_attention ops found)")
+    L = len(atts)
+    if len(lns) != 2 * L + 1:
+        raise ValueError(
+            "expected %d layer_norm ops for %d layers, found %d — only "
+            "the remat=False, dropout_rate=0 build is exportable"
+            % (2 * L + 1, L, len(lns)))
+    ffn_muls = muls[:2 * L]
+    head_params = {m[0] for m in muls[2 * L:]}
+    if len(ffn_muls) != 2 * L or len(head_params) != 1:
+        raise ValueError(
+            "expected 2 FFN matmuls per layer plus one shared LM-head "
+            "parameter; found %d muls over params %r"
+            % (len(muls), sorted({m[0] for m in muls})))
+
+    emb_w = _val(emb)
+    V, D = emb_w.shape
+    H = _val(atts[0]["WQ"]).shape[1]
+    F = _val(ffn_muls[0][0]).shape[1]
+    config = GenerationConfig(
+        vocab_size=V, d_model=D, n_heads=H, n_layers=L, d_ff=F,
+        max_seq_len=max_seq_len or 512, pe_alpha=pe_alpha,
+        pe_beta=pe_beta)
+    weights = {"embedding": emb_w,
+               "lm_head": _val(next(iter(head_params))),
+               "final_ln_scale": _val(lns[2 * L][0]),
+               "final_ln_bias": _val(lns[2 * L][1])}
+    if weights["lm_head"].shape != (D, V):
+        raise ValueError("LM head shape %r != (d_model, vocab)"
+                         % (weights["lm_head"].shape,))
+    zeros = np.zeros(D, np.float32)
+    for i in range(L):
+        p = "l%d/" % i
+        att = atts[i]
+        # [D, H, Dh] per-head projections -> the fused [D, 3D] qkv matmul
+        weights[p + "wqkv"] = np.concatenate(
+            [_val(att[k]).reshape(D, D) for k in ("WQ", "WK", "WV")],
+            axis=1)
+        weights[p + "bqkv"] = np.concatenate(
+            [_val(att[k]).reshape(D) if k in att else zeros
+             for k in ("BQ", "BK", "BV")])
+        weights[p + "wproj"] = _val(att["WO"]).reshape(D, D)
+        weights[p + "bproj"] = _val(att["BO"]) if "BO" in att else zeros
+        weights[p + "ln1_scale"] = _val(lns[2 * i][0])
+        weights[p + "ln1_bias"] = _val(lns[2 * i][1])
+        weights[p + "ln2_scale"] = _val(lns[2 * i + 1][0])
+        weights[p + "ln2_bias"] = _val(lns[2 * i + 1][1])
+        for j, nm in ((0, "ff1"), (1, "ff2")):
+            wname, bname = ffn_muls[2 * i + j]
+            weights[p + "w" + nm] = _val(wname)
+            weights[p + "b" + nm] = (
+                _val(bname) if bname is not None
+                else np.zeros(weights[p + "w" + nm].shape[1], np.float32))
+    return config, weights
+
+
+# ---------------------------------------------------------------------------
 # the generation artifact (the JAX package's format)
 # ---------------------------------------------------------------------------
 
@@ -1165,14 +1288,33 @@ def _fsync(path):
         os.close(fd)
 
 
+def _maybe_tear_export(dirname):
+    """The ``ckpt_torn_export`` fault site: after a publish lands,
+    corrupt and truncate the weights payload in place, the torn export
+    the digest manifest exists to catch."""
+    from ..resilience import global_injector
+
+    if not global_injector().fire_occurrence("ckpt_torn_export"):
+        return
+    path = os.path.join(dirname, GENERATION_WEIGHTS)
+    with open(path, "r+b") as f:
+        data = f.read()
+        if not data:
+            return
+        f.seek(0)
+        f.write(bytes(b ^ 0xFF for b in data[: max(1, len(data) // 2)]))
+        f.truncate(max(1, len(data) // 2))
+
+
 def save_generation_artifact(dirname, config, weights):
     """Publish a generation artifact atomically, in the JAX package's
     format: an npz of fp32 weights, the config as JSON and a manifest of
     per-weight sha256 digests and file sizes. Everything is written to a
     temporary directory first; a new ``dirname`` appears by one rename,
     an existing one is replaced file by file, the manifest last.
-    ``weights`` maps names to numpy arrays or tensors. Returns the npz
-    path."""
+    ``weights`` maps names to numpy arrays or tensors. The
+    ``ckpt_torn_export`` fault site fires after the publish. Returns the
+    npz path."""
     dirname = os.path.abspath(dirname)
     parent = os.path.dirname(dirname)
     os.makedirs(parent, exist_ok=True)
@@ -1209,6 +1351,7 @@ def save_generation_artifact(dirname, config, weights):
         shutil.rmtree(tmp, ignore_errors=True)
     _fsync(dirname)
     _fsync(parent)
+    _maybe_tear_export(dirname)
     return os.path.join(dirname, GENERATION_WEIGHTS)
 
 

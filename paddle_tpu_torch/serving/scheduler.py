@@ -40,6 +40,13 @@ D. ``record_spec`` / ``record_spec_tree`` fold the materialized window
 back: the accepted drafts plus the target's correction token are
 emitted (>= 1 token a window), and the KV blocks past the rewound
 position go back through ``KVBlockPool.truncate_owner`` (rollback).
+
+Deadlines (``GenerationRequest(deadline_s=)``, off by default): the
+engine calls ``expire_deadlines`` at its step boundaries once a request
+carrying one arrives; an expired request fails with
+``DeadlineExceededError``, queued or mid-batch, and a mid-batch one
+retires through ``reap`` so the pool's accounting is the retirement
+path's.
 """
 
 import itertools
@@ -50,11 +57,14 @@ from collections import deque
 import numpy as np
 
 from ..analysis.concurrency import make_lock
+from ..observability import flight_recorder as _blackbox
 from ..observability import metrics as _metrics
+from ..observability import tracing as _tracing
 from .kv_cache import blocks_needed, prefix_chain_keys
 
-__all__ = ["AdmissionError", "GenerationRequest", "RequestQueue",
-           "StepScheduler", "spec_tree_acceptance"]
+__all__ = ["AdmissionError", "DeadlineExceededError", "GenerationRequest",
+           "RequestQueue", "StepScheduler", "check_request_args",
+           "spec_tree_acceptance"]
 
 _req_ids = itertools.count()
 
@@ -101,27 +111,57 @@ class AdmissionError(RuntimeError):
     """Raised by submit() when the request queue is at capacity."""
 
 
+class DeadlineExceededError(TimeoutError):
+    """Delivered into a request whose ``deadline_s`` passed before it
+    completed: the scheduler fails it at the next step boundary, queued
+    or mid-batch. Counted in ``serving/requests_failed`` and
+    ``serving/deadline_expired``."""
+
+
+def check_request_args(prompt, max_new_tokens, deadline_s=None):
+    """The request validation ``GenerationRequest`` and the router's
+    ``RouterRequest`` share (one rule set for both submit surfaces):
+    returns the int-coerced prompt."""
+    prompt = [int(t) for t in prompt]
+    if not prompt:
+        raise ValueError("prompt must hold at least one token")
+    if max_new_tokens < 1:
+        raise ValueError("max_new_tokens must be >= 1")
+    if deadline_s is not None and float(deadline_s) <= 0:
+        raise ValueError("deadline_s must be > 0 (got %r)" % (deadline_s,))
+    return prompt
+
+
 class GenerationRequest:
     """One generation request plus its completion surface.
 
     ``stream`` (optional) is called as ``stream(request, token_id,
     finished)`` from the engine thread for every generated token, in
-    order. ``wait()`` is the pull side.
+    order. ``wait()`` is the pull side. ``model`` names the engine's
+    model (None: its default). ``deadline_s`` (None: wait forever) fails
+    the request with ``DeadlineExceededError`` once that many seconds
+    passed since submit. ``on_finish`` is called once, from ``_finish``,
+    on success or error, possibly from an engine thread: it must not
+    call back into an engine. ``trace_id`` is the request's tracing
+    identity (None with tracing off).
     """
 
     def __init__(self, prompt, max_new_tokens=32, eos_id=None,
-                 stream=None):
-        prompt = [int(t) for t in prompt]
-        if not prompt:
-            raise ValueError("prompt must hold at least one token")
-        if max_new_tokens < 1:
-            raise ValueError("max_new_tokens must be >= 1")
+                 stream=None, model=None, deadline_s=None, on_finish=None,
+                 trace_id=None):
+        prompt = check_request_args(prompt, max_new_tokens, deadline_s)
         self.id = next(_req_ids)
+        self.model = model
+        self.trace_id = trace_id
         self.prompt = prompt
         self.max_new_tokens = int(max_new_tokens)
         self.eos_id = eos_id
         self.stream = stream
+        self.on_finish = on_finish
         self.submit_time = time.perf_counter()
+        # absolute perf_counter deadline; None = wait forever
+        self.deadline = (self.submit_time + float(deadline_s)
+                         if deadline_s is not None else None)
         self.start_time = None        # admitted to the batch
         self.first_token_time = None  # first generated token materialized
         self.finish_time = None
@@ -159,6 +199,11 @@ class GenerationRequest:
         self.error = error
         self.finish_time = time.perf_counter()
         self._done.set()
+        if self.on_finish is not None:
+            try:
+                self.on_finish(self)
+            except Exception:
+                pass  # a completion consumer must not kill the engine
 
 
 class RequestQueue:
@@ -188,6 +233,17 @@ class RequestQueue:
     def pop(self):
         with self._lock:
             return self._q.popleft() if self._q else None
+
+    def pop_expired(self, now):
+        """Remove and return every queued request whose deadline passed
+        (the survivors keep their order)."""
+        with self._lock:
+            expired = [r for r in self._q
+                       if r.deadline is not None and now >= r.deadline]
+            if expired:
+                dead = set(id(r) for r in expired)
+                self._q = deque(r for r in self._q if id(r) not in dead)
+        return expired
 
 
 class _Sequence:
@@ -269,6 +325,8 @@ class StepScheduler:
         self.spec_emitted = 0
         self.spec_blocks_rolled_back = 0
         self.spec_tree_slots = 0
+        # host-side deadline telemetry (live with metrics off)
+        self.deadline_expired = 0
         if self.spec_k:
             width = (1 + self.spec_tree[0] * self.spec_tree[1]
                      if self.spec_tree else self.spec_k + 1)
@@ -742,6 +800,54 @@ class StepScheduler:
             seq.finished = True
             seq.dispatch_done = True
             request._finish()
+
+    # -- deadlines ------------------------------------------------------
+    def expire_deadlines(self, queue, now=None):
+        """Fail every request whose deadline passed: queued ones leave
+        the queue at once; mid-batch sequences stop dispatching and
+        retire through ``reap`` once their in-flight steps drain, so the
+        pool's accounting is the retirement path's. The engine calls it
+        at step boundaries once a request carrying a deadline arrived.
+        Returns the number of requests expired."""
+        if now is None:
+            now = time.perf_counter()
+        expired = 0
+        for request in queue.pop_expired(now):
+            request._finish(DeadlineExceededError(
+                "request %d exceeded its deadline while queued "
+                "(waited %.3fs)" % (request.id, now - request.submit_time)))
+            self._note_expired(request, "queued")
+            expired += 1
+        for seq in self.slots:
+            if seq is None or seq.finished:
+                continue
+            deadline = seq.request.deadline
+            if deadline is None or now < deadline:
+                continue
+            seq.finished = True
+            seq.dispatch_done = True
+            seq.request._finish(DeadlineExceededError(
+                "request %d exceeded its deadline mid-generation "
+                "(%d/%d tokens emitted)"
+                % (seq.request.id, len(seq.request.tokens),
+                   seq.request.max_new_tokens)))
+            self._note_expired(seq.request, "mid_generation")
+            expired += 1
+        if expired:
+            self.deadline_expired += expired
+            _metrics.counter("serving/requests_failed").inc(expired)
+            _metrics.counter("serving/deadline_expired").inc(expired)
+        return expired
+
+    @staticmethod
+    def _note_expired(request, where):
+        """Trace marker and flight-recorder event for one expired
+        request (both no-ops when off)."""
+        if request.trace_id is not None and _tracing.enabled():
+            _tracing.instant("deadline_expired", trace_id=request.trace_id,
+                             request=request.id, where=where)
+        _blackbox.record_event("deadline_expired", request=request.id,
+                               where=where)
 
     def reap(self):
         """Retire slots whose sequence is complete AND fully drained (no

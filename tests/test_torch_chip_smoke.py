@@ -28,7 +28,12 @@ a small width:
     legs serve the int8 store, and a planted wrong int8 token fails it
     naming the request; the launch accounting of a bench call (target
     steps by kind, a drafter's catch-ups and draft steps read from their
-    sum) sees a missing launch."""
+    sum) sees a missing launch;
+  * the fleet and online phase (phase 4e) at the same width: its four
+    legs pass; its launch accounting across replicas (a dead replica's
+    steps included) sees a missing launch; its failover gates fail each
+    planted fault (a second failover, a lost or failed request, no dead
+    replica, a dead pool holding a block, a wrong token)."""
 
 import importlib.util
 import json
@@ -242,10 +247,11 @@ def test_spec_chunk_phase_on_the_cpu(smoke, capsys):
 def _engine(steps, chunk, spec, spec_k=0, tree=None, draft=0, dchunk=None,
             prefill_chunk=8):
     """One engine's entry for ``engine_launches``."""
-    return {"stats": {"steps": steps, "prefill_chunk_steps": chunk,
-                      "prefill_chunk": prefill_chunk, "spec_steps": spec,
-                      "spec_k": spec_k, "spec_tree": tree,
-                      "spec_draft_steps": draft},
+    return {"stats": {"default": {
+                "steps": steps, "prefill_chunk_steps": chunk,
+                "prefill_chunk": prefill_chunk, "spec_steps": spec,
+                "spec_k": spec_k, "spec_tree": tree,
+                "spec_draft_steps": draft}},
             "drafter_chunk": dchunk}
 
 
@@ -261,7 +267,7 @@ def test_spec_launches_accounts_for_the_drafter(smoke):
     assert smoke.engine_launches(L, tree, k2) == (k2, 4 * L)
     short = {1: k2[1] - 1, 8: k2[8]}
     assert smoke.engine_launches(L, tree, short)[0] != short
-    tree["tree_model"]["stats"]["spec_draft_steps"] = 6
+    tree["tree_model"]["stats"]["default"]["spec_draft_steps"] = 6
     assert smoke.engine_launches(L, tree, k2)[0] != k2
     linear = {"linear_c8": _engine(10, 3, 4, spec_k=6)}
     assert smoke.engine_launches(L, linear, {}) == \
@@ -385,5 +391,105 @@ def test_bench_launches_accounts_for_every_engine(smoke):
     assert smoke.engine_launches(L, legs, k2) == (k2, 3 * L)
     short = {**k2, 16: k2[16] - 1}
     assert smoke.engine_launches(L, legs, short)[0] != short
-    legs["tree"]["stats"]["spec_draft_steps"] = 6
+    legs["tree"]["stats"]["default"]["spec_draft_steps"] = 6
     assert smoke.engine_launches(L, legs, k2)[0] != k2
+
+
+ONLINE_SMALL = dict(model_kwargs=dict(d_model=32, n_heads=2, n_layers=2,
+                                      d_ff=64, seq_len=8))
+
+
+def test_fleet_phase_on_the_cpu(smoke, capsys):
+    """Phase 4e at vocab 128, d_model 32 with bench.py's traffic: the
+    fleet pair uses both replicas, the failover leg loses nothing over
+    one failover, the online leg publishes one version and ends on
+    [1, 1], the swap leg serves both versions, every output the
+    reference's (the CPU route launches no kernel)."""
+    assert smoke.fleet_phase(torch, pa, pat, device="cpu",
+                             width=BENCH_SMALL,
+                             online_kwargs=ONLINE_SMALL) == 0
+    lines = [json.loads(line.split(" ", 1)[1])
+             for line in capsys.readouterr().out.splitlines()
+             if line.startswith("fleet ")]
+    legs = {g["leg"]: g for g in lines}
+    assert list(legs) == ["bench_serving_fleet", "failover",
+                          "bench_serving_online", "swap"]
+    fleet = legs["bench_serving_fleet"]
+    assert fleet["outputs_match"] and fleet["replicas_used"] == [1, 2]
+    failover = legs["failover"]
+    assert failover["failovers"] == 1 and failover["outputs_match"]
+    assert sorted(failover["states"]) == ["dead", "healthy"]
+    assert failover["readmitted"] >= 1
+    online = legs["bench_serving_online"]
+    assert online["outputs_match"] and online["updater"]["swaps"] == 2
+    assert legs["swap"]["final_versions"] == [0, 1]
+    assert set(legs["swap"]["served_by_version"]) == {0, 1}
+
+
+def _router_stats(steps, states=None):
+    """A router's stats for ``fleet_launches``: one decode-only engine a
+    replica."""
+    states = states or ["healthy"] * len(steps)
+    return {"replicas": [
+        {"idx": i, "state": s, "model:default": {
+            "steps": n, "prefill_chunk_steps": 0, "prefill_chunk": 0,
+            "spec_steps": 0, "spec_k": 0, "spec_tree": None,
+            "spec_draft_steps": 0}}
+        for i, (n, s) in enumerate(zip(steps, states))]}
+
+
+def test_fleet_launches_accounts_for_every_replica(smoke):
+    """Two routers over 6 layers, one with a dead replica: K2 at C=1 is
+    6 a step over every replica's steps, the dead one's included; one
+    launch fewer, or the dead replica's steps left out, fails."""
+    L = 6
+    routers = [_router_stats([40]),
+               _router_stats([31, 9], ["healthy", "dead"])]
+    want = {1: L * (40 + 31 + 9)}
+    assert smoke.fleet_launches(L, routers) == (want, 0)
+    assert smoke.check_fleet_launches("t", L, routers, want, 0, True) == \
+        [[40], [31, 9]]
+    for k2 in ({1: want[1] - 1}, {1: L * (40 + 31)}):
+        with pytest.raises(SystemExit):
+            smoke.check_fleet_launches("t", L, routers, k2, 0, True)
+    assert smoke.check_fleet_launches("t", L, routers, {}, 0, False) == \
+        [[40], [31, 9]]
+
+
+@pytest.mark.parametrize("fault", ["two_failovers", "lost", "failed",
+                                   "no_dead", "pool", "tokens", "none"])
+def test_check_failover_catches_each_fault(smoke, fault, capsys):
+    """The failover leg's gates pass a clean leg and fail each planted
+    fault: two failovers, a lost request, a failed one, no dead replica,
+    the dead replica's pool holding a block, a token off the unfailed
+    run."""
+    import types
+
+    from paddle_tpu_torch.serving import KVBlockPool
+
+    pool = KVBlockPool(2, 2, 16, 4, 8, device="cpu")
+    if fault == "pool":
+        pool.reserve("seq", 1)
+        pool.alloc_block("seq")
+    dead = [types.SimpleNamespace(
+        _workers={"default": types.SimpleNamespace(pool=pool)})]
+    st = {"failovers": 1, "requests_submitted": 4,
+          "requests_completed": 4, "requests_failed": 0}
+    want = [[1, 2], [3, 4], [5], [6, 7]]
+    outs = [list(o) for o in want]
+    if fault == "two_failovers":
+        st["failovers"] = 2
+    elif fault == "lost":
+        st["requests_completed"] = 3
+    elif fault == "failed":
+        st.update(requests_completed=3, requests_failed=1)
+    elif fault == "no_dead":
+        dead = []
+    elif fault == "tokens":
+        outs[2] = [9]
+    if fault == "none":
+        smoke.check_failover(st, dead, outs, want)
+        return
+    with pytest.raises(SystemExit):
+        smoke.check_failover(st, dead, outs, want)
+    assert "fleet failover" in capsys.readouterr().err

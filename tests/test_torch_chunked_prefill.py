@@ -135,7 +135,7 @@ def _serve(engine, prompts, max_new):
     with engine:
         reqs = submit_pinned(engine, prompts, max_new)
         got = [r.wait(300) for r in reqs]
-        stats = engine.stats()
+        stats = engine.stats()["default"]
     return got, stats
 
 
@@ -162,8 +162,8 @@ def test_engine_chunked_matches_jax_and_reference(kw):
     assert got == want == refs
     assert st["prefill_chunk"] == kw["prefill_chunk"]
     assert st["prefill_chunk_steps"] > 0
-    assert st["steps"] == jst["default"]["steps"]
-    pool = engine._worker.pool
+    assert st["steps"] == jst["steps"]
+    pool = engine._workers["default"].pool
     assert pool.check_invariants() == []
     assert pool.stats()["blocks_in_use"] == 0
 
@@ -193,7 +193,7 @@ def test_engine_chunked_staggered_arrivals_in_flight():
     refs = [port.reference_decode(model, p, n)
             for p, n in ((p1, 12), (p2, 6), (p3, 9), (p4, 5))]
     assert outs + [out4] == refs
-    assert eng._worker.pool.check_invariants() == []
+    assert eng._workers["default"].pool.check_invariants() == []
 
 
 def test_engine_chunked_eos_truncates_like_reference():

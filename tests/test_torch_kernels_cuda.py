@@ -104,6 +104,67 @@ def test_kernel_prefill_chunk_matrix_matches_plain_on_card():
 
 
 @pytest.mark.cuda
+def test_kernel_two_threads_two_streams_on_card():
+    """Two K2 callers at once, as two serving replicas call it: each on
+    its own thread and CUDA stream, 200 launches each over inputs of its
+    own (a context split across blocks, so each stream's zeroed count
+    buffer is used). Every output equals the plain version's (atol
+    1e-4), the two streams' count buffers are distinct, and the launch
+    counts sum exactly (no increment lost between threads)."""
+    import threading
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    B, C, H, Dh, bs, Mb, n = 4, 1, 8, 64, 16, 32, 200
+    dev = torch.device("cuda", 0)
+
+    def inputs(seed):
+        rng = np.random.RandomState(seed)
+        tables = (rng.permutation(B * Mb) + 1).reshape(B, Mb)
+        pos = rng.randint(Mb * bs // 2, Mb * bs, size=(B, C))
+        return [torch.from_numpy(a).to(dev) for a in (
+            rng.randn(B * Mb + 1, bs, H, Dh).astype(np.float32),
+            rng.randn(B * Mb + 1, bs, H, Dh).astype(np.float32),
+            rng.randn(B, C, H, Dh).astype(np.float32),
+            tables.astype(np.int32), pos.astype(np.int32))]
+
+    args = [inputs(1), inputs(2)]
+    torch.cuda.synchronize()
+    wants = [pa.paged_attention_reference(*a) for a in args]
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    outs, errors = [[], []], []
+    start = threading.Barrier(2)
+
+    def caller(i):
+        try:
+            torch.cuda.set_device(dev)
+            with torch.cuda.stream(streams[i]):
+                start.wait()
+                for _ in range(n):
+                    outs[i].append(pa.paged_attention(*args[i]))
+                streams[i].synchronize()
+        except BaseException as e:  # reported by the main thread
+            errors.append(e)
+
+    launches = pa.paged_attention.window_launches.get(C, 0)
+    threads = [threading.Thread(target=caller, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert errors == []
+    assert pa.paged_attention.window_launches[C] == launches + 2 * n
+    keys = {(dev, s.cuda_stream) for s in streams}
+    assert len(keys) == 2 and keys <= set(pa._counters)
+    for got, want in zip(outs, wants):
+        assert len(got) == n
+        for o in (got[0], got[n // 2], got[-1]):
+            np.testing.assert_allclose(o.cpu().numpy(), want.cpu().numpy(),
+                                       atol=1e-4, rtol=1e-4)
+        assert all(torch.equal(o, got[0]) for o in got)
+
+
+@pytest.mark.cuda
 def test_fast_path_engine_matches_reference_on_card():
     """The flagship decoder at full width (vocab 32000, d_model 512, 8
     heads, 6 layers, d_ff 2048) behind ``ServingEngine(prefill_chunk=64,
@@ -129,14 +190,14 @@ def test_fast_path_engine_matches_reference_on_card():
                        block_size=16, prefill_chunk=64,
                        prefix_cache=True) as engine:
         engine.generate(shared + [7], max_new_tokens=2, timeout=600)
-        base = engine.stats()["prefix_blocks_reused"]
+        base = engine.stats()["default"]["prefix_blocks_reused"]
         reqs = [engine.submit(p, max_new_tokens=8) for p in prompts]
         got = [r.wait(600) for r in reqs]
-        stats = engine.stats()
+        stats = engine.stats()["default"]
     assert got == refs
     assert stats["prefix_blocks_reused"] - base == 4 * 8
     assert pa.paged_attention.window_launches[64] > launches
-    pool = engine._worker.pool
+    pool = engine._workers["default"].pool
     assert pool.check_invariants() == []
     assert pool.stats()["blocks_in_use"] == 0
 
@@ -166,13 +227,13 @@ def test_int8_store_engine_matches_reference_on_card():
                        block_size=16, prefill_chunk=16) as engine:
         reqs = [engine.submit(p, max_new_tokens=8) for p in prompts]
         got = [r.wait(600) for r in reqs]
-    stats = engine.stats()
+    stats = engine.stats()["default"]
     assert got == refs
     assert stats["weight_only_int8"]
     assert stats["weight_store"]["n_int8"] == 2 + 4 * cfg.n_layers
     for c in (1, 16):
         assert pa.paged_attention.window_launches[c] > before.get(c, 0)
-    assert engine._worker.pool.check_invariants() == []
+    assert engine._workers["default"].pool.check_invariants() == []
 
 
 @pytest.mark.cuda

@@ -250,7 +250,7 @@ def _serve(engine, prompts, max_new):
     with engine:
         reqs = submit_pinned(engine, prompts, max_new)
         got = [r.wait(300) for r in reqs]
-        stats = engine.stats()
+        stats = engine.stats()["default"]
     return got, stats
 
 
@@ -276,7 +276,6 @@ def test_engine_model_drafter_matches_jax_and_reference(mode):
         jax_model, max_batch=3, max_seq_len=64, block_size=4,
         prefill_chunk=4, drafter=jax_serving.ModelDrafter(
             jax_draft, block_size=4, chunk=4), **mode), prompts, 10)
-    jst = jst["default"]
     assert got == want == refs
     for key in ("spec_steps", "spec_proposed", "spec_accepted",
                 "spec_draft_steps", "steps"):
@@ -284,7 +283,7 @@ def test_engine_model_drafter_matches_jax_and_reference(mode):
     assert st["spec_draft_steps"] > 0
     assert 0 < st["spec_accepted"] < st["spec_proposed"]
     assert st["prefill_chunk_steps"] > 0
-    for pool in (engine._worker.pool, drafter.pool):
+    for pool in (engine._workers["default"].pool, drafter.pool):
         assert pool.check_invariants() == []
         assert pool.stats()["blocks_in_use"] == 0
 
@@ -329,21 +328,22 @@ def test_fast_path_switches_from_the_environment(monkeypatch, tmp_path):
     monkeypatch.setenv("PTPU_SERVE_SPEC_K", "3")
     engine = port.ServingEngine(art, max_batch=2, max_seq_len=64,
                                 block_size=4, device="cpu")
-    w = engine._worker
+    w = engine._workers["default"]
     assert (w.prefill_chunk, w.prefix_cache, w.spec_k) == (4, True, 3)
     assert w.scheduler.prefill_token_budget == 16
     assert isinstance(w.drafter, port.ModelDrafter)
-    assert w.drafter._chunk == 3 and w.drafter.model.name == "draft.draft"
+    assert w.drafter._chunk == 3 and w.drafter.model.name == "default.draft"
     got, st = _serve(engine, prompts, 8)
     want, jst = _serve(jax_serving.ServingEngine(
         art, max_batch=2, max_seq_len=64, block_size=4), prompts, 8)
     assert got == want == refs
     assert st["spec_accept_rate"] == 1.0 and st["spec_draft_steps"] > 0
-    assert st["spec_draft_steps"] == jst["default"]["spec_draft_steps"]
+    assert st["spec_draft_steps"] == jst["spec_draft_steps"]
     assert st["prefix_blocks_reused"] > 0 and st["prefill_chunk_steps"] > 0
     monkeypatch.setenv("PTPU_SERVE_DRAFT_MODEL", "0")
     monkeypatch.setenv("PTPU_SERVE_PREFIX_CACHE", "0")
     with port.ServingEngine(model, max_batch=2, max_seq_len=64,
                             block_size=4, device="cpu") as engine:
-        assert isinstance(engine._worker.drafter, port.NGramDrafter)
-        assert not engine._worker.prefix_cache
+        w = engine._workers["default"]
+        assert isinstance(w.drafter, port.NGramDrafter)
+        assert not w.prefix_cache

@@ -36,10 +36,9 @@ CFG = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=2, d_ff=64,
 
 
 def worker_of(engine):
-    """The engine's (only) model worker: the port's ``_worker``, the JAX
-    engine's ``_workers["default"]``."""
-    worker = getattr(engine, "_worker", None)
-    return worker if worker is not None else engine._workers["default"]
+    """The engine's (only) model worker, ``_workers["default"]`` in both
+    packages."""
+    return engine._workers["default"]
 
 
 @contextlib.contextmanager
@@ -105,7 +104,7 @@ def _serve(engine, prompts, max_new, one_at_a_time):
         reqs = submit_pinned(engine, prompts, max_new)
         got = [r.wait(300) for r in reqs]
         stats = engine.stats()
-    return got, stats.get("default", stats)
+    return got, stats["default"]
 
 
 @pytest.mark.parametrize("kw", [dict(prefill_chunk=4), dict(spec_k=3)],

@@ -322,7 +322,7 @@ def _serve(engine, shared, prompts, max_new):
         engine.generate(shared + [7], max_new_tokens=2, timeout=300)
         reqs = submit_pinned(engine, prompts, max_new)
         got = [r.wait(300) for r in reqs]
-        stats = engine.stats()
+        stats = engine.stats()["default"]
     return got, stats
 
 
@@ -348,13 +348,13 @@ def test_engine_prefix_cache_matches_jax_and_reference(kw):
     assert got == want == refs
     assert st["prefix_cache"] and st["prefix_blocks_reused"] > 0
     assert st["prefix_blocks_reused"] == \
-        jst["default"]["prefix_blocks_reused"]
+        jst["prefix_blocks_reused"]
     assert st["prefix_tokens_skipped"] == 4 * st["prefix_blocks_reused"]
     if kw.get("num_blocks"):
         # the long prompt evicted the primed prefix: the first request on
         # it prefilled it again
         assert st["prefix_blocks_reused"] < 3 * 4
-    pool = engine._worker.pool
+    pool = engine._workers["default"].pool
     assert pool.check_invariants() == []
     pst = pool.stats()
     assert pst["blocks_in_use"] == 0 and pst["blocks_cached"] > 0

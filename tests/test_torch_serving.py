@@ -184,10 +184,10 @@ def test_admission_control():
         # the request finishes when its last token lands; the worker
         # frees its blocks at its next reap, a moment later
         deadline = time.monotonic() + 30
-        while engine.stats()["blocks_in_use"] and \
+        while engine.stats()["default"]["blocks_in_use"] and \
                 time.monotonic() < deadline:
             time.sleep(0.01)
-        assert engine.stats()["blocks_in_use"] == 0
+        assert engine.stats()["default"]["blocks_in_use"] == 0
     with port.ServingEngine(model, max_batch=2, max_seq_len=32,
                             block_size=4, device="cpu") as engine:
         bad = engine.submit([1] * 40, max_new_tokens=1)
@@ -215,7 +215,7 @@ def test_worker_death_is_delivered_to_requests(monkeypatch):
                 r.wait(60)
         with pytest.raises(RuntimeError, match="died"):
             engine.submit([1], max_new_tokens=1)
-        assert "injected" in engine.stats()["error"]
+        assert "injected" in engine.stats()["default"]["error"]
 
 
 def test_serving_metrics_surface():
@@ -234,7 +234,7 @@ def test_serving_metrics_surface():
                     for _ in range(3)]
             for r in reqs:
                 r.wait(60)
-            steps = engine.stats()["steps"]
+            steps = engine.stats()["default"]["steps"]
         d = metrics.registry().to_dict()
         c, g, h = d["counters"], d["gauges"], d["histograms"]
         assert c["serving/steps"] == steps > 0

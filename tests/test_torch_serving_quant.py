@@ -188,8 +188,7 @@ def _serve(engine, prompts, max_new):
     with engine:
         reqs = submit_pinned(engine, prompts, max_new)
         got = [r.wait(300) for r in reqs]
-    stats = engine.stats()
-    return got, stats.get("default", stats)
+    return got, engine.stats()["default"]
 
 
 MODES = {"decode": {}, "chunk4": dict(prefill_chunk=4),
@@ -244,7 +243,7 @@ def test_fp32_engine_reports_its_store():
     jax_model, model = _pair(seed=1)
     with port.ServingEngine(model, max_batch=2, max_seq_len=64,
                             block_size=4, device="cpu") as eng:
-        st = eng.stats()
+        st = eng.stats()["default"]
     with jax_serving.ServingEngine(jax_model, max_batch=2, max_seq_len=64,
                                    block_size=4) as jeng:
         jst = jeng.stats()["default"]

@@ -308,7 +308,7 @@ def _serve(engine, prompts, max_new, **submit):
         reqs = [engine.submit(p, max_new_tokens=max_new, **submit)
                 for p in prompts]
         got = [r.wait(300) for r in reqs]
-        stats = engine.stats()
+        stats = engine.stats()["default"]
     return got, stats
 
 
@@ -331,7 +331,7 @@ def test_engine_token_identical_to_jax_and_reference(mode):
         jax_model, max_batch=3, max_seq_len=64, block_size=4, **mode),
         prompts, 10)
     assert got == want == refs
-    _drained(engine._worker.pool)
+    _drained(engine._workers["default"].pool)
     assert st["spec_steps"] > 0 and st["spec_accepted"] > 0
     assert np.isfinite(st["spec_accept_rate"])
     if "spec_tree" in mode:
@@ -377,7 +377,7 @@ def test_always_wrong_drafts_roll_back(mode):
                                 **mode)
     got, st = _serve(engine, prompts, 12)
     assert got == refs
-    _drained(engine._worker.pool)
+    _drained(engine._workers["default"].pool)
     assert st["spec_accepted"] == 0 and st["spec_proposed"] > 0
     assert st["spec_blocks_rolled_back"] > 0
     assert st["spec_tree_commits"] == 0
@@ -421,8 +421,8 @@ def test_eos_inside_an_accepted_path(mode):
                           stream=lambda rq, t, fin: seen.append((t, fin)))
         r2 = engine.submit(other, max_new_tokens=10)
         got, got2 = r.wait(300), r2.wait(300)
-        st = engine.stats()
-    _drained(engine._worker.pool)
+        st = engine.stats()["default"]
+    _drained(engine._workers["default"].pool)
     assert got == want and got2 == other_ref
     assert [t for t, _ in seen] == want
     assert [f for _, f in seen] == [False] * (len(want) - 1) + [True]
@@ -447,18 +447,18 @@ def test_speculation_off_serves_as_before(monkeypatch):
         prompts, 6)
     assert got == want == refs
     assert st["spec_k"] == 0 and st["spec_steps"] == 0
-    assert engine._worker.drafter is None
+    assert engine._workers["default"].drafter is None
     engine = port.ServingEngine(model, max_batch=2, max_seq_len=64,
                                 block_size=4, device="cpu")
-    assert engine._worker.spec_k == 3
-    assert isinstance(engine._worker.drafter, port.NGramDrafter)
+    assert engine._workers["default"].spec_k == 3
+    assert isinstance(engine._workers["default"].drafter, port.NGramDrafter)
     got, st = _serve(engine, prompts, 6)
     assert got == refs and st["spec_steps"] > 0
     monkeypatch.delenv("PTPU_SERVE_SPEC_K")
     monkeypatch.setenv("PTPU_SERVE_SPEC_TREE", "2x2")
     engine = port.ServingEngine(model, max_batch=2, max_seq_len=64,
                                 block_size=4, device="cpu")
-    assert engine._worker.spec_tree == (2, 2)
+    assert engine._workers["default"].spec_tree == (2, 2)
     got, st = _serve(engine, prompts, 6)
     assert got == refs and st["spec_tree_slots"] > 0
 
@@ -476,7 +476,8 @@ def test_windows_past_the_kernels_limits_raise(mode, want):
     _, model = _pair(seed=0)
     with port.ServingEngine(model, max_batch=2, max_seq_len=64,
                             block_size=4, device="cpu", **mode) as engine:
-        assert (engine._worker.spec_k, engine._worker.spec_tree) == want
+        w = engine._workers["default"]
+        assert (w.spec_k, w.spec_tree) == want
 
 
 @pytest.mark.parametrize("mode", [{"spec_k": 16}, {"spec_tree": "4x8"}],
@@ -495,7 +496,7 @@ def test_engine_serves_windows_past_the_former_kernel_limits(mode):
                                 block_size=4, device="cpu", **mode)
     got, st = _serve(engine, prompts, 20)
     assert got == refs
-    _drained(engine._worker.pool)
+    _drained(engine._workers["default"].pool)
     assert st["spec_steps"] > 0
     if "spec_tree" in mode:
         assert st["spec_tree_slots"] > 0
