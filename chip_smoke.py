@@ -180,6 +180,30 @@ Phases, each fatal on failure (exit code 1, no result line):
      reaches 12 steps, and the amp_fp16 leg's loss scale and counters
      equal the update_loss_scaling state machine's for the overflows it
      saw. The fp32 leg runs at the largest batch of 160 / 2^k that fits.
+  6e. training as users configure it: ``transformer_fluid.build`` with
+     its own defaults (remat=True: three two-layer ``layers.recompute``
+     segments) in bf16 under ``contrib.mixed_precision.decorate`` at its
+     defaults (dynamic loss scaling), ``optimizer.Adam`` (beta2 0.98,
+     epsilon 1e-9) on ``layers.linear_lr_warmup`` over
+     ``layers.exponential_decay``, ``regularizer.L2Decay(1e-4)`` and
+     ``clip.set_gradient_clip(GradientClipByGlobalNorm(1.0))``, through
+     ``Executor()`` (the card), 3 warm-up and 12 timed steps on
+     RandomState(0) tokens, in three legs: remat (batch 160), no_remat
+     (the same program built with remat=False) and dropout (dropout_rate
+     0.1, batch 32: the explicit-score attention path, no flash
+     attention). Fatal unless each leg's loss is finite and falls, K1
+     launches 12 "tc" forwards and 6 "tc" backwards a step under remat
+     (each layer's forward again in its segment's re-run), 6 + 6
+     without, none with dropout, with no operand copied; every
+     parameter's beta1_pow_acc reads beta1^16 as fp32 forms it, the
+     learning rate the schedule's closed form at run 15 and
+     @step_counter@ 15; the remat leg's peak memory lies below the
+     no-remat leg's; and one step of the dropout program under remat
+     gives the grads of its no-remat build (same weights, same op seeds:
+     the re-run redrew the masks) within bf16's STEP_TOL. One
+     ``train_user`` line a leg (device and host ms a step, tokens/s,
+     peak GiB) and a ``train_user_remat`` line (the peak and time
+     ratios).
   7. card vs CPU: the same program from one set of weights (startup run
      once on the card, the scope copied to the CPU), two SGD steps at
      batch 2 on cuda:0 (the kernels) and on the CPU (the plain
@@ -187,7 +211,12 @@ Phases, each fatal on failure (exit code 1, no result line):
      parameter must agree. Twice: the headline bf16 program, and the
      same model in fp32 without AMP, where the updates do not round
      away and the limits are tight enough to see a skipped one. Each
-     prints its largest errors over their limits.
+     prints its largest errors over their limits. Then phase 6e's
+     program in fp32 at 2 layers (its clip at 0.25, where it binds), two
+     steps each way: the losses, the learning rate, the clip's scale,
+     every raw, clipped and decayed grad, each decay term and, after
+     step 2, every parameter within what the grads' errors let Adam move
+     it; K1 launched 8 "f32tc" forwards and 4 backwards on the card.
   8. int8 inference: the fused int8 matmul (K4) bitwise against its
      plain version on an edge matrix (M 1/7/33/127/129 x K
      1/5/31/33/129/2048 x N 1/3/7/9/127/129/32000: tails and both sides
@@ -2548,6 +2577,500 @@ def card_vs_cpu_phase(torch, fluid, program, dtype,
     return k1
 
 
+# phase 6e: training as Fluid users configure it — the flagship with its
+# own defaults (remat=True: three two-layer recompute segments), bf16
+# under the legacy AMP decorator at its defaults (dynamic loss scaling),
+# Adam with the Transformer recipe's beta2 0.98 and epsilon 1e-9
+# (Vaswani et al. 2017) on a linear warmup over an exponential decay, L2
+# decay and a global-norm clip
+USER = dict(lr=1e-3, decay_steps=1000, decay_rate=0.9, warmup_steps=4,
+            beta1=0.9, beta2=0.98, epsilon=1e-9, l2=1e-4, clip_norm=1.0)
+# the legs: (name, build keywords, batch)
+USER_LEGS = (("remat", {}, 160), ("no_remat", dict(remat=False), 160),
+             ("dropout", dict(dropout_rate=0.1), 32))
+USER_STEPS = (3, 12)            # warm-up, timed
+# the card-vs-CPU Adam program's clip: at 2 layers the init grads' global
+# norm is about 0.77 (a CPU run at full width), under the recipe's 1.0,
+# so a clip of 1.0 would be the identity there and the check could not
+# see it left out
+USER_CVC_CLIP = 0.25
+
+
+def user_schedule(fluid):
+    """The recipe's learning rate: 0 -> 1e-3 over 4 runs, then
+    1e-3 * 0.9^(t / 1000), t the run's @step_counter@."""
+    L = fluid.layers
+    return L.linear_lr_warmup(
+        L.exponential_decay(USER["lr"], USER["decay_steps"],
+                            USER["decay_rate"]),
+        warmup_steps=USER["warmup_steps"], start_lr=0.0, end_lr=USER["lr"])
+
+
+def user_lr_closed_form(t):
+    if t < USER["warmup_steps"]:
+        return USER["lr"] * t / USER["warmup_steps"]
+    return USER["lr"] * USER["decay_rate"] ** (t / USER["decay_steps"])
+
+
+def build_user_lm(fluid, dtype="bfloat16", cfg=None,
+                  clip_norm=USER["clip_norm"], **build_kw):
+    """The flagship as a user configures it (``transformer_fluid.build``
+    with its defaults unless `build_kw` says otherwise; `cfg` the widths,
+    default TRAIN) under Adam, the schedule, L2 decay and the global-norm
+    clip; bf16 under ``contrib.mixed_precision.decorate`` at its
+    defaults. Built under a fresh name counter, with the op seeds from a
+    fixed start, so two builds name their vars alike and draw the same
+    dropout masks. Returns (main, startup, loss, learning-rate var)."""
+    from paddle_tpu_torch import layer_helper
+    from paddle_tpu_torch.models import transformer_fluid
+
+    layer_helper._op_seed_counter[0] = 1000
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _, _, loss = transformer_fluid.build(
+            dtype=dtype, **dict(TRAIN if cfg is None else cfg), **build_kw)
+        lr = user_schedule(fluid)
+        fluid.clip.set_gradient_clip(
+            fluid.clip.GradientClipByGlobalNorm(clip_norm))
+        opt = fluid.optimizer.Adam(
+            learning_rate=lr, beta1=USER["beta1"], beta2=USER["beta2"],
+            epsilon=USER["epsilon"],
+            regularization=fluid.regularizer.L2Decay(USER["l2"]))
+        if dtype == "bfloat16":
+            opt = fluid.contrib.mixed_precision.decorate(opt)
+        opt.minimize(loss)
+    return main, startup, loss, lr
+
+
+def adam_ops(main):
+    """{parameter name: its adam op} of a program."""
+    return {op.inputs["Param"][0].name: op
+            for op in main.global_block().ops if op.type == "adam"}
+
+
+def user_leg(torch, fa, fluid, name, build_kw, batch, device=None):
+    """One leg of phase 6e: build, startup, USER_STEPS runs on fixed
+    seeded tokens with K1's counts zeroed just before the runs and read
+    just after. Returns what the gates and the train_user line read."""
+    main, startup, loss, lr = build_user_lm(fluid, **build_kw)
+    exe = fluid.Executor(device)
+    on_card = exe.device.type == "cuda"
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = lm_feed(torch, batch, exe.device)
+    warmup, steps = USER_STEPS
+    if on_card:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    fa.reset_counts()                          # the main path starts
+    outs, marks, host_ms = [], [], []
+    for i in range(warmup + steps):
+        if on_card and i >= warmup:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        th = time.perf_counter()
+        outs.append(exe.run(main, feed=feed, fetch_list=[loss, lr],
+                            scope=scope, return_numpy=False))
+        host_ms.append((time.perf_counter() - th) * 1e3)
+    if on_card:
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        torch.cuda.synchronize()
+    k1 = flash_counts(fa)                      # the main path ends
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    b1 = {p: float(scope.get(op.inputs["Beta1Pow"][0].name).float()[0])
+          for p, op in adam_ops(main).items()}
+    leg = {"leg": name, "batch": batch, "warmup": warmup, "steps": steps,
+           "runs": warmup + steps,
+           "losses": [float(o[0].float().cpu()[0]) for o in outs],
+           "lr_last": float(outs[-1][1].float().cpu()[0]),
+           "step_counter": int(scope.get("@step_counter@").cpu()[0]),
+           "beta1_pow": b1, "flash_attention_launches": k1,
+           "host_ms_each": host_ms[warmup:], "step_ms_each": step_ms}
+    if on_card:
+        dev = float(np.mean(step_ms))
+        leg.update(device_ms_per_step=dev,
+                   host_ms_per_step=float(np.mean(host_ms[warmup:])),
+                   tokens_per_s=batch * TRAIN["seq_len"] / dev * 1e3,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        if name == "remat":   # outside the counted and timed runs
+            leg["update_profile"] = update_cost_profile(
+                torch, exe, main, feed, [loss, lr], scope)
+    del exe, scope
+    return leg
+
+
+def update_cost_profile(torch, exe, main, feed, fetch, scope):
+    """One more step of a leg under torch.profiler, each op of the run in
+    a ``ptpu_op:<type>`` range (``core.lowering.execute_op`` wrapped for
+    this step only): the step's kernel launches (the runtime's launch
+    calls), device busy ms and memcpy and stream-sync calls, and for the
+    update section (the ops after the last grad op: unscale, clip,
+    decay, the Adam updates) and for the adam ops alone their launches
+    and host ms."""
+    import bisect
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from paddle_tpu_torch.core import lowering
+
+    # the optimized clone the executor runs for this fetch list (cached
+    # by the leg's runs)
+    names = [v.name for v in fetch]
+    ops = next(st.program for st in exe._cache.values()
+               if st.fetch_names == names).global_block().ops
+    last_grad = max(i for i, op in enumerate(ops)
+                    if "__fwd_op__" in op.attrs)
+    update_ids = {id(op) for op in ops[last_grad + 1:]}
+    inner = lowering.execute_op
+
+    def traced(op, env, ctx):
+        tag = "update" if id(op) in update_ids else "other"
+        with record_function("ptpu_op:%s:%s" % (tag, op.type)):
+            inner(op, env, ctx)
+
+    lowering.execute_op = traced
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                    return_numpy=False)
+            torch.cuda.synchronize()
+    finally:
+        lowering.execute_op = inner
+    # the host's events (a record_function range also shows on the
+    # device's timeline, under the same name)
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CPU]
+    launches = sorted(e.time_range.start for e in events
+                      if "LaunchKernel" in e.name)
+    # the device's own rows: with the host traced too, an op's row also
+    # carries its kernels' time
+    busy_us = sum(device_us(e) for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith("ptpu_op:"))
+    # copies and stream syncs the step asks of the runtime (a pageable
+    # host-to-device copy waits for the stream)
+    out = {"launches_per_step": len(launches),
+           "device_busy_ms": busy_us / 1e3,
+           "runtime_calls": {k: sum(k in e.name for e in events)
+                             for k in ("cudaMemcpyAsync",
+                                       "cudaStreamSynchronize")}}
+    for group, match in (("update", lambda t, k: t == "update"),
+                         ("adam", lambda t, k: k == "adam")):
+        ranges = [e.time_range for e in events
+                  if e.name.startswith("ptpu_op:")
+                  and match(*e.name.split(":")[1:])]
+        out[group] = {
+            "ops": len(ranges),
+            "host_ms": sum(r.end - r.start for r in ranges) / 1e3,
+            "launches": sum(bisect.bisect_right(launches, r.end)
+                            - bisect.bisect_left(launches, r.start)
+                            for r in ranges)}
+    return out
+
+
+def user_k1_per_step(name):
+    """K1's (forward, backward) launches a step on the card: under remat
+    each layer's forward runs in the forward pass and again in its
+    segment's re-run; the dropout path has no flash attention."""
+    L = TRAIN["n_layers"]
+    return {"remat": (2 * L, L), "no_remat": (L, L),
+            "dropout": (0, 0)}[name]
+
+
+def check_user_leg(leg, k1_per_step=None):
+    """Phase 6e's gates on one leg: the loss finite and falling; with
+    `k1_per_step` (the card) K1's launches by the "tc" route, no copy;
+    every parameter's beta1_pow_acc at beta1^(runs + 1) as fp32 forms it
+    (Adam ran on every parameter in every run); the learning rate at the
+    schedule's closed form for the last run; @step_counter@ at the runs."""
+    name, n, losses = leg["leg"], leg["runs"], leg["losses"]
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        fail("train_user %s: losses not finite and falling: %r"
+             % (name, losses))
+    if k1_per_step is not None:
+        fwd, bwd, copies = leg["flash_attention_launches"]
+        want = (dict(dict.fromkeys(fwd, 0), tc=k1_per_step[0] * n),
+                dict(dict.fromkeys(bwd, 0), tc=k1_per_step[1] * n), 0)
+        if (fwd, bwd, copies) != want:
+            fail("train_user %s: flash attention launched %r (forward, "
+                 "backward by route; copies) over %d steps; expected %r"
+                 % (name, leg["flash_attention_launches"], n, want))
+    b1 = np.float32(USER["beta1"])
+    want_b1 = b1
+    for _ in range(n):
+        want_b1 = np.float32(want_b1 * b1)
+    stale = sorted(p for p, v in leg["beta1_pow"].items()
+                   if v != float(want_b1))
+    if stale or not leg["beta1_pow"]:
+        fail("train_user %s: beta1_pow_acc is not beta1^%d = %r for %r"
+             % (name, n + 1, float(want_b1), stale[:5]))
+    want_lr = user_lr_closed_form(n)
+    if abs(leg["lr_last"] - want_lr) > 1e-6 * want_lr:
+        fail("train_user %s: the learning rate reads %r at run %d; the "
+             "schedule gives %r" % (name, leg["lr_last"], n, want_lr))
+    if leg["step_counter"] != n:
+        fail("train_user %s: @step_counter@ reads %d after %d runs"
+             % (name, leg["step_counter"], n))
+
+
+def check_remat_memory(remat_leg, plain_leg):
+    if not remat_leg["peak_gib"] < plain_leg["peak_gib"]:
+        fail("train_user: the remat leg peaked at %.3f GiB, not below the "
+             "no-remat leg's %.3f GiB: recompute kept the activations"
+             % (remat_leg["peak_gib"], plain_leg["peak_gib"]))
+
+
+def dropout_remat_grads(torch, fluid, devices=("cuda:0", "cuda:0"),
+                        batch=32, tol=None):
+    """One step of the dropout program under remat and without, from the
+    same weights and op seeds: the loss and every parameter's grad held
+    to bf16's STEP_TOL (the re-run redrew the forward's masks). Returns
+    (the worst grad error over its limit, bitwise equal)."""
+    tol = tol or STEP_TOL["bfloat16"]
+    runs, start = [], None
+    for remat, device in zip((True, False), devices):
+        main, startup, loss, _ = build_user_lm(fluid, dropout_rate=0.1,
+                                               remat=remat)
+        exe, scope = fluid.Executor(device), fluid.Scope()
+        exe.run(startup, scope=scope)
+        if start is None:
+            start = {n: scope.get(n).clone()
+                     for n in scope.local_var_names()
+                     if n != "__step_counter__"}
+        else:
+            for n, t in start.items():
+                scope.set(n, t.to(exe.device, copy=True))
+        params = sorted(main.param_grad_map)
+        out = exe.run(main, feed=lm_feed(torch, batch, exe.device),
+                      fetch_list=[loss] + [main.param_grad_map[p]
+                                           for p in params], scope=scope)
+        runs.append((float(out[0][0]), dict(zip(params, out[1:]))))
+        del exe, scope
+    (la, ga), (lb, gb) = runs
+    if abs(la - lb) > tol["loss_rtol"] * abs(lb):
+        fail("train_user dropout: remat loss %r vs %r without" % (la, lb))
+    floor = tol["floor_rel"] * max(float(np.abs(g).max())
+                                   for g in gb.values())
+    worst = max((float(np.abs(ga[p] - gb[p]).max())
+                 / (tol["grad_rtol"] * float(np.abs(gb[p]).max()) + floor),
+                 p) for p in gb)
+    if worst[0] > 1:
+        fail("train_user dropout: the grad of %s under remat differs from "
+             "the no-remat build's by %.3g of its limit" % (worst[1],
+                                                            worst[0]))
+    bitwise = la == lb and all(np.array_equal(ga[p], gb[p]) for p in gb)
+    return worst[0], bitwise
+
+
+def user_training_phase(torch, fa, fluid):
+    """Phase 6e on cuda:0: the three legs, each gated and printed on a
+    train_user line, the remat leg's peak below the no-remat leg's, and
+    the dropout program's grads equal across remat. Returns K1's "tc"
+    launches (forward, backward) over the legs."""
+    legs = {}
+    for name, kw, batch in USER_LEGS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        leg = user_leg(torch, fa, fluid, name, kw, batch)
+        check_user_leg(leg, user_k1_per_step(name))
+        legs[name] = leg
+        b1 = sorted(set(leg["beta1_pow"].values()))
+        print("train_user " + json.dumps(dict(
+            leg, card=card_line(),
+            beta1_pow={"params": len(leg["beta1_pow"]), "values": b1})),
+            flush=True)
+    check_remat_memory(legs["remat"], legs["no_remat"])
+    worst, bitwise = dropout_remat_grads(torch, fluid)
+    r, p = legs["remat"], legs["no_remat"]
+    print("train_user_remat " + json.dumps({
+        "peak_gib_remat_over_no_remat": r["peak_gib"] / p["peak_gib"],
+        "device_ms_remat_over_no_remat":
+            r["device_ms_per_step"] / p["device_ms_per_step"],
+        "dropout_grads_worst_err_over_limit": worst,
+        "dropout_grads_bitwise": bitwise}), flush=True)
+    fwd = sum(l["flash_attention_launches"][0]["tc"] for l in legs.values())
+    bwd = sum(l["flash_attention_launches"][1]["tc"] for l in legs.values())
+    return fwd, bwd
+
+
+def adam_param_limit(g_ref, g_err, lrs, beta1, beta2):
+    """How far Adam can move an element apart over len(lrs) steps when
+    each step's grad (the one the op reads) may differ from `g_ref` by
+    `g_err` (lists of arrays, one a step). The update is lr * r, r =
+    m_hat / sqrt(v_hat): r is homogeneous of degree 0 in the grads, and
+    with the bias-corrected weights w (of m) and u (of v) of a step,
+    |dr/dg_j| <= (w_j + sqrt(sum w^2/u) sqrt(u_j)) / sqrt(v_hat) (Cauchy-
+    Schwarz), |r| <= sqrt(sum w^2/u); so a step's r moves by at most the
+    smaller of that sum over the grads' errors and twice |r|'s bound.
+    epsilon only damps r and is left out."""
+    limit = np.zeros_like(g_ref[0], dtype=np.float64)
+    for s in range(1, len(lrs) + 1):
+        w = np.array([(1 - beta1) * beta1 ** (s - j) for j in range(1, s + 1)])
+        u = np.array([(1 - beta2) * beta2 ** (s - j) for j in range(1, s + 1)])
+        w, u = w / (1 - beta1 ** s), u / (1 - beta2 ** s)
+        r_max = np.sqrt((w * w / u).sum())
+        v_hat = sum(uj * np.asarray(g, np.float64) ** 2
+                    for uj, g in zip(u, g_ref[:s]))
+        sens = sum((wj + r_max * np.sqrt(uj)) * np.asarray(e, np.float64)
+                   for wj, uj, e in zip(w, u, g_err[:s]))
+        with np.errstate(divide="ignore", invalid="ignore"):
+            dr = np.where(v_hat > 0, sens / np.sqrt(v_hat), np.inf)
+        limit += lrs[s - 1] * np.minimum(dr, 2 * r_max)
+    return limit
+
+
+def adam_card_vs_cpu_phase(torch, fluid, program, devices=("cuda:0", "cpu")):
+    """Phase 6e's program in fp32 (no AMP) at 2 layers, two steps from
+    the same weights on cuda:0 and on the CPU, held to fp32's STEP_TOL:
+    the losses; step by step the learning rate (2 ulps), the global-norm
+    clip's scale (loss_rtol: one sum over every grad), each parameter's
+    raw grad, its clipped grad and the grad Adam reads (clipped plus
+    decay) to grad_rtol of that tensor's largest plus the floor (at step
+    2 plus the decay of what step 1 may have moved the parameter apart),
+    and step 1's decay term itself (2 ulps: coeff * the same param);
+    after step 2 every parameter to 2 ulps of its largest magnitude plus
+    what the grads' errors let Adam move it (``adam_param_limit``). The
+    clip must bind (scale below 0.99), or a clip left out could not
+    show. A skipped update must fail the parameter check on most
+    parameters. Returns K1's launches in the run (forward, backward by
+    route; copies)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    main, startup, loss, lr = program
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("card vs CPU Adam: TF32 matmuls are on; the limits assume "
+             "fp32 products")
+    tol = STEP_TOL["float32"]
+    rel, bits = tol["grad_rtol"], tol["mantissa_bits"]
+    block = main.global_block()
+    producer = {n: op for op in block.ops for n in op.output_names()}
+    params = sorted(adam_ops(main))
+    names = {}   # param -> (raw grad, clipped grad, Adam's grad, decay)
+    for p, op in adam_ops(main).items():
+        g_adam = op.inputs["Grad"][0].name
+        add = producer[g_adam]
+        g_clip, decay = add.inputs["X"][0].name, add.inputs["Y"][0].name
+        names[p] = (main.param_grad_map[p], g_clip, g_adam, decay)
+    mul = producer[names[params[0]][1]]
+    scale = mul.inputs["Y"][0].name
+    fetch = [loss, lr, scale] + [n for p in params for n in names[p]]
+    exe_c, exe_h = fluid.Executor(devices[0]), fluid.Executor(devices[1])
+    scope_c, scope_h = fluid.Scope(), fluid.Scope()
+    exe_c.run(startup, scope=scope_c)
+    for n in scope_c.local_var_names():
+        if n != "__step_counter__":
+            scope_h.set(n, scope_c.get(n).to("cpu", copy=True))
+    start = {p: scope_h.get(p).float().numpy().copy() for p in params}
+    t0 = time.perf_counter()
+    fa.reset_counts()                          # the path starts
+    runs = []
+    for exe, scope in ((exe_c, scope_c), (exe_h, scope_h)):
+        feed = lm_feed(torch, 2, exe.device)
+        steps = []
+        for _ in range(2):
+            out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+            steps.append((float(out[0][0]), float(out[1][0]),
+                          float(out[2][0]),
+                          {p: out[3 + 4 * i: 7 + 4 * i]
+                           for i, p in enumerate(params)}))
+        runs.append(steps)
+    seconds = time.perf_counter() - t0
+    k1 = flash_counts(fa)                      # the path ends
+    card, ref = runs
+    worst = {"loss": 0.0, "lr": 0.0, "clip_scale": 0.0, "grad": (0.0, ""),
+             "decay": (0.0, ""), "param": (-np.inf, "")}
+    g_ref, g_err = {p: [] for p in params}, {p: [] for p in params}
+    moved = {p: 0.0 for p in params}   # how far step 1 may part a param
+    for step, ((lc, lrc, sc, gc_), (lh, lrh, sh, gh)) in enumerate(
+            zip(card, ref)):
+        worst["loss"] = max(worst["loss"], abs(lc - lh) / abs(lh))
+        worst["lr"] = max(worst["lr"], abs(lrc - lrh) / (2 * float(
+            ulp(lrh, bits))))
+        worst["clip_scale"] = max(worst["clip_scale"], abs(sc - sh) / sh)
+        floor = tol["floor_rel"] * max(float(np.abs(g[0]).max())
+                                       for g in gh.values())
+        for p in params:
+            for k, label in ((0, "raw"), (1, "clipped"), (2, "adam")):
+                lim = rel * float(np.abs(gh[p][k]).max()) + floor
+                if k == 2:   # the decay of params step 1 moved apart
+                    lim += USER["l2"] * moved[p]
+                err = float(np.abs(gc_[p][k] - gh[p][k]).max()) / lim
+                worst["grad"] = max(worst["grad"],
+                                    (err, "%s %s" % (p, label)))
+            if step == 0:    # coeff * the same start: bitwise but for ulps
+                derr = float((np.abs(gc_[p][3] - gh[p][3])
+                              / (2 * ulp(gh[p][3], bits))).max())
+                worst["decay"] = max(worst["decay"], (derr, p))
+            g_ref[p].append(gh[p][2])
+            g_err[p].append(rel * np.abs(gh[p][2]).max() + floor)
+            moved[p] = float((adam_param_limit(
+                g_ref[p], g_err[p], [lrh], USER["beta1"], USER["beta2"])
+                + 2 * ulp(start[p], bits)).max())
+    lrs = [s[1] for s in ref]
+    worst_skip, skip_caught = -np.inf, 0
+    for p in params:
+        pc = scope_c.get(p).float().cpu().numpy()
+        ph = scope_h.get(p).float().numpy()
+        mag = np.maximum(np.maximum(np.abs(pc), np.abs(ph)),
+                         np.abs(start[p]))
+        slack = 2 * ulp(mag, bits)
+        p_lim = adam_param_limit(g_ref[p], g_err[p], lrs, USER["beta1"],
+                                 USER["beta2"]) + slack
+        excess = np.abs(pc - ph) / p_lim
+        i = int(np.argmax(excess))
+        worst["param"] = max(worst["param"], (float(excess.flat[i]), p))
+        skipped = float((np.abs(start[p] - ph) / p_lim).max())
+        worst_skip = max(worst_skip, skipped)
+        skip_caught += skipped > 1
+    report = {
+        "dtype": "float32", "optimizer": "adam", "batch": 2, "steps": 2,
+        "tf32": torch.backends.cuda.matmul.allow_tf32,
+        "loss_cuda": [s[0] for s in card], "loss_cpu": [s[0] for s in ref],
+        "lr_cpu": lrs, "clip_scale_cpu": [s[2] for s in ref],
+        "loss_max_rel_err": worst["loss"], "loss_limit": tol["loss_rtol"],
+        "lr_err_over_2ulp": worst["lr"],
+        "clip_scale_rel_err": worst["clip_scale"],
+        "worst_grad_err_over_limit": worst["grad"][0],
+        "worst_grad": worst["grad"][1],
+        "worst_decay_err_over_2ulp": worst["decay"][0],
+        "worst_param_err_over_limit": worst["param"][0],
+        "worst_param": worst["param"][1], "params": len(params),
+        "skipped_update_worst_reading": worst_skip,
+        "skipped_update_fails_params": skip_caught,
+        "flash_attention_launches": k1, "seconds": seconds}
+    print("card_vs_cpu " + json.dumps(report), flush=True)
+    if worst["loss"] > tol["loss_rtol"]:
+        fail("card vs CPU Adam: losses %r vs %r"
+             % (report["loss_cuda"], report["loss_cpu"]))
+    if worst["lr"] > 1:
+        fail("card vs CPU Adam: the learning rate differs by %.3g of 2 "
+             "ulps" % worst["lr"])
+    if not max(report["clip_scale_cpu"]) < 0.99:
+        fail("card vs CPU Adam: the clip does not bind (scales %r), so a "
+             "clip left out could not show" % report["clip_scale_cpu"])
+    if worst["clip_scale"] > tol["loss_rtol"]:
+        fail("card vs CPU Adam: the clip's scale differs by %.3g"
+             % worst["clip_scale"])
+    if worst["grad"][0] > 1:
+        fail("card vs CPU Adam: the %s grad differs by %.3g of its limit"
+             % (worst["grad"][1], worst["grad"][0]))
+    if worst["decay"][0] > 1:
+        fail("card vs CPU Adam: the decay of %s differs by %.3g of 2 ulps"
+             % (worst["decay"][1], worst["decay"][0]))
+    if worst["param"][0] > 1:
+        fail("card vs CPU Adam: %s differs by %.3g of its limit after two "
+             "steps" % (worst["param"][1], worst["param"][0]))
+    if 2 * skip_caught < len(params):
+        fail("card vs CPU Adam: a skipped update would pass the parameter "
+             "check on %d of %d parameters"
+             % (len(params) - skip_caught, len(params)))
+    return k1
+
+
 # full-int8 inference (phase 8): the fp32 LM's inference clone under
 # quant.decorate(mode="full_int8") at bench.py's width, batch 32
 INT8 = dict(batch=32, calib_batches=4, warmup=3, steps=10)
@@ -3021,6 +3544,9 @@ def main():
         engine_launches["fp16"]
     flash_rows["flash_attention_fp16_bwd"]["launches"] = \
         engine_launches["fp16"]
+    fwd, bwd = user_training_phase(torch, fa_mod, fluid)
+    flash_rows["flash_attention_tc_fwd"]["launches"] += fwd
+    flash_rows["flash_attention_tc_bwd"]["launches"] += bwd
     card_vs_cpu_phase(torch, fluid, program, "bfloat16")
     del program
     program = build_lm(fluid, "float32")
@@ -3032,6 +3558,17 @@ def main():
         fail("card vs CPU fp32: flash attention launched %r (forward, "
              "backward by route; copies); expected %r" % (k1, k1_want))
     flash_rows["flash_attention_f32tc_bwd"]["launches"] = k1[1]["f32tc"]
+    k1 = adam_card_vs_cpu_phase(torch, fluid, build_user_lm(
+        fluid, "float32", cfg=dict(TRAIN, n_layers=2),
+        clip_norm=USER_CVC_CLIP))
+    n = 2 * 2                                  # two steps, two layers
+    k1_want = ({"tc": 0, "fp16": 0, "f32tc": 2 * n},
+               {"tc": 0, "fp16": 0, "f32tc": n}, 0)
+    if k1 != k1_want:
+        fail("card vs CPU Adam: flash attention launched %r (forward, "
+             "backward by route; copies); expected %r (remat: each "
+             "forward twice)" % (k1, k1_want))
+    flash_rows["flash_attention_f32tc_bwd"]["launches"] += k1[1]["f32tc"]
     int8_rows = int8_kernel_phase(torch, im_mod)
     int8_launches, flash_rows["flash_attention_f32tc_fwd"]["launches"] = \
         int8_phase(torch, fluid, im_mod, fa_mod, program)

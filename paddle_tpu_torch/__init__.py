@@ -16,26 +16,28 @@ inference (``quant.calibrate`` -> ``quant.decorate(program,
 int8 matmul), and the serving fleet and online hot swap
 (``serving.ServingRouter``, ``serving.OnlineUpdater``, with
 ``checkpoint``, ``inference.export_generation_model`` and the serving
-subset of ``resilience``):
+subset of ``resilience``), and training as Fluid users configure it
+(the optimizer family, ``clip``, ``regularizer``, the learning-rate
+schedules, dropout and ``layers.recompute``, the flagship's default):
 
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import transformer_fluid
 
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
-        tokens, labels, loss = transformer_fluid.build(
-            seq_len=512, remat=False, dtype="bfloat16")
-        fluid.contrib.mixed_precision.decorate(
-            fluid.optimizer.SGD(0.01), init_loss_scaling=1.0,
-            use_dynamic_loss_scaling=False).minimize(loss)
+        tokens, labels, loss = transformer_fluid.build(dtype="bfloat16")
+        fluid.clip.set_gradient_clip(fluid.clip.GradientClipByGlobalNorm(1.0))
+        fluid.contrib.mixed_precision.decorate(fluid.optimizer.Adam(
+            learning_rate=fluid.layers.noam_decay(512, 4000),
+            regularization=fluid.regularizer.L2Decay(1e-4))).minimize(loss)
     exe = fluid.Executor()              # cuda:0
     exe.run(startup)
     loss_value, = exe.run(main, feed={...}, fetch_list=[loss])
 """
 
-from . import (amp, async_engine, checkpoint, contrib,  # noqa: F401
+from . import (amp, async_engine, checkpoint, clip, contrib,  # noqa: F401
                flags, inference, initializer, io, ir, layers, nets,
-               optimizer, quant, resilience, unique_name)
+               optimizer, quant, regularizer, resilience, unique_name)
 from .backward import append_backward  # noqa: F401
 from .core.scope import Scope, global_scope  # noqa: F401
 from .executor import Executor  # noqa: F401
@@ -44,8 +46,8 @@ from .framework import (Program, Variable, default_main_program,  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401
 
 __all__ = ["Executor", "ParamAttr", "Program", "Scope", "Variable",
-           "amp", "append_backward", "async_engine", "checkpoint",
+           "amp", "append_backward", "async_engine", "checkpoint", "clip",
            "contrib", "default_main_program", "default_startup_program",
            "flags", "global_scope", "inference", "initializer", "io", "ir",
            "layers", "nets", "optimizer", "program_guard", "quant",
-           "resilience", "unique_name"]
+           "regularizer", "resilience", "unique_name"]

@@ -17,7 +17,13 @@ forward instead of re-running it:
 
 Every other op runs under ``torch.no_grad()``. So the flash-attention
 backward kernel is reached through its autograd Function, and no forward
-runs twice.
+runs twice, except inside a ``recompute`` segment (``_SPECIAL``, the
+eager form of the JAX op's ``jax.checkpoint``): its forward runs the
+sub-block under ``no_grad`` and keeps only the segment's inputs; its grad
+op re-runs the sub-block from those inputs, detached into fresh leaves,
+under ``enable_grad``, and asks autograd for the leaves' grads. Stateful
+ops draw from generators seeded by (program seed, step, op seed), so the
+re-run redraws the forward's dropout masks.
 """
 
 import torch
@@ -27,14 +33,13 @@ from ..ops import registry
 __all__ = ["LoweringContext", "execute_block", "execute_op"]
 
 # op types that the JAX package's executor runs outside the traced step
-# (feeds, readers, RPC) and op types with a bespoke lowering (control
-# flow). The port runs neither kind; program passes leave them alone
-# (quant.py's site scan reads both, as the JAX package's does).
+# (feeds, readers, RPC); the port runs none. Program passes leave them
+# and the ops of `_SPECIAL` alone (quant.py's site scan reads both, as
+# the JAX package's does).
 _STRUCTURAL = frozenset({
     "feed", "fetch", "read", "double_buffer", "create_py_reader", "data",
     "depend", "send", "recv", "send_barrier", "fetch_barrier",
     "listen_and_serv", "checkpoint_notify", "gen_nccl_id"})
-_SPECIAL = {}
 
 
 class LoweringContext:
@@ -73,6 +78,15 @@ def execute_block(block, env, ctx, free_after=None):
     return env
 
 
+def run_sub_block(block, env, ctx):
+    """Run a sub-block's ops over env in the caller's grad mode: each
+    inner op is called straight, so under ``enable_grad`` autograd
+    records the whole sub-block."""
+    for op in block.ops:
+        execute_op(op, env, ctx)
+    return env
+
+
 def _value(env, v):
     val = env.get(v.name)
     if val is None:
@@ -87,6 +101,9 @@ def _value(env, v):
 def execute_op(op, env, ctx):
     if "__fwd_op__" in op.attrs:
         _execute_grad_op(op, env, ctx)
+        return
+    if id(op) in ctx.recorded and op.type in _SPECIAL:
+        _SPECIAL[op.type][0](op, env, ctx)
         return
     opdef = registry.get(op.type)
     ins = {slot: [_value(env, v) for v in vs]
@@ -117,7 +134,17 @@ def _execute_grad_op(op, env, ctx):
     if rec is None:
         raise RuntimeError("grad op %s: its forward op %s was not recorded "
                            "in this run" % (op.type, fwd.type))
-    leaves, outs = rec
+    if fwd.type in _SPECIAL:
+        leaves, outs = _SPECIAL[fwd.type][1](op, fwd, rec, ctx)
+    else:
+        leaves, outs = rec
+    _apply_grads(op, leaves, outs, env)
+
+
+def _apply_grads(op, leaves, outs, env):
+    """Autograd from the outputs `outs` (slot -> tensors) that carry a
+    cotangent in env back to the `leaves` (slot -> tensors) the grad op
+    names, the grads written into env."""
     gout_map = op.attrs["__grad_out_map__"]
     gin_map = op.attrs["__grad_in_map__"]
 
@@ -151,3 +178,35 @@ def _execute_grad_op(op, env, ctx):
             env[gname] = env[gname] + g
         else:
             env[gname] = g
+
+
+# ---------------------------------------------------------------------------
+# recompute: the rematerialized segment (the JAX op's jax.checkpoint)
+# ---------------------------------------------------------------------------
+
+
+def _recompute_forward(op, env, ctx):
+    """Run the segment under no_grad; keep only its input tensors."""
+    xs = [_value(env, v) for v in op.inputs.get("X", [])]
+    with torch.no_grad():
+        outs = registry.get(op.type).impl(ctx, {"X": xs}, op.attrs)
+    ctx.fwd[id(op)] = xs
+    for v, val in zip(op.outputs["Out"], outs["Out"]):
+        env[v.name] = val
+
+
+def _recompute_replay(op, fwd, xs, ctx):
+    """Re-run the segment from its kept inputs, those that take a grad
+    detached into fresh leaves, under enable_grad: (leaves, outputs) for
+    the generic grad step."""
+    names = op.attrs["__grad_in_map__"].get("X", [None] * len(xs))
+    leaves = [x.detach().requires_grad_()
+              if g is not None and x.is_floating_point() else x
+              for x, g in zip(xs, names)]
+    with torch.enable_grad():
+        outs = registry.get(fwd.type).impl(ctx, {"X": leaves}, fwd.attrs)
+    return {"X": leaves}, outs
+
+
+# op type -> (forward of a recorded op, the grad op's replay)
+_SPECIAL = {"recompute": (_recompute_forward, _recompute_replay)}

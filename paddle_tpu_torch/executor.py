@@ -28,6 +28,14 @@ step before it. ``sync()`` drains the window. ``prefetch(feed)`` stages
 a host feed on the card in the background; the next ``run(feed=feed)``
 with the same value objects reads the staged copy.
 
+A var that a sub-block reads stays alive until the op that owns the
+sub-block and that op's grad op have run: the op lists every outer var
+its sub-block reads as an input (``layers/control_flow.py``), and its
+grad op takes the op's inputs. The learning-rate schedules'
+`@step_counter@` is a persistable of the program, advanced in place by
+its `increment` op; the host's `__step_counter__` only seeds the random
+generators.
+
 Not ported: compile telemetry, RPC ops and the nan checks. A CUDA graph
 of the step is later work.
 """

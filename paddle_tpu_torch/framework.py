@@ -7,6 +7,8 @@ like Fluid's OpDesc, so ``fluid.layers``, ``append_backward`` and the
 optimizers build the same programs as the JAX package. The executor
 (``executor.py``) runs a block op by op in eager PyTorch
 (``core/lowering.py``); gradients come from each op's own autograd graph.
+Sub-blocks nest as in the JAX package (`Block.parent_idx`); the port's
+programs use them for ``layers.recompute`` segments.
 """
 
 import contextlib
@@ -163,14 +165,22 @@ class Operator:
 
 
 class Block:
-    """An ordered op list and a var map. The port's programs have one
-    block: control-flow sub-blocks are not ported."""
+    """An ordered op list and a var map, possibly nested: a sub-block
+    (a ``layers.recompute`` segment) names its parent by `parent_idx`
+    and sees the parent's vars."""
 
-    def __init__(self, program, idx):
+    def __init__(self, program, idx, parent_idx=-1):
         self.program = program
         self.idx = idx
+        self.parent_idx = parent_idx
         self.vars = {}
         self.ops = []
+
+    @property
+    def parent_block(self):
+        if self.parent_idx < 0:
+            return None
+        return self.program.blocks[self.parent_idx]
 
     def var(self, name):
         v = self._find_var_recursive(name)
@@ -183,7 +193,12 @@ class Block:
         return self._find_var_recursive(name) is not None
 
     def _find_var_recursive(self, name):
-        return self.vars.get(name)
+        blk = self
+        while blk is not None:
+            if name in blk.vars:
+                return blk.vars[name]
+            blk = blk.parent_block
+        return None
 
     def create_var(self, *args, **kwargs):
         v = Variable(self, *args, **kwargs)
@@ -226,6 +241,27 @@ class Program:
     def current_block(self):
         return self.blocks[self.current_block_idx]
 
+    def block(self, idx):
+        return self.blocks[idx]
+
+    @property
+    def num_blocks(self):
+        return len(self.blocks)
+
+    def _create_block(self, parent_idx=None):
+        """Open a sub-block of `parent_idx` (default: the current block)
+        and make it current; `_rollback` returns to its parent."""
+        parent_idx = (self.current_block_idx if parent_idx is None
+                      else parent_idx)
+        b = Block(self, len(self.blocks), parent_idx)
+        self.blocks.append(b)
+        self.current_block_idx = b.idx
+        self._bump_version()
+        return b
+
+    def _rollback(self):
+        self.current_block_idx = self.current_block().parent_idx
+
     def _bump_version(self):
         self._version += 1
 
@@ -256,7 +292,7 @@ class Program:
         the copy."""
         p = Program()
         p.random_seed = self.random_seed
-        p.blocks = [Block(p, blk.idx) for blk in self.blocks]
+        p.blocks = [Block(p, blk.idx, blk.parent_idx) for blk in self.blocks]
         for blk, nb in zip(self.blocks, p.blocks):
             for name, v in blk.vars.items():
                 nv = copy.copy(v)
@@ -272,6 +308,10 @@ class Program:
                 attrs = dict(op.attrs)
                 if for_test and "is_test" in _TEST_MODE_OPS.get(op.type, ()):
                     attrs["is_test"] = True
+                # a sub-block attr names the clone's block of that index
+                for k, v in attrs.items():
+                    if isinstance(v, Block):
+                        attrs[k] = p.blocks[v.idx]
                 op_map[id(op)] = nb.append_op(
                     op.type,
                     inputs={k: [nb.var(v.name) for v in vs]

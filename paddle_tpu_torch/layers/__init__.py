@@ -1,9 +1,15 @@
-"""Layers DSL (parity: python/paddle/fluid/layers/): the layers the
-Fluid-API Transformer LM uses."""
+"""Layers DSL (parity: the JAX package's ``layers/``): the layers of the
+Fluid-API Transformer LM and of a Fluid training script's front end —
+dropout, the clip and math layers, ``recompute`` and the learning-rate
+schedules."""
 
-from . import io, nn, tensor
+from . import control_flow, io, learning_rate_scheduler, nn, tensor
+from .control_flow import *  # noqa: F401,F403
 from .io import *  # noqa: F401,F403
+from .learning_rate_scheduler import *  # noqa: F401,F403
 from .nn import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403
 
-__all__ = sorted(set(io.__all__) | set(nn.__all__) | set(tensor.__all__))
+__all__ = sorted(set(control_flow.__all__) | set(io.__all__)
+                 | set(learning_rate_scheduler.__all__) | set(nn.__all__)
+                 | set(tensor.__all__))

@@ -1,17 +1,33 @@
-"""NN layers (parity: python/paddle/fluid/layers/nn.py): the layers the
-Fluid-API Transformer LM is built from. Each appends ops to the current
+"""NN layers (parity: the JAX package's ``layers/nn.py``): the layers the
+Fluid-API Transformer LM, its dropout path, the gradient clips and the
+learning-rate schedules are built from. Each appends ops to the current
 block through LayerHelper, exactly as the JAX package's layers do."""
 
 import numpy as np
 
 from ..layer_helper import LayerHelper
 
+_ACTIVATIONS = (
+    "relu", "relu6", "sigmoid", "logsigmoid", "tanh", "tanh_shrink",
+    "softplus", "softsign", "softshrink", "hard_shrink", "hard_sigmoid",
+    "elu", "selu", "leaky_relu", "brelu", "soft_relu", "swish",
+    "thresholded_relu", "stanh", "exp", "log", "sqrt", "rsqrt", "square",
+    "reciprocal", "abs", "ceil", "floor", "round", "cos", "sin", "acos",
+    "asin", "atan", "gelu")
+_ELEMENTWISE = ("elementwise_add", "elementwise_sub", "elementwise_mul",
+                "elementwise_div", "elementwise_max", "elementwise_min",
+                "elementwise_pow", "elementwise_mod", "elementwise_floordiv")
+_COMPARE = ("equal", "not_equal", "less_than", "less_equal",
+            "greater_than", "greater_equal")
+_LOGICAL = ("logical_and", "logical_or", "logical_xor", "logical_not")
+
 __all__ = [
     "fc", "embedding", "scale", "layer_norm", "reshape", "slice",
     "softmax_with_cross_entropy", "add_position_encoding", "shape",
-    "elementwise_add", "elementwise_mul", "elementwise_div",
-    "reduce_sum", "reduce_prod",
-]
+    "reduce_sum", "reduce_prod", "matmul", "softmax", "dropout",
+    "transpose", "split", "clip", "clip_by_norm", "pow", "sign",
+    "mean", "square_error_cost",
+] + list(_ACTIVATIONS + _ELEMENTWISE + _COMPARE + _LOGICAL)
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -255,8 +271,58 @@ def _elementwise(op_type):
 
 
 elementwise_add = _elementwise("elementwise_add")
+elementwise_sub = _elementwise("elementwise_sub")
 elementwise_mul = _elementwise("elementwise_mul")
 elementwise_div = _elementwise("elementwise_div")
+elementwise_max = _elementwise("elementwise_max")
+elementwise_min = _elementwise("elementwise_min")
+elementwise_pow = _elementwise("elementwise_pow")
+elementwise_mod = _elementwise("elementwise_mod")
+elementwise_floordiv = _elementwise("elementwise_floordiv")
+
+
+def _compare(op_type):
+    def layer(x, y, cond=None):
+        helper = LayerHelper(op_type, **locals())
+        if cond is None:
+            cond = helper.create_variable_for_type_inference(dtype="bool")
+        helper.append_op(type=op_type, inputs={"X": [x], "Y": [y]},
+                         outputs={"Out": [cond]})
+        cond.shape = x.shape
+        cond.stop_gradient = True
+        return cond
+
+    layer.__name__ = op_type
+    return layer
+
+
+equal = _compare("equal")
+not_equal = _compare("not_equal")
+less_than = _compare("less_than")
+less_equal = _compare("less_equal")
+greater_than = _compare("greater_than")
+greater_equal = _compare("greater_equal")
+
+
+def _logical(op_type, unary=False):
+    def layer(x, y=None, out=None, name=None):
+        helper = LayerHelper(op_type, **locals())
+        if out is None:
+            out = helper.create_variable_for_type_inference(dtype="bool")
+        inputs = {"X": [x]} if unary else {"X": [x], "Y": [y]}
+        helper.append_op(type=op_type, inputs=inputs, outputs={"Out": [out]})
+        out.shape = x.shape
+        out.stop_gradient = True
+        return out
+
+    layer.__name__ = op_type
+    return layer
+
+
+logical_and = _logical("logical_and")
+logical_or = _logical("logical_or")
+logical_xor = _logical("logical_xor")
+logical_not = _logical("logical_not", unary=True)
 
 
 def _reduce(op_type):
@@ -290,3 +356,169 @@ def _reduce(op_type):
 
 reduce_sum = _reduce("reduce_sum")
 reduce_prod = _reduce("reduce_prod")
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="mean", inputs={"X": [x]}, outputs={"Out": [out]})
+    out.shape = (1,)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# activations and the single-input math layers
+# ---------------------------------------------------------------------------
+
+
+def _activation(op_type):
+    def layer(x, name=None, **kwargs):
+        helper = LayerHelper(op_type, **locals())
+        out = helper.create_variable_for_type_inference(dtype=x.dtype)
+        attrs = {k: v for k, v in kwargs.items() if v is not None}
+        helper.append_op(type=op_type, inputs={"X": [x]},
+                         outputs={"Out": [out]}, attrs=attrs)
+        out.shape = x.shape
+        return out
+
+    layer.__name__ = op_type
+    return layer
+
+
+for _name in _ACTIVATIONS:
+    globals()[_name] = _activation(_name)
+del _name
+
+
+def pow(x, factor=1.0, name=None):
+    helper = LayerHelper("pow", **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="pow", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"factor": float(factor)})
+    out.shape = x.shape
+    return out
+
+
+def sign(x):
+    helper = LayerHelper("sign", **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="sign", inputs={"X": [x]}, outputs={"Out": [out]})
+    out.shape = x.shape
+    return out
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="clip", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"min": float(min), "max": float(max)})
+    out.shape = x.shape
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="clip_by_norm", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"max_norm": float(max_norm)})
+    out.shape = x.shape
+    return out
+
+
+def square_error_cost(input, label):
+    """(input - label)^2, an elementwise_sub and a square."""
+    helper = LayerHelper("square_error_cost", **locals())
+    minus_out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="elementwise_sub",
+                     inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [minus_out]})
+    minus_out.shape = input.shape
+    sq = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="square", inputs={"X": [minus_out]},
+                     outputs={"Out": [sq]})
+    sq.shape = input.shape
+    return sq
+
+
+# ---------------------------------------------------------------------------
+# attention's layers: matmul, softmax, dropout, transpose, split
+# ---------------------------------------------------------------------------
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(
+        type="matmul", inputs={"X": [x], "Y": [y]}, outputs={"Out": [out]},
+        attrs={"transpose_X": transpose_x, "transpose_Y": transpose_y,
+               "alpha": float(alpha)})
+    if x.shape is not None and y.shape is not None:
+        xs, ys = list(x.shape), list(y.shape)
+        if transpose_x and len(xs) > 1:
+            xs[-1], xs[-2] = xs[-2], xs[-1]
+        if transpose_y and len(ys) > 1:
+            ys[-1], ys[-2] = ys[-2], ys[-1]
+        out.shape = (tuple(xs[:-1] + [ys[-1]])
+                     if len(xs) > 1 and len(ys) > 1 else (1,))
+    return out
+
+
+def softmax(input, use_cudnn=False, name=None, axis=-1):
+    helper = LayerHelper("softmax", **locals())
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="softmax", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    out.shape = input.shape
+    return out
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    helper = LayerHelper("dropout", **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    mask = helper.create_variable_for_type_inference(dtype=x.dtype,
+                                                     stop_gradient=True)
+    helper.append_op(
+        type="dropout", inputs={"X": [x]},
+        outputs={"Out": [out], "Mask": [mask]},
+        attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+               "seed": seed or 0,
+               "dropout_implementation": dropout_implementation})
+    out.shape = x.shape
+    return out
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose2", **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    xshape = helper.create_variable_for_type_inference(dtype=x.dtype,
+                                                       stop_gradient=True)
+    helper.append_op(type="transpose2", inputs={"X": [x]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"axis": list(perm)})
+    if x.shape is not None:
+        out.shape = tuple(x.shape[p] for p in perm)
+    return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", **locals())
+    dim = dim % len(input.shape)
+    if isinstance(num_or_sections, int):
+        num, sections = num_or_sections, []
+        sizes = ([input.shape[dim] // num] * num if input.shape[dim] > 0
+                 else [-1] * num)
+    else:
+        num, sections = 0, list(num_or_sections)
+        sizes = sections
+    outs = [helper.create_variable_for_type_inference(dtype=input.dtype)
+            for _ in sizes]
+    helper.append_op(type="split", inputs={"X": [input]},
+                     outputs={"Out": outs},
+                     attrs={"num": num, "sections": sections, "axis": dim})
+    for o, sz in zip(outs, sizes):
+        s = list(input.shape)
+        s[dim] = sz
+        o.shape = tuple(s)
+    return outs

@@ -1,9 +1,11 @@
 """Tensor layers (parity: python/paddle/fluid/layers/tensor.py)."""
 
-from ..framework import convert_dtype
+import numpy as np
+
+from ..framework import Variable, convert_dtype
 from ..layer_helper import LayerHelper
 
-__all__ = ["create_parameter", "cast", "sums", "fill_constant"]
+__all__ = ["create_parameter", "cast", "sums", "assign", "fill_constant"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -34,6 +36,27 @@ def sums(input, out=None):
     helper.append_op(type="sum", inputs={"X": input}, outputs={"Out": [out]})
     out.shape = input[0].shape
     return out
+
+
+def assign(input, output=None):
+    """Copy a Variable (an `assign` op) or a numpy value (an
+    `assign_value` op holding it) into `output`."""
+    helper = LayerHelper("assign", **locals())
+    if isinstance(input, Variable):
+        if output is None:
+            output = helper.create_variable_for_type_inference(input.dtype)
+        helper.append_op(type="assign", inputs={"X": [input]},
+                         outputs={"Out": [output]})
+        output.shape = input.shape
+        return output
+    arr = np.asarray(input)
+    if output is None:
+        output = helper.create_variable_for_type_inference(str(arr.dtype))
+    helper.append_op(type="assign_value", outputs={"Out": [output]},
+                     attrs={"shape": list(arr.shape), "dtype": str(arr.dtype),
+                            "values": arr.tolist()})
+    output.shape = tuple(arr.shape)
+    return output
 
 
 def fill_constant(shape, dtype, value, force_cpu=False, out=None):

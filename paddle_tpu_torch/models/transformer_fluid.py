@@ -2,10 +2,14 @@
 (the port of the JAX package's ``models/transformer_fluid.py`` ``build``):
 a pre-LN decoder-only LM — vocab 32000, d_model 512, 8 heads, 6 layers,
 d_ff 2048 at its defaults — with the fused multihead-attention op (causal
-flash attention inside) and a sequence-chunked cross-entropy head.
+flash attention inside) and a sequence-chunked cross-entropy head. With
+``remat=True`` (the default) each pair of layers is one
+``layers.recompute`` segment; with ``dropout_rate > 0`` attention takes
+the fc + split path through ``nets.scaled_dot_product_attention``'s
+explicit scores (no flash attention, as in the JAX package) and two
+dropouts a layer.
 
-Not ported yet: ``remat=True`` (layers.recompute), dropout, and
-``build_stacked`` (StaticRNN); ``build`` raises for the first two.
+Not ported yet: ``build_stacked`` (StaticRNN).
 """
 
 from .. import layers, nets
@@ -23,15 +27,8 @@ def build(vocab_size=32000, d_model=512, n_heads=8, n_layers=6, d_ff=2048,
     token ids). Loss = mean token cross-entropy in fp32.
 
     dtype="bfloat16" stores params AND the residual stream in bf16;
-    layer_norm statistics, the cross-entropy log-softmax and the sgd
-    update math stay fp32 inside their ops."""
-    if remat:
-        raise NotImplementedError(
-            "remat=True needs layers.recompute, which the PyTorch port "
-            "does not have yet: build(remat=False)")
-    if dropout_rate:
-        raise NotImplementedError(
-            "dropout is not ported yet: build(dropout_rate=0.0)")
+    layer_norm statistics, the cross-entropy log-softmax and the
+    optimizers' update math stay fp32 inside their ops."""
     tokens = layers.data(name="tokens", shape=[seq_len], dtype="int32")
     labels = layers.data(name="labels", shape=[seq_len], dtype="int32")
 
@@ -42,17 +39,43 @@ def build(vocab_size=32000, d_model=512, n_heads=8, n_layers=6, d_ff=2048,
 
     def encoder_layer(x):
         a = layers.layer_norm(x, begin_norm_axis=2)
-        proj = nets.fused_multihead_attention(a, n_heads, causal=True)
+        if not dropout_rate:
+            proj = nets.fused_multihead_attention(a, n_heads, causal=True)
+        else:
+            qkv = layers.fc(a, 3 * d_model, num_flatten_dims=2,
+                            param_attr=ParamAttr(shard_spec=(None, "tp")))
+            q, k, v = layers.split(qkv, num_or_sections=3, dim=-1)
+            attn = nets.scaled_dot_product_attention(
+                q, k, v, num_heads=n_heads, dropout_rate=dropout_rate,
+                causal=True)
+            proj = layers.fc(attn, d_model, num_flatten_dims=2,
+                             param_attr=ParamAttr(shard_spec=("tp", None)))
+            proj = layers.dropout(proj, dropout_prob=dropout_rate)
         x = layers.elementwise_add(x, proj)
         b = layers.layer_norm(x, begin_norm_axis=2)
         f = layers.fc(b, d_ff, num_flatten_dims=2, act="gelu",
                       param_attr=ParamAttr(shard_spec=(None, "tp")))
         f = layers.fc(f, d_model, num_flatten_dims=2,
                       param_attr=ParamAttr(shard_spec=("tp", None)))
+        if dropout_rate:
+            f = layers.dropout(f, dropout_prob=dropout_rate)
         return layers.elementwise_add(x, f)
 
-    for _ in range(n_layers):
-        h = encoder_layer(h)
+    def layer_pair(x):
+        return encoder_layer(encoder_layer(x))
+
+    # remat: two layers a segment (an odd last layer alone)
+    i = 0
+    while i < n_layers:
+        if remat and i + 1 < n_layers:
+            h = layers.recompute(layer_pair, h)
+            i += 2
+        elif remat:
+            h = layers.recompute(encoder_layer, h)
+            i += 1
+        else:
+            h = encoder_layer(h)
+            i += 1
 
     h = layers.layer_norm(h, begin_norm_axis=2)
     loss = _chunked_lm_head(h, labels, vocab_size, seq_len, head_chunk)

@@ -1,12 +1,62 @@
 """Composite layers (parity: the JAX package's ``nets.py``): the fused
-self-attention sublayer of the Fluid-API Transformer LM."""
+self-attention sublayer of the Fluid-API Transformer LM and
+`scaled_dot_product_attention` :74-131."""
 
 import copy
 
+import numpy as np
+
+from . import layers
 from .layer_helper import LayerHelper
 from .param_attr import ParamAttr
 
-__all__ = ["fused_multihead_attention"]
+__all__ = ["fused_multihead_attention", "scaled_dot_product_attention"]
+
+
+def scaled_dot_product_attention(queries, keys, values, num_heads=1,
+                                 dropout_rate=0.0, causal=False):
+    """Multi-head scaled dot-product attention over [B, T, D] inputs.
+    Without dropout: one `flash_attention` op (the kernel K1) reading the
+    heads of [B, T, H, Dh] views ("bthd"). With dropout: the explicit
+    score tensor (scale, matmul, an additive causal mask, softmax,
+    dropout on the weights, matmul), as in the JAX package."""
+    if queries.shape[-1] % num_heads != 0:
+        raise ValueError("num_heads must divide the hidden size")
+    d = queries.shape[-1]
+    dk = d // num_heads
+
+    def _split4(x):
+        return layers.reshape(x, shape=[0, 0, num_heads,
+                                        x.shape[-1] // num_heads])
+
+    if not dropout_rate:
+        q, k, v = _split4(queries), _split4(keys), _split4(values)
+        helper = LayerHelper("flash_attention")
+        ctx = helper.create_variable_for_type_inference(queries.dtype)
+        helper.append_op(type="flash_attention",
+                         inputs={"Q": [q], "K": [k], "V": [v]},
+                         outputs={"Out": [ctx]},
+                         attrs={"causal": bool(causal),
+                                "sm_scale": dk ** -0.5, "layout": "bthd"})
+        ctx.shape = q.shape
+        return layers.reshape(ctx, shape=[0, 0, d])
+
+    def _split_heads(x):
+        return layers.transpose(_split4(x), perm=[0, 2, 1, 3])
+
+    q = _split_heads(queries)
+    k = _split_heads(keys)
+    v = _split_heads(values)
+    product = layers.matmul(layers.scale(q, scale=dk ** -0.5), k,
+                            transpose_y=True)
+    if causal:
+        t = product.shape[-1]
+        mask = layers.assign(np.triu(np.full((t, t), -1e9, "float32"), k=1))
+        product = layers.elementwise_add(product, mask)
+    weights = layers.dropout(layers.softmax(product),
+                             dropout_prob=dropout_rate)
+    ctx = layers.transpose(layers.matmul(weights, v), perm=[0, 2, 1, 3])
+    return layers.reshape(ctx, shape=[0, 0, d])
 
 
 def fused_multihead_attention(input, num_heads, causal=False,

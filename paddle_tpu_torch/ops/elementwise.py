@@ -1,30 +1,67 @@
-"""Broadcast elementwise ops with Fluid's `axis` convention (parity: the
-JAX package's ``ops/elementwise.py``), the exact-erf gelu (its
-``ops/activations.py:39``) and the reductions (its ``ops/reduce.py``)."""
+"""Broadcast elementwise, compare and logical ops with Fluid's `axis`
+convention (parity: the JAX package's ``ops/elementwise.py``) and the
+reductions (its ``ops/reduce.py``).
+
+Mixed dtypes promote as jnp promotes them, by torch.promote_types of
+the two operands' dtypes: torch's own rule would let a 0-d operand of
+another float dtype keep the other's (a bf16 grad divided by an fp32
+scalar stays bf16 in torch, and is fp32 in jnp).
+"""
 
 import torch
-import torch.nn.functional as F
 
 from .registry import broadcast_to_axis, register
 
 
-def _binary(name, fn):
+def promote(x, y):
+    """x and y in their jnp result dtype."""
+    if x.dtype != y.dtype:
+        dt = torch.promote_types(x.dtype, y.dtype)
+        x, y = x.to(dt), y.to(dt)
+    return x, y
+
+
+def _binary(name, fn, differentiable=True, promoted=True):
     def impl(ctx, ins, attrs):
         x, y = ins["X"][0], ins["Y"][0]
         y = broadcast_to_axis(y, x.ndim, attrs.get("axis", -1))
+        if promoted:
+            x, y = promote(x, y)
         return {"Out": [fn(x, y)]}
 
-    register(name)(impl)
+    register(name, differentiable=differentiable)(impl)
 
 
 _binary("elementwise_add", torch.add)
+_binary("elementwise_sub", torch.sub)
 _binary("elementwise_mul", torch.mul)
 _binary("elementwise_div", torch.div)
+_binary("elementwise_max", torch.maximum)
+_binary("elementwise_min", torch.minimum)
+_binary("elementwise_pow", torch.pow)
+_binary("elementwise_mod", torch.remainder, differentiable=False)
+_binary("elementwise_floordiv", torch.floor_divide, differentiable=False)
+
+_binary("equal", torch.eq, differentiable=False)
+_binary("not_equal", torch.ne, differentiable=False)
+_binary("less_than", torch.lt, differentiable=False)
+_binary("less_equal", torch.le, differentiable=False)
+_binary("greater_than", torch.gt, differentiable=False)
+_binary("greater_equal", torch.ge, differentiable=False)
 
 
-@register("gelu")
-def _gelu(ctx, ins, attrs):
-    return {"Out": [F.gelu(ins["X"][0])]}
+def _logical(name, fn, unary=False):
+    def impl(ctx, ins, attrs):
+        x = ins["X"][0]
+        return {"Out": [fn(x) if unary else fn(x, ins["Y"][0])]}
+
+    register(name, differentiable=False)(impl)
+
+
+_logical("logical_and", torch.logical_and)
+_logical("logical_or", torch.logical_or)
+_logical("logical_xor", torch.logical_xor)
+_logical("logical_not", torch.logical_not, unary=True)
 
 
 def _reduce(name, fn):
@@ -48,3 +85,9 @@ def _reduce(name, fn):
 
 _reduce("reduce_sum", torch.sum)
 _reduce("reduce_prod", torch.prod)
+
+
+@register("mean")
+def _mean(ctx, ins, attrs):
+    """The mean of all elements, shape [1] (Fluid's mean_op)."""
+    return {"Out": [torch.mean(ins["X"][0]).reshape((1,))]}

@@ -144,6 +144,11 @@ def flash_attention(q, k, v, causal=True, sm_scale=None):
         return flash_attention_reference(q, k, v, causal, sm_scale)
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        # no graph to record (a recompute segment's first forward): the
+        # kernel alone, keeping no residuals for a backward
+        return flash_attention_fwd(q, k, v, bool(causal), float(sm_scale))[0]
     return _FlashAttention.apply(q, k, v, bool(causal), float(sm_scale))
 
 

@@ -1,13 +1,14 @@
 """Core math and tensor-creation ops (parity: the JAX package's
 ``ops/math.py`` fill_constant :21, fill_any_like :48, uniform_random :60,
 gaussian_random, assign_value :99, shape :110, fused_int8_matmul :193,
-mul :223, scale :238, sum :245, cast :254)."""
+assign :91, matmul :175, mul :223, scale :238, sum :245, cast :254, sign
+:259, clip :264, clip_by_norm :269, squared_l2_norm :295)."""
 
 import numpy as np
 import torch
 
 from ..framework import torch_dtype
-from .registry import register, simple_op
+from .registry import register, simple_op, weak_scalar
 
 
 @register("fill_constant", differentiable=False)
@@ -40,6 +41,14 @@ def _gaussian_random(ctx, ins, attrs):
     out.normal_(attrs.get("mean", 0.0), attrs.get("std", 1.0),
                 generator=ctx.generator(attrs))
     return {"Out": [out.to(torch_dtype(attrs.get("dtype", "float32")))]}
+
+
+@register("assign")
+def _assign(ctx, ins, attrs):
+    if ins.get("X"):
+        return {"Out": [ins["X"][0]]}
+    v = np.asarray(attrs["value"], dtype=attrs.get("dtype", "float32"))
+    return {"Out": [torch.from_numpy(v).to(ctx.device)]}
 
 
 @register("assign_value", differentiable=False)
@@ -107,6 +116,20 @@ def _mul(ctx, ins, attrs):
     return {"Out": [out.reshape(tuple(x.shape[:xn]) + tuple(y.shape[yn:]))]}
 
 
+@register("matmul")
+def _matmul(ctx, ins, attrs):
+    x, y = ins["X"][0], ins["Y"][0]
+    if attrs.get("transpose_X", False) and x.ndim > 1:
+        x = x.transpose(-1, -2)
+    if attrs.get("transpose_Y", False) and y.ndim > 1:
+        y = y.transpose(-1, -2)
+    if _quant_int8(x, y, attrs):
+        return {"Out": [_int8_dot(x, y)]}
+    out = _amp_dot(x, y, attrs)
+    alpha = attrs.get("alpha", 1.0)
+    return {"Out": [out * alpha if alpha != 1.0 else out]}
+
+
 @register("fused_int8_matmul", differentiable=False)
 def _fused_int8_matmul(ctx, ins, attrs):
     """quant_rewrite's fused full-int8 dense layer (one op instead of the
@@ -134,6 +157,7 @@ def _fused_int8_matmul(ctx, ins, attrs):
 @simple_op("scale")
 def _scale(ctx, x, scale=1.0, bias=0.0, bias_after_scale=True, **_):
     # adding a zero bias changes no value: skip that pass
+    scale = weak_scalar(x, scale)
     if bias_after_scale:
         out = x * scale
         return out + bias if bias else out
@@ -152,3 +176,31 @@ def _sum(ctx, ins, attrs):
 @simple_op("cast")
 def _cast(ctx, x, out_dtype="float32", **_):
     return x.to(torch_dtype(out_dtype))
+
+
+@simple_op("sign")
+def _sign(ctx, x, **_):
+    return torch.sign(x)
+
+
+@simple_op("clip")
+def _clip(ctx, x, min=None, max=None, **_):
+    return torch.clamp(x, min, max)
+
+
+@register("clip_by_norm")
+def _clip_by_norm(ctx, ins, attrs):
+    """x scaled to an L2 norm of at most max_norm: the norm in fp32, the
+    scale rounded to x's dtype before the product (the JAX op's order)."""
+    x = ins["X"][0]
+    max_norm = attrs["max_norm"]
+    norm = torch.sqrt(torch.sum(x.float() ** 2))
+    scale = torch.where(norm > max_norm,
+                        max_norm / torch.clamp(norm, min=1e-12),
+                        torch.ones_like(norm))
+    return {"Out": [x * scale.to(x.dtype)]}
+
+
+@simple_op("squared_l2_norm")
+def _squared_l2_norm(ctx, x, **_):
+    return torch.sum(x * x).reshape((1,))

@@ -1,7 +1,8 @@
 """Tensor and NN ops of the LM path (parity: the JAX package's
-``ops/tensor_ops.py`` reshape2 :13 / slice :148, ``ops/nn_ops.py``
-lookup_table :53 / layer_norm :78 / add_position_encoding :275, and
-``ops/loss_ops.py`` softmax_with_cross_entropy :90)."""
+``ops/tensor_ops.py`` reshape2 :13 / transpose2 :96 / split :113 / slice
+:148, ``ops/nn_ops.py`` softmax :20 / dropout :33 / lookup_table :53 /
+layer_norm :78 / add_position_encoding :275, and ``ops/loss_ops.py``
+softmax_with_cross_entropy :90)."""
 
 import functools
 
@@ -9,7 +10,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .registry import register
+from .registry import register, weak_scalar
 
 
 @register("reshape2")
@@ -20,6 +21,60 @@ def _reshape2(ctx, ins, attrs):
              for i, s in enumerate(attrs["shape"])]
     return {"Out": [x.reshape(shape)],
             "XShape": [x.new_zeros((0,) + tuple(x.shape))]}
+
+
+@register("transpose2")
+def _transpose2(ctx, ins, attrs):
+    x = ins["X"][0]
+    return {"Out": [x.permute(*attrs["axis"])],
+            "XShape": [x.new_zeros((0,) + tuple(x.shape))]}
+
+
+@register("split")
+def _split(ctx, ins, attrs):
+    x = ins["X"][0]
+    axis = attrs.get("axis", 0)
+    sections = attrs.get("sections", [])
+    if sections:
+        return {"Out": list(torch.split(x, list(sections), dim=axis))}
+    num = attrs.get("num", 0)
+    if x.shape[axis] % num:
+        raise ValueError("split: dim %d of size %d does not divide into %d"
+                         % (axis, x.shape[axis], num))
+    return {"Out": list(torch.split(x, x.shape[axis] // num, dim=axis))}
+
+
+@register("softmax")
+def _softmax(ctx, ins, attrs):
+    """Softmax in the input's dtype (jax.nn.softmax's)."""
+    x = ins["X"][0]
+    return {"Out": [torch.softmax(x, dim=attrs.get("axis", -1))]}
+
+
+@register("dropout", stateful=True)
+def _dropout(ctx, ins, attrs):
+    """Keep each element with probability 1 - p, drawn from the op's own
+    generator (``LoweringContext.generator``: a recompute segment's
+    re-run draws the forward's mask). downgrade_in_infer: Out = X * Mask
+    in training, X * (1 - p) at test; upscale_in_train: X / (1 - p) where
+    kept in training, X at test. Mask is in X's dtype (ones at test)."""
+    x = ins["X"][0]
+    p = attrs.get("dropout_prob", 0.5)
+    impl_type = attrs.get("dropout_implementation", "downgrade_in_infer")
+    if attrs.get("is_test", False):
+        out = (x if impl_type == "upscale_in_train"
+               else x * weak_scalar(x, 1.0 - p))
+        return {"Out": [out], "Mask": [torch.ones_like(x)]}
+    u = torch.rand(x.shape, generator=ctx.generator(attrs),
+                   device=x.device)
+    keep = u >= p
+    mask = keep.to(x.dtype)
+    if impl_type == "upscale_in_train":
+        out = torch.where(keep, x / weak_scalar(x, 1.0 - p),
+                          torch.zeros_like(x))
+    else:
+        out = x * mask
+    return {"Out": [out], "Mask": [mask]}
 
 
 @register("slice")

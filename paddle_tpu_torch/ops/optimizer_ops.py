@@ -1,10 +1,13 @@
 """Parameter-update and loss-unscaling ops (parity: the JAX package's
-``ops/optimizer_ops.py`` sgd :34 and ``ops/quant_ops.py``
+``ops/optimizer_ops.py`` :34-256 and ``ops/quant_ops.py``
 check_finite_and_unscale).
 
-`sgd` updates the scope's parameter tensor in place, as the JAX step
-does by donating its state buffers: the update math runs in fp32 and
-rounds once, on the write-back.
+Each update op writes its results in place into the scope's tensors
+(the parameter and its accumulators), as the JAX step does by donating
+its state buffers. The state math runs in fp32 in the JAX op's order of
+operations (a reordered formula drifts from the reference), the incoming
+grad is cast to fp32 once, and the parameter rounds once, on the
+write-back.
 """
 
 import torch
@@ -12,12 +15,233 @@ import torch
 from .registry import register
 
 
+def _p(ins, slot):
+    vs = ins.get(slot, [])
+    return vs[0] if vs else None
+
+
+def _lr(ins):
+    return _p(ins, "LearningRate").reshape(()).float()
+
+
+def _g32(ins):
+    return _p(ins, "Grad").float()
+
+
+def _write(outs):
+    """Copy each computed value into the tensor it updates (slot ->
+    (tensor, value)); returns the op's outputs."""
+    for dst, val in outs.values():
+        dst.copy_(val.reshape(dst.shape))
+    return {slot: [dst] for slot, (dst, _) in outs.items()}
+
+
 @register("sgd", differentiable=False)
 def _sgd(ctx, ins, attrs):
-    p, g = ins["Param"][0], ins["Grad"][0]
-    lr = ins["LearningRate"][0].reshape(()).float()
-    p.copy_(p.float() - lr * g.float())
-    return {"ParamOut": [p]}
+    p = _p(ins, "Param")
+    return _write({"ParamOut": (p, p.float() - _lr(ins) * _g32(ins))})
+
+
+@register("momentum", differentiable=False)
+def _momentum(ctx, ins, attrs):
+    p, g, v = _p(ins, "Param"), _g32(ins), _p(ins, "Velocity")
+    lr = _lr(ins)
+    mu = attrs.get("mu", 0.9)
+    v_out = mu * v + g
+    if attrs.get("use_nesterov", False):
+        p_out = p.float() - (g + mu * v_out) * lr
+    else:
+        p_out = p.float() - lr * v_out
+    return _write({"ParamOut": (p, p_out), "VelocityOut": (v, v_out)})
+
+
+@register("lars_momentum", differentiable=False)
+def _lars_momentum(ctx, ins, attrs):
+    p, g, v = _p(ins, "Param"), _g32(ins), _p(ins, "Velocity")
+    lr = _lr(ins)
+    mu = attrs.get("mu", 0.9)
+    coeff = attrs.get("lars_coeff", 0.001)
+    decay = attrs.get("lars_weight_decay", 0.0005)
+    pn = torch.sqrt(torch.sum(p.float() ** 2))
+    gn = torch.sqrt(torch.sum(g ** 2))
+    local_lr = lr * coeff * pn / (gn + decay * pn + 1e-12)
+    # decay * p in p's dtype, then promoted by the fp32 grad (jnp's order)
+    v_out = mu * v + local_lr * (g + decay * p)
+    return _write({"ParamOut": (p, p.float() - v_out),
+                   "VelocityOut": (v, v_out)})
+
+
+@register("adam", differentiable=False)
+def _adam(ctx, ins, attrs):
+    p, gf = _p(ins, "Param"), _g32(ins)
+    m, v = _p(ins, "Moment1"), _p(ins, "Moment2")
+    b1p_t, b2p_t = _p(ins, "Beta1Pow"), _p(ins, "Beta2Pow")
+    b1p, b2p = b1p_t.reshape(()), b2p_t.reshape(())
+    lr = _lr(ins)
+    b1 = attrs.get("beta1", 0.9)
+    b2 = attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-8)
+    m_out = b1 * m + (1.0 - b1) * gf
+    v_out = b2 * v + (1.0 - b2) * gf * gf
+    lr_t = lr * torch.sqrt(1.0 - b2p) / (1.0 - b1p)
+    p_out = p.float() - lr_t * m_out / (torch.sqrt(v_out) + eps)
+    return _write({"ParamOut": (p, p_out), "Moment1Out": (m, m_out),
+                   "Moment2Out": (v, v_out),
+                   "Beta1PowOut": (b1p_t, b1p * b1),
+                   "Beta2PowOut": (b2p_t, b2p * b2)})
+
+
+@register("adamax", differentiable=False)
+def _adamax(ctx, ins, attrs):
+    p, g = _p(ins, "Param"), _g32(ins)
+    m, inf_norm = _p(ins, "Moment"), _p(ins, "InfNorm")
+    b1p = _p(ins, "Beta1Pow").reshape(())
+    lr = _lr(ins)
+    b1 = attrs.get("beta1", 0.9)
+    b2 = attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-8)
+    m_out = b1 * m + (1.0 - b1) * g
+    inf_out = torch.maximum(b2 * inf_norm, torch.abs(g))
+    p_out = p.float() - (lr / (1.0 - b1p)) * m_out / (inf_out + eps)
+    return _write({"ParamOut": (p, p_out), "MomentOut": (m, m_out),
+                   "InfNormOut": (inf_norm, inf_out)})
+
+
+@register("adagrad", differentiable=False)
+def _adagrad(ctx, ins, attrs):
+    p, g, mom = _p(ins, "Param"), _g32(ins), _p(ins, "Moment")
+    lr = _lr(ins)
+    eps = attrs.get("epsilon", 1e-6)
+    mom_out = mom + g * g
+    p_out = p.float() - lr * g / (torch.sqrt(mom_out) + eps)
+    return _write({"ParamOut": (p, p_out), "MomentOut": (mom, mom_out)})
+
+
+@register("decayed_adagrad", differentiable=False)
+def _decayed_adagrad(ctx, ins, attrs):
+    p, g, mom = _p(ins, "Param"), _g32(ins), _p(ins, "Moment")
+    lr = _lr(ins)
+    decay = attrs.get("decay", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    mom_out = decay * mom + (1.0 - decay) * g * g
+    p_out = p.float() - lr * g / (torch.sqrt(mom_out) + eps)
+    return _write({"ParamOut": (p, p_out), "MomentOut": (mom, mom_out)})
+
+
+@register("adadelta", differentiable=False)
+def _adadelta(ctx, ins, attrs):
+    p, g = _p(ins, "Param"), _g32(ins)
+    avg_sq_g = _p(ins, "AvgSquaredGrad")
+    avg_sq_u = _p(ins, "AvgSquaredUpdate")
+    rho = attrs.get("rho", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    g2 = rho * avg_sq_g + (1.0 - rho) * g * g
+    upd = -torch.sqrt((avg_sq_u + eps) / (g2 + eps)) * g
+    u2 = rho * avg_sq_u + (1.0 - rho) * upd * upd
+    return _write({"ParamOut": (p, p.float() + upd),
+                   "AvgSquaredGradOut": (avg_sq_g, g2),
+                   "AvgSquaredUpdateOut": (avg_sq_u, u2)})
+
+
+@register("rmsprop", differentiable=False)
+def _rmsprop(ctx, ins, attrs):
+    p, g = _p(ins, "Param"), _g32(ins)
+    ms, mom = _p(ins, "MeanSquare"), _p(ins, "Moment")
+    lr = _lr(ins)
+    rho = attrs.get("decay", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    momentum = attrs.get("momentum", 0.0)
+    ms_out = rho * ms + (1.0 - rho) * g * g
+    outs = {"MeanSquareOut": (ms, ms_out)}
+    if attrs.get("centered", False):
+        mg = _p(ins, "MeanGrad")
+        mg_out = rho * mg + (1.0 - rho) * g
+        denom = ms_out - mg_out * mg_out + eps
+        outs["MeanGradOut"] = (mg, mg_out)
+    else:
+        denom = ms_out + eps
+    mom_out = momentum * mom + lr * g / torch.sqrt(denom)
+    outs["MomentOut"] = (mom, mom_out)
+    outs["ParamOut"] = (p, p.float() - mom_out)
+    return _write(outs)
+
+
+@register("ftrl", differentiable=False)
+def _ftrl(ctx, ins, attrs):
+    p, g = _p(ins, "Param"), _g32(ins)
+    sq, lin = _p(ins, "SquaredAccumulator"), _p(ins, "LinearAccumulator")
+    lr = _lr(ins)
+    l1 = attrs.get("l1", 0.0)
+    l2 = attrs.get("l2", 0.0)
+    power = attrs.get("lr_power", -0.5)
+    new_sq = sq + g * g
+    if power == -0.5:
+        sigma = (torch.sqrt(new_sq) - torch.sqrt(sq)) / lr
+    else:
+        sigma = (new_sq ** (-power) - sq ** (-power)) / lr
+    lin_out = lin + g - sigma * p
+    x = l1 * torch.sign(lin_out) - lin_out
+    if power == -0.5:
+        y = torch.sqrt(new_sq) / lr + 2 * l2
+    else:
+        y = new_sq ** (-power) / lr + 2 * l2
+    p_out = torch.where(torch.abs(lin_out) > l1, x / y,
+                        torch.zeros_like(x))
+    return _write({"ParamOut": (p, p_out), "SquaredAccumOut": (sq, new_sq),
+                   "LinearAccumOut": (lin, lin_out)})
+
+
+@register("lamb", differentiable=False)
+def _lamb(ctx, ins, attrs):
+    p, gf = _p(ins, "Param"), _g32(ins)
+    m, v = _p(ins, "Moment1"), _p(ins, "Moment2")
+    b1p_t, b2p_t = _p(ins, "Beta1Pow"), _p(ins, "Beta2Pow")
+    b1p, b2p = b1p_t.reshape(()), b2p_t.reshape(())
+    lr = _lr(ins)
+    b1 = attrs.get("beta1", 0.9)
+    b2 = attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-6)
+    wd = attrs.get("weight_decay", 0.01)
+    pf = p.float()
+    m_out = b1 * m + (1.0 - b1) * gf
+    v_out = b2 * v + (1.0 - b2) * gf * gf
+    m_hat = m_out / (1.0 - b1p)
+    v_hat = v_out / (1.0 - b2p)
+    r = m_hat / (torch.sqrt(v_hat) + eps) + wd * pf
+    p_norm = torch.sqrt(torch.sum(pf * pf))
+    r_norm = torch.sqrt(torch.sum(r * r))
+    ratio = torch.where((p_norm > 0) & (r_norm > 0), p_norm / r_norm,
+                        torch.ones_like(p_norm))
+    return _write({"ParamOut": (p, pf - lr * ratio * r),
+                   "Moment1Out": (m, m_out), "Moment2Out": (v, v_out),
+                   "Beta1PowOut": (b1p_t, b1p * b1),
+                   "Beta2PowOut": (b2p_t, b2p * b2)})
+
+
+@register("proximal_gd", differentiable=False)
+def _proximal_gd(ctx, ins, attrs):
+    p, g = _p(ins, "Param"), _g32(ins)
+    lr = _lr(ins)
+    l1 = attrs.get("l1", 0.0)
+    l2 = attrs.get("l2", 0.0)
+    prox = p.float() - lr * g
+    p_out = torch.sign(prox) * torch.clamp(
+        torch.abs(prox) - lr * l1, min=0.0) / (1.0 + lr * l2)
+    return _write({"ParamOut": (p, p_out)})
+
+
+@register("proximal_adagrad", differentiable=False)
+def _proximal_adagrad(ctx, ins, attrs):
+    p, g, mom = _p(ins, "Param"), _g32(ins), _p(ins, "Moment")
+    lr = _lr(ins)
+    l1 = attrs.get("l1", 0.0)
+    l2 = attrs.get("l2", 0.0)
+    mom_out = mom + g * g
+    eff_lr = lr / torch.sqrt(mom_out)
+    prox = p.float() - eff_lr * g
+    p_out = torch.sign(prox) * torch.clamp(
+        torch.abs(prox) - eff_lr * l1, min=0.0) / (1.0 + eff_lr * l2)
+    return _write({"ParamOut": (p, p_out), "MomentOut": (mom, mom_out)})
 
 
 @register("check_finite_and_unscale")
@@ -32,4 +256,3 @@ def _check_finite_and_unscale(ctx, ins, attrs):
         g = g.to(torch.promote_types(g.dtype, scale.dtype))
         outs.append(torch.where(finite, g / scale, torch.zeros_like(g)))
     return {"Out": outs, "FoundInfinite": [(~finite).reshape(1)]}
-

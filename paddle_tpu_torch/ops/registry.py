@@ -13,6 +13,8 @@ under autograd and its grad op asks autograd for the input grads.
 an ``__op_seed__``).
 """
 
+import torch
+
 _REGISTRY = {}
 
 
@@ -81,3 +83,16 @@ def broadcast_to_axis(y, x_ndim, axis):
         return y
     shape = (1,) * axis + tuple(y.shape) + (1,) * (x_ndim - axis - y.ndim)
     return y.reshape(shape)
+
+
+def weak_scalar(x, value):
+    """A Python scalar as jnp combines it with x: a low-precision float
+    tensor takes it rounded to its own dtype first (bf16 * 0.7 is bf16 *
+    bf16(0.7) in jnp, while torch would multiply by the fp32 0.7). The
+    rounded value stays a Python float (rounded on the host: no device
+    tensor, no copy to the card); torch computes the product in fp32,
+    where a bf16 or fp16 value is exact, and rounds it once, as XLA
+    does."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return torch.tensor(value, dtype=x.dtype).item()
+    return value

@@ -6,6 +6,13 @@ a small width:
     when the two runs agree, and its fp32 leg fails on each fault
     planted in the first run — an SGD update skipped, an update 1% too
     large, flash attention's dQ 1% too large;
+  * phase 6e (training as users configure it) at that width, batch 2:
+    its remat, no_remat and dropout legs pass their gates on the CPU and
+    the dropout grads agree across remat; the gates fail an Adam update
+    skipped for some parameters, K1 at 6 + 6 a step under remat and a
+    remat peak not below the no-remat peak; its fp32 Adam card-vs-CPU
+    check passes when the runs agree and fails the clip left out, the
+    decay left out or Adam skipped in the first run;
   * the int8 card-vs-CPU check with two CPU executors (the same width,
     fp32, full-int8): it passes when the two runs agree, reads the
     bound for a 1% act-scale fault, and fails on such a fault planted
@@ -493,3 +500,134 @@ def test_check_failover_catches_each_fault(smoke, fault, capsys):
     with pytest.raises(SystemExit):
         smoke.check_failover(st, dead, outs, want)
     assert "fleet failover" in capsys.readouterr().err
+
+
+# ---------------------------------------------------------------------------
+# phase 6e: training as users configure it (Adam, the schedule, L2 decay,
+# the global-norm clip, remat and dropout), its gates on CPU executors
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def user_legs(smoke):
+    """Phase 6e's three legs at the small width, batch 2, on the CPU."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    return {name: smoke.user_leg(torch, fa, fluid, name, kw, 2,
+                                 device="cpu")
+            for name, kw, _ in smoke.USER_LEGS}
+
+
+def test_user_training_gates_pass_on_the_cpu(smoke, user_legs):
+    """Each leg passes its gates (the loss falls, every beta1_pow_acc at
+    beta1^16, the schedule's closed form at run 15, @step_counter@ at
+    15); the CPU route counts no K1 launch; the dropout program's grads
+    under remat equal the no-remat build's, bitwise here."""
+    L = smoke.TRAIN["n_layers"]
+    for name, leg in user_legs.items():
+        smoke.check_user_leg(leg, k1_per_step=(0, 0))
+        assert leg["runs"] == sum(smoke.USER_STEPS) == 15
+        # every parameter: 16 a layer (the fused attention's 8; with
+        # dropout the qkv and output fcs' 4), the embedding, the last
+        # layer norm's 2 and the head
+        per_layer = 12 if name == "dropout" else 16
+        assert len(leg["beta1_pow"]) == per_layer * L + 4
+    assert smoke.dropout_remat_grads(torch, fluid, devices=("cpu", "cpu"),
+                             batch=2) == (0.0, True)
+
+
+def test_user_training_gates_catch_a_skipped_adam_update(smoke,
+                                                         monkeypatch):
+    """Adam skipped for one parameter (the embedding, the one weight of
+    its shape): its beta1_pow_acc stays behind."""
+    opdef = registry.get("adam")
+    impl = opdef.impl
+    embedding = (smoke.TRAIN["vocab_size"], smoke.TRAIN["d_model"])
+
+    def planted(ctx, ins, attrs):
+        if tuple(ins["Param"][0].shape) == embedding:
+            return {}
+        return impl(ctx, ins, attrs)
+
+    monkeypatch.setattr(opdef, "impl", planted)
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    leg = smoke.user_leg(torch, fa, fluid, "remat", {}, 2, device="cpu")
+    with pytest.raises(SystemExit):
+        smoke.check_user_leg(leg)
+
+
+def test_user_training_gates_catch_wrong_k1_counts_and_peaks(smoke,
+                                                             user_legs):
+    """K1 at 6 + 6 a step (no re-run) fails the remat leg's launch gate,
+    and a remat peak not below the no-remat peak fails the memory gate."""
+    leg = dict(user_legs["remat"])
+    n, L = leg["runs"], smoke.TRAIN["n_layers"]
+    zero = {"tc": 0, "fp16": 0, "f32tc": 0}
+    want = smoke.user_k1_per_step("remat")
+    assert want == (2 * L, L)
+    leg["flash_attention_launches"] = (dict(zero, tc=2 * L * n),
+                                       dict(zero, tc=L * n), 0)
+    smoke.check_user_leg(leg, want)
+    leg["flash_attention_launches"] = (dict(zero, tc=L * n),
+                                       dict(zero, tc=L * n), 0)
+    with pytest.raises(SystemExit):
+        smoke.check_user_leg(leg, want)
+    smoke.check_remat_memory({"peak_gib": 9.0}, {"peak_gib": 10.0})
+    with pytest.raises(SystemExit):
+        smoke.check_remat_memory({"peak_gib": 10.0}, {"peak_gib": 10.0})
+
+
+def _adam_program(smoke):
+    return smoke.build_user_lm(fluid, "float32",
+                               cfg=dict(smoke.TRAIN, n_layers=2),
+                               clip_norm=smoke.USER_CVC_CLIP)
+
+
+def test_adam_card_vs_cpu_passes_when_the_runs_agree(smoke, capsys):
+    smoke.adam_card_vs_cpu_phase(torch, fluid, _adam_program(smoke),
+                                 devices=("cpu", "cpu"))
+    line = [json.loads(x.split(" ", 1)[1])
+            for x in capsys.readouterr().out.splitlines()
+            if x.startswith("card_vs_cpu ")][0]
+    assert line["optimizer"] == "adam" and line["worst_param_err_over_limit"] \
+        == 0.0
+    assert max(line["clip_scale_cpu"]) < 0.99   # the clip binds
+    assert 2 * line["skipped_update_fails_params"] >= line["params"]
+
+
+def _no_clip(impl, ctx, ins, attrs):
+    """The clip's product left out: a grad times the [1] scale returns
+    the grad."""
+    x, y = ins["X"][0], ins["Y"][0]
+    if y.numel() == 1 and x.numel() > 1:
+        return {"Out": [x]}
+    return impl(ctx, ins, attrs)
+
+
+L2 = 1e-4   # chip_smoke.USER["l2"]
+
+
+def _no_decay(impl, ctx, ins, attrs):
+    """The L2 decay's scale by its coefficient returns zeros."""
+    if attrs.get("scale") == L2:
+        return {"Out": [torch.zeros_like(ins["X"][0])]}
+    return impl(ctx, ins, attrs)
+
+
+@pytest.mark.parametrize("fault", ["no_clip", "no_decay", "skip_adam"])
+def test_adam_card_vs_cpu_catches_a_planted_fault(smoke, fault,
+                                                  monkeypatch, capsys):
+    """The clip left out, the decay left out, or Adam skipped, in the
+    first run: the Adam card-vs-CPU check fails."""
+    assert smoke.USER["l2"] == L2
+    program = _adam_program(smoke)
+    op, wrong = {"no_clip": ("elementwise_mul", _no_clip),
+                 "no_decay": ("scale", _no_decay),
+                 "skip_adam": ("adam", lambda impl, ctx, ins, attrs: {})}[
+        fault]
+    _plant(monkeypatch, smoke, op, wrong)
+    with pytest.raises(SystemExit):
+        smoke.adam_card_vs_cpu_phase(torch, fluid, program,
+                                     devices=("cpu", "cpu"))
+    assert "card vs CPU Adam" in capsys.readouterr().err

@@ -1,7 +1,11 @@
 """Each op kernel of the port's LM path held against the JAX package's
 kernel of the same op, on the same seeded numpy inputs and attrs: the
 outputs, and for differentiable ops the input grads (torch autograd
-against ``jax.vjp``) for a seeded cotangent.
+against ``jax.vjp``) for a seeded cotangent. Also every op of the
+activation family (36 unary ops and prelu), the binary,
+compare and logical families, matmul, softmax, transpose2, split, sign,
+clip, clip_by_norm, squared_l2_norm, assign, mean and increment, and
+mixed-dtype operands promoted as jnp promotes them.
 
 Tolerances: fp32 atol/rtol 1e-5 (other summation orders; the layer
 norm's statistics come from a fused kernel on the torch side); bf16
@@ -127,6 +131,104 @@ CASES = {
                            {"__need_softmax__": True}, "Softmax", (),
                            "float32", F32),
 }
+
+
+def _pos(*shape):
+    return (R.rand(*shape) * 2 + 0.1).astype(np.float32)
+
+
+def _unit(*shape):
+    return (R.rand(*shape) * 1.8 - 0.9).astype(np.float32)
+
+
+# the activation family (ops/activations.py): each unary op on inputs in
+# its domain, grads where it has them; a few in bf16 too
+_UNARY = {
+    "abs": _randn, "acos": _unit, "asin": _unit, "atan": _randn,
+    "ceil": _randn, "floor": _randn, "round": _randn, "cos": _randn,
+    "sin": _randn, "exp": _randn, "log": _pos, "sqrt": _pos, "rsqrt": _pos,
+    "square": _randn, "reciprocal": _pos, "sigmoid": _randn,
+    "logsigmoid": _randn, "tanh": _randn, "tanh_shrink": _randn,
+    "relu": _randn, "relu6": _randn, "softplus": _randn,
+    "softsign": _randn, "softshrink": _randn, "hard_shrink": _randn,
+    "hard_sigmoid": _randn, "brelu": _randn, "leaky_relu": _randn,
+    "elu": _randn, "selu": _randn, "stanh": _randn, "soft_relu": _randn,
+    "swish": _randn, "thresholded_relu": _randn, "pow": _pos,
+}
+_NO_GRAD = ("ceil", "floor", "round")
+_UNARY_ATTRS = {"relu6": {"threshold": 4.0}, "leaky_relu": {"alpha": 0.1},
+                "brelu": {"t_min": -1.0, "t_max": 1.5}, "pow": {"factor": 1.5},
+                "softshrink": {"lambda": 0.3}, "swish": {"beta": 2.0}}
+for _op, _make in _UNARY.items():
+    CASES["unary_" + _op] = (
+        _op, {"X": [_make(4, 16) * (3 if _op == "relu6" else 1)]},
+        _UNARY_ATTRS.get(_op, {}), "Out", () if _op in _NO_GRAD else ("X",),
+        "float32", F32)
+for _op in ("exp", "tanh", "sqrt", "square", "sigmoid"):
+    CASES["unary_%s_bf16" % _op] = (_op, {"X": [_UNARY[_op](4, 16)]}, {},
+                                    "Out", ("X",), "bfloat16", BF16)
+# the binary, compare and logical families (ops/elementwise.py)
+for _op, _x, _y in (("elementwise_sub", _randn, _randn),
+                    ("elementwise_max", _randn, _randn),
+                    ("elementwise_min", _randn, _randn),
+                    ("elementwise_pow", _pos, _randn)):
+    CASES[_op] = (_op, {"X": [_x(3, 8)], "Y": [_y(8)]}, {"axis": -1}, "Out",
+                  ("X", "Y"), "float32", F32)
+for _op in ("elementwise_mod", "elementwise_floordiv"):
+    CASES[_op] = (_op, {"X": [_randn(3, 8) * 5], "Y": [_pos(3, 8)]},
+                  {"axis": -1}, "Out", (), "float32", F32)
+for _op in ("equal", "not_equal", "less_than", "less_equal", "greater_than",
+            "greater_equal"):
+    _a = np.round(_randn(3, 8))
+    CASES[_op] = (_op, {"X": [_a], "Y": [np.round(_randn(3, 8))]}, {},
+                  "Out", (), "float32", F32)
+for _op in ("logical_and", "logical_or", "logical_xor", "logical_not"):
+    CASES[_op] = (_op, {"X": [_randn(3, 8) > 0], "Y": [_randn(3, 8) > 0]},
+                  {}, "Out", (), "bool", F32)
+CASES.update({
+    "prelu_channel": ("prelu", {"X": [_randn(2, 3, 4, 4)],
+                                "Alpha": [_pos(1, 3, 1, 1)]},
+                      {"mode": "channel"}, "Out", ("X", "Alpha"), "float32",
+                      F32),
+    "matmul": ("matmul", {"X": [_randn(2, 3, 5, 8)],
+                          "Y": [_randn(2, 3, 6, 8)]},
+               {"transpose_Y": True, "alpha": 0.5}, "Out", ("X", "Y"),
+               "float32", F32),
+    "matmul_amp": ("matmul", {"X": [_randn(2, 4, 8)], "Y": [_randn(2, 8, 3)]},
+                   {"__amp_bf16__": True}, "Out", ("X", "Y"), "float32",
+                   BF16),
+    "softmax": ("softmax", {"X": [_randn(2, 3, 10)]}, {"axis": -1}, "Out",
+                ("X",), "float32", F32),
+    "softmax_bf16": ("softmax", {"X": [_randn(2, 10)]}, {}, "Out", ("X",),
+                     "bfloat16", BF16),
+    "transpose2": ("transpose2", {"X": [_randn(2, 3, 4, 5)]},
+                   {"axis": [0, 2, 1, 3]}, "Out", ("X",), "float32", F32),
+    "split_num": ("split", {"X": [_randn(2, 12)]},
+                  {"num": 3, "sections": [], "axis": 1}, "Out", ("X",),
+                  "float32", F32),
+    "split_sections": ("split", {"X": [_randn(7, 2)]},
+                       {"num": 0, "sections": [2, 5], "axis": 0}, "Out",
+                       ("X",), "float32", F32),
+    "sign": ("sign", {"X": [_randn(3, 4)]}, {}, "Out", ("X",), "float32",
+             F32),
+    "clip": ("clip", {"X": [_randn(3, 4)]}, {"min": -0.5, "max": 0.7},
+             "Out", ("X",), "float32", F32),
+    "clip_by_norm": ("clip_by_norm", {"X": [_randn(3, 4)]},
+                     {"max_norm": 1.0}, "Out", ("X",), "float32", F32),
+    "clip_by_norm_under": ("clip_by_norm", {"X": [_randn(3, 4)]},
+                           {"max_norm": 100.0}, "Out", ("X",), "float32",
+                           F32),
+    "squared_l2_norm": ("squared_l2_norm", {"X": [_randn(3, 4)]}, {},
+                        "Out", ("X",), "float32", F32),
+    "assign": ("assign", {"X": [_randn(3, 4)]}, {}, "Out", ("X",),
+               "float32", F32),
+    "mean": ("mean", {"X": [_randn(3, 4)]}, {}, "Out", ("X",), "float32",
+             F32),
+    "increment_int": ("increment", {"X": [np.array([7], np.int32)]},
+                      {"step": 1.0}, "Out", (), "int32", F32),
+    "increment": ("increment", {"X": [_randn(1)]}, {"step": 0.5}, "Out",
+                  ("X",), "float32", F32),
+})
 
 
 def _jax(arr, dtype):
@@ -262,6 +364,44 @@ def test_update_ops_match_jax():
             np.testing.assert_array_equal(_np(a), _np(b))
         assert bool(got["FoundInfinite"][0][0]) == bad
         assert bool(np.asarray(want["FoundInfinite"][0])[0]) == bad
+
+
+@pytest.mark.parametrize("op", ["elementwise_add", "elementwise_mul",
+                                "elementwise_div", "elementwise_max",
+                                "less_than"])
+@pytest.mark.parametrize("y_shape", [(1,), ()])
+def test_mixed_dtypes_promote_as_jax(op, y_shape):
+    """A bf16 X with an fp32 Y of shape [1] or 0-d: the result's dtype and
+    values are jnp's (torch alone would keep bf16 for the 0-d Y)."""
+    x = _randn(4, 5)
+    y = np.array(0.37, np.float32).reshape(y_shape)
+    got = p_registry.get(op).impl(None, {
+        "X": [_torch(x, "bfloat16")], "Y": [torch.from_numpy(y)]},
+        {"axis": -1})["Out"][0]
+    want = j_registry.get(op).impl(None, {
+        "X": [_jax(x, "bfloat16")], "Y": [jnp.asarray(y)]},
+        {"axis": -1})["Out"][0]
+    assert str(got.dtype).split(".")[-1] == str(want.dtype)
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scale_rounds_its_scalar_as_jax(dtype):
+    """scale by a Python float: jnp takes the scalar in x's dtype (a bf16
+    x is multiplied by bf16(scale)), so the port's op equals the JAX
+    op's bitwise; the LM's embedding scale sqrt(512) is 22.627... in
+    fp32 and 22.625 in bf16."""
+    ctx = LoweringContext(torch.device("cpu"))
+    x = _randn(64, 32)
+    for attrs in ({"scale": 512 ** 0.5}, {"scale": 1e-4},
+                  {"scale": 0.3, "bias": 0.1},
+                  {"scale": 0.3, "bias": 0.1, "bias_after_scale": False}):
+        got = p_registry.get("scale").impl(
+            ctx, {"X": [_torch(x, dtype)]}, attrs)["Out"][0]
+        want = j_registry.get("scale").impl(
+            None, {"X": [_jax(x, dtype)]}, attrs)["Out"][0]
+        assert str(got.dtype).split(".")[-1] == str(want.dtype)
+        np.testing.assert_array_equal(_np(got), _np(want))
 
 
 @pytest.mark.parametrize("dtype,amp", [("float32", False),
