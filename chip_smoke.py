@@ -204,6 +204,20 @@ Phases, each fatal on failure (exit code 1, no result line):
      ``train_user`` line a leg (device and host ms a step, tokens/s,
      peak GiB) and a ``train_user_remat`` line (the peak and time
      ratios).
+  6f. the stacked flagship: ``examples/train_transformer_fluid.py
+     --stacked`` uncut — ``transformer_fluid.build_stacked`` (the layer
+     stack as one ``StaticRNN(remat=True)`` over stacked [6, ...]
+     weights) at full width, bf16 under the legacy decorator with a
+     static loss scale of 1.0, Adam 3e-4, batch 64, 3 warm-up and 8
+     timed steps — then the same example without ``--stacked``
+     (``build()`` at its defaults, remat=True). Fatal unless each leg's
+     loss is finite and falls, K1 launches 12 "tc" forwards (6 in the
+     no-grad scan or segments, 6 in their replay) and 6 "tc" backwards a
+     step with no operand copied (a copy fails naming its count) and no
+     predicate is read on the host. One ``train_stacked`` line a leg
+     (device and host ms a step, tokens/s, peak GiB; a profiled step's
+     launches, and its update section's) and a ``train_stacked_ratio``
+     line.
   7. card vs CPU: the same program from one set of weights (startup run
      once on the card, the scope copied to the CPU), two SGD steps at
      batch 2 on cuda:0 (the kernels) and on the CPU (the plain
@@ -217,6 +231,17 @@ Phases, each fatal on failure (exit code 1, no result line):
      every raw, clipped and decayed grad, each decay term and, after
      step 2, every parameter within what the grads' errors let Adam move
      it; K1 launched 8 "f32tc" forwards and 4 backwards on the card.
+     Then phase 6f's stacked program in fp32 at 2 layers under Adam on
+     ``piecewise_decay([3], [1e-3, 5e-4])`` inside
+     ``GradientMergeOptimizer(k_steps=2)`` with an
+     ``ExponentialMovingAverage(0.999)``, 4 runs each way: the losses,
+     the rate (rtol 1e-6 of the closed form), every raw grad (each
+     layer's slice of a stacked weight on its own), the parameters
+     unmoved on the merge-only runs and within what the merged grads'
+     errors let the two updates move them, each EMA shadow to rtol 1e-6
+     of the recurrence over its own device's parameters and across the
+     devices within the parameters' limits; 3 predicates read on the
+     host a run; K1 16 "f32tc" forwards and 8 backwards on the card.
   8. int8 inference: the fused int8 matmul (K4) bitwise against its
      plain version on an edge matrix (M 1/7/33/127/129 x K
      1/5/31/33/129/2048 x N 1/3/7/9/127/129/32000: tails and both sides
@@ -3071,6 +3096,367 @@ def adam_card_vs_cpu_phase(torch, fluid, program, devices=("cuda:0", "cpu")):
     return k1
 
 
+# phase 6f: the stacked flagship — examples/train_transformer_fluid.py
+# --stacked uncut: transformer_fluid.build_stacked (the layer stack as ONE
+# StaticRNN(remat=True) over stacked [n_layers, ...] weights, K1 bare in
+# the no-grad scan and again, forward and backward, in its replay) at full
+# width, bf16, Adam 3e-4 under the legacy decorator with a static loss
+# scale of 1.0, batch 64; against the same example without --stacked
+# (build() at its defaults: remat=True)
+STACKED_BATCH = 64
+STACKED_STEPS = (3, 8)            # warm-up, timed
+# the card-vs-CPU leg: the stacked program in fp32 at 2 layers, Adam on a
+# piecewise_decay whose boundary falls inside the runs, under
+# GradientMergeOptimizer(k_steps=2) (updates at runs 2 and 4, one at each
+# rate), with an ExponentialMovingAverage of the parameters
+STACKED_CVC = dict(boundaries=[3], values=[1e-3, 5e-4], k_steps=2,
+                   ema_decay=0.999, runs=4, batch=2, beta1=0.9, beta2=0.999)
+
+
+def build_example_lm(fluid, stacked):
+    """examples/train_transformer_fluid.py's program at TRAIN's widths:
+    build_stacked (or build() at its defaults) in bf16 under contrib
+    decorate with a static loss scale of 1.0, Adam(3e-4)."""
+    from paddle_tpu_torch import layer_helper
+    from paddle_tpu_torch.models import transformer_fluid
+
+    layer_helper._op_seed_counter[0] = 1000
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        build = (transformer_fluid.build_stacked if stacked
+                 else transformer_fluid.build)
+        _, _, loss = build(dtype="bfloat16", **TRAIN)
+        fluid.contrib.mixed_precision.decorate(
+            fluid.optimizer.Adam(3e-4), init_loss_scaling=1.0,
+            use_dynamic_loss_scaling=False).minimize(loss)
+    return main, startup, loss
+
+
+def stacked_leg(torch, fa, fluid, stacked, batch=STACKED_BATCH,
+                device=None):
+    """One leg of phase 6f: STACKED_STEPS runs of the example's program
+    on seeded tokens, K1's counts and the predicate reads zeroed just
+    before the runs and read just after."""
+    from paddle_tpu_torch.ops import controlflow
+
+    main, startup, loss = build_example_lm(fluid, stacked)
+    exe = fluid.Executor(device)
+    on_card = exe.device.type == "cuda"
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = lm_feed(torch, batch, exe.device)
+    warmup, steps = STACKED_STEPS
+    if on_card:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    fa.reset_counts()                          # the main path starts
+    controlflow.reset_counts()
+    outs, marks, host_ms = [], [], []
+    for i in range(warmup + steps):
+        if on_card and i >= warmup:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        th = time.perf_counter()
+        outs.append(exe.run(main, feed=feed, fetch_list=[loss],
+                            scope=scope, return_numpy=False))
+        host_ms.append((time.perf_counter() - th) * 1e3)
+    if on_card:
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        torch.cuda.synchronize()
+    k1 = flash_counts(fa)                      # the main path ends
+    leg = {"leg": "stacked" if stacked else "unrolled", "batch": batch,
+           "warmup": warmup, "steps": steps, "runs": warmup + steps,
+           "params": len(main.param_grad_map),
+           "losses": [float(o[0].float().cpu()[0]) for o in outs],
+           "flash_attention_launches": k1,
+           "host_syncs": dict(controlflow.host_syncs),
+           "host_ms_each": host_ms[warmup:],
+           "step_ms_each": [a.elapsed_time(b)
+                            for a, b in zip(marks, marks[1:])]}
+    if on_card:
+        dev = float(np.mean(leg["step_ms_each"]))
+        leg.update(device_ms_per_step=dev,
+                   host_ms_per_step=float(np.mean(host_ms[warmup:])),
+                   tokens_per_s=batch * TRAIN["seq_len"] / dev * 1e3,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        # outside the counted and timed runs: the launches a step, and
+        # the update section's (Adam over 16 stacked or 100 parameters)
+        leg["update_profile"] = update_cost_profile(
+            torch, exe, main, feed, [loss], scope)
+    del exe, scope
+    return leg
+
+
+def check_stacked_leg(leg, k1_per_step=None):
+    """Phase 6f's gates on a leg: the loss finite and falling; with
+    `k1_per_step` (the card) K1's launches a step by the "tc" route —
+    both builds run each layer's forward twice (the scan or segment, then
+    its replay) and its backward once — with no operand copied (a copy
+    is named by its count); no predicate read on the host."""
+    name, n, losses = leg["leg"], leg["runs"], leg["losses"]
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        fail("train_stacked %s: losses not finite and falling: %r"
+             % (name, losses))
+    if leg["host_syncs"] != {"cond": 0, "while": 0}:
+        fail("train_stacked %s: predicates read on the host: %r"
+             % (name, leg["host_syncs"]))
+    if k1_per_step is None:
+        return
+    fwd, bwd, copies = leg["flash_attention_launches"]
+    if copies:
+        fail("train_stacked %s: K1 copied %d operands over %d steps (the "
+             "split q, k, v views): expected none" % (name, copies, n))
+    want = (dict(dict.fromkeys(fwd, 0), tc=k1_per_step[0] * n),
+            dict(dict.fromkeys(bwd, 0), tc=k1_per_step[1] * n))
+    if (fwd, bwd) != want:
+        fail("train_stacked %s: flash attention launched %r (forward, "
+             "backward by route) over %d steps; expected %r"
+             % (name, (fwd, bwd), n, want))
+
+
+def stacked_phase(torch, fa, fluid):
+    """Phase 6f's stacked and unrolled legs on cuda:0, gated and printed
+    on train_stacked lines, and their ratios. Returns K1's "tc" launches
+    (forward, backward) over both."""
+    L = TRAIN["n_layers"]
+    legs = {}
+    for stacked in (True, False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        leg = stacked_leg(torch, fa, fluid, stacked)
+        check_stacked_leg(leg, (2 * L, L))
+        legs[leg["leg"]] = leg
+        print("train_stacked " + json.dumps(dict(leg, card=card_line())),
+              flush=True)
+    s, u = legs["stacked"], legs["unrolled"]
+    print("train_stacked_ratio " + json.dumps({
+        "device_ms_stacked_over_unrolled":
+            s["device_ms_per_step"] / u["device_ms_per_step"],
+        "host_ms_stacked_over_unrolled":
+            s["host_ms_per_step"] / u["host_ms_per_step"],
+        "peak_gib_stacked_over_unrolled": s["peak_gib"] / u["peak_gib"]}),
+        flush=True)
+    return (sum(l["flash_attention_launches"][0]["tc"] for l in legs.values()),
+            sum(l["flash_attention_launches"][1]["tc"] for l in legs.values()))
+
+
+def build_stacked_cvc(fluid):
+    """Phase 6f's card-vs-CPU program: build_stacked in fp32 at TRAIN's
+    widths and 2 layers, Adam on piecewise_decay(STACKED_CVC) under
+    GradientMergeOptimizer, and an ExponentialMovingAverage update after
+    it. Returns (main, startup, loss, lr, {param: its shadow's name})."""
+    from paddle_tpu_torch import layer_helper
+    from paddle_tpu_torch.models import transformer_fluid
+
+    c = STACKED_CVC
+    layer_helper._op_seed_counter[0] = 1000
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _, _, loss = transformer_fluid.build_stacked(
+            dtype="float32", **dict(TRAIN, n_layers=2))
+        lr = fluid.layers.piecewise_decay(c["boundaries"], c["values"])
+        fluid.optimizer.GradientMergeOptimizer(
+            fluid.optimizer.Adam(lr, beta1=c["beta1"], beta2=c["beta2"]),
+            k_steps=c["k_steps"]).minimize(loss)
+        ema = fluid.optimizer.ExponentialMovingAverage(c["ema_decay"])
+        ema.update()
+    return main, startup, loss, lr, {p: s.name
+                                     for p, s in ema._shadows.items()}
+
+
+def stacked_lr(run):
+    """piecewise_decay(STACKED_CVC) at run `run` (1-based)."""
+    c = STACKED_CVC
+    for bound, value in zip(c["boundaries"], c["values"]):
+        if run < bound:
+            return value
+    return c["values"][-1]
+
+
+def stacked_card_vs_cpu_phase(torch, fluid, program,
+                              devices=("cuda:0", "cpu")):
+    """Phase 6f's fp32 program, STACKED_CVC["runs"] runs from the same
+    weights on cuda:0 and on the CPU, held to fp32's STEP_TOL: each run's
+    loss; its learning rate to rtol 1e-6 of the piecewise closed form on
+    both; every raw grad (each layer's slice of a stacked weight on its
+    own) to grad_rtol of that slice's largest plus the floor; after each
+    run every parameter within what the merged grads' errors let the
+    updates move it (Adam under the merge reads moments and beta powers
+    at their start values at every update: the cond lists only the
+    parameters and the buffers as outputs, as in the JAX package), and
+    the runs' parameters unmoved on the odd runs; each EMA shadow to rtol
+    1e-6 of the recurrence over its own device's parameters, and across
+    the devices within (1 - decay) times the parameters' limits. On the
+    card: the predicates read on the host (2 Switch conds and the merge
+    a run), and K1's launches. A skipped update must fail the parameter
+    check on most parameters. Returns K1's launches (forward, backward
+    by route; copies)."""
+    from paddle_tpu_torch.ops import controlflow
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    main, startup, loss, lr, shadows = program
+    c = STACKED_CVC
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("card vs CPU stacked: TF32 matmuls are on; the limits assume "
+             "fp32 products")
+    tol = STEP_TOL["float32"]
+    rel, bits = tol["grad_rtol"], tol["mantissa_bits"]
+    params = sorted(main.param_grad_map)
+    fetch = ([loss, lr] + [main.param_grad_map[p] for p in params]
+             + params + [shadows[p] for p in params])
+    n_p = len(params)
+    exe_c, exe_h = fluid.Executor(devices[0]), fluid.Executor(devices[1])
+    scope_c, scope_h = fluid.Scope(), fluid.Scope()
+    exe_c.run(startup, scope=scope_c)
+    for n in scope_c.local_var_names():
+        if n != "__step_counter__":
+            scope_h.set(n, scope_c.get(n).to("cpu", copy=True))
+    start = {p: scope_h.get(p).float().numpy().copy() for p in params}
+    t0 = time.perf_counter()
+    fa.reset_counts()                          # the path starts
+    runs, syncs = [], None
+    for exe, scope in ((exe_c, scope_c), (exe_h, scope_h)):
+        feed = lm_feed(torch, c["batch"], exe.device)
+        controlflow.reset_counts()
+        steps = []
+        for _ in range(c["runs"]):
+            out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+            steps.append((float(out[0][0]), float(out[1][0]),
+                          out[2:2 + n_p], out[2 + n_p:2 + 2 * n_p],
+                          out[2 + 2 * n_p:]))
+        if syncs is None:
+            syncs = dict(controlflow.host_syncs)
+        runs.append(steps)
+    seconds = time.perf_counter() - t0
+    k1 = flash_counts(fa)                      # the path ends
+    card, ref = runs
+    d = np.float32(c["ema_decay"])
+    worst = {"loss": 0.0, "lr": 0.0, "grad": (0.0, ""),
+             "param": (-np.inf, ""), "unmoved": (0.0, ""),
+             "shadow_own": (0.0, ""), "shadow": (-np.inf, "")}
+    limit = {p: np.zeros_like(start[p], dtype=np.float64) for p in params}
+    merged = {p: [] for p in params}           # (grad, its error) a run
+    shadow_lim = {p: np.zeros_like(start[p], dtype=np.float64)
+                  for p in params}
+    own = [{p: np.zeros_like(start[p]) for p in params} for _ in runs]
+    skipped = 0
+    keep = np.float32(1.0 - c["ema_decay"])
+    for run, (cs, hs) in enumerate(zip(card, ref), 1):
+        (lc, lrc, gc_, pc, sc), (lh, lrh, gh, ph, sh) = cs, hs
+        worst["loss"] = max(worst["loss"], abs(lc - lh) / abs(lh))
+        want_lr = stacked_lr(run)
+        worst["lr"] = max(worst["lr"], abs(lrc - want_lr) / want_lr,
+                          abs(lrh - want_lr) / want_lr)
+        floor = tol["floor_rel"] * max(float(np.abs(g).max()) for g in gh)
+        for i, p in enumerate(params):
+            slices = (zip(gc_[i], gh[i]) if p.startswith("st_")
+                      else [(gc_[i], gh[i])])
+            for k, (a, b) in enumerate(slices):
+                lim = rel * float(np.abs(b).max()) + floor
+                err = float(np.abs(a - b).max()) / lim
+                worst["grad"] = max(worst["grad"], (err, "%s[%d] run %d"
+                                                    % (p, k, run)))
+            merged[p].append((gh[i], rel * np.abs(gh[i]).max() + floor))
+        update = run % c["k_steps"] == 0
+        for i, p in enumerate(params):
+            if update:                         # a first-step Adam update
+                g = sum(m[0] for m in merged[p]) / c["k_steps"]
+                e = sum(m[1] for m in merged[p]) / c["k_steps"]
+                limit[p] = limit[p] + adam_param_limit(
+                    [g], [np.full_like(g, e)], [lrh], c["beta1"],
+                    c["beta2"])
+                merged[p] = []
+            mag = np.maximum(np.maximum(np.abs(pc[i]), np.abs(ph[i])),
+                             np.abs(start[p]))
+            p_lim = limit[p] + 2 * ulp(mag, bits)
+            excess = np.abs(pc[i] - ph[i]) / p_lim
+            j = int(np.argmax(excess))
+            worst["param"] = max(worst["param"],
+                                 (float(excess.flat[j]), "%s run %d"
+                                  % (p, run)))
+            if not update:                     # the cond did not run
+                for dev, now in ((0, pc[i]), (1, ph[i])):
+                    was = (start[p] if run == 1
+                           else (card, ref)[dev][run - 2][3][i])
+                    moved = float(np.abs(now - was).max())
+                    worst["unmoved"] = max(worst["unmoved"],
+                                           (moved, "%s run %d" % (p, run)))
+            elif run == c["k_steps"]:
+                # a skipped first update, read against this limit
+                skipped += float((np.abs(start[p] - ph[i])
+                                  / p_lim).max()) > 1
+            # each device's shadow against the recurrence over its own
+            # parameters, and across the devices
+            for dev, (par, sha) in enumerate(((pc[i], sc[i]),
+                                              (ph[i], sh[i]))):
+                own[dev][p] = d * own[dev][p] + keep * par
+                err = float((np.abs(sha - own[dev][p])
+                             / (1e-6 * np.abs(own[dev][p]) + 1e-30)).max())
+                worst["shadow_own"] = max(worst["shadow_own"],
+                                          (err, "%s run %d" % (p, run)))
+            shadow_lim[p] = float(d) * shadow_lim[p] + (1 - float(d)) * p_lim
+            s_excess = np.abs(sc[i] - sh[i]) / (
+                shadow_lim[p] + 2 * ulp(np.abs(sh[i]), bits))
+            worst["shadow"] = max(worst["shadow"],
+                                  (float(s_excess.max()), p))
+    report = {
+        "dtype": "float32", "optimizer": "adam, gradient merge k=2, ema",
+        "batch": c["batch"], "runs": c["runs"],
+        "tf32": torch.backends.cuda.matmul.allow_tf32,
+        "loss_cuda": [s[0] for s in card], "loss_cpu": [s[0] for s in ref],
+        "lr_cpu": [s[1] for s in ref],
+        "loss_max_rel_err": worst["loss"], "loss_limit": tol["loss_rtol"],
+        "lr_max_rel_err": worst["lr"],
+        "worst_grad_err_over_limit": worst["grad"][0],
+        "worst_grad": worst["grad"][1],
+        "worst_param_err_over_limit": worst["param"][0],
+        "worst_param": worst["param"][1],
+        "moved_on_a_merge_only_run": worst["unmoved"][0],
+        "worst_shadow_own_err_over_1e-6": worst["shadow_own"][0],
+        "worst_shadow_err_over_limit": worst["shadow"][0],
+        "params": n_p, "skipped_update_fails_params": skipped,
+        "host_syncs": syncs, "flash_attention_launches": k1,
+        "seconds": seconds}
+    print("card_vs_cpu_stacked " + json.dumps(report), flush=True)
+    if worst["loss"] > tol["loss_rtol"]:
+        fail("card vs CPU stacked: losses %r vs %r"
+             % (report["loss_cuda"], report["loss_cpu"]))
+    if worst["lr"] > 1e-6:
+        fail("card vs CPU stacked: the learning rate reads %r (card) / %r "
+             "(CPU); the schedule gives %r"
+             % ([s[1] for s in card], report["lr_cpu"],
+                [stacked_lr(r) for r in range(1, c["runs"] + 1)]))
+    if worst["grad"][0] > 1:
+        fail("card vs CPU stacked: the grad of %s differs by %.3g of its "
+             "limit" % (worst["grad"][1], worst["grad"][0]))
+    if worst["unmoved"][0] > 0:
+        fail("card vs CPU stacked: %s moved by %.3g on a run that only "
+             "merges" % (worst["unmoved"][1], worst["unmoved"][0]))
+    if worst["param"][0] > 1:
+        fail("card vs CPU stacked: %s differs by %.3g of its limit"
+             % (worst["param"][1], worst["param"][0]))
+    if worst["shadow_own"][0] > 1:
+        fail("card vs CPU stacked: the EMA shadow of %s is not the "
+             "recurrence over its parameters (%.3g of rtol 1e-6)"
+             % (worst["shadow_own"][1], worst["shadow_own"][0]))
+    if worst["shadow"][0] > 1:
+        fail("card vs CPU stacked: the EMA shadow of %s differs by %.3g "
+             "of its limit" % (worst["shadow"][1], worst["shadow"][0]))
+    if 2 * skipped < n_p:
+        fail("card vs CPU stacked: a skipped update would pass the "
+             "parameter check on %d of %d parameters" % (n_p - skipped,
+                                                          n_p))
+    want_syncs = {"cond": (len(c["boundaries"]) + 2) * c["runs"],
+                  "while": 0}
+    if syncs != want_syncs:
+        fail("card vs CPU stacked: predicates read on the host %r; "
+             "expected %r (the Switch's cases and default and the merge, "
+             "one a run)" % (syncs, want_syncs))
+    return k1
+
+
 # full-int8 inference (phase 8): the fp32 LM's inference clone under
 # quant.decorate(mode="full_int8") at bench.py's width, batch 32
 INT8 = dict(batch=32, calib_batches=4, warmup=3, steps=10)
@@ -3547,6 +3933,9 @@ def main():
     fwd, bwd = user_training_phase(torch, fa_mod, fluid)
     flash_rows["flash_attention_tc_fwd"]["launches"] += fwd
     flash_rows["flash_attention_tc_bwd"]["launches"] += bwd
+    fwd, bwd = stacked_phase(torch, fa_mod, fluid)
+    flash_rows["flash_attention_tc_fwd"]["launches"] += fwd
+    flash_rows["flash_attention_tc_bwd"]["launches"] += bwd
     card_vs_cpu_phase(torch, fluid, program, "bfloat16")
     del program
     program = build_lm(fluid, "float32")
@@ -3569,9 +3958,20 @@ def main():
              "backward by route; copies); expected %r (remat: each "
              "forward twice)" % (k1, k1_want))
     flash_rows["flash_attention_f32tc_bwd"]["launches"] += k1[1]["f32tc"]
+    k1 = stacked_card_vs_cpu_phase(torch, fluid, build_stacked_cvc(fluid))
+    n = STACKED_CVC["runs"] * 2                # the runs, two layers
+    k1_want = ({"tc": 0, "fp16": 0, "f32tc": 2 * n},
+               {"tc": 0, "fp16": 0, "f32tc": n}, 0)
+    if k1 != k1_want:
+        fail("card vs CPU stacked: flash attention launched %r (forward, "
+             "backward by route; copies); expected %r (each layer's "
+             "forward in the scan and in its replay)" % (k1, k1_want))
+    flash_rows["flash_attention_f32tc_bwd"]["launches"] += k1[1]["f32tc"]
+    stacked_f32_fwd = k1[0]["f32tc"]
     int8_rows = int8_kernel_phase(torch, im_mod)
     int8_launches, flash_rows["flash_attention_f32tc_fwd"]["launches"] = \
         int8_phase(torch, fluid, im_mod, fa_mod, program)
+    flash_rows["flash_attention_f32tc_fwd"]["launches"] += stacked_f32_fwd
     for row in int8_rows:
         row["launches"] = int8_launches.get(tuple(row["mkn"]), 0)
     int8_card_vs_cpu_phase(torch, fluid, im_mod, program)

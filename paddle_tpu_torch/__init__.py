@@ -18,7 +18,12 @@ int8 matmul), and the serving fleet and online hot swap
 ``checkpoint``, ``inference.export_generation_model`` and the serving
 subset of ``resilience``), and training as Fluid users configure it
 (the optimizer family, ``clip``, ``regularizer``, the learning-rate
-schedules, dropout and ``layers.recompute``, the flagship's default):
+schedules, dropout and ``layers.recompute``, the flagship's default),
+and control flow (``While``, ``cond``, ``Switch``, ``IfElse``,
+``StaticRNN``, ``DynamicRNN``, tensor arrays) with what is built on it
+(``piecewise_decay``, ``ExponentialMovingAverage``,
+``GradientMergeOptimizer``, ``ModelAverage`` and
+``transformer_fluid.build_stacked``):
 
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import transformer_fluid

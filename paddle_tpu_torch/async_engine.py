@@ -38,13 +38,15 @@ __all__ = ["LazyFetchList", "InflightWindow", "FeedPrefetcher",
 
 def _to_numpy(t):
     """One value as numpy: a tensor is copied to the host (bf16, which
-    numpy lacks, as float32); anything else through np.asarray."""
+    numpy lacks, as float32); anything else through np.asarray. A CPU
+    tensor is copied too: a fetched parameter would otherwise share the
+    scope's tensor, which the next run's update ops write in place."""
     if not isinstance(t, torch.Tensor):
         return np.asarray(t)
     t = t.detach()
     if t.dtype == torch.bfloat16:
-        t = t.float()
-    return t.cpu().numpy()
+        return t.float().cpu().numpy()
+    return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
 
 
 def as_numpy(value):

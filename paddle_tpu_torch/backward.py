@@ -6,8 +6,9 @@ Walks the block's ops in reverse from the loss and appends one generic
 forward op; the lowering (``core/lowering.py``) answers it with autograd
 over the graph the forward op recorded. When a var feeds several ops,
 its grad contributions are summed (`__accumulate__`). Names, order and
-attrs are the JAX package's. Not ported: ``gradients`` and grads of grad
-ops.
+attrs are the JAX package's. A gradient through a While with no
+`max_trip_count` is refused, as there. Not ported: ``gradients`` and
+grads of grad ops.
 """
 
 from .framework import grad_var_name
@@ -94,6 +95,12 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
             gout_map[slot] = names
         if not any_gout:
             continue
+        if op.type == "while" and not op.attrs.get("max_trip_count"):
+            raise RuntimeError(
+                "gradient demanded through a While loop with no "
+                "max_trip_count: build it as fluid.layers.While(cond, "
+                "max_trip_count=N) to differentiate its trips, or use "
+                "StaticRNN/DynamicRNN for recurrences")
         # an output whose cotangent this op consumes and that is also its
         # input under the same name: the input grad replaces the grad var
         consumed = {v.name for slot, vs in op.outputs.items()

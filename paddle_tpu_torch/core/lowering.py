@@ -24,6 +24,16 @@ op re-runs the sub-block from those inputs, detached into fresh leaves,
 under ``enable_grad``, and asks autograd for the leaves' grads. Stateful
 ops draw from generators seeded by (program seed, step, op seed), so the
 re-run redraws the forward's dropout masks.
+
+A recorded ``recurrent`` op with ``remat=True`` (``StaticRNN(remat=True)``,
+the eager form of the JAX op's ``jax.checkpoint`` of its scan step) runs
+its steps under ``no_grad`` and keeps only each step's incoming carry
+(``_scan_forward``); its grad op replays the steps in reverse
+(``_scan_grad``): step t re-runs from its kept carry, detached into fresh
+leaves, under ``enable_grad``, and autograd takes the cotangents of its
+new carry and its outputs back to the carry, the step inputs' slice t and
+the closure. Only one step's graph is alive at a time. Without ``remat``
+the op takes the generic record: autograd records the whole loop.
 """
 
 import torch
@@ -90,6 +100,8 @@ def run_sub_block(block, env, ctx):
 def _value(env, v):
     val = env.get(v.name)
     if val is None:
+        if getattr(v, "is_tensor_array", False):
+            return []  # an array no op has written yet is empty
         if v.is_data:
             raise KeyError("feed %r is missing: the program reads it but "
                            "run() was not given it" % v.name)
@@ -104,6 +116,9 @@ def execute_op(op, env, ctx):
         return
     if id(op) in ctx.recorded and op.type in _SPECIAL:
         _SPECIAL[op.type][0](op, env, ctx)
+        return
+    if id(op) in ctx.recorded and _remat_scan(op):
+        _scan_forward(op, env, ctx)
         return
     opdef = registry.get(op.type)
     ins = {slot: [_value(env, v) for v in vs]
@@ -134,6 +149,9 @@ def _execute_grad_op(op, env, ctx):
     if rec is None:
         raise RuntimeError("grad op %s: its forward op %s was not recorded "
                            "in this run" % (op.type, fwd.type))
+    if _remat_scan(fwd):
+        _scan_grad(op, fwd, rec, ctx, env)
+        return
     if fwd.type in _SPECIAL:
         leaves, outs = _SPECIAL[fwd.type][1](op, fwd, rec, ctx)
     else:
@@ -172,6 +190,12 @@ def _apply_grads(op, leaves, outs, env):
         if g is None:  # the leaf does not reach a live output
             g = torch.zeros_like(leaf)
         produced[gname] = produced[gname] + g if gname in produced else g
+    _write_grads(op, produced, env)
+
+
+def _write_grads(op, produced, env):
+    """Write each grad var's value into env, summed into what is there
+    where `__accumulate__` says."""
     accumulate = op.attrs.get("__accumulate__", {})
     for gname, g in produced.items():
         if gname in env and accumulate.get(gname):
@@ -210,3 +234,119 @@ def _recompute_replay(op, fwd, xs, ctx):
 
 # op type -> (forward of a recorded op, the grad op's replay)
 _SPECIAL = {"recompute": (_recompute_forward, _recompute_replay)}
+
+
+# ---------------------------------------------------------------------------
+# the rematerialized recurrence (StaticRNN(remat=True); the JAX op's
+# jax.checkpoint of its scan step)
+# ---------------------------------------------------------------------------
+
+
+def _remat_scan(op):
+    return op.type == "recurrent" and bool(op.attrs.get("remat"))
+
+
+def _scan_forward(op, env, ctx):
+    """Run the steps under no_grad; keep the op's inputs and each step's
+    incoming carry, and no graph."""
+    from ..ops.controlflow import run_recurrent
+
+    ins = {slot: [_value(env, v) for v in vs]
+           for slot, vs in op.inputs.items() if vs}
+    carries = []
+    with torch.no_grad():
+        outs = run_recurrent(ctx, ins, op.attrs, carries)
+    ctx.fwd[id(op)] = (ins, carries)
+    for slot, vs in op.outputs.items():
+        for v, val in zip(vs, outs.get(slot, ())):
+            env[v.name] = val
+
+
+def _cotangents(op, fwd, slot, env):
+    """The upstream cotangents of forward output slot `slot`, one a
+    forward output (None where there is none)."""
+    vals = [None] * len(fwd.outputs.get(slot, ()))
+    cslot = op.attrs["__cot_slots__"].get(slot)
+    if cslot is not None:
+        idxs = [i for i, g in enumerate(op.attrs["__grad_out_map__"][slot])
+                if g is not None]
+        for i, gvar in zip(idxs, op.inputs[cslot]):
+            vals[i] = env.get(gvar.name)
+    return vals
+
+
+def _scan_grad(op, fwd, rec, ctx, env):
+    """Replay the steps in reverse: step t re-runs from its kept carry
+    (fresh leaves) under enable_grad, and autograd takes the cotangents
+    of its new carry and of slice t of its outputs back to the carry,
+    slice t of each step input (written into that input's grad) and the
+    closure (summed over the steps)."""
+    from ..ops.controlflow import recurrent_order, recurrent_step
+
+    ins, carries = rec
+    attrs = fwd.attrs
+    gin_map = op.attrs["__grad_in_map__"]
+    g_carry = _cotangents(op, fwd, "FinalMemories", env)
+    g_ys = _cotangents(op, fwd, "StepOutputs", env)
+    xs = ins.get("StepInputs", [])
+    closure = ins.get("X", [])
+    seq_len = ins.get("SeqLen", [None])[0]
+
+    def wanted(t, gname):
+        return gname is not None and t.is_floating_point()
+
+    x_names = gin_map.get("StepInputs", [None] * len(xs))
+    c_names = gin_map.get("X", [None] * len(closure))
+    x_grads = [torch.zeros_like(x) if wanted(x, n) else None
+               for x, n in zip(xs, x_names)]
+    c_leaves = [c.detach().requires_grad_() if wanted(c, n) else c
+                for c, n in zip(closure, c_names)]
+    c_grads = [None] * len(closure)
+    local = dict(zip(attrs["x_names"], c_leaves))
+    for t, carry in zip(reversed(recurrent_order(ins, attrs)),
+                        reversed(carries)):
+        h = [c.detach().requires_grad_() if c.is_floating_point() else c
+             for c in carry]
+        x_t = [x[t].detach().requires_grad_() if g is not None else x[t]
+               for x, g in zip(xs, x_grads)]
+        with torch.enable_grad():
+            new, ys = recurrent_step(attrs["sub_block"], local, attrs, h,
+                                     x_t, t, seq_len, ctx)
+        live, cots = [], []
+        for out, g in list(zip(new, g_carry)) + [
+                (y, None if g is None else g[t]) for y, g in zip(ys, g_ys)]:
+            if g is not None and out.requires_grad:
+                live.append(out)
+                cots.append(g.to(out.dtype))
+        leaves = [v for v in h + x_t + c_leaves
+                  if isinstance(v, torch.Tensor) and v.requires_grad]
+        grads = iter(torch.autograd.grad(live, leaves, cots,
+                                         allow_unused=True)
+                     if live and leaves else [None] * len(leaves))
+        g_carry = [next(grads) if v.requires_grad else None for v in h]
+        for i, v in enumerate(x_t):
+            if v.requires_grad:
+                g = next(grads)
+                if g is not None:
+                    x_grads[i][t] = g
+        for i, v in enumerate(c_leaves):
+            if isinstance(v, torch.Tensor) and v.requires_grad:
+                g = next(grads)
+                if g is not None:
+                    c_grads[i] = g if c_grads[i] is None else c_grads[i] + g
+    produced = {}
+
+    def put(gname, g, primal):
+        if gname is None or not primal.is_floating_point():
+            return
+        g = torch.zeros_like(primal) if g is None else g
+        produced[gname] = produced[gname] + g if gname in produced else g
+
+    for gname, g, b in zip(gin_map.get("Boot", ()), g_carry,
+                           ins.get("Boot", [])):
+        put(gname, g, b)
+    for gname, g, x in zip(x_names, x_grads, xs):
+        put(gname, g, x)
+    for gname, g, c in zip(c_names, c_grads, closure):
+        put(gname, g, c)
+    _write_grads(op, produced, env)

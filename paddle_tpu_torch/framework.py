@@ -220,6 +220,9 @@ class Block:
     def append_op(self, type, inputs=None, outputs=None, attrs=None):
         op = Operator(self, type, inputs, outputs, attrs)
         self.ops.append(op)
+        for vs in op.outputs.values():
+            for v in vs:
+                v.op = op  # the var's last writer (cond reads it)
         self.program._bump_version()
         return op
 

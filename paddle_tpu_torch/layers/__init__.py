@@ -1,7 +1,7 @@
 """Layers DSL (parity: the JAX package's ``layers/``): the layers of the
 Fluid-API Transformer LM and of a Fluid training script's front end —
-dropout, the clip and math layers, ``recompute`` and the learning-rate
-schedules."""
+dropout, the clip and math layers, ``recompute``, the learning-rate
+schedules and control flow."""
 
 from . import control_flow, io, learning_rate_scheduler, nn, tensor
 from .control_flow import *  # noqa: F401,F403

@@ -5,16 +5,18 @@ Each schedule appends ops computing the rate from the persistable int64
 `@step_counter@`, which an `increment` op advances once a run (from
 `begin`: the first run reads 1); the returned Variable goes to an
 optimizer as its `learning_rate`. The counter is the program's own
-state, not the executor's host step count. `piecewise_decay` needs
-Switch, which the port does not have yet.
+state, not the executor's host step count. `piecewise_decay` writes a
+persistable rate var from a `Switch` of `less_than` cases on the
+counter.
 """
 
 import math
 
+from .. import unique_name
 from ..framework import Variable, default_main_program, default_startup_program
 from ..initializer import Constant
 from . import nn, tensor
-from .control_flow import increment
+from .control_flow import Switch, increment
 
 __all__ = [
     "exponential_decay", "natural_exp_decay", "inverse_time_decay",
@@ -112,10 +114,30 @@ def polynomial_decay(learning_rate, decay_steps, end_learning_rate=0.0001,
 
 
 def piecewise_decay(boundaries, values):
-    raise NotImplementedError(
-        "piecewise_decay needs layers.Switch, which comes with the "
-        "control-flow slice (While, cond, Switch, IfElse, StaticRNN, "
-        "DynamicRNN) of the PyTorch port")
+    """values[i] while the step is below boundaries[i] (the first such
+    i), values[-1] past the last: a persistable rate var, filled with
+    values[0] by the startup program and written by a Switch each run."""
+    assert len(values) == len(boundaries) + 1
+    gb = default_main_program().global_block()
+    lr = gb.create_var(name=unique_name.generate("piecewise_lr"),
+                       shape=(1,), dtype="float32", persistable=True,
+                       stop_gradient=True)
+    sb = default_startup_program().global_block()
+    sv = sb.create_var(name=lr.name, shape=(1,), dtype="float32",
+                       persistable=True)
+    Constant(float(values[0]))(sv, sb)
+
+    step = autoincreased_step_counter()
+    switch = Switch()
+    for i, bound in enumerate(boundaries):
+        bvar = tensor.fill_constant([1], "int64", int(bound))
+        with switch.case(nn.less_than(step, bvar)):
+            tensor.assign(
+                tensor.fill_constant([1], "float32", float(values[i])), lr)
+    with switch.default():
+        tensor.assign(
+            tensor.fill_constant([1], "float32", float(values[-1])), lr)
+    return lr
 
 
 def cosine_decay(learning_rate, step_each_epoch, epochs):

@@ -24,7 +24,8 @@ _LOGICAL = ("logical_and", "logical_or", "logical_xor", "logical_not")
 __all__ = [
     "fc", "embedding", "scale", "layer_norm", "reshape", "slice",
     "softmax_with_cross_entropy", "add_position_encoding", "shape",
-    "reduce_sum", "reduce_prod", "matmul", "softmax", "dropout",
+    "reduce_sum", "reduce_mean", "reduce_max", "reduce_min", "reduce_prod",
+    "matmul", "mul", "softmax", "dropout",
     "transpose", "split", "clip", "clip_by_norm", "pow", "sign",
     "mean", "square_error_cost",
 ] + list(_ACTIVATIONS + _ELEMENTWISE + _COMPARE + _LOGICAL)
@@ -355,6 +356,9 @@ def _reduce(op_type):
 
 
 reduce_sum = _reduce("reduce_sum")
+reduce_mean = _reduce("reduce_mean")
+reduce_max = _reduce("reduce_max")
+reduce_min = _reduce("reduce_min")
 reduce_prod = _reduce("reduce_prod")
 
 
@@ -461,6 +465,21 @@ def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
             ys[-1], ys[-2] = ys[-2], ys[-1]
         out.shape = (tuple(xs[:-1] + [ys[-1]])
                      if len(xs) > 1 and len(ys) > 1 else (1,))
+    return out
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    """Fluid's mul: x flattened to 2-D at x_num_col_dims times y at
+    y_num_col_dims."""
+    helper = LayerHelper("mul", **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="mul", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"x_num_col_dims": x_num_col_dims,
+                            "y_num_col_dims": y_num_col_dims})
+    if x.shape is not None and y.shape is not None:
+        out.shape = (tuple(x.shape[:x_num_col_dims])
+                     + tuple(y.shape[y_num_col_dims:]))
     return out
 
 

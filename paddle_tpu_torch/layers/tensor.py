@@ -5,7 +5,8 @@ import numpy as np
 from ..framework import Variable, convert_dtype
 from ..layer_helper import LayerHelper
 
-__all__ = ["create_parameter", "cast", "sums", "assign", "fill_constant"]
+__all__ = ["create_parameter", "cast", "concat", "sums", "assign",
+           "fill_constant"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -25,6 +26,22 @@ def cast(x, dtype):
     helper.append_op(type="cast", inputs={"X": [x]}, outputs={"Out": [out]},
                      attrs={"in_dtype": x.dtype, "out_dtype": dtype})
     out.shape = x.shape
+    return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", **locals())
+    out = helper.create_variable_for_type_inference(
+        dtype=helper.input_dtype())
+    helper.append_op(type="concat", inputs={"X": input},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    shapes = [v.shape for v in input]
+    if all(s is not None for s in shapes):
+        ax = axis % len(shapes[0])
+        dim = -1 if any(s[ax] == -1 for s in shapes) else sum(
+            s[ax] for s in shapes)
+        out.shape = tuple(dim if i == ax else d
+                          for i, d in enumerate(shapes[0]))
     return out
 
 

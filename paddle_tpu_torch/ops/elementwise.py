@@ -1,6 +1,7 @@
 """Broadcast elementwise, compare and logical ops with Fluid's `axis`
 convention (parity: the JAX package's ``ops/elementwise.py``) and the
-reductions (its ``ops/reduce.py``).
+reductions (its ``ops/reduce.py``: reduce_sum, reduce_mean, reduce_max,
+reduce_min, reduce_prod and mean).
 
 Mixed dtypes promote as jnp promotes them, by torch.promote_types of
 the two operands' dtypes: torch's own rule would let a 0-d operand of
@@ -85,6 +86,29 @@ def _reduce(name, fn):
 
 _reduce("reduce_sum", torch.sum)
 _reduce("reduce_prod", torch.prod)
+
+
+def _reduce_over(name, fn):
+    """A reduction over all its dims at once (jnp's one pass), not dim
+    after dim."""
+    def impl(ctx, ins, attrs):
+        x = ins["X"][0]
+        keep_dim = attrs.get("keep_dim", False)
+        if attrs.get("reduce_all", False):
+            out = fn(x.reshape(-1), dim=0)
+            return {"Out": [out.reshape((1,) * x.ndim if keep_dim
+                                        else (1,))]}
+        dim = attrs.get("dim", [0])
+        dims = tuple(d % x.ndim for d in (
+            dim if isinstance(dim, (list, tuple)) else [dim]))
+        return {"Out": [fn(x, dim=dims, keepdim=keep_dim)]}
+
+    register(name)(impl)
+
+
+_reduce_over("reduce_mean", torch.mean)
+_reduce_over("reduce_max", torch.amax)
+_reduce_over("reduce_min", torch.amin)
 
 
 @register("mean")

@@ -1,6 +1,6 @@
 """Tensor and NN ops of the LM path (parity: the JAX package's
 ``ops/tensor_ops.py`` reshape2 :13 / transpose2 :96 / split :113 / slice
-:148, ``ops/nn_ops.py`` softmax :20 / dropout :33 / lookup_table :53 /
+:148, concat :108, ``ops/nn_ops.py`` softmax :20 / dropout :33 / lookup_table :53 /
 layer_norm :78 / add_position_encoding :275, and ``ops/loss_ops.py``
 softmax_with_cross_entropy :90)."""
 
@@ -42,6 +42,11 @@ def _split(ctx, ins, attrs):
         raise ValueError("split: dim %d of size %d does not divide into %d"
                          % (axis, x.shape[axis], num))
     return {"Out": list(torch.split(x, x.shape[axis] // num, dim=axis))}
+
+
+@register("concat")
+def _concat(ctx, ins, attrs):
+    return {"Out": [torch.cat(ins["X"], dim=attrs.get("axis", 0))]}
 
 
 @register("softmax")

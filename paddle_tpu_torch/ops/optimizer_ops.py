@@ -1,6 +1,6 @@
 """Parameter-update and loss-unscaling ops (parity: the JAX package's
-``ops/optimizer_ops.py`` :34-256 and ``ops/quant_ops.py``
-check_finite_and_unscale).
+``ops/optimizer_ops.py`` :34-256, `average_accumulates` :263, and
+``ops/quant_ops.py`` check_finite_and_unscale).
 
 Each update op writes its results in place into the scope's tensors
 (the parameter and its accumulators), as the JAX step does by donating
@@ -256,3 +256,39 @@ def _check_finite_and_unscale(ctx, ins, attrs):
         g = g.to(torch.promote_types(g.dtype, scale.dtype))
         outs.append(torch.where(finite, g / scale, torch.zeros_like(g)))
     return {"Out": outs, "FoundInfinite": [(~finite).reshape(1)]}
+
+
+@register("average_accumulates", differentiable=False)
+def _average_accumulates(ctx, ins, attrs):
+    """ModelAverage's window sums: sum_1 += param each run; when the run
+    count reaches the window (min(max(min_average_window, num_updates *
+    average_window), max_average_window)) sum_1 moves into sum_2, and
+    when the old count reaches max_average_window sum_2 moves into sum_3.
+    Written in place, as the JAX op's outputs replace its inputs."""
+    param = _p(ins, "param")
+    sum1, sum2, sum3 = (_p(ins, "in_sum_%d" % i) for i in (1, 2, 3))
+    num_acc = _p(ins, "in_num_accumulates").reshape(()) + 1
+    old_num = _p(ins, "in_old_num_accumulates").reshape(())
+    num_upd = _p(ins, "in_num_updates").reshape(()) + 1
+    max_avg = attrs.get("max_average_window", 10000)
+    min_avg = attrs.get("min_average_window", 10000)
+    window = torch.clamp(num_upd.float() * attrs.get("average_window",
+                                                      0.15),
+                         min=min_avg).clamp(max=max_avg)
+    s1 = sum1 + param
+    shift = num_acc >= window
+    s2 = torch.where(shift, sum2 + s1, sum2)
+    s1 = torch.where(shift, torch.zeros_like(s1), s1)
+    old_num = torch.where(shift, num_acc + old_num, old_num)
+    num_acc = torch.where(shift, torch.zeros_like(num_acc), num_acc)
+    shift2 = old_num >= max_avg
+    s3 = torch.where(shift2, s2, sum3)
+    s2 = torch.where(shift2, torch.zeros_like(s2), s2)
+    old_num = torch.where(shift2, torch.zeros_like(old_num), old_num)
+    return _write({
+        "out_sum_1": (sum1, s1), "out_sum_2": (sum2, s2),
+        "out_sum_3": (sum3, s3),
+        "out_num_accumulates": (_p(ins, "in_num_accumulates"), num_acc),
+        "out_old_num_accumulates": (_p(ins, "in_old_num_accumulates"),
+                                    old_num),
+        "out_num_updates": (_p(ins, "in_num_updates"), num_upd)})

@@ -9,8 +9,12 @@ Variable the caller passes (a schedule of
 ``layers.learning_rate_scheduler``). Accumulators are persistable vars
 with the JAX package's names, shapes, dtypes and fills.
 
-Not ported: DGCMomentum, ModelAverage, ExponentialMovingAverage,
-GradientMergeOptimizer and the dygraph paths.
+`ModelAverage` (:644), `ExponentialMovingAverage` (:734) and
+`GradientMergeOptimizer` (:807) wrap the family: the first two append
+their accumulating ops to the train program and swap averaged values
+into a scope with `apply` / `restore`; the last accumulates the grads in
+persistables and runs the inner optimizer's update under a `cond` every
+k-th run. Not ported: DGCMomentum and the dygraph paths.
 """
 
 from . import framework, unique_name
@@ -25,7 +29,8 @@ __all__ = [
     "SGDOptimizer", "MomentumOptimizer", "AdagradOptimizer", "AdamOptimizer",
     "AdamaxOptimizer", "DecayedAdagradOptimizer", "AdadeltaOptimizer",
     "RMSPropOptimizer", "FtrlOptimizer", "LambOptimizer",
-    "LarsMomentumOptimizer",
+    "LarsMomentumOptimizer", "ModelAverage", "ExponentialMovingAverage",
+    "GradientMergeOptimizer",
 ]
 
 
@@ -398,6 +403,221 @@ class LambOptimizer(AdamOptimizer):
                                {"beta1": self._beta1, "beta2": self._beta2,
                                 "epsilon": self._epsilon,
                                 "weight_decay": self._weight_decay})
+
+
+def _scope(scope):
+    from .core.scope import global_scope
+
+    return scope if scope is not None else global_scope()
+
+
+class ModelAverage(Optimizer):
+    """Parameter averaging over a sliding window: one
+    `average_accumulates` op a trainable parameter, appended to the
+    current main program when constructed (after minimize). `apply`
+    swaps (sum_1 + sum_2 + sum_3) / (num_accumulates +
+    old_num_accumulates) into each parameter of the scope (the global
+    scope by default), `restore` swaps the parameters back."""
+
+    def __init__(self, average_window_rate=0.15, min_average_window=10000,
+                 max_average_window=10000, regularization=None, name=None):
+        super().__init__(0.0, regularization, name)
+        self.average_window = average_window_rate
+        self.min_average_window = min_average_window
+        self.max_average_window = max_average_window
+        block = default_main_program().global_block()
+        self.params_grads = [(p, None) for p in block.all_parameters()
+                             if p.trainable]
+        self.helper = LayerHelper("model_average")
+        self._create_accumulators(block, [p for p, _ in self.params_grads])
+        for pg in self.params_grads:
+            self._append_optimize_op(block, pg)
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            for acc in ("sum_1", "sum_2", "sum_3"):
+                self._add_accumulator(acc, p)
+            for acc in ("num_accumulates", "old_num_accumulates",
+                        "num_updates"):
+                self._add_accumulator(acc, p, dtype="int64", fill_value=0,
+                                      shape=[1])
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, _ = param_and_grad
+        accs = ("sum_1", "sum_2", "sum_3", "num_accumulates",
+                "old_num_accumulates", "num_updates")
+        ins = {"param": [p]}
+        ins.update({"in_" + a: [self._get_accumulator(a, p)] for a in accs})
+        block.append_op(
+            type="average_accumulates", inputs=ins,
+            outputs={"out_" + a: [self._get_accumulator(a, p)]
+                     for a in accs},
+            attrs={"average_window": self.average_window,
+                   "min_average_window": self.min_average_window,
+                   "max_average_window": self.max_average_window})
+
+    def _param_backup_name(self, p):
+        return p.name + "@MODEL_AVG_BACKUP"
+
+    def apply(self, executor=None, need_restore=True, scope=None):
+        scope = _scope(scope)
+        for p, _ in self.params_grads:
+            def acc(name):
+                return scope.get(self._get_accumulator(name, p).name)
+
+            total = max(int(acc("num_accumulates").reshape(()))
+                        + int(acc("old_num_accumulates").reshape(())), 1)
+            param = scope.get(p.name)
+            if need_restore:
+                scope.set(self._param_backup_name(p), param.clone())
+            avg = (acc("sum_1") + acc("sum_2") + acc("sum_3")) / total
+            scope.set(p.name, avg.to(param.dtype))
+
+    def restore(self, executor=None, scope=None):
+        scope = _scope(scope)
+        for p, _ in self.params_grads:
+            backup = scope.get(self._param_backup_name(p))
+            if backup is not None:
+                scope.set(p.name, backup)
+
+
+class ExponentialMovingAverage:
+    """An EMA shadow of each trainable parameter, a persistable
+    ``<param>.ema`` filled with 0 by the startup program; `update()`
+    appends shadow = decay * shadow + (1 - decay) * param to the train
+    program (three ops a parameter); `apply` swaps the shadows into the
+    scope's parameters (returning a guard that restores them on exit),
+    `restore` swaps the parameters back."""
+
+    def __init__(self, decay=0.999, thres_steps=None, name=None):
+        self._decay = decay
+        self._name = name or ""
+        self._shadows = {}
+        self._helper = LayerHelper("ema")
+        block = default_main_program().global_block()
+        sb = default_startup_program().global_block()
+        for p in block.all_parameters():
+            if p.trainable:
+                shadow_name = p.name + ".ema"
+                shadow = block.create_var(name=shadow_name, shape=p.shape,
+                                          dtype=p.dtype, persistable=True,
+                                          stop_gradient=True)
+                sv = sb.create_var(name=shadow_name, shape=p.shape,
+                                   dtype=p.dtype, persistable=True)
+                Constant(0.0)(sv, sb)
+                self._shadows[p.name] = shadow
+
+    def update(self):
+        block = default_main_program().global_block()
+        for pname, shadow in self._shadows.items():
+            p = block.var(pname)
+            tmp = self._helper.create_variable_for_type_inference(p.dtype)
+            block.append_op(type="scale", inputs={"X": [shadow]},
+                            outputs={"Out": [tmp]},
+                            attrs={"scale": self._decay})
+            tmp2 = self._helper.create_variable_for_type_inference(p.dtype)
+            block.append_op(type="scale", inputs={"X": [p]},
+                            outputs={"Out": [tmp2]},
+                            attrs={"scale": 1.0 - self._decay})
+            block.append_op(type="elementwise_add",
+                            inputs={"X": [tmp], "Y": [tmp2]},
+                            outputs={"Out": [shadow]})
+
+    def apply(self, executor=None, need_restore=True, scope=None):
+        scope = self._scope = _scope(scope)
+        self._backups = {}
+        for pname, shadow in self._shadows.items():
+            if need_restore:
+                self._backups[pname] = scope.get(pname).clone()
+            sval = scope.get(shadow.name)
+            if sval is not None:
+                scope.set(pname, sval.clone())
+        return _EMAGuard(self)
+
+    def restore(self, executor=None):
+        scope = getattr(self, "_scope", None) or _scope(None)
+        for pname, val in getattr(self, "_backups", {}).items():
+            scope.set(pname, val)
+
+
+class _EMAGuard:
+    def __init__(self, ema):
+        self._ema = ema
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        self._ema.restore()
+
+
+class GradientMergeOptimizer:
+    """Gradient accumulation over k runs: each run adds its grads into
+    persistable fp32 buffers, and every k-th run (the `@gradient_merge_
+    step@` counter divisible by k) a `cond` op runs the inner optimizer's
+    update on the buffers (their mean with `avg`) and zeroes them. The
+    cond op lists the parameters and the buffers as its outputs; as in
+    the JAX package, the inner optimizer's own accumulators (Adam's
+    moments and beta powers) are not among them, so their writes stay in
+    the branch."""
+
+    def __init__(self, inner_optimizer, k_steps=1, avg=True):
+        self.inner = inner_optimizer
+        self.k_steps = int(k_steps)
+        self.avg = avg
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        from .layers import control_flow, learning_rate_scheduler, nn, tensor
+
+        params_grads = self.inner.backward(loss, startup_program,
+                                           parameter_list, no_grad_set)
+        if self.k_steps <= 1:
+            return self.inner.apply_gradients(params_grads), params_grads
+
+        prog = params_grads[0][0].block.program
+        block = prog.global_block()
+        with framework.program_guard(prog):
+            self.inner.helper = LayerHelper("gradient_merge")
+            self.inner._create_global_learning_rate(prog)
+            self.inner._create_accumulators(block,
+                                            [p for p, _ in params_grads])
+            merged = []
+            sb = default_startup_program().global_block()
+            for p, g in params_grads:
+                acc = block.create_var(
+                    name=unique_name.generate(p.name + "_grad_merge"),
+                    shape=p.shape, dtype="float32", persistable=True,
+                    stop_gradient=True)
+                sv = sb.create_var(name=acc.name, shape=p.shape,
+                                   dtype="float32", persistable=True)
+                Constant(0.0)(sv, sb)
+                block.append_op(type="elementwise_add",
+                                inputs={"X": [acc], "Y": [g]},
+                                outputs={"Out": [acc]}, attrs={"axis": -1})
+                merged.append((p, acc))
+
+            counter = learning_rate_scheduler.autoincreased_step_counter(
+                counter_name="@gradient_merge_step@")
+            kvar = tensor.fill_constant([1], "int64", self.k_steps)
+            zero = tensor.fill_constant([1], "int64", 0)
+            pred = nn.equal(nn.elementwise_mod(counter, kvar), zero)
+
+            with control_flow._sub_block() as update_blk:
+                for p, acc in merged:
+                    g_eff = nn.scale(
+                        acc, scale=1.0 / self.k_steps) if self.avg else acc
+                    self.inner._append_optimize_op(update_blk, (p, g_eff))
+                    # the buffer starts over after the update
+                    zg = tensor.fill_constant(p.shape, "float32", 0.0)
+                    update_blk.append_op(type="assign", inputs={"X": [zg]},
+                                         outputs={"Out": [acc]})
+                if merged:
+                    self.inner._finish_update(update_blk, merged)
+            control_flow._append_cond_op(
+                block, pred, update_blk, None,
+                [p.name for p, _ in merged] + [a.name for _, a in merged])
+        return [], params_grads
 
 
 SGD = SGDOptimizer

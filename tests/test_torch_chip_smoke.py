@@ -13,6 +13,14 @@ a small width:
     remat peak not below the no-remat peak; its fp32 Adam card-vs-CPU
     check passes when the runs agree and fails the clip left out, the
     decay left out or Adam skipped in the first run;
+  * phase 6f (the stacked flagship) at that width, batch 2: its stacked
+    and unrolled legs pass their gates on the CPU, and the gates fail K1
+    at 6 + 6 a step (no replay), a copied operand and a predicate read;
+    its fp32 card-vs-CPU check (Adam on piecewise_decay under
+    GradientMergeOptimizer, an EMA) passes when the runs agree and fails
+    a replay that drops layer 0's stacked-weight grads, a Switch that
+    takes the wrong case and a merge that updates on every run, each
+    planted in the first run;
   * the int8 card-vs-CPU check with two CPU executors (the same width,
     fp32, full-int8): it passes when the two runs agree, reads the
     bound for a 1% act-scale fault, and fails on such a fault planted
@@ -46,6 +54,7 @@ import importlib.util
 import json
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -631,3 +640,128 @@ def test_adam_card_vs_cpu_catches_a_planted_fault(smoke, fault,
         smoke.adam_card_vs_cpu_phase(torch, fluid, program,
                                      devices=("cpu", "cpu"))
     assert "card vs CPU Adam" in capsys.readouterr().err
+
+
+# ---------------------------------------------------------------------------
+# phase 6f: the stacked flagship, its gates and its card-vs-CPU check on
+# CPU executors
+# ---------------------------------------------------------------------------
+
+
+def test_stacked_legs_pass_their_gates_on_the_cpu(smoke):
+    """Both legs (build_stacked and build(), the example's recipe) at the
+    small width, batch 2: the loss falls, no predicate is read, the CPU
+    route counts no K1 launch; the gates fail K1 at 6 + 6 a step (no
+    replay), a copied operand and a predicate read."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    smoke.STACKED_STEPS = (1, 3)       # the gates read any number of runs
+    L = smoke.TRAIN["n_layers"]
+    legs = {}
+    for stacked in (True, False):
+        leg = smoke.stacked_leg(torch, fa, fluid, stacked, batch=2,
+                                device="cpu")
+        smoke.check_stacked_leg(leg, (0, 0))
+        legs[leg["leg"]] = leg
+    # the stacked program: 12 stacked weights, the embedding, the last
+    # layer norm's 2 and the head
+    assert legs["stacked"]["params"] == 16
+    assert legs["unrolled"]["params"] == 16 * L + 4
+    leg = dict(legs["stacked"])
+    n, zero = leg["runs"], {"tc": 0, "fp16": 0, "f32tc": 0}
+    leg["flash_attention_launches"] = (dict(zero, tc=2 * L * n),
+                                       dict(zero, tc=L * n), 0)
+    smoke.check_stacked_leg(leg, (2 * L, L))
+    for wrong in ((dict(zero, tc=L * n), dict(zero, tc=L * n), 0),
+                  (dict(zero, tc=2 * L * n), dict(zero, tc=L * n), 3)):
+        leg["flash_attention_launches"] = wrong
+        with pytest.raises(SystemExit):
+            smoke.check_stacked_leg(leg, (2 * L, L))
+    leg = dict(legs["unrolled"], host_syncs={"cond": 1, "while": 0})
+    with pytest.raises(SystemExit):
+        smoke.check_stacked_leg(leg)
+
+
+def test_stacked_card_vs_cpu_passes_when_the_runs_agree(smoke, capsys):
+    smoke.stacked_card_vs_cpu_phase(torch, fluid,
+                                    smoke.build_stacked_cvc(fluid),
+                                    devices=("cpu", "cpu"))
+    line = [json.loads(x.split(" ", 1)[1])
+            for x in capsys.readouterr().out.splitlines()
+            if x.startswith("card_vs_cpu_stacked ")][0]
+    assert line["worst_param_err_over_limit"] == 0.0
+    assert line["worst_shadow_own_err_over_1e-6"] <= 1
+    np.testing.assert_array_equal(np.float32(line["lr_cpu"]),
+                                  np.float32([1e-3, 1e-3, 5e-4, 5e-4]))
+    assert line["host_syncs"] == {"cond": 12, "while": 0}
+    assert 2 * line["skipped_update_fails_params"] >= line["params"]
+
+
+def _plant_step(monkeypatch, smoke, wrong):
+    """Run `wrong(step, args)` in place of the recurrence's step while
+    the first executor runs (the phase makes each executor's feed before
+    its runs)."""
+    from paddle_tpu_torch.ops import controlflow
+
+    feeds = []
+    make_feed = smoke.lm_feed
+
+    def lm_feed(torch_, batch, device):
+        feeds.append(device)
+        return make_feed(torch_, batch, device)
+
+    step = controlflow.recurrent_step
+
+    def planted(*args):
+        if len(feeds) == 1:
+            return wrong(step, args)
+        return step(*args)
+
+    monkeypatch.setattr(smoke, "lm_feed", lm_feed)
+    monkeypatch.setattr(controlflow, "recurrent_step", planted)
+
+
+def _drop_first_layer_grad(step, args):
+    """The replay of step 0 with its weight slices cut off the graph:
+    no grad reaches layer 0's slice of any stacked weight."""
+    block, env, attrs, carry, xs_t, t, seq_len, ctx = args
+    if torch.is_grad_enabled() and t == 0:
+        xs_t = [x.detach() for x in xs_t]
+    return step(block, env, attrs, carry, xs_t, t, seq_len, ctx)
+
+
+@pytest.mark.parametrize("fault", ["replay_drops_a_step", "switch_wrong_case",
+                                   "merge_every_run"])
+def test_stacked_card_vs_cpu_catches_a_planted_fault(smoke, fault,
+                                                     monkeypatch, capsys):
+    """A replay that drops layer 0's stacked-weight grads, a Switch that
+    takes the wrong case (its less_than negated) or a merge that updates
+    on every run (its counter's remainder always 0), in the first run:
+    the stacked card-vs-CPU check fails."""
+    program = smoke.build_stacked_cvc(fluid)
+    if fault == "replay_drops_a_step":
+        _plant_step(monkeypatch, smoke, _drop_first_layer_grad)
+    elif fault == "switch_wrong_case":
+        _plant(monkeypatch, smoke, "less_than",
+               lambda impl, ctx, ins, attrs: {"Out": [
+                   ~impl(ctx, ins, attrs)["Out"][0]]})
+    else:
+        _plant(monkeypatch, smoke, "elementwise_mod",
+               lambda impl, ctx, ins, attrs: {"Out": [
+                   torch.zeros_like(ins["X"][0])]})
+    with pytest.raises(SystemExit):
+        smoke.stacked_card_vs_cpu_phase(torch, fluid, program,
+                                        devices=("cpu", "cpu"))
+    out = capsys.readouterr()
+    assert "card vs CPU stacked" in out.err
+    line = [json.loads(x.split(" ", 1)[1]) for x in out.out.splitlines()
+            if x.startswith("card_vs_cpu_stacked ")][0]
+    # the check aimed at the fault sees it too (the loss check fails first)
+    if fault == "replay_drops_a_step":
+        assert line["worst_grad_err_over_limit"] > 1
+        assert line["worst_grad"].startswith("st_") and "[0]" in \
+            line["worst_grad"]
+    elif fault == "switch_wrong_case":
+        assert line["lr_max_rel_err"] > 0.1
+    else:
+        assert line["moved_on_a_merge_only_run"] > 0

@@ -4,8 +4,8 @@ of its program equals JAX's within rtol 1e-6 (the powers, exponentials
 and cosines are XLA's on one side and torch's on the other: a few fp32
 ulps). The step counter `@step_counter@` reads the number of runs in
 both: int64 in the port, as declared, and int32 in the JAX scope (x64
-is off there). `piecewise_decay` raises, naming the control-flow slice
-it waits for."""
+is off there). `piecewise_decay` (a Switch of less_than cases) gives
+JAX's rates bitwise."""
 
 import numpy as np
 import pytest
@@ -92,6 +92,33 @@ def test_linear_warmup_reads_its_closed_form():
 
 
 def test_piecewise_decay_raises_naming_the_slice():
-    with pfluid.program_guard(pfluid.Program(), pfluid.Program()):
-        with pytest.raises(NotImplementedError, match="Switch.*control-flow"):
-            pfluid.layers.piecewise_decay([2, 4], [0.1, 0.01, 0.001])
+    """piecewise_decay raised, naming the control-flow slice, until that
+    slice landed; now it is held against JAX's: the same global ops and
+    Switch sub-blocks, and over 12 runs (boundaries 2 and 4, so every
+    case and the default run) the same rate, bitwise (the Switch writes
+    constants), read from its persistable var."""
+    def build(fluid, unique_name):
+        main, startup = fluid.Program(), fluid.Program()
+        with unique_name.guard(), fluid.program_guard(main, startup):
+            lr = fluid.layers.piecewise_decay([2, 4], [0.1, 0.01, 0.001])
+        return main, startup, lr
+
+    jm, js, jlr = build(jfluid, j_unique)
+    pm, ps, plr = build(pfluid, p_unique)
+    assert plr.name == jlr.name and plr.persistable
+    assert [[op.type for op in b.ops] for b in pm.blocks] == [
+        [op.type for op in b.ops] for b in jm.blocks]
+    assert [op.type for op in pm.global_block().ops].count("cond") == 3
+    jexe, jscope = jfluid.Executor(jfluid.CPUPlace()), JScope()
+    pexe, pscope = pfluid.Executor("cpu"), pfluid.Scope()
+    jexe.run(js, scope=jscope)
+    pexe.run(ps, scope=pscope)
+    got, want = [], []
+    for _ in range(12):
+        want.append(float(np.asarray(jexe.run(jm, fetch_list=[jlr],
+                                               scope=jscope)[0])[0]))
+        got.append(float(pexe.run(pm, fetch_list=[plr],
+                                  scope=pscope)[0][0]))
+    assert got == want
+    np.testing.assert_array_equal(
+        np.float32(got), np.float32([0.1] + [0.01] * 2 + [0.001] * 9))

@@ -4,8 +4,10 @@ outputs, and for differentiable ops the input grads (torch autograd
 against ``jax.vjp``) for a seeded cotangent. Also every op of the
 activation family (36 unary ops and prelu), the binary,
 compare and logical families, matmul, softmax, transpose2, split, sign,
-clip, clip_by_norm, squared_l2_norm, assign, mean and increment, and
-mixed-dtype operands promoted as jnp promotes them.
+clip, clip_by_norm, squared_l2_norm, assign, mean and increment, the
+reductions (reduce_mean, reduce_max, reduce_min), concat, select_rowwise,
+is_empty and print, and mixed-dtype operands promoted as jnp promotes
+them.
 
 Tolerances: fp32 atol/rtol 1e-5 (other summation orders; the layer
 norm's statistics come from a fused kernel on the torch side); bf16
@@ -228,6 +230,40 @@ CASES.update({
                       {"step": 1.0}, "Out", (), "int32", F32),
     "increment": ("increment", {"X": [_randn(1)]}, {"step": 0.5}, "Out",
                   ("X",), "float32", F32),
+    # the control-flow slice's ops and the layers build_stacked needs
+    "reduce_mean_last": ("reduce_mean", {"X": [_randn(2, 5, 16)]},
+                         {"dim": [-1], "keep_dim": True, "reduce_all": False},
+                         "Out", ("X",), "float32", F32),
+    "reduce_mean_dims": ("reduce_mean", {"X": [_randn(2, 3, 4)]},
+                         {"dim": [0, 2], "keep_dim": False,
+                          "reduce_all": False}, "Out", ("X",), "float32",
+                         F32),
+    "reduce_mean_all": ("reduce_mean", {"X": [_randn(3, 4)]},
+                        {"dim": [0], "keep_dim": False, "reduce_all": True},
+                        "Out", ("X",), "float32", F32),
+    "reduce_mean_bf16": ("reduce_mean", {"X": [_randn(4, 32)]},
+                         {"dim": [1], "keep_dim": True, "reduce_all": False},
+                         "Out", ("X",), "bfloat16", BF16),
+    "reduce_max": ("reduce_max", {"X": [_randn(3, 4, 5)]},
+                   {"dim": [1], "keep_dim": False, "reduce_all": False},
+                   "Out", ("X",), "float32", F32),
+    "reduce_min_all": ("reduce_min", {"X": [_randn(3, 4)]},
+                       {"dim": [0], "keep_dim": True, "reduce_all": True},
+                       "Out", ("X",), "float32", F32),
+    "concat": ("concat", {"X": [_randn(2, 3), _randn(2, 5), _randn(2, 1)]},
+               {"axis": 1}, "Out", ("X",), "float32", F32),
+    "concat_axis0": ("concat", {"X": [_randn(1, 4), _randn(3, 4)]},
+                     {"axis": 0}, "Out", ("X",), "bfloat16", BF16),
+    "select_rowwise": ("select_rowwise", {"Cond": [_randn(4, 1) > 0],
+                                          "X": [_randn(4, 3)],
+                                          "Y": [_randn(4, 3)]}, {}, "Out",
+                       ("X", "Y"), "float32", F32),
+    "is_empty": ("is_empty", {"X": [_randn(2, 3)]}, {}, "Out", (),
+                 "float32", F32),
+    "is_empty_yes": ("is_empty", {"X": [_randn(0, 3)]}, {}, "Out", (),
+                     "float32", F32),
+    "print": ("print", {"In": [_randn(2, 2)]}, {"message": "x"}, "Out", (),
+              "float32", F32),
 })
 
 

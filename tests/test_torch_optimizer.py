@@ -280,3 +280,172 @@ def test_six_step_trajectory_matches_jax(name, kw):
         np.testing.assert_allclose(g, w, rtol=1e-5, atol=0,
                                    err_msg="step %d" % i)
     assert not np.array_equal(want[-1], W0)  # it trained
+
+
+# ---------------------------------------------------------------------------
+# the wrappers: GradientMergeOptimizer, ExponentialMovingAverage and
+# ModelAverage (with average_accumulates), held against JAX's on the
+# same objective
+# ---------------------------------------------------------------------------
+
+
+def _wrapped(fluid, unique_name, wrap):
+    main, startup = fluid.Program(), fluid.Program()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[4], dtype="float32")
+        t = fluid.layers.data(name="t", shape=[3], dtype="float32")
+        y = fluid.layers.fc(x, 3, param_attr=fluid.ParamAttr(name="tw"),
+                            bias_attr=False)
+        loss = fluid.layers.mean(fluid.layers.square_error_cost(y, t))
+        extra = wrap(fluid, loss)
+    return main, startup, loss, extra
+
+
+def _run_wrapped(wrap, steps, fetch=()):
+    """Both packages from W0 for `steps` runs: per run the loss, tw and
+    the fetched names; returns (jax side, port side) and the pieces."""
+    from paddle_tpu_torch.ops import controlflow as p_cf
+
+    sides = []
+    for fluid, un in ((jfluid, j_unique), (pfluid, p_unique)):
+        main, startup, loss, extra = _wrapped(fluid, un, wrap)
+        exe = (jfluid.Executor(jfluid.CPUPlace()) if fluid is jfluid
+               else pfluid.Executor("cpu"))
+        scope = JScope() if fluid is jfluid else pfluid.Scope()
+        exe.run(startup, scope=scope)
+        scope.set("tw", W0.copy() if fluid is jfluid else torch.tensor(W0))
+        runs, syncs = [], []
+        for _ in range(steps):
+            p_cf.reset_counts()
+            out = exe.run(main, feed={"x": X, "t": TGT},
+                          fetch_list=[loss, "tw"] + list(fetch), scope=scope)
+            syncs.append(dict(p_cf.host_syncs))
+            runs.append([np.array(o, copy=True) for o in out])
+        sides.append(dict(main=main, exe=exe, scope=scope, extra=extra,
+                          runs=runs, syncs=syncs))
+    return sides
+
+
+def _types(program):
+    return [[op.type for op in b.ops] for b in program.blocks]
+
+
+@pytest.mark.parametrize("inner", ["SGD", "Adam"])
+def test_gradient_merge_matches_jax(inner):
+    """k_steps=2: the inner update runs under a cond on even runs only
+    (one predicate read a run), on the mean of the two runs' grads; tw
+    follows JAX's to rtol 1e-5 over 6 runs. Adam's moments and beta
+    powers are written in the branch but are not the cond op's outputs,
+    so in both packages they keep their start values."""
+    def wrap(fluid, loss):
+        opt = getattr(fluid.optimizer, inner)(learning_rate=0.05)
+        fluid.optimizer.GradientMergeOptimizer(opt, k_steps=2).minimize(loss)
+
+    j, p = _run_wrapped(wrap, 6)
+    assert _types(p["main"]) == _types(j["main"])
+    cond, = [op for op in p["main"].global_block().ops if op.type == "cond"]
+    assert [v.name for v in cond.outputs["Out"]] == ["tw", "tw_grad_merge_0"]
+    for i, (jr, pr) in enumerate(zip(j["runs"], p["runs"])):
+        np.testing.assert_allclose(pr[0], jr[0], rtol=1e-5)
+        np.testing.assert_allclose(pr[1], jr[1], rtol=1e-5, atol=0,
+                                   err_msg="run %d" % (i + 1))
+    moved = [not np.array_equal(a[1], b[1])
+             for a, b in zip(p["runs"], p["runs"][1:])]
+    assert moved == [True, False, True, False, True]   # runs 2, 4, 6
+    np.testing.assert_array_equal(p["runs"][0][1], W0)  # run 1 merges only
+    assert p["syncs"] == [{"cond": 1, "while": 0}] * 6
+    for n in p["scope"].local_var_names():
+        if "moment" in n or "_pow_acc_" in n:
+            want = np.asarray(j["scope"].get(n))
+            np.testing.assert_array_equal(p["scope"].get(n).numpy(), want)
+
+
+def test_exponential_moving_average_matches_jax():
+    """Adam then EMA(0.9).update(): over 4 runs the shadow equals the EMA
+    recurrence over the port's own parameters to rtol 1e-6 and JAX's
+    shadow to the parameters' rtol 1e-5 (Adam's updates differ by
+    ~1e-6 between the packages); apply() swaps it into tw (its guard and
+    restore() put the trained value back)."""
+    def wrap(fluid, loss):
+        fluid.optimizer.Adam(learning_rate=0.05).minimize(loss)
+        ema = fluid.optimizer.ExponentialMovingAverage(0.9)
+        ema.update()
+        return ema
+
+    j, p = _run_wrapped(wrap, 4, fetch=["tw.ema"])
+    shadow = np.zeros_like(W0)
+    for jr, pr in zip(j["runs"], p["runs"]):
+        np.testing.assert_allclose(pr[1], jr[1], rtol=1e-5)
+        np.testing.assert_allclose(pr[2], jr[2], rtol=1e-5)
+        shadow = np.float32(0.9) * shadow + np.float32(0.1) * pr[1]
+        np.testing.assert_allclose(pr[2], shadow, rtol=1e-6)
+    trained = p["scope"].get("tw").clone()
+    with p["extra"].apply(scope=p["scope"]):
+        np.testing.assert_array_equal(p["scope"].get("tw").numpy(),
+                                      p["runs"][-1][2])
+    np.testing.assert_array_equal(p["scope"].get("tw").numpy(),
+                                  trained.numpy())
+    from paddle_tpu.core.scope import scope_guard
+
+    with scope_guard(j["scope"]):
+        j["extra"].apply()
+        np.testing.assert_allclose(p["runs"][-1][2],
+                                   np.asarray(j["scope"].get("tw")),
+                                   rtol=1e-5)
+        j["extra"].restore()
+
+
+def test_model_average_matches_jax():
+    """SGD with ModelAverage(0.15, min 2, max 3): the window sums and
+    counters of average_accumulates follow JAX's over 7 runs (both
+    shifts taken), apply() swaps in the same average, restore() the
+    trained parameter."""
+    from paddle_tpu.core.scope import scope_guard
+
+    def wrap(fluid, loss):
+        fluid.optimizer.SGD(learning_rate=0.05).minimize(loss)
+        return fluid.optimizer.ModelAverage(0.15, min_average_window=2,
+                                            max_average_window=3)
+
+    names = ["tw_sum_1_0", "tw_sum_2_0", "tw_sum_3_0",
+             "tw_num_accumulates_0", "tw_old_num_accumulates_0",
+             "tw_num_updates_0"]
+    j, p = _run_wrapped(wrap, 7, fetch=names)
+    assert _types(p["main"]) == _types(j["main"])
+    shifted = set()
+    for jr, pr in zip(j["runs"], p["runs"]):
+        for n, a, b in zip(names, pr[2:], jr[2:]):
+            if "num_" in n:
+                np.testing.assert_array_equal(a, b.astype(a.dtype))
+            else:
+                np.testing.assert_allclose(a, b, rtol=1e-6)
+                shifted.add((n, bool(np.any(a))))
+    assert ("tw_sum_3_0", True) in shifted
+    trained = p["scope"].get("tw").clone()
+    p["extra"].apply(p["exe"], scope=p["scope"])
+    with scope_guard(j["scope"]):
+        j["extra"].apply(j["exe"])
+        np.testing.assert_allclose(p["scope"].get("tw").numpy(),
+                                   np.asarray(j["scope"].get("tw")),
+                                   rtol=1e-6)
+        j["extra"].restore(j["exe"])
+    p["extra"].restore(p["exe"], scope=p["scope"])
+    np.testing.assert_array_equal(p["scope"].get("tw").numpy(),
+                                  trained.numpy())
+
+
+def test_a_fetched_parameter_keeps_its_value():
+    """A parameter fetched on the CPU is a copy of the scope's tensor:
+    the next run's in-place update leaves the array the caller holds at
+    that run's value."""
+    main, startup, loss, _ = _objective(pfluid, p_unique, "SGD",
+                                        dict(learning_rate=0.1))
+    exe, scope = pfluid.Executor("cpu"), pfluid.Scope()
+    exe.run(startup, scope=scope)
+    first, = exe.run(main, feed={"x": X, "t": TGT}, fetch_list=["tw"],
+                     scope=scope)
+    kept = first.copy()
+    second, = exe.run(main, feed={"x": X, "t": TGT}, fetch_list=["tw"],
+                      scope=scope)
+    np.testing.assert_array_equal(first, kept)
+    assert not np.array_equal(first, second)
