@@ -260,6 +260,36 @@ Phases, each fatal on failure (exit code 1, no result line):
      card vs CPU at batch 2: every dense layer's output on the card
      bitwise the plain version's on its own input, the loss to rtol
      1e-4, a 1% act-scale fault caught at every layer.
+  9. image classification: benchmark/fluid_benchmark.py's
+     run_static_model recipe through the port. First the conv op in fp32
+     at a ResNet-50 shape with cudnn.allow_tf32 on and off (cuDNN's
+     deterministic algorithms): output and grads bitwise equal, the
+     switch left as it was. 9a: ``models.resnet.build(dataset=
+     "imagenet")`` (ResNet-50, 1000 classes, 3x224x224) under
+     ``optimizer.Adam(0.01)`` at batch 64 (``_DEFAULT_BATCH``) in two
+     legs, fp32 and amp (``contrib.mixed_precision.decorate`` with a
+     static loss scale of 1.0: the convolutions and mul in bf16), each 5
+     warm-up and 10 timed steps on RandomState(0)'s fixed batch staged on
+     the card, the loss fetched every step: fatal unless the loss is
+     finite and falls, every moving mean and variance is finite and moved
+     from its start, and the ``clone(for_test=True)`` program, run once on
+     the trained weights, gives a finite loss and leaves every moving
+     statistic bitwise unmoved. One ``image_train`` line a leg (images/s,
+     device and host ms a step, peak GiB; a profiled step's launches, the
+     card's busy share, the device ms of the convolutions, Adam and the
+     rest, the update section's launches and host ms, the top kernels)
+     and an ``image_train_ratio`` line. 9b: one step of each other
+     builder at its ``_DEFAULT_BATCH`` — mnist mlp and cnn (128), cifar
+     ResNet-32 (64), VGG-16 (64), SE-ResNeXt-50 (32): each loss finite.
+     9c: the fp32 cifar ResNet at depth 8 plus one bottleneck stage, two
+     Adam steps at batch 8 on cuda:0 and on the CPU, each from one state
+     (the CPU's set on the card before step 2): each step's loss, grads,
+     moving statistics and parameters (Adam's bound from the grad
+     limit) within fp32's STEP_TOL (``tests/test_torch_chip_smoke.py`` runs
+     it on two CPU executors with planted faults: a skipped
+     moving-statistics update, the unbiased variance, a TF32
+     convolution). Phase 9 launches none of K1-K4 (their counts read
+     before and after it).
 
 Then one JSON line ``{"kernels": [...]}`` (every kernel of every path,
 each with the launches of its path's run; a kernel launched no time there
@@ -2726,6 +2756,14 @@ def user_leg(torch, fa, fluid, name, build_kw, batch, device=None):
     return leg
 
 
+# the convolutions' kernels by name: cuDNN's (bf16: the forward, dgrad
+# and wgrad engines and its layout transforms) and the fp32 route's
+# (im2col, col2im and cuBLAS's fp32 GEMMs; an fp32 product elsewhere in
+# the step counts too: the image head's fc)
+CONV_KERNEL_NAMES = ("conv", "cudnn", "fprop", "dgrad", "wgrad", "im2col",
+                     "col2im", "sgemm", "f32f32")
+
+
 def update_cost_profile(torch, exe, main, feed, fetch, scope):
     """One more step of a leg under torch.profiler, each op of the run in
     a ``ptpu_op:<type>`` range (``core.lowering.execute_op`` wrapped for
@@ -2733,7 +2771,10 @@ def update_cost_profile(torch, exe, main, feed, fetch, scope):
     calls), device busy ms and memcpy and stream-sync calls, and for the
     update section (the ops after the last grad op: unscale, clip,
     decay, the Adam updates) and for the adam ops alone their launches
-    and host ms."""
+    and host ms; the device ms of the convolutions (kernels named by
+    CONV_KERNEL_NAMES), of the adam ops (their ranges) and of the rest,
+    the forward ops' device ms by type (a grad op's kernels are launched
+    by autograd's own thread, outside its range) and the top kernels."""
     import bisect
 
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -2794,6 +2835,31 @@ def update_cost_profile(torch, exe, main, feed, fetch, scope):
             "launches": sum(bisect.bisect_right(launches, r.end)
                             - bisect.bisect_left(launches, r.start)
                             for r in ranges)}
+    cuda = torch.autograd.DeviceType.CUDA
+    # the kernels' own rows (a range's row on the device timeline and an
+    # aten op's row would count them again)
+    kernels = sorted(((device_us(e) / 1e3, e.count, e.key)
+                      for e in prof.key_averages() if e.device_type == cuda
+                      and not e.key.startswith(("ptpu_op:", "aten::"))),
+                     reverse=True)
+    by_op = {}
+    for e in prof.key_averages():
+        if e.device_type != cuda and e.key.startswith("ptpu_op:"):
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = getattr(e, "cuda_time_total", 0)
+            key = e.key.split(":", 2)[2]
+            by_op[key] = by_op.get(key, 0.0) + us / 1e3
+    conv_ms = sum(ms for ms, _, k in kernels
+                  if any(n in k.lower() for n in CONV_KERNEL_NAMES))
+    adam_ms = by_op.get("adam", 0.0)
+    out["device_ms"] = {"convolutions": conv_ms, "adam": adam_ms,
+                        "rest": out["device_busy_ms"] - conv_ms - adam_ms}
+    out["forward_device_ms_by_op"] = {
+        k: round(v, 4) for k, v in sorted(by_op.items(), key=lambda kv: -kv[1])
+        if not k.endswith("_grad")}
+    out["top_kernels"] = [{"kernel": k[:90], "calls": n, "ms": ms}
+                          for ms, n, k in kernels[:10]]
     return out
 
 
@@ -3846,6 +3912,453 @@ def int8_card_vs_cpu_phase(torch, fluid, im, program,
              "at %d of %d layers" % (n - len(fault_caught), n))
 
 
+# phase 9: image classification — benchmark/fluid_benchmark.py's
+# run_static_model recipe (:223-300) through the port: a builder of
+# models/, Adam(0.01) (--use_amp: contrib decorate with a static loss
+# scale of 1.0), minimize, Executor.run on cuda:0 with the loss fetched
+# every step, on _feeds' RandomState(0) batch (:79-104) staged once on
+# the card, skip_batch_num 5 warm-up steps then timed steps
+IMAGE_LR = 0.01
+IMAGE_BATCH = 64                  # _DEFAULT_BATCH["resnet"]
+IMAGE_STEPS = (5, 10)             # skip_batch_num, timed
+# builder -> (build(models), feed shape, classes)
+IMAGE_BUILDERS = {
+    "resnet50_imagenet": (lambda m: m.resnet.build(dataset="imagenet"),
+                          (3, 224, 224), 1000),
+    "mnist_mlp": (lambda m: m.mnist.build(arch="mlp"), (784,), 10),
+    "mnist_cnn": (lambda m: m.mnist.build(arch="cnn"), (1, 28, 28), 10),
+    "resnet32_cifar": (lambda m: m.resnet.build(dataset="cifar10"),
+                       (3, 32, 32), 10),
+    "vgg16_cifar": (lambda m: m.vgg.build(dataset="cifar10"), (3, 32, 32),
+                    10),
+    "se_resnext50_cifar": (lambda m: m.se_resnext.build(class_dim=10),
+                           (3, 32, 32), 10),
+}
+# 9b: each other builder at its _DEFAULT_BATCH
+IMAGE_OTHERS = (("mnist_mlp", 128), ("mnist_cnn", 128),
+                ("resnet32_cifar", 64), ("vgg16_cifar", 64),
+                ("se_resnext50_cifar", 32))
+# 9c: the fp32 cifar ResNet at depth 8 plus one bottleneck stage, batch 8,
+# two Adam steps on the card and on the CPU, each from one state
+# (image_card_vs_cpu_phase)
+IMAGE_CVC = dict(batch=8, steps=2)
+
+
+def build_image(fluid, name, amp=False):
+    """(main, startup, loss, test clone) of builder `name` under
+    Adam(IMAGE_LR), the clone taken before minimize, as a training script
+    takes it."""
+    from paddle_tpu_torch import models
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _, _, _, loss, _ = IMAGE_BUILDERS[name][0](models)
+        test = main.clone(for_test=True)
+        opt = fluid.optimizer.Adam(IMAGE_LR)
+        if amp:
+            opt = fluid.contrib.mixed_precision.decorate(
+                opt, init_loss_scaling=1.0, use_dynamic_loss_scaling=False)
+        opt.minimize(loss)
+    return main, startup, loss, test
+
+
+def image_feed(torch, shape, classes, batch, device):
+    """_feeds' batch: RandomState(0), img uniform [0, 1), int64 labels,
+    as tensors on `device` (staged once)."""
+    rng = np.random.RandomState(0)
+    img = rng.rand(batch, *shape).astype(np.float32)
+    label = rng.randint(0, classes, (batch, 1)).astype(np.int64)
+    return {"img": torch.from_numpy(img).to(device),
+            "label": torch.from_numpy(label).to(device)}
+
+
+def moving_stats(main):
+    return sorted(op.outputs[s][0].name for op in main.global_block().ops
+                  if op.type == "batch_norm"
+                  for s in ("MeanOut", "VarianceOut"))
+
+
+def kernel_launch_totals(fa, pa, pat, im):
+    """K1 (both ways), K2, K3 and K4's launch counts as they stand."""
+    return {"K1": fa.flash_attention_fwd.launches
+            + fa.flash_attention_bwd.launches,
+            "K2": sum(pa.paged_attention.window_launches.values()),
+            "K3": pat.paged_attention_tree.launches,
+            "K4": sum(im.int8_matmul.launches.values())}
+
+
+def image_leg(torch, fluid, name, amp, batch, steps=IMAGE_STEPS,
+              device=None):
+    """One leg of phase 9a: IMAGE_STEPS runs of the builder's program
+    (loss fetched each step) on its fixed staged batch; then the test
+    clone once. Returns what the gates and the image_train line read."""
+    main, startup, loss, test = build_image(fluid, name, amp)
+    exe = fluid.Executor(device)
+    on_card = exe.device.type == "cuda"
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    shape, classes = IMAGE_BUILDERS[name][1:]
+    feed = image_feed(torch, shape, classes, batch, exe.device)
+    stats = moving_stats(main)
+    start = {n: scope.get(n).clone() for n in stats}
+    warmup, timed = steps
+    if on_card:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    outs, marks, host_ms = [], [], []
+    for i in range(warmup + timed):
+        if on_card and i >= warmup:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        th = time.perf_counter()
+        outs.append(exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                            return_numpy=False))
+        host_ms.append((time.perf_counter() - th) * 1e3)
+    if on_card:
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        torch.cuda.synchronize()
+    after = {n: scope.get(n).clone() for n in stats}
+    leg = {"leg": name + ("_amp" if amp else "_fp32"), "batch": batch,
+           "warmup": warmup, "steps": timed, "runs": warmup + timed,
+           "params": len(main.param_grad_map), "batch_norms": len(stats) // 2,
+           "losses": [float(o[0].float().cpu()[0]) for o in outs],
+           "stats_finite": all(bool(torch.isfinite(t).all())
+                               for t in after.values()),
+           "stats_unmoved": sorted(n for n in stats
+                                   if torch.equal(after[n], start[n])),
+           "host_ms_each": host_ms[warmup:],
+           "step_ms_each": [a.elapsed_time(b)
+                            for a, b in zip(marks, marks[1:])]}
+    if on_card:
+        dev = float(np.mean(leg["step_ms_each"]))
+        leg.update(device_ms_per_step=dev,
+                   host_ms_per_step=float(np.mean(host_ms[warmup:])),
+                   images_per_s=batch / dev * 1e3,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   cudnn_benchmark=torch.backends.cudnn.benchmark,
+                   profile=update_cost_profile(
+                       torch, exe, main, feed, [loss], scope))
+        # the card's busy share of a timed step: kernel time over step time
+        leg["busy_share"] = leg["profile"]["device_busy_ms"] / dev
+    # the test clone once, on the trained weights: it reads the moving
+    # statistics and leaves them bitwise as they were
+    before = {n: scope.get(n).clone() for n in stats}
+    out, = exe.run(test, feed=feed, fetch_list=[loss], scope=scope)
+    leg["test_loss"] = float(out[0])
+    leg["test_clone_moved"] = sorted(n for n in stats
+                                     if not torch.equal(scope.get(n),
+                                                        before[n]))
+    del exe, scope
+    return leg
+
+
+def check_image_leg(leg):
+    """Phase 9a's gates on one leg: the loss finite and falling over the
+    runs (the batch is fixed); every moving statistic finite and moved
+    from its start; the test clone's loss finite and its run leaving the
+    statistics bitwise unmoved."""
+    name, losses = leg["leg"], leg["losses"]
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        fail("image_train %s: losses not finite and falling: %r"
+             % (name, losses))
+    if not leg["stats_finite"]:
+        fail("image_train %s: a moving statistic is not finite" % name)
+    if leg["stats_unmoved"]:
+        fail("image_train %s: %d moving statistics never moved from their "
+             "start (%r)" % (name, len(leg["stats_unmoved"]),
+                             leg["stats_unmoved"][:4]))
+    if not np.isfinite(leg["test_loss"]):
+        fail("image_train %s: the test clone's loss is %r"
+             % (name, leg["test_loss"]))
+    if leg["test_clone_moved"]:
+        fail("image_train %s: the test clone moved %r" % (
+            name, leg["test_clone_moved"][:4]))
+
+
+def conv_tf32_check(torch, fluid):
+    """The conv op at a ResNet-50 shape (batch 64, 64 -> 64 channels, 3x3
+    over 56x56), forward and both grads, with TF32 on and off (cuDNN's
+    and cuBLAS's switches both): bitwise equal, and the switches left as
+    they were; plain F.conv2d under TF32 differs (so this card's cuDNN
+    does take the switch)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.core.lowering import LoweringContext
+    from paddle_tpu_torch.ops import registry
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dev = torch.device("cuda", 0)
+    x = torch.randn(64, 64, 56, 56, device=dev, generator=gen)
+    w = torch.randn(64, 64, 3, 3, device=dev, generator=gen) * 0.05
+    g = torch.randn(64, 64, 56, 56, device=dev, generator=gen)
+    attrs = {"strides": [1, 1], "paddings": [1, 1], "dilations": [1, 1],
+             "groups": 1}
+    impl = registry.get("conv2d").impl
+    switches = (torch.backends.cudnn, torch.backends.cuda.matmul)
+    saved = [m.allow_tf32 for m in switches] + [
+        torch.backends.cudnn.deterministic]
+    torch.backends.cudnn.deterministic = True
+    runs, plain = [], []
+    try:
+        for tf32 in (True, False):
+            for m in switches:
+                m.allow_tf32 = tf32
+            xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+            out = impl(LoweringContext(dev), {"Input": [xl], "Filter": [wl]},
+                       attrs)["Output"][0]
+            runs.append([out.detach()] + list(torch.autograd.grad(
+                out, [xl, wl], g)))
+            if any(m.allow_tf32 is not tf32 for m in switches):
+                fail("conv tf32: the op left a TF32 switch changed")
+            plain.append(F.conv2d(x, w, padding=1))
+        # cuDNN's own fp32 convolution, TF32 off (the last setting), for
+        # comparison
+        cudnn_fp32 = [plain[1]] + list(torch.ops.aten.convolution_backward(
+            g, x, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+            [True, True, False])[:2])
+    finally:
+        for m, v in zip(switches, saved):
+            m.allow_tf32 = v
+        torch.backends.cudnn.deterministic = saved[-1]
+    equal = [bool(torch.equal(a, b)) for a, b in zip(*runs)]
+
+    # out, dx and dw in float64
+    ref = [F.conv2d(x.double(), w.double(), padding=1)] + list(
+        torch.ops.aten.convolution_backward(
+            g.double(), x.double(), w.double(), None, [1, 1], [1, 1],
+            [1, 1], False, [0, 0], 1, [True, True, False])[:2])
+
+    def off_float64(got):
+        """Each of out, dx, dw off float64, over the tensor's largest."""
+        return [float((a.double() - r).abs().max() / r.abs().max())
+                for a, r in zip(got, ref)]
+
+    report = {"serving_imported": "paddle_tpu_torch.serving.model"
+                                  in sys.modules,
+              "allow_tf32_now": [m.allow_tf32 for m in switches],
+              "op_bitwise_out_dx_dw": equal,
+              "plain_conv_tf32_max_abs_diff": float(
+                  (plain[0] - plain[1]).abs().max()),
+              "op_off_float64_out_dx_dw": off_float64(runs[1]),
+              "cudnn_fp32_off_float64_out_dx_dw": off_float64(cudnn_fp32)}
+    print("image_conv_tf32 " + json.dumps(report), flush=True)
+    if not all(equal):
+        fail("conv tf32: the fp32 conv op's output / grads depend on "
+             "the TF32 switches: %r" % equal)
+
+
+def image_phase(torch, fluid):
+    """Phase 9a and 9b on cuda:0: the fp32 conv op against the TF32
+    switch, ResNet-50 (ImageNet) at batch 64 in the fp32 and amp legs,
+    gated and printed on image_train lines, then one step of each other
+    builder at its default batch."""
+    conv_tf32_check(torch, fluid)
+    legs = {}
+    for amp in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        leg = image_leg(torch, fluid, "resnet50_imagenet", amp, IMAGE_BATCH)
+        check_image_leg(leg)
+        legs[leg["leg"]] = leg
+        print("image_train " + json.dumps(dict(leg, card=card_line())),
+              flush=True)
+    f, a = legs["resnet50_imagenet_fp32"], legs["resnet50_imagenet_amp"]
+    print("image_train_ratio " + json.dumps({
+        "device_ms_amp_over_fp32":
+            a["device_ms_per_step"] / f["device_ms_per_step"],
+        "host_ms_amp_over_fp32":
+            a["host_ms_per_step"] / f["host_ms_per_step"],
+        "peak_gib_amp_over_fp32": a["peak_gib"] / f["peak_gib"]}),
+        flush=True)
+    for row in image_builders_phase(torch, fluid):
+        print("image_builder " + json.dumps(row), flush=True)
+
+
+def image_builders_phase(torch, fluid, builders=IMAGE_OTHERS, device=None):
+    """Phase 9b: one Adam step of each builder at its batch on a fresh
+    scope; each loss must be finite."""
+    rows = []
+    for name, batch in builders:
+        gc.collect()
+        main, startup, loss, _ = build_image(fluid, name)
+        exe, scope = fluid.Executor(device), fluid.Scope()
+        exe.run(startup, scope=scope)
+        shape, classes = IMAGE_BUILDERS[name][1:]
+        feed = image_feed(torch, shape, classes, batch, exe.device)
+        t0 = time.perf_counter()
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        row = {"builder": name, "batch": batch, "loss": float(out[0]),
+               "params": len(main.param_grad_map),
+               "first_step_s": time.perf_counter() - t0}
+        if not np.isfinite(row["loss"]):
+            fail("image_builder %s: loss %r" % (name, row["loss"]))
+        rows.append(row)
+        del exe, scope
+    return rows
+
+
+def resnet8_bottleneck(models):
+    """The cifar ResNet at depth 8 (three basic-block stages) plus one
+    bottleneck stage (64 -> 4 x 32 channels, stride 2), a global average
+    pool and the softmax head: a builder's returns."""
+    r, layers = models.resnet, models.resnet.layers
+    img = layers.data(name="img", shape=[3, 32, 32], dtype="float32")
+    label = layers.data(name="label", shape=[1], dtype="int64")
+    x = r.conv_bn_layer(img, ch_out=16, filter_size=3, stride=1, padding=1)
+    x = r.layer_warp(r.basicblock, x, 16, 16, 1, 1)
+    x = r.layer_warp(r.basicblock, x, 16, 32, 1, 2)
+    x = r.layer_warp(r.basicblock, x, 32, 64, 1, 2)
+    x = r.layer_warp(r.bottleneck, x, 64, 32, 1, 2)
+    pool = layers.pool2d(input=x, pool_type="avg", global_pooling=True)
+    predict = layers.fc(input=pool, size=10, act="softmax")
+    cost = layers.mean(layers.cross_entropy(input=predict, label=label))
+    return img, label, predict, cost, layers.accuracy(predict, label)
+
+
+IMAGE_BUILDERS["resnet8_bottleneck"] = (resnet8_bottleneck, (3, 32, 32), 10)
+
+
+def build_image_cvc(fluid):
+    """Phase 9c's program: `resnet8_bottleneck` in fp32 under
+    Adam(IMAGE_LR)."""
+    return build_image(fluid, "resnet8_bottleneck")
+
+
+def image_card_vs_cpu_phase(torch, fluid, program,
+                            devices=("cuda:0", "cpu")):
+    """Phase 9c: IMAGE_CVC's Adam steps on cuda:0 and on the CPU, each
+    from the same state: the startup's weights, and before each later
+    step the CPU's whole state (parameters, moments, beta powers, moving
+    statistics) set on the card. Why: Adam's first step moves an element
+    by the rate whatever its grad, so where a grad is rounding noise the
+    devices' weights part by up to twice the rate, and a second step's
+    grads from weights so far apart differ past any fp32 limit. The
+    CPU's relus take the card's branches, x * (x_card != 0): where a
+    pre-activation lies within fp32's rounding of 0 the two devices may
+    put it on either side, and one such element moves a weight grad that
+    is a cancelling sum by up to 18% of its largest (one element in 4 of
+    16 init draws; PERF.md §6); how many elements the CPU would have put
+    on the other side is read. Each step is held to fp32's STEP_TOL: its
+    loss to loss_rtol, every grad to grad_rtol of the tensor's largest
+    plus the floor, every moving statistic after it to loss_rtol of the
+    tensor's largest, and every parameter after it within 2 ulps plus
+    what grads that far apart let Adam move it (``adam_param_limit``). A
+    skipped step-1 update must fail the parameter check on most
+    parameters. `devices` is (card, reference); the tests pass two CPUs
+    and plant faults in the first."""
+    from paddle_tpu_torch.ops import registry
+
+    main, startup, loss, _ = program
+    tol = STEP_TOL["float32"]
+    rel, bits = tol["grad_rtol"], tol["mantissa_bits"]
+    params = sorted(main.param_grad_map)
+    stats = moving_stats(main)
+    fetch = [loss] + [main.param_grad_map[p] for p in params]
+    exe_c, exe_h = fluid.Executor(devices[0]), fluid.Executor(devices[1])
+    scope_c, scope_h = fluid.Scope(), fluid.Scope()
+    exe_c.run(startup, scope=scope_c)
+    state = [n for n in scope_c.local_var_names() if n != "__step_counter__"]
+    for n in state:
+        scope_h.set(n, scope_c.get(n).to("cpu", copy=True))
+    worst = {k: (0.0, "") for k in ("loss", "grad", "stat", "param")}
+    g_ref = {p: [] for p in params}
+    worst_skip, skip_caught = -np.inf, 0
+    relu = registry.get("relu")
+    relu_impl, branches, crossed = relu.impl, [], [0]
+
+    def record(ctx, ins, attrs):
+        out = relu_impl(ctx, ins, attrs)
+        branches.append(out["Out"][0].detach() != 0)
+        return out
+
+    def replay(ctx, ins, attrs):
+        x, card = ins["X"][0], branches.pop(0).to(exe_h.device)
+        crossed[0] += int(((x.detach() > 0) != card).sum())
+        return {"Out": [x * card.to(x.dtype)]}
+
+    t0 = time.perf_counter()
+    for step in range(IMAGE_CVC["steps"]):
+        if step:
+            for n in state:
+                scope_c.set(n, scope_h.get(n).to(exe_c.device, copy=True))
+        start = {p: scope_h.get(p).float().numpy().copy() for p in params}
+        outs = []
+        try:
+            for exe, scope, impl in ((exe_c, scope_c, record),
+                                     (exe_h, scope_h, replay)):
+                relu.impl = impl
+                outs.append(exe.run(main, feed=image_feed(
+                    torch, (3, 32, 32), 10, IMAGE_CVC["batch"], exe.device),
+                    fetch_list=fetch, scope=scope))
+        finally:
+            relu.impl = relu_impl
+        c, h = outs
+        tag = "@%d" % (step + 1)
+        worst["loss"] = max(worst["loss"], (abs(float(c[0][0]) - float(
+            h[0][0])) / abs(float(h[0][0])), "loss" + tag))
+        floor = tol["floor_rel"] * max(float(np.abs(g).max())
+                                       for g in h[1:])
+        for p, gc_, gh in zip(params, c[1:], h[1:]):
+            lim = rel * float(np.abs(gh).max()) + floor
+            worst["grad"] = max(worst["grad"], (
+                float(np.abs(gc_ - gh).max()) / lim, p + tag))
+            g_ref[p].append(gh)
+            # the earlier steps' grads are the same on both: one state
+            g_err = [np.zeros_like(gh)] * step + [np.full_like(gh, lim)]
+            pc = scope_c.get(p).float().cpu().numpy()
+            ph = scope_h.get(p).float().numpy()
+            mag = np.maximum(np.maximum(np.abs(pc), np.abs(ph)),
+                             np.abs(start[p]))
+            p_lim = adam_param_limit(g_ref[p], g_err,
+                                     [IMAGE_LR] * (step + 1), 0.9, 0.999) \
+                + 2 * ulp(mag, bits)
+            worst["param"] = max(worst["param"], (
+                float((np.abs(pc - ph) / p_lim).max()), p + tag))
+            if step == 0:
+                skipped = float((np.abs(start[p] - ph) / p_lim).max())
+                worst_skip = max(worst_skip, skipped)
+                skip_caught += skipped > 1
+        for n in stats:
+            hs = scope_h.get(n).float().numpy()
+            worst["stat"] = max(worst["stat"], (float(np.abs(
+                scope_c.get(n).float().cpu().numpy() - hs).max()) / (
+                    tol["loss_rtol"] * float(np.abs(hs).max())), n + tag))
+    seconds = time.perf_counter() - t0
+    report = {
+        "dtype": "float32", "model": "cifar ResNet-8 + a bottleneck stage",
+        "batch": IMAGE_CVC["batch"], "steps": IMAGE_CVC["steps"],
+        "params": len(params), "moving_stats": len(stats),
+        "matmul_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "cudnn_tf32": torch.backends.cudnn.allow_tf32,
+        "loss_rel_err": worst["loss"][0], "loss_limit": tol["loss_rtol"],
+        "grad_rtol": rel,
+        "worst_grad_err_over_limit": worst["grad"][0],
+        "worst_grad": worst["grad"][1],
+        "worst_stat_err_over_limit": worst["stat"][0],
+        "worst_stat": worst["stat"][1],
+        "worst_param_err_over_limit": worst["param"][0],
+        "worst_param": worst["param"][1],
+        "skipped_update_worst_reading": worst_skip,
+        "skipped_update_fails_params": skip_caught,
+        "relu_elements_the_cpu_would_cross": crossed[0],
+        "seconds": seconds}
+    print("card_vs_cpu_image " + json.dumps(report), flush=True)
+    if worst["loss"][0] > tol["loss_rtol"]:
+        fail("card vs CPU image: the %s differs by %.3g (rel > %g)"
+             % (worst["loss"][1], worst["loss"][0], tol["loss_rtol"]))
+    for k, what in (("grad", "the grad of"), ("stat", "the moving statistic"),
+                    ("param", "the parameter")):
+        if worst[k][0] > 1:
+            fail("card vs CPU image: %s %s differs by %.3g of its limit"
+                 % (what, worst[k][1], worst[k][0]))
+    if 2 * skip_caught < len(params):
+        fail("card vs CPU image: a skipped update would pass the parameter "
+             "check on %d of %d parameters"
+             % (len(params) - skip_caught, len(params)))
+
+
 def main():
     try:
         import torch
@@ -3975,6 +4488,18 @@ def main():
     for row in int8_rows:
         row["launches"] = int8_launches.get(tuple(row["mkn"]), 0)
     int8_card_vs_cpu_phase(torch, fluid, im_mod, program)
+    del program
+    t9 = time.perf_counter()
+    before = kernel_launch_totals(fa_mod, pa_mod, pat_mod, im_mod)
+    image_phase(torch, fluid)
+    image_card_vs_cpu_phase(torch, fluid, build_image_cvc(fluid))
+    after = kernel_launch_totals(fa_mod, pa_mod, pat_mod, im_mod)
+    print("image_phase " + json.dumps({
+        "seconds": time.perf_counter() - t9, "launches_before": before,
+        "launches_after": after}), flush=True)
+    if after != before:
+        fail("phase 9 launched a hand-written kernel: %r -> %r"
+             % (before, after))
     kernels = rows + tree_rows + list(flash_rows.values()) + int8_rows
     idle = [(r["name"], r.get("C"), r.get("shape")) for r in kernels
             if not r.get("launches")]

@@ -23,7 +23,13 @@ and control flow (``While``, ``cond``, ``Switch``, ``IfElse``,
 ``StaticRNN``, ``DynamicRNN``, tensor arrays) with what is built on it
 (``piecewise_decay``, ``ExponentialMovingAverage``,
 ``GradientMergeOptimizer``, ``ModelAverage`` and
-``transformer_fluid.build_stacked``):
+``transformer_fluid.build_stacked``), and image classification
+(``conv2d`` and ``depthwise_conv2d``: fp32 as GEMMs over the unfolded
+input, bf16 on cuDNN; ``pool2d``, ``batch_norm``
+with its moving statistics, ``cross_entropy``, ``top_k`` and
+``accuracy``; ``nets.simple_img_conv_pool`` and ``nets.img_conv_group``;
+the builders ``models.mnist``, ``models.resnet``, ``models.vgg`` and
+``models.se_resnext``):
 
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import transformer_fluid

@@ -1,11 +1,15 @@
 """NN layers (parity: the JAX package's ``layers/nn.py``): the layers the
-Fluid-API Transformer LM, its dropout path, the gradient clips and the
-learning-rate schedules are built from. Each appends ops to the current
-block through LayerHelper, exactly as the JAX package's layers do."""
+Fluid-API Transformer LM, its dropout path, the gradient clips, the
+learning-rate schedules and the image classifiers (conv2d, pool2d,
+batch_norm, cross_entropy) are built from. Each appends ops to the
+current block through LayerHelper, exactly as the JAX package's layers
+do."""
 
 import numpy as np
 
+from ..initializer import Constant, Normal
 from ..layer_helper import LayerHelper
+from ..param_attr import ParamAttr
 
 _ACTIVATIONS = (
     "relu", "relu6", "sigmoid", "logsigmoid", "tanh", "tanh_shrink",
@@ -27,7 +31,8 @@ __all__ = [
     "reduce_sum", "reduce_mean", "reduce_max", "reduce_min", "reduce_prod",
     "matmul", "mul", "softmax", "dropout",
     "transpose", "split", "clip", "clip_by_norm", "pow", "sign",
-    "mean", "square_error_cost",
+    "mean", "square_error_cost", "conv2d", "pool2d", "batch_norm",
+    "cross_entropy",
 ] + list(_ACTIVATIONS + _ELEMENTWISE + _COMPARE + _LOGICAL)
 
 
@@ -99,8 +104,6 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
                name=None):
-    from ..initializer import Constant
-
     helper = LayerHelper("layer_norm", **locals())
     dtype = input.dtype
     feat = [int(np.prod(input.shape[begin_norm_axis:]))]
@@ -541,3 +544,146 @@ def split(input, num_or_sections, dim=-1, name=None):
         s[dim] = sz
         o.shape = tuple(s)
     return outs
+
+
+# ---------------------------------------------------------------------------
+# the image classifiers' layers: conv2d, pool2d, batch_norm, cross_entropy
+# ---------------------------------------------------------------------------
+
+
+def _pair(v, n=2):
+    if isinstance(v, (list, tuple)):
+        return list(v)
+    return [v] * n
+
+
+def _conv_out_dim(d, k, pad, stride, dilation=1):
+    if d == -1:
+        return -1
+    ke = dilation * (k - 1) + 1
+    return (d + 2 * pad - ke) // stride + 1
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None):
+    """NCHW convolution, filter [num_filters, C_in / groups, kh, kw] drawn
+    from Normal(0, sqrt(2 / (kh kw C_in))), then bias and activation."""
+    helper = LayerHelper("conv2d", **locals())
+    dtype = input.dtype
+    groups = groups or 1
+    c_in = input.shape[1]
+    fsize = _pair(filter_size)
+    stride = _pair(stride)
+    padding = _pair(padding)
+    dilation = _pair(dilation)
+    filter_shape = [num_filters, c_in // groups] + fsize
+    std = (2.0 / (fsize[0] * fsize[1] * c_in)) ** 0.5
+    w = helper.create_parameter(
+        attr=helper.param_attr, shape=filter_shape, dtype=dtype,
+        default_initializer=Normal(0.0, std))
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="conv2d", inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [out]},
+        attrs={"strides": stride, "paddings": padding, "dilations": dilation,
+               "groups": groups})
+    if input.shape is not None:
+        n, _, h, wd = input.shape
+        out.shape = (
+            n, num_filters,
+            _conv_out_dim(h, fsize[0], padding[0], stride[0], dilation[0]),
+            _conv_out_dim(wd, fsize[1], padding[1], stride[1], dilation[1]))
+    pre_act = helper.append_bias_op(out, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True):
+    """Max or average pool over NCHW. The declared shape honours
+    `ceil_mode`; the op does not read it (the JAX op's semantics)."""
+    helper = LayerHelper("pool2d", **locals())
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    pool_size = _pair(pool_size)
+    pool_stride = _pair(pool_stride)
+    pool_padding = _pair(pool_padding)
+    helper.append_op(
+        type="pool2d", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"pooling_type": pool_type, "ksize": pool_size,
+               "strides": pool_stride, "paddings": pool_padding,
+               "global_pooling": global_pooling, "ceil_mode": ceil_mode,
+               "exclusive": exclusive})
+    if input.shape is not None:
+        n, c, h, w = input.shape
+        if global_pooling:
+            out.shape = (n, c, 1, 1)
+        else:
+            def od(d, k, p, s):
+                if d == -1:
+                    return -1
+                if ceil_mode:
+                    return (d - k + 2 * p + s - 1) // s + 1
+                return (d - k + 2 * p) // s + 1
+
+            out.shape = (n, c,
+                         od(h, pool_size[0], pool_padding[0], pool_stride[0]),
+                         od(w, pool_size[1], pool_padding[1], pool_stride[1]))
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None, do_model_average_for_mean_and_var=False,
+               fuse_with_relu=False, use_global_stats=False):
+    """Batch norm with a scale, a shift and the moving mean and variance
+    (persistable, not trainable), which the op reads as Mean / Variance
+    and writes back as MeanOut / VarianceOut: one variable each."""
+    helper = LayerHelper("batch_norm", **locals())
+    dtype = input.dtype
+    ch = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    scale = helper.create_parameter(attr=helper.param_attr, shape=[ch],
+                                    dtype=dtype,
+                                    default_initializer=Constant(1.0))
+    bias = helper.create_parameter(attr=helper.bias_attr, shape=[ch],
+                                   dtype=dtype, is_bias=True)
+    mean = helper.create_parameter(
+        attr=ParamAttr(name=moving_mean_name, initializer=Constant(0.0),
+                       trainable=False),
+        shape=[ch], dtype=dtype)
+    variance = helper.create_parameter(
+        attr=ParamAttr(name=moving_variance_name, initializer=Constant(1.0),
+                       trainable=False),
+        shape=[ch], dtype=dtype)
+    mean.stop_gradient = True
+    variance.stop_gradient = True
+    out = helper.create_variable_for_type_inference(dtype)
+    saved_mean = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                "Mean": [mean], "Variance": [variance]},
+        outputs={"Y": [out], "MeanOut": [mean], "VarianceOut": [variance],
+                 "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "data_layout": data_layout,
+               "use_global_stats": use_global_stats})
+    out.shape = input.shape
+    return helper.append_activation(out)
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    """-log of the label's probability, [..., 1]."""
+    helper = LayerHelper("cross_entropy", **locals())
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        type="cross_entropy", inputs={"X": [input], "Label": [label]},
+        outputs={"Y": [out]},
+        attrs={"soft_label": soft_label, "ignore_index": ignore_index})
+    if input.shape is not None:
+        out.shape = tuple(input.shape[:-1]) + (1,)
+    return out

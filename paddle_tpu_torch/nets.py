@@ -1,6 +1,7 @@
 """Composite layers (parity: the JAX package's ``nets.py``): the fused
-self-attention sublayer of the Fluid-API Transformer LM and
-`scaled_dot_product_attention` :74-131."""
+self-attention sublayer of the Fluid-API Transformer LM,
+`scaled_dot_product_attention` :74-131, and the image classifiers'
+`simple_img_conv_pool` :12 and `img_conv_group` :28."""
 
 import copy
 
@@ -10,7 +11,62 @@ from . import layers
 from .layer_helper import LayerHelper
 from .param_attr import ParamAttr
 
-__all__ = ["fused_multihead_attention", "scaled_dot_product_attention"]
+__all__ = ["fused_multihead_attention", "scaled_dot_product_attention",
+           "simple_img_conv_pool", "img_conv_group"]
+
+
+def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
+                         pool_stride, pool_padding=0, pool_type="max",
+                         global_pooling=False, conv_stride=1, conv_padding=0,
+                         conv_dilation=1, conv_groups=1, param_attr=None,
+                         bias_attr=None, act=None, use_cudnn=True):
+    """A conv2d, then a pool2d."""
+    conv_out = layers.conv2d(
+        input=input, num_filters=num_filters, filter_size=filter_size,
+        stride=conv_stride, padding=conv_padding, dilation=conv_dilation,
+        groups=conv_groups, param_attr=param_attr, bias_attr=bias_attr,
+        act=act)
+    return layers.pool2d(
+        input=conv_out, pool_size=pool_size, pool_type=pool_type,
+        pool_stride=pool_stride, pool_padding=pool_padding,
+        global_pooling=global_pooling)
+
+
+def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
+                   conv_filter_size=3, conv_act=None, param_attr=None,
+                   conv_with_batchnorm=False, conv_batchnorm_drop_rate=0.0,
+                   pool_stride=1, pool_type="max", use_cudnn=True):
+    """A stack of conv2d (each optionally followed by batch_norm and
+    dropout), then a pool2d; per-conv arguments are a value or a list."""
+    if not isinstance(conv_num_filter, (list, tuple)):
+        raise TypeError("img_conv_group: conv_num_filter must be a list "
+                        "of filter counts, one a conv2d")
+    tmp = input
+
+    def _expand(v):
+        return v if isinstance(v, (list, tuple)) else [v] * len(conv_num_filter)
+
+    conv_padding = _expand(conv_padding)
+    conv_filter_size = _expand(conv_filter_size)
+    param_attr = _expand(param_attr)
+    conv_with_batchnorm = _expand(conv_with_batchnorm)
+    conv_batchnorm_drop_rate = _expand(conv_batchnorm_drop_rate)
+
+    for i in range(len(conv_num_filter)):
+        local_conv_act = conv_act
+        if conv_with_batchnorm[i]:
+            local_conv_act = None
+        tmp = layers.conv2d(
+            input=tmp, num_filters=conv_num_filter[i],
+            filter_size=conv_filter_size[i], padding=conv_padding[i],
+            param_attr=param_attr[i], act=local_conv_act)
+        if conv_with_batchnorm[i]:
+            tmp = layers.batch_norm(input=tmp, act=conv_act)
+            drop_rate = conv_batchnorm_drop_rate[i]
+            if abs(drop_rate) > 1e-5:
+                tmp = layers.dropout(x=tmp, dropout_prob=drop_rate)
+    return layers.pool2d(input=tmp, pool_size=pool_size,
+                         pool_type=pool_type, pool_stride=pool_stride)
 
 
 def scaled_dot_product_attention(queries, keys, values, num_heads=1,

@@ -3,5 +3,6 @@ beside its plain PyTorch version. Importing this package registers the
 graph ops (``registry``) and builds nothing: a CUDA kernel is compiled
 at its first use on a CUDA device (``ops/_build.py``)."""
 
-from . import (activations, compat_ops, controlflow,  # noqa: F401
-               elementwise, math, nn_ops, optimizer_ops, quant_ops)
+from . import (activations, compat_ops, controlflow, conv,  # noqa: F401
+               elementwise, loss_ops, math, metric_ops, nn_ops,
+               optimizer_ops, quant_ops, reduce)

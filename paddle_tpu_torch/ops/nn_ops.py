@@ -1,8 +1,8 @@
 """Tensor and NN ops of the LM path (parity: the JAX package's
 ``ops/tensor_ops.py`` reshape2 :13 / transpose2 :96 / split :113 / slice
 :148, concat :108, ``ops/nn_ops.py`` softmax :20 / dropout :33 / lookup_table :53 /
-layer_norm :78 / add_position_encoding :275, and ``ops/loss_ops.py``
-softmax_with_cross_entropy :90)."""
+layer_norm :78 / batch_norm :106 / add_position_encoding :275, and
+``ops/loss_ops.py`` softmax_with_cross_entropy :90)."""
 
 import functools
 
@@ -122,6 +122,43 @@ def _layer_norm(ctx, ins, attrs):
     var = rstd.detach().pow(-2) - eps
     return {"Y": [y.to(x.dtype)], "Mean": [mean.detach().reshape(-1)],
             "Variance": [var.reshape(-1)]}
+
+
+@register("batch_norm", stateful=True)
+def _batch_norm(ctx, ins, attrs):
+    """The JAX op's formula in torch ops: batch statistics in fp32 over
+    every axis but the channel's (var = E[x^2] - E[x]^2, biased), moving
+    = in * momentum + batch * (1 - momentum), written outside autograd;
+    with `is_test` or `use_global_stats` the moving statistics normalize
+    and pass through unmoved. Y in x's dtype. MeanOut / VarianceOut are
+    the moving statistics, SavedMean / SavedVariance the ones used. A
+    float64 x, which the JAX package cannot run, keeps float64 statistics
+    (the tests' rounding oracle)."""
+    x = ins["X"][0]
+    scale, bias = ins["Scale"][0], ins["Bias"][0]
+    mean_in, var_in = ins["Mean"][0], ins["Variance"][0]
+    eps = attrs.get("epsilon", 1e-5)
+    momentum = attrs.get("momentum", 0.9)
+    use_global = attrs.get("use_global_stats", False) \
+        or attrs.get("is_test", False)
+    ch_axis = 1 if attrs.get("data_layout", "NCHW") == "NCHW" else x.ndim - 1
+    axes = [i for i in range(x.ndim) if i != ch_axis]
+    bshape = [x.shape[ch_axis] if i == ch_axis else 1 for i in range(x.ndim)]
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    if use_global:
+        mean, var = mean_in, var_in
+        mean_out, var_out = mean_in, var_in
+    else:
+        mean = xf.mean(axes)
+        var = (xf * xf).mean(axes) - mean * mean
+        with torch.no_grad():
+            mean_out = mean_in * momentum + mean * (1.0 - momentum)
+            var_out = var_in * momentum + var * (1.0 - momentum)
+    y = (xf - mean.reshape(bshape)) * torch.rsqrt(var.reshape(bshape) + eps)
+    y = y * scale.reshape(bshape) + bias.reshape(bshape)
+    return {"Y": [y.to(x.dtype)], "MeanOut": [mean_out],
+            "VarianceOut": [var_out], "SavedMean": [mean],
+            "SavedVariance": [var]}
 
 
 @functools.lru_cache(maxsize=8)

@@ -25,22 +25,9 @@ from paddle_tpu_torch.models import transformer_fluid as p_tf
 from paddle_tpu_torch.ops import registry as p_registry
 
 from test_torch_train import CFG, bf16_ulp, feed
-
-
-@pytest.fixture(autouse=True)
-def _pin_jax_init_draw():
-    """The JAX startup program draws from its init counters at 0 (the
-    draw the train parity bounds were set at) and leaves them as it
-    found them."""
-    from paddle_tpu import initializer, layer_helper
-
-    saved = (initializer._global_seed_counter[0],
-             layer_helper._op_seed_counter[0])
-    initializer._global_seed_counter[0] = 0
-    layer_helper._op_seed_counter[0] = 0
-    yield
-    (initializer._global_seed_counter[0],
-     layer_helper._op_seed_counter[0]) = saved
+from torch_parity import carry_scope
+from torch_parity import (  # noqa: F401 (the autouse fixture)
+    pin_jax_init_draw as _pin_jax_init_draw)
 
 
 def test_update_loss_scaling_is_bitwise_the_jax_op():
@@ -138,8 +125,7 @@ def sgd_steps_match_jax(dtype, make_opt, steps=2, low="bfloat16",
                    if v.persistable)
     assert names == sorted(v.name for v in pm.global_block().vars.values()
                            if v.persistable)
-    start = {n: np.array(jscope.get(n), copy=True) for n in names}
-    scope_from_numpy(pscope, start)
+    start = carry_scope(jscope, pscope, names)
     batch = feed()
     for step in range(steps):
         if before_step is not None:

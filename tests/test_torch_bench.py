@@ -26,6 +26,8 @@ import paddle_tpu_torch as pfluid
 from paddle_tpu_torch import bench as pbench
 from paddle_tpu_torch import unique_name as p_unique
 from paddle_tpu_torch.io import scope_from_numpy
+from torch_parity import (  # noqa: F401 (the autouse fixture)
+    pin_jax_init_draw as _pin_jax_init_draw)
 
 LEGS = {
     "async": dict(async_exec=True),
@@ -39,21 +41,6 @@ LEGS = {
 # fp32 sums in another order (the train parity test's 1e-5); bf16 and
 # fp16 round at other places in the two packages (its bf16 1e-3)
 RTOL = {"fp32": 1e-5}
-
-
-@pytest.fixture(autouse=True)
-def _pin_jax_init_draw():
-    """The JAX startup program draws from its init counters at 0, as the
-    train parity test does, and leaves them as it found them."""
-    from paddle_tpu import initializer, layer_helper
-
-    saved = (initializer._global_seed_counter[0],
-             layer_helper._op_seed_counter[0])
-    initializer._global_seed_counter[0] = 0
-    layer_helper._op_seed_counter[0] = 0
-    yield
-    (initializer._global_seed_counter[0],
-     layer_helper._op_seed_counter[0]) = saved
 
 
 def _run_jax(monkeypatch, leg, kw):

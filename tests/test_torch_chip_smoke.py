@@ -21,6 +21,16 @@ a small width:
     a replay that drops layer 0's stacked-weight grads, a Switch that
     takes the wrong case and a merge that updates on every run, each
     planted in the first run;
+  * phase 9 (image classification) on CPU executors: its fp32 and amp
+    legs (cifar ResNet-8 plus a bottleneck stage, batch 4) pass their
+    gates, and the gates fail a loss that does not fall, a moving
+    statistic that never moved and a test clone that moved one; 9b's
+    step runs the mnist builders; its card-vs-CPU check (two Adam steps
+    of the same program) passes when the runs agree and fails each fault
+    planted in the first run — the moving statistics' update skipped,
+    the moving variance from the unbiased batch variance (cuDNN's
+    running statistic), a TF32 convolution (both operands rounded to 10
+    mantissa bits);
   * the int8 card-vs-CPU check with two CPU executors (the same width,
     fp32, full-int8): it passes when the two runs agree, reads the
     bound for a 1% act-scale fault, and fails on such a fault planted
@@ -116,16 +126,16 @@ FAULTS = {"skip_sgd": ("sgd", _skip_sgd),
           "dq_1pct": ("flash_attention", _dq_one_percent)}
 
 
-def _plant(monkeypatch, smoke, op, wrong):
+def _plant(monkeypatch, smoke, op, wrong, feed="lm_feed"):
     """Run `wrong` in place of op `op` while the first executor runs:
-    the phases make the first executor's feed before its run and the
-    second's after it."""
+    the phases make the first executor's feed (`feed`, the phase's feed
+    function) before its run and the second's after it."""
     feeds = []
-    make_feed = smoke.lm_feed
+    make_feed = getattr(smoke, feed)
 
-    def lm_feed(torch_, batch, device):
-        feeds.append(device)
-        return make_feed(torch_, batch, device)
+    def counted(*args, **kw):
+        feeds.append(args[-1])
+        return make_feed(*args, **kw)
 
     opdef = registry.get(op)
     impl = opdef.impl
@@ -135,7 +145,7 @@ def _plant(monkeypatch, smoke, op, wrong):
             return wrong(impl, ctx, ins, attrs)
         return impl(ctx, ins, attrs)
 
-    monkeypatch.setattr(smoke, "lm_feed", lm_feed)
+    monkeypatch.setattr(smoke, feed, counted)
     monkeypatch.setattr(opdef, "impl", planted)
 
 
@@ -765,3 +775,123 @@ def test_stacked_card_vs_cpu_catches_a_planted_fault(smoke, fault,
         assert line["lr_max_rel_err"] > 0.1
     else:
         assert line["moved_on_a_merge_only_run"] > 0
+
+
+# ---------------------------------------------------------------------------
+# phase 9: image classification on CPU executors, and its card-vs-CPU
+# check with planted faults
+# ---------------------------------------------------------------------------
+
+
+def test_image_legs_pass_their_gates_on_the_cpu(smoke):
+    """The fp32 and amp legs of 9a's recipe on the small ResNet at batch
+    4: the loss falls, every moving statistic moves, the test clone
+    leaves them; the gates fail a loss that does not fall, a statistic
+    left at its start and a clone that moved one."""
+    for amp in (False, True):
+        leg = smoke.image_leg(torch, fluid, "resnet8_bottleneck", amp, 4,
+                              steps=(1, 3), device="cpu")
+        smoke.check_image_leg(leg)
+        assert leg["batch_norms"] == 13 and leg["params"] == 41
+    for wrong in (dict(losses=leg["losses"][::-1]),
+                  dict(stats_unmoved=["batch_norm_0.w_1"]),
+                  dict(test_clone_moved=["batch_norm_0.w_2"]),
+                  dict(test_loss=float("nan"))):
+        with pytest.raises(SystemExit):
+            smoke.check_image_leg(dict(leg, **wrong))
+
+
+def test_image_builders_phase_on_the_cpu(smoke):
+    rows = smoke.image_builders_phase(
+        torch, fluid, builders=(("mnist_mlp", 4), ("mnist_cnn", 4)),
+        device="cpu")
+    assert [r["builder"] for r in rows] == ["mnist_mlp", "mnist_cnn"]
+    assert all(np.isfinite(r["loss"]) for r in rows)
+
+
+def test_image_card_vs_cpu_passes_when_the_runs_agree(smoke, capsys):
+    smoke.image_card_vs_cpu_phase(torch, fluid, smoke.build_image_cvc(fluid),
+                                  devices=("cpu", "cpu"))
+    line = [json.loads(x.split(" ", 1)[1])
+            for x in capsys.readouterr().out.splitlines()
+            if x.startswith("card_vs_cpu_image ")][0]
+    assert line["moving_stats"] == 26 and line["params"] == 41
+    assert 2 * line["skipped_update_fails_params"] >= line["params"]
+
+
+def _flip_the_closest_relu(impl, ctx, ins, attrs):
+    """The relu that puts the element nearest 0 of each call on the other
+    side: what fp32 rounding does to a pre-activation within it of 0."""
+    x = ins["X"][0]
+    keep = (x > 0).flatten()
+    i = int(x.detach().abs().flatten().argmin())
+    keep[i] = ~keep[i]
+    return {"Out": [x * keep.reshape(x.shape).to(x.dtype)]}
+
+
+def test_image_card_vs_cpu_follows_the_cards_relu_branches(smoke, monkeypatch,
+                                                            capsys):
+    """The CPU takes each relu branch the card took: a card that puts the
+    element nearest 0 of every relu on the other side passes, and the
+    phase reads each such element."""
+    program = smoke.build_image_cvc(fluid)
+    _plant(monkeypatch, smoke, "relu", _flip_the_closest_relu,
+           feed="image_feed")
+    smoke.image_card_vs_cpu_phase(torch, fluid, program,
+                                  devices=("cpu", "cpu"))
+    line = [json.loads(x.split(" ", 1)[1])
+            for x in capsys.readouterr().out.splitlines()
+            if x.startswith("card_vs_cpu_image ")][0]
+    assert line["relu_elements_the_cpu_would_cross"] == 10
+
+
+def _skip_moving_stats(impl, ctx, ins, attrs):
+    out = impl(ctx, ins, attrs)
+    return dict(out, MeanOut=ins["Mean"], VarianceOut=ins["Variance"])
+
+
+def _unbiased_moving_variance(impl, ctx, ins, attrs):
+    """The moving variance from the unbiased batch variance, as cuDNN's
+    running statistic is formed."""
+    out = impl(ctx, ins, attrs)
+    x, m = ins["X"][0], attrs.get("momentum", 0.9)
+    n = x.numel() // x.shape[1]
+    var = out["SavedVariance"][0].detach() * (n / (n - 1))
+    return dict(out, VarianceOut=[ins["Variance"][0] * m + var * (1 - m)])
+
+
+def _tf32(t):
+    """t rounded to TF32 (10 stored mantissa bits, to nearest), its grad
+    passed straight through."""
+    bits = t.detach().contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return t + (rounded - t).detach()
+
+
+def _tf32_conv(impl, ctx, ins, attrs):
+    return impl(ctx, dict(ins, Input=[_tf32(ins["Input"][0])],
+                          Filter=[_tf32(ins["Filter"][0])]), attrs)
+
+
+IMAGE_FAULTS = {"skip_moving_stats": ("batch_norm", _skip_moving_stats),
+                "unbiased_moving_variance": ("batch_norm",
+                                             _unbiased_moving_variance),
+                "tf32_conv": ("conv2d", _tf32_conv)}
+
+
+@pytest.mark.parametrize("fault", sorted(IMAGE_FAULTS))
+def test_image_card_vs_cpu_catches_a_planted_fault(smoke, fault,
+                                                   monkeypatch, capsys):
+    program = smoke.build_image_cvc(fluid)
+    _plant(monkeypatch, smoke, *IMAGE_FAULTS[fault], feed="image_feed")
+    with pytest.raises(SystemExit):
+        smoke.image_card_vs_cpu_phase(torch, fluid, program,
+                                      devices=("cpu", "cpu"))
+    out = capsys.readouterr()
+    assert "card vs CPU image" in out.err
+    line = [json.loads(x.split(" ", 1)[1]) for x in out.out.splitlines()
+            if x.startswith("card_vs_cpu_image ")][0]
+    if fault != "tf32_conv":   # the statistics check sees it
+        assert line["worst_stat_err_over_limit"] > 1
+    else:
+        assert line["loss_rel_err"] > line["loss_limit"]

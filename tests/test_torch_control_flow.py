@@ -34,6 +34,8 @@ import paddle_tpu_torch as pfluid
 from paddle_tpu_torch import unique_name as p_unique
 from paddle_tpu_torch.io import scope_from_numpy
 from paddle_tpu_torch.ops import controlflow as p_cf
+from torch_parity import (  # noqa: F401 (the autouse fixture)
+    pin_jax_init_draw as _pin_jax_init_draw)
 
 
 class _Run:
@@ -90,21 +92,6 @@ def _same(got, want, rtol=0.0):
                 g, w, rtol=rtol, atol=rtol * float(np.abs(w).max()))
         else:
             np.testing.assert_array_equal(g, w.astype(g.dtype))
-
-
-@pytest.fixture(autouse=True)
-def _pin_jax_init_draw():
-    """Start the JAX package's process-wide init counters at 0 (a fresh
-    process's draw) and restore them after."""
-    from paddle_tpu import initializer, layer_helper
-
-    saved = (initializer._global_seed_counter[0],
-             layer_helper._op_seed_counter[0])
-    initializer._global_seed_counter[0] = 0
-    layer_helper._op_seed_counter[0] = 0
-    yield
-    (initializer._global_seed_counter[0],
-     layer_helper._op_seed_counter[0]) = saved
 
 
 def test_while_loop_sums():

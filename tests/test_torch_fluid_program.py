@@ -15,11 +15,11 @@ from paddle_tpu.models import transformer_fluid as j_tf
 import paddle_tpu_torch as pfluid
 from paddle_tpu_torch import unique_name as p_unique
 from paddle_tpu_torch.models import transformer_fluid as p_tf
+from torch_parity import program_ops as _ops
+from torch_parity import program_vars as _vars
 
 CFG = dict(vocab_size=96, d_model=64, n_heads=2, n_layers=2, d_ff=128,
            seq_len=128, head_chunk=64)
-# counters shared by every program a process builds
-_SEED_ATTRS = {"__op_seed__"}
 
 
 def _build(fluid, tf, unique_name, dtype, amp):
@@ -32,33 +32,6 @@ def _build(fluid, tf, unique_name, dtype, amp):
                 opt, init_loss_scaling=1.0, use_dynamic_loss_scaling=False)
         opt.minimize(loss)
     return main, startup
-
-
-def _attrs(op):
-    out = {}
-    for k, v in op.attrs.items():
-        if k in _SEED_ATTRS:
-            continue
-        if k == "__fwd_op__":  # the forward op, by its place in the block
-            v = ("op", v.block.ops.index(v), v.type)
-        out[k] = v
-    return out
-
-
-def _ops(program):
-    return [(op.type,
-             {s: [v.name for v in vs] for s, vs in op.inputs.items()},
-             {s: [v.name for v in vs] for s, vs in op.outputs.items()},
-             _attrs(op))
-            for op in program.global_block().ops]
-
-
-def _vars(program):
-    return {v.name: (v.shape, v.dtype, v.persistable, v.stop_gradient,
-                     type(v).__name__,
-                     getattr(v, "trainable", None),
-                     getattr(v, "shard_spec", None))
-            for v in program.global_block().vars.values()}
 
 
 @pytest.mark.parametrize("dtype,amp", [("float32", False),

@@ -815,3 +815,47 @@ def test_int8_matmul_wrapper_checks_on_card():
         im.int8_matmul(torch.zeros(1, 1 << 17, device=dev),
                        torch.zeros(1 << 17, 1, dtype=torch.int8, device=dev),
                        torch.ones(1, device=dev), 1.0)
+
+
+# ---------------------------------------------------------------------------
+# on the card: an fp32 convolution is full fp32 whatever the TF32 switch
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_fp32_conv_ignores_the_tf32_switch_on_the_card():
+    """The conv op's output and grads are bitwise the same with TF32 on
+    and off (``torch.backends.cudnn.allow_tf32`` and
+    ``torch.backends.cuda.matmul.allow_tf32``), forward and backward, and
+    the switches are left as they were."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the TF32 switches are the card's")
+    from paddle_tpu_torch.core.lowering import LoweringContext
+    from paddle_tpu_torch.ops import registry
+
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(rng.randn(8, 64, 28, 28).astype(np.float32)).cuda()
+    w = torch.from_numpy(
+        rng.randn(128, 64, 3, 3).astype(np.float32) * 0.05).cuda()
+    g = torch.from_numpy(rng.randn(8, 128, 28, 28).astype(np.float32)).cuda()
+    impl = registry.get("conv2d").impl
+    attrs = {"strides": [1, 1], "paddings": [1, 1], "dilations": [1, 1],
+             "groups": 1}
+    switches = (torch.backends.cudnn, torch.backends.cuda.matmul)
+    saved = [m.allow_tf32 for m in switches]
+    results = []
+    try:
+        for tf32 in (True, False):
+            for m in switches:
+                m.allow_tf32 = tf32
+            xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+            out = impl(LoweringContext(x.device),
+                       {"Input": [xl], "Filter": [wl]}, attrs)["Output"][0]
+            results.append([out.detach()] + list(
+                torch.autograd.grad(out, [xl, wl], g)))
+            assert all(m.allow_tf32 is tf32 for m in switches)
+    finally:
+        for m, v in zip(switches, saved):
+            m.allow_tf32 = v
+    for a, b in zip(*results):
+        assert torch.equal(a, b)

@@ -52,27 +52,13 @@ from paddle_tpu_torch.executor import _Step
 from paddle_tpu_torch.io import scope_from_numpy
 from paddle_tpu_torch.models import transformer_fluid as p_tf
 from paddle_tpu_torch.observability import metrics as p_metrics
+from torch_parity import (  # noqa: F401 (the autouse fixture)
+    pin_jax_init_draw as _pin_jax_init_draw)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CFG = dict(vocab_size=256, d_model=64, n_heads=1, n_layers=2, d_ff=128,
            seq_len=128)
 BETA1, BETA2 = 0.9, 0.98
-
-
-@pytest.fixture(autouse=True)
-def _pin_jax_init_draw():
-    """The JAX startup program draws the weights from process-wide
-    counters, which earlier JAX tests in a process move: start them at 0
-    (the draw of a fresh process), and restore them after."""
-    from paddle_tpu import initializer, layer_helper
-
-    saved = (initializer._global_seed_counter[0],
-             layer_helper._op_seed_counter[0])
-    initializer._global_seed_counter[0] = 0
-    layer_helper._op_seed_counter[0] = 0
-    yield
-    (initializer._global_seed_counter[0],
-     layer_helper._op_seed_counter[0]) = saved
 
 
 def _smoke():

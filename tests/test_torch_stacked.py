@@ -57,26 +57,14 @@ from paddle_tpu_torch.executor import _Step
 from paddle_tpu_torch.io import scope_from_numpy
 from paddle_tpu_torch.models import transformer_fluid as p_tf
 from paddle_tpu_torch.ops import registry as p_registry
+from torch_parity import carry_scope
+from torch_parity import (  # noqa: F401 (the autouse fixture)
+    pin_jax_init_draw as _pin_jax_init_draw)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CFG = dict(vocab_size=256, d_model=64, n_heads=1, n_layers=2, d_ff=128,
            seq_len=128)
 BETA1, BETA2 = 0.9, 0.999
-
-
-@pytest.fixture(autouse=True)
-def _pin_jax_init_draw():
-    """Start the JAX package's process-wide init counters at 0 (a fresh
-    process's draw) and restore them after."""
-    from paddle_tpu import initializer, layer_helper
-
-    saved = (initializer._global_seed_counter[0],
-             layer_helper._op_seed_counter[0])
-    initializer._global_seed_counter[0] = 0
-    layer_helper._op_seed_counter[0] = 0
-    yield
-    (initializer._global_seed_counter[0],
-     layer_helper._op_seed_counter[0]) = saved
 
 
 def _smoke():
@@ -122,8 +110,7 @@ def _pair(dtype="float32", amp=False):
     pexe.run(ps, scope=pscope)
     names = sorted(v.name for v in jm.global_block().vars.values()
                    if v.persistable)
-    start = {n: np.array(jscope.get(n), copy=True) for n in names}
-    scope_from_numpy(pscope, start)
+    start = carry_scope(jscope, pscope, names)
     return (jm, jl, jexe, jscope), (pm, pl, pexe, pscope), names, start
 
 

@@ -23,6 +23,10 @@ import paddle_tpu_torch as pfluid
 from paddle_tpu_torch import unique_name as p_unique
 from paddle_tpu_torch.io import scope_from_numpy
 from paddle_tpu_torch.models import transformer_fluid as p_tf
+from torch_parity import carry_scope
+from torch_parity import (  # noqa: F401 (the autouse fixture)
+    pin_jax_init_draw as _pin_jax_init_draw)
+from torch_parity import set_jax_init_counters as _set_jax_init_counters
 
 CFG = dict(vocab_size=256, d_model=128, n_heads=2, n_layers=2, d_ff=256,
            seq_len=128)
@@ -58,30 +62,6 @@ def fp32_ulp(x):
     """The spacing of fp32 numbers at |x| (24 significant bits)."""
     mag = np.maximum(np.abs(x), np.float32(2.0 ** -126))
     return np.exp2(np.floor(np.log2(mag)) - 23).astype(np.float32)
-
-
-def _set_jax_init_counters(value):
-    """Set the JAX package's session-global init counters, which pick
-    the initial weights its startup program draws."""
-    from paddle_tpu import initializer, layer_helper
-
-    initializer._global_seed_counter[0] = value
-    layer_helper._op_seed_counter[0] = value
-
-
-@pytest.fixture(autouse=True)
-def _pin_jax_init_draw():
-    """Every test here starts the JAX startup program from counters at 0,
-    whichever JAX test files ran before it in this process, and leaves
-    them as it found them (the contract of tests/test_quant.py)."""
-    from paddle_tpu import initializer, layer_helper
-
-    saved = (initializer._global_seed_counter[0],
-             layer_helper._op_seed_counter[0])
-    _set_jax_init_counters(0)
-    yield
-    (initializer._global_seed_counter[0],
-     layer_helper._op_seed_counter[0]) = saved
 
 
 CASES = [("float32", None), ("bfloat16", "static"), ("bfloat16", "scaled")]
@@ -126,8 +106,7 @@ def two_sgd_steps_match_jax(dtype, amp):
     assert set(names) == set(pscope.local_var_names()) - {
         "__step_counter__"}
     # copies: JAX donates (reuses) its state buffers on the next step
-    start = {n: np.array(jscope.get(n), copy=True) for n in names}
-    scope_from_numpy(pscope, start)
+    start = carry_scope(jscope, pscope, names)
     start = {n: a.astype(np.float32) for n, a in start.items()}
 
     batch = feed()
