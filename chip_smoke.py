@@ -290,6 +290,34 @@ Phases, each fatal on failure (exit code 1, no result line):
      moving-statistics update, the unbiased variance, a TF32
      convolution). Phase 9 launches none of K1-K4 (their counts read
      before and after it).
+  10. the inference predictor: a model saved by
+     ``io.save_inference_model`` (target: the softmax output) from a
+     scope whose batch norms moved (scales and shifts drawn from
+     RandomState(0), moving statistics the batch statistics of a
+     train-mode forward) and served by ``inference.AnalysisPredictor`` on
+     cuda:0 on a fixed batch staged on the card. 10a: ResNet-50
+     (ImageNet, 3x224x224) at batch 64 in four legs, 3 warm-up and 10
+     timed runs each — fp32 with ``switch_ir_optim(False)``, fp32 with
+     the load-time passes (conv_bn_fold, dropout_remove,
+     conv_elementwise_add_fuse), ``full_int8`` (calibrated on 4 batches:
+     the classifier on K4; every convolution carries a folded bias, so
+     stays weight-only or, fused with its residual, fp32) and
+     ``weight_only``. Fatal unless every output is finite, no batch_norm
+     is left after the passes, the folded output lies within
+     PREDICT_FOLD_ATOL of the unfolded one with the same top-1 but where
+     the top-2 margin is below it, K4 launched once a run in full_int8
+     and never in the other legs, and the classifier's output is bitwise
+     K4's plain version on its own input. One ``predictor`` line a leg
+     (images/s, ms and host ms a batch, peak GiB, launches a run and the
+     card's busy share in a profiled run; for full_int8 its top-1
+     agreement and max abs error against fp32 and the weight store's
+     bytes saved). 10b: the mnist cnn through a full_int8 predictor at
+     batch 128 (its convolutions on int8 operands, K4 at N=10) against
+     the same predictor on the CPU: the classifier bitwise on its own
+     input, the outputs within PREDICT_CARD_CPU_ATOL; the int8
+     convolutions' device ms a run. 10c: bench_quant_predictor through
+     the port's bench, bench.py's keys. Phase 10 launches none of K1-K3;
+     K4's rows at its five shapes are checked and timed.
 
 Then one JSON line ``{"kernels": [...]}`` (every kernel of every path,
 each with the launches of its path's run; a kernel launched no time there
@@ -3618,48 +3646,64 @@ def int8_kernel_phase(torch, im):
             x = h[:, :M // B]
         else:
             x = 1.5 * torch.randn(B, T, K, device="cuda")
-        _, w, dq, s = int8_inputs(torch, M, K, N, seed=200 + i, x=x)
-        got = int8_check(torch, im, x, w, dq, s, "%s M=%d K=%d N=%d"
-                         % (name, M, K, N))
-        x2 = x.reshape(M, K)
-        qa = torch.clamp(torch.round(x2 * float(np.float32(s))), -128,
-                         127).to(torch.int8)
-        w32 = w.float()
-        ms = time_ms(torch, lambda: im.int8_matmul(x, w, dq, s), flush)
-        plain_ms = time_ms(torch, lambda: im.int8_matmul_reference(
-            x, w, dq, s), flush, iters=5)
-        fp32_ms = time_ms(torch, lambda: torch.matmul(x2, w32), flush)
-        # library yardstick: the int8 product alone, int32 out
+        shape = "%s M=%d K=%d N=%d%s" % (
+            name, M, K, N, " (x a strided view)" if name == "lm_head" else "")
+        rows.append(int8_timed_row(torch, im, name, shape, x, (M, K, N),
+                                   200 + i, flush))
+        del x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def int8_timed_row(torch, im, name, shape, x, mkn, seed, flush):
+    """K4 at one path shape (x [.., K] on the card): checked bitwise
+    against its plain version, then kernel, plain version, the library
+    yardstick (torch._int_mm on pre-quantized operands, where it takes
+    the shape; else null) and the fp32 torch.matmul timed. Returns the
+    kernels line's row."""
+    M, K, N = mkn
+    _, w, dq, s = int8_inputs(torch, M, K, N, seed=seed, x=x)
+    got = int8_check(torch, im, x, w, dq, s, shape)
+    x2 = x.reshape(M, K)
+    qa = torch.clamp(torch.round(x2 * float(np.float32(s))), -128,
+                     127).to(torch.int8)
+    w32 = w.float()
+    ms = time_ms(torch, lambda: im.int8_matmul(x, w, dq, s), flush)
+    plain_ms = time_ms(torch, lambda: im.int8_matmul_reference(
+        x, w, dq, s), flush, iters=5)
+    fp32_ms = time_ms(torch, lambda: torch.matmul(x2, w32), flush)
+    # library yardstick: the int8 product alone, int32 out (cuBLASLt's
+    # int8 GEMM takes M > 16 and K, N multiples of 8)
+    library_ms = None
+    if M > 16 and K % 8 == 0 and N % 8 == 0:
         if not torch.equal((torch._int_mm(qa, w).float() * dq)
                            .view(torch.int32),
                            got.reshape(M, N).view(torch.int32)):
             fail("library yardstick torch._int_mm disagrees at %s" % name)
         library_ms = time_ms(torch, lambda: torch._int_mm(qa, w), flush)
-        nbytes = M * K * 4 + K * N + N * 4 + M * N * 4
-        t_bytes, t_ops = nbytes / H100_BYTES_PER_S, 2 * M * K * N / \
-            H100_INT8_OPS
-        bound_ms = max(t_bytes, t_ops) * 1e3
-        bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        shape = "%s M=%d K=%d N=%d%s" % (
-            name, M, K, N, " (x a strided view)" if name == "lm_head" else "")
-        print("kernel int8_matmul %s: bitwise, %.4f ms (plain %.4f ms, "
-              "library %.4f ms, fp32 matmul %.4f ms, bound %.4f ms by %s)"
-              % (shape, ms, plain_ms, library_ms, fp32_ms, bound_ms,
-                 bound_by), flush=True)
-        rows.append({
-            "name": "int8_matmul", "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/int8_matmul.cu",
-            "replaces": "paddle_tpu/ops/pallas_kernels.py:598",
-            "path_shape": name, "mkn": [M, K, N], "shape": shape,
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
-            "library": "torch._int_mm on pre-quantized int8 operands: the "
-                       "product alone (yardstick)",
-            "fp32_matmul_ms": fp32_ms})
-        del x, w, dq, x2, qa, w32, got
-    torch.cuda.empty_cache()
-    return rows
+    nbytes = M * K * 4 + K * N + N * 4 + M * N * 4
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, 2 * M * K * N / \
+        H100_INT8_OPS
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print("kernel int8_matmul %s: bitwise, %.4f ms (plain %.4f ms, "
+          "library %s ms, fp32 matmul %.4f ms, bound %.4f ms by %s)"
+          % (shape, ms, plain_ms, "%.4f" % library_ms
+             if library_ms is not None else "n/a", fp32_ms, bound_ms,
+             bound_by), flush=True)
+    return {
+        "name": "int8_matmul", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/int8_matmul.cu",
+        "replaces": "paddle_tpu/ops/pallas_kernels.py:598",
+        "path_shape": name, "mkn": [M, K, N], "shape": shape,
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms,
+        "library": "torch._int_mm on pre-quantized int8 operands: the "
+                   "product alone (yardstick)" if library_ms is not None
+                   else "none: torch._int_mm takes M > 16 and K, N "
+                        "multiples of 8",
+        "fp32_matmul_ms": fp32_ms}
 
 
 def dense_sites(program):
@@ -4358,6 +4402,512 @@ def image_card_vs_cpu_phase(torch, fluid, program,
              "check on %d of %d parameters"
              % (len(params) - skip_caught, len(params)))
 
+# phase 10: the inference predictor — a model saved with
+# io.save_inference_model and served by inference.AnalysisPredictor on
+# cuda:0 (the load-time passes conv_bn_fold, dropout_remove and
+# conv_elementwise_add_fuse; enable_quantize), on a fixed batch staged on
+# the card: 10a ResNet-50 (ImageNet) at batch 64 in four legs, 10b the
+# mnist cnn through a full_int8 predictor at batch 128 against the same
+# predictor on the CPU, 10c bench.py's bench_quant_predictor through the
+# port's bench
+PREDICT = dict(batch=64, warmup=3, runs=10, calib_batches=4)
+PREDICT_MNIST_BATCH = 128
+# 10a's legs: (name, switch_ir_optim, enable_quantize mode)
+PREDICT_LEGS = (("fp32_no_ir_optim", False, None), ("fp32", True, None),
+                ("full_int8", True, "full_int8"),
+                ("weight_only", True, "weight_only"))
+# folded against unfolded fp32 ResNet-50, |p_fold - p| on the softmax
+# output: the fold rounds W * gamma / std once and turns conv -> affine
+# into conv -> shift, a few fp32 roundings a layer that the ~50 layers
+# carry to the logits (CPU, batch 4, std 1.34: 1.28e-4 at most) and a
+# probability moves by at most 2 p |dz| (p <= 0.03: 7.7e-6): 2e-5 leaves
+# 2.6x that; a fault of the fold's algebra moves the logits by whole
+# percents. A row whose two top probabilities lie closer than the limit
+# may change its top-1.
+PREDICT_FOLD_ATOL = 2e-5
+# 10b, the mnist cnn in full_int8, card against CPU on the softmax output:
+# every op before the softmax is exact or elementwise (the int8
+# convolutions and K4 exact in integers, quantize, dequantize, bias, relu
+# and max pool one rounding each, the same on both devices), so only the
+# softmax's exp and sum differ: a few ulps of p <= 1, limit 16 ulps of 1
+PREDICT_CARD_CPU_ATOL = 16 * 2.0 ** -24
+
+
+def build_predictor_model(fluid, name):
+    """(train-mode main, startup, its clone(for_test=True), predict) of
+    builder `name`, with no optimizer: main's forward updates nothing but
+    the batch norms' moving statistics."""
+    from paddle_tpu_torch import models
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _, _, predict, _, _ = IMAGE_BUILDERS[name][0](models)
+        test = main.clone(for_test=True)
+    return main, startup, test, test.global_block().var(predict.name)
+
+
+def predictor_feed(torch, name, batch, device, seed=0):
+    """A batch of `name`'s images (uniform [0, 1), RandomState(seed)) as
+    a tensor on `device`, staged once."""
+    shape = IMAGE_BUILDERS[name][1]
+    img = np.random.RandomState(seed).rand(batch, *shape).astype(np.float32)
+    return torch.from_numpy(img).to(device)
+
+
+def save_predictor_model(torch, fluid, name, batch, device, dirname):
+    """Save builder `name`'s inference model (target: the softmax
+    `predict`) into `dirname` from a scope whose batch norms moved: each
+    norm's scale drawn from U(0.5, 1.5) and shift from 0.1 N(0, 1)
+    (RandomState(0)), and its moving mean and variance set to the batch
+    statistics of the train-mode forward on RandomState(0)'s batch, the
+    values a trained model's moving statistics approach. The fold is not
+    the identity. Returns the moving statistics' names."""
+    main, startup, test, predict = build_predictor_model(fluid, name)
+    exe, scope = fluid.Executor(device), fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(0)
+    bns = [op for op in main.global_block().ops if op.type == "batch_norm"]
+    for op in bns:
+        for slot, draw in (("Scale", lambda c: rng.uniform(0.5, 1.5, c)),
+                           ("Bias", lambda c: 0.1 * rng.randn(c))):
+            n = op.input_names(slot)[0]
+            t = scope.get(n)
+            scope.set(n, torch.from_numpy(draw(t.shape[0]).astype(
+                np.float32)).to(t.device))
+    feed = {"img": predictor_feed(torch, name, batch, exe.device)}
+    if any(v.name == "label" for v in main.global_block().vars.values()):
+        feed["label"] = torch.zeros(batch, 1, dtype=torch.int64,
+                                    device=exe.device)
+    fetch = [op.output_names(slot)[0] for op in bns
+             for slot in ("SavedMean", "SavedVariance")]
+    stats = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                    return_numpy=False) if fetch else []
+    moving = []
+    for i, op in enumerate(bns):
+        for j, slot in enumerate(("Mean", "Variance")):
+            n = op.input_names(slot)[0]
+            scope.set(n, stats[2 * i + j].detach().clone())
+            moving.append(n)
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(dirname, ["img"], [predict], exe,
+                                      main_program=test)
+    del exe, scope
+    return moving
+
+
+def predictor(dirname, device, ir_optim=True, mode=None, table=None):
+    """An AnalysisPredictor of `dirname` on `device` (None: the config's
+    own cuda:0)."""
+    from paddle_tpu_torch import inference
+
+    cfg = inference.AnalysisConfig(dirname)
+    if device is not None and str(device) == "cpu":
+        cfg.disable_gpu()
+    cfg.switch_ir_optim(ir_optim)
+    if mode:
+        cfg.enable_quantize(mode, calibration_table=table)
+    return inference.create_paddle_predictor(cfg)
+
+
+def mkn_keys(launches):
+    """K4's launches by (M, K, N) with JSON keys "MxKxN"."""
+    return {"x".join(map(str, k)): v for k, v in launches.items()}
+
+
+def predictor_profile(torch, pred, feed, runs=2):
+    """`runs` more runs of the predictor under torch.profiler, each op in a
+    ``ptpu_op:<type>`` range: the launches a run (the runtime's launch
+    calls), the card's busy ms a run and its share of the wall time, the
+    device ms a run by op type, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from paddle_tpu_torch.core import lowering
+
+    inner = lowering.execute_op
+
+    def traced(op, env, ctx):
+        with record_function("ptpu_op:" + op.type):
+            inner(op, env, ctx)
+
+    lowering.execute_op = traced
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(runs):
+                pred.run_dict({"img": feed})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        lowering.execute_op = inner
+    cuda = torch.autograd.DeviceType.CUDA
+    launches = sum("LaunchKernel" in e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CPU)
+    kernels = sorted(((device_us(e) / 1e3, e.count, e.key)
+                      for e in prof.key_averages() if e.device_type == cuda
+                      and not e.key.startswith(("ptpu_op:", "aten::"))),
+                     reverse=True)
+    busy_ms = sum(ms for ms, _, _ in kernels)
+    by_op = {}
+    for e in prof.key_averages():
+        if e.device_type != cuda and e.key.startswith("ptpu_op:"):
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = getattr(e, "cuda_time_total", 0)
+            by_op[e.key[8:]] = by_op.get(e.key[8:], 0.0) + us / 1e3 / runs
+    return {"runs": runs, "launches_per_run": launches / runs,
+            "device_busy_ms_per_run": busy_ms / runs,
+            "wall_ms_per_run": wall * 1e3 / runs,
+            "busy_share": busy_ms / 1e3 / wall,
+            "device_ms_per_run_by_op": {k: round(v, 4) for k, v in sorted(
+                by_op.items(), key=lambda kv: -kv[1])},
+            "top_kernels": [{"kernel": k[:90], "calls": n, "ms": ms}
+                            for ms, n, k in kernels[:8]]}
+
+
+def predictor_leg(torch, im, pred, name, feed, warmup, runs):
+    """`warmup` then `runs` timed runs of `pred` on the staged batch
+    `feed`, K4's launches counted over all of them (the main path: the
+    counts zeroed just before, read just after). Returns what the gates
+    and the `predictor` line read, and the last output."""
+    on_card = feed.device.type == "cuda"
+    if on_card:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    im.int8_matmul.launches.clear()            # main path starts
+    host_ms, marks, out = [], [], None
+    for i in range(warmup + runs):
+        if on_card and i >= warmup:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        th = time.perf_counter()
+        out, = pred.run_dict({"img": feed})
+        if i >= warmup:
+            host_ms.append((time.perf_counter() - th) * 1e3)
+    if on_card:
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        torch.cuda.synchronize()
+    launches = dict(im.int8_matmul.launches)   # main path ends
+    ops = [op.type for op in pred._program.global_block().ops]
+    leg = {"leg": name, "batch": int(feed.shape[0]), "warmup": warmup,
+           "runs": runs, "k4_launches": launches,
+           "ops": {t: ops.count(t) for t in sorted(set(ops))},
+           "finite": bool(np.isfinite(out).all()),
+           "host_ms_per_batch": float(np.mean(host_ms))}
+    if on_card:
+        ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+        leg.update(ms_per_batch=float(np.mean(ms)),
+                   images_per_s=leg["batch"] / float(np.mean(ms)) * 1e3,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   profile=predictor_profile(torch, pred, feed))
+        leg["busy_share"] = leg["profile"]["busy_share"]
+        leg["launches_per_run"] = leg["profile"]["launches_per_run"]
+    return leg, out
+
+
+def classifier_bitwise(torch, im, pred, feed, table):
+    """The full-int8 predictor's classifier (each fused int8 matmul of its
+    compiled program) on its own input, fetched from one more run, against
+    K4's plain version on the CPU with the baked weight and dequantize
+    vector and the table's act scale: [(output, bitwise)]."""
+    from paddle_tpu_torch import quant
+
+    sites = dense_sites(pred._program)
+    fetch = [a for a, _, _ in sites] + [o for _, _, o in sites]
+    outs = pred._exe.run(pred._program, feed={"img": feed},
+                         fetch_list=fetch, scope=pred._scope)
+    n, res = len(sites), []
+    for i, (act, w, out) in enumerate(sites):
+        want = im.int8_matmul_reference(
+            torch.from_numpy(outs[i]).reshape(outs[i].shape[0], -1),
+            baked(pred._scope, w + ".int8").cpu(),
+            baked(pred._scope, out + ".qdq").cpu(),
+            quant._QMAX / max(table.acts[act], quant._EPS)).numpy()
+        res.append((out, bool(np.array_equal(
+            outs[n + i].reshape(want.shape).view(np.int32),
+            want.view(np.int32)))))
+    return res
+
+
+def fold_agreement(p_fold, p_plain, atol=PREDICT_FOLD_ATOL):
+    """(max |p_fold - p_plain|, rows whose top-1 differs while the
+    unfolded output's top-2 margin is at least `atol`)."""
+    top2 = np.sort(p_plain, axis=1)[:, -2:]
+    margin = top2[:, 1] - top2[:, 0]
+    differs = p_fold.argmax(1) != p_plain.argmax(1)
+    return (float(np.abs(p_fold - p_plain).max()),
+            [int(r) for r in np.nonzero(differs & (margin >= atol))[0]])
+
+
+def check_predictor_legs(legs, checks, on_card, k4_mkn):
+    """10a's gates: every output finite; no batch_norm after the passes;
+    the folded fp32 output within PREDICT_FOLD_ATOL of the unfolded one
+    and its top-1 equal but where the unfolded top-2 margin is below it;
+    the classifier bitwise K4's plain version; on the card K4 launched
+    once a run at `k4_mkn` by full_int8 and by no other leg."""
+    for name, leg in legs.items():
+        if not leg["finite"]:
+            fail("predictor %s: the output is not finite" % name)
+        if name != "fp32_no_ir_optim" and leg["ops"].get("batch_norm"):
+            fail("predictor %s: %d batch_norm ops left after the load-time "
+                 "passes" % (name, leg["ops"]["batch_norm"]))
+        if on_card:
+            want = ({tuple(k4_mkn): leg["warmup"] + leg["runs"]}
+                    if name == "full_int8" else {})
+            if leg["k4_launches"] != want:
+                fail("predictor %s: K4 launched %r times by (M, K, N); "
+                     "expected %r" % (name, leg["k4_launches"], want))
+    if not legs["fp32_no_ir_optim"]["ops"].get("batch_norm"):
+        fail("predictor: the unoptimized leg has no batch_norm")
+    if not checks["fold_max_abs_diff"] <= PREDICT_FOLD_ATOL:
+        fail("predictor: the folded fp32 output differs from the unfolded "
+             "one by %.3g (> %g)" % (checks["fold_max_abs_diff"],
+                                     PREDICT_FOLD_ATOL))
+    if checks["fold_top1_rows_differing"]:
+        fail("predictor: the folded fp32 top-1 differs at rows %r, whose "
+             "top-2 margin is at least %g"
+             % (checks["fold_top1_rows_differing"], PREDICT_FOLD_ATOL))
+    bad = [o for o, ok in checks["classifier_bitwise"] if not ok]
+    if not checks["classifier_bitwise"] or bad:
+        fail("predictor full_int8: the classifier is not bitwise K4's "
+             "plain version on its own input: %r"
+             % (bad or "no fused int8 matmul"))
+
+
+def predictor_resnet_phase(torch, fluid, im, name="resnet50_imagenet",
+                           batch=PREDICT["batch"], device=None):
+    """Phase 10a: builder `name`'s inference model saved (moved batch
+    norms, ``save_predictor_model``), then four predictors on one staged
+    batch — fp32 with switch_ir_optim(False), fp32, full_int8 (calibrated
+    on the fp32 predictor over 4 batches) and weight_only — each
+    PREDICT's warm-up and timed runs, gated (``check_predictor_legs``)
+    and printed on `predictor` lines. Returns K4's launches by (M, K, N)
+    of the full_int8 leg."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import quant
+
+    dirname = tempfile.mkdtemp(prefix="ptpu_predictor_")
+    try:
+        save_predictor_model(torch, fluid, name, batch, device, dirname)
+        preds = {"fp32_no_ir_optim": predictor(dirname, device,
+                                               ir_optim=False),
+                 "fp32": predictor(dirname, device)}
+        dev = preds["fp32"]._exe.device
+        on_card = dev.type == "cuda"
+        feed = predictor_feed(torch, name, batch, dev)
+        t0 = time.perf_counter()
+        table = quant.calibrate(
+            preds["fp32"]._program,
+            [{"img": predictor_feed(torch, name, batch, dev, seed=s)}
+             for s in range(1, 1 + PREDICT["calib_batches"])],
+            scope=preds["fp32"]._scope, place=dev)
+        calib_s = time.perf_counter() - t0
+        preds["full_int8"] = predictor(dirname, device,
+                                       mode="full_int8", table=table)
+        preds["weight_only"] = predictor(dirname, device,
+                                         mode="weight_only")
+        legs, outs = {}, {}
+        for leg_name, _, _ in PREDICT_LEGS:
+            legs[leg_name], outs[leg_name] = predictor_leg(
+                torch, im, preds[leg_name], leg_name, feed,
+                PREDICT["warmup"], PREDICT["runs"])
+        sites = dense_sites(preds["fp32"]._program)
+        fold_diff, fold_rows = fold_agreement(outs["fp32"],
+                                              outs["fp32_no_ir_optim"])
+        checks = {"fold_max_abs_diff": fold_diff,
+                  "fold_limit": PREDICT_FOLD_ATOL,
+                  "fold_top1_rows_differing": fold_rows,
+                  "classifier_bitwise": classifier_bitwise(
+                      torch, im, preds["full_int8"], feed, table)}
+        w8, w32 = preds["weight_only"]._scope, preds["fp32"]._scope
+        fp32_bytes = saved = 0
+        for w in table.weights:
+            q = w8.get(w + ".int8")
+            if q is not None:
+                fp32_bytes += w32.get(w).numel() * 4
+                saved += w32.get(w).numel() * 4 - q.numel()
+        full = legs["full_int8"]
+        full.update(
+            top1_agreement=float((outs["full_int8"].argmax(1)
+                                  == outs["fp32"].argmax(1)).mean()),
+            max_abs_err=float(np.abs(outs["full_int8"]
+                                     - outs["fp32"]).max()),
+            weight_bytes_saved_ratio=saved / fp32_bytes,
+            calib_s=calib_s, calib_batches=PREDICT["calib_batches"])
+        for leg in legs.values():
+            print("predictor " + json.dumps(dict(
+                leg, k4_launches=mkn_keys(leg["k4_launches"]), model=name,
+                card=card_line() if on_card else None)), flush=True)
+        print("predictor_checks " + json.dumps(dict(
+            checks, classifier=sites, model=name)), flush=True)
+        check_predictor_legs(legs, checks, on_card,
+                             (batch,) + tuple(preds["fp32"]._program
+                                              .global_block().var(
+                                                  sites[-1][1]).shape))
+        return legs["full_int8"]["k4_launches"]
+    finally:
+        shutil.rmtree(dirname, ignore_errors=True)
+
+
+def predictor_mnist_phase(torch, fluid, im, batch=PREDICT_MNIST_BATCH,
+                          devices=("cuda:0", "cpu")):
+    """Phase 10b: the mnist cnn saved (``save_predictor_model``) and
+    served by a full_int8 predictor on the card and on the CPU from one
+    table (calibrated on the card's fp32 predictor over 4 batches): its
+    two convolutions run on int8 operands (quantize, the float64 route of
+    ``ops/conv.py``, dequantize) and its fc on K4 at N=10. Fatal unless
+    both outputs are finite, the classifier on the card is bitwise K4's
+    plain version on its own input, the softmax outputs agree within
+    PREDICT_CARD_CPU_ATOL and, on the card, K4 launched once a run.
+    Prints a `predictor_mnist` line with the int8 convolutions' device ms
+    a run. Returns K4's launches by (M, K, N)."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import quant
+
+    name = "mnist_cnn"
+    dirname = tempfile.mkdtemp(prefix="ptpu_predictor_")
+    try:
+        save_predictor_model(torch, fluid, name, batch, devices[0], dirname)
+        fp32 = predictor(dirname, devices[0])
+        dev = fp32._exe.device
+        table = quant.calibrate(
+            fp32._program,
+            [{"img": predictor_feed(torch, name, batch, dev, seed=s)}
+             for s in range(1, 1 + PREDICT["calib_batches"])],
+            scope=fp32._scope, place=dev)
+        card = predictor(dirname, devices[0], mode="full_int8",
+                         table=table)
+        host = predictor(dirname, devices[1], mode="full_int8",
+                         table=table)
+        feed = predictor_feed(torch, name, batch, dev)
+        leg, got = predictor_leg(torch, im, card, "mnist_full_int8", feed,
+                                 PREDICT["warmup"], PREDICT["runs"])
+        want, = host.run_dict({"img": feed.cpu()})
+        compiled = [op.type for st in card._exe._cache.values()
+                    for op in st.program.global_block().ops]
+        report = dict(
+            leg, model=name, card_vs_cpu_max_abs_diff=float(
+                np.abs(got - want).max()),
+            card_vs_cpu_limit=PREDICT_CARD_CPU_ATOL,
+            int8_convolutions=sum(
+                op.type == "conv2d" and op.attrs.get("__quant_int8__", False)
+                for st in card._exe._cache.values()
+                for op in st.program.global_block().ops),
+            compiled_ops={t: compiled.count(t) for t in sorted(set(compiled))},
+            classifier_bitwise=classifier_bitwise(torch, im, card, feed,
+                                                  table))
+        if dev.type == "cuda":
+            report["int8_conv_ms_per_run"] = report["profile"][
+                "device_ms_per_run_by_op"].get("conv2d")
+            report["card"] = card_line()
+        print("predictor_mnist " + json.dumps(dict(
+            report, k4_launches=mkn_keys(leg["k4_launches"]))), flush=True)
+        if not (leg["finite"] and np.isfinite(want).all()):
+            fail("predictor mnist: an output is not finite")
+        if not report["int8_convolutions"]:
+            fail("predictor mnist: no convolution ran on int8 operands")
+        bad = [o for o, ok in report["classifier_bitwise"] if not ok]
+        if not report["classifier_bitwise"] or bad:
+            fail("predictor mnist: the classifier is not bitwise K4's plain "
+                 "version on its own input: %r"
+                 % (bad or "no fused int8 matmul"))
+        if not report["card_vs_cpu_max_abs_diff"] <= PREDICT_CARD_CPU_ATOL:
+            fail("predictor mnist: card and CPU outputs differ by %.3g (> "
+                 "%.3g)" % (report["card_vs_cpu_max_abs_diff"],
+                            PREDICT_CARD_CPU_ATOL))
+        if dev.type == "cuda":
+            _, w_fc, _ = dense_sites(card._program)[-1]
+            K, N = card._program.global_block().var(w_fc).shape
+            want_k4 = {(batch, K, N): leg["warmup"] + leg["runs"]}
+            if leg["k4_launches"] != want_k4:
+                fail("predictor mnist: K4 launched %r; expected %r"
+                     % (leg["k4_launches"], want_k4))
+        return leg["k4_launches"]
+    finally:
+        shutil.rmtree(dirname, ignore_errors=True)
+
+
+# bench_quant_predictor's MLP (bench.py:1146 defaults): its three fc
+# layers' (M, K, N) and the runs that launch K4 (3 warm-up, 24 timed)
+QUANT_BENCH_MKN = ((64, 64, 256), (64, 256, 256), (64, 256, 16))
+QUANT_BENCH_RUNS = 3 + 24
+QUANT_BENCH_KEYS = ("fp32_examples_per_sec", "int8_examples_per_sec",
+                    "speedup_vs_fp32", "max_abs_err", "top1_agreement",
+                    "weight_bytes_saved_ratio")
+
+
+def quant_bench_phase(im, place=None):
+    """Phase 10c: the port's bench_quant_predictor with bench.py's
+    defaults; its keys printed on a `quant_predictor_bench` line. Fatal
+    unless every key is there and finite and, on the card, K4 launched
+    once a layer a run of the int8 predictor. Returns K4's launches."""
+    from paddle_tpu_torch import bench
+
+    im.int8_matmul.launches.clear()            # main path starts
+    t0 = time.perf_counter()
+    res = bench.bench_quant_predictor(place=place)
+    launches = dict(im.int8_matmul.launches)   # main path ends
+    print("quant_predictor_bench " + json.dumps(dict(
+        res, seconds=time.perf_counter() - t0,
+        k4_launches=mkn_keys(launches))), flush=True)
+    if sorted(res) != sorted(QUANT_BENCH_KEYS) or not all(
+            np.isfinite(res[k]) for k in QUANT_BENCH_KEYS):
+        fail("quant predictor bench: keys %r" % (res,))
+    if place is None:
+        want = dict.fromkeys(QUANT_BENCH_MKN, QUANT_BENCH_RUNS)
+        if launches != want:
+            fail("quant predictor bench: K4 launched %r; expected %r"
+                 % (launches, want))
+    return launches
+
+
+def predictor_phase(torch, fluid, im, pa, pat, fa):
+    """Phase 10: 10a, 10b and 10c, none of K1-K3 launched. Returns K4's
+    launches on the phase's paths by (M, K, N)."""
+    t0 = time.perf_counter()
+    before = kernel_launch_totals(fa, pa, pat, im)
+    k4 = dict(predictor_resnet_phase(torch, fluid, im))
+    gc.collect()
+    torch.cuda.empty_cache()
+    for part in (predictor_mnist_phase(torch, fluid, im),
+                 quant_bench_phase(im)):
+        for mkn, n in part.items():
+            k4[mkn] = k4.get(mkn, 0) + n
+    after = kernel_launch_totals(fa, pa, pat, im)
+    others = [k for k in ("K1", "K2", "K3") if after[k] != before[k]]
+    print("predictor_phase " + json.dumps({
+        "seconds": time.perf_counter() - t0, "k4_launches": mkn_keys(k4),
+        "launches_before": before, "launches_after": after}), flush=True)
+    if others:
+        fail("phase 10 launched %s: %r -> %r" % (others, before, after))
+    return k4
+
+
+def predictor_kernel_rows(torch, im, launches):
+    """K4's rows at phase 10's shapes, checked and timed
+    (``int8_timed_row``), each with its launches on phase 10's paths."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    shapes = [("resnet50_classifier", (PREDICT["batch"], 2048, 1000)),
+              ("mnist_cnn_fc", (PREDICT_MNIST_BATCH, 800, 10))] + [
+        ("quant_bench_fc%d" % i, mkn)
+        for i, mkn in enumerate(QUANT_BENCH_MKN)]
+    rows = []
+    for i, (name, (M, K, N)) in enumerate(shapes):
+        x = 1.5 * torch.randn(M, K, device="cuda")
+        row = int8_timed_row(torch, im, name, "%s M=%d K=%d N=%d"
+                             % (name, M, K, N), x, (M, K, N), 300 + i, flush)
+        row["launches"] = launches.get((M, K, N), 0)
+        rows.append(row)
+    return rows
+
+
 
 def main():
     try:
@@ -4500,6 +5050,11 @@ def main():
     if after != before:
         fail("phase 9 launched a hand-written kernel: %r -> %r"
              % (before, after))
+    gc.collect()
+    torch.cuda.empty_cache()
+    k4_predictor = predictor_phase(torch, fluid, im_mod, pa_mod, pat_mod,
+                                   fa_mod)
+    int8_rows += predictor_kernel_rows(torch, im_mod, k4_predictor)
     kernels = rows + tree_rows + list(flash_rows.values()) + int8_rows
     idle = [(r["name"], r.get("C"), r.get("shape")) for r in kernels
             if not r.get("launches")]

@@ -29,7 +29,12 @@ input, bf16 on cuDNN; ``pool2d``, ``batch_norm``
 with its moving statistics, ``cross_entropy``, ``top_k`` and
 ``accuracy``; ``nets.simple_img_conv_pool`` and ``nets.img_conv_group``;
 the builders ``models.mnist``, ``models.resnet``, ``models.vgg`` and
-``models.se_resnext``):
+``models.se_resnext``), and the inference predictor
+(``io.save_inference_model`` / ``load_inference_model``,
+``inference.AnalysisConfig`` -> ``create_paddle_predictor``: the
+load-time passes ``conv_bn_fold``, ``dropout_remove`` and
+``conv_elementwise_add_fuse``, and ``enable_quantize("full_int8" |
+"weight_only")``):
 
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import transformer_fluid
@@ -48,9 +53,10 @@ the builders ``models.mnist``, ``models.resnet``, ``models.vgg`` and
 
 from . import (amp, async_engine, checkpoint, clip, contrib,  # noqa: F401
                flags, inference, initializer, io, ir, layers, nets,
-               optimizer, quant, regularizer, resilience, unique_name)
+               optimizer, quant, regularizer, resilience, transpiler,
+               unique_name)
 from .backward import append_backward  # noqa: F401
-from .core.scope import Scope, global_scope  # noqa: F401
+from .core.scope import Scope, global_scope, scope_guard  # noqa: F401
 from .executor import Executor  # noqa: F401
 from .framework import (Program, Variable, default_main_program,  # noqa: F401
                         default_startup_program, program_guard)
@@ -61,4 +67,5 @@ __all__ = ["Executor", "ParamAttr", "Program", "Scope", "Variable",
            "contrib", "default_main_program", "default_startup_program",
            "flags", "global_scope", "inference", "initializer", "io", "ir",
            "layers", "nets", "optimizer", "program_guard", "quant",
-           "regularizer", "resilience", "unique_name"]
+           "regularizer", "resilience", "scope_guard", "transpiler",
+           "unique_name"]

@@ -1,7 +1,8 @@
 """The port's bench: bench.py's headline training legs
 (`bench_transformer_fluid` :109-225, `TINY` :229), its serving legs
 (`bench_serving` :553, `bench_serving_fastpath` :659,
-`bench_serving_spec` :731, `bench_serving_quant` :1242) and its fleet
+`bench_serving_spec` :731, `bench_serving_quant` :1242), its predictor
+leg (`bench_quant_predictor` :1146) and its fleet
 and online legs (`bench_serving_fleet` :836, `bench_serving_online`
 :906), with its `main`'s leg selection (:1735-1903).
 
@@ -37,6 +38,9 @@ the port's ``ServingEngine``:
               linear speculation, without, as a 2x6 tree drafted by a
               ModelDrafter, and that tree over the int8 weight store
               (bench_serving_spec)
+    quant_fp32_predictor / quant_int8_predictor     an MLP classifier
+              saved and served by the fp32 and the full-int8
+              AnalysisPredictor (bench_quant_predictor)
     serving_fp32_ref / serving_int8     one request set over fp32 weights
               and the weight-only int8 store (bench_serving_quant)
     serving_fleet_1r / serving_fleet_2r     one request set through a
@@ -54,8 +58,9 @@ leg bench.py would run whose modules the port lacks is named under
 feeds through the prefetcher); ``--sync-only`` skips the async leg,
 ``--amp-only`` runs only fp32, amp and amp_fp16; ``--serving-only`` the
 serving, fast-path and speculative pairs, ``--spec-only`` the
-speculative legs, ``--quant-only`` the int8 serving pair, ``--fleet-only``
-the fleet pair and ``--online-only`` the online pair; the flags combine
+speculative legs, ``--quant-only`` the int8 predictor and serving pairs,
+``--fleet-only`` the fleet pair and ``--online-only`` the online pair;
+the flags combine
 as bench.py's do, except that ``--online-only`` joins the others instead
 of replacing them. With ``--online-only`` alone the line's metric is
 bench.py's ``online_rollout_throughput_ratio``.
@@ -74,7 +79,8 @@ import paddle_tpu_torch as fluid
 from paddle_tpu_torch.async_engine import as_numpy
 from paddle_tpu_torch.models import transformer_fluid
 
-__all__ = ["TINY", "bench_serving", "bench_serving_fastpath",
+__all__ = ["TINY", "bench_quant_predictor", "bench_serving",
+           "bench_serving_fastpath",
            "bench_serving_fleet", "bench_serving_online",
            "bench_serving_quant", "bench_serving_spec",
            "bench_transformer_fluid", "build_program", "last_leg", "main"]
@@ -572,6 +578,101 @@ def bench_serving_quant(n_requests=16, max_new_tokens=16, max_batch=8,
             sum(len(o) for o in int8_outs))
 
 
+def bench_quant_predictor(batches=24, batch=64, in_dim=64, hidden=256,
+                          n_classes=16, warmup=3, place=None):
+    """The fp32-vs-int8 predictor receipt, bench.py's function on
+    `place`: an MLP classifier (in_dim -> hidden -> hidden -> n_classes,
+    relu) saved with ``io.save_inference_model`` and served three ways —
+    a plain fp32 ``AnalysisPredictor``, ``full_int8`` (calibrated on the
+    first 4 of `batches` RandomState(0) batches; each fc one fused int8
+    matmul, K4) and ``weight_only`` (``convert_to_int8``'s int8 store).
+    Each leg runs `warmup` batches, then all `batches` timed, the host
+    feeds copied in each run. Returns bench.py's dict: examples/s of the
+    fp32 and int8 legs, their ratio, the logits' max abs error and top-1
+    agreement of int8 against fp32, and the weight store's bytes saved
+    over its fp32 bytes."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import inference, quant
+
+    prog, sprog = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(prog, sprog):
+        x = fluid.layers.data(name="qb_x", shape=[in_dim], dtype="float32")
+        h = fluid.layers.fc(input=x, size=hidden, act="relu")
+        h = fluid.layers.fc(input=h, size=hidden, act="relu")
+        logits = fluid.layers.fc(input=h, size=n_classes)
+    exe = fluid.Executor(place)
+    outdir = tempfile.mkdtemp(prefix="ptpu_quant_bench_")
+    try:
+        with fluid.scope_guard(fluid.Scope()):
+            exe.run(sprog)
+            fluid.io.save_inference_model(outdir, ["qb_x"], [logits], exe,
+                                          main_program=prog)
+        exe.close()
+        rng = np.random.RandomState(0)
+        eval_feeds = [rng.uniform(-1, 1, (batch, in_dim))
+                      .astype(np.float32) for _ in range(batches)]
+
+        def config(mode=None, table=None):
+            cfg = inference.AnalysisConfig(outdir)
+            if exe.device.type == "cpu":
+                cfg.disable_gpu()
+            else:
+                cfg.enable_use_gpu(device_id=exe.device.index)
+            if mode:
+                cfg.enable_quantize(mode, calibration_table=table)
+            return cfg
+
+        p_fp32 = inference.AnalysisPredictor(config())
+        table = quant.calibrate(
+            p_fp32._program, ({"qb_x": f} for f in eval_feeds[:4]),
+            scope=p_fp32._scope, place=exe.device)
+        p_int8 = inference.AnalysisPredictor(config("full_int8", table))
+        # the weight store of the weight_only predictor: its scope holds
+        # the int8 twins instead of the fp32 weights
+        p_wo = inference.AnalysisPredictor(config("weight_only"))
+        fp32_bytes = saved_bytes = 0
+        for name in table.weights:
+            q = p_wo._scope.get(name + ".int8")
+            if q is None:
+                continue
+            w = p_fp32._scope.get(name)
+            fp32_bytes += w.numel() * w.element_size()
+            saved_bytes += (w.numel() * w.element_size()
+                            - q.numel() * q.element_size())
+        saved_ratio = saved_bytes / fp32_bytes if fp32_bytes else 0.0
+
+        def run_leg(pred):
+            for f in eval_feeds[:warmup]:
+                pred.run_dict({"qb_x": f})
+            outs = []
+            t0 = time.perf_counter()
+            for f in eval_feeds:
+                out, = pred.run_dict({"qb_x": f})
+                outs.append(np.asarray(out))
+            dt = time.perf_counter() - t0
+            return batches * batch / dt, outs
+
+        fp32_eps, fp32_outs = run_leg(p_fp32)
+        int8_eps, int8_outs = run_leg(p_int8)
+        max_err = max(float(np.abs(a - b).max())
+                      for a, b in zip(fp32_outs, int8_outs))
+        agree = float(np.mean([
+            np.argmax(a, axis=1) == np.argmax(b, axis=1)
+            for a, b in zip(fp32_outs, int8_outs)]))
+        return {
+            "fp32_examples_per_sec": fp32_eps,
+            "int8_examples_per_sec": int8_eps,
+            "speedup_vs_fp32": int8_eps / fp32_eps,
+            "max_abs_err": max_err,
+            "top1_agreement": agree,
+            "weight_bytes_saved_ratio": saved_ratio,
+        }
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+
+
 def bench_serving_fleet(n_requests=16, max_new_tokens=16, max_batch=4,
                         vocab=256, d_model=64, n_heads=2, n_layers=2,
                         d_ff=128, max_seq_len=128, block_size=16,
@@ -815,11 +916,8 @@ def _leg_entry(name, tps, step_s, loss=None, **extra):
 # bench.py legs whose modules the port lacks, named where bench.py would
 # run them (ROADMAP.md Queue 1)
 NOT_PORTED = {
-    "quant_predictor": "bench_quant_predictor (quant_fp32_predictor, "
-                       "quant_int8_predictor): the inference predictor "
-                       "and its quantize pass, ROADMAP.md Queue 1 item 6",
     "resilience": "bench_resilience_overhead: resilience.py, ROADMAP.md "
-                  "Queue 1 item 7",
+                  "Queue 1 item 8",
 }
 
 
@@ -848,8 +946,8 @@ def main(argv=None):
     ap.add_argument("--spec-only", action="store_true",
                     help="run only the speculative serving legs")
     ap.add_argument("--quant-only", action="store_true",
-                    help="run only the int8 serving pair (the int8 "
-                         "predictor pair is not ported)")
+                    help="run only the int8 predictor pair and the int8 "
+                         "serving pair")
     ap.add_argument("--fleet-only", action="store_true",
                     help="run only the serving-fleet scaling pair "
                          "(1-replica vs 2-replica ServingRouter)")
@@ -1001,7 +1099,23 @@ def main(argv=None):
             sp["int8"]["outputs_match"])
 
     if args.quant_only or not (rest or dedicated):
-        not_ported.append(NOT_PORTED["quant_predictor"])
+        qp = bench_quant_predictor(place=place)
+        legs.append(_serving_leg("quant_fp32_predictor",
+                                 qp["fp32_examples_per_sec"]))
+        legs.append(_serving_leg(
+            "quant_int8_predictor", qp["int8_examples_per_sec"],
+            speedup_vs_fp32=round(qp["speedup_vs_fp32"], 4),
+            max_abs_err=round(qp["max_abs_err"], 6),
+            top1_agreement=round(qp["top1_agreement"], 4),
+            weight_bytes_saved_ratio=round(
+                qp["weight_bytes_saved_ratio"], 4)))
+        result["quant_int8_examples_per_sec"] = round(
+            qp["int8_examples_per_sec"], 1)
+        result["quant_speedup_vs_fp32"] = round(qp["speedup_vs_fp32"], 4)
+        result["quant_max_abs_err"] = round(qp["max_abs_err"], 6)
+        result["quant_top1_agreement"] = round(qp["top1_agreement"], 4)
+        result["quant_weight_bytes_saved_ratio"] = round(
+            qp["weight_bytes_saved_ratio"], 4)
         (qserve_int8, qserve_fp32, qserve_match, qserve_agree,
          _tokens) = bench_serving_quant(place=place)
         legs.append(_serving_leg("serving_fp32_ref", qserve_fp32))

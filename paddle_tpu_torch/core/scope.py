@@ -1,9 +1,11 @@
 """Scope: a name -> value store. The executor keeps a program's
 persistable tensors (parameters, learning rate, loss-scaling state) in
 a scope between steps; the serving engine keeps each model's weights in
-a scope of its own."""
+a scope of its own, and so does each inference predictor.
+`scope_guard(scope)` makes `scope` the one `global_scope()` returns
+while it is open (parity: the JAX package's ``core/scope.py``)."""
 
-__all__ = ["Scope", "global_scope"]
+__all__ = ["Scope", "global_scope", "scope_guard"]
 
 
 class Scope:
@@ -16,13 +18,32 @@ class Scope:
     def set(self, name, value):
         self._vars[name] = value
 
+    def erase(self, name):
+        """Drop the binding of `name` if there is one."""
+        self._vars.pop(name, None)
+
     def local_var_names(self):
         return list(self._vars)
 
 
 _global_scope = Scope()
+_scope_stack = [_global_scope]
 
 
 def global_scope():
-    """The scope `Executor.run` uses when the caller names none."""
-    return _global_scope
+    """The scope `Executor.run` and the io functions use when the caller
+    names none: the innermost open `scope_guard`'s, else the process's
+    global scope."""
+    return _scope_stack[-1]
+
+
+class scope_guard:
+    def __init__(self, scope):
+        self._scope = scope
+
+    def __enter__(self):
+        _scope_stack.append(self._scope)
+        return self._scope
+
+    def __exit__(self, *a):
+        _scope_stack.pop()

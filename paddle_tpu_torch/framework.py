@@ -13,6 +13,7 @@ programs use them for ``layers.recompute`` segments.
 
 import contextlib
 import copy
+import json
 
 import numpy as np
 import torch
@@ -106,6 +107,22 @@ class Variable:
 
     __str__ = __repr__
 
+    def to_desc(self):
+        """The var's JSON descriptor, the JAX package's key for key
+        (dtype as its canonical string name)."""
+        return {
+            "name": self.name,
+            "shape": list(self.shape) if self.shape is not None else None,
+            "dtype": self.dtype,
+            "lod_level": self.lod_level,
+            "persistable": self.persistable,
+            "stop_gradient": self.stop_gradient,
+            "is_data": self.is_data,
+            "type": self.type,
+            "is_parameter": isinstance(self, Parameter),
+            "trainable": getattr(self, "trainable", False),
+        }
+
 
 class Parameter(Variable):
     """A persistable, trainable Variable."""
@@ -163,6 +180,29 @@ class Operator:
             {k: [v.name for v in vs] for k, vs in self.inputs.items()},
             {k: [v.name for v in vs] for k, vs in self.outputs.items()})
 
+    def to_desc(self):
+        """The op's JSON descriptor: a sub-block attr as {"__block__":
+        idx}, a grad op's forward op as its (block, index), an ndarray
+        as {"__ndarray__": list, "dtype": name}."""
+        def _ser_attr(v):
+            if isinstance(v, Block):
+                return {"__block__": v.idx}
+            if isinstance(v, Operator):
+                return {"__op_index__": v.block.ops.index(v),
+                        "__op_block__": v.block.idx}
+            if isinstance(v, np.ndarray):
+                return {"__ndarray__": v.tolist(), "dtype": str(v.dtype)}
+            return v
+
+        return {
+            "type": self.type,
+            "inputs": {k: [v.name for v in vs]
+                       for k, vs in self.inputs.items()},
+            "outputs": {k: [v.name for v in vs]
+                        for k, vs in self.outputs.items()},
+            "attrs": {k: _ser_attr(v) for k, v in self.attrs.items()},
+        }
+
 
 class Block:
     """An ordered op list and a var map, possibly nested: a sub-block
@@ -217,14 +257,28 @@ class Block:
     def all_parameters(self):
         return [v for v in self.vars.values() if isinstance(v, Parameter)]
 
-    def append_op(self, type, inputs=None, outputs=None, attrs=None):
+    def _add_op(self, index, type, inputs, outputs, attrs):
         op = Operator(self, type, inputs, outputs, attrs)
-        self.ops.append(op)
+        self.ops.insert(index, op)
         for vs in op.outputs.values():
             for v in vs:
                 v.op = op  # the var's last writer (cond reads it)
         self.program._bump_version()
         return op
+
+    def append_op(self, type, inputs=None, outputs=None, attrs=None):
+        return self._add_op(len(self.ops), type, inputs, outputs, attrs)
+
+    def prepend_op(self, type, inputs=None, outputs=None, attrs=None):
+        return self._add_op(0, type, inputs, outputs, attrs)
+
+    def to_desc(self):
+        return {
+            "idx": self.idx,
+            "parent_idx": self.parent_idx,
+            "vars": [v.to_desc() for v in self.vars.values()],
+            "ops": [op.to_desc() for op in self.ops],
+        }
 
 
 class Program:
@@ -274,6 +328,10 @@ class Program:
 
     def all_parameters(self):
         return self.global_block().all_parameters()
+
+    def list_vars(self):
+        for blk in self.blocks:
+            yield from blk.vars.values()
 
     @staticmethod
     def _is_train_only_op(op):
@@ -332,6 +390,18 @@ class Program:
         if getattr(self, "_quant_config", None) is not None:
             p._quant_config = self._quant_config
         return p
+
+    def to_json(self):
+        """The JAX package's JSON of the program (``core/serde.py``)."""
+        from .core import serde
+
+        return json.dumps(serde.program_to_desc(self))
+
+    @staticmethod
+    def from_json(s):
+        from .core import serde
+
+        return serde.program_from_json(s)
 
     def __repr__(self):
         lines = []

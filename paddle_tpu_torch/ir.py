@@ -1,15 +1,19 @@
 """Program-pass infrastructure (parity: the JAX package's ``ir.py``
 `Pass`, `register_pass`, `unregister_pass`, `get_pass`,
 `registered_passes`, `apply_passes` :34-120, the op-chain matcher
-`match_chain` :123-180 and `DropoutRemovePass` :369-430).
+`match_chain` :123-180, the DAG matcher `Pattern` :182-328 and the
+passes `ConvBNFoldPass` :329, `DropoutRemovePass` :369-430 and
+`ConvResidualAddFusePass` :432-506).
 
 A pass rewrites a program in place (bumping its version when it changes
 ops) and returns it; ``scope`` carries the materialized values for
-passes that read or bake weights. Registered here: ``dropout_remove``;
-``ir_passes.py`` registers ``fetch_dce``, ``cse`` and
-``constant_fold``, ``amp.py`` ``amp_rewrite`` and ``quant.py``
-``quant_rewrite``. The JAX package's verifier hook
-(``PTPU_VERIFY_PASSES``) is not ported.
+passes that read or bake weights. Registered here: ``conv_bn_fold``,
+``dropout_remove`` and ``conv_elementwise_add_fuse`` (the inference
+predictor runs the three at load time); ``ir_passes.py`` registers
+``fetch_dce``, ``cse`` and ``constant_fold``, ``amp.py``
+``amp_rewrite`` and ``quant.py`` ``quant_rewrite``. The JAX package's
+verifier hook (``PTPU_VERIFY_PASSES``) and ``memory_optimize`` are not
+ported.
 
     @fluid.ir.register_pass("my_fold")
     class MyFold(fluid.ir.Pass):
@@ -23,7 +27,7 @@ passes that read or bake weights. Registered here: ``dropout_remove``;
 from .core.scope import global_scope
 
 __all__ = ["Pass", "register_pass", "unregister_pass", "get_pass",
-           "apply_passes", "registered_passes", "match_chain"]
+           "apply_passes", "registered_passes", "match_chain", "Pattern"]
 
 
 class Pass:
@@ -137,12 +141,184 @@ def match_chain(block, types, single_consumer=True):
             yield chain
 
 
+class _Edge:
+    __slots__ = ("src", "dst", "dst_slot", "src_slot", "single_consumer")
+
+    def __init__(self, src, dst, dst_slot, src_slot, single_consumer):
+        self.src, self.dst = src, dst
+        self.dst_slot, self.src_slot = dst_slot, src_slot
+        self.single_consumer = single_consumer
+
+
+class Pattern:
+    """Declarative op-DAG pattern: named nodes and dataflow edges.
+
+        p = fluid.ir.Pattern()
+        p.op("conv", "conv2d")
+        p.op("add", "elementwise_add")
+        p.edge("conv", "add", dst_slot="X")
+        for m in p.match(block):            # {"conv": op, "add": op}
+            ...
+
+    A node's `type` is one op type or a tuple of them; `pred(op)` adds a
+    test. An edge means some output var of `src` (of `src_slot` if given)
+    is an input var of `dst` (of `dst_slot` if given); with
+    single_consumer that var has exactly one consuming op in the block.
+    Matches come in program order of the first-declared node, never
+    share an op, and see a snapshot of the op list."""
+
+    def __init__(self):
+        self._nodes = {}   # name -> (types tuple or None, pred or None)
+        self._order = []
+        self._edges = []
+
+    def op(self, name, type=None, pred=None):
+        if name in self._nodes:
+            raise ValueError("pattern node %r already defined" % name)
+        types = (type,) if isinstance(type, str) else \
+            (tuple(type) if type is not None else None)
+        self._nodes[name] = (types, pred)
+        self._order.append(name)
+        return name
+
+    def edge(self, src, dst, dst_slot=None, src_slot=None,
+             single_consumer=True):
+        for n in (src, dst):
+            if n not in self._nodes:
+                raise ValueError("pattern node %r not defined" % n)
+        self._edges.append(_Edge(src, dst, dst_slot, src_slot,
+                                 single_consumer))
+        return self
+
+    def _topo(self):
+        """Pattern nodes in dependency order (edge sources first),
+        insertion order breaking ties; a cycle raises."""
+        indeg = {n: 0 for n in self._order}
+        for e in self._edges:
+            indeg[e.dst] += 1
+        out = []
+        ready = [n for n in self._order if indeg[n] == 0]
+        while ready:
+            n = ready.pop(0)
+            out.append(n)
+            for e in self._edges:
+                if e.src == n:
+                    indeg[e.dst] -= 1
+                    if indeg[e.dst] == 0:
+                        ready.append(e.dst)
+        if len(out) != len(self._order):
+            raise ValueError("pattern has a cycle")
+        return out
+
+    def match(self, block):
+        ops = list(block.ops)
+        order = {id(op): i for i, op in enumerate(ops)}
+        cons = _consumers(block)
+        topo = self._topo()
+        claimed = set()
+
+        def link_ok(e, src_op, dst_op):
+            outs = src_op.output_names(e.src_slot) if e.src_slot \
+                else src_op.output_names()
+            ins = dst_op.input_names(e.dst_slot) if e.dst_slot \
+                else dst_op.input_names()
+            link = set(outs) & set(ins)
+            if e.single_consumer:
+                link = {n for n in link
+                        if len([u for u in cons.get(n, [])
+                                if id(u) in order]) == 1}
+            return bool(link)
+
+        def node_ok(name, op, assign):
+            types, pred = self._nodes[name]
+            if types is not None and op.type not in types:
+                return False
+            if id(op) in claimed:
+                return False
+            if any(o is op for o in assign.values()):
+                return False  # injective
+            if pred is not None and not pred(op):
+                return False
+            return all(link_ok(e, assign[e.src], op)
+                       for e in self._edges
+                       if e.dst == name and e.src in assign)
+
+        def extend(assign, k):
+            if k == len(topo):
+                yield dict(assign)
+                return
+            name = topo[k]
+            in_edges = [e for e in self._edges
+                        if e.dst == name and e.src in assign]
+            if in_edges:
+                e0 = in_edges[0]
+                src_op = assign[e0.src]
+                outs = src_op.output_names(e0.src_slot) if e0.src_slot \
+                    else src_op.output_names()
+                seen, cands = set(), []
+                for vn in outs:
+                    for u in cons.get(vn, []):
+                        if id(u) in order and id(u) not in seen:
+                            seen.add(id(u))
+                            cands.append(u)
+            else:
+                cands = ops
+            for op in sorted(cands, key=lambda o: order[id(o)]):
+                if not node_ok(name, op, assign):
+                    continue
+                assign[name] = op
+                yield from extend(assign, k + 1)
+                del assign[name]
+
+        for m in extend({}, 0):
+            if any(id(op) in claimed for op in m.values()):
+                continue
+            claimed.update(id(op) for op in m.values())
+            yield m
+
+
+@register_pass("conv_bn_fold")
+class ConvBNFoldPass(Pass):
+    """Fold batch_norm into the conv2d before it, editing the weights in
+    `scope` (``transpiler/inference_transpiler.py`` `_fold_bn_weights`).
+    Patterns: conv2d -> elementwise_add(bias) -> batch_norm, then
+    conv2d -> batch_norm. A match whose params are not in the scope is
+    skipped."""
+
+    def apply(self, program, scope=None):
+        from .transpiler.inference_transpiler import _fold_bn_weights
+
+        scope = scope if scope is not None else global_scope()
+        block = program.global_block()
+        changed = False
+        # conv feeds the add's X slot (the bias rides Y), bn reads the add
+        p = Pattern()
+        p.op("conv", "conv2d")
+        p.op("add", "elementwise_add")
+        p.op("bn", "batch_norm")
+        p.edge("conv", "add", dst_slot="X")
+        p.edge("add", "bn", dst_slot="X")
+        for m in p.match(block):
+            conv, add, bn = m["conv"], m["add"], m["bn"]
+            if _fold_bn_weights(conv, bn, scope, add.input_names("Y")[0]):
+                add.outputs["Out"] = bn.outputs["Y"]
+                block.ops.remove(bn)
+                changed = True
+        for conv, bn in match_chain(block, ("conv2d", "batch_norm")):
+            if _fold_bn_weights(conv, bn, scope, None):
+                conv.outputs["Output"] = bn.outputs["Y"]
+                block.ops.remove(bn)
+                changed = True
+        if changed:
+            program._bump_version()
+        return program
+
+
 @register_pass("dropout_remove")
 class DropoutRemovePass(Pass):
     """Remove inference-identity dropout ops, rewiring consumers; the
-    downgrade_in_infer variant becomes a scale op. The port has no
-    dropout op yet, so on its programs the pass changes nothing; the
-    pipeline schedules it for every inference program."""
+    downgrade_in_infer variant becomes a scale op. The pipeline
+    schedules it for every inference program."""
 
     def apply(self, program, scope=None):
         from .framework import Operator
@@ -192,6 +368,74 @@ class DropoutRemovePass(Pass):
                 op.inputs[slot] = [rename.get(v.name, v) for v in vs]
             new_ops.append(op)
         block.ops = new_ops
+        if changed:
+            program._bump_version()
+        return program
+
+
+@register_pass("conv_elementwise_add_fuse")
+class ConvResidualAddFusePass(Pass):
+    """conv2d + a same-shape elementwise_add (the residual) [+ relu] ->
+    one conv2d_fusion carrying ResidualData. A bias-style add (a 1-D Y)
+    is left for conv_bn_fold; a match whose interior outputs are fetched
+    or read by a sub-block is left alone."""
+
+    def apply(self, program, scope=None):
+        from .framework import Operator
+        from .ir_passes import _fetch_targets, _outside_reads
+
+        block = program.global_block()
+        protected = set(_fetch_targets(program) or ()) \
+            | _outside_reads(program)
+
+        def _same_shape_residual(op):
+            # an axis-broadcast add (a bias) is not a residual:
+            # conv2d_fusion adds ResidualData element-wise
+            xs, ys = op.inputs.get("X", []), op.inputs.get("Y", [])
+            if len(ys) != 1 or not xs:
+                return False
+            xshape = getattr(xs[0], "shape", None)
+            yshape = getattr(ys[0], "shape", None)
+            return (xshape is not None and yshape is not None
+                    and tuple(xshape) == tuple(yshape))
+
+        changed = False
+        for with_act in (True, False):  # the longest pattern first
+            p = Pattern()
+            p.op("conv", "conv2d")
+            p.op("add", "elementwise_add", pred=_same_shape_residual)
+            p.edge("conv", "add", dst_slot="X")
+            if with_act:
+                p.op("act", "relu")
+                p.edge("add", "act", dst_slot="X")
+            for m in p.match(block):
+                conv, add = m["conv"], m["add"]
+                last = m["act"] if with_act else add
+                interior = [o for o in (conv, add, m.get("act"))
+                            if o is not None and o is not last]
+                if any(n in protected for o in interior
+                       for n in o.output_names()):
+                    continue
+                fused_ins = {"Input": conv.inputs["Input"],
+                             "Filter": conv.inputs["Filter"],
+                             "ResidualData": add.inputs["Y"]}
+                if conv.inputs.get("FoldedBias"):
+                    # the shift a conv+bn fold left: conv2d_fusion adds
+                    # Bias before the residual and the activation, the
+                    # order the unfused ops ran in
+                    fused_ins["Bias"] = conv.inputs["FoldedBias"]
+                fused = Operator(
+                    block, "conv2d_fusion", inputs=fused_ins,
+                    outputs={"Output": last.outputs["Out"]},
+                    attrs=dict(conv.attrs,
+                               activation="relu" if with_act
+                               else "identity"))
+                # at the last op's place: every input is produced by then
+                block.ops[block.ops.index(last)] = fused
+                for o in (conv, add):
+                    if o is not last:
+                        block.ops.remove(o)
+                changed = True
         if changed:
             program._bump_version()
         return program

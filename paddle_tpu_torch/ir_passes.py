@@ -18,9 +18,10 @@ serves another.
 
 Passes the JAX pipeline schedules only for an explicit inference
 optimization or a ``BuildStrategy`` (``conv_bn_fold_baked``,
-``conv_elementwise_add_fuse``, ``fuse_elewise_add_act``,
-``memory_optimize``) are not ported: a pipeline naming one raises,
-naming it.
+``fuse_elewise_add_act``, ``memory_optimize``) are not ported: a
+pipeline naming one raises, naming it. (``conv_elementwise_add_fuse``,
+which that pipeline also names, is registered in ``ir.py``: the
+inference predictor runs it at load time.)
 
 Soundness, as in the JAX package: ops referenced through a grad op's
 `__fwd_op__` are never deleted or rewired (their grad ops read what they

@@ -4,5 +4,5 @@ graph ops (``registry``) and builds nothing: a CUDA kernel is compiled
 at its first use on a CUDA device (``ops/_build.py``)."""
 
 from . import (activations, compat_ops, controlflow, conv,  # noqa: F401
-               elementwise, loss_ops, math, metric_ops, nn_ops,
-               optimizer_ops, quant_ops, reduce)
+               elementwise, fused_tail_ops, loss_ops, math, metric_ops,
+               nn_ops, optimizer_ops, quant_ops, reduce)

@@ -43,9 +43,12 @@ no ``PTPU_KERNELS`` and always emits the fused op.
 ``quant/{ops_rewritten,weights_quantized,calib_tensors,
 weight_bytes_saved,weight_fp32_bytes}`` through the metrics registry.
 
-Not ported yet: ``quantize_predictor_program`` (waits for the
-predictor), and the ``conv2d`` and ``matmul`` sites run no op of the
-port yet.
+The inference predictor quantizes at load time through
+``quantize_predictor_program`` (``inference.AnalysisConfig.
+enable_quantize``). A ``conv2d`` that a conv + batch-norm fold left
+with a ``FoldedBias`` never reaches full int8 (its shift lands on the
+fp32 output): it stays weight-only, as in the JAX package. The
+``matmul`` site runs no program of the port yet.
 """
 
 import hashlib
@@ -63,7 +66,7 @@ __all__ = [
     "CalibrationTable", "QuantConfig", "calibrate", "decorate",
     "active_config", "quant_env_enabled", "weight_channel_scales",
     "quantize_to_int8", "quantize_symmetric", "weight_store_bytes",
-    "DEFAULT_QUANT_OPS",
+    "quantize_predictor_program", "DEFAULT_QUANT_OPS",
 ]
 
 # white list: dot ops whose persistable weight operand can store int8
@@ -725,3 +728,38 @@ class QuantRewritePass(Pass):
         record_weight_store(len(counted), stats["saved"], stats["fp32"])
         program._bump_version()
         return program
+
+
+# ---------------------------------------------------------------------------
+# the inference predictor's load-time hook
+# ---------------------------------------------------------------------------
+
+
+def quantize_predictor_program(program, scope, mode="weight_only",
+                               table=None, blacklist=None):
+    """Load-time quantization of a freshly loaded predictor program with
+    a scope of its own:
+
+      weight_only  ``QuantizeTranspiler.convert_to_int8``: the fp32
+                   weights are REPLACED by int8 twins in the scope, and
+                   ``dequantize`` ops put first in the block make them on
+                   use;
+      full_int8    decorates the program, so the executor's
+                   `quant_rewrite` pass runs the int8 path (needs a
+                   calibration `table`; an op without a range stays
+                   weight-only).
+
+    Editing the scope in place is safe because the predictor owns both
+    the program and the scope."""
+    if mode == "weight_only":
+        from .contrib.quantize import QuantizeTranspiler
+
+        QuantizeTranspiler().convert_to_int8(program, scope=scope,
+                                             skip=blacklist or ())
+    elif mode == "full_int8":
+        decorate(program, mode=mode, table=coerce_table(table),
+                 blacklist=blacklist)
+    else:
+        raise ValueError("quant mode must be one of %s, got %r"
+                         % (MODES, mode))
+    return program

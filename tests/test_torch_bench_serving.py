@@ -205,18 +205,20 @@ def _tiny(module, monkeypatch):
 def test_main_serving_legs_keys_match_bench_py(monkeypatch, capsys,
                                                tmp_path):
     """``main --serving-only --spec-only --quant-only`` prints bench.py's
-    leg entries and result keys for the serving legs; bench.py's int8
-    predictor pair, not ported, is named under ``not_ported``, and the
-    fleet pair, ported, is not (``--fleet-only`` runs it: the test
-    above)."""
+    leg entries and result keys for the serving legs and the int8
+    predictor pair (bench_quant_predictor, ported), and names nothing
+    under ``not_ported``; the fleet pair is not named either
+    (``--fleet-only`` runs it: the test above)."""
     _tiny(pbench, monkeypatch)
     _tiny(jbench, monkeypatch)
     predictor = {"fp32_examples_per_sec": 1.0, "int8_examples_per_sec": 1.0,
                  "speedup_vs_fp32": 1.0, "max_abs_err": 0.0,
                  "top1_agreement": 1.0, "weight_bytes_saved_ratio": 0.5}
-    # the predictor pair's numbers do not matter here: only its keys,
-    # which the port names as not ported
+    # the predictor pair's numbers do not matter here, only its keys
+    # (tests/test_torch_inference.py runs both functions)
     monkeypatch.setattr(jbench, "bench_quant_predictor", lambda: predictor)
+    monkeypatch.setattr(pbench, "bench_quant_predictor",
+                        lambda place=None: predictor)
     flags = ["--serving-only", "--spec-only", "--quant-only"]
     got = pbench.main(flags + ["--place", "cpu"])
     printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -226,25 +228,20 @@ def test_main_serving_legs_keys_match_bench_py(monkeypatch, capsys,
     want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     with open(legs_out) as f:
         want_legs = json.load(f)
-    predictor_legs = {"quant_fp32_predictor", "quant_int8_predictor"}
-    assert [g["leg"] for g in got["legs"]] == [
-        g["leg"] for g in want_legs if g["leg"] not in predictor_legs]
-    for g, w in zip(got["legs"], [g for g in want_legs
-                                  if g["leg"] not in predictor_legs]):
+    assert [g["leg"] for g in got["legs"]] == [g["leg"] for g in want_legs]
+    for g, w in zip(got["legs"], want_legs):
         assert set(g) == set(w), g["leg"]
         for key in ("outputs_match", "tokens_per_step", "draft_steps",
-                    "tree_shape", "prefix_hit_rate", "token_agreement"):
+                    "tree_shape", "prefix_hit_rate", "token_agreement",
+                    "top1_agreement", "weight_bytes_saved_ratio"):
             assert g.get(key) == w.get(key), (g["leg"], key)
-    port_only = {"card", "legs", "not_ported"}
-    jax_only = {"vs_baseline"} | {k for k in want
-                                  if k.startswith("quant_")}
+    port_only = {"card", "legs"}
+    jax_only = {"vs_baseline"}
     assert set(got) - port_only == set(want) - jax_only
     for key in want:
         if key.endswith(("outputs_match", "hit_rate", "tokens_per_step",
                          "draft_steps", "accept_rate")):
             assert got[key] == want[key], key
     assert got["value"] == got["serving_tokens_per_sec_batched"]
-    assert len(got["not_ported"]) == 1
-    assert "bench_quant_predictor" in got["not_ported"][0]
-    assert not any("bench_serving_fleet" in n for n in got["not_ported"])
+    assert "not_ported" not in got
     assert "fleet" not in pbench.NOT_PORTED

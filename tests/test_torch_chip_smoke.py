@@ -58,7 +58,13 @@ a small width:
     legs pass; its launch accounting across replicas (a dead replica's
     steps included) sees a missing launch; its failover gates fail each
     planted fault (a second failover, a lost or failed request, no dead
-    replica, a dead pool holding a block, a wrong token)."""
+    replica, a dead pool holding a block, a wrong token);
+  * phase 10 (the inference predictor) on the CPU: 10a's four legs on
+    the small ResNet at batch 4, 10b's mnist cnn in full_int8 and 10c's
+    bench keys pass; 10a fails a skipped fold, K4 bypassed (the
+    classifier in fp32) and a 1% act-scale fault, 10b the act-scale
+    fault, and its gates on the card a missing, extra or fp32-leg K4
+    launch and a fold beyond its limit."""
 
 import importlib.util
 import json
@@ -895,3 +901,110 @@ def test_image_card_vs_cpu_catches_a_planted_fault(smoke, fault,
         assert line["worst_stat_err_over_limit"] > 1
     else:
         assert line["loss_rel_err"] > line["loss_limit"]
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the inference predictor on the CPU (the small ResNet at batch
+# 4, the mnist cnn at batch 4, the quant predictor bench), with planted
+# faults
+# ---------------------------------------------------------------------------
+
+
+def _predictor_checks(out):
+    return [json.loads(x.split(" ", 1)[1]) for x in out.splitlines()
+            if x.startswith("predictor_checks ")][0]
+
+
+def test_predictor_phase_on_the_cpu(smoke, capsys):
+    """10a on the small ResNet: four legs pass their gates (the passes
+    leave no batch_norm, the fold within its limit, the classifier
+    bitwise the plain version), then 10b's mnist cnn in full_int8 with
+    both convolutions on int8 operands, then 10c's bench keys."""
+    smoke.predictor_resnet_phase(torch, fluid, im, name="resnet8_bottleneck",
+                                 batch=4, device="cpu")
+    checks = _predictor_checks(capsys.readouterr().out)
+    assert checks["classifier_bitwise"] == [["fc_0.tmp_0", True]]
+    assert checks["fold_max_abs_diff"] <= smoke.PREDICT_FOLD_ATOL
+    smoke.predictor_mnist_phase(torch, fluid, im, batch=4,
+                                devices=("cpu", "cpu"))
+    line = [json.loads(x.split(" ", 1)[1])
+            for x in capsys.readouterr().out.splitlines()
+            if x.startswith("predictor_mnist ")][0]
+    assert line["int8_convolutions"] == 2
+    assert line["compiled_ops"]["fused_int8_matmul"] == 1
+    smoke.quant_bench_phase(im, place="cpu")
+    assert "quant_predictor_bench " in capsys.readouterr().out
+
+
+def _no_fold(program, scope=None):
+    return program
+
+
+def _fp32_classifier(impl, ctx, ins, attrs):
+    """K4 bypassed: the product in fp32 over the dequantized weight."""
+    x, w, dq = ins["X"][0], ins["Y"][0], ins["Scale"][0]
+    return {"Out": [x.reshape(x.shape[0], -1)
+                    @ (w.float() * dq * attrs["act_scale"])]}
+
+
+PREDICTOR_FAULTS = {"skipped_fold": "batch_norm ops left",
+                    "k4_bypassed": "classifier is not bitwise",
+                    "act_scale_1pct": "classifier is not bitwise"}
+
+
+@pytest.mark.parametrize("fault", sorted(PREDICTOR_FAULTS))
+def test_predictor_phase_catches_a_planted_fault(smoke, fault, monkeypatch,
+                                                 capsys):
+    from paddle_tpu_torch import ir
+
+    if fault == "skipped_fold":
+        monkeypatch.setattr(ir.get_pass("conv_bn_fold"), "apply", _no_fold)
+    else:
+        opdef = registry.get("fused_int8_matmul")
+        impl = opdef.impl
+        wrong = (_fp32_classifier if fault == "k4_bypassed"
+                 else _act_scale_one_percent)
+        monkeypatch.setattr(opdef, "impl", lambda ctx, ins, attrs: wrong(
+            impl, ctx, ins, attrs))
+    with pytest.raises(SystemExit):
+        smoke.predictor_resnet_phase(torch, fluid, im,
+                                     name="resnet8_bottleneck", batch=4,
+                                     device="cpu")
+    assert PREDICTOR_FAULTS[fault] in capsys.readouterr().err
+
+
+def test_predictor_mnist_catches_an_act_scale_fault(smoke, monkeypatch,
+                                                    capsys):
+    opdef = registry.get("fused_int8_matmul")
+    impl = opdef.impl
+    monkeypatch.setattr(opdef, "impl", lambda ctx, ins, attrs:
+                        _act_scale_one_percent(impl, ctx, ins, attrs))
+    with pytest.raises(SystemExit):
+        smoke.predictor_mnist_phase(torch, fluid, im, batch=4,
+                                    devices=("cpu", "cpu"))
+    assert "classifier is not bitwise" in capsys.readouterr().err
+
+
+def test_predictor_gates_count_k4_on_the_card(smoke):
+    """On the card the gates want K4 once a run at the classifier's shape
+    in full_int8 and never in the other legs: a missing launch, an extra
+    one or one in the fp32 leg fails."""
+    mkn = (64, 2048, 1000)
+    legs = {name: {"finite": True, "ops": {"batch_norm": 1}
+                   if name == "fp32_no_ir_optim" else {},
+                   "warmup": 3, "runs": 10,
+                   "k4_launches": {mkn: 13} if name == "full_int8" else {}}
+            for name, _, _ in smoke.PREDICT_LEGS}
+    checks = {"fold_max_abs_diff": 0.0, "fold_top1_rows_differing": [],
+              "classifier_bitwise": [("fc_0.tmp_0", True)]}
+    smoke.check_predictor_legs(legs, checks, True, mkn)
+    for leg, launches in (("full_int8", {mkn: 12}), ("full_int8", {}),
+                          ("fp32", {mkn: 13})):
+        wrong = dict(legs, **{leg: dict(legs[leg], k4_launches=launches)})
+        with pytest.raises(SystemExit):
+            smoke.check_predictor_legs(wrong, checks, True, mkn)
+    for wrong in (dict(fold_max_abs_diff=1e-4),
+                  dict(fold_top1_rows_differing=[3])):
+        with pytest.raises(SystemExit):
+            smoke.check_predictor_legs(legs, dict(checks, **wrong), True,
+                                       mkn)

@@ -62,6 +62,8 @@ def op_attrs(op):
             continue
         if k == "__fwd_op__":  # the forward op, by its place in the block
             v = ("op", v.block.ops.index(v), v.type)
+        elif type(v).__name__ == "Block":  # a sub-block, by its index
+            v = ("block", v.idx)
         out[k] = v
     return out
 
