@@ -318,6 +318,31 @@ Phases, each fatal on failure (exit code 1, no result line):
      convolutions' device ms a run. 10c: bench_quant_predictor through
      the port's bench, bench.py's keys. Phase 10 launches none of K1-K3;
      K4's rows at its five shapes are checked and timed.
+  11. the rest of benchmark/fluid's model set through the port's own
+     harness. 11a: ``paddle_tpu_torch.fluid_benchmark.run_static_model``
+     (Adam(0.01), RandomState(0)'s batch staged once, 5 warm-up and 10
+     timed steps, the loss fetched every step) in fp32 at full width and
+     each model's ``_DEFAULT_BATCH``: deepfm (vocab 1e5, 26 fields, embed
+     16, MLP 400x3, batch 256), stacked_dynamic_lstm (dict 30000,
+     emb/hid 128, 3 layers, seq 80, batch 32) and machine_translation
+     (vocab 10000, 512 wide, len 50, batch 16). Each prints the
+     harness's examples/sec line and JSON, then a ``bench_model`` line:
+     device and host ms a step, examples/s, peak GiB, a profiled step's
+     launches and the card's busy share. Fatal unless the losses are
+     finite and fall, and for deepfm one more run's AUC is finite and in
+     [0, 1] with StatPos + StatNeg summing to 256 x the runs. 11b:
+     word2vec at `build()`'s defaults (batch 64, the book test's
+     next-word data) trained the same way, its loss finite and falling;
+     the beam decoder at its defaults (batch 16): its sentence ids equal
+     a numpy backtrack of the per-step ids and parents it stacked, every
+     parent in [0, beam). 11c: two fp32 Adam steps of a reduced DeepFM
+     and a 2-layer stacked LSTM (seq 16) on cuda:0 and on the CPU from
+     one state: the loss to rtol 1e-5, every grad within fp32's
+     STEP_TOL (1e-3 of its tensor's largest plus 1e-7 of the largest of
+     all), every parameter within what those grads let Adam move it,
+     DeepFM's StatPos / StatNeg bitwise (``tests/
+     test_torch_chip_smoke_models.py`` runs 11c on two CPU executors with
+     planted faults). Phase 11 launches none of K1-K4.
 
 Then one JSON line ``{"kernels": [...]}`` (every kernel of every path,
 each with the launches of its path's run; a kernel launched no time there
@@ -4909,6 +4934,360 @@ def predictor_kernel_rows(torch, im, launches):
 
 
 
+# phase 11: the rest of benchmark/fluid's model set through the port's
+# own harness, paddle_tpu_torch.fluid_benchmark (run_static_model: the
+# JAX harness's recipe, :223-300), at full width and each model's
+# _DEFAULT_BATCH; then word2vec and the beam decoder; then two Adam steps
+# of reduced DeepFM and stacked-LSTM programs on the card and on the CPU
+BENCH_MODELS = ("deepfm", "stacked_dynamic_lstm", "machine_translation")
+BENCH_STEPS = (5, 10)               # skip_batch_num, iterations
+WORD2VEC_BATCH = 64                 # the JAX book test's
+BEAM_BATCH = 16
+# 11c: program name -> (build(models), batch)
+BENCH_CVC = {
+    "deepfm": (lambda m: m.deepfm.build(
+        sparse_feature_dim=1000, num_fields=26, dense_dim=13, embed_dim=16,
+        mlp_dims=(64, 64))[2:], 64),
+    "stacked_lstm": (lambda m: (m.stacked_lstm.build(
+        dict_size=1000, emb_dim=32, hid_dim=32, stacked_num=2,
+        seq_len=16)[4], None), 8),
+}
+BENCH_CVC_LR = 0.01
+
+
+def auc_stats(main):
+    """(AUC var, [StatPos, StatNeg] names) of the program's auc op, or
+    None."""
+    for op in main.global_block().ops:
+        if op.type == "auc":
+            return op.outputs["AUC"][0], [op.inputs["StatPos"][0].name,
+                                          op.inputs["StatNeg"][0].name]
+    return None
+
+
+def bench_model_leg(torch, model, steps=BENCH_STEPS, argv=(), profile=True):
+    """One leg of phase 11a: ``fluid_benchmark.run_static_model`` on
+    `model` (its examples/sec line and, with --json, the harness's JSON
+    line), then for a program with an auc op one more run fetching the
+    AUC. Returns what the gates and the bench_model line read."""
+    from paddle_tpu_torch import fluid_benchmark
+
+    warmup, timed = steps
+    args = fluid_benchmark.parse_args(
+        ["--model", model, "--skip_batch_num", str(warmup), "--iterations",
+         str(timed), "--json"] + list(argv))
+    record = {}
+    rec = fluid_benchmark.run_static_model(args, record)
+    print(json.dumps(rec), flush=True)
+    exe, main, scope = record["exe"], record["program"], record["scope"]
+    on_card = exe.device.type == "cuda"
+    leg = {"leg": model, "batch": record["batch"], "warmup": warmup,
+           "steps": timed, "runs": warmup + timed,
+           "params": len(main.param_grad_map), "losses": record["losses"],
+           "harness": rec, "host_ms_each": record["host_ms"]}
+    auc = auc_stats(main)
+    if auc is not None:
+        out, = exe.run(main, feed=record["feed"], fetch_list=[auc[0]],
+                       scope=scope)
+        leg["auc"] = float(out[0])
+        leg["auc_runs"] = leg["runs"] + 1
+        leg["auc_stats_total"] = sum(float(scope.get(n).sum())
+                                     for n in auc[1])
+    if on_card:
+        dev = float(np.mean(record["step_ms"]))
+        leg.update(device_ms_per_step=dev,
+                   host_ms_per_step=float(np.mean(record["host_ms"])),
+                   examples_per_s=leg["batch"] / dev * 1e3,
+                   harness_examples_per_s=record["examples_per_sec"],
+                   peak_gib=record["peak_bytes"] / 2 ** 30,
+                   step_ms_each=record["step_ms"])
+        if profile:
+            leg["profile"] = update_cost_profile(
+                torch, exe, main, record["feed"], [record["loss"]], scope)
+            leg["launches_per_step"] = leg["profile"]["launches_per_step"]
+            # the card's busy share of a timed step
+            leg["busy_share"] = leg["profile"]["device_busy_ms"] / dev
+    record.clear()
+    del exe, scope
+    return leg
+
+
+def check_bench_leg(leg):
+    """Phase 11's gates on a training leg: the losses finite and falling
+    over the runs (the batch is fixed); with an auc op, the AUC finite
+    and in [0, 1] and the histograms' counts the batch times the runs."""
+    name, losses = leg["leg"], leg["losses"]
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        fail("bench_model %s: losses not finite and falling: %r"
+             % (name, losses))
+    if "auc" in leg:
+        if not (np.isfinite(leg["auc"]) and 0.0 <= leg["auc"] <= 1.0):
+            fail("bench_model %s: AUC %r" % (name, leg["auc"]))
+        want = leg["batch"] * leg["auc_runs"]
+        if leg["auc_stats_total"] != want:
+            fail("bench_model %s: StatPos + StatNeg hold %r counts, not "
+                 "batch x runs = %d" % (name, leg["auc_stats_total"], want))
+
+
+def word2vec_leg(torch, fluid, device=None, batch=WORD2VEC_BATCH,
+                 steps=BENCH_STEPS):
+    """Phase 11b's word2vec: `build()`'s defaults (dict 2073, embed 32,
+    hidden 256) under Adam(0.01), the book test's next-word batch (the
+    next word is the context's sum mod dict_size) staged once, the
+    harness's warm-up and timed steps."""
+    from paddle_tpu_torch.models import word2vec
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        words, _, loss = word2vec.build()
+        fluid.optimizer.Adam(0.01).minimize(loss)
+    exe, scope = fluid.Executor(device), fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(0)
+    ctx = rng.randint(0, 2073, (batch, 4)).astype(np.int64)
+    nxt = (ctx.sum(1) % 2073).astype(np.int64)[:, None]
+    cols = [ctx[:, i:i + 1] for i in range(4)] + [nxt]
+    feed = {w.name: torch.from_numpy(c).to(exe.device)
+            for w, c in zip(words, cols)}
+    on_card = exe.device.type == "cuda"
+    warmup, timed = steps
+    outs, marks = [], []
+    for i in range(warmup + timed):
+        if on_card and i >= warmup:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        outs.append(exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                            return_numpy=False))
+    leg = {"leg": "word2vec", "batch": batch, "warmup": warmup,
+           "steps": timed,
+           "losses": [float(o[0].float().cpu()[0]) for o in outs]}
+    if on_card:
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        torch.cuda.synchronize()
+        dev = float(np.mean([a.elapsed_time(b)
+                             for a, b in zip(marks, marks[1:])]))
+        leg.update(device_ms_per_step=dev,
+                   examples_per_s=batch / dev * 1e3)
+    return leg
+
+
+def beam_decoder_leg(torch, fluid, device=None, batch=BEAM_BATCH):
+    """Phase 11b's beam decoder: ``build_beam_decoder()`` at its defaults
+    (dict 30000, beam 2, 8 steps, source length 8) on a RandomState(0)
+    source batch, lane 0 live and the other at -1e9; fetches the
+    sentences and the stacked per-step ids and parents the decode op
+    reads (``check_beam_decode``)."""
+    from paddle_tpu_torch.models import machine_translation as mt
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _, sent_ids, sent_scores = mt.build_beam_decoder()
+    beam = 2
+    decode = next(op for op in main.global_block().ops
+                  if op.type == "beam_search_decode")
+    exe, scope = fluid.Executor(device), fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(0)
+    scores = np.full((batch, beam), -1e9, np.float32)
+    scores[:, 0] = 0.0
+    feed = {"bd_src": rng.randint(2, 30000, (batch, 8)).astype(np.int64),
+            "bd_init_ids": np.full((batch, beam), 2, np.int64),
+            "bd_init_scores": scores}
+    fetch = [sent_ids, sent_scores, decode.inputs["Ids"][0],
+             decode.inputs["Parents"][0]]
+    t0 = time.perf_counter()
+    ids, sc, step_ids, parents = exe.run(main, feed=feed, fetch_list=fetch,
+                                         scope=scope)
+    return {"leg": "beam_decoder", "batch": batch, "beam": beam,
+            "ids": ids, "scores": sc, "step_ids": step_ids,
+            "parents": parents, "run_s": time.perf_counter() - t0}
+
+
+def check_beam_decode(leg):
+    """The decoder's sentences equal a numpy backtrack of the per-step
+    ids and parents ([T, batch, beam]) it stacked; every parent lies in
+    [0, beam); the scores are finite."""
+    ids, parents, beam = leg["step_ids"], leg["parents"], leg["beam"]
+    T, B, W = ids.shape
+    if parents.min() < 0 or parents.max() >= beam:
+        fail("beam decoder: a parent index outside [0, %d): %r"
+             % (beam, (int(parents.min()), int(parents.max()))))
+    want = np.zeros((B, W, T), np.int64)
+    ptr = np.tile(np.arange(W), (B, 1))
+    for t in range(T - 1, -1, -1):
+        want[:, :, t] = np.take_along_axis(ids[t], ptr, axis=1)
+        ptr = np.take_along_axis(parents[t], ptr, axis=1)
+    if not np.array_equal(leg["ids"], want):
+        bad = np.argwhere(leg["ids"] != want)[0]
+        fail("beam decoder: sentence ids differ from the backtrack of the "
+             "per-step ids at %r" % (bad.tolist(),))
+    if not np.isfinite(leg["scores"]).all():
+        fail("beam decoder: scores not finite")
+
+
+def bench_models_phase(torch, fluid, device=None, models=BENCH_MODELS,
+                       steps=BENCH_STEPS, argv=()):
+    """Phases 11a and 11b on `device` (None: cuda:0): each model through
+    the harness, gated and printed on a bench_model line, then word2vec
+    and the beam decoder."""
+    for model in models:
+        gc.collect()
+        if device is None:
+            torch.cuda.empty_cache()
+        leg = bench_model_leg(torch, model, steps, argv,
+                              profile=device is None)
+        check_bench_leg(leg)
+        print("bench_model " + json.dumps(dict(
+            {k: v for k, v in leg.items() if k != "profile"},
+            profile={k: leg["profile"][k] for k in (
+                "launches_per_step", "device_busy_ms", "runtime_calls",
+                "update", "top_kernels")} if "profile" in leg else None,
+            card=card_line() if device is None else None)), flush=True)
+    leg = word2vec_leg(torch, fluid, device, steps=steps)
+    check_bench_leg(leg)
+    print("bench_model " + json.dumps(leg), flush=True)
+    leg = beam_decoder_leg(torch, fluid, device)
+    check_beam_decode(leg)
+    print("beam_decoder " + json.dumps({
+        "batch": leg["batch"], "beam": leg["beam"],
+        "steps": int(leg["step_ids"].shape[0]), "run_s": leg["run_s"],
+        "first_sentence": leg["ids"][0, 0].tolist(),
+        "first_scores": leg["scores"][0].tolist()}), flush=True)
+
+
+def build_bench_cvc(fluid, name):
+    """Phase 11c's program `name` in fp32 under Adam(BENCH_CVC_LR):
+    (main, startup, loss, auc)."""
+    from paddle_tpu_torch import models
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        loss, auc = BENCH_CVC[name][0](models)
+        fluid.optimizer.Adam(BENCH_CVC_LR).minimize(loss)
+    return main, startup, loss, auc
+
+
+def bench_cvc_feed(torch, name, device):
+    """Phase 11c's fixed batch for program `name` (RandomState(0)), as
+    tensors on `device`."""
+    rng = np.random.RandomState(0)
+    batch = BENCH_CVC[name][1]
+    if name == "deepfm":
+        f = {"sparse_ids": rng.randint(0, 1000, (batch, 26)),
+             "dense_x": rng.rand(batch, 13).astype(np.float32),
+             "label": rng.randint(0, 2, (batch, 1))}
+    else:
+        f = {"words": rng.randint(0, 1000, (batch, 16)),
+             "label": rng.randint(0, 2, (batch, 1)),
+             "seq_len": rng.randint(4, 17, (batch, 1))}
+    return {k: torch.from_numpy(np.asarray(v)).to(device)
+            for k, v in f.items()}
+
+
+def bench_card_vs_cpu_phase(torch, fluid, name, devices=("cuda:0", "cpu"),
+                            steps=2):
+    """Phase 11c for program `name`: `steps` Adam steps on devices[0]
+    (the card) and devices[1] (the CPU), each from the same state (the
+    startup's on the card copied to the CPU; before each later step the
+    CPU's whole state set on the card). Each step is held to fp32's
+    STEP_TOL: the loss to loss_rtol, every grad to grad_rtol of its
+    tensor's largest plus floor_rel of the largest of all, every
+    parameter after it within 2 ulps plus what grads that far apart let
+    Adam move it (``adam_param_limit``), and an auc op's StatPos /
+    StatNeg bitwise. The tests pass two CPUs and plant faults in the
+    first."""
+    main, startup, loss, _ = build_bench_cvc(fluid, name)
+    tol = STEP_TOL["float32"]
+    rel, bits = tol["grad_rtol"], tol["mantissa_bits"]
+    params = sorted(main.param_grad_map)
+    auc = auc_stats(main)
+    stats = auc[1] if auc else []
+    fetch = [loss] + [main.param_grad_map[p] for p in params]
+    exe_c, exe_h = fluid.Executor(devices[0]), fluid.Executor(devices[1])
+    scope_c, scope_h = fluid.Scope(), fluid.Scope()
+    exe_c.run(startup, scope=scope_c)
+    state = [n for n in scope_c.local_var_names() if n != "__step_counter__"]
+    for n in state:
+        scope_h.set(n, scope_c.get(n).to("cpu", copy=True))
+    worst = {k: (0.0, "") for k in ("loss", "grad", "param")}
+    stats_differ = []
+    g_ref = {p: [] for p in params}
+    t0 = time.perf_counter()
+    for step in range(steps):
+        if step:
+            for n in state:
+                scope_c.set(n, scope_h.get(n).to(exe_c.device, copy=True))
+        start = {p: scope_h.get(p).float().numpy().copy() for p in params}
+        c = exe_c.run(main, feed=bench_cvc_feed(torch, name, exe_c.device),
+                      fetch_list=fetch, scope=scope_c)
+        h = exe_h.run(main, feed=bench_cvc_feed(torch, name, exe_h.device),
+                      fetch_list=fetch, scope=scope_h)
+        tag = "@%d" % (step + 1)
+        worst["loss"] = max(worst["loss"], (abs(float(c[0][0]) - float(
+            h[0][0])) / abs(float(h[0][0])), "loss" + tag))
+        floor = tol["floor_rel"] * max(float(np.abs(g).max())
+                                       for g in h[1:])
+        for p, gc_, gh in zip(params, c[1:], h[1:]):
+            lim = rel * float(np.abs(gh).max()) + floor
+            worst["grad"] = max(worst["grad"], (
+                float(np.abs(gc_ - gh).max()) / lim, p + tag))
+            g_ref[p].append(gh)
+            # the earlier steps' grads are the same on both: one state
+            g_err = [np.zeros_like(gh)] * step + [np.full_like(gh, lim)]
+            pc = scope_c.get(p).float().cpu().numpy()
+            ph = scope_h.get(p).float().numpy()
+            mag = np.maximum(np.maximum(np.abs(pc), np.abs(ph)),
+                             np.abs(start[p]))
+            p_lim = adam_param_limit(g_ref[p], g_err,
+                                     [BENCH_CVC_LR] * (step + 1), 0.9,
+                                     0.999) + 2 * ulp(mag, bits)
+            worst["param"] = max(worst["param"], (
+                float((np.abs(pc - ph) / p_lim).max()), p + tag))
+        for n in stats:
+            if not torch.equal(scope_c.get(n).cpu(), scope_h.get(n)):
+                stats_differ.append(n + tag)
+    report = {"program": name, "batch": BENCH_CVC[name][1], "steps": steps,
+              "params": len(params), "loss_rel_err": worst["loss"][0],
+              "loss_limit": tol["loss_rtol"], "grad_rtol": rel,
+              "worst_grad_err_over_limit": worst["grad"][0],
+              "worst_grad": worst["grad"][1],
+              "worst_param_err_over_limit": worst["param"][0],
+              "worst_param": worst["param"][1],
+              "auc_stats_checked": len(stats) * steps,
+              "auc_stats_differ": stats_differ,
+              "seconds": time.perf_counter() - t0}
+    print("card_vs_cpu_bench " + json.dumps(report), flush=True)
+    if worst["loss"][0] > tol["loss_rtol"]:
+        fail("card vs CPU %s: the %s differs by %.3g (rel > %g)"
+             % (name, worst["loss"][1], worst["loss"][0], tol["loss_rtol"]))
+    for k, what in (("grad", "the grad of"), ("param", "the parameter")):
+        if worst[k][0] > 1:
+            fail("card vs CPU %s: %s %s differs by %.3g of its limit"
+                 % (name, what, worst[k][1], worst[k][0]))
+    if stats_differ:
+        fail("card vs CPU %s: the AUC histograms differ: %r"
+             % (name, stats_differ))
+    return report
+
+
+def bench_phase_11(torch, fluid, fa, pa, pat, im):
+    """Phase 11 on cuda:0: 11a and 11b (``bench_models_phase``), then 11c
+    for both programs; none of K1-K4 may launch."""
+    t11 = time.perf_counter()
+    before = kernel_launch_totals(fa, pa, pat, im)
+    bench_models_phase(torch, fluid)
+    for name in sorted(BENCH_CVC):
+        bench_card_vs_cpu_phase(torch, fluid, name)
+    after = kernel_launch_totals(fa, pa, pat, im)
+    print("bench_phase " + json.dumps({
+        "seconds": time.perf_counter() - t11, "launches_before": before,
+        "launches_after": after}), flush=True)
+    if after != before:
+        fail("phase 11 launched a hand-written kernel: %r -> %r"
+             % (before, after))
+
+
 def main():
     try:
         import torch
@@ -5055,6 +5434,9 @@ def main():
     k4_predictor = predictor_phase(torch, fluid, im_mod, pa_mod, pat_mod,
                                    fa_mod)
     int8_rows += predictor_kernel_rows(torch, im_mod, k4_predictor)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bench_phase_11(torch, fluid, fa_mod, pa_mod, pat_mod, im_mod)
     kernels = rows + tree_rows + list(flash_rows.values()) + int8_rows
     idle = [(r["name"], r.get("C"), r.get("shape")) for r in kernels
             if not r.get("launches")]

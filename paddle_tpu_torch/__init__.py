@@ -34,7 +34,11 @@ the builders ``models.mnist``, ``models.resnet``, ``models.vgg`` and
 ``inference.AnalysisConfig`` -> ``create_paddle_predictor``: the
 load-time passes ``conv_bn_fold``, ``dropout_remove`` and
 ``conv_elementwise_add_fuse``, and ``enable_quantize("full_int8" |
-"weight_only")``):
+"weight_only")``), and the rest of benchmark/fluid's model set
+(``models.deepfm``, ``models.word2vec``, ``models.stacked_lstm``,
+``models.machine_translation`` with its beam decoder, over the tensor,
+sequence and recurrent ops, ``auc`` and beam search) with the port's
+harness (``python -m paddle_tpu_torch.fluid_benchmark``):
 
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import transformer_fluid

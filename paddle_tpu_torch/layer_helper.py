@@ -90,6 +90,24 @@ class LayerHelper:
             name=unique_name.generate(".".join([self.name, "tmp"])),
             dtype=dtype, stop_gradient=stop_gradient)
 
+    def create_global_variable(self, persistable=False, **kwargs):
+        """A var of the main program's global block (a persistable one
+        for state that a run carries to the next, such as AUC's
+        histogram)."""
+        name = kwargs.pop("name", None) or unique_name.generate(
+            ".".join([self.name, "tmp"]))
+        return self.main_program.global_block().create_var(
+            name=name, persistable=persistable, **kwargs)
+
+    def set_variable_initializer(self, var, initializer):
+        """`var`'s init op, `initializer`, in the startup program."""
+        sgb = self.startup_program.global_block()
+        sv = sgb.var(var.name) if sgb.has_var(var.name) else sgb.create_var(
+            name=var.name, shape=var.shape, dtype=var.dtype,
+            persistable=True)
+        initializer(sv, sgb)
+        return var
+
     # -- ops ----------------------------------------------------------------
     def append_op(self, type, inputs=None, outputs=None, attrs=None):
         from .ops import registry as _reg

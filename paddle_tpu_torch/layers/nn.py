@@ -1,7 +1,8 @@
 """NN layers (parity: the JAX package's ``layers/nn.py``): the layers the
 Fluid-API Transformer LM, its dropout path, the gradient clips, the
-learning-rate schedules and the image classifiers (conv2d, pool2d,
-batch_norm, cross_entropy) are built from. Each appends ops to the
+learning-rate schedules, the image classifiers (conv2d, pool2d,
+batch_norm, cross_entropy) and the benchmark models (the tensor layers,
+topk, the sigmoid and log losses) are built from. Each appends ops to the
 current block through LayerHelper, exactly as the JAX package's layers
 do."""
 
@@ -32,7 +33,12 @@ __all__ = [
     "matmul", "mul", "softmax", "dropout",
     "transpose", "split", "clip", "clip_by_norm", "pow", "sign",
     "mean", "square_error_cost", "conv2d", "pool2d", "batch_norm",
-    "cross_entropy",
+    "cross_entropy", "one_hot", "topk", "squeeze", "unsqueeze", "flatten",
+    "stack", "unstack", "expand", "gather", "gather_nd", "scatter", "pad",
+    "pad2d", "pad_constant_like", "label_smooth",
+    "sigmoid_cross_entropy_with_logits", "log_loss", "where", "multiplex",
+    "uniform_random_batch_size_like", "gaussian_random_batch_size_like",
+    "sampling_id",
 ] + list(_ACTIVATIONS + _ELEMENTWISE + _COMPARE + _LOGICAL)
 
 
@@ -686,4 +692,287 @@ def cross_entropy(input, label, soft_label=False, ignore_index=-100):
         attrs={"soft_label": soft_label, "ignore_index": ignore_index})
     if input.shape is not None:
         out.shape = tuple(input.shape[:-1]) + (1,)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the tensor layers over ops/tensor_ops.py, top-k and the sigmoid and log
+# losses (the JAX package's layers/nn.py one_hot :381 to label_smooth
+# :657, sigmoid_cross_entropy_with_logits :974, log_loss :1005, where
+# :1539 to sampling_id :1614)
+# ---------------------------------------------------------------------------
+
+
+def one_hot(input, depth):
+    helper = LayerHelper("one_hot", **locals())
+    out = helper.create_variable_for_type_inference(dtype="float32")
+    helper.append_op(type="one_hot", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"depth": depth})
+    if input.shape is not None:
+        base = input.shape[:-1] if input.shape[-1] == 1 else input.shape
+        out.shape = tuple(base) + (depth,)
+    out.stop_gradient = True
+    return out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", **locals())
+    values = helper.create_variable_for_type_inference(dtype=input.dtype)
+    indices = helper.create_variable_for_type_inference(dtype="int64")
+    helper.append_op(type="top_k", inputs={"X": [input]},
+                     outputs={"Out": [values], "Indices": [indices]},
+                     attrs={"k": k})
+    if input.shape is not None:
+        values.shape = tuple(input.shape[:-1]) + (k,)
+        indices.shape = values.shape
+    indices.stop_gradient = True
+    return values, indices
+
+
+def _with_xshape(layer, op_type, x, attrs, name):
+    """Append an op of the ``*2`` form (Out and a stop-gradient XShape)."""
+    helper = LayerHelper(layer, name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    xshape = helper.create_variable_for_type_inference(dtype=x.dtype,
+                                                       stop_gradient=True)
+    helper.append_op(type=op_type, inputs={"X": [x]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs=attrs)
+    return out
+
+
+def squeeze(input, axes, name=None):
+    out = _with_xshape("squeeze", "squeeze2", input, {"axes": axes},
+                       name)
+    if input.shape is not None:
+        drop = [a % len(input.shape) for a in axes]
+        out.shape = tuple(d for i, d in enumerate(input.shape)
+                          if i not in drop)
+    return out
+
+
+def unsqueeze(input, axes, name=None):
+    out = _with_xshape("unsqueeze", "unsqueeze2", input, {"axes": axes},
+                       name)
+    if input.shape is not None:
+        s = list(input.shape)
+        for a in sorted(axes):
+            s.insert(a, 1)
+        out.shape = tuple(s)
+    return out
+
+
+def flatten(x, axis=1, name=None):
+    out = _with_xshape("flatten", "flatten2", x, {"axis": axis}, name)
+    if x.shape is not None:
+        lead = int(np.prod(x.shape[:axis])) if axis > 0 else 1
+        rest = int(np.prod(x.shape[axis:]))
+        if any(d == -1 for d in x.shape[:axis]):
+            lead = -1
+        out.shape = (lead, rest)
+    return out
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack", **locals())
+    x = x if isinstance(x, (list, tuple)) else [x]
+    out = helper.create_variable_for_type_inference(dtype=x[0].dtype)
+    helper.append_op(type="stack", inputs={"X": x}, outputs={"Y": [out]},
+                     attrs={"axis": axis})
+    if x[0].shape is not None:
+        s = list(x[0].shape)
+        s.insert(axis % (len(s) + 1), len(x))
+        out.shape = tuple(s)
+    return out
+
+
+def unstack(x, axis=0, num=None):
+    helper = LayerHelper("unstack", **locals())
+    if num is None:
+        num = x.shape[axis]
+    outs = [helper.create_variable_for_type_inference(x.dtype)
+            for _ in range(num)]
+    helper.append_op(type="unstack", inputs={"X": [x]}, outputs={"Y": outs},
+                     attrs={"axis": axis, "num": num})
+    s = list(x.shape)
+    del s[axis % len(s)]
+    for o in outs:
+        o.shape = tuple(s)
+    return outs
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper("expand", **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="expand", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"expand_times": list(expand_times)})
+    if x.shape is not None:
+        out.shape = tuple(d * t if d != -1 else -1
+                          for d, t in zip(x.shape, expand_times))
+    return out
+
+
+def gather(input, index, overwrite=True):
+    helper = LayerHelper("gather", **locals())
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="gather", inputs={"X": [input], "Index": [index]},
+                     outputs={"Out": [out]})
+    if input.shape is not None and index.shape is not None:
+        out.shape = (index.shape[0],) + tuple(input.shape[1:])
+    return out
+
+
+def gather_nd(input, index, name=None):
+    helper = LayerHelper("gather_nd", **locals())
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="gather_nd",
+                     inputs={"X": [input], "Index": [index]},
+                     outputs={"Out": [out]})
+    if input.shape is not None and index.shape is not None:
+        out.shape = tuple(index.shape[:-1]) + tuple(
+            input.shape[index.shape[-1]:])
+    return out
+
+
+def scatter(input, index, updates, name=None, overwrite=True):
+    helper = LayerHelper("scatter", **locals())
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        type="scatter",
+        inputs={"X": [input], "Ids": [index], "Updates": [updates]},
+        outputs={"Out": [out]}, attrs={"overwrite": overwrite})
+    out.shape = input.shape
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper("pad", **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="pad", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"paddings": list(paddings),
+                            "pad_value": float(pad_value)})
+    if x.shape is not None:
+        out.shape = tuple(d + paddings[2 * i] + paddings[2 * i + 1]
+                          if d != -1 else -1 for i, d in enumerate(x.shape))
+    return out
+
+
+def pad2d(input, paddings=(0, 0, 0, 0), mode="constant", pad_value=0.0,
+          data_format="NCHW", name=None):
+    helper = LayerHelper("pad2d", **locals())
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        type="pad2d", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"paddings": list(paddings), "mode": mode,
+               "pad_value": float(pad_value), "data_format": data_format})
+    if input.shape is not None:
+        s = list(input.shape)
+        h = 2 if data_format == "NCHW" else 1
+        s[h] += paddings[0] + paddings[1]
+        s[h + 1] += paddings[2] + paddings[3]
+        out.shape = tuple(s)
+    return out
+
+
+def pad_constant_like(x, y, pad_value=0.0, name=None):
+    helper = LayerHelper("pad_constant_like", **locals())
+    out = helper.create_variable_for_type_inference(dtype=y.dtype)
+    helper.append_op(type="pad_constant_like", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"pad_value": float(pad_value)})
+    out.shape = x.shape
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    helper = LayerHelper("label_smooth", **locals())
+    out = helper.create_variable_for_type_inference(dtype)
+    inputs = {"X": [label]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist]
+    helper.append_op(type="label_smooth", inputs=inputs,
+                     outputs={"Out": [out]},
+                     attrs={"epsilon": float(epsilon)})
+    out.shape = label.shape
+    return out
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
+                                      name=None, normalize=False):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(
+        type="sigmoid_cross_entropy_with_logits",
+        inputs={"X": [x], "Label": [label]}, outputs={"Out": [out]},
+        attrs={"ignore_index": ignore_index, "normalize": normalize})
+    out.shape = x.shape
+    return out
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    helper = LayerHelper("log_loss", **locals())
+    loss = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="log_loss",
+                     inputs={"Predicted": [input], "Labels": [label]},
+                     outputs={"Loss": [loss]}, attrs={"epsilon": epsilon})
+    loss.shape = input.shape
+    return loss
+
+
+def where(condition):
+    helper = LayerHelper("where", **locals())
+    out = helper.create_variable_for_type_inference(dtype="int64")
+    helper.append_op(type="where", inputs={"Condition": [condition]},
+                     outputs={"Out": [out]})
+    out.stop_gradient = True
+    return out
+
+
+def multiplex(inputs, index):
+    helper = LayerHelper("multiplex", **locals())
+    out = helper.create_variable_for_type_inference(dtype=inputs[0].dtype)
+    helper.append_op(type="multiplex", inputs={"X": inputs, "Ids": [index]},
+                     outputs={"Out": [out]})
+    out.shape = inputs[0].shape
+    return out
+
+
+def _random_batch_size_like(op_type, input, attrs):
+    helper = LayerHelper(op_type)
+    out = helper.create_variable_for_type_inference(attrs["dtype"])
+    helper.append_op(type=op_type, inputs={"Input": [input]},
+                     outputs={"Out": [out]}, attrs=attrs)
+    out.stop_gradient = True
+    return out
+
+
+def uniform_random_batch_size_like(input, shape, dtype="float32",
+                                   input_dim_idx=0, output_dim_idx=0,
+                                   min=-1.0, max=1.0, seed=0):
+    return _random_batch_size_like(
+        "uniform_random_batch_size_like", input,
+        {"shape": list(shape), "dtype": dtype,
+         "input_dim_idx": input_dim_idx, "output_dim_idx": output_dim_idx,
+         "min": min, "max": max, "seed": seed})
+
+
+def gaussian_random_batch_size_like(input, shape, input_dim_idx=0,
+                                    output_dim_idx=0, mean=0.0, std=1.0,
+                                    seed=0, dtype="float32"):
+    return _random_batch_size_like(
+        "gaussian_random_batch_size_like", input,
+        {"shape": list(shape), "dtype": dtype,
+         "input_dim_idx": input_dim_idx, "output_dim_idx": output_dim_idx,
+         "mean": mean, "std": std, "seed": seed})
+
+
+def sampling_id(x, min=0.0, max=1.0, seed=0, dtype="float32"):
+    helper = LayerHelper("sampling_id", **locals())
+    out = helper.create_variable_for_type_inference(dtype="int64")
+    helper.append_op(type="sampling_id", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"seed": seed})
+    out.shape = (x.shape[0],)
+    out.stop_gradient = True
     return out

@@ -6,7 +6,7 @@ from ..framework import Variable, convert_dtype
 from ..layer_helper import LayerHelper
 
 __all__ = ["create_parameter", "cast", "concat", "sums", "assign",
-           "fill_constant"]
+           "fill_constant", "ones", "zeros", "zeros_like", "reverse"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -86,4 +86,33 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None):
                             "value": float(value)})
     out.shape = tuple(shape)
     out.stop_gradient = True
+    return out
+
+
+def ones(shape, dtype, force_cpu=False):
+    return fill_constant(shape=shape, dtype=dtype, value=1.0)
+
+
+def zeros(shape, dtype, force_cpu=False):
+    return fill_constant(shape=shape, dtype=dtype, value=0.0)
+
+
+def zeros_like(x, out=None):
+    helper = LayerHelper("zeros_like")
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="fill_zeros_like", inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    out.shape = x.shape
+    return out
+
+
+def reverse(x, axis):
+    helper = LayerHelper("reverse", **locals())
+    if isinstance(axis, int):
+        axis = [axis]
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="reverse", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    out.shape = x.shape
     return out

@@ -5,4 +5,5 @@ at its first use on a CUDA device (``ops/_build.py``)."""
 
 from . import (activations, compat_ops, controlflow, conv,  # noqa: F401
                elementwise, fused_tail_ops, loss_ops, math, metric_ops,
-               nn_ops, optimizer_ops, quant_ops, reduce)
+               misc_ops, nn_ops, optimizer_ops, quant_ops, reduce, rnn_ops,
+               sequence_ops, tensor_ops)

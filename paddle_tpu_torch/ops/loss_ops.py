@@ -1,7 +1,8 @@
-"""Cross-entropy over probabilities (parity: the JAX package's
+"""Cross-entropy over probabilities and the sigmoid and log losses (parity: the JAX package's
 ``ops/loss_ops.py`` `_take_label_prob` :16-21, cross_entropy :24-37 and
-cross_entropy2 :40-45). The softmax form, softmax_with_cross_entropy, is
-in ``nn_ops.py``."""
+cross_entropy2 :40-45, sigmoid_cross_entropy_with_logits :135 and
+log_loss :173). The softmax form, softmax_with_cross_entropy, is in
+``nn_ops.py``."""
 
 import torch
 
@@ -42,3 +43,32 @@ def _cross_entropy2(ctx, ins, attrs):
     p = _take_label_prob(x, label)
     return {"Y": [_neg_log(p)], "MatchX": [p],
             "XShape": [x.new_zeros((0,) + tuple(x.shape))]}
+
+
+@register("sigmoid_cross_entropy_with_logits", nondiff_inputs=("Label",))
+def _sigmoid_ce(ctx, ins, attrs):
+    """max(x, 0) - x * label + softplus(-|x|) (the JAX op's formula,
+    softplus as logaddexp(., 0) like jax.nn.softplus), 0 where the label
+    is `ignore_index`; `normalize` scales by size / the count of the
+    other labels (at least 1). At x = 0 the grads are jnp's: max's split
+    evenly (torch.maximum's too), |x|'s +1 (torch.abs's would be 0, so
+    -|x| is formed as where(x >= 0, -x, x))."""
+    x, label = ins["X"][0], ins["Label"][0]
+    ignore_index = attrs.get("ignore_index", -100)
+    zero = torch.zeros_like(x)
+    loss = torch.maximum(x, zero) - x * label \
+        + torch.logaddexp(torch.where(x >= 0, -x, x), zero)
+    ignored = label == ignore_index
+    loss = torch.where(ignored, zero, loss)
+    if attrs.get("normalize", False):
+        n_valid = torch.clamp_min((~ignored).to(x.dtype).sum(), 1.0)
+        loss = loss * (loss.numel() / n_valid)
+    return {"Out": [loss]}
+
+
+@register("log_loss", nondiff_inputs=("Labels",))
+def _log_loss(ctx, ins, attrs):
+    p, label = ins["Predicted"][0], ins["Labels"][0]
+    eps = attrs.get("epsilon", 1e-4)
+    return {"Loss": [-label * torch.log(p + eps)
+                     - (1.0 - label) * torch.log(1.0 - p + eps)]}

@@ -1,8 +1,9 @@
 """Core math and tensor-creation ops (parity: the JAX package's
-``ops/math.py`` fill_constant :21, fill_any_like :48, uniform_random :60,
-gaussian_random, assign_value :99, shape :110, fused_int8_matmul :193,
-assign :91, matmul :175, mul :223, scale :238, sum :245, cast :254, sign
-:259, clip :264, clip_by_norm :269, squared_l2_norm :295)."""
+``ops/math.py`` fill_constant :21, fill_zeros_like :43, fill_any_like
+:48, uniform_random :60, gaussian_random, assign_value :99, shape :110,
+fused_int8_matmul :193, assign :91, matmul :175, mul :223, scale :238,
+sum :245, cast :254, sign :259, clip :264, clip_by_norm :269,
+squared_l2_norm :295)."""
 
 import numpy as np
 import torch
@@ -204,3 +205,8 @@ def _clip_by_norm(ctx, ins, attrs):
 @simple_op("squared_l2_norm")
 def _squared_l2_norm(ctx, x, **_):
     return torch.sum(x * x).reshape((1,))
+
+
+@register("fill_zeros_like", differentiable=False)
+def _fill_zeros_like(ctx, ins, attrs):
+    return {"Out": [torch.zeros_like(ins["X"][0])]}

@@ -18,3 +18,38 @@ def _accuracy(ctx, ins, attrs):
             "Correct": [correct.to(torch.int32)],
             "Total": [torch.full((1,), total, dtype=torch.int32,
                                  device=indices.device)]}
+
+
+@register("auc", differentiable=False)
+def _auc(ctx, ins, attrs):
+    """Streaming ROC AUC over a threshold histogram: each score falls in
+    bin clip(int(score * num_thresholds), 0, num_thresholds), the product
+    in fp32 and truncated as the JAX op's astype(int32) truncates; the
+    bins' positive and negative counts add to the persistable StatPos /
+    StatNeg (integers held in fp32, so exact in any order), written back
+    through StatPosOut / StatNegOut as batch_norm writes its moving
+    statistics. AUC: the trapezoid area under the curve swept from the
+    highest bin down, over tot_pos * tot_neg (0 while either is 0)."""
+    predict = ins["Predict"][0]
+    label = ins["Label"][0].reshape(-1)
+    stat_pos, stat_neg = ins["StatPos"][0], ins["StatNeg"][0]
+    num_thresholds = stat_pos.shape[0] - 1
+    # the positive class's probability: column 1 of [N, 2], else the score
+    score = predict[:, 1] if predict.ndim == 2 and predict.shape[1] >= 2 \
+        else predict.reshape(-1)
+    bins = torch.clamp((score.float() * num_thresholds).to(torch.int32),
+                       0, num_thresholds).long()
+    is_pos = (label > 0).to(stat_pos.dtype)
+    stat_pos = stat_pos.index_add(0, bins, is_pos)
+    stat_neg = stat_neg.index_add(0, bins, 1.0 - is_pos)
+    tp = torch.cumsum(stat_pos.flip(0), 0)
+    fp = torch.cumsum(stat_neg.flip(0), 0)
+    zero = tp.new_zeros(1)
+    tp_prev = torch.cat([zero, tp[:-1]])
+    fp_prev = torch.cat([zero, fp[:-1]])
+    area = torch.sum((fp - fp_prev) * (tp + tp_prev) / 2.0)
+    denom = tp[-1] * fp[-1]
+    auc = torch.where(denom > 0, area / torch.clamp_min(denom, 1.0),
+                      torch.zeros_like(area))
+    return {"AUC": [auc.reshape(1)], "StatPosOut": [stat_pos],
+            "StatNegOut": [stat_neg]}

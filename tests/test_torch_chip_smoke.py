@@ -81,6 +81,8 @@ from paddle_tpu_torch.ops import paged_attention_tree as pat
 from paddle_tpu_torch.ops import registry
 from paddle_tpu_torch.serving import GenerationModel
 
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CFG = dict(vocab_size=256, d_model=128, n_heads=2, n_layers=2, d_ff=256,
            seq_len=128)

@@ -667,6 +667,11 @@ def test_engine_model_forms_and_stats_layout(tmp_path):
             assert list(st) == names
             for name in names:
                 assert jkeys <= set(st[name])
+            # generate returns when the request is done; the worker frees
+            # its slot a moment later, on its own thread
+            deadline = time.monotonic() + 30.0
+            while eng.load() and time.monotonic() < deadline:
+                time.sleep(0.01)
             assert eng.load() == 0
             health = eng.health()
             assert all(h["alive"] and h["error"] is None

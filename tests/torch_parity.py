@@ -3,7 +3,7 @@ against the JAX package: pin the JAX package's init draw, carry a JAX
 scope's arrays into a port scope (``paddle_tpu_torch.io.scope_from_numpy``)
 and compare two programs op by op.
 
-A test module takes the fixture by importing it:
+A test module takes a fixture by importing it:
 
     from torch_parity import pin_jax_init_draw  # noqa: F401 (autouse)
 """
@@ -39,6 +39,21 @@ def pin_jax_init_draw():
     yield
     (initializer._global_seed_counter[0],
      layer_helper._op_seed_counter[0]) = saved
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run the importing module's tests on one torch thread, restored
+    after: their eager ops are small, so one thread runs them fastest,
+    and the parallel test run's workers share the machine's cores
+    (torch's default of a thread a core in each worker oversubscribes
+    them many times over)."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def persistable_names(program):
