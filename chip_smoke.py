@@ -343,6 +343,41 @@ Phases, each fatal on failure (exit code 1, no result line):
      DeepFM's StatPos / StatNeg bitwise (``tests/
      test_torch_chip_smoke_models.py`` runs 11c on two CPU executors with
      planted faults). Phase 11 launches none of K1-K4.
+  12. the native flagship (``paddle_tpu_torch/models/transformer.py``:
+     plain functions over a stacked parameter tree). 12a: bench.py's
+     ``bench_transformer`` through the port's (``bench.bench_transformer``:
+     vocab 32000, d_model 512, 8 heads, 6 layers, d_ff 2048, seq 512,
+     batch 192, bf16 with parameters of two or more dims stored in bf16,
+     remat, Adam 1e-4 with fp32 moments; RandomState(0) tokens fixed on
+     the card; 3 warm-up and 24 timed steps, the loss read every 12) with
+     metrics on, so its first step is counted (``observability/cost.py``).
+     Fatal unless the losses are finite and fall, the counted step's FLOPs
+     equal ``native_step_flops``'s closed form (K1's counts reaching the
+     count from autograd's threads), and K1 launched 12 "tc" forwards
+     (remat: each layer again in its recompute) and 6 "tc" backwards a
+     step with no operand copied. Then one step under torch.profiler (a
+     fresh state): launches, busy ms and device ms by group (GEMMs, K1,
+     the CE head, the update, the rest). One ``native_train`` line:
+     tokens/s, device and host ms a step, peak GiB, step_flops and
+     mfu_pct against the card's peak (989.4 TFLOP/s for an H100 80GB
+     HBM3), busy share, the card. 12b: ``__graft_entry__.entry()``'s
+     forward — batch 8, seq 512, bf16, remat off, fp32 parameters from
+     seed 0, zero tokens — fatal unless the logits are fp32 [8, 512,
+     32000] and finite and K1 launched 6 "tc" forwards and no backward;
+     then 5 timed runs (a ``native_entry`` line). 12c: two native steps
+     (remat on) at 2 layers and full width, batch 4, seq 256, in fp32
+     and in bf16, on cuda:0 and on the CPU, each from one state (the
+     CPU's carried to the card before step 2): the embedding's output
+     bitwise, the forward's fp32 logits to NATIVE_LOGITS_RTOL of their
+     largest, the loss, every grad within STEP_TOL and every parameter
+     within Adam's bound from the grad limit; K1 12 forwards (the
+     logits' forward, the step's and its recompute) and 4 backwards by
+     the dtype's route ("f32tc", "tc")
+     (``tests/test_torch_chip_smoke_native.py`` runs 12c on two CPUs
+     with planted faults: exact GELU, sqrt(D) in fp32, Adam without bias
+     correction). Phase 5 checks and times K1 in bf16 at this path's
+     B=192 too, on q, k and v packed as the path packs them (views of
+     one [B, T, 3, H, Dh] tensor; ``path_*`` keys of the tc rows).
 
 Then one JSON line ``{"kernels": [...]}`` (every kernel of every path,
 each with the launches of its path's run; a kernel launched no time there
@@ -1917,18 +1952,23 @@ def spec_tree_profile(torch, model, tree=(2, 6)):
     return report
 
 
-def flash_inputs(torch, B, H, Tq, Tk, dtype, seed, Dh=64):
+def flash_inputs(torch, B, H, Tq, Tk, dtype, seed, Dh=64, packed=False):
     """q, k, v and an upstream grad dO as [B, H, T, Dh] views of
     [B, T, H, Dh] tensors (the layout the fused attention op hands the
-    kernel), from a seeded generator on the card."""
+    kernel), from a seeded generator on the card. With `packed` (Tq ==
+    Tk), q, k and v are views of one [B, T, 3, H, Dh] tensor instead,
+    the native flagship's QKV GEMM output (T stride 3·H·Dh)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, dtype)
 
-    def make(T):
-        t = torch.randn(B, T, H, Dh, device="cuda", generator=gen)
-        return t.to(dt).transpose(1, 2)
+    def make(T, *mid):
+        t = torch.randn(B, T, *mid, H, Dh, device="cuda", generator=gen)
+        return t.to(dt)
 
-    return make(Tq), make(Tk), make(Tk), make(Tq)
+    if packed:
+        q, k, v = (t.transpose(1, 2) for t in make(Tq, 3).unbind(2))
+        return q, k, v, make(Tq).transpose(1, 2)
+    return tuple(make(T).transpose(1, 2) for T in (Tq, Tk, Tk, Tq))
 
 
 def flash_counts(fa):
@@ -1938,13 +1978,15 @@ def flash_counts(fa):
             fa.flash_attention_fwd.copies + fa.flash_attention_bwd.copies)
 
 
-def flash_check(torch, fa, B, H, Tq, Tk, causal, dtype, seed=0, Dh=64):
+def flash_check(torch, fa, B, H, Tq, Tk, causal, dtype, seed=0, Dh=64,
+                packed=False):
     """K1's kernels against the plain version's forward and autograd on
     the same inputs; the call must go by its dtype's routes (bf16: "tc"
     both ways; fp32: "f32tc" both ways) without copying an operand, but
     for a head dim the kernels run padded (q, k, v and dO padded: 4
-    copies). Returns (inputs, max abs errors, shape label)."""
-    q, k, v, g = flash_inputs(torch, B, H, Tq, Tk, dtype, seed, Dh)
+    copies); `packed` as ``flash_inputs``. Returns (inputs, max abs
+    errors, shape label)."""
+    q, k, v, g = flash_inputs(torch, B, H, Tq, Tk, dtype, seed, Dh, packed)
     f_route, b_route = FLASH_ROUTES[dtype]
     want_copies = 0 if fa.kernel_head_dim(Dh) == Dh else 4
     fwd0, bwd0, copies0 = flash_counts(fa)
@@ -1963,8 +2005,9 @@ def flash_check(torch, fa, B, H, Tq, Tk, causal, dtype, seed=0, Dh=64):
     ref = fa.flash_attention_reference(*ref_leaves, causal=causal)
     ref_grads = torch.autograd.grad(ref, ref_leaves, g)
     torch.cuda.synchronize()
-    shape = "B=%d H=%d Tq=%d Tk=%d Dh=%d causal=%s %s, routes %s/%s" % (
-        B, H, Tq, Tk, Dh, causal, dtype, f_route, b_route)
+    shape = "B=%d H=%d Tq=%d Tk=%d Dh=%d causal=%s %s, routes %s/%s%s" % (
+        B, H, Tq, Tk, Dh, causal, dtype, f_route, b_route,
+        ", q k v packed [B,T,3,H,Dh]" if packed else "")
     errs, report = {}, []
     for name, got, want in zip(("out", "dq", "dk", "dv"), (out,) + grads,
                                (ref,) + ref_grads):
@@ -2013,9 +2056,10 @@ def flash_bound_ms(B, H, T, Dh, elem_bytes, fwd, flops_per_s, products=1):
 
 def flash_phase(torch, fa):
     """K1 checked on small cases, then checked and timed at each path's
-    shape, by route: head dim 64 in bf16 at the training path's B=160,
-    in fp32 at the int8 path's B=32 (the forward's path; the fp32
-    backward's path is phase 7 at B=2, also checked and timed); head dim
+    shape, by route: head dim 64 in bf16 at the training path's B=160
+    and at the native flagship's B=192 with its packed q, k, v, in fp32
+    at the int8 path's B=32 (the forward's path; the fp32 backward's
+    path is phase 7 at B=2, also checked and timed); head dim
     128 at the timing shapes bf16 B=80 and fp32 B=32 and at phase 6b's
     own B=WIDE_BATCH; fp16 (the "fp16" route) at head dim 64 at the
     amp_fp16 bench leg's B=160 and at 128 as bf16 (B=80, and phase 6b's
@@ -2032,6 +2076,9 @@ def flash_phase(torch, fa):
     flash_check(torch, fa, 16, 8, 128, 256, False, "bfloat16", seed=2)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     rows = flash_timed_rows(torch, fa, F, flush, "bfloat16", 160, 64, 3)
+    flash_path(rows, flash_timed_rows(torch, fa, F, flush, "bfloat16",
+                                      NATIVE_BATCH, 64, 21, packed=True),
+               ("flash_attention_tc_fwd", "flash_attention_tc_bwd"))
     rows.update(flash_timed_rows(torch, fa, F, flush, "float32",
                                  INT8["batch"], 64, 4))
     flash_path(rows, flash_timed_rows(torch, fa, F, flush, "float32", 2, 64,
@@ -2103,15 +2150,17 @@ def flash_path(rows, path_rows, names):
                           path_library_ms=p["library_ms"])
 
 
-def flash_timed_rows(torch, fa, F, flush, dtype, B, Dh, seed, H=8, T=512):
+def flash_timed_rows(torch, fa, F, flush, dtype, B, Dh, seed, H=8, T=512,
+                     packed=False):
     """K1's forward and backward kernels of `dtype`'s routes at B, H=8,
     T=512, causal, head dim `Dh`, through the strided views the fused op
-    hands them: checked against the plain version, then kernel, plain
-    version and SDPA (the library yardstick, on contiguous copies, in the
-    same dtype) timed each way, and the bounds. Returns the two
-    kernels-line rows by name."""
+    (or with `packed` the native flagship) hands them: checked against
+    the plain version, then kernel, plain version and SDPA (the library
+    yardstick, on contiguous copies, in the same dtype) timed each way,
+    and the bounds. Returns the two kernels-line rows by name."""
     (q, k, v, g), errs, shape = flash_check(torch, fa, B, H, T, T, True,
-                                            dtype, seed=seed, Dh=Dh)
+                                            dtype, seed=seed, Dh=Dh,
+                                            packed=packed)
     scale = Dh ** -0.5
     o, lse = fa.flash_attention_fwd(q, k, v, True, scale)
     ms_fwd = time_ms(torch, lambda: fa.flash_attention_fwd(
@@ -3846,6 +3895,7 @@ def int8_phase(torch, fluid, im, fa, program):
                if "int8_mm" in e.key) / 1e6
     counters = {k: v for k, v in metrics.registry().to_dict()["counters"]
                 .items() if k.startswith("quant/")}
+    metrics.disable()
     summary = {
         "model": "Fluid-API Transformer LM, fp32 inference clone: vocab "
                  "32000, d_model 512, 8 heads, 6 layers, d_ff 2048, seq 512",
@@ -4955,6 +5005,17 @@ BENCH_CVC = {
 BENCH_CVC_LR = 0.01
 
 
+def pin_init_draw():
+    """Start the port's process-wide init counters where a fresh process
+    starts them (``initializer._global_seed_counter`` 0,
+    ``layer_helper._op_seed_counter`` 1000): a program built next draws
+    the same weights whatever ran before in the process."""
+    from paddle_tpu_torch import initializer, layer_helper
+
+    initializer._global_seed_counter[0] = 0
+    layer_helper._op_seed_counter[0] = 1000
+
+
 def auc_stats(main):
     """(AUC var, [StatPos, StatNeg] names) of the program's auc op, or
     None."""
@@ -4977,6 +5038,7 @@ def bench_model_leg(torch, model, steps=BENCH_STEPS, argv=(), profile=True):
         ["--model", model, "--skip_batch_num", str(warmup), "--iterations",
          str(timed), "--json"] + list(argv))
     record = {}
+    pin_init_draw()
     rec = fluid_benchmark.run_static_model(args, record)
     print(json.dumps(rec), flush=True)
     exe, main, scope = record["exe"], record["program"], record["scope"]
@@ -5037,6 +5099,7 @@ def word2vec_leg(torch, fluid, device=None, batch=WORD2VEC_BATCH,
     harness's warm-up and timed steps."""
     from paddle_tpu_torch.models import word2vec
 
+    pin_init_draw()
     main, startup = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
         words, _, loss = word2vec.build()
@@ -5080,6 +5143,7 @@ def beam_decoder_leg(torch, fluid, device=None, batch=BEAM_BATCH):
     reads (``check_beam_decode``)."""
     from paddle_tpu_torch.models import machine_translation as mt
 
+    pin_init_draw()
     main, startup = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
         _, sent_ids, sent_scores = mt.build_beam_decoder()
@@ -5161,6 +5225,7 @@ def build_bench_cvc(fluid, name):
     (main, startup, loss, auc)."""
     from paddle_tpu_torch import models
 
+    pin_init_draw()
     main, startup = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
         loss, auc = BENCH_CVC[name][0](models)
@@ -5286,6 +5351,436 @@ def bench_phase_11(torch, fluid, fa, pa, pat, im):
     if after != before:
         fail("phase 11 launched a hand-written kernel: %r -> %r"
              % (before, after))
+
+
+# phase 12: the native flagship (models/transformer.py) through bench.py's
+# bench_transformer at its operating point, the graft entry's forward,
+# and two native steps card vs CPU in fp32 and bf16
+NATIVE_STEPS = (3, 24)              # warm-up, timed: bench_transformer's
+NATIVE_BATCH = 192
+NATIVE_SEQ = 512
+ENTRY_SHAPE = (8, 512)              # __graft_entry__.entry()'s tokens
+NATIVE_CVC = dict(batch=4, seq=256, n_layers=2)
+# kernel names of the profiled step's groups (cuBLAS's GEMMs, K1)
+GEMM_KERNEL_NAMES = ("gemm", "nvjet", "cutlass", "xmma", "sm90_")
+# 12c's limit on the forward's fp32 logits, of their largest magnitude:
+# fp32 differs in summation order only; bf16 rounds in other places
+# (STEP_TOL's grad limit)
+NATIVE_LOGITS_RTOL = {"float32": 1e-5, "bfloat16": 5e-2}
+NATIVE_CE_RANGE = "ptpu_native:ce_head"
+NATIVE_UPDATE_RANGE = "ptpu_native:update"
+
+
+def native_step_flops(cfg, B, T):
+    """The products of one native training step at batch B, length T:
+    the forward (a layer's QKV, output and FFN GEMMs and attention's two
+    products, K1's without causal discount; the head), the backward
+    (twice each), and under remat each layer's forward again but its
+    last FFN GEMM (the recompute stops once every residual the backward
+    reads is back). The count a step's FlopCounterMode and kernel
+    wrappers must give (``observability/cost.py``)."""
+    D, H, L, Fd, V = (cfg.d_model, cfg.n_heads, cfg.n_layers, cfg.d_ff,
+                      cfg.vocab_size)
+    w2 = 2 * B * T * Fd * D
+    layer = (2 * B * T * D * 3 * D + 2 * B * T * D * D + 2 * B * T * D * Fd
+             + w2 + 4 * B * H * T * T * (D // H))
+    head = 2 * B * T * D * V
+    return (3 * (L * layer + head)
+            + (L * (layer - w2) if cfg.remat else 0))
+
+
+def native_train_leg(torch, fa, device=None, batch=NATIVE_BATCH,
+                     seq=NATIVE_SEQ, steps=NATIVE_STEPS):
+    """Phase 12a: ``bench.bench_transformer`` (its warm-up and timed
+    steps) with metrics on, so its first step is counted; K1's launches
+    by route zeroed before it and read after. Returns what the gates and
+    the native_train line read."""
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.observability import cost, metrics
+
+    warmup, timed = steps
+    fa.reset_counts()
+    was = metrics.enabled()
+    metrics.enable()
+    try:
+        tps, last = bench.bench_transformer(
+            steps=timed, warmup=warmup, batch=batch, seq=seq, device=device)
+    finally:
+        if not was:
+            metrics.disable()
+    rec = bench.last_native
+    fwd, bwd, copies = flash_counts(fa)
+    cfg = rec["config"]
+    leg = {"leg": "native_train", "batch": batch, "seq": seq,
+           "remat": cfg.remat, "layers": cfg.n_layers, "warmup": warmup,
+           "steps": timed, "runs": warmup + timed,
+           "losses": rec["losses"], "last_loss": last,
+           "wall_tokens_per_s": tps, "host_ms_each": rec["host_ms"],
+           "step_flops": rec["step_flops"],
+           "step_flops_closed_form": native_step_flops(cfg, batch, seq),
+           "k1_fwd": fwd, "k1_bwd": bwd, "k1_copies": copies}
+    if rec["step_ms"] is not None:
+        dev = float(np.mean(rec["step_ms"]))
+        leg.update(device_ms_per_step=dev,
+                   host_ms_per_step=float(np.mean(rec["host_ms"])),
+                   tokens_per_s=batch * seq / dev * 1e3,
+                   step_ms_each=rec["step_ms"],
+                   peak_gib=rec["peak_bytes"] / 2 ** 30,
+                   mfu_pct=cost.mfu_pct(rec["step_flops"], 1e3 / dev,
+                                        torch.device("cuda", 0)),
+                   peak_flops=cost.peak_flops(torch.device("cuda", 0)))
+    return leg
+
+
+def native_k1_per_step(leg):
+    """K1's (forward, backward) launches a native step: under remat each
+    layer's forward runs again in its recompute."""
+    L = leg["layers"]
+    return (2 * L if leg["remat"] else L), L
+
+
+def check_native_leg(leg, on_card):
+    """Phase 12a's gates: the losses finite and falling over the runs
+    (the batch is fixed); the first step's count equal to its closed
+    form; on the card, K1 launched by the "tc" route only, the remat
+    forward count and the backward count a step, no operand copied."""
+    losses = leg["losses"]
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        fail("native_train: losses not finite and falling: %r" % losses)
+    if leg["step_flops"] != leg["step_flops_closed_form"]:
+        fail("native_train: the counted step has %r FLOPs, its closed form "
+             "%r" % (leg["step_flops"], leg["step_flops_closed_form"]))
+    if not on_card:
+        return
+    f, b = native_k1_per_step(leg)
+    runs = leg["runs"]
+    want = ({"tc": f * runs, "fp16": 0, "f32tc": 0},
+            {"tc": b * runs, "fp16": 0, "f32tc": 0}, 0)
+    got = (leg["k1_fwd"], leg["k1_bwd"], leg["k1_copies"])
+    if got != want:
+        fail("native_train: flash attention launched %r (forward, backward "
+             "by route; copies) over %d steps; expected %r (%d forward and "
+             "%d backward a step)" % (got, runs, want, f, b))
+
+
+def native_profile(torch, device=None, batch=NATIVE_BATCH, seq=NATIVE_SEQ):
+    """One native step under torch.profiler after a warm one, on a fresh
+    bench state and batch: the step's kernel launches, the card's busy
+    ms, and its device ms by group — cuBLAS's GEMMs, K1, the CE head
+    (``_HardLabelCE`` forward in a range, its backward node), the update
+    (``native_adam`` in a range) and the rest."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.models import transformer
+
+    cfg = bench.native_config(batch, seq)
+    state = list(bench.native_state(cfg, device))
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    tokens = torch.from_numpy(toks).to(state[3].device)
+    labels = torch.from_numpy(np.roll(toks, -1, axis=1)).to(tokens.device)
+    ce = transformer._HardLabelCE
+
+    class RangedCE:
+        @staticmethod
+        def apply(*args):
+            with record_function(NATIVE_CE_RANGE):
+                return ce.apply(*args)
+
+    def step():
+        loss, grads = bench.native_grads(state[0], tokens, labels, cfg)
+        with record_function(NATIVE_UPDATE_RANGE):
+            state[3] = bench.native_adam(state[0], grads, state[1],
+                                         state[2], state[3])
+        return loss
+
+    step()
+    torch.cuda.synchronize()
+    transformer._HardLabelCE = RangedCE
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+    finally:
+        transformer._HardLabelCE = ce
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CPU]
+    launches = sum("LaunchKernel" in e.name for e in events)
+    kernels = [(device_us(e) / 1e3, e.count, e.key)
+               for e in prof.key_averages() if e.device_type == cuda
+               and not e.key.startswith(("ptpu_native:", "aten::"))]
+    busy = sum(ms for ms, _, _ in kernels)
+    k1 = sum(ms for ms, _, k in kernels if "flash_" in k)
+    gemm = sum(ms for ms, _, k in kernels if "flash_" not in k
+               and any(n in k.lower() for n in GEMM_KERNEL_NAMES))
+
+    def range_ms(*names):
+        total = 0.0
+        for e in prof.key_averages():
+            if e.device_type != cuda and e.key in names:
+                us = getattr(e, "device_time_total", None)
+                total += (getattr(e, "cuda_time_total", 0) if us is None
+                          else us) / 1e3
+        return total
+
+    ce_ms = range_ms(NATIVE_CE_RANGE, "autograd::engine::evaluate_function: "
+                     "_HardLabelCEBackward")
+    update_ms = range_ms(NATIVE_UPDATE_RANGE)
+    return {"launches_per_step": launches, "device_busy_ms": busy,
+            "device_ms": {"gemm": gemm, "k1": k1, "ce_head": ce_ms,
+                          "update": update_ms,
+                          "rest": busy - gemm - k1 - ce_ms - update_ms},
+            "top_kernels": [{"kernel": k[:90], "calls": n, "ms": ms}
+                            for ms, n, k in sorted(kernels,
+                                                   reverse=True)[:10]]}
+
+
+def entry_forward_leg(torch, fa, device=None, shape=ENTRY_SHAPE, runs=5):
+    """Phase 12b: ``__graft_entry__.entry()``'s forward — the flagship in
+    bf16 with remat off over fp32 parameters (``init_params`` from seed
+    0), zero tokens — once with K1's counts zeroed before it, then
+    `runs` more timed on the card. Returns the logits and what the gates
+    read."""
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.models import transformer
+
+    batch, seq = shape
+    cfg = bench.native_config(batch, seq, remat=False)
+    params = transformer.init_params(
+        cfg, generator=torch.Generator().manual_seed(0), device=device)
+    tokens = torch.zeros(shape, dtype=torch.int32,
+                         device=params["embed"].device)
+    fa.reset_counts()
+    with torch.no_grad():
+        logits = transformer.single_chip_forward(params, tokens, cfg)
+    fwd, bwd, copies = flash_counts(fa)
+    leg = {"leg": "native_entry", "shape": list(shape),
+           "layers": cfg.n_layers, "logits_shape": list(logits.shape),
+           "logits_dtype": str(logits.dtype).split(".")[1],
+           "finite": bool(torch.isfinite(logits).all()),
+           "k1_fwd": fwd, "k1_bwd": bwd, "k1_copies": copies}
+    if logits.device.type == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(runs + 1)]
+        with torch.no_grad():
+            marks[0].record()
+            for i in range(runs):
+                transformer.single_chip_forward(params, tokens, cfg)
+                marks[i + 1].record()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                transformer.single_chip_forward(params, tokens, cfg)
+                torch.cuda.synchronize()
+        leg["ms_each"] = [a.elapsed_time(b)
+                          for a, b in zip(marks, marks[1:])]
+        leg["ms"] = float(np.mean(leg["ms_each"]))
+        busy_s, top = kernel_times(prof, 1, top=8)
+        leg.update(device_busy_ms=busy_s * 1e3, top_kernels=top)
+    return logits, leg
+
+
+def check_entry_forward(leg, vocab, on_card):
+    """Phase 12b's gates: fp32 logits [B, T, V], every one finite; on the
+    card K1 once a layer forward by the "tc" route, no backward, no
+    copy."""
+    want = leg["shape"] + [vocab]
+    if leg["logits_shape"] != want or leg["logits_dtype"] != "float32":
+        fail("native_entry: logits %s %s, expected float32 %s"
+             % (leg["logits_dtype"], leg["logits_shape"], want))
+    if not leg["finite"]:
+        fail("native_entry: non-finite logits")
+    if on_card:
+        zero = {"tc": 0, "fp16": 0, "f32tc": 0}
+        want_k1 = (dict(zero, tc=leg["layers"]), zero, 0)
+        got = (leg["k1_fwd"], leg["k1_bwd"], leg["k1_copies"])
+        if got != want_k1:
+            fail("native_entry: flash attention launched %r; expected %r"
+                 % (got, want_k1))
+
+
+def native_device_step(torch, state, tokens, labels, cfg):
+    """One device's share of a phase 12c step on `state` [params, m, v,
+    t] (updated in place): the embedding's output (held bitwise across
+    the devices: gather, the scale rounded to the dtype, the positions)
+    and the forward's fp32 logits (``single_chip_forward``), then
+    ``bench.native_grads`` and ``bench.native_adam``. Returns
+    (embedding, logits, loss, grads)."""
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.models import transformer
+
+    with torch.no_grad():
+        emb = transformer.embed_tokens(state[0], tokens, cfg)
+        logits = transformer.single_chip_forward(state[0], tokens, cfg)
+    loss, grads = bench.native_grads(state[0], tokens, labels, cfg)
+    state[3] = bench.native_adam(state[0], grads, state[1], state[2],
+                                 state[3])
+    return emb, logits, loss, grads
+
+
+def native_card_vs_cpu_phase(torch, fa, dtype, devices=("cuda:0", "cpu"),
+                             steps=2, **kw):
+    """Phase 12c in `dtype`: `steps` native steps (remat on) of bench.py's
+    configuration at NATIVE_CVC's depth, batch and length (`kw` replaces
+    any of them or of the config's fields) on devices[0] (the card) and
+    devices[1] (the CPU), each from the same state (bench's, made on the
+    CPU and copied; before each later step the CPU's whole state set on
+    the card). Each step is held to STEP_TOL[dtype]: the embedding's
+    output bitwise, the loss to loss_rtol, every grad to grad_rtol of its
+    tensor's largest plus floor_rel of the largest of all, every
+    parameter after it within 2 ulps plus what those grads let Adam move
+    it (``adam_param_limit``), and the forward's fp32 logits to
+    NATIVE_LOGITS_RTOL of their largest. Returns K1's launches on devices[0]
+    (forward and backward by route, copies). The tests pass two CPUs and
+    plant faults in the first."""
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.models import transformer
+
+    opts = dict(NATIVE_CVC, **kw)
+    batch, seq = opts.pop("batch"), opts.pop("seq")
+    cfg = bench.native_config(batch, seq, remat=True, dtype=dtype, **opts)
+    tol = STEP_TOL[dtype]
+    lr, b1, b2 = (bench.NATIVE_ADAM[k] for k in ("lr", "b1", "b2"))
+    rel, bits = tol["grad_rtol"], tol["mantissa_bits"]
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    labs = np.roll(toks, -1, axis=1)
+    state_h = list(bench.native_state(cfg, devices[1]))
+
+    def to(dev, tree):
+        return transformer.tree_map(lambda x: x.to(dev, copy=True), tree)
+
+    feeds = [(torch.from_numpy(toks).to(d), torch.from_numpy(labs).to(d))
+             for d in devices]
+    names = []
+
+    def walk(tree, path):
+        for k in sorted(tree):
+            if isinstance(tree[k], dict):
+                walk(tree[k], path + k + ".")
+            else:
+                names.append(path + k)
+
+    walk(state_h[0], "")
+    before = flash_counts(fa)
+    worst = {k: (0.0, "") for k in ("logits", "loss", "grad", "param")}
+    emb_differ, g_ref = [], [[] for _ in names]
+    t0 = time.perf_counter()
+    for step in range(steps):
+        state_c = [to(devices[0], x) for x in state_h]
+        start = [x.float().numpy().copy()
+                 for x in transformer.tree_leaves(state_h[0])]
+        e_c, o_c, l_c, g_c = native_device_step(torch, state_c, *feeds[0],
+                                                cfg)
+        e_h, o_h, l_h, g_h = native_device_step(torch, state_h, *feeds[1],
+                                                cfg)
+        tag = "@%d" % (step + 1)
+        if not torch.equal(e_c.cpu(), e_h):
+            emb_differ.append("embedding" + tag)
+        worst["logits"] = max(worst["logits"], (
+            float((o_c.cpu() - o_h).abs().max() / o_h.abs().max()),
+            "logits" + tag))
+        worst["loss"] = max(worst["loss"], (
+            abs(float(l_c) - float(l_h)) / abs(float(l_h)), "loss" + tag))
+        g_h = [g.float().numpy() for g in g_h]
+        floor = tol["floor_rel"] * max(float(np.abs(g).max()) for g in g_h)
+        for i, (name, gc_, gh, pc, ph, s) in enumerate(zip(
+                names, g_c, g_h, transformer.tree_leaves(state_c[0]),
+                transformer.tree_leaves(state_h[0]), start)):
+            lim = rel * float(np.abs(gh).max()) + floor
+            worst["grad"] = max(worst["grad"], (
+                float(np.abs(gc_.float().cpu().numpy() - gh).max()) / lim,
+                name + tag))
+            g_ref[i].append(gh)
+            g_err = [np.zeros_like(gh)] * step + [np.full_like(gh, lim)]
+            pc, ph = pc.float().cpu().numpy(), ph.float().numpy()
+            mag = np.maximum(np.maximum(np.abs(pc), np.abs(ph)), np.abs(s))
+            p_lim = adam_param_limit(g_ref[i], g_err, [lr] * (step + 1), b1,
+                                     b2) + 2 * ulp(mag, bits)
+            worst["param"] = max(worst["param"], (
+                float((np.abs(pc - ph) / p_lim).max()), name + tag))
+    after = flash_counts(fa)
+    k1 = ({r: after[0][r] - before[0][r] for r in after[0]},
+          {r: after[1][r] - before[1][r] for r in after[1]},
+          after[2] - before[2])
+    report = {"dtype": dtype, "batch": batch, "seq": seq,
+              "layers": cfg.n_layers, "steps": steps,
+              "logits_rel_err": worst["logits"][0],
+              "logits_limit": NATIVE_LOGITS_RTOL[dtype],
+              "loss_rel_err": worst["loss"][0],
+              "loss_limit": tol["loss_rtol"], "grad_rtol": rel,
+              "worst_grad_err_over_limit": worst["grad"][0],
+              "worst_grad": worst["grad"][1],
+              "worst_param_err_over_limit": worst["param"][0],
+              "worst_param": worst["param"][1],
+              "embedding_differs": emb_differ, "k1": k1,
+              "seconds": time.perf_counter() - t0}
+    print("card_vs_cpu_native " + json.dumps(report), flush=True)
+    if emb_differ:
+        fail("card vs CPU native %s: the embedding's output differs: %r"
+             % (dtype, emb_differ))
+    for k, lim in (("logits", NATIVE_LOGITS_RTOL[dtype]),
+                   ("loss", tol["loss_rtol"])):
+        if worst[k][0] > lim:
+            fail("card vs CPU native %s: the %s differs by %.3g (rel > %g)"
+                 % (dtype, worst[k][1], worst[k][0], lim))
+    for k, what in (("grad", "the grad of"), ("param", "the parameter")):
+        if worst[k][0] > 1:
+            fail("card vs CPU native %s: %s %s differs by %.3g of its limit"
+                 % (dtype, what, worst[k][1], worst[k][0]))
+    return k1
+
+
+def native_phase(torch, fa):
+    """Phase 12 on cuda:0: 12a (``native_train_leg``, gated, then one
+    profiled step), 12b (the entry's forward) and 12c (card vs CPU in
+    fp32 and bf16). Returns K1's launches on the phase's main paths by
+    kernel row name."""
+    t12 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    leg = native_train_leg(torch, fa)
+    check_native_leg(leg, on_card=True)
+    f, b = native_k1_per_step(leg)
+    launches = {"flash_attention_tc_fwd": leg["k1_fwd"]["tc"],
+                "flash_attention_tc_bwd": leg["k1_bwd"]["tc"]}
+    leg["profile"] = native_profile(torch)
+    leg["busy_share"] = (leg["profile"]["device_busy_ms"]
+                         / leg["device_ms_per_step"])
+    print("native_train " + json.dumps(dict(
+        {k: v for k, v in leg.items() if k not in ("k1_fwd", "k1_bwd")},
+        k1_per_step={"fwd": f, "bwd": b}, card=card_line())), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    logits, entry = entry_forward_leg(torch, fa)
+    check_entry_forward(entry, logits.shape[-1], on_card=True)
+    launches["flash_attention_tc_fwd"] += entry["k1_fwd"]["tc"]
+    del logits
+    print("native_entry " + json.dumps(dict(entry, card=card_line())),
+          flush=True)
+    for dtype, route in (("float32", "f32tc"), ("bfloat16", "tc")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        k1 = native_card_vs_cpu_phase(torch, fa, dtype)
+        n = 2 * NATIVE_CVC["n_layers"]       # two steps
+        zero = {"tc": 0, "fp16": 0, "f32tc": 0}
+        want = (dict(zero, **{route: 3 * n}), dict(zero, **{route: n}), 0)
+        if k1 != want:
+            fail("card vs CPU native %s: flash attention launched %r "
+                 "(forward, backward by route; copies); expected %r (each "
+                 "layer's forward in the logits' forward, in the step and "
+                 "in its recompute)" % (dtype, k1, want))
+        for way, n_way in (("fwd", k1[0][route]), ("bwd", k1[1][route])):
+            key = "flash_attention_%s_%s" % (route, way)
+            launches[key] = launches.get(key, 0) + n_way
+    print("native_phase " + json.dumps({
+        "seconds": time.perf_counter() - t12, "k1_launches": launches}),
+        flush=True)
+    return launches
 
 
 def main():
@@ -5437,6 +5932,8 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     bench_phase_11(torch, fluid, fa_mod, pa_mod, pat_mod, im_mod)
+    for name, n in native_phase(torch, fa_mod).items():
+        flash_rows[name]["launches"] += n
     kernels = rows + tree_rows + list(flash_rows.values()) + int8_rows
     idle = [(r["name"], r.get("C"), r.get("shape")) for r in kernels
             if not r.get("launches")]

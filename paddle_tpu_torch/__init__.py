@@ -38,7 +38,11 @@ load-time passes ``conv_bn_fold``, ``dropout_remove`` and
 (``models.deepfm``, ``models.word2vec``, ``models.stacked_lstm``,
 ``models.machine_translation`` with its beam decoder, over the tensor,
 sequence and recurrent ops, ``auc`` and beam search) with the port's
-harness (``python -m paddle_tpu_torch.fluid_benchmark``):
+harness (``python -m paddle_tpu_torch.fluid_benchmark``), and the native
+flagship (``models.transformer``: plain functions over a stacked
+parameter tree, trained by ``bench.bench_transformer``, the harness's
+``--model transformer_native``) with the step cost accounting
+(``observability.cost``: a step's FLOPs and MFU):
 
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import transformer_fluid

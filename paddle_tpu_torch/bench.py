@@ -1,4 +1,5 @@
-"""The port's bench: bench.py's headline training legs
+"""The port's bench: bench.py's native flagship (`bench_transformer`
+:24-106), its headline training legs
 (`bench_transformer_fluid` :109-225, `TINY` :229), its serving legs
 (`bench_serving` :553, `bench_serving_fastpath` :659,
 `bench_serving_spec` :731, `bench_serving_quant` :1242), its predictor
@@ -51,7 +52,11 @@ the port's ``ServingEngine``:
               bench.py)
 
 and prints one JSON line with bench.py's keys for them, the card's name
-and power limit, and each training leg's device and host ms a step. It
+and power limit, and each training leg's device and host ms a step. With
+metrics on (``PTPU_METRICS=1``) the async, sync, fp32, amp, amp_fp16 and
+serving_batched legs carry bench.py's MFU receipt: ``step_flops`` (the
+step's count, ``observability/cost.py``) and ``mfu_pct`` against the
+card's peak. It
 prints no ``vs_baseline``: bench.py's baseline is a TPU-era figure. A
 leg bench.py would run whose modules the port lacks is named under
 ``not_ported``. ``--tiny`` is bench.py's CI configuration (TINY, host
@@ -79,11 +84,186 @@ import paddle_tpu_torch as fluid
 from paddle_tpu_torch.async_engine import as_numpy
 from paddle_tpu_torch.models import transformer_fluid
 
-__all__ = ["TINY", "bench_quant_predictor", "bench_serving",
+__all__ = ["NATIVE_ADAM", "TINY", "bench_quant_predictor", "bench_serving",
            "bench_serving_fastpath",
            "bench_serving_fleet", "bench_serving_online",
-           "bench_serving_quant", "bench_serving_spec",
-           "bench_transformer_fluid", "build_program", "last_leg", "main"]
+           "bench_serving_quant", "bench_serving_spec", "bench_transformer",
+           "bench_transformer_fluid", "build_program", "last_leg",
+           "last_native", "main", "native_adam", "native_config",
+           "native_grads", "native_state", "native_train_step"]
+
+# bench_transformer's Adam (bench.py:53)
+NATIVE_ADAM = dict(lr=1e-4, b1=0.9, b2=0.999, eps=1e-8)
+# the loss is copied to the host every this many steps (bench.py:84)
+SYNC_EVERY = 12
+
+# what the last bench_transformer call saw, beside its return value (read
+# by chip_smoke.py): "losses" every step's loss, "batch", "seq", "remat",
+# "config" (the TransformerConfig), "warmup", "steps",
+# "step_ms" each timed step's device time and "host_ms" the host's time
+# to enqueue it (step_ms None on the CPU), "peak_bytes" the card's peak
+# allocation over the timed steps (None on the CPU), "step_flops" the
+# first step's count with metrics on (else None)
+last_native = {}
+
+
+def native_config(batch=192, seq=512, remat=None, dtype="bfloat16",
+                  **overrides):
+    """bench.py's native configuration: vocab 32000, d_model 512, 8
+    heads, 6 layers, d_ff 2048, max_seq_len `seq`, bf16, ``remat =
+    batch >= 64`` unless given; `overrides` replace any field."""
+    from paddle_tpu_torch.models.transformer import TransformerConfig
+
+    if remat is None:
+        remat = batch >= 64
+    kw = dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=6,
+              d_ff=2048, max_seq_len=seq, dtype=dtype, remat=remat)
+    kw.update(overrides)
+    return TransformerConfig(**kw)
+
+
+def native_state(cfg, device=None):
+    """bench.py's starting state: ``init_params`` (a generator seeded 0,
+    bench.py's ``PRNGKey(0)``) with every fp32 leaf of two or more dims stored in the
+    config's dtype (bench.py's rule for its bf16 config: the [L, D]
+    layer-norm leaves and b1 / b2 too, final_ln_* stay fp32), fp32
+    moments at zero, the int32 step counter at 0. Returns (params, m, v,
+    t)."""
+    import torch
+
+    from paddle_tpu_torch.models import transformer
+
+    params = transformer.init_params(
+        cfg, generator=torch.Generator().manual_seed(0), device=device)
+    params = transformer.tree_map(
+        lambda x: x.to(cfg.dtype)
+        if x.dtype == torch.float32 and x.ndim >= 2 else x, params)
+    m = transformer.tree_map(
+        lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+        params)
+    v = transformer.tree_map(torch.zeros_like, m)
+    t = torch.zeros((), dtype=torch.int32,
+                    device=transformer.tree_leaves(params)[0].device)
+    return params, m, v, t
+
+
+def native_grads(params, tokens, labels, cfg):
+    """The loss (``single_chip_loss``) and the grad of every leaf, in
+    ``tree_leaves`` order; a leaf the loss never reads (b2) gets a zero
+    grad. Returns (loss, grads)."""
+    import torch
+
+    from paddle_tpu_torch.models import transformer
+
+    with torch.enable_grad():
+        leaves = [p.detach().requires_grad_()
+                  for p in transformer.tree_leaves(params)]
+        it = iter(leaves)
+        loss = transformer.single_chip_loss(
+            transformer.tree_map(lambda _: next(it), params), tokens,
+            labels, cfg)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(x) if g is None else g
+                           for g, x in zip(grads, leaves)]
+
+
+def native_adam(params, grads, m, v, t):
+    """bench.py's Adam (:61-70) over every leaf, in place: bias
+    correction from the int32 step counter, each element in bench.py's
+    order of operations (``b1 ** tf`` an fp32 power of the fp32 step),
+    the new parameter rounded to its leaf's dtype. Returns t + 1."""
+    import torch
+
+    from paddle_tpu_torch.models import transformer
+
+    lr, b1, b2, eps = (NATIVE_ADAM[k] for k in ("lr", "b1", "b2", "eps"))
+    t = t + 1
+    tf = t.to(torch.float32)
+    with torch.no_grad():
+        c1 = 1 - b1 ** tf
+        c2 = 1 - b2 ** tf
+        for p, g, mm, vv in zip(transformer.tree_leaves(params), grads,
+                                transformer.tree_leaves(m),
+                                transformer.tree_leaves(v)):
+            gf = g.float()
+            mm.mul_(b1).add_((1 - b1) * gf)
+            vv.mul_(b2).add_((1 - b2) * gf * gf)
+            p.copy_(p.float() - lr * (mm / c1) / (torch.sqrt(vv / c2) + eps))
+    return t
+
+
+def native_train_step(params, m, v, t, tokens, labels, cfg):
+    """bench.py's ``train_step`` (:55-73): ``native_grads``, then
+    ``native_adam``. The leaves of `params`, `m` and `v` are updated in
+    place (bench.py donates them). Returns (params, m, v, t + 1,
+    loss)."""
+    loss, grads = native_grads(params, tokens, labels, cfg)
+    t = native_adam(params, grads, m, v, t)
+    return params, m, v, t, loss
+
+
+def bench_transformer(steps=24, warmup=3, batch=192, seq=512, remat=None,
+                      device=None):
+    """bench.py's native flagship training throughput (:24-106) on
+    `device` (None: the card): ``native_config(batch, seq, remat)``,
+    ``native_state``, and `warmup` + `steps` ``native_train_step``s on
+    bench.py's batch (RandomState(0) tokens, labels rolled by one), fixed
+    on the device; the loss copied to the host every ``SYNC_EVERY``
+    steps and after the last. With metrics on, the first warm-up step is
+    counted (``observability/cost.py``) and published. Returns
+    (tokens_per_sec, last_loss); ``last_native`` keeps the rest."""
+    import torch
+
+    from paddle_tpu_torch.core.place import resolve_device
+    from paddle_tpu_torch.observability import cost as obs_cost
+
+    device = resolve_device(device)
+    cuda = device.type == "cuda"
+    cfg = native_config(batch, seq, remat)
+    state = native_state(cfg, device)
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, cfg.vocab_size, size=(batch, seq)).astype(np.int32)
+    labs = np.roll(toks, -1, axis=1).astype(np.int32)
+    tokens = torch.from_numpy(toks).to(device)
+    labels = torch.from_numpy(labs).to(device)
+    losses, step_flops = [], None
+    for i in range(warmup):
+        with obs_cost.first_step(i == 0, device) as count:
+            *state, loss = native_train_step(*state, tokens, labels, cfg)
+        if count is not None:
+            step_flops = count.flops
+        losses.append(loss)
+        float(loss)
+    marks, host_ms = [], []
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        if cuda:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        th = time.perf_counter()
+        *state, loss = native_train_step(*state, tokens, labels, cfg)
+        host_ms.append((time.perf_counter() - th) * 1e3)
+        losses.append(loss)
+        if (i + 1) % SYNC_EVERY == 0:
+            float(loss)
+    if cuda:
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+    last = float(loss)
+    dt = time.perf_counter() - t0
+    last_native.clear()
+    last_native.update(
+        losses=[float(x) for x in losses], batch=batch, seq=seq,
+        remat=cfg.remat, config=cfg, warmup=warmup, steps=steps,
+        step_ms=[a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+        if cuda else None,
+        host_ms=host_ms,
+        peak_bytes=torch.cuda.max_memory_allocated(device) if cuda else None,
+        step_flops=step_flops)
+    return steps * batch * seq / dt, last
 
 # bench.py's CI configuration: the whole async pipeline (window,
 # prefetched host feeds) in seconds
@@ -316,8 +496,9 @@ def bench_serving(n_requests=32, max_new_tokens=24, rate=100000.0,
 
     Returns (batched_tps, serial_tps, outputs_match, p50_s, p99_s,
     total_tokens, batched_steps_per_sec, batched_step_flops);
-    batched_step_flops is None, as bench.py returns it with metrics off
-    (the port has no step cost analysis yet)."""
+    batched_step_flops is the batched engine's counted step
+    (``exec/step_flops``, read before the serial engine counts its own),
+    None with metrics off."""
     from paddle_tpu_torch import serving
     from paddle_tpu_torch.observability import metrics as obs_metrics
 
@@ -341,6 +522,7 @@ def bench_serving(n_requests=32, max_new_tokens=24, rate=100000.0,
     lats = sorted(r.latency for r in accepted)
     steps_batched = _record("batched", eng, accepted, dt_batched)["steps"]
     total_tokens = sum(len(o) for o in batched_outs)
+    batched_step_flops = _current_step_flops()
 
     eng1 = serving.ServingEngine(model, max_batch=1,
                                  max_seq_len=max_seq_len, block_size=16,
@@ -368,7 +550,36 @@ def bench_serving(n_requests=32, max_new_tokens=24, rate=100000.0,
     return (total_tokens / dt_batched,
             sum(len(o) for o in serial_outs) / dt_serial,
             batched_outs == serial_outs, pct(0.5), pct(0.99),
-            total_tokens, steps_batched / dt_batched, None)
+            total_tokens, steps_batched / dt_batched, batched_step_flops)
+
+
+def _current_step_flops():
+    """The last counted step's FLOPs (``exec/step_flops``, published at a
+    plan's or a window shape's first step when metrics are on; None with
+    metrics off: nothing was counted)."""
+    from paddle_tpu_torch.observability import metrics as obs_metrics
+
+    if not obs_metrics.enabled():
+        return None
+    return obs_metrics.registry().to_dict().get(
+        "gauges", {}).get("exec/step_flops")
+
+
+def _mfu_extra(step_flops, steps_per_sec, place=None):
+    """bench.py's MFU receipt for one leg: the step's FLOPs against the
+    peak of the card the leg ran on (`place`; None: the card,
+    ``observability.cost``). Returns the leg's fields and publishes
+    ``bench/mfu_pct``; {} when metrics are off or the leg has no step
+    cadence."""
+    if not step_flops or not steps_per_sec:
+        return {}
+    from paddle_tpu_torch.core.place import resolve_device
+    from paddle_tpu_torch.observability import cost as obs_cost
+    from paddle_tpu_torch.observability import metrics as obs_metrics
+
+    pct = obs_cost.mfu_pct(step_flops, steps_per_sec, resolve_device(place))
+    obs_metrics.registry().gauge("bench/mfu_pct").set(pct)
+    return {"step_flops": step_flops, "mfu_pct": round(pct, 4)}
 
 
 def bench_serving_fastpath(n_requests=10, max_new_tokens=8,
@@ -921,6 +1132,13 @@ NOT_PORTED = {
 }
 
 
+def _train_mfu(step_s, place):
+    """A training leg's MFU receipt from the last counted step (the leg's
+    main program: the executor counts each plan's first run)."""
+    return _mfu_extra(_current_step_flops(), 1.0 / step_s if step_s else 0,
+                      place)
+
+
 def _serving_leg(name, tps, **extra):
     """A serving leg's entry, bench.py's ``_leg`` (no step time)."""
     entry = {"leg": name, "tokens_per_sec": round(tps, 1),
@@ -981,12 +1199,14 @@ def main(argv=None):
             async_tps, loss, step_s, _ = bench_transformer_fluid(
                 async_exec=True, **kw)
             legs.append(_leg_entry("async", async_tps, step_s, loss,
-                                   window_peak=last_leg["window_peak"]))
+                                   window_peak=last_leg["window_peak"],
+                                   **_train_mfu(step_s, place)))
             result["async_tokens_per_sec"] = round(async_tps, 1)
             result["step_time_async_s"] = round(step_s, 6)
         sync_tps, loss, step_s, compile_opt = bench_transformer_fluid(
             async_exec=False, **kw)
-        legs.append(_leg_entry("sync", sync_tps, step_s, loss))
+        legs.append(_leg_entry("sync", sync_tps, step_s, loss,
+                               **_train_mfu(step_s, place)))
         result["sync_tokens_per_sec"] = round(sync_tps, 1)
         result["step_time_sync_s"] = round(step_s, 6)
         noopt_tps, _, step_s, compile_noopt = bench_transformer_fluid(
@@ -1001,18 +1221,21 @@ def main(argv=None):
         fp32_tps, loss, step_s, _ = bench_transformer_fluid(
             async_exec=False, dtype="float32", amp=False, **kw)
         legs.append(_leg_entry("fp32", fp32_tps, step_s, loss,
-                               batch=last_leg["batch"]))
+                               batch=last_leg["batch"],
+                               **_train_mfu(step_s, place)))
         amp_tps, loss, step_s, _ = bench_transformer_fluid(
             async_exec=False, dtype="float32", amp=True, **kw)
         legs.append(_leg_entry("amp", amp_tps, step_s, loss,
                                speedup_vs_fp32=round(amp_tps / fp32_tps,
-                                                     4)))
+                                                     4),
+                               **_train_mfu(step_s, place)))
         f16_tps, loss, step_s, _ = bench_transformer_fluid(
             async_exec=False, dtype="float32", amp="float16", **kw)
         legs.append(_leg_entry("amp_fp16", f16_tps, step_s, loss,
                                speedup_vs_fp32=round(f16_tps / fp32_tps,
                                                      4),
-                               **last_leg["scaling"]))
+                               **last_leg["scaling"],
+                               **_train_mfu(step_s, place)))
         result["fp32_tokens_per_sec"] = round(fp32_tps, 1)
         result["amp_tokens_per_sec"] = round(amp_tps, 1)
         result["amp_speedup_vs_fp32"] = round(amp_tps / fp32_tps, 4)
@@ -1023,12 +1246,13 @@ def main(argv=None):
     rest = args.tiny or args.amp_only
     if args.serving_only or not (rest or dedicated):
         (serve_batched, serve_serial, serve_match, serve_p50, serve_p99,
-         _tokens, _sps, _flops) = bench_serving(place=place)
+         _tokens, serve_sps, serve_flops) = bench_serving(place=place)
         legs.append(_serving_leg(
             "serving_batched", serve_batched,
             p50_latency_s=round(serve_p50, 4),
             p99_latency_s=round(serve_p99, 4),
-            outputs_match=bool(serve_match)))
+            outputs_match=bool(serve_match),
+            **_mfu_extra(serve_flops, serve_sps, place)))
         legs.append(_serving_leg(
             "serving_serial", serve_serial,
             speedup_batched_vs_serial=round(serve_batched / serve_serial,

@@ -36,6 +36,11 @@ grad op takes the op's inputs. The learning-rate schedules'
 its `increment` op; the host's `__step_counter__` only seeds the random
 generators.
 
+With metrics on (``PTPU_METRICS``), the first run of each step plan
+is counted (``observability/cost.py``: its FLOPs and, on the card, the
+peak allocation up to its end) and published as the ``exec/*`` gauges, once a plan,
+as the JAX executor publishes XLA's cost analysis at each compile.
+
 Not ported: compile telemetry, RPC ops and the nan checks. A CUDA graph
 of the step is later work.
 """
@@ -50,6 +55,7 @@ from .core.lowering import LoweringContext, execute_block
 from .core.place import resolve_device
 from .core.scope import global_scope
 from .flags import env
+from .observability import cost as _cost
 
 __all__ = ["Executor", "global_scope"]
 
@@ -217,13 +223,15 @@ class Executor:
                 feed = staged.consume(self.device)
                 keep = staged.pinned
         step = self._cache.get(key) if use_program_cache else None
-        if step is None:
+        fresh = step is None
+        if fresh:
             run_program = ir_passes.optimize_for_execution(
                 program, fetch_names, scope, self.device)
             step = _Step(run_program, feed.keys(), fetch_names)
             if use_program_cache:
                 self._cache[key] = step
-        fetches = step.run(scope, feed, self.device)
+        with _cost.first_step(fresh, self.device):
+            fetches = step.run(scope, feed, self.device)
         if return_numpy:
             out = as_numpy(fetches)
             # the newest step is done; one stream runs in order, so every

@@ -1,7 +1,8 @@
 """The benchmark harness of benchmark/fluid on the port (parity:
 benchmark/fluid_benchmark.py `parse_args` :32, `_DEFAULT_BATCH` :72,
 `_feeds` :79, `_build` :107, `print_train_time` :136, `run_transformer`
-:160, `run_static_model` :223 and `main` :306): the same models, the
+:160, `run_transformer_native` :148, `run_static_model` :223 and `main`
+:306): the same models, the
 same RandomState(0) batches and the same examples/sec line, through the
 port's Fluid API on the card.
 
@@ -9,6 +10,7 @@ port's Fluid API on the card.
     python -m paddle_tpu_torch.fluid_benchmark --model resnet \\
         --data_set imagenet --batch_size 64 --iterations 10
     python -m paddle_tpu_torch.fluid_benchmark --model mnist --device CPU
+    python -m paddle_tpu_torch.fluid_benchmark --model transformer_native
 
 `--device GPU` (the default) runs on cuda:0 and raises without CUDA;
 `--device CPU` runs the plain PyTorch path on the CPU. `run_static_model`
@@ -16,11 +18,13 @@ is the JAX harness's recipe: Adam(--learning_rate) (under
 ``contrib.mixed_precision.decorate`` with --use_amp), the feeds staged
 on the device once, --skip_batch_num warm-up steps, then --iterations
 timed steps with the loss fetched every step as device tensors and read
-after the timed loop (each step with --blocking_fetch). `--json` prints
+after the timed loop (each step with --blocking_fetch).
+`run_transformer_native` is the native flagship's tokens/s through
+``bench.bench_transformer`` (batch 192 unless --batch_size; --iterations
+timed after --skip_batch_num warm-up steps). `--json` prints
 the JAX harness's keys. Options whose modules the port does not have
 yet raise, naming their item of ROADMAP.md's Queue 1: --update_method
-spmd / nccl2 (item 9, parallel), --profile (item 10, profiler.py) and
-the transformer_native model (item 4, models/transformer.py).
+spmd / nccl2 (item 9, parallel) and --profile (item 10, profiler.py).
 """
 
 import argparse
@@ -33,9 +37,6 @@ NOT_PORTED = {
     "update_method": "--update_method spmd/nccl2 needs the parallel "
                      "runtime (ROADMAP.md Queue 1 item 9)",
     "profile": "--profile needs profiler.py (ROADMAP.md Queue 1 item 10)",
-    "transformer_native": "--model transformer_native needs "
-                          "models/transformer.py (ROADMAP.md Queue 1 "
-                          "item 4)",
 }
 
 
@@ -162,8 +163,6 @@ def _check_ported(args):
         raise NotImplementedError(NOT_PORTED["update_method"])
     if args.profile:
         raise NotImplementedError(NOT_PORTED["profile"])
-    if args.model == "transformer_native":
-        raise NotImplementedError(NOT_PORTED["transformer_native"])
 
 
 def _place(args):
@@ -219,6 +218,22 @@ def run_transformer(args, seq_len=512):
     return {"metric": "transformer_fluid_api_tokens_per_sec_per_chip",
             "value": round(tokens_per_sec, 1), "unit": "tokens/s/chip",
             "last_loss": round(last, 4)}
+
+
+def run_transformer_native(args):
+    """Tokens/sec of the native flagship (models/transformer.py) through
+    ``bench.bench_transformer`` (the JAX harness's
+    run_transformer_native)."""
+    from . import bench
+
+    _check_ported(args)
+    tokens_per_sec, last_loss = bench.bench_transformer(
+        steps=args.iterations, warmup=args.skip_batch_num,
+        batch=args.batch_size or 192, device=_place(args))
+    print("\nTransformer-base (native): %.1f tokens/sec/chip "
+          "(last loss %.4f)\n" % (tokens_per_sec, last_loss), flush=True)
+    return {"metric": "transformer_native_tokens_per_sec_per_chip",
+            "value": round(tokens_per_sec, 1), "unit": "tokens/s/chip"}
 
 
 def run_static_model(args, record=None):
@@ -306,6 +321,8 @@ def main(argv=None):
     args = parse_args(argv)
     if args.model == "transformer":
         rec = run_transformer(args)
+    elif args.model == "transformer_native":
+        rec = run_transformer_native(args)
     else:
         rec = run_static_model(args)
     if args.json:

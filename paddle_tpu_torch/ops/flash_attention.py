@@ -48,6 +48,11 @@ sliced back. Zero columns leave Q Kᵀ unchanged and give zero columns of
 O and of the grads; sm_scale stays the caller's (by default the true head
 dim's ``Dh ** -0.5``).
 
+While a step's FLOPs are counted (``observability/cost.py``), each
+launch adds its products: 4·B·H·Tq·Tk·Dh forward, 8·B·H·Tq·Tk·Dh
+backward, the plain version's (whose own aten products count on the
+CPU).
+
 ``flash_attention_fwd`` and ``flash_attention_bwd`` count their launches
 (``.launches``, and ``.launches_by_route`` split into "tc", "fp16" and
 "f32tc")
@@ -59,6 +64,7 @@ import ctypes
 
 import torch
 
+from ..observability import cost as _cost
 from . import _build
 
 __all__ = ["PART_WIDTH", "SUPPORTED_HEAD_DIMS", "flash_attention",
@@ -288,11 +294,12 @@ def _fwd(q, k, v, causal, sm_scale):
     """The forward kernel of q's route: (o, lse, the q, k, v it read), o
     and those at the kernels' head dim."""
     route, Dp = _check(q, k, v, causal)
-    if Dp != q.shape[-1]:
+    B, H, Tq, Dh = q.shape
+    _cost.kernel_flops(4 * B * H * Tq * k.shape[2] * Dh)
+    if Dp != Dh:
         q, k, v = _pad_head(flash_attention_fwd, Dp, q, k, v)
     q, k, v = _tc_operands(flash_attention_fwd, q, k, v)
     o = torch.empty_like(q)
-    B, H, Tq, _ = q.shape
     lse = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr())
@@ -330,6 +337,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal, sm_scale):
             or not lse.is_contiguous() or lse.device != q.device):
         raise ValueError("lse must be a contiguous fp32 [B, H, Tq] tensor "
                          "on q's device")
+    _cost.kernel_flops(8 * B * H * Tq * k.shape[2] * Dh)
     if Dp != Dh:
         q, k, v, o, do = _pad_head(flash_attention_bwd, Dp, q, k, v, o, do)
     q, k, v, o, do = _tc_operands(flash_attention_bwd, q, k, v, o, do)

@@ -21,7 +21,9 @@ bitwise equal on finite inputs (+-inf saturate to 127 / -128).
 
 ``int8_matmul`` runs the plain version for tensors on the CPU and the
 kernel for tensors on a CUDA device; anything else raises. There is no
-fallback from the kernel to the plain version.
+fallback from the kernel to the plain version. While a step's FLOPs are
+counted (``observability/cost.py``), a launch adds 2·M·N·K, the plain
+version's product (which its own mm counts on the CPU).
 """
 
 import ctypes
@@ -29,6 +31,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..observability import cost as _cost
 from . import _build
 
 __all__ = ["MAX_K", "int8_matmul", "int8_matmul_reference", "padded_k"]
@@ -163,6 +166,7 @@ def _int8_matmul_cuda(x, w_int8, dq_scale, act_scale):
     if err != 0:
         raise RuntimeError("int8_matmul kernel launch failed: CUDA error %d"
                            % err)
+    _cost.kernel_flops(2 * M * N * K)
     key = (M, K, N)
     int8_matmul.launches[key] = int8_matmul.launches.get(key, 0) + 1
     return out.reshape(lead + (N,))

@@ -20,6 +20,11 @@ head dim up to ``MAX_HEAD_DIM`` and any window C; it splits each row's
 context across blocks (``plan_splits``), and the last block of a row to
 finish combines the row's splits: one call, one launch, one count in
 ``window_launches``.
+
+While a step's FLOPs are counted (``observability/cost.py``), a call
+adds 4·H·Dh·Σ over rows of C × the keys the row attends (the context
+through its last window slot); the plain version, which reads the whole
+block table, runs uncounted.
 """
 
 import ctypes
@@ -27,6 +32,7 @@ import threading
 
 import torch
 
+from ..observability import cost as _cost
 from . import _build
 
 __all__ = ["MAX_HEAD_DIM", "paged_attention", "paged_attention_reference",
@@ -66,11 +72,23 @@ def paged_attention(k_pages, v_pages, q, block_tables, positions,
     """Attention of ``q`` over the paged pool, block tables read inside
     the kernel (see the module docstring for shapes). CPU tensors take
     the plain version; CUDA tensors launch the kernel or raise."""
+    if _cost.counting():
+        count_window_flops(q, positions.clamp(min=0).amax(dim=1) + 1)
     if q.device.type == "cpu":
-        return paged_attention_reference(k_pages, v_pages, q, block_tables,
-                                         positions, sm_scale)
+        with _cost.uncounted():
+            return paged_attention_reference(k_pages, v_pages, q,
+                                             block_tables, positions,
+                                             sm_scale)
     return _paged_attention_cuda(k_pages, v_pages, q, block_tables,
                                  positions, sm_scale)
+
+
+def count_window_flops(q, keys):
+    """Add a window's products to the step's count: q [B, C, H, Dh],
+    `keys` [B] the keys each row attends (read on the host: counting
+    only)."""
+    B, C, H, Dh = q.shape
+    _cost.kernel_flops(4 * H * Dh * C * int(keys.long().sum()))
 
 
 # kernel launches since the last reset, by window size C (the plain CPU

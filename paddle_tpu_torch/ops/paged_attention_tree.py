@@ -27,15 +27,18 @@ and the kernel for tensors on a CUDA device; anything else raises. There
 is no fallback from the kernel to the plain version. The kernel takes
 any head dim up to 256 and windows up to ``MAX_TREE_WINDOW`` slots, and
 splits the context across blocks as K2 does (one call, one launch, one
-count in ``.launches``).
+count in ``.launches``). A counted step's FLOPs take K2's formula, a
+row attending pos0 + C keys (``paged_attention.count_window_flops``).
 """
 
 import ctypes
 
 import torch
 
+from ..observability import cost as _cost
 from . import _build
-from .paged_attention import _check, _count_lock, launch_split
+from .paged_attention import (_check, _count_lock, count_window_flops,
+                              launch_split)
 
 __all__ = ["MAX_TREE_WINDOW", "paged_attention_tree",
            "paged_attention_tree_reference"]
@@ -80,10 +83,12 @@ def paged_attention_tree(k_pages, v_pages, q, block_tables, positions, anc,
     read inside the kernel (see the module docstring for shapes). CPU
     tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
+    if _cost.counting():
+        count_window_flops(q, positions[:, 0].clamp(min=0) + q.shape[1])
     if q.device.type == "cpu":
-        return paged_attention_tree_reference(k_pages, v_pages, q,
-                                              block_tables, positions, anc,
-                                              sm_scale)
+        with _cost.uncounted():
+            return paged_attention_tree_reference(
+                k_pages, v_pages, q, block_tables, positions, anc, sm_scale)
     return _paged_attention_tree_cuda(k_pages, v_pages, q, block_tables,
                                       positions, anc, sm_scale)
 

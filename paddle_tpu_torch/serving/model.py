@@ -68,6 +68,7 @@ import json
 import math
 import os
 import shutil
+import threading
 import zipfile
 
 import numpy as np
@@ -77,6 +78,8 @@ from torch import nn
 
 from .. import flags as _flags
 from ..core.place import resolve_device
+from ..observability import cost as _cost
+from ..observability import metrics as _metrics
 from ..ops import paged_attention as _pa
 from ..ops import paged_attention_tree as _pat
 from .kv_cache import KVBlockPool, blocks_needed
@@ -309,6 +312,9 @@ class GenerationModel(nn.Module):
             "pe", torch.from_numpy(_position_encoding_table(config))
             .to(self.device))
         self._trees = {}  # (width, depth) -> (depths, anc) on the device
+        # window shapes whose first step was counted (metrics on)
+        self._counted = set()
+        self._count_lock = threading.Lock()
         if self.device.type == "cuda":
             _pa.load()
 
@@ -505,7 +511,10 @@ class GenerationModel(nn.Module):
         """The shared body of every step: the root token splice,
         embeddings, position encodings (window offset, or tree depth)
         and the window forward, at every slot or (``all_slots=False``)
-        at each row's last valid slot."""
+        at each row's last valid slot. With metrics on, the first step
+        of each window shape is counted and its ``exec/*`` gauges
+        published (``observability/cost.py``), as the JAX model
+        publishes each step's cost at its compile."""
         cfg = self.config
         w = self.weights if weights is None else weights
         C = window_tokens.shape[1]
@@ -535,8 +544,17 @@ class GenerationModel(nn.Module):
             emb = emb.float() * es
         x = (emb * (float(cfg.d_model) ** 0.5)
              * cfg.pe_alpha + cfg.pe_beta * self.pe[pe_idx])
-        logits = self._forward_window(w, x, pos2d, lengths, block_tables,
-                                      active, kv_k, kv_v, anc, all_slots)
+        fresh = False
+        if _metrics.enabled():
+            shape = (tuple(window_tokens.shape), tree, all_slots)
+            with self._count_lock:
+                fresh = shape not in self._counted
+                self._counted.add(shape)
+        # the window forward holds every product of the step
+        with _cost.first_step(fresh, self.device):
+            logits = self._forward_window(w, x, pos2d, lengths,
+                                          block_tables, active, kv_k, kv_v,
+                                          anc, all_slots)
         next_tokens = logits.argmax(dim=-1).to(torch.int32)
         if return_logits:
             return next_tokens, logits

@@ -171,3 +171,19 @@ def test_bench_card_vs_cpu_catches_a_planted_fault(smoke, fault,
         assert line[key] > line["loss_limit"]
     else:
         assert line[key] > 1
+
+
+def test_bench_models_phase_from_a_moved_init_counter(smoke, capsys):
+    """Each leg pins the port's init counters, so the phase draws the
+    weights of a fresh process even after other programs were built (at
+    a counter of 123 DeepFM's loss rose before the pin)."""
+    from paddle_tpu_torch import initializer, layer_helper
+
+    initializer._global_seed_counter[0] = 123
+    layer_helper._op_seed_counter[0] = 1123
+    smoke.bench_models_phase(torch, fluid, device="cpu", steps=(1, 2),
+                             argv=["--device", "CPU", "--batch_size", "4"])
+    legs = {leg["leg"]: leg
+            for leg in _lines(capsys.readouterr().out, "bench_model")}
+    assert legs["deepfm"]["losses"][-1] < legs["deepfm"]["losses"][0]
+    assert initializer._global_seed_counter[0] != 123

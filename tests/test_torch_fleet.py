@@ -80,6 +80,15 @@ def _engine(pkg, model, **kw):
     return pkg.ServingEngine(model, **kw)
 
 
+def _warm(*models):
+    """One request through a throwaway port engine per model: the
+    router's contract (``serving/router.py``) asks for warm replicas
+    before a stall budget near a cold step's time."""
+    for m in models:
+        with _engine(port, m) as eng:
+            eng.generate([1, 2], max_new_tokens=4, timeout=120)
+
+
 class _inject:
     """Arm one package's process-global injector for a with-block."""
 
@@ -304,6 +313,7 @@ def test_multi_model_stall_not_masked_by_sibling():
     pb = port.GenerationModel.random(pm.config, seed=21, name="fleet-b",
                                      device="cpu")
     ref = port.reference_decode(pb, [4, 5, 6], 6)
+    _warm(pm, pb)
     with _inject(pres, "serve_stall_at_step:2"):
         with _router(port, {"a": pm, "b": pb}, stall_timeout_s=1.5) \
                 as router:
@@ -439,6 +449,7 @@ def test_stall_watchdog_failover():
     jm, pm = model_pair()
     prompts = _prompts(6, seed=5)
     refs = [port.reference_decode(pm, p, 10) for p in prompts]
+    _warm(pm)
     runs = []
     for pkg, m in ((port, pm), (jserving, jm)):
         outs, _, st, dead, _ = _failover_run(

@@ -5,8 +5,9 @@ default is JAX's backend), the same default batches, the same
 RandomState(0) feeds for every model, the same programs from `_build`
 for every model the JAX harness builds, the same examples/sec line and
 JSON keys from `run_static_model` on the CPU (and `run_transformer`'s
-keys at seq 16), and the options whose modules the port lacks raising
-with their ROADMAP.md item."""
+keys at seq 16, `run_transformer_native`'s line and record at batch 2),
+and the options whose modules the port lacks raising with their
+ROADMAP.md item."""
 
 import importlib.util
 import json
@@ -125,11 +126,31 @@ def test_main_json_line_on_the_cpu(capsys):
 @pytest.mark.parametrize("argv,item", [
     (["--update_method", "spmd"], "item 9"),
     (["--update_method", "nccl2"], "item 9"),
-    (["--profile"], "item 10"),
-    (["--model", "transformer_native"], "item 4")])
+    (["--profile"], "item 10")])
 def test_options_not_ported_raise_naming_their_item(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         pbench.main(argv + ["--device", "CPU"])
+
+
+def test_transformer_native_on_the_cpu(capsys):
+    """``--model transformer_native``: the JAX harness's line and record
+    through ``bench.bench_transformer`` (full width, seq 512, batch 2,
+    one warm-up and two timed steps)."""
+    from paddle_tpu_torch import bench
+
+    rec = pbench.main(["--model", "transformer_native", "--device", "CPU",
+                       "--iterations", "2", "--skip_batch_num", "1",
+                       "--batch_size", "2", "--json"])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(out[-1]) == rec
+    assert rec["metric"] == "transformer_native_tokens_per_sec_per_chip"
+    assert rec["unit"] == "tokens/s/chip" and rec["value"] > 0
+    assert any(x.startswith("Transformer-base (native): ") for x in out)
+    native = bench.last_native
+    assert (native["batch"], native["seq"], native["warmup"],
+            native["steps"]) == (2, 512, 1, 2)
+    assert np.isfinite(native["losses"]).all()
+    assert "transformer_native" not in pbench.NOT_PORTED
 
 
 def test_the_card_is_the_default_device(monkeypatch):

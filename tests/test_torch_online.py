@@ -273,9 +273,22 @@ def test_swap_installs_new_tensors_and_spares_shared_ones(tmp_path):
 # ---------------------------------------------------------------------------
 
 
+def _warm(model):
+    """One request through a throwaway engine of the router's geometry:
+    the router's contract (``serving/router.py``) asks for warm replicas
+    before a stall budget below a cold step's time."""
+    eng = _engine(model)
+    try:
+        eng.generate([1, 2], max_new_tokens=4, timeout=120)
+    finally:
+        eng.close()
+
+
 def test_drain_excludes_dispatch_watchdog_stands_down():
-    """``test_drain_excludes_dispatch_watchdog_stands_down``."""
+    """``test_drain_excludes_dispatch_watchdog_stands_down``; the model
+    is warmed first, so the 0.3 s budget times warm steps only."""
     m0, _ = model_pair()
+    _warm(m0)
     with _router(m0, stall_timeout_s=0.3) as router:
         steps0 = router.stats()["replicas"][1]["model:default"]["steps"]
         assert router.drain(1)
