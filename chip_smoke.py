@@ -378,6 +378,46 @@ Phases, each fatal on failure (exit code 1, no result line):
      correction). Phase 5 checks and times K1 in bf16 at this path's
      B=192 too, on q, k and v packed as the path packs them (views of
      one [B, T, 3, H, Dh] tensor; ``path_*`` keys of the tc rows).
+  13. the LM trained from recordio shards and kept alive (the data
+     plane, ``QueueDataset``'s resumable stream, ``ResilientTrainer``,
+     ``CheckpointManager``). 13a: 4 shards of 320 records (tokens int32
+     [512] from the first 4 ids, RandomState(shard); labels the tokens
+     rolled by one) written by the port's
+     ``convert_reader_to_recordio_file``, shards 1 and 3 deflate: 1,280
+     records, 8 batches of 160 an epoch; fatal unless QueueDataset
+     (set_thread(2)) reads them back record for record. 13b: bench.py's
+     program (``build_lm``: bf16, legacy AMP, SGD 0.01, no remat) under
+     ``ResilientTrainer(guard_every=4, checkpoint_every=4)`` over
+     ``resumable_batches(DatasetCursor(seed=3), epochs=2)``, from one
+     saved initial state: 16 steps across the epoch boundary; fatal
+     unless the losses are finite, each batch's loss in the second epoch
+     is below the same records' loss in the first, and K1 launched 6 "tc"
+     forwards and 6 "tc" backwards a step with no operand copied. 13c:
+     the same run in a child process (``chip_smoke.py --phase13-child``)
+     with ``PTPU_FAULT_INJECT=sigterm_at_step:5``, which must drain into
+     an emergency checkpoint, then another child that restores it,
+     rebuilds the cursor from the scope and finishes; fatal unless their
+     losses put together are the oracle's bitwise (the float32 bits),
+     the second starts at the cursor the first wrote and the two took
+     2 x 1,280 records. 13d: the run in process with a NaN written into
+     a parameter as step 10 takes its batch (the LM's feeds are ints, so
+     the trainer's ``nan_at_step`` would not fire): one anomaly, one
+     rollback, the losses bitwise the oracle's, K1 6 + 6 a step over
+     the 20 steps run (the NaN's window replayed). 13e: three
+     ``Executor.train_from_dataset`` steps with a cursor at 2 layers and
+     full width, batch 4, seq 256, in fp32 and bf16, on cuda:0 and on
+     the CPU from one carried state: the last loss, its grads and every
+     parameter within STEP_TOL (the parameter limit times the steps),
+     the cursors equal; K1 6 + 6 by the dtype's route. 13f at 13b's
+     operating point: 8 dataset batches unguarded and guarded at one
+     sync cadence (twice each, in turns), a scope snapshot's bytes and
+     ms, an async checkpoint's ms in the caller and until ``wait``
+     returns, and ``bench.bench_data_ingestion`` at bench.py's defaults
+     (records/s through the data plane onto the card, healthy and with
+     one shard quarantined). A ``data_plane`` and a ``resilient_train``
+     line, each with the card's name and power limit
+     (``tests/test_torch_chip_smoke_data.py`` runs 13a-13f on the CPU at
+     a small LM, with planted faults).
 
 Then one JSON line ``{"kernels": [...]}`` (every kernel of every path,
 each with the launches of its path's run; a kernel launched no time there
@@ -391,6 +431,7 @@ import os
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 
@@ -5783,6 +5824,603 @@ def native_phase(torch, fa):
     return launches
 
 
+# phase 13: the Fluid LM trained from recordio shards and kept alive —
+# QueueDataset's resumable stream under ResilientTrainer at the headline
+# operating point (bench.py's program, bf16 under the legacy decorator,
+# batch 160, seq 512): 4 shards of 320 records (two plain, two deflate),
+# 8 batches an epoch, 2 epochs from DatasetCursor(seed=3)
+DATA = dict(cfg=TRAIN, shards=4, records=320, batch=160, epochs=2, seed=3,
+            guard_every=4, checkpoint_every=4, kill_step=5, nan_step=10,
+            tokens=4)
+# 13e: card vs CPU through train_from_dataset, 2 layers at full width,
+# batch 4, seq 256, 3 steps (one shard of 12 records)
+DATA_CVC = dict(cfg=dict(TRAIN, n_layers=2, seq_len=256), batch=4, steps=3)
+CHILD_FLAG = "--phase13-child"
+
+
+def build_data_lm(fluid, dtype="bfloat16", cfg=None):
+    """`build_lm` under a fresh unique-name scope: the same parameter
+    names in every process, whatever it built before (a child restores
+    the parent's saved state by name)."""
+    with fluid.unique_name.guard():
+        return build_lm(fluid, dtype, cfg=cfg)
+
+
+def lm_samples(shard, records, cfg):
+    """Shard `shard`'s records: RandomState(shard) tokens int32 [seq]
+    and labels the tokens rolled by one. The tokens are drawn from the
+    first DATA["tokens"] ids: a unigram that SGD 0.01 on bf16 weights
+    learns within 16 steps (over a wider draw its updates round away
+    and the loss stays at ln(vocab)), so the state moves from step to
+    step and each batch's loss falls from one epoch to the next."""
+    rng = np.random.RandomState(shard)
+    toks = rng.randint(0, DATA["tokens"],
+                       (records, cfg["seq_len"])).astype(np.int32)
+    return [(t, np.roll(t, -1)) for t in toks]
+
+
+def write_lm_shards(fluid, directory, shards, records, cfg):
+    """Write the shards with the port's writer, the odd ones deflate;
+    returns their paths."""
+    paths = []
+    for i in range(shards):
+        path = os.path.join(directory, "lm%02d.rec" % i)
+        samples = lm_samples(i, records, cfg)
+        fluid.convert_reader_to_recordio_file(
+            path, lambda s=samples: iter(s),
+            compressor="deflate" if i % 2 else None)
+        paths.append(path)
+    return paths
+
+
+def lm_dataset(fluid, main, paths, batch, thread=2):
+    ds = fluid.DatasetFactory().create_dataset("QueueDataset")
+    ds.set_filelist(paths)
+    ds.set_batch_size(batch)
+    ds.set_use_var([main.global_block().var(n)
+                    for n in ("tokens", "labels")])
+    ds.set_thread(thread)
+    return ds
+
+
+def shards_phase(fluid, main, paths, records, cfg, batch):
+    """13a's gate: the shards read back through QueueDataset
+    (set_thread(2), no seed: filelist order) equal what was written,
+    record for record. Returns (records, seconds)."""
+    t0 = time.perf_counter()
+    got = list(lm_dataset(fluid, main, paths, batch).resumable_batches(
+        fluid.DatasetCursor(), epochs=1))
+    seconds = time.perf_counter() - t0
+    want = [s for i in range(len(paths)) for s in lm_samples(i, records,
+                                                              cfg)]
+    toks = np.concatenate([f["tokens"] for f in got])
+    labs = np.concatenate([f["labels"] for f in got])
+    if toks.shape != (len(want), cfg["seq_len"]) or not (
+            np.array_equal(toks, np.stack([s[0] for s in want]))
+            and np.array_equal(labs, np.stack([s[1] for s in want]))):
+        fail("13a: the shards read back through QueueDataset differ from "
+             "the %d records written" % len(want))
+    return len(want), seconds
+
+
+def save_init_state(fluid, program, device, directory):
+    """Run the startup program once and save the scope it leaves (the
+    one initial state every 13b-13d run loads: the init draws follow
+    process-wide counters, so two processes must not draw their own)."""
+    main, startup, _ = program
+    exe = fluid.Executor(device)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    fluid.checkpoint.save_checkpoint(directory, dict(scope.items()), 0)
+    exe.close()
+
+
+def load_state(torch, scope, state, device):
+    for name, value in state.items():
+        if isinstance(value, torch.Tensor):
+            value = value.to(device)
+        scope.set(name, value)
+    scope.set("__step_counter__",
+              int(np.asarray(scope.get("__step_counter__")).item()))
+
+
+def resilient_lm_run(torch, fluid, program, paths, init_dir, device=None,
+                     batch=DATA["batch"], ckpt_dir=None, restore=False,
+                     injector=None, nan_step=None):
+    """One ResilientTrainer run over the resumable stream (2 epochs from
+    DatasetCursor(seed=3), or from the restored scope's cursor) in a
+    fresh executor and scope holding the initial state; `ckpt_dir`
+    checkpoints every DATA["checkpoint_every"] steps. `nan_step` is 13d's
+    fault: as the trainer takes that batch, a NaN is written into the
+    first parameter, so the step and the state it leaves are poisoned
+    (the trainer's ``nan_at_step`` poisons a float feed value, and the
+    LM's feeds hold none). Returns what the run saw: losses, the
+    result's ledger, the records the trainer took and a key of each
+    batch (its tokens' CRC32), the cursor it started from and where it
+    ended, seconds."""
+    from paddle_tpu_torch import checkpoint
+
+    main, _, loss = program
+    exe = fluid.Executor(device)
+    scope = fluid.Scope()
+    load_state(torch, scope, checkpoint.restore_checkpoint(init_dir),
+               exe.device)
+    trainer = fluid.ResilientTrainer(
+        exe, main, fetch_list=[loss], scope=scope,
+        guard_every=DATA["guard_every"], checkpoint_dir=ckpt_dir,
+        checkpoint_every=DATA["checkpoint_every"] if ckpt_dir else 0,
+        fault_injector=injector)
+    cursor = fluid.DatasetCursor(seed=DATA["seed"])
+    if restore:
+        if trainer.restore() is None:
+            fail("13c: no checkpoint to restore under %s" % ckpt_dir)
+        cursor = fluid.DatasetCursor.from_scope(scope)
+    start = cursor.to_array().tolist()
+    records = [0]
+    pulls = []                 # when the trainer took each batch
+    keys = []
+    poison = main.global_block().all_parameters()[0].name
+
+    def counted(batches):
+        for feed in batches:
+            pulls.append(time.perf_counter())
+            records[0] += feed["tokens"].shape[0]
+            keys.append(zlib.crc32(np.ascontiguousarray(
+                feed["tokens"]).tobytes()))
+            if len(pulls) - 1 == nan_step:
+                value = scope.get(poison).clone()
+                value.view(-1)[0] = float("nan")
+                scope.set(poison, value)
+            yield feed
+
+    stream = lm_dataset(fluid, main, paths, batch).resumable_batches(
+        cursor, epochs=DATA["epochs"], scope=scope)
+    t0 = time.perf_counter()
+    result = trainer.run(counted(stream))
+    exe.sync()
+    seconds = time.perf_counter() - t0
+    # host ms from the run's start to the first pull (the run-start
+    # snapshot), between pulls (a step; every guard_every-th with the
+    # boundary's validation, snapshot and checkpoint copy), and from the
+    # last pull to the end (the last window, the final save)
+    marks = [t0] + pulls + [t0 + seconds]
+    out = {"losses": result.losses, "step": result.step,
+           "preempted": result.preempted, "anomalies": result.anomalies,
+           "rollbacks": result.rollbacks, "retries": result.retries,
+           "skipped_steps": result.skipped_steps,
+           "checkpoints_saved": result.checkpoints_saved,
+           "records": records[0], "batch_keys": keys,
+           "cursor_start": start,
+           "cursor_end": cursor.to_array().tolist(),
+           "scope_cursor": np.asarray(scope.get(
+               "__data_cursor__")).tolist(),
+           "seconds": seconds,
+           "host_ms": [(b - a) * 1e3 for a, b in zip(marks, marks[1:])],
+           "device": str(exe.device)}
+    exe.close()
+    del trainer, scope
+    return out
+
+
+def loss_bits(losses):
+    return np.asarray(losses, np.float32).view(np.uint32).tolist()
+
+
+def run_child(args, env_extra=None, timeout=600):
+    """Run ``chip_smoke.py --phase13-child`` with `args` in a process of
+    its own; returns the run's result (its ``phase13_child`` line)."""
+    env = dict(os.environ, **(env_extra or {}))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), CHILD_FLAG,
+         json.dumps(args)], capture_output=True, text=True, env=env,
+        timeout=timeout)
+    lines = [x for x in out.stdout.splitlines()
+             if x.startswith("phase13_child ")]
+    if out.returncode != 0 or not lines:
+        fail("13c: the child (%s) exited %d: %s" % (
+            args.get("name"), out.returncode, out.stderr[-3000:]))
+    got = json.loads(lines[-1].split(" ", 1)[1])
+    got["process_seconds"] = time.perf_counter() - t0
+    return got
+
+
+def child_main(args):
+    """A 13c child: the port on `args["device"]`, the LM at `args["cfg"]`
+    (bf16 under the legacy decorator), one `resilient_lm_run`; prints one
+    ``phase13_child`` line."""
+    import torch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    if args["device"] == "cpu":
+        torch.set_num_threads(1)
+    import paddle_tpu_torch as fluid
+
+    program = build_data_lm(fluid, cfg=args["cfg"])
+    out = resilient_lm_run(torch, fluid, program, args["paths"],
+                           args["init_dir"], device=args["device"],
+                           batch=args["batch"], ckpt_dir=args["ckpt_dir"],
+                           restore=args["restore"])
+    print("phase13_child " + json.dumps(out), flush=True)
+
+
+def check_kill_resume(oracle, killed, resumed, records_total):
+    """13c's gates: the killed run preempted with its emergency
+    checkpoint, the resumed run starting at the cursor the killed one
+    wrote, the two loss streams put together bitwise the oracle's, the
+    records taken 2 epochs' worth."""
+    if not killed["preempted"] or killed["checkpoints_saved"] < 1:
+        fail("13c: the SIGTERM'd run did not drain into a checkpoint: %r"
+             % {k: killed[k] for k in ("preempted", "checkpoints_saved")})
+    if resumed["preempted"] or resumed["cursor_start"] != \
+            killed["cursor_end"]:
+        fail("13c: the resumed run started at cursor %r, the killed run "
+             "wrote %r" % (resumed["cursor_start"], killed["cursor_end"]))
+    if loss_bits(killed["losses"] + resumed["losses"]) != \
+            loss_bits(oracle["losses"]):
+        fail("13c: kill + resume losses %r are not bitwise the oracle's %r"
+             % (killed["losses"] + resumed["losses"], oracle["losses"]))
+    if killed["records"] + resumed["records"] != records_total:
+        fail("13c: the two runs took %d + %d records, not %d"
+             % (killed["records"], resumed["records"], records_total))
+
+
+def epoch_falls(run, per_epoch):
+    """Each batch of the last epoch against the same records in the
+    first (paired by the batch keys; the shard order differs): the
+    first epoch's loss less the last's."""
+    keys, losses = run["batch_keys"], run["losses"]
+    first = dict(zip(keys[:per_epoch], losses[:per_epoch]))
+    return [first[k] - x for k, x in zip(keys[-per_epoch:],
+                                         losses[-per_epoch:])]
+
+
+def check_oracle(oracle, steps, epochs=DATA["epochs"]):
+    """13b's gates: `steps` finite losses; every batch's loss lower in
+    the last epoch than on the same records in the first (a run whose
+    state does not move gives equal losses and fails); the cursor at
+    the stream's end. Returns the falls."""
+    if len(oracle["losses"]) != steps or not np.all(
+            np.isfinite(oracle["losses"])):
+        fail("13b: %d losses over %d steps, or one not finite: %r"
+             % (len(oracle["losses"]), steps, oracle["losses"]))
+    per_epoch = steps // epochs
+    if sorted(oracle["batch_keys"][:per_epoch]) != \
+            sorted(oracle["batch_keys"][-per_epoch:]):
+        fail("13b: the last epoch's batches are not the first's")
+    falls = epoch_falls(oracle, per_epoch)
+    if not min(falls) > 0:
+        fail("13b: a batch's loss did not fall from the first epoch to "
+             "the last: falls %r, losses %r" % (falls, oracle["losses"]))
+    if oracle["cursor_end"][1:4] != [DATA["epochs"], 0, 0]:
+        fail("13b: the cursor ended at %r" % oracle["cursor_end"])
+    return falls
+
+
+def data_train_phase(torch, fa, fluid, device=None, size=None,
+                     workdir=None, on_card=True):
+    """13a-13d (module docstring). `size` overrides DATA's cfg, shards,
+    records and batch (the CPU tests' small LM); `workdir` holds the
+    shards and checkpoints (default a temporary directory). Returns
+    (K1 launches (forward, backward) over 13b and 13d, the phase's
+    report)."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import resilience
+
+    size = dict(DATA, **(size or {}))
+    cfg, batch = size["cfg"], size["batch"]
+    base = workdir or tempfile.mkdtemp(prefix="ptpu_phase13_")
+    try:
+        program = build_data_lm(fluid, cfg=cfg)
+        main = program[0]
+        paths = write_lm_shards(fluid, base, size["shards"],
+                                size["records"], cfg)
+        n_records, read_s = shards_phase(fluid, main, paths,
+                                         size["records"], cfg, batch)
+        init_dir = os.path.join(base, "init")
+        save_init_state(fluid, program, device, init_dir)
+        steps = size["epochs"] * (-(-n_records // batch))
+        # 13b: the oracle
+        fa.reset_counts()                      # the main path starts
+        oracle = resilient_lm_run(torch, fluid, program, paths, init_dir,
+                                  device=device, batch=batch,
+                                  ckpt_dir=os.path.join(base, "ck_oracle"),
+                                  injector=resilience.FaultInjector(""))
+        k1_oracle = flash_counts(fa)           # the main path ends
+        falls = check_oracle(oracle, steps, size["epochs"])
+        check_k1_per_step("13b", k1_oracle, steps, cfg, on_card)
+        # 13c: killed at DATA["kill_step"], resumed, two processes
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        child = dict(cfg=cfg, paths=paths, init_dir=init_dir,
+                     device="cuda:0" if on_card else "cpu", batch=batch,
+                     ckpt_dir=os.path.join(base, "ck_kill"))
+        killed = run_child(dict(child, name="killed", restore=False),
+                           {"PTPU_FAULT_INJECT": "sigterm_at_step:%d"
+                            % DATA["kill_step"]})
+        resumed = run_child(dict(child, name="resumed", restore=True),
+                            {"PTPU_FAULT_INJECT": ""})
+        check_kill_resume(oracle, killed, resumed,
+                          size["epochs"] * n_records)
+        # 13d: a NaN at DATA["nan_step"] rolled back in process
+        fa.reset_counts()                      # the main path starts
+        rolled = resilient_lm_run(
+            torch, fluid, program, paths, init_dir, device=device,
+            batch=batch, injector=resilience.FaultInjector(""),
+            nan_step=DATA["nan_step"])
+        k1_rolled = flash_counts(fa)           # the main path ends
+        if (rolled["anomalies"], rolled["rollbacks"]) != (1, 1) or \
+                loss_bits(rolled["losses"]) != loss_bits(oracle["losses"]):
+            fail("13d: %d anomalies / %d rollbacks, losses %r against the "
+                 "oracle's %r" % (rolled["anomalies"], rolled["rollbacks"],
+                                  rolled["losses"], oracle["losses"]))
+        # the window of the NaN replayed: its steps run twice
+        check_k1_per_step("13d", k1_rolled, steps + DATA["guard_every"],
+                          cfg, on_card)
+        report = {"records": n_records, "read_back_s": read_s,
+                  "read_back_records_per_s": n_records / read_s,
+                  "steps": steps, "oracle": oracle,
+                  "epoch_fall": {"mean": float(np.mean(falls)),
+                                 "least": float(min(falls)),
+                                 "first_to_last": oracle["losses"][0]
+                                 - oracle["losses"][-1]},
+                  "killed": killed,
+                  "resumed": resumed, "rollback": rolled,
+                  "k1": {"13b": k1_oracle, "13d": k1_rolled}}
+        launches = tuple(k1_oracle[i]["tc"] + k1_rolled[i]["tc"]
+                         for i in (0, 1))
+        return launches, report
+    finally:
+        if workdir is None:
+            shutil.rmtree(base, ignore_errors=True)
+
+
+def check_k1_per_step(label, k1, steps, cfg, on_card):
+    """K1 6 + 6 "tc" launches a step (one a layer each way), no copy; on
+    the CPU (the tests) the plain version counts none."""
+    n = cfg["n_layers"] * steps if on_card else 0
+    zero = {"tc": 0, "fp16": 0, "f32tc": 0}
+    want = (dict(zero, tc=n), dict(zero, tc=n), 0)
+    if k1 != want:
+        fail("%s: flash attention launched %r (forward, backward by route; "
+             "copies) over %d steps; expected %r" % (label, k1, steps, want))
+
+
+def data_card_vs_cpu_phase(torch, fluid, dtype, devices=("cuda:0", "cpu"),
+                           size=None):
+    """13e in `dtype`: DATA_CVC["steps"] steps of
+    ``Executor.train_from_dataset`` with a DatasetCursor(seed=3) over one
+    shard, from one carried state, on devices[0] and devices[1]; held to
+    STEP_TOL[dtype]: the last step's loss, its grads, every parameter
+    after the run (the per-step ulps and grad limit times the steps) and
+    the cursors (the object's and its scope mirror) equal. `size`
+    overrides DATA_CVC (the CPU tests). Returns K1's launches."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    size = dict(DATA_CVC, **(size or {}))
+    cfg, batch, steps = size["cfg"], size["batch"], size["steps"]
+    program = build_data_lm(fluid, dtype, cfg=cfg)
+    main, startup, loss = program
+    tol = STEP_TOL[dtype]
+    lr, rel, bits = 0.01, tol["grad_rtol"], tol["mantissa_bits"]
+    params = sorted(main.param_grad_map)
+    fetch = [loss] + [main.param_grad_map[p] for p in params]
+    base = tempfile.mkdtemp(prefix="ptpu_phase13e_")
+    try:
+        paths = write_lm_shards(fluid, base, 1, batch * steps, cfg)
+        exe_c, exe_h = fluid.Executor(devices[0]), fluid.Executor(devices[1])
+        scope_c, scope_h = fluid.Scope(), fluid.Scope()
+        exe_c.run(startup, scope=scope_c)
+        for n in scope_c.local_var_names():
+            if n != "__step_counter__":
+                scope_h.set(n, scope_c.get(n).to("cpu", copy=True))
+        start = {p: scope_h.get(p).float().numpy().copy() for p in params}
+        t0 = time.perf_counter()
+        fa.reset_counts()                      # the path starts
+        runs = []
+        for exe, scope in ((exe_c, scope_c), (exe_h, scope_h)):
+            cursor = fluid.DatasetCursor(seed=DATA["seed"])
+            last = exe.train_from_dataset(
+                main, lm_dataset(fluid, main, paths, batch), scope=scope,
+                fetch_list=fetch, cursor=cursor, epochs=1)
+            runs.append((float(np.asarray(last[0]).ravel()[0]),
+                         dict(zip(params, last[1:])), cursor.position(),
+                         np.asarray(scope.get("__data_cursor__")).tolist()))
+        seconds = time.perf_counter() - t0
+        k1 = flash_counts(fa)                  # the path ends
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    (lc, gc_, cc, mc), (lh, gh, ch, mh) = runs
+    loss_rel = abs(lc - lh) / abs(lh)
+    floor = tol["floor_rel"] * max(float(np.abs(g).max())
+                                   for g in gh.values())
+    worst_g, worst_p = (0.0, ""), (-np.inf, "")
+    for p in params:
+        g_lim = rel * float(np.abs(gh[p]).max()) + floor
+        worst_g = max(worst_g, (float(np.abs(gc_[p] - gh[p]).max())
+                                / g_lim, p))
+        pc = scope_c.get(p).float().cpu().numpy()
+        ph = scope_h.get(p).float().numpy()
+        mag = np.maximum(np.maximum(np.abs(pc), np.abs(ph)),
+                         np.abs(start[p]))
+        excess = (np.abs(pc - ph) - steps * ulp(mag, bits)) \
+            / (steps * lr * g_lim)
+        worst_p = max(worst_p, (float(excess.max()), p))
+    report = {"dtype": dtype, "batch": batch, "steps": steps,
+              "seq": cfg["seq_len"], "layers": cfg["n_layers"],
+              "loss_cuda": lc, "loss_cpu": lh, "loss_max_rel_err": loss_rel,
+              "loss_limit": tol["loss_rtol"],
+              "worst_grad_err_over_limit": worst_g[0],
+              "worst_grad": worst_g[1],
+              "worst_param_excess_over_limit": worst_p[0],
+              "worst_param": worst_p[1], "cursors": [cc, ch],
+              "flash_attention_launches": k1, "seconds": seconds}
+    print("card_vs_cpu_data " + json.dumps(report), flush=True)
+    if not loss_rel <= tol["loss_rtol"]:
+        fail("13e %s: last loss %r vs %r (rel %.3g > %g)"
+             % (dtype, lc, lh, loss_rel, tol["loss_rtol"]))
+    if worst_g[0] > 1:
+        fail("13e %s: the grad of %s differs by %.3g of its limit"
+             % (dtype, worst_g[1], worst_g[0]))
+    if worst_p[0] > 1:
+        fail("13e %s: %s differs by %.3g of its limit after %d steps"
+             % (dtype, worst_p[1], worst_p[0], steps))
+    if (cc, mc) != (ch, mh) or cc != (1, 0, 0):
+        fail("13e %s: cursors %r / %r differ or did not finish the epoch"
+             % (dtype, (cc, mc), (ch, mh)))
+    return k1
+
+
+def data_costs_phase(torch, fluid, device=None, size=None, steps=8,
+                     ingestion=None):
+    """13f at 13b's operating point: the step time unguarded and guarded
+    (ResilientTrainer, no checkpoint dir) over the same `steps` dataset
+    batches at one sync cadence (the losses copied to the host every
+    DATA["guard_every"] steps), a scope snapshot's bytes and ms, an
+    async checkpoint's ms in the caller (the host copy) and until
+    ``wait`` returns (the write), and bench.py's ingestion legs
+    (``bench.bench_data_ingestion`` at its defaults, or `ingestion`'s
+    keywords). Returns the report."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import bench, checkpoint, resilience
+    from paddle_tpu_torch.async_engine import as_numpy
+
+    size = dict(DATA, **(size or {}))
+    cfg, batch, every = size["cfg"], size["batch"], size["guard_every"]
+    base = tempfile.mkdtemp(prefix="ptpu_phase13f_")
+    try:
+        program = build_data_lm(fluid, cfg=cfg)
+        main, startup, loss = program
+        paths = write_lm_shards(fluid, base, 1, batch * steps, cfg)
+        feeds = list(lm_dataset(fluid, main, paths, batch).resumable_batches(
+            fluid.DatasetCursor(), epochs=1))
+        exe = fluid.Executor(device)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+
+        def sync():
+            exe.sync()
+            if exe.device.type == "cuda":
+                torch.cuda.synchronize(exe.device)
+
+        def unguarded():
+            pending = []
+            for feed in feeds:
+                out, = exe.run(main, feed=feed, fetch_list=[loss],
+                               scope=scope, return_numpy=False)
+                pending.append(out)
+                if len(pending) >= every:
+                    as_numpy(pending)
+                    pending = []
+            as_numpy(pending)
+
+        trainer = fluid.ResilientTrainer(exe, main, fetch_list=[loss],
+                                         scope=scope, guard_every=every)
+
+        def guarded():
+            trainer.run(iter(feeds))
+
+        times = {}
+        for name, fn in (("warmup", unguarded), ("unguarded", unguarded),
+                         ("guarded", guarded), ("unguarded_again",
+                                                unguarded),
+                         ("guarded_again", guarded)):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times[name] = (time.perf_counter() - t0) * 1e3 / steps
+        sync()
+        t0 = time.perf_counter()
+        snap = resilience.snapshot_scope(scope)
+        snap_ms = (time.perf_counter() - t0) * 1e3
+        mgr = checkpoint.CheckpointManager(os.path.join(base, "ck"),
+                                           async_save=True)
+        t0 = time.perf_counter()
+        mgr.save(dict(scope.items()), 1)
+        t1 = time.perf_counter()
+        mgr.wait()
+        t2 = time.perf_counter()
+        exe.close()
+        del trainer, scope
+        gc.collect()
+        ing = bench.bench_data_ingestion(place=device, **(ingestion or {}))
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    ms = {k: v for k, v in times.items() if k != "warmup"}
+    guarded_ms = (ms["guarded"] + ms["guarded_again"]) / 2
+    unguarded_ms = (ms["unguarded"] + ms["unguarded_again"]) / 2
+    return {"batch": batch, "steps": steps, "sync_every": every,
+            "step_ms": ms, "step_ms_unguarded": unguarded_ms,
+            "step_ms_guarded": guarded_ms,
+            "guard_overhead_pct": 100 * (guarded_ms - unguarded_ms)
+            / unguarded_ms,
+            "snapshot_bytes": snap.nbytes, "snapshot_ms": snap_ms,
+            "checkpoint_caller_ms": (t1 - t0) * 1e3,
+            "checkpoint_write_ms": (t2 - t1) * 1e3,
+            "ingestion": ing}
+
+
+def data_phase(torch, fa, fluid):
+    """Phase 13 on cuda:0 (module docstring): 13a-13d, 13e in fp32 and
+    bf16, 13f; the ``data_plane`` and ``resilient_train`` lines. Returns
+    K1's launches on the phase's main paths by kernel row name."""
+    t13 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    (fwd, bwd), report = data_train_phase(torch, fa, fluid)
+    launches = {"flash_attention_tc_fwd": fwd,
+                "flash_attention_tc_bwd": bwd}
+    for dtype, route in (("float32", "f32tc"), ("bfloat16", "tc")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        k1 = data_card_vs_cpu_phase(torch, fluid, dtype)
+        n = DATA_CVC["steps"] * DATA_CVC["cfg"]["n_layers"]
+        zero = {"tc": 0, "fp16": 0, "f32tc": 0}
+        want = (dict(zero, **{route: n}), dict(zero, **{route: n}), 0)
+        if k1 != want:
+            fail("13e %s: flash attention launched %r (forward, backward "
+                 "by route; copies); expected %r" % (dtype, k1, want))
+        for way, n_way in (("fwd", k1[0][route]), ("bwd", k1[1][route])):
+            key = "flash_attention_%s_%s" % (route, way)
+            launches[key] = launches.get(key, 0) + n_way
+    gc.collect()
+    torch.cuda.empty_cache()
+    costs = data_costs_phase(torch, fluid)
+    card = card_line()
+    print("data_plane " + json.dumps({
+        "shards": DATA["shards"], "records": report["records"],
+        "read_back_records_per_s": report["read_back_records_per_s"],
+        "ingestion": costs.pop("ingestion"), "card": card}), flush=True)
+    oracle = report["oracle"]
+    print("resilient_train " + json.dumps({
+        "batch": DATA["batch"], "steps": report["steps"],
+        "oracle_ms_per_step": oracle["seconds"] * 1e3 / report["steps"],
+        "oracle_host_ms": oracle["host_ms"],
+        "oracle_losses": oracle["losses"],
+        "epoch_fall": report["epoch_fall"],
+        "killed": {k: report["killed"][k] for k in (
+            "losses", "step", "checkpoints_saved", "records", "cursor_end",
+            "seconds", "process_seconds")},
+        "resumed": {k: report["resumed"][k] for k in (
+            "losses", "step", "records", "cursor_start", "seconds",
+            "process_seconds")},
+        "rollback": {k: report["rollback"][k] for k in (
+            "anomalies", "rollbacks", "retries", "seconds")},
+        "k1": report["k1"], "costs": costs, "card": card,
+        "seconds": time.perf_counter() - t13}), flush=True)
+    return launches
+
+
 def main():
     try:
         import torch
@@ -5934,6 +6572,8 @@ def main():
     bench_phase_11(torch, fluid, fa_mod, pa_mod, pat_mod, im_mod)
     for name, n in native_phase(torch, fa_mod).items():
         flash_rows[name]["launches"] += n
+    for name, n in data_phase(torch, fa_mod, fluid).items():
+        flash_rows[name]["launches"] += n
     kernels = rows + tree_rows + list(flash_rows.values()) + int8_rows
     idle = [(r["name"], r.get("C"), r.get("shape")) for r in kernels
             if not r.get("launches")]
@@ -5946,4 +6586,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == CHILD_FLAG:
+        child_main(json.loads(sys.argv[2]))
+    else:
+        main()

@@ -42,7 +42,12 @@ harness (``python -m paddle_tpu_torch.fluid_benchmark``), and the native
 flagship (``models.transformer``: plain functions over a stacked
 parameter tree, trained by ``bench.bench_transformer``, the harness's
 ``--model transformer_native``) with the step cost accounting
-(``observability.cost``: a step's FLOPs and MFU):
+(``observability.cost``: a step's FLOPs and MFU), and training fed from
+recordio shards and kept alive (``convert_reader_to_recordio_file``,
+``recordio_writer``, ``reader`` and ``batch``, ``DataFeeder``,
+``data_plane`` with ``DatasetCursor``, ``DatasetFactory`` ->
+``QueueDataset`` / ``InMemoryDataset``, ``Executor.train_from_dataset``,
+``checkpoint.CheckpointManager`` and ``ResilientTrainer``):
 
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import transformer_fluid
@@ -57,23 +62,46 @@ parameter tree, trained by ``bench.bench_transformer``, the harness's
     exe = fluid.Executor()              # cuda:0
     exe.run(startup)
     loss_value, = exe.run(main, feed={...}, fetch_list=[loss])
+
+    dataset = fluid.DatasetFactory().create_dataset("QueueDataset")
+    dataset.set_filelist(shards)        # convert_reader_to_recordio_file
+    dataset.set_batch_size(160)
+    dataset.set_use_var([tokens, labels])
+    trainer = fluid.ResilientTrainer(exe, main, fetch_list=[loss],
+                                     checkpoint_dir="ckpt",
+                                     checkpoint_every=100)
+    trainer.restore()                   # None on a fresh run
+    cursor = (fluid.DatasetCursor.from_scope(fluid.global_scope())
+              or fluid.DatasetCursor(seed=3))
+    result = trainer.run(dataset.resumable_batches(
+        cursor, epochs=2, scope=fluid.global_scope()))
 """
 
 from . import (amp, async_engine, checkpoint, clip, contrib,  # noqa: F401
-               flags, inference, initializer, io, ir, layers, nets,
-               optimizer, quant, regularizer, resilience, transpiler,
-               unique_name)
+               data_plane, flags, inference, initializer, io, ir, layers,
+               nets, optimizer, quant, reader, recordio_writer,
+               regularizer, resilience, transpiler, unique_name)
 from .backward import append_backward  # noqa: F401
 from .core.scope import Scope, global_scope, scope_guard  # noqa: F401
+from .data_feeder import DataFeedDesc, DataFeeder  # noqa: F401
+from .data_plane import DatasetCursor  # noqa: F401
+from .dataset_api import (DatasetFactory, InMemoryDataset,  # noqa: F401
+                          QueueDataset)
 from .executor import Executor  # noqa: F401
 from .framework import (Program, Variable, default_main_program,  # noqa: F401
                         default_startup_program, program_guard)
 from .param_attr import ParamAttr  # noqa: F401
+from .reader import batch  # noqa: F401
+from .recordio_writer import convert_reader_to_recordio_file  # noqa: F401
+from .resilience import ResilientTrainer  # noqa: F401
 
-__all__ = ["Executor", "ParamAttr", "Program", "Scope", "Variable",
-           "amp", "append_backward", "async_engine", "checkpoint", "clip",
-           "contrib", "default_main_program", "default_startup_program",
-           "flags", "global_scope", "inference", "initializer", "io", "ir",
-           "layers", "nets", "optimizer", "program_guard", "quant",
-           "regularizer", "resilience", "scope_guard", "transpiler",
-           "unique_name"]
+__all__ = ["DataFeedDesc", "DataFeeder", "DatasetCursor", "DatasetFactory",
+           "Executor", "InMemoryDataset", "ParamAttr", "Program",
+           "QueueDataset", "ResilientTrainer", "Scope", "Variable", "amp",
+           "append_backward", "async_engine", "batch", "checkpoint", "clip",
+           "contrib", "convert_reader_to_recordio_file", "data_plane",
+           "default_main_program", "default_startup_program", "flags",
+           "global_scope", "inference", "initializer", "io", "ir", "layers",
+           "nets", "optimizer", "program_guard", "quant", "reader",
+           "recordio_writer", "regularizer", "resilience", "scope_guard",
+           "transpiler", "unique_name"]

@@ -3,15 +3,18 @@
 (`bench_transformer_fluid` :109-225, `TINY` :229), its serving legs
 (`bench_serving` :553, `bench_serving_fastpath` :659,
 `bench_serving_spec` :731, `bench_serving_quant` :1242), its predictor
-leg (`bench_quant_predictor` :1146) and its fleet
+leg (`bench_quant_predictor` :1146), its fleet
 and online legs (`bench_serving_fleet` :836, `bench_serving_online`
-:906), with its `main`'s leg selection (:1735-1903).
+:906), its resilience and ingestion legs (`bench_resilience_overhead`
+:250, `bench_data_ingestion` :314), with its `main`'s leg selection
+(:1735-1903).
 
     python -m paddle_tpu_torch.bench [--steps N] [--warmup N] [--tiny]
                                      [--sync-only] [--amp-only]
                                      [--serving-only] [--spec-only]
                                      [--quant-only] [--fleet-only]
-                                     [--online-only] [--place cpu]
+                                     [--online-only] [--resilience]
+                                     [--data-only] [--place cpu]
 
 trains the flagship Fluid-API Transformer LM (vocab 32000, d_model 512, 8
 heads, 6 layers, d_ff 2048, seq 512, batch 160, ``remat=False``) through
@@ -57,9 +60,16 @@ metrics on (``PTPU_METRICS=1``) the async, sync, fp32, amp, amp_fp16 and
 serving_batched legs carry bench.py's MFU receipt: ``step_flops`` (the
 step's count, ``observability/cost.py``) and ``mfu_pct`` against the
 card's peak. It
-prints no ``vs_baseline``: bench.py's baseline is a TPU-era figure. A
-leg bench.py would run whose modules the port lacks is named under
-``not_ported``. ``--tiny`` is bench.py's CI configuration (TINY, host
+prints no ``vs_baseline``: bench.py's baseline is a TPU-era figure.
+``--resilience`` (on under ``--tiny``, as in bench.py) adds the
+``resilience_unguarded`` / ``resilience_guarded`` legs: a small fc
+program's step time with and without ``ResilientTrainer``'s guard at one
+sync cadence, and bench.py's ``step_time_guarded_s``,
+``step_time_unguarded_s`` and ``guard_overhead_pct``. ``--data-only``
+runs only the ingestion pair (records/s through a 2-thread QueueDataset
+onto the card, healthy and with one shard quarantined) and prints
+bench.py's ``data_degraded_throughput_ratio`` line with its
+``records_lost``. ``--tiny`` is bench.py's CI configuration (TINY, host
 feeds through the prefetcher); ``--sync-only`` skips the async leg,
 ``--amp-only`` runs only fp32, amp and amp_fp16; ``--serving-only`` the
 serving, fast-path and speculative pairs, ``--spec-only`` the
@@ -84,7 +94,9 @@ import paddle_tpu_torch as fluid
 from paddle_tpu_torch.async_engine import as_numpy
 from paddle_tpu_torch.models import transformer_fluid
 
-__all__ = ["NATIVE_ADAM", "TINY", "bench_quant_predictor", "bench_serving",
+__all__ = ["NATIVE_ADAM", "TINY", "bench_data_ingestion",
+           "bench_quant_predictor", "bench_resilience_overhead",
+           "bench_serving",
            "bench_serving_fastpath",
            "bench_serving_fleet", "bench_serving_online",
            "bench_serving_quant", "bench_serving_spec", "bench_transformer",
@@ -1095,6 +1107,164 @@ def bench_serving_online(n_requests=24, max_new_tokens=12, vocab=64,
             shutil.rmtree(base, ignore_errors=True)
 
 
+def bench_resilience_overhead(steps=48, warmup=8, batch=64, guard_every=8,
+                              place=None):
+    """Guarded vs unguarded steady-state step time on a small train
+    program (bench.py's function, on `place`): fc 64 -> relu -> fc 1,
+    square error, SGD 0.01, one RandomState(0) batch of `batch` rows.
+    Both legs share ONE program, executor and private scope and the SAME
+    sync cadence — the unguarded loop also copies every `guard_every`
+    steps' losses to the host — so the difference is what the guard
+    adds: the host-side isfinite/EMA scan and one scope snapshot per
+    validated boundary. Returns (unguarded_step_s, guarded_step_s)."""
+    from paddle_tpu_torch.resilience import ResilientTrainer
+
+    prog, sprog = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(prog, sprog):
+        x = fluid.layers.data(name="rx", shape=[64], dtype="float32")
+        y = fluid.layers.data(name="ry", shape=[1], dtype="float32")
+        h = fluid.layers.fc(input=x, size=64, act="relu")
+        pred = fluid.layers.fc(input=h, size=1)
+        loss = fluid.layers.mean(
+            fluid.layers.square_error_cost(input=pred, label=y))
+        fluid.optimizer.SGD(0.01).minimize(loss)
+    # private scope: the guard snapshots the whole training scope
+    scope = fluid.Scope()
+    exe = fluid.Executor(place)
+    exe.run(sprog, scope=scope)
+    rng = np.random.RandomState(0)
+    feed = {"rx": rng.uniform(-1, 1, (batch, 64)).astype(np.float32),
+            "ry": rng.uniform(-1, 1, (batch, 1)).astype(np.float32)}
+
+    def unguarded(n):
+        pending = []
+        for _ in range(n):
+            out, = exe.run(prog, feed=feed, fetch_list=[loss],
+                           scope=scope, return_numpy=False)
+            pending.append(out)
+            if len(pending) >= guard_every:
+                as_numpy(pending)
+                pending = []
+        as_numpy(pending)
+
+    trainer = ResilientTrainer(exe, prog, fetch_list=[loss], scope=scope,
+                               guard_every=guard_every)
+
+    def guarded(n):
+        trainer.run({"rx": feed["rx"], "ry": feed["ry"]}
+                    for _ in range(n))
+
+    unguarded(warmup)
+    guarded(warmup)
+    t0 = time.perf_counter()
+    unguarded(steps)
+    t1 = time.perf_counter()
+    guarded(steps)
+    t2 = time.perf_counter()
+    exe.close()
+    return (t1 - t0) / steps, (t2 - t1) / steps
+
+
+def bench_data_ingestion(n_shards=8, records_per_shard=2048, width=32,
+                         batch_size=256, repeats=3, place=None):
+    """Streaming-ingestion receipt (bench.py's function): records/s
+    through the fault-tolerant QueueDataset reader (2 threads, the batch
+    prefetcher), each batch staged onto `place` by the feed prefetcher as
+    ``Executor.train_from_dataset`` stages it, healthy vs degraded (one
+    mid-list shard with a flipped byte, QUARANTINED by the containment
+    policy). The degraded leg reads fewer records, so its receipt is
+    throughput on the surviving stream: degraded / healthy records/s.
+    Best of `repeats` each. Returns bench.py's dict."""
+    import shutil
+    import tempfile
+    import warnings
+
+    from paddle_tpu_torch import data_plane
+    from paddle_tpu_torch.async_engine import FeedPrefetcher, prefetch_iter
+    from paddle_tpu_torch.core.place import resolve_device
+
+    device = resolve_device(place)
+
+    class _Var:
+        def __init__(self, name):
+            self.name = name
+
+    tmp = tempfile.mkdtemp(prefix="ptpu_bench_data_")
+    try:
+        paths = []
+        payload = np.arange(width, dtype=np.float32)
+        for i in range(n_shards):
+            p = "%s/shard%02d.rec" % (tmp, i)
+
+            def gen(i=i):
+                for j in range(records_per_shard):
+                    yield (payload + i * records_per_shard + j,
+                           np.int64(i * records_per_shard + j))
+
+            fluid.convert_reader_to_recordio_file(p, gen)
+            paths.append(p)
+
+        def make_ds():
+            ds = fluid.DatasetFactory().create_dataset("QueueDataset")
+            ds.set_filelist(paths)
+            ds.set_batch_size(batch_size)
+            ds.set_use_var([_Var("x"), _Var("y")])
+            ds.set_thread(2)
+            return ds
+
+        def run_leg():
+            best = None
+            n_records = 0
+            for _ in range(repeats):
+                t0 = time.perf_counter()
+                n_records = 0
+                feeder = FeedPrefetcher(device)
+                try:
+                    with warnings.catch_warnings():
+                        warnings.simplefilter("ignore")
+                        for staged in prefetch_iter(
+                                make_ds()._batches_prefetched(), feeder):
+                            n_records += staged.consume(device)[
+                                "y"].shape[0]
+                finally:
+                    feeder.close()
+                if device.type == "cuda":
+                    import torch
+
+                    torch.cuda.synchronize(device)
+                dt = time.perf_counter() - t0
+                best = dt if best is None else min(best, dt)
+                data_plane.reset_quarantine()  # re-detect per repeat
+            return n_records / best, n_records
+
+        healthy_rps, healthy_records = run_leg()
+
+        # damage one mid-list shard on disk (a real torn byte, not an
+        # injector hook — the bench measures the production path)
+        path = paths[n_shards // 2]
+        with open(path, "rb") as f:
+            raw = bytearray(f.read())
+        raw[len(raw) // 2] ^= 0xFF
+        with open(path, "wb") as f:
+            f.write(bytes(raw))
+        os.environ["PTPU_DATA_ANOMALY_POLICY"] = "quarantine_shard"
+        try:
+            degraded_rps, degraded_records = run_leg()
+        finally:
+            os.environ.pop("PTPU_DATA_ANOMALY_POLICY", None)
+            data_plane.reset_quarantine()
+        return {
+            "healthy_records_per_sec": healthy_rps,
+            "degraded_records_per_sec": degraded_rps,
+            "degraded_throughput_ratio": degraded_rps / healthy_rps,
+            "healthy_records": healthy_records,
+            "degraded_records": degraded_records,
+            "records_lost": healthy_records - degraded_records,
+        }
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def card_line():
     """(name, power limit) of card 0 as nvidia-smi prints them, or None
     where there is no nvidia-smi."""
@@ -1122,14 +1292,6 @@ def _leg_entry(name, tps, step_s, loss=None, **extra):
         entry["peak_gib"] = round(last_leg["peak_bytes"] / 2 ** 30, 3)
     entry.update(extra)
     return entry
-
-
-# bench.py legs whose modules the port lacks, named where bench.py would
-# run them (ROADMAP.md Queue 1)
-NOT_PORTED = {
-    "resilience": "bench_resilience_overhead: resilience.py, ROADMAP.md "
-                  "Queue 1 item 8",
-}
 
 
 def _train_mfu(step_s, place):
@@ -1174,10 +1336,41 @@ def main(argv=None):
                          "vs mid-stream rollout through an "
                          "OnlineUpdater); with other -only flags, beside "
                          "their legs")
+    ap.add_argument("--data-only", action="store_true",
+                    help="run only the streaming-ingestion leg pair "
+                         "(healthy vs one-quarantined-shard records/s)")
+    ap.add_argument("--resilience", action="store_true",
+                    help="also measure guarded vs unguarded step time "
+                         "(always on under --tiny)")
     ap.add_argument("--place", default=None,
                     help="device (default: the card; 'cpu' to try it "
                          "without one)")
     args = ap.parse_args(argv)
+    if args.data_only:
+        res = bench_data_ingestion(place=args.place)
+        result = {
+            "metric": "data_degraded_throughput_ratio",
+            "value": round(res["degraded_throughput_ratio"], 4),
+            "unit": "x (degraded / healthy records-per-sec)",
+            "records_per_sec_healthy": round(
+                res["healthy_records_per_sec"], 1),
+            "records_per_sec_degraded": round(
+                res["degraded_records_per_sec"], 1),
+            "records_lost": res["records_lost"],
+            "card": card_line(),
+            "legs": [
+                {"leg": "data_healthy",
+                 "records_per_sec": round(res["healthy_records_per_sec"],
+                                          1),
+                 "records": res["healthy_records"]},
+                {"leg": "data_degraded",
+                 "records_per_sec": round(res["degraded_records_per_sec"],
+                                          1),
+                 "records": res["degraded_records"],
+                 "data_degraded_throughput_ratio": round(
+                     res["degraded_throughput_ratio"], 4)}]}
+        print(json.dumps(result), flush=True)
+        return result
     if args.tiny:
         kw = dict(TINY, feed_mode="host")
     else:
@@ -1190,7 +1383,6 @@ def main(argv=None):
         args.amp_only = False  # a dedicated leg: skip everything else
 
     legs = []
-    not_ported = []
     result = {"metric": "transformer_base_tokens_per_sec_per_chip",
               "unit": "tokens/s/chip"}
     async_tps = sync_tps = amp_tps = None
@@ -1390,8 +1582,23 @@ def main(argv=None):
         for key in ("requests_lost", "versions_published", "swaps",
                     "final_versions"):
             result["serving_online_" + key] = on[key]
-    if args.tiny and not (args.amp_only or dedicated):
-        not_ported.append(NOT_PORTED["resilience"])
+    # the resilience guard's cost, measured, not assumed (bench.py runs
+    # it under --resilience and --tiny, beside the training legs)
+    if (args.resilience or args.tiny) and not (args.amp_only
+                                               or args.serving_only
+                                               or args.quant_only
+                                               or args.spec_only
+                                               or args.fleet_only):
+        unguarded, guarded = bench_resilience_overhead(place=place)
+        overhead_pct = 100.0 * (guarded - unguarded) / unguarded
+        legs.append({"leg": "resilience_unguarded",
+                     "step_time_s": round(unguarded, 6)})
+        legs.append({"leg": "resilience_guarded",
+                     "step_time_s": round(guarded, 6),
+                     "guard_overhead_pct": round(overhead_pct, 2)})
+        result["step_time_guarded_s"] = round(guarded, 6)
+        result["step_time_unguarded_s"] = round(unguarded, 6)
+        result["guard_overhead_pct"] = round(overhead_pct, 2)
 
     headline = next((v for v in (
         async_tps, sync_tps, amp_tps, serve_batched, qserve_int8,
@@ -1409,8 +1616,6 @@ def main(argv=None):
         result["value"] = round(headline, 1)
     result["card"] = card_line()
     result["legs"] = legs
-    if not_ported:
-        result["not_ported"] = not_ported
     print(json.dumps(result), flush=True)
     return result
 

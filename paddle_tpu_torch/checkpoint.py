@@ -1,7 +1,8 @@
-"""Crash-safe training-state checkpoints: the subset of the JAX package's
-``checkpoint.py`` the online updater calls (``save_checkpoint``,
-``restore_checkpoint``, ``checkpoints_after``, ``latest_checkpoint``,
-``all_checkpoints``, ``CheckpointCorruptionError``).
+"""Crash-safe training-state checkpoints (parity: the JAX package's
+``checkpoint.py``): ``save_checkpoint``, ``restore_checkpoint``,
+``checkpoints_after``, ``latest_checkpoint``, ``all_checkpoints``,
+``CheckpointCorruptionError`` and ``CheckpointManager`` (:460-657:
+retention, async saves, the crashed-writer journal replay).
 
 A state is a dict (nested dicts and lists allowed) whose leaves are
 numpy arrays, tensors or Python scalars. Every save is ATOMIC: the
@@ -26,14 +27,15 @@ Layout (one step):
     directory/step_N/ptpu_manifest.json   digests + file inventory
     directory/step_N/data/state.pt        the payload
 
-Not ported yet: ``CheckpointManager`` (retention, async saves, the
-crashed-writer journal replay) and the multi-process save.
+Not ported yet (ROADMAP.md Queue 1 item 9): the multi-process save and
+``host_embedding_state``.
 """
 
 import hashlib
 import json
 import os
 import shutil
+import threading
 import warnings
 
 import numpy as np
@@ -43,7 +45,7 @@ from .observability import metrics as _metrics
 from .observability import tracing as _tracing
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_checkpoint",
-           "all_checkpoints", "checkpoints_after",
+           "all_checkpoints", "checkpoints_after", "CheckpointManager",
            "CheckpointCorruptionError", "MANIFEST_NAME"]
 
 MANIFEST_NAME = "ptpu_manifest.json"
@@ -380,3 +382,157 @@ def restore_checkpoint(directory_or_path, target_state=None, verify=True):
             state, target_state)
     raise CheckpointCorruptionError(
         "every checkpoint under %r is corrupt (last: %s)" % (path, last_exc))
+
+
+def _host_tree(tree):
+    """A private host copy of a state: each leaf through
+    ``resilience._host_copy`` (a tensor copied to the CPU, a CPU tensor
+    too: the next step's in-place update would change it under the
+    write)."""
+    from .resilience import _host_copy
+
+    if isinstance(tree, dict):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_host_tree(v) for v in tree]
+    return _host_copy(tree)
+
+
+class CheckpointManager:
+    """Rolling checkpoint manager: keeps the newest `max_to_keep` intact
+    steps under `directory`.
+
+    `async_save=True` moves the filesystem write to a background thread:
+    `save` first copies every leaf to host memory IN THE CALLER (that is
+    the consistency point — the next step updates the very tensors being
+    saved in place), then returns while the payload + manifest + rename
+    run behind. At most one save is in flight; `wait()` (or the next
+    `save`) joins it and re-raises any background failure."""
+
+    def __init__(self, directory, max_to_keep=3, async_save=False):
+        from .analysis.concurrency import make_lock
+
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        self.async_save = bool(async_save)
+        # `_mu` guards the background-save handoff fields (`_thread`,
+        # `_error`); `_save_mu` serializes whole save() calls (the
+        # at-most-one-in-flight contract). The writer thread takes only
+        # `_mu`, so holding `_save_mu` across its join cannot deadlock.
+        self._mu = make_lock("checkpoint.manager")
+        self._save_mu = make_lock("checkpoint.manager.save")
+        self._thread = None
+        self._error = None
+        os.makedirs(self.directory, exist_ok=True)
+        self._reap_stale_tmp()
+
+    def _reap_stale_tmp(self):
+        """Journal replay for a writer that died mid-publish. A complete
+        tmp dir (manifest present) whose step_N is missing finishes its
+        crashed rename; an `_old` aside whose step_N is missing is the
+        pre-overwrite original and is restored; everything else from a
+        crashed writer is dead weight and reclaimed."""
+        asides = []
+        for name in sorted(os.listdir(self.directory)):
+            if not name.startswith(_TMP_PREFIX):
+                continue
+            path = os.path.join(self.directory, name)
+            target = name[len(_TMP_PREFIX):]
+            if target.endswith("_old"):
+                asides.append((path, target[:-len("_old")]))
+                continue
+            final = os.path.join(self.directory, target)
+            if (target.startswith("step_")
+                    and not os.path.isdir(final)
+                    and _read_manifest(path) is not None):
+                os.rename(path, final)  # finish the crashed publish
+            else:
+                shutil.rmtree(path, ignore_errors=True)
+        for path, target in asides:
+            final = os.path.join(self.directory, target)
+            if target.startswith("step_") and not os.path.isdir(final):
+                os.rename(path, final)  # restore the parked original
+            else:
+                shutil.rmtree(path, ignore_errors=True)
+
+    def save(self, state, step, blocking=None, host_copied=False):
+        """Write one checkpoint and GC old steps. Returns the final path
+        (async saves return it while the write is still landing —
+        `wait()` before depending on it). `host_copied=True` promises
+        `state` is already a private host copy (a resilience
+        ScopeSnapshot), skipping the per-leaf copy."""
+        with self._save_mu:
+            self.wait()
+            if blocking is None:
+                blocking = not self.async_save
+            final = os.path.join(self.directory, "step_%d" % int(step))
+            if blocking:
+                save_checkpoint(self.directory, state, step)
+                self._gc()
+                return final
+            host_state = state if host_copied else _host_tree(state)
+
+            def _write():
+                try:
+                    save_checkpoint(self.directory, host_state, step)
+                    self._gc()
+                except BaseException as exc:  # surfaced by wait()
+                    with self._mu:
+                        self._error = exc
+
+            t = threading.Thread(target=_write, name="ptpu-ckpt-save",
+                                 daemon=True)
+            # started BEFORE it is published: a concurrent wait() never
+            # joins an unstarted thread
+            t.start()
+            with self._mu:
+                self._thread = t
+            return final
+
+    def wait(self):
+        """Join the in-flight async save (if any); re-raises a background
+        write failure here, in the caller's thread."""
+        with self._mu:
+            t = self._thread
+        if t is not None:
+            t.join()
+            with self._mu:
+                if self._thread is t:
+                    self._thread = None
+        with self._mu:
+            exc, self._error = self._error, None
+        if exc is not None:
+            raise exc
+
+    def restore(self, target_state=None):
+        """Newest-intact-first restore with corruption fallback (see
+        `restore_checkpoint`)."""
+        self.wait()
+        return restore_checkpoint(self.directory, target_state)
+
+    def latest_step(self):
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def all_steps(self):
+        return all_checkpoints(self.directory)
+
+    def _gc(self):
+        if not self.max_to_keep:
+            return
+        # retention is counted over INTACT steps only — a torn step must
+        # never push an intact fallback out of the quota. A non-intact
+        # dir is reclaimed only once a full quota of NEWER intact steps
+        # exists to fall back to instead.
+        intact = _scan_steps(self.directory)  # newest first
+        keep = {path for _s, path in intact[:self.max_to_keep]}
+        intact_paths = {path for _s, path in intact}
+        intact_steps = [s for s, _p in intact]
+        for step, path in _scan_steps(self.directory, level="all"):
+            if path in keep:
+                continue
+            if path not in intact_paths:
+                newer_intact = sum(1 for s in intact_steps if s > step)
+                if newer_intact < self.max_to_keep:
+                    continue
+            shutil.rmtree(path, ignore_errors=True)

@@ -25,6 +25,11 @@ class Scope:
     def local_var_names(self):
         return list(self._vars)
 
+    def items(self):
+        """This scope's (name, value) bindings: the state
+        ``resilience.snapshot_scope`` copies to the host."""
+        return list(self._vars.items())
+
 
 _global_scope = Scope()
 _scope_stack = [_global_scope]

@@ -41,16 +41,29 @@ is counted (``observability/cost.py``: its FLOPs and, on the card, the
 peak allocation up to its end) and published as the ``exec/*`` gauges, once a plan,
 as the JAX executor publishes XLA's cost analysis at each compile.
 
-Not ported: compile telemetry, RPC ops and the nan checks. A CUDA graph
-of the step is later work.
+`train_from_dataset` / `infer_from_dataset` (the JAX executor's
+:545-633) drive a whole dataset through a program: its batches (or,
+with a `data_plane.DatasetCursor`, its resumable stream) go through a
+`FeedPrefetcher` with one batch of lookahead, so the copy of batch k+1
+to the card overlaps step k. The cursor advances, and is mirrored into
+the scope's ``__data_cursor__``, as batch k is taken for its step, not
+when the lookahead pulls batch k+1. A cache miss is the
+``transient_compile`` fault site (``resilience.py``).
+
+Not ported: compile telemetry, RPC ops, the nan checks and the
+embedding-prefetch branch of `train_from_dataset` (ROADMAP.md Queue 1
+item 9). A CUDA graph of the step is later work.
 """
+
+from collections import deque
+
 
 import numpy as np
 import torch
 
 from . import framework, ir_passes
 from .async_engine import (FeedPrefetcher, InflightWindow, LazyFetchList,
-                           StepEvent, as_numpy)
+                           StepEvent, as_numpy, prefetch_iter)
 from .core.lowering import LoweringContext, execute_block
 from .core.place import resolve_device
 from .core.scope import global_scope
@@ -225,6 +238,9 @@ class Executor:
         step = self._cache.get(key) if use_program_cache else None
         fresh = step is None
         if fresh:
+            from .resilience import maybe_inject_compile_fault
+
+            maybe_inject_compile_fault()
             run_program = ir_passes.optimize_for_execution(
                 program, fetch_names, scope, self.device)
             step = _Step(run_program, feed.keys(), fetch_names)
@@ -240,6 +256,81 @@ class Executor:
             return out
         self._window.admit(StepEvent(self.device, keep))
         return LazyFetchList(fetches)
+
+    def train_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100,
+                           cursor=None, epochs=None):
+        """Drive a whole dataset through `program`, one step a batch;
+        returns the last step's fetches (numpy). `thread` (or
+        ``dataset.set_thread``) parses shards on that many reader
+        threads while the card runs the steps.
+
+        `cursor` (a `data_plane.DatasetCursor`) switches to the
+        checkpoint-resumable stream: batches start at the cursor's
+        position, and the cursor — mirrored into the run scope's
+        ``__data_cursor__`` as each batch is taken for its step — is
+        what a later restore resumes the byte-identical stream from.
+        `epochs` is the ABSOLUTE epoch bound of that stream (the
+        `resumable_batches` contract); default = one pass from the
+        cursor's current epoch. No cursor = one pass of the dataset."""
+        if dataset is None:
+            raise ValueError("train_from_dataset needs a dataset")
+        if thread:
+            dataset.set_thread(thread)
+        program = program or framework.default_main_program()
+        fetch_list = list(fetch_list or [])
+        fetch_names = [v.name if isinstance(v, framework.Variable)
+                       else str(v) for v in fetch_list]
+        scope = scope if scope is not None else global_scope()
+        cursor_states = None
+        if cursor is not None:
+            if epochs is None:
+                epochs = cursor.epoch + 1
+            pair_stream = dataset._resumable_stream(cursor, epochs, None)
+            cursor_states = deque()
+
+            def _feeds():
+                for feed, state in pair_stream:
+                    cursor_states.append(state)
+                    yield feed
+
+            batches = _feeds()
+        elif epochs is not None:
+            raise ValueError("epochs= only applies to the cursor path; "
+                             "re-run train_from_dataset per epoch on "
+                             "the plain stream")
+        else:
+            batches = (dataset._batches_prefetched()
+                       if getattr(dataset, "_thread", 1) > 1
+                       else dataset._batches())
+        step = 0
+        last = None
+        # H2D lookahead: while the card runs batch k, a background
+        # thread stages batch k+1 on it
+        device_feeder = FeedPrefetcher(self.device)
+        try:
+            for staged in prefetch_iter(batches, device_feeder):
+                if cursor_states is not None:
+                    # consumption point: the lookahead has already
+                    # PULLED batch k+1, but the mirrored cursor may only
+                    # advance as batch k is taken for its step — else a
+                    # checkpoint would name a position one batch ahead
+                    cursor.advance_to(*cursor_states.popleft())
+                    cursor.write_to(scope)
+                last = self.run(program, feed=staged.consume(self.device),
+                                fetch_list=fetch_list, scope=scope)
+                step += 1
+                if debug and fetch_names and step % print_period == 0:
+                    info = fetch_info or fetch_names
+                    print("step %d: %s" % (step, {
+                        k: np.asarray(v).ravel()[:4]
+                        for k, v in zip(info, last)}))
+        finally:
+            device_feeder.close()
+        return last
+
+    infer_from_dataset = train_from_dataset
 
     def close(self):
         """Drain the in-flight window, stop the prefetcher and drop the

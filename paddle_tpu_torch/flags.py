@@ -139,6 +139,18 @@ _declare("PTPU_ONLINE_POLL_S", "float", 0.25,
 _declare("PTPU_FAULT_INJECT", "str", None,
          "deterministic fault-injection spec, e.g. "
          "'serve_die_at_step:6,ckpt_torn_write:1'")
+# -- the resilient trainer and the streaming data plane --------------------
+_declare("PTPU_ANOMALY_POLICY", "str", None,
+         "ResilientTrainer anomaly policy (warn|skip_batch|rollback|abort; "
+         "unset = rollback)")
+_declare("PTPU_SPIKE_FACTOR", "float", None,
+         "loss-spike threshold as a multiple of the running EMA "
+         "(unset = spike detection off)")
+_declare("PTPU_RETRY_BUDGET", "int", 8,
+         "rollback-and-retry attempts per training run")
+_declare("PTPU_DATA_ANOMALY_POLICY", "str", None,
+         "corrupt-input containment policy for recordio shard readers "
+         "(abort|skip_record|quarantine_shard; unset = skip_record)")
 # -- tracing and the flight recorder ----------------------------------------
 _declare("PTPU_TRACE", "bool", False,
          "enable tracing-span recording")

@@ -113,9 +113,10 @@ def test_bench_leg_matches_bench_py(monkeypatch, leg):
 
 
 def test_main_prints_bench_py_training_keys(capsys):
-    """`main(["--tiny"])` runs the async, sync and noopt legs and prints
-    bench.py's keys for them, with no vs_baseline; `--amp-only` the
-    fp32, amp and amp_fp16 legs."""
+    """`main(["--tiny"])` runs the async, sync and noopt legs and, as
+    bench.py's --tiny does, the resilience leg (guarded vs unguarded
+    step time), and prints bench.py's keys for them, with no
+    vs_baseline; `--amp-only` the fp32, amp and amp_fp16 legs."""
     pbench.main(["--tiny", "--place", "cpu"])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["metric"] == "transformer_base_tokens_per_sec_per_chip"
@@ -125,7 +126,12 @@ def test_main_prints_bench_py_training_keys(capsys):
                 "compile_time_s_opt", "compile_time_s_noopt"):
         assert out[key] > 0, key
     assert out["value"] == out["async_tokens_per_sec"]
-    assert [g["leg"] for g in out["legs"]] == ["async", "sync", "noopt"]
+    assert [g["leg"] for g in out["legs"]] == [
+        "async", "sync", "noopt", "resilience_unguarded",
+        "resilience_guarded"]
+    for key in ("step_time_guarded_s", "step_time_unguarded_s"):
+        assert out[key] > 0, key
+    assert "guard_overhead_pct" in out and "not_ported" not in out
     pbench.main(["--tiny", "--amp-only", "--place", "cpu"])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert [g["leg"] for g in out["legs"]] == ["fp32", "amp", "amp_fp16"]

@@ -244,4 +244,3 @@ def test_main_serving_legs_keys_match_bench_py(monkeypatch, capsys,
             assert got[key] == want[key], key
     assert got["value"] == got["serving_tokens_per_sec_batched"]
     assert "not_ported" not in got
-    assert "fleet" not in pbench.NOT_PORTED

@@ -150,7 +150,7 @@ def test_transformer_native_on_the_cpu(capsys):
     assert (native["batch"], native["seq"], native["warmup"],
             native["steps"]) == (2, 512, 1, 2)
     assert np.isfinite(native["losses"]).all()
-    assert "transformer_native" not in pbench.NOT_PORTED
+    assert "not_ported" not in rec
 
 
 def test_the_card_is_the_default_device(monkeypatch):

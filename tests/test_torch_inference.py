@@ -355,7 +355,6 @@ def test_bench_quant_predictor_keys(monkeypatch):
     assert all(np.isfinite(v) for v in got.values())
     assert got["weight_bytes_saved_ratio"] == pytest.approx(
         want["weight_bytes_saved_ratio"])
-    assert "quant_predictor" not in pbench.NOT_PORTED
     monkeypatch.setattr(pbench, "bench_serving_quant",
                         lambda place=None: (2.0, 1.0, True, 1.0, 10))
     monkeypatch.setattr(pbench, "card_line", lambda: None)
