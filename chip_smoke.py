@@ -418,6 +418,32 @@ Phases, each fatal on failure (exit code 1, no result line):
      line, each with the card's name and power limit
      (``tests/test_torch_chip_smoke_data.py`` runs 13a-13f on the CPU at
      a small LM, with planted faults).
+  14. data-parallel training: one child process a visible card, up to
+     4 (``chip_smoke.py --phase14-rank``), each a rank of an NCCL group
+     named by the fleet's env contract (``PADDLE_TRAINER_ID``,
+     ``PADDLE_TRAINERS_NUM``, ``PADDLE_TRAINER_ENDPOINTS``); the world
+     size is printed and chooses nothing else. 14a: bench.py's headline
+     program (batch 160 global, seq 512, bf16, legacy AMP, SGD(0.01);
+     tokens from 4 ids, as 13a's) through ``fluid.ParallelExecutor(
+     loss_name=...)``, 3 warm-up and 8 timed steps: the loss finite and
+     falling by more than 0.1, K1 6 "tc" forwards and 6 backwards a step
+     on each rank with no operand copied, the backend nccl, and the
+     collective counters' all-reduce calls and bytes a step equal to the
+     plan's prediction from the program (one a batch reduction, one a
+     region entry's grad); two steps from one state against
+     ``Executor.run`` of the global batch on each rank's card within
+     bf16's STEP_TOL (the largest differences and whether they are
+     bitwise are printed). 14b: ResNet-50 (ImageNet,
+     batch 64, fp32) through ``fluid_benchmark.run_static_model`` with
+     update_method "nccl2": the loss finite and falling, every moving
+     statistic finite and moved, K1-K4 unlaunched. 14c:
+     ``incubate.fleet.collective.fleet.init()`` and
+     ``distributed_optimizer(SGD(0.1))`` on tests/test_distributed.py's
+     regression, 10 steps: the last loss below half the first. One
+     ``parallel`` line a leg with every rank's numbers and the card; a
+     rank that fails fails the phase (``tests/test_torch_chip_smoke_
+     parallel.py`` runs the legs over two gloo ranks on the CPU, with
+     planted faults).
 
 Then one JSON line ``{"kernels": [...]}`` (every kernel of every path,
 each with the launches of its path's run; a kernel launched no time there
@@ -6421,6 +6447,411 @@ def data_phase(torch, fa, fluid):
     return launches
 
 
+# phase 14: data-parallel training through CompiledProgram /
+# ParallelExecutor / the fleet's collective mode, one child process a
+# rank (a visible card each, up to 4) over NCCL. 14a the headline LM,
+# 14b ResNet-50 through the port's harness, 14c the fleet regression.
+# 14a's tokens are drawn from the first `tokens` ids (as phase 13's):
+# over a wide draw SGD 0.01's bf16 updates round away and the loss stays
+# at ln(vocab) to 1e-5, so "falling" would be noise; here it must fall by
+# `min_fall` nats over the run
+PARALLEL = dict(batch=160, warmup=3, steps=8, tokens=4, min_fall=0.1,
+                image_model="resnet", image_data_set="imagenet",
+                image_batch=64, image_skip=2, image_iters=5, fleet_steps=10,
+                max_world=4)
+RANK_FLAG = "--phase14-rank"
+
+
+def _snapshot(scope):
+    return {n: scope.get(n).clone() for n in scope.local_var_names()
+            if hasattr(scope.get(n), "clone")}
+
+
+def _restore(fluid, state):
+    scope = fluid.Scope()
+    for n, t in state.items():
+        scope.set(n, t.clone())
+    return scope
+
+
+def dp_vs_exe_check(torch, fluid, program, pe_cls, device, state, feed,
+                    dtype):
+    """Two steps from one state through ParallelExecutor (every rank of
+    the group) and through Executor.run of the global batch on this
+    rank's device, held to STEP_TOL[dtype] as
+    phase 7 holds the card to the CPU: losses, step 1's grads, and the
+    parameters after step 2. Returns the report (its `ok`, the largest
+    differences and whether the runs are bitwise equal)."""
+    main, startup, loss = program
+    tol = STEP_TOL[dtype]
+    lr, rel, bits = 0.01, tol["grad_rtol"], tol["mantissa_bits"]
+    params = sorted(main.param_grad_map)
+    fetch = [loss.name] + [main.param_grad_map[p] for p in params]
+    start = {p: state[p].float().cpu().numpy() for p in params}
+    runs = []
+    for way in ("pe", "exe"):
+        scope = _restore(fluid, state)
+        if way == "pe":
+            pe = pe_cls(use_cuda=device != "cpu", loss_name=loss.name,
+                        main_program=main, scope=scope)
+            run = lambda f: pe.run(f, feed=feed)  # noqa: E731
+        else:
+            exe = fluid.Executor(device)
+            run = lambda f: exe.run(main, feed=feed,  # noqa: E731
+                                    fetch_list=f, scope=scope)
+        first = run(fetch)
+        second, = run([loss.name])
+        runs.append(([float(np.asarray(first[0]).ravel()[0]),
+                      float(np.asarray(second).ravel()[0])],
+                     dict(zip(params, first[1:])),
+                     {p: scope.get(p).float().cpu().numpy()
+                      for p in params}))
+    (lp, gp, pp), (le, ge, pe_) = runs
+    loss_rel = float(np.abs(np.array(lp) - np.array(le)).max()
+                     / np.abs(le).max())
+    floor = tol["floor_rel"] * max(float(np.abs(g).max())
+                                   for g in ge.values())
+    worst_g, worst_p, bitwise = 0.0, -np.inf, lp == le
+    max_grad_diff = max_param_diff = 0.0
+    for p in params:
+        g_lim = rel * float(np.abs(ge[p]).max()) + floor
+        d = float(np.abs(gp[p] - ge[p]).max())
+        max_grad_diff = max(max_grad_diff, d)
+        worst_g = max(worst_g, d / g_lim)
+        mag = np.maximum(np.maximum(np.abs(pp[p]), np.abs(pe_[p])),
+                         np.abs(start[p]))
+        diff = np.abs(pp[p] - pe_[p])
+        max_param_diff = max(max_param_diff, float(diff.max()))
+        worst_p = max(worst_p, float(((diff - 2 * ulp(mag, bits))
+                                      / (2 * lr * g_lim)).max()))
+        bitwise = bitwise and np.array_equal(gp[p], ge[p]) \
+            and np.array_equal(pp[p], pe_[p])
+    return {"dtype": dtype, "steps": 2, "loss_pe": lp, "loss_exe": le,
+            "loss_max_rel_err": loss_rel, "loss_limit": tol["loss_rtol"],
+            "max_grad_abs_diff": max_grad_diff,
+            "worst_grad_err_over_limit": worst_g,
+            "max_param_abs_diff": max_param_diff,
+            "worst_param_excess_over_limit": worst_p, "bitwise": bitwise,
+            "ok": loss_rel <= tol["loss_rtol"] and worst_g <= 1
+            and worst_p <= 1}
+
+
+def parallel_lm_leg(device=None, cfg=None, batch=None, warmup=None,
+                    steps=None, compare=True):
+    """14a on this rank: bench.py's headline program (``build_lm``)
+    through ``fluid.ParallelExecutor(loss_name=loss.name)``, every rank
+    fed the same global batch; warm-up then timed steps. Returns the
+    losses, times, K1's launches, the collective counts a step beside
+    the plan's prediction and, with `compare`, `dp_vs_exe_check` (the
+    data-parallel step against Executor.run of the global batch on this
+    rank's card)."""
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.parallel import collective
+
+    cfg = cfg or TRAIN
+    batch = batch or PARALLEL["batch"]
+    warmup = PARALLEL["warmup"] if warmup is None else warmup
+    steps = steps or PARALLEL["steps"]
+    program = build_lm(fluid, cfg=cfg)
+    main, startup, loss = program
+    scope = fluid.Scope()
+    pe = fluid.ParallelExecutor(use_cuda=device != "cpu",
+                                loss_name=loss.name, main_program=main,
+                                scope=scope)
+    dev = pe.device
+    on_card = dev.type == "cuda"
+    fluid.Executor(dev).run(startup, scope=scope)
+    state = _snapshot(scope)
+    toks = np.random.RandomState(0).randint(
+        0, PARALLEL["tokens"], (batch, cfg["seq_len"])).astype(np.int32)
+    global_feed = {"tokens": torch.from_numpy(toks).to(dev),
+                   "labels": torch.from_numpy(
+                       np.roll(toks, -1, axis=1)).to(dev)}
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    fa.reset_counts()                          # main path starts
+    collective.reset_counts()
+    outs, marks = [], []
+    t1 = None
+    for i in range(warmup + steps):
+        if i == warmup:
+            if on_card:
+                torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            if on_card:
+                marks.append(torch.cuda.Event(enable_timing=True))
+                marks[-1].record()
+        out, = pe.run([loss.name], feed=global_feed, return_numpy=False)
+        outs.append(out)
+    if on_card:
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        torch.cuda.synchronize(dev)
+    t2 = time.perf_counter()
+    k1 = flash_counts(fa)                      # main path ends
+    counts = dict(collective.counts)
+    n = warmup + steps
+    step = next(iter(pe._compiled._compiled_steps.values()))
+    calls, nbytes = step.expected_collectives()
+    ms = (marks[0].elapsed_time(marks[1]) / steps if on_card
+          else (t2 - t1) * 1e3 / steps)
+    leg = {
+        "leg": "14a", "rank": pe._group.rank, "world": pe.device_count,
+        "device": str(dev), "backend": pe._group.backend, "batch": batch,
+        "rank_rows": batch // pe.device_count, "warmup": warmup,
+        "steps": steps,
+        "losses": [float(torch.as_tensor(o).float().cpu().reshape(-1)[0])
+                   for o in outs],
+        "ms_per_step": ms,
+        "tokens_per_s": batch * cfg["seq_len"] * steps / (t2 - t1),
+        "rank_tokens_per_s": (batch // pe.device_count) * cfg["seq_len"]
+        * steps / (t2 - t1),
+        "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                     if on_card else None),
+        "k1_fwd": k1[0], "k1_bwd": k1[1], "k1_copies": k1[2],
+        "n_layers": cfg["n_layers"], "run_steps": n,
+        "collective_calls_per_step": counts["all_reduce"] / n,
+        "collective_bytes_per_step": counts["all_reduce_bytes"] / n,
+        "expected_calls_per_step": calls,
+        "expected_bytes_per_step": nbytes}
+    if compare:
+        leg["vs_executor"] = dp_vs_exe_check(
+            torch, fluid, program, fluid.ParallelExecutor, dev, state,
+            global_feed, "bfloat16")
+    return leg
+
+
+def parallel_image_leg(device=None, model=None, data_set=None, batch=None,
+                       skip=None, iters=None):
+    """14b on this rank: ``fluid_benchmark.run_static_model`` with
+    ``update_method="nccl2"`` (ResNet-50, ImageNet, fp32, Adam(0.01)).
+    Returns the losses, images/s and ms a step, the moving statistics'
+    state and K1-K4's launches over the leg."""
+    import torch
+
+    from paddle_tpu_torch import fluid_benchmark
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import int8_matmul as im
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import paged_attention_tree as pat
+
+    argv = ["--model", model or PARALLEL["image_model"],
+            "--batch_size", str(batch or PARALLEL["image_batch"]),
+            "--skip_batch_num", str(PARALLEL["image_skip"]
+                                    if skip is None else skip),
+            "--iterations", str(iters or PARALLEL["image_iters"]),
+            "--update_method", "nccl2",
+            "--device", "CPU" if device == "cpu" else "GPU"]
+    ds = PARALLEL["image_data_set"] if data_set is None else data_set
+    if ds:
+        argv += ["--data_set", ds]
+    before = kernel_launch_totals(fa, pa, pat, im)
+    rec = {}
+    out = fluid_benchmark.run_static_model(fluid_benchmark.parse_args(argv),
+                                           rec)
+    after = kernel_launch_totals(fa, pa, pat, im)
+    stats = moving_stats(rec["program"])
+    scope = rec["scope"]
+    vals = {n: scope.get(n) for n in stats}
+    pe = rec["pe"]
+    return {
+        "leg": "14b", "rank": pe._group.rank, "world": pe.device_count,
+        "backend": pe._group.backend, "model": " ".join(argv[:2]),
+        "batch": rec["batch"], "losses": rec["losses"],
+        "images_per_s": rec["examples_per_sec"],
+        "ms_per_step": (float(np.mean(rec["step_ms"])) if rec["step_ms"]
+                        else float(np.mean(rec["host_ms"]))),
+        "n_chips": out["n_chips"], "stats": len(stats),
+        "stats_finite": all(bool(torch.isfinite(t).all())
+                            for t in vals.values()),
+        # moving means start at 0 and variances at 1 (the startup's
+        # constants)
+        "stats_unmoved": sorted(
+            n for n, t in vals.items()
+            if bool((t == (0.0 if n.endswith("w_1") else 1.0)).all())),
+        "launches_before": before, "launches_after": after}
+
+
+def parallel_fleet_leg(device=None, steps=None):
+    """14c on this rank: ``incubate.fleet.collective.fleet.init()`` and
+    ``distributed_optimizer(SGD(0.1))`` on tests/test_distributed.py's
+    regression, ``steps`` data-parallel steps."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.incubate.fleet.collective import fleet as cfleet
+
+    cfleet.init(device=device)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="cx", shape=[4], dtype="float32")
+        y = fluid.layers.data(name="cy", shape=[1], dtype="float32")
+        pred = fluid.layers.fc(input=x, size=1)
+        loss = fluid.layers.mean(fluid.layers.square_error_cost(pred, y))
+        cfleet.distributed_optimizer(fluid.optimizer.SGD(0.1)).minimize(loss)
+    exe, scope = fluid.Executor(cfleet.device), fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(0)
+    xs = rng.rand(16, 4).astype(np.float32)
+    feed = {"cx": xs, "cy": (xs.sum(1, keepdims=True) * 0.5).astype(
+        np.float32)}
+    prog = fluid.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name)
+    losses = [float(exe.run(prog, feed=feed, fetch_list=[loss],
+                            scope=scope)[0][0])
+              for _ in range(steps or PARALLEL["fleet_steps"])]
+    cfleet.barrier_worker()
+    return {"leg": "14c", "rank": cfleet.worker_index(),
+            "world": cfleet.worker_num(), "backend": cfleet._group.backend,
+            "losses": losses, "fleet_opt": main._fleet_opt}
+
+
+def check_parallel(legs, on_card, min_fall=None):
+    """Phase 14's gates over every rank's legs ({"14a": [rank results],
+    ...}): a list of failures (empty: the phase passed). 14a's loss
+    must fall by `min_fall` nats (default PARALLEL["min_fall"])."""
+    min_fall = PARALLEL["min_fall"] if min_fall is None else min_fall
+    bad = []
+    backend = "nccl" if on_card else "gloo"
+    for leg, ranks in sorted(legs.items()):
+        for r in ranks:
+            tag = "%s rank %d" % (leg, r["rank"])
+            losses = r["losses"]
+            if r["backend"] != backend:
+                bad.append("%s: backend %s, not %s" % (tag, r["backend"],
+                                                        backend))
+            if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+                bad.append("%s: losses not finite and falling: %r"
+                           % (tag, losses))
+            if leg == "14a":
+                if not losses[0] - losses[-1] > min_fall:
+                    bad.append("%s: the loss fell %r nats, not more than %r"
+                               % (tag, losses[0] - losses[-1], min_fall))
+                n = r["n_layers"] * r["run_steps"]
+                want = {"tc": n} if on_card else {}
+                got = ({k: v for k, v in r["k1_fwd"].items() if v},
+                       {k: v for k, v in r["k1_bwd"].items() if v},
+                       r["k1_copies"])
+                if got != (want, want, 0):
+                    bad.append("%s: K1 launched %r (forward, backward by "
+                               "route; copies), expected %r each and no "
+                               "copy" % (tag, got, want))
+                if (r["collective_calls_per_step"],
+                        r["collective_bytes_per_step"]) != (
+                            r["expected_calls_per_step"],
+                            r["expected_bytes_per_step"]):
+                    bad.append("%s: %r all-reduce calls and %r bytes a "
+                               "step, the plan predicts %r and %r" % (
+                                   tag, r["collective_calls_per_step"],
+                                   r["collective_bytes_per_step"],
+                                   r["expected_calls_per_step"],
+                                   r["expected_bytes_per_step"]))
+                vs = r.get("vs_executor")
+                if vs is not None and not vs["ok"]:
+                    bad.append("%s: the step is off Executor.run's on the "
+                               "global batch: %r" % (tag, vs))
+            if leg == "14b":
+                if not r["stats_finite"] or r["stats_unmoved"] \
+                        or not r["stats"]:
+                    bad.append("%s: moving statistics finite %s, unmoved %r"
+                               % (tag, r["stats_finite"],
+                                  r["stats_unmoved"][:4]))
+                if r["launches_after"] != r["launches_before"]:
+                    bad.append("%s: launched a hand-written kernel: %r -> %r"
+                               % (tag, r["launches_before"],
+                                  r["launches_after"]))
+            if leg == "14c" and not losses[-1] < 0.5 * losses[0]:
+                bad.append("%s: the last loss %r is not below half the "
+                           "first %r" % (tag, losses[-1], losses[0]))
+        if ranks and any(x["losses"] != ranks[0]["losses"]
+                         for x in ranks[1:]):
+            bad.append("%s: the ranks' losses differ" % leg)
+    return bad
+
+
+def parallel_rank_main(args):
+    """One rank of phase 14 (a child of `parallel_phase`): the legs in
+    order, one ``phase14_rank`` line."""
+    import torch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    if args.get("device") == "cpu":
+        torch.set_num_threads(1)
+    out = {"14a": parallel_lm_leg(device=args.get("device"))}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["14b"] = parallel_image_leg(device=args.get("device"))
+    out["14c"] = parallel_fleet_leg(device=args.get("device"))
+    from paddle_tpu_torch.parallel.mesh import destroy_data_group
+
+    destroy_data_group()
+    print("phase14_rank " + json.dumps(out), flush=True)
+
+
+def parallel_phase(torch, fa, timeout=900):
+    """Phase 14: one child process a visible card (up to
+    PARALLEL["max_world"]) over NCCL, the fleet's env contract naming
+    the rank, the world and the rendezvous. Every rank must exit 0 and
+    every gate hold (`check_parallel`). Prints one ``parallel`` line a
+    leg; returns K1's launches on 14a's path, summed over the ranks."""
+    import socket
+
+    t14 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    world = min(torch.cuda.device_count(), PARALLEL["max_world"])
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, PADDLE_TRAINER_ID=str(rank),
+                   PADDLE_TRAINERS_NUM=str(world),
+                   PADDLE_TRAINER_ENDPOINTS="127.0.0.1:%d" % port,
+                   PADDLE_CURRENT_ENDPOINT="127.0.0.1:%d" % (port + rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), RANK_FLAG,
+             json.dumps({})], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env))
+    results, errors = [], []
+    deadline = time.time() + timeout
+    for rank, p in enumerate(procs):
+        try:
+            out, err = p.communicate(timeout=max(1, deadline - time.time()))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            fail("14: rank %d did not finish in %d s" % (rank, timeout))
+        lines = [x for x in out.splitlines()
+                 if x.startswith("phase14_rank ")]
+        if p.returncode != 0 or not lines:
+            errors.append("rank %d exited %d: %s" % (rank, p.returncode,
+                                                     err[-3000:]))
+            continue
+        results.append(json.loads(lines[-1].split(" ", 1)[1]))
+    if errors:
+        for q in procs:
+            if q.poll() is None:
+                q.kill()
+        fail("14: %s" % "; ".join(errors))
+    legs = {leg: [r[leg] for r in results] for leg in ("14a", "14b", "14c")}
+    card = card_line()
+    for leg, ranks in sorted(legs.items()):
+        print("parallel " + json.dumps({
+            "leg": leg, "world": world, "card": card, "ranks": ranks}),
+            flush=True)
+    bad = check_parallel(legs, on_card=True)
+    if bad:
+        fail("14: " + "; ".join(bad))
+    print("parallel_phase " + json.dumps({
+        "world": world, "seconds": time.perf_counter() - t14}), flush=True)
+    return (sum(r["k1_fwd"].get("tc", 0) for r in legs["14a"]),
+            sum(r["k1_bwd"].get("tc", 0) for r in legs["14a"]))
+
+
 def main():
     try:
         import torch
@@ -6574,6 +7005,9 @@ def main():
         flash_rows[name]["launches"] += n
     for name, n in data_phase(torch, fa_mod, fluid).items():
         flash_rows[name]["launches"] += n
+    fwd, bwd = parallel_phase(torch, fa_mod)
+    flash_rows["flash_attention_tc_fwd"]["launches"] += fwd
+    flash_rows["flash_attention_tc_bwd"]["launches"] += bwd
     kernels = rows + tree_rows + list(flash_rows.values()) + int8_rows
     idle = [(r["name"], r.get("C"), r.get("shape")) for r in kernels
             if not r.get("launches")]
@@ -6588,5 +7022,7 @@ def main():
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == CHILD_FLAG:
         child_main(json.loads(sys.argv[2]))
+    elif len(sys.argv) == 3 and sys.argv[1] == RANK_FLAG:
+        parallel_rank_main(json.loads(sys.argv[2]))
     else:
         main()

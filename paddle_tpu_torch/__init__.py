@@ -47,7 +47,12 @@ recordio shards and kept alive (``convert_reader_to_recordio_file``,
 ``recordio_writer``, ``reader`` and ``batch``, ``DataFeeder``,
 ``data_plane`` with ``DatasetCursor``, ``DatasetFactory`` ->
 ``QueueDataset`` / ``InMemoryDataset``, ``Executor.train_from_dataset``,
-``checkpoint.CheckpointManager`` and ``ResilientTrainer``):
+``checkpoint.CheckpointManager`` and ``ResilientTrainer``), and
+data-parallel training (``CompiledProgram(main).with_data_parallel(
+loss_name=...)``, ``ParallelExecutor`` and
+``incubate.fleet.collective.fleet``: one process a rank over
+``torch.distributed``, NCCL on the card and gloo on the CPU, each step
+what one device gives on the global batch):
 
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import transformer_fluid
@@ -77,11 +82,14 @@ recordio shards and kept alive (``convert_reader_to_recordio_file``,
         cursor, epochs=2, scope=fluid.global_scope()))
 """
 
-from . import (amp, async_engine, checkpoint, clip, contrib,  # noqa: F401
-               data_plane, flags, inference, initializer, io, ir, layers,
-               nets, optimizer, quant, reader, recordio_writer,
-               regularizer, resilience, transpiler, unique_name)
+from . import (amp, async_engine, checkpoint, clip, compiler,  # noqa: F401
+               contrib, data_plane, flags, incubate, inference,
+               initializer, io, ir, layers, nets, optimizer, parallel,
+               quant, reader, recordio_writer, regularizer, resilience,
+               transpiler, unique_name)
 from .backward import append_backward  # noqa: F401
+from .compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
+                       ExecutionStrategy)
 from .core.scope import Scope, global_scope, scope_guard  # noqa: F401
 from .data_feeder import DataFeedDesc, DataFeeder  # noqa: F401
 from .data_plane import DatasetCursor  # noqa: F401
@@ -91,17 +99,21 @@ from .executor import Executor  # noqa: F401
 from .framework import (Program, Variable, default_main_program,  # noqa: F401
                         default_startup_program, program_guard)
 from .param_attr import ParamAttr  # noqa: F401
+from .parallel import ParallelExecutor  # noqa: F401
 from .reader import batch  # noqa: F401
 from .recordio_writer import convert_reader_to_recordio_file  # noqa: F401
 from .resilience import ResilientTrainer  # noqa: F401
 
-__all__ = ["DataFeedDesc", "DataFeeder", "DatasetCursor", "DatasetFactory",
-           "Executor", "InMemoryDataset", "ParamAttr", "Program",
-           "QueueDataset", "ResilientTrainer", "Scope", "Variable", "amp",
-           "append_backward", "async_engine", "batch", "checkpoint", "clip",
-           "contrib", "convert_reader_to_recordio_file", "data_plane",
+__all__ = ["BuildStrategy", "CompiledProgram", "DataFeedDesc", "DataFeeder",
+           "DatasetCursor", "DatasetFactory", "ExecutionStrategy",
+           "Executor", "InMemoryDataset", "ParallelExecutor", "ParamAttr",
+           "Program", "QueueDataset", "ResilientTrainer", "Scope",
+           "Variable", "amp", "append_backward", "async_engine", "batch",
+           "checkpoint", "clip", "compiler", "contrib",
+           "convert_reader_to_recordio_file", "data_plane",
            "default_main_program", "default_startup_program", "flags",
-           "global_scope", "inference", "initializer", "io", "ir", "layers",
-           "nets", "optimizer", "program_guard", "quant", "reader",
-           "recordio_writer", "regularizer", "resilience", "scope_guard",
-           "transpiler", "unique_name"]
+           "global_scope", "incubate", "inference", "initializer", "io",
+           "ir", "layers", "nets", "optimizer", "parallel",
+           "program_guard", "quant", "reader", "recordio_writer",
+           "regularizer", "resilience", "scope_guard", "transpiler",
+           "unique_name"]

@@ -21,9 +21,11 @@ dynamic for float16 (``check_finite_and_unscale`` and
 bf16 or fp16 get an fp32 master Parameter each, updated by the optimizer
 and cast back in the same step.
 
-Not ported: the ``BuildStrategy.amp`` branch of `active_config` (the
-port has no CompiledProgram) and gradient bucketing (``plan_buckets``
-and the rest, which wait for the parallel port).
+``BuildStrategy.amp`` (or ``ParallelExecutor(amp=True)``) selects the
+same rewrite for a ``compiler.CompiledProgram``. Not ported: gradient
+bucketing (``plan_buckets`` and the rest: the data-parallel step
+all-reduces each grad as its contribution is written, ROADMAP.md
+Queue 1b).
 """
 
 import hashlib
@@ -107,13 +109,21 @@ def amp_env_enabled():
     return bool(_env("PTPU_AMP"))
 
 
-def active_config(program=None):
-    """The AMP config in effect for one compile, or None: the program's
-    decoration (`decorate`), else ``PTPU_AMP=1``'s default config."""
+def active_config(program=None, build_strategy=None):
+    """The AMP config in effect for one compile, or None. Precedence:
+    the program's decoration (`decorate`) > ``BuildStrategy.amp`` (with
+    its ``amp_level`` and ``amp_dtype``) > ``PTPU_AMP=1``'s default
+    config."""
     cfg = getattr(program, "_amp_config", None) if program is not None \
         else None
     if cfg is not None:
         return cfg
+    if build_strategy is not None and getattr(build_strategy, "amp",
+                                              False):
+        return AmpConfig(
+            level=getattr(build_strategy, "amp_level", "O1") or "O1",
+            dtype=getattr(build_strategy, "amp_dtype", "bfloat16")
+            or "bfloat16")
     if amp_env_enabled():
         return AmpConfig(level=_env("PTPU_AMP_LEVEL"),
                          dtype=_env("PTPU_AMP_DTYPE"))

@@ -34,6 +34,16 @@ leaves, under ``enable_grad``, and autograd takes the cotangents of its
 new carry and its outputs back to the carry, the step inputs' slice t and
 the closure. Only one step's graph is alive at a time. Without ``remat``
 the op takes the generic record: autograd records the whole loop.
+
+Under data parallelism (``compiler.py``'s `_DataParallelStep`) the
+context carries the data group (`dp`, the counterpart of the JAX
+context's ``data_axis``) and the batch plan's ops (`dp_ops`, from
+``parallel/planner.py``). An op that reads a batch-sharded var runs
+under its `DpRule`: its replicated float operands enter the sharded
+region (``parallel/collective.enter_sharded``) inside the recorded
+forward, so the grad op's ``torch.autograd.grad`` all-reduces their
+grads and writes them whole; a reduction's own kernel all-reduces its
+partial sums.
 """
 
 import torch
@@ -63,6 +73,11 @@ class LoweringContext:
         # ids of forward ops whose grad op is in the block
         self.recorded = recorded
         self.fwd = {}  # id(forward op) -> (input leaves, outputs)
+        # data parallelism: the DataGroup, {id(op): PlannedOp}, and the
+        # backward seed's factor (BuildStrategy.GradientScaleStrategy)
+        self.dp = None
+        self.dp_ops = {}
+        self.grad_seed_scale = 1.0
 
     def generator(self, attrs):
         """A torch.Generator for one stateful op: seeded from the
@@ -123,6 +138,12 @@ def execute_op(op, env, ctx):
     opdef = registry.get(op.type)
     ins = {slot: [_value(env, v) for v in vs]
            for slot, vs in op.inputs.items() if vs}
+    impl = opdef.impl
+    planned = ctx.dp_ops.get(id(op)) if ctx.dp_ops else None
+    if planned is not None:
+        if planned.run is None:
+            planned.run = _dp_impl(opdef, planned)
+        impl = planned.run
     if id(op) in ctx.recorded:
         leaves = {
             slot: [t.detach().requires_grad_()
@@ -130,14 +151,33 @@ def execute_op(op, env, ctx):
                    and t.is_floating_point() else t for t in ts]
             for slot, ts in ins.items()}
         with torch.enable_grad():
-            outs = opdef.impl(ctx, leaves, op.attrs)
+            outs = impl(ctx, leaves, op.attrs)
         ctx.fwd[id(op)] = (leaves, outs)
         outs = {slot: [t.detach() for t in ts] for slot, ts in outs.items()}
     else:
-        outs = opdef.impl(ctx, ins, op.attrs)
+        outs = impl(ctx, ins, op.attrs)
     for slot, vs in op.outputs.items():
         for v, val in zip(vs, outs.get(slot, ())):
             env[v.name] = val
+
+
+def _dp_impl(opdef, planned):
+    """The op's kernel under its DpRule: replicated float operands enter
+    the sharded region, then the rule's kernel (or the op's own) runs."""
+    from ..parallel.collective import enter_sharded
+
+    rule = planned.rule
+
+    def impl(ctx, ins, attrs):
+        ins = {slot: [enter_sharded(t, ctx.dp)
+                      if planned.entering(slot, i) else t
+                      for i, t in enumerate(ts)]
+               for slot, ts in ins.items()}
+        if rule.impl is not None:
+            return rule.impl(ctx, ins, attrs, planned.sharded)
+        return opdef.impl(ctx, ins, attrs)
+
+    return impl
 
 
 def _execute_grad_op(op, env, ctx):

@@ -50,6 +50,13 @@ the scope's ``__data_cursor__``, as batch k is taken for its step, not
 when the lookahead pulls batch k+1. A cache miss is the
 ``transient_compile`` fault site (``resilience.py``).
 
+A `compiler.CompiledProgram` handed to `run()` runs through its own
+``_run`` (the data-parallel step, or the inference-optimized clone),
+which ends in the same `_finish_run`: the in-flight window and
+`LazyFetchList`. Its data-parallel step is a `_Step` with the rank's
+rows of the feeds, the data group in the lowering context and the
+fetches gathered.
+
 Not ported: compile telemetry, RPC ops, the nan checks and the
 embedding-prefetch branch of `train_from_dataset` (ROADMAP.md Queue 1
 item 9). A CUDA graph of the step is later work.
@@ -80,10 +87,13 @@ def _feed_signature(feed):
                         for k, v in feed.items()))
 
 
-def classify_persistable_state(block, fetch_names):
-    """(read_names, write_names): the persistable vars a step reads
-    before writing them (they must be in the scope) and the ones it
-    writes (they go back to the scope)."""
+def classify_persistable_state(block, fetch_names, inplace=None):
+    """(mut_names, const_names, state_out): the persistables a step reads
+    before writing them (they must be in the scope), split into those it
+    also writes (mut) and the read-only ones (const), and the ones it
+    writes (they go back to the scope). `inplace` (an
+    ``ir_passes.InplaceInfo``) adjusts the split as
+    ``BuildStrategy.enable_inplace`` says; None keeps it."""
     produced, state_in, state_out = set(), [], set()
     for op in block.ops:
         for name in op.input_names():
@@ -101,7 +111,33 @@ def classify_persistable_state(block, fetch_names):
         if v is not None and v.persistable and name not in produced \
                 and name not in state_in:
             state_in.append(name)
-    return state_in, sorted(state_out)
+    mut = [n for n in state_in if n in state_out]
+    const = [n for n in state_in if n not in state_out]
+    if inplace is not None:
+        mut, const = inplace.adjust(mut, const)
+    return mut, const, sorted(state_out)
+
+
+def read_persistable_state(scope, mut_names, const_names, fallback=None):
+    """(mut, const) value dicts of a step's persistable inputs.
+    `fallback(name)` supplies a value the scope lacks (a compile-time
+    constant of the step, such as a baked int8 weight), which then heals
+    into the scope."""
+    mut, const = {}, {}
+    for names, store in ((mut_names, mut), (const_names, const)):
+        for name in names:
+            val = scope.get(name)
+            if val is None and fallback is not None:
+                val = fallback(name)
+                if val is not None:
+                    scope.set(name, val)
+            if val is None:
+                raise RuntimeError(
+                    "persistable var %r is not initialized — run the "
+                    "startup program first (exe.run(startup_program))"
+                    % name)
+            store[name] = val
+    return mut, const
 
 
 def check_feed_int64(name, value, dtype):
@@ -118,15 +154,26 @@ def check_feed_int64(name, value, dtype):
 
 
 class _Step:
-    """The plan of one (program, feed signature, fetches)."""
+    """The plan of one (program, feed signature, fetches). `inplace` (an
+    ``ir_passes.InplaceInfo``) is ``BuildStrategy.enable_inplace``'s
+    policy; None keeps the state plan as it is.
 
-    def __init__(self, program, feed_names, fetch_names):
+    A subclass changes a step through four hooks: `_local_feed` (the
+    value a feed enters the step with), `_setup` (the lowering context),
+    `_fetch` (a fetched value) and the attributes `__init__` sets."""
+
+    def __init__(self, program, feed_names, fetch_names, inplace=None):
         self.program = program
         self.block = block = program.global_block()
         self.feed_names = list(feed_names)
         self.fetch_names = list(fetch_names)
-        self.state_in, self.state_out = classify_persistable_state(
-            block, self.fetch_names)
+        self.mut_names, self.const_names, self.state_out = \
+            classify_persistable_state(block, self.fetch_names, inplace)
+        # the update ops write in place: a written persistable that the
+        # plan keeps read-only (enable_inplace=False) is given to them as
+        # a copy, so the scope's pre-step tensor stays as it was
+        written = set(self.state_out)
+        self.copied = [n for n in self.const_names if n in written]
         self.recorded = frozenset(id(op.attrs["__fwd_op__"])
                                   for op in block.ops
                                   if "__fwd_op__" in op.attrs)
@@ -154,33 +201,36 @@ class _Step:
             t = t.to(device=device, dtype=want)
         return t.to(device)
 
+    def _local_feed(self, name, value):
+        return value
+
+    def _setup(self, ctx):
+        pass
+
+    def _fetch(self, name, value):
+        return value
+
     def run(self, scope, feed, device):
-        env = {}
-        for name in self.state_in:
-            val = scope.get(name)
-            if val is None:
-                # a compile-time constant of this step (a baked int8
-                # weight) heals into whatever scope the step runs against
-                val = ir_passes.state_fallback(self.program, name)
-                if val is not None:
-                    scope.set(name, val)
-            if val is None:
-                raise RuntimeError(
-                    "persistable var %r is not initialized — run the "
-                    "startup program first (exe.run(startup_program))"
-                    % name)
-            env[name] = val
+        mut, const = read_persistable_state(
+            scope, self.mut_names, self.const_names,
+            fallback=lambda n: ir_passes.state_fallback(self.program, n))
+        env = dict(const)
+        env.update(mut)
+        for name in self.copied:
+            env[name] = env[name].clone()
         for name in self.feed_names:
-            env[name] = self._feed_tensor(name, feed[name], device)
+            env[name] = self._feed_tensor(
+                name, self._local_feed(name, feed[name]), device)
         step = int(scope.get("__step_counter__", 0) or 0)
         ctx = LoweringContext(device, self.program.random_seed or 0, step,
                               self.recorded)
+        self._setup(ctx)
         execute_block(self.block, env, ctx, self.free_after)
         for name in self.state_out:
             if name in env:
                 scope.set(name, env[name])
         scope.set("__step_counter__", step + 1)
-        return [env[n] for n in self.fetch_names]
+        return [self._fetch(n, env[n]) for n in self.fetch_names]
 
 
 class Executor:
@@ -218,8 +268,12 @@ class Executor:
         as float32), which syncs the step, or with return_numpy=False as
         a LazyFetchList of device tensors, the step admitted to the
         in-flight window."""
+        from .compiler import CompiledProgram
+
         if program is None:
             program = framework.default_main_program()
+        if isinstance(program, CompiledProgram):
+            return program._run(self, feed, fetch_list, scope, return_numpy)
         feed = {k: v if isinstance(v, torch.Tensor) else np.asarray(v)
                 for k, v in (feed or {}).items()}
         scope = scope if scope is not None else global_scope()
@@ -248,6 +302,12 @@ class Executor:
                 self._cache[key] = step
         with _cost.first_step(fresh, self.device):
             fetches = step.run(scope, feed, self.device)
+        return self._finish_run(fetches, return_numpy, keep)
+
+    def _finish_run(self, fetches, return_numpy, keep=()):
+        """The fetches as numpy (the step synced), or as a LazyFetchList
+        with the step admitted to the in-flight window; `keep` holds the
+        staged feed's pinned buffers until the step is done."""
         if return_numpy:
             out = as_numpy(fetches)
             # the newest step is done; one stream runs in order, so every

@@ -22,9 +22,18 @@ after the timed loop (each step with --blocking_fetch).
 `run_transformer_native` is the native flagship's tokens/s through
 ``bench.bench_transformer`` (batch 192 unless --batch_size; --iterations
 timed after --skip_batch_num warm-up steps). `--json` prints
-the JAX harness's keys. Options whose modules the port does not have
-yet raise, naming their item of ROADMAP.md's Queue 1: --update_method
-spmd / nccl2 (item 9, parallel) and --profile (item 10, profiler.py).
+the JAX harness's keys. `--update_method nccl2` (or `spmd`) trains
+through ``fluid.ParallelExecutor``, as the JAX harness does, one process
+a rank (the fleet's env contract, ``PADDLE_TRAINER_ID`` /
+``PADDLE_TRAINERS_NUM`` / ``PADDLE_TRAINER_ENDPOINTS``; none set is one
+rank): NCCL on the card, gloo with `--device CPU`, every rank fed the
+same global batch, and examples/sec/chip divides by the world size.
+`--profile` raises, naming its item of ROADMAP.md's Queue 1 (item 10,
+profiler.py).
+
+    PADDLE_TRAINER_ID=0 PADDLE_TRAINERS_NUM=1 \
+        python -m paddle_tpu_torch.fluid_benchmark --model resnet \
+        --data_set imagenet --update_method nccl2
 """
 
 import argparse
@@ -34,8 +43,6 @@ import time
 import numpy as np
 
 NOT_PORTED = {
-    "update_method": "--update_method spmd/nccl2 needs the parallel "
-                     "runtime (ROADMAP.md Queue 1 item 9)",
     "profile": "--profile needs profiler.py (ROADMAP.md Queue 1 item 10)",
 }
 
@@ -57,7 +64,8 @@ def parse_args(argv=None):
                         "PyTorch path on the CPU")
     p.add_argument("--update_method", default="local",
                    choices=["local", "spmd", "nccl2"],
-                   help="spmd and nccl2 are not ported yet (they raise)")
+                   help="spmd / nccl2: data parallel through "
+                        "ParallelExecutor, one process a rank")
     p.add_argument("--learning_rate", type=float, default=0.01)
     p.add_argument("--use_amp", action="store_true",
                    help="wrap the optimizer in contrib.mixed_precision."
@@ -159,8 +167,6 @@ def print_train_time(start_time, end_time, num_samples, n_chips=1):
 
 
 def _check_ported(args):
-    if args.update_method in ("spmd", "nccl2"):
-        raise NotImplementedError(NOT_PORTED["update_method"])
     if args.profile:
         raise NotImplementedError(NOT_PORTED["profile"])
 
@@ -243,7 +249,8 @@ def run_static_model(args, record=None):
     the executor, scope, program, startup program, loss var and staged
     feed, the losses of every step, the host ms of each timed step and,
     on the card, each timed step's device ms (CUDA events around it) and
-    the peak allocation in bytes."""
+    the peak allocation in bytes; `pe` the ParallelExecutor of an
+    nccl2 / spmd run (else None)."""
     import torch
 
     import paddle_tpu_torch as fluid
@@ -259,10 +266,18 @@ def run_static_model(args, record=None):
             opt = fluid.contrib.mixed_precision.decorate(
                 opt, init_loss_scaling=1.0, use_dynamic_loss_scaling=False)
         opt.minimize(loss)
-    exe, scope = fluid.Executor(_place(args)), fluid.Scope()
+    scope = fluid.Scope()
+    n_chips, pe = 1, None
+    if args.update_method in ("spmd", "nccl2"):
+        pe = fluid.ParallelExecutor(use_cuda=args.device != "CPU",
+                                    loss_name=loss.name, main_program=main,
+                                    scope=scope)
+        n_chips = pe.device_count
+        exe = fluid.Executor(pe.device)
+    else:
+        exe = fluid.Executor(_place(args))
     on_card = exe.device.type == "cuda"
     exe.run(startup, scope=scope)
-    n_chips = 1
     rng = np.random.RandomState(0)
     # staged once: device-resident feeds skip the per-step host copy
     feed = {k: torch.from_numpy(v).to(exe.device)
@@ -285,8 +300,11 @@ def run_static_model(args, record=None):
             marks.append(torch.cuda.Event(enable_timing=True))
             marks[-1].record()
         th = time.perf_counter()
-        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
-                       return_numpy=False)
+        if pe is None:
+            out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                           return_numpy=False)
+        else:
+            out, = pe.run([loss.name], feed=feed, return_numpy=False)
         if args.blocking_fetch:
             out = as_numpy(out)  # a host copy each step, timed
         if timed:
@@ -304,8 +322,9 @@ def run_static_model(args, record=None):
           flush=True)
     if record is not None:
         record.update(
-            exe=exe, scope=scope, program=main, startup=startup, loss=loss,
-            feed=feed, batch=batch, losses=losses, host_ms=host_ms,
+            exe=exe, pe=pe, scope=scope, program=main, startup=startup,
+            loss=loss, feed=feed, batch=batch, losses=losses,
+            host_ms=host_ms,
             examples_per_sec=eps,
             step_ms=[a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
             if on_card else None,
@@ -325,6 +344,10 @@ def main(argv=None):
         rec = run_transformer_native(args)
     else:
         rec = run_static_model(args)
+        if args.update_method in ("spmd", "nccl2"):
+            from .parallel.mesh import destroy_data_group
+
+            destroy_data_group()
     if args.json:
         print(json.dumps(rec), flush=True)
     return rec

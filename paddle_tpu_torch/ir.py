@@ -439,3 +439,16 @@ class ConvResidualAddFusePass(Pass):
         if changed:
             program._bump_version()
         return program
+
+
+@register_pass("memory_optimize")
+def _memory_optimize_pass(program, scope):
+    """The lifetime analysis with its reuse plan annotated on the program
+    (``transpiler/memory_optimization_transpiler.memory_optimize``; the
+    step's own memory plan and PyTorch's allocator do the reuse). Bumps
+    the version, so the pipeline keeps the annotated clone."""
+    from .transpiler.memory_optimization_transpiler import memory_optimize
+
+    memory_optimize(program)
+    program._bump_version()
+    return program

@@ -16,12 +16,14 @@ the executor runs the user's program itself. The cache key carries
 `pipeline_key`, so a step compiled under one pass list or policy never
 serves another.
 
-Passes the JAX pipeline schedules only for an explicit inference
-optimization or a ``BuildStrategy`` (``conv_bn_fold_baked``,
-``fuse_elewise_add_act``, ``memory_optimize``) are not ported: a
-pipeline naming one raises, naming it. (``conv_elementwise_add_fuse``,
-which that pipeline also names, is registered in ``ir.py``: the
-inference predictor runs it at load time.)
+A ``compiler.CompiledProgram`` passes its ``BuildStrategy``: its
+``memory_optimize`` (on by default; registered in ``ir.py``),
+``fuse_elewise_add_act_ops`` (`fuse_elewise_add_act`, into the
+``fused_elemwise_activation`` op) and ``amp`` knobs choose passes, and
+``with_inference_optimize`` adds ``conv_bn_fold_baked`` and
+``conv_elementwise_add_fuse`` (``ir.py``). `InplaceInfo` is
+``enable_inplace``'s state classification. A pipeline naming a pass
+that is not registered raises, naming it.
 
 Soundness, as in the JAX package: ops referenced through a grad op's
 `__fwd_op__` are never deleted or rewired (their grad ops read what they
@@ -38,9 +40,9 @@ import numpy as np
 from . import flags as _flags
 from .observability import metrics as _metrics
 
-__all__ = ["bake_value", "build_pipeline", "optimize_for_execution",
-           "pipeline_enabled", "pipeline_key", "program_is_inference",
-           "state_fallback"]
+__all__ = ["InplaceInfo", "bake_value", "build_pipeline",
+           "optimize_for_execution", "pipeline_enabled", "pipeline_key",
+           "program_is_inference", "state_fallback"]
 
 # constant folding refuses to bake results larger than this
 _MAX_FOLD_BYTES = 1 << 24
@@ -51,6 +53,9 @@ _INLINE_FOLD_ELEMS = 1 << 16
 
 # pure but context-sensitive kernels never fold
 _CTX_SENSITIVE_TYPES = frozenset({"flash_attention"})
+
+# the activations fuse_elewise_add_act folds into the add before them
+_FUSABLE_ACTS = ("relu", "tanh", "sigmoid")
 
 
 def pipeline_enabled():
@@ -82,12 +87,12 @@ def program_is_inference(program):
     return result
 
 
-def _amp_cfg(program):
+def _amp_cfg(program, build_strategy=None):
     """The AMP config in effect for one compile, or None. Importing amp
     registers the amp_rewrite pass."""
     from . import amp
 
-    return amp.active_config(program)
+    return amp.active_config(program, build_strategy)
 
 
 def _quant_cfg(program):
@@ -127,7 +132,8 @@ def build_pipeline(build_strategy=None, is_test=False, infer_opt=False,
 
 
 def _pipeline_names(program, build_strategy=None, infer_opt=False):
-    amp_cfg, quant_cfg = _amp_cfg(program), _quant_cfg(program)
+    amp_cfg = _amp_cfg(program, build_strategy)
+    quant_cfg = _quant_cfg(program)
     names = build_pipeline(build_strategy, program_is_inference(program),
                            infer_opt, len(program.blocks) == 1,
                            amp=amp_cfg is not None,
@@ -149,6 +155,10 @@ def pipeline_key(build_strategy=None, program=None, infer_opt=False):
         key += ("amp:" + amp_cfg.cache_key(),)
     if quant_cfg is not None:
         key += ("quant:" + quant_cfg.cache_key(),)
+    if build_strategy is not None:
+        # enable_inplace selects the step's state classification
+        key += ("inplace:%d" % int(getattr(build_strategy,
+                                           "enable_inplace", True)),)
     return key
 
 
@@ -250,6 +260,28 @@ def state_fallback(program, name):
     if baked and name in baked:
         return baked[name]
     return None
+
+
+class InplaceInfo:
+    """The state plan's in-place policy (``BuildStrategy.enable_inplace``;
+    the JAX package's `InplaceInfo` :443, handed to
+    ``compiler.classify_persistable_state``). `enabled=False` moves every
+    read-and-written persistable to the read-only set (`const`), so the
+    step gives the update ops copies and the scope's pre-step tensors
+    keep their values. `enabled=True` keeps the classification.
+
+    The JAX policy also promotes large write-before-read persistables
+    into the donated inputs, so that XLA can reuse their buffers. The
+    port's step hands no buffer to a compiler: it writes each new value
+    into the scope after the step, so it promotes nothing."""
+
+    def __init__(self, enabled=True):
+        self.enabled = enabled
+
+    def adjust(self, mut, const):
+        if not self.enabled:
+            return [], const + mut
+        return mut, const
 
 
 def _grad_referenced_ids(program):
@@ -609,6 +641,147 @@ def _register_builtin_passes():
                                                for v in vs]
             if changed:
                 _metrics.counter("compiler/ops_folded").inc(len(const_ops))
+                program._bump_version()
+            return program
+
+    @register_pass("fuse_elewise_add_act")
+    class FuseElewiseAddActPass(Pass):
+        """elementwise_add -> {relu, tanh, sigmoid} (the add's one
+        consumer) -> one ``fused_elemwise_activation`` op, as
+        ``BuildStrategy.fuse_elewise_add_act_ops`` asks
+        (``compiler/ops_fused``). Only trailing-broadcast adds fuse, and
+        neither op may be a grad op's forward."""
+
+        def apply(self, program, scope=None):
+            from .framework import Operator
+
+            targets = set(_fetch_targets(program) or ())
+            block = program.global_block()
+            protected = (targets | _outside_reads(program)
+                         | _outside_writes(program))
+            grad_refed = _grad_referenced_ids(program)
+            writes = _write_indices(block)
+            consumers = {}
+            for op in block.ops:
+                for n in set(op.input_names()):
+                    consumers.setdefault(n, []).append(op)
+
+            def trailing_broadcast(add):
+                xs, ys = add.inputs.get("X", []), add.inputs.get("Y", [])
+                if len(xs) != 1 or len(ys) != 1:
+                    return False
+                axis = add.attrs.get("axis", -1)
+                if axis in (-1, None):
+                    return True
+                xsh = getattr(xs[0], "shape", None)
+                ysh = getattr(ys[0], "shape", None)
+                if xsh is None or ysh is None:
+                    return False
+                return axis == len(xsh) - len(ysh)
+
+            fused = 0
+            new_ops = list(block.ops)
+            for add in block.ops:
+                if add.type != "elementwise_add" or add not in new_ops:
+                    continue
+                if id(add) in grad_refed or not trailing_broadcast(add):
+                    continue
+                outs = add.output_names("Out")
+                if len(outs) != 1 or outs[0] in protected \
+                        or len(writes.get(outs[0], ())) != 1:
+                    continue
+                users = consumers.get(outs[0], [])
+                if len(users) != 1 or users[0] not in new_ops:
+                    continue
+                act = users[0]
+                if act.type not in _FUSABLE_ACTS or id(act) in grad_refed:
+                    continue
+                if act.attrs or act.input_names() != outs:
+                    continue
+                act_outs = act.output_names("Out")
+                if len(act_outs) != 1 \
+                        or len(writes.get(act_outs[0], ())) != 1:
+                    continue  # a rebinding: moving the def earlier
+                fop = Operator(
+                    block, "fused_elemwise_activation",
+                    inputs={"X": add.inputs["X"], "Y": add.inputs["Y"]},
+                    outputs={"Out": act.outputs["Out"],
+                             "IntermediateOut": add.outputs["Out"]},
+                    attrs={"functor_list": [act.type, "elementwise_add"],
+                           "save_intermediate_out": False})
+                new_ops[new_ops.index(add)] = fop
+                new_ops.remove(act)
+                fused += 1
+            if fused:
+                block.ops = new_ops
+                _metrics.counter("compiler/ops_fused").inc(fused)
+                program._bump_version()
+            return program
+
+    @register_pass("conv_bn_fold_baked")
+    class ConvBNFoldBakedPass(Pass):
+        """conv2d -> batch_norm(is_test) folded on a compile clone: the
+        algebra of ``conv_bn_fold`` (in numpy on the host, as the JAX
+        pass computes it), but the folded filter and shift land in fresh
+        content-addressed persistables (``bake_value``) the conv is
+        rewired to, so the user's program and weights stay as they
+        are."""
+
+        def apply(self, program, scope=None):
+            if scope is None:
+                return program
+            import torch
+
+            from .ir import match_chain
+
+            block = program.global_block()
+            protected = set(_fetch_targets(program) or ()) \
+                | _outside_reads(program)
+            changed = False
+            for conv, bn in match_chain(block, ("conv2d", "batch_norm")):
+                if not bn.attrs.get("is_test", False):
+                    continue
+                if any(n in protected for n in conv.output_names()):
+                    continue
+                w_name = conv.input_names("Filter")[0]
+                names = [w_name, bn.input_names("Scale")[0],
+                         bn.input_names("Bias")[0],
+                         bn.input_names("Mean")[0],
+                         bn.input_names("Variance")[0]]
+                vals = [scope.get(n) for n in names]
+                if any(v is None for v in vals):
+                    continue
+                device = vals[0].device \
+                    if isinstance(vals[0], torch.Tensor) else "cpu"
+                w, gamma, beta, mean, var = [
+                    v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                    else np.asarray(v) for v in vals]
+                eps = bn.attrs.get("epsilon", 1e-5)
+                factor = gamma / np.sqrt(var + eps)
+                w2 = (w * factor.reshape((-1, 1, 1, 1))).astype(w.dtype)
+                shift = (beta - mean * factor).astype(w.dtype)
+                digest = hashlib.sha1(
+                    w2.tobytes() + shift.tobytes()).hexdigest()[:12]
+                wf_name = "%s.bnfold.%s" % (w_name, digest)
+                bf_name = "%s.bnfold_bias.%s" % (w_name, digest)
+                if not block.has_var(wf_name):
+                    block.create_var(name=wf_name, shape=w2.shape,
+                                     dtype=str(w.dtype), persistable=True)
+                if not block.has_var(bf_name):
+                    block.create_var(name=bf_name, shape=shift.shape,
+                                     dtype=str(shift.dtype),
+                                     persistable=True)
+                for name, arr in ((wf_name, w2), (bf_name, shift)):
+                    t = torch.from_numpy(arr).to(device)
+                    scope.set(name, t)
+                    bake_value(program, name, t)
+                conv.inputs["Filter"] = [block.var(wf_name)]
+                conv.inputs["FoldedBias"] = [block.var(bf_name)]
+                conv.outputs["Output"] = bn.outputs["Y"]
+                block.ops.remove(bn)
+                _metrics.counter("compiler/ops_fused").inc()
+                changed = True
+            if changed:
                 program._bump_version()
             return program
 

@@ -6,7 +6,7 @@ have no grad (round half to even, as jnp.round)."""
 import torch
 import torch.nn.functional as F
 
-from .registry import register
+from .registry import dp_rule, register
 
 
 def _a(name, fn, differentiable=True):
@@ -14,6 +14,7 @@ def _a(name, fn, differentiable=True):
         return {"Out": [fn(ins["X"][0], attrs)]}
 
     register(name, differentiable=differentiable)(impl)
+    dp_rule(name)  # elementwise: row-local
 
 
 def _where(cond, x, y):
@@ -81,3 +82,6 @@ def _prelu(ctx, ins, attrs):
     else:  # element
         al = alpha.reshape((1,) + tuple(x.shape[1:]))
     return {"Out": [torch.where(x >= 0, x, al * x)]}
+
+
+dp_rule("prelu")

@@ -1,12 +1,14 @@
 """The attention graph ops (parity: the JAX package's
 ``ops/compat_ops.py`` flash_attention :465 and fused_multihead_attention
-:571). The sequence-parallel (ring) branch of the JAX op is not ported:
-the port has no device mesh yet."""
+:571) and fused_elemwise_activation (:277). The sequence-parallel
+(ring) branch of the JAX attention op is not ported: the port's mesh
+has the data axis only."""
 
 import torch
 
+from .elementwise import promote
 from .flash_attention import flash_attention
-from .registry import get, register
+from .registry import dp_rule, get, register
 
 
 def flash_qualify(T, Tk, head_dim, causal):
@@ -94,3 +96,35 @@ def _softmax_attention(q, k, v, layout, causal, scale, Dh):
     p = torch.softmax(logits, dim=-1).to(q.dtype)
     out_spec = "bhqd" if layout == "bhtd" else "bqhd"
     return torch.einsum("bhqk,%s->%s" % (ks, out_spec), p, v)
+
+
+@register("fused_elemwise_activation")
+def _fused_elemwise_activation(ctx, ins, attrs):
+    """fused_elemwise_activation_op: functor_list[0] is the outer
+    functor: ["binary", "unary"] computes Binary(X, Unary(Y)), ["unary",
+    "binary"] computes Unary(Binary(X, Y)). IntermediateOut is the inner
+    functor's result. The functors are the standalone ops' expressions
+    (``fuse_elewise_add_act`` in ``ir_passes.py`` schedules the op)."""
+    functors = [f.split(",")[0] for f in attrs.get("functor_list", [])]
+    if len(functors) != 2:
+        raise ValueError("fused_elemwise_activation needs functor_list of "
+                         "two entries, got %r" % (functors,))
+    x, y = ins["X"][0], ins["Y"][0]
+    binary = {"elementwise_add": torch.add, "elementwise_sub": torch.sub,
+              "elementwise_mul": torch.mul}
+    scale = attrs.get("scale", 1.0)
+    unary = {"relu": torch.relu, "scale": lambda v: v * scale,
+             "tanh": torch.tanh, "sigmoid": torch.sigmoid}
+    f0, f1 = functors
+    if f0 in binary:
+        inner = unary[f1](y)
+        out = binary[f0](*promote(x, inner))
+    else:
+        inner = binary[f1](*promote(x, y))
+        out = unary[f0](inner)
+    return {"Out": [out], "IntermediateOut": [inner]}
+
+
+# batch-leading attention: row i attends within row i
+dp_rule(["flash_attention", "fused_multihead_attention"])
+dp_rule("fused_elemwise_activation", get("elementwise_add").dp)

@@ -35,7 +35,7 @@ import warnings
 
 import torch
 
-from .registry import register, simple_op, weak_scalar
+from .registry import DpRule, dp_rule, register, simple_op, weak_scalar
 
 # device-to-host reads of a predicate, by op type
 host_syncs = {"cond": 0, "while": 0}
@@ -289,3 +289,9 @@ def _recurrent(ctx, ins, attrs):
     step_output_names, x_names, sub_block, max_len (the length when no
     step input gives it), is_reverse and remat."""
     return run_recurrent(ctx, ins, attrs)
+
+
+# a recompute segment's ops are planned one by one (parallel/planner.py):
+# its operands enter the sharded region inside, at the op that combines
+# them with batch-sharded rows
+dp_rule("recompute", DpRule(enter=False))

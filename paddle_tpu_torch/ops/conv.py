@@ -21,7 +21,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .registry import register
+from .dp import replicated_slots, row_rule
+from .registry import dp_rule, register
 
 
 @contextlib.contextmanager
@@ -216,3 +217,8 @@ def pool2d(x, attrs):
 @register("pool2d")
 def _pool2d(ctx, ins, attrs):
     return {"Out": [pool2d(ins["X"][0], attrs)]}
+
+
+dp_rule(["conv2d", "depthwise_conv2d"],
+        row_rule(replicated_slots("Filter", "FoldedBias")))
+dp_rule("pool2d")

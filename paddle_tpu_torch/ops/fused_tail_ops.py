@@ -8,7 +8,8 @@ the port's conv2d op, so an fp32 one takes its GEMM route
 import torch
 import torch.nn.functional as F
 
-from .registry import get, register
+from .dp import replicated_slots, row_rule
+from .registry import dp_rule, get, register
 
 _ACTS = {
     "identity": lambda x: x,
@@ -49,3 +50,6 @@ def _conv2d_fusion(ctx, ins, attrs):
             start += n
         return {"Output": [out], "Outputs": pieces}
     return {"Output": [out]}
+
+
+dp_rule("conv2d_fusion", row_rule(replicated_slots("Filter", "Bias")))

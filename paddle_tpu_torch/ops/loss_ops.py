@@ -6,7 +6,7 @@ log_loss :173). The softmax form, softmax_with_cross_entropy, is in
 
 import torch
 
-from .registry import register, weak_scalar
+from .registry import dp_rule, register, weak_scalar
 
 _EPS = 1e-12
 
@@ -72,3 +72,7 @@ def _log_loss(ctx, ins, attrs):
     eps = attrs.get("epsilon", 1e-4)
     return {"Loss": [-label * torch.log(p + eps)
                      - (1.0 - label) * torch.log(1.0 - p + eps)]}
+
+
+dp_rule(["cross_entropy", "cross_entropy2",
+         "sigmoid_cross_entropy_with_logits", "log_loss"])

@@ -9,7 +9,8 @@ import numpy as np
 import torch
 
 from ..framework import torch_dtype
-from .registry import register, simple_op, weak_scalar
+from .dp import refuse, replicated_slots
+from .registry import DpRule, dp_rule, register, simple_op, weak_scalar
 
 
 @register("fill_constant", differentiable=False)
@@ -23,7 +24,12 @@ def _fill_constant(ctx, ins, attrs):
 
 @register("fill_any_like", differentiable=False)
 def _fill_any_like(ctx, ins, attrs):
-    return {"Out": [torch.full_like(ins["X"][0], attrs.get("value", 0.0))]}
+    val = attrs.get("value", 0.0)
+    if attrs.get("__loss_seed__"):
+        # the backward seed: BuildStrategy.GradientScaleStrategy.One
+        # scales it by the number of replicas (compiler.grad_seed_scale_of)
+        val = val * getattr(ctx, "grad_seed_scale", 1.0)
+    return {"Out": [torch.full_like(ins["X"][0], val)]}
 
 
 @register("uniform_random", differentiable=False, stateful=True)
@@ -210,3 +216,66 @@ def _squared_l2_norm(ctx, x, **_):
 @register("fill_zeros_like", differentiable=False)
 def _fill_zeros_like(ctx, ins, attrs):
     return {"Out": [torch.zeros_like(ins["X"][0])]}
+
+
+# ---------------------------------------------------------------------------
+# data parallelism (registry.DpRule)
+# ---------------------------------------------------------------------------
+
+
+def _dp_shape(ctx, ins, attrs, sharded):
+    """The global shape: the leading dim times the world size (a loss
+    that divides by the token count divides by the global count)."""
+    x = ins["Input"][0] if "Input" in ins else ins["X"][0]
+    shape = (x.shape[0] * ctx.dp.world,) + tuple(x.shape[1:])
+    return {"Out": [torch.tensor(shape, dtype=torch.int32,
+                                 device=x.device)]}
+
+
+def _replicated_out(op, sharded, block):
+    return {slot: [False] * len(vs) for slot, vs in op.outputs.items()}
+
+
+def _mul_plan(op, sharded, block):
+    replicated_slots("Y")(op, sharded, block)
+    return {"Out": [True]}
+
+
+def _matmul_plan(op, sharded, block):
+    """Row-local when X is batch-sharded and the product keeps its
+    leading axis: X of rank 2 not transposed against a replicated Y, or
+    a batched product (rank >= 3) against a batch-sharded Y of the same
+    rank or a replicated Y broadcast over the batch."""
+    x, y = op.inputs["X"][0], op.inputs["Y"][0]
+    xs, ys = sharded["X"][0], sharded["Y"][0]
+    if not xs:
+        refuse(op, "Y is batch-sharded and X is replicated")
+    xnd = len(x.shape) if x.shape is not None else None
+    ynd = len(y.shape) if y.shape is not None else None
+    if xnd == 2 and op.attrs.get("transpose_X", False):
+        refuse(op, "transpose_X contracts the batch axis")
+    if ys and (xnd is None or xnd < 3 or ynd != xnd):
+        refuse(op, "a batch-sharded Y must be a batched operand of X's "
+                "rank")
+    if not ys and ynd is not None and ynd >= 3 and y.shape[0] != 1:
+        refuse(op, "the replicated Y %r spans the batch axis" % y.name)
+    return {"Out": [True]}
+
+
+def _sum_plan(op, sharded, block):
+    if not all(sharded["X"]):
+        refuse(op, "it adds batch-sharded and replicated inputs")
+    return {"Out": [True]}
+
+
+def _declare_dp():
+    dp_rule("shape", DpRule(plan=_replicated_out, impl=_dp_shape))
+    dp_rule("mul", DpRule(plan=_mul_plan))
+    dp_rule("matmul", DpRule(plan=_matmul_plan))
+    dp_rule("fused_int8_matmul", DpRule(plan=_mul_plan))
+    dp_rule("sum", DpRule(plan=_sum_plan))
+    dp_rule(["scale", "cast", "sign", "clip", "assign", "fill_any_like",
+             "fill_zeros_like"])
+
+
+_declare_dp()

@@ -10,7 +10,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .registry import register, weak_scalar
+from .dp import axes_exclude_batch, refuse, replicated_slots, row_rule, rows
+from .registry import DataParallelError, DpRule, dp_rule, register, weak_scalar
 
 
 @register("reshape2")
@@ -233,3 +234,152 @@ def _softmax_with_cross_entropy(ctx, ins, attrs):
         return {"Loss": [loss]}
     softmax = torch.softmax(logits.float(), dim=-1).to(logits.dtype)
     return {"Softmax": [softmax], "Loss": [loss]}
+
+
+# ---------------------------------------------------------------------------
+# data parallelism (registry.DpRule)
+# ---------------------------------------------------------------------------
+
+
+def _global_reshape(x, attrs, world):
+    """The rank's rows of the global reshape: Fluid's shape applied to
+    the global input shape, its leading dim then split over the ranks
+    (the flattened order is the same, so rank r's block of input
+    elements is rank r's block of output rows)."""
+    gshape = (x.shape[0] * world,) + tuple(x.shape[1:])
+    shape = [gshape[i] if s == 0 else int(s)
+             for i, s in enumerate(attrs["shape"])]
+    if -1 in shape:
+        known = int(np.prod([s for s in shape if s != -1]))
+        shape[shape.index(-1)] = int(np.prod(gshape)) // known
+    if not shape or shape[0] % world:
+        raise DataParallelError(
+            "reshape of a batch-sharded input: the global output's "
+            "leading dim %s does not divide over %d ranks"
+            % (shape[:1], world))
+    return [shape[0] // world] + shape[1:]
+
+
+def _dp_reshape2(ctx, ins, attrs, sharded):
+    x = ins["X"][0]
+    return {"Out": [x.reshape(_global_reshape(x, attrs, ctx.dp.world))],
+            "XShape": [x.new_zeros((0,) + tuple(x.shape))]}
+
+
+def _dp_dropout(ctx, ins, attrs, sharded):
+    """The global batch's mask, drawn from the op's usual generator, then
+    the rank's rows: world N gives world 1's masks."""
+    x = ins["X"][0]
+    if attrs.get("is_test", False):
+        return _dropout(ctx, ins, attrs)
+    p = attrs.get("dropout_prob", 0.5)
+    impl_type = attrs.get("dropout_implementation", "downgrade_in_infer")
+    u = torch.rand((x.shape[0] * ctx.dp.world,) + tuple(x.shape[1:]),
+                   generator=ctx.generator(attrs), device=x.device)
+    keep = rows(u, ctx.dp) >= p
+    mask = keep.to(x.dtype)
+    if impl_type == "upscale_in_train":
+        out = torch.where(keep, x / weak_scalar(x, 1.0 - p),
+                          torch.zeros_like(x))
+    else:
+        out = x * mask
+    return {"Out": [out], "Mask": [mask]}
+
+
+def _dp_batch_norm(ctx, ins, attrs, sharded):
+    """Training statistics over the global batch: one all-reduce of
+    [sum x, sum x^2, count] (fp32), then the JAX op's formula var =
+    E[x^2] - E[x]^2 on the global moments. The replicated moments
+    re-enter the sharded region, where they normalize the local rows,
+    so their cotangent (each rank's rows' part) is summed in backward:
+    one all-reduce more. With `is_test` or `use_global_stats` the op is
+    row-local."""
+    from ..parallel.collective import enter_sharded, reduce_replicated
+
+    x = ins["X"][0]
+    if attrs.get("use_global_stats", False) or attrs.get("is_test", False):
+        return _batch_norm(ctx, ins, attrs)
+    scale, bias = ins["Scale"][0], ins["Bias"][0]
+    mean_in, var_in = ins["Mean"][0], ins["Variance"][0]
+    eps = attrs.get("epsilon", 1e-5)
+    momentum = attrs.get("momentum", 0.9)
+    ch_axis = 1 if attrs.get("data_layout", "NCHW") == "NCHW" else x.ndim - 1
+    axes = [i for i in range(x.ndim) if i != ch_axis]
+    bshape = [x.shape[ch_axis] if i == ch_axis else 1 for i in range(x.ndim)]
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    local_n = xf.numel() // xf.shape[ch_axis]
+    moments = torch.cat([xf.sum(axes), (xf * xf).sum(axes),
+                         xf.new_full((1,), float(local_n))])
+    moments = enter_sharded(reduce_replicated(moments, ctx.dp, "sum"),
+                            ctx.dp)
+    c = xf.shape[ch_axis]
+    count = moments[2 * c]
+    mean = moments[:c] / count
+    var = moments[c:2 * c] / count - mean * mean
+    with torch.no_grad():
+        mean_out = mean_in * momentum + mean * (1.0 - momentum)
+        var_out = var_in * momentum + var * (1.0 - momentum)
+    y = (xf - mean.reshape(bshape)) * torch.rsqrt(var.reshape(bshape) + eps)
+    y = y * scale.reshape(bshape) + bias.reshape(bshape)
+    return {"Y": [y.to(x.dtype)], "MeanOut": [mean_out],
+            "VarianceOut": [var_out], "SavedMean": [mean],
+            "SavedVariance": [var]}
+
+
+def _batch_norm_plan(op, sharded, block):
+    replicated_slots("Scale", "Bias", "Mean", "Variance")(op, sharded,
+                                                          block)
+    marks = {slot: [False] * len(vs) for slot, vs in op.outputs.items()}
+    marks["Y"] = [True]
+    return marks
+
+
+def _batch_norm_collectives(op, block, sharded, wanted):
+    """The moments' all-reduce, and its cotangent's when X's grad is
+    formed."""
+    if op.attrs.get("use_global_stats", False) \
+            or op.attrs.get("is_test", False):
+        return 0, 0
+    calls = 1 + (wanted.get("X", [None])[0] is not None)
+    return calls, calls * (2 * op.inputs["Scale"][0].shape[0] + 1) * 4
+
+
+def _declare_dp():
+    dp_rule("reshape2", DpRule(impl=_dp_reshape2))
+    dp_rule("transpose2", row_rule(_perm_keeps_batch))
+    dp_rule("split", row_rule(axes_exclude_batch("axis", 0)))
+    dp_rule("concat", row_rule(_all_sharded("X"),
+                               axes_exclude_batch("axis", 0)))
+    dp_rule("softmax", row_rule(axes_exclude_batch("axis", -1)))
+    dp_rule("slice", row_rule(axes_exclude_batch("axes", [], "Input")))
+    dp_rule("lookup_table", row_rule(replicated_slots("W")))
+    dp_rule("layer_norm", row_rule(_norm_axis_keeps_batch,
+                                   replicated_slots("Scale", "Bias")))
+    dp_rule("add_position_encoding")
+    dp_rule("softmax_with_cross_entropy",
+            row_rule(axes_exclude_batch("axis", -1, "Logits")))
+    dp_rule("dropout", DpRule(impl=_dp_dropout))
+    dp_rule("batch_norm", DpRule(plan=_batch_norm_plan,
+                                 impl=_dp_batch_norm,
+                                 collectives=_batch_norm_collectives))
+
+
+def _perm_keeps_batch(op, sharded, block):
+    if list(op.attrs.get("axis", [0]))[:1] != [0]:
+        refuse(op, "axis=%r moves the batch axis" % (op.attrs["axis"],))
+
+
+def _norm_axis_keeps_batch(op, sharded, block):
+    if op.attrs.get("begin_norm_axis", 1) < 1:
+        refuse(op, "begin_norm_axis=0 normalizes over the batch axis")
+
+
+def _all_sharded(slot):
+    def check(op, sharded, block):
+        if not all(sharded.get(slot, ())):
+            refuse(op, "it mixes batch-sharded and replicated %s inputs"
+                    % slot)
+    return check
+
+
+_declare_dp()

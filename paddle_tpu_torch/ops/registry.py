@@ -11,6 +11,14 @@ under autograd and its grad op asks autograd for the input grads.
 ``backward.py`` reads ``differentiable`` and ``nondiff_inputs``;
 ``LayerHelper`` reads ``stateful`` (an op that draws random numbers gets
 an ``__op_seed__``).
+
+Under data parallelism (``compiler.py``'s `_DataParallelStep`) a rank
+holds only its rows of each batch-sharded var, so every op type that
+may read one declares a `DpRule` (``dp_rule``) beside its kernel:
+row-local (output row i reads only input row i) or a batch reduction
+with its collective. The planner (``parallel/planner.py``) refuses, at
+plan time and naming the op, any op that reads a batch-sharded var and
+declares neither.
 """
 
 import torch
@@ -27,6 +35,8 @@ class OpDef:
         # input slots that never receive gradients (e.g. integer ids)
         self.nondiff_inputs = frozenset(nondiff_inputs)
         self.stateful = stateful
+        # the DpRule of a batch-sharded input; None: the op has none
+        self.dp = None
 
     def __repr__(self):
         return "OpDef(%s)" % self.name
@@ -62,6 +72,60 @@ def simple_op(name, in_slots=("X",), out_slot="Out", differentiable=True,
         return fn
 
     return deco
+
+
+class DataParallelError(NotImplementedError):
+    """An op or a write that the data-parallel step cannot run."""
+
+
+class DpRule:
+    """How an op runs on a rank's rows of a batch-sharded input: row-local
+    (output row i reads only input row i, so the op runs on the rank's
+    rows as it is), or, with `collectives`, a batch reduction (partial
+    sums on the local rows, an all-reduce over the data group, the rest
+    on the replicated global value).
+
+    `plan(op, sharded, block)` checks the op's attrs and static shapes
+    and returns its outputs' marks ({slot: [bool]}, True batch-sharded);
+    it raises `DataParallelError` where the op is not row-local with
+    these attrs (a transpose that moves the batch axis). The default
+    marks every output batch-sharded.
+
+    `impl(ctx, ins, attrs, sharded)` replaces the op's kernel under data
+    parallelism (the reductions, and ops that read the global batch's
+    shape or draw the global batch's random numbers); None runs the
+    op's own kernel.
+
+    `enter` (default True): a replicated float operand of the op (a
+    parameter, a replicated activation) enters the sharded region:
+    unchanged in forward, its grad all-reduced (SUM) in backward. An op
+    whose sub-block runs planned ops of its own (`recompute`) sets it
+    False, so its operands enter once, inside.
+
+    `collectives(op, block, sharded, wanted)` the (calls, bytes) of the
+    all-reduces one run of the reduction issues (`wanted`: its grad op's
+    {slot: [grad name or None]}, empty without one), for the plan's
+    prediction of the step's collectives."""
+
+    def __init__(self, plan=None, impl=None, enter=True, collectives=None):
+        self.plan = plan
+        self.impl = impl
+        self.enter = enter
+        self.collectives = collectives
+
+    def out_marks(self, op, sharded, block):
+        if self.plan is not None:
+            return self.plan(op, sharded, block)
+        return {slot: [True] * len(vs) for slot, vs in op.outputs.items()}
+
+
+ROW = DpRule()
+
+
+def dp_rule(names, rule=ROW):
+    """Declare `rule` the DpRule of each registered op in `names`."""
+    for name in ([names] if isinstance(names, str) else names):
+        get(name).dp = rule
 
 
 def get(name):

@@ -19,8 +19,9 @@ import torch
 import torch.nn.functional as F
 
 from ..framework import torch_dtype
+from .dp import axes_exclude_batch, refuse, replicated_slots, row_rule, rows
 from .nn_ops import _reshape2
-from .registry import register
+from .registry import DpRule, dp_rule, get, register
 
 
 def _xshape(x):
@@ -285,3 +286,95 @@ def _gaussian_random_bsl(ctx, ins, attrs):
     out.normal_(attrs.get("mean", 0.0), attrs.get("std", 1.0),
                 generator=ctx.generator(attrs))
     return {"Out": [out.to(torch_dtype(attrs.get("dtype", "float32")))]}
+
+
+# ---------------------------------------------------------------------------
+# data parallelism (registry.DpRule)
+# ---------------------------------------------------------------------------
+
+
+def _dp_reshape(ctx, ins, attrs, sharded):
+    from .nn_ops import _dp_reshape2
+
+    return {"Out": _dp_reshape2(ctx, ins, attrs, sharded)["Out"]}
+
+
+def _flatten_keeps_batch(op, sharded, block):
+    if op.attrs.get("axis", 1) < 1:
+        refuse(op, "axis=0 folds the batch axis into one row")
+
+
+def _expand_keeps_batch(op, sharded, block):
+    if list(op.attrs.get("expand_times", [1]))[:1] != [1]:
+        refuse(op, "expand_times tiles the batch axis")
+
+
+def _pad_keeps_batch(op, sharded, block):
+    if list(op.attrs.get("paddings", [0, 0]))[:2] != [0, 0]:
+        refuse(op, "paddings pad the batch axis")
+
+
+def _dp_batch_size_like(local):
+    """The global batch's draw from the op's usual generator, then the
+    rank's rows (an output whose batch dim is not its leading one is
+    the whole global draw)."""
+    def impl(ctx, ins, attrs, sharded):
+        if attrs.get("input_dim_idx", 0) != 0:
+            return local(ctx, ins, attrs)
+        x = ins["Input"][0]
+        whole = x.new_empty((x.shape[0] * ctx.dp.world,)
+                            + tuple(x.shape[1:]))
+        out = local(ctx, {"Input": [whole]}, attrs)["Out"][0]
+        if attrs.get("output_dim_idx", 0) == 0:
+            out = rows(out, ctx.dp)
+        return {"Out": [out]}
+    return impl
+
+
+def _batch_size_like_plan(op, sharded, block):
+    batch_out = op.attrs.get("input_dim_idx", 0) == 0 \
+        and op.attrs.get("output_dim_idx", 0) == 0
+    return {"Out": [batch_out]}
+
+
+def _declare_dp():
+    dp_rule("reshape", DpRule(impl=_dp_reshape))
+    for name in ("squeeze", "squeeze2"):
+        dp_rule(name, row_rule(axes_exclude_batch("axes", None)))
+    for name in ("unsqueeze", "unsqueeze2"):
+        dp_rule(name, row_rule(axes_exclude_batch("axes", [],
+                                                  rank_delta=1)))
+    for name in ("flatten", "flatten2"):
+        dp_rule(name, row_rule(_flatten_keeps_batch))
+    dp_rule("transpose", get("transpose2").dp)
+    dp_rule("stack", row_rule(_all_sharded_x,
+                              axes_exclude_batch("axis", 0,
+                                                 rank_delta=1)))
+    dp_rule("unstack", row_rule(axes_exclude_batch("axis", 0)))
+    dp_rule("expand", row_rule(_expand_keeps_batch))
+    dp_rule("strided_slice", row_rule(axes_exclude_batch("axes", [],
+                                                         "Input")))
+    dp_rule("pad", row_rule(_pad_keeps_batch))
+    dp_rule("pad2d")
+    dp_rule("gather", row_rule(replicated_slots("X")))
+    dp_rule("one_hot")
+    dp_rule("label_smooth", row_rule(replicated_slots("PriorDist")))
+    dp_rule("where_op_select", row_rule(_all_sharded_where))
+    for name in ("uniform_random_batch_size_like",
+                 "gaussian_random_batch_size_like"):
+        dp_rule(name, DpRule(plan=_batch_size_like_plan,
+                             impl=_dp_batch_size_like(get(name).impl)))
+
+
+def _all_sharded_x(op, sharded, block):
+    from .nn_ops import _all_sharded
+
+    _all_sharded("X")(op, sharded, block)
+
+
+def _all_sharded_where(op, sharded, block):
+    if not all(m for ms in sharded.values() for m in ms):
+        refuse(op, "it mixes batch-sharded and replicated operands")
+
+
+_declare_dp()

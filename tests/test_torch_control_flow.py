@@ -599,7 +599,7 @@ def test_state_plan_sees_what_a_branch_writes():
         return [loss, lr]
 
     j, p = _pair(build)
-    _, out = classify_persistable_state(p.main.global_block(), [])
+    _, _, out = classify_persistable_state(p.main.global_block(), [])
     lr = p.out[1].name
     assert {lr, "w_gm", "w_gm_grad_merge_0", "@gradient_merge_step@",
             "@step_counter@"} <= set(out)

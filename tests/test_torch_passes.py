@@ -312,24 +312,38 @@ def test_executor_runs_the_optimized_clone_and_keys_the_pipeline(
 
 
 def test_passes_the_port_lacks_raise_naming_them():
-    """A pipeline that names an unported pass (an inference optimization
-    or a BuildStrategy's) raises, naming it: no pass is skipped
-    silently."""
+    """A pipeline that names a pass that is not registered (here the
+    inference optimization's and a BuildStrategy's, taken out for the
+    test) raises, naming it: no pass is skipped silently. Registered,
+    the same pipelines run."""
+    from paddle_tpu_torch import ir as p_ir
+
     with p_unique.guard():
         pp, _, pl, _ = p_bench.build_program(TINY["seq"], "float32", False,
                                              TINY["model_kwargs"])
-    with pytest.raises(NotImplementedError, match="conv_bn_fold_baked"):
-        p_ir_passes.optimize_for_execution(pp, [pl.name], pfluid.Scope(),
-                                           "cpu", infer_opt=True)
 
     class Strategy:
         fuse_elewise_add_act_ops = True
         memory_optimize = True
 
-    with pytest.raises(NotImplementedError,
-                       match="fuse_elewise_add_act.*memory_optimize"):
-        p_ir_passes.optimize_for_execution(pp, [pl.name], pfluid.Scope(),
-                                           "cpu", build_strategy=Strategy())
+    names = ("conv_bn_fold_baked", "fuse_elewise_add_act", "memory_optimize")
+    saved = {n: p_ir.get_pass(n) for n in names}
+    try:
+        for n in names:
+            p_ir.unregister_pass(n)
+        with pytest.raises(NotImplementedError, match="conv_bn_fold_baked"):
+            p_ir_passes.optimize_for_execution(pp, [pl.name], pfluid.Scope(),
+                                               "cpu", infer_opt=True)
+        with pytest.raises(NotImplementedError,
+                           match="fuse_elewise_add_act.*memory_optimize"):
+            p_ir_passes.optimize_for_execution(
+                pp, [pl.name], pfluid.Scope(), "cpu",
+                build_strategy=Strategy())
+    finally:
+        p_ir._REGISTRY.update(saved)
+    opt = p_ir_passes.optimize_for_execution(pp, [pl.name], pfluid.Scope(),
+                                             "cpu", build_strategy=Strategy())
+    assert opt is not pp and opt._memory_reuse_plan
     assert p_ir_passes.build_pipeline(Strategy(), infer_opt=True) == \
         j_ir_passes.build_pipeline(Strategy(), infer_opt=True)
 
