@@ -444,6 +444,39 @@ Phases, each fatal on failure (exit code 1, no result line):
      rank that fails fails the phase (``tests/test_torch_chip_smoke_
      parallel.py`` runs the legs over two gloo ranks on the CPU, with
      planted faults).
+  15. the telemetry plane (``profiler``, ``observability``,
+     ``analysis.concurrency``). 15a, in a child (``chip_smoke.py
+     --phase15-profile``): phase 6's program (the headline LM,
+     batch 160) — spans and metrics on against off (alternating legs of
+     3 steps: the wall and host ms a step), then 2 steps inside
+     ``profiler.profiler()``: the device table by Fluid op printed
+     (``print_device_op_profile``'s layout, 25 rows), fatal unless the op
+     rows hold at least 95% of the window's CUDA kernel time, K1's 12
+     forward kernels sit under ``fused_multihead_attention`` rows and its
+     12 backward launches' kernels under the grad rows with all of K1's
+     kernel time, and a step with the session closed enters no fluid/
+     range; then ``python -m paddle_tpu_torch.fluid_benchmark --model
+     transformer --profile --iterations 8`` must exit 0 with its event
+     table and device table. 15b: the flagship decoder (phase 3's width,
+     seed 0) serving 16 pinned requests (4-12 prompt tokens, 16 new) with
+     metrics and tracing on and the endpoint on port 0, /metrics, /varz
+     and /healthz scraped in flight: fatal unless every request's trace
+     holds its queue_wait, admit, one prefill_chunk a prompt token but
+     the last and one decode_window a new token, the serving_step spans
+     equal the dispatches (and /varz's serving/steps), /healthz answers
+     200, the tokens equal an untraced run's and K2 runs once a layer a
+     step. 15c: the same leg in a child (``chip_smoke.py
+     --phase15-lockcheck``) under PTPU_LOCK_CHECK=1: no violation, the
+     same tokens. 15d: 3 native steps (phase 12a's, batch 192) with spans
+     and a session on, the loss read after each: each enqueue's and read's
+     span, and where the host time inside an enqueue went (runtime calls
+     by name, launches that blocked on a full launch queue, the longest
+     ops); then a fresh process's first program (``--phase15-first-
+     program``: the headline LM, 3 steps, the first inside a session):
+     each step's optimize / lower / compile / execute / fetch spans and
+     the first step's longest op ranges and runtime calls.
+     (``tests/test_torch_chip_smoke_telemetry.py`` runs phase 15 on the
+     CPU at a small size, with planted faults.)
 
 Then one JSON line ``{"kernels": [...]}`` (every kernel of every path,
 each with the launches of its path's run; a kernel launched no time there
@@ -453,6 +486,7 @@ fails the run) and, last, the result line ``{"ok": true, "device":
 
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2336,12 +2370,14 @@ def build_lm(fluid, dtype="bfloat16", cfg=None):
     return main, startup, loss
 
 
-def lm_feed(torch, batch, device, seed=0):
+def lm_feed(torch, batch, device, seed=0, cfg=None):
     """bench.py's fixed batch: RandomState(0) tokens, labels shifted
-    (another seed: another batch of the same kind)."""
+    (another seed: another batch of the same kind); `cfg` the model's
+    widths (default TRAIN)."""
+    cfg = TRAIN if cfg is None else cfg
     rng = np.random.RandomState(seed)
-    toks = rng.randint(0, TRAIN["vocab_size"],
-                       (batch, TRAIN["seq_len"])).astype(np.int32)
+    toks = rng.randint(0, cfg["vocab_size"],
+                       (batch, cfg["seq_len"])).astype(np.int32)
     labs = np.roll(toks, -1, axis=1).astype(np.int32)
     return {"tokens": torch.from_numpy(toks).to(device),
             "labels": torch.from_numpy(labs).to(device)}
@@ -6852,6 +6888,697 @@ def parallel_phase(torch, fa, timeout=900):
             sum(r["k1_bwd"].get("tc", 0) for r in legs["14a"]))
 
 
+# phase 15: the telemetry plane on the card — the headline Fluid LM under
+# a profiler session (the device table by Fluid op), the flagship decoder
+# served traced with the live endpoint, the same leg in a child under
+# PTPU_LOCK_CHECK=1, and the two waits PERF.md section 7 had not located
+TELEMETRY = dict(lm_batch=160, lm_steps=2, overhead_steps=3,
+                 serve_cfg=dict(vocab_size=32000, d_model=512, n_heads=8,
+                                n_layers=6, d_ff=2048, max_seq_len=512),
+                 serve_seed=0, requests=16, prompt_len=(4, 12), max_new=16,
+                 max_batch=8, block_size=16, native_batch=NATIVE_BATCH,
+                 native_steps=3, first_steps=3, min_attributed_pct=95.0,
+                 bench_argv=("--model", "transformer", "--profile",
+                             "--iterations", "8"))
+PROFILE_FLAG = "--phase15-profile"
+LOCK_FLAG = "--phase15-lockcheck"
+FIRST_FLAG = "--phase15-first-program"
+# K1's kernels by name, and the Fluid op whose kernel it is
+K1_FWD_KERNELS = ("flash_tc_fwd",)
+K1_BWD_KERNELS = ("flash_tc_delta", "flash_tc_dkdv", "flash_tc_dq")
+K1_BWD_LAUNCH_KERNEL = "flash_tc_dkdv"     # one a backward launch
+K1_OP = "fused_multihead_attention"
+
+
+def _is_k1(name, names):
+    return any(n in name for n in names)
+
+
+def timed_steps(torch, exe, main, feed, loss, scope, steps):
+    """`steps` runs with the loss read after the last: (wall ms a step,
+    host enqueue ms a step)."""
+    from paddle_tpu_torch.async_engine import as_numpy
+
+    if exe.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = 0.0
+    out = None
+    for _ in range(steps):
+        th = time.perf_counter()
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)
+        host += time.perf_counter() - th
+    as_numpy(out)
+    return ((time.perf_counter() - t0) * 1e3 / steps, host * 1e3 / steps)
+
+
+def profiled_lm_leg(torch, fa, fluid, program, batch, steps, device=None,
+                    overhead_steps=TELEMETRY["overhead_steps"], cfg=None):
+    """15a: phase 6's program (the headline LM) — the overhead of spans
+    and metrics on against off (alternating legs of `overhead_steps`),
+    then `steps` steps inside ``profiler.profiler()``: K1's launches
+    zeroed before them and read after, every kernel's attribution and
+    the device table by Fluid op; then one step with the session closed
+    under a plain torch.profiler, for the fluid/ ranges it entered."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch import profiler
+
+    main, startup, loss = program
+    exe, scope = fluid.Executor(device), fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = lm_feed(torch, batch, exe.device, cfg=cfg)
+    on_card = exe.device.type == "cuda"
+    timed_steps(torch, exe, main, feed, loss, scope, 1)       # warm
+    overhead = {"off": [], "spans": []}
+    was_m, was_t = obs.metrics.enabled(), obs.tracing.enabled()
+    try:
+        for mode in ("off", "spans", "off", "spans"):
+            (obs.enable if mode == "spans" else obs.disable)()
+            overhead[mode].append(timed_steps(torch, exe, main, feed, loss,
+                                              scope, overhead_steps))
+    finally:
+        (obs.metrics.enable if was_m else obs.metrics.disable)()
+        (obs.tracing.enable if was_t else obs.tracing.disable)()
+        obs.tracing.reset()
+    t0 = time.perf_counter()
+    with profiler.profiler("All"):
+        fa.reset_counts()                      # main path starts
+        session = timed_steps(torch, exe, main, feed, loss, scope, steps)
+        launches = (fa.flash_attention_fwd.launches,
+                    fa.flash_attention_bwd.launches)  # main path ends
+    session_s = time.perf_counter() - t0
+    records = profiler.kernel_attribution()
+    rows = profiler.device_op_profile()
+    by_type = {}
+    for r in rows:
+        by_type[r["type"]] = round(by_type.get(r["type"], 0.0)
+                                   + r["share_pct"], 2)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        timed_steps(torch, exe, main, feed, loss, scope, 1)
+    closed = sorted({e["name"] for e in profiler.trace_events(prof)
+                     if e.get("cat") == "user_annotation"
+                     and e["name"].startswith("fluid/")})
+    exe.close()
+
+    def mean(pairs, i):
+        return float(np.mean([p[i] for p in pairs]))
+
+    return {"batch": batch, "steps": steps, "on_card": on_card,
+            "layers": (cfg or TRAIN)["n_layers"],
+            "k1_fwd": launches[0], "k1_bwd": launches[1],
+            "records": records, "rows": rows[:25],
+            "share_pct_by_type": dict(sorted(by_type.items(),
+                                             key=lambda kv: -kv[1])),
+            "closed_session_ranges": closed,
+            "session_wall_ms_per_step": session[0],
+            "session_host_ms_per_step": session[1],
+            "session_s": session_s,
+            "overhead": {mode: {"wall_ms_per_step": mean(v, 0),
+                                "host_ms_per_step": mean(v, 1),
+                                "legs": v}
+                         for mode, v in overhead.items()}}
+
+
+def profile_child_main(args):
+    """A 15a child: phase 6's program (or `args["cfg"]`'s) through
+    ``profiled_lm_leg`` in a process of its own; prints the leg. (In the
+    long-lived parent, after the earlier phases' sessions, torch's
+    profiler was seen to lose card records at a session's start, which
+    the K1 gate counts.)"""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.get("device") == "cpu":
+        torch.set_num_threads(1)
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    program = build_lm(fluid, cfg=args.get("cfg"))
+    leg = profiled_lm_leg(torch, fa, fluid, program, args["batch"],
+                          args["steps"], device=args.get("device"),
+                          overhead_steps=args.get(
+                              "overhead_steps", TELEMETRY["overhead_steps"]),
+                          cfg=args.get("cfg"))
+    print("phase15_profile " + json.dumps(leg), flush=True)
+
+
+def check_k1_attribution(records, fwd_launches, bwd_launches):
+    """15a's K1 gates on a session's kernel records: the attention op's
+    forward rows hold one forward kernel a K1 forward launch, its grad
+    rows one dK/dV kernel a backward launch, and the two hold all of
+    K1's kernel time."""
+    def typ(r):
+        return None if r["op"] is None else r["op"].split("__", 1)[0]
+
+    fwd = [r for r in records if _is_k1(r["kernel"], K1_FWD_KERNELS)]
+    bwd = [r for r in records if _is_k1(r["kernel"], K1_BWD_KERNELS)]
+    n_fwd = sum(typ(r) == K1_OP for r in fwd)
+    n_bwd = sum(typ(r) == K1_OP + "_grad" for r in bwd
+                if K1_BWD_LAUNCH_KERNEL in r["kernel"])
+    if (n_fwd, n_bwd) != (fwd_launches, bwd_launches) or not fwd_launches:
+        held_by = {}
+        for r in fwd + bwd:
+            key = "%s:%s" % (r["kernel"][:40], typ(r))
+            held_by[key] = held_by.get(key, 0) + 1
+        fail("15a: %d K1 forward kernels under %s rows and %d dK/dV "
+             "kernels under its grad rows; K1 launched %d forward and %d "
+             "backward; K1's kernels by op type: %r"
+             % (n_fwd, K1_OP, n_bwd, fwd_launches, bwd_launches, held_by))
+    # every K1 kernel under its row, judged kernel by kernel: two float
+    # sums of the same times in different orders need not be equal
+    total = math.fsum(r["us"] for r in fwd + bwd)
+    stray = ([r for r in fwd if typ(r) != K1_OP]
+             + [r for r in bwd if typ(r) != K1_OP + "_grad"])
+    if stray:
+        fail("15a: %d of K1's kernels (%.3f of its %.3f us) lie outside "
+             "the attention rows: %r"
+             % (len(stray), math.fsum(r["us"] for r in stray), total,
+                [(r["kernel"][:40], r["op"]) for r in stray[:4]]))
+    return total
+
+
+def check_profiled_lm(leg, min_pct=TELEMETRY["min_attributed_pct"]):
+    """15a's gates: the closed session entered no fluid/ range; on the
+    card the Fluid op rows cover at least `min_pct` of the window's
+    kernel time and K1 is held by the attention rows, 6 + 6 a step."""
+    if leg["closed_session_ranges"]:
+        fail("15a: a step with the session closed entered fluid/ ranges: "
+             "%r" % leg["closed_session_ranges"][:4])
+    if not leg["on_card"]:
+        if leg["records"] or leg["rows"]:
+            fail("15a: CUDA kernels in a CPU session: %r" % leg["rows"][:2])
+        return {}
+    total = sum(r["us"] for r in leg["records"])
+    attributed = sum(r["us"] for r in leg["records"] if r["op"] is not None)
+    pct = 100.0 * attributed / total if total else 0.0
+    if pct < min_pct:
+        fail("15a: the Fluid op rows hold %.2f%% of the window's %.1f us "
+             "of kernel time (at least %.0f%% wanted)"
+             % (pct, total, min_pct))
+    per_step = leg["layers"] * leg["steps"]
+    if (leg["k1_fwd"], leg["k1_bwd"]) != (per_step, per_step):
+        fail("15a: K1 launched %d / %d times over %d profiled steps "
+             "(%d each wanted)" % (leg["k1_fwd"], leg["k1_bwd"],
+                                   leg["steps"], per_step))
+    k1_us = check_k1_attribution(leg["records"], leg["k1_fwd"],
+                                 leg["k1_bwd"])
+    return {"kernel_us": total, "attributed_pct": pct, "k1_us": k1_us}
+
+
+def print_op_table(rows):
+    """The device table by Fluid op, on lines of its own."""
+    print("%-44s %8s %14s %12s %8s" % ("Event", "Calls", "Total(us)",
+                                       "Ave(us)", "Ratio."))
+    for r in rows:
+        print("%-44s %8d %14.3f %12.3f %7.2f%%" % (
+            r["op"][:44], r["calls"], r["total_us"], r["avg_us"],
+            r["share_pct"]), flush=True)
+
+
+def fluid_benchmark_profile_leg(argv=TELEMETRY["bench_argv"], timeout=600):
+    """15a: ``python -m paddle_tpu_torch.fluid_benchmark ... --profile``
+    in a process of its own: its exit code, the event table's
+    ``iteration`` row and the device table's rows."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m",
+                          "paddle_tpu_torch.fluid_benchmark"] + list(argv),
+                         capture_output=True, text=True, cwd=root,
+                         timeout=timeout)
+    lines = out.stdout.splitlines()
+    head = next((i for i, ln in enumerate(lines)
+                 if ln.split()[:2] == ["Event", "Calls"]
+                 and "Ratio." in ln), None)
+    rows = []
+    if head is not None:
+        for ln in lines[head + 1:]:
+            parts = ln.split()
+            if len(parts) != 5 or not parts[-1].endswith("%"):
+                break
+            rows.append(parts)
+    return {"argv": list(argv), "returncode": out.returncode,
+            "seconds": time.perf_counter() - t0,
+            "iteration_rows": [ln for ln in lines
+                               if ln.startswith("iteration ")],
+            "device_rows": rows, "stderr_tail": out.stderr[-2000:]}
+
+
+def check_fluid_benchmark_profile(leg, on_card=True):
+    if leg["returncode"] != 0:
+        fail("15a: fluid_benchmark --profile exited %d: %s"
+             % (leg["returncode"], leg["stderr_tail"]))
+    if not leg["iteration_rows"] or (on_card and not leg["device_rows"]):
+        fail("15a: fluid_benchmark --profile printed no event table or no "
+             "device table (%d / %d rows)" % (len(leg["iteration_rows"]),
+                                              len(leg["device_rows"])))
+
+
+def serving_prompts(n, vocab, lens, seed=5):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, vocab, size=rng.randint(lens[0], lens[1] + 1))
+            .tolist() for _ in range(n)]
+
+
+def submit_all(engine, prompts, max_new):
+    """Submit every prompt before the worker's next admission (hold its
+    condition once nothing is queued, scheduled or in flight), so the
+    batch is the same in every leg."""
+    w = engine._workers["default"]
+    with w._cv:
+        while len(w.queue) or w.scheduler.has_work() or w._inflight:
+            w._cv.wait(timeout=0.005)
+        return [engine.submit(p, max_new_tokens=max_new) for p in prompts]
+
+
+def _scrape(url):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def traced_serving_leg(torch, pa, device=None, cfg=None, seed=None,
+                       requests=None, max_new=None, traced=True,
+                       reverse_locks=False):
+    """15b (and, in a child, 15c): the flagship decoder (phase 3's width,
+    random weights from `seed`) behind ``ServingEngine`` serving
+    `requests` pinned requests; with `traced`, metrics and tracing on and
+    the endpoint on port 0, scraped at /metrics, /varz and /healthz while
+    the requests are in flight and /varz after. Returns the tokens, each
+    request's event counts, the spans and the scrapes. `reverse_locks`
+    (a fault the tests plant in a child) takes two of the engine's lock
+    sites in both orders."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.observability import endpoint
+    from paddle_tpu_torch.serving import (GenerationConfig, GenerationModel,
+                                          ServingEngine)
+
+    T = TELEMETRY
+    cfg = GenerationConfig(**(cfg or T["serve_cfg"]))
+    n = requests or T["requests"]
+    max_new = max_new or T["max_new"]
+    model = GenerationModel.random(
+        cfg, seed=T["serve_seed"] if seed is None else seed, device=device)
+    prompts = serving_prompts(n, cfg.vocab_size, T["prompt_len"])
+    was_m, was_t = obs.metrics.enabled(), obs.tracing.enabled()
+    scrapes = {}
+    if traced:
+        obs.registry().reset()
+        obs.tracing.reset()
+        obs.enable()
+        endpoint.start(port=0)
+    pa.paged_attention.window_launches.clear()
+    t0 = time.perf_counter()
+    try:
+        with ServingEngine(model, max_batch=T["max_batch"],
+                           max_seq_len=cfg.max_seq_len,
+                           block_size=T["block_size"],
+                           device=device) as eng:
+            worker = eng._workers["default"]
+            reqs = submit_all(eng, prompts, max_new)
+            if traced:
+                # scraped in flight, once the first step is counted
+                deadline = time.perf_counter() + 300
+                while "serving/steps" not in obs.registry().metrics() and \
+                        time.perf_counter() < deadline:
+                    time.sleep(0.001)
+                for route in ("/metrics", "/varz", "/healthz"):
+                    scrapes[route] = _scrape(endpoint.url(route))
+            tokens = [r.wait(900) for r in reqs]
+            steps = eng.stats()["default"]["steps"]
+            if traced:
+                scrapes["/varz_after"] = _scrape(endpoint.url("/varz"))
+            if reverse_locks:
+                with worker.pool._lock, worker._cv:
+                    pass
+                with worker._cv, worker.pool._lock:
+                    pass
+        wall = time.perf_counter() - t0
+        by_c = dict(pa.paged_attention.window_launches)
+        events = obs.tracing.events() if traced else []
+    finally:
+        if traced:
+            endpoint.stop()
+            (obs.metrics.enable if was_m else obs.metrics.disable)()
+            (obs.tracing.enable if was_t else obs.tracing.disable)()
+            obs.tracing.reset()
+    windows = []
+    for r in reqs:
+        counts = {}
+        for e in events:
+            if e.get("args", {}).get("trace_id") == r.trace_id:
+                counts[e["name"]] = counts.get(e["name"], 0) + 1
+        windows.append(counts)
+    leg = {"requests": n, "max_new": max_new, "traced": traced,
+           "prompt_lens": [len(p) for p in prompts], "tokens": tokens,
+           "windows": windows, "steps": steps, "wall_s": wall,
+           "serving_step_spans": sum(e["name"] == "serving_step"
+                                     for e in events),
+           "k2_by_window": {str(c): k for c, k in by_c.items()},
+           "layers": cfg.n_layers}
+    if traced:
+        status, body = scrapes["/healthz"]
+        leg["healthz"] = {"status": status, "doc": json.loads(body)}
+        leg["metrics_lines"] = len(scrapes["/metrics"][1].splitlines())
+        leg["metrics_status"] = scrapes["/metrics"][0]
+        leg["metrics_has_steps"] = \
+            "ptpu_serving_steps_total" in scrapes["/metrics"][1]
+        leg["varz_status"] = scrapes["/varz"][0]
+        leg["varz_after_steps"] = json.loads(
+            scrapes["/varz_after"][1])["counters"].get("serving/steps")
+    return leg
+
+
+def check_traced_serving(leg, plain_tokens, on_card):
+    """15b's gates: every request's trace holds its queue_wait and admit
+    and one prefill_chunk a prompt token but the last and one
+    decode_window a generated token; the serving_step spans are the
+    engine's dispatches (and /varz's serving/steps after); /healthz 200
+    and /metrics and /varz served while the requests were in flight; the
+    tokens the untraced run's; on the card K2 once a layer a step."""
+    for i, (counts, plen) in enumerate(zip(leg["windows"],
+                                           leg["prompt_lens"])):
+        want = {"queue_wait": 1, "admit": 1, "prefill_chunk": plen - 1,
+                "decode_window": leg["max_new"]}
+        if {k: counts.get(k, 0) for k in want} != want:
+            fail("15b: request %d's trace holds %r, not %r"
+                 % (i, counts, want))
+    if not leg["serving_step_spans"] == leg["steps"] == \
+            leg["varz_after_steps"]:
+        fail("15b: %d serving_step spans, %d dispatched steps, /varz "
+             "serving/steps %r" % (leg["serving_step_spans"], leg["steps"],
+                                   leg["varz_after_steps"]))
+    if leg["healthz"]["status"] != 200 or \
+            leg["healthz"]["doc"]["status"] != "ok":
+        fail("15b: /healthz answered %r" % (leg["healthz"],))
+    if (leg["metrics_status"], leg["varz_status"]) != (200, 200) or \
+            not leg["metrics_has_steps"]:
+        fail("15b: /metrics %r (serving steps %r), /varz %r"
+             % (leg["metrics_status"], leg["metrics_has_steps"],
+                leg["varz_status"]))
+    if leg["tokens"] != plain_tokens:
+        bad = [i for i, (a, b) in enumerate(zip(leg["tokens"],
+                                                plain_tokens)) if a != b]
+        fail("15b: the traced run's tokens differ from the untraced run's "
+             "for requests %r" % bad[:8])
+    if on_card and leg["k2_by_window"] != {"1": leg["layers"] * leg["steps"]}:
+        fail("15b: K2 launched %r over %d steps (C=1: %d a step wanted)"
+             % (leg["k2_by_window"], leg["steps"], leg["layers"]))
+
+
+def run_lockcheck_child(args, timeout=600):
+    """15c: ``chip_smoke.py --phase15-lockcheck`` with PTPU_LOCK_CHECK=1
+    set before the process makes any lock; returns its result line."""
+    env = dict(os.environ, PTPU_LOCK_CHECK="1")
+    env.pop("PTPU_LOCK_HOLD_MS", None)
+    return _child(LOCK_FLAG, "phase15_lockcheck", args, env, timeout)
+
+
+def _child(flag, tag, args, env, timeout):
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), flag, json.dumps(args)],
+        capture_output=True, text=True, env=env, timeout=timeout)
+    lines = [x for x in out.stdout.splitlines() if x.startswith(tag + " ")]
+    if out.returncode != 0 or not lines:
+        fail("15: the child %s exited %d: %s"
+             % (flag, out.returncode, out.stderr[-3000:]))
+    got = json.loads(lines[-1].split(" ", 1)[1])
+    got["process_seconds"] = time.perf_counter() - t0
+    return got
+
+
+def lockcheck_child_main(args):
+    """A 15c child: the traced serving leg under the tracker, then the
+    tracker's violations and counters."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.get("device") == "cpu":
+        torch.set_num_threads(1)
+    from paddle_tpu_torch.analysis import concurrency
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    if not concurrency.tracking_enabled():
+        fail("15c: the child runs without PTPU_LOCK_CHECK")
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        leg = traced_serving_leg(torch, pa, **args)
+    concurrency.publish_metrics()
+    leg["lockcheck"] = dict(concurrency.stats(), violations_list=[
+        repr(v)[:400] for v in concurrency.violations()])
+    print("phase15_lockcheck " + json.dumps(leg), flush=True)
+
+
+def check_lockcheck(leg, plain_tokens, on_card):
+    st = leg["lockcheck"]
+    if st["violations"] or st["violations_list"]:
+        fail("15c: %d lock-check violations: %s" % (
+            st["violations"], "; ".join(st["violations_list"][:3])))
+    if st["locks_tracked"] < 3 or not st["acquisitions"]:
+        fail("15c: the tracker saw %r: no tracked lock sites" % (st,))
+    check_traced_serving(leg, plain_tokens, on_card)
+
+
+def native_wait_leg(torch, fa, device=None, batch=None, steps=None,
+                    seq=NATIVE_SEQ):
+    """15d: the native step (phase 12a's bench_transformer step) `steps`
+    times, the loss read after each, with spans and a profiler session
+    on: the span durations of each step's enqueue and its loss read, and
+    the longest host events inside each step's enqueue."""
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch import profiler
+
+    batch = batch or TELEMETRY["native_batch"]
+    steps = steps or TELEMETRY["native_steps"]
+    cfg = bench.native_config(batch, seq)
+    state = list(bench.native_state(cfg, device))
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    tokens = torch.from_numpy(toks).to(state[3].device)
+    labels = torch.from_numpy(np.roll(toks, -1, axis=1)).to(tokens.device)
+    *state, loss = bench.native_train_step(*state, tokens, labels, cfg)
+    float(loss)                                 # warm
+    was_t = obs.tracing.enabled()
+    obs.tracing.reset()
+    obs.tracing.enable()
+    fa.reset_counts()
+    try:
+        with profiler.profiler("All"):
+            for _ in range(steps):
+                with obs.span("native_step"):
+                    *state, loss = bench.native_train_step(
+                        *state, tokens, labels, cfg)
+                with obs.span("loss_read"):
+                    float(loss)
+        spans = [e for e in obs.tracing.events()
+                 if e["name"] in ("native_step", "loss_read")]
+    finally:
+        (obs.tracing.enable if was_t else obs.tracing.disable)()
+        obs.tracing.reset()
+    k1 = flash_counts(fa)
+    events = profiler.trace_events(None)
+    ranges = sorted((e for e in events if e.get("cat") == "user_annotation"
+                     and e["name"] == "native_step"),
+                    key=lambda e: e["ts"])
+    per_step = []
+    for r in ranges:
+        inside = [e for e in events if e.get("ph") == "X"
+                  and r["ts"] <= e["ts"] <= r["ts"] + r["dur"]]
+        per_step.append(dict(
+            enqueue_ms=r["dur"] / 1e3,
+            **host_waits(inside, main=(r["pid"], r["tid"]))))
+    spans_ms = {name: [e["dur"] / 1e3 for e in spans if e["name"] == name]
+                for name in ("native_step", "loss_read")}
+    return {"batch": batch, "steps": steps, "spans_ms": spans_ms,
+            "per_step": per_step, "k1_fwd": k1[0], "k1_bwd": k1[1],
+            "k1_copies": k1[2], "remat": cfg.remat,
+            "layers": cfg.n_layers}
+
+
+LAUNCH_NAMES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                "cuLaunchKernelEx")
+BLOCKED_LAUNCH_US = 100.0   # a launch this long waited for a queue slot
+
+
+def host_waits(events, main=None, k=6):
+    """Where a window's host time went, from a torch.profiler trace's
+    events inside it (every host thread): the CUDA runtime and driver
+    calls summed by name, the kernel launches and those that blocked
+    (longer than BLOCKED_LAUNCH_US: the launch queue was full, so the
+    host waited on the card), the longest fluid/ op ranges and the
+    longest host ops of thread `main` (pid, tid)."""
+    runtime = [e for e in events
+               if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+    by_name = {}
+    for e in runtime:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+    launches = [e for e in runtime if e["name"] in LAUNCH_NAMES]
+    blocked = [e for e in launches if e["dur"] > BLOCKED_LAUNCH_US]
+
+    def top(evs):
+        return [{"name": e["name"][:80], "ms": e["dur"] / 1e3}
+                for e in sorted(evs, key=lambda e: -e["dur"])[:k]]
+
+    return {"runtime_ms_by_name": dict(sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:k]),
+            "launches": len(launches),
+            "launch_ms": sum(e["dur"] for e in launches) / 1e3,
+            "blocked_launches": len(blocked),
+            "blocked_launch_ms": sum(e["dur"] for e in blocked) / 1e3,
+            "op_ranges_top": top(e for e in events
+                                 if e.get("cat") == "user_annotation"
+                                 and e["name"].startswith("fluid/")),
+            "main_ops_top": top(e for e in events
+                                if e.get("cat") == "cpu_op" and main
+                                == (e.get("pid"), e.get("tid")))}
+
+
+def first_program_main(args):
+    """A 15d child: a fresh process's first program (phase 13's: the
+    headline LM), `steps` steps with tracing on, each step's fetch read
+    in a span of its own; prints each step's split."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.get("device") == "cpu":
+        torch.set_num_threads(1)
+    t_import = time.perf_counter()
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.async_engine import as_numpy
+
+    from paddle_tpu_torch import profiler
+
+    import_s = time.perf_counter() - t_import
+    obs.tracing.enable()
+    main, startup, loss = build_lm(fluid, cfg=args.get("cfg"))
+    exe, scope = fluid.Executor(args.get("device")), fluid.Scope()
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    startup_s = time.perf_counter() - t0
+    feed = lm_feed(torch, args["batch"], exe.device, cfg=args.get("cfg"))
+    steps = []
+    for i in range(args["steps"]):
+        obs.tracing.reset()
+        # the first step inside a profiler session (opened before it:
+        # the session's own start is not the step's)
+        if i == 0:
+            profiler.start_profiler("All")
+        t0 = time.perf_counter()
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)
+        with obs.span("fetch"):
+            as_numpy(out)
+        wall = (time.perf_counter() - t0) * 1e3
+        if i == 0:
+            profiler.stop_profiler()
+        split = {}
+        for e in obs.tracing.events():
+            split[e["name"]] = split.get(e["name"], 0.0) + e["dur"] / 1e3
+        steps.append(dict(split, wall_ms=wall))
+    events = profiler.trace_events(None)
+    step = next((e for e in events if e.get("cat") == "user_annotation"
+                 and e["name"] == "step"), {})
+    waits = host_waits(events, main=(step.get("pid"), step.get("tid")))
+    print("phase15_first " + json.dumps({
+        "import_s": import_s, "startup_s": startup_s,
+        "batch": args["batch"], "steps": steps,
+        "first_step_host": waits}), flush=True)
+
+
+def check_first_program(got):
+    for i, s in enumerate(got["steps"]):
+        missing = [k for k in ("step", "execute", "fetch") if k not in s]
+        if missing or (i == 0 and not ("lower" in s and "compile" in s)):
+            fail("15d: step %d of the first program has spans %r"
+                 % (i, sorted(s)))
+
+
+def telemetry_phase(torch, fa, pa, fluid):
+    """Phase 15 on cuda:0: 15a (the profiled headline step, the device
+    table by Fluid op, the tracing and session overheads, the harness's
+    --profile), 15b (traced serving with the live endpoint), 15c (the
+    same leg under PTPU_LOCK_CHECK=1 in a child), 15d (the native step's
+    waits and a fresh process's first-program split). Returns the
+    kernels' launches on the phase's main paths by kernel row name."""
+    T = TELEMETRY
+    t15 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    leg = _child(PROFILE_FLAG, "phase15_profile",
+                 {"batch": T["lm_batch"], "steps": T["lm_steps"]},
+                 dict(os.environ), 600)
+    print_op_table(leg["rows"])
+    sums = check_profiled_lm(leg)
+    ov = leg["overhead"]
+    print("telemetry_lm " + json.dumps(dict(
+        {k: v for k, v in leg.items() if k not in ("records", "rows")},
+        gates=sums, top_rows=leg["rows"][:10],
+        spans_over_off_wall=(ov["spans"]["wall_ms_per_step"]
+                             / ov["off"]["wall_ms_per_step"]),
+        session_over_off_wall=(leg["session_wall_ms_per_step"]
+                               / ov["off"]["wall_ms_per_step"]),
+        card=card_line())), flush=True)
+    launches = {"flash_attention_tc_fwd": leg["k1_fwd"],
+                "flash_attention_tc_bwd": leg["k1_bwd"]}
+    bench_leg = fluid_benchmark_profile_leg()
+    check_fluid_benchmark_profile(bench_leg)
+    print("telemetry_bench_profile " + json.dumps(
+        {k: v for k, v in bench_leg.items() if k != "stderr_tail"}),
+        flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = traced_serving_leg(torch, pa, traced=False)
+    traced = traced_serving_leg(torch, pa)
+    check_traced_serving(traced, plain["tokens"], on_card=True)
+    k2 = traced["k2_by_window"].get("1", 0)
+    print("telemetry_serving " + json.dumps(dict(
+        {k: v for k, v in traced.items() if k != "tokens"},
+        plain_wall_s=plain["wall_s"], card=card_line())), flush=True)
+    child = run_lockcheck_child({})
+    check_lockcheck(child, plain["tokens"], on_card=True)
+    k2 += child["k2_by_window"].get("1", 0)
+    print("telemetry_lockcheck " + json.dumps(dict(
+        {k: v for k, v in child.items() if k not in ("tokens", "windows")},
+        card=card_line())), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    native = native_wait_leg(torch, fa)
+    f, b = (2 if native["remat"] else 1) * native["layers"], native["layers"]
+    want = ({"tc": f * native["steps"], "fp16": 0, "f32tc": 0},
+            {"tc": b * native["steps"], "fp16": 0, "f32tc": 0}, 0)
+    if (native["k1_fwd"], native["k1_bwd"], native["k1_copies"]) != want:
+        fail("15d: the native steps launched K1 %r, %r (%d copies); "
+             "expected %r" % (native["k1_fwd"], native["k1_bwd"],
+                              native["k1_copies"], want))
+    launches["flash_attention_tc_fwd"] += native["k1_fwd"]["tc"]
+    launches["flash_attention_tc_bwd"] += native["k1_bwd"]["tc"]
+    print("telemetry_native_wait " + json.dumps(dict(native,
+                                                     card=card_line())),
+          flush=True)
+    first = _child(FIRST_FLAG, "phase15_first",
+                   {"batch": T["lm_batch"], "steps": T["first_steps"]},
+                   dict(os.environ), 600)
+    check_first_program(first)
+    print("telemetry_first_program " + json.dumps(dict(first,
+                                                       card=card_line())),
+          flush=True)
+    print("telemetry_phase " + json.dumps({
+        "seconds": time.perf_counter() - t15, "k1_launches": launches,
+        "k2_c1_launches": k2}), flush=True)
+    return launches, k2
+
+
 def main():
     try:
         import torch
@@ -7008,6 +7735,12 @@ def main():
     fwd, bwd = parallel_phase(torch, fa_mod)
     flash_rows["flash_attention_tc_fwd"]["launches"] += fwd
     flash_rows["flash_attention_tc_bwd"]["launches"] += bwd
+    k1, k2_c1 = telemetry_phase(torch, fa_mod, pa_mod, fluid)
+    for name, n in k1.items():
+        flash_rows[name]["launches"] += n
+    for row in rows:
+        if row["C"] == 1:
+            row["launches"] += k2_c1
     kernels = rows + tree_rows + list(flash_rows.values()) + int8_rows
     idle = [(r["name"], r.get("C"), r.get("shape")) for r in kernels
             if not r.get("launches")]
@@ -7024,5 +7757,11 @@ if __name__ == "__main__":
         child_main(json.loads(sys.argv[2]))
     elif len(sys.argv) == 3 and sys.argv[1] == RANK_FLAG:
         parallel_rank_main(json.loads(sys.argv[2]))
+    elif len(sys.argv) == 3 and sys.argv[1] == PROFILE_FLAG:
+        profile_child_main(json.loads(sys.argv[2]))
+    elif len(sys.argv) == 3 and sys.argv[1] == LOCK_FLAG:
+        lockcheck_child_main(json.loads(sys.argv[2]))
+    elif len(sys.argv) == 3 and sys.argv[1] == FIRST_FLAG:
+        first_program_main(json.loads(sys.argv[2]))
     else:
         main()

@@ -52,7 +52,13 @@ data-parallel training (``CompiledProgram(main).with_data_parallel(
 loss_name=...)``, ``ParallelExecutor`` and
 ``incubate.fleet.collective.fleet``: one process a rank over
 ``torch.distributed``, NCCL on the card and gloo on the CPU, each step
-what one device gives on the global batch):
+what one device gives on the global batch), and the telemetry plane
+(``observability``: metrics with JSON and Prometheus exposition, spans
+forwarded to ``torch.profiler`` and NVTX, the flight recorder, the
+``/metrics`` / ``/varz`` / ``/healthz`` endpoint; ``profiler``: the
+Fluid profiler API and the device time by Fluid op;
+``analysis.concurrency``: the lock-order detector under
+``PTPU_LOCK_CHECK=1``):
 
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import transformer_fluid
@@ -84,9 +90,10 @@ what one device gives on the global batch):
 
 from . import (amp, async_engine, checkpoint, clip, compiler,  # noqa: F401
                contrib, data_plane, flags, incubate, inference,
-               initializer, io, ir, layers, nets, optimizer, parallel,
-               quant, reader, recordio_writer, regularizer, resilience,
-               transpiler, unique_name)
+               initializer, io, ir, layers, nets, observability,
+               optimizer, parallel, profiler, quant, reader,
+               recordio_writer, regularizer, resilience, transpiler,
+               unique_name)
 from .backward import append_backward  # noqa: F401
 from .compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
                        ExecutionStrategy)
@@ -113,7 +120,7 @@ __all__ = ["BuildStrategy", "CompiledProgram", "DataFeedDesc", "DataFeeder",
            "convert_reader_to_recordio_file", "data_plane",
            "default_main_program", "default_startup_program", "flags",
            "global_scope", "incubate", "inference", "initializer", "io",
-           "ir", "layers", "nets", "optimizer", "parallel",
-           "program_guard", "quant", "reader", "recordio_writer",
+           "ir", "layers", "nets", "observability", "optimizer",
+           "parallel", "profiler", "program_guard", "quant", "reader", "recordio_writer",
            "regularizer", "resilience", "scope_guard", "transpiler",
            "unique_name"]

@@ -1,1 +1,2 @@
-"""Runtime analysis helpers of the PyTorch port."""
+"""Runtime analysis of the PyTorch port: ``concurrency`` (the tracked
+lock factories, the lock-order detector and the invariant hooks)."""

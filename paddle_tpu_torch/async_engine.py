@@ -20,6 +20,14 @@ the host. These pieces keep up to N steps in flight:
                    before the step reads the feed. Batches come back in
                    put() order.
 
+Telemetry (the JAX package's names): ``exec/inflight_steps`` (the
+window's depth at each admit), ``exec/window_drains`` and a
+``window_drain`` span around each drain, ``feed/h2d_bytes`` (bytes the
+prefetcher copied to the card) and ``feed/prefetch_depth`` (batches
+staged ahead). The blocking points (a step's event wait, the prefetcher's
+slot and queue waits) are declared to ``analysis.concurrency``, so
+``PTPU_LOCK_CHECK=1`` flags a tracked lock held across one.
+
 Not ported: `DeferredWarns`, `HostStateStager` and the persistent compile
 cache, which serve the NaN checker, ZeRO offload and XLA.
 """
@@ -30,10 +38,24 @@ import threading
 import numpy as np
 import torch
 
+from .analysis.concurrency import check_blocking
 from .observability import metrics as _metrics
+from .observability import tracing as _tracing
 
 __all__ = ["LazyFetchList", "InflightWindow", "FeedPrefetcher",
            "StagedFeed", "StepEvent", "as_numpy", "prefetch_iter"]
+
+
+def _nbytes(vals):
+    """Total bytes of feed or fetch values (a tensor's or an array's
+    nbytes: shape metadata, no copy): executor/feed_bytes,
+    executor/fetch_bytes and feed/h2d_bytes."""
+    total = 0
+    for v in vals:
+        nb = getattr(v, "nbytes", None)
+        if nb is not None:
+            total += int(nb)
+    return total
 
 
 def _to_numpy(t):
@@ -81,6 +103,7 @@ class StepEvent:
             self.event.record(torch.cuda.current_stream(device))
 
     def synchronize(self):
+        check_blocking("device-sync", "async_engine.step_event")
         if self.event is not None:
             self.event.synchronize()
 
@@ -117,8 +140,9 @@ class InflightWindow:
         if not self._pending:
             return
         _metrics.counter("exec/window_drains").inc()
-        while self._pending:
-            self._pending.pop(0).synchronize()
+        with _tracing.span("window_drain", depth=len(self._pending)):
+            while self._pending:
+                self._pending.pop(0).synchronize()
 
     def reset(self):
         """Forget admitted steps without blocking, for a caller that just
@@ -212,8 +236,7 @@ class FeedPrefetcher:
             event = torch.cuda.Event()
             event.record(self._stream)
         if _metrics.enabled():
-            _metrics.counter("feed/h2d_bytes").inc(
-                sum(t.numel() * t.element_size() for t in pinned))
+            _metrics.counter("feed/h2d_bytes").inc(_nbytes(pinned))
         return StagedFeed(values, event, tuple(pinned))
 
     def _worker(self):
@@ -226,6 +249,8 @@ class FeedPrefetcher:
             except BaseException as e:  # re-raised on the consumer side
                 result = ("error", e)
             self._out.put(result)
+            if _metrics.enabled():
+                _metrics.gauge("feed/prefetch_depth").set(self._out.qsize())
 
     def put(self, feed):
         """Queue one host feed dict for background staging. Blocks when
@@ -233,6 +258,7 @@ class FeedPrefetcher:
         if self._closed:
             raise RuntimeError("FeedPrefetcher is closed")
         self._ensure_thread()
+        check_blocking("Semaphore.acquire", "feed_prefetcher.slots")
         self._slots.acquire()
         # strong refs to the source objects: an id() match could misfire
         # once a freed array's address is reused
@@ -241,6 +267,7 @@ class FeedPrefetcher:
 
     def get(self):
         """The next StagedFeed, in put() order."""
+        check_blocking("queue.get", "feed_prefetcher.out")
         self._keys.get()
         kind, payload = self._out.get()
         self._slots.release()

@@ -33,15 +33,23 @@ contract by hand:
 or `sequence_parallel_degree` above 1 and `sharding_specs` raise: the
 JAX package gives them the numbers AllReduce gives, through modules the
 port does not have yet (ROADMAP.md Queue 1 item 9).
+
+The data-parallel run carries the executor's telemetry (``step_scope``,
+the ``optimize`` / ``lower`` / ``compile`` / ``execute`` spans,
+``compile_cache/hit|miss``, ``executor/feed_bytes|fetch_bytes``); the
+other runs go through ``Executor.run``, which carries it.
 """
 
 import numpy as np
 import torch
 
 from . import framework, ir_passes
+from . import observability as _observability
 from .executor import (_feed_signature, _Step, check_feed_int64,
-                       classify_persistable_state, read_persistable_state)
-from .observability import cost as _cost
+                       classify_persistable_state, note_run_bytes,
+                       read_persistable_state, run_step)
+from .observability import metrics as _metrics
+from .observability import tracing as _tracing
 
 __all__ = ["BuildStrategy", "CompiledProgram", "ExecutionStrategy",
            "classify_persistable_state", "grad_seed_scale_of",
@@ -235,19 +243,32 @@ class CompiledProgram:
             if staged is not None:
                 feed = staged.consume(executor.device)
                 keep = staged.pinned
-        step = self._compiled_steps.get(key)
-        fresh = step is None
-        if fresh:
-            run_program = ir_passes.optimize_for_execution(
-                self._program, fetch_names, scope, executor.device,
-                build_strategy=self._build_strategy,
-                infer_opt=self._infer_opt)
-            step = _DataParallelStep(
-                run_program, {k: tuple(np.shape(v)) for k, v in feed.items()},
-                fetch_names, group, self._build_strategy)
-            self._compiled_steps[key] = step
-        with _cost.first_step(fresh, executor.device):
-            fetches = step.run(scope, feed, executor.device)
+        rec = _metrics.enabled()
+        with _observability.step_scope():
+            step = self._compiled_steps.get(key)
+            fresh = step is None
+            if fresh:
+                if rec:
+                    _metrics.counter("compile_cache/miss").inc()
+                run_program = self._program
+                if ir_passes.pipeline_enabled():
+                    with _tracing.span("optimize"):
+                        run_program = ir_passes.optimize_for_execution(
+                            self._program, fetch_names, scope,
+                            executor.device,
+                            build_strategy=self._build_strategy,
+                            infer_opt=self._infer_opt)
+                with _tracing.span("lower"):
+                    step = _DataParallelStep(
+                        run_program,
+                        {k: tuple(np.shape(v)) for k, v in feed.items()},
+                        fetch_names, group, self._build_strategy)
+                self._compiled_steps[key] = step
+            elif rec:
+                _metrics.counter("compile_cache/hit").inc()
+            fetches = run_step(step, fresh, scope, feed, executor.device)
+        if rec:
+            note_run_bytes(feed, fetches)
         return executor._finish_run(fetches, return_numpy, keep)
 
 

@@ -44,13 +44,44 @@ region (``parallel/collective.enter_sharded``) inside the recorded
 forward, so the grad op's ``torch.autograd.grad`` all-reduces their
 grads and writes them whole; a reduction's own kernel all-reduces its
 partial sums.
+
+While a ``profiler`` session is open (``set_op_ranges``), every op,
+forward and grad, runs inside ``record_function("fluid/" +
+_op_scope_name(op))``, the range ``profiler.device_op_profile`` gives
+its CUDA kernels to.
 """
 
 import torch
 
+from ..observability import metrics as _obs_metrics
 from ..ops import registry
 
-__all__ = ["LoweringContext", "execute_block", "execute_op"]
+__all__ = ["LoweringContext", "execute_block", "execute_op", "set_op_ranges"]
+
+# while a ``profiler`` session is open every op runs inside a
+# record_function("fluid/<op scope name>") range; with none open an op
+# enters no range
+_OP_RANGES = False
+
+
+def set_op_ranges(on):
+    """Turn the per-op ``fluid/`` profiler ranges on or off (the
+    ``profiler`` session's switch)."""
+    global _OP_RANGES
+    _OP_RANGES = bool(on)
+
+
+def _op_scope_name(op):
+    """Stable profiler identity of one program op: its type plus its
+    first output var, sanitized — the JAX package's ``_op_scope_name``,
+    so the device table's rows name the ops the JAX package's do."""
+    out = ""
+    for vs in op.outputs.values():
+        if vs:
+            out = vs[0].name
+            break
+    name = "%s__%s" % (op.type, out) if out else op.type
+    return "".join(c if (c.isalnum() or c in "_.-") else "_" for c in name)
 
 # op types that the JAX package's executor runs outside the traced step
 # (feeds, readers, RPC); the port runs none. Program passes leave them
@@ -94,7 +125,13 @@ class LoweringContext:
 
 def execute_block(block, env, ctx, free_after=None):
     """Run every op of `block` over env (name -> tensor). `free_after`
-    maps an op index to the names env may drop once that op has run."""
+    maps an op index to the names env may drop once that op has run.
+    With metrics on, ``lowering/blocks_traced`` and ``ops_traced`` count
+    the blocks and ops lowered (the JAX package counts them once a
+    trace; the port lowers eagerly, so once a run)."""
+    if _obs_metrics.enabled():
+        _obs_metrics.counter("lowering/blocks_traced").inc()
+        _obs_metrics.counter("lowering/ops_traced").inc(len(block.ops))
     with torch.no_grad():
         for i, op in enumerate(block.ops):
             execute_op(op, env, ctx)
@@ -126,6 +163,14 @@ def _value(env, v):
 
 
 def execute_op(op, env, ctx):
+    if _OP_RANGES:
+        with torch.profiler.record_function("fluid/" + _op_scope_name(op)):
+            _execute_op(op, env, ctx)
+    else:
+        _execute_op(op, env, ctx)
+
+
+def _execute_op(op, env, ctx):
     if "__fwd_op__" in op.attrs:
         _execute_grad_op(op, env, ctx)
         return

@@ -57,25 +57,40 @@ which ends in the same `_finish_run`: the in-flight window and
 rows of the feeds, the data group in the lowering context and the
 fetches gathered.
 
-Not ported: compile telemetry, RPC ops, the nan checks and the
-embedding-prefetch branch of `train_from_dataset` (ROADMAP.md Queue 1
-item 9). A CUDA graph of the step is later work.
+Telemetry (the JAX executor's names): each run is one
+``observability.step_scope()`` (a ``step`` span, ``executor/step_time``
+and ``executor/steps``); a cache miss counts ``compile_cache/miss`` and
+runs the pass pipeline in an ``optimize`` span and the plan's build in a
+``lower`` span, a hit counts ``compile_cache/hit``; every run of a plan
+is an ``execute`` span, a plan's first run (where its one-time costs and
+the cost count land) also a ``compile`` span around it; then
+``executor/feed_bytes`` and ``executor/fetch_bytes``. The JAX-only
+metrics have no counterpart, since the port compiles nothing:
+``compile_cache/trace_time``, ``compile_cache/compile_time``,
+``compile_cache/stablehlo_module_bytes``,
+``compile_cache/persistent_hit`` and ``compile_cache/persistent_miss``.
+
+Not ported: RPC ops, the nan checks and the embedding-prefetch branch of
+`train_from_dataset` (ROADMAP.md Queue 1 item 9). A CUDA graph of the
+step is later work.
 """
 
 from collections import deque
-
 
 import numpy as np
 import torch
 
 from . import framework, ir_passes
+from . import observability as _observability
 from .async_engine import (FeedPrefetcher, InflightWindow, LazyFetchList,
-                           StepEvent, as_numpy, prefetch_iter)
+                           StepEvent, _nbytes, as_numpy, prefetch_iter)
 from .core.lowering import LoweringContext, execute_block
 from .core.place import resolve_device
 from .core.scope import global_scope
 from .flags import env
 from .observability import cost as _cost
+from .observability import metrics as _metrics
+from .observability import tracing as _tracing
 
 __all__ = ["Executor", "global_scope"]
 
@@ -151,6 +166,23 @@ def check_feed_int64(name, value, dtype):
         raise ValueError("feed %r holds int64 ids outside the int32 range "
                          "of its declared var; hash them to int32 first"
                          % name)
+
+
+def run_step(step, fresh, scope, feed, device):
+    """One run of a step plan inside the ``execute`` span; a plan's
+    first run (`fresh`: where its one-time costs and, with metrics on,
+    its cost count land) also inside the ``compile`` span."""
+    with (_tracing.span("compile") if fresh else _tracing.NULL_SPAN):
+        with _cost.first_step(fresh, device):
+            with _tracing.span("execute"):
+                return step.run(scope, feed, device)
+
+
+def note_run_bytes(feed, fetches):
+    """``executor/feed_bytes`` and ``executor/fetch_bytes`` of one run
+    (metrics on)."""
+    _metrics.counter("executor/feed_bytes").inc(_nbytes(feed.values()))
+    _metrics.counter("executor/fetch_bytes").inc(_nbytes(fetches))
 
 
 class _Step:
@@ -289,19 +321,30 @@ class Executor:
             if staged is not None:
                 feed = staged.consume(self.device)
                 keep = staged.pinned
-        step = self._cache.get(key) if use_program_cache else None
-        fresh = step is None
-        if fresh:
-            from .resilience import maybe_inject_compile_fault
+        rec = _metrics.enabled()
+        with _observability.step_scope():
+            step = self._cache.get(key) if use_program_cache else None
+            fresh = step is None
+            if fresh:
+                from .resilience import maybe_inject_compile_fault
 
-            maybe_inject_compile_fault()
-            run_program = ir_passes.optimize_for_execution(
-                program, fetch_names, scope, self.device)
-            step = _Step(run_program, feed.keys(), fetch_names)
-            if use_program_cache:
-                self._cache[key] = step
-        with _cost.first_step(fresh, self.device):
-            fetches = step.run(scope, feed, self.device)
+                maybe_inject_compile_fault()
+                if rec:
+                    _metrics.counter("compile_cache/miss").inc()
+                run_program = program
+                if ir_passes.pipeline_enabled():
+                    with _tracing.span("optimize"):
+                        run_program = ir_passes.optimize_for_execution(
+                            program, fetch_names, scope, self.device)
+                with _tracing.span("lower"):
+                    step = _Step(run_program, feed.keys(), fetch_names)
+                if use_program_cache:
+                    self._cache[key] = step
+            elif rec:
+                _metrics.counter("compile_cache/hit").inc()
+            fetches = run_step(step, fresh, scope, feed, self.device)
+        if rec:
+            note_run_bytes(feed, fetches)
         return self._finish_run(fetches, return_numpy, keep)
 
     def _finish_run(self, fetches, return_numpy, keep=()):

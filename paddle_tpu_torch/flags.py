@@ -71,6 +71,11 @@ def _declare(name, type, default, doc):
 
 _declare("PTPU_METRICS", "bool", False,
          "enable the instrumented metrics hot paths")
+_declare("PTPU_METRICS_OUT", "path", None,
+         "dump the metrics registry as JSON to this path at process exit")
+_declare("PTPU_METRICS_PORT", "int", None,
+         "serve live /metrics, /healthz and /varz on this loopback port "
+         "(0 = pick an ephemeral port; unset = no endpoint thread)")
 _declare("PTPU_SERVE_ASYNC_STEPS", "int", 4,
          "decode steps kept in flight ahead of EOS/stream materialization")
 _declare("PTPU_SERVE_SPEC_K", "int", 0,
@@ -162,6 +167,16 @@ _declare("PTPU_BLACKBOX_DIR", "path", None,
          "(ptpu_blackbox_*.json) into this directory")
 _declare("PTPU_BLACKBOX_EVENTS", "int", None,
          "flight-recorder ring capacity in events (default 4096)")
+# -- concurrency analysis ---------------------------------------------------
+_declare("PTPU_LOCK_CHECK", "bool", False,
+         "route the runtime's named lock sites through tracked "
+         "wrappers: lock-order/deadlock detection, "
+         "blocking-while-holding checks and the pool/engine invariant "
+         "hooks (unset = plain threading primitives, zero overhead)")
+_declare("PTPU_LOCK_HOLD_MS", "float", None,
+         "with PTPU_LOCK_CHECK=1, report a long-hold violation when a "
+         "tracked lock is held longer than this many milliseconds "
+         "(unset = off)")
 
 
 def env(name):

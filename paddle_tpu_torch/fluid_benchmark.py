@@ -22,14 +22,16 @@ after the timed loop (each step with --blocking_fetch).
 `run_transformer_native` is the native flagship's tokens/s through
 ``bench.bench_transformer`` (batch 192 unless --batch_size; --iterations
 timed after --skip_batch_num warm-up steps). `--json` prints
-the JAX harness's keys. `--update_method nccl2` (or `spmd`) trains
-through ``fluid.ParallelExecutor``, as the JAX harness does, one process
-a rank (the fleet's env contract, ``PADDLE_TRAINER_ID`` /
-``PADDLE_TRAINERS_NUM`` / ``PADDLE_TRAINER_ENDPOINTS``; none set is one
-rank): NCCL on the card, gloo with `--device CPU`, every rank fed the
+the JAX harness's keys. `--profile` runs the timed loop inside a
+``profiler`` session (each step a ``record_event("iteration")``) and
+prints the event table and, on the card, the device time by Fluid op
+(``profiler.print_device_op_profile(top=25)``). `--update_method
+nccl2` (or `spmd`) trains through ``fluid.ParallelExecutor``, as the
+JAX harness does, one process a rank (the fleet's env contract,
+``PADDLE_TRAINER_ID`` / ``PADDLE_TRAINERS_NUM`` /
+``PADDLE_TRAINER_ENDPOINTS``; none set is one rank): NCCL on the card,
+gloo with `--device CPU`, every rank fed the
 same global batch, and examples/sec/chip divides by the world size.
-`--profile` raises, naming its item of ROADMAP.md's Queue 1 (item 10,
-profiler.py).
 
     PADDLE_TRAINER_ID=0 PADDLE_TRAINERS_NUM=1 \
         python -m paddle_tpu_torch.fluid_benchmark --model resnet \
@@ -37,14 +39,11 @@ profiler.py).
 """
 
 import argparse
+import contextlib
 import json
 import time
 
 import numpy as np
-
-NOT_PORTED = {
-    "profile": "--profile needs profiler.py (ROADMAP.md Queue 1 item 10)",
-}
 
 
 def parse_args(argv=None):
@@ -75,7 +74,8 @@ def parse_args(argv=None):
                    help="resnet/vgg dataset variant (imagenet = 224x224, "
                         "1000 classes)")
     p.add_argument("--profile", action="store_true",
-                   help="not ported yet (raises)")
+                   help="wrap the timed loop in the profiler; print the "
+                        "event table and the device time by Fluid op")
     p.add_argument("--json", action="store_true",
                    help="also print one machine-readable JSON line")
     p.add_argument("--blocking_fetch", action="store_true",
@@ -166,9 +166,23 @@ def print_train_time(start_time, end_time, num_samples, n_chips=1):
     return examples_per_sec
 
 
-def _check_ported(args):
-    if args.profile:
-        raise NotImplementedError(NOT_PORTED["profile"])
+@contextlib.contextmanager
+def _profiled(args):
+    """With --profile, the block inside a profiler session, then the
+    event table and the device table by Fluid op (top 25). Yields the
+    marker a step runs in: ``record_event("iteration")``, or a null
+    context without --profile."""
+    if not args.profile:
+        yield contextlib.nullcontext
+        return
+    from . import profiler
+
+    profiler.start_profiler("All")
+    try:
+        yield lambda: profiler.record_event("iteration")
+    finally:
+        profiler.stop_profiler("total")
+    profiler.print_device_op_profile(top=25)
 
 
 def _place(args):
@@ -186,7 +200,6 @@ def run_transformer(args, seq_len=512):
     from .async_engine import as_numpy
     from .models import transformer_fluid
 
-    _check_ported(args)
     batch = args.batch_size or 160
     prog, sprog = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard(), fluid.program_guard(prog, sprog):
@@ -210,14 +223,16 @@ def run_transformer(args, seq_len=512):
         out, = exe.run(prog, feed=feed, fetch_list=[loss], scope=scope,
                        return_numpy=False)
         float(as_numpy(out).ravel()[0])
-    t0 = time.perf_counter()
-    for i in range(args.iterations):
-        out, = exe.run(prog, feed=feed, fetch_list=[loss], scope=scope,
-                       return_numpy=False)
-        if (i + 1) % sync_every == 0:
-            float(as_numpy(out).ravel()[0])
-    last = float(as_numpy(out).ravel()[0])
-    dt = time.perf_counter() - t0
+    with _profiled(args) as event:
+        t0 = time.perf_counter()
+        for i in range(args.iterations):
+            with event():
+                out, = exe.run(prog, feed=feed, fetch_list=[loss],
+                               scope=scope, return_numpy=False)
+            if (i + 1) % sync_every == 0:
+                float(as_numpy(out).ravel()[0])
+        last = float(as_numpy(out).ravel()[0])
+        dt = time.perf_counter() - t0
     tokens_per_sec = args.iterations * batch * seq_len / dt
     print("\nTransformer-base (fluid.layers API): %.1f tokens/sec/chip "
           "(last loss %.4f)\n" % (tokens_per_sec, last), flush=True)
@@ -232,10 +247,10 @@ def run_transformer_native(args):
     run_transformer_native)."""
     from . import bench
 
-    _check_ported(args)
-    tokens_per_sec, last_loss = bench.bench_transformer(
-        steps=args.iterations, warmup=args.skip_batch_num,
-        batch=args.batch_size or 192, device=_place(args))
+    with _profiled(args):
+        tokens_per_sec, last_loss = bench.bench_transformer(
+            steps=args.iterations, warmup=args.skip_batch_num,
+            batch=args.batch_size or 192, device=_place(args))
     print("\nTransformer-base (native): %.1f tokens/sec/chip "
           "(last loss %.4f)\n" % (tokens_per_sec, last_loss), flush=True)
     return {"metric": "transformer_native_tokens_per_sec_per_chip",
@@ -256,7 +271,6 @@ def run_static_model(args, record=None):
     import paddle_tpu_torch as fluid
     from .async_engine import as_numpy
 
-    _check_ported(args)
     batch = args.batch_size or _DEFAULT_BATCH[args.model]
     main, startup = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
@@ -289,33 +303,36 @@ def run_static_model(args, record=None):
     raw, marks, host_ms = [], [], []
     num_samples = 0
     start = None
-    for it in range(args.skip_batch_num + args.iterations):
-        timed = it >= args.skip_batch_num
-        if it == args.skip_batch_num:
-            if raw:
-                as_numpy(raw[-1])  # drain the warm-up before timing
-            start = time.perf_counter()
-            num_samples = 0
-        if timed and on_card:
+    with _profiled(args) as event:
+        for it in range(args.skip_batch_num + args.iterations):
+            timed = it >= args.skip_batch_num
+            if it == args.skip_batch_num:
+                if raw:
+                    as_numpy(raw[-1])  # drain the warm-up before timing
+                start = time.perf_counter()
+                num_samples = 0
+            if timed and on_card:
+                marks.append(torch.cuda.Event(enable_timing=True))
+                marks[-1].record()
+            th = time.perf_counter()
+            with event():
+                if pe is None:
+                    out, = exe.run(main, feed=feed, fetch_list=[loss],
+                                   scope=scope, return_numpy=False)
+                else:
+                    out, = pe.run([loss.name], feed=feed,
+                                  return_numpy=False)
+                if args.blocking_fetch:
+                    out = as_numpy(out)  # a host copy each step, timed
+            if timed:
+                host_ms.append((time.perf_counter() - th) * 1e3)
+            raw.append(out)
+            num_samples += batch
+        if on_card:
             marks.append(torch.cuda.Event(enable_timing=True))
             marks[-1].record()
-        th = time.perf_counter()
-        if pe is None:
-            out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
-                           return_numpy=False)
-        else:
-            out, = pe.run([loss.name], feed=feed, return_numpy=False)
-        if args.blocking_fetch:
-            out = as_numpy(out)  # a host copy each step, timed
-        if timed:
-            host_ms.append((time.perf_counter() - th) * 1e3)
-        raw.append(out)
-        num_samples += batch
-    if on_card:
-        marks.append(torch.cuda.Event(enable_timing=True))
-        marks[-1].record()
-    as_numpy(raw[-1])  # one stream runs in order: the last done, all done
-    end = time.perf_counter()
+        as_numpy(raw[-1])  # one stream runs in order: the last done
+        end = time.perf_counter()
     losses = [float(as_numpy(o).mean()) for o in raw]
     eps = print_train_time(start, end, num_samples, n_chips)
     print("last loss: %.5f (first %.5f)" % (losses[-1], losses[0]),

@@ -39,6 +39,7 @@ import numpy as np
 
 from . import flags as _flags
 from .observability import metrics as _metrics
+from .observability import tracing as _tracing
 
 __all__ = ["InplaceInfo", "bake_value", "build_pipeline",
            "optimize_for_execution", "pipeline_enabled", "pipeline_key",
@@ -169,7 +170,8 @@ def optimize_for_execution(program, fetch_names, scope=None, device=None,
     anything. Called on every compile-cache miss. Values a pass folds or
     bakes are tensors on `device` (the executor's). Records
     ``compiler/pass_time`` for each pass and ``compiler/programs_optimized``
-    once a program changed, when metrics are on."""
+    once a program changed, when metrics are on; each pass runs in a
+    ``pass:<name>`` span."""
     if not pipeline_enabled():
         return program
     names, amp_cfg, quant_cfg = _pipeline_names(program, build_strategy,
@@ -197,7 +199,8 @@ def optimize_for_execution(program, fetch_names, scope=None, device=None,
     for name in names:
         v0 = clone.version
         t0 = time.perf_counter()
-        get_pass(name).apply(clone, scope)
+        with _tracing.span("pass:" + name):
+            get_pass(name).apply(clone, scope)
         if rec:
             _metrics.histogram("compiler/pass_time").observe(
                 time.perf_counter() - t0)

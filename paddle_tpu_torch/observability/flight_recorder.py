@@ -12,9 +12,12 @@ the process dies before exit.
 
 OFF unless ``PTPU_BLACKBOX_DIR`` is set (or ``enable()`` is called):
 then ``record_event()`` is one bool check and the ring is never
-allocated. One leaf lock guards the ring; callers may hold their own
-locks while recording, and ``dump()`` touches only the ring lock and
-the filesystem.
+allocated. One leaf lock guards the ring (the named lock site
+``obs.blackbox``, tracked under ``PTPU_LOCK_CHECK=1``); callers may hold
+their own locks while recording, so every order edge points into it,
+and ``dump()`` touches only the ring lock and the filesystem: it is safe
+on failure paths, ``concurrency.assert_clean``'s included (a
+``lock_check_failed`` dump before the raise).
 """
 
 import atexit
@@ -26,6 +29,7 @@ import threading
 import time
 
 from .. import flags as _flags
+from ..analysis.concurrency import make_lock
 
 __all__ = ["enabled", "enable", "disable", "record_event", "events",
            "dump", "dropped", "reset"]
@@ -38,7 +42,7 @@ _ENABLED = False
 _DIR = None
 _events = None  # deque, allocated on first enable
 _dropped = 0
-_lock = threading.Lock()
+_lock = threading.Lock()  # replaced by the named lock site on enable
 _dump_seq = itertools.count(1)
 
 
@@ -50,7 +54,7 @@ def enable(directory=None, capacity=None):
     """Turn the recorder on. ``directory`` is where dumps land; None
     keeps the previous one (events still ring-buffer without a
     directory; ``dump()`` then returns None)."""
-    global _ENABLED, _DIR, _events
+    global _ENABLED, _DIR, _events, _lock
     if capacity is None:
         capacity = _events.maxlen if _events is not None else \
             DEFAULT_CAPACITY
@@ -58,6 +62,7 @@ def enable(directory=None, capacity=None):
         _DIR = directory
     if _events is None or _events.maxlen != capacity:
         _events = collections.deque(maxlen=capacity)
+        _lock = make_lock("obs.blackbox")
     _ENABLED = True
 
 

@@ -8,22 +8,32 @@ an already-timed region and ``instant`` a zero-length marker; requests
 carry a ``trace_id`` (``new_trace_id``) that survives failover, so a
 re-admitted request renders as one trace.
 
+Device-side alignment (the JAX package's ``TraceAnnotation``): each
+span also opens a ``torch.profiler.record_function(name)``, so spans
+show up in a ``torch.profiler`` trace beside the CUDA kernels they
+launch, and on a CUDA build of torch pushes an NVTX range
+(``torch.cuda.nvtx.range_push``/``range_pop``) for Nsight Systems. A
+CPU build has no NVTX, so it is never called there; on a CUDA build a
+failure of it is not caught.
+
 Enablement: OFF unless ``PTPU_TRACE=1`` or ``PTPU_TRACE_DIR=<dir>`` is
 set (or ``enable()`` is called). When off, ``span()`` returns a shared
 null context manager and ``complete``/``instant`` return at once, so
-the disabled path allocates nothing. ``PTPU_TRACE_DIR`` also writes
-``<dir>/ptpu_trace.json`` at process exit. The buffer is a bounded ring
-(``MAX_EVENTS``): the newest spans win, and the dump carries a
-``ptpuDroppedSpans`` count. Device-side annotation (NVTX) is not ported.
+the disabled path allocates nothing and enters no range. The buffer is
+a bounded ring (``MAX_EVENTS``): the newest spans win, the dump carries
+a ``ptpuDroppedSpans`` count and ``trace/dropped_spans`` counts the
+evictions. ``observability`` writes ``<PTPU_TRACE_DIR>/ptpu_trace.json``
+at process exit.
 """
 
-import atexit
 import collections
 import itertools
 import json
 import os
 import threading
 import time
+
+import torch
 
 from .. import flags as _flags
 from . import metrics as _metrics
@@ -70,8 +80,30 @@ class _NullSpan:
 NULL_SPAN = _NullSpan()
 
 
+# NVTX exists on a CUDA build of torch only
+_CUDA_BUILD = torch.version.cuda is not None
+
+
+def _annotate(name):
+    """Open the span's device-side ranges: a torch.profiler
+    record_function, and on a CUDA build an NVTX range. Returns the
+    record_function to close."""
+    rf = torch.profiler.record_function(name)
+    rf.__enter__()
+    if _CUDA_BUILD:
+        torch.cuda.nvtx.range_push(name)
+    return rf
+
+
+def _close_annotation(rf, exc):
+    if _CUDA_BUILD:
+        torch.cuda.nvtx.range_pop()
+    rf.__exit__(*exc)
+
+
 class Span:
-    __slots__ = ("name", "args", "trace_id", "span_id", "parent_id", "_t0")
+    __slots__ = ("name", "args", "trace_id", "span_id", "parent_id", "_t0",
+                 "_ann")
 
     def __init__(self, name, args=None, trace_id=None, parent_id=None):
         self.name = name
@@ -81,6 +113,7 @@ class Span:
         # span ids exist on request-scoped spans only
         self.span_id = next(_span_seq) if trace_id is not None else None
         self._t0 = 0
+        self._ann = None
 
     def set(self, **args):
         """Attach key/values shown in the trace viewer's args pane."""
@@ -91,11 +124,13 @@ class Span:
         return self
 
     def __enter__(self):
+        self._ann = _annotate(self.name)
         self._t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
         t1 = time.perf_counter_ns()
+        _close_annotation(self._ann, exc)
         ev = {"name": self.name, "ph": "X", "pid": _pid,
               "tid": threading.get_ident() % 100000, "ts": self._t0 // 1000,
               "dur": (t1 - self._t0) // 1000, "cat": "host"}
@@ -206,16 +241,3 @@ def dump_chrome_trace(path):
     with open(path, "w") as f:
         json.dump(doc, f)
     return len(evs)
-
-
-def _exit_dump():
-    tdir = _flags.env("PTPU_TRACE_DIR")
-    try:
-        os.makedirs(tdir, exist_ok=True)
-        dump_chrome_trace(os.path.join(tdir, "ptpu_trace.json"))
-    except OSError:
-        pass
-
-
-if _flags.env("PTPU_TRACE_DIR"):
-    atexit.register(_exit_dump)

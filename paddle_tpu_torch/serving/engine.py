@@ -69,17 +69,27 @@ admission, drains its batch and its in-flight steps, then installs new
 weight tensors and flushes the prefix cache in one critical section, so
 no request's tokens span two weight versions (``weight_version``).
 
-Telemetry (with metrics enabled): ``serving/{queue_depth,
+Telemetry. With metrics enabled: ``serving/{queue_depth,
 batch_occupancy,peak_batch_occupancy,kv_blocks_in_use,inflight_steps,
 tokens_per_sec,request_latency(_p50/_p99),ttft(_p50/_p99),steps,
 prefill_tokens,decode_tokens,prefill_chunk_steps,prefix_blocks_reused,
 prefix_tokens_skipped,requests_submitted,requests_completed,
 requests_rejected,requests_failed,spec_steps,spec_proposed,
 spec_accepted,spec_tree_slots,spec_tree_commits,spec_accept_rate,
-deadline_expired,step_transient_retries}`` and ``online/swaps``.
+deadline_expired,step_transient_retries}`` and ``online/swaps``. With
+tracing on: a ``serving_step`` span around each dispatched step
+(``serving_spec_step`` around a verify window), and for each request
+that carries a trace id one ``prefill_chunk`` / ``decode_window`` /
+``spec_window`` event a step it rides, beside the scheduler's
+``queue_wait`` and ``admit``. With the endpoint on (``PTPU_METRICS_PORT``)
+the engine registers its workers' ``health()`` at ``/healthz``. Under
+``PTPU_LOCK_CHECK=1`` every step boundary audits the pool's invariants
+and the engine's bounds (``_check_invariants``), reporting through
+``analysis.concurrency.record_violation``.
 """
 
 import contextlib
+import re
 import threading
 import time
 
@@ -88,7 +98,7 @@ import torch
 
 from .. import flags as _flags
 from .. import resilience as _resil
-from ..analysis.concurrency import make_condition
+from ..analysis import concurrency as _conc
 from ..core.place import resolve_device
 from ..core.scope import Scope
 from ..observability import flight_recorder as _blackbox
@@ -181,7 +191,10 @@ class _ModelWorker:
         self._prev_tokens = torch.zeros(self.max_batch, dtype=torch.int32,
                                         device=device)
 
-        self._cv = make_condition("serving.engine.cv")
+        # a named lock site, tracked under PTPU_LOCK_CHECK=1; the same
+        # flag turns on the invariant audit at step boundaries
+        self._cv = _conc.make_condition("serving.engine.cv")
+        self._lock_check = _conc.tracking_enabled()
         self._closing = False
         self.error = None
         # weight hot swap: a pending swap pauses admission; the worker
@@ -439,6 +452,74 @@ class _ModelWorker:
         sched.reap()
         _metrics.gauge("serving/kv_blocks_in_use").set(
             self.pool.blocks_in_use)
+        if self._lock_check:
+            self._check_invariants()
+
+    def _check_invariants(self):
+        """The step-boundary audit (PTPU_LOCK_CHECK=1 only): the pool's
+        conservation, refcount and index invariants and the engine's own
+        queue and liveness bounds, reported as concurrency violations,
+        then the concurrency/* gauges published."""
+        pool_dirty = False
+        for msg in self.pool.check_invariants():
+            # detail: the problem class (digits stripped) per model, so
+            # two kinds of corruption on one pool both report while a
+            # recurring one does not report every step
+            pool_dirty = True
+            _conc.record_violation(
+                "pool-invariant", "KVBlockPool[%s]: %s" % (self.name, msg),
+                locks=("serving.kv_pool",),
+                detail=(self.name, re.sub(r"\d+", "N", msg)))
+            _blackbox.record_event("pool_invariant_violation",
+                                   model=self.name, message=msg)
+        if pool_dirty:
+            _blackbox.dump("invariant_violation")
+        if len(self._inflight) > self.async_depth:
+            _conc.record_violation(
+                "engine-invariant",
+                "model %r: %d in-flight steps exceed async_depth %d"
+                % (self.name, len(self._inflight), self.async_depth),
+                locks=("serving.engine.cv",),
+                detail=(self.name, "inflight"))
+        if self.spec_k and self._inflight:
+            # every verify window materializes before the next plan
+            _conc.record_violation(
+                "engine-invariant",
+                "model %r: %d steps in flight with spec_k=%d (spec "
+                "windows must run synchronously)"
+                % (self.name, len(self._inflight), self.spec_k),
+                locks=("serving.engine.cv",),
+                detail=(self.name, "spec-inflight"))
+        if len(self.queue) > self.queue.max_queue:
+            _conc.record_violation(
+                "engine-invariant",
+                "model %r: queue depth %d exceeds bound %d"
+                % (self.name, len(self.queue), self.queue.max_queue),
+                locks=("serving.request_queue",),
+                detail=(self.name, "queue-depth"))
+        occupied = self.scheduler.num_occupied
+        if occupied > self.max_batch:
+            _conc.record_violation(
+                "engine-invariant",
+                "model %r: %d occupied slots exceed max_batch %d"
+                % (self.name, occupied, self.max_batch),
+                locks=("serving.engine.cv",),
+                detail=(self.name, "occupancy"))
+        _conc.publish_metrics()
+
+    def _trace_windows(self, plan, t0, t1, chunked):
+        """One request-scoped event a traced request riding this step:
+        ``prefill_chunk`` or ``decode_window`` over [t0, t1] ns."""
+        sched = self.scheduler
+        for seq, gen_idx in plan:
+            tid = seq.request.trace_id
+            if tid is None:
+                continue
+            prefill = (bool(sched.use_prompt[seq.slot]) if chunked
+                       else gen_idx is None)
+            _tracing.complete(
+                "prefill_chunk" if prefill else "decode_window", t0, t1,
+                trace_id=tid, request=seq.request.id, model=self.name)
 
     def _download(self, next_tokens):
         """Start the step's token copy to the host without waiting:
@@ -458,26 +539,32 @@ class _ModelWorker:
         into the next step on the device."""
         sched = self.scheduler
         occupancy = int(sched.active.sum())
-        weights = {n: self.scope.get(n) for n in self._weight_names}
-        if chunked:
-            feed, use_prompt, positions, lengths, active, tables = \
-                upload_int32(self.device, sched.chunk_feed,
-                             sched.use_prompt, sched.positions,
-                             sched.chunk_lens, sched.active,
-                             sched.block_tables)
-            next_tokens = self.model.prefill_step(
-                self.pool.k, self.pool.v, feed, use_prompt.bool(),
-                self._prev_tokens, positions, lengths, tables,
-                active.bool(), weights=weights)
-            self.chunk_steps += 1
-        else:
-            feed, use_prompt, positions, active, tables = upload_int32(
-                self.device, sched.prompt_feed, sched.use_prompt,
-                sched.positions, sched.active, sched.block_tables)
-            next_tokens = self.model.decode_step(
-                self.pool.k, self.pool.v, feed, use_prompt.bool(),
-                self._prev_tokens, positions, tables, active.bool(),
-                weights=weights)
+        traced = _tracing.enabled()
+        t0 = time.perf_counter_ns() if traced else 0
+        with _tracing.span("serving_step", model=self.name,
+                           occupancy=occupancy, chunked=chunked):
+            weights = {n: self.scope.get(n) for n in self._weight_names}
+            if chunked:
+                feed, use_prompt, positions, lengths, active, tables = \
+                    upload_int32(self.device, sched.chunk_feed,
+                                 sched.use_prompt, sched.positions,
+                                 sched.chunk_lens, sched.active,
+                                 sched.block_tables)
+                next_tokens = self.model.prefill_step(
+                    self.pool.k, self.pool.v, feed, use_prompt.bool(),
+                    self._prev_tokens, positions, lengths, tables,
+                    active.bool(), weights=weights)
+                self.chunk_steps += 1
+            else:
+                feed, use_prompt, positions, active, tables = upload_int32(
+                    self.device, sched.prompt_feed, sched.use_prompt,
+                    sched.positions, sched.active, sched.block_tables)
+                next_tokens = self.model.decode_step(
+                    self.pool.k, self.pool.v, feed, use_prompt.bool(),
+                    self._prev_tokens, positions, tables, active.bool(),
+                    weights=weights)
+        if traced:
+            self._trace_windows(plan, t0, time.perf_counter_ns(), chunked)
         self._prev_tokens = next_tokens
         self._inflight.append(self._download(next_tokens) + (plan,))
         _metrics.gauge("serving/inflight_steps").set(len(self._inflight))
@@ -499,19 +586,34 @@ class _ModelWorker:
         window's tokens are read before anything else is planned)."""
         sched = self.scheduler
         occupancy = int(sched.active.sum())
-        weights = {n: self.scope.get(n) for n in self._weight_names}
-        feed, use_prompt, positions, lengths, active, tables = upload_int32(
-            self.device, sched.spec_feed, sched.use_prompt, sched.positions,
-            sched.spec_lens, sched.active, sched.block_tables)
-        args = (self.pool.k, self.pool.v, feed, use_prompt.bool(),
-                self._prev_tokens, positions, lengths, tables,
-                active.bool())
-        if self.spec_tree:
-            out = self.model.spec_tree_step(*args, self.spec_tree,
-                                            weights=weights)
-        else:
-            out = self.model.spec_step(*args, weights=weights)
+        traced = _tracing.enabled()
+        t0 = time.perf_counter_ns() if traced else 0
+        with _tracing.span("serving_spec_step", model=self.name,
+                           occupancy=occupancy):
+            weights = {n: self.scope.get(n) for n in self._weight_names}
+            feed, use_prompt, positions, lengths, active, tables = \
+                upload_int32(self.device, sched.spec_feed,
+                             sched.use_prompt, sched.positions,
+                             sched.spec_lens, sched.active,
+                             sched.block_tables)
+            args = (self.pool.k, self.pool.v, feed, use_prompt.bool(),
+                    self._prev_tokens, positions, lengths, tables,
+                    active.bool())
+            if self.spec_tree:
+                out = self.model.spec_tree_step(*args, self.spec_tree,
+                                                weights=weights)
+            else:
+                out = self.model.spec_step(*args, weights=weights)
         outs = out.cpu().numpy()     # materialize now (the sync contract)
+        if traced:
+            t1 = time.perf_counter_ns()
+            for seq, window in plan:
+                tid = seq.request.trace_id
+                if tid is not None:
+                    _tracing.complete(
+                        "spec_window", t0, t1, trace_id=tid,
+                        request=seq.request.id, model=self.name,
+                        window=len(window))
         self._note_step(occupancy)
         if self.spec_tree:
             # the acceptance walk first; the accepted paths' KV is
@@ -754,6 +856,15 @@ class ServingEngine:
                 transient_tolerance=transient_tolerance)
         self._default = next(iter(self._workers))
         self._closed = False
+        # the /healthz surface, registered only while the endpoint is
+        # enabled (a flag-off engine is never pinned live by it)
+        self._health_key = None
+        from ..observability import endpoint as _endpoint
+
+        if _endpoint.enabled():
+            self._health_key = "engine-%x" % id(self)
+            _endpoint.register_health_provider(self._health_key,
+                                               self._health_json)
 
     # -- public API -----------------------------------------------------
     @property
@@ -906,6 +1017,17 @@ class ServingEngine:
             }
         return out
 
+    def _health_json(self):
+        """``health()`` with the latched error as a string: the
+        /healthz body."""
+        models = {}
+        for name, snap in self.health().items():
+            snap = dict(snap)
+            snap["error"] = (repr(snap["error"])
+                             if snap["error"] is not None else None)
+            models[name] = snap
+        return {"models": models, "load": self.load()}
+
     def kill(self, error=None):
         """Put the whole engine down as a dead replica goes down: every
         worker aborts at its next step boundary (or out of an injected
@@ -969,6 +1091,11 @@ class ServingEngine:
         if self._closed:
             return
         self._closed = True
+        if self._health_key is not None:
+            from ..observability import endpoint as _endpoint
+
+            _endpoint.unregister_health_provider(self._health_key)
+            self._health_key = None
         for w in self._workers.values():
             w.close(timeout)
 

@@ -40,7 +40,10 @@ Prefix caching makes the pool content-addressed, as in the JAX package:
 Reviving a cached block during adoption is charged against availability
 like an allocation, so outstanding reservations stay backed:
 ``free + cached - reserved >= 0`` and ``free + cached + in-table ==
-total`` at every step (``check_invariants``).
+total`` at every step (``check_invariants``; under
+``PTPU_LOCK_CHECK=1`` the serving engine audits them at every step
+boundary and reports a break as a ``pool-invariant`` violation).
+``serving/prefix_cache_flushes`` counts ``flush_prefix_cache`` calls.
 """
 
 import hashlib
@@ -50,6 +53,7 @@ import torch
 
 from ..analysis.concurrency import make_lock
 from ..core.place import resolve_device
+from ..observability import metrics as _metrics
 
 __all__ = ["KVBlockPool", "blocks_needed", "prefix_chain_keys"]
 
@@ -429,4 +433,5 @@ class KVBlockPool:
             self._cached.clear()
             self._sealed.clear()
             self._block_key.clear()
+        _metrics.counter("serving/prefix_cache_flushes").inc()
         return dropped

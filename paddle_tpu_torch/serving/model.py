@@ -80,6 +80,7 @@ from .. import flags as _flags
 from ..core.place import resolve_device
 from ..observability import cost as _cost
 from ..observability import metrics as _metrics
+from ..observability import tracing as _tracing
 from ..ops import paged_attention as _pa
 from ..ops import paged_attention_tree as _pat
 from .kv_cache import KVBlockPool, blocks_needed
@@ -550,8 +551,12 @@ class GenerationModel(nn.Module):
             with self._count_lock:
                 fresh = shape not in self._counted
                 self._counted.add(shape)
-        # the window forward holds every product of the step
-        with _cost.first_step(fresh, self.device):
+        # the window forward holds every product of the step; a window
+        # shape's first (counted) step runs in the serving_compile span,
+        # the JAX model's first call of a step kind
+        with (_tracing.span("serving_compile", kind=str(shape)) if fresh
+              else _tracing.NULL_SPAN), \
+                _cost.first_step(fresh, self.device):
             logits = self._forward_window(w, x, pos2d, lengths,
                                           block_tables, active, kv_k, kv_v,
                                           anc, all_slots)

@@ -57,8 +57,9 @@ other-version survivors exist the request restarts from its prompt
 Telemetry: ``router/{replicas_healthy,draining,failovers,readmitted,
 retries,deadline_expired,shed_requests,version_restarts}`` and
 ``online/canary_requests``, mirrored by host-side counters in
-:meth:`ServingRouter.stats` that stay live with metrics off. The live
-``/healthz`` endpoint of the JAX package is not ported.
+:meth:`ServingRouter.stats` that stay live with metrics off. With the
+endpoint on (``PTPU_METRICS_PORT``) the router registers its replicas'
+states and loads, failovers and sheds at ``/healthz``.
 """
 
 import itertools
@@ -331,10 +332,32 @@ class ServingRouter:
         self._closed = False
         self._stopping = False
         _metrics.gauge("router/replicas_healthy").set(replicas)
+        self._health_key = None
+        from ..observability import endpoint as _endpoint
+
+        if _endpoint.enabled():
+            self._health_key = "router-%x" % id(self)
+            _endpoint.register_health_provider(self._health_key,
+                                               self._health_json)
         self._monitor = threading.Thread(
             target=self._monitor_loop, name="ptpu-serve-router",
             daemon=True)
         self._monitor.start()
+
+    def _health_json(self):
+        """Fleet health for ``/healthz``: each replica's state and load,
+        and the counters that matter when paging (failovers, sheds)."""
+        with self._lock:
+            failovers, shed = self._failovers, self._shed
+        return {
+            "replicas": [{"idx": r.idx, "state": r.state,
+                          "load": r.engine.load()}
+                         for r in self._replicas],
+            "replicas_healthy": sum(1 for r in self._replicas
+                                    if r.state == HEALTHY),
+            "failovers": failovers,
+            "shed_requests": shed,
+        }
 
     # -- public API -----------------------------------------------------
     @property
@@ -546,6 +569,11 @@ class ServingRouter:
         if self._closed and self._stopping:
             return
         self._closed = True
+        if self._health_key is not None:
+            from ..observability import endpoint as _endpoint
+
+            _endpoint.unregister_health_provider(self._health_key)
+            self._health_key = None
         for rep in self._replicas:
             rep.engine.close(timeout)
         self._stopping = True

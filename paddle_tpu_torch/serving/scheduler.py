@@ -389,6 +389,15 @@ class StepScheduler:
                 break  # KV gate: head doesn't fit — keep queue order
             queue.pop()
             request.start_time = time.perf_counter()
+            if request.trace_id is not None and _tracing.enabled():
+                # a retroactive queue_wait span (submit -> admission) and
+                # an admit marker naming the slot the request landed in
+                _tracing.complete(
+                    "queue_wait", int(request.submit_time * 1e9),
+                    int(request.start_time * 1e9),
+                    trace_id=request.trace_id, request=request.id)
+                _tracing.instant("admit", trace_id=request.trace_id,
+                                 request=request.id, slot=slot)
             self.slots[slot] = seq
             self.block_tables[slot, :] = self.pool.NULL_BLOCK
             seq.prefix_keys = tuple(keys)

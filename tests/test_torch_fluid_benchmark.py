@@ -127,16 +127,26 @@ def test_main_json_line_on_the_cpu(capsys):
     (["--update_method", "spmd"], None),
     (["--update_method", "nccl2"], None),
     (["--profile"], "item 10")])
-def test_options_not_ported_raise_naming_their_item(argv, item):
-    """--profile raises, naming its item of ROADMAP.md's Queue 1;
-    --update_method spmd / nccl2 are ported (the parallel runtime) and
-    pass the check (they train over gloo ranks in
-    tests/test_torch_fleet_collective.py)."""
+def test_options_not_ported_raise_naming_their_item(argv, item, capsys):
+    """The options that once raised, naming their item of ROADMAP.md's
+    Queue 1, are ported: --update_method spmd / nccl2 parse (they train
+    over gloo ranks in tests/test_torch_fleet_collective.py) and
+    --profile (item 10) runs the timed loop in a profiler session and
+    prints the event table, one ``iteration`` row a step, and the device
+    table (no CUDA kernels on the CPU)."""
+    args = pbench.parse_args(argv + ["--device", "CPU"])
     if item is None:
-        pbench._check_ported(pbench.parse_args(argv + ["--device", "CPU"]))
+        assert args.update_method == argv[1]
         return
-    with pytest.raises(NotImplementedError, match=item):
-        pbench.main(argv + ["--device", "CPU"])
+    assert args.profile
+    pbench.main(argv + ["--device", "CPU", "--model", "mnist",
+                        "--batch_size", "4", "--skip_batch_num", "1",
+                        "--iterations", "2"])
+    out = capsys.readouterr().out
+    row = [ln.split() for ln in out.splitlines()
+           if ln.startswith("iteration ")]
+    assert len(row) == 1 and row[0][1] == "3", out
+    assert "no CUDA kernels in the trace" in out
 
 
 def test_transformer_native_on_the_cpu(capsys):
