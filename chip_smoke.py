@@ -477,6 +477,47 @@ Phases, each fatal on failure (exit code 1, no result line):
      the first step's longest op ranges and runtime calls.
      (``tests/test_torch_chip_smoke_telemetry.py`` runs phase 15 on the
      CPU at a small size, with planted faults.)
+  16. the SPMD Transformer trainer (``parallel/transformer.py``'s
+     ``SPMDTrainer``: dp × pp × tp with sequence parallelism, the 1F1B
+     pipeline, the expert-parallel switch MoE). 16a: the flagship at mesh
+     (1, 1, 1), phase 12a's operating point (vocab 32000, d_model 512, 8
+     heads, 6 layers, d_ff 2048, batch 192, seq 512, bf16, remat), 3
+     warm-up and 8 timed steps (the first counted by
+     ``observability/cost.py``: tokens/s and MFU); fatal unless the losses
+     are finite and falling, the first within SPMD_REF_RTOL of
+     ``single_chip_loss`` on the same parameters and batch, and K1
+     launched 12 "tc" forwards (remat) and 6 backwards a step with no
+     operand copied; then the same trainer in fp32 at 2 layers, batch 4,
+     seq 256, 2 steps on cuda:0 and on the CPU from one tree: the losses
+     to STEP_TOL's fp32 limit, each parameter leaf within
+     SPMD_PARAM_RATIO of its move; ``lm_logits``'s bf16 grads on the
+     card (the cotangent rounded first) within LOGITS_GRAD_RTOL of the
+     exact transpose's at the head's width. 16b: the model with a
+     4-expert switch MoE (ep = 1), 4 steps: the loss falling, the first
+     within SPMD_REF_RTOL of the plain reference's (the layers, then a
+     plain MoE loop), the all-to-all calls a step 2 forward, 2 in the
+     remat recompute and 2 backward, as ``collective.counts`` reads
+     them. Then K1 against its plain version at each 16c leg's rank
+     shape, q, k, v packed [B, T, 3, H/tp, Dh] (B 48, 96, 24; H 4, 4,
+     8). 16c: one child process a visible
+     card (``chip_smoke.py --phase16-rank``; 4 ranks with four cards, 2
+     with two or three, the fleet's env contract, NCCL): each leg of
+     SPMD_LEGS at full width, batch 192 global, the plain reference's
+     loss on each rank's card from the tree gathered back from its
+     shards, 2 warm-up and 4 timed
+     steps — (1, 2, 2) dense at M = 4, (2, 1, 2) with 4 experts, (1, 4, 1)
+     at 8 layers and M = 8 — then its fp32 twin at 2 steps against mesh
+     (1, 1, 1) on each rank; fatal unless each leg's losses are finite
+     and falling, the first within SPMD_REF_RTOL of the reference's,
+     every twin's losses are within
+     SPMD_LOSS_RTOL and its leaves within SPMD_PARAM_RATIO, each rank's
+     embedding and head calls are 0 off their stage, the stash holds at
+     most 2·pp inputs, the ranks' losses agree and K1 ran the schedule's
+     count. One ``spmd_multi`` line a leg with every rank's step, tokens/s
+     and host ms inside each kind of collective; with one card, one line
+     saying 16c ran no multi-rank mesh
+     (``tests/test_torch_chip_smoke_spmd.py`` runs phase 16 on the CPU
+     over gloo ranks of 1, 2 and 4, with planted faults).
 
 Then one JSON line ``{"kernels": [...]}`` (every kernel of every path,
 each with the launches of its path's run; a kernel launched no time there
@@ -6827,18 +6868,14 @@ def parallel_rank_main(args):
     print("phase14_rank " + json.dumps(out), flush=True)
 
 
-def parallel_phase(torch, fa, timeout=900):
-    """Phase 14: one child process a visible card (up to
-    PARALLEL["max_world"]) over NCCL, the fleet's env contract naming
-    the rank, the world and the rendezvous. Every rank must exit 0 and
-    every gate hold (`check_parallel`). Prints one ``parallel`` line a
-    leg; returns K1's launches on 14a's path, summed over the ranks."""
+def run_ranks(flag, tag, world, timeout, args=None):
+    """`world` child processes of this script (`flag`, `args` as JSON),
+    the fleet's env contract naming each its rank, the world and the
+    rendezvous: each rank's last `tag` line, parsed, in rank order. Fails
+    the run if a rank exits non-zero, prints no such line or outlives
+    `timeout` seconds (every child is killed then)."""
     import socket
 
-    t14 = time.perf_counter()
-    gc.collect()
-    torch.cuda.empty_cache()
-    world = min(torch.cuda.device_count(), PARALLEL["max_world"])
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -6849,8 +6886,8 @@ def parallel_phase(torch, fa, timeout=900):
                    PADDLE_TRAINER_ENDPOINTS="127.0.0.1:%d" % port,
                    PADDLE_CURRENT_ENDPOINT="127.0.0.1:%d" % (port + rank))
         procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), RANK_FLAG,
-             json.dumps({})], stdout=subprocess.PIPE,
+            [sys.executable, os.path.abspath(__file__), flag,
+             json.dumps(args or {})], stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True, env=env))
     results, errors = [], []
     deadline = time.time() + timeout
@@ -6860,9 +6897,8 @@ def parallel_phase(torch, fa, timeout=900):
         except subprocess.TimeoutExpired:
             for q in procs:
                 q.kill()
-            fail("14: rank %d did not finish in %d s" % (rank, timeout))
-        lines = [x for x in out.splitlines()
-                 if x.startswith("phase14_rank ")]
+            fail("%s: rank %d did not finish in %d s" % (tag, rank, timeout))
+        lines = [x for x in out.splitlines() if x.startswith(tag + " ")]
         if p.returncode != 0 or not lines:
             errors.append("rank %d exited %d: %s" % (rank, p.returncode,
                                                      err[-3000:]))
@@ -6872,7 +6908,22 @@ def parallel_phase(torch, fa, timeout=900):
         for q in procs:
             if q.poll() is None:
                 q.kill()
-        fail("14: %s" % "; ".join(errors))
+        fail("%s: %s" % (tag, "; ".join(errors)))
+    return results
+
+
+def parallel_phase(torch, fa, timeout=900):
+    """Phase 14: one child process a visible card (up to
+    PARALLEL["max_world"]) over NCCL, the fleet's env contract naming
+    the rank, the world and the rendezvous (``run_ranks``). Every rank
+    must exit 0 and every gate hold (`check_parallel`). Prints one
+    ``parallel`` line a leg; returns K1's launches on 14a's path, summed
+    over the ranks."""
+    t14 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    world = min(torch.cuda.device_count(), PARALLEL["max_world"])
+    results = run_ranks(RANK_FLAG, "phase14_rank", world, timeout)
     legs = {leg: [r[leg] for r in results] for leg in ("14a", "14b", "14c")}
     card = card_line()
     for leg, ranks in sorted(legs.items()):
@@ -7579,6 +7630,678 @@ def telemetry_phase(torch, fa, pa, fluid):
     return launches, k2
 
 
+# phase 16: the SPMD Transformer trainer (parallel/transformer.py's
+# SPMDTrainer). 16a: the flagship at mesh (1, 1, 1) at phase 12a's
+# operating point (full width, batch 192, seq 512, bf16, remat), then a
+# 2-layer fp32 leg on the card and on the CPU; 16b: the same model with a
+# 4-expert switch MoE (ep = 1); 16c: one child process a visible card (4,
+# or 2 with two or three; NCCL), each leg of SPMD_LEGS[world] at full
+# width with a small fp32 twin held to mesh (1, 1, 1)
+SPMD = dict(batch=192, seq=512, warmup=3, steps=8, moe_steps=4, experts=4,
+            cvc=dict(batch=4, seq=256, n_layers=2, steps=2),
+            multi_batch=192, multi_warmup=2, multi_steps=4,
+            twin=dict(vocab_size=256, d_model=64, n_heads=4, d_ff=128,
+                      max_seq_len=32, dtype="float32", remat=True),
+            twin_batch=8, twin_steps=2, twin_lr=1e-2)
+# 16c's legs by world: (name, mesh, config overrides, microbatches). The
+# pipeline leg at pp = 4 takes 8 layers so that pp divides the depth
+SPMD_LEGS = {
+    4: [("dense_1x2x2", (1, 2, 2), {}, 4),
+        ("moe_2x1x2", (2, 1, 2), {"n_experts": 4}, None),
+        ("pipe_1x4x1", (1, 4, 1), {"n_layers": 8}, 8)],
+    2: [("dense_1x1x2", (1, 1, 2), {}, None),
+        ("moe_2x1x1", (2, 1, 1), {"n_experts": 4}, None),
+        ("pipe_1x2x1", (1, 2, 1), {}, 4)],
+}
+# each full-width leg's first loss (16a-c) against the plain reference on
+# the same parameters and batch (``spmd_plain_loss``: single_chip_loss,
+# or with experts a plain MoE loop): the hidden states are one
+# computation, up to where its sums round; single_chip_loss rounds each
+# logit to bf16 before its cross-entropy (1 ulp is 2^-8 of a logit of up
+# to ~5 here), the trainer keeps them fp32; across ranks each tp rank's
+# partial block output is rounded to bf16 before the reduce-scatter adds
+# them. Unbiased roundings over 98,304 tokens move the mean by ~1e-4
+# nats; 1e-3 of the loss (~1e-2 nats) holds 100x that, and a wrong layer
+# or collective moves it by whole percents
+SPMD_REF_RTOL = 1e-3
+# fp32 limits, cross-mesh and card against CPU: the losses to the JAX
+# suite's cross-mesh rtol (tests/test_spmd_transformer.py:41); each
+# parameter leaf's difference after the steps, in the 2-norm, to 1% of
+# the leaf's whole move over them. Adam moves every element by about lr
+# whatever its grad's size, so an element whose grad is a near-cancelling
+# sum may land a fraction of lr off (4e-4 at lr 1e-2, one element in
+# 36,288, against the JAX package on the CPU); such elements are few and
+# the norm ratio stays under 2.1e-4 there. A grad summed over too few
+# ranks or microbatches flips the sign of many elements' moves
+SPMD_LOSS_RTOL = 2e-3
+SPMD_PARAM_RATIO = 1e-2
+SPMD_RANK_FLAG = "--phase16-rank"
+
+
+def spmd_batch(torch, cfg, batch, seq, device, seed=0):
+    """RandomState(seed) tokens over the vocabulary, labels rolled by
+    one, on `device`."""
+    toks = np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    return (torch.from_numpy(toks).to(device),
+            torch.from_numpy(np.roll(toks, -1, axis=1)).to(device))
+
+
+def plain_moe(torch, mp, h, cfg, dp, tp):
+    """The trainer's top-1 switch MoE (pp = 1: after the layers) on h
+    [B, T, D] as a plain loop with no collective: each (dp, tp) rank's
+    tokens (its rows, its sequence chunk) routed on their own, as the
+    ranks route them (the fp32 router softmax, the first of ties, the
+    capacity int(factor · N / E) + 1 filled in token order), each kept
+    token through its expert's GELU FFN in the dtype, times its fp32
+    gate, added to the stream."""
+    import torch.nn.functional as F
+
+    B, T_, D = h.shape
+    E, dt = cfg.n_experts, cfg.dtype
+    b, t = B // dp, T_ // tp
+    out = h.clone()
+    for d in range(dp):
+        for s in range(tp):
+            rows, cols = slice(d * b, (d + 1) * b), slice(s * t, (s + 1) * t)
+            x = h[rows, cols].reshape(-1, D)
+            gates = torch.softmax(x.float() @ mp["router"].float(), dim=-1)
+            expert = gates.argmax(-1)
+            gate = gates.gather(-1, expert[:, None])[:, 0]
+            cap = int(cfg.expert_capacity_factor * x.shape[0] / E) + 1
+            y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+            for e in range(E):
+                idx = (expert == e).nonzero()[:cap, 0]
+                a = F.gelu(x[idx] @ mp["w1"][e].to(dt), approximate="tanh")
+                y[idx] = (a @ mp["w2"][e].to(dt)).float() * gate[idx, None]
+            out[rows, cols] += y.to(dt).view(b, t, D)
+    return out
+
+
+def spmd_plain_loss(torch, params, tokens, labels, cfg, dp=1, tp=1):
+    """The plain reference of a pp = 1 or dense leg's first loss on the
+    full tree `params` and the global batch, with no collective: the
+    port's ``single_chip_loss``; with experts, the same layers, then
+    ``plain_moe`` as mesh (dp, ·, tp) routes, the final layer norm and
+    fp32 logits 128 positions at a time."""
+    from paddle_tpu_torch.models import transformer as T
+
+    with torch.no_grad():
+        if not cfg.n_experts:
+            return float(T.single_chip_loss(params, tokens, labels, cfg))
+        h = T.embed_tokens(params, tokens, cfg)
+        for i in range(cfg.n_layers):
+            h = T._layer(h, {k: v[i] for k, v in params["layers"].items()},
+                         cfg.dtype)
+        h = plain_moe(torch, params["moe"], h, cfg, dp, tp)
+        h = T.layer_norm(h, params["final_ln_scale"],
+                         params["final_ln_bias"])
+        total = 0.0
+        for s in range(0, h.shape[1], 128):
+            logp = torch.log_softmax(T.lm_logits(params, h[:, s:s + 128],
+                                                 cfg), dim=-1)
+            total += float(logp.gather(
+                -1, labels[:, s:s + 128].long()[..., None]).sum())
+        return -total / labels.numel()
+
+
+def spmd_logits_grad_check(torch, device="cuda", N=4096, seed=3):
+    """``lm_logits``'s bf16 grads on the card (``logits_grads`` with the
+    cotangent rounded to bf16 first) against JAX's transpose, the exact
+    products rounded to bf16 (fp64 here), on one set of operands at the
+    flagship's head width (D 512, V 32000, N tokens): each grad's error
+    in the 2-norm within LOGITS_GRAD_RTOL of its norm. Returns the
+    report."""
+    from paddle_tpu_torch.models import transformer as T
+
+    gen = torch.Generator().manual_seed(seed)
+    h = torch.randn(N, 512, generator=gen).to(device, torch.bfloat16)
+    w = (torch.randn(512, 32000, generator=gen) / 512 ** 0.5).to(
+        device, torch.bfloat16)
+    cot = (torch.randn(N, 32000, generator=gen) / N).to(device)
+    leaves = [h.requires_grad_(), w.requires_grad_()]
+    out = T.lm_logits({"lm_head": w}, h, T.TransformerConfig())
+    got = torch.autograd.grad(out, leaves, cot)
+    with torch.no_grad():
+        want = ((cot.double() @ w.double().t()).to(torch.bfloat16),
+                (h.double().t() @ cot.double()).to(torch.bfloat16))
+    rel = [float((a.double() - b.double()).norm() / b.double().norm())
+           for a, b in zip(got, want)]
+    report = {"N": N, "rel_err_h": rel[0], "rel_err_w": rel[1],
+              "limit": T.LOGITS_GRAD_RTOL}
+    print("spmd_logits_grad " + json.dumps(report), flush=True)
+    if not max(rel) <= T.LOGITS_GRAD_RTOL:
+        fail("16a: lm_logits's bf16 grads are %r of their norm off the "
+             "exact transpose's (limit %g)" % (rel, T.LOGITS_GRAD_RTOL))
+    return report
+
+
+def spmd_k1_shapes(legs):
+    """K1's [B, H] on each leg of 16c's `legs` at full width: a rank's
+    rows (a microbatch's with pp > 1) and its H/tp heads."""
+    out = []
+    for _, (dp, pp, tp), _, M in legs:
+        shape = (SPMD["multi_batch"] // dp // (M if pp > 1 else 1),
+                 8 // tp)
+        if shape not in out:
+            out.append(shape)
+    return out
+
+
+def spmd_k1_per_step(layers_per_stage, pp, M, remat):
+    """K1's (forward, backward) launches a step on one rank: pp == 1, each
+    layer's forward (again in its remat recompute) and backward once;
+    pp > 1, each microbatch's forward unit, the backward unit's
+    recompute of the stage, its remat recompute and its backward."""
+    S = layers_per_stage
+    if pp == 1:
+        return (2 if remat else 1) * S, S
+    return (3 if remat else 2) * S * M, S * M
+
+
+def k1_gate(got, layers_per_stage, pp, M, remat, route, runs):
+    """K1's gate on a leg's main path: `got` (forward and backward
+    launches by route, operand copies) must be the schedule's count a
+    step (``spmd_k1_per_step``) over `runs` steps by `route` only, with
+    no copy. A failure's text, or None."""
+    f, b = spmd_k1_per_step(layers_per_stage, pp, M, remat)
+    zero = {"tc": 0, "fp16": 0, "f32tc": 0}
+    want = (dict(zero, **{route: f * runs}),
+            dict(zero, **{route: b * runs}), 0)
+    if tuple(got) != want:
+        return ("flash attention launched %r (forward, backward by route; "
+                "copies) over %d steps; the schedule's count is %r"
+                % (tuple(got), runs, want))
+    return None
+
+
+def leaf_ratios(got, ref, start):
+    """The worst leaf's ||got - ref|| / ||ref - start|| (flat dicts of
+    numpy arrays) and its name."""
+    worst = (0.0, "")
+    for k in ref:
+        move = float(np.linalg.norm(ref[k] - start[k]))
+        diff = float(np.linalg.norm(got[k] - ref[k]))
+        r = diff / move if move > 0 else (0.0 if diff == 0 else math.inf)
+        worst = max(worst, (r, k))
+    return worst
+
+
+def host_leaves(torch, tree, prefix=""):
+    out = {}
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            out.update(host_leaves(torch, tree[k], prefix + k + "/"))
+        else:
+            out[prefix + k] = tree[k].detach().float().cpu().numpy()
+    return out
+
+
+def collective_calls(C, runs, host0, steps):
+    """The axis collectives' calls a run (over all `runs`) and the host's
+    ms inside them a timed step (since `host0`, a copy of
+    ``host_seconds`` taken as the `steps` timed steps began: a group's
+    first calls set up its connections)."""
+    return ({k: v / runs for k, v in C.counts.items()
+             if v and not k.endswith("_bytes")
+             and k.split("_bwd")[0] in C.AXIS_KINDS},
+            {k: (v - host0[k]) * 1e3 / steps
+             for k, v in C.host_seconds.items() if v})
+
+
+def spmd_train_leg(torch, fa, device=None, batch=None, seq=None,
+                   warmup=None, steps=None, ref=True, **over):
+    """16a (16b with ``n_experts``): ``SPMDTrainer`` at mesh (1, 1, 1) on
+    bench.py's native configuration (``over`` replaces fields), the port's
+    init from seed 0, `warmup` + `steps` steps on one RandomState(0)
+    batch; the first step counted (``observability/cost.py``), the
+    timed ones by CUDA events. With `ref`, ``spmd_plain_loss`` on the
+    same parameters and batch first. K1's and the collectives' counts
+    are zeroed just before the steps and read just after."""
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.observability import cost
+    from paddle_tpu_torch.parallel import collective as C
+    from paddle_tpu_torch.parallel.transformer import SPMDTrainer
+
+    batch = batch or SPMD["batch"]
+    seq = seq or SPMD["seq"]
+    warmup = SPMD["warmup"] if warmup is None else warmup
+    steps = steps or SPMD["steps"]
+    cfg = bench.native_config(batch, seq, remat=True, **over)
+    tr = SPMDTrainer(cfg, (1, 1, 1), device=device)
+    dev = tr.device
+    on_card = dev.type == "cuda"
+    state = tr.init(0)
+    tokens, labels = spmd_batch(torch, cfg, batch, seq, dev)
+    ref_loss = (spmd_plain_loss(torch, state[0], tokens, labels, cfg)
+                if ref else None)
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    fa.reset_counts()                          # main path starts
+    C.reset_counts()
+    losses, marks, host_ms, step_flops = [], [], [], None
+    t0 = host0 = None
+    for i in range(warmup + steps):
+        if i == warmup:
+            if on_card:
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            host0 = dict(C.host_seconds)
+        if on_card and i >= warmup:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        th = time.perf_counter()
+        if i == 0:
+            with cost.count_flops(dev) as count:
+                state, loss = tr.step(state, tokens, labels)
+            step_flops = count.flops
+        else:
+            state, loss = tr.step(state, tokens, labels)
+        if i >= warmup:
+            host_ms.append((time.perf_counter() - th) * 1e3)
+        losses.append(loss)
+    if on_card:
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    k1 = flash_counts(fa)                      # main path ends
+    runs = warmup + steps
+    calls, host = collective_calls(C, runs, host0, steps)
+    ms = (marks[0].elapsed_time(marks[-1]) / steps if on_card
+          else wall * 1e3 / steps)
+    leg = {"leg": "spmd_moe" if cfg.n_experts else "spmd_train",
+           "mesh": [1, 1, 1], "batch": batch, "seq": seq,
+           "layers": cfg.n_layers, "experts": cfg.n_experts,
+           "remat": cfg.remat, "dtype": str(cfg.dtype).split(".")[1],
+           "warmup": warmup, "steps": steps, "runs": runs,
+           "losses": [float(x) for x in losses], "ref_loss": ref_loss,
+           "ms_per_step": ms, "host_ms_per_step": float(np.mean(host_ms)),
+           "tokens_per_s": batch * seq / ms * 1e3,
+           "step_flops": step_flops,
+           "mfu_pct": cost.mfu_pct(step_flops, 1e3 / ms, dev),
+           "k1_fwd": k1[0], "k1_bwd": k1[1], "k1_copies": k1[2],
+           "collective_calls_per_step": calls,
+           "collective_host_ms_per_step": host,
+           "embed_calls": tr.counts["embed"], "head_calls": tr.counts["head"],
+           "device": str(dev)}
+    if on_card:
+        leg["step_ms_each"] = [a.elapsed_time(b)
+                               for a, b in zip(marks, marks[1:])]
+        leg["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    return leg
+
+
+def check_spmd_train_leg(leg, on_card):
+    """16a's and 16b's gates: the losses finite and falling; the first
+    loss within SPMD_REF_RTOL of the plain reference's; the embedding and
+    the head once a step; on the card K1 launched by the "tc" route only,
+    the schedule's count a step, no operand copied; 16b's all-to-all
+    calls a step 2 forward (and 2 more in the remat recompute) and 2
+    backward."""
+    tag = leg["leg"]
+    losses = leg["losses"]
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        fail("%s: losses not finite and falling: %r" % (tag, losses))
+    if leg["ref_loss"] is not None:
+        err = abs(losses[0] - leg["ref_loss"]) / abs(leg["ref_loss"])
+        if not err <= SPMD_REF_RTOL:
+            fail("%s: the first loss %r is %.3g (rel) off the plain "
+                 "reference's %r (limit %g)" % (tag, losses[0], err,
+                                                leg["ref_loss"],
+                                                SPMD_REF_RTOL))
+    runs = leg["runs"]
+    if (leg["embed_calls"], leg["head_calls"]) != (runs, runs):
+        fail("%s: the embedding ran %d times and the head %d over %d steps"
+             % (tag, leg["embed_calls"], leg["head_calls"], runs))
+    calls = leg["collective_calls_per_step"]
+    if leg["experts"]:
+        want = (2 * (2 if leg["remat"] else 1), 2)
+        got = (calls.get("all_to_all", 0), calls.get("all_to_all_bwd", 0))
+        if got != want:
+            fail("%s: %r all-to-all calls a step (forward, backward); "
+                 "expected %r for one MoE block" % (tag, got, want))
+    if on_card:
+        bad = k1_gate((leg["k1_fwd"], leg["k1_bwd"], leg["k1_copies"]),
+                      leg["layers"], 1, 1, leg["remat"], "tc", runs)
+        if bad:
+            fail("%s: %s" % (tag, bad))
+
+
+def spmd_card_vs_cpu(torch, fa, devices=("cuda:0", "cpu"), batch=None,
+                     seq=None, n_layers=None, steps=None):
+    """16a's fp32 leg: ``SPMDTrainer`` at mesh (1, 1, 1), bench.py's
+    configuration in fp32 at SPMD["cvc"]'s depth, batch and length, on
+    devices[0] and devices[1] from one parameter tree, `steps` steps on
+    one batch: each step's loss to STEP_TOL's fp32 loss_rtol, every
+    parameter leaf after them within SPMD_PARAM_RATIO of its move.
+    Returns the report (with K1's launches on devices[0])."""
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.parallel.transformer import SPMDTrainer
+
+    o = SPMD["cvc"]
+    batch, seq = batch or o["batch"], seq or o["seq"]
+    steps = steps or o["steps"]
+    cfg = bench.native_config(batch, seq, remat=True, dtype="float32",
+                              n_layers=n_layers or o["n_layers"])
+    full = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                         device="cpu")
+    start = host_leaves(torch, full)
+    runs = []
+    before = flash_counts(fa)
+    for dev in devices:
+        tr = SPMDTrainer(cfg, (1, 1, 1), device=dev)
+        state = tr.init(params=full)
+        tokens, labels = spmd_batch(torch, cfg, batch, seq, tr.device)
+        losses = []
+        for _ in range(steps):
+            state, loss = tr.step(state, tokens, labels)
+            losses.append(float(loss))
+        runs.append((losses, host_leaves(torch, state[0])))
+        if len(runs) == 1:
+            after = flash_counts(fa)
+    (l_c, p_c), (l_h, p_h) = runs
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_c, l_h))
+    ratio, leaf = leaf_ratios(p_c, p_h, start)
+    report = {"leg": "spmd_card_vs_cpu", "devices": list(devices),
+              "batch": batch, "seq": seq, "layers": cfg.n_layers,
+              "steps": steps, "losses": l_c, "losses_ref": l_h,
+              "loss_rel_err": loss_err,
+              "loss_limit": STEP_TOL["float32"]["loss_rtol"],
+              "worst_leaf_ratio": ratio, "worst_leaf": leaf,
+              "leaf_ratio_limit": SPMD_PARAM_RATIO,
+              "k1_fwd": {r: after[0][r] - before[0][r] for r in after[0]},
+              "k1_bwd": {r: after[1][r] - before[1][r] for r in after[1]},
+              "k1_copies": after[2] - before[2]}
+    report["ok"] = (loss_err <= report["loss_limit"]
+                    and ratio <= SPMD_PARAM_RATIO)
+    return report
+
+
+def spmd_twin(torch, shape, over, M, device, steps=None):
+    """A leg's small fp32 twin: SPMD["twin"] with the leg's layers and
+    experts at its mesh and microbatches, `steps` steps from the port's
+    seed-0 tree, then the same at mesh (1, 1, 1) on this rank's device:
+    the losses, the worst leaf's ratio (``leaf_ratios``) and the
+    trainer's counts. An MoE twin's capacity factor is its expert count,
+    so no token is dropped: the capacity is taken over each rank's own
+    tokens (as in the JAX package), so where tokens are dropped a mesh
+    that splits the batch over dp computes another function than one
+    rank does."""
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.parallel.transformer import (SPMDTrainer,
+                                                       gather_params)
+
+    steps = steps or SPMD["twin_steps"]
+    experts = over.get("n_experts", 0)
+    cfg = T.TransformerConfig(**dict(
+        SPMD["twin"], n_layers=over.get("n_layers", 6), n_experts=experts,
+        expert_capacity_factor=float(experts or 2)))
+    full = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                         device="cpu")
+    start = host_leaves(torch, full)
+    out = {}
+    for key, mesh_shape in (("mesh", shape), ("ref", (1, 1, 1))):
+        tr = SPMDTrainer(cfg, mesh_shape, num_microbatches=M,
+                         learning_rate=SPMD["twin_lr"], device=device)
+        try:
+            state = tr.init(params=full)
+            tokens, labels = spmd_batch(torch, cfg, SPMD["twin_batch"],
+                                        cfg.max_seq_len, tr.device, seed=1)
+            losses = []
+            for _ in range(steps):
+                state, loss = tr.step(state, tokens, labels)
+                losses.append(float(loss))
+            out[key] = (losses, host_leaves(torch, gather_params(
+                state[0], tr.specs, tr.mesh)), dict(tr.counts))
+        finally:
+            tr.mesh.close()
+    (l_m, p_m, counts), (l_r, p_r, _) = out["mesh"], out["ref"]
+    ratio, leaf = leaf_ratios(p_m, p_r, start)
+    return {"losses": l_m, "losses_ref": l_r,
+            "loss_rel_err": max(abs(a - b) / abs(b)
+                                for a, b in zip(l_m, l_r)),
+            "worst_leaf_ratio": ratio, "worst_leaf": leaf, "counts": counts}
+
+
+def spmd_rank_legs(device=None, legs=None, batch=None, seq=None,
+                   warmup=None, steps=None, width=None):
+    """16c on this rank: each leg of SPMD_LEGS[world] (or `legs`) at full
+    width (`width` replaces config fields; `seq` the length) on the
+    global batch: the plain reference's loss (``spmd_plain_loss`` on
+    this rank's device, from the tree gathered back from the shards),
+    then warm-up and timed steps, K1's and the collectives' counts
+    zeroed just before and read just after; then its fp32 twin
+    (``spmd_twin``). Returns this rank's results."""
+    import torch
+
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.parallel import collective as C
+    from paddle_tpu_torch.parallel.mesh import init_data_group
+    from paddle_tpu_torch.parallel.transformer import (SPMDTrainer,
+                                                       gather_params)
+
+    g = init_data_group(device)
+    legs = legs or SPMD_LEGS[g.world]
+    batch = batch or SPMD["multi_batch"]
+    seq = seq or SPMD["seq"]
+    warmup = SPMD["multi_warmup"] if warmup is None else warmup
+    steps = steps or SPMD["multi_steps"]
+    dev = g.device
+    on_card = dev.type == "cuda"
+    out = {"rank": g.rank, "world": g.world, "backend": g.backend,
+           "device": str(dev), "legs": {}}
+    for name, shape, over, M in legs:
+        cfg = bench.native_config(batch, seq, remat=True,
+                                  **dict(over, **(width or {})))
+        tr = SPMDTrainer(cfg, shape, num_microbatches=M, device=dev)
+        try:
+            state = tr.init(0)
+            tokens, labels = spmd_batch(torch, cfg, batch,
+                                        cfg.max_seq_len, dev)
+            full = gather_params(state[0], tr.specs, tr.mesh)
+            ref_loss = spmd_plain_loss(torch, full, tokens, labels, cfg,
+                                       dp=shape[0], tp=shape[2])
+            del full
+            if on_card:
+                torch.cuda.synchronize(dev)
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+            fa.reset_counts()                  # main path starts
+            C.reset_counts()
+            losses, t0, host0 = [], None, None
+            for i in range(warmup + steps):
+                if i == warmup:
+                    if on_card:
+                        torch.cuda.synchronize(dev)
+                    t0 = time.perf_counter()
+                    host0 = dict(C.host_seconds)
+                state, loss = tr.step(state, tokens, labels)
+                losses.append(loss)
+            if on_card:
+                torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+            k1 = flash_counts(fa)              # main path ends
+            runs = warmup + steps
+            calls, host = collective_calls(C, runs, host0, steps)
+            leg = {"mesh": list(shape), "microbatches": tr.M,
+                   "coords": [tr.mesh.axis_index(a) for a in
+                              ("dp", "pp", "tp")],
+                   "layers": cfg.n_layers, "experts": cfg.n_experts,
+                   "remat": cfg.remat, "batch": batch,
+                   "seq": cfg.max_seq_len, "runs": runs,
+                   "losses": [float(x) for x in losses],
+                   "ref_loss": ref_loss,
+                   "ms_per_step": wall * 1e3 / steps,
+                   "tokens_per_s": batch * cfg.max_seq_len * steps / wall,
+                   "k1_fwd": k1[0], "k1_bwd": k1[1], "k1_copies": k1[2],
+                   "collective_calls_per_step": calls,
+                   "collective_host_ms_per_step": host,
+                   "counts": dict(tr.counts),
+                   "peak_gib": (torch.cuda.max_memory_allocated(dev)
+                                / 2 ** 30 if on_card else None)}
+        finally:
+            tr.mesh.close()
+        leg["twin"] = spmd_twin(torch, shape, over, M, dev)
+        out["legs"][name] = leg
+    return out
+
+
+def check_spmd_ranks(results, on_card):
+    """16c's gates over every rank's results: a list of failures (empty:
+    the phase passed). Each leg: the backend the device's; the losses
+    finite, falling and every rank's the same; the first loss within
+    SPMD_REF_RTOL of the plain reference's; the embedding counted only on
+    stage 0 and the head only on the last stage (the full-width leg and
+    the twin), the stash at most 2·pp inputs; the twin's losses within
+    SPMD_LOSS_RTOL of mesh (1, 1, 1)'s and its leaves within
+    SPMD_PARAM_RATIO; on the card, K1 by the "tc" route at the
+    schedule's count a step, no operand copied."""
+    bad = []
+    backend = "nccl" if on_card else "gloo"
+    for r in results:
+        if r["backend"] != backend:
+            bad.append("rank %d: backend %s, not %s" % (r["rank"],
+                                                        r["backend"],
+                                                        backend))
+    for name in results[0]["legs"]:
+        ranks = [r["legs"][name] for r in results]
+        if any(x["losses"] != ranks[0]["losses"] for x in ranks[1:]):
+            bad.append("%s: the ranks' losses differ" % name)
+        for rank, leg in zip((r["rank"] for r in results), ranks):
+            tag = "%s rank %d" % (name, rank)
+            pp, p = leg["mesh"][1], leg["coords"][1]
+            losses = leg["losses"]
+            if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+                bad.append("%s: losses not finite and falling: %r"
+                           % (tag, losses))
+            err = abs(losses[0] - leg["ref_loss"]) / abs(leg["ref_loss"])
+            if not err <= SPMD_REF_RTOL:
+                bad.append("%s: the first loss %r is %.3g (rel) off the "
+                           "plain reference's %r (limit %g)" % (
+                               tag, losses[0], err, leg["ref_loss"],
+                               SPMD_REF_RTOL))
+            for what, counts in (("leg", leg["counts"]),
+                                 ("twin", leg["twin"]["counts"])):
+                if (counts["embed"] > 0) != (p == 0) \
+                        or (counts["head"] > 0) != (p == pp - 1):
+                    bad.append("%s: the %s's embedding ran %d times and its "
+                               "head %d on stage %d of %d" % (
+                                   tag, what, counts["embed"],
+                                   counts["head"], p, pp))
+                if counts["stash_peak"] > 2 * pp:
+                    bad.append("%s: the %s's stash held %d inputs, more "
+                               "than 2pp = %d" % (tag, what,
+                                                  counts["stash_peak"],
+                                                  2 * pp))
+            twin = leg["twin"]
+            if not twin["loss_rel_err"] <= SPMD_LOSS_RTOL:
+                bad.append("%s: the twin's losses %r are %.3g (rel) off mesh "
+                           "(1, 1, 1)'s %r" % (tag, twin["losses"],
+                                               twin["loss_rel_err"],
+                                               twin["losses_ref"]))
+            if not twin["worst_leaf_ratio"] <= SPMD_PARAM_RATIO:
+                bad.append("%s: the twin's %s is %.3g of its move off mesh "
+                           "(1, 1, 1)'s" % (tag, twin["worst_leaf"],
+                                            twin["worst_leaf_ratio"]))
+            k1 = on_card and k1_gate(
+                (leg["k1_fwd"], leg["k1_bwd"], leg["k1_copies"]),
+                leg["layers"] // pp, pp, leg["microbatches"], leg["remat"],
+                "tc", leg["runs"])
+            if k1:
+                bad.append("%s: %s" % (tag, k1))
+    return bad
+
+
+def spmd_rank_main(args):
+    """One rank of 16c (a child of `spmd_phase`): one ``phase16_rank``
+    line."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.get("device") == "cpu":
+        torch.set_num_threads(1)
+    out = spmd_rank_legs(device=args.get("device"))
+    from paddle_tpu_torch.parallel.mesh import destroy_data_group
+
+    destroy_data_group()
+    print("phase16_rank " + json.dumps(out), flush=True)
+
+
+def spmd_phase(torch, fa, timeout=900):
+    """Phase 16: 16a (``spmd_train_leg``, ``spmd_card_vs_cpu`` and
+    ``spmd_logits_grad_check``) and 16b on cuda:0, K1 checked at 16c's
+    tp-local shapes, then 16c over min(visible cards, 4) ranks (with one
+    card, one line saying so). Returns K1's launches on the phase's main
+    paths by kernel row name."""
+    t16 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = card_line()
+    cards = torch.cuda.device_count()
+    world = 4 if cards >= 4 else 2 if cards >= 2 else 1
+    # K1 on the four-card legs' (and two cards' legs') rank shapes, q, k,
+    # v packed as their QKV GEMM lays them out: [B, T, 3, H/tp, Dh]
+    for i, (B, H) in enumerate(spmd_k1_shapes(
+            SPMD_LEGS[4] + SPMD_LEGS[2] * (world == 2))):
+        flash_check(torch, fa, B, H, SPMD["seq"], SPMD["seq"], True,
+                    "bfloat16", seed=40 + i, packed=True)
+    leg = spmd_train_leg(torch, fa)
+    check_spmd_train_leg(leg, on_card=True)
+    launches = {"flash_attention_tc_fwd": leg["k1_fwd"]["tc"],
+                "flash_attention_tc_bwd": leg["k1_bwd"]["tc"]}
+    print("spmd_train " + json.dumps(dict(leg, card=card)), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cvc = spmd_card_vs_cpu(torch, fa)
+    print("spmd_card_vs_cpu " + json.dumps(cvc), flush=True)
+    if not cvc["ok"]:
+        fail("16a: the fp32 leg on the card is off the CPU's: %r" % cvc)
+    bad = k1_gate((cvc["k1_fwd"], cvc["k1_bwd"], cvc["k1_copies"]),
+                  cvc["layers"], 1, 1, True, "f32tc", cvc["steps"])
+    if bad:
+        fail("16a: the fp32 leg: %s" % bad)
+    spmd_logits_grad_check(torch)
+    launches["flash_attention_f32tc_fwd"] = cvc["k1_fwd"]["f32tc"]
+    launches["flash_attention_f32tc_bwd"] = cvc["k1_bwd"]["f32tc"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = spmd_train_leg(torch, fa, steps=SPMD["moe_steps"], warmup=0,
+                         n_experts=SPMD["experts"])
+    check_spmd_train_leg(moe, on_card=True)
+    launches["flash_attention_tc_fwd"] += moe["k1_fwd"]["tc"]
+    launches["flash_attention_tc_bwd"] += moe["k1_bwd"]["tc"]
+    print("spmd_moe " + json.dumps(dict(moe, card=card)), flush=True)
+    if world == 1:
+        print("spmd_multi " + json.dumps({
+            "world": 1, "cards": cards, "ran": False,
+            "why": "one card visible: no multi-rank mesh (16a-b carry the "
+                   "gates)"}), flush=True)
+    else:
+        gc.collect()
+        torch.cuda.empty_cache()
+        results = run_ranks(SPMD_RANK_FLAG, "phase16_rank", world, timeout)
+        for name in results[0]["legs"]:
+            print("spmd_multi " + json.dumps({
+                "leg": name, "world": world, "card": card,
+                "ranks": [dict(r["legs"][name], rank=r["rank"])
+                          for r in results]}), flush=True)
+        bad = check_spmd_ranks(results, on_card=True)
+        if bad:
+            fail("16c: " + "; ".join(bad))
+        for r in results:
+            for leg_r in r["legs"].values():
+                launches["flash_attention_tc_fwd"] += leg_r["k1_fwd"]["tc"]
+                launches["flash_attention_tc_bwd"] += leg_r["k1_bwd"]["tc"]
+    print("spmd_phase " + json.dumps({
+        "world": world, "seconds": time.perf_counter() - t16,
+        "k1_launches": launches}), flush=True)
+    return launches
+
+
 def main():
     try:
         import torch
@@ -7741,6 +8464,8 @@ def main():
     for row in rows:
         if row["C"] == 1:
             row["launches"] += k2_c1
+    for name, n in spmd_phase(torch, fa_mod).items():
+        flash_rows[name]["launches"] += n
     kernels = rows + tree_rows + list(flash_rows.values()) + int8_rows
     idle = [(r["name"], r.get("C"), r.get("shape")) for r in kernels
             if not r.get("launches")]
@@ -7763,5 +8488,7 @@ if __name__ == "__main__":
         lockcheck_child_main(json.loads(sys.argv[2]))
     elif len(sys.argv) == 3 and sys.argv[1] == FIRST_FLAG:
         first_program_main(json.loads(sys.argv[2]))
+    elif len(sys.argv) == 3 and sys.argv[1] == SPMD_RANK_FLAG:
+        spmd_rank_main(json.loads(sys.argv[2]))
     else:
         main()

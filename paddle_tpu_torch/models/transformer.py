@@ -25,9 +25,11 @@ take the JAX package's einsum branch. The card has no plain path.
 
 ``init_params``, ``params_from_numpy`` run on ``cuda:0`` unless given
 ``device="cpu"`` (and raise without CUDA); the model functions run on
-their tensors' device. Not ported: tensor and expert parallelism and the
-MoE FFN (``parallel/transformer.py``, ROADMAP.md Queue 1 item 9); the
-single-chip functions never read ``moe``.
+their tensors' device. They compute on whatever shard they are handed:
+``parallel/transformer.py`` (the SPMD trainer) calls `attention_block`
+and `ffn_block` with tp-local weights (``wqkv`` [D, 3, H/tp, Dh], so K1
+runs on the H/tp local heads) and holds the switch MoE FFN (``moe``),
+which the single-chip functions never read.
 """
 
 import dataclasses
@@ -46,7 +48,7 @@ from ..ops.registry import weak_scalar
 
 __all__ = ["TransformerConfig", "attention_block", "causal_attention",
            "embed_tokens", "ffn_block", "init_params", "layer_norm",
-           "lm_logits", "param_count", "params_from_numpy",
+           "lm_logits", "logits_grads", "param_count", "params_from_numpy",
            "single_chip_forward", "single_chip_hidden", "single_chip_loss",
            "token_cross_entropy", "tree_leaves", "tree_map"]
 
@@ -171,13 +173,14 @@ def layer_norm(x, scale, bias, eps=1e-5):
 
 
 def causal_attention(q, k, v, seq_offset=0, use_flash=None):
-    """q, k, v: [B, T, H, Dh]. On CUDA tensors the flash-attention kernel
-    K1 (causal, scale 1/sqrt(Dh)) on [B, H, T, Dh] views, at any T and
-    Dh; a `seq_offset` other than 0 raises there (its callers are the
-    sequence-parallel ones, ROADMAP.md Queue 1 item 9). CPU tensors take
-    the JAX package's non-flash branch (fp32 logits, a -1e30 causal
-    mask, fp32 softmax, probs in q's dtype) unless `use_flash`, which
-    runs K1's plain version."""
+    """q, k, v: [B, T, H, Dh] (H may be a tp-local slice). On CUDA
+    tensors the flash-attention kernel K1 (causal, scale 1/sqrt(Dh)) on
+    [B, H, T, Dh] views, at any T and Dh; a `seq_offset` other than 0
+    raises there: the SPMD trainer's sequence parallelism gathers the
+    whole sequence before attention, as the JAX package's does, and no
+    caller passes one. CPU tensors take the JAX package's non-flash
+    branch (fp32 logits, a -1e30 causal mask, fp32 softmax, probs in q's
+    dtype) unless `use_flash`, which runs K1's plain version."""
     B, Tq, H, Dh = q.shape
     Tk = k.shape[1]
     cuda = q.device.type == "cuda"
@@ -189,9 +192,11 @@ def causal_attention(q, k, v, seq_offset=0, use_flash=None):
     if use_flash:
         if seq_offset != 0:
             raise NotImplementedError(
-                "causal_attention with seq_offset=%d: the sequence-parallel "
-                "attention of parallel/transformer.py is not ported "
-                "(ROADMAP.md Queue 1 item 9)" % seq_offset)
+                "causal_attention with seq_offset=%d on the kernel "
+                "route: K1 runs self-attention over the whole sequence "
+                "(the SPMD trainer's sequence parallelism gathers it "
+                "first, as the JAX package's does); an offset query "
+                "block has no kernel" % seq_offset)
         ctx = _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), True,
                                   1.0 / math.sqrt(Dh))
@@ -244,19 +249,65 @@ def _head_weight(params, dtype):
     return w.to(dtype)
 
 
+# the card's logits grads against JAX's, in the 2-norm of each grad:
+# rounding the fp32 cotangent to bf16 (2^-9 relative at most) before the
+# GEMMs adds one rounding's worth: 2.6e-3 on the CPU's bf16 GEMM
+# (tests/test_torch_native_transformer.py), 2.55e-3 on an NVIDIA H100
+# 80GB HBM3 at 700 W at the flagship's head width (chip_smoke.py's phase
+# 16a, which holds it); one bf16 epsilon, 2^-8, holds it
+LOGITS_GRAD_RTOL = 2.0 ** -8
+
+
+def logits_grads(h, w, g, round_cotangent):
+    """The grads of the fp32 logits h [N, D] @ w [D, V] (a 16-bit dtype)
+    from their cotangent g [N, V] (fp32), each in its operand's dtype.
+    Without `round_cotangent`, JAX's transpose of a dot with
+    ``preferred_element_type=float32``: the fp32 products g wᵀ and hᵀ g,
+    rounded to the dtype (JAX's up to the order of the fp32 sums). With
+    it (the
+    card's route): g rounded to the dtype first, then two GEMMs in the
+    dtype with fp32 accumulation on the tensor cores, in place of fp32
+    GEMMs on the SIMT cores; the grads then differ from JAX's by up to
+    LOGITS_GRAD_RTOL of their norm."""
+    if round_cotangent:
+        g = g.to(h.dtype)
+        return g @ w.t(), h.t() @ g
+    return ((g @ w.float().t()).to(h.dtype),
+            (h.float().t() @ g).to(w.dtype))
+
+
+class _F32Logits(torch.autograd.Function):
+    """h [N, D] @ w [D, V] in a 16-bit dtype with fp32 logits: cuBLAS's
+    GEMM with an fp32 output on the card, the fp32 product of the widened
+    operands on the CPU (the same values up to the order of the sums).
+    Backward: `logits_grads`, the cotangent rounded first on the card
+    only."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        if h.device.type == "cuda":
+            return torch.mm(h, w, out_dtype=torch.float32)
+        return h.float() @ w.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        return logits_grads(h, w, g, h.device.type == "cuda")
+
+
 def lm_logits(params, h, cfg):
     """fp32 logits [..., V] accumulated from h's dtype (the tied
     embedding's transpose, or ``lm_head``), never rounded to it: on the
     card cuBLAS's bf16 / fp16 GEMM with an fp32 output, on the CPU the
-    fp32 product of the exactly widened operands."""
+    fp32 product of the exactly widened operands (`_F32Logits`, which
+    also carries the grads: `logits_grads`)."""
     w = _head_weight(params, h.dtype)
     h2 = h.reshape(-1, h.shape[-1])
     if h.dtype == torch.float32:
         out = h2 @ w
-    elif h.device.type == "cuda":
-        out = torch.mm(h2, w, out_dtype=torch.float32)
     else:
-        out = h2.float() @ w.float()
+        out = _F32Logits.apply(h2, w)
     return out.view(*h.shape[:-1], w.shape[-1])
 
 

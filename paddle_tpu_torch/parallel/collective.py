@@ -27,16 +27,50 @@ Every call goes through `all_reduce` / `all_gather_rows`, which count
 calls and bytes in `counts` (``reset_counts()`` zeroes them): the card's
 gate reads the port's own calls, since NCCL's all-reduce of one rank is
 a copy and may launch no kernel.
+
+The SPMD trainer's axis collectives (``parallel/transformer.py``) run on
+a mesh line (``mesh.AxisGroup``) and carry the transposes JAX's
+``shard_map`` applies:
+
+- `all_gather(x, group, dim)`: ``all_gather(..., axis=dim, tiled=True)``;
+  backward a sum reduce-scatter of the cotangent on `dim`.
+- `reduce_scatter(x, group, dim)`: ``psum_scatter(...,
+  scatter_dimension=dim, tiled=True)``; backward an all-gather.
+- `all_to_all(x, group)`: ``all_to_all(split_axis=0, concat_axis=0)``
+  (chunk r of dim 0 to rank r; the result's chunk s from rank s);
+  backward the same exchange of the cotangent.
+- `psum_leaves(tensors, group)`: sums with no backward (the per-leaf
+  grad sums, the loss), the leaves in one bucket.
+- `send_recv(sends, recvs, group)`: one ``batch_isend_irecv`` (the
+  pipeline's two chains), waited on.
+
+A line of one rank makes each of them the identity, but each call is
+counted all the same: ``counts[kind]`` and ``counts[kind + "_bytes"]``
+for a call in a forward (a remat recompute's too), ``kind + "_bwd"``
+for one a backward issues, kinds "axis_gather", "reduce_scatter",
+"all_to_all", "psum" and "send_recv"; ``host_seconds[kind]`` the host's
+time inside the call (NCCL returns once the work is queued; gloo once
+it is done).
 """
+
+import time
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_gather_rows", "all_reduce", "counts", "enter_sharded",
-           "reduce_chooser", "reduce_replicated", "reset_counts"]
+__all__ = ["all_gather", "all_gather_rows", "all_reduce", "all_to_all",
+           "counts", "enter_sharded", "host_seconds", "psum_leaves",
+           "reduce_chooser", "reduce_replicated",
+           "reduce_scatter", "reset_counts", "send_recv"]
 
 counts = {"all_reduce": 0, "all_reduce_bytes": 0, "all_gather": 0,
           "all_gather_bytes": 0}
+AXIS_KINDS = ("axis_gather", "reduce_scatter", "all_to_all", "psum",
+              "send_recv")
+for _kind in AXIS_KINDS:
+    for _key in (_kind, _kind + "_bwd"):
+        counts[_key] = counts[_key + "_bytes"] = 0
+host_seconds = {k: 0.0 for k in AXIS_KINDS}
 
 _OPS = {"sum": dist.ReduceOp.SUM, "prod": dist.ReduceOp.PRODUCT,
         "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
@@ -45,6 +79,8 @@ _OPS = {"sum": dist.ReduceOp.SUM, "prod": dist.ReduceOp.PRODUCT,
 def reset_counts():
     for k in counts:
         counts[k] = 0
+    for k in host_seconds:
+        host_seconds[k] = 0.0
 
 
 def _nbytes(t):
@@ -158,3 +194,158 @@ def enter_sharded(x, group):
             and torch.is_grad_enabled():
         return _EnterSharded.apply(x, group)
     return x
+
+
+# ---------------------------------------------------------------------------
+# the SPMD trainer's axis collectives
+# ---------------------------------------------------------------------------
+
+
+def _issue(kind, nbytes, bwd, fn):
+    """Count one call of `kind` and run `fn` (the communication) timed."""
+    key = kind + "_bwd" if bwd else kind
+    counts[key] += 1
+    counts[key + "_bytes"] += nbytes
+    t0 = time.perf_counter()
+    out = fn()
+    host_seconds[kind] += time.perf_counter() - t0
+    return out
+
+
+def _gather(x, group, dim, bwd=False):
+    """Every rank's `x` concatenated on `dim`, in axis order."""
+    x = x.contiguous()
+    if group.world == 1:
+        _issue("axis_gather", _nbytes(x), bwd, lambda: None)
+        return x.view_as(x)
+    # gloo wants the ranks' tensors concatenated on dim 0
+    out = x.new_empty((group.world * x.shape[0],) + tuple(x.shape[1:]))
+    _issue("axis_gather", _nbytes(x), bwd,
+           lambda: dist.all_gather_into_tensor(out, x, group=group.pg))
+    if dim == 0:
+        return out
+    shape = list(x.shape)
+    shape[dim] *= group.world
+    return out.view((group.world,) + tuple(x.shape)).movedim(
+        0, dim).reshape(shape)
+
+
+def _scatter(x, group, dim, bwd=False):
+    """The sum over the ranks of `x`, this rank's chunk of `dim`."""
+    if group.world == 1:
+        _issue("reduce_scatter", _nbytes(x), bwd, lambda: None)
+        return x.view_as(x)
+    if x.shape[dim] % group.world:
+        raise ValueError("reduce_scatter: dim %d of %s does not split "
+                         "over %d ranks" % (dim, tuple(x.shape),
+                                            group.world))
+    parts = x.unflatten(dim, (group.world, -1)).movedim(dim, 0).contiguous()
+    out = parts.new_empty(parts.shape[1:])
+    _issue("reduce_scatter", _nbytes(parts), bwd,
+           lambda: dist.reduce_scatter_tensor(out, parts.flatten(0, 1),
+                                              group=group.pg))
+    return out
+
+
+def _exchange(x, group, bwd=False):
+    """all_to_all on dim 0: chunk r to rank r, chunk s of the result from
+    rank s."""
+    x = x.contiguous()
+    if group.world == 1:
+        _issue("all_to_all", _nbytes(x), bwd, lambda: None)
+        return x.view_as(x)
+    out = torch.empty_like(x)
+    _issue("all_to_all", _nbytes(x), bwd,
+           lambda: dist.all_to_all_single(out, x, group=group.pg))
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter(g, ctx.group, ctx.dim, bwd=True), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.group, ctx.dim, bwd=True), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group, bwd=True), None
+
+
+def _differentiable(x):
+    return x.requires_grad and torch.is_grad_enabled()
+
+
+def all_gather(x, group, dim):
+    """JAX's ``all_gather(x, axis, axis=dim, tiled=True)`` over `group`;
+    its backward reduce-scatters the cotangent."""
+    if _differentiable(x):
+        return _AllGather.apply(x, group, dim)
+    return _gather(x, group, dim)
+
+
+def reduce_scatter(x, group, dim):
+    """JAX's ``psum_scatter(x, axis, scatter_dimension=dim, tiled=True)``
+    over `group`; its backward all-gathers the cotangent."""
+    if _differentiable(x):
+        return _ReduceScatter.apply(x, group, dim)
+    return _scatter(x, group, dim)
+
+
+def all_to_all(x, group):
+    """JAX's ``all_to_all(x, axis, split_axis=0, concat_axis=0)`` over
+    `group` (dim 0 of size group.world); its backward is the same
+    exchange of the cotangent."""
+    if _differentiable(x):
+        return _AllToAll.apply(x, group)
+    return _exchange(x, group)
+
+
+def psum_leaves(tensors, group):
+    """New tensors: each of `tensors` summed over `group`, all in one
+    flat bucket of their common dtype (one call)."""
+    flat = torch.cat([t.detach().reshape(-1) for t in tensors])
+    _issue("psum", _nbytes(flat), False,
+           lambda: None if group.world == 1
+           else dist.all_reduce(flat, group=group.pg))
+    return [p.view_as(t) for p, t in zip(
+        flat.split([t.numel() for t in tensors]), tensors)]
+
+
+def send_recv(sends, recvs, group):
+    """One ``batch_isend_irecv`` of (tensor, global peer rank) sends and
+    (buffer, global peer rank) receives, waited on; nothing (and no
+    count) when both are empty."""
+    if not sends and not recvs:
+        return
+    ops = ([dist.P2POp(dist.isend, t.contiguous(), peer, group.pg)
+            for t, peer in sends]
+           + [dist.P2POp(dist.irecv, buf, peer, group.pg)
+              for buf, peer in recvs])
+
+    def run():
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+    _issue("send_recv", sum(_nbytes(t) for t, _ in sends), False, run)

@@ -1,6 +1,8 @@
-"""The data group over ``torch.distributed`` (parity: the JAX package's
-``parallel/mesh.py``: `get_mesh`, `default_mesh`, `set_default_mesh`,
-`mesh_axis_sizes`).
+"""The data group and the SPMD trainer's mesh over ``torch.distributed``
+(parity: the JAX package's ``parallel/mesh.py``: `get_mesh`,
+`default_mesh`, `set_default_mesh`, `mesh_axis_sizes`; and the
+``Mesh(devices.reshape(dp, pp, tp), ("dp", "pp", "tp"))`` of
+``parallel/transformer.py``'s ``SPMDTrainer``, `SPMDMesh` here).
 
 The JAX package lays every device of its one process on a ``dp`` mesh
 axis. The port runs one process a rank: rank, world size and the
@@ -18,6 +20,7 @@ The backend follows the device: ``nccl`` for a CUDA device, each rank on
 that does not ask for the CPU gets an error, not the CPU.
 """
 
+import itertools
 import os
 import socket
 
@@ -26,9 +29,10 @@ import torch.distributed as dist
 
 from ..core.place import default_device
 
-__all__ = ["DataGroup", "Mesh", "data_group", "default_mesh",
-           "destroy_data_group", "env_contract", "get_mesh",
-           "init_data_group", "mesh_axis_sizes", "set_default_mesh"]
+__all__ = ["AXES", "AxisGroup", "DataGroup", "Mesh", "MeshGroupOrderError",
+           "SPMDMesh", "data_group", "default_mesh", "destroy_data_group",
+           "env_contract", "get_mesh", "group_plan", "init_data_group",
+           "mesh_axis_sizes", "mesh_unions", "set_default_mesh"]
 
 _default_mesh = [None]
 _group = [None]
@@ -53,14 +57,18 @@ class DataGroup:
 
 
 class Mesh:
-    """The JAX Mesh's face over the data group: `axis_names` ("dp",),
-    `shape` {"dp": world}, `devices` (this rank's), `group`."""
+    """The JAX Mesh's face over the data group, for the Fluid data-parallel
+    path (``ParallelExecutor``, ``CompiledProgram``, the fleet):
+    `axis_names` ("dp",), `shape` {"dp": world}, `devices` (this rank's),
+    `group`. The SPMD trainer's (dp, pp, tp) mesh is `SPMDMesh`."""
 
     def __init__(self, group, axis_names=("dp",)):
         if tuple(axis_names) != ("dp",):
             raise NotImplementedError(
-                "mesh axes %r: the port's mesh has the data axis only; tp, "
-                "pp and sp wait for the rest of ROADMAP.md Queue 1 item 9"
+                "mesh axes %r: the Fluid data-parallel mesh has the data "
+                "axis only (the planner's tp walk and the Fluid pipeline "
+                "wait for ROADMAP.md Queue 1 item 9); the SPMD trainer's "
+                "(dp, pp, tp) mesh is parallel.mesh.SPMDMesh"
                 % (tuple(axis_names),))
         self.group = group
         self.axis_names = ("dp",)
@@ -182,3 +190,174 @@ def set_default_mesh(mesh):
 
 def mesh_axis_sizes(mesh):
     return dict(mesh.shape)
+
+
+# ---------------------------------------------------------------------------
+# the SPMD trainer's (dp, pp, tp) mesh
+# ---------------------------------------------------------------------------
+
+AXES = ("dp", "pp", "tp")
+
+
+class MeshGroupOrderError(RuntimeError):
+    """The ranks would create the mesh's process groups in different
+    orders. ``new_group`` is collective over every rank, so NCCL would
+    hang; the mesh compares the plans first and raises this instead."""
+
+
+class AxisGroup(DataGroup):
+    """This rank's line of one union of mesh axes: a `DataGroup` (`pg`
+    None for a line of one rank) plus `ranks`, the line's global ranks in
+    axis order (`rank` is this rank's index among them)."""
+
+    def __init__(self, pg, ranks, rank, device, backend):
+        super().__init__(pg, ranks.index(rank), len(ranks), device, backend)
+        self.ranks = tuple(ranks)
+
+    def __repr__(self):
+        return "AxisGroup(ranks=%r, rank=%d)" % (self.ranks, self.rank)
+
+
+def mesh_unions(unions=()):
+    """The unions of mesh axes a mesh builds groups for, checked and in
+    one fixed order: each of `unions` (an axis name or a tuple of them)
+    as a tuple in AXES order, plus the single axes and all three (the
+    loss's sum), sorted by size then by AXES order, each once."""
+    out = {(a,) for a in AXES} | {AXES}
+    for u in unions:
+        u = (u,) if isinstance(u, str) else tuple(u)
+        key = tuple(a for a in AXES if a in u)
+        if not u or len(key) != len(u) or len(set(u)) != len(u):
+            raise ValueError("mesh axes %r: expected distinct names from %r"
+                             % (u, AXES))
+        out.add(key)
+    return sorted(out, key=lambda u: (len(u), [AXES.index(a) for a in u]))
+
+
+def group_plan(shape, unions):
+    """The process groups of a (dp, pp, tp) mesh in the one order every
+    rank creates them: for each union of axes of `unions` (a
+    `mesh_unions` list), each line of it (the ranks whose other
+    coordinates agree, sorted) as (axes, ranks). A rank's coordinates
+    are the JAX mesh's ``reshape(dp, pp, tp)``: rank = (d·pp + p)·tp +
+    t."""
+    coords = list(itertools.product(*(range(n) for n in shape)))
+    plan = []
+    for axes in unions:
+        lines = {}
+        for rank, c in enumerate(coords):
+            key = tuple(x for a, x in zip(AXES, c) if a not in axes)
+            lines.setdefault(key, []).append(rank)
+        plan += [(axes, tuple(lines[key])) for key in sorted(lines)]
+    return plan
+
+
+class SPMDMesh:
+    """The (dp, pp, tp) mesh of ``SPMDTrainer``: one process a rank.
+
+    `mesh_shape` (dp, pp, tp); `shape` the same as a dict (the JAX
+    Mesh's, so `mesh_axis_sizes` reads it); `rank`,
+    `world`, `device`, `backend`; `axis_index(name)` and
+    `axis_size(name)`; `group(axes)` this rank's `AxisGroup` of one axis
+    or of a union of axes (a str or a tuple, in any order) among
+    `unions`: the single axes, all three, and the unions given
+    (`mesh_unions`; the trainer's are the axes its grads are summed
+    over).
+
+    A mesh of more than one rank runs on the data group
+    (`init_data_group`: the fleet's env contract, NCCL on the card, gloo
+    on the CPU) and needs the world size to equal dp·pp·tp. Every rank
+    creates every group of `group_plan` over `unions`, in its order
+    (``new_group`` is
+    collective), after checking that all ranks hold the same plan
+    (`MeshGroupOrderError` if not), then runs one all-reduce on each
+    group it is in, in the same order: NCCL's communicators come up here
+    rather than inside a step, and the pipeline's first send/receive is
+    not a group's first call. A mesh of one rank needs no process group:
+    every axis is a line of one, each collective the identity (still
+    counted)."""
+
+    def __init__(self, shape, device=None, unions=()):
+        shape = tuple(int(n) for n in shape)
+        self.unions = mesh_unions(unions)
+        if len(shape) != 3 or min(shape) < 1:
+            raise ValueError("mesh shape %r: expected (dp, pp, tp), each "
+                             ">= 1" % (shape,))
+        self.mesh_shape = shape
+        self.shape = dict(zip(AXES, shape))
+        n = shape[0] * shape[1] * shape[2]
+        self._owned = []
+        if n == 1:
+            rank = dist.get_rank() if dist.is_initialized() else 0
+            self.rank, self.world = 0, 1
+            self.device = _rank_device(device, rank)
+            self.backend = None
+            self._coords = (0, 0, 0)
+            self._groups = {axes: AxisGroup(None, ranks, 0, self.device,
+                                            None)
+                            for axes, ranks in group_plan(shape,
+                                                          self.unions)}
+            return
+        g = init_data_group(device)
+        if g.world != n:
+            raise ValueError(
+                "the world size (%d) must equal dp·pp·tp = %d for mesh %r"
+                % (g.world, n, shape))
+        self.rank, self.world = g.rank, g.world
+        self.device, self.backend = g.device, g.backend
+        self._coords = tuple(itertools.product(
+            *(range(k) for k in shape)))[self.rank]
+        plan = group_plan(shape, self.unions)
+        self._check_plan(g, plan)
+        # one process group a distinct line (a union whose other axes
+        # have size 1 has the lines of a smaller one)
+        pgs = {tuple(range(g.world)): g.pg}
+        self._groups = {}
+        for axes, ranks in plan:
+            if len(ranks) > 1 and ranks not in pgs:
+                pgs[ranks] = dist.new_group(list(ranks))
+                self._owned.append(pgs[ranks])
+            if self.rank in ranks:
+                self._groups[axes] = AxisGroup(pgs.get(ranks), ranks,
+                                               self.rank, self.device,
+                                               self.backend)
+        one = torch.ones(1, device=self.device)
+        for ranks, pg in pgs.items():
+            if self.rank in ranks:
+                dist.all_reduce(one, group=pg)
+
+    def _check_plan(self, g, plan):
+        plans = [None] * g.world
+        dist.all_gather_object(plans, plan, group=g.pg)
+        bad = [r for r, p in enumerate(plans) if p != plans[0]]
+        if bad:
+            raise MeshGroupOrderError(
+                "ranks %r would create the process groups of mesh %r in "
+                "another order than rank 0 (new_group is collective: "
+                "every rank must create every group in one order)"
+                % (bad, self.mesh_shape))
+
+    def axis_index(self, name):
+        return self._coords[AXES.index(name)]
+
+    def axis_size(self, name):
+        return self.shape[name]
+
+    def group(self, axes):
+        if isinstance(axes, str):
+            axes = (axes,)
+        key = tuple(a for a in AXES if a in axes)
+        if key not in self.unions:
+            raise ValueError("mesh axes %r: this mesh has groups over %r "
+                             "only" % (axes, self.unions))
+        return self._groups[key]
+
+    def close(self):
+        """Take down the groups this mesh created (not the data group)."""
+        for pg in self._owned:
+            dist.destroy_process_group(pg)
+        self._owned = []
+
+    def __repr__(self):
+        return "SPMDMesh(dp=%d, pp=%d, tp=%d, rank=%d, device=%s)" % (
+            self.mesh_shape + (self.rank, self.device))

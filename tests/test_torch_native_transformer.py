@@ -15,9 +15,11 @@ step lie within what those grad limits let Adam move them
 
 Cases: every ported function; ``single_chip_forward``;
 ``single_chip_loss`` and its grads against ``jax.value_and_grad`` with
-remat on and off (the port's two bitwise equal); ``causal_attention``
-against both JAX branches (einsum, and ``use_flash=True``, whose Pallas
-kernel runs in interpret mode as the JAX package's tests run it); two
+remat on and off (the port's two bitwise equal); ``lm_logits``'s bf16
+grads against ``jax.vjp``, by the CPU's route and the card's;
+``causal_attention`` against both JAX branches (einsum, and
+``use_flash=True``, whose Pallas kernel runs in interpret mode as the
+JAX package's tests run it); two
 ``bench.native_train_step``s against bench.py's update (:55-73, written
 out below); the parameter tree with ``tie_embeddings=False`` and
 ``n_experts=2``; the card as the default device; ``seq_offset != 0``
@@ -232,10 +234,11 @@ def test_causal_attention_matches_jax_flash_branch(dtype):
 
 def test_seq_offset_raises_on_the_kernel_route():
     """The kernel route (every CUDA call, ``use_flash`` on the CPU) takes
-    seq_offset 0 only; its other callers are the sequence-parallel
-    ones, not ported."""
+    seq_offset 0 only: the SPMD trainer's sequence parallelism gathers
+    the whole sequence before attention, so no caller passes one."""
     q, k, v, _ = (torch.from_numpy(a) for a in _qkv(1, 8, 8))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError,
+                       match="seq_offset=4 on the kernel route"):
         P.causal_attention(q, k, v, seq_offset=4, use_flash=True)
     P.causal_attention(q, k, v, seq_offset=0, use_flash=True)
 
@@ -265,6 +268,49 @@ def test_blocks_match_jax(dtype, store):
     lo_p = P.lm_logits(pp, x_p, pc)
     assert lo_p.dtype == torch.float32
     assert_close(lo_p, J.lm_logits(jp, x_j, jc), tol, "lm_logits")
+
+
+@pytest.mark.parametrize("tied", [True, False])
+def test_lm_logits_grads_match_jax_vjp_in_bf16(tied):
+    """``lm_logits``'s grads in bf16 (``_F32Logits``) against ``jax.vjp``
+    of the JAX ``lm_logits`` on the same inputs and fp32 cotangent: the
+    CPU's route to a bf16 rounding of each element; the card's
+    (``logits_grads`` with the cotangent rounded to bf16 first, run here
+    on the CPU's bf16 GEMM)
+    within LOGITS_GRAD_RTOL of each grad's norm. A transposed or
+    mis-scaled grad is off by its whole norm."""
+    rng = np.random.RandomState(7)
+    N, D, V = 96, 32, 80
+    h = rng.standard_normal((N, D)).astype(np.float32)
+    w = (rng.standard_normal((V, D) if tied else (D, V)) / np.sqrt(D)
+         ).astype(np.float32)
+    g = rng.standard_normal((N, V)).astype(np.float32)
+    jc, pc = configs("bfloat16")
+    key = "embed" if tied else "lm_head"
+    out_j, vjp = jax.vjp(lambda hh, ww: J.lm_logits({key: ww}, hh, jc),
+                         jnp.asarray(h, jnp.bfloat16), jnp.asarray(w))
+    gh_j, gw_j = (np.asarray(jnp.asarray(x, jnp.float32))
+                  for x in vjp(jnp.asarray(g)))
+    h_p = torch.from_numpy(h).to(torch.bfloat16).requires_grad_()
+    w_p = torch.from_numpy(w).requires_grad_()
+    out_p = P.lm_logits({key: w_p}, h_p, pc)
+    # fp32 sums in another order; a grad's rounding to bf16 may then
+    # flip by one ulp (2^-7 of the element at most)
+    np.testing.assert_allclose(out_p.detach().numpy(), np.asarray(out_j),
+                               rtol=1e-6, atol=1e-6)
+    gh_p, gw_p = torch.autograd.grad(out_p, (h_p, w_p), torch.from_numpy(g))
+    assert gh_p.dtype == torch.bfloat16 and gw_p.dtype == torch.float32
+    np.testing.assert_allclose(gh_p.float().numpy(), gh_j, rtol=2 ** -7)
+    np.testing.assert_allclose(gw_p.numpy(), gw_j, rtol=2 ** -7)
+    # the card's route on the same operands: w as the head uses it
+    w16 = P._head_weight({key: torch.from_numpy(w)}, torch.bfloat16)
+    gh_c, gw_c = P.logits_grads(h_p.detach(), w16, torch.from_numpy(g),
+                                round_cotangent=True)
+    gw_c = gw_c.float().t() if tied else gw_c.float()
+    for got, want in ((gh_c.float().numpy(), gh_j), (gw_c.numpy(), gw_j)):
+        rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+        assert 0 < rel <= P.LOGITS_GRAD_RTOL, rel
+        assert np.linalg.norm(2 * got - want) / np.linalg.norm(want) > 0.5
 
 
 def test_embed_scale_is_rounded_to_bf16_first():

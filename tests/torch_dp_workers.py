@@ -4,8 +4,9 @@
 closed at exit), each a rank of a gloo group brought up through the
 fleet's env contract (``PADDLE_TRAINER_ID`` / ``PADDLE_TRAINERS_NUM`` /
 ``PADDLE_TRAINER_ENDPOINTS``). `Pool.run(case, **kw)` runs the function
-`case` of this module on every rank and returns each rank's result in
-rank order; a rank that raises returns ``{"error": <message>}``.
+`case` of this module (or ``"module:function"`` of another) on every
+rank and returns each rank's result in rank order; a rank that raises
+returns ``{"error": <message>}``.
 
 This module imports only the port, torch and numpy: the builders take
 the Fluid module (``paddle_tpu`` or ``paddle_tpu_torch``) as an argument,
@@ -490,7 +491,12 @@ def _serve(rank, world, port, inq, outq):
             break
         case, kw = job
         try:
-            out = globals()[case](**kw)
+            if ":" in case:     # "module:function" of another worker module
+                mod, name = case.split(":")
+                fn = getattr(importlib.import_module(mod), name)
+            else:
+                fn = globals()[case]
+            out = fn(**kw)
         except (Exception, SystemExit):  # noqa: BLE001 (to the test)
             out = {"error": traceback.format_exc()}
         outq.put((rank, out))
