@@ -518,6 +518,28 @@ Phases, each fatal on failure (exit code 1, no result line):
      saying 16c ran no multi-rank mesh
      (``tests/test_torch_chip_smoke_spmd.py`` runs phase 16 on the CPU
      over gloo ranks of 1, 2 and 4, with planted faults).
+ 17. Fluid tensor parallelism and ZeRO-1 through
+     ``CompiledProgram.with_data_parallel``. 17a on cuda:0: the plan of
+     bench.py's headline program at full width at meshes (2, 2) and
+     (1, 4), computed without groups, must equal the JAX planner's table
+     (TP_TABLE, pinned by ``tests/test_torch_tensor_parallel.py``); its
+     predicted collectives a step (``tp_plan`` line); K1 bf16 causal at
+     the tp-local [80, 4, 512, 64] and [160, 2, 512, 64] with the fused
+     op's strides, checked and timed (``tp_k1`` lines). 17b and 17c with
+     four cards (``chip_smoke.py --phase17-rank``, one child a card,
+     NCCL): the headline program at (2, 2) and (1, 4), 3 + 8 steps, and
+     the LM under Adam and ReduceStrategy.Reduce at (2, 2), 2 steps with
+     its AllReduce twin; fatal unless every rank's first loss is within
+     SPMD_REF_RTOL of Executor.run's on the same init and batch, the
+     losses fall and agree, replicated params are bitwise equal on every
+     rank and tp shards across their dp replicas, the collectives counted
+     equal the plan's, no seam lies at an op of TP_NO_SEAM, attention ran
+     on H/tp heads, K1 ran 6 + 6 "tc" a step, and Reduce's params are
+     within the bf16 update limit of AllReduce's with its state at half
+     the bytes (``tp_multi`` lines: ms a step, tokens/s, peak GiB a
+     rank); with fewer cards one line saying 17b and 17c need four
+     (``tests/test_torch_chip_smoke_tp.py`` runs them on four gloo CPU
+     ranks, with planted faults).
 
 Then one JSON line ``{"kernels": [...]}`` (every kernel of every path,
 each with the launches of its path's run; a kernel launched no time there
@@ -8302,6 +8324,417 @@ def spmd_phase(torch, fa, timeout=900):
     return launches
 
 
+# phase 17: Fluid tensor parallelism and ZeRO-1 through
+# CompiledProgram.with_data_parallel (the planner's Megatron walk,
+# tensor_parallel_degree, ReduceStrategy.Reduce) on the (dp, tp) mesh.
+# 17a (one card): the plan of bench.py's headline program at full width
+# at meshes (2, 2) and (1, 4) against TP_TABLE (the JAX planner's, pinned
+# by tests/test_torch_tensor_parallel.py), its predicted collectives a
+# step, and K1 at the tp-local shapes with the fused op's strides; 17b
+# and 17c (four cards, one child a card, ``--phase17-rank``): the
+# headline program at (2, 2) and (1, 4) under SGD, and the LM under Adam
+# and ReduceStrategy.Reduce at (2, 2) with its AllReduce twin
+TP = dict(batch=160, warmup=3, steps=8, reduce_steps=2, tokens=4,
+          world=4, k1_shapes=((80, 4), (160, 2)))
+# (name, (dp, tp), optimizer, Reduce)
+TP_LEGS = [("bench_2x2", (2, 2), "sgd", False),
+           ("bench_1x4", (1, 4), "sgd", False),
+           ("adam_reduce_2x2", (2, 2), "adam", True)]
+TP_TABLE = os.path.join("tests", "data", "tp_plan_headline.json")
+TP_KINDS = ("reduce_tp", "gather_tp", "enter_tp_bwd", "zero_gather")
+TP_ADAM_LR = 1e-3
+TP_RANK_FLAG = "--phase17-rank"
+# the ops of attention, the FFN, the embedding and the CE head: each runs
+# on the rank's shards under its TpRule, so none may gather (a seam)
+TP_NO_SEAM = ("fused_multihead_attention", "flash_attention", "mul",
+              "lookup_table", "softmax_with_cross_entropy")
+
+
+def build_tp_lm(fluid, cfg, opt, dropout=0.0):
+    """The program of a phase 17 leg: bench.py's headline program
+    (``bench.build_program``: bf16-stored params, remat off, the legacy
+    AMP decorator over SGD(0.01), the compile-pipeline receipt) at the
+    widths `cfg`; with `opt` "adam" the same LM under the decorator over
+    Adam(TP_ADAM_LR); `dropout` > 0 takes attention's fc + split path.
+    Built under a fresh name scope: the vars carry the names the JAX
+    planner's table holds, whatever this process built before."""
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.models import transformer_fluid
+
+    cfg = dict(cfg)
+    seq = cfg.pop("seq_len")
+    if opt == "sgd" and not dropout:
+        with fluid.unique_name.guard():
+            main, startup, loss, _ = bench.build_program(seq, "bfloat16",
+                                                         "legacy", cfg)
+        return main, startup, loss
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _, _, loss = transformer_fluid.build(
+            seq_len=seq, remat=False, dtype="bfloat16",
+            dropout_rate=dropout, **cfg)
+        base = fluid.optimizer.Adam(TP_ADAM_LR) if opt == "adam" \
+            else fluid.optimizer.SGD(0.01)
+        fluid.contrib.mixed_precision.decorate(
+            base, init_loss_scaling=1.0,
+            use_dynamic_loss_scaling=False).minimize(loss)
+    return main, startup, loss
+
+
+def tp_plan_check(fluid):
+    """17a's plan: the headline program's `plan_program` summary at (2,
+    2) and (1, 4), computed without groups, against TP_TABLE, and the
+    step's predicted collectives (``plan_batch`` at TP["batch"] rows).
+    Returns one report a mesh; fails on a difference."""
+    from paddle_tpu_torch.parallel.planner import (plan_batch, plan_program,
+                                                   state_layout)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, TP_TABLE)) as f:
+        table = json.load(f)
+    main, _, _ = build_tp_lm(fluid, TRAIN, "sgd")
+    out = {}
+    for key, (dp, tp) in (("2x2", (2, 2)), ("1x4", (1, 4))):
+        plan = plan_program(main, {"dp": dp, "tp": tp})
+        got = {n: list(s) for n, s in plan.summary().items()}
+        if got != table[key]:
+            diff = sorted(n for n in set(got) | set(table[key])
+                          if got.get(n) != table[key].get(n))
+            fail("17a: the plan at (%d, %d) differs from the JAX planner's "
+                 "table at %r" % (dp, tp, diff[:8]))
+        layout, zero = state_layout(main, plan, tp, dp)
+        bp = plan_batch(main, ["labels", "tokens"], dp, tp=tp,
+                        layout=layout, zero=zero, rows=TP["batch"])
+        out[key] = {"mesh": [dp, tp], "specs": len(got),
+                    "tp_sharded": len(layout), "seams": bp.seams,
+                    "expected_dp": bp.expected(main.global_block()),
+                    "expected_tp": bp.expected_tp()}
+    return out
+
+
+def tp_feed(torch, cfg, batch, device, tokens=None):
+    """bench.py's kind of batch: RandomState(0) tokens, labels shifted;
+    `tokens` ids only (a loss that falls within the steps)."""
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, tokens or cfg["vocab_size"],
+                       (batch, cfg["seq_len"])).astype(np.int32)
+    return {"tokens": torch.from_numpy(toks).to(device),
+            "labels": torch.from_numpy(np.roll(toks, -1, axis=1)).to(device)}
+
+
+def _digest(torch, t):
+    """A checksum of `t`'s bytes."""
+    return zlib.crc32(t.detach().cpu().contiguous().view(
+        torch.uint8).numpy().tobytes())
+
+
+def tp_sharded_run(torch, fluid, fa, C, main, loss, init, feed, mesh,
+                   reduce_, runs, warmup, device):
+    """`runs` steps of ``CompiledProgram.with_data_parallel`` at `mesh`
+    (Reduce or AllReduce) from `init` on the global batch `feed`, K1's
+    and the collectives' counts zeroed just before and read just after
+    (the main path), the steps after `warmup` timed. Returns (report,
+    scope, step)."""
+    from paddle_tpu_torch.compiler import BuildStrategy
+
+    exe = fluid.Executor(device)
+    scope = _restore(fluid, init)
+    bs = BuildStrategy()
+    bs.tensor_parallel_degree = mesh[1]
+    if reduce_:
+        bs.reduce_strategy = BuildStrategy.ReduceStrategy.Reduce
+    prog = fluid.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name, build_strategy=bs)
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    fa.reset_counts()                          # main path starts
+    C.reset_counts()
+    losses, t0 = [], None
+    for i in range(runs):
+        if i == warmup:
+            if on_card:
+                torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+        out, = exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+        losses.append(float(np.asarray(out).ravel()[0]))
+    wall = time.perf_counter() - t0 if t0 is not None else None
+    k1 = flash_counts(fa)                      # main path ends
+    counts = dict(C.counts)
+    step = next(iter(prog._compiled_steps.values()))
+    timed = runs - warmup
+    rep = {"mesh": list(mesh), "reduce": reduce_, "runs": runs,
+           "losses": losses,
+           "ms_per_step": wall * 1e3 / timed if wall else None,
+           "tokens_per_s": (feed["tokens"].numel() * timed / wall
+                            if wall else None),
+           "k1_fwd": k1[0], "k1_bwd": k1[1], "k1_copies": k1[2],
+           "counts": {k: counts[k] for k in
+                      ("all_reduce", "all_reduce_bytes") + TP_KINDS
+                      + tuple(k + "_bytes" for k in TP_KINDS)},
+           "expected_dp": list(step.expected_collectives()),
+           "expected_tp": {k: list(v) for k, v in
+                           step.expected_tp().items()},
+           "seams": [list(s) for s in step.plan.seams],
+           "layout": dict(step.layout), "zero": sorted(step.zero),
+           "peak_gib": (torch.cuda.max_memory_allocated(device) / 2 ** 30
+                        if on_card else None)}
+    return rep, scope, step
+
+
+def tp_rank_legs(device=None, legs=None, cfg=None, batch=None, warmup=None,
+                 steps=None, tokens=None, dropout=0.0):
+    """17b/17c on this rank: each leg of TP_LEGS (or `legs`) at `cfg`
+    (default TRAIN) on the global batch `batch`: the init drawn by the
+    startup program (the same on every rank), Executor.run's first loss
+    on the global batch on this rank's device (the plain reference),
+    then warm-up and timed steps through CompiledProgram (the Reduce leg:
+    TP["reduce_steps"] steps, then its AllReduce twin from the same
+    init, and the gathered parameters compared). Returns this rank's
+    results."""
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.compiler import gather_persistables
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.parallel import collective as C
+    from paddle_tpu_torch.parallel.mesh import init_data_group
+
+    g = init_data_group(device)
+    cfg = TRAIN if cfg is None else cfg
+    legs = legs or TP_LEGS
+    batch = batch or TP["batch"]
+    warmup = TP["warmup"] if warmup is None else warmup
+    steps = steps or TP["steps"]
+    dev = g.device
+    out = {"rank": g.rank, "world": g.world, "backend": g.backend,
+           "device": str(dev), "legs": {}}
+    feed = tp_feed(torch, cfg, batch, dev, tokens or TP["tokens"])
+    for name, mesh, opt, reduce_ in legs:
+        main, startup, loss = build_tp_lm(fluid, cfg, opt, dropout)
+        exe = fluid.Executor(dev)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        init = _snapshot(scope)
+        del scope
+        # from the snapshot, as the sharded runs start: the step counter
+        # (which seeds dropout's masks) at 0
+        ref, = exe.run(main, feed=feed, fetch_list=[loss],
+                       scope=_restore(fluid, init))
+        runs = TP["reduce_steps"] if reduce_ else warmup + steps
+        rep, scope, step = tp_sharded_run(
+            torch, fluid, fa, C, main, loss, init, feed, mesh, reduce_, runs,
+            0 if reduce_ else warmup, dev)
+        rep.update(name=name, ref_loss=float(np.asarray(ref).ravel()[0]),
+                   layers=cfg["n_layers"], heads=cfg["n_heads"],
+                   coords=[g.rank // mesh[1], g.rank % mesh[1]])
+        params = sorted(main.param_grad_map)
+        rep["digests"] = {n: _digest(torch, scope.get(n)) for n in params}
+        wq = [n for n in params if n.endswith("_wq")]
+        rep["local_heads"] = [int(scope.get(n).shape[1]) for n in wq]
+        if reduce_:
+            got = gather_persistables(scope, params)
+            held = {n: scope.get(n).numel() * scope.get(n).element_size()
+                    for n in rep["zero"]}
+            del scope
+            twin, tscope, _ = tp_sharded_run(
+                torch, fluid, fa, C, main, loss, init, feed, mesh, False,
+                runs, 0, dev)
+            want = gather_persistables(tscope, params)
+            rep["twin_losses"] = twin["losses"]
+            rep["zero_bytes"] = sum(held.values())
+            rep["allreduce_bytes_of_zero_state"] = sum(
+                tscope.get(n).numel() * tscope.get(n).element_size()
+                for n in held)
+            start = {n: init[n].float() for n in params}
+            largest = max(float((want[n].float() - start[n].to(
+                want[n].device)).abs().max()) for n in params)
+            worst, worst_name = -np.inf, None
+            for n in params:
+                a, b = got[n].float().cpu().numpy(), want[n].float().cpu() \
+                    .numpy()
+                s = start[n].cpu().numpy()
+                mag = np.maximum(np.maximum(np.abs(a), np.abs(b)), np.abs(s))
+                excess = float((np.abs(a - b) - 2 * ulp(mag, 7)).max()
+                               / (largest / 128))
+                if excess > worst:
+                    worst, worst_name = excess, n
+            rep["param_excess_over_limit"] = worst
+            rep["param_worst"] = worst_name
+            rep["largest_update"] = largest
+            del tscope, got, want
+        else:
+            del scope
+        del init
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out["legs"][name] = rep
+    return out
+
+
+def check_tp_ranks(results, on_card):
+    """17b/17c's gates over every rank's results: a list of failures
+    (empty: the phase passed). Each leg: the backend the device's; the
+    losses finite, falling and every rank's the same; the first loss
+    within SPMD_REF_RTOL of Executor.run's on the same init and global
+    batch; each replicated parameter bitwise equal on every rank and
+    each tp shard equal across its dp replicas; the collectives counted
+    (data line's all-reduces, tp line's calls, ZeRO-1's gathers; calls
+    and bytes) equal to the plan's prediction times the runs; no seam;
+    the fused attention on H/tp heads; on the card K1 by the "tc" route
+    once a layer a step each way, no operand copied. The Reduce leg:
+    its gathered parameters within the bf16 update limit of its
+    AllReduce twin's (2 bf16 ulps plus 1/128 of the largest update, as
+    tests/test_torch_data_parallel.py holds the bf16 LM), the ZeRO-1
+    state held at half its AllReduce bytes."""
+    bad = []
+    backend = "nccl" if on_card else "gloo"
+    for r in results:
+        if r["backend"] != backend:
+            bad.append("rank %d: backend %s, not %s" % (
+                r["rank"], r["backend"], backend))
+    for name in results[0]["legs"]:
+        ranks = [r["legs"][name] for r in results]
+        if any(x["losses"] != ranks[0]["losses"] for x in ranks[1:]):
+            bad.append("%s: the ranks' losses differ" % name)
+        dp, tp = ranks[0]["mesh"]
+        layout = ranks[0]["layout"]
+        for n in ranks[0]["digests"]:
+            if n in layout:
+                groups = {}
+                for x in ranks:
+                    groups.setdefault(x["coords"][1], set()).add(
+                        x["digests"][n])
+                if any(len(v) > 1 for v in groups.values()):
+                    bad.append("%s: the tp shards of %r differ across their "
+                               "dp replicas" % (name, n))
+            elif len({x["digests"][n] for x in ranks}) > 1:
+                bad.append("%s: the replicated %r differs across the ranks"
+                           % (name, n))
+        for x, rank in zip(ranks, (r["rank"] for r in results)):
+            tag = "%s rank %d" % (name, rank)
+            losses = x["losses"]
+            if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+                bad.append("%s: losses not finite and falling: %r"
+                           % (tag, losses))
+            err = abs(losses[0] - x["ref_loss"]) / abs(x["ref_loss"])
+            if not err <= SPMD_REF_RTOL:
+                bad.append("%s: the first loss %r is %.3g (rel) off "
+                           "Executor.run's %r (limit %g)" % (
+                               tag, losses[0], err, x["ref_loss"],
+                               SPMD_REF_RTOL))
+            runs = x["runs"]
+            c = x["counts"]
+            want_dp = [runs * v for v in x["expected_dp"]]
+            if [c["all_reduce"], c["all_reduce_bytes"]] != want_dp:
+                bad.append("%s: data-line all-reduces %r, the plan %r"
+                           % (tag, [c["all_reduce"], c["all_reduce_bytes"]],
+                              want_dp))
+            got = {k: [c[k], c[k + "_bytes"]] for k in TP_KINDS if c[k]}
+            want = {k: [runs * v[0], runs * v[1]]
+                    for k, v in x["expected_tp"].items()}
+            if got != want:
+                bad.append("%s: tp collectives %r, the plan %r"
+                           % (tag, got, want))
+            hot = [sm for sm in x["seams"] if sm[0] in TP_NO_SEAM]
+            if hot:
+                bad.append("%s: the step gathers %r" % (tag, hot))
+            if any(h != x["heads"] // tp for h in x["local_heads"]):
+                bad.append("%s: attention ran on %r heads, not H/tp = %d"
+                           % (tag, x["local_heads"], x["heads"] // tp))
+            if on_card:
+                n = x["layers"] * runs
+                if (x["k1_fwd"].get("tc", 0), x["k1_bwd"].get("tc", 0),
+                        x["k1_copies"]) != (n, n, 0):
+                    bad.append("%s: K1 %r / %r, %d copies; expected %d "
+                               "\"tc\" each way, no copy" % (
+                                   tag, x["k1_fwd"], x["k1_bwd"],
+                                   x["k1_copies"], n))
+            if x["reduce"]:
+                if not x["param_excess_over_limit"] <= 1:
+                    bad.append("%s: %r is %.3g of the bf16 limit off the "
+                               "AllReduce twin's" % (
+                                   tag, x["param_worst"],
+                                   x["param_excess_over_limit"]))
+                if not x["zero"] or 2 * x["zero_bytes"] \
+                        != x["allreduce_bytes_of_zero_state"]:
+                    bad.append("%s: the ZeRO-1 state holds %d bytes, not "
+                               "half of AllReduce's %d" % (
+                                   tag, x["zero_bytes"],
+                                   x["allreduce_bytes_of_zero_state"]))
+    return bad
+
+
+def tp_rank_main(args):
+    """One rank of 17b/17c (a child of `tp_phase`; `args`
+    `tp_rank_legs`'s keywords): one ``phase17_rank`` line."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.get("device") == "cpu":
+        torch.set_num_threads(1)
+    out = tp_rank_legs(**args)
+    from paddle_tpu_torch.parallel.mesh import destroy_data_group
+
+    destroy_data_group()
+    print("phase17_rank " + json.dumps(out), flush=True)
+
+
+def tp_phase(torch, fa, fluid, timeout=900):
+    """Phase 17: 17a on cuda:0 (the plan against TP_TABLE, the predicted
+    collectives, K1 checked and timed at the tp-local shapes), then 17b
+    and 17c over four ranks when four cards are visible (with fewer, one
+    ``tp_multi`` line saying they need four). Returns K1's launches on
+    the phase's main paths by kernel row name."""
+    import torch.nn.functional as F
+
+    t17 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = card_line()
+    plans = tp_plan_check(fluid)
+    print("tp_plan " + json.dumps(dict(plans, card=card)), flush=True)
+    flush = torch.empty(50 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    for i, (B, H) in enumerate(TP["k1_shapes"]):
+        rows = flash_timed_rows(torch, fa, F, flush, "bfloat16", B, 64,
+                                seed=60 + i, H=H)
+        print("tp_k1 " + json.dumps({"B": B, "H": H, "card": card,
+                                     "rows": list(rows.values())}),
+              flush=True)
+    del flush
+    launches = {"flash_attention_tc_fwd": 0, "flash_attention_tc_bwd": 0}
+    cards = torch.cuda.device_count()
+    if cards < TP["world"]:
+        print("tp_multi " + json.dumps({
+            "cards": cards, "ran": False,
+            "why": "17b and 17c need four cards (--chips 4): no (dp, tp) "
+                   "mesh ran"}), flush=True)
+    else:
+        gc.collect()
+        torch.cuda.empty_cache()
+        results = run_ranks(TP_RANK_FLAG, "phase17_rank", TP["world"],
+                            timeout)
+        for name in results[0]["legs"]:
+            print("tp_multi " + json.dumps({
+                "leg": name, "world": TP["world"], "card": card,
+                "ranks": [dict(r["legs"][name], rank=r["rank"])
+                          for r in results]}), flush=True)
+        bad = check_tp_ranks(results, on_card=True)
+        if bad:
+            fail("17: " + "; ".join(bad))
+        for r in results:
+            for leg in r["legs"].values():
+                launches["flash_attention_tc_fwd"] += leg["k1_fwd"]["tc"]
+                launches["flash_attention_tc_bwd"] += leg["k1_bwd"]["tc"]
+    print("tp_phase " + json.dumps({
+        "cards": cards, "seconds": time.perf_counter() - t17,
+        "k1_launches": launches}), flush=True)
+    return launches
+
+
 def main():
     try:
         import torch
@@ -8466,6 +8899,8 @@ def main():
             row["launches"] += k2_c1
     for name, n in spmd_phase(torch, fa_mod).items():
         flash_rows[name]["launches"] += n
+    for name, n in tp_phase(torch, fa_mod, fluid).items():
+        flash_rows[name]["launches"] += n
     kernels = rows + tree_rows + list(flash_rows.values()) + int8_rows
     idle = [(r["name"], r.get("C"), r.get("shape")) for r in kernels
             if not r.get("launches")]
@@ -8490,5 +8925,7 @@ if __name__ == "__main__":
         first_program_main(json.loads(sys.argv[2]))
     elif len(sys.argv) == 3 and sys.argv[1] == SPMD_RANK_FLAG:
         spmd_rank_main(json.loads(sys.argv[2]))
+    elif len(sys.argv) == 3 and sys.argv[1] == TP_RANK_FLAG:
+        tp_rank_main(json.loads(sys.argv[2]))
     else:
         main()

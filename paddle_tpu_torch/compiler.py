@@ -28,11 +28,34 @@ contract by hand:
 - a fetched batch-sharded var is all-gathered; a replicated one comes
   back as it is.
 
-`BuildStrategy.gradient_scale_strategy` follows `grad_seed_scale_of`.
-`ReduceStrategy.Reduce`, `tensor_parallel_degree`, `pipeline_stages`
-or `sequence_parallel_degree` above 1 and `sharding_specs` raise: the
-JAX package gives them the numbers AllReduce gives, through modules the
-port does not have yet (ROADMAP.md Queue 1 item 9).
+`BuildStrategy.gradient_scale_strategy` follows `grad_seed_scale_of`
+(the replicas are the data line's ranks).
+
+The planner's model parallelism runs on a (dp, tp) mesh
+(``parallel/mesh.fluid_mesh``: rank = d·tp + t, the JAX mesh's layout):
+
+- ``tensor_parallel_degree = tp`` gives the program the JAX planner's
+  specs (``parallel/planner.plan_program``: the Megatron walk,
+  ``ParamAttr.shard_spec`` and ``BuildStrategy.sharding_specs``); every
+  rank of a dp line takes that line's rows of the batch, and each op
+  that reads a tp-sharded var runs on the rank's shard under its
+  ``TpRule`` (``ops/tp.py``), or gathers it (a seam);
+- ``ReduceStrategy.Reduce`` is the planner's ZeRO-1: each rank keeps
+  only its dp rows of each optimizer-state var the plan shards over dp,
+  updates those rows of the parameter and all-gathers them over the
+  data line. Grads stay whole, all-reduced over dp as under AllReduce,
+  so the global-norm clip and the AMP unscale read whole grads;
+- on its first run the step cuts each such persistable in the scope to
+  this rank's shard (the memory the feature buys);
+  `gather_persistables` gives the whole values back (every rank must
+  call it), and ``io.save_persistables`` of a scope holding shards
+  raises;
+- a fetched tp-sharded var is all-gathered over tp, a batch-sharded
+  one also over dp.
+
+``pipeline_stages`` and ``sequence_parallel_degree`` above 1 raise: the
+JAX package runs them through modules the port does not have yet
+(ROADMAP.md Queue 1 item 9).
 
 The data-parallel run carries the executor's telemetry (``step_scope``,
 the ``optimize`` / ``lower`` / ``compile`` / ``execute`` spans,
@@ -52,8 +75,9 @@ from .observability import metrics as _metrics
 from .observability import tracing as _tracing
 
 __all__ = ["BuildStrategy", "CompiledProgram", "ExecutionStrategy",
-           "classify_persistable_state", "grad_seed_scale_of",
-           "normalize_feed_value", "read_persistable_state"]
+           "classify_persistable_state", "gather_persistables",
+           "grad_seed_scale_of", "normalize_feed_value",
+           "read_persistable_state"]
 
 _ITEM_9 = "(ROADMAP.md Queue 1 item 9)"
 
@@ -97,8 +121,9 @@ class BuildStrategy:
         self.sync_batch_norm = False
         self.num_trainers = 1
         self.trainer_id = 0
-        # the JAX package's extensions; above 1 (or non-empty) they raise
-        # here, naming ROADMAP.md Queue 1 item 9
+        # the JAX package's extensions: the (dp, tp) mesh and the
+        # planner's specs; pipeline_stages and sequence_parallel_degree
+        # above 1 raise, naming ROADMAP.md Queue 1 item 9
         self.tensor_parallel_degree = 1
         self.sharding_specs = {}
         self.pipeline_stages = 1
@@ -114,20 +139,11 @@ class BuildStrategy:
 
 def check_build_strategy(bs):
     """Raise on the knobs whose modules the port does not have yet."""
-    for knob in ("tensor_parallel_degree", "pipeline_stages",
-                 "sequence_parallel_degree"):
+    for knob in ("pipeline_stages", "sequence_parallel_degree"):
         if int(getattr(bs, knob, 1) or 1) > 1:
             raise NotImplementedError(
                 "BuildStrategy.%s = %s is not ported %s"
                 % (knob, getattr(bs, knob), _ITEM_9))
-    if getattr(bs, "reduce_strategy", 0) \
-            == BuildStrategy.ReduceStrategy.Reduce:
-        raise NotImplementedError(
-            "BuildStrategy.ReduceStrategy.Reduce (ZeRO optimizer-state "
-            "sharding, parallel/zero.py) is not ported %s" % _ITEM_9)
-    if getattr(bs, "sharding_specs", None):
-        raise NotImplementedError(
-            "BuildStrategy.sharding_specs is not ported %s" % _ITEM_9)
 
 
 def normalize_feed_value(block, name, arr):
@@ -205,7 +221,7 @@ class CompiledProgram:
 
     def _run(self, executor, feed, fetch_list, scope, return_numpy):
         from .core.scope import global_scope
-        from .parallel.mesh import init_data_group
+        from .parallel.mesh import fluid_mesh, init_data_group
 
         scope = scope if scope is not None else global_scope()
         fetch_names = _fetch_names(fetch_list)
@@ -224,6 +240,12 @@ class CompiledProgram:
                                 return_numpy=return_numpy)
         check_build_strategy(self._build_strategy)
         group = init_data_group(executor.device)
+        tp_group = None
+        tp = int(getattr(self._build_strategy, "tensor_parallel_degree", 1)
+                 or 1)
+        if tp > 1:
+            mesh = fluid_mesh(tp, executor.device)
+            group, tp_group = mesh.group("dp"), mesh.group("tp")
         if executor.device != group.device:
             raise RuntimeError(
                 "this rank's data-parallel step runs on %s, but the "
@@ -262,7 +284,8 @@ class CompiledProgram:
                     step = _DataParallelStep(
                         run_program,
                         {k: tuple(np.shape(v)) for k, v in feed.items()},
-                        fetch_names, group, self._build_strategy)
+                        fetch_names, group, self._build_strategy,
+                        tp_group)
                 self._compiled_steps[key] = step
             elif rec:
                 _metrics.counter("compile_cache/hit").inc()
@@ -275,14 +298,17 @@ class CompiledProgram:
 class _DataParallelStep(_Step):
     """One rank's step of the program on the global batch: the executor's
     step (`_Step`: state plan, recorded forwards, memory plan) with the
-    batch plan (``parallel/planner.plan_batch``) and the data group. It
-    changes the executor's step only through its hooks: the rank's rows
-    of each sharded feed, the data group in the lowering context, and a
-    batch-sharded fetch gathered into its global value."""
+    sharding plan (`_plan`, the JAX planner's), the batch and tp plan
+    (`plan`, ``parallel/planner.plan_batch``), the data line `group` and
+    the tp line `tp_group` (None without tensor parallelism). It
+    changes the executor's step only through its hooks: the persistables
+    cut to the rank's shards on the first run, the rank's rows of each
+    sharded feed, the lines in the lowering context, and a sharded fetch
+    gathered into its global value."""
 
     def __init__(self, program, feed_shapes, fetch_names, group,
-                 build_strategy):
-        from .parallel.planner import plan_batch
+                 build_strategy, tp_group=None):
+        from .parallel.planner import plan_batch, plan_program, state_layout
 
         bs = build_strategy or BuildStrategy()
         inplace = None
@@ -292,15 +318,35 @@ class _DataParallelStep(_Step):
         super().__init__(program, feed_shapes.keys(), fetch_names,
                          inplace=inplace)
         self.group = group
+        self.tp_group = tp_group
+        tp = tp_group.world if tp_group is not None else 1
         self._grad_seed_scale = grad_seed_scale_of(bs, group.world)
         self.sharded_feeds = sorted(
             n for n, shape in feed_shapes.items()
             if len(shape) and shape[0] % group.world == 0)
-        self.plan = plan_batch(program, self.sharded_feeds, group.world)
+        zero_mode = getattr(bs, "reduce_strategy", 0) \
+            == BuildStrategy.ReduceStrategy.Reduce
+        axes = {"dp": group.world}
+        if tp > 1:
+            axes["tp"] = tp
+        self._plan = plan_program(program, axes, bs, zero_sharding=zero_mode)
+        self.layout, self.zero = state_layout(program, self._plan, tp,
+                                              group.world)
+        rows = next((shape[0] for n, shape in sorted(feed_shapes.items())
+                     if len(shape)), None)
+        self.plan = plan_batch(program, self.sharded_feeds, group.world,
+                               tp=tp, layout=self.layout, zero=self.zero,
+                               rows=rows)
 
     def expected_collectives(self):
-        """(all-reduce calls, bytes) the plan predicts for one step."""
+        """(all-reduce calls, bytes) the plan predicts for one step over
+        the data line."""
         return self.plan.expected(self.block)
+
+    def expected_tp(self):
+        """{count key: (calls, bytes)} the plan predicts for one step
+        over the tp line, and ZeRO-1's gathers over the data line."""
+        return self.plan.expected_tp()
 
     def _local_feed(self, name, value):
         from .ops.dp import rows
@@ -315,10 +361,89 @@ class _DataParallelStep(_Step):
         ctx.dp = self.group
         ctx.dp_ops = self.plan.ops
         ctx.grad_seed_scale = self._grad_seed_scale
+        ctx.tp = self.tp_group
+        ctx.tp_ops = self.plan.tp_ops
 
     def _fetch(self, name, value):
-        from .parallel.collective import all_gather_rows
+        from .parallel.collective import _gather, all_gather_rows
 
+        if name in self.zero:
+            value = _gather(value, self.group, 0, kind="gather_state")
+        d = self.plan.tp_marks.get(name)
+        if d is not None:
+            value = _gather(value.detach(), self.tp_group, d,
+                            kind="gather_state")
         if self.plan.marks.get(name):
             return all_gather_rows(value, self.group)
         return value
+
+    def _check_held(self, held):
+        """Refuse a scope holding shards this step reads whole (another
+        step's layout); the shards of this step's layout `_cut` checks."""
+        mine = set(self.layout) | self.zero
+        super()._check_held({n: h for n, h in held.items()
+                             if n not in mine})
+
+    def run(self, scope, feed, device):
+        if self.layout or self.zero:
+            self._cut(scope)
+        return super().run(scope, feed, device)
+
+    def _cut(self, scope):
+        """Cut each sharded persistable the scope holds whole into this
+        rank's shard (its tp block, then its dp rows of ZeRO-1 state)."""
+        from .ops.dp import rows
+        from .parallel.collective import local_part
+
+        shards = _shards(scope)
+        for name in sorted(set(self.layout) | self.zero):
+            t = scope.get(name)
+            v = self.block._find_var_recursive(name)
+            if t is None or v is None:
+                continue
+            d = self.layout.get(name)
+            want = (d, name in self.zero, self.group, self.tp_group)
+            whole = tuple(v.shape)
+            if tuple(t.shape) != whole:
+                if shards.get(name) == want:
+                    continue
+                raise RuntimeError(
+                    "the scope's %r has shape %s: neither the whole %s "
+                    "nor this step's shard of it (held as %r)"
+                    % (name, tuple(t.shape), whole, shards.get(name)))
+            if d is not None:
+                t = local_part(t, self.tp_group, d)
+            if name in self.zero:
+                t = rows(t, self.group)
+            scope.set(name, t.contiguous().clone())
+            shards[name] = want
+
+
+def _shards(scope):
+    """{var name: (tp dim, ZeRO rows, data line, tp line)} of the
+    persistables `scope` holds as this rank's shards."""
+    if not hasattr(scope, "_ptpu_shards"):
+        scope._ptpu_shards = {}
+    return scope._ptpu_shards
+
+
+def gather_persistables(scope, names=None):
+    """{name: whole tensor} of the persistables `scope` holds (`names`,
+    default all that a sharded step cut, gathered over their lines; a
+    var held whole comes back as it is). Collective: every rank of the
+    mesh must call it with the same names."""
+    from .parallel.collective import _gather
+
+    shards = _shards(scope)
+    out = {}
+    for name in (sorted(shards) if names is None else names):
+        t = scope.get(name)
+        held = shards.get(name)
+        if held is not None:
+            d, zero, group, tp_group = held
+            if zero:
+                t = _gather(t, group, 0, kind="gather_state")
+            if d is not None:
+                t = _gather(t, tp_group, d, kind="gather_state")
+        out[name] = t
+    return out

@@ -43,7 +43,11 @@ under its `DpRule`: its replicated float operands enter the sharded
 region (``parallel/collective.enter_sharded``) inside the recorded
 forward, so the grad op's ``torch.autograd.grad`` all-reduces their
 grads and writes them whole; a reduction's own kernel all-reduces its
-partial sums.
+partial sums. Under tensor parallelism the context also carries the tp
+line (`tp`) and the plan's tp ops (`tp_ops`): an op that reads a
+tp-sharded var runs its kernel (its DpRule's under data parallelism)
+inside its `TpRule`'s wrapper (``ops/tp.py``), and the batch region's
+entries come first, on the values the rank holds.
 
 While a ``profiler`` session is open (``set_op_ranges``), every op,
 forward and grad, runs inside ``record_function("fluid/" +
@@ -109,6 +113,9 @@ class LoweringContext:
         self.dp = None
         self.dp_ops = {}
         self.grad_seed_scale = 1.0
+        # tensor parallelism: the tp line and {id(op): ops.tp.TpOp}
+        self.tp = None
+        self.tp_ops = {}
 
     def generator(self, attrs):
         """A torch.Generator for one stateful op: seeded from the
@@ -185,10 +192,12 @@ def _execute_op(op, env, ctx):
            for slot, vs in op.inputs.items() if vs}
     impl = opdef.impl
     planned = ctx.dp_ops.get(id(op)) if ctx.dp_ops else None
-    if planned is not None:
-        if planned.run is None:
-            planned.run = _dp_impl(opdef, planned)
-        impl = planned.run
+    tplanned = ctx.tp_ops.get(id(op)) if ctx.tp_ops else None
+    if planned is not None or tplanned is not None:
+        holder = tplanned if tplanned is not None else planned
+        if holder.run is None:
+            holder.run = _planned_impl(opdef, planned, tplanned)
+        impl = holder.run
     if id(op) in ctx.recorded:
         leaves = {
             slot: [t.detach().requires_grad_()
@@ -206,21 +215,30 @@ def _execute_op(op, env, ctx):
             env[v.name] = val
 
 
-def _dp_impl(opdef, planned):
-    """The op's kernel under its DpRule: replicated float operands enter
-    the sharded region, then the rule's kernel (or the op's own) runs."""
+def _planned_impl(opdef, planned, tplanned):
+    """The op's kernel under its plans: its DpRule's kernel (or its
+    own), run on tp shards under its TpRule (``ops/tp.py``), with its
+    replicated float operands entering the batch-sharded region first."""
+    from ..ops.tp import wrap
     from ..parallel.collective import enter_sharded
 
-    rule = planned.rule
+    kernel = opdef.impl
+    if planned is not None and planned.rule.impl is not None:
+        rule, sharded = planned.rule, planned.sharded
+
+        def kernel(ctx, ins, attrs):
+            return rule.impl(ctx, ins, attrs, sharded)
+    if tplanned is not None:
+        kernel = wrap(kernel, tplanned)
+    if planned is None:
+        return kernel
 
     def impl(ctx, ins, attrs):
         ins = {slot: [enter_sharded(t, ctx.dp)
                       if planned.entering(slot, i) else t
                       for i, t in enumerate(ts)]
                for slot, ts in ins.items()}
-        if rule.impl is not None:
-            return rule.impl(ctx, ins, attrs, planned.sharded)
-        return opdef.impl(ctx, ins, attrs)
+        return kernel(ctx, ins, attrs)
 
     return impl
 

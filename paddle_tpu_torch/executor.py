@@ -190,9 +190,10 @@ class _Step:
     ``ir_passes.InplaceInfo``) is ``BuildStrategy.enable_inplace``'s
     policy; None keeps the state plan as it is.
 
-    A subclass changes a step through four hooks: `_local_feed` (the
+    A subclass changes a step through five hooks: `_local_feed` (the
     value a feed enters the step with), `_setup` (the lowering context),
-    `_fetch` (a fetched value) and the attributes `__init__` sets."""
+    `_fetch` (a fetched value), `_check_held` (a scope holding another
+    step's shards) and the attributes `__init__` sets."""
 
     def __init__(self, program, feed_names, fetch_names, inplace=None):
         self.program = program
@@ -242,7 +243,23 @@ class _Step:
     def _fetch(self, name, value):
         return value
 
+    def _check_held(self, held):
+        """Refuse a scope that holds a sharded step's shards of vars this
+        step reads whole (`held`: the scope's record of them)."""
+        bad = sorted(n for n in (*self.mut_names, *self.const_names)
+                     if n in held)
+        if bad:
+            raise RuntimeError(
+                "the scope holds a tensor-parallel or ZeRO-1 step's shards "
+                "of %s, which this step reads whole: run it through that "
+                "CompiledProgram, or set the values from "
+                "compiler.gather_persistables(scope) into a fresh scope"
+                % bad[:4])
+
     def run(self, scope, feed, device):
+        held = getattr(scope, "_ptpu_shards", None)
+        if held:
+            self._check_held(held)
         mut, const = read_persistable_state(
             scope, self.mut_names, self.const_names,
             fallback=lambda n: ir_passes.state_fallback(self.program, n))

@@ -87,6 +87,15 @@ def get_program_persistable_vars(program):
 
 
 def _gather(scope, var_list):
+    shards = getattr(scope, "_ptpu_shards", {})
+    held = sorted(v.name for v in var_list if v.name in shards)
+    if held:
+        raise NotImplementedError(
+            "the scope holds this rank's shards of %s (a tensor-parallel or "
+            "ReduceStrategy.Reduce step cut them): saving them is the "
+            "multi-process checkpoint save, not ported (ROADMAP.md Queue 1 "
+            "item 9); gather them with compiler.gather_persistables first"
+            % held[:4])
     out = {}
     for v in var_list:
         val = scope.get(v.name)

@@ -6,7 +6,11 @@ have no grad (round half to even, as jnp.round)."""
 import torch
 import torch.nn.functional as F
 
-from .registry import dp_rule, register
+from .registry import TpRule, dp_rule, register, tp_rule
+from .tp import pointwise_plan
+
+# elementwise: a tp-sharded input's output keeps its mark
+_POINTWISE = TpRule(plan=pointwise_plan())
 
 
 def _a(name, fn, differentiable=True):
@@ -15,6 +19,7 @@ def _a(name, fn, differentiable=True):
 
     register(name, differentiable=differentiable)(impl)
     dp_rule(name)  # elementwise: row-local
+    tp_rule(name, _POINTWISE)
 
 
 def _where(cond, x, y):

@@ -1,14 +1,17 @@
 """The attention graph ops (parity: the JAX package's
 ``ops/compat_ops.py`` flash_attention :465 and fused_multihead_attention
 :571) and fused_elemwise_activation (:277). The sequence-parallel
-(ring) branch of the JAX attention op is not ported: the port's mesh
-has the data axis only."""
+(ring) branch of the JAX attention op is not ported (ROADMAP.md Queue 1
+item 9). Under tensor parallelism both attention ops run on the rank's
+heads: flash attention on head-sharded q/k/v as it is, the fused op
+with its projections sharded by head (the output projection's partial
+sums over the tp line, its bias added once after)."""
 
 import torch
 
 from .elementwise import promote
 from .flash_attention import flash_attention
-from .registry import dp_rule, get, register
+from .registry import TpRule, dp_rule, get, register, tp_rule
 
 
 def flash_qualify(T, Tk, head_dim, causal):
@@ -128,3 +131,50 @@ def _fused_elemwise_activation(ctx, ins, attrs):
 # batch-leading attention: row i attends within row i
 dp_rule(["flash_attention", "fused_multihead_attention"])
 dp_rule("fused_elemwise_activation", get("elementwise_add").dp)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism (registry.TpRule): the rank's heads
+# ---------------------------------------------------------------------------
+
+_HEAD_MARKS = {"WQ": 1, "WK": 1, "WV": 1, "BQ": 0, "BK": 0, "BV": 0,
+               "WO": 0, "BO": None}
+
+
+def _fmha_tp_plan(top):
+    """WQ/WK/WV [D, H/tp, Dh], BQ/BK/BV [H/tp, Dh] and WO [H/tp, Dh, D]:
+    X enters, each rank attends over its H/tp heads (K1 on [B, H/tp, T,
+    Dh]), and the output projection's partial sums are summed over the
+    tp line before BO is added."""
+    if top.mark("X") is not None:
+        return False
+    for slot, want in _HEAD_MARKS.items():
+        if top.op.inputs.get(slot) and top.mark(slot) != want:
+            return False
+    top.enter("X")
+    top.row = True
+    top.reduce("Out")
+    return True
+
+
+def _fmha_tp_impl(ctx, ins, attrs, inner, top):
+    from ..parallel.collective import reduce_tp
+
+    ins = dict(ins)
+    bo = ins.pop("BO", [None])[0]
+    out = reduce_tp(inner(ctx, ins, attrs)["Out"][0], ctx.tp)
+    return {"Out": [out if bo is None else out + bo.to(out.dtype)]}
+
+
+def _flash_tp_plan(top):
+    """q/k/v sharded on the head dim (1 in bhtd, 2 in bthd): local."""
+    h = 1 if top.op.attrs.get("layout", "bhtd") == "bhtd" else 2
+    if any(top.mark(s) != h for s in ("Q", "K", "V")):
+        return False
+    top.outs["Out"] = [h]
+    return True
+
+
+tp_rule("fused_multihead_attention", TpRule(plan=_fmha_tp_plan,
+                                            impl=_fmha_tp_impl))
+tp_rule("flash_attention", TpRule(plan=_flash_tp_plan))

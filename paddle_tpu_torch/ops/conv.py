@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from .dp import replicated_slots, row_rule
-from .registry import dp_rule, register
+from .registry import TpRule, dp_rule, register, tp_rule
 
 
 @contextlib.contextmanager
@@ -222,3 +222,50 @@ def _pool2d(ctx, ins, attrs):
 dp_rule(["conv2d", "depthwise_conv2d"],
         row_rule(replicated_slots("Filter", "FoldedBias")))
 dp_rule("pool2d")
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism (registry.TpRule): channel blocks (NCHW dim 1)
+# ---------------------------------------------------------------------------
+
+
+def _conv_tp_plan(top):
+    """The filter's out-channels sharded: the input enters, the output's
+    channels sharded. Its in-channels sharded: the input sharded on its
+    channels (or narrowed to them), the partial outputs summed over the
+    tp line. Grouped convs and a folded bias stay replicated."""
+    if (top.op.attrs.get("groups", 1) or 1) != 1 \
+            or top.op.inputs.get("FoldedBias"):
+        return False
+    mx, mw = top.mark("Input"), top.mark("Filter")
+    if mw == 0 and mx is None:
+        top.enter("Input")
+        top.outs["Output"] = [1]
+        return True
+    if mw == 1 and mx in (None, 1):
+        if mx is None:
+            top.enter("Input", 0, 1)
+        top.row = True
+        top.reduce("Output")
+        return True
+    return False
+
+
+def _conv_tp_impl(ctx, ins, attrs, inner, top):
+    from ..parallel.collective import reduce_tp
+
+    outs = inner(ctx, ins, attrs)
+    if top.row:
+        outs["Output"] = [reduce_tp(outs["Output"][0], ctx.tp)]
+    return outs
+
+
+def _pool_tp_plan(top):
+    if top.mark("X") != 1:
+        return False
+    top.outs["Out"] = [1]
+    return True
+
+
+tp_rule("conv2d", TpRule(plan=_conv_tp_plan, impl=_conv_tp_impl))
+tp_rule("pool2d", TpRule(plan=_pool_tp_plan))

@@ -12,7 +12,9 @@ scalar stays bf16 in torch, and is fp32 in jnp).
 import torch
 
 from .dp import refuse
-from .registry import DpRule, broadcast_to_axis, dp_rule, get, register
+from .registry import (DpRule, TpRule, broadcast_to_axis, dp_rule, get,
+                       register, tp_rule)
+from .tp import binary_plan, pointwise_plan
 
 
 def promote(x, y):
@@ -178,7 +180,7 @@ def _reduce_plan(op, sharded, block):
     return {"Out": [not _batch_reduced(op, block)]}
 
 
-def _reduce_collectives(op, block, sharded, wanted):
+def _reduce_collectives(op, block, sharded, wanted, tp=(1, {})):
     """One all-reduce of the partial result, kept-dims shaped; a max or
     min whose X grad is wanted adds one of its tie counts in backward (a
     product's backward all-gathers, which is not an all-reduce)."""
@@ -190,10 +192,12 @@ def _reduce_collectives(op, block, sharded, wanted):
     dims = () if op.type == "mean" else _reduced_dims(op.attrs,
                                                       len(x.shape))
     n = 1
+    size, marks = tp
     if op.type != "mean" and len(dims) < len(x.shape):
         for i, s in enumerate(x.shape):
             if i not in dims:
-                n *= int(s)
+                n *= int(s) // (size if (marks.get("X") or [None])[0] == i
+                                else 1)
     acc = _acc_dtype(torch_dtype(x.dtype))
     calls = 1
     if op.type in ("reduce_max", "reduce_min") \
@@ -257,3 +261,52 @@ def _declare_dp():
 
 
 _declare_dp()
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism (registry.TpRule)
+# ---------------------------------------------------------------------------
+
+
+def _reduce_tp_plan(top):
+    """A sum or mean over the tp-sharded dim: the rank's part (over the
+    batch too, under data parallelism), then a sum over the tp line (a
+    mean's parts divided by the line's size: equal blocks). A reduction
+    that leaves the sharded dim keeps its mark (shifted past the dims it
+    drops)."""
+    x = top.var("X")
+    d = top.mark("X")
+    if x.shape is None:
+        return False
+    nd = len(x.shape)
+    dims = tuple(range(nd)) if top.op.type == "mean" \
+        else _reduced_dims(top.op.attrs, nd)
+    if d in dims:
+        top.row = True
+        top.reduce("Out")
+        return True
+    keep = top.op.attrs.get("keep_dim", False)
+    top.outs["Out"] = [d if keep else d - sum(1 for i in dims if i < d)]
+    return True
+
+
+def _reduce_tp_impl(ctx, ins, attrs, inner, top):
+    from ..parallel.collective import reduce_tp
+
+    outs = inner(ctx, ins, attrs)
+    if top.row:
+        out = reduce_tp(outs["Out"][0], ctx.tp)
+        if top.op.type != "reduce_sum":
+            out = out / ctx.tp.world
+        outs["Out"] = [out]
+    return outs
+
+
+def _declare_tp():
+    tp_rule(_BINARY, TpRule(plan=binary_plan))
+    tp_rule("logical_not", TpRule(plan=pointwise_plan()))
+    tp_rule(["reduce_sum", "reduce_mean", "mean"],
+            TpRule(plan=_reduce_tp_plan, impl=_reduce_tp_impl))
+
+
+_declare_tp()

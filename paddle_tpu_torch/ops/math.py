@@ -10,7 +10,9 @@ import torch
 
 from ..framework import torch_dtype
 from .dp import refuse, replicated_slots
-from .registry import DpRule, dp_rule, register, simple_op, weak_scalar
+from .registry import (DataParallelError, DpRule, TpRule, dp_rule, register,
+                       simple_op, tp_rule, weak_scalar)
+from .tp import pointwise_plan
 
 
 @register("fill_constant", differentiable=False)
@@ -279,3 +281,91 @@ def _declare_dp():
 
 
 _declare_dp()
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism (registry.TpRule)
+# ---------------------------------------------------------------------------
+
+
+def _dense_plan(top, xk, yk, yo, out_nd):
+    """A product contracting X's dim `xk` with Y's `yk` (Y's other dim
+    `yo` gives the output's last): column-parallel (Y sharded on `yo`,
+    X replicated and entering; the output's last dim sharded) or
+    row-parallel (Y sharded on `yk`, X sharded on `xk` or narrowed to
+    it; the partial products summed over the tp line)."""
+    mx, my = top.mark("X"), top.mark("Y")
+    if my == yo and mx is None:
+        top.enter("X")
+        top.outs["Out"] = [out_nd - 1]
+        return True
+    if my == yk and mx in (None, xk):
+        if mx is None:
+            top.enter("X", 0, xk)
+        top.row = True
+        top.reduce("Out")
+        return True
+    return False
+
+
+def _mul_tp_plan(top):
+    x, y = top.var("X"), top.var("Y")
+    attrs = top.op.attrs
+    xn = attrs.get("x_num_col_dims", 1)
+    if x.shape is None or y.shape is None or len(y.shape) != 2 \
+            or attrs.get("y_num_col_dims", 1) != 1 \
+            or xn != len(x.shape) - 1:
+        return False
+    return _dense_plan(top, xn, 0, 1, xn + 1)
+
+
+def _matmul_tp_plan(top):
+    x, y = top.var("X"), top.var("Y")
+    attrs = top.op.attrs
+    if x.shape is None or y.shape is None or len(y.shape) != 2 \
+            or len(x.shape) < 2 or attrs.get("transpose_X", False):
+        return False
+    ty = bool(attrs.get("transpose_Y", False))
+    return _dense_plan(top, len(x.shape) - 1, 1 if ty else 0,
+                       0 if ty else 1, len(x.shape))
+
+
+def _reduced_impl(ctx, ins, attrs, inner, top):
+    """The kernel, then a row-parallel product's sum over the tp line."""
+    from ..parallel.collective import reduce_tp
+
+    outs = inner(ctx, ins, attrs)
+    if getattr(top, "row", False):
+        outs["Out"] = [reduce_tp(outs["Out"][0], ctx.tp)]
+    return outs
+
+
+def _int8_tp_plan(top):
+    raise DataParallelError(
+        "op 'fused_int8_matmul' reads the tp-sharded var %r: the int8 "
+        "kernel (K4) runs on replicated operands only; run the int8 "
+        "program without tensor_parallel_degree" % next(
+            top.var(s, i).name for s, ms in top.marks.items()
+            for i, m in enumerate(ms) if m is not None))
+
+
+def _sum_norm_plan(top):
+    """The sum of squares of a sharded tensor: each rank's part, summed
+    over the tp line."""
+    top.row = True
+    top.reduce("Out")
+    return True
+
+
+def _declare_tp():
+    tp_rule("mul", TpRule(plan=_mul_tp_plan, impl=_reduced_impl))
+    tp_rule("matmul", TpRule(plan=_matmul_tp_plan, impl=_reduced_impl))
+    tp_rule("fused_int8_matmul", TpRule(plan=_int8_tp_plan))
+    tp_rule("squared_l2_norm", TpRule(plan=_sum_norm_plan,
+                                      impl=_reduced_impl))
+    tp_rule("sum", TpRule(plan=pointwise_plan()))
+    tp_rule(["scale", "cast", "sign", "clip", "assign", "fill_any_like",
+             "fill_zeros_like"], TpRule(plan=pointwise_plan()))
+
+
+_declare_tp()

@@ -112,11 +112,11 @@ def _metric_plan(*sharded_outs):
     return plan
 
 
-def _accuracy_collectives(op, block, sharded, wanted):
+def _accuracy_collectives(op, block, sharded, wanted, tp=(1, {})):
     return 1, 8
 
 
-def _auc_collectives(op, block, sharded, wanted):
+def _auc_collectives(op, block, sharded, wanted, tp=(1, {})):
     n = op.inputs["StatPos"][0].shape[0]
     return 1, 2 * n * 4
 

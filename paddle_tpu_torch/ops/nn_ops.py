@@ -11,7 +11,9 @@ import torch
 import torch.nn.functional as F
 
 from .dp import axes_exclude_batch, refuse, replicated_slots, row_rule, rows
-from .registry import DataParallelError, DpRule, dp_rule, register, weak_scalar
+from .registry import (DataParallelError, DpRule, TpRule, dp_rule, register,
+                       tp_rule, weak_scalar)
+from .tp import GATHER, check_divides, pointwise_plan
 
 
 @register("reshape2")
@@ -73,6 +75,11 @@ def _dropout(ctx, ins, attrs):
         return {"Out": [out], "Mask": [torch.ones_like(x)]}
     u = torch.rand(x.shape, generator=ctx.generator(attrs),
                    device=x.device)
+    return _dropout_with(x, u, p, impl_type)
+
+
+def _dropout_with(x, u, p, impl_type):
+    """Dropout of x by the uniform draws u (x's shape)."""
     keep = u >= p
     mask = keep.to(x.dtype)
     if impl_type == "upscale_in_train":
@@ -272,18 +279,11 @@ def _dp_dropout(ctx, ins, attrs, sharded):
     x = ins["X"][0]
     if attrs.get("is_test", False):
         return _dropout(ctx, ins, attrs)
-    p = attrs.get("dropout_prob", 0.5)
-    impl_type = attrs.get("dropout_implementation", "downgrade_in_infer")
     u = torch.rand((x.shape[0] * ctx.dp.world,) + tuple(x.shape[1:]),
                    generator=ctx.generator(attrs), device=x.device)
-    keep = rows(u, ctx.dp) >= p
-    mask = keep.to(x.dtype)
-    if impl_type == "upscale_in_train":
-        out = torch.where(keep, x / weak_scalar(x, 1.0 - p),
-                          torch.zeros_like(x))
-    else:
-        out = x * mask
-    return {"Out": [out], "Mask": [mask]}
+    return _dropout_with(x, rows(u, ctx.dp), attrs.get("dropout_prob", 0.5),
+                         attrs.get("dropout_implementation",
+                                   "downgrade_in_infer"))
 
 
 def _dp_batch_norm(ctx, ins, attrs, sharded):
@@ -334,14 +334,18 @@ def _batch_norm_plan(op, sharded, block):
     return marks
 
 
-def _batch_norm_collectives(op, block, sharded, wanted):
+def _batch_norm_collectives(op, block, sharded, wanted, tp=(1, {})):
     """The moments' all-reduce, and its cotangent's when X's grad is
     formed."""
     if op.attrs.get("use_global_stats", False) \
             or op.attrs.get("is_test", False):
         return 0, 0
     calls = 1 + (wanted.get("X", [None])[0] is not None)
-    return calls, calls * (2 * op.inputs["Scale"][0].shape[0] + 1) * 4
+    c = op.inputs["Scale"][0].shape[0]
+    size, marks = tp
+    if (marks.get("X") or [None])[0] == 1:  # the rank's channels
+        c //= size
+    return calls, calls * (2 * c + 1) * 4
 
 
 def _declare_dp():
@@ -383,3 +387,237 @@ def _all_sharded(slot):
 
 
 _declare_dp()
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism (registry.TpRule)
+# ---------------------------------------------------------------------------
+
+
+def _axis(top, slot, attr, default):
+    v = top.var(slot)
+    nd = len(v.shape) if v.shape is not None else None
+    a = top.op.attrs.get(attr, default)
+    return a % nd if nd is not None and a is not None else a
+
+
+def _split_tp_plan(top):
+    """A split off the sharded dim is local. A split on it would hand
+    the rank the wrong pieces (rank 0 of a column-sharded [.., 3D] qkv
+    holds q's columns and half of k's), so the input is gathered (the
+    seam) and each piece cut to the rank's block, entering the region
+    so its replicated cotangent is whole in backward."""
+    d = top.mark("X")
+    axis = _axis(top, "X", "axis", 0)
+    outs = top.op.outputs["Out"]
+    top.outs["Out"] = [d] * len(outs)
+    if axis != d:
+        return True
+    top.actions["X"] = [GATHER]
+    top.calls.append(("gather_tp", top.in_bytes("X", 0, d)))
+    for i, v in enumerate(outs):
+        check_divides(top, v.shape[d] if v.shape is not None else None,
+                      "split piece %r" % v.name)
+        if top.grad_wanted("X"):
+            top.calls.append(("enter_tp_bwd", top.out_bytes("Out", i)))
+    top.row = True
+    return True
+
+
+def _split_tp_impl(ctx, ins, attrs, inner, top):
+    from ..parallel.collective import enter_tp, local_part
+
+    outs = inner(ctx, ins, attrs)
+    if top.row:
+        d = top.outs["Out"][0]
+        outs["Out"] = [local_part(enter_tp(t, ctx.tp), ctx.tp, d)
+                       for t in outs["Out"]]
+    return outs
+
+
+def _softmax_tp_plan(top):
+    if _axis(top, "X", "axis", -1) == top.mark("X"):
+        return False
+    return pointwise_plan()(top)
+
+
+def _dropout_tp_plan(top):
+    d = top.mark("X")
+    top.outs = {slot: [d] * len(vs) for slot, vs in top.op.outputs.items()}
+    return True
+
+
+def _dropout_tp_impl(ctx, ins, attrs, inner, top):
+    """The global tensor's mask (the global batch's rows under data
+    parallelism), then the rank's block: any mesh gives one device's
+    masks."""
+    from ..parallel.collective import local_part
+
+    x = ins["X"][0]
+    if attrs.get("is_test", False):
+        return _dropout(ctx, ins, attrs)
+    d = top.mark("X")
+    shape = list(x.shape)
+    rows_sharded = top.batch["X"][0]
+    if rows_sharded:
+        shape[0] *= ctx.dp.world
+    shape[d] *= ctx.tp.world
+    u = torch.rand(shape, generator=ctx.generator(attrs), device=x.device)
+    if rows_sharded:
+        u = rows(u, ctx.dp)
+    return _dropout_with(x, local_part(u, ctx.tp, d),
+                         attrs.get("dropout_prob", 0.5),
+                         attrs.get("dropout_implementation",
+                                   "downgrade_in_infer"))
+
+
+def _squeezed_ids(ids):
+    return ids.reshape(ids.shape[:-1]) if ids.ndim and ids.shape[-1] == 1 \
+        else ids
+
+
+def _lookup_tp_plan(top):
+    """Vocab-parallel (W's rows sharded: rank t holds rows [t·V/tp,
+    (t+1)·V/tp)): ids outside the rank's rows look up zeros, the
+    partial rows summed over the tp line; W's columns sharded: the
+    output's last dim sharded."""
+    mw = top.mark("W")
+    out = top.op.outputs["Out"][0]
+    if top.mark("Ids") is not None or out.shape is None:
+        return False
+    if mw == 0:
+        top.row = True
+        top.reduce("Out")
+        return True
+    if mw == 1:
+        top.outs["Out"] = [len(out.shape) - 1]
+        return True
+    return False
+
+
+def _lookup_tp_impl(ctx, ins, attrs, inner, top):
+    from ..parallel.collective import reduce_tp
+
+    if not top.row:
+        return inner(ctx, ins, attrs)
+    w, ids = ins["W"][0], ins["Ids"][0]
+    v = w.shape[0]
+    start = ctx.tp.rank * v
+    sq = _squeezed_ids(ids)
+    inside = (sq >= start) & (sq < start + v)
+    local = torch.where(inside, sq - start, torch.zeros_like(sq))
+    out = inner(ctx, {"W": [w], "Ids": [local]},
+                dict(attrs, padding_idx=-1))["Out"][0]
+    keep = inside
+    padding_idx = attrs.get("padding_idx", -1)
+    if padding_idx is not None and padding_idx >= 0:
+        keep = keep & (sq != padding_idx)
+    out = out * keep[..., None].to(out.dtype)
+    return {"Out": [reduce_tp(out, ctx.tp)]}
+
+
+def _vocab_ce(logits, lab, ignore_index, group):
+    """Megatron's vocab-parallel cross-entropy over logits sharded on the
+    last axis: the max over the tp line (a MAX all-reduce), then one SUM
+    all-reduce of [sum exp(x - max), the label's logit] (the rank that
+    owns the label gives it, the others 0), the loss in `_HardLabelCE`'s
+    fp32. Returns (loss, logsumexp, the label's local column, owned,
+    ignored)."""
+    from ..parallel.collective import reduce_tp
+
+    v = logits.shape[-1]
+    start = group.rank * v
+    ignored = (lab == ignore_index)[..., None]
+    inside = ((lab >= start) & (lab < start + v))[..., None] & ~ignored
+    idx = torch.where(inside, lab[..., None] - start,
+                      torch.zeros_like(lab[..., None]))
+    xf = logits.detach().float()
+    m = reduce_tp(xf.amax(-1, keepdim=True), group, "max")
+    parts = torch.cat([torch.exp(xf - m).sum(-1, keepdim=True),
+                       torch.where(inside, xf.gather(-1, idx),
+                                   torch.zeros_like(m))], -1)
+    parts = reduce_tp(parts, group)
+    lse = m + torch.log(parts[..., :1])
+    loss = torch.where(ignored, torch.zeros_like(lse), lse - parts[..., 1:])
+    return loss, lse, idx, inside, ignored
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """`_vocab_ce` with a local backward: (softmax - onehot) * g in the
+    logits' dtype, the softmax recomputed from the logits and the global
+    logsumexp, the onehot on the owning rank only."""
+
+    @staticmethod
+    def forward(ctx, logits, lab, ignore_index, group):
+        loss, lse, idx, inside, ignored = _vocab_ce(logits, lab,
+                                                    ignore_index, group)
+        ctx.save_for_backward(logits, lse, idx, inside, ignored)
+        ctx.mark_non_differentiable(lse)
+        return loss, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        logits, lse, idx, inside, ignored = ctx.saved_tensors
+        xf = logits.to(torch.float32, copy=True)
+        xf.sub_(lse).exp_()
+        d = xf.to(logits.dtype)
+        del xf
+        d.scatter_(-1, idx, d.gather(-1, idx) - inside.to(d.dtype))
+        gv = torch.where(ignored, torch.zeros_like(g), g)
+        d.mul_(gv.to(d.dtype))
+        return d, None, None, None
+
+
+def _ce_tp_plan(top):
+    logits = top.var("Logits")
+    if logits.shape is None or top.mark("Label") is not None \
+            or top.mark("Logits") != len(logits.shape) - 1 \
+            or top.op.attrs.get("soft_label", False) \
+            or _axis(top, "Logits", "axis", -1) != len(logits.shape) - 1:
+        return False
+    top.outs["Softmax"] = [len(logits.shape) - 1]
+    b = top.out_bytes("Loss", itemsize=4)  # the loss is fp32
+    top.calls += [("reduce_tp", b), ("reduce_tp", 2 * b)]
+    return True
+
+
+def _ce_tp_impl(ctx, ins, attrs, inner, top):
+    logits, label = ins["Logits"][0], ins["Label"][0]
+    lab = _squeezed_ids(label).long()
+    ignore_index = attrs.get("ignore_index", -100)
+    if logits.requires_grad and torch.is_grad_enabled():
+        loss, lse = _VocabParallelCE.apply(logits, lab, ignore_index, ctx.tp)
+    else:
+        loss, lse = _vocab_ce(logits, lab, ignore_index, ctx.tp)[:2]
+    if not attrs.get("__need_softmax__", True):
+        return {"Loss": [loss]}
+    softmax = torch.exp(logits.detach().float() - lse).to(logits.dtype)
+    return {"Softmax": [softmax], "Loss": [loss]}
+
+
+def _batch_norm_tp_plan(top):
+    """Channels sharded (NCHW dim 1) with their params: each rank's
+    channels are its own, so the op (its data-parallel statistics too)
+    runs on them as it is."""
+    if top.op.attrs.get("data_layout", "NCHW") != "NCHW" \
+            or top.mark("X") != 1 or any(
+                top.mark(s) != 0 for s in ("Scale", "Bias", "Mean",
+                                           "Variance")):
+        return False
+    top.outs = {slot: [1 if slot == "Y" else 0] * len(vs)
+                for slot, vs in top.op.outputs.items()}
+    return True
+
+
+def _declare_tp():
+    tp_rule("split", TpRule(plan=_split_tp_plan, impl=_split_tp_impl))
+    tp_rule("softmax", TpRule(plan=_softmax_tp_plan))
+    tp_rule("dropout", TpRule(plan=_dropout_tp_plan, impl=_dropout_tp_impl))
+    tp_rule("lookup_table", TpRule(plan=_lookup_tp_plan,
+                                   impl=_lookup_tp_impl))
+    tp_rule("softmax_with_cross_entropy", TpRule(plan=_ce_tp_plan,
+                                                 impl=_ce_tp_impl))
+    tp_rule("batch_norm", TpRule(plan=_batch_norm_tp_plan))
+
+
+_declare_tp()

@@ -12,7 +12,7 @@ write-back.
 
 import torch
 
-from .registry import register
+from .registry import DataParallelError, TpRule, register, tp_rule
 
 
 def _p(ins, slot):
@@ -245,10 +245,12 @@ def _proximal_adagrad(ctx, ins, attrs):
 
 
 @register("check_finite_and_unscale")
-def _check_finite_and_unscale(ctx, ins, attrs):
+def _check_finite_and_unscale(ctx, ins, attrs, reduce=None):
     grads = ins["X"]
     scale = ins["Scale"][0].reshape(())
     finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+    if reduce is not None:
+        finite = reduce(finite)
     outs = []
     for g in grads:
         # jnp promotes bf16 / f32 to f32; torch would keep bf16 for a 0-d
@@ -292,3 +294,94 @@ def _average_accumulates(ctx, ins, attrs):
         "out_old_num_accumulates": (_p(ins, "in_old_num_accumulates"),
                                     old_num),
         "out_num_updates": (_p(ins, "in_num_updates"), num_upd)})
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism and ZeRO-1 (registry.TpRule)
+# ---------------------------------------------------------------------------
+
+# update ops that read a norm of the whole parameter
+_WHOLE_NORM = ("lars_momentum", "lamb")
+
+
+def _update_tp_plan(top):
+    """An update on shards: every input shaped like the parameter (its
+    grad, its state) holds the parameter's block, so the op runs on it
+    as it is and writes the same block. Under ZeRO-1 (`top.zero`) the
+    rank's dp rows of the (tp-local) parameter and grad are updated
+    against its rows of state, then the parameter's rows are
+    all-gathered over the data line."""
+    op = top.op
+    p = top.var("Param")
+    d = top.mark("Param")
+    if (d is not None or top.zero) and op.type in _WHOLE_NORM:
+        raise DataParallelError(
+            "op %r on a shard of the parameter %r (%s): its update reads "
+            "the whole parameter's norm, which a shard's update would take "
+            "per shard" % (op.type, p.name,
+                           "tp-sharded" if d is not None else "ZeRO-1 rows"))
+    for slot, vs in op.inputs.items():
+        for i, v in enumerate(vs):
+            m = top.mark(slot, i)
+            shaped = v.shape is not None and p.shape is not None \
+                and tuple(v.shape) == tuple(p.shape)
+            if m != (d if shaped else None):
+                return False
+    names = {v.name: top.mark(slot, i) for slot, vs in op.inputs.items()
+             for i, v in enumerate(vs)}
+    for slot, vs in op.outputs.items():
+        top.outs[slot] = [names.get(v.name) for v in vs]
+    if top.zero:
+        if top.dp <= 1:
+            top.zero = False
+        else:
+            top.calls.append(("zero_gather",
+                              top.nbytes(p, d, False) // top.dp))
+    return True
+
+
+def _update_tp_impl(ctx, ins, attrs, inner, top):
+    if not top.zero:
+        return inner(ctx, ins, attrs)
+    from ..parallel.collective import _gather
+    from .dp import rows
+
+    p = ins["Param"][0]
+    mine = rows(p, ctx.dp)  # a view: the update writes into p's rows
+    outs = inner(ctx, dict(ins, Param=[mine],
+                           Grad=[rows(ins["Grad"][0], ctx.dp)]), attrs)
+    p.copy_(_gather(mine, ctx.dp, 0, kind="zero_gather"))
+    outs["ParamOut"] = [p]
+    return outs
+
+
+def _unscale_tp_plan(top):
+    """Grads on shards: each unscaled on its own; whether any is not
+    finite is decided over the whole grads (a MAX over the tp line)."""
+    top.outs["Out"] = list(top.marks["X"])
+    top.calls.append(("reduce_tp", 1))
+    return True
+
+
+def _unscale_tp_impl(ctx, ins, attrs, inner, top):
+    from ..parallel.collective import reduce_tp
+
+    def everywhere(finite):
+        bad = reduce_tp((~finite).to(torch.uint8).reshape(1), ctx.tp, "max")
+        return bad.reshape(()) == 0
+
+    return _check_finite_and_unscale(ctx, ins, attrs, everywhere)
+
+
+def _declare_tp():
+    from .registry import _REGISTRY
+
+    updates = [n for n, od in _REGISTRY.items()
+               if od.impl.__module__ == __name__ and not od.differentiable
+               and n != "average_accumulates"]
+    tp_rule(updates, TpRule(plan=_update_tp_plan, impl=_update_tp_impl))
+    tp_rule("check_finite_and_unscale", TpRule(plan=_unscale_tp_plan,
+                                               impl=_unscale_tp_impl))
+
+
+_declare_tp()

@@ -19,6 +19,12 @@ row-local (output row i reads only input row i) or a batch reduction
 with its collective. The planner (``parallel/planner.py``) refuses, at
 plan time and naming the op, any op that reads a batch-sharded var and
 declares neither.
+
+Under tensor parallelism a rank holds its tp shard of each var the plan
+marks tp-sharded, and an op type may declare a `TpRule` (``tp_rule``)
+that runs it on shards (``ops/tp.py``). An op that reads a tp-sharded
+var and declares none gets that var all-gathered on its sharded dim (a
+seam, listed in the plan) and runs replicated, as GSPMD would run it.
 """
 
 import torch
@@ -37,6 +43,8 @@ class OpDef:
         self.stateful = stateful
         # the DpRule of a batch-sharded input; None: the op has none
         self.dp = None
+        # the TpRule of a tp-sharded input; None: the seam
+        self.tp = None
 
     def __repr__(self):
         return "OpDef(%s)" % self.name
@@ -102,10 +110,11 @@ class DpRule:
     whose sub-block runs planned ops of its own (`recompute`) sets it
     False, so its operands enter once, inside.
 
-    `collectives(op, block, sharded, wanted)` the (calls, bytes) of the
+    `collectives(op, block, sharded, wanted, tp)` the (calls, bytes) of the
     all-reduces one run of the reduction issues (`wanted`: its grad op's
-    {slot: [grad name or None]}, empty without one), for the plan's
-    prediction of the step's collectives."""
+    {slot: [grad name or None]}, empty without one; `tp` the tp line's
+    size and the op's inputs' tp marks, {slot: [dim or None]}), for the
+    plan's prediction of the step's collectives."""
 
     def __init__(self, plan=None, impl=None, enter=True, collectives=None):
         self.plan = plan
@@ -126,6 +135,33 @@ def dp_rule(names, rule=ROW):
     """Declare `rule` the DpRule of each registered op in `names`."""
     for name in ([names] if isinstance(names, str) else names):
         get(name).dp = rule
+
+
+class TpRule:
+    """How an op runs on tp shards (``ops/tp.py``).
+
+    `plan(top)` reads the planned op `top` (an ``ops.tp.TpOp``: the op,
+    its inputs' tp marks, each a dim or None, and the mesh's sizes) and
+    sets each input's action (keep the value as the rank holds it, enter
+    the region, narrow a replicated value to the rank's block, gather),
+    each output's mark and the collectives one run issues. It returns
+    False where these marks are not the rule's case (the op then takes
+    the seam) and raises `DataParallelError` where the op cannot run on
+    them at all.
+
+    `impl(ctx, ins, attrs, inner, top)` replaces the kernel (`inner`:
+    the op's own, or its DpRule's under data parallelism); None runs
+    `inner` on the inputs the actions made."""
+
+    def __init__(self, plan, impl=None):
+        self.plan = plan
+        self.impl = impl
+
+
+def tp_rule(names, rule):
+    """Declare `rule` the TpRule of each registered op in `names`."""
+    for name in ([names] if isinstance(names, str) else names):
+        get(name).tp = rule
 
 
 def get(name):

@@ -4,8 +4,10 @@ collectives (``collective.py``), the planner (``planner.py``),
 ``ParallelExecutor``, the fleet's collective mode, and the SPMD
 Transformer trainer (``transformer.py``: dp × pp × tp with sequence
 parallelism, the 1F1B pipeline and the expert-parallel switch MoE).
-ZeRO, the planner's tp walk, the Fluid pipeline, ring attention, the
-embedding stack and DGC wait for ROADMAP.md Queue 1 item 9."""
+The planner's tp walk and ZeRO-1 (``ReduceStrategy.Reduce``) run
+through ``CompiledProgram.with_data_parallel`` on the (dp, tp) mesh.
+``zero.py``'s ShardedAdam stages, the Fluid pipeline, ring attention,
+the embedding stack and DGC wait for ROADMAP.md Queue 1 item 9."""
 
 from . import transformer  # noqa: F401
 from .fleet import (DistributedStrategy, Fleet,  # noqa: F401

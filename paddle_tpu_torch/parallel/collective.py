@@ -26,7 +26,29 @@ two autograd Functions carry that contract through the backward:
 Every call goes through `all_reduce` / `all_gather_rows`, which count
 calls and bytes in `counts` (``reset_counts()`` zeroes them): the card's
 gate reads the port's own calls, since NCCL's all-reduce of one rank is
-a copy and may launch no kernel.
+a copy and may launch no kernel. A line of one rank (the data line of a
+(1, tp) mesh) issues no communication, but each call is still counted.
+
+The Fluid step's tensor-parallel region (``ops/tp.py``) runs on the tp
+line of the (dp, tp) mesh, with Megatron's conjugate pair and the seam:
+
+- `enter_tp(x, group)`: a replicated operand of an op whose rank-local
+  part covers only this rank's share of the output (Megatron's *f*):
+  unchanged in forward, its grad summed over the tp line in backward.
+- `reduce_tp(x, group, op)`: the partial results of a row-parallel
+  product summed (or, for the vocab-parallel softmax, maxed) over the
+  line in forward (Megatron's *g*); the replicated cotangent passes
+  through unchanged in backward (SUM).
+- `gather_tp(x, group, dim)`: the seam: a tp-sharded value all-gathered
+  into its replicated value on `dim`; in backward, where the replicated
+  cotangent is the same on every rank, this rank's slice of it.
+
+They count under kinds of their own: "reduce_tp" and "gather_tp" for
+the forward's calls (a recompute replay's too), "enter_tp_bwd" for the
+backward's; the ZeRO-1 update's all-gather of a parameter's rows over
+the data line counts as "zero_gather", and the gathers
+of sharded fetches and of ``compiler.gather_persistables`` as
+"gather_state".
 
 The SPMD trainer's axis collectives (``parallel/transformer.py``) run on
 a mesh line (``mesh.AxisGroup``) and carry the transposes JAX's
@@ -59,14 +81,17 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["all_gather", "all_gather_rows", "all_reduce", "all_to_all",
-           "counts", "enter_sharded", "host_seconds", "psum_leaves",
-           "reduce_chooser", "reduce_replicated",
-           "reduce_scatter", "reset_counts", "send_recv"]
+           "counts", "enter_sharded", "enter_tp", "gather_tp",
+           "host_seconds", "psum_leaves", "reduce_chooser",
+           "reduce_replicated", "reduce_scatter", "reduce_tp",
+           "reset_counts", "send_recv"]
 
 counts = {"all_reduce": 0, "all_reduce_bytes": 0, "all_gather": 0,
           "all_gather_bytes": 0}
 AXIS_KINDS = ("axis_gather", "reduce_scatter", "all_to_all", "psum",
-              "send_recv")
+              "send_recv", "enter_tp", "reduce_tp", "gather_tp",
+              "zero_gather", "gather_state")
+TP_KINDS = ("enter_tp_bwd", "reduce_tp", "gather_tp", "zero_gather")
 for _kind in AXIS_KINDS:
     for _key in (_kind, _kind + "_bwd"):
         counts[_key] = counts[_key + "_bytes"] = 0
@@ -92,16 +117,19 @@ def all_reduce(t, group, op="sum"):
     out = t.detach().contiguous().clone()
     counts["all_reduce"] += 1
     counts["all_reduce_bytes"] += _nbytes(out)
-    dist.all_reduce(out, op=_OPS[op], group=group.pg)
+    if group.world > 1:
+        dist.all_reduce(out, op=_OPS[op], group=group.pg)
     return out
 
 
 def _all_gather(t, group):
     """Every rank's `t`, in rank order."""
     t = t.detach().contiguous()
-    parts = [torch.empty_like(t) for _ in range(group.world)]
     counts["all_gather"] += 1
     counts["all_gather_bytes"] += _nbytes(t) * group.world
+    if group.world == 1:
+        return [t]
+    parts = [torch.empty_like(t) for _ in range(group.world)]
     dist.all_gather(parts, t, group=group.pg)
     return parts
 
@@ -212,15 +240,15 @@ def _issue(kind, nbytes, bwd, fn):
     return out
 
 
-def _gather(x, group, dim, bwd=False):
+def _gather(x, group, dim, bwd=False, kind="axis_gather"):
     """Every rank's `x` concatenated on `dim`, in axis order."""
     x = x.contiguous()
     if group.world == 1:
-        _issue("axis_gather", _nbytes(x), bwd, lambda: None)
+        _issue(kind, _nbytes(x), bwd, lambda: None)
         return x.view_as(x)
     # gloo wants the ranks' tensors concatenated on dim 0
     out = x.new_empty((group.world * x.shape[0],) + tuple(x.shape[1:]))
-    _issue("axis_gather", _nbytes(x), bwd,
+    _issue(kind, _nbytes(x), bwd,
            lambda: dist.all_gather_into_tensor(out, x, group=group.pg))
     if dim == 0:
         return out
@@ -349,3 +377,82 @@ def send_recv(sends, recvs, group):
             req.wait()
 
     _issue("send_recv", sum(_nbytes(t) for t, _ in sends), False, run)
+
+
+# ---------------------------------------------------------------------------
+# the Fluid step's tensor-parallel region
+# ---------------------------------------------------------------------------
+
+
+def _line_reduce(x, group, op, kind, bwd=False):
+    """A new tensor: `x` reduced (`op`) over the mesh line `group`."""
+    out = x.detach().contiguous().clone()
+    _issue(kind, _nbytes(out), bwd,
+           lambda: None if group.world == 1
+           else dist.all_reduce(out, op=_OPS[op], group=group.pg))
+    return out
+
+
+def local_part(x, group, dim):
+    """This rank's block of `dim` of a value every rank of `group`
+    holds."""
+    n = x.shape[dim] // group.world
+    return x.narrow(dim, group.rank * n, n)
+
+
+class _EnterTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _line_reduce(g, ctx.group, "sum", "enter_tp", True), None
+
+
+class _ReduceTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _line_reduce(x, group, "sum", "reduce_tp")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather(x, group, dim, kind="gather_tp")
+
+    @staticmethod
+    def backward(ctx, g):
+        return local_part(g, ctx.group, ctx.dim), None, None
+
+
+def enter_tp(x, group):
+    """`x` unchanged; its grad summed over the tp line in backward.
+    Outside autograd it is `x` itself."""
+    if isinstance(x, torch.Tensor) and _differentiable(x):
+        return _EnterTp.apply(x, group)
+    return x
+
+
+def reduce_tp(x, group, op="sum"):
+    """The partial results `x` reduced over the tp line: SUM (backward:
+    the cotangent as it is) or MAX (no backward: the vocab-parallel
+    softmax's shift, a constant of its gradient)."""
+    if op == "sum" and _differentiable(x):
+        return _ReduceTp.apply(x, group)
+    return _line_reduce(x, group, op, "reduce_tp")
+
+
+def gather_tp(x, group, dim):
+    """The replicated value of tp-sharded `x` (sharded on `dim`); its
+    backward takes this rank's slice of the replicated cotangent."""
+    if _differentiable(x):
+        return _GatherTp.apply(x, group, dim)
+    return _gather(x, group, dim, kind="gather_tp")
+

@@ -1,8 +1,9 @@
-"""The data group and the SPMD trainer's mesh over ``torch.distributed``
-(parity: the JAX package's ``parallel/mesh.py``: `get_mesh`,
-`default_mesh`, `set_default_mesh`, `mesh_axis_sizes`; and the
-``Mesh(devices.reshape(dp, pp, tp), ("dp", "pp", "tp"))`` of
-``parallel/transformer.py``'s ``SPMDTrainer``, `SPMDMesh` here).
+"""The data group and the meshes over ``torch.distributed`` (parity: the
+JAX package's ``parallel/mesh.py``: `get_mesh`, `default_mesh`,
+`set_default_mesh`, `mesh_axis_sizes`; the ``Mesh(devices.reshape(dp,
+pp, tp), ("dp", "pp", "tp"))`` of ``parallel/transformer.py``'s
+``SPMDTrainer``, `SPMDMesh` here; and ``compiler.py``'s
+``devices.reshape(n // tp, tp)`` with axes ("dp", "tp"), `fluid_mesh`).
 
 The JAX package lays every device of its one process on a ``dp`` mesh
 axis. The port runs one process a rank: rank, world size and the
@@ -31,11 +32,13 @@ from ..core.place import default_device
 
 __all__ = ["AXES", "AxisGroup", "DataGroup", "Mesh", "MeshGroupOrderError",
            "SPMDMesh", "data_group", "default_mesh", "destroy_data_group",
-           "env_contract", "get_mesh", "group_plan", "init_data_group",
-           "mesh_axis_sizes", "mesh_unions", "set_default_mesh"]
+           "env_contract", "fluid_mesh", "get_mesh", "group_plan",
+           "init_data_group", "mesh_axis_sizes", "mesh_unions",
+           "set_default_mesh"]
 
 _default_mesh = [None]
 _group = [None]
+_fluid_meshes = {}
 
 
 class DataGroup:
@@ -60,16 +63,17 @@ class Mesh:
     """The JAX Mesh's face over the data group, for the Fluid data-parallel
     path (``ParallelExecutor``, ``CompiledProgram``, the fleet):
     `axis_names` ("dp",), `shape` {"dp": world}, `devices` (this rank's),
-    `group`. The SPMD trainer's (dp, pp, tp) mesh is `SPMDMesh`."""
+    `group`. The SPMD trainer's (dp, pp, tp) mesh is `SPMDMesh`; the Fluid
+    step's (dp, tp) mesh, `fluid_mesh`."""
 
     def __init__(self, group, axis_names=("dp",)):
         if tuple(axis_names) != ("dp",):
             raise NotImplementedError(
                 "mesh axes %r: the Fluid data-parallel mesh has the data "
-                "axis only (the planner's tp walk and the Fluid pipeline "
-                "wait for ROADMAP.md Queue 1 item 9); the SPMD trainer's "
-                "(dp, pp, tp) mesh is parallel.mesh.SPMDMesh"
-                % (tuple(axis_names),))
+                "axis only (the Fluid pipeline waits for ROADMAP.md Queue 1 "
+                "item 9); the Fluid step's (dp, tp) mesh is "
+                "parallel.mesh.fluid_mesh, the SPMD trainer's (dp, pp, tp) "
+                "mesh parallel.mesh.SPMDMesh" % (tuple(axis_names),))
         self.group = group
         self.axis_names = ("dp",)
         self.shape = {"dp": group.world}
@@ -162,6 +166,9 @@ def destroy_data_group():
     g = _group[0]
     _group[0] = None
     _default_mesh[0] = None
+    for m in _fluid_meshes.values():
+        m.close()
+    _fluid_meshes.clear()
     if g is not None and g.owned and dist.is_initialized():
         dist.destroy_process_group()
 
@@ -361,3 +368,24 @@ class SPMDMesh:
     def __repr__(self):
         return "SPMDMesh(dp=%d, pp=%d, tp=%d, rank=%d, device=%s)" % (
             self.mesh_shape + (self.rank, self.device))
+
+
+def fluid_mesh(tp, device=None):
+    """The Fluid step's (dp, tp) mesh under ``tensor_parallel_degree =
+    tp``: an `SPMDMesh` of shape (world // tp, 1, tp) over the data
+    group, so rank = d·tp + t as in the JAX package's
+    ``devices.reshape(n // tp, tp)`` with axes ("dp", "tp"), and its
+    groups come up in `group_plan`'s one order. Its "dp" line carries
+    the batch's collectives, its "tp" line the tensor-parallel region's.
+    One mesh a shape a process, brought up on first use (every rank of
+    the world must ask for it: ``new_group`` is collective)."""
+    g = init_data_group(device)
+    if tp < 1 or g.world % tp:
+        raise ValueError(
+            "tensor_parallel_degree = %d does not divide the %d-rank world"
+            % (tp, g.world))
+    shape = (g.world // tp, 1, tp)
+    m = _fluid_meshes.get(shape)
+    if m is None:
+        m = _fluid_meshes[shape] = SPMDMesh(shape, g.device)
+    return m
