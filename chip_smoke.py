@@ -540,6 +540,39 @@ Phases, each fatal on failure (exit code 1, no result line):
      rank); with fewer cards one line saying 17b and 17c need four
      (``tests/test_torch_chip_smoke_tp.py`` runs them on four gloo CPU
      ranks, with planted faults).
+ 18. The ZeRO ladder (``parallel/zero.py``'s ShardedAdam) training the
+     native flagship at full width (``bench.native_config(192, 512)``)
+     from fp32 leaves (``transformer.init_params``, seed 0) on bench.py's
+     batch, Adam 1e-3, buckets of 25 MiB (4 at fp32, 3 at bf16). K1 at
+     18b's rank shape [48, 8, 512, 64], packed, checked and timed
+     (``zero_k1``). 18a on cuda:0: legs per_leaf, bucketed,
+     zero2_overlap, zero3_overlap, offload and zero2_bf16, 2 + 4 steps
+     each (``zero_train`` lines: ms a step, tokens/s, peak GiB, m/v and
+     parameter bytes, host ms in each ZeRO kind, the overlap record;
+     ``zero_compare``); fatal unless the losses are finite and falling
+     with the first within SPMD_REF_RTOL of ``single_chip_loss``'s, the
+     fp32-wire bucketed rungs' params, m and v bitwise equal, per-leaf
+     within the bf16 update limit of bucketed, each leaf of the bf16 wire
+     within SPMD_PARAM_RATIO of its move off the fp32 wire's, K1 12 + 6
+     "tc" a step with no copy, the counted ZeRO collectives the plan's,
+     the overlap record in segment order with all but the last bucket
+     issued before the last leaf grad, stage 2's peak at most stage 1's
+     (ZERO_PEAK_SLACK). 18c: bench.py's ``bench_zero`` on cuda:0 (a
+     ``bench_zero`` line; fatal unless every ``*_close`` holds and every
+     loss falls). 18b with four cards (``chip_smoke.py --phase18-rank``,
+     one child a card, NCCL): the same legs at dp = 4, 48 rows a rank,
+     then an fp32 twin at 2 layers (ZeRO-2 at dp = 4 against one rank's
+     per-leaf run on the global batch); fatal unless the ranks' losses
+     agree, replicated params are bitwise equal across the ranks, m and v
+     hold 1/4 of the plan's state (a quarter of world 1's bytes: no pad at
+     these widths), stage 3 a quarter of the parameters, the bucketed
+     rungs are bitwise equal where their plans agree and within
+     SPMD_PARAM_RATIO of each other's leaves where they do not, the twin
+     within SPMD_LOSS_RTOL and SPMD_PARAM_RATIO (params, m and v), and the
+     per-leg gates above hold on every rank (``zero_multi`` and
+     ``zero_multi_compare`` lines); with fewer cards one line saying 18b
+     needs four (``tests/test_torch_chip_smoke_zero.py`` runs 18a and
+     18b on gloo CPU ranks of 1 and 4, with planted faults).
 
 Then one JSON line ``{"kernels": [...]}`` (every kernel of every path,
 each with the launches of its path's run; a kernel launched no time there
@@ -8735,6 +8768,599 @@ def tp_phase(torch, fa, fluid, timeout=900):
     return launches
 
 
+# phase 18: the ZeRO ladder (``parallel/zero.py``'s ShardedAdam) training
+# the native flagship at full width (``bench.native_config(192, 512)``)
+# from fp32 leaves (``transformer.init_params``, seed 0: with bf16-stored
+# leaves stages 1/2 would round each update to bf16 while stage 3 keeps
+# fp32 shards) on bench.py's batch, Adam at ZERO["lr"]. 18a on cuda:0
+# (world 1), 18b over four cards (``--phase18-rank``, one child a card,
+# NCCL; 48 rows a rank, plus an fp32 twin at 2 layers), 18c bench.py's
+# bench_zero receipt on cuda:0. A bucket of 25 MiB splits the ~142 MB of
+# fp32 leaves into 7 buckets, the 65.5 MB embedding alone in one
+ZERO = dict(batch=192, seq=512, warmup=2, steps=4, bucket_mb=25, lr=1e-3,
+            world=4, k1_shape=(48, 8),
+            twin=dict(n_layers=2, dtype="float32", batch=64, steps=2,
+                      bucket_mb=4))
+# (name, ShardedAdam keywords; bucket_mb is added to all but per_leaf)
+ZERO_LEGS = [("per_leaf", {}),
+             ("bucketed", {}),
+             ("zero2_overlap", {"zero_stage": 2, "overlap": True}),
+             ("zero3_overlap", {"zero_stage": 3, "overlap": True}),
+             ("offload", {"offload": True}),
+             ("zero2_bf16", {"zero_stage": 2, "overlap": True,
+                             "grad_dtype": "bfloat16"})]
+# the bucketed rungs with an fp32 wire: bitwise equal on one rank; at
+# more ranks bitwise where their bucket plans agree (a ring reduce-scatter
+# sums an element in an order set by the rank that owns its shard, which
+# another plan moves), and between plans within SPMD_PARAM_RATIO
+ZERO_FP32_WIRE = ("bucketed", "zero2_overlap", "zero3_overlap", "offload")
+# a bf16 wire against the fp32 one: tests/test_zero.py's limit (:259-270),
+# reported with the share of elements beyond it. At full width it does
+# not hold everywhere: the bf16 forward turns a last-bit change of a
+# weight into a change of its bf16 copy, an element whose grad nearly
+# cancels can change sign, and Adam moves it by lr the other way (67 of
+# 35,549,184 elements on an NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
+# section 6); so the gate is each leaf within SPMD_PARAM_RATIO of its
+# move, the twins' norm limit
+ZERO_BF16_ATOL, ZERO_BF16_RTOL = 1e-3, 1e-2
+ZERO_RANK_FLAG = "--phase18-rank"
+# stage 2's peak against stage 1's: the peak is the activations' (~20.9 GB
+# at batch 192), and the two legs' bookkeeping around the backward moves
+# it by well under a MiB (+820 KB on an NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md section 6); 0.1% of it holds that, and a full grad set kept
+# past its bucket (142 MB) breaks it
+ZERO_PEAK_SLACK = 1e-3
+
+
+def zero_fault(fault):
+    """Plant a known fault in this process's ShardedAdam: 'no_divide' (the
+    reduce-scattered grads not divided by the world), 'drop_m' (stage 2
+    keeps the old m), 'forward_order' (overlap plans and issues its
+    buckets in forward order), 'no_copy_back' (offload never copies m/v
+    back to the host) or 'gather_back' (stage 3 gathers each updated
+    shard back: a counted extra collective). Returns the undo."""
+    from paddle_tpu_torch.async_engine import HostStateStager
+    from paddle_tpu_torch.parallel import collective as C
+    from paddle_tpu_torch.parallel import zero
+
+    if fault == "forward_order":
+        saved = zero.amp.plan_buckets
+
+        def forward(leaves, bucket_bytes, **kw):
+            return saved(leaves, bucket_bytes, **dict(kw, order="forward"))
+
+        zero.amp.plan_buckets = forward
+        return lambda: setattr(zero.amp, "plan_buckets", saved)
+    if fault == "no_copy_back":
+        saved = HostStateStager.stage_out
+        HostStateStager.stage_out = lambda self, tensors, hosts: hosts
+        return lambda: setattr(HostStateStager, "stage_out", saved)
+    saved = zero.ShardedAdam._local_update
+
+    def planted(self, g, p, m, v, t):
+        if fault == "no_divide":
+            g = g * self._group.world
+        p_new, m_new, v_new = saved(self, g, p, m, v, t)
+        if fault == "drop_m" and self._plan["stage"] == 2:
+            m_new = m
+        if fault == "gather_back" and self._plan["stage"] == 3:
+            C.zero_all_gather(p_new, self._group)
+        return p_new, m_new, v_new
+
+    zero.ShardedAdam._local_update = planted
+    return lambda: setattr(zero.ShardedAdam, "_local_update", saved)
+
+
+def zero_leg(torch, fa, mesh, name, kw, cfg, init, tokens, labels, warmup,
+             steps, bucket_mb):
+    """One leg of phase 18: ShardedAdam(`kw`) on the flagship loss from
+    `init` (cloned), `warmup` + `steps` steps on the global batch, K1's
+    and the collectives' counts zeroed just before the steps and read
+    just after, the timed steps by CUDA events on the card. Returns (the
+    leg's report, its parameters as host arrays by leaf index)."""
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.parallel import ShardedAdam
+    from paddle_tpu_torch.parallel import collective as C
+    from paddle_tpu_torch.parallel.zero import _flatten
+
+    group = mesh.group
+    dev = group.device
+    on_card = dev.type == "cuda"
+    opt = ShardedAdam(learning_rate=ZERO["lr"],
+                      bucket_mb=0 if name == "per_leaf" else bucket_mb, **kw)
+    p = T.tree_map(torch.clone, init)
+    st = opt.init_state(p, mesh)
+    stage3 = opt._plan["stage"] == 3
+    if stage3:
+        p = opt.shard_params(p, mesh)
+    step = opt.make_step(mesh, lambda q, x, y: T.single_chip_loss(q, x, y,
+                                                                  cfg))
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    fa.reset_counts()                          # main path starts
+    C.reset_counts()
+    losses, marks, host_ms, records = [], [], [], []
+    runs = warmup + steps
+    for i in range(runs):
+        if i == warmup:
+            if on_card:
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            host0 = dict(C.host_seconds)
+        if on_card and i >= warmup:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        th = time.perf_counter()
+        p, st, loss = step(p, st, tokens, labels)
+        if i >= warmup:
+            host_ms.append((time.perf_counter() - th) * 1e3)
+        losses.append(loss)
+        records.append(step.issue_record)
+    if on_card:
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    k1 = flash_counts(fa)                      # main path ends
+    counts = {k: C.counts[k] for k in C.ZERO_KINDS}
+    host = {k: (C.host_seconds[k] - host0[k]) * 1e3 / steps
+            for k in C.ZERO_KINDS}
+    ms = (marks[0].elapsed_time(marks[-1]) / steps if on_card
+          else wall * 1e3 / steps)
+    peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30 if on_card
+            else None)
+    if getattr(step, "close", None):
+        step.close()
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    full = opt.gather_params(p) if stage3 else p
+    leaves = T.tree_leaves(full)
+    g = opt.gather_state(st)
+    ls = opt.leaf_state(g)
+    layout = opt._layout
+    rep = {"leg": name, "world": group.world, "rank": group.rank,
+           "stage": opt._plan["stage"], "overlap": opt._plan["overlap"],
+           "offload": opt._plan["offload"],
+           "grad_dtype": str(opt.grad_dtype), "runs": runs,
+           "steps": steps, "batch": int(tokens.shape[0]),
+           "layers": cfg.n_layers, "remat": cfg.remat,
+           "losses": [float(x) for x in losses],
+           "ms_per_step": ms, "host_ms_per_step": float(np.mean(host_ms)),
+           "tokens_per_s": tokens.numel() / ms * 1e3, "peak_gib": peak,
+           "k1_fwd": k1[0], "k1_bwd": k1[1], "k1_copies": k1[2],
+           "counts": counts, "host_ms_by_kind": host,
+           "leaves": len(leaves),
+           "plan": None if layout is None else [
+               [list(b.indices), b.padded] for b in layout],
+           "buckets": None if layout is None else len(layout),
+           "pad_elems": (0 if layout is None
+                         else sum(b.padded - b.size for b in layout)),
+           "state_bytes": nbytes(_flatten(st["m"])[0]
+                                 + _flatten(st["v"])[0]),
+           "plan_state_bytes": nbytes(g["m"] + g["v"]),
+           "world1_state_bytes": 2 * 4 * sum(x.numel() for x in leaves),
+           "param_bytes": nbytes(p if stage3 else leaves),
+           "world1_param_bytes": 4 * sum(x.numel() for x in leaves),
+           "record": records[-1],
+           "records_equal": all(r == records[-1] for r in records),
+           "digests": {"params": [_digest(torch, x) for x in leaves],
+                       "m": [_digest(torch, x) for x in ls["m"]],
+                       "v": [_digest(torch, x) for x in ls["v"]]}}
+    host_params = {str(i): x.detach().float().cpu().numpy()
+                   for i, x in enumerate(leaves)}
+    del p, st, full, leaves, g, ls
+    return rep, host_params
+
+
+def param_excess(got, ref, start):
+    """Phase 17's bf16 update limit between two runs (flat dicts of host
+    arrays): the worst element's |got - ref| less 2 bf16 ulps of the
+    largest magnitude it takes, over 1/128 of the largest update of
+    `ref` from `start`. Returns (excess, leaf)."""
+    largest = max(float(np.abs(ref[k] - start[k]).max()) for k in ref)
+    worst = (-np.inf, "")
+    for k in ref:
+        mag = np.maximum(np.maximum(np.abs(got[k]), np.abs(ref[k])),
+                         np.abs(start[k]))
+        excess = float((np.abs(got[k] - ref[k]) - 2 * ulp(mag, 7)).max()
+                       / (largest / 128))
+        worst = max(worst, (excess, k))
+    return worst
+
+
+def zero_twin(torch, mesh, width=None, seq=None):
+    """18b's fp32 twin: the flagship in fp32 at ZERO["twin"]'s depth
+    (`width` replaces config fields), ShardedAdam stage 2 over `mesh`
+    against one rank's per-leaf run on a line of one (this rank's
+    device) on the global batch, from one seed-1 tree: both runs'
+    losses, the worst leaf's ratio (``leaf_ratios``) of the params, and
+    of m and v (``leaf_ratios`` from zero: the difference over the
+    reference's norm)."""
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.parallel import ShardedAdam
+    from paddle_tpu_torch.parallel.mesh import DataGroup, Mesh
+
+    o = ZERO["twin"]
+    seq = seq or ZERO["seq"]
+    group = mesh.group
+    over = dict(width or {}, n_layers=o["n_layers"], dtype=o["dtype"])
+    cfg = bench.native_config(o["batch"], seq, remat=True, **over)
+    init = T.init_params(cfg, generator=torch.Generator().manual_seed(1),
+                         device=group.device)
+    start = {str(i): x.cpu().numpy() for i, x in
+             enumerate(T.tree_leaves(init))}
+    tokens, labels = spmd_batch(torch, cfg, o["batch"], seq, group.device,
+                                seed=1)
+    solo = Mesh(DataGroup(None, 0, 1, group.device, group.backend))
+    out = {}
+    for key, m_, kw in (("mesh", mesh, {"zero_stage": 2,
+                                        "bucket_mb": o["bucket_mb"]}),
+                        ("ref", solo, {"bucket_mb": 0})):
+        opt = ShardedAdam(learning_rate=ZERO["lr"], **kw)
+        p = T.tree_map(torch.clone, init)
+        st = opt.init_state(p, m_)
+        step = opt.make_step(m_, lambda q, x, y: T.single_chip_loss(
+            q, x, y, cfg))
+        losses = []
+        for _ in range(o["steps"]):
+            p, st, loss = step(p, st, tokens, labels)
+            losses.append(float(loss))
+        ls = opt.leaf_state(opt.gather_state(st))
+        out[key] = (losses,
+                    {str(i): x.cpu().numpy()
+                     for i, x in enumerate(T.tree_leaves(p))},
+                    {k: {str(i): x.cpu().numpy() for i, x in
+                         enumerate(ls[k])} for k in ("m", "v")})
+    (l_m, p_m, s_m), (l_r, p_r, s_r) = out["mesh"], out["ref"]
+    ratio, leaf = leaf_ratios(p_m, p_r, start)
+    state = max(leaf_ratios(s_m[k], s_r[k], {i: 0 * x for i, x in
+                                             s_r[k].items()}) + (k,)
+                for k in ("m", "v"))
+    return {"losses": l_m, "losses_ref": l_r,
+            "loss_rel_err": max(abs(a - b) / abs(b)
+                                for a, b in zip(l_m, l_r)),
+            "worst_leaf_ratio": ratio, "worst_leaf": leaf,
+            "worst_state_ratio": state[0],
+            "worst_state_leaf": "%s %s" % (state[2], state[1]),
+            "layers": cfg.n_layers, "dtype": o["dtype"],
+            "batch": o["batch"]}
+
+
+def zero_rank_legs(device=None, legs=None, width=None, batch=None,
+                   seq=None, warmup=None, steps=None, bucket_mb=None,
+                   twin=None):
+    """18a (world 1) or 18b (this rank of world > 1): each leg of
+    ZERO_LEGS (or those named in `legs`) on bench.py's native
+    configuration (`width` replaces config fields) from one fp32 tree,
+    on the global batch; single_chip_loss on the same tree and batch
+    first (the plain reference); then the comparisons between the legs
+    on this rank and, at world > 1 (or with `twin`), the fp32 twin.
+    Returns this rank's results."""
+    import torch
+
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.parallel.mesh import Mesh, init_data_group
+
+    group = init_data_group(device)
+    mesh = Mesh(group)
+    dev = group.device
+    batch = batch or ZERO["batch"]
+    seq = seq or ZERO["seq"]
+    warmup = ZERO["warmup"] if warmup is None else warmup
+    steps = steps or ZERO["steps"]
+    cfg = bench.native_config(batch, seq, remat=True, **(width or {}))
+    init = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                         device=dev)
+    start = {str(i): x.cpu().numpy() for i, x in
+             enumerate(T.tree_leaves(init))}
+    tokens, labels = spmd_batch(torch, cfg, batch, seq, dev)
+    with torch.no_grad():
+        ref_loss = float(T.single_chip_loss(init, tokens, labels, cfg))
+    out = {"rank": group.rank, "world": group.world,
+           "backend": group.backend, "device": str(dev),
+           "ref_loss": ref_loss, "legs": {}, "compare": {}}
+    held = {}
+    for name, kw in ZERO_LEGS:
+        if legs is not None and name not in legs:
+            continue
+        rep, params = zero_leg(
+            torch, fa, mesh, name, kw, cfg, init, tokens, labels, warmup,
+            steps, bucket_mb or ZERO["bucket_mb"])
+        out["legs"][name] = rep
+        held[name] = params
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    cmp_ = out["compare"]
+    if "per_leaf" in held and "bucketed" in held:
+        cmp_["per_leaf_excess"] = param_excess(held["per_leaf"],
+                                               held["bucketed"], start)
+        cmp_["per_leaf_ratio"] = leaf_ratios(held["per_leaf"],
+                                             held["bucketed"], start)
+    if "zero2_bf16" in held and "zero2_overlap" in held:
+        a, b = held["zero2_bf16"], held["zero2_overlap"]
+        over = {k: np.abs(a[k] - b[k]) / (ZERO_BF16_ATOL
+                                          + ZERO_BF16_RTOL * np.abs(b[k]))
+                for k in b}
+        cmp_["bf16_excess"] = max((float(x.max()), k)
+                                  for k, x in over.items())
+        cmp_["bf16_outside"] = [int(sum((x > 1).sum() for x in
+                                        over.values())),
+                                int(sum(x.size for x in over.values()))]
+        cmp_["bf16_ratio"] = leaf_ratios(a, b, start)
+    wire = [n for n in ZERO_FP32_WIRE if n in held]
+    cmp_["cross_plan_ratio"] = max(
+        [leaf_ratios(held[a], held[b], start) for a in wire for b in wire
+         if a < b] or [(0.0, "")])
+    del held
+    if twin if twin is not None else group.world > 1:
+        out["twin"] = zero_twin(torch, mesh, width, seq)
+    return out
+
+
+def check_zero_ranks(results, on_card):
+    """18a's and 18b's gates over every rank's results: a list of
+    failures (empty: the phase passed). Each leg: the backend the
+    device's; the losses finite and falling, every rank's the same, the
+    first within SPMD_REF_RTOL of single_chip_loss on the same tree and
+    global batch; the counted ZeRO collectives a step the plan's (per
+    leaf L reduce-scatters and L gathers, bucketed B and B, stage 3 B
+    parameter gathers and B reduce-scatters with no gather-back, one loss
+    all-reduce); m and v 1/world of the plan's padded state (a quarter
+    of world 1's bytes but the pad), stage 3's parameters too; under
+    overlap every bucket issued in segment order and all but the last
+    with backward work still to come; replicated parameters bitwise
+    equal on every rank; on the card K1 12 + 6 "tc" a step, no copy.
+    Across the legs: the fp32-wire bucketed rungs' parameters, m and v
+    bitwise equal where their plans agree (every plan at world 1), and
+    between plans within SPMD_PARAM_RATIO; per-leaf within the bf16
+    update limit of bucketed (phase 17's) at world 1, within
+    SPMD_PARAM_RATIO beyond; at world 1 each leaf of the bf16 wire within
+    SPMD_PARAM_RATIO of its move off the fp32 wire's (ZERO_BF16_ATOL/RTOL
+    elementwise reported; beyond world 1 the ratio is reported only: an
+    element whose ranks' grads nearly cancel changes sign with the
+    wire's rounding); on the card stage 2's peak at most stage 1's (with
+    ZERO_PEAK_SLACK). The
+    twin: losses within SPMD_LOSS_RTOL, params and the twin's m/v within
+    SPMD_PARAM_RATIO of the one-rank per-leaf run's."""
+    bad = []
+    backend = "nccl" if on_card else "gloo"
+    world = results[0]["world"]
+    for r in results:
+        if r["backend"] != backend:
+            bad.append("rank %d: backend %s, not %s" % (r["rank"],
+                                                        r["backend"],
+                                                        backend))
+    for name in results[0]["legs"]:
+        ranks = [r["legs"][name] for r in results]
+        if any(x["losses"] != ranks[0]["losses"] for x in ranks[1:]):
+            bad.append("%s: the ranks' losses differ" % name)
+        if ranks[0]["stage"] < 3 and any(
+                x["digests"]["params"] != ranks[0]["digests"]["params"]
+                for x in ranks[1:]):
+            bad.append("%s: the replicated params differ across the ranks"
+                       % name)
+        for x, r in zip(ranks, results):
+            tag = "%s rank %d" % (name, r["rank"])
+            losses = x["losses"]
+            if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+                bad.append("%s: losses not finite and falling: %r"
+                           % (tag, losses))
+            err = abs(losses[0] - r["ref_loss"]) / abs(r["ref_loss"])
+            if not err <= SPMD_REF_RTOL:
+                bad.append("%s: the first loss %r is %.3g (rel) off "
+                           "single_chip_loss's %r (limit %g)" % (
+                               tag, losses[0], err, r["ref_loss"],
+                               SPMD_REF_RTOL))
+            runs, L, B = x["runs"], x["leaves"], x["buckets"]
+            n = L if B is None else B
+            want = {"zero_reduce_scatter": runs * n,
+                    "zero_gather": 0 if x["stage"] == 3 else runs * n,
+                    "zero_param_gather": runs * n if x["stage"] == 3 else 0,
+                    "zero_loss": runs}
+            if x["counts"] != want:
+                bad.append("%s: ZeRO collectives %r, the plan %r"
+                           % (tag, x["counts"], want))
+            if world * x["state_bytes"] != x["plan_state_bytes"] or (
+                    B is not None and x["plan_state_bytes"]
+                    != x["world1_state_bytes"] + 8 * x["pad_elems"]):
+                bad.append("%s: m and v hold %d bytes a rank, not 1/%d of "
+                           "the plan's %d (world 1: %d)" % (
+                               tag, x["state_bytes"], world,
+                               x["plan_state_bytes"],
+                               x["world1_state_bytes"]))
+            if x["stage"] == 3 and world * x["param_bytes"] != \
+                    x["world1_param_bytes"] + 4 * x["pad_elems"]:
+                bad.append("%s: stage 3 holds %d parameter bytes a rank, "
+                           "not 1/%d of %d" % (tag, x["param_bytes"], world,
+                                               x["world1_param_bytes"]))
+            if x["overlap"]:
+                rec = x["record"]
+                overlapped = sum(h > 0 for h in rec["hooks_after"])
+                if rec["segments"] != list(range(B)) \
+                        or overlapped < B - 1 or not x["records_equal"]:
+                    bad.append("%s: overlap issued %r with %r leaf grads "
+                               "still to come (%d of %d buckets overlapped)"
+                               % (tag, rec["segments"], rec["hooks_after"],
+                                  overlapped, B))
+            if on_card:
+                msg = k1_gate((x["k1_fwd"], x["k1_bwd"], x["k1_copies"]),
+                              x["layers"], 1, 1, x["remat"], "tc", runs)
+                if msg:
+                    bad.append("%s: %s" % (tag, msg))
+    legs = results[0]["legs"]
+    for r in results:
+        wire = [n for n in ZERO_FP32_WIRE if n in r["legs"]]
+        for a in wire:
+            for b in wire:
+                la, lb = r["legs"][a], r["legs"][b]
+                if a < b and (world == 1 or la["plan"] == lb["plan"]) \
+                        and la["digests"] != lb["digests"]:
+                    bad.append("rank %d: the bucketed rungs %s and %s are "
+                               "not bitwise equal" % (r["rank"], a, b))
+        c = r["compare"]
+        if c["cross_plan_ratio"][0] > SPMD_PARAM_RATIO:
+            bad.append("rank %d: leaf %s of two bucket plans is %.3g of its "
+                       "move apart (limit %g)" % (
+                           r["rank"], c["cross_plan_ratio"][1],
+                           c["cross_plan_ratio"][0], SPMD_PARAM_RATIO))
+        if "per_leaf_excess" in c:
+            if world == 1 and not c["per_leaf_excess"][0] <= 1:
+                bad.append("rank %d: per-leaf's leaf %s is %.3g of the bf16 "
+                           "limit off bucketed's" % (
+                               r["rank"], c["per_leaf_excess"][1],
+                               c["per_leaf_excess"][0]))
+            if world > 1 and not c["per_leaf_ratio"][0] <= SPMD_PARAM_RATIO:
+                bad.append("rank %d: per-leaf's leaf %s is %.3g of its move "
+                           "off bucketed's" % (r["rank"],
+                                               c["per_leaf_ratio"][1],
+                                               c["per_leaf_ratio"][0]))
+        if world == 1 and "bf16_ratio" in c \
+                and not c["bf16_ratio"][0] <= SPMD_PARAM_RATIO:
+            bad.append("rank %d: the bf16 wire's leaf %s is %.3g of its "
+                       "move off the fp32 wire's (limit %g)" % (
+                           r["rank"], c["bf16_ratio"][1],
+                           c["bf16_ratio"][0], SPMD_PARAM_RATIO))
+        t = r.get("twin")
+        if t is not None:
+            if not t["loss_rel_err"] <= SPMD_LOSS_RTOL:
+                bad.append("rank %d: the twin's losses %r are %.3g off the "
+                           "one-rank run's %r" % (r["rank"], t["losses"],
+                                                  t["loss_rel_err"],
+                                                  t["losses_ref"]))
+            if not t["worst_leaf_ratio"] <= SPMD_PARAM_RATIO:
+                bad.append("rank %d: the twin's leaf %s is %.3g of its move "
+                           "off the one-rank run's" % (
+                               r["rank"], t["worst_leaf"],
+                               t["worst_leaf_ratio"]))
+            if not t["worst_state_ratio"] <= SPMD_PARAM_RATIO:
+                bad.append("rank %d: the twin's m/v %s is %.3g of its norm "
+                           "off the one-rank run's" % (
+                               r["rank"], t["worst_state_leaf"],
+                               t["worst_state_ratio"]))
+    if on_card and "zero2_overlap" in legs and "bucketed" in legs:
+        for r in results:
+            a = r["legs"]["zero2_overlap"]["peak_gib"]
+            b = r["legs"]["bucketed"]["peak_gib"]
+            if a > b * (1 + ZERO_PEAK_SLACK):
+                bad.append("rank %d: stage 2's peak %.4f GiB is above stage "
+                           "1's %.4f GiB (slack %g)" % (r["rank"], a, b,
+                                                        ZERO_PEAK_SLACK))
+    return bad
+
+
+def zero_rank_main(args):
+    """One rank of 18b (a child of `zero_phase`): one ``phase18_rank``
+    line."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.get("device") == "cpu":
+        torch.set_num_threads(1)
+    out = zero_rank_legs(**args)
+    from paddle_tpu_torch.parallel.mesh import destroy_data_group
+
+    destroy_data_group()
+    print("phase18_rank " + json.dumps(out), flush=True)
+
+
+def zero_lines(tag, results, card):
+    """One `tag` line a leg (every rank's numbers, no digests)."""
+    for name in results[0]["legs"]:
+        ranks = []
+        for r in results:
+            leg = dict(r["legs"][name])
+            leg.pop("digests")
+            ranks.append(leg)
+        print(tag + " " + json.dumps({"leg": name, "world": len(results),
+                                      "card": card, "ranks": ranks}),
+              flush=True)
+
+
+def zero_phase(torch, fa, timeout=900):
+    """Phase 18: K1 checked and timed at 18b's rank shape, 18a (every leg
+    on cuda:0, world 1), 18c (bench.py's bench_zero receipt on cuda:0),
+    then 18b over four ranks when four cards are visible (with fewer,
+    one ``zero_multi`` line saying it needs four). Returns K1's launches
+    on the phase's main paths by kernel row name."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.parallel.mesh import destroy_data_group
+
+    t18 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = card_line()
+    B, H = ZERO["k1_shape"]
+    flash_check(torch, fa, B, H, ZERO["seq"], ZERO["seq"], True,
+                "bfloat16", seed=70, packed=True)
+    flush = torch.empty(50 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    rows = flash_timed_rows(torch, fa, F, flush, "bfloat16", B, 64,
+                            seed=71, H=H, packed=True)
+    del flush
+    print("zero_k1 " + json.dumps({"B": B, "H": H, "card": card,
+                                   "rows": list(rows.values())}), flush=True)
+    launches = {"flash_attention_tc_fwd": 0, "flash_attention_tc_bwd": 0}
+    try:
+        res = zero_rank_legs(device="cuda:0")
+        zero_lines("zero_train", [res], card)
+        print("zero_compare " + json.dumps(dict(
+            res["compare"], ref_loss=res["ref_loss"])), flush=True)
+        bad = check_zero_ranks([res], on_card=True)
+        if bad:
+            fail("18a: " + "; ".join(bad))
+        for leg in res["legs"].values():
+            launches["flash_attention_tc_fwd"] += leg["k1_fwd"]["tc"]
+            launches["flash_attention_tc_bwd"] += leg["k1_bwd"]["tc"]
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        receipt = bench.bench_zero(place="cuda:0")
+        line = bench.zero_line(receipt)
+        print("bench_zero " + json.dumps(line), flush=True)
+        if not (line["zero2_close"] and line["zero3_close"]
+                and line["offload_close"] and line["loss_decreasing"]):
+            fail("18c: bench_zero's rungs are not close to bucketed ZeRO-1 "
+                 "or a loss did not fall: %r" % line)
+    finally:
+        destroy_data_group()
+    cards = torch.cuda.device_count()
+    if cards < ZERO["world"]:
+        print("zero_multi " + json.dumps({
+            "cards": cards, "ran": False,
+            "why": "18b needs four cards (--chips 4): no dp = 4 ZeRO "
+                   "ladder ran"}), flush=True)
+    else:
+        gc.collect()
+        torch.cuda.empty_cache()
+        results = run_ranks(ZERO_RANK_FLAG, "phase18_rank", ZERO["world"],
+                            timeout)
+        zero_lines("zero_multi", results, card)
+        for r in results:
+            print("zero_multi_compare " + json.dumps(dict(
+                r["compare"], rank=r["rank"], ref_loss=r["ref_loss"],
+                twin=r.get("twin"))), flush=True)
+        bad = check_zero_ranks(results, on_card=True)
+        if bad:
+            fail("18b: " + "; ".join(bad))
+        for r in results:
+            for leg in r["legs"].values():
+                launches["flash_attention_tc_fwd"] += leg["k1_fwd"]["tc"]
+                launches["flash_attention_tc_bwd"] += leg["k1_bwd"]["tc"]
+    print("zero_phase " + json.dumps({
+        "cards": cards, "seconds": time.perf_counter() - t18,
+        "k1_launches": launches}), flush=True)
+    return launches
+
+
 def main():
     try:
         import torch
@@ -8901,6 +9527,8 @@ def main():
         flash_rows[name]["launches"] += n
     for name, n in tp_phase(torch, fa_mod, fluid).items():
         flash_rows[name]["launches"] += n
+    for name, n in zero_phase(torch, fa_mod).items():
+        flash_rows[name]["launches"] += n
     kernels = rows + tree_rows + list(flash_rows.values()) + int8_rows
     idle = [(r["name"], r.get("C"), r.get("shape")) for r in kernels
             if not r.get("launches")]
@@ -8927,5 +9555,7 @@ if __name__ == "__main__":
         spmd_rank_main(json.loads(sys.argv[2]))
     elif len(sys.argv) == 3 and sys.argv[1] == TP_RANK_FLAG:
         tp_rank_main(json.loads(sys.argv[2]))
+    elif len(sys.argv) == 3 and sys.argv[1] == ZERO_RANK_FLAG:
+        zero_rank_main(json.loads(sys.argv[2]))
     else:
         main()

@@ -22,10 +22,14 @@ bf16 or fp16 get an fp32 master Parameter each, updated by the optimizer
 and cast back in the same step.
 
 ``BuildStrategy.amp`` (or ``ParallelExecutor(amp=True)``) selects the
-same rewrite for a ``compiler.CompiledProgram``. Not ported: gradient
-bucketing (``plan_buckets`` and the rest: the data-parallel step
-all-reduces each grad as its contribution is written, ROADMAP.md
-Queue 1b).
+same rewrite for a ``compiler.CompiledProgram``.
+
+Gradient bucketing (the JAX package's :602-744): `mb_to_bucket_bytes`,
+`bucket_bytes_from_env` (``PTPU_AMP_BUCKET_MB``), `Bucket`,
+`plan_buckets`, `flatten_bucket` and `unflatten_bucket`, which
+``parallel/zero.py``'s ShardedAdam lays its flat buffers out with. The
+data-parallel step does not bucket yet: it all-reduces each grad as its
+contribution is written (ROADMAP.md Queue 1b).
 """
 
 import hashlib
@@ -39,7 +43,11 @@ from .ir import Pass, register_pass
 from .observability import metrics as _metrics
 
 __all__ = ["AutoMixedPrecisionLists", "AmpConfig", "AmpOptimizer",
-           "decorate", "amp_env_enabled", "active_config"]
+           "decorate", "amp_env_enabled", "active_config",
+           "bucket_bytes_from_env", "mb_to_bucket_bytes", "Bucket",
+           "plan_buckets", "flatten_bucket", "unflatten_bucket"]
+
+_DEFAULT_BUCKET_MB = 4.0
 
 # white list: matmul-class ops whose fp32 inputs are cast to the low
 # precision dtype (their outputs then carry it)
@@ -531,3 +539,158 @@ def decorate(optimizer, amp_lists=None, amp_level="O1", dtype="bfloat16",
                         use_dynamic_loss_scaling, incr_every_n_steps,
                         decr_every_n_nan_or_inf, incr_ratio, decr_ratio,
                         master_weight=master_weight)
+
+
+# ---------------------------------------------------------------------------
+# gradient bucketing (Megatron-LM DDP parity)
+# ---------------------------------------------------------------------------
+
+
+def mb_to_bucket_bytes(mb):
+    """MiB -> bytes under the one shared convention: 0 is the documented
+    off switch (None = bucketing disabled). NaN and negative sizes raise
+    here, at the knob, so a mistyped $PTPU_AMP_BUCKET_MB never reaches
+    plan_buckets as a NaN capacity."""
+    mb = float(mb)
+    if np.isnan(mb) or mb < 0:
+        raise ValueError(
+            "bucket size %r MiB is not a valid capacity (use a positive "
+            "number of MiB, or 0 to disable bucketing)" % (mb,))
+    return int(mb * (1 << 20)) if mb > 0 else None
+
+
+def bucket_bytes_from_env(default_mb=_DEFAULT_BUCKET_MB):
+    """Bucket size in BYTES from $PTPU_AMP_BUCKET_MB (None = bucketing
+    not requested when `default_mb` is None)."""
+    try:
+        mb = _env("PTPU_AMP_BUCKET_MB")
+    except ValueError as exc:
+        raise ValueError(
+            "PTPU_AMP_BUCKET_MB is not a usable bucket size: %s" % (exc,))
+    if mb is not None:
+        try:
+            return mb_to_bucket_bytes(mb)
+        except ValueError as exc:
+            raise ValueError(
+                "PTPU_AMP_BUCKET_MB=%r is not a usable bucket size: %s"
+                % (mb, exc))
+    if default_mb is None:
+        return None
+    return mb_to_bucket_bytes(default_mb)
+
+
+class Bucket:
+    """One flattened same-dtype gradient bucket: leaf indices, their
+    flat sizes and offsets, and the padded total length. `segment` is
+    the bucket's place in the planned issue order: under backward-order
+    planning segment 0 is the bucket whose gradients the backward pass
+    produces FIRST, the first collective the overlap chain may issue."""
+
+    __slots__ = ("indices", "sizes", "offsets", "size", "padded", "dtype",
+                 "segment")
+
+    def __init__(self, dtype):
+        self.indices = []
+        self.sizes = []
+        self.offsets = []
+        self.size = 0
+        self.padded = 0
+        self.dtype = dtype
+        self.segment = None
+
+    def nbytes(self):
+        return self.padded * _dtype_itemsize(self.dtype)
+
+
+def _dtype_itemsize(dtype):
+    import torch
+
+    if isinstance(dtype, torch.dtype):
+        return dtype.itemsize
+    if "bfloat16" in str(dtype):
+        return 2
+    return np.dtype(dtype).itemsize
+
+
+def plan_buckets(leaves, bucket_bytes, pad_multiple=1, dtype=None,
+                 order="forward"):
+    """Group `leaves` (tensors, or anything with .shape and .dtype) into
+    flattened buckets of at most `bucket_bytes` each (a single leaf
+    larger than the cap gets its own bucket), grouped by collective
+    dtype and padded to a multiple of `pad_multiple` elements. `dtype`
+    forces one collective dtype for every bucket (e.g. bf16 gradients);
+    None groups by each leaf's own dtype.
+
+    `order` is the issue order the plan encodes (Bucket.segment):
+    "forward" walks the leaves in tree order; "backward" walks them
+    reversed, so bucket/segment 0 holds the LAST leaves, whose gradients
+    the backward pass produces first: the order the overlap chain issues
+    its collectives in. Records the amp/bucket_bytes gauge and the
+    amp/buckets counter."""
+    bb = float(bucket_bytes) if bucket_bytes is not None else float("nan")
+    if np.isnan(bb) or bb <= 0:
+        raise ValueError(
+            "plan_buckets: bucket_bytes=%r is not a positive capacity "
+            "(check bucket_mb / $PTPU_AMP_BUCKET_MB)" % (bucket_bytes,))
+    if order not in ("forward", "backward"):
+        raise ValueError("plan_buckets: unknown order %r" % (order,))
+    groups = {}
+    out = []
+    walk = (reversed(list(enumerate(leaves))) if order == "backward"
+            else enumerate(leaves))
+    for i, leaf in walk:
+        dt = dtype if dtype is not None else leaf.dtype
+        size = int(np.prod(tuple(leaf.shape), dtype=np.int64))
+        item = _dtype_itemsize(dt)
+        bs = groups.setdefault(str(dt), [])
+        if not bs or (bs[-1].size
+                      and (bs[-1].size + size) * item > bucket_bytes):
+            b = Bucket(dt)
+            bs.append(b)
+            out.append(b)
+        b = bs[-1]
+        b.indices.append(i)
+        b.offsets.append(b.size)
+        b.sizes.append(size)
+        b.size += size
+    for seg, b in enumerate(out):
+        b.segment = seg
+        b.padded = b.size + (-b.size) % max(int(pad_multiple), 1)
+    total = sum(b.nbytes() for b in out)
+    _metrics.gauge("amp/bucket_bytes").set(total)
+    _metrics.counter("amp/buckets").inc(len(out))
+    return out
+
+
+def flatten_bucket(bucket, leaves, dtype=None, device=None):
+    """The bucket's leaves in one padded 1-D tensor in the bucket's
+    collective dtype (`dtype` overrides it, e.g. fp32 for the master
+    parameters sharing a gradient bucket's layout): each leaf written at
+    its offset, cast on the copy, and the pad zeroed. A None leaf (a
+    grad the loss never produced) is written as zeros. `device` defaults
+    to the first present leaf's."""
+    import torch
+
+    present = [leaves[i] for i in bucket.indices if leaves[i] is not None]
+    if device is None:
+        device = present[0].device if present else "cpu"
+    out = torch.empty(bucket.padded, dtype=dtype or bucket.dtype,
+                      device=device)
+    for i, off, sz in zip(bucket.indices, bucket.offsets, bucket.sizes):
+        if leaves[i] is None:
+            out[off:off + sz].zero_()
+        else:
+            out[off:off + sz].copy_(leaves[i].detach().reshape(-1))
+    out[bucket.size:].zero_()
+    return out
+
+
+def unflatten_bucket(bucket, flat, like_leaves):
+    """{leaf index: tensor} re-slicing `flat` back into the bucket's
+    leaves, shaped like (and cast to the dtype of) `like_leaves`: views
+    of `flat` where the dtype already matches."""
+    out = {}
+    for i, off, sz in zip(bucket.indices, bucket.offsets, bucket.sizes):
+        ref = like_leaves[i]
+        out[i] = flat[off:off + sz].view(tuple(ref.shape)).to(ref.dtype)
+    return out

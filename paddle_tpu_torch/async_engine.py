@@ -20,6 +20,11 @@ the host. These pieces keep up to N steps in flight:
                    before the step reads the feed. Batches come back in
                    put() order.
 
+  HostStateStager  host-offloaded optimizer state (``parallel/zero.py``):
+                   the pinned host buffers of m and v copied to the card
+                   on the prefetcher's stream while the backward runs,
+                   and copied back after the update.
+
 Telemetry (the JAX package's names): ``exec/inflight_steps`` (the
 window's depth at each admit), ``exec/window_drains`` and a
 ``window_drain`` span around each drain, ``feed/h2d_bytes`` (bytes the
@@ -28,8 +33,8 @@ staged ahead). The blocking points (a step's event wait, the prefetcher's
 slot and queue waits) are declared to ``analysis.concurrency``, so
 ``PTPU_LOCK_CHECK=1`` flags a tracked lock held across one.
 
-Not ported: `DeferredWarns`, `HostStateStager` and the persistent compile
-cache, which serve the NaN checker, ZeRO offload and XLA.
+Not ported: `DeferredWarns` and the persistent compile cache, which
+serve the NaN checker and XLA.
 """
 
 import queue as _queue
@@ -43,7 +48,8 @@ from .observability import metrics as _metrics
 from .observability import tracing as _tracing
 
 __all__ = ["LazyFetchList", "InflightWindow", "FeedPrefetcher",
-           "StagedFeed", "StepEvent", "as_numpy", "prefetch_iter"]
+           "HostStateStager", "StagedFeed", "StepEvent", "as_numpy",
+           "prefetch_iter"]
 
 
 def _nbytes(vals):
@@ -189,12 +195,15 @@ class FeedPrefetcher:
     staged ahead (put() blocks past that). `take_if_match(feed)` returns
     the head staged batch only when it was built from exactly these
     value objects (identity match), so ``Executor.prefetch(feed)``
-    followed by ``Executor.run(feed=feed)`` picks up the staged copy."""
+    followed by ``Executor.run(feed=feed)`` picks up the staged copy.
+    `stage_fn(prefetcher, feed)`, when given, stages a feed in place of
+    the numpy path (it may copy on the prefetcher's `stream()`)."""
 
     _CLOSE = object()
 
-    def __init__(self, device, depth=2):
+    def __init__(self, device, depth=2, stage_fn=None):
         self.device = torch.device(device)
+        self._stage_fn = stage_fn
         self._in = _queue.Queue()
         self._out = _queue.Queue()
         self._keys = _queue.Queue()
@@ -210,13 +219,20 @@ class FeedPrefetcher:
             t.start()
             self._thread = t
 
+    def stream(self):
+        """The side stream the copies to the card run on (made on first
+        use; None on the CPU)."""
+        if self.device.type == "cuda" and self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        return self._stream
+
     def _stage(self, feed):
         """One feed dict as a StagedFeed. Tensors and 64-bit ints stay
         as given (the executor narrows int64 with its range check);
         other arrays are copied to the device."""
-        cuda = self.device.type == "cuda"
-        if cuda and self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
+        if self._stage_fn is not None:
+            return self._stage_fn(self, feed)
+        cuda = self.stream() is not None
         values, pinned = {}, []
         for name, v in feed.items():
             if isinstance(v, torch.Tensor) or np.asarray(v).dtype in (
@@ -294,6 +310,90 @@ class FeedPrefetcher:
         if self._thread is not None:
             self._in.put(self._CLOSE)
             self._thread.join(timeout=5.0)
+
+
+class HostStateStager:
+    """Host-to-device staging of host-offloaded optimizer state
+    (``parallel/zero.py``): m and v live in host buffers between steps
+    (pinned on the card); each step stages them onto the device for the
+    sharded update and copies the updated shards back.
+
+    The H2D leg rides a FeedPrefetcher: `stage_in_begin` hands the host
+    tensors to its worker, which copies them on the prefetcher's side
+    stream, and returns at once, so the copy runs WHILE the backward
+    dispatched right after it runs; `stage_in_end` collects the device
+    tensors where the update needs them, the compute stream waiting on
+    the copy's event. `stage_out` copies updated device tensors into the
+    host buffers on the compute stream and synchronizes: the step's
+    optimizer-state sync point. Both directions count into the `counter`
+    metric (zero/offload_bytes). On the CPU the device copies are
+    clones."""
+
+    def __init__(self, device, counter="zero/offload_bytes"):
+        self.device = torch.device(device)
+        self._prefetcher = FeedPrefetcher(self.device,
+                                          stage_fn=self._place)
+        self._counter = counter
+        self._pending_n = None
+
+    def _place(self, prefetcher, feed):
+        stream = prefetcher.stream()
+        if stream is None:
+            return StagedFeed({k: t.clone() for k, t in feed.items()})
+        with torch.cuda.stream(stream):
+            values = {k: t.to(self.device, non_blocking=True)
+                      for k, t in feed.items()}
+        event = torch.cuda.Event()
+        event.record(stream)
+        return StagedFeed(values, event, tuple(feed.values()))
+
+    def stage_in_begin(self, tensors):
+        """Queue `tensors` (host tensors) for background placement."""
+        if self._pending_n is not None:
+            raise RuntimeError("stage_in_begin before the previous "
+                               "stage_in_end was collected")
+        self._pending_n = len(tensors)
+        self._prefetcher.put({str(i): t for i, t in enumerate(tensors)})
+
+    def stage_in_end(self):
+        """The staged device tensors, in stage_in_begin order, ready for
+        the device's current stream."""
+        if self._pending_n is None:
+            raise RuntimeError("stage_in_end without stage_in_begin")
+        n, self._pending_n = self._pending_n, None
+        staged = self._prefetcher.get().consume(self.device)
+        vals = [staged[str(i)] for i in range(n)]
+        _metrics.counter(self._counter).inc(_nbytes(vals))
+        return vals
+
+    def abort(self):
+        """Drop a begun but uncollected stage: the recovery of a caller
+        whose compute failed between begin and end. The staged batch is
+        collected and discarded, so the worker's slot frees and the next
+        stage_in_begin starts clean. No-op when nothing is pending."""
+        if self._pending_n is None:
+            return
+        self._pending_n = None
+        try:
+            staged = self._prefetcher.get()
+            if staged.event is not None:
+                staged.event.synchronize()
+        except Exception:
+            pass  # a staging error dies with the aborted step
+
+    def stage_out(self, tensors, hosts):
+        """Copy each device tensor of `tensors` into its host buffer of
+        `hosts` and wait for the copies: the D2H side. Returns
+        `hosts`."""
+        for t, h in zip(tensors, hosts):
+            h.copy_(t, non_blocking=t.device.type == "cuda")
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        _metrics.counter(self._counter).inc(_nbytes(hosts))
+        return hosts
+
+    def close(self):
+        self._prefetcher.close()
 
 
 def prefetch_iter(batches, prefetcher):

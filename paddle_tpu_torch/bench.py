@@ -6,15 +6,16 @@
 leg (`bench_quant_predictor` :1146), its fleet
 and online legs (`bench_serving_fleet` :836, `bench_serving_online`
 :906), its resilience and ingestion legs (`bench_resilience_overhead`
-:250, `bench_data_ingestion` :314), with its `main`'s leg selection
-(:1735-1903).
+:250, `bench_data_ingestion` :314), its ZeRO ladder receipt
+(`bench_zero` :1020), with its `main`'s leg selection (:1735-1903).
 
     python -m paddle_tpu_torch.bench [--steps N] [--warmup N] [--tiny]
                                      [--sync-only] [--amp-only]
                                      [--serving-only] [--spec-only]
                                      [--quant-only] [--fleet-only]
                                      [--online-only] [--resilience]
-                                     [--data-only] [--place cpu]
+                                     [--data-only] [--zero-only]
+                                     [--place cpu]
 
 trains the flagship Fluid-API Transformer LM (vocab 32000, d_model 512, 8
 heads, 6 layers, d_ff 2048, seq 512, batch 160, ``remat=False``) through
@@ -69,7 +70,11 @@ sync cadence, and bench.py's ``step_time_guarded_s``,
 runs only the ingestion pair (records/s through a 2-thread QueueDataset
 onto the card, healthy and with one shard quarantined) and prints
 bench.py's ``data_degraded_throughput_ratio`` line with its
-``records_lost``. ``--tiny`` is bench.py's CI configuration (TINY, host
+``records_lost``. ``--zero-only`` runs only the ZeRO ladder receipt
+(``bench_zero``: one MLP through per-leaf and bucketed ZeRO-1, ZeRO-2
+with overlap, ZeRO-3 and offload on the process's data group, world 1
+unless the fleet's env contract says more) and prints bench.py's
+``zero_overlap_speedup`` line. ``--tiny`` is bench.py's CI configuration (TINY, host
 feeds through the prefetcher); ``--sync-only`` skips the async leg,
 ``--amp-only`` runs only fp32, amp and amp_fp16; ``--serving-only`` the
 serving, fast-path and speculative pairs, ``--spec-only`` the
@@ -100,9 +105,11 @@ __all__ = ["NATIVE_ADAM", "TINY", "bench_data_ingestion",
            "bench_serving_fastpath",
            "bench_serving_fleet", "bench_serving_online",
            "bench_serving_quant", "bench_serving_spec", "bench_transformer",
-           "bench_transformer_fluid", "build_program", "last_leg",
+           "bench_transformer_fluid", "bench_zero", "build_program",
+           "last_leg",
            "last_native", "main", "native_adam", "native_config",
-           "native_grads", "native_state", "native_train_step"]
+           "native_grads", "native_state", "native_train_step",
+           "zero_line"]
 
 # bench_transformer's Adam (bench.py:53)
 NATIVE_ADAM = dict(lr=1e-4, b1=0.9, b2=0.999, eps=1e-8)
@@ -1265,6 +1272,153 @@ def bench_data_ingestion(n_shards=8, records_per_shard=2048, width=32,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def bench_zero(steps=16, warmup=4, repeats=3, depth=4, width=256,
+               batch=64, bucket_mb=0.5, place=None):
+    """bench.py's ZeRO ladder and overlap receipt (:1020-1142) on the
+    process's data group (``init_data_group(place)``: the card unless
+    `place` is "cpu"; world 1 unless the fleet's env contract says
+    more): ONE 4-layer tanh MLP (RandomState(0) weights, batch 64 global)
+    trained through every rung: per-leaf ZeRO-1 (the trajectory
+    anchor), bucketed ZeRO-1 without overlap, ZeRO-2 with overlap,
+    ZeRO-3 (overlap on) and host-offloaded m/v. The legs run
+    INTERLEAVED, `repeats` rounds of `steps` steps after `warmup`, the
+    best round kept per leg, so a load spike hits every leg. Every
+    rung's parameters are held to the bucketed ZeRO-1 leg's (rtol 5e-2,
+    atol 5e-3: the `*_close` flags) and every leg's loss must fall.
+    Returns bench.py's receipt (step times in seconds) and the world."""
+    import torch
+
+    from paddle_tpu_torch.parallel import ShardedAdam
+    from paddle_tpu_torch.parallel.mesh import Mesh, init_data_group
+
+    group = init_data_group(place)
+    mesh = Mesh(group)
+    dev = group.device
+    rng = np.random.RandomState(0)
+    layers = [((rng.normal(size=(width, width)) * 0.05).astype(np.float32),
+               np.zeros((width,), np.float32)) for _ in range(depth)]
+    x = torch.from_numpy(np.asarray(rng.normal(size=(batch, width)),
+                                    np.float32)).to(dev)
+    y = torch.from_numpy(np.asarray(rng.normal(size=(batch, width)),
+                                    np.float32)).to(dev)
+
+    def fresh():
+        # copies: stages 1/2 update the leaves in place
+        return [(torch.tensor(w, device=dev), torch.tensor(b, device=dev))
+                for w, b in layers]
+
+    def loss_fn(p, x, y):
+        h = x
+        for w, b in p:
+            h = torch.tanh(h @ w + b)
+        return ((h - y) ** 2).mean()
+
+    class Leg:
+        def __init__(self, opt):
+            self.opt = opt
+            self.p = fresh()
+            self.st = opt.init_state(self.p, mesh)
+            if opt._plan["stage"] == 3:
+                self.p = opt.shard_params(self.p, mesh)
+            self.step = opt.make_step(mesh, loss_fn)
+            self.losses = []
+            self.times = []
+
+        def run(self, n, timed=True):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                self.p, self.st, loss = self.step(self.p, self.st, x, y)
+            self.losses.append(float(loss))   # the leg's one sync point
+            if timed:
+                self.times.append((time.perf_counter() - t0) / n)
+
+        def params(self):
+            if self.opt._plan["stage"] == 3:
+                return self.opt.gather_params(self.p)
+            return self.p
+
+    kw = dict(learning_rate=1e-3, bucket_mb=bucket_mb)
+    legs = {
+        "zero1_per_leaf": Leg(ShardedAdam(learning_rate=1e-3)),
+        "zero1_bucketed": Leg(ShardedAdam(**kw)),
+        "zero2_overlap": Leg(ShardedAdam(zero_stage=2, overlap=True, **kw)),
+        "zero3": Leg(ShardedAdam(zero_stage=3, overlap=True, **kw)),
+        "zero_offload": Leg(ShardedAdam(offload=True, **kw)),
+    }
+    for leg in legs.values():
+        leg.run(warmup, timed=False)
+    for _ in range(repeats):
+        for leg in legs.values():
+            leg.run(steps)
+
+    def flat(leg):
+        return np.concatenate([a.detach().float().cpu().numpy().ravel()
+                               for pair in leg.params() for a in pair])
+
+    anchor = flat(legs["zero1_bucketed"])
+
+    def close(name):
+        return bool(np.allclose(flat(legs[name]), anchor, rtol=5e-2,
+                                atol=5e-3))
+
+    legs["zero_offload"].step.close()   # release the stager's worker
+    t_no = min(legs["zero1_bucketed"].times)
+    t_ov = min(legs["zero2_overlap"].times)
+    return {
+        "step_time_no_overlap_s": t_no,
+        "step_time_overlap_s": t_ov,
+        "overlap_speedup": t_no / t_ov,
+        "step_time_per_leaf_s": min(legs["zero1_per_leaf"].times),
+        "step_time_zero3_s": min(legs["zero3"].times),
+        "step_time_offload_s": min(legs["zero_offload"].times),
+        "zero2_close": close("zero2_overlap"),
+        "zero3_close": close("zero3"),
+        "offload_close": close("zero_offload"),
+        "losses": {name: leg.losses[-1] for name, leg in legs.items()},
+        "loss_decreasing": all(leg.losses[-1] < leg.losses[0]
+                               for leg in legs.values()),
+        "world": group.world,
+    }
+
+
+def zero_line(res):
+    """bench.py's ``--zero-only`` line from a `bench_zero` receipt, with
+    the receipt's other step times, its losses, the world and the card;
+    sets bench.py's ``bench/zero_*`` gauges (:1642-1680)."""
+    from paddle_tpu_torch.observability import metrics as obs_metrics
+
+    reg = obs_metrics.registry()
+    for key, name in (("step_time_no_overlap_s", "zero_step_time_no_overlap"),
+                      ("step_time_overlap_s", "zero_step_time_overlap"),
+                      ("overlap_speedup", "zero_overlap_speedup"),
+                      ("step_time_per_leaf_s", "zero_step_time_per_leaf"),
+                      ("step_time_zero3_s", "zero_step_time_zero3"),
+                      ("step_time_offload_s", "zero_step_time_offload")):
+        reg.gauge("bench/" + name).set(res[key])
+    for key, name in (("zero2_close", "zero2_close"),
+                      ("zero3_close", "zero3_close"),
+                      ("offload_close", "zero_offload_close"),
+                      ("loss_decreasing", "zero_losses_decreasing")):
+        reg.gauge("bench/" + name).set(1.0 if res[key] else 0.0)
+    for name, loss in res["losses"].items():
+        reg.gauge("bench/%s_last_loss" % name).set(loss)
+    return {
+        "metric": "zero_overlap_speedup",
+        "value": round(res["overlap_speedup"], 4),
+        "unit": "x (non-overlapped / overlapped step time)",
+        "step_time_overlap_s": round(res["step_time_overlap_s"], 6),
+        "step_time_no_overlap_s": round(res["step_time_no_overlap_s"], 6),
+        "step_time_per_leaf_s": round(res["step_time_per_leaf_s"], 6),
+        "step_time_zero3_s": round(res["step_time_zero3_s"], 6),
+        "step_time_offload_s": round(res["step_time_offload_s"], 6),
+        "zero2_close": res["zero2_close"],
+        "zero3_close": res["zero3_close"],
+        "offload_close": res["offload_close"],
+        "loss_decreasing": res["loss_decreasing"],
+        "losses": res["losses"], "world": res["world"],
+        "card": card_line()}
+
+
 def card_line():
     """(name, power limit) of card 0 as nvidia-smi prints them, or None
     where there is no nvidia-smi."""
@@ -1339,6 +1493,10 @@ def main(argv=None):
     ap.add_argument("--data-only", action="store_true",
                     help="run only the streaming-ingestion leg pair "
                          "(healthy vs one-quarantined-shard records/s)")
+    ap.add_argument("--zero-only", action="store_true",
+                    help="run only the ZeRO ladder and overlap receipt "
+                         "(one MLP through every ShardedAdam rung on the "
+                         "process's data group)")
     ap.add_argument("--resilience", action="store_true",
                     help="also measure guarded vs unguarded step time "
                          "(always on under --tiny)")
@@ -1346,6 +1504,10 @@ def main(argv=None):
                     help="device (default: the card; 'cpu' to try it "
                          "without one)")
     args = ap.parse_args(argv)
+    if args.zero_only:
+        result = zero_line(bench_zero(place=args.place))
+        print(json.dumps(result), flush=True)
+        return result
     if args.data_only:
         res = bench_data_ingestion(place=args.place)
         result = {

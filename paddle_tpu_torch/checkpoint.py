@@ -326,7 +326,8 @@ def _restore_step(path, verify=True):
 def _place_like(state, target_state):
     """Restored leaves in ``target_state``'s structure, devices and
     dtypes, matched by key path (renamed or reordered weights fail
-    loudly)."""
+    loudly). A leaf whose target lies in pinned host memory (ZeRO's
+    offloaded m and v) is restored into pinned memory."""
     got = dict(_flatten(state))
     placed = {}
     for key, t in _flatten(target_state):
@@ -341,6 +342,8 @@ def _place_like(state, target_state):
         if isinstance(t, torch.Tensor):
             placed[key] = torch.as_tensor(leaf).to(device=t.device,
                                                    dtype=t.dtype)
+            if t.is_pinned() and not placed[key].is_pinned():
+                placed[key] = placed[key].pin_memory()
         else:
             placed[key] = np.asarray(leaf, dtype=np.asarray(t).dtype)
     if len(placed) != len(got):

@@ -110,6 +110,9 @@ _declare("PTPU_AMP_LEVEL", "str", "O1",
          "AMP level when activated via PTPU_AMP (O1 or O2)")
 _declare("PTPU_AMP_DTYPE", "str", "bfloat16",
          "AMP compute dtype when activated via PTPU_AMP")
+_declare("PTPU_AMP_BUCKET_MB", "float", None,
+         "gradient-bucket size in MiB for coalesced collectives "
+         "(0/unset = per-leaf collectives)")
 _declare("PTPU_QUANT", "bool", False,
          "activate the int8 quant_rewrite pass process-wide")
 _declare("PTPU_QUANT_MODE", "str", "weight_only",
@@ -121,6 +124,14 @@ _declare("PTPU_QUANT_TABLE", "path", None,
 _declare("PTPU_QUANT_BLACKLIST", "str", None,
          "comma-separated var names whose ops are pinned fp32 by the "
          "quant_rewrite pass")
+# -- ZeRO (parallel/zero.py) ------------------------------------------------
+_declare("PTPU_ZERO_STAGE", "int", None,
+         "ZeRO sharding stage for ShardedAdam (1, 2 or 3)")
+_declare("PTPU_ZERO_OVERLAP", "bool", False,
+         "issue per-bucket collectives in backward order (comm/compute "
+         "overlap)")
+_declare("PTPU_ZERO_OFFLOAD", "bool", False,
+         "keep optimizer state in host RAM between steps")
 # -- the serving fleet and online updates ----------------------------------
 _declare("PTPU_SERVE_REPLICAS", "int", 1,
          "ServingRouter engine-replica count (least-loaded dispatch "

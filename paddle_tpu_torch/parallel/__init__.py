@@ -6,8 +6,10 @@ Transformer trainer (``transformer.py``: dp × pp × tp with sequence
 parallelism, the 1F1B pipeline and the expert-parallel switch MoE).
 The planner's tp walk and ZeRO-1 (``ReduceStrategy.Reduce``) run
 through ``CompiledProgram.with_data_parallel`` on the (dp, tp) mesh.
-``zero.py``'s ShardedAdam stages, the Fluid pipeline, ring attention,
-the embedding stack and DGC wait for ROADMAP.md Queue 1 item 9."""
+``zero.py``'s ShardedAdam runs the ZeRO ladder (stages 1-3, bucketed or
+a collective a leaf, comm/compute overlap, host-offloaded state) over
+the data group. The Fluid pipeline, ring attention, the embedding stack
+and DGC wait for ROADMAP.md Queue 1 item 9."""
 
 from . import transformer  # noqa: F401
 from .fleet import (DistributedStrategy, Fleet,  # noqa: F401
@@ -15,7 +17,9 @@ from .fleet import (DistributedStrategy, Fleet,  # noqa: F401
 from .mesh import SPMDMesh, get_mesh, mesh_axis_sizes  # noqa: F401
 from .parallel_executor import ParallelExecutor  # noqa: F401
 from .transformer import SPMDTrainer  # noqa: F401
+from .zero import ShardedAdam, ZeroLayoutError  # noqa: F401
 
 __all__ = ["ParallelExecutor", "get_mesh", "mesh_axis_sizes", "fleet",
            "Fleet", "PaddleCloudRoleMaker", "UserDefinedRoleMaker",
-           "DistributedStrategy", "SPMDMesh", "SPMDTrainer", "transformer"]
+           "DistributedStrategy", "SPMDMesh", "SPMDTrainer", "transformer",
+           "ShardedAdam", "ZeroLayoutError"]

@@ -66,13 +66,31 @@ a mesh line (``mesh.AxisGroup``) and carry the transposes JAX's
 - `send_recv(sends, recvs, group)`: one ``batch_isend_irecv`` (the
   pipeline's two chains), waited on.
 
+``parallel/zero.py``'s ShardedAdam moves flat 1-D buffers over the
+data group, with no backward, each call optionally async (``async_op``:
+the work handle comes back beside the result, None where no
+communication was issued):
+
+- `zero_reduce_scatter(flat, group)`: the SUM over the ranks, this
+  rank's 1/world slice (kind "zero_reduce_scatter"); the caller divides
+  by the world in the wire dtype, as JAX divides after ``psum_scatter``
+  (gloo has no AVG).
+- `zero_all_gather(shard, group, kind)`: every rank's slice in rank
+  order: the gather-back of updated parameter slices ("zero_gather",
+  the kind ZeRO-1's gathers of the Fluid step count under), stage 3's
+  start-of-step parameter gathers ("zero_param_gather") and the host
+  copies of the sharded state ("gather_state").
+- `zero_all_reduce(t, group)`: the loss's SUM over the ranks
+  ("zero_loss").
+
 A line of one rank makes each of them the identity, but each call is
 counted all the same: ``counts[kind]`` and ``counts[kind + "_bytes"]``
 for a call in a forward (a remat recompute's too), ``kind + "_bwd"``
 for one a backward issues, kinds "axis_gather", "reduce_scatter",
-"all_to_all", "psum" and "send_recv"; ``host_seconds[kind]`` the host's
-time inside the call (NCCL returns once the work is queued; gloo once
-it is done).
+"all_to_all", "psum", "send_recv" and the ZeRO kinds above;
+``host_seconds[kind]`` the host's time inside the call (NCCL returns
+once the work is queued; gloo once it is done; an async call once it is
+issued).
 """
 
 import time
@@ -84,13 +102,17 @@ __all__ = ["all_gather", "all_gather_rows", "all_reduce", "all_to_all",
            "counts", "enter_sharded", "enter_tp", "gather_tp",
            "host_seconds", "psum_leaves", "reduce_chooser",
            "reduce_replicated", "reduce_scatter", "reduce_tp",
-           "reset_counts", "send_recv"]
+           "reset_counts", "send_recv", "zero_all_gather",
+           "zero_all_reduce", "zero_reduce_scatter"]
 
 counts = {"all_reduce": 0, "all_reduce_bytes": 0, "all_gather": 0,
           "all_gather_bytes": 0}
 AXIS_KINDS = ("axis_gather", "reduce_scatter", "all_to_all", "psum",
               "send_recv", "enter_tp", "reduce_tp", "gather_tp",
-              "zero_gather", "gather_state")
+              "zero_gather", "gather_state", "zero_reduce_scatter",
+              "zero_param_gather", "zero_loss")
+ZERO_KINDS = ("zero_reduce_scatter", "zero_gather", "zero_param_gather",
+              "zero_loss")
 TP_KINDS = ("enter_tp_bwd", "reduce_tp", "gather_tp", "zero_gather")
 for _kind in AXIS_KINDS:
     for _key in (_kind, _kind + "_bwd"):
@@ -456,3 +478,49 @@ def gather_tp(x, group, dim):
         return _GatherTp.apply(x, group, dim)
     return _gather(x, group, dim, kind="gather_tp")
 
+
+
+# ---------------------------------------------------------------------------
+# ShardedAdam's flat-buffer collectives
+# ---------------------------------------------------------------------------
+
+
+def zero_reduce_scatter(flat, group, async_op=False):
+    """The SUM over `group` of the 1-D `flat` (its length a multiple of
+    the world), this rank's 1/world slice; with `async_op`, (slice, work
+    handle or None)."""
+    flat = flat.detach().contiguous()
+    if group.world == 1:
+        _issue("zero_reduce_scatter", _nbytes(flat), False, lambda: None)
+        return (flat, None) if async_op else flat
+    if flat.numel() % group.world:
+        raise ValueError("zero_reduce_scatter: %d elements do not split "
+                         "over %d ranks" % (flat.numel(), group.world))
+    out = flat.new_empty(flat.numel() // group.world)
+    work = _issue("zero_reduce_scatter", _nbytes(flat), False,
+                  lambda: dist.reduce_scatter_tensor(
+                      out, flat, group=group.pg, async_op=async_op))
+    return (out, work) if async_op else out
+
+
+def zero_all_gather(shard, group, kind="zero_gather", async_op=False):
+    """Every rank's 1-D `shard` of `group`, concatenated in rank order;
+    with `async_op`, (result, work handle or None)."""
+    shard = shard.detach().contiguous()
+    if group.world == 1:
+        _issue(kind, _nbytes(shard), False, lambda: None)
+        return (shard, None) if async_op else shard
+    out = shard.new_empty(shard.numel() * group.world)
+    work = _issue(kind, _nbytes(shard), False,
+                  lambda: dist.all_gather_into_tensor(
+                      out, shard, group=group.pg, async_op=async_op))
+    return (out, work) if async_op else out
+
+
+def zero_all_reduce(t, group):
+    """A new tensor: `t` summed over `group` (the loss's all-reduce)."""
+    out = t.detach().contiguous().clone()
+    _issue("zero_loss", _nbytes(out), False,
+           lambda: None if group.world == 1
+           else dist.all_reduce(out, group=group.pg))
+    return out

@@ -139,3 +139,33 @@ def test_main_prints_bench_py_training_keys(capsys):
                 "amp_speedup_vs_fp32", "amp_fp16_tokens_per_sec"):
         assert out[key] > 0, key
     assert out["legs"][2]["loss_scale"] == 2.0 ** 15
+
+
+def test_main_zero_only_prints_bench_py_zero_line(capsys):
+    """`main(["--zero-only"])` runs bench.py's bench_zero receipt (the
+    MLP through every ShardedAdam rung) on a data group of one CPU rank
+    and prints bench.py's --zero-only keys, every rung close to the
+    bucketed ZeRO-1 leg's parameters and every leg's loss falling; the
+    ``bench/zero_*`` gauges carry the same numbers."""
+    from paddle_tpu_torch.observability import metrics as obs_metrics
+    from paddle_tpu_torch.parallel.mesh import destroy_data_group
+
+    try:
+        pbench.main(["--zero-only", "--place", "cpu"])
+    finally:
+        destroy_data_group()
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["metric"] == "zero_overlap_speedup" and out["world"] == 1
+    for key in ("value", "step_time_overlap_s", "step_time_no_overlap_s",
+                "step_time_per_leaf_s", "step_time_zero3_s",
+                "step_time_offload_s"):
+        assert out[key] > 0, key
+    assert out["zero2_close"] and out["zero3_close"] and out["offload_close"]
+    assert out["loss_decreasing"]
+    assert sorted(out["losses"]) == ["zero1_bucketed", "zero1_per_leaf",
+                                     "zero2_overlap", "zero3",
+                                     "zero_offload"]
+    gauges = obs_metrics.registry().to_dict()["gauges"]
+    assert gauges["bench/zero2_close"] == 1.0
+    assert gauges["bench/zero_step_time_overlap"] == pytest.approx(
+        out["step_time_overlap_s"], abs=1e-6)
