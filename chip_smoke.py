@@ -9361,6 +9361,569 @@ def zero_phase(torch, fa, timeout=900):
     return launches
 
 
+# phase 19: the Fluid pipeline (``parallel/pipeline_program.py``'s 1F1B
+# over the program, ``pipeline_schedule.py``'s tables, P2P on the pp line)
+# through CompiledProgram.with_data_parallel on the (dp, pp, tp) mesh,
+# training bench.py's headline program at full width. 19a (one card): the
+# split, crossings and schedules against PP_TABLE (the JAX package's,
+# pinned by tests/test_torch_pipeline_program.py) and K1 at each leg's
+# microbatch shape; 19b and 19c (four cards, one child a card,
+# ``--phase19-rank``): the legs of PP_LEGS
+PP = dict(batch=160, warmup=3, steps=8, adam_steps=2, tokens=4, world=4)
+# (name, (dp, pp, tp), microbatches, virtual stages, stash, optimizer)
+PP_LEGS = [("pp4", (1, 4, 1), 8, 1, False, "sgd"),
+           ("dp2_pp2", (2, 2, 1), 4, 1, False, "sgd"),
+           ("dp2_pp2_v2_stash", (2, 2, 1), 4, 2, True, "sgd"),
+           ("pp2_tp2_adam", (1, 2, 2), 4, 1, False, "adam")]
+PP_TABLE = os.path.join("tests", "data", "pp_plan_headline.json")
+PP_RANK_FLAG = "--phase19-rank"
+PP_SPLITS = ((4, 1, 20), (2, 1, 20), (2, 2, 20), (2, 1, 40))
+PP_SCHEDULES = ((4, 8, 1), (2, 4, 1), (2, 4, 2))
+PP_COLS = ("fwd_mb", "fwd_chunk", "fwd_read", "fwd_save", "fwd_recv",
+           "bwd_mb", "bwd_chunk", "bwd_read", "cot_read", "cot_recv")
+# limits against Executor.run's step from the same init on the global
+# batch (bf16 ulps at the value): the first loss within 1 ulp of the JAX
+# fetch rule over Executor.run's microbatch losses (the pipelined fetch is
+# the fp32 mean of the M·dp microbatch losses, each as its stage computed
+# it in bf16, cast to bf16), and within 2 ulps of the whole batch's loss
+# (the rule's two roundings); after step 1 each parameter within 2 ulps
+# plus 1/128 of the largest update (phase 17c's limit: SGD's update is
+# under an ulp of most weights, so a grad summed over microbatches in
+# another order may round the other way); under Adam its step-1 update is
+# lr·sign(grad) whatever the grad's size, so a near-zero grad whose sign
+# differs moves the weight 2·lr the other way: 2 ulps plus 2·lr
+PP_LOSS_ULPS, PP_WHOLE_ULPS, PP_PARAM_ULPS = 1, 2, 2
+# the spans of a pipelined step (``pipeline_program.py``)
+PP_SPANS = ("fwd", "bwd", "p2p", "update")
+
+
+def pp_k1_shapes(legs, batch):
+    """K1's [B, H] on each leg of `legs` at full width: a microbatch's
+    rows of a dp line (batch / (dp·M)) and the H/tp heads of a rank."""
+    out = []
+    for _, (dp, _, tp), M, *_ in legs:
+        shape = (batch // (dp * M), 8 // tp)
+        if shape not in out:
+            out.append(shape)
+    return out
+
+
+def pp_strategy(fluid, pp, M, v, stash, tp=1):
+    bs = fluid.BuildStrategy()
+    bs.pipeline_stages = pp
+    bs.pipeline_microbatches = M
+    bs.pipeline_virtual_stages = v
+    bs.pipeline_activation_stash = stash
+    bs.tensor_parallel_degree = tp
+    return bs
+
+
+def pp_table(table=None):
+    """PP_TABLE (the JAX package's split of the headline program at full
+    width at each of PP_SPLITS, its wires probed at a microbatch of that
+    split's rows, and the schedules), or `table` as given."""
+    if table is not None:
+        return table
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, PP_TABLE)) as f:
+        return json.load(f)
+
+
+def pp_wires(step):
+    """{cut: [[name, shape, dtype]]} of the wires the step's run learnt
+    (the cuts this rank sent or received)."""
+    return {str(c): [[n, list(e[0]), str(e[1]).replace("torch.", "")]
+                     for n, e in zip(step.crossing[c], lay) if e is not None]
+            for c, lay in sorted(step._layouts.items())}
+
+
+def pp_layers(step, p):
+    """The layers resident on pp rank p (its stages' attention ops)."""
+    return sum(1 for op, s in zip(step.fwd_ops, step.stage_of)
+               if s % step.pp == p and op.type == "fused_multihead_attention")
+
+
+def pp_plan_check(fluid):
+    """19a's plan: the headline program's stage split, crossing vars and
+    their bytes a microbatch at PP_SPLITS, and the schedules at
+    PP_SCHEDULES, against PP_TABLE. Returns one report a split; fails on
+    a difference."""
+    from paddle_tpu_torch.parallel.pipeline_program import \
+        PipelineProgramStep
+    from paddle_tpu_torch.parallel.pipeline_schedule import build_schedule
+
+    table = pp_table()
+    main, _, loss = build_tp_lm(fluid, TRAIN, "sgd")
+    out = {}
+    feeds = {"labels": (PP["batch"], TRAIN["seq_len"]),
+             "tokens": (PP["batch"], TRAIN["seq_len"])}
+    for pp, v, rows in PP_SPLITS:
+        key = "pp%d_v%d_r%d" % (pp, v, rows)
+        step = PipelineProgramStep(main, feeds, [loss.name],
+                                   {"dp": 1, "pp": pp, "tp": 1},
+                                   pp_strategy(fluid, pp, 4, v, False),
+                                   loss.name)
+        want = table["splits"][key]
+        got = {"stage_of": list(step.stage_of), "crossing": step.crossing}
+        for k in ("stage_of", "crossing"):
+            if got[k] != want[k]:
+                fail("19a: the %s split's %s differs from the JAX "
+                     "package's table" % (key, k))
+        out[key] = {"ops_per_stage": [step.stage_of.count(s)
+                                      for s in range(step.S)],
+                    "layers_per_rank": [pp_layers(step, p)
+                                        for p in range(pp)],
+                    "crossing": step.crossing,
+                    "cut_bytes": want["cut_bytes"]}
+    for pp, M, v in PP_SCHEDULES:
+        key = "%d_%d_%d" % (pp, M, v)
+        s = build_schedule(pp, M, v)
+        got = {"tables": {k: getattr(s, k).tolist() for k in PP_COLS},
+               "stats": s.stats(),
+               "slots": [s.arrive_slots, s.input_slots, s.cot_slots]}
+        if got != table["schedules"][key]:
+            fail("19a: the schedule %s differs from the JAX package's" % key)
+        out["schedule_" + key] = got["stats"]
+    return out
+
+
+def pp_fault(fault):
+    """Plant a known fault in the pipelined step, for the CPU test of
+    the gates: 'seed_once' (each microbatch's backward seeded as if it
+    were the whole batch), 'no_cotangent' (the arrived cotangent
+    dropped) or 'fp32_fetch' (a bf16 scalar fetched as the fp32 mean).
+    Returns the undo."""
+    from paddle_tpu_torch.parallel import pipeline_program as ppm
+
+    cls = ppm.PipelineProgramStep
+    if fault == "seed_once":
+        saved = cls._ctx
+
+        def ctx(self, *a):
+            c = saved(self, *a)
+            c.grad_seed_scale = self._grad_seed_scale
+            return c
+        cls._ctx = ctx
+        return lambda: setattr(cls, "_ctx", saved)
+    if fault == "no_cotangent":
+        saved = cls._backward_unit
+
+        def bwd(self, s, i, keep, cot, *a):
+            if cot is not None:
+                cot = [c.zero_() for c in cot]
+            return saved(self, s, i, keep, cot, *a)
+        cls._backward_unit = bwd
+        return lambda: setattr(cls, "_backward_unit", saved)
+    if fault == "fp32_fetch":
+        import torch
+
+        saved = ppm.torch_dtype
+
+        def keep_fp32(dtype):
+            return torch.float32 if dtype == "bfloat16" else saved(dtype)
+        ppm.torch_dtype = keep_fp32
+        return lambda: setattr(ppm, "torch_dtype", saved)
+    raise ValueError(fault)
+
+
+def pp_param_excess(got, ref, start, params, adam_lr=None):
+    """The worst parameter's difference from the reference step's, over
+    its limit (<= 1 passes): 2 bf16 ulps plus 1/128 of the largest
+    update (SGD) or plus 2·lr (Adam)."""
+    largest = max(float((ref[n].float() - start[n].float()).abs().max())
+                  for n in params)
+    worst, worst_name = -np.inf, None
+    for n in params:
+        a, b = got[n].float().cpu().numpy(), ref[n].float().cpu().numpy()
+        s = start[n].float().cpu().numpy()
+        mag = np.maximum(np.maximum(np.abs(a), np.abs(b)), np.abs(s))
+        slack = 2 * adam_lr if adam_lr else largest / 128
+        excess = float((np.abs(a - b) / (PP_PARAM_ULPS * ulp(mag, 7)
+                                         + slack)).max())
+        if excess > worst:
+            worst, worst_name = excess, n
+    return worst, worst_name, largest
+
+
+def pp_reference(torch, fluid, main, loss, init, feed, dp, M, rows):
+    """Executor.run on this rank's device from `init`: the whole global
+    batch's first loss and its step-1 parameters, and the loss of each
+    of the M·dp microbatches (rows of `rows`, in the pipeline's order)
+    from `init` (the bf16 fetch rule's inputs)."""
+    exe = fluid.Executor(feed["tokens"].device)
+    scope = _restore(fluid, init)
+    whole, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    params = {n: scope.get(n).clone() for n in main.param_grad_map}
+    del scope
+    mbs = []
+    for j in range(dp * M):
+        part = {k: t[j * rows:(j + 1) * rows] for k, t in feed.items()}
+        out, = exe.run(main, feed=part, fetch_list=[loss],
+                       scope=_restore(fluid, init))
+        mbs.append(float(np.asarray(out).ravel()[0]))
+    return float(np.asarray(whole).ravel()[0]), params, mbs
+
+
+def bf16_rule(values):
+    """The pipelined fetch of a bf16 scalar: the fp32 mean of the
+    microbatch values cast to bf16."""
+    import torch
+
+    return float(torch.tensor(float(np.float32(sum(values))
+                                    / np.float32(len(values))),
+                              dtype=torch.float32).to(torch.bfloat16))
+
+
+def pp_rank_legs(device=None, legs=None, cfg=None, batch=None, warmup=None,
+                 steps=None, adam_steps=None, tokens=None, table=None):
+    """19b/19c on this rank: each leg of PP_LEGS (or `legs`) at `cfg`
+    (default TRAIN) on the global batch `batch`: the init drawn by the
+    startup program (the same on every rank), Executor.run's reference
+    step on this rank's device, then the pipelined steps (warm-up, timed
+    with the last one's spans traced for the host's time a unit, then one
+    more under the profiler, whose kernels by span give the card's time
+    in the units, the exchanges and the update) through CompiledProgram, K1's and the collectives' counts zeroed just
+    before them and read just after; the P2P prediction from `table`
+    (default PP_TABLE: the JAX package's wires of the headline program at
+    full width). Returns this rank's results."""
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.compiler import gather_persistables
+    from paddle_tpu_torch.observability import tracing
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.parallel import collective as C
+    from paddle_tpu_torch.parallel.mesh import init_data_group
+
+    g = init_data_group(device)
+    cfg = TRAIN if cfg is None else cfg
+    legs = legs or PP_LEGS
+    batch = batch or PP["batch"]
+    warmup = PP["warmup"] if warmup is None else warmup
+    steps = steps or PP["steps"]
+    adam_steps = adam_steps or PP["adam_steps"]
+    dev = g.device
+    on_card = dev.type == "cuda"
+    out = {"rank": g.rank, "world": g.world, "backend": g.backend,
+           "device": str(dev), "legs": {}}
+    feed = tp_feed(torch, cfg, batch, dev, tokens or PP["tokens"])
+    table = pp_table(table)
+    for name, mesh, M, v, stash, opt in legs:
+        dp, pp, tp = mesh
+        main, startup, loss = build_tp_lm(fluid, cfg, opt)
+        exe = fluid.Executor(dev)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        init = _snapshot(scope)
+        del scope
+        rows = batch // (dp * M)
+        whole, ref_params, mbs = pp_reference(torch, fluid, main, loss,
+                                              init, feed, dp, M, rows)
+        scope = _restore(fluid, init)
+        prog = fluid.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name,
+            build_strategy=pp_strategy(fluid, pp, M, v, stash, tp))
+        timed = adam_steps if opt == "adam" else steps
+        first = 0 if opt == "adam" else warmup
+        runs = first + timed + 1
+        if on_card:
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        fa.reset_counts()                      # main path starts
+        C.reset_counts()
+        losses, t0, wall, host_units = [], None, None, None
+        step1 = None
+        traced = tracing.enabled()
+        for i in range(runs):
+            if i == first:
+                if on_card:
+                    torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+            if i == runs - 2:
+                tracing.enable()
+                n0 = len(tracing.events())
+            if i == runs - 1:
+                if on_card:
+                    torch.cuda.synchronize(dev)
+                wall = time.perf_counter() - t0
+                host_units = pp_span_ms(tracing.events()[n0:])
+                profiler.start_profiler("All")
+            o, = exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+            losses.append(float(np.asarray(o).ravel()[0]))
+            if i == 0:
+                step1 = {n: t.clone() for n, t in gather_persistables(
+                    scope, sorted(ref_params)).items()}
+        if on_card:
+            torch.cuda.synchronize(dev)
+        profiler.stop_profiler()
+        if not traced:
+            tracing.disable()
+        k1 = flash_counts(fa)                  # main path ends
+        counts = dict(C.counts)
+        device_units = pp_device_ms(profiler.kernel_attribution(
+            prefix="pp/"))
+        step = next(iter(prog._compiled_steps.values()))
+        p = step.mesh.axis_index("pp")
+        split = table["splits"]["pp%d_v%d_r%d" % (pp, v, rows)]
+        cuts = {c: tuple(b) for c, b in enumerate(split["cut_bytes"])}
+        excess, worst, largest = pp_param_excess(
+            step1, ref_params, init, sorted(ref_params),
+            TP_ADAM_LR if opt == "adam" else None)
+        sched = step.schedule.stats()
+        rep = {"name": name, "mesh": list(mesh), "M": M, "v": v,
+               "stash": stash, "optimizer": opt, "runs": runs,
+               "losses": losses, "ref_loss": whole, "mb_losses": mbs,
+               "rule_loss": bf16_rule(mbs),
+               "ms_per_step": wall * 1e3 / timed,
+               "tokens_per_s": feed["tokens"].numel() * timed / wall,
+               "bubble_fraction": sched["bubble_fraction"],
+               "ticks": sched["ticks"],
+               "units": dict(step.units),
+               "host_ms_last_timed": host_units,
+               "host_ms_per_unit": {k: host_units[k] / n for k, n in
+                                    step.units.items() if n},
+               "device_ms": device_units,
+               "k1_fwd": k1[0], "k1_bwd": k1[1], "k1_copies": k1[2],
+               "layers": pp_layers(step, p),
+               # a forward op runs twice a microbatch without the stash
+               "k1_units": [1 if stash else 2, 1],
+               "coords": [step.mesh.axis_index("dp"), p,
+                          step.mesh.axis_index("tp")],
+               "pp_fwd_bytes": counts["pp_fwd_bytes"],
+               "pp_bwd_bytes": counts["pp_bwd_bytes"],
+               "expected_p2p": list(step.expected_p2p(cuts)),
+               "table_wires": {str(c): w for c, w in
+                               enumerate(split["wire"])},
+               "wires": pp_wires(step),
+               "param_excess_over_limit": excess, "param_worst": worst,
+               "largest_update": largest,
+               "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                            if on_card else None)}
+        rep["digests"] = {n: _digest(torch, scope.get(n))
+                          for n in sorted(ref_params)}
+        out["legs"][name] = rep
+        del scope, prog, step, init, ref_params, step1
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    return out
+
+
+def pp_span_ms(events):
+    """{span: host ms} of a pipelined step's "pp/" spans in `events`
+    (``observability.tracing``'s), each of PP_SPANS."""
+    out = dict.fromkeys(PP_SPANS, 0.0)
+    for e in events:
+        name = e["name"]
+        if name.startswith("pp/") and name[3:] in out:
+            out[name[3:]] += e["dur"] / 1e3
+    return out
+
+
+def pp_device_ms(records):
+    """{span: the card's kernel ms} of a profiled pipelined step: its
+    kernels (``profiler.kernel_attribution(prefix="pp/")``'s records) by
+    the span around their launch, "outside" those outside every span
+    (empty: no kernel was traced, as on the CPU)."""
+    if not records:
+        return {}
+    out = dict.fromkeys(PP_SPANS + ("outside",), 0.0)
+    for r in records:
+        out[r["op"] if r["op"] in out else "outside"] += r["us"] / 1e3
+    return out
+
+
+def _ulps_apart(a, b):
+    return abs(a - b) / float(ulp(np.float32(max(abs(a), abs(b))), 7))
+
+
+def check_pp_ranks(results, on_card):
+    """19b/19c's gates over every rank's results: a list of failures
+    (empty: the phase passed). Each leg: the backend the device's; the
+    losses finite and every rank's the same; the first loss a bf16 value
+    (the loss var's declared dtype), within PP_LOSS_ULPS bf16 ulps of the
+    JAX fetch rule over Executor.run's microbatch losses and within
+    PP_WHOLE_ULPS of the whole batch's; the
+    parameters after step 1 within the limit of Executor.run's step;
+    each parameter bitwise equal on every rank holding the same tp
+    block; each rank's counted pp_fwd / pp_bwd bytes its stages' cuts ×
+    M × the runs, the cuts' bytes the JAX step's wires' (each var's shape
+    and dtype as the JAX step probes it: the table), the wires the run
+    learnt equal to them; on the card K1 by the "tc" route, layers resident × M × 2 (1
+    with the stash) forward and × M backward a run, no operand
+    copied."""
+    bad = []
+    backend = "nccl" if on_card else "gloo"
+    for r in results:
+        if r["backend"] != backend:
+            bad.append("rank %d: backend %s, not %s" % (
+                r["rank"], r["backend"], backend))
+    for name in results[0]["legs"]:
+        ranks = [r["legs"][name] for r in results]
+        if any(x["losses"] != ranks[0]["losses"] for x in ranks[1:]):
+            bad.append("%s: the ranks' losses differ" % name)
+        for n in ranks[0]["digests"]:
+            groups = {}
+            for x in ranks:
+                groups.setdefault(x["coords"][2], set()).add(x["digests"][n])
+            if any(len(d) > 1 for d in groups.values()):
+                bad.append("%s: %r differs across the ranks holding its "
+                           "block" % (name, n))
+        for x, rank in zip(ranks, (r["rank"] for r in results)):
+            tag = "%s rank %d" % (name, rank)
+            losses = x["losses"]
+            if not np.isfinite(losses).all():
+                bad.append("%s: losses not finite: %r" % (tag, losses))
+            if bf16_rule([losses[0]]) != losses[0]:
+                bad.append("%s: the first loss %r is not a bf16 value: the "
+                           "fetch is the loss var's declared dtype" % (
+                               tag, losses[0]))
+            ul = _ulps_apart(losses[0], x["rule_loss"])
+            if not ul <= PP_LOSS_ULPS:
+                bad.append("%s: the first loss %r is %.3g bf16 ulps off the "
+                           "fetch rule's %r over Executor.run's microbatch "
+                           "losses (limit %d)" % (tag, losses[0], ul,
+                                                  x["rule_loss"],
+                                                  PP_LOSS_ULPS))
+            ul = _ulps_apart(losses[0], x["ref_loss"])
+            if not ul <= PP_WHOLE_ULPS:
+                bad.append("%s: the first loss %r is %.3g bf16 ulps off "
+                           "Executor.run's %r (limit %d)" % (
+                               tag, losses[0], ul, x["ref_loss"],
+                               PP_WHOLE_ULPS))
+            if not x["param_excess_over_limit"] <= 1:
+                bad.append("%s: %r after step 1 is %.3g of its limit off "
+                           "Executor.run's step" % (
+                               tag, x["param_worst"],
+                               x["param_excess_over_limit"]))
+            runs = x["runs"]
+            want = [runs * b for b in x["expected_p2p"]]
+            if [x["pp_fwd_bytes"], x["pp_bwd_bytes"]] != want:
+                bad.append("%s: P2P bytes %r, predicted %r" % (
+                    tag, [x["pp_fwd_bytes"], x["pp_bwd_bytes"]], want))
+            wires = x["wires"]
+            if not wires or any(wires[c] != x["table_wires"].get(c)
+                                for c in wires):
+                bad.append("%s: the wires %r are not the JAX step's %r"
+                           % (tag, wires, x["table_wires"]))
+            M, v = x["M"], x["v"]
+            if x["units"] != {"fwd": M * v, "bwd": M * v}:
+                bad.append("%s: ran units %r, not %d each way" % (
+                    tag, x["units"], M * v))
+            if on_card:
+                fwd_units, bwd_units = x["k1_units"]
+                nf = x["layers"] * M * fwd_units * runs
+                nb = x["layers"] * M * bwd_units * runs
+                got = (x["k1_fwd"].get("tc", 0), x["k1_bwd"].get("tc", 0),
+                       sum(x["k1_fwd"].values()) + sum(x["k1_bwd"].values()),
+                       x["k1_copies"])
+                if got != (nf, nb, nf + nb, 0):
+                    bad.append("%s: K1 %r / %r, %d copies; expected %d "
+                               "\"tc\" forward, %d backward, no copy" % (
+                                   tag, x["k1_fwd"], x["k1_bwd"],
+                                   x["k1_copies"], nf, nb))
+    return bad
+
+
+def pp_summary(name, ranks, card):
+    """A leg's step as the slowest rank's: ms a step, tokens/s of the
+    global batch, the schedule's bubble beside each rank's kernel time
+    (one profiled step) in forward units, backward units, P2P and the
+    update, its host ms a unit and its peak."""
+    slow = max(ranks, key=lambda x: x["ms_per_step"])
+    return {"leg": name, "card": card, "ms_per_step": slow["ms_per_step"],
+            "tokens_per_s": slow["tokens_per_s"],
+            "bubble_fraction": slow["bubble_fraction"],
+            "ranks": [{"rank": x["rank"], "coords": x["coords"],
+                       "layers": x["layers"], "device_ms": x["device_ms"],
+                       # the kernel time's share out of the units: P2P
+                       # waits, the grad sum and the update
+                       "out_of_units": pp_out_of_units(x["device_ms"]),
+                       "host_ms_per_unit": x["host_ms_per_unit"],
+                       "peak_gib": x["peak_gib"]} for x in ranks]}
+
+
+def pp_out_of_units(device_ms):
+    """The share of a profiled step's kernel time in its "pp/p2p" and
+    "pp/update" spans (None: no kernel was traced)."""
+    total = sum(device_ms.values())
+    if not total:
+        return None
+    return (device_ms["p2p"] + device_ms["update"]) / total
+
+
+def pp_rank_main(args):
+    """One rank of 19b/19c (a child of `pp_phase`; `args`
+    `pp_rank_legs`'s keywords): one ``phase19_rank`` line."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.get("device") == "cpu":
+        torch.set_num_threads(1)
+    out = pp_rank_legs(**args)
+    from paddle_tpu_torch.parallel.mesh import destroy_data_group
+
+    destroy_data_group()
+    print("phase19_rank " + json.dumps(out), flush=True)
+
+
+def pp_phase(torch, fa, fluid, timeout=900):
+    """Phase 19: 19a on cuda:0 (the split, crossings and schedules
+    against PP_TABLE; K1 checked and timed at each leg's microbatch
+    shape, ``pp_k1_shapes``), then
+    19b and 19c over four ranks when four cards are visible (with fewer,
+    one ``pp_multi`` line saying they need four). Returns K1's launches
+    on the phase's main paths by kernel row name."""
+    import torch.nn.functional as F
+
+    t19 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = card_line()
+    plans = pp_plan_check(fluid)
+    print("pp_plan " + json.dumps(dict(plans, card=card)), flush=True)
+    flush = torch.empty(50 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    for i, (B, H) in enumerate(pp_k1_shapes(PP_LEGS, PP["batch"])):
+        rows = flash_timed_rows(torch, fa, F, flush, "bfloat16", B, 64,
+                                seed=70 + i, H=H)
+        print("pp_k1 " + json.dumps({"B": B, "H": H, "card": card,
+                                     "rows": list(rows.values())}),
+              flush=True)
+    del flush
+    launches = {"flash_attention_tc_fwd": 0, "flash_attention_tc_bwd": 0}
+    cards = torch.cuda.device_count()
+    if cards < PP["world"]:
+        print("pp_multi " + json.dumps({
+            "cards": cards, "ran": False,
+            "why": "19b and 19c need four cards (--chips 4): no (dp, pp, "
+                   "tp) mesh ran"}), flush=True)
+    else:
+        gc.collect()
+        torch.cuda.empty_cache()
+        results = run_ranks(PP_RANK_FLAG, "phase19_rank", PP["world"],
+                            timeout)
+        for name in results[0]["legs"]:
+            ranks = [dict(r["legs"][name], rank=r["rank"]) for r in results]
+            print("pp_multi " + json.dumps({
+                "leg": name, "world": PP["world"], "card": card,
+                "ranks": ranks}), flush=True)
+            print("pp_summary " + json.dumps(pp_summary(name, ranks, card)),
+                  flush=True)
+        bad = check_pp_ranks(results, on_card=True)
+        if bad:
+            fail("19: " + "; ".join(bad))
+        for r in results:
+            for leg in r["legs"].values():
+                launches["flash_attention_tc_fwd"] += leg["k1_fwd"]["tc"]
+                launches["flash_attention_tc_bwd"] += leg["k1_bwd"]["tc"]
+    print("pp_phase " + json.dumps({
+        "cards": cards, "seconds": time.perf_counter() - t19,
+        "k1_launches": launches}), flush=True)
+    return launches
+
+
 def main():
     try:
         import torch
@@ -9529,6 +10092,8 @@ def main():
         flash_rows[name]["launches"] += n
     for name, n in zero_phase(torch, fa_mod).items():
         flash_rows[name]["launches"] += n
+    for name, n in pp_phase(torch, fa_mod, fluid).items():
+        flash_rows[name]["launches"] += n
     kernels = rows + tree_rows + list(flash_rows.values()) + int8_rows
     idle = [(r["name"], r.get("C"), r.get("shape")) for r in kernels
             if not r.get("launches")]
@@ -9557,5 +10122,7 @@ if __name__ == "__main__":
         tp_rank_main(json.loads(sys.argv[2]))
     elif len(sys.argv) == 3 and sys.argv[1] == ZERO_RANK_FLAG:
         zero_rank_main(json.loads(sys.argv[2]))
+    elif len(sys.argv) == 3 and sys.argv[1] == PP_RANK_FLAG:
+        pp_rank_main(json.loads(sys.argv[2]))
     else:
         main()

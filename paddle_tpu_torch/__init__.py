@@ -104,7 +104,8 @@ from .dataset_api import (DatasetFactory, InMemoryDataset,  # noqa: F401
                           QueueDataset)
 from .executor import Executor  # noqa: F401
 from .framework import (Program, Variable, default_main_program,  # noqa: F401
-                        default_startup_program, program_guard)
+                        default_startup_program, pipeline_stage,
+                        program_guard)
 from .param_attr import ParamAttr  # noqa: F401
 from .parallel import ParallelExecutor  # noqa: F401
 from .reader import batch  # noqa: F401
@@ -121,6 +122,6 @@ __all__ = ["BuildStrategy", "CompiledProgram", "DataFeedDesc", "DataFeeder",
            "default_main_program", "default_startup_program", "flags",
            "global_scope", "incubate", "inference", "initializer", "io",
            "ir", "layers", "nets", "observability", "optimizer",
-           "parallel", "profiler", "program_guard", "quant", "reader", "recordio_writer",
+           "parallel", "pipeline_stage", "profiler", "program_guard", "quant", "reader", "recordio_writer",
            "regularizer", "resilience", "scope_guard", "transpiler",
            "unique_name"]

@@ -53,14 +53,20 @@ The planner's model parallelism runs on a (dp, tp) mesh
 - a fetched tp-sharded var is all-gathered over tp, a batch-sharded
   one also over dp.
 
-``pipeline_stages`` and ``sequence_parallel_degree`` above 1 raise: the
-JAX package runs them through modules the port does not have yet
-(ROADMAP.md Queue 1 item 9).
+``pipeline_stages = pp`` above 1 runs the program's 1F1B pipeline
+(``parallel/pipeline_program.py``) on the (dp, pp, tp) mesh
+(``parallel/mesh.fluid_mesh``: rank = (d·pp + p)·tp + t), composed with
+tensor parallelism and ZeRO-1; its step runs the program unoptimized, as
+the JAX package's does (fused ops would change the stage split), and its
+compile key carries no pass-pipeline key.
+``sequence_parallel_degree`` above 1 raises: the JAX package runs it
+through a module the port does not have yet (ROADMAP.md Queue 1 item 9).
 
-The data-parallel run carries the executor's telemetry (``step_scope``,
-the ``optimize`` / ``lower`` / ``compile`` / ``execute`` spans,
-``compile_cache/hit|miss``, ``executor/feed_bytes|fetch_bytes``); the
-other runs go through ``Executor.run``, which carries it.
+The data-parallel and pipelined runs carry the executor's telemetry
+(``step_scope``, the ``optimize`` / ``lower`` / ``compile`` /
+``execute`` spans, ``compile_cache/hit|miss``,
+``executor/feed_bytes|fetch_bytes``); the other runs go through
+``Executor.run``, which carries it.
 """
 
 import numpy as np
@@ -75,7 +81,8 @@ from .observability import metrics as _metrics
 from .observability import tracing as _tracing
 
 __all__ = ["BuildStrategy", "CompiledProgram", "ExecutionStrategy",
-           "classify_persistable_state", "gather_persistables",
+           "classify_persistable_state", "cut_to_layout",
+           "gather_persistables",
            "grad_seed_scale_of", "normalize_feed_value",
            "read_persistable_state"]
 
@@ -121,9 +128,10 @@ class BuildStrategy:
         self.sync_batch_norm = False
         self.num_trainers = 1
         self.trainer_id = 0
-        # the JAX package's extensions: the (dp, tp) mesh and the
-        # planner's specs; pipeline_stages and sequence_parallel_degree
-        # above 1 raise, naming ROADMAP.md Queue 1 item 9
+        # the JAX package's extensions: the (dp, pp, tp) mesh, the
+        # planner's specs and the pipeline's knobs
+        # (parallel/pipeline_program.py); sequence_parallel_degree above
+        # 1 raises, naming ROADMAP.md Queue 1 item 9
         self.tensor_parallel_degree = 1
         self.sharding_specs = {}
         self.pipeline_stages = 1
@@ -139,7 +147,7 @@ class BuildStrategy:
 
 def check_build_strategy(bs):
     """Raise on the knobs whose modules the port does not have yet."""
-    for knob in ("pipeline_stages", "sequence_parallel_degree"):
+    for knob in ("sequence_parallel_degree",):
         if int(getattr(bs, knob, 1) or 1) > 1:
             raise NotImplementedError(
                 "BuildStrategy.%s = %s is not ported %s"
@@ -240,11 +248,12 @@ class CompiledProgram:
                                 return_numpy=return_numpy)
         check_build_strategy(self._build_strategy)
         group = init_data_group(executor.device)
-        tp_group = None
+        tp_group = mesh = None
         tp = int(getattr(self._build_strategy, "tensor_parallel_degree", 1)
                  or 1)
-        if tp > 1:
-            mesh = fluid_mesh(tp, executor.device)
+        pp = int(getattr(self._build_strategy, "pipeline_stages", 1) or 1)
+        if tp > 1 or pp > 1:
+            mesh = fluid_mesh(tp, executor.device, pp)
             group, tp_group = mesh.group("dp"), mesh.group("tp")
         if executor.device != group.device:
             raise RuntimeError(
@@ -255,10 +264,12 @@ class CompiledProgram:
         block = self._program.global_block()
         feed = {k: normalize_feed_value(block, k, v)
                 for k, v in (feed or {}).items()}
+        # a pipelined step runs the program unoptimized: its key carries
+        # no pass-pipeline key
         key = (self._program.version, _feed_signature(feed),
                tuple(fetch_names),
                ir_passes.pipeline_key(self._build_strategy, self._program,
-                                      self._infer_opt))
+                                      self._infer_opt) if pp == 1 else ())
         keep = ()
         if executor._prefetcher is not None:
             staged = executor._prefetcher.take_if_match(feed)
@@ -273,7 +284,7 @@ class CompiledProgram:
                 if rec:
                     _metrics.counter("compile_cache/miss").inc()
                 run_program = self._program
-                if ir_passes.pipeline_enabled():
+                if pp == 1 and ir_passes.pipeline_enabled():
                     with _tracing.span("optimize"):
                         run_program = ir_passes.optimize_for_execution(
                             self._program, fetch_names, scope,
@@ -281,11 +292,21 @@ class CompiledProgram:
                             build_strategy=self._build_strategy,
                             infer_opt=self._infer_opt)
                 with _tracing.span("lower"):
-                    step = _DataParallelStep(
-                        run_program,
-                        {k: tuple(np.shape(v)) for k, v in feed.items()},
-                        fetch_names, group, self._build_strategy,
-                        tp_group)
+                    if pp > 1:
+                        from .parallel.pipeline_program import \
+                            PipelineProgramStep
+
+                        step = PipelineProgramStep(
+                            run_program,
+                            {k: tuple(np.shape(v)) for k, v in feed.items()},
+                            fetch_names, mesh, self._build_strategy,
+                            self._loss_name)
+                    else:
+                        step = _DataParallelStep(
+                            run_program,
+                            {k: tuple(np.shape(v)) for k, v in feed.items()},
+                            fetch_names, group, self._build_strategy,
+                            tp_group)
                 self._compiled_steps[key] = step
             elif rec:
                 _metrics.counter("compile_cache/hit").inc()
@@ -379,44 +400,48 @@ class _DataParallelStep(_Step):
 
     def _check_held(self, held):
         """Refuse a scope holding shards this step reads whole (another
-        step's layout); the shards of this step's layout `_cut` checks."""
+        step's layout); the shards of this step's layout `cut_to_layout`
+        checks."""
         mine = set(self.layout) | self.zero
         super()._check_held({n: h for n, h in held.items()
                              if n not in mine})
 
     def run(self, scope, feed, device):
         if self.layout or self.zero:
-            self._cut(scope)
+            cut_to_layout(scope, self.block, self.layout, self.zero,
+                          self.group, self.tp_group)
         return super().run(scope, feed, device)
 
-    def _cut(self, scope):
-        """Cut each sharded persistable the scope holds whole into this
-        rank's shard (its tp block, then its dp rows of ZeRO-1 state)."""
-        from .ops.dp import rows
-        from .parallel.collective import local_part
 
-        shards = _shards(scope)
-        for name in sorted(set(self.layout) | self.zero):
-            t = scope.get(name)
-            v = self.block._find_var_recursive(name)
-            if t is None or v is None:
+def cut_to_layout(scope, block, layout, zero, group, tp_group):
+    """Cut each sharded persistable the scope holds whole into this
+    rank's shard (its tp block of `layout`'s dim over `tp_group`, then
+    its `group` rows of the ZeRO-1 state `zero`)."""
+    from .ops.dp import rows
+    from .parallel.collective import local_part
+
+    shards = _shards(scope)
+    for name in sorted(set(layout) | zero):
+        t = scope.get(name)
+        v = block._find_var_recursive(name)
+        if t is None or v is None:
+            continue
+        d = layout.get(name)
+        want = (d, name in zero, group, tp_group)
+        whole = tuple(v.shape)
+        if tuple(t.shape) != whole:
+            if shards.get(name) == want:
                 continue
-            d = self.layout.get(name)
-            want = (d, name in self.zero, self.group, self.tp_group)
-            whole = tuple(v.shape)
-            if tuple(t.shape) != whole:
-                if shards.get(name) == want:
-                    continue
-                raise RuntimeError(
-                    "the scope's %r has shape %s: neither the whole %s "
-                    "nor this step's shard of it (held as %r)"
-                    % (name, tuple(t.shape), whole, shards.get(name)))
-            if d is not None:
-                t = local_part(t, self.tp_group, d)
-            if name in self.zero:
-                t = rows(t, self.group)
-            scope.set(name, t.contiguous().clone())
-            shards[name] = want
+            raise RuntimeError(
+                "the scope's %r has shape %s: neither the whole %s "
+                "nor this step's shard of it (held as %r)"
+                % (name, tuple(t.shape), whole, shards.get(name)))
+        if d is not None:
+            t = local_part(t, tp_group, d)
+        if name in zero:
+            t = rows(t, group)
+        scope.set(name, t.contiguous().clone())
+        shards[name] = want
 
 
 def _shards(scope):

@@ -116,15 +116,22 @@ class LoweringContext:
         # tensor parallelism: the tp line and {id(op): ops.tp.TpOp}
         self.tp = None
         self.tp_ops = {}
+        # the pipeline's microbatch stream (parallel/pipeline_program.py:
+        # dp rank * microbatches + microbatch), mixed into the generators
+        # so each microbatch draws its own masks; None outside it
+        self.stream = None
 
     def generator(self, attrs):
         """A torch.Generator for one stateful op: seeded from the
-        program's random_seed, the step counter and the op's seed, so
-        runs repeat and steps differ."""
+        program's random_seed, the step counter, the op's seed and the
+        pipeline's microbatch stream, so runs repeat and steps (and
+        microbatches) differ."""
         op_seed = attrs.get("__op_seed__")
         if op_seed is None:
             op_seed = attrs.get("seed", 0) or 0
         mixed = (self.seed * 1000003 + self.step) * 1000003 + int(op_seed)
+        if self.stream is not None:
+            mixed = mixed * 1000003 + self.stream
         gen = torch.Generator(device=self.device)
         gen.manual_seed(mixed & 0x7FFFFFFFFFFFFFFF)
         return gen

@@ -168,6 +168,19 @@ def check_feed_int64(name, value, dtype):
                          % name)
 
 
+def feed_tensor(block, name, value, device):
+    """Feed `name`'s value on `device` in its var's declared dtype (an
+    int64 one checked against an int32 var's range)."""
+    v = block._find_var_recursive(name)
+    t = value if isinstance(value, torch.Tensor) \
+        else torch.from_numpy(np.ascontiguousarray(value))
+    if v is not None and v.shape is not None:
+        want = framework.torch_dtype(v.dtype)
+        check_feed_int64(name, t, want)
+        t = t.to(device=device, dtype=want)
+    return t.to(device)
+
+
 def run_step(step, fresh, scope, feed, device):
     """One run of a step plan inside the ``execute`` span; a plan's
     first run (`fresh`: where its one-time costs and, with metrics on,
@@ -224,16 +237,6 @@ class _Step:
         for name, i in last.items():
             self.free_after.setdefault(i, []).append(name)
 
-    def _feed_tensor(self, name, value, device):
-        v = self.block._find_var_recursive(name)
-        t = value if isinstance(value, torch.Tensor) \
-            else torch.from_numpy(np.ascontiguousarray(value))
-        if v is not None and v.shape is not None:
-            want = framework.torch_dtype(v.dtype)
-            check_feed_int64(name, t, want)
-            t = t.to(device=device, dtype=want)
-        return t.to(device)
-
     def _local_feed(self, name, value):
         return value
 
@@ -268,8 +271,8 @@ class _Step:
         for name in self.copied:
             env[name] = env[name].clone()
         for name in self.feed_names:
-            env[name] = self._feed_tensor(
-                name, self._local_feed(name, feed[name]), device)
+            env[name] = feed_tensor(
+                self.block, name, self._local_feed(name, feed[name]), device)
         step = int(scope.get("__step_counter__", 0) or 0)
         ctx = LoweringContext(device, self.program.random_seed or 0, step,
                               self.recorded)

@@ -23,7 +23,7 @@ from . import unique_name
 __all__ = [
     "Program", "Block", "Operator", "Variable", "Parameter",
     "default_startup_program", "default_main_program", "program_guard",
-    "grad_var_name", "convert_dtype", "torch_dtype",
+    "grad_var_name", "convert_dtype", "torch_dtype", "pipeline_stage",
 ]
 
 GRAD_VAR_SUFFIX = "@GRAD"
@@ -267,6 +267,10 @@ class Block:
         return op
 
     def append_op(self, type, inputs=None, outputs=None, attrs=None):
+        attrs = dict(attrs or {})
+        if _current_pipeline_stage[0] is not None \
+                and "__pipeline_stage__" not in attrs:
+            attrs["__pipeline_stage__"] = _current_pipeline_stage[0]
         return self._add_op(len(self.ops), type, inputs, outputs, attrs)
 
     def prepend_op(self, type, inputs=None, outputs=None, attrs=None):
@@ -474,3 +478,26 @@ def program_guard(main_program, startup_program=None):
         switch_main_program(prev_main)
         if prev_startup is not None:
             switch_startup_program(prev_startup)
+
+
+_current_pipeline_stage = [None]
+
+
+@contextlib.contextmanager
+def pipeline_stage(idx):
+    """Stamp the ops appended in this scope with pipeline stage `idx`
+    (``__pipeline_stage__``; an op keeps a stamp it already has), which
+    ``BuildStrategy.pipeline_stages`` reads (``parallel/pipeline_program
+    .py``). Stages must be non-decreasing in program order:
+
+        with fluid.pipeline_stage(0):
+            h = embed_and_first_layers(tokens)
+        with fluid.pipeline_stage(1):
+            loss = rest_of_model(h, labels)
+    """
+    prev = _current_pipeline_stage[0]
+    _current_pipeline_stage[0] = int(idx)
+    try:
+        yield
+    finally:
+        _current_pipeline_stage[0] = prev

@@ -63,8 +63,12 @@ a mesh line (``mesh.AxisGroup``) and carry the transposes JAX's
   backward the same exchange of the cotangent.
 - `psum_leaves(tensors, group)`: sums with no backward (the per-leaf
   grad sums, the loss), the leaves in one bucket.
-- `send_recv(sends, recvs, group)`: one ``batch_isend_irecv`` (the
-  pipeline's two chains), waited on.
+- `send_recv(sends, recvs, group, kind)`: one ``batch_isend_irecv``
+  (the pipeline's two chains), waited on; the Fluid pipeline
+  (``pipeline_program.py``) counts its exchanges under "pp_p2p" (their
+  bytes split by tag into "pp_fwd_bytes" for activations and
+  "pp_bwd_bytes" for cotangents) and its one-time wire layouts under
+  "pp_layout".
 
 ``parallel/zero.py``'s ShardedAdam moves flat 1-D buffers over the
 data group, with no backward, each call optionally async (``async_op``:
@@ -87,7 +91,9 @@ A line of one rank makes each of them the identity, but each call is
 counted all the same: ``counts[kind]`` and ``counts[kind + "_bytes"]``
 for a call in a forward (a remat recompute's too), ``kind + "_bwd"``
 for one a backward issues, kinds "axis_gather", "reduce_scatter",
-"all_to_all", "psum", "send_recv" and the ZeRO kinds above;
+"all_to_all", "psum", "send_recv", the pipeline's and the ZeRO kinds
+above (and ``counts[tag]`` / ``counts[tag + "_bytes"]`` for the byte
+tags of PP_TAGS, which have no host seconds of their own);
 ``host_seconds[kind]`` the host's time inside the call (NCCL returns
 once the work is queued; gloo once it is done; an async call once it is
 issued).
@@ -108,12 +114,17 @@ __all__ = ["all_gather", "all_gather_rows", "all_reduce", "all_to_all",
 counts = {"all_reduce": 0, "all_reduce_bytes": 0, "all_gather": 0,
           "all_gather_bytes": 0}
 AXIS_KINDS = ("axis_gather", "reduce_scatter", "all_to_all", "psum",
-              "send_recv", "enter_tp", "reduce_tp", "gather_tp",
+              "send_recv", "pp_p2p", "pp_layout", "enter_tp",
+              "reduce_tp", "gather_tp",
               "zero_gather", "gather_state", "zero_reduce_scatter",
               "zero_param_gather", "zero_loss")
 ZERO_KINDS = ("zero_reduce_scatter", "zero_gather", "zero_param_gather",
               "zero_loss")
 TP_KINDS = ("enter_tp_bwd", "reduce_tp", "gather_tp", "zero_gather")
+# byte tags of a send_recv call's sends (the pipeline's two directions)
+PP_TAGS = ("pp_fwd", "pp_bwd")
+for _tag in PP_TAGS:
+    counts[_tag] = counts[_tag + "_bytes"] = 0
 for _kind in AXIS_KINDS:
     for _key in (_kind, _kind + "_bwd"):
         counts[_key] = counts[_key + "_bytes"] = 0
@@ -383,14 +394,18 @@ def psum_leaves(tensors, group):
         flat.split([t.numel() for t in tensors]), tensors)]
 
 
-def send_recv(sends, recvs, group):
+def send_recv(sends, recvs, group, kind="send_recv"):
     """One ``batch_isend_irecv`` of (tensor, global peer rank) sends and
     (buffer, global peer rank) receives, waited on; nothing (and no
-    count) when both are empty."""
+    count) when both are empty. The call is counted once under `kind`,
+    with all the bytes sent and its host seconds; a send given as
+    (tensor, peer, tag) adds its bytes to ``counts[tag + "_bytes"]`` too,
+    and the call to ``counts[tag]`` once for each tag it carries."""
     if not sends and not recvs:
         return
+    sends = [s if len(s) == 3 else (s[0], s[1], None) for s in sends]
     ops = ([dist.P2POp(dist.isend, t.contiguous(), peer, group.pg)
-            for t, peer in sends]
+            for t, peer, _ in sends]
            + [dist.P2POp(dist.irecv, buf, peer, group.pg)
               for buf, peer in recvs])
 
@@ -398,7 +413,14 @@ def send_recv(sends, recvs, group):
         for req in dist.batch_isend_irecv(ops):
             req.wait()
 
-    _issue("send_recv", sum(_nbytes(t) for t, _ in sends), False, run)
+    by_tag = {}
+    for t, _, tag in sends:
+        if tag is not None:
+            by_tag[tag] = by_tag.get(tag, 0) + _nbytes(t)
+    for tag, nbytes in by_tag.items():
+        counts[tag] += 1
+        counts[tag + "_bytes"] += nbytes
+    _issue(kind, sum(_nbytes(t) for t, _, _ in sends), False, run)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@ JAX package's ``parallel/mesh.py``: `get_mesh`, `default_mesh`,
 `set_default_mesh`, `mesh_axis_sizes`; the ``Mesh(devices.reshape(dp,
 pp, tp), ("dp", "pp", "tp"))`` of ``parallel/transformer.py``'s
 ``SPMDTrainer``, `SPMDMesh` here; and ``compiler.py``'s
-``devices.reshape(n // tp, tp)`` with axes ("dp", "tp"), `fluid_mesh`).
+``devices.reshape(dp, pp, tp)`` with axes ("dp", "pp", "tp"),
+`fluid_mesh`).
 
 The JAX package lays every device of its one process on a ``dp`` mesh
 axis. The port runs one process a rank: rank, world size and the
@@ -64,16 +65,15 @@ class Mesh:
     path (``ParallelExecutor``, ``CompiledProgram``, the fleet):
     `axis_names` ("dp",), `shape` {"dp": world}, `devices` (this rank's),
     `group`. The SPMD trainer's (dp, pp, tp) mesh is `SPMDMesh`; the Fluid
-    step's (dp, tp) mesh, `fluid_mesh`."""
+    step's (dp, pp, tp) mesh, `fluid_mesh`."""
 
     def __init__(self, group, axis_names=("dp",)):
         if tuple(axis_names) != ("dp",):
             raise NotImplementedError(
                 "mesh axes %r: the Fluid data-parallel mesh has the data "
-                "axis only (the Fluid pipeline waits for ROADMAP.md Queue 1 "
-                "item 9); the Fluid step's (dp, tp) mesh is "
-                "parallel.mesh.fluid_mesh, the SPMD trainer's (dp, pp, tp) "
-                "mesh parallel.mesh.SPMDMesh" % (tuple(axis_names),))
+                "axis only; the Fluid step's (dp, pp, tp) mesh is "
+                "parallel.mesh.fluid_mesh, the SPMD trainer's "
+                "parallel.mesh.SPMDMesh" % (tuple(axis_names),))
         self.group = group
         self.axis_names = ("dp",)
         self.shape = {"dp": group.world}
@@ -370,22 +370,31 @@ class SPMDMesh:
             self.mesh_shape + (self.rank, self.device))
 
 
-def fluid_mesh(tp, device=None):
-    """The Fluid step's (dp, tp) mesh under ``tensor_parallel_degree =
-    tp``: an `SPMDMesh` of shape (world // tp, 1, tp) over the data
-    group, so rank = d·tp + t as in the JAX package's
-    ``devices.reshape(n // tp, tp)`` with axes ("dp", "tp"), and its
-    groups come up in `group_plan`'s one order. Its "dp" line carries
-    the batch's collectives, its "tp" line the tensor-parallel region's.
-    One mesh a shape a process, brought up on first use (every rank of
-    the world must ask for it: ``new_group`` is collective)."""
+def fluid_mesh(tp, device=None, pp=1):
+    """The Fluid step's (dp, pp, tp) mesh under ``tensor_parallel_degree
+    = tp`` and ``pipeline_stages = pp``: an `SPMDMesh` of shape (world //
+    (pp·tp), pp, tp) over the data group, so rank = (d·pp + p)·tp + t as
+    in the JAX package's ``devices.reshape(dp, pp, tp)`` with axes ("dp",
+    "pp", "tp") (``compiler.py``'s ``_get_mesh``), and its groups come up
+    in `group_plan`'s one order. Its "dp" line carries the batch's
+    collectives, its "tp" line the tensor-parallel region's, its "pp"
+    line the pipeline's sends and receives and, with pp > 1, its ("dp",
+    "pp") union the pipelined step's grad sums. One mesh a shape a
+    process, brought up on first use (every rank of the world must ask
+    for it: ``new_group`` is collective). A world that pp·tp does not
+    divide raises as the JAX package's does."""
     g = init_data_group(device)
-    if tp < 1 or g.world % tp:
+    degrees = [(k, d) for k, d in (("pipeline_stages", pp),
+                                   ("tensor_parallel_degree", tp))
+               if d > 1]
+    if tp < 1 or pp < 1 or g.world % (pp * tp):
         raise ValueError(
-            "tensor_parallel_degree = %d does not divide the %d-rank world"
-            % (tp, g.world))
-    shape = (g.world // tp, 1, tp)
+            "%s = %s does not divide the %d-device mesh" % (
+                " * ".join(k for k, _ in degrees),
+                " * ".join(str(d) for _, d in degrees), g.world))
+    shape = (g.world // (pp * tp), pp, tp)
     m = _fluid_meshes.get(shape)
     if m is None:
-        m = _fluid_meshes[shape] = SPMDMesh(shape, g.device)
+        unions = [("dp", "pp")] if pp > 1 else ()
+        m = _fluid_meshes[shape] = SPMDMesh(shape, g.device, unions)
     return m

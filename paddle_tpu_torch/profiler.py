@@ -349,9 +349,9 @@ def _launch_of(launches, start):
     return min(launches, key=lambda la: la[0], default=None)
 
 
-def _attribute(events):
+def _attribute(events, prefix="fluid/"):
     """([{"kernel", "op", "us"}], {op: range count}) for a trace's
-    events: each CUDA kernel given the innermost ``fluid/`` range around
+    events: each CUDA kernel given the innermost `prefix` range around
     its launch (the launching thread first, then any host thread; None
     when no range holds it). A kernel is placed by the host op that
     launched it (the kernel's, else its runtime call's "External id"),
@@ -369,9 +369,9 @@ def _attribute(events):
             ts = float(ev["ts"])
             if args.get("External id"):
                 hosts[args["External id"]] = (where, ts)
-            if cat == "user_annotation" and name.startswith("fluid/"):
+            if cat == "user_annotation" and name.startswith(prefix):
                 ranges.setdefault(where, []).append(
-                    (ts, ts + float(ev.get("dur", 0)), name[len("fluid/"):]))
+                    (ts, ts + float(ev.get("dur", 0)), name[len(prefix):]))
         elif cat in _LAUNCH_CATS and "correlation" in args:
             launches.setdefault(args["correlation"], []).append(
                 (float(ev["ts"]), args.get("External id"), where))
@@ -399,10 +399,13 @@ def _attribute(events):
     return out, calls
 
 
-def kernel_attribution(trace=None):
+def kernel_attribution(trace=None, prefix="fluid/"):
     """Every CUDA kernel of `trace` (see ``device_op_profile``) as
-    {"kernel": name, "op": Fluid op identity or None, "us": duration}."""
-    return _attribute(trace_events(trace))[0]
+    {"kernel": name, "op": Fluid op identity or None, "us": duration};
+    with another `prefix` (a span family such as "pp/"), "op" is the
+    innermost range of that family around the kernel's launch, less the
+    prefix."""
+    return _attribute(trace_events(trace), prefix)[0]
 
 
 def device_op_profile(trace=None, top=None):

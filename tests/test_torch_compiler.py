@@ -258,13 +258,15 @@ def test_with_inference_optimize_without_data_parallel():
     ("sequence_parallel_degree", 2), ("reduce_strategy", 1),
     ("sharding_specs", {"fc_0.w_0": (None, "tp")})])
 def test_unported_knobs_raise_naming_item_9(knob, value):
-    """pipeline_stages and sequence_parallel_degree raise, naming item 9;
-    tensor_parallel_degree, ReduceStrategy.Reduce and sharding_specs are
-    ported (tests/test_torch_tensor_parallel.py) and pass the check."""
+    """sequence_parallel_degree raises, naming item 9;
+    tensor_parallel_degree, ReduceStrategy.Reduce, sharding_specs
+    (tests/test_torch_tensor_parallel.py) and pipeline_stages
+    (tests/test_torch_pipeline_program.py) are ported and pass the
+    check."""
     bs = pcompiler.BuildStrategy()
     setattr(bs, knob, value)
     if knob in ("tensor_parallel_degree", "reduce_strategy",
-                "sharding_specs"):
+                "sharding_specs", "pipeline_stages"):
         pcompiler.check_build_strategy(bs)
         return
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):

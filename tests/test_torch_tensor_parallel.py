@@ -391,14 +391,21 @@ def test_counted_collectives_equal_the_plan(world, strategy, build_kw):
 
 
 def test_pipeline_and_sequence_parallel_raise_naming_item_9():
-    """(e) pipeline_stages and sequence_parallel_degree above 1."""
+    """(e) sequence_parallel_degree above 1, alone or with
+    pipeline_stages (which alone is ported:
+    tests/test_torch_pipeline_program.py)."""
     from paddle_tpu_torch.compiler import BuildStrategy, check_build_strategy
 
-    for knob in ("pipeline_stages", "sequence_parallel_degree"):
+    for knobs in ({"sequence_parallel_degree": 2},
+                  {"sequence_parallel_degree": 2, "pipeline_stages": 2}):
         bs = BuildStrategy()
-        setattr(bs, knob, 2)
+        for knob, value in knobs.items():
+            setattr(bs, knob, value)
         with pytest.raises(NotImplementedError, match="item 9"):
             check_build_strategy(bs)
+    bs = BuildStrategy()
+    bs.pipeline_stages = 2
+    check_build_strategy(bs)
     bs = BuildStrategy()
     bs.tensor_parallel_degree = 2
     bs.reduce_strategy = BuildStrategy.ReduceStrategy.Reduce
